@@ -67,13 +67,15 @@ def find_nvcc() -> str:
 
 
 def build(compiler: str, sources: Sequence[Path], flags: Sequence[str],
-          name: str) -> BuildResult:
+          name: str, headers: Sequence[Path] = ()) -> BuildResult:
     """Compile ``sources`` into ``BUILD_DIR/lib<name>-<hash>.so``, or return
-    the cached library. Raises :class:`BuildError` on failure."""
+    the cached library. ``headers`` are the files the sources include: they
+    enter the hash, not the command line. Raises :class:`BuildError` on
+    failure."""
     h = hashlib.sha256()
     h.update(compiler.encode())
     h.update("\0".join(flags).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         h.update(Path(src).read_bytes())
     target = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if target.exists():

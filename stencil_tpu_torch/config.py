@@ -45,7 +45,7 @@ class RunConfig:
 
     # execution
     methods: Tuple[str, ...] = DEFAULT_METHODS  # (-m)
-    block: Optional[int] = None          # tiled: pins the d0 tile extent
+    block: Optional[int] = None          # tiled/slab: pins the d0 tile extent
     temporal: int = 1                    # sweeps per kernel launch (k)
     device: str = "cuda"                 # torch device; no CPU fallback
 
@@ -167,10 +167,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("-m", "--methods", type=str, nargs="+",
                    default=list(DEFAULT_METHODS),
-                   help="methods to run: eager, tiled, or the JAX package's "
-                        "names xla, pallas, pallas_temporal, pallas_tiled")
+                   help="methods to run: eager, tiled (3D), slab (2D), or "
+                        "the JAX package's names xla, pallas, "
+                        "pallas_temporal, pallas_tiled")
     p.add_argument("-b", "--block", type=int, default=None,
-                   help="tiled: pin the d0 tile extent; default auto")
+                   help="tiled/slab: pin the d0 tile extent (rows per "
+                        "tile); default auto")
     p.add_argument("-k", "--temporal", type=int, default=1,
                    help="temporal blocking depth (sweeps per kernel launch)")
     p.add_argument("--device", type=str, default="cuda",

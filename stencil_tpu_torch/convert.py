@@ -7,6 +7,10 @@ and compares what they compute. Nothing here imports JAX.
   spec_from_arrays(spec.name, spec.offsets, spec.weights, spec.radius)
   grid_from_arrays(np.asarray(grid.data), grid.halo, grid.bc.values,
                    grid.bc.periodic, grid.bc.neumann, device="cpu")
+  poisson_from_arrays(prob.shape, prob.h, prob.bc.values, prob.bc.periodic,
+                      prob.bc.neumann, prob.dtype, device="cpu")
+
+A source ``f`` goes across as the numpy array it is.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid, check_device
 from stencil_tpu_torch.core.spec import StencilSpec
+from stencil_tpu_torch.models.poisson import PoissonProblem
 
 
 def spec_from_arrays(name: str, offsets, weights,
@@ -38,10 +43,26 @@ def grid_from_arrays(data, halo: int, bc_values,
                      device="cuda") -> HaloGrid:
     """A ``HaloGrid`` holding a copy of the padded array ``data`` (halo
     ring included, as the JAX grid holds it) on ``device``."""
-    bc = DirichletBC(
-        values=tuple((float(lo), float(hi)) for lo, hi in bc_values),
+    bc = bc_from_arrays(bc_values, periodic, neumann)
+    tensor = torch.tensor(np.asarray(data), device=check_device(device))
+    return HaloGrid(data=tensor, halo=int(halo), bc=bc)
+
+
+def bc_from_arrays(values, periodic: Sequence[bool] = (),
+                   neumann: Sequence[bool] = ()) -> DirichletBC:
+    """A ``DirichletBC`` with these face values and dynamic dims."""
+    return DirichletBC(
+        values=tuple((float(lo), float(hi)) for lo, hi in values),
         periodic=tuple(bool(p) for p in periodic),
         neumann=tuple(bool(n) for n in neumann),
     )
-    tensor = torch.tensor(np.asarray(data), device=check_device(device))
-    return HaloGrid(data=tensor, halo=int(halo), bc=bc)
+
+
+def poisson_from_arrays(shape, h, bc_values, periodic: Sequence[bool] = (),
+                        neumann: Sequence[bool] = (), dtype="float32",
+                        device="cuda") -> PoissonProblem:
+    """The ``PoissonProblem`` of this shape, spacing and walls, on
+    ``device``."""
+    return PoissonProblem(shape=tuple(int(n) for n in shape), h=float(h),
+                          bc=bc_from_arrays(bc_values, periodic, neumann),
+                          dtype=str(dtype), device=str(device))

@@ -83,6 +83,10 @@ class DirichletBC:
         vals = [(0.0, 0.0)] * (ndim - 1) + [(1.0, 1.0)]
         return DirichletBC(values=tuple(vals))
 
+    @staticmethod
+    def zero(ndim: int) -> "DirichletBC":
+        return DirichletBC(values=tuple([(0.0, 0.0)] * ndim))
+
     def with_periodic(self, dims) -> "DirichletBC":
         """This BC with the given dims made periodic."""
         ndim = len(self.values)

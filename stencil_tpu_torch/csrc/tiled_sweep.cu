@@ -2,16 +2,20 @@
 // fp32 grid, in one launch. Hand-written for Hopper (sm_90a).
 //
 // Replaces stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep (the Pallas
-// TPU kernel, pallas_call at :1821) in its homogeneous mode, with every
-// Dirichlet face pinned (pins all ones). Wrapper and plain PyTorch version:
-// stencil_tpu_torch/ops/tiled_kernel.py.
+// TPU kernel, pallas_call at :1821) in its homogeneous mode and in its
+// source mode (has_source, the affine sweep u' = S(u) + src behind Poisson
+// relaxation), with every Dirichlet face pinned (pins all ones). Wrapper
+// and plain PyTorch version: stencil_tpu_torch/ops/tiled_kernel.py.
 //
 // What it computes. `in` and `out` are padded (n0+2H, n1+2H, n2+2H) fp32
 // arrays whose H >= k*r ghost layers hold the Dirichlet face values. `out`
 // receives k sweeps of the stencil applied to `in`, interior points only;
 // ghost cells of `out` are never written (the caller keeps them equal to
 // those of `in`). Holding the ghosts constant between sweeps is what the
-// TPU kernel's re-pinning of the ghost bands does.
+// TPU kernel's re-pinning of the ghost bands does. With a source, every
+// interior update of every sweep adds the padded source at its point
+// (one fp32 add after the taps, as the TPU kernel adds it at :1326-1335),
+// read through the read-only cache; ghosts copy along without it.
 //
 // How. One block per 3D output tile of (t0, t1, t2) points. It loads the
 // tile's window, the tile grown by k*r on every side, into shared memory,
@@ -27,13 +31,11 @@
 // :732-745). It overlaps its neighbour; both compute the overlap from the
 // same input with the same arithmetic and write identical values.
 //
-// Taps: a table in StencilSpec.weight_groups order, passed by value. Each
-// group is summed first, then multiplied once by its weight; a
-// uniform-weight spec multiplies once at the end. With -fmad=false and the
-// explicit _rn intrinsics the rounding is step for step that of the eager
-// torch version (ops/eager.py), so the two agree bitwise. The tap counts of
-// the named 3D specs (6, 12, 26) get an unrolled evaluator with the offsets
-// in registers; any other count up to kMaxTaps reads the table in a loop.
+// Taps: a table in StencilSpec.weight_groups order, passed by value and
+// evaluated by stencil_taps.cuh, bitwise as the eager torch version
+// (ops/eager.py) rounds. The tap counts of the named 3D specs (6, 12, 26)
+// get an unrolled evaluator with the offsets in registers; any other count
+// up to stencil::kMaxTaps reads the table in a loop.
 //
 // Bound. Temporal blocking exists to cut HBM bytes: one launch reads the
 // padded array once (plus the windows' overlap, mostly from L2) and writes
@@ -51,9 +53,13 @@
 
 #include <cstdint>
 
+#include "stencil_taps.cuh"
+
 namespace {
 
-constexpr int kMaxTaps = 128;
+using stencil::Evaluator;
+using stencil::Taps;
+
 constexpr int kBlockX = 32;   // threads along d2 (contiguous)
 constexpr int kBlockY = 16;   // threads along the flattened (d0, d1) rows
 constexpr int kThreads = kBlockX * kBlockY;
@@ -61,16 +67,6 @@ constexpr int kGeomLen = 15;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
 constexpr int kErrArgument = -1;
 constexpr int kErrShared = -2;
-
-struct Taps {
-  int ngroups;
-  int uniform;                    // 1: one weight, applied once at the end
-  float uniform_weight;
-  uint32_t group_starts;          // bit t: tap t opens a group (t < 32)
-  int group_end[kMaxTaps];        // exclusive end of each group in off[]
-  float group_weight[kMaxTaps];
-  int off[kMaxTaps];              // tap offsets, flattened in the window
-};
 
 struct Geometry {
   int n0, n1, n2;   // interior extents
@@ -82,66 +78,18 @@ struct Geometry {
   int w0, w1, w2;   // window extents, t + 2*k*r
 };
 
-__device__ __forceinline__ float close_group(float acc, float gacc, int g,
-                                             const Taps& taps) {
-  const float term =
-      taps.uniform ? gacc : __fmul_rn(gacc, taps.group_weight[g]);
-  return g == 0 ? term : __fadd_rn(acc, term);
-}
-
-// Any tap count: the table is read in a loop.
-__device__ __forceinline__ float apply_taps(const float* __restrict__ s,
-                                            int p, const Taps& taps) {
-  float acc = 0.0f;
-  int t = 0;
-  for (int g = 0; g < taps.ngroups; ++g) {
-    const int end = taps.group_end[g];
-    float gacc = s[p + taps.off[t++]];
-#pragma unroll 4
-    for (; t < end; ++t) gacc = __fadd_rn(gacc, s[p + taps.off[t]]);
-    acc = close_group(acc, gacc, g, taps);
-  }
-  return taps.uniform ? __fmul_rn(acc, taps.uniform_weight) : acc;
-}
-
-// NT taps, offsets in registers: fully unrolled, so all NT shared loads
-// can be in flight before the adds, which still run in tap order.
-template <int NT>
-__device__ __forceinline__ float apply_fixed(const float* __restrict__ s,
-                                             int p, const int (&off)[NT],
-                                             const Taps& taps) {
-  float v[NT];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) v[t] = s[p + off[t]];
-  float acc = 0.0f;
-  float gacc = v[0];
-  int g = 0;
-#pragma unroll
-  for (int t = 1; t < NT; ++t) {
-    if ((taps.group_starts >> t) & 1u) {
-      acc = close_group(acc, gacc, g++, taps);
-      gacc = v[t];
-    } else {
-      gacc = __fadd_rn(gacc, v[t]);
-    }
-  }
-  acc = close_group(acc, gacc, g, taps);
-  return taps.uniform ? __fmul_rn(acc, taps.uniform_weight) : acc;
-}
-
-// NT > 0: a spec of exactly NT taps; NT == 0: any spec.
-template <int NT>
+// NT > 0: a spec of exactly NT taps; NT == 0: any spec. SRC: every
+// interior update adds the padded source `source` at its point.
+template <int NT, bool SRC>
 __global__ void __launch_bounds__(kThreads)
 tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
-                   const Geometry g, const __grid_constant__ Taps taps) {
+                   const float* __restrict__ source, const Geometry g,
+                   const __grid_constant__ Taps taps) {
   extern __shared__ float smem[];
   const int wvol = g.w0 * g.w1 * g.w2;
-  float* src = smem;
-  float* dst = smem + wvol;  // exists only when k > 1
-
-  int off[NT > 0 ? NT : 1];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) off[t] = taps.off[t];
+  float* cur = smem;
+  float* nxt = smem + wvol;  // exists only when k > 1
+  const Evaluator<NT> stencil_at(taps);
 
   int b = blockIdx.x;
   const int i2 = b % g.nt2;
@@ -169,7 +117,7 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
     int a = tid / (g.w2 * g.w1);
 #pragma unroll 4
     for (int i = tid; i < wvol; i += kThreads) {
-      src[i] = in[((int64_t)(o0 + a) * g.p1 + (o1 + c1)) * g.p2 + o2 + c];
+      cur[i] = in[((int64_t)(o0 + a) * g.p1 + (o1 + c1)) * g.p2 + o2 + c];
       c += sc;
       int carry = c >= g.w2;
       c -= carry ? g.w2 : 0;
@@ -200,24 +148,20 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
       const int wa = a + e, wc1 = c1 + e;
       const bool inner = wa >= lo0 && wa < hi0 && wc1 >= lo1 && wc1 < hi1;
       const int base = (wa * g.w1 + wc1) * g.w2;
-      float* grow =
-          out + ((int64_t)(o0 + wa) * g.p1 + (o1 + wc1)) * g.p2 + o2;
+      const int64_t grow = ((int64_t)(o0 + wa) * g.p1 + (o1 + wc1)) * g.p2 + o2;
       for (int c = threadIdx.x + e; c < g.w2 - e; c += kBlockX) {
         const int p = base + c;
         float v;
         if (inner && c >= lo2 && c < hi2) {
-          if constexpr (NT > 0) {
-            v = apply_fixed<NT>(src, p, off, taps);
-          } else {
-            v = apply_taps(src, p, taps);
-          }
+          v = stencil_at(cur, p, taps);
+          if constexpr (SRC) v = __fadd_rn(v, __ldg(source + grow + c));
         } else {
-          v = src[p];
+          v = cur[p];
         }
         if (last) {
-          grow[c] = v;
+          out[grow + c] = v;
         } else {
-          dst[p] = v;
+          nxt[p] = v;
         }
       }
       c1 += sc1;
@@ -227,24 +171,45 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
     }
     if (!last) {
       __syncthreads();
-      float* tmp = src;
-      src = dst;
-      dst = tmp;
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
     }
   }
 }
 
-template <int NT>
-cudaError_t launch(const float* in, float* out, const Geometry& g,
-                   const Taps& taps, unsigned nblocks, size_t shared,
-                   cudaStream_t stream) {
+template <int NT, bool SRC>
+cudaError_t launch(const float* in, float* out, const float* source,
+                   const Geometry& g, const Taps& taps, unsigned nblocks,
+                   size_t shared, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      tiled_sweep_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shared);
+      tiled_sweep_kernel<NT, SRC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
   if (err != cudaSuccess) return err;
-  tiled_sweep_kernel<NT><<<nblocks, dim3(kBlockX, kBlockY), shared,
-                           stream>>>(in, out, g, taps);
+  tiled_sweep_kernel<NT, SRC><<<nblocks, dim3(kBlockX, kBlockY), shared,
+                                stream>>>(in, out, source, g, taps);
   return cudaGetLastError();
+}
+
+template <bool SRC>
+cudaError_t dispatch(int ntaps, const float* in, float* out,
+                     const float* source, const Geometry& g,
+                     const Taps& taps, unsigned nblocks, size_t shared,
+                     cudaStream_t stream) {
+  switch (ntaps) {
+    case 6:   // jacobi7
+      return launch<6, SRC>(in, out, source, g, taps, nblocks, shared,
+                            stream);
+    case 12:  // star3d_r2, laplace3d_ho
+      return launch<12, SRC>(in, out, source, g, taps, nblocks, shared,
+                             stream);
+    case 26:  // jacobi27
+      return launch<26, SRC>(in, out, source, g, taps, nblocks, shared,
+                             stream);
+    default:
+      return launch<0, SRC>(in, out, source, g, taps, nblocks, shared,
+                            stream);
+  }
 }
 
 }  // namespace
@@ -252,21 +217,23 @@ cudaError_t launch(const float* in, float* out, const Geometry& g,
 extern "C" {
 
 // Launch k sweeps on `stream` (a cudaStream_t, 0 = the legacy default
-// stream) of device `device`. `geom` is int32[15]: n0 n1 n2 p0 p1 p2 halo
-// t0 t1 t2 nt0 nt1 nt2 k r. `tap_offsets` is int32[ntaps * 3] in group
+// stream) of device `device`. `source` is null, or a padded fp32 array of
+// the layout of `in` whose interior holds the pre-scaled source: each
+// interior update is then S(u) + source (the affine sweep u' = S(u) + c*f;
+// ghosts get no source). `geom` is int32[15]: n0 n1 n2 p0 p1 p2 halo t0
+// t1 t2 nt0 nt1 nt2 k r. `tap_offsets` is int32[ntaps * 3] in group
 // order, `group_sizes` int32[ngroups], `group_weights` float[ngroups].
 // Host arrays are copied before the launch returns. Returns 0, a CUDA
 // error code (cudaGetLastError after the launch), or a negative code for
 // a rejected argument (see stencil_tiled_sweep_error).
-int stencil_tiled_sweep(const float* in, float* out, const int32_t* geom,
-                        int ngeom, const int32_t* tap_offsets,
+int stencil_tiled_sweep(const float* in, float* out, const float* source,
+                        const int32_t* geom, int ngeom,
+                        const int32_t* tap_offsets,
                         const int32_t* group_sizes,
                         const float* group_weights, int ntaps, int ngroups,
                         int uniform, float uniform_weight, int device,
                         void* stream) {
-  if (ngeom != kGeomLen || ntaps < 1 || ntaps > kMaxTaps || ngroups < 1 ||
-      ngroups > ntaps)
-    return kErrArgument;
+  if (ngeom != kGeomLen) return kErrArgument;
   const int n0 = geom[0], n1 = geom[1], n2 = geom[2];
   const int p0 = geom[3], p1 = geom[4], p2 = geom[5], halo = geom[6];
   const int t0 = geom[7], t1 = geom[8], t2 = geom[9];
@@ -295,19 +262,9 @@ int stencil_tiled_sweep(const float* in, float* out, const int32_t* geom,
   if (shared > kMaxSharedBytes) return kErrShared;
 
   Taps taps;
-  taps.ngroups = ngroups;
-  taps.uniform = uniform ? 1 : 0;
-  taps.uniform_weight = uniform_weight;
-  taps.group_starts = 0;
-  int end = 0;
-  for (int i = 0; i < ngroups; ++i) {
-    if (group_sizes[i] < 1) return kErrArgument;
-    if (end < 32) taps.group_starts |= 1u << end;
-    end += group_sizes[i];
-    taps.group_end[i] = end;
-    taps.group_weight[i] = group_weights[i];
-  }
-  if (end != ntaps) return kErrArgument;
+  if (!stencil::fill_groups(taps, group_sizes, group_weights, ntaps,
+                            ngroups, uniform, uniform_weight))
+    return kErrArgument;
   for (int i = 0; i < ntaps; ++i) {
     const int d0 = tap_offsets[3 * i], d1 = tap_offsets[3 * i + 1],
               d2 = tap_offsets[3 * i + 2];
@@ -320,16 +277,10 @@ int stencil_tiled_sweep(const float* in, float* out, const int32_t* geom,
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   const unsigned nb = (unsigned)nblocks;
-  switch (ntaps) {
-    case 6:   // jacobi7
-      return (int)launch<6>(in, out, g, taps, nb, shared, s);
-    case 12:  // star3d_r2, laplace3d_ho
-      return (int)launch<12>(in, out, g, taps, nb, shared, s);
-    case 26:  // jacobi27
-      return (int)launch<26>(in, out, g, taps, nb, shared, s);
-    default:
-      return (int)launch<0>(in, out, g, taps, nb, shared, s);
-  }
+  return source ? (int)dispatch<true>(ntaps, in, out, source, g, taps, nb,
+                                      shared, s)
+                : (int)dispatch<false>(ntaps, in, out, source, g, taps, nb,
+                                       shared, s);
 }
 
 const char* stencil_tiled_sweep_error(int code) {

@@ -1,14 +1,17 @@
 """Eager torch stencil sweep: shifted slices summed tap by tap.
 
 Counterpart of ``stencil_tpu/ops/xla.py`` (``apply_spec``, ``sweep``,
-``iterate``, ``iterate_dynamic``); the ``eager`` method runs it, and the
-tiled kernel's plain version (``ops/tiled_kernel.py``) is built from it.
+``iterate``, ``iterate_dynamic``; ``sweep_source`` and
+``iterate_source_dynamic`` are ``iterate`` with ``scaled_source``); the
+``eager`` method runs it, and the sweep kernels' plain version
+(``ops/sweep_kernel.py``) is built from it.
 
 The per-point summation order is the JAX one, and the CUDA kernel's: taps
 in ``StencilSpec.weight_groups`` order, each group summed first and
 multiplied once by its weight; a uniform-weight spec is one group whose
-weight is applied once at the end. Each step is a separate float32 add or
-multiply, so nothing can fuse into an FMA.
+weight is applied once at the end. A source term is one more add, after
+the taps. Each step is a separate float32 add or multiply, so nothing can
+fuse into an FMA.
 
 Where the JAX loop is functional, this one ping-pongs two padded tensors
 and writes each sweep into the other's interior: no allocation per sweep.
@@ -74,20 +77,31 @@ def sweep(grid: HaloGrid, spec: StencilSpec) -> HaloGrid:
     return iterate(grid, spec, 1)
 
 
-def iterate(grid: HaloGrid, spec: StencilSpec, iterations: int) -> HaloGrid:
-    """``iterations`` Jacobi sweeps; ``grid`` is left unchanged.
+def iterate(grid: HaloGrid, spec: StencilSpec, iterations: int,
+            scaled_source: Optional[torch.Tensor] = None) -> HaloGrid:
+    """``iterations`` Jacobi sweeps; ``grid`` is left unchanged. With
+    ``scaled_source`` (interior-shaped, already scaled), every sweep is the
+    affine update ``u' = S(u) + scaled_source``, the update behind Poisson
+    relaxation (``models/poisson.py``).
 
     Two padded tensors alternate; Dirichlet ghosts are copied once and
     never written, dynamic ghosts are refreshed after every sweep."""
     cur = grid.data.clone()
     nxt = cur.clone()
     idx = _interior_index(cur.shape, grid.halo)
+    if scaled_source is not None \
+            and tuple(scaled_source.shape) != grid.interior_shape:
+        raise ValueError(f"source shape {tuple(scaled_source.shape)} != "
+                         f"interior {grid.interior_shape}")
     scratch = None
     if len(spec.weight_groups()) > 1:
         scratch = torch.empty_like(cur[idx])
     for _ in range(iterations):
         apply_spec(cur, spec, grid.halo, out=nxt[idx], scratch=scratch)
+        if scaled_source is not None:
+            nxt[idx].add_(scaled_source)
         if grid.bc.any_dynamic:
             refresh_dynamic(nxt, grid.halo, grid.bc)
         cur, nxt = nxt, cur
     return HaloGrid(data=cur, halo=grid.halo, bc=grid.bc)
+

@@ -4,8 +4,9 @@ Counterpart of ``stencil_tpu/ops/golden.py``, nearly verbatim: an
 independent, deliberately simple implementation run at float64 and compared
 element-wise against every method at an absolute tolerance (reference bar
 ``1e-4``), reporting the first mismatch. The multithreaded C++ twin in
-``stencil_tpu_torch/native`` accelerates large-grid checks; this module is
-the always-available fallback and the definition of correctness.
+``stencil_tpu_torch/native`` accelerates large-grid checks of homogeneous
+sweeps (it has no source term, as in the JAX package); this module is the
+always-available fallback and the definition of correctness.
 """
 
 from __future__ import annotations
@@ -43,22 +44,57 @@ def golden_sweep(padded: np.ndarray, spec: StencilSpec) -> np.ndarray:
     return acc
 
 
+def apply_spec_f64(interior, spec: StencilSpec,
+                   bc: Optional[DirichletBC] = None) -> np.ndarray:
+    """``A u`` in float64 with the problem's wall values in the ghost
+    ring: the golden twin of a device-side operator application (one tap
+    contraction, no iteration), behind the steady-problem residual
+    certificates (``models/poisson.py:residual_f64``)."""
+    u = np.asarray(interior, np.float64)
+    r = spec.radius
+    padded = np.pad(u, r)
+    if bc is not None:
+        padded = fill_halo_np(padded, r, bc)
+        if bc.any_dynamic:
+            padded = refresh_dynamic_np(padded, r, bc)
+    n = u.shape
+    out = np.zeros(n, np.float64)
+    for off, w in zip(spec.offsets, spec.weights):
+        idx = tuple(slice(r + off[d], r + off[d] + n[d])
+                    for d in range(u.ndim))
+        out += float(w) * padded[idx]
+    return out
+
+
 def golden_iterate(
     interior0: np.ndarray,
     spec: StencilSpec,
     iterations: int,
     bc: Optional[DirichletBC] = None,
+    source: Optional[np.ndarray] = None,
+    source_scale: float = 1.0,
 ) -> np.ndarray:
     """Run ``iterations`` Jacobi sweeps at float64, returning the final
-    interior. (The JAX version's source term is not ported yet.)"""
+    interior.
+
+    ``source`` (interior-shaped, optional) adds ``source_scale * source``
+    to every sweep: the affine update ``u' = S(u) + c*f`` behind Poisson
+    relaxation (``models/poisson.py``)."""
     if bc is None:
         bc = DirichletBC.reference_default(interior0.ndim)
     r = spec.radius
     padded = np.pad(np.asarray(interior0, dtype=np.float64), r)
     padded = fill_halo_np(padded, r, bc)
     idx = tuple(slice(r, s - r) for s in padded.shape)
+    src = None
+    if source is not None:
+        src = source_scale * np.asarray(source, dtype=np.float64)
+        if src.shape != padded[idx].shape:
+            raise ValueError(
+                f"source shape {src.shape} != interior {padded[idx].shape}")
     for _ in range(iterations):
-        padded[idx] = golden_sweep(padded, spec)
+        new = golden_sweep(padded, spec)
+        padded[idx] = new if src is None else new + src
         if bc.any_dynamic:
             # dynamic ghosts hold data derived from the current iterate
             refresh_dynamic_np(padded, r, bc)

@@ -1,6 +1,7 @@
-"""Deep-halo padded layout for the tiled kernel.
+"""Deep-halo padded layout for the sweep kernels, and their padded source.
 
-Counterpart of ``stencil_tpu/ops/layout.py`` (``PaddedLayout``). The padded
+Counterpart of ``stencil_tpu/ops/layout.py`` (``PaddedLayout``) and of
+``stencil_tpu/ops/pallas_tiled.py:pad_source``. The padded
 tensor carries ``halo = k * r`` ghost layers on every side of every dim, so
 one kernel launch can run k sweeps without a refresh. Every pad cell holds
 the BC face value of its nearest face, later dims winning in corners (the
@@ -13,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
@@ -68,3 +70,26 @@ class PaddedLayout:
 
     def pad_grid(self, grid: HaloGrid) -> torch.Tensor:
         return self.pad(grid.interior(), grid.bc)
+
+
+def pad_source(plan, source, source_scale, bc: DirichletBC) -> torch.Tensor:
+    """The padded source operand of a sweep kernel's plan (3D tiled or 2D
+    slab): interior ``float32(source) * float32(source_scale)``, scaled in
+    the plan dtype as the JAX ``pad_source`` scales it; ghosts 0 (the
+    kernels add no source to a ghost). On the device of ``source`` when it
+    is a tensor, else on the CPU; the caller moves it.
+
+    Dynamic (periodic/Neumann) walls would need the wrapped or mirrored
+    source in the ghosts; the kernels refuse dynamic walls, so this does
+    too."""
+    if bc.any_dynamic:
+        raise NotImplementedError(
+            "a source with periodic/Neumann walls on the sweep kernels is "
+            "not ported yet (needs the kernels' pins); use the eager "
+            "method")
+    scaled = torch.as_tensor(source).to(torch.float32)
+    if tuple(scaled.shape) != plan.interior_shape:
+        raise ValueError(f"source shape {tuple(scaled.shape)} != interior "
+                         f"{plan.interior_shape}")
+    scaled = scaled * float(np.float32(source_scale))
+    return plan.layout.pad(scaled, DirichletBC.zero(len(plan.interior_shape)))

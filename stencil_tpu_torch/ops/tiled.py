@@ -13,9 +13,8 @@ estimated time per output point: the warp slots of the window load and of
 the k shrinking sweeps, discounted by the blocks that fit on one SM
 (:func:`_cost`, fitted to a tile sweep measured on an H100).
 
-``TiledStencil.iterate`` pads the grid once into two deep-halo tensors,
-runs ``iterations // k`` launches and one launch of ``iterations % k``
-sweeps, swapping the two tensors after each, and unpads once.
+``TiledStencil.iterate`` is the iterate both kernels share
+(``ops/sweep_kernel.py:KernelStencil``).
 """
 
 from __future__ import annotations
@@ -25,11 +24,9 @@ import itertools
 import math
 from typing import Optional, Tuple
 
-import torch
-
-from stencil_tpu_torch.core.grid import HaloGrid, check_device
 from stencil_tpu_torch.core.spec import StencilSpec
 from stencil_tpu_torch.ops.layout import PaddedLayout
+from stencil_tpu_torch.ops.sweep_kernel import KernelStencil
 from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
@@ -188,44 +185,18 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
                      layout=PaddedLayout.for_halo(interior_shape, k * r))
 
 
-class TiledStencil:
+class TiledStencil(KernelStencil):
     """User-facing handle mirroring ``TiledPallasStencil``: k sweeps per
-    kernel launch over a Dirichlet ``HaloGrid`` on ``device``."""
+    kernel launch over a Dirichlet ``HaloGrid`` on ``device``, with an
+    optional static ``source`` (``u' = S(u) + source_scale * source``)."""
+
+    kernel = tiled_sweep
+    pins_of = "stencil_tpu/ops/pallas_tiled.py:_dynamic_pins"
 
     def __init__(self, spec: StencilSpec, interior_shape, dtype="float32",
                  sweeps_per_call: int = 1, tiles=None,
-                 t0_fixed: Optional[int] = None, device="cuda"):
-        self.device = check_device(device)
-        self.spec = spec
-        self.plan = make_tiled_plan(spec, interior_shape, dtype,
-                                    sweeps_per_call, tiles, t0_fixed)
-
-    def iterate(self, grid: HaloGrid, iterations: int) -> HaloGrid:
-        plan = self.plan
-        if grid.dtype != torch.float32:
-            raise ValueError(f"grid dtype {grid.dtype} != plan dtype "
-                             f"{plan.dtype}")
-        if grid.device != self.device:
-            raise ValueError(f"grid on {grid.device}, stencil on "
-                             f"{self.device}")
-        if grid.interior_shape != plan.interior_shape:
-            raise ValueError(f"grid interior {grid.interior_shape} != plan "
-                             f"{plan.interior_shape}")
-        if grid.bc.any_dynamic:
-            raise NotImplementedError(
-                "periodic/Neumann walls on the tiled kernel are not ported "
-                "yet (needs the kernel's pins; stencil_tpu/ops/"
-                "pallas_tiled.py:_dynamic_pins); use the eager method")
-        k = plan.sweeps_per_call
-        n_outer, rem = divmod(iterations, k)
-        cur = plan.layout.pad_grid(grid)
-        nxt = cur.clone()
-        for _ in range(n_outer):
-            tiled_sweep(cur, nxt, plan)
-            cur, nxt = nxt, cur
-        if rem:
-            tiled_sweep(cur, nxt, plan.with_sweeps(rem))
-            cur, nxt = nxt, cur
-        return HaloGrid.from_interior(plan.layout.unpad(cur),
-                                      halo=grid.halo, bc=grid.bc,
-                                      device=grid.device)
+                 t0_fixed: Optional[int] = None, device="cuda",
+                 source=None, source_scale=1.0):
+        super().__init__(make_tiled_plan(spec, interior_shape, dtype,
+                                         sweeps_per_call, tiles, t0_fixed),
+                         device, source, source_scale)

@@ -1,156 +1,29 @@
-"""Wrapper of the hand-written CUDA kernel ``csrc/tiled_sweep.cu``, and its
-plain PyTorch version.
+"""The hand-written CUDA kernel ``csrc/tiled_sweep.cu`` (3D), its wrapper
+and its plain PyTorch version.
 
 The kernel replaces ``stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep``
-in its homogeneous mode: one launch runs k sweeps of a ``StencilSpec`` over
-a deep-halo padded fp32 tensor, Dirichlet ghosts held constant. See the
-source's header for its design and what bounds it.
+in its homogeneous mode and in its source mode (``has_source``): one launch
+runs k sweeps of a ``StencilSpec`` over a deep-halo padded fp32 tensor,
+Dirichlet ghosts held constant, optionally adding a padded pre-scaled
+source after the taps of every interior update. See the source's header
+for its design and what bounds it.
 
-``tiled_sweep(cur, nxt, plan)`` takes the plain version only for tensors on
-the CPU (the tests); for CUDA tensors it launches the kernel or raises.
+``tiled_sweep(cur, nxt, plan, src=None)`` takes the plain version
+(:func:`sweep_reference`) only for tensors on the CPU (the tests); for CUDA
+tensors it launches the kernel or raises. The binding, checks and plain version are shared with the 2D
+kernel (``ops/sweep_kernel.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import TYPE_CHECKING
-
-import numpy as np
-import torch
-
 from stencil_tpu_torch import _build
-from stencil_tpu_torch.ops import eager
-
-if TYPE_CHECKING:
-    from stencil_tpu_torch.ops.tiled import TiledPlan
+from stencil_tpu_torch.ops.sweep_kernel import (  # noqa: F401 (re-export)
+    SweepKernel, sweep_reference, tap_table,
+)
 
 SOURCE = _build.PACKAGE_DIR / "csrc" / "tiled_sweep.cu"
 # where the TPU kernel this one replaces is defined (build_tiled_sweep)
 REPLACES = "stencil_tpu/ops/pallas_tiled.py:704"
 
+tiled_sweep = SweepKernel("tiled_sweep", SOURCE, REPLACES, ndim=3)
 
-@functools.cache
-def build() -> _build.BuildResult:
-    """Compile ``csrc/tiled_sweep.cu`` (cached by content). Raises
-    ``_build.BuildError`` with the compiler's stderr on failure."""
-    return _build.build(_build.find_nvcc(), [SOURCE], _build.NVCC_FLAGS,
-                        "tiled_sweep")
-
-
-@functools.cache
-def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
-    fn = lib.stencil_tiled_sweep
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p,  # in (device)
-        ctypes.c_void_p,  # out (device)
-        ctypes.c_void_p,  # geometry, int32[15] (host)
-        ctypes.c_int,     # geometry length
-        ctypes.c_void_p,  # tap offsets, int32[ntaps * 3] (host)
-        ctypes.c_void_p,  # group sizes, int32[ngroups] (host)
-        ctypes.c_void_p,  # group weights, float32[ngroups] (host)
-        ctypes.c_int,     # ntaps
-        ctypes.c_int,     # ngroups
-        ctypes.c_int,     # uniform
-        ctypes.c_float,   # uniform weight
-        ctypes.c_int,     # device index
-        ctypes.c_void_p,  # cudaStream_t
-    ]
-    lib.stencil_tiled_sweep_error.restype = ctypes.c_char_p
-    lib.stencil_tiled_sweep_error.argtypes = [ctypes.c_int]
-    return lib
-
-
-def tap_table(spec):
-    """The spec's taps in ``weight_groups`` order, as the kernel takes them:
-    (offsets int32[ntaps*3], group sizes int32, group weights float32,
-    uniform flag, uniform weight)."""
-    groups = spec.weight_groups()
-    offsets = np.asarray([off for _, offs in groups for off in offs],
-                         dtype=np.int32).reshape(-1)
-    sizes = np.asarray([len(offs) for _, offs in groups], dtype=np.int32)
-    weights = np.asarray([w for w, _ in groups], dtype=np.float32)
-    uw = spec.uniform_weight
-    return offsets, sizes, weights, uw is not None, float(
-        np.float32(uw if uw is not None else 0.0))
-
-
-def _check(cur: torch.Tensor, nxt: torch.Tensor, plan: "TiledPlan",
-           pins) -> None:
-    if pins is not None and tuple(int(p) for p in pins) != (1, 1, 1, 1):
-        raise ValueError(
-            f"pins {tuple(pins)}: only all-ones (every Dirichlet face "
-            "pinned) is ported; dynamic and mesh-internal faces are not")
-    if plan.dtype != "float32":
-        raise ValueError(f"tiled kernel dtype {plan.dtype!r}: only float32 "
-                         "is ported")
-    shape = plan.layout.padded_shape
-    for name, t in (("cur", cur), ("nxt", nxt)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} dtype {t.dtype} != torch.float32")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != padded "
-                             f"layout {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if cur.device != nxt.device:
-        raise ValueError(f"cur on {cur.device}, nxt on {nxt.device}")
-    if cur.data_ptr() == nxt.data_ptr():
-        raise ValueError("cur and nxt must be distinct tensors")
-
-
-def tiled_sweep_reference(cur: torch.Tensor, plan: "TiledPlan") -> torch.Tensor:
-    """Plain version of the kernel: ``plan.sweeps_per_call`` whole-array
-    eager sweeps of the padded tensor ``cur``, ghosts held constant.
-    Returns a new padded tensor; ``cur`` is unchanged."""
-    h = plan.layout.halo
-    a = cur.clone()
-    b = cur.clone()
-    idx = plan.layout.interior_index
-    scratch = torch.empty_like(a[idx]) \
-        if len(plan.spec.weight_groups()) > 1 else None
-    for _ in range(plan.sweeps_per_call):
-        eager.apply_spec(a, plan.spec, halo=h, out=b[idx], scratch=scratch)
-        a, b = b, a
-    return a
-
-
-def tiled_sweep(cur: torch.Tensor, nxt: torch.Tensor, plan: "TiledPlan",
-                pins=None) -> torch.Tensor:
-    """``plan.sweeps_per_call`` sweeps of ``cur`` into the interior of
-    ``nxt`` (both padded per ``plan.layout``; ``nxt``'s ghosts must already
-    hold the BC). Returns ``nxt``.
-
-    A CUDA tensor launches the kernel on the current stream (no
-    synchronisation) and raises ``RuntimeError`` if the launch fails; a
-    CPU tensor runs :func:`tiled_sweep_reference`. ``pins`` other than
-    all ones is refused."""
-    _check(cur, nxt, plan, pins)
-    if cur.device.type == "cpu":
-        nxt.copy_(tiled_sweep_reference(cur, plan))
-        return nxt
-    if cur.device.type != "cuda":
-        raise ValueError(f"tiled_sweep runs on cuda (or cpu for the plain "
-                         f"version), not {cur.device}")
-    lib = library()
-    geom = np.asarray(plan.kernel_geometry(), dtype=np.int32)
-    offsets, sizes, weights, uniform, uw = tap_table(plan.spec)
-    device = cur.device.index if cur.device.index is not None \
-        else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.stencil_tiled_sweep(
-        cur.data_ptr(), nxt.data_ptr(), geom.ctypes.data, len(geom),
-        offsets.ctypes.data, sizes.ctypes.data, weights.ctypes.data,
-        len(offsets) // 3, len(sizes), int(uniform), uw, device, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"tiled_sweep launch failed ({rc}): "
-            f"{lib.stencil_tiled_sweep_error(rc).decode()}")
-    tiled_sweep.launches += 1
-    return nxt
-
-
-# kernel launches since the last reset (plain-version calls do not count)
-tiled_sweep.launches = 0

@@ -1,20 +1,22 @@
 """Method registry: name -> iterate implementation.
 
 Counterpart of ``stencil_tpu/registry.py`` (``Runner``, ``make_xla``,
-``_make_pallas_tiled``, ``REGISTRY``, ``get_runner``). Two methods are
-ported:
+``_make_pallas``, ``_make_pallas_tiled``, ``REGISTRY``, ``get_runner``).
+Three methods are ported:
 
   ``eager``  the eager torch shifted-slice sweep (``ops/eager.py``), the
              counterpart of ``xla``
-  ``tiled``  the hand-written CUDA kernel, k sweeps per launch
+  ``tiled``  the hand-written 3D CUDA kernel, k sweeps per launch
              (``ops/tiled.py``), the counterpart of ``pallas_tiled``
+  ``slab``   the hand-written 2D CUDA kernel, k sweeps per launch
+             (``ops/slab.py``), the counterpart of 2D ``pallas``
 
 The JAX package's names resolve too, so its command lines run unchanged:
-``xla`` is ``eager``; on 3D grids ``pallas`` is ``tiled`` at k=1,
-``pallas_temporal`` is ``tiled`` at ``-k`` (default 8) and ``pallas_tiled``
-is ``tiled`` at ``-k`` (default 1), as in the JAX registry. Methods not
-ported yet raise ``NotImplementedError`` naming the JAX code a later port
-replaces.
+``xla`` is ``eager``; ``pallas`` runs at k=1 and ``pallas_temporal`` at
+``-k`` (default 8), on ``slab`` for 2D grids and ``tiled`` for 3D grids;
+``pallas_tiled`` is ``tiled`` at ``-k`` (default 1) and, as in the JAX
+package, refuses 2D grids. Methods not ported yet raise
+``NotImplementedError`` naming the JAX code a later port replaces.
 
 Each entry is a factory ``(config, spec, grid) -> Runner`` where a Runner
 has ``iterate(grid, n) -> HaloGrid``.
@@ -28,6 +30,7 @@ from typing import Callable, Dict
 from stencil_tpu_torch.core.grid import HaloGrid, dtype_name
 from stencil_tpu_torch.core.spec import StencilSpec
 from stencil_tpu_torch.ops import eager
+from stencil_tpu_torch.ops.slab import SlabStencil
 from stencil_tpu_torch.ops.tiled import TiledStencil
 
 
@@ -52,53 +55,68 @@ def make_eager(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
     )
 
 
-def _make_tiled(config, spec: StencilSpec, grid: HaloGrid, k: int) -> Runner:
-    if spec.ndim != 3:
-        raise NotImplementedError(
-            "the 2D slab kernel is not ported yet (replaces "
-            "stencil_tpu/ops/pallas.py:build_sweep); use -m eager")
+def _make_kernel(kind: str, stencil_cls, config, spec: StencilSpec,
+                 grid: HaloGrid, k: int) -> Runner:
+    """A runner on a hand-written kernel (``kind`` "tiled" or "slab");
+    ``plan_info`` records the plan, whether its tile came from ``-b``
+    (``source``), and the TPU tuning flags that were set and ignored."""
     if grid.bc.any_dynamic:
         raise NotImplementedError(
-            "--periodic/--neumann on the tiled kernel are not ported yet "
-            "(replaces the pins of stencil_tpu/ops/pallas_tiled.py:"
-            "build_tiled_sweep); use -m eager")
-    method = TiledStencil(
+            f"--periodic/--neumann on the {kind} kernel are not ported yet "
+            f"(replaces the pins of {stencil_cls.pins_of}); use -m eager")
+    method = stencil_cls(
         spec, grid.interior_shape, dtype=dtype_name(grid.dtype),
         sweeps_per_call=k,
         t0_fixed=config.block if config is not None else None,
         device=grid.device,
     )
     plan = method.plan
-    plan_info = {"kernel": "tiled", "k": k, "tiles": list(plan.tiles),
+    plan_info = {"kernel": kind, "k": k, "tiles": list(plan.tiles),
                  "smem_bytes": plan.smem_bytes,
                  "source": "flag" if config is not None and config.block
                  else "chooser"}
     ignored = config.ignored_tpu_flags() if config is not None else {}
     if ignored:
         plan_info["ignored"] = ignored
-    t0, t1, t2 = plan.tiles
     return Runner(
-        name=f"tiled(k={k},{t0}x{t1}x{t2})",
+        name=f"{kind}(k={k},{'x'.join(map(str, plan.tiles))})",
         iterate=method.iterate,
-        description=("hand-written CUDA kernel, shared-memory windows"
+        description=(f"hand-written {spec.ndim}D CUDA kernel, shared-memory "
+                     "windows"
                      + ("" if k == 1 else f", {k} sweeps per launch")),
         granularity=k,
         plan_info=plan_info,
     )
 
 
+def _temporal(config, default: int) -> int:
+    return config.temporal if config is not None and config.temporal > 1 \
+        else default
+
+
 def make_tiled(config, spec, grid) -> Runner:
-    k = config.temporal if config is not None and config.temporal > 1 else 1
-    return _make_tiled(config, spec, grid, k)
+    return _make_kernel("tiled", TiledStencil, config, spec, grid,
+                        _temporal(config, 1))
+
+
+def make_slab(config, spec, grid) -> Runner:
+    return _make_kernel("slab", SlabStencil, config, spec, grid,
+                        _temporal(config, 1))
+
+
+def _make_pallas(config, spec, grid, k: int) -> Runner:
+    # as in the JAX registry: 2D grids run the slab kernel, 3D the tiled
+    if spec.ndim == 2:
+        return _make_kernel("slab", SlabStencil, config, spec, grid, k)
+    return _make_kernel("tiled", TiledStencil, config, spec, grid, k)
 
 
 def make_pallas(config, spec, grid) -> Runner:
-    return _make_tiled(config, spec, grid, 1)
+    return _make_pallas(config, spec, grid, 1)
 
 
 def make_pallas_temporal(config, spec, grid) -> Runner:
-    k = config.temporal if config is not None and config.temporal > 1 else 8
-    return _make_tiled(config, spec, grid, k)
+    return _make_pallas(config, spec, grid, _temporal(config, 8))
 
 
 def _not_ported(replaces: str) -> Callable:
@@ -112,6 +130,7 @@ def _not_ported(replaces: str) -> Callable:
 REGISTRY: Dict[str, Callable] = {
     "eager": make_eager,
     "tiled": make_tiled,
+    "slab": make_slab,
     "xla": make_eager,
     "pallas": make_pallas,
     "pallas_temporal": make_pallas_temporal,

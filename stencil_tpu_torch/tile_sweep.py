@@ -1,0 +1,210 @@
+"""Tile sweep of the 2D slab kernel, and the score and fit of its chooser.
+
+Measure, on a card: for each case of ``CASES`` one launch of
+``csrc/slab_sweep.cu`` is timed (CUDA events) at every tile of a grid of
+(t0, t1) that fits, and at the tile the chooser (``ops/slab.py``) picks;
+one CSV row per tile, the card's name and power limit in the first line:
+
+    python -m stencil_tpu_torch.tile_sweep --out rows.csv
+
+Score and refit, anywhere (no card needed): per case, the time of the tile
+the chooser picks over the best measured tile's, and the geometric mean
+over the cases. ``--fit`` searches a grid of the cost model's three
+constants (``ops/slab.py:COST_CONSTANTS``) for the least geometric mean,
+each case picking among its measured tiles as the chooser would:
+
+    python -m stencil_tpu_torch.tile_sweep --score rows.csv [--fit]
+
+``data/slab_tiles_h100_fit.csv`` holds the rows the constants were fitted
+to; ``data/slab_tiles_h100_check.csv`` a later sweep with the fitted
+chooser.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import itertools
+import math
+import subprocess
+import sys
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from stencil_tpu_torch.core.spec import get_spec
+from stencil_tpu_torch.ops.slab import (
+    COST_CONSTANTS, SMEM_LIMIT, _t1_candidates, candidate_tiles,
+    choose_tiles, make_slab_plan, tile_key,
+)
+from stencil_tpu_torch.ops.tiled import _smem_bytes
+
+DATA_DIR = Path(__file__).resolve().parent / "data"
+# (spec, interior shape, k, t0 pinned by -b or None)
+CASES = (
+    ("jacobi5", (512, 512), 16, None), ("jacobi9", (4096, 4096), 4, 256),
+    ("jacobi9", (4096, 4096), 4, None), ("jacobi5", (4096, 4096), 16, None),
+    ("jacobi5", (512, 512), 4, None), ("jacobi5", (4096, 4096), 1, None),
+    ("star2d_r2", (2048, 2048), 4, None), ("jacobi5", (1024, 1024), 8, None),
+    ("jacobi5", (512, 512), 1, None), ("jacobi9", (2048, 2048), 1, None),
+    ("jacobi5", (2048, 2048), 2, None), ("jacobi9", (4096, 4096), 8, None),
+    ("jacobi5", (8192, 8192), 4, None), ("jacobi9", (512, 512), 4, None),
+    ("jacobi5", (256, 256), 16, None),
+    ("laplace2d_ho", (2048, 2048), 2, None),
+)
+T0_GRID = (4, 8, 16, 32, 64, 128, 256)
+T1_GRID = (16, 24, 32, 48, 56, 64, 88, 96, 120, 128, 184, 192, 248, 256)
+# the constants --fit tries: block cost, load cost, row cost
+FIT_GRID = ((0, 50, 100, 200, 300, 400, 600), (0, 0.25, 0.5, 1, 2),
+            (0, 2, 4, 6, 8, 12, 16))
+FIELDS = ("spec", "n0", "n1", "k", "t0_fixed", "t0", "t1", "ms")
+
+Case = Tuple[str, Tuple[int, int], int, Optional[int]]
+
+
+def sweep_tiles(spec_name: str, shape, k: int,
+                t0_fixed: Optional[int]) -> List[Tuple[int, int]]:
+    """The tiles one case times: the grid (t0 pinned when ``t0_fixed``),
+    the chooser's t1 candidates and its pick, clamped, those that fit."""
+    spec = get_spec(spec_name)
+    t0s = (t0_fixed,) if t0_fixed is not None else T0_GRID
+    t1s = set(T1_GRID) | set(_t1_candidates(k * spec.radius))
+    tiles = {(min(t0, shape[0]), min(t1, shape[1]))
+             for t0, t1 in itertools.product(t0s, t1s)}
+    tiles.add(choose_tiles(spec, shape, k, t0_fixed))
+    return sorted(t for t in tiles
+                  if _smem_bytes(t, k, spec.radius) <= SMEM_LIMIT)
+
+
+def gpu_label() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def measure(out: Path, cases: Sequence[Case] = CASES, seed: int = 0) -> None:
+    """Time one launch at every tile of every case on the current CUDA
+    device; writes the rows to ``out``."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.ops.slab_kernel import slab_sweep
+    from stencil_tpu_torch.utils.timing import timed
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the tile sweep times the CUDA kernel: it needs "
+                           "a card (score and fit need none)")
+    device = torch.device("cuda")
+    label = gpu_label()
+    print(label)
+    rng = np.random.default_rng(seed)
+    with open(out, "w", newline="") as fh:
+        fh.write(f"# {label}\n")
+        writer = csv.writer(fh)
+        writer.writerow(FIELDS)
+        for name, shape, k, t0_fixed in cases:
+            spec = get_spec(name)
+            x = torch.from_numpy(rng.random(shape, dtype=np.float32))
+            grid = HaloGrid.from_interior(x, halo=spec.radius,
+                                          device=device)
+            reps = max(5, min(200, int(2e8 / (math.prod(shape) * k))))
+            for tiles in sweep_tiles(name, shape, k, t0_fixed):
+                plan = make_slab_plan(spec, shape, "float32", k, tiles=tiles)
+                cur = plan.layout.pad_grid(grid)
+                nxt = cur.clone()
+                slab_sweep(cur, nxt, plan)
+                ms = timed(lambda: [slab_sweep(cur, nxt, plan)
+                                    for _ in range(reps)], device) \
+                    / reps * 1e3
+                writer.writerow((name, *shape, k,
+                                 "" if t0_fixed is None else t0_fixed,
+                                 *tiles, repr(ms)))
+            fh.flush()
+            print(f"{name} {shape} k={k} t0_fixed={t0_fixed}: done")
+            sys.stdout.flush()
+
+
+def read_rows(path: Path) -> Dict[Case, Dict[Tuple[int, int], float]]:
+    """Rows of a sweep, grouped by case: {case: {tiles: ms}}."""
+    cases: Dict[Case, Dict[Tuple[int, int], float]] = {}
+    with open(path, newline="") as fh:
+        lines = (line for line in fh if not line.startswith("#"))
+        for row in csv.DictReader(lines):
+            case = (row["spec"], (int(row["n0"]), int(row["n1"])),
+                    int(row["k"]),
+                    int(row["t0_fixed"]) if row["t0_fixed"] else None)
+            cases.setdefault(case, {})[(int(row["t0"]), int(row["t1"]))] = \
+                float(row["ms"])
+    return cases
+
+
+def score(cases: Dict[Case, Dict[Tuple[int, int], float]],
+          constants=COST_CONSTANTS) -> List[dict]:
+    """Per case: the tile the chooser with ``constants`` picks among the
+    measured tiles it weighs, its ms, the best measured tile and its ms."""
+    out = []
+    for (name, shape, k, t0_fixed), measured in cases.items():
+        spec = get_spec(name)
+        weighed = [t for t in candidate_tiles(spec, shape, k, t0_fixed)
+                   if t in measured]
+        pick = min(weighed, key=lambda t: tile_key(t, k, spec, shape,
+                                                   constants))
+        best = min(measured, key=measured.get)
+        out.append({"case": (name, shape, k, t0_fixed), "pick": pick,
+                    "pick_ms": measured[pick], "best": best,
+                    "best_ms": measured[best],
+                    "ratio": measured[pick] / measured[best]})
+    return out
+
+
+def geomean(results: List[dict]) -> float:
+    return math.exp(sum(math.log(r["ratio"]) for r in results)
+                    / len(results))
+
+
+def fit(cases, grid=FIT_GRID) -> List[Tuple[float, tuple]]:
+    """(geometric mean, constants) for every point of ``grid``, best
+    first."""
+    return sorted((geomean(score(cases, c)), c)
+                  for c in itertools.product(*grid))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m stencil_tpu_torch.tile_sweep",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", type=Path,
+                    help="time the tiles on the card, rows to this CSV")
+    ap.add_argument("--score", type=Path,
+                    help="score the chooser against this CSV's rows")
+    ap.add_argument("--fit", action="store_true",
+                    help="with --score: refit the cost constants")
+    args = ap.parse_args(argv)
+    if args.out is None and args.score is None:
+        ap.error("give --out (measure) or --score (score, fit)")
+    if args.out is not None:
+        measure(args.out)
+    if args.score is not None:
+        cases = read_rows(args.score)
+        results = score(cases)
+        for r in results:
+            name, shape, k, t0_fixed = r["case"]
+            chooser = choose_tiles(get_spec(name), shape, k, t0_fixed)
+            print(f"{name} {shape} k={k} t0_fixed={t0_fixed}: pick "
+                  f"{r['pick']} {r['pick_ms']:.4f} ms, best {r['best']} "
+                  f"{r['best_ms']:.4f} ms, {r['ratio']:.3f}x"
+                  + ("" if chooser == r["pick"] else
+                     f" (the chooser's own {chooser} was not measured)"))
+        print(f"constants {COST_CONSTANTS}: geometric mean "
+              f"{geomean(results):.4f}x the best tile, worst "
+              f"{max(r['ratio'] for r in results):.4f}x over "
+              f"{len(results)} cases, {sum(map(len, cases.values()))} rows")
+        if args.fit:
+            for g, c in fit(cases)[:5]:
+                print(f"fit: constants {c}: geometric mean {g:.4f}x")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

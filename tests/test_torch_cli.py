@@ -1,8 +1,8 @@
 """The port's slice as a whole (stencil_tpu_torch/cli.py, registry.py,
-config.py) on the CPU: the main-path command line runs and passes its
-golden check, and its result agrees with the JAX registry's ``xla`` runner
-on the same grid; the package never imports JAX; no CUDA request falls
-back to the CPU; features outside the slice refuse clearly.
+config.py) on the CPU: the 3D and 2D main-path command lines run and pass
+their golden checks, and their results agree with the JAX registry's
+``xla`` runner on the same grid; the package never imports JAX; no CUDA
+request falls back to the CPU; features outside the slice refuse clearly.
 
 Tolerances: port vs JAX allclose at atol = rtol = 1e-6 (fp32); the CLI's
 own check against the float64 golden at its default bar, 1e-4."""
@@ -26,6 +26,8 @@ from stencil_tpu_torch.config import RunConfig, parse_args
 TOL = 1e-6
 MAIN_ARGS = ["-s", "24", "20", "28", "-i", "8", "--spec", "jacobi7",
              "-m", "pallas_temporal", "-k", "4", "-c"]
+MAIN_2D_ARGS = ["-s", "24", "40", "-i", "10", "--spec", "jacobi5",
+                "-m", "pallas_temporal", "-k", "4", "-c"]
 
 
 def test_main_path_cli_runs_and_checks(tmp_path):
@@ -55,12 +57,51 @@ def test_main_path_matches_jax_xla_runner():
                                atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("extra", [[], ["--spec", "jacobi9", "-b", "8"],
+                                   ["--spec", "star2d_r2", "-s", "30",
+                                    "33", "-i", "7"]])
+def test_2d_main_path_cli_runs_and_checks(tmp_path, extra):
+    out = tmp_path / "out.jsonl"
+    rc = cli.main([*MAIN_2D_ARGS, *extra, "--device", "cpu", "--json-out",
+                   str(out)])
+    assert rc == 0
+    rec = json.loads(out.read_text().splitlines()[0])
+    iters = 7 if "-i" in extra else 10
+    assert rec["check"]["ok"] and not rec["check"]["capped"]
+    assert rec["check"]["iterations_checked"] == iters
+    assert rec["check"]["max_abs_err"] < 5e-6
+    assert rec["plan"]["kernel"] == "slab" and rec["plan"]["k"] == 4
+    assert rec["plan"]["source"] == ("flag" if "-b" in extra else "chooser")
+    if "-b" in extra:
+        assert rec["plan"]["tiles"][0] == 8
+
+
+@pytest.mark.parametrize("spec", ["jacobi5", "jacobi9"])
+def test_2d_main_path_matches_jax_xla_runner(spec):
+    args = [*MAIN_2D_ARGS, "--spec", spec]
+    tcfg = parse_args([*args, "--device", "cpu"])
+    jcfg = jparse_args(args)
+    tspec, jspec = tcfg.resolved_spec(), jcfg.resolved_spec()
+    tgrid, jgrid = cli.make_grid(tcfg, tspec), jcli.make_grid(jcfg, jspec)
+    np.testing.assert_array_equal(tgrid.data.numpy(), np.asarray(jgrid.data))
+    trun = registry.get_runner("pallas_temporal", tcfg, tspec, tgrid)
+    jrun = jregistry.get_runner("xla", jcfg, jspec, jgrid)
+    got = trun.iterate(tgrid, 10)
+    want = jrun.iterate(jgrid, 10)
+    np.testing.assert_allclose(got.interior().numpy(),
+                               np.asarray(want.interior()),
+                               atol=TOL, rtol=TOL)
+
+
 def test_package_imports_no_jax():
     code = (
         "import sys, importlib\n"
         "for m in ['stencil_tpu_torch', 'stencil_tpu_torch.cli', "
         "'stencil_tpu_torch.convert', 'stencil_tpu_torch.ops.tiled', "
         "'stencil_tpu_torch.ops.tiled_kernel', 'stencil_tpu_torch.native', "
+        "'stencil_tpu_torch.ops.slab', 'stencil_tpu_torch.ops.slab_kernel', "
+        "'stencil_tpu_torch.ops.sweep_kernel', 'stencil_tpu_torch.solver', "
+        "'stencil_tpu_torch.models.poisson', 'stencil_tpu_torch.models.heat', "
         "'stencil_tpu_torch.utils.roofline']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
@@ -108,6 +149,17 @@ def test_method_aliases(method, k_expected):
     assert runner.plan_info["k"] == k_expected == runner.granularity
 
 
+@pytest.mark.parametrize("method,k_expected", [
+    ("slab", 1), ("pallas", 1), ("pallas_temporal", 8)])
+def test_2d_method_aliases(method, k_expected):
+    cfg = RunConfig(size=(16, 24), spec="jacobi5", device="cpu")
+    spec = cfg.resolved_spec()
+    runner = registry.get_runner(method, cfg, spec, cli.make_grid(cfg, spec))
+    assert runner.plan_info["kernel"] == "slab"
+    assert runner.plan_info["k"] == k_expected == runner.granularity
+    assert runner.plan_info["smem_bytes"] > 0
+
+
 @pytest.mark.parametrize("method", ["sharded", "sharded_noverlap",
                                     "sharded_pallas", "rma", "streamed",
                                     "varcoeff"])
@@ -119,11 +171,22 @@ def test_unported_methods_name_their_jax_code(method):
 
 
 def test_2d_and_dynamic_walls_refuse_tiled_but_run_eager():
+    """2D grids run the slab kernel and refuse the tiled one (3D-only, as
+    in the JAX package); dynamic walls refuse both kernels and run on
+    eager."""
     buf = io.StringIO()
     cfg = RunConfig(size=(16, 24), spec="jacobi5", iterations=6,
-                    methods=("pallas", "xla"), check=True, device="cpu")
+                    methods=("tiled", "pallas_tiled", "pallas", "xla"),
+                    check=True, device="cpu")
     res = cli.run_all(cfg, out=buf)
-    assert "build_sweep" in res[0]["error"]
+    assert "3D-only" in res[0]["error"] and "3D-only" in res[1]["error"]
+    assert res[2]["check"]["ok"] and res[2]["plan"]["kernel"] == "slab"
+    assert res[3]["check"]["ok"]
+    cfg = RunConfig(size=(16, 24), spec="jacobi9", iterations=6,
+                    methods=("pallas_temporal", "eager"), temporal=2,
+                    periodic=("0",), check=True, device="cpu")
+    res = cli.run_all(cfg, out=buf)
+    assert "not ported" in res[0]["error"]
     assert res[1]["check"]["ok"]
     cfg = RunConfig(size=(10, 12, 14), spec="jacobi27", iterations=6,
                     methods=("pallas_temporal", "eager"), temporal=2,

@@ -1,11 +1,13 @@
-"""The hand-written CUDA kernel (stencil_tpu_torch/csrc/tiled_sweep.cu)
-against its plain PyTorch version, on an NVIDIA GPU. Marked ``cuda``;
-without a card every test skips. This file imports no JAX, so it also
-runs where only the port is installed:
+"""The hand-written CUDA kernels (stencil_tpu_torch/csrc/tiled_sweep.cu, 3D,
+and csrc/slab_sweep.cu, 2D), homogeneous and with a source, against their
+plain PyTorch versions, on an NVIDIA GPU. Marked ``cuda``; without a card
+every test skips. This file imports no JAX, so it also runs where only the
+port is installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerance: bitwise (same taps in the same order, built with -fmad=false)."""
+Tolerance: bitwise (same taps in the same order, the source added after
+them, built with -fmad=false)."""
 
 import numpy as np
 import pytest
@@ -13,13 +15,19 @@ import torch
 
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
 from stencil_tpu_torch.core.spec import get_spec
+from stencil_tpu_torch.models.heat import HeatDiffusion
 from stencil_tpu_torch.ops import eager
+from stencil_tpu_torch.ops.layout import pad_source
+from stencil_tpu_torch.ops.slab import SlabStencil, make_slab_plan
+from stencil_tpu_torch.ops.slab_kernel import slab_sweep
+from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
 from stencil_tpu_torch.ops.tiled import TiledStencil, make_tiled_plan
-from stencil_tpu_torch.ops.tiled_kernel import (
-    tiled_sweep, tiled_sweep_reference,
-)
+from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
 
 pytestmark = pytest.mark.cuda
+
+BC3 = DirichletBC(values=((0.5, -1.0), (2.0, 0.25), (1.0, 1.5)))
+BC2 = DirichletBC(values=((0.5, -1.0), (2.0, 0.25)))
 
 
 @pytest.fixture
@@ -31,9 +39,13 @@ def cuda_device():
 
 def _grid(shape, radius, device, seed=1):
     x = np.random.default_rng(seed).random(shape).astype(np.float32)
-    bc = DirichletBC(values=((0.5, -1.0), (2.0, 0.25), (1.0, 1.5)))
+    bc = BC3 if len(shape) == 3 else BC2
     return HaloGrid.from_interior(torch.from_numpy(x), halo=radius, bc=bc,
                                   device=device)
+
+
+def _source(shape, seed=2):
+    return np.random.default_rng(seed).normal(size=shape)
 
 
 @pytest.mark.parametrize("name,shape,k", [
@@ -46,9 +58,56 @@ def test_kernel_matches_plain(cuda_device, name, shape, k):
     cur = plan.layout.pad_grid(_grid(shape, sp.radius, cuda_device))
     before = tiled_sweep.launches
     got = tiled_sweep(cur, cur.clone(), plan)
-    want = tiled_sweep_reference(cur, plan)
+    want = sweep_reference(cur, plan)
     torch.cuda.synchronize()
     assert tiled_sweep.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,shape,k", [
+    ("jacobi7", (64, 48, 40), 8), ("jacobi7", (57, 50, 46), 3),
+    ("jacobi27", (33, 20, 41), 2)])
+def test_tiled_source_matches_plain(cuda_device, name, shape, k):
+    sp = get_spec(name)
+    plan = make_tiled_plan(sp, shape, "float32", k)
+    cur = plan.layout.pad_grid(_grid(shape, sp.radius, cuda_device))
+    src = pad_source(plan, _source(shape), -0.01, BC3).to(cuda_device)
+    got = tiled_sweep(cur, cur.clone(), plan, src)
+    want = sweep_reference(cur, plan, src)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _heat2d():
+    return HeatDiffusion((8, 8), dt=0.1).spec  # 5 taps, 2 weight groups
+
+
+@pytest.mark.parametrize("name,shape,k,t0", [
+    ("jacobi5", (512, 512), 16, None), ("jacobi5", (512, 512), 1, None),
+    ("jacobi9", (600, 700), 4, 256), ("star2d_r2", (250, 333), 3, None),
+    ("laplace2d_ho", (100, 90), 2, 8), ("heat2d", (70, 33), 5, None)])
+def test_slab_kernel_matches_plain(cuda_device, name, shape, k, t0):
+    sp = _heat2d() if name == "heat2d" else get_spec(name)
+    plan = make_slab_plan(sp, shape, "float32", k, t0_fixed=t0)
+    cur = plan.layout.pad_grid(_grid(shape, sp.radius, cuda_device))
+    before = slab_sweep.launches
+    got = slab_sweep(cur, cur.clone(), plan)
+    want = sweep_reference(cur, plan)
+    torch.cuda.synchronize()
+    assert slab_sweep.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,shape,k", [
+    ("jacobi5", (300, 257), 4), ("jacobi9", (64, 80), 8)])
+def test_slab_source_matches_plain(cuda_device, name, shape, k):
+    sp = get_spec(name)
+    plan = make_slab_plan(sp, shape, "float32", k)
+    cur = plan.layout.pad_grid(_grid(shape, sp.radius, cuda_device))
+    src = pad_source(plan, _source(shape), -0.01, BC2).to(cuda_device)
+    got = slab_sweep(cur, cur.clone(), plan, src)
+    want = sweep_reference(cur, plan, src)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
@@ -61,9 +120,29 @@ def test_iterate_with_remainder_matches_eager(cuda_device):
     assert torch.equal(got.data, want.data)
 
 
+@pytest.mark.parametrize("name,shape", [("jacobi5", (61, 75)),
+                                        ("jacobi7", (21, 30, 19))])
+def test_source_iterate_with_remainder_matches_eager(cuda_device, name,
+                                                     shape):
+    sp = get_spec(name)
+    g = _grid(shape, 1, cuda_device)
+    f = _source(shape)
+    stencil = SlabStencil if len(shape) == 2 else TiledStencil
+    got = stencil(sp, shape, sweeps_per_call=4, device=cuda_device,
+                  source=f, source_scale=-0.02).iterate(g, 11)
+    scaled = torch.from_numpy(f).float().to(cuda_device) \
+        * float(np.float32(-0.02))
+    want = eager.iterate(g, sp, 11, scaled)
+    assert torch.equal(got.data, want.data)
+
+
 def test_launch_refuses_cpu_tensor_mix(cuda_device):
     sp = get_spec("jacobi7")
     plan = make_tiled_plan(sp, (8, 8, 8), "float32", 2)
     cur = plan.layout.pad_grid(_grid((8, 8, 8), 1, cuda_device))
     with pytest.raises(ValueError, match="cur on"):
         tiled_sweep(cur, cur.cpu(), plan)
+    plan2 = make_slab_plan(get_spec("jacobi5"), (8, 8), "float32", 2)
+    cur2 = plan2.layout.pad_grid(_grid((8, 8), 1, cuda_device))
+    with pytest.raises(ValueError, match="src on"):
+        slab_sweep(cur2, cur2.clone(), plan2, src=cur2.cpu())

@@ -27,7 +27,7 @@ from stencil_tpu_torch.ops.tiled import (
     SMEM_LIMIT, TiledStencil, make_tiled_plan,
 )
 from stencil_tpu_torch.ops.tiled_kernel import (
-    tap_table, tiled_sweep, tiled_sweep_reference,
+    sweep_reference, tap_table, tiled_sweep,
 )
 
 TOL = 1e-6
@@ -67,7 +67,7 @@ def test_plain_version_matches_jax_tiled_interpret(rng):
     want = TiledPallasStencil(j, shape, sweeps_per_call=k, tiles=(8, 8),
                               interpret=True).iterate(jg, k)
     plan = make_tiled_plan(t, shape, "float32", k, tiles=(8, 8, 16))
-    out = tiled_sweep_reference(plan.layout.pad_grid(tg), plan)
+    out = sweep_reference(plan.layout.pad_grid(tg), plan)
     np.testing.assert_allclose(plan.layout.unpad(out).numpy(),
                                np.asarray(want.interior()),
                                atol=TOL, rtol=TOL)
@@ -141,7 +141,7 @@ def test_wrapper_checks_and_cpu_path(rng):
     before = tiled_sweep.launches
     out = tiled_sweep(cur, nxt, plan)
     assert out is nxt
-    assert torch.equal(nxt, tiled_sweep_reference(cur, plan))
+    assert torch.equal(nxt, sweep_reference(cur, plan))
     assert tiled_sweep.launches == before  # the plain version is no launch
     with pytest.raises(ValueError, match="pins"):
         tiled_sweep(cur, nxt, plan, pins=(0, 0, 1, 1))
