@@ -12,12 +12,17 @@ Phases, each ending in a line of its own:
    ``csrc/slab_sweep.cu``) and the native golden from the sources in this
    checkout, all three compilers started together (into
    ``build/stencil_tpu_torch/``);
-3. kernel vs plain: each kernel mode (3D tiled, 3D tiled with a source, 2D
-   slab, 2D slab with a source) against its plain PyTorch version on the
-   card, on random fp32 inputs from a numpy seed, at the main paths' shapes
-   and at ragged, box and radius-2 cases, plus remainder runs; each source
-   mode also at each of its Poisson paths' own shape, spec, k, tiles, walls
-   and source (one launch, and the runner over 19 sweeps);
+3. kernel vs plain: each kernel mode (3D tiled, 3D tiled with a source,
+   the 3D tiled kernel's Chebyshev and dual modes, 2D slab, 2D slab with a
+   source) against its plain PyTorch version on the card, on random fp32
+   inputs from a numpy seed, at the main paths' shapes and at ragged, box
+   and radius-2 cases, plus remainder runs; each source mode also at each
+   of its Poisson paths' own shape, spec, k, tiles, walls and source (one
+   launch, and the runner over 19 sweeps); the Chebyshev mode at nu = 2
+   and 4 and the dual mode for weighted Jacobi nu1 = 2 and Chebyshev
+   nu1 = 4, at 255³ and ragged, with both dual outputs compared; and every
+   fine-level operation of the three solver paths of phase 4 at that
+   path's own plan (shape, tiles, coefficients) and right-hand side;
 4. main paths, each with the launch counts set to 0 just before it and
    read just after: the 3D CLI (``-s 256 256 256 --spec jacobi7 -m
    pallas_temporal -k 8 -i 64 -c``), the 2D CLI (``-s 512 512 --spec
@@ -27,17 +32,42 @@ Phases, each ending in a line of its own:
    manufactured solves (2D 63², 3D 31³, ``method="auto"``), each within
    5 h² of the exact solution; the Poisson runner (``method="auto"``, k=8)
    at 4096² and at 256³ against the float64 golden with the source over 16
-   iterations (the NumPy golden; the native one has no source term);
+   iterations (the NumPy golden; the native one has no source term); the
+   solver CLI (``--solve poisson``): PCG with Chebyshev multigrid on the
+   tiled fine level at 255³ (``--smoother chebyshev --tol 1e-5 -i 50``,
+   the Chebyshev and dual modes), multigrid V(4,4) cycles at 255³
+   (``--solver mg --nu-smooth 4 4 -i 30``, the source and dual modes) and
+   FMG at 63³ on the tiled fine level (``--solver fmg --fine-method
+   pallas_tiled``), each converged and within 3 h² of the exact solution
+   (4 h² for the weighted-Jacobi tiled cycle, whose fp32 floor is ~3.3 h²
+   at 255³; see ``SOLVE_PATHS``), the float64 certificate printed;
 5. times: GLUPS of the 3D tiled kernel at k=8 and k=1 and of ``eager`` at
    256³; of cfg1 (2D 5-pt 512², slab k=16) and cfg2 (2D 9-pt 4096², slab
    k=4, ``-b 256``) and ``eager`` at both sizes; of cfg8 (Poisson 256³, the
-   tiled source kernel at k=8); one launch's kernel ms against its plain
-   version's for each kernel mode, at a main path's shape (the source
-   modes at the Poisson golden checks'); the device's busy share over
-   cfg1's main-path run, from a ``torch.profiler`` trace.
+   tiled source kernel at k=8); ms per V-cycle, contraction per cycle and
+   ms per decade of cfg10 (weighted Jacobi V(4,4), tiled fine level), cfg11
+   (Chebyshev V(2,2), eager fine level), cfg17 (Chebyshev V(4,4), tiled
+   fine level) and weighted Jacobi V(2,2) on both fine levels, at 255³ with
+   a seeded random f; cfg13 (PCG, Chebyshev multigrid on the tiled fine
+   level, 255³, random f, tol 1e-4, at most 50 iterations) as time to
+   solution and iterations; the error floor of the multigrid cycles at
+   255³ (manufactured sine, error against the exact solution per cycle)
+   in fp32 on both fine levels and in fp64 on the eager one; for each kernel mode one launch's kernel ms
+   against its plain version's, against one call of
+   ``torch.nn.functional.conv3d``/``conv2d`` that computes one sweep of
+   the mode (fp32, TF32 off) and against the bound the card's peaks give,
+   at a main path's shape (the source modes at the Poisson golden checks',
+   the Chebyshev and dual modes at the PCG path's); the device's busy
+   share over cfg1's main-path run and over one cfg13 solve, from
+   ``torch.profiler`` traces.
 
 Each kernel's ``launches`` in the kernel record sums the phase-4 runs of
-that mode; its ``max_abs_err`` is the largest of its phase-3 cases.
+that mode; its ``max_abs_err`` is the largest of its phase-3 cases. Its
+``bound_ms`` is the larger of the bytes the launch must move (the padded
+input and source read once, each output's interior written once) over
+3.35 TB/s and its floating-point operations (every sweep's update of every
+interior point) over 67 TFLOP/s, the H100 SXM's published peaks;
+``bound_by`` names the larger.
 
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -77,6 +107,31 @@ POISSON_BIG_ITERS = 16
 POISSON_COMPARE_ITERS = 19   # two launches of k=8 and a remainder of 3
 RAGGED_2D = (250, 333)
 SLAB_SOURCE_SIZE = (4096, 4096)
+MG_SIZE = (255, 255, 255)
+MG_SEED = 2                  # bench.py's seed for the multigrid cells' f
+# the solver main paths (phase 4), each run with -c, and the bar on the
+# error against the exact solution in units of h^2: the JAX tests' 3 h^2,
+# except for weighted Jacobi on the tiled fine level. Its fp32 smoother
+# coefficients (1 - omega, omega/6), rounded apart as in the JAX kernel,
+# sum to 1 + 1.5e-8, which moves the cycle's fixed point: at 255^3 it
+# floors near 3.3 h^2 whatever the tolerance (phase 5 measures the floor),
+# so that path is held to 4 h^2
+SOLVE_PATHS = (
+    ("pcg-cheby", ["--solve", "poisson", "-s", "255", "255", "255",
+                   "--smoother", "chebyshev", "--tol", "1e-5", "-i", "50"],
+     3.0),
+    ("mg-nu4", ["--solve", "poisson", "--solver", "mg", "--nu-smooth", "4",
+                "4", "-s", "255", "255", "255", "-i", "30"], 4.0),
+    ("fmg", ["--solve", "poisson", "--solver", "fmg", "-s", "63", "63", "63",
+             "--fine-method", "pallas_tiled"], 3.0),
+)
+FLOOR_CYCLES = 12            # cycles of the phase-5 floor measurement
+CYCLE_REPEATS = 10           # V-cycles per timed run
+CONTRACTION_CYCLES = 6
+# the H100 SXM's published peaks (NVIDIA's data sheet): device memory and
+# fp32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
 
 
 def require(cond, msg):
@@ -197,6 +252,231 @@ def compare_poisson(prob, f, kernel, make_plan, rng, device):
                                 f"iterations", got, want))
 
 
+def cheby_plan(shape, coeffs, dual=False):
+    from stencil_tpu_torch.multigrid import nbsum_spec
+    from stencil_tpu_torch.ops.tiled import make_tiled_plan
+
+    return make_tiled_plan(nbsum_spec(3), shape, "float32", len(coeffs),
+                           has_source=True, cheby_coeffs=coeffs,
+                           cheby_dual=dual)
+
+
+def mg_coeffs(shape, nu, smoother, dual):
+    """The multigrid fine level's coefficient tuples at ``shape`` (h =
+    1/(n0+1)): ``nu`` smoother sweeps, then the residual when ``dual``."""
+    from stencil_tpu_torch.multigrid import _cheby_sweep_coeffs
+
+    h = 1.0 / (shape[0] + 1)
+    if smoother == "chebyshev":
+        co = _cheby_sweep_coeffs(nu, 4.0, 3, h)
+    else:
+        w = 2.0 / 3.0
+        co = ((1.0 - w, w / 6, 0.0, -(w / 6) * h * h),) * nu
+    if dual:
+        co += ((6.0 / h ** 2, -1.0 / h ** 2, 0.0, 1.0),)
+    return co
+
+
+def compare_plan(kernel, plan, grid, src, label):
+    """One launch of ``plan`` (any mode; both outputs of a dual plan)
+    against the plain version; returns the max abs difference."""
+    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+
+    cur = plan.layout.pad_grid(grid)
+    if plan.cheby_dual:
+        got = kernel(cur, cur.clone(), plan, src, out2=cur.clone())
+        want = sweep_reference(cur, plan, src)
+        return max(check_equal(f"{label}, residual output", got[0], want[0]),
+                   check_equal(f"{label}, smoothed output", got[1], want[1]))
+    return check_equal(label, kernel(cur, cur.clone(), plan, src),
+                       sweep_reference(cur, plan, src))
+
+
+def compare_cheby(kernel, shape, nu, smoother, dual, rng, device):
+    """The Chebyshev (or dual) mode at ``shape`` against its plain
+    version, random u (reference walls) and a random f."""
+    from stencil_tpu_torch.ops.layout import pad_source
+
+    plan = cheby_plan(shape, mg_coeffs(shape, nu, smoother, dual), dual)
+    grid = random_grid(shape, 1, rng, device)
+    src = pad_source(plan, rng.normal(size=shape), 1.0, grid.bc).to(device)
+    return compare_plan(kernel, plan, grid, src,
+                        f"{kernel.name}+{'dual' if dual else 'cheby'} "
+                        f"{smoother} nu={nu} {shape} k={plan.sweeps_per_call}"
+                        f" tiles {plan.tiles}")
+
+
+def compare_cheby_iterate(shape, k, iters, rng, device):
+    """The Chebyshev iterate (iters // k launches and a remainder launch of
+    the first coefficients) against the plain version's launches."""
+    from stencil_tpu_torch.multigrid import nbsum_spec
+    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+    from stencil_tpu_torch.ops.tiled import TiledStencil
+
+    stencil = TiledStencil(nbsum_spec(3), shape, sweeps_per_call=k,
+                           device=device, source=rng.normal(size=shape),
+                           cheby_coeffs=mg_coeffs(shape, k, "chebyshev",
+                                                  False))
+    grid = random_grid(shape, 1, rng, device)
+    got = stencil.iterate(grid, iters).interior()
+    plan, src = stencil.plan, stencil.padded_source(grid.bc)
+    cur = plan.layout.pad_grid(grid)
+    for _ in range(iters // k):
+        cur = sweep_reference(cur, plan, src)
+    if iters % k:
+        cur = sweep_reference(cur, plan.with_sweeps(iters % k), src)
+    return check_equal(f"TiledStencil+cheby {shape} k={k}, {iters} "
+                       f"iterations", got, plan.layout.unpad(cur))
+
+
+def solve_path(args):
+    """A solver main path's problem, right-hand side and multigrid, built
+    as the CLI builds them, and the fine-level operations its cycle runs
+    (mode name, op)."""
+    from stencil_tpu_torch import solve_cli
+    from stencil_tpu_torch.config import parse_args
+
+    cfg = parse_args([*args, "--device", DEVICE])
+    prob = solve_cli.build_problem(cfg)
+    f, u_exact = solve_cli.build_rhs(cfg, prob)
+    solver, kind, plan = solve_cli.build_solver(cfg, prob)
+    mg = solver.preconditioner if kind == "krylov" else solver
+    require(mg is not None and mg.tiled_fine,
+            f"solver path {args} does not run the tiled fine level: {plan}")
+    pre, res, post, fused = mg._fine_ops()
+    require(fused is not None and mg.nu2 > 0, f"{args}: no fused level")
+    post_mode = ("tiled_sweep+cheby" if post.plan.cheby_coeffs
+                 else "tiled_sweep+source")
+    return prob, f, mg, (("tiled_sweep+dual", fused), (post_mode, post))
+
+
+def run_solve_cli(cli, kernel, name, args, bar_h2, label):
+    """One solver main path through the CLI, the kernel's counts set to 0
+    just before; it must converge within ``bar_h2`` h^2 of the exact
+    solution. Returns (record, {mode: launches})."""
+    kernel.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "solve.jsonl"
+        t0 = time.perf_counter()
+        rc = cli.main([*args, "-c", "--device", DEVICE, "--json-out",
+                       str(out)])
+        seconds = time.perf_counter() - t0
+        counts = {"tiled_sweep+source": kernel.source_launches,
+                  "tiled_sweep+cheby": kernel.cheby_launches,
+                  "tiled_sweep+dual": kernel.dual_launches}
+        rec = json.loads(out.read_text().splitlines()[0])
+    n = int(args[args.index("-s") + 1])
+    bar = bar_h2 / (n + 1) ** 2
+    chk = rec.get("check", {})
+    err = chk.get("error_vs_exact", float("nan"))
+    print(f"solver path {name} ({' '.join(args)} -c): "
+          f"{'converged' if rec.get('converged') else 'NOT converged'} in "
+          f"{rec.get('iterations')} iterations, residual_rel "
+          f"{rec.get('residual_rel', float('nan')):.3e}; error vs exact "
+          f"{err:.3e} (bar {bar_h2:g} h^2 = {bar:.3e}); float64 certificate "
+          f"max |f - A u| = {chk.get('residual_f64', float('nan')):.3e} (rel "
+          f"{chk.get('residual_f64_rel', float('nan')):.3e}, printed, not "
+          f"judged: fp32 floors it); plan {rec.get('plan')}; launches "
+          f"{counts}; {seconds:.2f} s with the f64 check [{label}]")
+    require(rc == 0 and rec.get("converged"),
+            f"solver path {name} returned {rc}: {rec}")
+    require(np.isfinite(err) and err < bar,
+            f"solver path {name}: error {err} >= {bar}")
+    return rec, counts
+
+
+def time_cycles(mg, f, device):
+    """(ms per V-cycle, contraction per cycle, ms per decade) of ``mg`` on
+    ``f``: the median over 3 runs of CYCLE_REPEATS cycles, after one
+    warm-up; the contraction is the geometric mean of the ratios of
+    successive update norms max |u_{n+1} - u_n| over cycles 2..
+    CONTRACTION_CYCLES from u = 0 (the asymptotic error contraction; the
+    fp32 residual certificate floors too early at 255^3 to read it)."""
+    import torch
+
+    from stencil_tpu_torch.utils.timing import timed
+
+    runner = mg.runner(f)
+    g0 = mg.problem.initial_grid()
+    runner.iterate(g0, 1)
+    runs = sorted(timed(lambda: runner.iterate(g0, CYCLE_REPEATS), device)
+                  for _ in range(3))
+    ms = runs[1] / CYCLE_REPEATS * 1e3
+    g, upd, res = g0, [], []
+    for _ in range(CONTRACTION_CYCLES):
+        nxt = runner.iterate(g, 1)
+        upd.append(float((nxt.interior() - g.interior()).abs().max()))
+        res.append(mg.residual_norm(nxt, f))
+        g = nxt
+    ratios = [b / a for a, b in zip(upd[1:], upd[2:])]
+    rho = float(np.prod(ratios)) ** (1.0 / len(ratios))
+    decade = ms / -np.log10(rho) if 0 < rho < 1 else float("inf")
+    torch.cuda.synchronize()
+    return ms, rho, decade, upd, res
+
+
+def bound(plan, src, dual):
+    """(bound ms, 'bytes' or 'operations') of one launch of ``plan``."""
+    n_int = int(np.prod(plan.interior_shape))
+    n_pad = int(np.prod(plan.layout.padded_shape))
+    nbytes = 4 * (n_pad + n_int + (n_pad if src is not None else 0)
+                  + (n_int if dual else 0))
+    per_point = plan.spec.flops_per_point
+    k = plan.sweeps_per_call
+    if getattr(plan, "cheby_coeffs", ()):
+        # 3 multiplies and 2 adds, and from sweep 2 on one more of each
+        ops = n_int * sum(per_point + 5 + (2 if t >= 2 else 0)
+                          for t in range(1, k + 1))
+    else:
+        ops = n_int * k * (per_point + (1 if src is not None else 0))
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_FP32_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def library_sweep(plan, cur, src):
+    """One ``torch.nn.functional.conv3d``/``conv2d`` call computing one
+    sweep of ``plan``'s mode on the same inputs: the padded u cut to the
+    stencil's radius, the source as a second input channel (for the
+    Chebyshev modes the raw f, with sweep 1's c, n and s as weights).
+    Returns (call, check) where check() is the call's max abs difference
+    from one sweep of the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+
+    spec, r, h = plan.spec, plan.spec.radius, plan.layout.halo
+    nd = len(plan.interior_shape)
+    cut = tuple(slice(h - r, h + n + r) for n in plan.interior_shape)
+    chans = [cur[cut]] + ([src[cut]] if src is not None else [])
+    x = torch.stack(chans)[None].contiguous()
+    w = torch.zeros((1, len(chans)) + (2 * r + 1,) * nd, dtype=x.dtype,
+                    device=x.device)
+    center = (r,) * nd
+    if getattr(plan, "cheby_coeffs", ()):
+        c, n, _, s_ = (float(np.float32(v)) for v in plan.cheby_coeffs[0])
+    else:
+        c, n, s_ = 0.0, 1.0, 1.0
+    for off, wt in zip(spec.offsets, spec.weights):
+        w[(0, 0) + tuple(r + o for o in off)] += n * wt
+    w[(0, 0) + center] += c
+    if src is not None:
+        w[(0, 1) + center] = s_
+    conv = F.conv3d if nd == 3 else F.conv2d
+
+    def call():
+        return conv(x, w)
+
+    def check():
+        want = plan.layout.unpad(sweep_reference(cur, plan.with_sweeps(1),
+                                                 src))
+        return float((call()[0, 0] - want).abs().max())
+
+    return call, check
+
+
 def time_call(fn, device, reps):
     from stencil_tpu_torch.utils.timing import timed
 
@@ -207,7 +487,7 @@ def time_call(fn, device, reps):
 def run_cli(cli, args, kernel, label):
     """One CLI main path with ``kernel``'s counts set to 0 just before;
     returns (record, launches)."""
-    kernel.launches = kernel.source_launches = 0
+    kernel.reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "main.jsonl"
         rc = cli.main([*args, "-c", "--device", DEVICE,
@@ -239,7 +519,7 @@ def poisson_solve(shape, kernel, device):
 
     prob = PoissonProblem(shape=shape, device=device)
     f, u_exact = manufactured_sine(shape)
-    kernel.launches = kernel.source_launches = 0
+    kernel.reset_counts()
     t0 = time.perf_counter()
     res = prob.solve(f, tolerance=1e-6, max_iterations=100_000,
                      check_every=200, method="auto")
@@ -273,7 +553,7 @@ def poisson_golden(shape, kernel, rng):
     # missing or misplaced source fails the check
     f = rng.normal(size=shape) / prob.h ** 2
     runner = prob.runner(f, method="auto")
-    kernel.launches = kernel.source_launches = 0
+    kernel.reset_counts()
     out = runner.iterate(prob.initial_grid(u0), POISSON_BIG_ITERS)
     n_src = kernel.source_launches
     got = out.interior().double().cpu().numpy()
@@ -438,6 +718,34 @@ def main() -> int:
             else rng.normal(size=shape) / prob.h ** 2
         err[mode] = max(err[mode], compare_poisson(prob, f, kernel,
                                                    make_plan, rng, device))
+    # the Chebyshev and dual modes at 255^3 and ragged, and a remainder run
+    err["tiled_sweep+cheby"] = max(
+        [compare_cheby(tiled, shape, nu, "chebyshev", False, rng, device)
+         for shape in (MG_SIZE, RAGGED_SIZE) for nu in (2, 4)]
+        + [compare_cheby_iterate(RAGGED_SIZE, 4, 11, rng, device)])
+    err["tiled_sweep+dual"] = max(
+        compare_cheby(tiled, shape, nu, smoother, True, rng, device)
+        for shape in (MG_SIZE, RAGGED_SIZE)
+        for smoother, nu in (("wjacobi", 2), ("chebyshev", 4)))
+    # each fine-level operation of the solver paths of phase 4 at the
+    # path's own plan and right-hand side (PCG's cycle sees the CG residual
+    # there, for which a random field stands in), u random, zero walls
+    from stencil_tpu_torch.ops.layout import pad_source
+
+    solve_paths = {}
+    for name, args, _ in SOLVE_PATHS:
+        prob, f, mg, ops = solve_path(args)
+        solve_paths[name] = (prob, f, mg, ops)
+        rhs = rng.normal(size=prob.shape) if name == "pcg-cheby" else f
+        grid = prob.initial_grid(rng.random(prob.shape, dtype=np.float32))
+        for mode, op in ops:
+            src = pad_source(op.plan, rhs, op.source_scale,
+                             prob.bc).to(device)
+            err[mode] = max(err[mode], compare_plan(
+                tiled, op.plan, grid, src,
+                f"{mode} on the {name} path {prob.shape} "
+                f"{op.plan.spec.name} k={op.plan.sweeps_per_call} tiles "
+                f"{op.plan.tiles}"))
     print(f"PHASE 3 kernel vs plain: ok (max abs diff per mode "
           f"{ {k: float(f'{v:.3e}') for k, v in err.items()} })")
 
@@ -469,6 +777,23 @@ def main() -> int:
         n_solve = poisson_solve(small, kernel, device)
         poisson_big[mode] = poisson_golden(big, kernel, rng)
         launches[mode] = n_solve + poisson_big[mode][3]
+    # the solver paths: PCG (Chebyshev and dual modes), multigrid V(4,4)
+    # (source and dual modes), FMG on the tiled fine level
+    solve_counts = {name: run_solve_cli(cli, tiled, name, args, bar,
+                                        label)[1]
+                    for name, args, bar in SOLVE_PATHS}
+    for name, modes in (("pcg-cheby", ("tiled_sweep+cheby",
+                                       "tiled_sweep+dual")),
+                        ("mg-nu4", ("tiled_sweep+source",
+                                    "tiled_sweep+dual")),
+                        ("fmg", ("tiled_sweep+source", "tiled_sweep+dual"))):
+        for mode in modes:
+            require(solve_counts[name][mode] > 0,
+                    f"solver path {name} launched no {mode}")
+    for mode in ("tiled_sweep+source", "tiled_sweep+cheby",
+                 "tiled_sweep+dual"):
+        launches[mode] = launches.get(mode, 0) + sum(
+            c[mode] for c in solve_counts.values())
     print(f"PHASE 4 main paths: ok (launches {launches})")
 
     # 5. times
@@ -501,6 +826,80 @@ def main() -> int:
           hbm, label, f"cfg8 Poisson {POISSON_BIG} {runner.name} "
           f"{runner.plan_info['tiles']}")
 
+    # the multigrid cells at 255^3, bench.py's seeded random f
+    from stencil_tpu_torch.krylov import ConjugateGradient
+    from stencil_tpu_torch.multigrid import Multigrid
+
+    mprob = PoissonProblem(shape=MG_SIZE, device=DEVICE)
+    mf = torch.from_numpy(np.random.default_rng(MG_SEED).normal(
+        size=MG_SIZE).astype(np.float32)).to(device)
+    for name, kw in (
+            ("cfg10 wjacobi V(4,4), tiled fine level",
+             dict(nu1=4, nu2=4, fine_method="pallas_tiled")),
+            ("cfg11 chebyshev V(2,2), eager fine level",
+             dict(smoother="chebyshev")),
+            ("cfg17 chebyshev V(4,4), tiled fine level",
+             dict(nu1=4, nu2=4, smoother="chebyshev",
+                  fine_method="pallas_tiled")),
+            ("wjacobi V(2,2), eager fine level", {}),
+            ("wjacobi V(2,2), tiled fine level",
+             dict(fine_method="pallas_tiled"))):
+        ms_c, rho, decade, upd, res = time_cycles(Multigrid(mprob, **kw),
+                                                  mf, device)
+        print(f"{name} {MG_SIZE}: {ms_c:.4f} ms per V-cycle (median of 3 "
+              f"runs of {CYCLE_REPEATS}), contraction {rho:.4f} per cycle "
+              f"(update norms {[f'{u:.3e}' for u in upd]}; residual "
+              f"{[f'{r:.3e}' for r in res]}), {decade:.4f} ms per decade "
+              f"[{label}]")
+    # cfg13: PCG with Chebyshev multigrid on the tiled fine level
+    pcg = ConjugateGradient(mprob, preconditioner=Multigrid(
+        mprob, smoother="chebyshev", fine_method="pallas_tiled"))
+    for every in (8, 1):
+        def solve13():
+            return pcg.solve(mf, tolerance=1e-4, max_iterations=50,
+                             check_every=every)
+
+        res13 = solve13()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            solve13()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"cfg13 PCG chebyshev tiled {MG_SIZE} tol 1e-4, check_every="
+              f"{every}: {res13.summary()}; time to solution "
+              f"{sorted(walls)[1]:.3f} ms (median of {walls}) [{label}]")
+        require(res13.converged, "cfg13 did not converge")
+    # the error floor of the cycles at 255^3: manufactured sine, error
+    # against the exact solution after each cycle
+    from stencil_tpu_torch.models.poisson import manufactured_sine as sine
+
+    f_sine, u_sine = sine(MG_SIZE)
+    u_sine = torch.from_numpy(u_sine).to(device)
+    for dtype, kw in (("float32", dict(nu1=4, nu2=4,
+                                       fine_method="pallas_tiled")),
+                      ("float32", dict(nu1=4, nu2=4)),
+                      ("float64", dict(nu1=4, nu2=4)),
+                      ("float32", dict(smoother="chebyshev",
+                                       fine_method="pallas_tiled"))):
+        fprob = PoissonProblem(shape=MG_SIZE, dtype=dtype, device=DEVICE)
+        mgf = Multigrid(fprob, **kw)
+        frun, g = mgf.runner(f_sine), fprob.initial_grid()
+        errs = []
+        for _ in range(FLOOR_CYCLES):
+            g = frun.iterate(g, 1)
+            errs.append(float((g.interior().double() - u_sine).abs().max()))
+        print(f"error floor {dtype} {mgf.smoother} V({mgf.nu1},{mgf.nu2}) "
+              f"{mgf.fine_method} fine level {MG_SIZE}: error vs exact after "
+              f"cycles 1..{FLOOR_CYCLES} {[f'{e:.3e}' for e in errs]} (h^2 = "
+              f"{fprob.h ** 2:.3e}) [{label}]")
+    wall, busy, span = device_busy(solve13, device)
+    print(f"cfg13 one solve (check_every=1): host wall {wall:.3f} ms "
+          "unprofiled; " + ("device busy share not measured (the trace "
+                            "holds no device events)" if busy is None else
+                            f"device busy {busy:.3f} ms of a {span:.3f} ms "
+                            f"span, idle {100 * (1 - busy / span):.1f}%")
+          + f" [{label}]")
+
     # one launch per kernel mode at the shape, spec, k, tiles and source
     # of a main path that phase 3 held it at and phase 4 counted
     launch_inputs = []  # (mode, kernel, plan, padded u, padded source)
@@ -522,15 +921,37 @@ def main() -> int:
         launch_inputs.append((mode, kernel, plan, plan.layout.pad_grid(grid),
                               pad_source(plan, f, prob.source_scale,
                                          grid.bc).to(device)))
-    ms, plain_ms = {}, {}
+    # the Chebyshev and dual modes at the PCG path's plans, random f
+    prob, _, _, ops = solve_paths["pcg-cheby"]
+    for mode, op in ops:
+        grid = prob.initial_grid(rng.random(prob.shape, dtype=np.float32))
+        launch_inputs.append((mode, tiled, op.plan,
+                              op.plan.layout.pad_grid(grid),
+                              pad_source(op.plan, mf, op.source_scale,
+                                         prob.bc)))
+    # the library yardstick: one conv per sweep, in full fp32, cuDNN free
+    # to pick its fastest algorithm (time_call's untimed first call tunes)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    ms, plain_ms, library_ms, bound_ms, bound_by = {}, {}, {}, {}, {}
     for mode, kernel, plan, cur, src in launch_inputs:
         nxt = cur.clone()
-        ms[mode] = time_call(lambda: kernel(cur, nxt, plan, src), device, 20)
+        out2 = cur.clone() if getattr(plan, "cheby_dual", False) else None
+        ms[mode] = time_call(lambda: kernel(cur, nxt, plan, src, out2=out2),
+                             device, 20)
         plain_ms[mode] = time_call(lambda: sweep_reference(cur, plan, src),
                                    device, 5)
+        lib, lib_check = library_sweep(plan, cur, src)
+        library_ms[mode] = time_call(lib, device, 20)
+        bound_ms[mode], bound_by[mode] = bound(plan, src, out2 is not None)
         print(f"one call of {mode} {plan.spec.name} {plan.interior_shape} "
               f"k={plan.sweeps_per_call}, tiles {plan.tiles}: kernel "
-              f"{ms[mode]:.4f} ms, plain {plain_ms[mode]:.4f} ms [{label}]")
+              f"{ms[mode]:.4f} ms, plain {plain_ms[mode]:.4f} ms, bound "
+              f"{bound_ms[mode]:.4f} ms (by {bound_by[mode]}); library "
+              f"conv{len(plan.interior_shape)}d {library_ms[mode]:.4f} ms "
+              f"per sweep (the kernel does {plan.sweeps_per_call}; vs one "
+              f"plain sweep max abs diff {lib_check():.3e}) [{label}]")
 
     # the device's busy share over cfg1's main-path run (1024 iterations)
     cfg = RunConfig(size=CFG1[1], spec="jacobi5", temporal=CFG1[2],
@@ -554,11 +975,15 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": mode, "route": "cuda",
         "source": str(modules[mode.split("+")[0]].SOURCE.relative_to(ROOT)),
-        "replaces": modules[mode.split("+")[0]].REPLACES,
+        "replaces": getattr(modules[mode.split("+")[0]], "REPLACES_MODE",
+                            {}).get(mode,
+                                    modules[mode.split("+")[0]].REPLACES),
         "launches": launches[mode], "max_abs_err": err[mode],
         "ms": ms[mode], "plain_ms": plain_ms[mode],
-    } for mode in ("tiled_sweep", "tiled_sweep+source", "slab_sweep",
-                   "slab_sweep+source")]}))
+        "bound_ms": bound_ms[mode], "bound_by": bound_by[mode],
+        "library_ms": library_ms[mode],
+    } for mode in ("tiled_sweep", "tiled_sweep+source", "tiled_sweep+cheby",
+                   "tiled_sweep+dual", "slab_sweep", "slab_sweep+source")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -6,10 +6,13 @@ optionally check it against the float64 golden model, then time it
 (marginal, autoranged) and report GLUPS and the fraction of the
 measured-HBM roofline, plus ``-R`` wall-clock repeats. Grids live on
 ``--device`` (default ``cuda``); there is no host-resident grid, because
-out-of-core streaming is not ported.
+out-of-core streaming is not ported. ``--solve`` hands the run to
+``solve_cli.run_solve``, as the JAX CLI does.
 
   python -m stencil_tpu_torch -s 256 256 256 --spec jacobi7 \\
       -m pallas_temporal -k 8 -c
+  python -m stencil_tpu_torch --solve poisson -s 255 255 255 \\
+      --smoother chebyshev --tol 1e-5 -c
 """
 
 from __future__ import annotations
@@ -106,6 +109,10 @@ def bench_method(config: RunConfig, spec, runner):
 def run_all(config: RunConfig, out=None) -> List[dict]:
     out = out if out is not None else sys.stdout
     config.check_ported()
+    if config.solve:
+        from stencil_tpu_torch import solve_cli
+
+        return solve_cli.run_solve(config, out)
     spec = config.resolved_spec()
     points = int(np.prod(config.size))
     device = check_device(config.device)
@@ -183,7 +190,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     config = parse_args(argv)
     try:
         config.check_ported()
-        config.resolved_spec()
+        if not config.solve:  # solve mode has no iterate spec
+            config.resolved_spec()
         overlap = set(config.periodic_dims()) & set(config.neumann_dims())
         if overlap:
             raise ValueError(
@@ -197,7 +205,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if config.verbose:
         print(f"total driver time: {timer.pretty()}")
     bad = [r for r in results
-           if r.get("check", {}).get("ok") is False or "error" in r]
+           if r.get("check", {}).get("ok") is False or "error" in r
+           or r.get("converged") is False]
     return 1 if bad else 0
 
 

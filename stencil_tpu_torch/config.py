@@ -11,9 +11,13 @@ Two groups of flags do nothing here, on purpose:
   ``--embed``, ``--autotune``) are accepted and recorded in the runner's
   ``plan_info`` under ``ignored``; the machinery they tune does not exist
   on the GPU and is removed by design.
-- Flags of features outside the ported slice (``--solve``, ``--mesh``,
-  ``--chunks``, ``--checkpoint-dir``, ``--dump-image``, ``--profile``)
-  raise ``NotImplementedError`` from :meth:`RunConfig.check_ported`.
+- Flags of features outside the ported slice (``--mesh``, ``--chunks``,
+  ``--checkpoint-dir``, ``--dump-image``, ``--profile``) raise
+  ``NotImplementedError`` from :meth:`RunConfig.check_ported`. In solve
+  mode (``--solve``, ported for the ``poisson`` family)
+  ``solve_cli.run_solve`` reports ``--mesh``, ``--checkpoint-dir`` and
+  ``--dump-image`` as an error record instead, as the JAX ``run_solve``
+  reports its own refusals.
 """
 
 from __future__ import annotations
@@ -57,11 +61,14 @@ class RunConfig:
     cores: int = 1
     embed: bool = False
 
-    # not ported yet: set -> check_ported() raises
+    # steady solver stack: the problem family (poisson is ported)
+    solve: Optional[str] = None
+
+    # not ported yet: set -> check_ported() raises (or, in solve mode,
+    # run_solve's error record)
     mesh: Tuple[int, ...] = ()
     no_overlap: bool = False
     chunks: Optional[int] = None
-    solve: Optional[str] = None
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 100
     dump_image: Optional[str] = None
@@ -71,7 +78,7 @@ class RunConfig:
     periodic: Tuple[object, ...] = ()
     neumann: Tuple[object, ...] = ()
 
-    # solver-mode settings (used only with --solve, which is not ported)
+    # solver-mode settings (used only with --solve)
     solver: str = "auto"
     tolerance: float = 1e-5
     precond: Optional[str] = None
@@ -133,14 +140,15 @@ class RunConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for a requested feature that the
-        port does not have yet."""
+        port does not have yet (solve mode leaves ``--mesh``,
+        ``--checkpoint-dir`` and ``--dump-image`` to ``run_solve``)."""
+        iterate = self.solve is None
         missing = [flag for flag, on in (
-            ("--solve", self.solve is not None),
-            ("--mesh", bool(self.mesh)),
+            ("--mesh", bool(self.mesh) and iterate),
             ("--no-overlap", self.no_overlap),
             ("--chunks", self.chunks is not None),
-            ("--checkpoint-dir", self.checkpoint_dir is not None),
-            ("--dump-image", self.dump_image is not None),
+            ("--checkpoint-dir", self.checkpoint_dir is not None and iterate),
+            ("--dump-image", self.dump_image is not None and iterate),
             ("--profile", self.profile_dir is not None),
         ) if on]
         if missing:
@@ -207,33 +215,56 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TPU tap evaluation strategy: accepted and ignored")
     p.add_argument("--solve", type=str, default=None,
                    choices=["poisson", "hetero", "advdiff"],
-                   help="solver stack (not ported yet)")
+                   help="steady solver stack: the problem family (poisson; "
+                        "hetero and advdiff not ported yet)")
     p.add_argument("--solver", type=str, default="auto",
                    choices=["auto", "relax", "mg", "fmg", "cg", "pcg",
-                            "bicgstab", "gmres"])
-    p.add_argument("--tol", type=float, default=1e-5, dest="tolerance")
+                            "bicgstab", "gmres"],
+                   help="solve mode: auto (= pcg), relax, mg, fmg, cg, pcg "
+                        "(bicgstab, gmres not ported yet)")
+    p.add_argument("--tol", type=float, default=1e-5, dest="tolerance",
+                   help="solve mode: tolerance (Krylov: relative 2-norm; "
+                        "mg/relax: max update per iteration)")
     p.add_argument("--precond", type=str, default=None,
-                   choices=["none", "mg", "opmg"])
+                   choices=["none", "mg", "opmg"],
+                   help="cg/pcg preconditioner (opmg not ported yet)")
     p.add_argument("--precond-dtype", type=str, default=None,
-                   choices=["float32", "bfloat16"])
+                   choices=["float32", "bfloat16"],
+                   help="pcg: dtype of the eager preconditioning cycle")
     p.add_argument("--smoother", type=str, default="wjacobi",
-                   choices=["wjacobi", "chebyshev"])
-    p.add_argument("--gamma", type=int, default=1, choices=[1, 2])
+                   choices=["wjacobi", "chebyshev"],
+                   help="multigrid smoother")
+    p.add_argument("--gamma", type=int, default=1, choices=[1, 2],
+                   help="multigrid cycle index: 1 V-cycle, 2 W-cycle")
     p.add_argument("--nu-smooth", type=int, nargs=2, default=[2, 2],
-                   metavar=("NU1", "NU2"))
+                   metavar=("NU1", "NU2"),
+                   help="multigrid pre/post smoothing sweeps")
     p.add_argument("--fine-method", type=str, default="auto",
-                   choices=["auto", "xla", "pallas_tiled"])
-    p.add_argument("--restart", type=int, default=16)
-    p.add_argument("--warm-start", type=str, default=None, choices=["fmg"])
-    p.add_argument("--velocity", type=float, nargs="+", default=[])
-    p.add_argument("--nu", type=float, default=1.0)
+                   choices=["auto", "xla", "pallas_tiled"],
+                   help="multigrid fine level: xla (eager torch ops), "
+                        "pallas_tiled (the tiled CUDA kernel, 3D), auto "
+                        "(tiled on a card for chebyshev, or wjacobi at "
+                        "nu >= 4)")
+    p.add_argument("--restart", type=int, default=16,
+                   help="gmres restart (not ported yet)")
+    p.add_argument("--warm-start", type=str, default=None, choices=["fmg"],
+                   help="Krylov initial iterate: one FMG pass")
+    p.add_argument("--velocity", type=float, nargs="+", default=[],
+                   help="advdiff (not ported yet)")
+    p.add_argument("--nu", type=float, default=1.0,
+                   help="advdiff (not ported yet)")
     p.add_argument("--scheme", type=str, default="upwind",
-                   choices=["upwind", "central"])
-    p.add_argument("--contrast", type=float, default=100.0)
+                   choices=["upwind", "central"],
+                   help="advdiff (not ported yet)")
+    p.add_argument("--contrast", type=float, default=100.0,
+                   help="hetero (not ported yet)")
     p.add_argument("--rhs", type=str, default="auto",
-                   choices=["auto", "sine", "random", "ones"])
+                   choices=["auto", "sine", "random", "ones"],
+                   help="solve mode right-hand side (auto: the "
+                        "manufactured sine for poisson)")
     p.add_argument("--op-kernel", type=str, default="auto",
-                   choices=["auto", "xla", "pallas"])
+                   choices=["auto", "xla", "pallas"],
+                   help="hetero operator kernel (not ported yet)")
     p.add_argument("-R", "--repeat", type=int, default=1,
                    help="timed wall-clock repeats and marginal-timing "
                         "repeats")

@@ -2,20 +2,34 @@
 // fp32 grid, in one launch. Hand-written for Hopper (sm_90a).
 //
 // Replaces stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep (the Pallas
-// TPU kernel, pallas_call at :1821) in its homogeneous mode and in its
-// source mode (has_source, the affine sweep u' = S(u) + src behind Poisson
-// relaxation), with every Dirichlet face pinned (pins all ones). Wrapper
-// and plain PyTorch version: stencil_tpu_torch/ops/tiled_kernel.py.
+// TPU kernel, pallas_call at :1821) in four of its modes, with every
+// Dirichlet face pinned (pins all ones):
+//   - homogeneous: k sweeps of a StencilSpec;
+//   - source (has_source): the affine sweep u' = S(u) + src behind Poisson
+//     relaxation and the multigrid weighted-Jacobi smoother;
+//   - Chebyshev (cheby_coeffs, TPU body compute_cheby at :1433-1495): k
+//     sweeps of the per-sweep affine recurrence
+//       u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} + pv_t*u_{t-2} + s_t*f
+//     with S the center-less radius-1 neighbour sum and no u_{t-2} term
+//     at t = 1 (the multigrid Chebyshev smoother);
+//   - dual (cheby_dual, :1476-1483): the Chebyshev recurrence whose sweep
+//     k-1 also goes to a second output `out2`, while sweep k (the
+//     residual tuple) goes to `out`: the multigrid fused smooth+residual.
+// Wrapper and plain PyTorch version: stencil_tpu_torch/ops/tiled_kernel.py.
 //
 // What it computes. `in` and `out` are padded (n0+2H, n1+2H, n2+2H) fp32
 // arrays whose H >= k*r ghost layers hold the Dirichlet face values. `out`
 // receives k sweeps of the stencil applied to `in`, interior points only;
-// ghost cells of `out` are never written (the caller keeps them equal to
-// those of `in`). Holding the ghosts constant between sweeps is what the
-// TPU kernel's re-pinning of the ghost bands does. With a source, every
-// interior update of every sweep adds the padded source at its point
-// (one fp32 add after the taps, as the TPU kernel adds it at :1326-1335),
-// read through the read-only cache; ghosts copy along without it.
+// ghost cells of `out` (and `out2`) are never written (the caller keeps
+// them equal to those of `in`). Holding the ghosts constant between sweeps
+// is what the TPU kernel's re-pinning of the ghost bands does. With a
+// source, every interior update of every sweep adds the padded source at
+// its point (one fp32 add after the taps, as the TPU kernel adds it at
+// :1326-1335), read through the read-only cache; ghosts copy along
+// without it. In the Chebyshev modes the source holds the raw f and each
+// sweep scales it by its own s_t; the update is formed as
+// ((n*S + c*u) + s*f) + pv*prev, each step a separate rounded multiply or
+// add in the TPU kernel's order (:1465-1471).
 //
 // How. One block per 3D output tile of (t0, t1, t2) points. It loads the
 // tile's window, the tile grown by k*r on every side, into shared memory,
@@ -26,6 +40,14 @@
 // along. The last sweep's region is the tile itself, all interior, and goes
 // straight to global memory.
 //
+// The Chebyshev recurrence needs three windows (u_{t-1}, u_{t-2} and the
+// destination) but keeps two: at sweep t the buffer being written still
+// holds u_{t-2}, over a region that contains sweep t's, so each thread
+// reads prev[p] and then writes u_t[p] at the same point, while every
+// neighbour read goes to the other buffer. So a Chebyshev or dual launch
+// uses exactly the shared memory of a source launch, and the plan chooser
+// counts it the same (ops/tiled.py).
+//
 // Ragged grids: the last tile of a dim whose extent is not a multiple of
 // the tile starts early, at n - t (clamped, as build_tiled_sweep does at
 // :732-745). It overlaps its neighbour; both compute the overlap from the
@@ -35,19 +57,26 @@
 // evaluated by stencil_taps.cuh, bitwise as the eager torch version
 // (ops/eager.py) rounds. The tap counts of the named 3D specs (6, 12, 26)
 // get an unrolled evaluator with the offsets in registers; any other count
-// up to stencil::kMaxTaps reads the table in a loop.
+// up to stencil::kMaxTaps reads the table in a loop. The Chebyshev
+// coefficients are passed by value too, rounded to fp32 on the host.
 //
 // Bound. Temporal blocking exists to cut HBM bytes: one launch reads the
 // padded array once (plus the windows' overlap, mostly from L2) and writes
-// it once for k sweeps. On the H100 that is not what binds this kernel:
-// the shrinking windows recompute their overlap (at k=8 an (8,16,16) tile
-// updates ~4.5 points per useful update), every update reads its taps from
-// shared memory, and a block holding one or two windows leaves few warps to
-// hide latency. So instruction issue and latency bind it, and the loops
-// are written to issue little: no division per point, loads unrolled so
-// that several are in flight. Loads are plain, not TMA or cp.async, and do
-// not overlap compute within a block: that, and streaming d0 through
-// registers so that d0 is not recomputed, is later work.
+// it once for k sweeps; by the roofline rule (each input read once, each
+// output written once) every mode is bound by bytes on the H100, at a
+// small k (the multigrid smoothers run k = 1..5) by a wide margin. On the
+// card that is not what binds this kernel: the shrinking windows recompute
+// their overlap (at k=8 an (8,16,16) tile updates ~4.5 points per useful
+// update), every update reads its taps from shared memory, and a block
+// holding one or two windows leaves few warps to hide latency. So
+// instruction throughput and latency bind it, and the loops are written
+// to execute few instructions: no division per point, loads unrolled so that several are
+// in flight, the sweep's four Chebyshev coefficients read once per sweep.
+// The Chebyshev modes add one source read (read-only cache) and, from
+// t = 2, one shared read per update; the dual mode one global store per
+// tile point. Loads are plain, not TMA or cp.async, and do not overlap
+// compute within a block: that, and streaming d0 through registers so that
+// d0 is not recomputed, is later work.
 
 #include <cuda_runtime.h>
 
@@ -64,9 +93,13 @@ constexpr int kBlockX = 32;   // threads along d2 (contiguous)
 constexpr int kBlockY = 16;   // threads along the flattened (d0, d1) rows
 constexpr int kThreads = kBlockX * kBlockY;
 constexpr int kGeomLen = 15;
+constexpr int kMaxSweeps = 16;  // Chebyshev coefficient tuples per launch
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
 constexpr int kErrArgument = -1;
 constexpr int kErrShared = -2;
+
+// What a launch computes (see the header).
+enum Mode { kPlain = 0, kSource = 1, kCheby = 2, kDual = 3 };
 
 struct Geometry {
   int n0, n1, n2;   // interior extents
@@ -78,13 +111,22 @@ struct Geometry {
   int w0, w1, w2;   // window extents, t + 2*k*r
 };
 
-// NT > 0: a spec of exactly NT taps; NT == 0: any spec. SRC: every
-// interior update adds the padded source `source` at its point.
-template <int NT, bool SRC>
+// Per-sweep (c, n, pv, s) of the Chebyshev modes, fp32 as the host rounded
+// them; sweep t (1-based) uses entry t-1.
+struct Coeffs {
+  float c[kMaxSweeps], n[kMaxSweeps], pv[kMaxSweeps], s[kMaxSweeps];
+};
+
+// NT > 0: a spec of exactly NT taps; NT == 0: any spec. MODE: see Mode;
+// `source` is read in every mode but kPlain, `coeffs` in kCheby and kDual,
+// `out2` in kDual only.
+template <int NT, int MODE>
 __global__ void __launch_bounds__(kThreads)
 tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
+                   float* __restrict__ out2,
                    const float* __restrict__ source, const Geometry g,
-                   const __grid_constant__ Taps taps) {
+                   const __grid_constant__ Taps taps,
+                   const __grid_constant__ Coeffs coeffs) {
   extern __shared__ float smem[];
   const int wvol = g.w0 * g.w1 * g.w2;
   float* cur = smem;
@@ -139,6 +181,15 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
     const int rows1 = g.w1 - 2 * e;
     const int rows = (g.w0 - 2 * e) * rows1;
     const bool last = t == g.k;
+    // dual mode: sweep k-1 also writes the tile, [kr, kr + t) per dim
+    const bool dual_out = MODE == kDual && t == g.k - 1;
+    float cc = 0.0f, cn = 0.0f, cpv = 0.0f, cs = 0.0f;
+    if constexpr (MODE == kCheby || MODE == kDual) {
+      cc = coeffs.c[t - 1];
+      cn = coeffs.n[t - 1];
+      cpv = coeffs.pv[t - 1];
+      cs = coeffs.s[t - 1];
+    }
     // this thread's rows: threadIdx.y, + kBlockY, ... as (a, c1), carried
     const int sc1 = kBlockY % rows1;
     const int sa = kBlockY / rows1;
@@ -147,6 +198,8 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
     for (int row = threadIdx.y; row < rows; row += kBlockY) {
       const int wa = a + e, wc1 = c1 + e;
       const bool inner = wa >= lo0 && wa < hi0 && wc1 >= lo1 && wc1 < hi1;
+      const bool tile_row = dual_out && wa >= kr && wa < kr + g.t0 &&
+                            wc1 >= kr && wc1 < kr + g.t1;
       const int base = (wa * g.w1 + wc1) * g.w2;
       const int64_t grow = ((int64_t)(o0 + wa) * g.p1 + (o1 + wc1)) * g.p2 + o2;
       for (int c = threadIdx.x + e; c < g.w2 - e; c += kBlockX) {
@@ -154,7 +207,14 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
         float v;
         if (inner && c >= lo2 && c < hi2) {
           v = stencil_at(cur, p, taps);
-          if constexpr (SRC) v = __fadd_rn(v, __ldg(source + grow + c));
+          if constexpr (MODE == kSource) {
+            v = __fadd_rn(v, __ldg(source + grow + c));
+          } else if constexpr (MODE == kCheby || MODE == kDual) {
+            v = __fadd_rn(__fadd_rn(__fmul_rn(cn, v), __fmul_rn(cc, cur[p])),
+                          __fmul_rn(cs, __ldg(source + grow + c)));
+            // nxt still holds u_{t-2} here (see the header)
+            if (t >= 2) v = __fadd_rn(v, __fmul_rn(cpv, nxt[p]));
+          }
         } else {
           v = cur[p];
         }
@@ -162,6 +222,9 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
           out[grow + c] = v;
         } else {
           nxt[p] = v;
+          if constexpr (MODE == kDual) {
+            if (tile_row && c >= kr && c < kr + g.t2) out2[grow + c] = v;
+          }
         }
       }
       c1 += sc1;
@@ -178,38 +241,90 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
 }
 
-template <int NT, bool SRC>
-cudaError_t launch(const float* in, float* out, const float* source,
-                   const Geometry& g, const Taps& taps, unsigned nblocks,
-                   size_t shared, cudaStream_t stream) {
+struct Launch {
+  const float* in;
+  float* out;
+  float* out2;
+  const float* source;
+  Geometry g;
+  unsigned nblocks;
+  size_t shared;
+  cudaStream_t stream;
+};
+
+template <int NT, int MODE>
+cudaError_t launch(const Launch& l, const Taps& taps, const Coeffs& co) {
   cudaError_t err = cudaFuncSetAttribute(
-      tiled_sweep_kernel<NT, SRC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+      tiled_sweep_kernel<NT, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.shared);
   if (err != cudaSuccess) return err;
-  tiled_sweep_kernel<NT, SRC><<<nblocks, dim3(kBlockX, kBlockY), shared,
-                                stream>>>(in, out, source, g, taps);
+  tiled_sweep_kernel<NT, MODE><<<l.nblocks, dim3(kBlockX, kBlockY), l.shared,
+                                 l.stream>>>(l.in, l.out, l.out2, l.source,
+                                             l.g, taps, co);
   return cudaGetLastError();
 }
 
-template <bool SRC>
-cudaError_t dispatch(int ntaps, const float* in, float* out,
-                     const float* source, const Geometry& g,
-                     const Taps& taps, unsigned nblocks, size_t shared,
-                     cudaStream_t stream) {
+template <int MODE>
+cudaError_t dispatch(int ntaps, const Launch& l, const Taps& taps,
+                     const Coeffs& co) {
   switch (ntaps) {
-    case 6:   // jacobi7
-      return launch<6, SRC>(in, out, source, g, taps, nblocks, shared,
-                            stream);
+    case 6:   // jacobi7, the multigrid neighbour sum
+      return launch<6, MODE>(l, taps, co);
     case 12:  // star3d_r2, laplace3d_ho
-      return launch<12, SRC>(in, out, source, g, taps, nblocks, shared,
-                             stream);
+      return launch<12, MODE>(l, taps, co);
     case 26:  // jacobi27
-      return launch<26, SRC>(in, out, source, g, taps, nblocks, shared,
-                             stream);
+      return launch<26, MODE>(l, taps, co);
     default:
-      return launch<0, SRC>(in, out, source, g, taps, nblocks, shared,
-                            stream);
+      return launch<0, MODE>(l, taps, co);
   }
+}
+
+// Checks the geometry and the tap table and fills `l` (but its pointers
+// and stream) and `taps`; 0 or a negative error code.
+int prepare(const int32_t* geom, int ngeom, const int32_t* tap_offsets,
+            const int32_t* group_sizes, const float* group_weights,
+            int ntaps, int ngroups, int uniform, float uniform_weight,
+            Launch& l, Taps& taps) {
+  if (ngeom != kGeomLen) return kErrArgument;
+  const int n0 = geom[0], n1 = geom[1], n2 = geom[2];
+  const int p0 = geom[3], p1 = geom[4], p2 = geom[5], halo = geom[6];
+  const int t0 = geom[7], t1 = geom[8], t2 = geom[9];
+  const int nt0 = geom[10], nt1 = geom[11], nt2 = geom[12];
+  const int k = geom[13], r = geom[14];
+  if (k < 1 || r < 1 || (int64_t)k * r > halo) return kErrArgument;
+  if (p0 != n0 + 2 * halo || p1 != n1 + 2 * halo || p2 != n2 + 2 * halo)
+    return kErrArgument;
+  if (t0 < 1 || t0 > n0 || t1 < 1 || t1 > n1 || t2 < 1 || t2 > n2)
+    return kErrArgument;
+  if (nt0 != (n0 + t0 - 1) / t0 || nt1 != (n1 + t1 - 1) / t1 ||
+      nt2 != (n2 + t2 - 1) / t2)
+    return kErrArgument;
+  const int64_t nblocks = (int64_t)nt0 * nt1 * nt2;
+  if (nblocks > 0x7fffffff) return kErrArgument;
+
+  Geometry& g = l.g;
+  g.n0 = n0; g.n1 = n1; g.n2 = n2;
+  g.p1 = p1; g.p2 = p2; g.halo = halo;
+  g.t0 = t0; g.t1 = t1; g.t2 = t2;
+  g.nt1 = nt1; g.nt2 = nt2;
+  g.k = k; g.r = r;
+  g.w0 = t0 + 2 * k * r; g.w1 = t1 + 2 * k * r; g.w2 = t2 + 2 * k * r;
+  const size_t window = (size_t)g.w0 * g.w1 * g.w2;
+  l.shared = (k > 1 ? 2 : 1) * window * sizeof(float);
+  if (l.shared > kMaxSharedBytes) return kErrShared;
+  l.nblocks = (unsigned)nblocks;
+
+  if (!stencil::fill_groups(taps, group_sizes, group_weights, ntaps,
+                            ngroups, uniform, uniform_weight))
+    return kErrArgument;
+  for (int i = 0; i < ntaps; ++i) {
+    const int d0 = tap_offsets[3 * i], d1 = tap_offsets[3 * i + 1],
+              d2 = tap_offsets[3 * i + 2];
+    if (d0 < -r || d0 > r || d1 < -r || d1 > r || d2 < -r || d2 > r)
+      return kErrArgument;
+    taps.off[i] = (d0 * g.w1 + d1) * g.w2 + d2;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -233,58 +348,62 @@ int stencil_tiled_sweep(const float* in, float* out, const float* source,
                         const float* group_weights, int ntaps, int ngroups,
                         int uniform, float uniform_weight, int device,
                         void* stream) {
-  if (ngeom != kGeomLen) return kErrArgument;
-  const int n0 = geom[0], n1 = geom[1], n2 = geom[2];
-  const int p0 = geom[3], p1 = geom[4], p2 = geom[5], halo = geom[6];
-  const int t0 = geom[7], t1 = geom[8], t2 = geom[9];
-  const int nt0 = geom[10], nt1 = geom[11], nt2 = geom[12];
-  const int k = geom[13], r = geom[14];
-  if (k < 1 || r < 1 || (int64_t)k * r > halo) return kErrArgument;
-  if (p0 != n0 + 2 * halo || p1 != n1 + 2 * halo || p2 != n2 + 2 * halo)
-    return kErrArgument;
-  if (t0 < 1 || t0 > n0 || t1 < 1 || t1 > n1 || t2 < 1 || t2 > n2)
-    return kErrArgument;
-  if (nt0 != (n0 + t0 - 1) / t0 || nt1 != (n1 + t1 - 1) / t1 ||
-      nt2 != (n2 + t2 - 1) / t2)
-    return kErrArgument;
-  const int64_t nblocks = (int64_t)nt0 * nt1 * nt2;
-  if (nblocks > 0x7fffffff) return kErrArgument;
-
-  Geometry g;
-  g.n0 = n0; g.n1 = n1; g.n2 = n2;
-  g.p1 = p1; g.p2 = p2; g.halo = halo;
-  g.t0 = t0; g.t1 = t1; g.t2 = t2;
-  g.nt1 = nt1; g.nt2 = nt2;
-  g.k = k; g.r = r;
-  g.w0 = t0 + 2 * k * r; g.w1 = t1 + 2 * k * r; g.w2 = t2 + 2 * k * r;
-  const size_t window = (size_t)g.w0 * g.w1 * g.w2;
-  const size_t shared = (k > 1 ? 2 : 1) * window * sizeof(float);
-  if (shared > kMaxSharedBytes) return kErrShared;
-
+  Launch l;
   Taps taps;
-  if (!stencil::fill_groups(taps, group_sizes, group_weights, ntaps,
-                            ngroups, uniform, uniform_weight))
-    return kErrArgument;
-  for (int i = 0; i < ntaps; ++i) {
-    const int d0 = tap_offsets[3 * i], d1 = tap_offsets[3 * i + 1],
-              d2 = tap_offsets[3 * i + 2];
-    if (d0 < -r || d0 > r || d1 < -r || d1 > r || d2 < -r || d2 > r)
-      return kErrArgument;
-    taps.off[i] = (d0 * g.w1 + d1) * g.w2 + d2;
-  }
-
+  const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps);
+  if (rc != 0) return rc;
+  l.in = in; l.out = out; l.out2 = nullptr; l.source = source;
+  l.stream = (cudaStream_t)stream;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const unsigned nb = (unsigned)nblocks;
-  return source ? (int)dispatch<true>(ntaps, in, out, source, g, taps, nb,
-                                      shared, s)
-                : (int)dispatch<false>(ntaps, in, out, source, g, taps, nb,
-                                       shared, s);
+  const Coeffs none{};
+  return source ? (int)dispatch<kSource>(ntaps, l, taps, none)
+                : (int)dispatch<kPlain>(ntaps, l, taps, none);
+}
+
+// The Chebyshev modes: k sweeps of u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} +
+// pv_t*u_{t-2} + s_t*f, S the spec (radius 1), `source` the padded raw f
+// (required), `coeffs` float[4*k] as (c, n, pv, s) per sweep, k <= 16.
+// With `out2` (dual mode, k >= 2) sweep k-1 is written to `out2` as well,
+// and sweep k to `out`. The other arguments and the return value are those
+// of stencil_tiled_sweep.
+int stencil_tiled_sweep_cheby(const float* in, float* out, float* out2,
+                              const float* source, const int32_t* geom,
+                              int ngeom, const float* coeffs, int ncoeffs,
+                              const int32_t* tap_offsets,
+                              const int32_t* group_sizes,
+                              const float* group_weights, int ntaps,
+                              int ngroups, int uniform, float uniform_weight,
+                              int device, void* stream) {
+  Launch l;
+  Taps taps;
+  const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps);
+  if (rc != 0) return rc;
+  const int k = l.g.k;
+  if (source == nullptr || coeffs == nullptr || l.g.r != 1 ||
+      k > kMaxSweeps || ncoeffs != 4 * k || (out2 != nullptr && k < 2))
+    return kErrArgument;
+  Coeffs co{};
+  for (int t = 0; t < k; ++t) {
+    co.c[t] = coeffs[4 * t];
+    co.n[t] = coeffs[4 * t + 1];
+    co.pv[t] = coeffs[4 * t + 2];
+    co.s[t] = coeffs[4 * t + 3];
+  }
+  l.in = in; l.out = out; l.out2 = out2; l.source = source;
+  l.stream = (cudaStream_t)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return out2 ? (int)dispatch<kDual>(ntaps, l, taps, co)
+              : (int)dispatch<kCheby>(ntaps, l, taps, co);
 }
 
 const char* stencil_tiled_sweep_error(int code) {
-  if (code == kErrArgument) return "rejected geometry or tap table";
+  if (code == kErrArgument) return "rejected geometry, tap table or coefficients";
   if (code == kErrShared) return "window exceeds 232448 bytes of shared memory";
   return cudaGetErrorString((cudaError_t)code);
 }

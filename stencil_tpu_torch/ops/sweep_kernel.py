@@ -10,6 +10,14 @@ table in ``weight_groups`` order, the device and the stream. Each launch
 runs ``plan.sweeps_per_call`` sweeps with the Dirichlet ghosts held
 constant, and agrees bitwise with :func:`sweep_reference`.
 
+The 3D kernel has two more modes, for a plan with ``cheby_coeffs``
+(the multigrid smoothers): the Chebyshev recurrence
+``u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} + pv_t*u_{t-2} + s_t*f`` over the raw
+padded ``f``, and its dual form (``plan.cheby_dual``), which also writes
+sweep k-1 to a second output. They have their own C entry,
+``stencil_<name>_cheby``, which takes the coefficients as float32[4k] and
+the second output pointer.
+
 A wrapper takes the plain version only for tensors on the CPU (the tests);
 for CUDA tensors it launches the kernel or raises. :class:`KernelStencil`
 is the iterate both user-facing handles (``TiledStencil``,
@@ -21,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,21 +56,59 @@ def tap_table(spec):
         np.float32(uw if uw is not None else 0.0))
 
 
+def cheby_of(plan) -> Tuple[Tuple[float, float, float, float], ...]:
+    """The plan's Chebyshev coefficients, each rounded to float32 once
+    (kernel and plain version use these values); () outside that mode."""
+    return tuple(tuple(float(np.float32(v)) for v in c)
+                 for c in getattr(plan, "cheby_coeffs", ()))
+
+
 @functools.lru_cache(maxsize=64)
 def launch_tables(plan):
     """The host arrays one launch of ``plan`` passes (geometry, then
-    :func:`tap_table`), built once per plan rather than per launch."""
+    :func:`tap_table`, then the Chebyshev coefficients as float32[4k], empty
+    outside that mode), built once per plan rather than per launch."""
     return (np.asarray(plan.kernel_geometry(), dtype=np.int32),
-            *tap_table(plan.spec))
+            *tap_table(plan.spec),
+            np.asarray(cheby_of(plan), dtype=np.float32).reshape(-1))
+
+
+def _cheby_reference(cur: torch.Tensor, plan, src: torch.Tensor):
+    """Plain version of the Chebyshev modes, in the kernel's per-point
+    order: ``((n*S(u) + c*u) + s*f) + pv*prev``, each a whole-array eager
+    op with the float32-rounded coefficient, no ``prev`` term at t = 1."""
+    h = plan.layout.halo
+    idx = plan.layout.interior_index
+    f = src[idx]
+    prev, u = None, cur
+    outs = []
+    for t, (c, n, pv, s) in enumerate(cheby_of(plan), 1):
+        y = eager.apply_spec(u, plan.spec, halo=h)
+        y.mul_(n)
+        y.add_(u[idx] * c)
+        y.add_(f * s)
+        if t >= 2:
+            y.add_(prev[idx] * pv)
+        nxt = cur.clone()
+        nxt[idx] = y
+        prev, u = u, nxt
+        outs.append(nxt)
+    return (outs[-1], outs[-2]) if plan.cheby_dual else outs[-1]
 
 
 def sweep_reference(cur: torch.Tensor, plan,
-                    src: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    src: Optional[torch.Tensor] = None):
     """Plain version of a sweep kernel: ``plan.sweeps_per_call``
     whole-array eager sweeps of the padded tensor ``cur``, ghosts held
     constant. With ``src`` (padded like ``cur``), each sweep adds its
     interior after the taps. Returns a new padded tensor; ``cur`` is
-    unchanged."""
+    unchanged.
+
+    A plan with ``cheby_coeffs`` runs the Chebyshev recurrence over the raw
+    ``src`` instead; in its dual mode the result is the pair ``(sweep k,
+    sweep k-1)``, the residual and the smoothed iterate."""
+    if getattr(plan, "cheby_coeffs", ()):
+        return _cheby_reference(cur, plan, src)
     h = plan.layout.halo
     a = cur.clone()
     b = cur.clone()
@@ -80,8 +126,10 @@ def sweep_reference(cur: torch.Tensor, plan,
 
 class SweepKernel:
     """One hand-written sweep kernel: its build, its wrapper (call it as
-    ``kernel(cur, nxt, plan, src=None)``) and its counts of launches:
-    ``launches`` in all, ``source_launches`` of them in source mode.
+    ``kernel(cur, nxt, plan, src=None, out2=None)``) and its counts of
+    launches: ``launches`` in all, of them ``source_launches`` in source
+    mode, ``cheby_launches`` in Chebyshev mode and ``dual_launches`` in
+    its dual mode.
 
     ``name`` names the library and its C entry ``stencil_<name>``;
     ``source`` is the ``.cu`` file; ``replaces`` is where the TPU kernel
@@ -96,6 +144,12 @@ class SweepKernel:
         # count)
         self.launches = 0
         self.source_launches = 0
+        self.cheby_launches = 0
+        self.dual_launches = 0
+
+    def reset_counts(self) -> None:
+        self.launches = self.source_launches = 0
+        self.cheby_launches = self.dual_launches = 0
 
     def build(self) -> _build.BuildResult:
         """Compile the source (cached by content). Raises
@@ -128,7 +182,21 @@ class SweepKernel:
         err = getattr(lib, f"stencil_{self.name}_error")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-        return fn, err
+        cheby = getattr(lib, f"stencil_{self.name}_cheby", None)
+        if cheby is not None:
+            cheby.restype = ctypes.c_int
+            cheby.argtypes = [
+                ctypes.c_void_p,  # in (device)
+                ctypes.c_void_p,  # out (device)
+                ctypes.c_void_p,  # out2 (device), or null
+                ctypes.c_void_p,  # padded raw source (device)
+                ctypes.c_void_p,  # geometry, int32 (host)
+                ctypes.c_int,     # geometry length
+                ctypes.c_void_p,  # coefficients, float32[4k] (host)
+                ctypes.c_int,     # coefficient count, 4k
+                *fn.argtypes[5:],  # the tap table, device and stream
+            ]
+        return fn, err, cheby
 
     def library(self):
         """Build and load the library; returns its C entry
@@ -136,7 +204,8 @@ class SweepKernel:
         return self._entry[0]
 
     def check(self, cur: torch.Tensor, nxt: torch.Tensor, plan,
-              src: Optional[torch.Tensor] = None, pins=None) -> None:
+              src: Optional[torch.Tensor] = None, pins=None,
+              out2: Optional[torch.Tensor] = None) -> None:
         """Raise ``ValueError`` on what the kernel does not take."""
         # one pin per face of every dim but the last (the TPU kernels' own)
         all_pinned = (1,) * (2 * (self.ndim - 1))
@@ -147,10 +216,19 @@ class SweepKernel:
         if plan.dtype != "float32":
             raise ValueError(f"{self.name} dtype {plan.dtype!r}: only "
                              "float32 is ported")
+        cheby = bool(getattr(plan, "cheby_coeffs", ()))
+        dual = cheby and plan.cheby_dual
+        if cheby and src is None:
+            raise ValueError("a cheby_coeffs plan needs the padded source f")
+        if dual != (out2 is not None):
+            raise ValueError("out2 goes with a cheby_dual plan, and only "
+                             "with one")
         shape = plan.layout.padded_shape
         tensors = (("cur", cur), ("nxt", nxt))
         if src is not None:
             tensors += (("src", src),)
+        if out2 is not None:
+            tensors += (("out2", out2),)
         for name, t in tensors:
             if t.dtype != torch.float32:
                 raise ValueError(f"{name} dtype {t.dtype} != torch.float32")
@@ -162,44 +240,71 @@ class SweepKernel:
             if t.device != cur.device:
                 raise ValueError(f"cur on {cur.device}, {name} on "
                                  f"{t.device}")
-        if cur.data_ptr() == nxt.data_ptr():
-            raise ValueError("cur and nxt must be distinct tensors")
+        ptrs = [t.data_ptr() for t in (cur, nxt, out2) if t is not None]
+        if len(set(ptrs)) != len(ptrs):
+            raise ValueError("cur, nxt and out2 must be distinct tensors")
 
     def __call__(self, cur: torch.Tensor, nxt: torch.Tensor, plan,
-                 src: Optional[torch.Tensor] = None,
-                 pins=None) -> torch.Tensor:
+                 src: Optional[torch.Tensor] = None, pins=None,
+                 out2: Optional[torch.Tensor] = None):
         """``plan.sweeps_per_call`` sweeps of ``cur`` into the interior of
         ``nxt`` (both padded per ``plan.layout``; ``nxt``'s ghosts must
         already hold the BC), adding the padded source ``src`` after the
         taps of every interior update when given. Returns ``nxt``.
 
+        A plan with ``cheby_coeffs`` runs the Chebyshev recurrence with the
+        plan's coefficients over the padded raw ``src`` (required); a
+        ``cheby_dual`` plan also takes ``out2`` (padded, ghosts holding the
+        BC), receives sweep k-1 there and sweep k in ``nxt``, and returns
+        ``(nxt, out2)``.
+
         A CUDA tensor launches the kernel on the current stream (no
         synchronisation) and raises ``RuntimeError`` if the launch fails;
         a CPU tensor runs :func:`sweep_reference`. ``pins`` other than all
         ones is refused."""
-        self.check(cur, nxt, plan, src, pins)
+        self.check(cur, nxt, plan, src, pins, out2)
         if cur.device.type == "cpu":
-            nxt.copy_(sweep_reference(cur, plan, src))
-            return nxt
+            want = sweep_reference(cur, plan, src)
+            if out2 is None:
+                nxt.copy_(want)
+                return nxt
+            nxt.copy_(want[0])
+            out2.copy_(want[1])
+            return nxt, out2
         if cur.device.type != "cuda":
             raise ValueError(f"{self.name} runs on cuda (or cpu for the "
                              f"plain version), not {cur.device}")
-        fn, err = self._entry
-        geom, offsets, sizes, weights, uniform, uw = launch_tables(plan)
+        fn, err, cheby_fn = self._entry
+        geom, offsets, sizes, weights, uniform, uw, coeffs = \
+            launch_tables(plan)
         device = cur.device.index if cur.device.index is not None \
             else torch.cuda.current_device()
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(cur.data_ptr(), nxt.data_ptr(),
-                src.data_ptr() if src is not None else None,
-                geom.ctypes.data, len(geom), offsets.ctypes.data,
-                sizes.ctypes.data, weights.ctypes.data,
+        taps = (offsets.ctypes.data, sizes.ctypes.data, weights.ctypes.data,
                 len(offsets) // self.ndim, len(sizes), int(uniform), uw,
                 device, stream)
+        if len(coeffs):
+            if cheby_fn is None:
+                raise ValueError(f"{self.name} has no Chebyshev mode")
+            rc = cheby_fn(cur.data_ptr(), nxt.data_ptr(),
+                          out2.data_ptr() if out2 is not None else None,
+                          src.data_ptr(), geom.ctypes.data, len(geom),
+                          coeffs.ctypes.data, len(coeffs), *taps)
+        else:
+            rc = fn(cur.data_ptr(), nxt.data_ptr(),
+                    src.data_ptr() if src is not None else None,
+                    geom.ctypes.data, len(geom), *taps)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed ({rc}): "
                                f"{err(rc).decode()}")
         self.launches += 1
-        self.source_launches += src is not None
+        if out2 is not None:
+            self.dual_launches += 1
+            return nxt, out2
+        if len(coeffs):
+            self.cheby_launches += 1
+        else:
+            self.source_launches += src is not None
         return nxt
 
 
@@ -241,6 +346,9 @@ class KernelStencil:
 
     def iterate(self, grid: HaloGrid, iterations: int) -> HaloGrid:
         plan = self.plan
+        if getattr(plan, "cheby_dual", False):
+            raise ValueError("a cheby_dual plan has two outputs; run it "
+                             "through ops.tiled.cheby_dual, not iterate")
         if grid.dtype != torch.float32:
             raise ValueError(f"grid dtype {grid.dtype} != plan dtype "
                              f"{plan.dtype}")

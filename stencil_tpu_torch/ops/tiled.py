@@ -2,8 +2,15 @@
 
 Counterpart of ``stencil_tpu/ops/pallas_tiled.py`` (``TiledPlan``,
 ``make_tiled_plan``, ``_cached_tiled_iterate``, ``TiledPallasStencil``) for
-the homogeneous Dirichlet path. Each launch of the CUDA kernel
+the Dirichlet paths. Each launch of the CUDA kernel
 (``ops/tiled_kernel.py``) runs k sweeps per round trip to device memory.
+
+A plan may carry ``cheby_coeffs`` (the kernel's Chebyshev mode) and
+``cheby_dual`` (its fused smooth+residual). Two runners serve the multigrid
+fine level, whose right-hand side changes from call to call, with the
+padded source given per call: :func:`source_iterate` (counterpart of
+``_cached_tiled_source_iterate``) and :func:`cheby_dual` (counterpart of
+``_cached_cheby_dual_fn``).
 
 The plan is new, not a port of the TPU's ``choose_tiles``: a CUDA block
 holds one output tile of (t0, t1, t2) points plus its k*r-deep window in
@@ -24,6 +31,9 @@ import itertools
 import math
 from typing import Optional, Tuple
 
+import torch
+
+from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
 from stencil_tpu_torch.core.spec import StencilSpec
 from stencil_tpu_torch.ops.layout import PaddedLayout
 from stencil_tpu_torch.ops.sweep_kernel import KernelStencil
@@ -32,6 +42,7 @@ from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
 SM_SHARED = 233_472    # bytes of shared memory per SM; 1 KB more per block
 MAX_BLOCKS_PER_SM = 4  # 2048 threads per SM / 512 per block
+MAX_CHEBY_SWEEPS = 16  # coefficient tuples the kernel takes per launch
 _ITEMSIZE = 4          # float32
 
 _T0_CANDIDATES = (1, 2, 4, 8, 16)
@@ -55,6 +66,13 @@ class TiledPlan:
     sweeps_per_call: int
     tiles: Tuple[int, int, int]
     layout: PaddedLayout
+    # Chebyshev mode: one (c, n, pv, s) per sweep, u_t = n*S(u_{t-1}) +
+    # c*u_{t-1} + pv*u_{t-2} + s*f over the raw f; () = the plain or source
+    # sweep
+    cheby_coeffs: Tuple = ()
+    # dual mode: sweep k-1 also goes to a second output (the fused
+    # smooth+residual of multigrid)
+    cheby_dual: bool = False
 
     @property
     def halo(self) -> int:
@@ -95,10 +113,15 @@ class TiledPlan:
 
     def with_sweeps(self, k: int) -> "TiledPlan":
         """The same tiles and layout at ``k <= sweeps_per_call`` sweeps
-        (the remainder launch reuses the padded tensors)."""
+        (the remainder launch reuses the padded tensors). A Chebyshev plan
+        keeps its first k coefficient tuples, which are the degree-k
+        smoother (``pallas_tiled.py:2440``); a dual plan cut short loses
+        its second output."""
         if not 1 <= k <= self.sweeps_per_call:
             raise ValueError(f"k={k} outside [1, {self.sweeps_per_call}]")
-        return dataclasses.replace(self, sweeps_per_call=k)
+        return dataclasses.replace(
+            self, sweeps_per_call=k, cheby_coeffs=self.cheby_coeffs[:k],
+            cheby_dual=self.cheby_dual and k == self.sweeps_per_call)
 
 
 def _smem_bytes(tiles, k: int, r: int) -> int:
@@ -152,11 +175,51 @@ def choose_tiles(spec: StencilSpec, interior_shape, sweeps_per_call: int,
     return best
 
 
+def _check_cheby(spec: StencilSpec, k: int, has_source: bool,
+                 cheby_coeffs, cheby_dual: bool):
+    """The Chebyshev-mode validation of ``make_tiled_plan``
+    (``pallas_tiled.py:481-508``, the same messages); returns the
+    coefficients as a tuple of float 4-tuples, or ()."""
+    if cheby_coeffs is None:
+        if cheby_dual:
+            raise ValueError("cheby_dual needs cheby_coeffs")
+        return ()
+    if not has_source:
+        raise ValueError(
+            "cheby_coeffs needs the fused source stream "
+            "(has_source=True): every sweep reads s_t * f")
+    if spec.radius != 1:
+        raise ValueError(
+            "cheby_coeffs expects the radius-1 neighbor-sum spec")
+    if len(cheby_coeffs) != k:
+        raise ValueError(
+            f"cheby_coeffs has {len(cheby_coeffs)} sweeps, plan has "
+            f"sweeps_per_call={k}")
+    coeffs = tuple(tuple(float(v) for v in c) for c in cheby_coeffs)
+    if any(len(c) != 4 for c in coeffs):
+        raise ValueError("each cheby sweep needs (c, n, pv, s)")
+    if cheby_dual and k < 2:
+        raise ValueError(
+            "cheby_dual fuses the final sweep as a second output; "
+            "it needs sweeps_per_call >= 2 (smoother + final)")
+    if k > MAX_CHEBY_SWEEPS:
+        raise ValueError(f"cheby_coeffs has {k} sweeps; the kernel takes "
+                         f"at most {MAX_CHEBY_SWEEPS} per launch")
+    return coeffs
+
+
 def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
                     sweeps_per_call: int = 1, tiles=None,
-                    t0_fixed: Optional[int] = None) -> TiledPlan:
+                    t0_fixed: Optional[int] = None, has_source: bool = False,
+                    cheby_coeffs=None, cheby_dual: bool = False
+                    ) -> TiledPlan:
     """Plan for ``sweeps_per_call`` sweeps per launch; ``tiles`` pins
-    (t0, t1, t2), ``t0_fixed`` pins only t0."""
+    (t0, t1, t2), ``t0_fixed`` pins only t0. ``cheby_coeffs`` (one
+    ``(c, n, pv, s)`` per sweep; needs ``has_source``, the padded raw f of
+    every launch) selects the Chebyshev mode, ``cheby_dual`` its fused
+    smooth+residual. Its windows take the shared memory of a source plan
+    (the kernel writes u_t over u_{t-2} in place), so the chooser counts
+    them the same."""
     if spec.ndim != 3 or len(interior_shape) != 3:
         raise ValueError("tiled kernel is 3D-only")
     if dtype != "float32":
@@ -164,6 +227,8 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
                          "ported (bf16 is a later item)")
     if sweeps_per_call < 1:
         raise ValueError("sweeps_per_call must be >= 1")
+    coeffs = _check_cheby(spec, sweeps_per_call, has_source, cheby_coeffs,
+                          cheby_dual)
     interior_shape = tuple(int(n) for n in interior_shape)
     k, r = sweeps_per_call, spec.radius
     if tiles is None:
@@ -182,13 +247,72 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
             f"> {SMEM_LIMIT}")
     return TiledPlan(spec=spec, interior_shape=interior_shape, dtype=dtype,
                      sweeps_per_call=k, tiles=tiles,
-                     layout=PaddedLayout.for_halo(interior_shape, k * r))
+                     layout=PaddedLayout.for_halo(interior_shape, k * r),
+                     cheby_coeffs=coeffs, cheby_dual=bool(cheby_dual))
+
+
+def _check_static_walls(bc: DirichletBC) -> None:
+    if bc.any_dynamic:
+        raise NotImplementedError(
+            "periodic/Neumann walls on the tiled kernel are not ported yet "
+            "(needs the kernel's pins; stencil_tpu/ops/pallas_tiled.py:"
+            "_dynamic_pins)")
+
+
+def source_iterate(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
+                   src: torch.Tensor, n_outer: int = 1,
+                   grid_halo: int = 1) -> torch.Tensor:
+    """``n_outer`` launches of ``plan`` on the ``grid_halo``-padded tensor
+    ``data`` (its interior is read; ``data`` is unchanged) with the padded
+    source ``src`` given per call (``ops/layout.py:pad_source`` for the
+    source mode, the raw f scaled by 1.0 for the Chebyshev mode). Returns
+    a new ``grid_halo``-padded tensor with the ring set to ``bc``.
+
+    Counterpart of ``pallas_tiled._cached_tiled_source_iterate(plan, bc,
+    interpret, grid_halo)(data, n_outer, src)``."""
+    _check_static_walls(bc)
+    if plan.cheby_dual:
+        raise ValueError("a cheby_dual plan runs through cheby_dual()")
+    h = grid_halo
+    cur = plan.layout.pad(data[tuple(slice(h, s - h) for s in data.shape)],
+                          bc)
+    nxt = cur.clone()
+    for _ in range(n_outer):
+        tiled_sweep(cur, nxt, plan, src)
+        cur, nxt = nxt, cur
+    return HaloGrid.from_interior(plan.layout.unpad(cur), h, bc,
+                                  device=cur.device).data
+
+
+def cheby_dual(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
+               src: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the dual ``plan`` (the fused smooth+residual) on the
+    halo-1 padded ``data`` with the padded raw source ``src``: returns
+    ``(u, r)``, the smoothed iterate (sweep k-1) halo-1 padded with the
+    ring set to ``bc`` and the residual (sweep k) interior-shaped.
+
+    Counterpart of ``pallas_tiled._cached_cheby_dual_fn(plan, bc,
+    interpret)(data, src)``."""
+    _check_static_walls(bc)
+    if not plan.cheby_dual:
+        raise ValueError("cheby_dual() runs a cheby_dual plan")
+    cur = plan.layout.pad(data[tuple(slice(1, s - 1) for s in data.shape)],
+                          bc)
+    r_pad = torch.empty_like(cur)  # only its interior is written and read
+    u_pad = cur.clone()            # its ghosts must hold the walls
+    tiled_sweep(cur, r_pad, plan, src, out2=u_pad)
+    return (HaloGrid.from_interior(plan.layout.unpad(u_pad), 1, bc,
+                                   device=u_pad.device).data,
+            plan.layout.unpad(r_pad))
 
 
 class TiledStencil(KernelStencil):
     """User-facing handle mirroring ``TiledPallasStencil``: k sweeps per
     kernel launch over a Dirichlet ``HaloGrid`` on ``device``, with an
-    optional static ``source`` (``u' = S(u) + source_scale * source``)."""
+    optional static ``source`` (``u' = S(u) + source_scale * source``), or
+    with ``cheby_coeffs`` the Chebyshev recurrence over
+    ``source_scale * source`` (each launch restarts it; the remainder launch
+    runs the first coefficients)."""
 
     kernel = tiled_sweep
     pins_of = "stencil_tpu/ops/pallas_tiled.py:_dynamic_pins"
@@ -196,7 +320,11 @@ class TiledStencil(KernelStencil):
     def __init__(self, spec: StencilSpec, interior_shape, dtype="float32",
                  sweeps_per_call: int = 1, tiles=None,
                  t0_fixed: Optional[int] = None, device="cuda",
-                 source=None, source_scale=1.0):
+                 source=None, source_scale=1.0, cheby_coeffs=None,
+                 cheby_dual: bool = False):
         super().__init__(make_tiled_plan(spec, interior_shape, dtype,
-                                         sweeps_per_call, tiles, t0_fixed),
+                                         sweeps_per_call, tiles, t0_fixed,
+                                         has_source=source is not None,
+                                         cheby_coeffs=cheby_coeffs,
+                                         cheby_dual=cheby_dual),
                          device, source, source_scale)

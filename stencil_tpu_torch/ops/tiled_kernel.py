@@ -2,16 +2,17 @@
 and its plain PyTorch version.
 
 The kernel replaces ``stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep``
-in its homogeneous mode and in its source mode (``has_source``): one launch
+in four modes: homogeneous and source (``has_source``), where one launch
 runs k sweeps of a ``StencilSpec`` over a deep-halo padded fp32 tensor,
 Dirichlet ghosts held constant, optionally adding a padded pre-scaled
-source after the taps of every interior update. See the source's header
-for its design and what bounds it.
+source after the taps of every interior update; and the Chebyshev
+(``cheby_coeffs``) and dual (``cheby_dual``) modes of the multigrid fine
+level. See the source's header for its design and what bounds it.
 
-``tiled_sweep(cur, nxt, plan, src=None)`` takes the plain version
-(:func:`sweep_reference`) only for tensors on the CPU (the tests); for CUDA
-tensors it launches the kernel or raises. The binding, checks and plain version are shared with the 2D
-kernel (``ops/sweep_kernel.py``).
+``tiled_sweep(cur, nxt, plan, src=None, out2=None)`` takes the plain
+version (:func:`sweep_reference`) only for tensors on the CPU (the tests);
+for CUDA tensors it launches the kernel or raises. The binding, checks and
+plain version are shared with the 2D kernel (``ops/sweep_kernel.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,12 @@ from stencil_tpu_torch.ops.sweep_kernel import (  # noqa: F401 (re-export)
 SOURCE = _build.PACKAGE_DIR / "csrc" / "tiled_sweep.cu"
 # where the TPU kernel this one replaces is defined (build_tiled_sweep)
 REPLACES = "stencil_tpu/ops/pallas_tiled.py:704"
+# the TPU kernel's body of each mode beyond the homogeneous one
+REPLACES_MODE = {
+    "tiled_sweep+source": "stencil_tpu/ops/pallas_tiled.py:1326",
+    "tiled_sweep+cheby": "stencil_tpu/ops/pallas_tiled.py:1433",
+    "tiled_sweep+dual": "stencil_tpu/ops/pallas_tiled.py:1476",
+}
 
 tiled_sweep = SweepKernel("tiled_sweep", SOURCE, REPLACES, ndim=3)
 

@@ -1,0 +1,357 @@
+"""Solve mode of the CLI: name -> solver dispatch for the steady-state stack.
+
+Counterpart of ``stencil_tpu/solve_cli.py`` (``build_problem``,
+``build_rhs``, ``build_solver``, ``_warm_start``, ``_solve_once``,
+``run_solve``) for the ``poisson`` family. ``--solve`` picks the family,
+``--solver`` the method (``auto`` = ``pcg``, ``relax``, ``mg``, ``fmg``,
+``cg``, ``pcg``); the output is human lines plus one JSON record per solve
+with the JAX record's keys (iterations, the solver's certified residual,
+``plan``, ``-c``'s float64 re-certification and error against the exact
+solution, ``-R``'s wall-clock repeats).
+
+The fine level of the multigrid cycles follows the JAX rule
+(``_resolve_fine_method``), with "on a TPU" read as "the problem lives on a
+CUDA device": weighted Jacobi at nu < 4 keeps the eager fine level, the
+Chebyshev smoother or nu >= 4 take the tiled kernel.
+
+What is not ported yet gives an error record, as a contradictory
+configuration does: the ``hetero`` and ``advdiff`` families, the
+``bicgstab`` and ``gmres`` solvers (with ``--precond opmg``), ``--mesh``,
+``--checkpoint-dir`` and ``--dump-image``.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import List
+
+import numpy as np
+import torch
+
+from stencil_tpu_torch.config import RunConfig
+
+FAMILIES = ("poisson", "hetero", "advdiff")
+SOLVERS = ("auto", "relax", "mg", "fmg", "cg", "pcg", "bicgstab",
+           "gmres")
+_NOT_PORTED = "not ported yet to stencil_tpu_torch"
+
+
+def _on_cuda(config: RunConfig) -> bool:
+    return torch.device(config.device).type == "cuda"
+
+
+def _solve_bc(config: RunConfig):
+    """Zero Dirichlet walls (the steady-problem convention), with
+    --periodic/--neumann dims applied; the Poisson solvers refuse dynamic
+    walls themselves."""
+    from stencil_tpu_torch.core.grid import DirichletBC
+
+    bc = DirichletBC.zero(len(config.size))
+    if config.periodic:
+        bc = bc.with_periodic(config.periodic_dims())
+    if config.neumann:
+        bc = bc.with_neumann(config.neumann_dims())
+    return bc
+
+
+def build_problem(config: RunConfig):
+    """The ``--solve`` family -> problem object."""
+    family = config.solve
+    shape = tuple(config.size)
+    if family == "poisson":
+        from stencil_tpu_torch.models.poisson import PoissonProblem
+
+        return PoissonProblem(shape=shape, bc=_solve_bc(config),
+                              dtype=config.dtype, device=config.device)
+    if family == "hetero":
+        raise NotImplementedError(
+            f"--solve hetero: {_NOT_PORTED} (replaces stencil_tpu/models/"
+            "diffusion.py:HeterogeneousPoissonProblem)")
+    if family == "advdiff":
+        raise NotImplementedError(
+            f"--solve advdiff: {_NOT_PORTED} (replaces stencil_tpu/models/"
+            "advection_diffusion.py:AdvectionDiffusionProblem)")
+    raise ValueError(
+        f"unknown --solve family {family!r} (choose from {FAMILIES})")
+
+
+def build_rhs(config: RunConfig, problem):
+    """(f, u_exact_or_None) as float arrays. ``auto`` = the manufactured
+    sine for poisson (so the run can report the error against the exact
+    solution), seeded random otherwise."""
+    from stencil_tpu_torch.models.poisson import manufactured_sine
+
+    mode = config.rhs
+    if mode == "auto":
+        mode = "sine" if config.solve == "poisson" else "random"
+    shape = tuple(config.size)
+    # numpy has no bfloat16: a bfloat16 problem casts its float32 f
+    dtype = "float32" if config.dtype == "bfloat16" else config.dtype
+    if mode == "sine":
+        f, u_exact = manufactured_sine(shape, h=float(problem.h))
+        return (f.astype(dtype),
+                u_exact if config.solve == "poisson" else None)
+    if mode == "random":
+        rng = np.random.default_rng(0)
+        return rng.normal(size=shape).astype(dtype), None
+    if mode == "ones":
+        return np.ones(shape, dtype), None
+    raise ValueError(f"unknown --rhs {mode!r}")
+
+
+def _resolve_solver(config: RunConfig) -> str:
+    if config.solver != "auto":
+        return config.solver
+    return "pcg" if config.solve == "poisson" else "bicgstab"
+
+
+def _resolve_fine_method(config: RunConfig, mesh) -> str:
+    fm = config.fine_method
+    if fm != "auto":
+        return fm
+    # the JAX rule, unchanged: the Chebyshev tiled fine level at every nu,
+    # the weighted-Jacobi one at nu >= 4 (the fused smooth+residual has to
+    # amortize the per-launch cost)
+    nu_min = 1 if config.smoother == "chebyshev" else 4
+    if (mesh is None and len(config.size) == 3
+            and config.dtype == "float32" and min(config.size) >= 32
+            and min(int(v) for v in config.nu_smooth) >= nu_min
+            and _on_cuda(config)):
+        return "pallas_tiled"
+    return "xla"
+
+
+def _make_mesh(config: RunConfig):
+    if not config.mesh:
+        return None
+    raise NotImplementedError(
+        f"--mesh in solve mode: {_NOT_PORTED} (replaces the distributed "
+        "multigrid and CG of stencil_tpu/multigrid.py and krylov.py)")
+
+
+def build_solver(config: RunConfig, problem):
+    """(solver_object, kind, plan_info). ``kind`` selects the solve
+    loop: 'krylov' (CGResult protocol), 'mg' (cycle iteration), 'fmg'
+    (one pass), 'relax' (runner + solver.solve)."""
+    name = _resolve_solver(config)
+    family = config.solve
+    nu1, nu2 = (int(v) for v in config.nu_smooth)
+    mesh = _make_mesh(config)
+    plan: dict = {"solver": name, "family": family,
+                  "tolerance": config.tolerance}
+
+    def poisson_only(what):
+        if family != "poisson":
+            raise ValueError(
+                f"--solver {what} runs the hardcoded Poisson stack; "
+                f"family {family!r} needs bicgstab/gmres (rediscretized"
+                " operator preconditioning) or relax")
+
+    def make_mg():
+        from stencil_tpu_torch.multigrid import Multigrid
+
+        fm = _resolve_fine_method(config, mesh)
+        plan.update(smoother=config.smoother, gamma=config.gamma,
+                    nu_smooth=[nu1, nu2], fine_method=fm)
+        return Multigrid(problem, nu1=nu1, nu2=nu2,
+                         smoother=config.smoother, gamma=config.gamma,
+                         fine_method=fm)
+
+    precond = config.precond
+    if name == "relax":
+        poisson_only("relax (Jacobi splitting)")
+        plan["method"] = "jacobi relaxation"
+        return problem, "relax", plan
+    if name in ("mg", "fmg"):
+        poisson_only(name)
+        if precond not in (None, "none"):
+            raise ValueError(f"--solver {name} takes no --precond")
+        return make_mg(), name, plan
+    if name in ("cg", "pcg"):
+        poisson_only(name)
+        from stencil_tpu_torch.krylov import ConjugateGradient
+
+        if precond is None:
+            precond = "none" if name == "cg" else "mg"
+        if precond == "opmg":
+            raise ValueError(
+                "cg/pcg precondition with the SPD Poisson cycle "
+                "(--precond mg); opmg is the bicgstab/gmres "
+                "rediscretized cycle")
+        pre = make_mg() if precond == "mg" else None
+        if pre is None and config.precond_dtype is not None:
+            raise ValueError("--precond-dtype needs a preconditioner")
+        plan["precond"] = precond
+        if config.precond_dtype:
+            plan["precond_dtype"] = config.precond_dtype
+        return (ConjugateGradient(problem, preconditioner=pre,
+                                  precond_dtype=config.precond_dtype),
+                "krylov", plan)
+    if name in ("bicgstab", "gmres"):
+        raise NotImplementedError(
+            f"--solver {name}: {_NOT_PORTED} (replaces stencil_tpu/"
+            f"krylov.py:{'BiCGStab' if name == 'bicgstab' else 'GMRES'} "
+            "and its OperatorMultigrid preconditioner)")
+    raise ValueError(
+        f"unknown --solver {name!r} (choose from {SOLVERS})")
+
+
+def _warm_start(config: RunConfig, problem, f):
+    """--warm-start fmg: one full-multigrid pass as the Krylov initial
+    iterate (poisson)."""
+    if config.warm_start is None:
+        return None
+    if config.warm_start != "fmg":
+        raise ValueError(f"unknown --warm-start {config.warm_start!r}")
+    if config.solve != "poisson":
+        raise ValueError(
+            "--warm-start fmg runs the Poisson FMG stack; other "
+            "families start from zero")
+    from stencil_tpu_torch.multigrid import Multigrid
+
+    nu1, nu2 = (int(v) for v in config.nu_smooth)
+    return Multigrid(problem, nu1=nu1, nu2=nu2).fmg(f)
+
+
+def _fnorm(f) -> float:
+    return float(np.max(np.abs(np.asarray(f, np.float64))))
+
+
+def _solve_once(config: RunConfig, solver, kind, problem, f,
+                initial=None, tolerance=None):
+    """One solve -> (grid, iterations, residual, residual_rel,
+    converged)."""
+    from stencil_tpu_torch import solver as solver_mod
+
+    budget = int(config.iterations)
+    tol = float(tolerance if tolerance is not None else config.tolerance)
+    if kind == "krylov":
+        res = solver.solve(f, tolerance=tol, max_iterations=budget,
+                           initial=initial)
+        return (res.grid, res.iterations, res.residual,
+                res.residual_rel, res.converged)
+    if kind == "fmg":
+        grid = solver.fmg(f)
+        r = solver.residual_norm(grid, f)
+        fnorm = _fnorm(f)
+        # FMG is a one-pass initializer: 'converged' means it reached its
+        # contract (discretization-level error), certified by -c's f64
+        # recheck; the algebraic tolerance does not apply
+        return grid, 1, r, r / fnorm if fnorm else r, True
+    if kind == "mg":
+        g0 = (initial if initial is not None
+              else solver.problem.initial_grid())
+        res = solver_mod.solve(solver.runner(f), g0, tolerance=tol,
+                               max_iterations=budget, check_every=1)
+        r = solver.residual_norm(res.grid, f)
+        fnorm = _fnorm(f)
+        return (res.grid, res.iterations, r,
+                r / fnorm if fnorm else r, res.converged)
+    if kind == "relax":
+        g0 = initial if initial is not None else solver.initial_grid()
+        res = solver_mod.solve(solver.runner(f), g0, tolerance=tol,
+                               max_iterations=budget,
+                               check_every=max(1, min(200, budget)))
+        return (res.grid, res.iterations, res.residual, res.residual,
+                res.converged)
+    raise AssertionError(kind)
+
+
+def _check_solve_flags(config: RunConfig) -> None:
+    if config.checkpoint_dir:
+        raise NotImplementedError(
+            f"--checkpoint-dir in solve mode: {_NOT_PORTED} (replaces "
+            "stencil_tpu/solve_cli.py:_solve_checkpointed)")
+    if config.dump_image:
+        raise NotImplementedError(
+            f"--dump-image: {_NOT_PORTED} (replaces stencil_tpu/utils/"
+            "image.py:dump_heatmap)")
+
+
+def run_solve(config: RunConfig, out) -> List[dict]:
+    """Solve mode: build, solve (with optional timed repeats),
+    certify, report. Returns JSON-able records."""
+    from stencil_tpu_torch.utils.timing import measure_wall
+
+    try:
+        _check_solve_flags(config)
+        problem = build_problem(config)
+        f, u_exact = build_rhs(config, problem)
+        solver, kind, plan = build_solver(config, problem)
+    except (ValueError, KeyError, NotImplementedError) as e:
+        # contradictions and what is not ported are records, not
+        # tracebacks
+        name = _resolve_solver(config)
+        print(f"[{name}] unavailable: {e}", file=out)
+        rec = {"solve": config.solve, "solver": name, "error": str(e)}
+        if config.json_out:
+            with open(config.json_out, "w") as fh:
+                fh.write(json.dumps(rec) + "\n")
+        return [rec]
+    name = plan["solver"]
+    rec: dict = {"solve": config.solve, "solver": name,
+                 "size": list(config.size), "dtype": config.dtype,
+                 "tolerance": config.tolerance, "plan": plan}
+
+    initial = _warm_start(config, problem, f)
+    tol_eff = None
+    bnorm2 = None
+    if initial is not None:
+        plan["warm_start"] = "fmg"
+        if kind == "krylov":
+            # Krylov tolerances are r0-relative; re-anchor to ||b|| (=
+            # ||f||_2: solve-mode walls are zero) so --tol keeps meaning
+            # "relative to the right-hand side"
+            r0 = np.asarray(f, np.float64) - problem.apply_f64(
+                initial.interior().double().cpu().numpy())
+            rw = float(np.linalg.norm(r0.ravel()))
+            bnorm2 = float(np.linalg.norm(
+                np.asarray(f, np.float64).ravel()))
+            if rw > 0.0:
+                tol_eff = config.tolerance * bnorm2 / rw
+
+    grid, iters, r, rrel, conv = _solve_once(
+        config, solver, kind, problem, f, initial=initial,
+        tolerance=tol_eff)
+    if bnorm2:
+        rrel = r / bnorm2  # report relative to ||b||, not r0
+        conv = bool(rrel <= config.tolerance * (1 + 1e-9))
+    rec.update(iterations=iters, residual=r, residual_rel=rrel,
+               converged=bool(conv))
+    tag = "converged" if conv else "NOT converged"
+    print(f"[{name}] {tag}: {iters} iterations, residual {r:.3e} "
+          f"(rel {rrel:.3e})", file=out)
+
+    if config.check:
+        # float64 re-certification outside the solve: the golden twin of
+        # the device operator applied to the returned solution
+        r64 = problem.residual_f64(grid, f)
+        fnorm = _fnorm(f)
+        r64_rel = r64 / fnorm if fnorm else r64
+        rec["check"] = {"residual_f64": r64, "residual_f64_rel": r64_rel}
+        print(f"[{name}] certificate (float64): max |f - A u| = "
+              f"{r64:.3e} (rel {r64_rel:.3e})", file=out)
+        if u_exact is not None:
+            err = float(np.max(np.abs(
+                grid.interior().double().cpu().numpy() - u_exact)))
+            rec["check"]["error_vs_exact"] = err
+            h2 = float(problem.h) ** 2
+            print(f"[{name}] error vs exact solution: {err:.3e} "
+                  f"(O(h^2) bar ~ {h2:.1e})", file=out)
+
+    # timed repeats (the reference's -R protocol): the full solve
+    if config.repeat > 1:
+        wall = measure_wall(
+            lambda: _solve_once(config, solver, kind, problem, f,
+                                initial=initial)[0].data,
+            torch.device(config.device), repeats=config.repeat)
+        rec["wall_seconds"] = [float(t) for t in wall]
+        for j, t in enumerate(wall, 1):
+            print(f"[{name}] run {j}: {t * 1e3:.3f} ms", file=out)
+        print(f"[{name}] average: "
+              f"{sum(wall) / len(wall) * 1e3:.3f} ms", file=out)
+
+    if config.json_out:
+        with open(config.json_out, "w") as fh:
+            fh.write(json.dumps(rec) + "\n")
+    return [rec]

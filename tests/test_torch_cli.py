@@ -102,6 +102,8 @@ def test_package_imports_no_jax():
         "'stencil_tpu_torch.ops.slab', 'stencil_tpu_torch.ops.slab_kernel', "
         "'stencil_tpu_torch.ops.sweep_kernel', 'stencil_tpu_torch.solver', "
         "'stencil_tpu_torch.models.poisson', 'stencil_tpu_torch.models.heat', "
+        "'stencil_tpu_torch.multigrid', 'stencil_tpu_torch.krylov', "
+        "'stencil_tpu_torch.solve_cli', "
         "'stencil_tpu_torch.utils.roofline']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
@@ -126,7 +128,9 @@ def test_cuda_request_without_card_raises():
         cli.main(MAIN_ARGS)  # --device defaults to cuda
 
 
-@pytest.mark.parametrize("flag", [["--solve", "poisson"], ["--mesh", "2"],
+# (--solve is ported; its own refusals are error records, tested in
+# tests/test_torch_solve_cli.py)
+@pytest.mark.parametrize("flag", [["--no-overlap"], ["--mesh", "2"],
                                   ["--chunks", "2"],
                                   ["--checkpoint-dir", "x"],
                                   ["--dump-image", "x.bmp"],

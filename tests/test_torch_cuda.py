@@ -1,13 +1,17 @@
 """The hand-written CUDA kernels (stencil_tpu_torch/csrc/tiled_sweep.cu, 3D,
-and csrc/slab_sweep.cu, 2D), homogeneous and with a source, against their
-plain PyTorch versions, on an NVIDIA GPU. Marked ``cuda``; without a card
+and csrc/slab_sweep.cu, 2D), homogeneous and with a source, and the 3D
+kernel's Chebyshev and dual modes, against their plain PyTorch versions,
+on an NVIDIA GPU. Marked ``cuda``; without a card
 every test skips. This file imports no JAX, so it also runs where only the
 port is installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerance: bitwise (same taps in the same order, the source added after
-them, built with -fmad=false)."""
+them, the Chebyshev terms in the same order with the same float32
+coefficients, built with -fmad=false); the multigrid cycle on the kernel
+against the eager cycle 5e-6 (the two reassociate the fine level's
+arithmetic)."""
 
 import numpy as np
 import pytest
@@ -16,6 +20,10 @@ import torch
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
 from stencil_tpu_torch.core.spec import get_spec
 from stencil_tpu_torch.models.heat import HeatDiffusion
+from stencil_tpu_torch.models.poisson import PoissonProblem
+from stencil_tpu_torch.multigrid import (
+    Multigrid, _cheby_sweep_coeffs, nbsum_spec,
+)
 from stencil_tpu_torch.ops import eager
 from stencil_tpu_torch.ops.layout import pad_source
 from stencil_tpu_torch.ops.slab import SlabStencil, make_slab_plan
@@ -146,3 +154,74 @@ def test_launch_refuses_cpu_tensor_mix(cuda_device):
     cur2 = plan2.layout.pad_grid(_grid((8, 8), 1, cuda_device))
     with pytest.raises(ValueError, match="src on"):
         slab_sweep(cur2, cur2.clone(), plan2, src=cur2.cpu())
+
+
+def _cheby_coeffs(shape, k, dual, smoother):
+    """The multigrid fine level's coefficients: k sweeps, the last the
+    residual in dual mode."""
+    h = 1.0 / (shape[0] + 1)
+    nu = k - 1 if dual else k
+    if smoother == "chebyshev":
+        co = _cheby_sweep_coeffs(nu, 4.0, 3, h)
+    else:
+        w = 2.0 / 3.0
+        co = ((1.0 - w, w / 6, 0.0, -(w / 6) * h * h),) * nu
+    if dual:
+        co += ((6.0 / h ** 2, -1.0 / h ** 2, 0.0, 1.0),)
+    return co
+
+
+@pytest.mark.parametrize("shape,k,dual,smoother", [
+    ((64, 48, 40), 2, False, "chebyshev"), ((57, 50, 46), 4, False,
+                                            "chebyshev"),
+    ((33, 20, 41), 1, False, "chebyshev"), ((64, 48, 40), 3, True,
+                                            "wjacobi"),
+    ((57, 50, 46), 5, True, "chebyshev"), ((31, 31, 31), 3, True,
+                                           "chebyshev")])
+def test_cheby_modes_match_plain(cuda_device, shape, k, dual, smoother):
+    plan = make_tiled_plan(nbsum_spec(3), shape, "float32", k,
+                           has_source=True,
+                           cheby_coeffs=_cheby_coeffs(shape, k, dual,
+                                                      smoother),
+                           cheby_dual=dual)
+    cur = plan.layout.pad_grid(_grid(shape, 1, cuda_device))
+    src = pad_source(plan, _source(shape), 1.0, BC3).to(cuda_device)
+    before = (tiled_sweep.cheby_launches, tiled_sweep.dual_launches)
+    if dual:
+        got = tiled_sweep(cur, cur.clone(), plan, src, out2=cur.clone())
+    else:
+        got = (tiled_sweep(cur, cur.clone(), plan, src),)
+    want = sweep_reference(cur, plan, src)
+    want = want if dual else (want,)
+    torch.cuda.synchronize()
+    assert (tiled_sweep.cheby_launches, tiled_sweep.dual_launches) == (
+        before[0] + (not dual), before[1] + dual)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_cheby_iterate_with_remainder_matches_plain(cuda_device):
+    shape = (40, 36, 44)
+    co = _cheby_coeffs(shape, 3, False, "chebyshev")
+    f = _source(shape)
+    g = _grid(shape, 1, cuda_device)
+    got = TiledStencil(nbsum_spec(3), shape, sweeps_per_call=3,
+                       device=cuda_device, source=f,
+                       cheby_coeffs=co).iterate(g, 7)
+    want = TiledStencil(nbsum_spec(3), shape, sweeps_per_call=3,
+                        device="cpu", source=f, cheby_coeffs=co).iterate(
+        HaloGrid(data=g.data.cpu(), halo=1, bc=g.bc), 7)
+    assert torch.equal(got.data.cpu(), want.data)
+
+
+@pytest.mark.parametrize("smoother,nu", [("chebyshev", 2), ("wjacobi", 4)])
+def test_multigrid_tiled_fine_matches_eager(cuda_device, smoother, nu):
+    prob = PoissonProblem(shape=(31, 31, 31), device=cuda_device)
+    f = _source(prob.shape).astype(np.float32)
+    kw = dict(smoother=smoother, nu1=nu, nu2=nu)
+    tiled_sweep.reset_counts()
+    got = Multigrid(prob, fine_method="tiled", **kw).runner(f).iterate(
+        prob.initial_grid(), 3)
+    assert tiled_sweep.dual_launches == 3
+    want = Multigrid(prob, **kw).runner(f).iterate(prob.initial_grid(), 3)
+    assert (got.data - want.data).abs().max().item() < 5e-6
