@@ -8,21 +8,28 @@ Run from the repository root with no arguments:
 Phases, each ending in a line of its own:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles the two CUDA kernels (``csrc/tiled_sweep.cu``,
+2. build: compiles the two CUDA kernels (``csrc/tiled_sweep.cu``, six modes,
    ``csrc/slab_sweep.cu``) and the native golden from the sources in this
    checkout, all three compilers started together (into
    ``build/stencil_tpu_torch/``);
 3. kernel vs plain: each kernel mode (3D tiled, 3D tiled with a source,
-   the 3D tiled kernel's Chebyshev and dual modes, 2D slab, 2D slab with a
-   source) against its plain PyTorch version on the card, on random fp32
+   the 3D tiled kernel's Chebyshev, dual, two-level and coefficient modes,
+   2D slab, 2D slab with a source) against its plain PyTorch version on the
+   card, on random fp32
    inputs from a numpy seed, at the main paths' shapes and at ragged, box
    and radius-2 cases, plus remainder runs; each source mode also at each
    of its Poisson paths' own shape, spec, k, tiles, walls and source (one
    launch, and the runner over 19 sweeps); the Chebyshev mode at nu = 2
    and 4 and the dual mode for weighted Jacobi nu1 = 2 and Chebyshev
-   nu1 = 4, at 255³ and ragged, with both dual outputs compared; and every
+   nu1 = 4, at 255³ and ragged, with both dual outputs compared; every
    fine-level operation of the three solver paths of phase 4 at that
-   path's own plan (shape, tiles, coefficients) and right-hand side;
+   path's own plan (shape, tiles, coefficients) and right-hand side; the
+   two-level mode at cfg9's plan (wave 256³ k=8), at k=1 and ragged k=3,
+   both outputs, and ``WaveEquation.simulate(method="tiled")`` with a
+   remainder against the eager leapfrog; the coefficient mode at cfg16's
+   plan (256³ k=8, two_material contrast 100) and ragged k=3, and as
+   cfg18's k=1 matvec (255³) at every ``OperatorMultigrid`` level on a
+   random ghost ring;
 4. main paths, each with the launch counts set to 0 just before it and
    read just after: the 3D CLI (``-s 256 256 256 --spec jacobi7 -m
    pallas_temporal -k 8 -i 64 -c``), the 2D CLI (``-s 512 512 --spec
@@ -40,7 +47,13 @@ Phases, each ending in a line of its own:
    FMG at 63³ on the tiled fine level (``--solver fmg --fine-method
    pallas_tiled``), each converged and within 3 h² of the exact solution
    (4 h² for the weighted-Jacobi tiled cycle, whose fp32 floor is ~3.3 h²
-   at 255³; see ``SOLVE_PATHS``), the float64 certificate printed;
+   at 255³; see ``SOLVE_PATHS``), the float64 certificate printed; the
+   wave at 256³ (16 steps on ``tiled`` k=8 against ``eager``) and at 64³
+   (against the float64 golden loop and the analytic standing mode);
+   ``-s 128 128 128 --spec jacobi7 -m varcoeff -k 8 -i 64 -c`` against the
+   float64 field golden (capped at 50 iterations); ``--solve hetero -s 255
+   255 255 --tol 1e-4 -c`` with ``--op-kernel auto`` and ``pallas``, both
+   converged within one iteration of each other;
 5. times: GLUPS of the 3D tiled kernel at k=8 and k=1 and of ``eager`` at
    256³; of cfg1 (2D 5-pt 512², slab k=16) and cfg2 (2D 9-pt 4096², slab
    k=4, ``-b 256``) and ``eager`` at both sizes; of cfg8 (Poisson 256³, the
@@ -52,12 +65,22 @@ Phases, each ending in a line of its own:
    level, 255³, random f, tol 1e-4, at most 50 iterations) as time to
    solution and iterations; the error floor of the multigrid cycles at
    255³ (manufactured sine, error against the exact solution per cycle)
-   in fp32 on both fine levels and in fp64 on the eager one; for each kernel mode one launch's kernel ms
+   in fp32 on both fine levels and in fp64 on the eager one; cfg9 (the
+   wave at 256³, leapfrog steps per second) on ``tiled`` k=8 and
+   ``eager``; cfg16/cfg16b (FTCS diffusion at 256³) on the coefficient mode
+   k=8 and the eager field sweep; cfg18 (BiCGStab + OperatorMultigrid,
+   255³, tol 1e-4, f seed 7) as time to solution and iterations with
+   ``--op-kernel auto`` and ``pallas``, and each solve's device idle share;
+   for each kernel mode one launch's kernel ms
    against its plain version's, against one call of
    ``torch.nn.functional.conv3d``/``conv2d`` that computes one sweep of
-   the mode (fp32, TF32 off) and against the bound the card's peaks give,
-   at a main path's shape (the source modes at the Poisson golden checks',
-   the Chebyshev and dual modes at the PCG path's); the device's busy
+   the mode (fp32, TF32 off; for the two-level mode one 2-channel conv3d
+   per step; none for the coefficient mode, whose weights are per point:
+   the eager field sweep is printed beside it) and against the bound the
+   card's peaks give, at a main path's shape (the source modes at the
+   Poisson golden checks', the Chebyshev and dual modes at the PCG path's,
+   the two-level mode at cfg9's, the coefficient mode at cfg16's, and its
+   k=1 matvec at cfg18's against the eager matvec); the device's busy
    share over cfg1's main-path run and over one cfg13 solve, from
    ``torch.profiler`` traces.
 
@@ -66,8 +89,12 @@ that mode; its ``max_abs_err`` is the largest of its phase-3 cases. Its
 ``bound_ms`` is the larger of the bytes the launch must move (the padded
 input and source read once, each output's interior written once) over
 3.35 TB/s and its floating-point operations (every sweep's update of every
-interior point) over 67 TFLOP/s, the H100 SXM's published peaks;
-``bound_by`` names the larger.
+interior point; in the coefficient mode, which a(x) fixes, the weights
+once per point and launch, ``COEFF_WEIGHT_OPS``, and ``COEFF_SWEEP_OPS``
+per update) over 67 TFLOP/s, the H100 SXM's published peaks; ``bound_by``
+names the larger.
+The two-level mode reads two padded levels and writes two interiors, the
+coefficient mode reads the padded u and a(x) and writes one interior.
 
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -125,6 +152,22 @@ SOLVE_PATHS = (
     ("fmg", ["--solve", "poisson", "--solver", "fmg", "-s", "63", "63", "63",
              "--fine-method", "pallas_tiled"], 3.0),
 )
+# the wave (two-level) and heterogeneous-diffusion (coefficient) paths:
+# cfg9's wave at 256^3 k=8, cfg16's two-material field (contrast 100,
+# seed 0), cfg18's heterogeneous Poisson solve at 255^3 (f seed 7)
+WAVE_K = 8
+WAVE_STEPS = 16
+WAVE_SMALL = (64, 64, 64)
+WAVE_TOL = 1e-5              # tiled vs eager on the main path
+CONTRAST = 100.0
+VARCOEFF_ARGS = ["-s", "128", "128", "128", "--spec", "jacobi7", "-m",
+                 "varcoeff", "-k", "8", "-i", "64"]
+HETERO_SIZE = (255, 255, 255)
+HETERO_ARGS = ["--solve", "hetero", "-s", "255", "255", "255", "--tol",
+               "1e-4"]
+HETERO_SEED = 7
+HETERO_CERT_BAR = 1e-2        # float64 max |f - A u| / max |f|, as the CPU test
+HETERO_CERT_AGREE = 0.01      # auto vs pallas certificates, relative
 FLOOR_CYCLES = 12            # cycles of the phase-5 floor measurement
 CYCLE_REPEATS = 10           # V-cycles per timed run
 CONTRACTION_CYCLES = 6
@@ -143,6 +186,16 @@ def gpu_label():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def gpu_state():
+    """The card's SM and memory clocks, power draw and temperature, as
+    ``nvidia-smi`` reads them now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0].strip()
 
@@ -385,6 +438,226 @@ def run_solve_cli(cli, kernel, name, args, bar_h2, label):
     return rec, counts
 
 
+def wave_plan(shape, k):
+    """The chooser's two-level plan of the wave spec at the CFL limit."""
+    from stencil_tpu_torch.models.wave import WaveEquation
+    from stencil_tpu_torch.ops.tiled import make_tiled_plan
+
+    spec = WaveEquation(shape=shape, device=DEVICE).spec
+    return make_tiled_plan(spec, shape, "float32", k, two_level=True)
+
+
+def compare_two_level(kernel, shape, k, rng, device):
+    """One two-level launch against the plain version, both outputs, two
+    random levels (reference walls)."""
+    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+
+    plan = wave_plan(shape, k)
+    cur = plan.layout.pad_grid(random_grid(shape, 1, rng, device))
+    prev = plan.layout.pad_grid(random_grid(shape, 1, rng, device))
+    got = kernel(cur, cur.clone(), plan, prev=prev, out2=prev.clone())
+    want = sweep_reference(cur, plan, prev=prev)
+    label = f"{kernel.name}+two_level {plan.spec.name} {shape} k={k} " \
+            f"tiles {plan.tiles}"
+    return max(check_equal(f"{label}, L_(n+k)", got[0], want[0]),
+               check_equal(f"{label}, L_(n+k-1)", got[1], want[1]))
+
+
+def compare_wave_iterate(shape, k, steps, rng, device):
+    """``WaveEquation.simulate(method="tiled")`` (``wave_iterate``: steps
+    // k launches and a remainder) against the eager leapfrog, whose ops
+    are the plain version's."""
+    from stencil_tpu_torch.models.wave import WaveEquation
+
+    w = WaveEquation(shape=shape, device=DEVICE)
+    prev, cur = w.initial_pair(rng.normal(size=shape), rng.normal(size=shape))
+    got = w.simulate(prev, cur, steps, method="tiled", sweeps_per_call=k)
+    want = w.simulate(prev, cur, steps, method="eager")
+    return max(check_equal(f"wave_iterate {shape} k={k}, {steps} steps, "
+                           f"{name}", g.data, e.data)
+               for name, g, e in zip(("L_(n+s-1)", "L_(n+s)"), got, want))
+
+
+def compare_coeff(kernel, plan, cur, coeff, label):
+    """One coefficient-mode launch against the plain version."""
+    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+
+    return check_equal(f"{kernel.name}+coeff {label} k="
+                       f"{plan.sweeps_per_call} tiles {plan.tiles}",
+                       kernel(cur, cur.clone(), plan, coeff=coeff),
+                       sweep_reference(cur, plan, coeff=coeff))
+
+
+def marching_inputs(shape, k, rng, device):
+    """cfg16's FTCS plan (the runner's), padded coefficient and a random
+    padded u at ``shape``."""
+    from stencil_tpu_torch.core.spec import get_spec
+    from stencil_tpu_torch.models.diffusion import (
+        HeterogeneousDiffusion, two_material,
+    )
+    from stencil_tpu_torch.ops.tiled import make_tiled_plan, pad_coeff
+
+    het = HeterogeneousDiffusion(
+        shape=shape, a=two_material(shape, lo=1.0 / CONTRAST, hi=1.0,
+                                    seed=0), device=DEVICE)
+    runner = het.runner(method="tiled", sweeps_per_call=k)
+    lam = het.stable_dt / het.h ** 2
+    plan = make_tiled_plan(get_spec("jacobi7"), shape, "float32", k,
+                           coeff_scales=(lam, 1.0, -lam))
+    require(list(plan.tiles) == runner.plan_info["tiles"],
+            f"coeff {shape}: plan {plan.tiles} is not the runner's "
+            f"{runner.plan_info}")
+    coeff = pad_coeff(plan, het.a, het.bc).to(device)
+    cur = plan.layout.pad_grid(random_grid(shape, 1, rng, device))
+    return plan, cur, coeff
+
+
+def hetero_problem(kernel):
+    """cfg18's problem: the two-material field at 255^3, contrast 100."""
+    from stencil_tpu_torch.models.diffusion import (
+        HeterogeneousPoissonProblem, two_material,
+    )
+
+    return HeterogeneousPoissonProblem(
+        shape=HETERO_SIZE, a=two_material(HETERO_SIZE, lo=1.0 / CONTRAST,
+                                          hi=1.0, seed=0),
+        kernel=kernel, device=DEVICE)
+
+
+def random_ring(shape, rng, device):
+    """A halo-1 padded tensor, interior and ghost ring random."""
+    import torch
+
+    return torch.from_numpy(rng.normal(size=tuple(n + 2 for n in shape))
+                            .astype(np.float32)).to(device)
+
+
+def run_wave(kernel, rng, label):
+    """The wave main path: cfg9's WaveEquation at 256^3 over WAVE_STEPS
+    steps on ``tiled`` k=8 against ``eager``; at 64^3 against the float64
+    golden loop (5e-4) and the analytic standing mode (3e-4, the JAX
+    tests' bars). Returns the two-level launches, counts set to 0 just
+    before."""
+    import torch
+
+    from stencil_tpu_torch.models.wave import WaveEquation, golden_wave
+
+    w = WaveEquation(shape=MAIN_SIZE, device=DEVICE)
+    prev, cur = w.initial_pair(rng.normal(size=MAIN_SIZE))
+    kernel.reset_counts()
+    t0 = time.perf_counter()
+    _, got = w.simulate(prev, cur, WAVE_STEPS, method="tiled",
+                        sweeps_per_call=WAVE_K)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel.two_level_launches
+    _, want = w.simulate(prev, cur, WAVE_STEPS, method="eager")
+    diff = float((got.data - want.data).abs().max())
+    print(f"wave {MAIN_SIZE} {WAVE_STEPS} steps tiled k={WAVE_K} vs eager: "
+          f"max abs diff {diff:.3e} (bar {WAVE_TOL:g}); {launches} "
+          f"two-level launches; {seconds:.3f} s [{label}]")
+    require(bool(torch.isfinite(got.data).all()) and diff <= WAVE_TOL,
+            f"wave {MAIN_SIZE}: tiled vs eager {diff}")
+    require(launches == WAVE_STEPS // WAVE_K
+            and launches == kernel.launches, f"wave launches {launches}")
+    small = WaveEquation(shape=WAVE_SMALL, device=DEVICE)
+    u0 = rng.normal(size=WAVE_SMALL)
+    got = small.simulate_interior(u0, 24, method="tiled",
+                                  sweeps_per_call=WAVE_K)
+    want = golden_wave(u0, small.spec, 24, small.bc,
+                       dt=small.courant * small.h / small.c)
+    err = float(np.max(np.abs(got - want)))
+    n = WAVE_SMALL[0]
+    mode_w = WaveEquation(shape=WAVE_SMALL, dt=0.25, device=DEVICE)
+    x = np.arange(1, n + 1) / (n + 1)
+    m1 = np.sin(np.pi * x)
+    mode = np.einsum("i,j,k->ijk", m1, m1, m1)
+    s2 = mode_w.courant ** 2
+    theta = np.arccos((2 - 6 * s2 + 6 * s2 * np.cos(np.pi / (n + 1))) / 2)
+    got_m = mode_w.simulate_interior(mode, 12, method="tiled",
+                                     sweeps_per_call=WAVE_K)
+    err_m = float(np.max(np.abs(got_m - np.cos(12 * theta) * mode)))
+    launches = kernel.two_level_launches
+    print(f"wave {WAVE_SMALL} tiled k={WAVE_K}: 24 steps vs the float64 "
+          f"golden loop max err {err:.3e} (bar 5e-4); standing mode after "
+          f"12 steps max err {err_m:.3e} (bar 3e-4); {launches} two-level "
+          f"launches in all [{label}]")
+    require(np.isfinite(err) and err < 5e-4, f"wave golden {err}")
+    require(np.isfinite(err_m) and err_m < 3e-4, f"wave standing {err_m}")
+    return launches
+
+
+def run_varcoeff_cli(cli, kernel, label):
+    """``-m varcoeff -c`` at 128^3 k=8: the float64 field golden (NumPy,
+    capped at 50 iterations); returns the coefficient launches, counts set
+    to 0 just before."""
+    kernel.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "varcoeff.jsonl"
+        rc = cli.main([*VARCOEFF_ARGS, "-c", "--device", DEVICE,
+                       "--json-out", str(out)])
+        launches = kernel.coeff_launches
+        rec = json.loads(out.read_text().splitlines()[0])
+    chk = rec["check"]
+    print(f"main path {' '.join(VARCOEFF_ARGS)} -c: check "
+          f"{'OK' if chk['ok'] else 'FAILED'} over "
+          f"{chk['iterations_checked']} iterations vs the float64 field "
+          f"golden (NumPy, capped), max abs err {chk['max_abs_err']:.3e}; "
+          f"{launches} {kernel.name}+coeff launches; plan {rec['plan']}; "
+          f"{rec['glups']:.2f} GLUPS [{label}]")
+    require(rc == 0 and chk["ok"] and np.isfinite(chk["max_abs_err"])
+            and chk["iterations_checked"] == 50,
+            f"varcoeff main path: {rec}")
+    require(rec["plan"]["kernel"] == "tiled" and launches > 0
+            and launches == kernel.launches,
+            f"varcoeff main path did not run the coefficient mode")
+    return launches
+
+
+def run_hetero_cli(cli, kernel, label):
+    """``--solve hetero -c`` at 255^3 with ``--op-kernel auto`` and then
+    ``pallas``: both converge, within one iteration of each other, with
+    float64 certificates under ``HETERO_CERT_BAR`` that agree within
+    ``HETERO_CERT_AGREE`` (the solver judges convergence with the operator
+    it applies; the certificate applies an independent one), and only
+    ``pallas`` launches the coefficient mode. Returns the coefficient
+    launches of the ``pallas`` run, counts set to 0 just before each."""
+    recs, counts = {}, {}
+    for op in ("auto", "pallas"):
+        kernel.reset_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "hetero.jsonl"
+            t0 = time.perf_counter()
+            rc = cli.main([*HETERO_ARGS, "--op-kernel", op, "-c",
+                           "--device", DEVICE, "--json-out", str(out)])
+            seconds = time.perf_counter() - t0
+            counts[op] = kernel.coeff_launches
+            rec = recs[op] = json.loads(out.read_text().splitlines()[0])
+        chk = rec.get("check", {})
+        tag = "converged" if rec.get("converged") else "NOT converged"
+        print(f"solver path hetero --op-kernel {op} ({' '.join(HETERO_ARGS)}"
+              f" -c): {tag} in {rec.get('iterations')} iterations, "
+              f"residual_rel {rec.get('residual_rel', float('nan')):.3e}; "
+              f"float64 certificate max |f - A u| = "
+              f"{chk.get('residual_f64', float('nan')):.3e} (rel "
+              f"{chk.get('residual_f64_rel', float('nan')):.3e}); plan "
+              f"{rec.get('plan')}; {counts[op]} {kernel.name}+coeff "
+              f"launches; {seconds:.2f} s with the f64 check [{label}]")
+        require(rc == 0 and rec.get("converged")
+                and chk.get("residual_f64_rel", float("nan"))
+                < HETERO_CERT_BAR,
+                f"hetero --op-kernel {op}: {rec}")
+    require(abs(recs["auto"]["iterations"] - recs["pallas"]["iterations"])
+            <= 1, f"hetero iteration counts {recs}")
+    certs = [recs[op]["check"]["residual_f64"] for op in ("auto", "pallas")]
+    require(abs(certs[0] - certs[1]) <= HETERO_CERT_AGREE * max(certs),
+            f"hetero float64 certificates {certs} differ by more than "
+            f"{HETERO_CERT_AGREE:.0%}")
+    require(counts["auto"] == 0 and counts["pallas"] > 0,
+            f"hetero coefficient launches {counts}")
+    return counts["pallas"]
+
+
 def time_cycles(mg, f, device):
     """(ms per V-cycle, contraction per cycle, ms per decade) of ``mg`` on
     ``f``: the median over 3 runs of CYCLE_REPEATS cycles, after one
@@ -429,10 +702,59 @@ def bound(plan, src, dual):
                           for t in range(1, k + 1))
     else:
         ops = n_int * k * (per_point + (1 if src is not None else 0))
+    return bound_of(nbytes, ops)
+
+
+def bound_of(nbytes, ops):
+    """(bound ms, 'bytes' or 'operations') of moving ``nbytes`` and doing
+    ``ops`` fp32 operations at the card's peaks."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_FP32_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+# fp32 operations of the coefficient mode. The function needs the weights
+# once per point and launch (a(x) is fixed; the kernel recomputing them at
+# every sweep is its own choice): six face means of 4 (2x, *y, x+y, /),
+# their sum 5, the center 2, six weights 6. Then per update seven
+# products and six sums.
+COEFF_WEIGHT_OPS = 37
+COEFF_SWEEP_OPS = 13
+
+
+def coeff_ops(n_int, k):
+    """fp32 operations one coefficient-mode launch of ``k`` sweeps over
+    ``n_int`` interior points needs."""
+    return n_int * (COEFF_WEIGHT_OPS + k * COEFF_SWEEP_OPS)
+
+
+def wave_library_step(plan, cur, prev):
+    """One ``torch.nn.functional.conv3d`` call computing one leapfrog step
+    of ``plan`` on the same levels: two input channels (L_t and L_(t-1)),
+    weights S and -delta. Returns (call, check) as ``library_sweep``."""
+    import torch
+    import torch.nn.functional as F
+
+    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+
+    h = plan.layout.halo
+    cut = tuple(slice(h - 1, h + n + 1) for n in plan.interior_shape)
+    x = torch.stack([cur[cut], prev[cut]])[None].contiguous()
+    w = torch.zeros((1, 2, 3, 3, 3), dtype=x.dtype, device=x.device)
+    for off, wt in zip(plan.spec.offsets, plan.spec.weights):
+        w[(0, 0) + tuple(1 + o for o in off)] += wt
+    w[0, 1, 1, 1, 1] = -1.0
+
+    def call():
+        return F.conv3d(x, w)
+
+    def check():
+        want = plan.layout.unpad(sweep_reference(
+            cur, plan.with_sweeps(1), prev=prev)[0])
+        return float((call()[0, 0] - want).abs().max())
+
+    return call, check
 
 
 def library_sweep(plan, cur, src):
@@ -640,6 +962,7 @@ def main() -> int:
     print(f"device: {kind}, {torch.cuda.device_count()} visible; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(label)
+    print(f"clocks.sm, clocks.mem, power.draw, temperature: {gpu_state()}")
     print("PHASE 1 device: ok")
 
     # 2. build: nvcc for each kernel and g++ for the golden, together
@@ -746,6 +1069,32 @@ def main() -> int:
                 f"{mode} on the {name} path {prob.shape} "
                 f"{op.plan.spec.name} k={op.plan.sweeps_per_call} tiles "
                 f"{op.plan.tiles}"))
+    # the two-level mode at cfg9's plan (256^3 k=8), at k=1, ragged, and
+    # through the wave runner with a remainder
+    err["tiled_sweep+two_level"] = max(
+        compare_two_level(tiled, MAIN_SIZE, WAVE_K, rng, device),
+        compare_two_level(tiled, MAIN_SIZE, 1, rng, device),
+        compare_two_level(tiled, RAGGED_SIZE, 3, rng, device),
+        compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device))
+    # the coefficient mode: cfg16's marching plan and ragged at k=3; the
+    # k=1 matvec of cfg18 (its scales, a random ghost ring) at 255^3 and
+    # at every OperatorMultigrid level below it
+    from stencil_tpu_torch.multigrid import OperatorMultigrid
+
+    coeff_errs = []
+    for shape, k in ((MAIN_SIZE, 8), (RAGGED_SIZE, 3)):
+        plan, cur, coeff = marching_inputs(shape, k, rng, device)
+        coeff_errs.append(compare_coeff(
+            tiled, plan, cur, coeff,
+            f"FTCS {shape} two_material contrast {CONTRAST:g}"))
+    for level, lp in enumerate(OperatorMultigrid(
+            hetero_problem("pallas"))._probs):
+        coeff_errs.append(compare_coeff(
+            tiled, lp._kernel_plan(), random_ring(lp.shape, rng, device),
+            lp.operator_data()[1],
+            f"cfg18 matvec, OperatorMultigrid level {level} {lp.shape}, "
+            f"random ghost ring,"))
+    err["tiled_sweep+coeff"] = max(coeff_errs)
     print(f"PHASE 3 kernel vs plain: ok (max abs diff per mode "
           f"{ {k: float(f'{v:.3e}') for k, v in err.items()} })")
 
@@ -794,6 +1143,11 @@ def main() -> int:
                  "tiled_sweep+dual"):
         launches[mode] = launches.get(mode, 0) + sum(
             c[mode] for c in solve_counts.values())
+    # the wave main path (two-level mode), -m varcoeff and --solve hetero
+    # (coefficient mode)
+    launches["tiled_sweep+two_level"] = run_wave(tiled, rng, label)
+    launches["tiled_sweep+coeff"] = (run_varcoeff_cli(cli, tiled, label)
+                                     + run_hetero_cli(cli, tiled, label))
     print(f"PHASE 4 main paths: ok (launches {launches})")
 
     # 5. times
@@ -900,6 +1254,70 @@ def main() -> int:
                             f"span, idle {100 * (1 - busy / span):.1f}%")
           + f" [{label}]")
 
+    # cfg9: the leapfrog wave at 256^3 on the two-level mode, k=8 (GLUPS
+    # counts leapfrog steps, bench.py's rule), and on eager
+    from stencil_tpu_torch.models.diffusion import (
+        HeterogeneousDiffusion, two_material,
+    )
+    from stencil_tpu_torch.models.wave import WaveEquation
+
+    w = WaveEquation(shape=MAIN_SIZE, device=DEVICE)
+    wprev, wcur = w.initial_pair(np.random.default_rng(1).normal(
+        size=MAIN_SIZE) * 0.01)
+    for method, k in (("tiled", WAVE_K), ("eager", 1)):
+        wrun = registry.Runner(
+            name=f"wave_{method}", granularity=k,
+            iterate=lambda g, n, m=method, k_=k: w.simulate(
+                wprev, g, n, method=m, sweeps_per_call=k_)[1])
+        bench(wrun, wcur, int(np.prod(MAIN_SIZE)), device, hbm, label,
+              f"cfg9 wave {MAIN_SIZE} {method} k={k}"
+              + (f" tiles {wave_plan(MAIN_SIZE, k).tiles}"
+                 if method == "tiled" else ""))
+    # cfg16 / cfg16b: two-material FTCS diffusion at 256^3 (contrast 100,
+    # seed 0) on the coefficient mode at k=8 and on the eager field sweep
+    vdiff = HeterogeneousDiffusion(
+        shape=MAIN_SIZE, a=two_material(MAIN_SIZE, lo=0.01, hi=1.0, seed=0),
+        device=DEVICE)
+    for name, method in (("cfg16", "tiled"), ("cfg16b", "eager")):
+        vrun = vdiff.runner(method=method, sweeps_per_call=8)
+        bench(vrun, vdiff.initial_grid(), int(np.prod(MAIN_SIZE)), device,
+              hbm, label, f"{name} varcoeff {MAIN_SIZE} {vrun.name} "
+              f"{vrun.plan_info}")
+    # cfg18: BiCGStab + OperatorMultigrid on the 255^3 heterogeneous
+    # Poisson problem, tol 1e-4, at most 1000 iterations, f seed 7, with
+    # the eager matvec (auto) and the coefficient mode's (pallas)
+    from stencil_tpu_torch.krylov import BiCGStab
+    from stencil_tpu_torch.multigrid import OperatorMultigrid
+
+    fhet = torch.from_numpy(np.random.default_rng(HETERO_SEED).normal(
+        size=HETERO_SIZE).astype(np.float32)).to(device)
+    for op in ("auto", "pallas"):
+        hprob = hetero_problem(op)
+        hsolver = BiCGStab(hprob, preconditioner=OperatorMultigrid(hprob))
+
+        def solve18():
+            return hsolver.solve(fhet, tolerance=1e-4, max_iterations=1000)
+
+        res18 = solve18()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            solve18()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"cfg18 BiCGStab + OperatorMultigrid hetero {HETERO_SIZE} "
+              f"--op-kernel {op}, tol 1e-4: {res18.summary()}; time to "
+              f"solution {sorted(walls)[1]:.3f} ms (median of {walls}) "
+              f"[{label}]")
+        require(res18.converged, f"cfg18 --op-kernel {op} did not converge")
+        wall, busy, span = device_busy(solve18, device)
+        print(f"cfg18 --op-kernel {op} one solve: host wall {wall:.3f} ms "
+              "unprofiled; " + ("device busy share not measured (the trace "
+                                "holds no device events)" if busy is None
+                                else f"device busy {busy:.3f} ms of a "
+                                f"{span:.3f} ms span, idle "
+                                f"{100 * (1 - busy / span):.1f}%")
+              + f" [{label}]")
+
     # one launch per kernel mode at the shape, spec, k, tiles and source
     # of a main path that phase 3 held it at and phase 4 counted
     launch_inputs = []  # (mode, kernel, plan, padded u, padded source)
@@ -929,6 +1347,17 @@ def main() -> int:
                               op.plan.layout.pad_grid(grid),
                               pad_source(op.plan, mf, op.source_scale,
                                          prob.bc)))
+    # the per-mode times below start from an empty allocator cache (the
+    # plain versions allocate whole padded tensors), with the card's state
+    # beside them
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gib = 2 ** 30
+    print(f"before the per-mode times: "
+          f"{torch.cuda.memory_allocated() / gib:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / gib:.2f} GiB reserved; "
+          f"clocks.sm, clocks.mem, power.draw, temperature: {gpu_state()} "
+          f"[{label}]")
     # the library yardstick: one conv per sweep, in full fp32, cuDNN free
     # to pick its fastest algorithm (time_call's untimed first call tunes)
     torch.backends.cudnn.allow_tf32 = False
@@ -952,6 +1381,75 @@ def main() -> int:
               f"conv{len(plan.interior_shape)}d {library_ms[mode]:.4f} ms "
               f"per sweep (the kernel does {plan.sweeps_per_call}; vs one "
               f"plain sweep max abs diff {lib_check():.3e}) [{label}]")
+
+    # the two-level mode at cfg9's plan: the yardstick is one 2-channel
+    # conv3d per leapfrog step
+    mode = "tiled_sweep+two_level"
+    plan = wave_plan(MAIN_SIZE, WAVE_K)
+    cur = plan.layout.pad_grid(random_grid(MAIN_SIZE, 1, rng, device))
+    prev = plan.layout.pad_grid(random_grid(MAIN_SIZE, 1, rng, device))
+    nxt, out2 = cur.clone(), prev.clone()
+    ms[mode] = time_call(lambda: tiled(cur, nxt, plan, prev=prev, out2=out2),
+                         device, 20)
+    plain_ms[mode] = time_call(lambda: sweep_reference(cur, plan, prev=prev),
+                               device, 3)
+    lib, lib_check = wave_library_step(plan, cur, prev)
+    library_ms[mode] = time_call(lib, device, 20)
+    n_int = int(np.prod(plan.interior_shape))
+    n_pad = int(np.prod(plan.layout.padded_shape))
+    bound_ms[mode], bound_by[mode] = bound_of(
+        4 * (2 * n_pad + 2 * n_int),
+        n_int * WAVE_K * (plan.spec.flops_per_point + 1))
+    print(f"one call of {mode} {plan.spec.name} {MAIN_SIZE} k={WAVE_K}, "
+          f"tiles {plan.tiles}: kernel {ms[mode]:.4f} ms, plain "
+          f"{plain_ms[mode]:.4f} ms, bound {bound_ms[mode]:.4f} ms (by "
+          f"{bound_by[mode]}); library conv3d (2 channels) "
+          f"{library_ms[mode]:.4f} ms per step (the kernel does {WAVE_K}; "
+          f"vs one plain step max abs diff {lib_check():.3e}) [{label}]")
+    # the coefficient mode at cfg16's plan: no single PyTorch call forms
+    # per-point weights; the eager field sweep (cfg16b's) is printed beside
+    from stencil_tpu_torch.ops.eager import apply_fields
+
+    mode = "tiled_sweep+coeff"
+    plan, cur, coeff = marching_inputs(MAIN_SIZE, 8, rng, device)
+    nxt = cur.clone()
+    ms[mode] = time_call(lambda: tiled(cur, nxt, plan, coeff=coeff), device,
+                         10)
+    plain_ms[mode] = time_call(lambda: sweep_reference(cur, plan,
+                                                       coeff=coeff),
+                               device, 3)
+    library_ms[mode] = None
+    n_int = int(np.prod(plan.interior_shape))
+    n_pad = int(np.prod(plan.layout.padded_shape))
+    bound_ms[mode], bound_by[mode] = bound_of(
+        4 * (2 * n_pad + n_int), coeff_ops(n_int, plan.sweeps_per_call))
+    offsets, fields = vdiff.tap_fields()
+    fields = torch.from_numpy(fields).float().to(device)
+    h = plan.layout.halo
+    cur_h1 = cur[tuple(slice(h - 1, h + n + 1) for n in MAIN_SIZE)]
+    eager_ms = time_call(lambda: apply_fields(cur_h1, offsets, fields, 1),
+                         device, 10)
+    print(f"one call of {mode} {MAIN_SIZE} k={plan.sweeps_per_call}, tiles "
+          f"{plan.tiles}: kernel {ms[mode]:.4f} ms, plain "
+          f"{plain_ms[mode]:.4f} ms, bound {bound_ms[mode]:.4f} ms (by "
+          f"{bound_by[mode]}); library none (per-point weights); the eager "
+          f"field sweep (cfg16b) {eager_ms:.4f} ms per sweep [{label}]")
+    # the k=1 matvec of cfg18 at 255^3: kernel, plain, eager field matvec
+    kprob, eprob = hetero_problem("pallas"), hetero_problem("auto")
+    kplan, kdata, edata = (kprob._kernel_plan(), kprob.operator_data(),
+                           eprob.operator_data())
+    x = random_ring(HETERO_SIZE, rng, device)
+    mv_ms = time_call(lambda: kprob.operator_apply(x, kdata), device, 20)
+    mv_plain = time_call(lambda: sweep_reference(x, kplan, coeff=kdata[1]),
+                         device, 3)
+    mv_eager = time_call(lambda: eprob.operator_apply(x, edata), device, 20)
+    n_int = int(np.prod(HETERO_SIZE))
+    mv_bound, mv_by = bound_of(4 * (2 * int(np.prod(x.shape)) + n_int),
+                               coeff_ops(n_int, 1))
+    print(f"one cfg18 matvec {HETERO_SIZE} (coeff mode k=1, tiles "
+          f"{kplan.tiles}): kernel {mv_ms:.4f} ms, plain {mv_plain:.4f} ms, "
+          f"bound {mv_bound:.4f} ms (by {mv_by}); the eager field matvec "
+          f"{mv_eager:.4f} ms [{label}]")
 
     # the device's busy share over cfg1's main-path run (1024 iterations)
     cfg = RunConfig(size=CFG1[1], spec="jacobi5", temporal=CFG1[2],
@@ -983,7 +1481,8 @@ def main() -> int:
         "bound_ms": bound_ms[mode], "bound_by": bound_by[mode],
         "library_ms": library_ms[mode],
     } for mode in ("tiled_sweep", "tiled_sweep+source", "tiled_sweep+cheby",
-                   "tiled_sweep+dual", "slab_sweep", "slab_sweep+source")]}))
+                   "tiled_sweep+dual", "tiled_sweep+two_level",
+                   "tiled_sweep+coeff", "slab_sweep", "slab_sweep+source")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -75,11 +75,17 @@ def check_method(config: RunConfig, spec, runner):
     Returns ``(CheckResult, iterations_checked)``. The native float64
     golden verifies the full iteration count; without a C++ compiler the
     NumPy golden is capped at ``NUMPY_GOLDEN_CAP`` iterations, and the
-    caller must say so."""
+    caller must say so. A runner with its own ``golden_fn`` (NumPy, for
+    updates the spec golden cannot represent) is checked against it,
+    capped the same way."""
     grid = make_grid(config, spec)
     x0 = grid.interior().double().cpu().numpy()
     iters = config.iterations
-    ref = native.golden_iterate_native(x0, spec, iters, bc=grid.bc)
+    if runner.golden_fn is not None:
+        iters = min(config.iterations, NUMPY_GOLDEN_CAP)
+        ref = runner.golden_fn(x0, iters, grid.bc)
+    else:
+        ref = native.golden_iterate_native(x0, spec, iters, bc=grid.bc)
     if ref is None:
         iters = min(config.iterations, NUMPY_GOLDEN_CAP)
         ref = golden.golden_iterate(x0, spec, iters, bc=grid.bc)
@@ -153,9 +159,12 @@ def run_all(config: RunConfig, out=None) -> List[dict]:
                   f"({iters_checked} iterations verified) — "
                   f"{chk.message()}", file=out)
             if capped:
-                print(f"[{name}] WARNING: no C++ toolchain — NumPy golden "
-                      f"fallback verified only {iters_checked} of "
-                      f"{config.iterations} iterations", file=out)
+                why = ("method-specific field golden"
+                       if runner.golden_fn is not None
+                       else "no C++ toolchain — NumPy golden fallback")
+                print(f"[{name}] WARNING: {why} verified only "
+                      f"{iters_checked} of {config.iterations} iterations",
+                      file=out)
             if not chk.ok:
                 results.append(rec)
                 continue

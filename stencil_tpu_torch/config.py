@@ -14,7 +14,7 @@ Two groups of flags do nothing here, on purpose:
 - Flags of features outside the ported slice (``--mesh``, ``--chunks``,
   ``--checkpoint-dir``, ``--dump-image``, ``--profile``) raise
   ``NotImplementedError`` from :meth:`RunConfig.check_ported`. In solve
-  mode (``--solve``, ported for the ``poisson`` family)
+  mode (``--solve``, ported for the ``poisson`` and ``hetero`` families)
   ``solve_cli.run_solve`` reports ``--mesh``, ``--checkpoint-dir`` and
   ``--dump-image`` as an error record instead, as the JAX ``run_solve``
   reports its own refusals.
@@ -61,7 +61,8 @@ class RunConfig:
     cores: int = 1
     embed: bool = False
 
-    # steady solver stack: the problem family (poisson is ported)
+    # steady solver stack: the problem family (poisson and hetero are
+    # ported)
     solve: Optional[str] = None
 
     # not ported yet: set -> check_ported() raises (or, in solve mode,
@@ -175,9 +176,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("-m", "--methods", type=str, nargs="+",
                    default=list(DEFAULT_METHODS),
-                   help="methods to run: eager, tiled (3D), slab (2D), or "
-                        "the JAX package's names xla, pallas, "
-                        "pallas_temporal, pallas_tiled")
+                   help="methods to run: eager, tiled (3D), slab (2D), "
+                        "varcoeff (heterogeneous diffusion), or the JAX "
+                        "package's names xla, pallas, pallas_temporal, "
+                        "pallas_tiled")
     p.add_argument("-b", "--block", type=int, default=None,
                    help="tiled/slab: pin the d0 tile extent (rows per "
                         "tile); default auto")
@@ -215,19 +217,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TPU tap evaluation strategy: accepted and ignored")
     p.add_argument("--solve", type=str, default=None,
                    choices=["poisson", "hetero", "advdiff"],
-                   help="steady solver stack: the problem family (poisson; "
-                        "hetero and advdiff not ported yet)")
+                   help="steady solver stack: the problem family (poisson, "
+                        "hetero; advdiff not ported yet)")
     p.add_argument("--solver", type=str, default="auto",
                    choices=["auto", "relax", "mg", "fmg", "cg", "pcg",
                             "bicgstab", "gmres"],
-                   help="solve mode: auto (= pcg), relax, mg, fmg, cg, pcg "
-                        "(bicgstab, gmres not ported yet)")
+                   help="solve mode: auto (pcg for poisson, bicgstab "
+                        "otherwise), relax, mg, fmg, cg, pcg, bicgstab "
+                        "(gmres not ported yet)")
     p.add_argument("--tol", type=float, default=1e-5, dest="tolerance",
                    help="solve mode: tolerance (Krylov: relative 2-norm; "
                         "mg/relax: max update per iteration)")
     p.add_argument("--precond", type=str, default=None,
                    choices=["none", "mg", "opmg"],
-                   help="cg/pcg preconditioner (opmg not ported yet)")
+                   help="preconditioner: mg (cg/pcg, the Poisson cycle), "
+                        "opmg (bicgstab, the rediscretized operator cycle) "
+                        "or none")
     p.add_argument("--precond-dtype", type=str, default=None,
                    choices=["float32", "bfloat16"],
                    help="pcg: dtype of the eager preconditioning cycle")
@@ -257,14 +262,17 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["upwind", "central"],
                    help="advdiff (not ported yet)")
     p.add_argument("--contrast", type=float, default=100.0,
-                   help="hetero (not ported yet)")
+                   help="-m varcoeff and --solve hetero: the two-material "
+                        "coefficient's ratio hi/lo")
     p.add_argument("--rhs", type=str, default="auto",
                    choices=["auto", "sine", "random", "ones"],
                    help="solve mode right-hand side (auto: the "
                         "manufactured sine for poisson)")
     p.add_argument("--op-kernel", type=str, default="auto",
                    choices=["auto", "xla", "pallas"],
-                   help="hetero operator kernel (not ported yet)")
+                   help="hetero operator matvec: auto/xla (the eager field "
+                        "sweep) or pallas (the tiled kernel's coefficient "
+                        "mode, 3D)")
     p.add_argument("-R", "--repeat", type=int, default=1,
                    help="timed wall-clock repeats and marginal-timing "
                         "repeats")

@@ -9,8 +9,16 @@ and compares what they compute. Nothing here imports JAX.
                    grid.bc.periodic, grid.bc.neumann, device="cpu")
   poisson_from_arrays(prob.shape, prob.h, prob.bc.values, prob.bc.periodic,
                       prob.bc.neumann, prob.dtype, device="cpu")
+  diffusion_from_arrays(het.shape, het.a, het.h, het.dt, het.bc.values,
+                        het.bc.periodic, het.bc.neumann, het.dtype,
+                        device="cpu")
+  hetero_from_arrays(prob.shape, prob.a, prob.h, prob.bc.values,
+                     prob.dtype, prob.kernel, device="cpu")
+  wave_from_arrays(w.shape, w.c, w.h, w.dt, w.bc.values, w.bc.periodic,
+                   w.bc.neumann, w.dtype, device="cpu")
 
-A source ``f`` goes across as the numpy array it is.
+A source ``f``, a coefficient field ``a`` and a leapfrog pair's interiors
+go across as the numpy arrays they are.
 """
 
 from __future__ import annotations
@@ -22,7 +30,11 @@ import torch
 
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid, check_device
 from stencil_tpu_torch.core.spec import StencilSpec
+from stencil_tpu_torch.models.diffusion import (
+    HeterogeneousDiffusion, HeterogeneousPoissonProblem,
+)
 from stencil_tpu_torch.models.poisson import PoissonProblem
+from stencil_tpu_torch.models.wave import WaveEquation
 
 
 def spec_from_arrays(name: str, offsets, weights,
@@ -66,3 +78,41 @@ def poisson_from_arrays(shape, h, bc_values, periodic: Sequence[bool] = (),
     return PoissonProblem(shape=tuple(int(n) for n in shape), h=float(h),
                           bc=bc_from_arrays(bc_values, periodic, neumann),
                           dtype=str(dtype), device=str(device))
+
+
+def diffusion_from_arrays(shape, a, h, dt, bc_values,
+                          periodic: Sequence[bool] = (),
+                          neumann: Sequence[bool] = (), dtype="float32",
+                          device="cuda") -> HeterogeneousDiffusion:
+    """The ``HeterogeneousDiffusion`` of this coefficient field ``a``
+    (numpy), spacing, step (None: the stable limit) and walls."""
+    return HeterogeneousDiffusion(
+        shape=tuple(int(n) for n in shape), a=np.asarray(a), h=float(h),
+        dt=None if dt is None else float(dt),
+        bc=bc_from_arrays(bc_values, periodic, neumann), dtype=str(dtype),
+        device=str(device))
+
+
+def hetero_from_arrays(shape, a, h, bc_values, dtype="float32",
+                       kernel="auto", device="cuda"
+                       ) -> HeterogeneousPoissonProblem:
+    """The ``HeterogeneousPoissonProblem`` of this coefficient field ``a``
+    (numpy), spacing and (Dirichlet) walls; ``kernel`` as in JAX
+    (``auto``, ``xla``, ``pallas``)."""
+    return HeterogeneousPoissonProblem(
+        shape=tuple(int(n) for n in shape), a=np.asarray(a), h=float(h),
+        bc=bc_from_arrays(bc_values), dtype=str(dtype), kernel=str(kernel),
+        device=str(device))
+
+
+def wave_from_arrays(shape, c, h, dt, bc_values,
+                     periodic: Sequence[bool] = (),
+                     neumann: Sequence[bool] = (), dtype="float32",
+                     device="cuda") -> WaveEquation:
+    """The ``WaveEquation`` of this speed, spacing, step (None: the CFL
+    limit) and walls."""
+    return WaveEquation(
+        shape=tuple(int(n) for n in shape), c=float(c), h=float(h),
+        dt=None if dt is None else float(dt),
+        bc=bc_from_arrays(bc_values, periodic, neumann), dtype=str(dtype),
+        device=str(device))

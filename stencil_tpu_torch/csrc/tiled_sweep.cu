@@ -2,7 +2,7 @@
 // fp32 grid, in one launch. Hand-written for Hopper (sm_90a).
 //
 // Replaces stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep (the Pallas
-// TPU kernel, pallas_call at :1821) in four of its modes, with every
+// TPU kernel, pallas_call at :1821) in six of its modes, with every
 // Dirichlet face pinned (pins all ones):
 //   - homogeneous: k sweeps of a StencilSpec;
 //   - source (has_source): the affine sweep u' = S(u) + src behind Poisson
@@ -14,7 +14,18 @@
 //     at t = 1 (the multigrid Chebyshev smoother);
 //   - dual (cheby_dual, :1476-1483): the Chebyshev recurrence whose sweep
 //     k-1 also goes to a second output `out2`, while sweep k (the
-//     residual tuple) goes to `out`: the multigrid fused smooth+residual.
+//     residual tuple) goes to `out`: the multigrid fused smooth+residual;
+//   - two-level (two_level, TPU body compute2 at :1374-1431): k leapfrog
+//     steps L_t = S(L_{t-1}) - L_{t-2} of the wave equation from the two
+//     levels `in` (L_n) and `prev` (L_{n-1}); sweep k goes to `out`, sweep
+//     k-1 (at k = 1 the input L_n) to `out2`;
+//   - coefficient (tap_mode='coeff', TPU weights prep_weights :871-912 and
+//     taps taps_coeff :1195-1229): k sweeps of the radius-1 operator whose
+//     per-point face weights are nb*harm(a(p), a(p+-e_d)) of a padded
+//     coefficient field a(x) and whose center is c0 + cs*(sum of the six
+//     face means): heterogeneous FTCS diffusion (nb = dt/h^2, c0 = 1,
+//     cs = -dt/h^2) and, at k = 1, the steady operator's matvec (nb =
+//     -1/h^2, c0 = 0, cs = 1/h^2).
 // Wrapper and plain PyTorch version: stencil_tpu_torch/ops/tiled_kernel.py.
 //
 // What it computes. `in` and `out` are padded (n0+2H, n1+2H, n2+2H) fp32
@@ -46,7 +57,17 @@
 // reads prev[p] and then writes u_t[p] at the same point, while every
 // neighbour read goes to the other buffer. So a Chebyshev or dual launch
 // uses exactly the shared memory of a source launch, and the plan chooser
-// counts it the same (ops/tiled.py).
+// counts it the same (ops/tiled.py). The two-level mode is the same
+// recurrence with pv = -1: its subtrahend at sweep 1 is `prev` at the
+// point, read once through the read-only cache (it is never read at a
+// neighbour, so it needs no window), and from sweep 2 the buffer being
+// written. The coefficient mode reads a(p) and its six face neighbours
+// through the read-only cache at every update and forms the face means
+// there, harm(x, y) = (2x*y)/(x+y) in _rn steps: bitwise symmetric, so a
+// hi face equals the neighbour's lo face as the TPU kernel assumes. It
+// recomputes the weights at every sweep (7 loads, 6 divides per update)
+// where the TPU kernel stores them in five weight windows once per tile;
+// both modes thus keep the shared memory of a source launch.
 //
 // Ragged grids: the last tile of a dim whose extent is not a multiple of
 // the tile starts early, at n - t (clamped, as build_tiled_sweep does at
@@ -70,13 +91,17 @@
 // update), every update reads its taps from shared memory, and a block
 // holding one or two windows leaves few warps to hide latency. So
 // instruction throughput and latency bind it, and the loops are written
-// to execute few instructions: no division per point, loads unrolled so that several are
-// in flight, the sweep's four Chebyshev coefficients read once per sweep.
-// The Chebyshev modes add one source read (read-only cache) and, from
-// t = 2, one shared read per update; the dual mode one global store per
-// tile point. Loads are plain, not TMA or cp.async, and do not overlap
-// compute within a block: that, and streaming d0 through registers so that
-// d0 is not recomputed, is later work.
+// to execute few instructions: no index division per point, loads
+// unrolled so that several are in flight, the sweep's four Chebyshev
+// coefficients read once per sweep. The Chebyshev modes add one source
+// read (read-only cache) and, from t = 2, one shared read per update; the
+// dual mode one global store per tile point; the two-level mode one
+// source read at sweep 1 and one shared read from sweep 2; the
+// coefficient mode 7 global loads, 6 divides and 44 more operations per
+// update, which make it bound by operations even by the roofline rule.
+// Loads are plain, not TMA or cp.async, and do not overlap compute within
+// a block: that, and streaming d0 through registers so that d0 is not
+// recomputed, is later work.
 
 #include <cuda_runtime.h>
 
@@ -99,7 +124,9 @@ constexpr int kErrArgument = -1;
 constexpr int kErrShared = -2;
 
 // What a launch computes (see the header).
-enum Mode { kPlain = 0, kSource = 1, kCheby = 2, kDual = 3 };
+enum Mode {
+  kPlain = 0, kSource = 1, kCheby = 2, kDual = 3, kTwoLevel = 4, kCoeff = 5
+};
 
 struct Geometry {
   int n0, n1, n2;   // interior extents
@@ -112,14 +139,50 @@ struct Geometry {
 };
 
 // Per-sweep (c, n, pv, s) of the Chebyshev modes, fp32 as the host rounded
-// them; sweep t (1-based) uses entry t-1.
+// them; sweep t (1-based) uses entry t-1. (nb, c0, cs): the coefficient
+// mode's scales, fp32 as the host rounded them.
 struct Coeffs {
   float c[kMaxSweeps], n[kMaxSweeps], pv[kMaxSweeps], s[kMaxSweeps];
+  float nb, c0, cs;
 };
 
+// The face mean of two cell coefficients, in the TPU kernel's order.
+__device__ __forceinline__ float harm(float x, float y) {
+  return __fdiv_rn(__fmul_rn(__fmul_rn(2.0f, x), y), __fadd_rn(x, y));
+}
+
+// The coefficient mode's update at window point p of `u` (window strides
+// sw0, sw1, 1), the coefficient read at padded index q of `a` (strides
+// gs0, gs1, 1): weights and sums in the TPU kernel's order (:903-912,
+// :1219-1227), each step rounded.
+__device__ __forceinline__ float coeff_update(
+    const float* __restrict__ u, int p, int sw0, int sw1,
+    const float* __restrict__ a, int64_t q, int64_t gs0, int gs1,
+    float nb, float c0, float cs) {
+  const float ac = __ldg(a + q);
+  const float h0l = harm(ac, __ldg(a + q - gs0));
+  const float h0h = harm(ac, __ldg(a + q + gs0));
+  const float h1l = harm(ac, __ldg(a + q - gs1));
+  const float h1h = harm(ac, __ldg(a + q + gs1));
+  const float h2l = harm(ac, __ldg(a + q - 1));
+  const float h2h = harm(ac, __ldg(a + q + 1));
+  const float sum6 = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(h0l, h0h), h1l), h1h), h2l),
+      h2h);
+  const float ctr = __fadd_rn(c0, __fmul_rn(cs, sum6));
+  float acc = __fmul_rn(ctr, u[p]);
+  acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(nb, h1l), u[p - sw1]));
+  acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(nb, h1h), u[p + sw1]));
+  acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(nb, h2l), u[p - 1]));
+  acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(nb, h2h), u[p + 1]));
+  acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(nb, h0l), u[p - sw0]));
+  return __fadd_rn(acc, __fmul_rn(__fmul_rn(nb, h0h), u[p + sw0]));
+}
+
 // NT > 0: a spec of exactly NT taps; NT == 0: any spec. MODE: see Mode;
-// `source` is read in every mode but kPlain, `coeffs` in kCheby and kDual,
-// `out2` in kDual only.
+// `source` is read in every mode but kPlain: the padded source, the raw f
+// (kCheby, kDual), L_{n-1} (kTwoLevel) or the coefficient a(x) (kCoeff);
+// `coeffs` in kCheby, kDual and kCoeff, `out2` in kDual and kTwoLevel.
 template <int NT, int MODE>
 __global__ void __launch_bounds__(kThreads)
 tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
@@ -130,7 +193,7 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
   extern __shared__ float smem[];
   const int wvol = g.w0 * g.w1 * g.w2;
   float* cur = smem;
-  float* nxt = smem + wvol;  // exists only when k > 1
+  float* nxt = g.k > 1 ? smem + wvol : smem;  // a second window when k > 1
   const Evaluator<NT> stencil_at(taps);
 
   int b = blockIdx.x;
@@ -181,8 +244,10 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
     const int rows1 = g.w1 - 2 * e;
     const int rows = (g.w0 - 2 * e) * rows1;
     const bool last = t == g.k;
-    // dual mode: sweep k-1 also writes the tile, [kr, kr + t) per dim
-    const bool dual_out = MODE == kDual && t == g.k - 1;
+    // dual and two-level modes: sweep k-1 also writes the tile, [kr, kr +
+    // t) per dim
+    constexpr bool kTwoOut = MODE == kDual || MODE == kTwoLevel;
+    const bool dual_out = kTwoOut && t == g.k - 1;
     float cc = 0.0f, cn = 0.0f, cpv = 0.0f, cs = 0.0f;
     if constexpr (MODE == kCheby || MODE == kDual) {
       cc = coeffs.c[t - 1];
@@ -206,7 +271,13 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
         const int p = base + c;
         float v;
         if (inner && c >= lo2 && c < hi2) {
-          v = stencil_at(cur, p, taps);
+          if constexpr (MODE == kCoeff) {
+            v = coeff_update(cur, p, g.w1 * g.w2, g.w2, source, grow + c,
+                             (int64_t)g.p1 * g.p2, g.p2, coeffs.nb,
+                             coeffs.c0, coeffs.cs);
+          } else {
+            v = stencil_at(cur, p, taps);
+          }
           if constexpr (MODE == kSource) {
             v = __fadd_rn(v, __ldg(source + grow + c));
           } else if constexpr (MODE == kCheby || MODE == kDual) {
@@ -214,15 +285,22 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
                           __fmul_rn(cs, __ldg(source + grow + c)));
             // nxt still holds u_{t-2} here (see the header)
             if (t >= 2) v = __fadd_rn(v, __fmul_rn(cpv, nxt[p]));
+          } else if constexpr (MODE == kTwoLevel) {
+            // L_{t-2}: prev at sweep 1, then nxt (see the header)
+            v = __fsub_rn(v, t == 1 ? __ldg(source + grow + c) : nxt[p]);
           }
         } else {
           v = cur[p];
         }
         if (last) {
           out[grow + c] = v;
+          // k = 1: L_{n+k-1} is the input itself (the region is the tile)
+          if constexpr (MODE == kTwoLevel) {
+            if (g.k == 1) out2[grow + c] = cur[p];
+          }
         } else {
           nxt[p] = v;
-          if constexpr (MODE == kDual) {
+          if constexpr (kTwoOut) {
             if (tile_row && c >= kr && c < kr + g.t2) out2[grow + c] = v;
           }
         }
@@ -277,6 +355,14 @@ cudaError_t dispatch(int ntaps, const Launch& l, const Taps& taps,
     default:
       return launch<0, MODE>(l, taps, co);
   }
+}
+
+// The two-level mode: the wave spec (7 taps) unrolled, any other through
+// the table.
+cudaError_t dispatch_two_level(int ntaps, const Launch& l, const Taps& taps) {
+  const Coeffs none{};
+  return ntaps == 7 ? launch<7, kTwoLevel>(l, taps, none)
+                    : launch<0, kTwoLevel>(l, taps, none);
 }
 
 // Checks the geometry and the tap table and fills `l` (but its pointers
@@ -400,6 +486,67 @@ int stencil_tiled_sweep_cheby(const float* in, float* out, float* out2,
   if (err != cudaSuccess) return (int)err;
   return out2 ? (int)dispatch<kDual>(ntaps, l, taps, co)
               : (int)dispatch<kCheby>(ntaps, l, taps, co);
+}
+
+// The two-level (leapfrog) mode: k steps of L_t = S(L_{t-1}) - L_{t-2}
+// from `in` = L_n and `prev` = L_{n-1} (padded like `in`, required); sweep
+// k goes to `out`, sweep k-1 (at k = 1 the input L_n) to `out2`
+// (required), tile points only. The other arguments and the return value
+// are those of stencil_tiled_sweep.
+int stencil_tiled_sweep_two_level(const float* in, const float* prev,
+                                  float* out, float* out2,
+                                  const int32_t* geom, int ngeom,
+                                  const int32_t* tap_offsets,
+                                  const int32_t* group_sizes,
+                                  const float* group_weights, int ntaps,
+                                  int ngroups, int uniform,
+                                  float uniform_weight, int device,
+                                  void* stream) {
+  Launch l;
+  Taps taps;
+  const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps);
+  if (rc != 0) return rc;
+  if (prev == nullptr || out2 == nullptr) return kErrArgument;
+  l.in = in; l.out = out; l.out2 = out2; l.source = prev;
+  l.stream = (cudaStream_t)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)dispatch_two_level(ntaps, l, taps);
+}
+
+// The coefficient mode: k sweeps of the radius-1 face-weight operator of
+// the padded coefficient `coeff` (the layout of `in`, ghosts
+// edge-replicated; required), `scales` float[3] = (nb, c0, cs) (host). The
+// tap table is that of the plan's radius-1 spec; it sets the radius and is
+// otherwise unused. The other arguments and the return value are those of
+// stencil_tiled_sweep.
+int stencil_tiled_sweep_coeff(const float* in, const float* coeff,
+                              float* out, const int32_t* geom, int ngeom,
+                              const float* scales, int nscales,
+                              const int32_t* tap_offsets,
+                              const int32_t* group_sizes,
+                              const float* group_weights, int ntaps,
+                              int ngroups, int uniform, float uniform_weight,
+                              int device, void* stream) {
+  Launch l;
+  Taps taps;
+  const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps);
+  if (rc != 0) return rc;
+  if (coeff == nullptr || scales == nullptr || nscales != 3 || l.g.r != 1)
+    return kErrArgument;
+  Coeffs co{};
+  co.nb = scales[0];
+  co.c0 = scales[1];
+  co.cs = scales[2];
+  l.in = in; l.out = out; l.out2 = nullptr; l.source = coeff;
+  l.stream = (cudaStream_t)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch<0, kCoeff>(l, taps, co);
 }
 
 const char* stencil_tiled_sweep_error(int code) {

@@ -2,7 +2,8 @@
 
 Counterpart of ``stencil_tpu/multigrid.py`` (``wjacobi_spec``,
 ``residual_spec``, ``nbsum_spec``, ``_cheby_sweep_coeffs``, the level ops,
-``_level_shapes``, ``Multigrid``). The discretization and the transfers are
+``_level_shapes``, ``Multigrid``, ``OperatorMultigrid``). The
+discretization and the transfers are
 the JAX package's: the 2nd-order star Laplacian (``PoissonProblem``'s
 operator), weighted-Jacobi or Chebyshev smoothing, full-weighting
 restriction, linear prolongation, the coarsest level relaxed by damped
@@ -26,7 +27,13 @@ they are given in place and return it; the cycle owns its tensors (the
 runner clones the grid once). Nothing in a cycle syncs with the host: the
 V-cycle loop of ``runner`` queues its work and returns. The JAX
 ``interpret`` flag is accepted and ignored. ``Multigrid.sharded_runner``
-and ``OperatorMultigrid`` are not ported yet.
+is not ported yet.
+
+``OperatorMultigrid`` is the rediscretized cycle for a general operator
+(the problem's ``with_discretization`` at every level, damped Jacobi on
+the level operator's diagonal, the same transfers), the preconditioner of
+``krylov.BiCGStab``; its levels run whatever engine each level's problem
+applies, the tiled kernel's coefficient mode included.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from stencil_tpu_torch.core.grid import HaloGrid, torch_dtype
 from stencil_tpu_torch.core.spec import StencilSpec, weighted
@@ -609,11 +617,96 @@ class Multigrid:
                             progress=progress)
 
 
+@dataclasses.dataclass(frozen=True)
 class OperatorMultigrid:
-    """Rediscretized multigrid for general stencil operators: not ported
-    yet (it preconditions BiCGStab/GMRES, a later slice)."""
+    """Geometric multigrid for a general stencil operator, built by
+    per-level rediscretization: the preconditioning cycle of
+    ``krylov.BiCGStab``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "OperatorMultigrid is not ported yet to stencil_tpu_torch "
-            "(replaces stencil_tpu/multigrid.py:OperatorMultigrid)")
+    ``problem`` exposes ``shape``, ``h`` and the operator protocol
+    (``with_discretization``, ``operator_data``, ``operator_apply``,
+    ``operator_inv_diagonal``): ``HeterogeneousPoissonProblem``, and
+    ``PoissonProblem`` too. Each level applies the problem's operator
+    discretized at its own spacing; the smoother is damped point Jacobi on
+    that operator's diagonal; transfers are the Poisson stack's
+    full-weighting / linear pair. Everything is interior-shaped with zero
+    walls: the cycle only solves correction equations."""
+
+    problem: object
+    nu1: int = 2
+    nu2: int = 2
+    omega: float = 2.0 / 3.0
+    coarse_sweeps: int = 32
+    min_size: int = 3
+    gamma: int = 1
+
+    def __post_init__(self):
+        if self.gamma not in (1, 2):
+            raise ValueError("gamma must be 1 (V-cycle) or 2 (W-cycle)")
+        if self.nu1 < 0 or self.nu2 < 0 or self.nu1 + self.nu2 == 0:
+            raise ValueError("need nu1 + nu2 >= 1 smoothing sweeps")
+        shapes = _level_shapes(tuple(self.problem.shape), self.min_size)
+        h0 = float(self.problem.h)
+        probs = tuple(
+            self.problem.with_discretization(shp, h0 * (2.0 ** lvl))
+            for lvl, shp in enumerate(shapes))
+        for lvl, p in enumerate(probs):
+            try:
+                p.operator_inv_diagonal(None)
+            except ValueError as e:
+                raise ValueError(f"level {lvl}: {e}") from e
+            except TypeError:
+                pass  # the diagonal needs the level's data (field operators)
+        object.__setattr__(self, "_shapes", shapes)
+        object.__setattr__(self, "_probs", probs)
+        object.__setattr__(self, "_datas_cache", None)
+
+    @property
+    def levels(self) -> int:
+        return len(self._probs)
+
+    def _level_datas(self):
+        """Each level's operator data (``operator_data()``: None for
+        constant-tap operators, the weight fields of field operators),
+        built once."""
+        if self._datas_cache is None:
+            object.__setattr__(
+                self, "_datas_cache",
+                tuple(p.operator_data() for p in self._probs))
+        return self._datas_cache
+
+    def _make_cycle(self):
+        """``cycle(x, f, level, datas) -> x`` over interior-shaped
+        zero-wall tensors, ``datas`` the ``_level_datas()`` tuple; a new
+        tensor, ``x`` unchanged."""
+        probs = self._probs
+        nu1, nu2 = int(self.nu1), int(self.nu2)
+        omega = float(self.omega)
+        coarse = int(self.coarse_sweeps)
+        gamma = int(self.gamma)
+        n_levels = self.levels
+
+        def A(e, level, data):
+            return probs[level].operator_apply(F.pad(e, (1, 1) * e.ndim),
+                                               data)
+
+        def smooth(x, f, level, data, n):
+            w = omega * probs[level].operator_inv_diagonal(data)
+            for _ in range(n):
+                x = x + w * (f - A(x, level, data))
+            return x
+
+        def cycle(x, f, level, datas):
+            if level == n_levels - 1:
+                return smooth(x, f, level, datas[level],
+                              coarse if n_levels > 1
+                              else max(coarse, nu1 + nu2))
+            x = smooth(x, f, level, datas[level], nu1)
+            rc = _restrict_fw(f - A(x, level, datas[level]))
+            ec = torch.zeros_like(rc)
+            for _ in range(gamma):
+                ec = cycle(ec, rc, level + 1, datas)
+            x = x + _prolong_lin(ec)
+            return smooth(x, f, level, datas[level], nu2)
+
+        return cycle

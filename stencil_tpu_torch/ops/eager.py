@@ -2,8 +2,10 @@
 
 Counterpart of ``stencil_tpu/ops/xla.py`` (``apply_spec``, ``sweep``,
 ``iterate``, ``iterate_dynamic``; ``sweep_source`` and
-``iterate_source_dynamic`` are ``iterate`` with ``scaled_source``); the
-``eager`` method runs it, and the sweep kernels' plain version
+``iterate_source_dynamic`` are ``iterate`` with ``scaled_source``;
+``apply_fields`` and ``iterate_fields_dynamic``, the variable-coefficient
+sweep, are :func:`apply_fields` and :func:`iterate_fields`); the ``eager``
+method runs it, and the sweep kernels' plain version
 (``ops/sweep_kernel.py``) is built from it.
 
 The per-point summation order is the JAX one, and the CUDA kernel's: taps
@@ -105,3 +107,38 @@ def iterate(grid: HaloGrid, spec: StencilSpec, iterations: int,
         cur, nxt = nxt, cur
     return HaloGrid(data=cur, halo=grid.halo, bc=grid.bc)
 
+
+
+def apply_fields(padded: torch.Tensor, offsets, fields: torch.Tensor,
+                 halo: int) -> torch.Tensor:
+    """One variable-coefficient sweep: ``out[p] = sum_t fields[t][p] *
+    padded[p + offsets[t]]``, per-point tap weights (``fields`` stacks one
+    interior-shaped weight array per offset), the terms summed in offset
+    order. Returns a new interior-shaped tensor."""
+    r = halo
+    shape = tuple(s - 2 * r for s in padded.shape)
+    acc = None
+    for i, off in enumerate(offsets):
+        term = fields[i] * padded[tuple(
+            slice(r + off[d], r + off[d] + shape[d])
+            for d in range(padded.ndim))]
+        acc = term if acc is None else acc.add_(term)
+    return acc
+
+
+def iterate_fields(grid: HaloGrid, offsets, fields: torch.Tensor,
+                   iterations: int, halo: int = 1) -> HaloGrid:
+    """``iterations`` variable-coefficient sweeps (:func:`apply_fields`);
+    ``grid`` is left unchanged. Two padded tensors alternate, dynamic
+    ghosts refreshed after every sweep."""
+    if grid.halo != halo:
+        raise ValueError(f"grid halo {grid.halo} != {halo}")
+    cur = grid.data.clone()
+    nxt = cur.clone()
+    idx = _interior_index(cur.shape, halo)
+    for _ in range(iterations):
+        nxt[idx] = apply_fields(cur, offsets, fields, halo)
+        if grid.bc.any_dynamic:
+            refresh_dynamic(nxt, halo, grid.bc)
+        cur, nxt = nxt, cur
+    return HaloGrid(data=cur, halo=halo, bc=grid.bc)

@@ -101,6 +101,40 @@ def golden_iterate(
     return padded[idx]
 
 
+def golden_iterate_fields(
+    interior0: np.ndarray,
+    offsets,
+    fields: np.ndarray,
+    iterations: int,
+    bc: Optional[DirichletBC] = None,
+) -> np.ndarray:
+    """Float64 twin of the variable-coefficient sweep
+    (``ops/eager.py:apply_fields``): ``out[p] = sum_t fields[t][p] *
+    in[p + offsets[t]]``. ``fields`` stacks one interior-shaped weight
+    array per offset; halo width is the max offset magnitude."""
+    interior0 = np.asarray(interior0, np.float64)
+    fields = np.asarray(fields, np.float64)
+    ndim = interior0.ndim
+    r = max(1, max(abs(o) for off in offsets for o in off))
+    if bc is None:
+        bc = DirichletBC.reference_default(ndim)
+    padded = fill_halo_np(np.pad(interior0, r), r, bc)
+    idx = tuple(slice(r, s - r) for s in padded.shape)
+    shape = interior0.shape
+    for _ in range(iterations):
+        acc = np.zeros(shape, np.float64)
+        for i, off in enumerate(offsets):
+            tap_idx = tuple(
+                slice(r + off[d], r + off[d] + shape[d])
+                for d in range(ndim)
+            )
+            acc += fields[i] * padded[tap_idx]
+        padded[idx] = acc
+        if bc.any_dynamic:
+            refresh_dynamic_np(padded, r, bc)
+    return padded[idx]
+
+
 @dataclasses.dataclass
 class CheckResult:
     """Outcome of a differential check: pass/fail plus the first mismatch."""

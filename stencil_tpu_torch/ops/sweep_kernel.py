@@ -10,13 +10,19 @@ table in ``weight_groups`` order, the device and the stream. Each launch
 runs ``plan.sweeps_per_call`` sweeps with the Dirichlet ghosts held
 constant, and agrees bitwise with :func:`sweep_reference`.
 
-The 3D kernel has two more modes, for a plan with ``cheby_coeffs``
-(the multigrid smoothers): the Chebyshev recurrence
-``u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} + pv_t*u_{t-2} + s_t*f`` over the raw
-padded ``f``, and its dual form (``plan.cheby_dual``), which also writes
-sweep k-1 to a second output. They have their own C entry,
-``stencil_<name>_cheby``, which takes the coefficients as float32[4k] and
-the second output pointer.
+The 3D kernel has four more modes, each with its own C entry. For a plan
+with ``cheby_coeffs`` (the multigrid smoothers), ``stencil_<name>_cheby``:
+the Chebyshev recurrence ``u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} +
+pv_t*u_{t-2} + s_t*f`` over the raw padded ``f``, and its dual form
+(``plan.cheby_dual``), which also writes sweep k-1 to a second output; it
+takes the coefficients as float32[4k]. For a ``two_level`` plan (the wave
+equation), ``stencil_<name>_two_level``: the leapfrog ``L_t = S(L_{t-1}) -
+L_{t-2}`` from two padded levels, sweeps k and k-1 to two outputs. For a
+plan with ``coeff_scales`` (heterogeneous diffusion),
+``stencil_<name>_coeff``: the radius-1 operator whose face weights are
+``nb * harm(a(p), a(p +- e_d))`` of a padded coefficient field and whose
+center is ``c0 + cs * (sum of the six face means)``; it takes (nb, c0, cs)
+as float32[3].
 
 A wrapper takes the plain version only for tensors on the CPU (the tests);
 for CUDA tensors it launches the kernel or raises. :class:`KernelStencil`
@@ -63,14 +69,24 @@ def cheby_of(plan) -> Tuple[Tuple[float, float, float, float], ...]:
                  for c in getattr(plan, "cheby_coeffs", ()))
 
 
+def coeff_of(plan) -> Tuple[float, ...]:
+    """The plan's coefficient-mode scales (nb, c0, cs), each rounded to
+    float32 once (kernel and plain version use these values); () outside
+    that mode."""
+    return tuple(float(np.float32(v))
+                 for v in getattr(plan, "coeff_scales", ()))
+
+
 @functools.lru_cache(maxsize=64)
 def launch_tables(plan):
     """The host arrays one launch of ``plan`` passes (geometry, then
-    :func:`tap_table`, then the Chebyshev coefficients as float32[4k], empty
-    outside that mode), built once per plan rather than per launch."""
+    :func:`tap_table`, then the mode's scalars as float32: the Chebyshev
+    coefficients [4k] or the coefficient mode's (nb, c0, cs), empty
+    otherwise), built once per plan rather than per launch."""
     return (np.asarray(plan.kernel_geometry(), dtype=np.int32),
             *tap_table(plan.spec),
-            np.asarray(cheby_of(plan), dtype=np.float32).reshape(-1))
+            np.asarray(cheby_of(plan) or coeff_of(plan),
+                       dtype=np.float32).reshape(-1))
 
 
 def _cheby_reference(cur: torch.Tensor, plan, src: torch.Tensor):
@@ -96,8 +112,70 @@ def _cheby_reference(cur: torch.Tensor, plan, src: torch.Tensor):
     return (outs[-1], outs[-2]) if plan.cheby_dual else outs[-1]
 
 
+def _two_level_reference(cur: torch.Tensor, prev: torch.Tensor, plan):
+    """Plain version of the two-level mode: k whole-array leapfrog steps
+    ``L_t = S(L_{t-1}) - L_{t-2}`` (the taps as ``eager.apply_spec`` sums
+    them, then one subtraction), ghosts held constant. Returns
+    ``(L_{n+k}, L_{n+k-1})``."""
+    h = plan.layout.halo
+    idx = plan.layout.interior_index
+    older, u = prev, cur
+    for _ in range(plan.sweeps_per_call):
+        y = eager.apply_spec(u, plan.spec, halo=h)
+        y.sub_(older[idx])
+        nxt = u.clone()
+        nxt[idx] = y
+        older, u = u, nxt
+    return u, older
+
+
+def _harm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The face mean ``(2x * y) / (x + y)``, each step a rounded fp32
+    op, as the kernel's ``harm``."""
+    return (x * 2.0).mul_(y).div_(x + y)
+
+
+def _coeff_reference(cur: torch.Tensor, plan, coeff: torch.Tensor):
+    """Plain version of the coefficient mode. The five weight fields and
+    the center are computed once per call with whole-array ops in the
+    kernel's order: the six face means ``harm(a(p), a(p -+ e_d))``, their
+    sum lo0, hi0, lo1, hi1, lo2, hi2, ``ctr = c0 + cs * sum``, ``w = nb *
+    mean``. Then k sweeps of ``((((ctr*u + w1lo*u(-e1)) + w1hi*u(+e1)) +
+    w2lo*u(-e2)) + w2hi*u(+e2)) + w0lo*u(-e0)) + w0hi*u(+e0)``, ghosts held
+    constant."""
+    h = plan.layout.halo
+    idx = plan.layout.interior_index
+    nb, c0, cs = coeff_of(plan)
+
+    def shifted(t, d, s):
+        return t[tuple(slice(h + (s if e == d else 0),
+                             t.shape[e] - h + (s if e == d else 0))
+                       for e in range(3))]
+
+    a = coeff[idx]
+    means = [(_harm(a, shifted(coeff, d, -1)), _harm(a, shifted(coeff, d, 1)))
+             for d in range(3)]
+    total = means[0][0] + means[0][1]
+    for m in (means[1][0], means[1][1], means[2][0], means[2][1]):
+        total.add_(m)
+    ctr = total.mul_(cs).add_(c0)
+    w = [(lo * nb, hi * nb) for lo, hi in means]
+    u = cur
+    for _ in range(plan.sweeps_per_call):
+        acc = ctr * u[idx]
+        for d in (1, 2, 0):
+            acc.add_(w[d][0] * shifted(u, d, -1))
+            acc.add_(w[d][1] * shifted(u, d, 1))
+        nxt = u.clone()
+        nxt[idx] = acc
+        u = nxt
+    return u
+
+
 def sweep_reference(cur: torch.Tensor, plan,
-                    src: Optional[torch.Tensor] = None):
+                    src: Optional[torch.Tensor] = None,
+                    prev: Optional[torch.Tensor] = None,
+                    coeff: Optional[torch.Tensor] = None):
     """Plain version of a sweep kernel: ``plan.sweeps_per_call``
     whole-array eager sweeps of the padded tensor ``cur``, ghosts held
     constant. With ``src`` (padded like ``cur``), each sweep adds its
@@ -106,7 +184,14 @@ def sweep_reference(cur: torch.Tensor, plan,
 
     A plan with ``cheby_coeffs`` runs the Chebyshev recurrence over the raw
     ``src`` instead; in its dual mode the result is the pair ``(sweep k,
-    sweep k-1)``, the residual and the smoothed iterate."""
+    sweep k-1)``, the residual and the smoothed iterate. A ``two_level``
+    plan runs the leapfrog from ``(cur, prev)`` and returns the pair
+    ``(sweep k, sweep k-1)``; a plan with ``coeff_scales`` runs the
+    coefficient operator of the padded ``coeff``."""
+    if getattr(plan, "two_level", False):
+        return _two_level_reference(cur, prev, plan)
+    if getattr(plan, "has_coeff", False):
+        return _coeff_reference(cur, plan, coeff)
     if getattr(plan, "cheby_coeffs", ()):
         return _cheby_reference(cur, plan, src)
     h = plan.layout.halo
@@ -126,14 +211,18 @@ def sweep_reference(cur: torch.Tensor, plan,
 
 class SweepKernel:
     """One hand-written sweep kernel: its build, its wrapper (call it as
-    ``kernel(cur, nxt, plan, src=None, out2=None)``) and its counts of
-    launches: ``launches`` in all, of them ``source_launches`` in source
-    mode, ``cheby_launches`` in Chebyshev mode and ``dual_launches`` in
-    its dual mode.
+    ``kernel(cur, nxt, plan, src=None, out2=None, prev=None, coeff=None)``)
+    and its counts of launches: ``launches`` in all, of them
+    ``source_launches`` in source mode, ``cheby_launches`` in Chebyshev
+    mode, ``dual_launches`` in its dual mode, ``two_level_launches`` in
+    two-level mode and ``coeff_launches`` in coefficient mode.
 
     ``name`` names the library and its C entry ``stencil_<name>``;
     ``source`` is the ``.cu`` file; ``replaces`` is where the TPU kernel
     it replaces is defined."""
+
+    MODE_COUNTS = ("source_launches", "cheby_launches", "dual_launches",
+                   "two_level_launches", "coeff_launches")
 
     def __init__(self, name: str, source: Path, replaces: str, ndim: int):
         self.name = name
@@ -142,14 +231,12 @@ class SweepKernel:
         self.ndim = ndim
         # kernel launches since the last reset (plain-version calls do not
         # count)
-        self.launches = 0
-        self.source_launches = 0
-        self.cheby_launches = 0
-        self.dual_launches = 0
+        self.reset_counts()
 
     def reset_counts(self) -> None:
-        self.launches = self.source_launches = 0
-        self.cheby_launches = self.dual_launches = 0
+        self.launches = 0
+        for count in self.MODE_COUNTS:
+            setattr(self, count, 0)
 
     def build(self) -> _build.BuildResult:
         """Compile the source (cached by content). Raises
@@ -160,52 +247,58 @@ class SweepKernel:
 
     @functools.cached_property
     def _entry(self):
+        """The library's C entries by mode: ``plain`` (also the source
+        mode), ``error``, and where the source has them ``cheby``,
+        ``two_level`` and ``coeff``."""
         lib = ctypes.CDLL(str(self.build().path))
-        fn = getattr(lib, f"stencil_{self.name}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p,  # in (device)
-            ctypes.c_void_p,  # out (device)
-            ctypes.c_void_p,  # padded source (device), or null
-            ctypes.c_void_p,  # geometry, int32 (host)
-            ctypes.c_int,     # geometry length
-            ctypes.c_void_p,  # tap offsets, int32[ntaps * ndim] (host)
-            ctypes.c_void_p,  # group sizes, int32[ngroups] (host)
-            ctypes.c_void_p,  # group weights, float32[ngroups] (host)
-            ctypes.c_int,     # ntaps
-            ctypes.c_int,     # ngroups
-            ctypes.c_int,     # uniform
+        P, I = ctypes.c_void_p, ctypes.c_int
+        taps = [
+            P,                # tap offsets, int32[ntaps * ndim] (host)
+            P,                # group sizes, int32[ngroups] (host)
+            P,                # group weights, float32[ngroups] (host)
+            I,                # ntaps
+            I,                # ngroups
+            I,                # uniform
             ctypes.c_float,   # uniform weight
-            ctypes.c_int,     # device index
-            ctypes.c_void_p,  # cudaStream_t
+            I,                # device index
+            P,                # cudaStream_t
         ]
+        argtypes = {
+            # in, out, padded source or null (device); geometry int32
+            # (host) and its length
+            "": [P, P, P, P, I],
+            # in, out, out2 or null, padded raw source (device); geometry;
+            # coefficients float32[4k] (host) and their count
+            "_cheby": [P, P, P, P, P, I, P, I],
+            # in, prev, out, out2 (device); geometry
+            "_two_level": [P, P, P, P, P, I],
+            # in, padded coefficient, out (device); geometry; (nb, c0, cs)
+            # float32[3] (host) and their count
+            "_coeff": [P, P, P, P, I, P, I],
+        }
+        entries = {}
+        for suffix, args in argtypes.items():
+            fn = getattr(lib, f"stencil_{self.name}{suffix}", None)
+            if fn is not None:
+                fn.restype = ctypes.c_int
+                fn.argtypes = args + taps
+            entries[suffix.lstrip("_") or "plain"] = fn
         err = getattr(lib, f"stencil_{self.name}_error")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-        cheby = getattr(lib, f"stencil_{self.name}_cheby", None)
-        if cheby is not None:
-            cheby.restype = ctypes.c_int
-            cheby.argtypes = [
-                ctypes.c_void_p,  # in (device)
-                ctypes.c_void_p,  # out (device)
-                ctypes.c_void_p,  # out2 (device), or null
-                ctypes.c_void_p,  # padded raw source (device)
-                ctypes.c_void_p,  # geometry, int32 (host)
-                ctypes.c_int,     # geometry length
-                ctypes.c_void_p,  # coefficients, float32[4k] (host)
-                ctypes.c_int,     # coefficient count, 4k
-                *fn.argtypes[5:],  # the tap table, device and stream
-            ]
-        return fn, err, cheby
+        entries["error"] = err
+        return entries
 
     def library(self):
         """Build and load the library; returns its C entry
         ``stencil_<name>``."""
-        return self._entry[0]
+        return self._entry["plain"]
 
     def check(self, cur: torch.Tensor, nxt: torch.Tensor, plan,
               src: Optional[torch.Tensor] = None, pins=None,
-              out2: Optional[torch.Tensor] = None) -> None:
+              out2: Optional[torch.Tensor] = None,
+              prev: Optional[torch.Tensor] = None,
+              coeff: Optional[torch.Tensor] = None) -> None:
         """Raise ``ValueError`` on what the kernel does not take."""
         # one pin per face of every dim but the last (the TPU kernels' own)
         all_pinned = (1,) * (2 * (self.ndim - 1))
@@ -218,17 +311,25 @@ class SweepKernel:
                              "float32 is ported")
         cheby = bool(getattr(plan, "cheby_coeffs", ()))
         dual = cheby and plan.cheby_dual
+        two_level = getattr(plan, "two_level", False)
+        has_coeff = getattr(plan, "has_coeff", False)
         if cheby and src is None:
             raise ValueError("a cheby_coeffs plan needs the padded source f")
-        if dual != (out2 is not None):
-            raise ValueError("out2 goes with a cheby_dual plan, and only "
-                             "with one")
+        if (dual or two_level) != (out2 is not None):
+            raise ValueError("out2 goes with a cheby_dual or two_level "
+                             "plan, and only with one")
+        if two_level != (prev is not None):
+            raise ValueError("prev (the level L_{n-1}) goes with a "
+                             "two_level plan, and only with one")
+        if has_coeff != (coeff is not None):
+            raise ValueError("coeff (the padded coefficient) goes with a "
+                             "coeff_scales plan, and only with one")
+        if (two_level or has_coeff) and src is not None:
+            raise ValueError("the two_level and coeff modes take no source")
         shape = plan.layout.padded_shape
-        tensors = (("cur", cur), ("nxt", nxt))
-        if src is not None:
-            tensors += (("src", src),)
-        if out2 is not None:
-            tensors += (("out2", out2),)
+        tensors = [(name, t) for name, t in (
+            ("cur", cur), ("nxt", nxt), ("src", src), ("out2", out2),
+            ("prev", prev), ("coeff", coeff)) if t is not None]
         for name, t in tensors:
             if t.dtype != torch.float32:
                 raise ValueError(f"{name} dtype {t.dtype} != torch.float32")
@@ -240,13 +341,16 @@ class SweepKernel:
             if t.device != cur.device:
                 raise ValueError(f"cur on {cur.device}, {name} on "
                                  f"{t.device}")
-        ptrs = [t.data_ptr() for t in (cur, nxt, out2) if t is not None]
+        ptrs = [t.data_ptr() for name, t in tensors if name != "src"]
         if len(set(ptrs)) != len(ptrs):
-            raise ValueError("cur, nxt and out2 must be distinct tensors")
+            raise ValueError("cur, nxt, out2, prev and coeff must be "
+                             "distinct tensors")
 
     def __call__(self, cur: torch.Tensor, nxt: torch.Tensor, plan,
                  src: Optional[torch.Tensor] = None, pins=None,
-                 out2: Optional[torch.Tensor] = None):
+                 out2: Optional[torch.Tensor] = None,
+                 prev: Optional[torch.Tensor] = None,
+                 coeff: Optional[torch.Tensor] = None):
         """``plan.sweeps_per_call`` sweeps of ``cur`` into the interior of
         ``nxt`` (both padded per ``plan.layout``; ``nxt``'s ghosts must
         already hold the BC), adding the padded source ``src`` after the
@@ -256,15 +360,17 @@ class SweepKernel:
         plan's coefficients over the padded raw ``src`` (required); a
         ``cheby_dual`` plan also takes ``out2`` (padded, ghosts holding the
         BC), receives sweep k-1 there and sweep k in ``nxt``, and returns
-        ``(nxt, out2)``.
+        ``(nxt, out2)``. A ``two_level`` plan takes the older level
+        ``prev`` and ``out2`` and returns ``(nxt, out2)`` likewise. A plan
+        with ``coeff_scales`` takes the padded coefficient ``coeff``.
 
         A CUDA tensor launches the kernel on the current stream (no
         synchronisation) and raises ``RuntimeError`` if the launch fails;
         a CPU tensor runs :func:`sweep_reference`. ``pins`` other than all
         ones is refused."""
-        self.check(cur, nxt, plan, src, pins, out2)
+        self.check(cur, nxt, plan, src, pins, out2, prev, coeff)
         if cur.device.type == "cpu":
-            want = sweep_reference(cur, plan, src)
+            want = sweep_reference(cur, plan, src, prev, coeff)
             if out2 is None:
                 nxt.copy_(want)
                 return nxt
@@ -274,8 +380,8 @@ class SweepKernel:
         if cur.device.type != "cuda":
             raise ValueError(f"{self.name} runs on cuda (or cpu for the "
                              f"plain version), not {cur.device}")
-        fn, err, cheby_fn = self._entry
-        geom, offsets, sizes, weights, uniform, uw, coeffs = \
+        entries = self._entry
+        geom, offsets, sizes, weights, uniform, uw, scalars = \
             launch_tables(plan)
         device = cur.device.index if cur.device.index is not None \
             else torch.cuda.current_device()
@@ -283,29 +389,44 @@ class SweepKernel:
         taps = (offsets.ctypes.data, sizes.ctypes.data, weights.ctypes.data,
                 len(offsets) // self.ndim, len(sizes), int(uniform), uw,
                 device, stream)
-        if len(coeffs):
-            if cheby_fn is None:
-                raise ValueError(f"{self.name} has no Chebyshev mode")
-            rc = cheby_fn(cur.data_ptr(), nxt.data_ptr(),
-                          out2.data_ptr() if out2 is not None else None,
-                          src.data_ptr(), geom.ctypes.data, len(geom),
-                          coeffs.ctypes.data, len(coeffs), *taps)
+        geometry = (geom.ctypes.data, len(geom))
+        scalar_args = (scalars.ctypes.data, len(scalars))
+        if getattr(plan, "two_level", False):
+            mode = "two_level"
+            args = (cur.data_ptr(), prev.data_ptr(), nxt.data_ptr(),
+                    out2.data_ptr(), *geometry)
+        elif getattr(plan, "has_coeff", False):
+            mode = "coeff"
+            args = (cur.data_ptr(), coeff.data_ptr(), nxt.data_ptr(),
+                    *geometry, *scalar_args)
+        elif len(scalars):
+            mode = "cheby"
+            args = (cur.data_ptr(), nxt.data_ptr(),
+                    out2.data_ptr() if out2 is not None else None,
+                    src.data_ptr(), *geometry, *scalar_args)
         else:
-            rc = fn(cur.data_ptr(), nxt.data_ptr(),
-                    src.data_ptr() if src is not None else None,
-                    geom.ctypes.data, len(geom), *taps)
+            mode = "plain"
+            args = (cur.data_ptr(), nxt.data_ptr(),
+                    src.data_ptr() if src is not None else None, *geometry)
+        fn = entries[mode]
+        if fn is None:
+            raise ValueError(f"{self.name} has no {mode} mode")
+        rc = fn(*args, *taps)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed ({rc}): "
-                               f"{err(rc).decode()}")
+                               f"{entries['error'](rc).decode()}")
         self.launches += 1
-        if out2 is not None:
+        if mode == "two_level":
+            self.two_level_launches += 1
+        elif mode == "coeff":
+            self.coeff_launches += 1
+        elif out2 is not None:
             self.dual_launches += 1
-            return nxt, out2
-        if len(coeffs):
+        elif mode == "cheby":
             self.cheby_launches += 1
         else:
             self.source_launches += src is not None
-        return nxt
+        return nxt if out2 is None else (nxt, out2)
 
 
 class KernelStencil:

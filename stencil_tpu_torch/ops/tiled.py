@@ -6,11 +6,18 @@ the Dirichlet paths. Each launch of the CUDA kernel
 (``ops/tiled_kernel.py``) runs k sweeps per round trip to device memory.
 
 A plan may carry ``cheby_coeffs`` (the kernel's Chebyshev mode) and
-``cheby_dual`` (its fused smooth+residual). Two runners serve the multigrid
-fine level, whose right-hand side changes from call to call, with the
-padded source given per call: :func:`source_iterate` (counterpart of
+``cheby_dual`` (its fused smooth+residual), ``two_level`` (the leapfrog of
+the wave equation) or ``coeff_scales`` (the variable-coefficient operator
+of heterogeneous diffusion). Two runners serve the multigrid fine level,
+whose right-hand side changes from call to call, with the padded source
+given per call: :func:`source_iterate` (counterpart of
 ``_cached_tiled_source_iterate``) and :func:`cheby_dual` (counterpart of
-``_cached_cheby_dual_fn``).
+``_cached_cheby_dual_fn``). :func:`wave_iterate` (``_cached_wave_iterate``)
+marches the two levels of a ``two_level`` plan; :func:`coeff_iterate`
+(``_cached_tiled_coeff_iterate``) marches a ``coeff`` plan and
+:func:`coeff_apply` (``_cached_coeff_apply``) applies it once, the Krylov
+matvec, both with the padded coefficient (:func:`pad_coeff`) given per
+call.
 
 The plan is new, not a port of the TPU's ``choose_tiles``: a CUDA block
 holds one output tile of (t0, t1, t2) points plus its k*r-deep window in
@@ -31,7 +38,9 @@ import itertools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
 from stencil_tpu_torch.core.spec import StencilSpec
@@ -73,6 +82,17 @@ class TiledPlan:
     # dual mode: sweep k-1 also goes to a second output (the fused
     # smooth+residual of multigrid)
     cheby_dual: bool = False
+    # two-level mode: the leapfrog L_t = S(L_{t-1}) - L_{t-2}, two inputs
+    # (levels n, n-1) and two outputs (levels n+k, n+k-1)
+    two_level: bool = False
+    # coefficient mode: (nb, c0, cs) of the radius-1 operator with face
+    # weights nb*harm(a(p), a(p+-e_d)) and center c0 + cs*sum(face means)
+    # over a padded coefficient a(x); () = not that mode
+    coeff_scales: Tuple = ()
+
+    @property
+    def has_coeff(self) -> bool:
+        return bool(self.coeff_scales)
 
     @property
     def halo(self) -> int:
@@ -90,8 +110,11 @@ class TiledPlan:
 
     @property
     def smem_bytes(self) -> int:
-        buffers = 1 if self.sweeps_per_call == 1 else 2
-        return buffers * math.prod(self.window_shape) * _ITEMSIZE
+        """Shared memory of one block, in every mode: one window, two when
+        k > 1 (the Chebyshev, dual and two-level modes write u_t over
+        u_{t-2}; the coefficient mode reads a(x) from global memory)."""
+        return _smem_bytes(self.tiles, self.sweeps_per_call,
+                           self.spec.radius)
 
     def tile_starts(self, d: int) -> Tuple[int, ...]:
         """Interior start of each tile along dim ``d``; the last one is
@@ -116,7 +139,7 @@ class TiledPlan:
         (the remainder launch reuses the padded tensors). A Chebyshev plan
         keeps its first k coefficient tuples, which are the degree-k
         smoother (``pallas_tiled.py:2440``); a dual plan cut short loses
-        its second output."""
+        its second output; the two-level and coefficient modes stay."""
         if not 1 <= k <= self.sweeps_per_call:
             raise ValueError(f"k={k} outside [1, {self.sweeps_per_call}]")
         return dataclasses.replace(
@@ -208,20 +231,61 @@ def _check_cheby(spec: StencilSpec, k: int, has_source: bool,
     return coeffs
 
 
+def _check_modes(spec: StencilSpec, dtype, has_source: bool,
+                 two_level: bool, coeff_scales, cheby_coeffs):
+    """The two-level and coefficient-mode validation of
+    ``make_tiled_plan`` (``pallas_tiled.py:447-463, 477-491``, the same
+    messages); returns the coefficient scales as a float 3-tuple, or ()."""
+    if coeff_scales is not None:
+        if np.dtype(dtype).itemsize != 4:
+            raise ValueError(
+                "coeff tap mode needs a 4-byte dtype (its d1 shifts are "
+                "sublane rotates, which have no Mosaic-safe lowering "
+                "for 16-bit dtypes)")
+        if two_level:
+            raise ValueError(
+                "coeff tap mode composes with the plain pipelined "
+                "schedule only (no slide/two_level)")
+        if spec.radius != 1:
+            raise ValueError(
+                "coeff tap mode is the radius-1 face-weight stencil; "
+                "pass a radius-1 spec")
+    if two_level and has_source:
+        raise ValueError(
+            "the two-level (leapfrog) recursion composes with the plain "
+            "pipelined schedule only (no source/slide/cores/embed)")
+    if cheby_coeffs is not None and has_source and (
+            two_level or coeff_scales is not None):
+        raise ValueError(
+            "the Chebyshev recurrence composes with the plain "
+            "pipelined source schedule only "
+            "(no slide/two_level/embed/coeff)")
+    if coeff_scales is None:
+        return ()
+    scales = tuple(float(v) for v in coeff_scales)
+    if len(scales) != 3:
+        raise ValueError("coeff_scales is (nb, c0, cs)")
+    return scales
+
+
 def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
                     sweeps_per_call: int = 1, tiles=None,
                     t0_fixed: Optional[int] = None, has_source: bool = False,
-                    cheby_coeffs=None, cheby_dual: bool = False
+                    cheby_coeffs=None, cheby_dual: bool = False,
+                    two_level: bool = False, coeff_scales=None
                     ) -> TiledPlan:
     """Plan for ``sweeps_per_call`` sweeps per launch; ``tiles`` pins
     (t0, t1, t2), ``t0_fixed`` pins only t0. ``cheby_coeffs`` (one
     ``(c, n, pv, s)`` per sweep; needs ``has_source``, the padded raw f of
     every launch) selects the Chebyshev mode, ``cheby_dual`` its fused
-    smooth+residual. Its windows take the shared memory of a source plan
-    (the kernel writes u_t over u_{t-2} in place), so the chooser counts
-    them the same."""
+    smooth+residual; ``two_level`` the leapfrog; ``coeff_scales`` (nb, c0,
+    cs) the coefficient mode. Every mode takes the shared memory of a
+    source plan (the kernel writes u_t over u_{t-2} in place; a(x) is read
+    from global memory), so the chooser counts them the same."""
     if spec.ndim != 3 or len(interior_shape) != 3:
         raise ValueError("tiled kernel is 3D-only")
+    scales = _check_modes(spec, dtype, has_source, two_level, coeff_scales,
+                          cheby_coeffs)
     if dtype != "float32":
         raise ValueError(f"tiled kernel dtype {dtype!r}: only float32 is "
                          "ported (bf16 is a later item)")
@@ -248,7 +312,8 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     return TiledPlan(spec=spec, interior_shape=interior_shape, dtype=dtype,
                      sweeps_per_call=k, tiles=tiles,
                      layout=PaddedLayout.for_halo(interior_shape, k * r),
-                     cheby_coeffs=coeffs, cheby_dual=bool(cheby_dual))
+                     cheby_coeffs=coeffs, cheby_dual=bool(cheby_dual),
+                     two_level=bool(two_level), coeff_scales=scales)
 
 
 def _check_static_walls(bc: DirichletBC) -> None:
@@ -257,6 +322,18 @@ def _check_static_walls(bc: DirichletBC) -> None:
             "periodic/Neumann walls on the tiled kernel are not ported yet "
             "(needs the kernel's pins; stencil_tpu/ops/pallas_tiled.py:"
             "_dynamic_pins)")
+
+
+def _interior(data: torch.Tensor, halo: int) -> torch.Tensor:
+    return data[tuple(slice(halo, s - halo) for s in data.shape)]
+
+
+def _repad(plan: TiledPlan, padded: torch.Tensor, halo: int,
+           bc: DirichletBC) -> torch.Tensor:
+    """The interior of a plan-padded tensor as a new ``halo``-padded one
+    with the ring set to ``bc``."""
+    return HaloGrid.from_interior(plan.layout.unpad(padded), halo, bc,
+                                  device=padded.device).data
 
 
 def source_iterate(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
@@ -273,15 +350,12 @@ def source_iterate(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
     _check_static_walls(bc)
     if plan.cheby_dual:
         raise ValueError("a cheby_dual plan runs through cheby_dual()")
-    h = grid_halo
-    cur = plan.layout.pad(data[tuple(slice(h, s - h) for s in data.shape)],
-                          bc)
+    cur = plan.layout.pad(_interior(data, grid_halo), bc)
     nxt = cur.clone()
     for _ in range(n_outer):
         tiled_sweep(cur, nxt, plan, src)
         cur, nxt = nxt, cur
-    return HaloGrid.from_interior(plan.layout.unpad(cur), h, bc,
-                                  device=cur.device).data
+    return _repad(plan, cur, grid_halo, bc)
 
 
 def cheby_dual(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
@@ -296,14 +370,105 @@ def cheby_dual(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
     _check_static_walls(bc)
     if not plan.cheby_dual:
         raise ValueError("cheby_dual() runs a cheby_dual plan")
-    cur = plan.layout.pad(data[tuple(slice(1, s - 1) for s in data.shape)],
-                          bc)
+    cur = plan.layout.pad(_interior(data, 1), bc)
     r_pad = torch.empty_like(cur)  # only its interior is written and read
     u_pad = cur.clone()            # its ghosts must hold the walls
     tiled_sweep(cur, r_pad, plan, src, out2=u_pad)
-    return (HaloGrid.from_interior(plan.layout.unpad(u_pad), 1, bc,
-                                   device=u_pad.device).data,
-            plan.layout.unpad(r_pad))
+    return _repad(plan, u_pad, 1, bc), plan.layout.unpad(r_pad)
+
+
+def wave_iterate(plan: TiledPlan, cur_data: torch.Tensor,
+                 prev_data: torch.Tensor, bc: DirichletBC, n_outer: int,
+                 grid_halo: int = 1, rem: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n_outer`` launches of the ``two_level`` ``plan``, then one of
+    ``rem`` steps (``plan.with_sweeps(rem)``), on the ``grid_halo``-padded
+    levels ``cur_data`` (L_n) and ``prev_data`` (L_{n-1}): returns new
+    ``grid_halo``-padded ``(L_{n+s}, L_{n+s-1})``, s = k*n_outer + rem,
+    rings set to ``bc``. Both levels are padded once and unpadded once; the
+    four padded tensors rotate, the pair just read becoming the next
+    launch's outputs.
+
+    Counterpart of ``pallas_tiled._cached_wave_iterate(plan, bc, interpret,
+    grid_halo)(cur_data, prev_data, n_outer)`` (:2216-2261)."""
+    _check_static_walls(bc)
+    if not plan.two_level:
+        raise ValueError("wave_iterate() runs a two_level plan")
+    h = grid_halo
+    cur = plan.layout.pad(_interior(cur_data, h), bc)
+    prev = plan.layout.pad(_interior(prev_data, h), bc)
+    out, out2 = cur.clone(), prev.clone()  # ghosts hold the walls
+    plans = [plan] * n_outer + ([plan.with_sweeps(rem)] if rem else [])
+    for launch_plan in plans:
+        tiled_sweep(cur, out, launch_plan, prev=prev, out2=out2)
+        cur, prev, out, out2 = out, out2, cur, prev
+    return _repad(plan, cur, h, bc), _repad(plan, prev, h, bc)
+
+
+def pad_coeff(plan: TiledPlan, a, bc: DirichletBC) -> torch.Tensor:
+    """The padded coefficient operand of a ``coeff`` plan: ``float32(a)``
+    with every ghost edge-replicated (the nearest interior value) to the
+    layout's full depth, so that the face mean at a wall is the wall
+    cell's own coefficient (``models/diffusion.py:face_harmonic_means``)
+    and every pad cell stays positive. On the device of ``a`` when it is a
+    tensor, else on the CPU; the caller moves it.
+
+    Counterpart of ``pallas_tiled.pad_coeff`` (:2098-2121); dynamic walls
+    (wrapped or mirrored images) are not ported."""
+    _check_static_walls(bc)
+    arr = torch.as_tensor(a).to(torch.float32)
+    if tuple(arr.shape) != plan.interior_shape:
+        raise ValueError(
+            f"coefficient shape {tuple(arr.shape)} != interior "
+            f"{plan.interior_shape}")
+    h = plan.layout.halo
+    return F.pad(arr[None, None], (h,) * 6, mode="replicate")[0, 0] \
+        .contiguous()
+
+
+def coeff_iterate(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
+                  coeff_padded: torch.Tensor, n_outer: int = 1,
+                  grid_halo: int = 1, rem: int = 0) -> torch.Tensor:
+    """``n_outer`` launches of the ``coeff`` ``plan``, then one of ``rem``
+    sweeps, on the ``grid_halo``-padded ``data`` with the padded
+    coefficient given per call (:func:`pad_coeff`): returns a new
+    ``grid_halo``-padded tensor with the ring set to ``bc``.
+
+    Counterpart of ``pallas_tiled._cached_tiled_coeff_iterate(plan, bc,
+    interpret, grid_halo)(data, n_outer, coeff_padded)`` (:2125-2161)."""
+    _check_static_walls(bc)
+    if not plan.has_coeff:
+        raise ValueError("coeff_iterate() runs a coeff plan")
+    cur = plan.layout.pad(_interior(data, grid_halo), bc)
+    nxt = cur.clone()
+    plans = [plan] * n_outer + ([plan.with_sweeps(rem)] if rem else [])
+    for launch_plan in plans:
+        tiled_sweep(cur, nxt, launch_plan, coeff=coeff_padded)
+        cur, nxt = nxt, cur
+    return _repad(plan, cur, grid_halo, bc)
+
+
+def coeff_apply(plan: TiledPlan, padded_h1: torch.Tensor,
+                coeff_padded: torch.Tensor) -> torch.Tensor:
+    """One application of the coefficient operator of a k=1 ``coeff``
+    ``plan`` to the halo-1 padded ``padded_h1``: returns the interior.
+
+    The operator honours the ghost ring of its input (the Krylov solvers
+    apply it to a zero-padded correction and to the true-wall iterate). At
+    k=1 the layout's halo is 1, so ``padded_h1`` is the kernel's padded
+    input as it is and its ring is read directly; the wall faces, d2's
+    included, weigh it by ``nb * harm(a, a)`` like every face.
+
+    Counterpart of ``pallas_tiled._cached_coeff_apply(plan,
+    interpret)(padded_h1, coeff_padded)`` (:2165-2212), whose lane layout
+    has no d2 ghosts and adds that face's term outside its kernel."""
+    if plan.sweeps_per_call != 1 or not plan.has_coeff:
+        raise ValueError("operator apply wants a sweeps_per_call=1 coeff "
+                         "plan")
+    cur = padded_h1.contiguous()
+    out = torch.empty_like(cur)  # only its interior is written and read
+    tiled_sweep(cur, out, plan, coeff=coeff_padded)
+    return plan.layout.unpad(out)
 
 
 class TiledStencil(KernelStencil):

@@ -2,14 +2,17 @@
 and its plain PyTorch version.
 
 The kernel replaces ``stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep``
-in four modes: homogeneous and source (``has_source``), where one launch
+in six modes: homogeneous and source (``has_source``), where one launch
 runs k sweeps of a ``StencilSpec`` over a deep-halo padded fp32 tensor,
 Dirichlet ghosts held constant, optionally adding a padded pre-scaled
-source after the taps of every interior update; and the Chebyshev
+source after the taps of every interior update; the Chebyshev
 (``cheby_coeffs``) and dual (``cheby_dual``) modes of the multigrid fine
-level. See the source's header for its design and what bounds it.
+level; the two-level mode (``two_level``) of the wave equation; and the
+coefficient mode (``coeff_scales``) of heterogeneous diffusion. See the
+source's header for its design and what bounds it.
 
-``tiled_sweep(cur, nxt, plan, src=None, out2=None)`` takes the plain
+``tiled_sweep(cur, nxt, plan, src=None, out2=None, prev=None,
+coeff=None)`` takes the plain
 version (:func:`sweep_reference`) only for tensors on the CPU (the tests);
 for CUDA tensors it launches the kernel or raises. The binding, checks and
 plain version are shared with the 2D kernel (``ops/sweep_kernel.py``).
@@ -30,6 +33,8 @@ REPLACES_MODE = {
     "tiled_sweep+source": "stencil_tpu/ops/pallas_tiled.py:1326",
     "tiled_sweep+cheby": "stencil_tpu/ops/pallas_tiled.py:1433",
     "tiled_sweep+dual": "stencil_tpu/ops/pallas_tiled.py:1476",
+    "tiled_sweep+two_level": "stencil_tpu/ops/pallas_tiled.py:1374",
+    "tiled_sweep+coeff": "stencil_tpu/ops/pallas_tiled.py:1195",
 }
 
 tiled_sweep = SweepKernel("tiled_sweep", SOURCE, REPLACES, ndim=3)

@@ -2,14 +2,17 @@
 
 Counterpart of ``stencil_tpu/registry.py`` (``Runner``, ``make_xla``,
 ``_make_pallas``, ``_make_pallas_tiled``, ``REGISTRY``, ``get_runner``).
-Three methods are ported:
+Four methods are ported:
 
-  ``eager``  the eager torch shifted-slice sweep (``ops/eager.py``), the
-             counterpart of ``xla``
-  ``tiled``  the hand-written 3D CUDA kernel, k sweeps per launch
-             (``ops/tiled.py``), the counterpart of ``pallas_tiled``
-  ``slab``   the hand-written 2D CUDA kernel, k sweeps per launch
-             (``ops/slab.py``), the counterpart of 2D ``pallas``
+  ``eager``     the eager torch shifted-slice sweep (``ops/eager.py``), the
+                counterpart of ``xla``
+  ``tiled``     the hand-written 3D CUDA kernel, k sweeps per launch
+                (``ops/tiled.py``), the counterpart of ``pallas_tiled``
+  ``slab``      the hand-written 2D CUDA kernel, k sweeps per launch
+                (``ops/slab.py``), the counterpart of 2D ``pallas``
+  ``varcoeff``  heterogeneous FTCS diffusion (``models/diffusion.py``): the
+                3D kernel's coefficient mode at ``-k``, or the eager field
+                sweep; ``-c`` checks it against the float64 field golden
 
 The JAX package's names resolve too, so its command lines run unchanged:
 ``xla`` is ``eager``; ``pallas`` runs at k=1 and ``pallas_temporal`` at
@@ -44,6 +47,11 @@ class Runner:
     granularity: int = 1
     # the kernel plan that ran, recorded into the CLI's JSON
     plan_info: dict = dataclasses.field(default_factory=dict)
+    # a method's own float64 golden for -c, ``(x0_f64, iters, bc) ->
+    # interior_f64``, where the spec golden cannot represent its update
+    # (per-point tap fields: 'varcoeff'); NumPy, capped like the NumPy
+    # spec golden
+    golden_fn: object = None
 
 
 def make_eager(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
@@ -119,6 +127,41 @@ def make_pallas_temporal(config, spec, grid) -> Runner:
     return _make_pallas(config, spec, grid, _temporal(config, 8))
 
 
+def make_varcoeff(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
+    """Variable-coefficient FTCS diffusion marching, the model family behind
+    ``--solve hetero``, as an iterate method: the deterministic
+    two-material a(x) of ratio ``--contrast`` (the field ``--solve hetero``
+    uses), through the 3D kernel's coefficient mode where
+    ``HeterogeneousDiffusion.uses_kernel``, else the eager field sweep. The
+    spec must be the radius-1 star the scheme discretizes (jacobi5/7). ``-c``
+    checks against the float64 field golden (``golden_fn``)."""
+    from stencil_tpu_torch.models.diffusion import (
+        HeterogeneousDiffusion, two_material,
+    )
+    from stencil_tpu_torch.ops import golden
+
+    if spec.name not in ("jacobi5", "jacobi7"):
+        raise ValueError(
+            "varcoeff discretizes the radius-1 star; run it with "
+            "--spec jacobi5 (2D) or jacobi7 (3D)")
+    contrast = float(getattr(config, "contrast", 100.0) or 100.0)
+    if contrast < 1.0:
+        raise ValueError(f"--contrast must be >= 1 (got {contrast})")
+    a = two_material(tuple(config.size), lo=1.0 / contrast, hi=1.0, seed=0)
+    het = HeterogeneousDiffusion(shape=tuple(config.size), a=a, bc=grid.bc,
+                                 dtype=config.dtype, device=grid.device)
+    runner = het.runner(method="auto", sweeps_per_call=max(1, config.temporal),
+                        t0_fixed=config.block)
+    offsets, fields = het.tap_fields()
+
+    def golden_fn(x0, iters, bc):
+        return golden.golden_iterate_fields(x0, offsets, fields, iters, bc=bc)
+
+    runner.plan_info["contrast"] = contrast
+    runner.golden_fn = golden_fn
+    return runner
+
+
 def _not_ported(replaces: str) -> Callable:
     def factory(config, spec, grid) -> Runner:
         raise NotImplementedError(
@@ -142,8 +185,7 @@ REGISTRY: Dict[str, Callable] = {
         "stencil_tpu/parallel/pallas_sharded.py:ShardedPallasStencil"),
     "rma": _not_ported("stencil_tpu/parallel/rma.py:build_rma_iterate"),
     "streamed": _not_ported("stencil_tpu/streaming.py:StreamedStencil"),
-    "varcoeff": _not_ported(
-        "stencil_tpu/ops/pallas_tiled.py:_cached_tiled_coeff_iterate"),
+    "varcoeff": make_varcoeff,
 }
 
 

@@ -2,9 +2,13 @@
 
 Counterpart of ``stencil_tpu/solve_cli.py`` (``build_problem``,
 ``build_rhs``, ``build_solver``, ``_warm_start``, ``_solve_once``,
-``run_solve``) for the ``poisson`` family. ``--solve`` picks the family,
-``--solver`` the method (``auto`` = ``pcg``, ``relax``, ``mg``, ``fmg``,
-``cg``, ``pcg``); the output is human lines plus one JSON record per solve
+``run_solve``) for the ``poisson`` and ``hetero`` families. ``--solve``
+picks the family, ``--solver`` the method (``auto`` = ``pcg`` for poisson
+and ``bicgstab`` otherwise, ``relax``, ``mg``, ``fmg``, ``cg``, ``pcg``,
+``bicgstab`` with ``--precond opmg``, the rediscretized operator cycle);
+``hetero`` takes ``--contrast`` and ``--op-kernel`` (``pallas``: the tiled
+kernel's coefficient mode as the matvec at every level); the output is
+human lines plus one JSON record per solve
 with the JAX record's keys (iterations, the solver's certified residual,
 ``plan``, ``-c``'s float64 re-certification and error against the exact
 solution, ``-R``'s wall-clock repeats).
@@ -15,9 +19,8 @@ CUDA device": weighted Jacobi at nu < 4 keeps the eager fine level, the
 Chebyshev smoother or nu >= 4 take the tiled kernel.
 
 What is not ported yet gives an error record, as a contradictory
-configuration does: the ``hetero`` and ``advdiff`` families, the
-``bicgstab`` and ``gmres`` solvers (with ``--precond opmg``), ``--mesh``,
-``--checkpoint-dir`` and ``--dump-image``.
+configuration does: the ``advdiff`` family, the ``gmres`` solver,
+``--mesh``, ``--checkpoint-dir`` and ``--dump-image``.
 """
 
 from __future__ import annotations
@@ -64,9 +67,17 @@ def build_problem(config: RunConfig):
         return PoissonProblem(shape=shape, bc=_solve_bc(config),
                               dtype=config.dtype, device=config.device)
     if family == "hetero":
-        raise NotImplementedError(
-            f"--solve hetero: {_NOT_PORTED} (replaces stencil_tpu/models/"
-            "diffusion.py:HeterogeneousPoissonProblem)")
+        from stencil_tpu_torch.models.diffusion import (
+            HeterogeneousPoissonProblem, two_material,
+        )
+
+        if config.contrast < 1.0:
+            raise ValueError(
+                f"--contrast must be >= 1 (got {config.contrast})")
+        a = two_material(shape, lo=1.0 / config.contrast, hi=1.0, seed=0)
+        return HeterogeneousPoissonProblem(
+            shape=shape, a=a, bc=_solve_bc(config), dtype=config.dtype,
+            kernel=config.op_kernel, device=config.device)
     if family == "advdiff":
         raise NotImplementedError(
             f"--solve advdiff: {_NOT_PORTED} (replaces stencil_tpu/models/"
@@ -188,10 +199,32 @@ def build_solver(config: RunConfig, problem):
                                   precond_dtype=config.precond_dtype),
                 "krylov", plan)
     if name in ("bicgstab", "gmres"):
-        raise NotImplementedError(
-            f"--solver {name}: {_NOT_PORTED} (replaces stencil_tpu/"
-            f"krylov.py:{'BiCGStab' if name == 'bicgstab' else 'GMRES'} "
-            "and its OperatorMultigrid preconditioner)")
+        if precond is None:
+            precond = "opmg"
+        if precond == "mg":
+            raise ValueError(
+                "bicgstab/gmres precondition with the rediscretized "
+                "operator cycle (--precond opmg); mg is the cg/pcg "
+                "Poisson cycle")
+        if config.precond_dtype is not None:
+            raise ValueError(
+                "--precond-dtype is a pcg option (the opmg cycle runs "
+                "in the problem dtype)")
+        if name == "gmres":
+            raise NotImplementedError(
+                f"--solver gmres: {_NOT_PORTED} (replaces stencil_tpu/"
+                "krylov.py:GMRES)")
+        from stencil_tpu_torch.krylov import BiCGStab
+        from stencil_tpu_torch.multigrid import OperatorMultigrid
+
+        pre = None
+        if precond == "opmg":
+            plan.update(precond="opmg", gamma=config.gamma,
+                        nu_smooth=[nu1, nu2])
+            pre = OperatorMultigrid(problem, nu1=nu1, nu2=nu2,
+                                    gamma=config.gamma)
+        plan["precond"] = precond
+        return BiCGStab(problem, preconditioner=pre), "krylov", plan
     raise ValueError(
         f"unknown --solver {name!r} (choose from {SOLVERS})")
 

@@ -102,6 +102,8 @@ def test_package_imports_no_jax():
         "'stencil_tpu_torch.ops.slab', 'stencil_tpu_torch.ops.slab_kernel', "
         "'stencil_tpu_torch.ops.sweep_kernel', 'stencil_tpu_torch.solver', "
         "'stencil_tpu_torch.models.poisson', 'stencil_tpu_torch.models.heat', "
+        "'stencil_tpu_torch.models.wave', "
+        "'stencil_tpu_torch.models.diffusion', "
         "'stencil_tpu_torch.multigrid', 'stencil_tpu_torch.krylov', "
         "'stencil_tpu_torch.solve_cli', "
         "'stencil_tpu_torch.utils.roofline']:\n"
@@ -165,13 +167,26 @@ def test_2d_method_aliases(method, k_expected):
 
 
 @pytest.mark.parametrize("method", ["sharded", "sharded_noverlap",
-                                    "sharded_pallas", "rma", "streamed",
-                                    "varcoeff"])
+                                    "sharded_pallas", "rma", "streamed"])
 def test_unported_methods_name_their_jax_code(method):
     cfg = RunConfig(size=(12, 10, 14), spec="jacobi7", device="cpu")
     spec = cfg.resolved_spec()
     with pytest.raises(NotImplementedError, match="stencil_tpu/"):
         registry.get_runner(method, cfg, spec, cli.make_grid(cfg, spec))
+
+
+def test_varcoeff_method_runs_the_coefficient_mode():
+    """``varcoeff`` (ported): a 3D fp32 grid runs the tiled kernel's
+    coefficient mode at -k, with the field golden as its check."""
+    cfg = RunConfig(size=(12, 10, 14), spec="jacobi7", device="cpu",
+                    temporal=3, contrast=30.0)
+    spec = cfg.resolved_spec()
+    runner = registry.get_runner("varcoeff", cfg, spec,
+                                 cli.make_grid(cfg, spec))
+    assert runner.plan_info["kernel"] == "tiled"
+    assert runner.plan_info["tap_mode"] == "coeff"
+    assert runner.plan_info["contrast"] == 30.0 and runner.granularity == 3
+    assert runner.golden_fn is not None
 
 
 def test_2d_and_dynamic_walls_refuse_tiled_but_run_eager():

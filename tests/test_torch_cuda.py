@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels (stencil_tpu_torch/csrc/tiled_sweep.cu, 3D,
 and csrc/slab_sweep.cu, 2D), homogeneous and with a source, and the 3D
-kernel's Chebyshev and dual modes, against their plain PyTorch versions,
-on an NVIDIA GPU. Marked ``cuda``; without a card
+kernel's Chebyshev, dual, two-level and coefficient modes, against their
+plain PyTorch versions, on an NVIDIA GPU. Marked ``cuda``; without a card
 every test skips. This file imports no JAX, so it also runs where only the
 port is installed:
 
@@ -9,7 +9,8 @@ port is installed:
 
 Tolerance: bitwise (same taps in the same order, the source added after
 them, the Chebyshev terms in the same order with the same float32
-coefficients, built with -fmad=false); the multigrid cycle on the kernel
+coefficients, the face means and weights of the coefficient mode in the
+same order, built with -fmad=false); the multigrid cycle on the kernel
 against the eager cycle 5e-6 (the two reassociate the fine level's
 arithmetic)."""
 
@@ -225,3 +226,84 @@ def test_multigrid_tiled_fine_matches_eager(cuda_device, smoother, nu):
     assert tiled_sweep.dual_launches == 3
     want = Multigrid(prob, **kw).runner(f).iterate(prob.initial_grid(), 3)
     assert (got.data - want.data).abs().max().item() < 5e-6
+
+
+# ---- the two-level (B1d) and coefficient (B1e) modes ---------------------
+
+
+@pytest.mark.parametrize("shape,k", [
+    ((64, 48, 40), 8), ((57, 50, 46), 3), ((33, 20, 41), 1),
+    ((40, 36, 44), 2)])
+def test_two_level_matches_plain(cuda_device, shape, k):
+    from stencil_tpu_torch.models.wave import WaveEquation
+
+    wave = WaveEquation(shape=shape, dt=0.5, device=cuda_device)
+    plan = make_tiled_plan(wave.spec, shape, "float32", k, two_level=True)
+    cur = plan.layout.pad_grid(_grid(shape, 1, cuda_device, seed=1))
+    prev = plan.layout.pad_grid(_grid(shape, 1, cuda_device, seed=3))
+    before = tiled_sweep.two_level_launches
+    got = tiled_sweep(cur, cur.clone(), plan, prev=prev, out2=prev.clone())
+    want = sweep_reference(cur, plan, prev=prev)
+    torch.cuda.synchronize()
+    assert tiled_sweep.two_level_launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_wave_tiled_with_remainder_matches_eager(cuda_device):
+    from stencil_tpu_torch.models.wave import WaveEquation
+
+    shape = (40, 36, 44)
+    wave = WaveEquation(shape=shape, device=cuda_device)
+    rng = np.random.default_rng(4)
+    prev, cur = wave.initial_pair(rng.normal(size=shape),
+                                  rng.normal(size=shape))
+    got = wave.simulate(prev, cur, 11, method="tiled", sweeps_per_call=4)
+    want = wave.simulate(prev, cur, 11, method="eager")
+    for g, w in zip(got, want):
+        assert torch.equal(g.data, w.data)
+
+
+def _coeff_field(shape, seed=5):
+    return np.random.default_rng(seed).uniform(0.01, 1.0, size=shape)
+
+
+@pytest.mark.parametrize("shape,k,scales", [
+    ((64, 48, 40), 8, (0.125, 1.0, -0.125)),
+    ((57, 50, 46), 3, (0.125, 1.0, -0.125)),
+    ((33, 20, 41), 1, (-1156.0, 0.0, 1156.0))])
+def test_coeff_matches_plain(cuda_device, shape, k, scales):
+    from stencil_tpu_torch.ops.tiled import pad_coeff
+
+    plan = make_tiled_plan(get_spec("jacobi7"), shape, "float32", k,
+                           coeff_scales=scales)
+    cur = plan.layout.pad_grid(_grid(shape, 1, cuda_device))
+    coeff = pad_coeff(plan, _coeff_field(shape), BC3).to(cuda_device)
+    before = tiled_sweep.coeff_launches
+    got = tiled_sweep(cur, cur.clone(), plan, coeff=coeff)
+    want = sweep_reference(cur, plan, coeff=coeff)
+    torch.cuda.synchronize()
+    assert tiled_sweep.coeff_launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_coeff_apply_reads_the_ghost_ring(cuda_device):
+    """The k=1 matvec on a halo-1 input with a random ghost ring equals
+    the eager field matvec to fp32 rounding (the two form the weights in
+    another precision)."""
+    from stencil_tpu_torch.models.diffusion import (
+        HeterogeneousPoissonProblem,
+    )
+
+    shape = (31, 30, 29)
+    a = _coeff_field(shape)
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=tuple(n + 2 for n in shape)).astype(np.float32)).to(cuda_device)
+    kernel = HeterogeneousPoissonProblem(shape=shape, a=a, kernel="pallas",
+                                         device=cuda_device)
+    eager_ = HeterogeneousPoissonProblem(shape=shape, a=a,
+                                         device=cuda_device)
+    got = kernel.operator_apply(x, kernel.operator_data())
+    want = eager_.operator_apply(x, eager_.operator_data())
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() < 1e-5 * scale

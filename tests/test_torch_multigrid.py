@@ -276,8 +276,8 @@ def test_gates_match_jax():
                                                device="cpu"), 1)
     with pytest.raises(NotImplementedError, match="Multigrid.sharded_runner"):
         tmg.Multigrid(p2).sharded_runner(np.zeros((31, 31)), mesh=None)
-    with pytest.raises(NotImplementedError, match="OperatorMultigrid"):
-        tmg.OperatorMultigrid(p2)
+    # OperatorMultigrid (ported) rediscretizes the problem at each level
+    assert tmg.OperatorMultigrid(p2).levels == tmg.Multigrid(p2).levels
     # the JAX package's interpret flag is accepted and changes nothing
     assert tmg.Multigrid(p3, interpret=True).levels == 3
 
