@@ -29,7 +29,15 @@ Phases, each ending in a line of its own:
    remainder against the eager leapfrog; the coefficient mode at cfg16's
    plan (256³ k=8, two_material contrast 100) and ragged k=3, and as
    cfg18's k=1 matvec (255³) at every ``OperatorMultigrid`` level on a
-   random ghost ring;
+   random ghost ring; the pins (periodic and Neumann faces live) of every
+   mode on a dynamic-wall path, on refreshed random grids: the 3D kernel
+   at 256³ k=8 with periodic 0 1, Neumann 0 1 and periodic 0 + Neumann 1,
+   ragged k=3, ``laplace3d_ho`` k=4, ``--periodic all`` at k=1; its source
+   mode at the periodic/Neumann Poisson path's plan; its two-level mode at
+   cfg9's plan (both outputs) and its coefficient mode at cfg16's; the 2D
+   kernel at cfg1's plan (periodic 0, Neumann 0), cfg2's, ``star2d_r2``
+   ragged, ``--periodic all`` at k=1 and its source mode at 4096²; and
+   the runners over a remainder against the eager iterate;
 4. main paths, each with the launch counts set to 0 just before it and
    read just after: the 3D CLI (``-s 256 256 256 --spec jacobi7 -m
    pallas_temporal -k 8 -i 64 -c``), the 2D CLI (``-s 512 512 --spec
@@ -53,7 +61,17 @@ Phases, each ending in a line of its own:
    ``-s 128 128 128 --spec jacobi7 -m varcoeff -k 8 -i 64 -c`` against the
    float64 field golden (capped at 50 iterations); ``--solve hetero -s 255
    255 255 --tol 1e-4 -c`` with ``--op-kernel auto`` and ``pallas``, both
-   converged within one iteration of each other;
+   converged within one iteration of each other; then the dynamic-wall
+   paths, each launch of each a pins launch of its mode: the 3D CLI with
+   ``--periodic 0 1`` at k=8 and ``-m pallas --periodic all`` (k=1), the
+   2D CLI cfg1 with ``--periodic 0``, each ``-c`` over every iteration;
+   the Poisson runner at 256³ (periodic 0, Neumann 1) and 4096² (periodic
+   0) against the float64 golden with the source; the wave at 256³
+   (periodic 0, Neumann 1) tiled against eager; ``-m varcoeff --periodic
+   0 1 -c``; the advection family (upwind at cfg12's velocity on a box
+   periodic in d0 and d1 at k=8 against the native golden, and integer
+   CFL on a fully periodic box at k=1, bitwise against
+   ``exact_translate``);
 5. times: GLUPS of the 3D tiled kernel at k=8 and k=1 and of ``eager`` at
    256³; of cfg1 (2D 5-pt 512², slab k=16) and cfg2 (2D 9-pt 4096², slab
    k=4, ``-b 256``) and ``eager`` at both sizes; of cfg8 (Poisson 256³, the
@@ -82,7 +100,14 @@ Phases, each ending in a line of its own:
    the two-level mode at cfg9's, the coefficient mode at cfg16's, and its
    k=1 matvec at cfg18's against the eager matvec); the device's busy
    share over cfg1's main-path run and over one cfg13 solve, from
-   ``torch.profiler`` traces.
+   ``torch.profiler`` traces; then GLUPS of 3D k=8 ``--periodic 0 1`` and
+   cfg1 ``--periodic 0`` beside the Dirichlet runs, of cfg12 (upwind
+   advection 256³ k=8, reference walls) beside eager and a periodic (0, 1)
+   box, the device's busy share of 3D k=8 on Dirichlet and periodic walls
+   and of cfg1 periodic, and one launch of each pins mode against its
+   plain version, its bound and a conv yardstick after the library's own
+   walls (``F.pad`` circular or replicate), with the runner's refresh
+   beside it.
 
 Each kernel's ``launches`` in the kernel record sums the phase-4 runs of
 that mode; its ``max_abs_err`` is the largest of its phase-3 cases. Its
@@ -168,6 +193,14 @@ HETERO_ARGS = ["--solve", "hetero", "-s", "255", "255", "255", "--tol",
 HETERO_SEED = 7
 HETERO_CERT_BAR = 1e-2        # float64 max |f - A u| / max |f|, as the CPU test
 HETERO_CERT_AGREE = 0.01      # auto vs pallas certificates, relative
+# the dynamic-wall (pins) paths: the advection family's cfg12 velocity
+# (bench.py:275-287), its golden run's iterations at k=8, and the
+# integer-CFL translations at k=1 on a fully periodic box, each checked
+# against exact_translate
+ADVECT_VELOCITY = (0.5, -0.25, 0.125)
+ADVECT_ITERS = 32
+TRANSLATE_VELOCITIES = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0))
+TRANSLATE_STEPS = 40
 FLOOR_CYCLES = 12            # cycles of the phase-5 floor measurement
 CYCLE_REPEATS = 10           # V-cycles per timed run
 CONTRACTION_CYCLES = 6
@@ -220,14 +253,73 @@ def check_equal(label, got, want):
     return diff
 
 
-def random_grid(shape, radius, rng, device):
+def random_grid(shape, radius, rng, device, bc=None):
+    """A random fp32 interior in [0, 1) with ``bc`` (default the reference
+    faces)."""
     import torch
 
     from stencil_tpu_torch.core.grid import HaloGrid
 
     x = rng.random(shape, dtype=np.float32)
-    return HaloGrid.from_interior(torch.from_numpy(x), halo=radius,
+    return HaloGrid.from_interior(torch.from_numpy(x), halo=radius, bc=bc,
                                   device=device)
+
+
+def walls(ndim, periodic=(), neumann=()):
+    """The reference faces, ``periodic`` dims wrapped and ``neumann`` dims
+    mirrored."""
+    from stencil_tpu_torch.core.grid import DirichletBC
+
+    return DirichletBC.reference_default(ndim).with_periodic(periodic) \
+        .with_neumann(neumann)
+
+
+def walls_name(bc):
+    ndim = len(bc.values)
+    parts = [f"{kind} {' '.join(str(d) for d in range(ndim) if mask[d])}"
+             for kind, mask in (("periodic", bc.periodic_mask(ndim)),
+                                ("neumann", bc.neumann_mask(ndim)))
+             if any(mask)]
+    return ", ".join(parts) or "dirichlet"
+
+
+def refreshed(plan, grid):
+    """``grid`` in ``plan``'s layout, its dynamic ghosts refreshed to the
+    launch's depth, as the runners hand it to a launch."""
+    from stencil_tpu_torch.ops.layout import refresh_dynamic_layout
+
+    return refresh_dynamic_layout(plan.layout.pad_grid(grid), plan.layout,
+                                  grid.bc, plan.halo)
+
+
+def pins_input(plan, bc, rng, device):
+    """A random grid with ``bc`` at ``plan``'s shape, refreshed."""
+    return refreshed(plan, random_grid(plan.interior_shape, plan.spec.radius,
+                                       rng, device, bc))
+
+
+def compare_pins(kernel, plan, bc, cur, mode, src=None, coeff=None,
+                 prev=None):
+    """One launch of ``plan`` with ``bc``'s pins on the refreshed ``cur``
+    against the plain version (both outputs of a two-level launch, given
+    ``prev``); ``src``/``coeff`` carry the walls' images."""
+    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    pins = dynamic_pins(bc, len(plan.interior_shape))
+    label = (f"{mode} {plan.spec.name} {plan.interior_shape} k="
+             f"{plan.sweeps_per_call} tiles {plan.tiles}, {walls_name(bc)},"
+             f" pins {list(pins)}")
+    if prev is not None:
+        got = kernel(cur, cur.clone(), plan, pins=pins, prev=prev,
+                     out2=prev.clone())
+        want = sweep_reference(cur, plan, prev=prev, pins=pins)
+        return max(check_equal(f"{label}, L_(n+k)", got[0], want[0]),
+                   check_equal(f"{label}, L_(n+k-1)", got[1], want[1]))
+    return check_equal(label, kernel(cur, cur.clone(), plan, src, pins,
+                                     coeff=coeff),
+                       sweep_reference(cur, plan, src, coeff=coeff,
+                                       pins=pins))
 
 
 def compare_launch(kernel, make_plan, spec, shape, k, rng, device,
@@ -252,14 +344,14 @@ def compare_launch(kernel, make_plan, spec, shape, k, rng, device,
 
 
 def compare_iterate(stencil_cls, spec, shape, k, iters, rng, device,
-                    scale=None):
+                    scale=None, bc=None):
     """The iterate (iters // k launches plus a remainder launch) against
-    the eager iterate."""
+    the eager iterate, on walls ``bc`` (default the reference faces)."""
     import torch
 
     from stencil_tpu_torch.ops import eager
 
-    grid = random_grid(shape, spec.radius, rng, device)
+    grid = random_grid(shape, spec.radius, rng, device, bc)
     f = rng.normal(size=shape) if scale is not None else None
     got = stencil_cls(spec, shape, sweeps_per_call=k, device=device,
                       source=f, source_scale=scale or 1.0
@@ -271,7 +363,8 @@ def compare_iterate(stencil_cls, spec, shape, k, iters, rng, device,
     want = eager.iterate(grid, spec, iters, scaled).data
     return check_equal(f"{stencil_cls.__name__}"
                        f"{'+source' if f is not None else ''} {spec.name} "
-                       f"{shape} k={k}, {iters} iterations", got, want)
+                       f"{shape} k={k}, {iters} iterations, "
+                       f"{walls_name(grid.bc)}", got, want)
 
 
 def compare_poisson(prob, f, kernel, make_plan, rng, device):
@@ -463,18 +556,18 @@ def compare_two_level(kernel, shape, k, rng, device):
                check_equal(f"{label}, L_(n+k-1)", got[1], want[1]))
 
 
-def compare_wave_iterate(shape, k, steps, rng, device):
+def compare_wave_iterate(shape, k, steps, rng, device, bc=None):
     """``WaveEquation.simulate(method="tiled")`` (``wave_iterate``: steps
     // k launches and a remainder) against the eager leapfrog, whose ops
-    are the plain version's."""
+    are the plain version's, on walls ``bc`` (default zero)."""
     from stencil_tpu_torch.models.wave import WaveEquation
 
-    w = WaveEquation(shape=shape, device=DEVICE)
+    w = WaveEquation(shape=shape, bc=bc, device=DEVICE)
     prev, cur = w.initial_pair(rng.normal(size=shape), rng.normal(size=shape))
     got = w.simulate(prev, cur, steps, method="tiled", sweeps_per_call=k)
     want = w.simulate(prev, cur, steps, method="eager")
     return max(check_equal(f"wave_iterate {shape} k={k}, {steps} steps, "
-                           f"{name}", g.data, e.data)
+                           f"{walls_name(w.bc)}, {name}", g.data, e.data)
                for name, g, e in zip(("L_(n+s-1)", "L_(n+s)"), got, want))
 
 
@@ -488,9 +581,10 @@ def compare_coeff(kernel, plan, cur, coeff, label):
                        sweep_reference(cur, plan, coeff=coeff))
 
 
-def marching_inputs(shape, k, rng, device):
+def marching_inputs(shape, k, rng, device, bc=None):
     """cfg16's FTCS plan (the runner's), padded coefficient and a random
-    padded u at ``shape``."""
+    padded u at ``shape``, on walls ``bc`` (default the reference faces;
+    u refreshed, a(x) wrapped or mirrored for dynamic ones)."""
     from stencil_tpu_torch.core.spec import get_spec
     from stencil_tpu_torch.models.diffusion import (
         HeterogeneousDiffusion, two_material,
@@ -499,7 +593,7 @@ def marching_inputs(shape, k, rng, device):
 
     het = HeterogeneousDiffusion(
         shape=shape, a=two_material(shape, lo=1.0 / CONTRAST, hi=1.0,
-                                    seed=0), device=DEVICE)
+                                    seed=0), bc=bc, device=DEVICE)
     runner = het.runner(method="tiled", sweeps_per_call=k)
     lam = het.stable_dt / het.h ** 2
     plan = make_tiled_plan(get_spec("jacobi7"), shape, "float32", k,
@@ -508,8 +602,7 @@ def marching_inputs(shape, k, rng, device):
             f"coeff {shape}: plan {plan.tiles} is not the runner's "
             f"{runner.plan_info}")
     coeff = pad_coeff(plan, het.a, het.bc).to(device)
-    cur = plan.layout.pad_grid(random_grid(shape, 1, rng, device))
-    return plan, cur, coeff
+    return plan, pins_input(plan, het.bc, rng, device), coeff
 
 
 def hetero_problem(kernel):
@@ -587,23 +680,107 @@ def run_wave(kernel, rng, label):
     return launches
 
 
-def run_varcoeff_cli(cli, kernel, label):
-    """``-m varcoeff -c`` at 128^3 k=8: the float64 field golden (NumPy,
-    capped at 50 iterations); returns the coefficient launches, counts set
-    to 0 just before."""
+def run_wave_pins(kernel, rng, label):
+    """The wave at 256^3 with periodic d0 and Neumann d1: WAVE_STEPS steps
+    on ``tiled`` k=8 against ``eager`` (WAVE_TOL); returns the two-level
+    pins launches, counts set to 0 just before."""
+    import torch
+
+    from stencil_tpu_torch.models.wave import WaveEquation
+
+    w = WaveEquation(shape=MAIN_SIZE, bc=walls(3, (0,), (1,)), device=DEVICE)
+    prev, cur = w.initial_pair(rng.normal(size=MAIN_SIZE))
     kernel.reset_counts()
+    _, got = w.simulate(prev, cur, WAVE_STEPS, method="tiled",
+                        sweeps_per_call=WAVE_K)
+    torch.cuda.synchronize()
+    launches = kernel.two_level_pins_launches
+    require(launches == WAVE_STEPS // WAVE_K and launches == kernel.launches,
+            f"wave {walls_name(w.bc)}: {launches} pins launches of "
+            f"{kernel.launches}")
+    _, want = w.simulate(prev, cur, WAVE_STEPS, method="eager")
+    diff = float((got.data - want.data).abs().max())
+    print(f"wave {MAIN_SIZE} {walls_name(w.bc)}, {WAVE_STEPS} steps tiled "
+          f"k={WAVE_K} vs eager: max abs diff {diff:.3e} (bar {WAVE_TOL:g}); "
+          f"{launches} two-level pins launches [{label}]")
+    require(bool(torch.isfinite(got.data).all()) and diff <= WAVE_TOL,
+            f"wave {walls_name(w.bc)}: tiled vs eager {diff}")
+    return launches
+
+
+def run_advection(kernel, rng, label):
+    """The advection family on the tiled kernel: upwind at cfg12's velocity
+    on a box periodic in d0 and d1 (d2 the reference faces), k=8, against
+    the float64 native golden over ADVECT_ITERS iterations; then integer
+    CFL on a fully periodic box at k=1 against ``exact_translate``,
+    bitwise. Returns the pins launches, counts set to 0 just before each
+    run."""
+    from stencil_tpu_torch import native
+    from stencil_tpu_torch.models.advection import Advection
+    from stencil_tpu_torch.ops import golden
+    from stencil_tpu_torch.ops.tiled import TiledStencil
+
+    adv = Advection(shape=MAIN_SIZE, velocity=ADVECT_VELOCITY,
+                    bc=walls(3, (0, 1)), device=DEVICE)
+    u0 = rng.random(MAIN_SIZE, dtype=np.float32)
+    stencil = TiledStencil(adv.spec, MAIN_SIZE, sweeps_per_call=8,
+                           device=DEVICE)
+    kernel.reset_counts()
+    got = stencil.iterate(adv.initial_grid(u0), ADVECT_ITERS)
+    total = kernel.pins_launches
+    require(total == ADVECT_ITERS // 8 and total == kernel.launches,
+            f"advection: {total} pins launches of {kernel.launches}")
+    want = native.golden_iterate_native(u0, adv.spec, ADVECT_ITERS,
+                                        bc=adv.bc)
+    chk = golden.check_against_golden(got.interior().double().cpu().numpy(),
+                                      want, GOLDEN_TOL)
+    print(f"advection upwind {MAIN_SIZE} velocity {ADVECT_VELOCITY} "
+          f"({len(adv.spec.weights)} taps), {walls_name(adv.bc)}, k=8 tiles "
+          f"{list(stencil.plan.tiles)}, {ADVECT_ITERS} iterations vs the "
+          f"float64 native golden: {'OK' if chk.ok else 'FAILED'} "
+          f"{chk.message()}; {total} pins launches [{label}]")
+    require(chk.ok and np.isfinite(chk.max_abs_err), "advection golden")
+    for velocity in TRANSLATE_VELOCITIES:
+        adv = Advection(shape=MAIN_SIZE, velocity=velocity, dt=1.0,
+                        device=DEVICE)
+        stencil = TiledStencil(adv.spec, MAIN_SIZE, sweeps_per_call=1,
+                               device=DEVICE)
+        kernel.reset_counts()
+        got = stencil.iterate(adv.initial_grid(u0), TRANSLATE_STEPS)
+        n = kernel.pins_launches
+        require(n == TRANSLATE_STEPS and n == kernel.launches,
+                f"translation {velocity}: {n} pins launches")
+        same = np.array_equal(got.interior().cpu().numpy(),
+                              adv.exact_translate(u0, TRANSLATE_STEPS))
+        verdict = "bitwise equal to" if same else "DIFFER from"
+        print(f"advection upwind {MAIN_SIZE} velocity {velocity} dt 1 "
+              f"(integer CFL), {walls_name(adv.bc)}, k=1: "
+              f"{TRANSLATE_STEPS} steps {verdict} exact_translate; {n} pins "
+              f"launches [{label}]")
+        require(same, f"translation {velocity} is not exact")
+        total += n
+    return total
+
+
+def run_varcoeff_cli(cli, kernel, label, walls_args=(),
+                     count="coeff_launches"):
+    """``-m varcoeff -c`` at 128^3 k=8 with ``walls_args``: the float64
+    field golden (NumPy, capped at 50 iterations); returns the launches by
+    ``count``, counts set to 0 just before."""
+    kernel.reset_counts()
+    args = [*VARCOEFF_ARGS, *walls_args]
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "varcoeff.jsonl"
-        rc = cli.main([*VARCOEFF_ARGS, "-c", "--device", DEVICE,
+        rc = cli.main([*args, "-c", "--device", DEVICE,
                        "--json-out", str(out)])
-        launches = kernel.coeff_launches
+        launches = getattr(kernel, count)
         rec = json.loads(out.read_text().splitlines()[0])
     chk = rec["check"]
-    print(f"main path {' '.join(VARCOEFF_ARGS)} -c: check "
+    print(f"main path {' '.join(args)} -c: check "
           f"{'OK' if chk['ok'] else 'FAILED'} over "
           f"{chk['iterations_checked']} iterations vs the float64 field "
           f"golden (NumPy, capped), max abs err {chk['max_abs_err']:.3e}; "
-          f"{launches} {kernel.name}+coeff launches; plan {rec['plan']}; "
+          f"{launches} {count}; plan {rec['plan']}; "
           f"{rec['glups']:.2f} GLUPS [{label}]")
     require(rc == 0 and chk["ok"] and np.isfinite(chk["max_abs_err"])
             and chk["iterations_checked"] == 50,
@@ -729,49 +906,86 @@ def coeff_ops(n_int, k):
     return n_int * (COEFF_WEIGHT_OPS + k * COEFF_SWEEP_OPS)
 
 
-def wave_library_step(plan, cur, prev):
+def wall_cut(plan, bc):
+    """The index of the input a yardstick conv reads: ``plan``'s interior
+    widened by the radius, but in the dynamic dims of ``bc``, which
+    :func:`wall_pad` pads."""
+    r, h = plan.spec.radius, plan.layout.halo
+    dyn = bc.dynamic_mask(len(plan.interior_shape)) if bc is not None \
+        else (False,) * len(plan.interior_shape)
+    return tuple(slice(h, h + n) if dyn[d] else slice(h - r, h + n + r)
+                 for d, n in enumerate(plan.interior_shape))
+
+
+def wall_pad(x, plan, bc):
+    """The library's own walls for a yardstick conv: ``x`` (batch and
+    channels first, cut by :func:`wall_cut`) padded by the radius in each
+    dynamic dim, one ``F.pad`` per kind: circular for periodic, replicate
+    (the mirror at radius 1) for Neumann. ``x`` itself without them."""
+    import torch.nn.functional as F
+
+    if bc is None or not bc.any_dynamic:
+        return x
+    r, nd = plan.spec.radius, len(plan.interior_shape)
+    for mode, mask in (("circular", bc.periodic_mask(nd)),
+                       ("replicate", bc.neumann_mask(nd))):
+        if any(mask):
+            pad = [r if mask[d] else 0 for d in reversed(range(nd))
+                   for _ in (0, 1)]
+            x = F.pad(x, tuple(pad), mode=mode)
+    return x
+
+
+def wave_library_step(plan, cur, prev, bc=None):
     """One ``torch.nn.functional.conv3d`` call computing one leapfrog step
     of ``plan`` on the same levels: two input channels (L_t and L_(t-1)),
-    weights S and -delta. Returns (call, check) as ``library_sweep``."""
+    weights S and -delta; with dynamic walls ``bc`` after their
+    :func:`wall_pad`, which the call includes. Returns (call, check) as
+    ``library_sweep``."""
     import torch
     import torch.nn.functional as F
 
     from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
 
-    h = plan.layout.halo
-    cut = tuple(slice(h - 1, h + n + 1) for n in plan.interior_shape)
+    cut = wall_cut(plan, bc)
     x = torch.stack([cur[cut], prev[cut]])[None].contiguous()
     w = torch.zeros((1, 2, 3, 3, 3), dtype=x.dtype, device=x.device)
     for off, wt in zip(plan.spec.offsets, plan.spec.weights):
         w[(0, 0) + tuple(1 + o for o in off)] += wt
     w[0, 1, 1, 1, 1] = -1.0
+    pins = dynamic_pins(bc, 3) if bc is not None else None
 
     def call():
-        return F.conv3d(x, w)
+        return F.conv3d(wall_pad(x, plan, bc), w)
 
     def check():
         want = plan.layout.unpad(sweep_reference(
-            cur, plan.with_sweeps(1), prev=prev)[0])
+            cur, plan.with_sweeps(1), prev=prev, pins=pins)[0])
         return float((call()[0, 0] - want).abs().max())
 
     return call, check
 
 
-def library_sweep(plan, cur, src):
+def library_sweep(plan, cur, src, bc=None):
     """One ``torch.nn.functional.conv3d``/``conv2d`` call computing one
     sweep of ``plan``'s mode on the same inputs: the padded u cut to the
     stencil's radius, the source as a second input channel (for the
-    Chebyshev modes the raw f, with sweep 1's c, n and s as weights).
-    Returns (call, check) where check() is the call's max abs difference
-    from one sweep of the plain version."""
+    Chebyshev modes the raw f, with sweep 1's c, n and s as weights); with
+    dynamic walls ``bc`` the cut stops at the interior in their dims and
+    the call includes their :func:`wall_pad`. Returns (call, check) where
+    check() is the call's max abs difference from one sweep of the plain
+    version."""
     import torch
     import torch.nn.functional as F
 
     from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
 
-    spec, r, h = plan.spec, plan.spec.radius, plan.layout.halo
+    spec, r = plan.spec, plan.spec.radius
     nd = len(plan.interior_shape)
-    cut = tuple(slice(h - r, h + n + r) for n in plan.interior_shape)
+    cut = wall_cut(plan, bc)
+    pins = dynamic_pins(bc, nd) if bc is not None else None
     chans = [cur[cut]] + ([src[cut]] if src is not None else [])
     x = torch.stack(chans)[None].contiguous()
     w = torch.zeros((1, len(chans)) + (2 * r + 1,) * nd, dtype=x.dtype,
@@ -789,11 +1003,11 @@ def library_sweep(plan, cur, src):
     conv = F.conv3d if nd == 3 else F.conv2d
 
     def call():
-        return conv(x, w)
+        return conv(wall_pad(x, plan, bc), w)
 
     def check():
         want = plan.layout.unpad(sweep_reference(cur, plan.with_sweeps(1),
-                                                 src))
+                                                 src, pins=pins))
         return float((call()[0, 0] - want).abs().max())
 
     return call, check
@@ -806,15 +1020,19 @@ def time_call(fn, device, reps):
     return timed(lambda: [fn() for _ in range(reps)], device) / reps * 1e3
 
 
-def run_cli(cli, args, kernel, label):
+def run_cli(cli, args, kernel, label, count="launches"):
     """One CLI main path with ``kernel``'s counts set to 0 just before;
-    returns (record, launches)."""
+    returns (record, launches by ``count``), which must be all of the
+    kernel's launches."""
     kernel.reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "main.jsonl"
         rc = cli.main([*args, "-c", "--device", DEVICE,
                        "--json-out", str(out)])
-        launches = kernel.launches
+        launches = getattr(kernel, count)
+        require(launches == kernel.launches,
+                f"main path {args}: {launches} {count} of "
+                f"{kernel.launches} launches")
         rec = json.loads(out.read_text().splitlines()[0])
     iters = int(args[args.index("-i") + 1])
     require(rc == 0, f"main path {args} returned {rc}")
@@ -827,7 +1045,7 @@ def run_cli(cli, args, kernel, label):
     print(f"main path {' '.join(args)}: check OK over "
           f"{chk['iterations_checked']} iterations vs the float64 golden, "
           f"max abs err {chk['max_abs_err']:.3e}; {launches} {kernel.name} "
-          f"launches; plan {rec['plan']}; {rec['glups']:.2f} GLUPS "
+          f"{count}; plan {rec['plan']}; {rec['glups']:.2f} GLUPS "
           f"[{label}]")
     return rec, launches
 
@@ -861,15 +1079,16 @@ def poisson_solve(shape, kernel, device):
     return launches
 
 
-def poisson_golden(shape, kernel, rng):
+def poisson_golden(shape, kernel, rng, bc=None, count="source_launches"):
     """The Poisson runner (``method="auto"``, k=8) over POISSON_BIG_ITERS
-    sweeps at ``shape``, against the float64 NumPy golden with the source
-    (full shape, iterations cut); returns (runner, problem, f, source-mode
-    launches), the launch count set to 0 just before the run."""
+    sweeps at ``shape`` on walls ``bc`` (default zero), against the float64
+    NumPy golden with the source (full shape, iterations cut); returns
+    (runner, problem, f, launches by ``count``), the counts set to 0 just
+    before the run."""
     from stencil_tpu_torch.models.poisson import PoissonProblem
     from stencil_tpu_torch.ops import golden
 
-    prob = PoissonProblem(shape=shape, device=DEVICE)
+    prob = PoissonProblem(shape=shape, bc=bc, device=DEVICE)
     u0 = rng.random(shape, dtype=np.float32)
     # f of size 1/h^2 makes the source's share of each sweep O(1), so a
     # missing or misplaced source fails the check
@@ -877,7 +1096,7 @@ def poisson_golden(shape, kernel, rng):
     runner = prob.runner(f, method="auto")
     kernel.reset_counts()
     out = runner.iterate(prob.initial_grid(u0), POISSON_BIG_ITERS)
-    n_src = kernel.source_launches
+    n_src = getattr(kernel, count)
     got = out.interior().double().cpu().numpy()
     want = golden.golden_iterate(u0, prob.spec, POISSON_BIG_ITERS,
                                  bc=prob.bc, source=f,
@@ -885,12 +1104,12 @@ def poisson_golden(shape, kernel, rng):
     moved = np.max(np.abs(want - golden.golden_iterate(
         u0, prob.spec, POISSON_BIG_ITERS, bc=prob.bc)))
     chk = golden.check_against_golden(got, want, GOLDEN_TOL)
-    print(f"Poisson {shape} {runner.name} tiles {runner.plan_info['tiles']}, "
+    print(f"Poisson {shape} {walls_name(prob.bc)} {runner.name} tiles "
+          f"{runner.plan_info['tiles']}, "
           f"{POISSON_BIG_ITERS} iterations vs the float64 NumPy golden with "
           f"the source (full shape, iterations cut to {POISSON_BIG_ITERS}): "
           f"{'OK' if chk.ok else 'FAILED'} {chk.message()}; the source "
-          f"moves the golden by {moved:.3e}; {n_src} {kernel.name}+source "
-          f"launches")
+          f"moves the golden by {moved:.3e}; {n_src} {kernel.name} {count}")
     require(chk.ok and np.isfinite(chk.max_abs_err),
             f"Poisson {shape} golden check")
     require(moved > 100 * GOLDEN_TOL,
@@ -1095,6 +1314,83 @@ def main() -> int:
             f"cfg18 matvec, OperatorMultigrid level {level} {lp.shape}, "
             f"random ghost ring,"))
     err["tiled_sweep+coeff"] = max(coeff_errs)
+    # the pins: every mode on a dynamic-wall path, one launch on a refreshed
+    # random grid at the main paths' plans (periodic, Neumann, mixed,
+    # ragged, radius 2, --periodic all at k=1), and the runners over a
+    # remainder against the eager iterate
+    from stencil_tpu_torch.ops.tiled import pad_coeff
+
+    per01, neu01 = walls(3, (0, 1)), walls(3, (), (0, 1))
+    mixed, per_all = walls(3, (0,), (1,)), walls(3, (0, 1, 2))
+    per0_2d, neu0_2d = walls(2, (0,)), walls(2, (), (0,))
+
+    def pins_case(kernel, plan, bc, mode, **kw):
+        return compare_pins(kernel, plan, bc, pins_input(plan, bc, rng,
+                                                         device), mode, **kw)
+
+    mode = "tiled_sweep+pins"
+    plan8 = make_tiled_plan(j7, MAIN_SIZE, "float32", 8)
+    err[mode] = max(
+        [pins_case(tiled, plan8, bc, mode) for bc in (per01, neu01, mixed)]
+        + [pins_case(tiled, make_tiled_plan(j7, RAGGED_SIZE, "float32", 3),
+                     per01, mode),
+           pins_case(tiled, make_tiled_plan(get_spec("laplace3d_ho"),
+                                            BOX_SIZE, "float32", 4),
+                     per01, mode),
+           pins_case(tiled, make_tiled_plan(j7, MAIN_SIZE, "float32", 1),
+                     per_all, mode),
+           compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
+                           bc=mixed)])
+    mode = "tiled_sweep+source+pins"
+    pprob = PoissonProblem(shape=POISSON_BIG, bc=mixed, device=DEVICE)
+    pplan = make_tiled_plan(pprob.spec, POISSON_BIG, "float32", 8)
+    ragged3 = make_tiled_plan(j7, RAGGED_SIZE, "float32", 3)
+    err[mode] = max(
+        pins_case(tiled, pplan, mixed, mode, src=pad_source(
+            pplan, rng.normal(size=POISSON_BIG) / pprob.h ** 2,
+            pprob.source_scale, mixed).to(device)),
+        pins_case(tiled, ragged3, per01, mode, src=pad_source(
+            ragged3, rng.normal(size=RAGGED_SIZE), -0.01, per01).to(device)),
+        compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
+                        scale=-0.01, bc=per01))
+    mode = "tiled_sweep+two_level+pins"
+    err[mode] = max(
+        pins_case(tiled, wave_plan(MAIN_SIZE, WAVE_K), mixed, mode,
+                  prev=pins_input(wave_plan(MAIN_SIZE, WAVE_K), mixed, rng,
+                                  device)),
+        pins_case(tiled, wave_plan(RAGGED_SIZE, 3), per01, mode,
+                  prev=pins_input(wave_plan(RAGGED_SIZE, 3), per01, rng,
+                                  device)),
+        compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device, bc=per01))
+    mode = "tiled_sweep+coeff+pins"
+    coeff_errs = []
+    for shape, k, bc in ((MAIN_SIZE, 8, per01), (RAGGED_SIZE, 3, mixed)):
+        plan, cur, coeff = marching_inputs(shape, k, rng, device, bc)
+        coeff_errs.append(compare_pins(tiled, plan, bc, cur, mode,
+                                       coeff=coeff))
+    err[mode] = max(coeff_errs)
+    mode = "slab_sweep+pins"
+    s16 = make_slab_plan(j5, CFG1[1], "float32", CFG1[2])
+    err[mode] = max(
+        pins_case(slab, s16, per0_2d, mode),
+        pins_case(slab, s16, neu0_2d, mode),
+        pins_case(slab, make_slab_plan(j9, CFG2[1], "float32", CFG2[2],
+                                       t0_fixed=CFG2[3]), per0_2d, mode),
+        pins_case(slab, make_slab_plan(get_spec("star2d_r2"), RAGGED_2D,
+                                       "float32", 3), neu0_2d, mode),
+        pins_case(slab, make_slab_plan(j5, CFG1[1], "float32", 1),
+                  walls(2, (0, 1)), mode),
+        compare_iterate(SlabStencil, j5, RAGGED_2D, 4, 11, rng, device,
+                        bc=per0_2d))
+    mode = "slab_sweep+source+pins"
+    pprob2 = PoissonProblem(shape=POISSON_BIG_2D, bc=per0_2d, device=DEVICE)
+    splan = make_slab_plan(pprob2.spec, POISSON_BIG_2D, "float32", 8)
+    err[mode] = max(
+        pins_case(slab, splan, per0_2d, mode, src=pad_source(
+            splan, rng.normal(size=POISSON_BIG_2D) / pprob2.h ** 2,
+            pprob2.source_scale, per0_2d).to(device)),
+        compare_iterate(SlabStencil, j9, RAGGED_2D, 4, 11, rng, device,
+                        scale=-0.01, bc=per0_2d))
     print(f"PHASE 3 kernel vs plain: ok (max abs diff per mode "
           f"{ {k: float(f'{v:.3e}') for k, v in err.items()} })")
 
@@ -1148,6 +1444,30 @@ def main() -> int:
     launches["tiled_sweep+two_level"] = run_wave(tiled, rng, label)
     launches["tiled_sweep+coeff"] = (run_varcoeff_cli(cli, tiled, label)
                                      + run_hetero_cli(cli, tiled, label))
+    # the dynamic-wall paths: every launch of each run must be a pins
+    # launch of its mode (no eager or plain fallback)
+    main3d = ["-s", *map(str, MAIN_SIZE), "--spec", "jacobi7", "-i",
+              str(MAIN_ITERS)]
+    launches["tiled_sweep+pins"] = sum(
+        run_cli(cli, main3d + extra, tiled, label, "pins_launches")[1]
+        for extra in (["-m", "pallas_temporal", "-k", "8", "--periodic",
+                       "0", "1"],
+                      ["-m", "pallas", "-k", "1", "--periodic", "all"]))
+    launches["tiled_sweep+pins"] += run_advection(tiled, rng, label)
+    spec_name, size, k, _, iters = CFG1
+    rec, launches["slab_sweep+pins"] = run_cli(
+        cli, ["-s", *map(str, size), "--spec", spec_name, "-m",
+              "pallas_temporal", "-k", str(k), "-i", str(iters), "--periodic",
+              "0"], slab, label, "pins_launches")
+    for mode, kernel, shape, bc in (
+            ("tiled_sweep+source+pins", tiled, POISSON_BIG, mixed),
+            ("slab_sweep+source+pins", slab, POISSON_BIG_2D, per0_2d)):
+        poisson_big[mode] = poisson_golden(shape, kernel, rng, bc,
+                                           "source_pins_launches")
+        launches[mode] = poisson_big[mode][3]
+    launches["tiled_sweep+two_level+pins"] = run_wave_pins(tiled, rng, label)
+    launches["tiled_sweep+coeff+pins"] = run_varcoeff_cli(
+        cli, tiled, label, ("--periodic", "0", "1"), "coeff_pins_launches")
     print(f"PHASE 4 main paths: ok (launches {launches})")
 
     # 5. times
@@ -1214,14 +1534,14 @@ def main() -> int:
                              check_every=every)
 
         res13 = solve13()
-        walls = []
+        wall_ms = []
         for _ in range(3):
             t0 = time.perf_counter()
             solve13()
-            walls.append((time.perf_counter() - t0) * 1e3)
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
         print(f"cfg13 PCG chebyshev tiled {MG_SIZE} tol 1e-4, check_every="
               f"{every}: {res13.summary()}; time to solution "
-              f"{sorted(walls)[1]:.3f} ms (median of {walls}) [{label}]")
+              f"{sorted(wall_ms)[1]:.3f} ms (median of {wall_ms}) [{label}]")
         require(res13.converged, "cfg13 did not converge")
     # the error floor of the cycles at 255^3: manufactured sine, error
     # against the exact solution after each cycle
@@ -1299,14 +1619,14 @@ def main() -> int:
             return hsolver.solve(fhet, tolerance=1e-4, max_iterations=1000)
 
         res18 = solve18()
-        walls = []
+        wall_ms = []
         for _ in range(3):
             t0 = time.perf_counter()
             solve18()
-            walls.append((time.perf_counter() - t0) * 1e3)
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
         print(f"cfg18 BiCGStab + OperatorMultigrid hetero {HETERO_SIZE} "
               f"--op-kernel {op}, tol 1e-4: {res18.summary()}; time to "
-              f"solution {sorted(walls)[1]:.3f} ms (median of {walls}) "
+              f"solution {sorted(wall_ms)[1]:.3f} ms (median of {wall_ms}) "
               f"[{label}]")
         require(res18.converged, f"cfg18 --op-kernel {op} did not converge")
         wall, busy, span = device_busy(solve18, device)
@@ -1466,6 +1786,138 @@ def main() -> int:
               f"{wall:.3f} ms unprofiled; device busy {busy:.3f} ms of a "
               f"{span:.3f} ms span, idle {100 * (1 - busy / span):.1f}% "
               f"[{label}]")
+
+    # the dynamic-wall paths: GLUPS beside the Dirichlet runs above, cfg12,
+    # the device's idle share, and one launch of each pins mode
+    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.models.advection import Advection
+    from stencil_tpu_torch.ops import eager
+    from stencil_tpu_torch.ops.layout import refresh_dynamic_layout
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    pins_runs = {}
+    for spec, size, k, dims, method in (
+            (j7, MAIN_SIZE, 8, ("0", "1"), "tiled"),
+            (j5, CFG1[1], CFG1[2], ("0",), "slab")):
+        cfg = RunConfig(size=size, spec=spec.name, temporal=k,
+                        methods=(method,), periodic=dims, device=DEVICE)
+        grid = cli.make_grid(cfg, spec)
+        runner = registry.get_runner(method, cfg, spec, grid)
+        bench(runner, grid, int(np.prod(size)), device, hbm, label,
+              f"{spec.name} {size} {runner.name} --periodic {' '.join(dims)}")
+        pins_runs[size] = (runner, grid)
+    # cfg12: upwind advection at 256^3 k=8 on the reference faces (the
+    # table-loop evaluator, no pins), beside eager and a periodic (0, 1) box
+    for bc in (walls(3), walls(3, (0, 1))):
+        adv = Advection(shape=MAIN_SIZE, velocity=ADVECT_VELOCITY, bc=bc,
+                        device=DEVICE)
+        agrid = HaloGrid.create(MAIN_SIZE, halo=1, bc=bc, device=DEVICE)
+        astencil = TiledStencil(adv.spec, MAIN_SIZE, sweeps_per_call=8,
+                                device=DEVICE)
+        runs = [registry.Runner(name="advection_upwind_k8", granularity=8,
+                                iterate=astencil.iterate)]
+        if not bc.any_dynamic:
+            runs.append(registry.Runner(
+                name="advection_upwind_eager", granularity=1,
+                iterate=lambda g, n, sp=adv.spec: eager.iterate(g, sp, n)))
+        for arun in runs:
+            bench(arun, agrid, int(np.prod(MAIN_SIZE)), device, hbm, label,
+                  f"{'cfg12 ' if not bc.any_dynamic else ''}advection upwind "
+                  f"{MAIN_SIZE} velocity {ADVECT_VELOCITY}, {walls_name(bc)}, "
+                  f"{arun.name} tiles {list(astencil.plan.tiles)}")
+    # the device's busy share: 3D k=8 on Dirichlet and periodic (0, 1)
+    # walls, cfg1 on periodic d0 (its Dirichlet run is above)
+    dirichlet3d = registry.get_runner(
+        "tiled", RunConfig(size=MAIN_SIZE, spec="jacobi7", temporal=8,
+                           methods=("tiled",), device=DEVICE), j7,
+        cli.make_grid(RunConfig(size=MAIN_SIZE, spec="jacobi7",
+                                device=DEVICE), j7))
+    for name, (runner, grid), iters in (
+            (f"3D jacobi7 {MAIN_SIZE} k=8 dirichlet",
+             (dirichlet3d, cli.make_grid(RunConfig(
+                 size=MAIN_SIZE, spec="jacobi7", device=DEVICE), j7)),
+             MAIN_ITERS),
+            (f"3D jacobi7 {MAIN_SIZE} k=8 --periodic 0 1",
+             pins_runs[MAIN_SIZE],
+             MAIN_ITERS),
+            ("cfg1 --periodic 0", pins_runs[CFG1[1]], CFG1[4])):
+        wall, busy, span = device_busy(lambda: runner.iterate(grid, iters),
+                                       device)
+        print(f"{name}, {iters} iterations ({runner.name}): host wall "
+              f"{wall:.3f} ms unprofiled; " + (
+                  "device busy share not measured (the trace holds no "
+                  "device events)" if busy is None else
+                  f"device busy {busy:.3f} ms of a {span:.3f} ms span, idle "
+                  f"{100 * (1 - busy / span):.1f}%") + f" [{label}]")
+    # one launch of each pins mode at the plan of a phase-4 dynamic-wall
+    # path, on a refreshed random grid: (mode, kernel, plan, walls, u,
+    # source, u_(n-1), a(x))
+    pins_inputs = [("tiled_sweep+pins", tiled, plan8, per01,
+                    pins_input(plan8, per01, rng, device), None, None, None)]
+    for mode, kernel, make_plan in (
+            ("tiled_sweep+source+pins", tiled, make_tiled_plan),
+            ("slab_sweep+source+pins", slab, make_slab_plan)):
+        runner, prob, f, _ = poisson_big[mode]
+        plan = make_plan(prob.spec, prob.shape, "float32",
+                         runner.plan_info["k"])
+        require(list(plan.tiles) == runner.plan_info["tiles"],
+                f"{mode}: plan {plan.tiles} is not the runner's")
+        pins_inputs.append((mode, kernel, plan, prob.bc,
+                            pins_input(plan, prob.bc, rng, device),
+                            pad_source(plan, f, prob.source_scale,
+                                       prob.bc).to(device), None, None))
+    wplan = wave_plan(MAIN_SIZE, WAVE_K)
+    pins_inputs.append(("tiled_sweep+two_level+pins", tiled, wplan, mixed,
+                        pins_input(wplan, mixed, rng, device), None,
+                        pins_input(wplan, mixed, rng, device), None))
+    plan, cur, coeff = marching_inputs(MAIN_SIZE, 8, rng, device, per01)
+    pins_inputs.append(("tiled_sweep+coeff+pins", tiled, plan, per01, cur,
+                        None, None, coeff))
+    pins_inputs.append(("slab_sweep+pins", slab, s16, per0_2d,
+                        pins_input(s16, per0_2d, rng, device), None, None,
+                        None))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for mode, kernel, plan, bc, cur, src, prev, coeff in pins_inputs:
+        pins = dynamic_pins(bc, len(plan.interior_shape))
+        nxt = cur.clone()
+        out2 = None if prev is None else prev.clone()
+        ms[mode] = time_call(lambda: kernel(cur, nxt, plan, src, pins,
+                                            out2=out2, prev=prev,
+                                            coeff=coeff), device, 10)
+        plain_ms[mode] = time_call(lambda: sweep_reference(
+            cur, plan, src, prev, coeff, pins), device, 3)
+        # the runner refreshes each input level before every launch
+        refresh_ms = time_call(lambda: [refresh_dynamic_layout(
+            t, plan.layout, bc, plan.halo) for t in (cur, prev)
+            if t is not None], device, 20)
+        n_int = int(np.prod(plan.interior_shape))
+        n_pad = int(np.prod(plan.layout.padded_shape))
+        k = plan.sweeps_per_call
+        if coeff is not None:
+            library_ms[mode] = None
+            bound_ms[mode], bound_by[mode] = bound_of(
+                4 * (2 * n_pad + n_int), coeff_ops(n_int, k))
+            lib_text = "library none (per-point weights)"
+        else:
+            if prev is not None:
+                lib, lib_check = wave_library_step(plan, cur, prev, bc)
+                bound_ms[mode], bound_by[mode] = bound_of(
+                    4 * (2 * n_pad + 2 * n_int),
+                    n_int * k * (plan.spec.flops_per_point + 1))
+            else:
+                lib, lib_check = library_sweep(plan, cur, src, bc)
+                bound_ms[mode], bound_by[mode] = bound(plan, src, False)
+            library_ms[mode] = time_call(lib, device, 10)
+            lib_text = (f"library F.pad + conv{len(plan.interior_shape)}d "
+                        f"{library_ms[mode]:.4f} ms per sweep (vs one plain "
+                        f"sweep max abs diff {lib_check():.3e})")
+        print(f"one call of {mode} {plan.spec.name} {plan.interior_shape} "
+              f"k={k}, tiles {plan.tiles}, {walls_name(bc)}, pins "
+              f"{list(pins)}: kernel {ms[mode]:.4f} ms, plain "
+              f"{plain_ms[mode]:.4f} ms, bound {bound_ms[mode]:.4f} ms (by "
+              f"{bound_by[mode]}); {lib_text}; the runner's refresh before "
+              f"a launch {refresh_ms:.4f} ms [{label}]")
     print(f"PHASE 5 times: ok ({time.perf_counter() - t_start:.1f} s in "
           "all)")
 
@@ -1482,7 +1934,11 @@ def main() -> int:
         "library_ms": library_ms[mode],
     } for mode in ("tiled_sweep", "tiled_sweep+source", "tiled_sweep+cheby",
                    "tiled_sweep+dual", "tiled_sweep+two_level",
-                   "tiled_sweep+coeff", "slab_sweep", "slab_sweep+source")]}))
+                   "tiled_sweep+coeff", "tiled_sweep+pins",
+                   "tiled_sweep+source+pins", "tiled_sweep+two_level+pins",
+                   "tiled_sweep+coeff+pins", "slab_sweep",
+                   "slab_sweep+source", "slab_sweep+pins",
+                   "slab_sweep+source+pins")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -208,10 +208,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="out-of-core streaming (not ported yet)")
     p.add_argument("--periodic", type=str, nargs="*", default=[],
                    help="dims with periodic (wrap-around) boundaries, e.g. "
-                        "--periodic 0 1 or --periodic all (eager only)")
+                        "--periodic 0 1 or --periodic all (every method; "
+                        "on a kernel a periodic last dim needs -k 1)")
     p.add_argument("--neumann", type=str, nargs="*", default=[],
                    help="dims with Neumann (zero-flux mirror) boundaries, "
-                        "e.g. --neumann 0 (eager only)")
+                        "e.g. --neumann 0 (every method; on a kernel a "
+                        "Neumann last dim needs -k 1, a Neumann dim at -k "
+                        "> 1 a stencil mirror-symmetric in it)")
     p.add_argument("--tap-mode", type=str, default=None,
                    choices=["slice", "roll", "synth", "rotacc"],
                    help="TPU tap evaluation strategy: accepted and ignored")

@@ -87,6 +87,11 @@ class DirichletBC:
     def zero(ndim: int) -> "DirichletBC":
         return DirichletBC(values=tuple([(0.0, 0.0)] * ndim))
 
+    @staticmethod
+    def periodic_all(ndim: int) -> "DirichletBC":
+        return DirichletBC(values=tuple([(0.0, 0.0)] * ndim),
+                           periodic=tuple([True] * ndim))
+
     def with_periodic(self, dims) -> "DirichletBC":
         """This BC with the given dims made periodic."""
         ndim = len(self.values)

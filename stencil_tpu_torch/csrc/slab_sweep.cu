@@ -4,8 +4,8 @@
 // Replaces stencil_tpu/ops/pallas.py:build_sweep (the Pallas TPU slab
 // kernel, pallas_call at :675) on 2D grids, in its homogeneous mode and
 // in its source mode (has_source, u' = S(u) + src, added at :586-591),
-// with both Dirichlet lead faces pinned (pins all ones). Wrapper and plain
-// PyTorch version: stencil_tpu_torch/ops/slab_kernel.py.
+// with its lead-dim `pins` (:564-575). Wrapper and plain PyTorch version:
+// stencil_tpu_torch/ops/slab_kernel.py.
 //
 // What it computes. `in` and `out` are padded (n0+2H, n1+2H) fp32 arrays
 // whose H >= k*r ghost layers hold the Dirichlet face values. `out`
@@ -29,6 +29,17 @@
 // straight to global memory. The last tile of a ragged dim starts at
 // n - t (clamped); it overlaps its neighbour, and both write identical
 // values.
+//
+// Pins: the geometry carries one flag per d0 face (lo, hi). A pinned face
+// (1) is a Dirichlet wall, as above. A live face (0) is a periodic or
+// Neumann wall whose k*r ghost rows the caller filled with the wrapped or
+// mirrored interior before the launch: a window row beyond it gets the
+// full update (taps, + src) as an interior row does, so the k sweeps carry
+// the wrap or mirror along (the TPU kernel's pins off). With both faces
+// pinned the update test, and so the result, is that of a launch without
+// pins. A live row at sweep t lies at padded index >= t*r and reads at
+// most r beyond it. The d1 faces are always pinned: a periodic or Neumann
+// d1 runs at k = 1, where the caller's refresh is the whole mechanism.
 //
 // Taps: a table in StencilSpec.weight_groups order, evaluated by
 // stencil_taps.cuh, bitwise as the eager torch version (ops/eager.py)
@@ -58,7 +69,7 @@ using stencil::Taps;
 constexpr int kBlockX = 32;   // threads along d1 (contiguous)
 constexpr int kBlockY = 16;   // threads along d0 rows
 constexpr int kThreads = kBlockX * kBlockY;
-constexpr int kGeomLen = 11;
+constexpr int kGeomLen = 13;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
 constexpr int kErrArgument = -1;
 constexpr int kErrShared = -2;
@@ -71,10 +82,12 @@ struct Geometry {
   int nt1;      // tiles along d1
   int k, r;     // sweeps per launch, stencil radius
   int w0, w1;   // window extents, t + 2*k*r
+  int pin_lo, pin_hi;  // the d0 faces: 1 pinned, 0 live
 };
 
 // NT > 0: a spec of exactly NT taps; NT == 0: any spec. SRC: every
-// interior update adds the padded source `source` at its point.
+// update (live ghost rows included) adds the padded source `source` at its
+// point.
 template <int NT, bool SRC>
 __global__ void __launch_bounds__(kThreads)
 slab_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
@@ -113,8 +126,10 @@ slab_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
   __syncthreads();
 
-  // the grid's interior in window coordinates, [lo, hi) per dim
-  const int lo0 = g.halo - o0, hi0 = lo0 + g.n0;
+  // the points a sweep updates, in window coordinates, [lo, hi) per dim:
+  // the grid's interior, widened to the window's edge at a live d0 face
+  const int lo0 = g.pin_lo ? g.halo - o0 : 0;
+  const int hi0 = g.pin_hi ? g.halo - o0 + g.n0 : g.w0;
   const int lo1 = g.halo - o1, hi1 = lo1 + g.n1;
 
   for (int t = 1; t <= g.k; ++t) {
@@ -187,7 +202,8 @@ extern "C" {
 // Launch k sweeps on `stream` (a cudaStream_t, 0 = the legacy default
 // stream) of device `device`. `source` is null, or a padded fp32 array of
 // the layout of `in` whose interior holds the pre-scaled source. `geom` is
-// int32[11]: n0 n1 p0 p1 halo t0 t1 nt0 nt1 k r. `tap_offsets` is
+// int32[13]: n0 n1 p0 p1 halo t0 t1 nt0 nt1 k r, then the pins of the d0
+// lo and hi faces (1 pinned, 0 live; see the header). `tap_offsets` is
 // int32[ntaps * 2] in group order, `group_sizes` int32[ngroups],
 // `group_weights` float[ngroups]. Host arrays are copied before the launch
 // returns. Returns 0, a CUDA error code (cudaGetLastError after the
@@ -206,7 +222,10 @@ int stencil_slab_sweep(const float* in, float* out, const float* source,
   const int t0 = geom[5], t1 = geom[6];
   const int nt0 = geom[7], nt1 = geom[8];
   const int k = geom[9], r = geom[10];
+  const int pin_lo = geom[11], pin_hi = geom[12];
   if (k < 1 || r < 1 || (int64_t)k * r > halo) return kErrArgument;
+  if ((pin_lo != 0 && pin_lo != 1) || (pin_hi != 0 && pin_hi != 1))
+    return kErrArgument;
   if (p0 != n0 + 2 * halo || p1 != n1 + 2 * halo) return kErrArgument;
   if (t0 < 1 || t0 > n0 || t1 < 1 || t1 > n1) return kErrArgument;
   if (nt0 != (n0 + t0 - 1) / t0 || nt1 != (n1 + t1 - 1) / t1)
@@ -221,6 +240,7 @@ int stencil_slab_sweep(const float* in, float* out, const float* source,
   g.nt1 = nt1;
   g.k = k; g.r = r;
   g.w0 = t0 + 2 * k * r; g.w1 = t1 + 2 * k * r;
+  g.pin_lo = pin_lo; g.pin_hi = pin_hi;
   const size_t window = (size_t)g.w0 * g.w1;
   const size_t shared = (k > 1 ? 2 : 1) * window * sizeof(float);
   if (shared > kMaxSharedBytes) return kErrShared;

@@ -2,8 +2,10 @@
 // fp32 grid, in one launch. Hand-written for Hopper (sm_90a).
 //
 // Replaces stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep (the Pallas
-// TPU kernel, pallas_call at :1821) in six of its modes, with every
-// Dirichlet face pinned (pins all ones):
+// TPU kernel, pallas_call at :1821) in six of its modes, with its `pins`
+// (one per face of d0 and d1, :1270-1305) in the homogeneous, source,
+// two-level and coefficient modes; the Chebyshev modes keep every face
+// pinned:
 //   - homogeneous: k sweeps of a StencilSpec;
 //   - source (has_source): the affine sweep u' = S(u) + src behind Poisson
 //     relaxation and the multigrid weighted-Jacobi smoother;
@@ -69,6 +71,22 @@
 // where the TPU kernel stores them in five weight windows once per tile;
 // both modes thus keep the shared memory of a source launch.
 //
+// Pins: the geometry carries one flag per face of d0 and d1 (lo, hi). A
+// pinned face (1) is a Dirichlet wall, as above. A live face (0) is a
+// periodic or Neumann wall whose k*r ghost layers the caller filled with
+// the wrapped or mirrored interior before the launch: a window point
+// beyond it gets the mode's full update (taps, + src, - L_{t-2}, the
+// weights of the refreshed a(x)) exactly as an interior point does, so
+// the shrinking windows carry the wrap or mirror through the k sweeps as
+// the TPU kernel does for a face whose ghosts hold live data. In the
+// update test a live face moves the interior's bound to the window's
+// edge; with every face pinned the bounds, and so the results, are those
+// of a launch without pins. A live point at sweep t lies at padded index
+// >= H - k*r + t*r >= t*r and reads at most r (taps) or 1 (a(x)) beyond,
+// so every read stays inside the padded array. The d2 faces are always
+// pinned: a periodic or Neumann d2 runs at k = 1, where sweep 1's region
+// is the tile itself and the caller's refresh is the whole mechanism.
+//
 // Ragged grids: the last tile of a dim whose extent is not a multiple of
 // the tile starts early, at n - t (clamped, as build_tiled_sweep does at
 // :732-745). It overlaps its neighbour; both compute the overlap from the
@@ -117,7 +135,7 @@ using stencil::Taps;
 constexpr int kBlockX = 32;   // threads along d2 (contiguous)
 constexpr int kBlockY = 16;   // threads along the flattened (d0, d1) rows
 constexpr int kThreads = kBlockX * kBlockY;
-constexpr int kGeomLen = 15;
+constexpr int kGeomLen = 19;
 constexpr int kMaxSweeps = 16;  // Chebyshev coefficient tuples per launch
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
 constexpr int kErrArgument = -1;
@@ -136,6 +154,7 @@ struct Geometry {
   int nt1, nt2;     // tiles along d1 and d2
   int k, r;         // sweeps per launch, stencil radius
   int w0, w1, w2;   // window extents, t + 2*k*r
+  int pins[4];      // d0 lo, d0 hi, d1 lo, d1 hi: 1 pinned, 0 live
 };
 
 // Per-sweep (c, n, pv, s) of the Chebyshev modes, fp32 as the host rounded
@@ -234,9 +253,12 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
   __syncthreads();
 
-  // the grid's interior in window coordinates, [lo, hi) per dim
-  const int lo0 = g.halo - o0, hi0 = lo0 + g.n0;
-  const int lo1 = g.halo - o1, hi1 = lo1 + g.n1;
+  // the points a sweep updates, in window coordinates, [lo, hi) per dim:
+  // the grid's interior, widened to the window's edge at a live face
+  const int lo0 = g.pins[0] ? g.halo - o0 : 0;
+  const int hi0 = g.pins[1] ? g.halo - o0 + g.n0 : g.w0;
+  const int lo1 = g.pins[2] ? g.halo - o1 : 0;
+  const int hi1 = g.pins[3] ? g.halo - o1 + g.n1 : g.w1;
   const int lo2 = g.halo - o2, hi2 = lo2 + g.n2;
 
   for (int t = 1; t <= g.k; ++t) {
@@ -378,6 +400,10 @@ int prepare(const int32_t* geom, int ngeom, const int32_t* tap_offsets,
   const int nt0 = geom[10], nt1 = geom[11], nt2 = geom[12];
   const int k = geom[13], r = geom[14];
   if (k < 1 || r < 1 || (int64_t)k * r > halo) return kErrArgument;
+  for (int i = 0; i < 4; ++i) {
+    if (geom[15 + i] != 0 && geom[15 + i] != 1) return kErrArgument;
+    l.g.pins[i] = geom[15 + i];
+  }
   if (p0 != n0 + 2 * halo || p1 != n1 + 2 * halo || p2 != n2 + 2 * halo)
     return kErrArgument;
   if (t0 < 1 || t0 > n0 || t1 < 1 || t1 > n1 || t2 < 1 || t2 > n2)
@@ -420,10 +446,12 @@ extern "C" {
 // Launch k sweeps on `stream` (a cudaStream_t, 0 = the legacy default
 // stream) of device `device`. `source` is null, or a padded fp32 array of
 // the layout of `in` whose interior holds the pre-scaled source: each
-// interior update is then S(u) + source (the affine sweep u' = S(u) + c*f;
-// ghosts get no source). `geom` is int32[15]: n0 n1 n2 p0 p1 p2 halo t0
-// t1 t2 nt0 nt1 nt2 k r. `tap_offsets` is int32[ntaps * 3] in group
-// order, `group_sizes` int32[ngroups], `group_weights` float[ngroups].
+// update is then S(u) + source (the affine sweep u' = S(u) + c*f; pinned
+// ghosts get no source, live ones the source's image there). `geom` is
+// int32[19]: n0 n1 n2 p0 p1 p2 halo t0 t1 t2 nt0 nt1 nt2 k r, then the
+// pins of the d0 lo, d0 hi, d1 lo and d1 hi faces (1 pinned, 0 live; see
+// the header). `tap_offsets` is int32[ntaps * 3] in group order,
+// `group_sizes` int32[ngroups], `group_weights` float[ngroups].
 // Host arrays are copied before the launch returns. Returns 0, a CUDA
 // error code (cudaGetLastError after the launch), or a negative code for
 // a rejected argument (see stencil_tiled_sweep_error).
@@ -453,8 +481,9 @@ int stencil_tiled_sweep(const float* in, float* out, const float* source,
 // pv_t*u_{t-2} + s_t*f, S the spec (radius 1), `source` the padded raw f
 // (required), `coeffs` float[4*k] as (c, n, pv, s) per sweep, k <= 16.
 // With `out2` (dual mode, k >= 2) sweep k-1 is written to `out2` as well,
-// and sweep k to `out`. The other arguments and the return value are those
-// of stencil_tiled_sweep.
+// and sweep k to `out`. Every face must be pinned (the multigrid levels
+// have Dirichlet walls). The other arguments and the return value are
+// those of stencil_tiled_sweep.
 int stencil_tiled_sweep_cheby(const float* in, float* out, float* out2,
                               const float* source, const int32_t* geom,
                               int ngeom, const float* coeffs, int ncoeffs,
@@ -473,6 +502,8 @@ int stencil_tiled_sweep_cheby(const float* in, float* out, float* out2,
   if (source == nullptr || coeffs == nullptr || l.g.r != 1 ||
       k > kMaxSweeps || ncoeffs != 4 * k || (out2 != nullptr && k < 2))
     return kErrArgument;
+  for (int i = 0; i < 4; ++i)
+    if (!l.g.pins[i]) return kErrArgument;
   Coeffs co{};
   for (int t = 0; t < k; ++t) {
     co.c[t] = coeffs[4 * t];

@@ -12,10 +12,10 @@ with the face diffusivity ``a_face`` the harmonic mean of the two cell
 values (flux continuity across material interfaces): ``2*ndim + 1`` taps
 whose weights are fields. Two engines evaluate it. The eager one
 (``ops/eager.py:apply_fields``) reads the stacked float64-built weight
-fields, any rank and walls. The tiled kernel's coefficient mode (3D fp32,
-Dirichlet walls) reads the padded a(x) and forms the face means itself,
-k sweeps per launch (``ops/tiled.py:coeff_iterate``; at k=1 the Krylov
-matvec ``coeff_apply``).
+fields, any rank and walls. The tiled kernel's coefficient mode (3D fp32;
+Dirichlet, periodic or Neumann d0 and d1) reads the padded a(x) and forms
+the face means itself, k sweeps per launch (``ops/tiled.py:coeff_iterate``;
+at k=1, on Dirichlet walls, the Krylov matvec ``coeff_apply``).
 """
 
 from __future__ import annotations
@@ -139,11 +139,13 @@ class HeterogeneousDiffusion:
         return _axial_offsets(self.ndim), np.stack(fields)
 
     def uses_kernel(self) -> bool:
-        """The ``auto`` rule: the tiled kernel where the JAX package picks
-        its Pallas kernel (3D, a 4-byte dtype, every dim >= 8, no dynamic
-        lane dim) and the walls are Dirichlet (its pins are not ported)."""
+        """The ``auto`` rule, JAX's (``stencil_tpu/models/diffusion.py:
+        153-158``): the tiled kernel for a 3D fp32 problem (JAX: any
+        4-byte dtype), every dim >= 8, without a dynamic lane dim
+        (periodic or Neumann leading dims run on it); else the eager field
+        sweep."""
         return (self.ndim == 3 and self.dtype == "float32"
-                and min(self.shape) >= 8 and not self.bc.any_dynamic)
+                and min(self.shape) >= 8 and not self.bc.dynamic_mask(3)[2])
 
     def runner(self, method: str = "auto", sweeps_per_call: int = 8,
                tiles=None, t0_fixed: Optional[int] = None,
@@ -151,11 +153,11 @@ class HeterogeneousDiffusion:
         """Registry-compatible Runner; plugs into ``solver.solve`` for
         steady states.
 
-        ``method``: ``pallas_tiled``/``tiled`` (3D fp32) runs the tiled
-        kernel's coefficient mode, a(x) read per update and the harmonic
-        face weights formed in the kernel, ``sweeps_per_call`` sweeps per
-        launch; ``xla``/``eager`` the rank-general eager field sweep;
-        ``auto`` the kernel where :meth:`uses_kernel`, else eager.
+        ``method``: ``pallas_tiled``/``tiled`` (3D fp32, a Dirichlet d2)
+        runs the tiled kernel's coefficient mode, a(x) read per update and
+        the harmonic face weights formed in the kernel, ``sweeps_per_call``
+        sweeps per launch; ``xla``/``eager`` the rank-general eager field
+        sweep; ``auto`` the kernel where :meth:`uses_kernel`, else eager.
         ``plan_info["kernel"]`` says which ran. ``tiles``/``t0_fixed`` pin
         the kernel's tile; the JAX package's ``interpret`` is accepted and
         ignored."""

@@ -36,7 +36,7 @@ from stencil_tpu_torch.registry import Runner
 @dataclasses.dataclass(frozen=True)
 class PoissonProblem:
     """``laplacian(u) = f`` on a unit-spacing-``h`` grid with Dirichlet
-    (default 0) walls, on ``device``.
+    (default 0), periodic or Neumann walls (``bc``), on ``device``.
 
     ``shape`` is the interior point count per dim; with the default
     ``h = 1 / (shape[0] + 1)`` the interior samples the open unit cube at

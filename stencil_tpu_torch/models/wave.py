@@ -12,9 +12,9 @@ where ``S`` is a radius-1 star with center: center weight
 
 ``simulate`` runs it through one of two paths: ``eager``/``xla``, the
 eager torch leapfrog (any rank, any walls), and ``tiled``/``pallas_tiled``
-(3D, Dirichlet walls), the tiled kernel's two-level mode, k steps per
-launch with both levels in the kernel's padded layout
-(``ops/tiled.py:wave_iterate``).
+(3D; Dirichlet, periodic or Neumann d0 and d1), the tiled kernel's
+two-level mode, k steps per launch with both levels in the kernel's padded
+layout (``ops/tiled.py:wave_iterate``).
 """
 
 from __future__ import annotations
@@ -118,7 +118,8 @@ class WaveEquation:
         ``(prev, cur)`` pair (``cur`` is ``u_{n+steps}``).
 
         ``method``: ``xla``/``eager``, the eager torch leapfrog (any rank
-        and walls); ``pallas_tiled``/``tiled`` (3D), the tiled kernel's
+        and walls); ``pallas_tiled``/``tiled`` (3D, a Dirichlet, periodic
+        or Neumann d0 and d1, a Dirichlet d2), the tiled kernel's
         two-level mode, ``sweeps_per_call`` steps per launch (``kw``:
         ``sweeps_per_call``, ``tiles``, ``t0_fixed``; the JAX package's
         ``interpret`` is accepted and ignored)."""
@@ -142,11 +143,6 @@ class WaveEquation:
             raise ValueError(
                 "a periodic/Neumann lane (last) dim is unsupported on "
                 "the two-level tiled kernel (use method='xla')")
-        if bc.any_dynamic:
-            raise NotImplementedError(
-                "periodic/Neumann walls on the two-level tiled kernel are "
-                "not ported yet (needs the kernel's pins; stencil_tpu/ops/"
-                "pallas_tiled.py:_dynamic_pins); use method='eager'")
         k = int(sweeps_per_call)
         n_outer, rem = divmod(int(steps), k)
         plan = make_tiled_plan(self.spec, self.shape, self.dtype, k,

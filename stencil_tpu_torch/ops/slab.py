@@ -2,8 +2,10 @@
 
 Counterpart of ``stencil_tpu/ops/pallas.py`` (``SlabPlan``, ``make_plan``,
 ``choose_slab``, ``_cached_iterate``, ``_cached_source_iterate``,
-``PallasStencil``) on 2D grids, homogeneous or with a source. Each launch
-of the CUDA kernel (``ops/slab_kernel.py``) runs k sweeps per round trip to
+``PallasStencil``) on 2D grids, homogeneous or with a source, with
+Dirichlet, periodic or Neumann walls (JAX's gates: a dynamic d1 at k=1, a
+Neumann d0 at k>1 with a spec mirror-symmetric in d0). Each launch of the
+CUDA kernel (``ops/slab_kernel.py``) runs k sweeps per round trip to
 device memory.
 
 The TPU kernel streams slabs of full minor width; a CUDA block has 227 KB
@@ -163,13 +165,12 @@ def make_slab_plan(spec: StencilSpec, interior_shape, dtype="float32",
 
 class SlabStencil(KernelStencil):
     """User-facing handle mirroring ``PallasStencil`` on 2D grids: k
-    sweeps per kernel launch over a Dirichlet ``HaloGrid`` on ``device``,
+    sweeps per kernel launch over a ``HaloGrid`` on ``device``,
     with an optional static ``source`` (``u' = S(u) + source_scale *
     source``). Iterations that are not a multiple of k end in one launch
     of the remainder, on the same padded tensors."""
 
     kernel = slab_sweep
-    pins_of = "stencil_tpu/ops/pallas.py:_cached_iterate pins"
 
     def __init__(self, spec: StencilSpec, interior_shape, dtype="float32",
                  sweeps_per_call: int = 1, tiles=None,

@@ -10,6 +10,15 @@ table in ``weight_groups`` order, the device and the stream. Each launch
 runs ``plan.sweeps_per_call`` sweeps with the Dirichlet ghosts held
 constant, and agrees bitwise with :func:`sweep_reference`.
 
+The geometry ends in the launch's ``pins``, one flag per face of every dim
+but the last (the TPU kernels' own, ``pallas_tiled.py:_dynamic_pins`` and
+``pallas.py:_cached_iterate``): 1 for a pinned (Dirichlet) face, 0 for a
+live one, a periodic or Neumann wall whose ghosts the caller refreshed to
+the launch's full depth k*r (:func:`~stencil_tpu_torch.ops.layout.
+refresh_dynamic_layout`). At sweep t a point beyond a live face is updated
+like an interior one while its padded index lies in [t*r, P - t*r); every
+other ghost is held. The Chebyshev modes take every face pinned.
+
 The 3D kernel has four more modes, each with its own C entry. For a plan
 with ``cheby_coeffs`` (the multigrid smoothers), ``stencil_<name>_cheby``:
 the Chebyshev recurrence ``u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} +
@@ -43,7 +52,7 @@ import torch
 from stencil_tpu_torch import _build
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid, check_device
 from stencil_tpu_torch.ops import eager
-from stencil_tpu_torch.ops.layout import pad_source
+from stencil_tpu_torch.ops.layout import pad_source, refresh_dynamic_layout
 
 TAPS_HEADER = _build.PACKAGE_DIR / "csrc" / "stencil_taps.cuh"
 
@@ -77,16 +86,60 @@ def coeff_of(plan) -> Tuple[float, ...]:
                  for v in getattr(plan, "coeff_scales", ()))
 
 
+def all_pinned(ndim: int) -> Tuple[int, ...]:
+    """The pins of a launch with every face pinned (Dirichlet walls)."""
+    return (1,) * (2 * (ndim - 1))
+
+
 @functools.lru_cache(maxsize=64)
-def launch_tables(plan):
-    """The host arrays one launch of ``plan`` passes (geometry, then
-    :func:`tap_table`, then the mode's scalars as float32: the Chebyshev
-    coefficients [4k] or the coefficient mode's (nb, c0, cs), empty
-    otherwise), built once per plan rather than per launch."""
-    return (np.asarray(plan.kernel_geometry(), dtype=np.int32),
+def launch_tables(plan, pins: Tuple[int, ...]):
+    """The host arrays one launch of ``plan`` with ``pins`` passes
+    (geometry and pins, then :func:`tap_table`, then the mode's scalars as
+    float32: the Chebyshev coefficients [4k] or the coefficient mode's (nb,
+    c0, cs), empty otherwise), built once per plan and pins rather than per
+    launch."""
+    return (np.asarray((*plan.kernel_geometry(), *pins), dtype=np.int32),
             *tap_table(plan.spec),
             np.asarray(cheby_of(plan) or coeff_of(plan),
                        dtype=np.float32).reshape(-1))
+
+
+def update_boxes(plan, pins: Tuple[int, ...]) -> Tuple[tuple, ...]:
+    """The region each sweep of a launch updates, as one index tuple of the
+    padded tensor per sweep t = 1..k: the interior, widened on each live
+    face to padded index t*r (lo) or P - t*r (hi). A live update at sweep
+    t reads [(t-1)*r, P - (t-1)*r), inside the padded array."""
+    h, r = plan.layout.halo, plan.spec.radius
+    shape = plan.layout.padded_shape
+    boxes = []
+    for t in range(1, plan.sweeps_per_call + 1):
+        box = []
+        for d, n in enumerate(plan.interior_shape):
+            lo, hi = h, h + n
+            if d < len(pins) // 2:
+                lo = h if pins[2 * d] else t * r
+                hi = h + n if pins[2 * d + 1] else shape[d] - t * r
+            box.append(slice(lo, hi))
+        boxes.append(tuple(box))
+    return tuple(boxes)
+
+
+def _grown(box, r: int):
+    """``box`` grown by ``r`` on every side: the points its update reads."""
+    return tuple(slice(b.start - r, b.stop + r) for b in box)
+
+
+def _with_ghosts_of(cur: torch.Tensor, plan, result: torch.Tensor,
+                    pins: Tuple[int, ...]):
+    """``result``'s interior with ``cur``'s ghosts, as a launch leaves its
+    output (live ghost updates are scratch; only the tile is written).
+    With every face pinned ``result``'s ghosts are ``cur``'s already."""
+    if all(pins) or result is cur:
+        return result
+    out = cur.clone()
+    idx = plan.layout.interior_index
+    out[idx] = result[idx]
+    return out
 
 
 def _cheby_reference(cur: torch.Tensor, plan, src: torch.Tensor):
@@ -112,21 +165,24 @@ def _cheby_reference(cur: torch.Tensor, plan, src: torch.Tensor):
     return (outs[-1], outs[-2]) if plan.cheby_dual else outs[-1]
 
 
-def _two_level_reference(cur: torch.Tensor, prev: torch.Tensor, plan):
-    """Plain version of the two-level mode: k whole-array leapfrog steps
-    ``L_t = S(L_{t-1}) - L_{t-2}`` (the taps as ``eager.apply_spec`` sums
-    them, then one subtraction), ghosts held constant. Returns
-    ``(L_{n+k}, L_{n+k-1})``."""
-    h = plan.layout.halo
-    idx = plan.layout.interior_index
+def _two_level_reference(cur: torch.Tensor, prev: torch.Tensor, plan,
+                         pins: Tuple[int, ...]):
+    """Plain version of the two-level mode: k leapfrog steps ``L_t =
+    S(L_{t-1}) - L_{t-2}`` over each sweep's region (the taps as
+    ``eager.apply_spec`` sums them, then one subtraction), other ghosts
+    held. Returns ``(L_{n+k}, L_{n+k-1})`` with the ghosts of ``cur`` and
+    of ``prev``, as a launch leaves outputs that start as their clones (the
+    wave runner's rotation)."""
+    r = plan.spec.radius
     older, u = prev, cur
-    for _ in range(plan.sweeps_per_call):
-        y = eager.apply_spec(u, plan.spec, halo=h)
-        y.sub_(older[idx])
+    for box in update_boxes(plan, pins):
+        y = eager.apply_spec(u[_grown(box, r)], plan.spec, halo=r)
+        y.sub_(older[box])
         nxt = u.clone()
-        nxt[idx] = y
+        nxt[box] = y
         older, u = u, nxt
-    return u, older
+    return (_with_ghosts_of(cur, plan, u, pins),
+            _with_ghosts_of(prev, plan, older, pins))
 
 
 def _harm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -135,94 +191,103 @@ def _harm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x * 2.0).mul_(y).div_(x + y)
 
 
-def _coeff_reference(cur: torch.Tensor, plan, coeff: torch.Tensor):
+def _coeff_reference(cur: torch.Tensor, plan, coeff: torch.Tensor,
+                     pins: Tuple[int, ...]):
     """Plain version of the coefficient mode. The five weight fields and
     the center are computed once per call with whole-array ops in the
-    kernel's order: the six face means ``harm(a(p), a(p -+ e_d))``, their
-    sum lo0, hi0, lo1, hi1, lo2, hi2, ``ctr = c0 + cs * sum``, ``w = nb *
-    mean``. Then k sweeps of ``((((ctr*u + w1lo*u(-e1)) + w1hi*u(+e1)) +
-    w2lo*u(-e2)) + w2hi*u(+e2)) + w0lo*u(-e0)) + w0hi*u(+e0)``, ghosts held
-    constant."""
-    h = plan.layout.halo
-    idx = plan.layout.interior_index
+    kernel's order, over sweep 1's region (which holds every later one):
+    the six face means ``harm(a(p), a(p -+ e_d))``, their sum lo0, hi0,
+    lo1, hi1, lo2, hi2, ``ctr = c0 + cs * sum``, ``w = nb * mean``. Then k
+    sweeps of ``((((ctr*u + w1lo*u(-e1)) + w1hi*u(+e1)) + w2lo*u(-e2)) +
+    w2hi*u(+e2)) + w0lo*u(-e0)) + w0hi*u(+e0)`` over each sweep's region,
+    other ghosts held."""
     nb, c0, cs = coeff_of(plan)
+    boxes = update_boxes(plan, pins)
+    outer = boxes[0]
 
-    def shifted(t, d, s):
-        return t[tuple(slice(h + (s if e == d else 0),
-                             t.shape[e] - h + (s if e == d else 0))
-                       for e in range(3))]
+    def shifted(t, box, d, s):
+        return t[tuple(slice(b.start + (s if e == d else 0),
+                             b.stop + (s if e == d else 0))
+                       for e, b in enumerate(box))]
 
-    a = coeff[idx]
-    means = [(_harm(a, shifted(coeff, d, -1)), _harm(a, shifted(coeff, d, 1)))
-             for d in range(3)]
+    a = coeff[outer]
+    means = [(_harm(a, shifted(coeff, outer, d, -1)),
+              _harm(a, shifted(coeff, outer, d, 1))) for d in range(3)]
     total = means[0][0] + means[0][1]
     for m in (means[1][0], means[1][1], means[2][0], means[2][1]):
         total.add_(m)
     ctr = total.mul_(cs).add_(c0)
     w = [(lo * nb, hi * nb) for lo, hi in means]
     u = cur
-    for _ in range(plan.sweeps_per_call):
-        acc = ctr * u[idx]
+    for box in boxes:
+        rel = tuple(slice(b.start - o.start, b.stop - o.start)
+                    for b, o in zip(box, outer))
+        acc = ctr[rel] * u[box]
         for d in (1, 2, 0):
-            acc.add_(w[d][0] * shifted(u, d, -1))
-            acc.add_(w[d][1] * shifted(u, d, 1))
+            acc.add_(w[d][0][rel] * shifted(u, box, d, -1))
+            acc.add_(w[d][1][rel] * shifted(u, box, d, 1))
         nxt = u.clone()
-        nxt[idx] = acc
+        nxt[box] = acc
         u = nxt
-    return u
+    return _with_ghosts_of(cur, plan, u, pins)
 
 
 def sweep_reference(cur: torch.Tensor, plan,
                     src: Optional[torch.Tensor] = None,
                     prev: Optional[torch.Tensor] = None,
-                    coeff: Optional[torch.Tensor] = None):
-    """Plain version of a sweep kernel: ``plan.sweeps_per_call``
-    whole-array eager sweeps of the padded tensor ``cur``, ghosts held
-    constant. With ``src`` (padded like ``cur``), each sweep adds its
-    interior after the taps. Returns a new padded tensor; ``cur`` is
-    unchanged.
+                    coeff: Optional[torch.Tensor] = None, pins=None):
+    """Plain version of a sweep kernel: ``plan.sweeps_per_call`` eager
+    sweeps of the padded tensor ``cur`` with ``pins`` (default every face
+    pinned): each sweep updates its region (:func:`update_boxes`), the
+    interior and the live ghosts, and holds every other ghost. With ``src``
+    (padded like ``cur``), each update adds it after the taps. Returns a
+    new padded tensor with ``cur``'s ghosts and the result's interior, as a
+    launch leaves its output; ``cur`` is unchanged.
 
     A plan with ``cheby_coeffs`` runs the Chebyshev recurrence over the raw
-    ``src`` instead; in its dual mode the result is the pair ``(sweep k,
-    sweep k-1)``, the residual and the smoothed iterate. A ``two_level``
-    plan runs the leapfrog from ``(cur, prev)`` and returns the pair
-    ``(sweep k, sweep k-1)``; a plan with ``coeff_scales`` runs the
-    coefficient operator of the padded ``coeff``."""
+    ``src`` instead (every face pinned); in its dual mode the result is the
+    pair ``(sweep k, sweep k-1)``, the residual and the smoothed iterate. A
+    ``two_level`` plan runs the leapfrog from ``(cur, prev)`` and returns
+    the pair ``(sweep k, sweep k-1)``; a plan with ``coeff_scales`` runs
+    the coefficient operator of the padded ``coeff``."""
+    pins = all_pinned(len(plan.interior_shape)) if pins is None \
+        else tuple(int(p) for p in pins)
     if getattr(plan, "two_level", False):
-        return _two_level_reference(cur, prev, plan)
+        return _two_level_reference(cur, prev, plan, pins)
     if getattr(plan, "has_coeff", False):
-        return _coeff_reference(cur, plan, coeff)
+        return _coeff_reference(cur, plan, coeff, pins)
     if getattr(plan, "cheby_coeffs", ()):
         return _cheby_reference(cur, plan, src)
-    h = plan.layout.halo
+    r = plan.spec.radius
     a = cur.clone()
     b = cur.clone()
-    idx = plan.layout.interior_index
-    source = src[idx] if src is not None else None
-    scratch = torch.empty_like(a[idx]) \
-        if len(plan.spec.weight_groups()) > 1 else None
-    for _ in range(plan.sweeps_per_call):
-        eager.apply_spec(a, plan.spec, halo=h, out=b[idx], scratch=scratch)
-        if source is not None:
-            b[idx].add_(source)
+    for box in update_boxes(plan, pins):
+        eager.apply_spec(a[_grown(box, r)], plan.spec, halo=r, out=b[box])
+        if src is not None:
+            b[box].add_(src[box])
         a, b = b, a
-    return a
+    return _with_ghosts_of(cur, plan, a, pins)
 
 
 class SweepKernel:
     """One hand-written sweep kernel: its build, its wrapper (call it as
-    ``kernel(cur, nxt, plan, src=None, out2=None, prev=None, coeff=None)``)
-    and its counts of launches: ``launches`` in all, of them
+    ``kernel(cur, nxt, plan, src=None, pins=None, out2=None, prev=None,
+    coeff=None)``) and its counts of launches: ``launches`` in all, of them
     ``source_launches`` in source mode, ``cheby_launches`` in Chebyshev
     mode, ``dual_launches`` in its dual mode, ``two_level_launches`` in
-    two-level mode and ``coeff_launches`` in coefficient mode.
+    two-level mode and ``coeff_launches`` in coefficient mode. Launches
+    with a live face are counted again by mode: ``pins_launches`` in the
+    homogeneous mode, ``source_pins_launches``, ``two_level_pins_launches``
+    and ``coeff_pins_launches``.
 
     ``name`` names the library and its C entry ``stencil_<name>``;
     ``source`` is the ``.cu`` file; ``replaces`` is where the TPU kernel
     it replaces is defined."""
 
     MODE_COUNTS = ("source_launches", "cheby_launches", "dual_launches",
-                   "two_level_launches", "coeff_launches")
+                   "two_level_launches", "coeff_launches", "pins_launches",
+                   "source_pins_launches", "two_level_pins_launches",
+                   "coeff_pins_launches")
 
     def __init__(self, name: str, source: Path, replaces: str, ndim: int):
         self.name = name
@@ -295,21 +360,25 @@ class SweepKernel:
         return self._entry["plain"]
 
     def check(self, cur: torch.Tensor, nxt: torch.Tensor, plan,
-              src: Optional[torch.Tensor] = None, pins=None,
+              src: Optional[torch.Tensor], pins: Tuple[int, ...],
               out2: Optional[torch.Tensor] = None,
               prev: Optional[torch.Tensor] = None,
               coeff: Optional[torch.Tensor] = None) -> None:
         """Raise ``ValueError`` on what the kernel does not take."""
+        cheby = bool(getattr(plan, "cheby_coeffs", ()))
         # one pin per face of every dim but the last (the TPU kernels' own)
-        all_pinned = (1,) * (2 * (self.ndim - 1))
-        if pins is not None and tuple(int(p) for p in pins) != all_pinned:
+        if len(pins) != 2 * (self.ndim - 1) or \
+                any(p not in (0, 1) for p in pins):
             raise ValueError(
-                f"pins {tuple(pins)}: only all-ones (every Dirichlet face "
-                "pinned) is ported; dynamic and mesh-internal faces are not")
+                f"pins {pins}: {self.name} takes one 0 (live) or 1 "
+                f"(pinned) per face of its first {self.ndim - 1} dims")
+        if cheby and not all(pins):
+            raise ValueError(
+                f"pins {pins}: the Chebyshev modes run on static "
+                "Dirichlet walls (multigrid refuses dynamic BCs upstream)")
         if plan.dtype != "float32":
             raise ValueError(f"{self.name} dtype {plan.dtype!r}: only "
                              "float32 is ported")
-        cheby = bool(getattr(plan, "cheby_coeffs", ()))
         dual = cheby and plan.cheby_dual
         two_level = getattr(plan, "two_level", False)
         has_coeff = getattr(plan, "has_coeff", False)
@@ -354,7 +423,10 @@ class SweepKernel:
         """``plan.sweeps_per_call`` sweeps of ``cur`` into the interior of
         ``nxt`` (both padded per ``plan.layout``; ``nxt``'s ghosts must
         already hold the BC), adding the padded source ``src`` after the
-        taps of every interior update when given. Returns ``nxt``.
+        taps of every update when given. Returns ``nxt``. ``pins`` (one
+        per face of every dim but the last; default all 1) marks the live
+        faces, whose ghosts ``cur`` (and ``prev``, ``src``, ``coeff``) must
+        hold refreshed to depth ``plan.halo``.
 
         A plan with ``cheby_coeffs`` runs the Chebyshev recurrence with the
         plan's coefficients over the padded raw ``src`` (required); a
@@ -366,11 +438,12 @@ class SweepKernel:
 
         A CUDA tensor launches the kernel on the current stream (no
         synchronisation) and raises ``RuntimeError`` if the launch fails;
-        a CPU tensor runs :func:`sweep_reference`. ``pins`` other than all
-        ones is refused."""
+        a CPU tensor runs :func:`sweep_reference`."""
+        pins = all_pinned(self.ndim) if pins is None \
+            else tuple(int(p) for p in pins)
         self.check(cur, nxt, plan, src, pins, out2, prev, coeff)
         if cur.device.type == "cpu":
-            want = sweep_reference(cur, plan, src, prev, coeff)
+            want = sweep_reference(cur, plan, src, prev, coeff, pins)
             if out2 is None:
                 nxt.copy_(want)
                 return nxt
@@ -382,7 +455,7 @@ class SweepKernel:
                              f"plain version), not {cur.device}")
         entries = self._entry
         geom, offsets, sizes, weights, uniform, uw, scalars = \
-            launch_tables(plan)
+            launch_tables(plan, pins)
         device = cur.device.index if cur.device.index is not None \
             else torch.cuda.current_device()
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -416,22 +489,86 @@ class SweepKernel:
             raise RuntimeError(f"{self.name} launch failed ({rc}): "
                                f"{entries['error'](rc).decode()}")
         self.launches += 1
+        live = not all(pins)
         if mode == "two_level":
             self.two_level_launches += 1
+            self.two_level_pins_launches += live
         elif mode == "coeff":
             self.coeff_launches += 1
+            self.coeff_pins_launches += live
         elif out2 is not None:
             self.dual_launches += 1
         elif mode == "cheby":
             self.cheby_launches += 1
+        elif src is not None:
+            self.source_launches += 1
+            self.source_pins_launches += live
         else:
-            self.source_launches += src is not None
+            self.pins_launches += live
         return nxt if out2 is None else (nxt, out2)
 
 
+def dynamic_pins(bc: DirichletBC, ndim: int = 3) -> Tuple[int, ...]:
+    """The kernels' ``pins`` for ``bc``: one flag per face of every dim but
+    the last (d0 lo, d0 hi, then d1's in 3D), 0 on a periodic or Neumann
+    face, 1 on a Dirichlet one. The deep refresh before each launch seeds
+    k*r wrapped or mirrored ghost layers there, and the kernel treats the
+    face like a mesh-internal one (no re-pinning).
+
+    Counterpart of ``pallas_tiled._dynamic_pins`` (always 4 entries there;
+    the 2D slab kernel's pins are its first two, ``pallas.py:767``)."""
+    dyn = bc.dynamic_mask(ndim)
+    return tuple(0 if dyn[d] else 1 for d in range(ndim - 1) for _ in (0, 1))
+
+
+def check_dynamic_walls(plan, bc: DirichletBC) -> Tuple[int, ...]:
+    """Raise ``ValueError`` where ``plan`` (3D tiled or 2D slab) cannot run
+    ``bc``'s periodic and Neumann walls, with JAX's messages
+    (``TiledPallasStencil.iterate``, ``pallas_tiled.py:2358-2398``, and
+    ``PallasStencil.iterate``, ``pallas.py:909-955``): a dynamic lane
+    (last) dim needs k=1, a Neumann leading dim at k>1 a spec
+    mirror-symmetric in it. The Chebyshev modes refuse dynamic walls
+    (``_cached_cheby_dual_fn``'s message). Returns the launches' pins.
+    JAX's tap-mode gate has no counterpart: the port's one tap evaluator
+    reads the ghosts."""
+    ndim = len(plan.interior_shape)
+    if not bc.any_dynamic:
+        return dynamic_pins(bc, ndim)
+    if plan.cheby_coeffs:
+        raise ValueError(
+            "the fused smooth+residual path runs on static Dirichlet "
+            "walls (multigrid refuses dynamic BCs upstream)")
+    neu = bc.neumann_mask(ndim)
+    k = plan.sweeps_per_call
+    problems = []
+    if bc.dynamic_mask(ndim)[-1] and k != 1:
+        problems.append(
+            "a periodic/Neumann lane (last) dim needs "
+            "sweeps_per_call=1 (use -k 1)")
+    if k > 1:
+        for d in range(ndim - 1):
+            if neu[d] and not plan.spec.symmetric_in(d):
+                problems.append(
+                    f"a Neumann dim {d} at sweeps_per_call>1 "
+                    f"needs the stencil mirror-symmetric in dim "
+                    f"{d} (use -k 1 for asymmetric taps)")
+    if problems:
+        kernel = "tiled" if ndim == 3 else "2D slab"
+        raise ValueError(
+            f"periodic/Neumann BCs on the {kernel} Pallas kernel: "
+            + "; ".join(problems))
+    return dynamic_pins(bc, ndim)
+
+
+def launch_plans(plan, n_outer: int, rem: int = 0) -> list:
+    """The plans of ``n_outer`` launches of ``plan`` and one of its first
+    ``rem`` sweeps (none when ``rem`` is 0), on the same padded layout."""
+    return [plan] * n_outer + ([plan.with_sweeps(rem)] if rem else [])
+
+
 class KernelStencil:
-    """k sweeps per launch of ``kernel`` over a Dirichlet ``HaloGrid`` on
-    ``device``: the iterate of ``TiledStencil`` and ``SlabStencil``.
+    """k sweeps per launch of ``kernel`` over a ``HaloGrid`` on ``device``:
+    the iterate of ``TiledStencil`` and ``SlabStencil``.
 
     ``source`` (interior-shaped, static; numpy or torch) makes every sweep
     the affine update ``u' = S(u) + source_scale * source``; it is padded
@@ -440,11 +577,14 @@ class KernelStencil:
 
     ``iterate`` pads the grid once into two deep-halo tensors, runs
     ``iterations // k`` launches and one launch of ``iterations % k``
-    sweeps, swapping the two tensors after each, and unpads once."""
+    sweeps, swapping the two tensors after each, and unpads once. Periodic
+    and Neumann walls pass JAX's gates (:func:`check_dynamic_walls`);
+    before every launch the dynamic ghosts of its input are
+    refreshed to the launch's depth k*r, and the launch runs with those
+    faces live (counterpart of ``pallas_tiled.py:_cached_tiled_iterate``
+    and ``pallas.py:_cached_iterate``)."""
 
     kernel: SweepKernel
-    # the JAX code whose pins a later port needs for dynamic walls
-    pins_of: str
 
     def __init__(self, plan, device, source=None, source_scale=1.0):
         self.device = check_device(device)
@@ -479,22 +619,16 @@ class KernelStencil:
         if grid.interior_shape != plan.interior_shape:
             raise ValueError(f"grid interior {grid.interior_shape} != plan "
                              f"{plan.interior_shape}")
-        if grid.bc.any_dynamic:
-            raise NotImplementedError(
-                f"periodic/Neumann walls on the {self.kernel.name} kernel "
-                f"are not ported yet (needs the kernel's pins; "
-                f"{self.pins_of}); use the eager method")
-        src = None if self.source is None else self.padded_source(grid.bc)
-        k = plan.sweeps_per_call
-        n_outer, rem = divmod(iterations, k)
+        bc = grid.bc
+        pins = check_dynamic_walls(plan, bc) if bc.any_dynamic else None
+        src = None if self.source is None else self.padded_source(bc)
         cur = plan.layout.pad_grid(grid)
         nxt = cur.clone()
-        for _ in range(n_outer):
-            self.kernel(cur, nxt, plan, src)
-            cur, nxt = nxt, cur
-        if rem:
-            self.kernel(cur, nxt, plan.with_sweeps(rem), src)
+        for launch_plan in launch_plans(plan, *divmod(iterations,
+                                                      plan.sweeps_per_call)):
+            refresh_dynamic_layout(cur, plan.layout, bc, launch_plan.halo)
+            self.kernel(cur, nxt, launch_plan, src, pins)
             cur, nxt = nxt, cur
         return HaloGrid.from_interior(plan.layout.unpad(cur),
-                                      halo=grid.halo, bc=grid.bc,
+                                      halo=grid.halo, bc=bc,
                                       device=grid.device)

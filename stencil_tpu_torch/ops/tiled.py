@@ -1,9 +1,17 @@
 """3D temporally blocked tiled iterate: plan, and the user-facing handle.
 
 Counterpart of ``stencil_tpu/ops/pallas_tiled.py`` (``TiledPlan``,
-``make_tiled_plan``, ``_cached_tiled_iterate``, ``TiledPallasStencil``) for
-the Dirichlet paths. Each launch of the CUDA kernel
+``make_tiled_plan``, ``_dynamic_pins``, ``_cached_tiled_iterate``,
+``TiledPallasStencil``). Each launch of the CUDA kernel
 (``ops/tiled_kernel.py``) runs k sweeps per round trip to device memory.
+
+Periodic and Neumann walls (on any dim at k=1, on d0 and d1 at any k) take
+JAX's gates (``ops/sweep_kernel.py:check_dynamic_walls``). Every runner
+then pads once,
+refreshes the dynamic ghosts of its inputs to the launch's depth k*r before
+every launch (``ops/layout.py:refresh_dynamic_layout``), and launches with
+those faces live (:func:`dynamic_pins`); the padded source and coefficient
+carry the wrapped or mirrored images once, to full depth.
 
 A plan may carry ``cheby_coeffs`` (the kernel's Chebyshev mode) and
 ``cheby_dual`` (its fused smooth+residual), ``two_level`` (the leapfrog of
@@ -44,8 +52,10 @@ import torch.nn.functional as F
 
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
 from stencil_tpu_torch.core.spec import StencilSpec
-from stencil_tpu_torch.ops.layout import PaddedLayout
-from stencil_tpu_torch.ops.sweep_kernel import KernelStencil
+from stencil_tpu_torch.ops.layout import PaddedLayout, refresh_dynamic_layout
+from stencil_tpu_torch.ops.sweep_kernel import (  # noqa: F401 (re-export)
+    KernelStencil, check_dynamic_walls, dynamic_pins, launch_plans,
+)
 from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
@@ -316,14 +326,6 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
                      two_level=bool(two_level), coeff_scales=scales)
 
 
-def _check_static_walls(bc: DirichletBC) -> None:
-    if bc.any_dynamic:
-        raise NotImplementedError(
-            "periodic/Neumann walls on the tiled kernel are not ported yet "
-            "(needs the kernel's pins; stencil_tpu/ops/pallas_tiled.py:"
-            "_dynamic_pins)")
-
-
 def _interior(data: torch.Tensor, halo: int) -> torch.Tensor:
     return data[tuple(slice(halo, s - halo) for s in data.shape)]
 
@@ -346,14 +348,16 @@ def source_iterate(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
     a new ``grid_halo``-padded tensor with the ring set to ``bc``.
 
     Counterpart of ``pallas_tiled._cached_tiled_source_iterate(plan, bc,
-    interpret, grid_halo)(data, n_outer, src)``."""
-    _check_static_walls(bc)
+    interpret, grid_halo)(data, n_outer, src)``; with periodic/Neumann
+    walls ``src`` must carry their images (``pad_source`` with ``bc``)."""
     if plan.cheby_dual:
         raise ValueError("a cheby_dual plan runs through cheby_dual()")
+    pins = check_dynamic_walls(plan, bc)
     cur = plan.layout.pad(_interior(data, grid_halo), bc)
     nxt = cur.clone()
     for _ in range(n_outer):
-        tiled_sweep(cur, nxt, plan, src)
+        refresh_dynamic_layout(cur, plan.layout, bc, plan.halo)
+        tiled_sweep(cur, nxt, plan, src, pins)
         cur, nxt = nxt, cur
     return _repad(plan, cur, grid_halo, bc)
 
@@ -367,9 +371,9 @@ def cheby_dual(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
 
     Counterpart of ``pallas_tiled._cached_cheby_dual_fn(plan, bc,
     interpret)(data, src)``."""
-    _check_static_walls(bc)
     if not plan.cheby_dual:
         raise ValueError("cheby_dual() runs a cheby_dual plan")
+    check_dynamic_walls(plan, bc)
     cur = plan.layout.pad(_interior(data, 1), bc)
     r_pad = torch.empty_like(cur)  # only its interior is written and read
     u_pad = cur.clone()            # its ghosts must hold the walls
@@ -387,20 +391,22 @@ def wave_iterate(plan: TiledPlan, cur_data: torch.Tensor,
     ``grid_halo``-padded ``(L_{n+s}, L_{n+s-1})``, s = k*n_outer + rem,
     rings set to ``bc``. Both levels are padded once and unpadded once; the
     four padded tensors rotate, the pair just read becoming the next
-    launch's outputs.
+    launch's outputs; with periodic/Neumann walls both levels are
+    refreshed before every launch.
 
     Counterpart of ``pallas_tiled._cached_wave_iterate(plan, bc, interpret,
     grid_halo)(cur_data, prev_data, n_outer)`` (:2216-2261)."""
-    _check_static_walls(bc)
     if not plan.two_level:
         raise ValueError("wave_iterate() runs a two_level plan")
+    pins = check_dynamic_walls(plan, bc)
     h = grid_halo
     cur = plan.layout.pad(_interior(cur_data, h), bc)
     prev = plan.layout.pad(_interior(prev_data, h), bc)
     out, out2 = cur.clone(), prev.clone()  # ghosts hold the walls
-    plans = [plan] * n_outer + ([plan.with_sweeps(rem)] if rem else [])
-    for launch_plan in plans:
-        tiled_sweep(cur, out, launch_plan, prev=prev, out2=out2)
+    for launch_plan in launch_plans(plan, n_outer, rem):
+        refresh_dynamic_layout(cur, plan.layout, bc, launch_plan.halo)
+        refresh_dynamic_layout(prev, plan.layout, bc, launch_plan.halo)
+        tiled_sweep(cur, out, launch_plan, pins=pins, prev=prev, out2=out2)
         cur, prev, out, out2 = out, out2, cur, prev
     return _repad(plan, cur, h, bc), _repad(plan, prev, h, bc)
 
@@ -410,20 +416,21 @@ def pad_coeff(plan: TiledPlan, a, bc: DirichletBC) -> torch.Tensor:
     with every ghost edge-replicated (the nearest interior value) to the
     layout's full depth, so that the face mean at a wall is the wall
     cell's own coefficient (``models/diffusion.py:face_harmonic_means``)
-    and every pad cell stays positive. On the device of ``a`` when it is a
-    tensor, else on the CPU; the caller moves it.
+    and every pad cell stays positive; then the ghosts of a periodic or
+    Neumann dim hold the wrapped or mirrored a(x), to full depth, once (it
+    does not change). On the device of ``a`` when it is a tensor, else on
+    the CPU; the caller moves it.
 
-    Counterpart of ``pallas_tiled.pad_coeff`` (:2098-2121); dynamic walls
-    (wrapped or mirrored images) are not ported."""
-    _check_static_walls(bc)
+    Counterpart of ``pallas_tiled.pad_coeff`` (:2098-2121)."""
     arr = torch.as_tensor(a).to(torch.float32)
     if tuple(arr.shape) != plan.interior_shape:
         raise ValueError(
             f"coefficient shape {tuple(arr.shape)} != interior "
             f"{plan.interior_shape}")
     h = plan.layout.halo
-    return F.pad(arr[None, None], (h,) * 6, mode="replicate")[0, 0] \
+    padded = F.pad(arr[None, None], (h,) * 6, mode="replicate")[0, 0] \
         .contiguous()
+    return refresh_dynamic_layout(padded, plan.layout, bc, plan.halo)
 
 
 def coeff_iterate(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
@@ -435,15 +442,17 @@ def coeff_iterate(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
     ``grid_halo``-padded tensor with the ring set to ``bc``.
 
     Counterpart of ``pallas_tiled._cached_tiled_coeff_iterate(plan, bc,
-    interpret, grid_halo)(data, n_outer, coeff_padded)`` (:2125-2161)."""
-    _check_static_walls(bc)
+    interpret, grid_halo)(data, n_outer, coeff_padded)`` (:2125-2161);
+    with periodic/Neumann walls ``coeff_padded`` must carry their images
+    (:func:`pad_coeff` with ``bc``)."""
     if not plan.has_coeff:
         raise ValueError("coeff_iterate() runs a coeff plan")
+    pins = check_dynamic_walls(plan, bc)
     cur = plan.layout.pad(_interior(data, grid_halo), bc)
     nxt = cur.clone()
-    plans = [plan] * n_outer + ([plan.with_sweeps(rem)] if rem else [])
-    for launch_plan in plans:
-        tiled_sweep(cur, nxt, launch_plan, coeff=coeff_padded)
+    for launch_plan in launch_plans(plan, n_outer, rem):
+        refresh_dynamic_layout(cur, plan.layout, bc, launch_plan.halo)
+        tiled_sweep(cur, nxt, launch_plan, pins=pins, coeff=coeff_padded)
         cur, nxt = nxt, cur
     return _repad(plan, cur, grid_halo, bc)
 
@@ -473,14 +482,13 @@ def coeff_apply(plan: TiledPlan, padded_h1: torch.Tensor,
 
 class TiledStencil(KernelStencil):
     """User-facing handle mirroring ``TiledPallasStencil``: k sweeps per
-    kernel launch over a Dirichlet ``HaloGrid`` on ``device``, with an
+    kernel launch over a ``HaloGrid`` on ``device``, with an
     optional static ``source`` (``u' = S(u) + source_scale * source``), or
     with ``cheby_coeffs`` the Chebyshev recurrence over
     ``source_scale * source`` (each launch restarts it; the remainder launch
     runs the first coefficients)."""
 
     kernel = tiled_sweep
-    pins_of = "stencil_tpu/ops/pallas_tiled.py:_dynamic_pins"
 
     def __init__(self, spec: StencilSpec, interior_shape, dtype="float32",
                  sweeps_per_call: int = 1, tiles=None,

@@ -8,10 +8,13 @@ Dirichlet ghosts held constant, optionally adding a padded pre-scaled
 source after the taps of every interior update; the Chebyshev
 (``cheby_coeffs``) and dual (``cheby_dual``) modes of the multigrid fine
 level; the two-level mode (``two_level``) of the wave equation; and the
-coefficient mode (``coeff_scales``) of heterogeneous diffusion. See the
-source's header for its design and what bounds it.
+coefficient mode (``coeff_scales``) of heterogeneous diffusion. The
+homogeneous, source, two-level and coefficient modes also take the TPU
+kernel's ``pins``: a periodic or Neumann face of d0 or d1 is live, its
+refreshed ghosts updated like interior points. See the source's header for
+its design and what bounds it.
 
-``tiled_sweep(cur, nxt, plan, src=None, out2=None, prev=None,
+``tiled_sweep(cur, nxt, plan, src=None, pins=None, out2=None, prev=None,
 coeff=None)`` takes the plain
 version (:func:`sweep_reference`) only for tensors on the CPU (the tests);
 for CUDA tensors it launches the kernel or raises. The binding, checks and
@@ -35,6 +38,11 @@ REPLACES_MODE = {
     "tiled_sweep+dual": "stencil_tpu/ops/pallas_tiled.py:1476",
     "tiled_sweep+two_level": "stencil_tpu/ops/pallas_tiled.py:1374",
     "tiled_sweep+coeff": "stencil_tpu/ops/pallas_tiled.py:1195",
+    # the pin bands, skipped on a live face (pins_ref[i] == 0)
+    "tiled_sweep+pins": "stencil_tpu/ops/pallas_tiled.py:1270",
+    "tiled_sweep+source+pins": "stencil_tpu/ops/pallas_tiled.py:1270",
+    "tiled_sweep+two_level+pins": "stencil_tpu/ops/pallas_tiled.py:1270",
+    "tiled_sweep+coeff+pins": "stencil_tpu/ops/pallas_tiled.py:1270",
 }
 
 tiled_sweep = SweepKernel("tiled_sweep", SOURCE, REPLACES, ndim=3)

@@ -1,8 +1,8 @@
 """Method registry: name -> iterate implementation.
 
 Counterpart of ``stencil_tpu/registry.py`` (``Runner``, ``make_xla``,
-``_make_pallas``, ``_make_pallas_tiled``, ``REGISTRY``, ``get_runner``).
-Four methods are ported:
+``_dynamic_kernel_constraints``, ``_make_pallas``, ``_make_pallas_tiled``,
+``REGISTRY``, ``get_runner``). Four methods are ported:
 
   ``eager``     the eager torch shifted-slice sweep (``ops/eager.py``), the
                 counterpart of ``xla``
@@ -21,6 +21,12 @@ The JAX package's names resolve too, so its command lines run unchanged:
 package, refuses 2D grids. Methods not ported yet raise
 ``NotImplementedError`` naming the JAX code a later port replaces.
 
+Periodic and Neumann walls (``--periodic``/``--neumann``) run on every
+ported method: on the kernels with JAX's gates, raised when the runner is
+made (a dynamic lane dim needs k=1, a Neumann leading dim at k>1 a
+mirror-symmetric spec; ``--embed`` and ``--slide`` are refused), each
+launch with the dynamic faces live (``plan_info["pins"]``).
+
 Each entry is a factory ``(config, spec, grid) -> Runner`` where a Runner
 has ``iterate(grid, n) -> HaloGrid``.
 """
@@ -34,7 +40,7 @@ from stencil_tpu_torch.core.grid import HaloGrid, dtype_name
 from stencil_tpu_torch.core.spec import StencilSpec
 from stencil_tpu_torch.ops import eager
 from stencil_tpu_torch.ops.slab import SlabStencil
-from stencil_tpu_torch.ops.tiled import TiledStencil
+from stencil_tpu_torch.ops.tiled import TiledStencil, dynamic_pins
 
 
 @dataclasses.dataclass
@@ -63,15 +69,48 @@ def make_eager(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
     )
 
 
+def _dynamic_kernel_constraints(grid: HaloGrid, spec: StencilSpec, k: int,
+                                kernel: str) -> None:
+    """JAX's gates for periodic/Neumann walls on a kernel, with its
+    messages (``stencil_tpu/registry.py:78-122``): a Neumann leading dim at
+    k>1 needs the spec mirror-symmetric in that dim; a dynamic lane (last)
+    dim needs k=1. JAX's tap-mode part (a ghost-reading tap mode, defaulted
+    to 'slice') has no counterpart: the port has one tap evaluator, which
+    reads the ghosts, and ``--tap-mode`` is recorded as ignored."""
+    ndim = len(grid.interior_shape)
+    neu = grid.bc.neumann_mask(ndim)
+    if k > 1:
+        for d in range(ndim - 1):
+            if neu[d] and not spec.symmetric_in(d):
+                raise ValueError(
+                    f"a Neumann dim {d} on the {kernel} kernel at "
+                    f"temporal depth k={k} needs the stencil "
+                    f"mirror-symmetric in dim {d} (pass -k 1 for "
+                    "asymmetric taps)"
+                )
+    if grid.bc.dynamic_mask(ndim)[-1] and k != 1:
+        raise ValueError(
+            f"a periodic/Neumann lane (last) dim on the {kernel} kernel "
+            "needs sweeps_per_call=1 (pass -k 1); dynamic leading dims "
+            "run at any temporal depth"
+        )
+
+
 def _make_kernel(kind: str, stencil_cls, config, spec: StencilSpec,
                  grid: HaloGrid, k: int) -> Runner:
     """A runner on a hand-written kernel (``kind`` "tiled" or "slab");
     ``plan_info`` records the plan, whether its tile came from ``-b``
-    (``source``), and the TPU tuning flags that were set and ignored."""
+    (``source``), the launches' pins, and the TPU tuning flags that were
+    set and ignored."""
     if grid.bc.any_dynamic:
-        raise NotImplementedError(
-            f"--periodic/--neumann on the {kind} kernel are not ported yet "
-            f"(replaces the pins of {stencil_cls.pins_of}); use -m eager")
+        _dynamic_kernel_constraints(
+            grid, spec, k, "tiled 3D" if kind == "tiled" else "2D slab")
+        if kind == "tiled" and config is not None \
+                and (config.embed or config.slide):
+            raise ValueError(
+                "periodic/Neumann BCs: --embed pins Dirichlet thick "
+                "ghosts and --slide is unsupported; drop the flag"
+            )
     method = stencil_cls(
         spec, grid.interior_shape, dtype=dtype_name(grid.dtype),
         sweeps_per_call=k,
@@ -82,7 +121,8 @@ def _make_kernel(kind: str, stencil_cls, config, spec: StencilSpec,
     plan_info = {"kernel": kind, "k": k, "tiles": list(plan.tiles),
                  "smem_bytes": plan.smem_bytes,
                  "source": "flag" if config is not None and config.block
-                 else "chooser"}
+                 else "chooser",
+                 "pins": list(dynamic_pins(grid.bc, spec.ndim))}
     ignored = config.ignored_tpu_flags() if config is not None else {}
     if ignored:
         plan_info["ignored"] = ignored

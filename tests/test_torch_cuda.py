@@ -46,9 +46,10 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _grid(shape, radius, device, seed=1):
+def _grid(shape, radius, device, seed=1, bc=None):
     x = np.random.default_rng(seed).random(shape).astype(np.float32)
-    bc = BC3 if len(shape) == 3 else BC2
+    if bc is None:
+        bc = BC3 if len(shape) == 3 else BC2
     return HaloGrid.from_interior(torch.from_numpy(x), halo=radius, bc=bc,
                                   device=device)
 
@@ -307,3 +308,182 @@ def test_coeff_apply_reads_the_ghost_ring(cuda_device):
     want = eager_.operator_apply(x, eager_.operator_data())
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() < 1e-5 * scale
+
+
+# ---- dynamic walls: the kernels' pins (periodic and Neumann faces) ---------
+
+
+def _walls(ndim, periodic=(), neumann=()):
+    bc = BC3 if ndim == 3 else BC2
+    return bc.with_periodic(periodic).with_neumann(neumann)
+
+
+def _refreshed(plan, bc, shape, radius, device, seed=1):
+    """A random grid with ``bc`` in ``plan``'s layout, its dynamic ghosts
+    refreshed to the launch's depth, as the runners hand it to a launch."""
+    from stencil_tpu_torch.ops.layout import refresh_dynamic_layout
+
+    cur = plan.layout.pad_grid(_grid(shape, radius, device, seed, bc))
+    return refresh_dynamic_layout(cur, plan.layout, bc, plan.halo)
+
+
+@pytest.mark.parametrize("name,shape,k,periodic,neumann", [
+    ("jacobi7", (64, 48, 40), 8, (0, 1), ()),
+    ("jacobi7", (64, 48, 40), 8, (), (0, 1)),
+    ("jacobi7", (57, 50, 46), 3, (0,), (1,)),
+    ("jacobi27", (33, 20, 41), 4, (1,), (0,)),
+    ("laplace3d_ho", (30, 31, 32), 4, (0, 1), ()),
+    ("jacobi7", (21, 30, 19), 1, (0, 1, 2), ())])
+def test_kernel_pins_match_plain(cuda_device, name, shape, k, periodic,
+                                 neumann):
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    sp = get_spec(name)
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(sp, shape, "float32", k)
+    cur = _refreshed(plan, bc, shape, sp.radius, cuda_device)
+    pins = dynamic_pins(bc, 3)
+    before = tiled_sweep.pins_launches
+    got = tiled_sweep(cur, cur.clone(), plan, pins=pins)
+    want = sweep_reference(cur, plan, pins=pins)
+    torch.cuda.synchronize()
+    assert tiled_sweep.pins_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,k,periodic,neumann", [
+    ((64, 48, 40), 8, (0, 1), ()), ((57, 50, 46), 3, (0,), (1,))])
+def test_tiled_source_pins_match_plain(cuda_device, shape, k, periodic,
+                                       neumann):
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    sp = get_spec("jacobi7")
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(sp, shape, "float32", k)
+    cur = _refreshed(plan, bc, shape, 1, cuda_device)
+    src = pad_source(plan, _source(shape), -0.01, bc).to(cuda_device)
+    pins = dynamic_pins(bc, 3)
+    before = tiled_sweep.source_pins_launches
+    got = tiled_sweep(cur, cur.clone(), plan, src, pins)
+    want = sweep_reference(cur, plan, src, pins=pins)
+    torch.cuda.synchronize()
+    assert tiled_sweep.source_pins_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,k,periodic,neumann", [
+    ((64, 48, 40), 8, (0,), (1,)), ((57, 50, 46), 3, (0, 1), ()),
+    ((33, 20, 41), 1, (), (0, 1))])
+def test_two_level_pins_match_plain(cuda_device, shape, k, periodic,
+                                    neumann):
+    from stencil_tpu_torch.models.wave import WaveEquation
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    wave = WaveEquation(shape=shape, dt=0.5, device=cuda_device)
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(wave.spec, shape, "float32", k, two_level=True)
+    cur = _refreshed(plan, bc, shape, 1, cuda_device, seed=1)
+    prev = _refreshed(plan, bc, shape, 1, cuda_device, seed=3)
+    pins = dynamic_pins(bc, 3)
+    before = tiled_sweep.two_level_pins_launches
+    got = tiled_sweep(cur, cur.clone(), plan, pins=pins, prev=prev,
+                      out2=prev.clone())
+    want = sweep_reference(cur, plan, prev=prev, pins=pins)
+    torch.cuda.synchronize()
+    assert tiled_sweep.two_level_pins_launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape,k,periodic,neumann", [
+    ((64, 48, 40), 8, (0, 1), ()), ((57, 50, 46), 3, (1,), (0,))])
+def test_coeff_pins_match_plain(cuda_device, shape, k, periodic, neumann):
+    from stencil_tpu_torch.ops.tiled import dynamic_pins, pad_coeff
+
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(get_spec("jacobi7"), shape, "float32", k,
+                           coeff_scales=(0.125, 1.0, -0.125))
+    cur = _refreshed(plan, bc, shape, 1, cuda_device)
+    coeff = pad_coeff(plan, _coeff_field(shape), bc).to(cuda_device)
+    pins = dynamic_pins(bc, 3)
+    before = tiled_sweep.coeff_pins_launches
+    got = tiled_sweep(cur, cur.clone(), plan, pins=pins, coeff=coeff)
+    want = sweep_reference(cur, plan, coeff=coeff, pins=pins)
+    torch.cuda.synchronize()
+    assert tiled_sweep.coeff_pins_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,shape,k,t0,periodic,neumann,source", [
+    ("jacobi5", (512, 512), 16, None, (0,), (), False),
+    ("jacobi5", (512, 512), 16, None, (), (0,), False),
+    ("jacobi9", (600, 700), 4, 256, (0,), (), False),
+    ("star2d_r2", (250, 333), 3, None, (), (0,), False),
+    ("jacobi5", (70, 33), 1, None, (0, 1), (), False),
+    ("jacobi5", (300, 257), 4, None, (0,), (), True)])
+def test_slab_pins_match_plain(cuda_device, name, shape, k, t0, periodic,
+                               neumann, source):
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    sp = get_spec(name)
+    bc = _walls(2, periodic, neumann)
+    plan = make_slab_plan(sp, shape, "float32", k, t0_fixed=t0)
+    cur = _refreshed(plan, bc, shape, sp.radius, cuda_device)
+    src = pad_source(plan, _source(shape), -0.01, bc).to(cuda_device) \
+        if source else None
+    pins = dynamic_pins(bc, 2)
+    count = "source_pins_launches" if source else "pins_launches"
+    before = getattr(slab_sweep, count)
+    got = slab_sweep(cur, cur.clone(), plan, src, pins)
+    want = sweep_reference(cur, plan, src, pins=pins)
+    torch.cuda.synchronize()
+    assert getattr(slab_sweep, count) == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,shape,periodic,neumann,source", [
+    ("jacobi27", (40, 36, 44), (0, 1), (), False),
+    ("jacobi7", (21, 30, 19), (0,), (1,), True),
+    ("jacobi5", (61, 75), (0,), (), True),
+    ("jacobi9", (64, 80), (), (0,), False)])
+def test_pins_iterate_with_remainder_matches_eager(cuda_device, name, shape,
+                                                   periodic, neumann,
+                                                   source):
+    """The runners (11 iterations at k=4: two launches and a remainder,
+    each after a refresh) against the eager iterate: bitwise on periodic
+    walls; on a Neumann face within 1e-6 of the largest value, where a
+    live ghost sums the mirrored taps in another order than the interior
+    point it mirrors."""
+    sp = get_spec(name)
+    g = _grid(shape, 1, cuda_device, bc=_walls(len(shape), periodic,
+                                               neumann))
+    f = _source(shape) if source else None
+    stencil = SlabStencil if len(shape) == 2 else TiledStencil
+    got = stencil(sp, shape, sweeps_per_call=4, device=cuda_device,
+                  source=f, source_scale=-0.02).iterate(g, 11)
+    scaled = None if f is None else \
+        torch.from_numpy(f).float().to(cuda_device) * float(np.float32(-0.02))
+    want = eager.iterate(g, sp, 11, scaled)
+    if neumann:
+        assert (got.data - want.data).abs().max().item() \
+            <= 1e-6 * want.data.abs().max().item()
+    else:
+        assert torch.equal(got.data, want.data)
+
+
+def test_wave_pins_with_remainder_matches_eager(cuda_device):
+    from stencil_tpu_torch.models.wave import WaveEquation
+
+    shape = (40, 36, 44)
+    wave = WaveEquation(shape=shape, bc=_walls(3, (0,), (1,)),
+                        device=cuda_device)
+    rng = np.random.default_rng(4)
+    prev, cur = wave.initial_pair(rng.normal(size=shape),
+                                  rng.normal(size=shape))
+    before = tiled_sweep.two_level_pins_launches
+    got = wave.simulate(prev, cur, 11, method="tiled", sweeps_per_call=4)
+    assert tiled_sweep.two_level_pins_launches == before + 3
+    want = wave.simulate(prev, cur, 11, method="eager")
+    for g, w in zip(got, want):
+        assert (g.data - w.data).abs().max().item() \
+            <= 1e-6 * w.data.abs().max().item()

@@ -177,7 +177,9 @@ def test_wrapper_checks_and_cpu_path(rng):
     assert torch.equal(nxt, sweep_reference(cur, plan))
     assert slab_sweep.launches == before  # the plain version is no launch
     with pytest.raises(ValueError, match="pins"):
-        slab_sweep(cur, nxt, plan, pins=(0, 1))
+        slab_sweep(cur, nxt, plan, pins=(0, 1, 1, 1))
+    with pytest.raises(ValueError, match="pins"):
+        slab_sweep(cur, nxt, plan, pins=(1, 3))
     with pytest.raises(ValueError, match="dtype"):
         slab_sweep(cur.double(), nxt.double(), plan)
     with pytest.raises(ValueError, match="shape"):
@@ -191,11 +193,27 @@ def test_wrapper_checks_and_cpu_path(rng):
 
 
 def test_slab_refuses_dynamic_walls():
-    sp = tspec.get_spec("jacobi5")
-    bc = tgrid.DirichletBC.reference_default(2).with_periodic([0])
-    g = tgrid.HaloGrid.create((8, 8), bc=bc, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SlabStencil(sp, (8, 8), device="cpu").iterate(g, 2)
+    """The periodic/Neumann walls the TPU slab kernel refuses, refused
+    with its message: a dynamic lane dim at k>1, a Neumann d0 at k>1 under
+    taps not mirror-symmetric in d0."""
+    upwind = [((0, 0), 0.5), ((-1, 0), 0.25), ((0, -1), 0.25)]
+    for taps, shape, k, walls in (
+            (None, (8, 8), 2, dict(periodic=(1,))),
+            (upwind, (8, 8), 2, dict(neumann=(0,)))):
+        j = jspec.weighted(2, taps) if taps else jspec.get_spec("jacobi5")
+        t = tspec.weighted(2, taps) if taps else tspec.get_spec("jacobi5")
+        jbc = jgrid.DirichletBC.reference_default(2) \
+            .with_periodic(walls.get("periodic", ())) \
+            .with_neumann(walls.get("neumann", ()))
+        tbc = convert.bc_from_arrays(jbc.values, jbc.periodic, jbc.neumann)
+        with pytest.raises(ValueError) as want:
+            PallasStencil(j, shape, sweeps_per_call=k, interpret=True,
+                          tap_mode="slice").iterate(
+                jgrid.HaloGrid.create(shape, bc=jbc), k)
+        with pytest.raises(ValueError) as got:
+            SlabStencil(t, shape, sweeps_per_call=k, device="cpu").iterate(
+                tgrid.HaloGrid.create(shape, bc=tbc, device="cpu"), k)
+        assert str(got.value) == str(want.value)
 
 
 def test_build_hashes_headers_and_raises_on_failure(tmp_path, monkeypatch):

@@ -20,6 +20,8 @@ from stencil_tpu.core import grid as jgrid
 from stencil_tpu.core import spec as jspec
 from stencil_tpu.ops import golden as jgolden
 from stencil_tpu.ops import xla
+from stencil_tpu.ops.layout import PaddedLayout as JPaddedLayout
+from stencil_tpu.ops.layout import refresh_dynamic_layout as jrefresh
 from stencil_tpu.ops.pallas import PallasStencil
 from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
 from stencil_tpu.ops.pallas_tiled import pad_source as jpad_source
@@ -136,12 +138,21 @@ def test_pad_source_matches_jax(rng, kind):
 
 
 def test_pad_source_refuses():
+    """A source of another shape; a dynamic dim shallower than the
+    layout's depth, with the JAX refresh's message."""
     plan = make_slab_plan(tspec.get_spec("jacobi5"), (8, 8), "float32", 2)
     bc = tgrid.DirichletBC.reference_default(2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pad_source(plan, np.zeros((8, 8)), 1.0, bc.with_periodic([0]))
     with pytest.raises(ValueError, match="source shape"):
         pad_source(plan, np.zeros((8, 9)), 1.0, bc)
+    shallow = make_slab_plan(tspec.get_spec("jacobi5"), (3, 8), "float32",
+                             4)
+    jlayout = JPaddedLayout.for_halo((3, 8), 4)
+    jbc = jgrid.DirichletBC.reference_default(2).with_periodic([0])
+    with pytest.raises(ValueError) as want:
+        jrefresh(jnp.zeros(jlayout.padded_shape), jlayout, jbc, 4)
+    with pytest.raises(ValueError) as got:
+        pad_source(shallow, np.ones((3, 8)), 1.0, bc.with_periodic([0]))
+    assert str(got.value) == str(want.value)
 
 
 def test_tiled_source_matches_jax_interpret(rng):
@@ -189,8 +200,8 @@ def test_kernel_source_refusals(rng):
     with pytest.raises(ValueError, match="source shape"):
         TiledStencil(sp, (8, 8, 8), sweeps_per_call=2, device="cpu",
                      source=np.zeros((4, 4, 4)))
-    bc = tgrid.DirichletBC.reference_default(3).with_neumann([1])
+    bc = tgrid.DirichletBC.reference_default(3).with_neumann([2])
     g = tgrid.HaloGrid.create((8, 8, 8), bc=bc, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="lane"):
         TiledStencil(sp, (8, 8, 8), sweeps_per_call=2, device="cpu",
                      source=np.zeros((8, 8, 8))).iterate(g, 2)

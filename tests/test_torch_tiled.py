@@ -144,7 +144,9 @@ def test_wrapper_checks_and_cpu_path(rng):
     assert torch.equal(nxt, sweep_reference(cur, plan))
     assert tiled_sweep.launches == before  # the plain version is no launch
     with pytest.raises(ValueError, match="pins"):
-        tiled_sweep(cur, nxt, plan, pins=(0, 0, 1, 1))
+        tiled_sweep(cur, nxt, plan, pins=(0, 0, 1))
+    with pytest.raises(ValueError, match="pins"):
+        tiled_sweep(cur, nxt, plan, pins=(2, 1, 1, 1))
     with pytest.raises(ValueError, match="dtype"):
         tiled_sweep(cur.double(), nxt.double(), plan)
     with pytest.raises(ValueError, match="shape"):
@@ -154,11 +156,30 @@ def test_wrapper_checks_and_cpu_path(rng):
 
 
 def test_tiled_refuses_dynamic_walls(rng):
-    sp = tspec.get_spec("jacobi7")
-    bc = tgrid.DirichletBC.reference_default(3).with_periodic([0])
-    g = tgrid.HaloGrid.create((8, 8, 8), bc=bc, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TiledStencil(sp, (8, 8, 8), device="cpu").iterate(g, 2)
+    """The periodic/Neumann walls the TPU kernel refuses, refused with its
+    message: a dynamic lane dim at k>1, a Neumann dim at k>1 under taps
+    not mirror-symmetric in it, and a dim shallower than k*r."""
+    upwind = [((0, 0, 0), 0.5), ((-1, 0, 0), 0.25), ((0, -1, 0), 0.25)]
+    cases = [("jacobi7", (8, 8, 8), 2, dict(periodic=(2,))),
+             (upwind, (8, 8, 8), 2, dict(neumann=(0, 1))),
+             ("jacobi7", (6, 8, 8), 8, dict(periodic=(0,)))]
+    for name, shape, k, walls in cases:
+        if isinstance(name, str):
+            j, t = jspec.get_spec(name), tspec.get_spec(name)
+        else:
+            j, t = jspec.weighted(3, name), tspec.weighted(3, name)
+        jbc = jgrid.DirichletBC.reference_default(3) \
+            .with_periodic(walls.get("periodic", ())) \
+            .with_neumann(walls.get("neumann", ()))
+        tbc = convert.bc_from_arrays(jbc.values, jbc.periodic, jbc.neumann)
+        with pytest.raises(ValueError) as want:
+            TiledPallasStencil(j, shape, sweeps_per_call=k,
+                               interpret=True, tap_mode="slice").iterate(
+                jgrid.HaloGrid.create(shape, bc=jbc), k)
+        with pytest.raises(ValueError) as got:
+            TiledStencil(t, shape, sweeps_per_call=k, device="cpu").iterate(
+                tgrid.HaloGrid.create(shape, bc=tbc, device="cpu"), k)
+        assert str(got.value) == str(want.value)
 
 
 def test_tap_table_is_weight_group_order():

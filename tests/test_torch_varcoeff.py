@@ -88,7 +88,7 @@ def test_eager_runner_matches_jax_xla_runner(rng, shape, periodic, neumann):
     jd, td = _diffusions(shape, a, periodic, neumann)
     u0 = rng.normal(size=shape).astype(np.float32)
     want = jd.runner(method="xla").iterate(jd.initial_grid(u0), 6)
-    trun = td.runner()  # auto: eager here (2D, or dynamic walls) or tiled
+    trun = td.runner()  # auto: eager here (2D, a dynamic lane dim) or tiled
     if td.uses_kernel():
         trun = td.runner(method="eager")
     assert trun.plan_info == {"kernel": "eager"}
@@ -244,8 +244,12 @@ def test_coeff_plan_gates_and_wrapper(rng):
         tiled_sweep(x, x.clone(), plan, coeff=coeff[1:])
     got = tiled_sweep(x, x.clone(), plan, coeff=coeff)
     assert torch.equal(got, sweep_reference(x, plan, coeff=coeff))
-    with pytest.raises(NotImplementedError, match="_dynamic_pins"):
-        pad_coeff(plan, a, _zero_bc().with_periodic([0]))
+    # periodic d0: edge-replicated, then wrapped over the full extent of
+    # the other dims (pallas_tiled.pad_coeff's order)
+    want = np.pad(np.pad(a.astype(np.float32), ((0, 0), (2, 2), (2, 2)),
+                         mode="edge"), ((2, 2), (0, 0), (0, 0)), mode="wrap")
+    np.testing.assert_array_equal(
+        pad_coeff(plan, a, _zero_bc().with_periodic([0])).numpy(), want)
 
 
 def _zero_bc():

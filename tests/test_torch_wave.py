@@ -140,10 +140,12 @@ def test_plan_gates_match_jax():
         with pytest.raises(ValueError) as got:
             tw.simulate_interior(u0, 3, method="tiled")
         assert str(got.value) == str(want.value)
-    # dynamic leading dims need the kernel's pins, not ported yet
-    _, tw = _waves((8, 8, 8), periodic=(0,))
-    with pytest.raises(NotImplementedError, match="_dynamic_pins"):
-        tw.simulate_interior(np.zeros((8, 8, 8)), 3, method="tiled")
+    # dynamic leading dims run on the kernel, as the eager leapfrog
+    _, tw = _waves((8, 8, 8), periodic=(0,), neumann=(1,))
+    u0 = np.random.default_rng(3).normal(size=(8, 8, 8))
+    np.testing.assert_allclose(
+        tw.simulate_interior(u0, 5, method="tiled", sweeps_per_call=2),
+        tw.simulate_interior(u0, 5, method="eager"), atol=TOL, rtol=0)
     with pytest.raises(ValueError, match="unknown wave method"):
         tw.simulate_interior(np.zeros((8, 8, 8)), 3, method="bogus")
 
