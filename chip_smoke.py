@@ -37,7 +37,18 @@ Phases, each ending in a line of its own:
    cfg9's plan (both outputs) and its coefficient mode at cfg16's; the 2D
    kernel at cfg1's plan (periodic 0, Neumann 0), cfg2's, ``star2d_r2``
    ragged, ``--periodic all`` at k=1 and its source mode at 4096²; and
-   the runners over a remainder against the eager iterate;
+   the runners over a remainder against the eager iterate; then every
+   mode but the coefficient one in bfloat16, each case required bitwise:
+   the 3D kernel at cfg3's plan (jacobi7 256³ k=8), cfg4's full shape
+   (``laplace3d_ho`` 384³ k=4), ragged, ``jacobi27`` and on inputs near 0
+   (fp32 subnormals, signed zeros); its source mode at the bf16 Poisson
+   path's plan (one launch and the runner) and ragged near 0; its
+   Chebyshev and dual modes at 255³, ragged and the bf16 multigrid path's
+   63³; its two-level mode at cfg9's plan; its pins (periodic, Neumann,
+   mixed, radius 2) and those of its source and two-level modes; the 2D
+   kernel at cfg1's and cfg2's plans, ``star2d_r2`` ragged near 0, its
+   source mode at 4096² and its pins; and the bf16 runners over a
+   remainder against the eager bf16 iterate;
 4. main paths, each with the launch counts set to 0 just before it and
    read just after: the 3D CLI (``-s 256 256 256 --spec jacobi7 -m
    pallas_temporal -k 8 -i 64 -c``), the 2D CLI (``-s 512 512 --spec
@@ -46,16 +57,16 @@ Phases, each ending in a line of its own:
    float64 golden check over every iteration; the Poisson model's
    manufactured solves (2D 63², 3D 31³, ``method="auto"``), each within
    5 h² of the exact solution; the Poisson runner (``method="auto"``, k=8)
-   at 4096² and at 256³ against the float64 golden with the source over 16
-   iterations (the NumPy golden; the native one has no source term); the
-   solver CLI (``--solve poisson``): PCG with Chebyshev multigrid on the
-   tiled fine level at 255³ (``--smoother chebyshev --tol 1e-5 -i 50``,
-   the Chebyshev and dual modes), multigrid V(4,4) cycles at 255³
-   (``--solver mg --nu-smooth 4 4 -i 30``, the source and dual modes) and
-   FMG at 63³ on the tiled fine level (``--solver fmg --fine-method
-   pallas_tiled``), each converged and within 3 h² of the exact solution
-   (4 h² for the weighted-Jacobi tiled cycle, whose fp32 floor is ~3.3 h²
-   at 255³; see ``SOLVE_PATHS``), the float64 certificate printed; the
+   at 4096² and at 256³ against the float64 golden with the source over 8
+   iterations, one launch (the NumPy golden; the native one has no source
+   term); the solver CLI (``--solve poisson``): PCG with Chebyshev multigrid on
+   the tiled fine level at 255³ (``--smoother chebyshev --tol 1e-5 -i 50``, the
+   Chebyshev and dual modes), multigrid V(4,4) cycles at 255³ (``--solver mg
+   --nu-smooth 4 4 -i 30``, the source and dual modes) and FMG at 63³ on the
+   tiled fine level (``--solver fmg --fine-method pallas_tiled``), each
+   converged and within 3 h² of the exact solution (4 h² for the
+   weighted-Jacobi tiled cycle, whose fp32 floor is ~3.3 h² at 255³; see
+   ``SOLVE_PATHS``), the float64 certificate printed; the
    wave at 256³ (16 steps on ``tiled`` k=8 against ``eager``) and at 64³
    (against the float64 golden loop and the analytic standing mode);
    ``-s 128 128 128 --spec jacobi7 -m varcoeff -k 8 -i 64 -c`` against the
@@ -71,7 +82,18 @@ Phases, each ending in a line of its own:
    0 1 -c``; the advection family (upwind at cfg12's velocity on a box
    periodic in d0 and d1 at k=8 against the native golden, and integer
    CFL on a fully periodic box at k=1, bitwise against
-   ``exact_translate``);
+   ``exact_translate``); then the bf16 paths, each launch of each a bf16
+   one: cfg3 (``-s 256 256 256 --spec jacobi7 -m pallas_temporal -k 8
+   --dtype bfloat16 -c``) and cfg4-bf16 (``-s 384 384 384 --spec
+   laplace3d_ho -m pallas_temporal -k 4 --dtype bfloat16 -c``) at 16
+   iterations, cfg1 in bf16 at 32 (the float64 golden within 3e-2; bf16
+   drifts past that bar at greater depth, see ``BF16_TOL``), the Poisson
+   runner in bf16 at 256³ (Dirichlet; periodic 0 with Neumann 1) and
+   4096² against the float64 golden within 0.15, the multigrid fine level
+   in bf16 (Chebyshev V(2,2) at 63³, the card against the CPU's plain
+   versions), the wave in bf16 at 256³ (Dirichlet and periodic 0 with
+   Neumann 1, tiled against eager), and the 3D CLI with ``--periodic 0
+   1`` and cfg1 with ``--periodic 0`` in bf16;
 5. times: GLUPS of the 3D tiled kernel at k=8 and k=1 and of ``eager`` at
    256³; of cfg1 (2D 5-pt 512², slab k=16) and cfg2 (2D 9-pt 4096², slab
    k=4, ``-b 256``) and ``eager`` at both sizes; of cfg8 (Poisson 256³, the
@@ -107,17 +129,22 @@ Phases, each ending in a line of its own:
    and of cfg1 periodic, and one launch of each pins mode against its
    plain version, its bound and a conv yardstick after the library's own
    walls (``F.pad`` circular or replicate), with the runner's refresh
-   beside it.
+   beside it; GLUPS of cfg3 and cfg4-bf16 and of the fp32 cfg4, cfg5
+   (256×256×1024 k=8) and cfg6 (ragged 257³ k=8); one launch of each
+   bf16 mode against its plain version, its bound (2 bytes per value) and
+   one bf16 ``conv3d``/``conv2d`` call.
 
 Each kernel's ``launches`` in the kernel record sums the phase-4 runs of
-that mode; its ``max_abs_err`` is the largest of its phase-3 cases. Its
-``bound_ms`` is the larger of the bytes the launch must move (the padded
-input and source read once, each output's interior written once) over
-3.35 TB/s and its floating-point operations (every sweep's update of every
-interior point; in the coefficient mode, which a(x) fixes, the weights
-once per point and launch, ``COEFF_WEIGHT_OPS``, and ``COEFF_SWEEP_OPS``
-per update) over 67 TFLOP/s, the H100 SXM's published peaks; ``bound_by``
-names the larger.
+that mode (a bf16 mode, name ending ``+bf16``, its bf16 runs); its
+``max_abs_err`` is the largest of its phase-3 cases. Its ``bound_ms`` is
+the larger of the bytes the launch must move (the padded input and source
+read once, each output's interior written once, at the plan's 4 or 2
+bytes per value) over 3.35 TB/s and its floating-point operations (every
+sweep's update of every interior point; in the coefficient mode, which
+a(x) fixes, the weights once per point and launch, ``COEFF_WEIGHT_OPS``,
+and ``COEFF_SWEEP_OPS`` per update) over 67 TFLOP/s in fp32 and 989
+TFLOP/s in bf16, the H100 SXM's published peaks; ``bound_by`` names the
+larger.
 The two-level mode reads two padded levels and writes two interiors, the
 coefficient mode reads the padded u and a(x) and writes one interior.
 
@@ -155,7 +182,7 @@ POISSON_2D = (63, 63)
 POISSON_3D = (31, 31, 31)
 POISSON_BIG = (256, 256, 256)
 POISSON_BIG_2D = (4096, 4096)
-POISSON_BIG_ITERS = 16
+POISSON_BIG_ITERS = 8        # one launch of k=8: the NumPy golden's cost
 POISSON_COMPARE_ITERS = 19   # two launches of k=8 and a remainder of 3
 RAGGED_2D = (250, 333)
 SLAB_SOURCE_SIZE = (4096, 4096)
@@ -204,10 +231,45 @@ TRANSLATE_STEPS = 40
 FLOOR_CYCLES = 12            # cycles of the phase-5 floor measurement
 CYCLE_REPEATS = 10           # V-cycles per timed run
 CONTRACTION_CYCLES = 6
-# the H100 SXM's published peaks (NVIDIA's data sheet): device memory and
-# fp32 outside the tensor cores
+# bfloat16 (phase 3: every mode but coeff bitwise; phase 4: cfg3,
+# bench.py:80-81, and cfg4-bf16, :91-92, with cfg1, cfg8 and the other bf16
+# paths; phase 5: their times, and the fp32 cfg4/cfg5/cfg6). Each bf16 -c
+# runs fewer iterations than its fp32 path: bf16 rounds every sweep to an
+# 8-bit significand and the Jacobi average does not damp the slow modes of
+# that rounding, so the float64 golden drifts past the 3e-2 bar with depth
+# (jacobi7 at 64 sweeps 3.4e-2 on the CPU, in JAX's xla path as in the
+# port's eager one, which agree bitwise; 16 sweeps 1.2e-2; cfg1's 1024
+# sweeps 0.34, 32 sweeps 4e-3). cfg4's full-shape launch is also held
+# bitwise against the plain version in phase 3.
+BF16_TOL = 3e-2              # the JAX suite's bf16 bar (-c uses it too)
+BF16_SOURCE_TOL = 0.15       # tests/test_tiled_source.py:85-87
+CFG3 = ("jacobi7", (256, 256, 256), 8, 16)          # spec, size, k, -i
+CFG4 = ("laplace3d_ho", (384, 384, 384), 4, 16)
+CFG1_BF16_ITERS = 32
+CFG5 = ("jacobi7", (256, 256, 1024), 8)              # bench.py:100-101
+CFG6 = ("jacobi7", (257, 257, 257), 8)               # bench.py:95-96
+TINY = 1e-37                 # inputs near 0: fp32 subnormals, signed zeros
+BF16_MG_SIZE = (63, 63, 63)  # the bf16 multigrid path: the FMG path's size
+BF16_MG_CYCLES = 2
+# the H100 SXM's published peaks (NVIDIA's data sheet): device memory, fp32
+# outside the tensor cores, and bf16 (the table's rate for bf16 operations)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
+
+
+# the kernel record's modes: every fp32 mode, then each bf16 one
+KERNEL_MODES = (
+    "tiled_sweep", "tiled_sweep+source", "tiled_sweep+cheby",
+    "tiled_sweep+dual", "tiled_sweep+two_level", "tiled_sweep+coeff",
+    "tiled_sweep+pins", "tiled_sweep+source+pins",
+    "tiled_sweep+two_level+pins", "tiled_sweep+coeff+pins", "slab_sweep",
+    "slab_sweep+source", "slab_sweep+pins", "slab_sweep+source+pins",
+    "tiled_sweep+bf16", "tiled_sweep+source+bf16", "tiled_sweep+cheby+bf16",
+    "tiled_sweep+dual+bf16", "tiled_sweep+two_level+bf16",
+    "tiled_sweep+pins+bf16", "tiled_sweep+source+pins+bf16",
+    "tiled_sweep+two_level+pins+bf16", "slab_sweep+bf16",
+    "slab_sweep+source+bf16", "slab_sweep+pins+bf16")
 
 
 def require(cond, msg):
@@ -233,17 +295,20 @@ def gpu_state():
     return out.stdout.strip().splitlines()[0].strip()
 
 
-def check_equal(label, got, want):
+def check_equal(label, got, want, exact=False):
     """Kernel output against the plain version's; returns the max abs
-    difference."""
+    difference. ``exact`` (the bf16 cases) requires bitwise equality."""
     import torch
 
     torch.cuda.synchronize()
+    require(got.dtype == want.dtype, f"{label}: {got.dtype} vs {want.dtype}")
     require(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
-    diff = (got - want).abs().max().item()
+    diff = (got.float() - want.float()).abs().max().item()
     bitwise = torch.equal(got, want)
     print(f"  {label}: "
           f"{'bitwise equal' if bitwise else 'max abs diff %.3e' % diff}")
+    require(bitwise or not exact, f"{label}: kernel vs plain not bitwise "
+            f"({diff:.3e})")
     if not bitwise:
         print(f"    not bitwise: the compiled kernel rounds differently "
               f"from the eager version somewhere; tolerated up to "
@@ -253,16 +318,17 @@ def check_equal(label, got, want):
     return diff
 
 
-def random_grid(shape, radius, rng, device, bc=None):
-    """A random fp32 interior in [0, 1) with ``bc`` (default the reference
-    faces)."""
+def random_grid(shape, radius, rng, device, bc=None, dtype="float32"):
+    """A random interior in [0, 1) with ``bc`` (default the reference
+    faces), drawn in fp32 and cast to ``dtype``."""
     import torch
 
-    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.core.grid import HaloGrid, torch_dtype
 
     x = rng.random(shape, dtype=np.float32)
-    return HaloGrid.from_interior(torch.from_numpy(x), halo=radius, bc=bc,
-                                  device=device)
+    return HaloGrid.from_interior(
+        torch.from_numpy(x).to(torch_dtype(dtype)), halo=radius, bc=bc,
+        device=device)
 
 
 def walls(ndim, periodic=(), neumann=()):
@@ -322,6 +388,65 @@ def compare_pins(kernel, plan, bc, cur, mode, src=None, coeff=None,
                                        pins=pins))
 
 
+def bf16_input(plan, bc, rng, device, tiny=False):
+    """A random bf16 padded input of ``plan`` with walls ``bc``, refreshed
+    as the runners hand it to a launch; with ``tiny`` its values lie near 0
+    (about TINY: fp32 and bf16 subnormals, exact and negative zeros, and
+    walls of 1e-38), where the rounding after each op meets the subnormal
+    range."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
+
+    shape = plan.interior_shape
+    x = rng.random(shape, dtype=np.float32)
+    if tiny:
+        x = (x - np.float32(0.5)) * np.float32(TINY)
+        flat = x.reshape(-1)
+        flat[::3] = 0.0
+        flat[1::5] = -0.0
+        bc = DirichletBC(values=((1e-38, -1e-39),) * len(shape),
+                         periodic=bc.periodic, neumann=bc.neumann)
+    grid = HaloGrid.from_interior(torch.from_numpy(x).to(torch.bfloat16),
+                                  halo=plan.spec.radius, bc=bc,
+                                  device=device)
+    return refreshed(plan, grid)
+
+
+def compare_bf16(kernel, plan, mode, rng, device, bc=None, tiny=False,
+                 src_scale=None, f=None, prev=False):
+    """One launch of the bf16 ``plan`` against its plain version, bitwise,
+    on a random input (``tiny``: near 0) with walls ``bc`` (default the
+    reference faces) and their pins: with ``src_scale`` a padded source
+    (``f``, default random), with ``prev`` an older level and both
+    outputs, a dual plan's two outputs."""
+    from stencil_tpu_torch.ops.layout import pad_source
+    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    nd = len(plan.interior_shape)
+    bc = bc if bc is not None else walls(nd)
+    cur = bf16_input(plan, bc, rng, device, tiny)
+    pins = dynamic_pins(bc, nd)
+    label = (f"{mode} {plan.spec.name} {plan.interior_shape} k="
+             f"{plan.sweeps_per_call} tiles {plan.tiles}, {walls_name(bc)}"
+             f"{', values near 0' if tiny else ''}")
+    if prev:
+        older = bf16_input(plan, bc, rng, device, tiny)
+        got = kernel(cur, cur.clone(), plan, pins=pins, prev=older,
+                     out2=older.clone())
+        want = sweep_reference(cur, plan, prev=older, pins=pins)
+        return max(check_equal(f"{label}, L_(n+k)", got[0], want[0], True),
+                   check_equal(f"{label}, L_(n+k-1)", got[1], want[1], True))
+    src = None
+    if src_scale is not None:
+        if f is None:
+            f = rng.normal(size=plan.interior_shape) * (TINY if tiny else 1)
+        src = pad_source(plan, f, src_scale, bc).to(device)
+    return check_equal(label, kernel(cur, cur.clone(), plan, src, pins),
+                       sweep_reference(cur, plan, src, pins=pins), True)
+
+
 def compare_launch(kernel, make_plan, spec, shape, k, rng, device,
                    t0=None, scale=None):
     """One launch of k sweeps against the plain version; ``scale`` adds a
@@ -344,41 +469,48 @@ def compare_launch(kernel, make_plan, spec, shape, k, rng, device,
 
 
 def compare_iterate(stencil_cls, spec, shape, k, iters, rng, device,
-                    scale=None, bc=None):
+                    scale=None, bc=None, dtype="float32"):
     """The iterate (iters // k launches plus a remainder launch) against
-    the eager iterate, on walls ``bc`` (default the reference faces)."""
+    the eager iterate, on walls ``bc`` (default the reference faces), in
+    ``dtype`` (bf16: bitwise required; no Neumann face there, whose live
+    ghosts sum the mirrored taps in another order)."""
     import torch
 
+    from stencil_tpu_torch.core.grid import torch_dtype
     from stencil_tpu_torch.ops import eager
+    from stencil_tpu_torch.ops.eager import round_to
 
-    grid = random_grid(shape, spec.radius, rng, device, bc)
+    grid = random_grid(shape, spec.radius, rng, device, bc, dtype)
     f = rng.normal(size=shape) if scale is not None else None
-    got = stencil_cls(spec, shape, sweeps_per_call=k, device=device,
+    got = stencil_cls(spec, shape, dtype, sweeps_per_call=k, device=device,
                       source=f, source_scale=scale or 1.0
                       ).iterate(grid, iters).data
     scaled = None
     if f is not None:
-        scaled = torch.from_numpy(f).float().to(device) \
-            * float(np.float32(scale))
+        scaled = torch.from_numpy(f).to(torch_dtype(dtype)).to(device) \
+            * round_to(scale, dtype)
     want = eager.iterate(grid, spec, iters, scaled).data
     return check_equal(f"{stencil_cls.__name__}"
                        f"{'+source' if f is not None else ''} {spec.name} "
-                       f"{shape} k={k}, {iters} iterations, "
-                       f"{walls_name(grid.bc)}", got, want)
+                       f"{shape} k={k} {dtype}, {iters} iterations, "
+                       f"{walls_name(grid.bc)}", got, want,
+                       exact=dtype == "bfloat16")
 
 
 def compare_poisson(prob, f, kernel, make_plan, rng, device):
     """A Poisson main path's kernel mode against its plain version at that
-    path's own shape, spec, k, tiles, walls and source ``f``: one launch,
-    then the runner (``method="auto"``) over POISSON_COMPARE_ITERS sweeps
-    against the eager iterate, from a random u."""
+    path's own shape, spec, k, tiles, walls, dtype and source ``f``: one
+    launch, then the runner (``method="auto"``) over POISSON_COMPARE_ITERS
+    sweeps against the eager iterate, from a random u (bf16: bitwise
+    required)."""
     from stencil_tpu_torch.ops import eager
     from stencil_tpu_torch.ops.layout import pad_source
     from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
 
     runner = prob.runner(f, method="auto")
     k = runner.plan_info["k"]
-    plan = make_plan(prob.spec, prob.shape, "float32", k)
+    exact = prob.dtype == "bfloat16"
+    plan = make_plan(prob.spec, prob.shape, prob.dtype, k)
     require(list(plan.tiles) == runner.plan_info["tiles"],
             f"Poisson {prob.shape}: plan {plan.tiles} is not the runner's "
             f"{runner.plan_info}")
@@ -386,23 +518,23 @@ def compare_poisson(prob, f, kernel, make_plan, rng, device):
     cur = plan.layout.pad_grid(grid)
     src = pad_source(plan, f, prob.source_scale, grid.bc).to(device)
     label = (f"{kernel.name}+source Poisson {prob.spec.name} {prob.shape} "
-             f"k={k} tiles {plan.tiles}")
+             f"k={k} tiles {plan.tiles} {prob.dtype}")
     one = check_equal(f"{label}, one launch",
                       kernel(cur, cur.clone(), plan, src),
-                      sweep_reference(cur, plan, src))
+                      sweep_reference(cur, plan, src), exact)
     iters = POISSON_COMPARE_ITERS
     got = runner.iterate(grid, iters).data
     want = eager.iterate(grid, prob.spec, iters,
                          src[plan.layout.interior_index]).data
     return max(one, check_equal(f"{label}, the runner over {iters} "
-                                f"iterations", got, want))
+                                f"iterations", got, want, exact))
 
 
-def cheby_plan(shape, coeffs, dual=False):
+def cheby_plan(shape, coeffs, dual=False, dtype="float32"):
     from stencil_tpu_torch.multigrid import nbsum_spec
     from stencil_tpu_torch.ops.tiled import make_tiled_plan
 
-    return make_tiled_plan(nbsum_spec(3), shape, "float32", len(coeffs),
+    return make_tiled_plan(nbsum_spec(3), shape, dtype, len(coeffs),
                            has_source=True, cheby_coeffs=coeffs,
                            cheby_dual=dual)
 
@@ -425,31 +557,37 @@ def mg_coeffs(shape, nu, smoother, dual):
 
 def compare_plan(kernel, plan, grid, src, label):
     """One launch of ``plan`` (any mode; both outputs of a dual plan)
-    against the plain version; returns the max abs difference."""
+    against the plain version; returns the max abs difference (bf16:
+    bitwise required)."""
     from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
 
+    exact = plan.dtype == "bfloat16"
     cur = plan.layout.pad_grid(grid)
     if plan.cheby_dual:
         got = kernel(cur, cur.clone(), plan, src, out2=cur.clone())
         want = sweep_reference(cur, plan, src)
-        return max(check_equal(f"{label}, residual output", got[0], want[0]),
-                   check_equal(f"{label}, smoothed output", got[1], want[1]))
+        return max(check_equal(f"{label}, residual output", got[0], want[0],
+                               exact),
+                   check_equal(f"{label}, smoothed output", got[1], want[1],
+                               exact))
     return check_equal(label, kernel(cur, cur.clone(), plan, src),
-                       sweep_reference(cur, plan, src))
+                       sweep_reference(cur, plan, src), exact)
 
 
-def compare_cheby(kernel, shape, nu, smoother, dual, rng, device):
-    """The Chebyshev (or dual) mode at ``shape`` against its plain
-    version, random u (reference walls) and a random f."""
+def compare_cheby(kernel, shape, nu, smoother, dual, rng, device,
+                  dtype="float32"):
+    """The Chebyshev (or dual) mode at ``shape`` in ``dtype`` against its
+    plain version, random u (reference walls) and a random f."""
     from stencil_tpu_torch.ops.layout import pad_source
 
-    plan = cheby_plan(shape, mg_coeffs(shape, nu, smoother, dual), dual)
-    grid = random_grid(shape, 1, rng, device)
+    plan = cheby_plan(shape, mg_coeffs(shape, nu, smoother, dual), dual,
+                      dtype)
+    grid = random_grid(shape, 1, rng, device, dtype=dtype)
     src = pad_source(plan, rng.normal(size=shape), 1.0, grid.bc).to(device)
     return compare_plan(kernel, plan, grid, src,
                         f"{kernel.name}+{'dual' if dual else 'cheby'} "
                         f"{smoother} nu={nu} {shape} k={plan.sweeps_per_call}"
-                        f" tiles {plan.tiles}")
+                        f" tiles {plan.tiles} {dtype}")
 
 
 def compare_cheby_iterate(shape, k, iters, rng, device):
@@ -531,13 +669,13 @@ def run_solve_cli(cli, kernel, name, args, bar_h2, label):
     return rec, counts
 
 
-def wave_plan(shape, k):
+def wave_plan(shape, k, dtype="float32"):
     """The chooser's two-level plan of the wave spec at the CFL limit."""
     from stencil_tpu_torch.models.wave import WaveEquation
     from stencil_tpu_torch.ops.tiled import make_tiled_plan
 
     spec = WaveEquation(shape=shape, device=DEVICE).spec
-    return make_tiled_plan(spec, shape, "float32", k, two_level=True)
+    return make_tiled_plan(spec, shape, dtype, k, two_level=True)
 
 
 def compare_two_level(kernel, shape, k, rng, device):
@@ -556,18 +694,21 @@ def compare_two_level(kernel, shape, k, rng, device):
                check_equal(f"{label}, L_(n+k-1)", got[1], want[1]))
 
 
-def compare_wave_iterate(shape, k, steps, rng, device, bc=None):
+def compare_wave_iterate(shape, k, steps, rng, device, bc=None,
+                         dtype="float32"):
     """``WaveEquation.simulate(method="tiled")`` (``wave_iterate``: steps
     // k launches and a remainder) against the eager leapfrog, whose ops
-    are the plain version's, on walls ``bc`` (default zero)."""
+    are the plain version's, on walls ``bc`` (default zero), in ``dtype``
+    (bf16: bitwise required)."""
     from stencil_tpu_torch.models.wave import WaveEquation
 
-    w = WaveEquation(shape=shape, bc=bc, device=DEVICE)
+    w = WaveEquation(shape=shape, bc=bc, dtype=dtype, device=DEVICE)
     prev, cur = w.initial_pair(rng.normal(size=shape), rng.normal(size=shape))
     got = w.simulate(prev, cur, steps, method="tiled", sweeps_per_call=k)
     want = w.simulate(prev, cur, steps, method="eager")
-    return max(check_equal(f"wave_iterate {shape} k={k}, {steps} steps, "
-                           f"{walls_name(w.bc)}, {name}", g.data, e.data)
+    return max(check_equal(f"wave_iterate {shape} k={k} {dtype}, {steps} "
+                           f"steps, {walls_name(w.bc)}, {name}", g.data,
+                           e.data, exact=dtype == "bfloat16")
                for name, g, e in zip(("L_(n+s-1)", "L_(n+s)"), got, want))
 
 
@@ -706,6 +847,113 @@ def run_wave_pins(kernel, rng, label):
     require(bool(torch.isfinite(got.data).all()) and diff <= WAVE_TOL,
             f"wave {walls_name(w.bc)}: tiled vs eager {diff}")
     return launches
+
+
+def run_cli_bf16(cli, args, kernel, label, count="launches"):
+    """One bf16 CLI main path (``run_cli`` with ``--dtype bfloat16``; -c at
+    the bf16 bar): every launch of the run must be a bf16 one of ``count``.
+    Returns (record, launches)."""
+    rec, n = run_cli(cli, [*args, "--dtype", "bfloat16"], kernel, label,
+                     count)
+    require(rec["dtype"] == "bfloat16" and kernel.bf16_launches == n
+            and n == kernel.launches,
+            f"bf16 main path {args}: {kernel.bf16_launches} bf16 launches, "
+            f"{n} {count}, {kernel.launches} in all")
+    return rec, n
+
+
+def run_wave_bf16(kernel, rng, label, bc=None):
+    """The wave in bf16 at 256^3 (cfg9's plan in bf16) over WAVE_STEPS steps
+    on ``tiled`` k=8 against the eager bf16 leapfrog, on walls ``bc``
+    (default zero): bitwise expected without a Neumann face, else within
+    BF16_TOL of the field's largest value (a live Neumann ghost sums the
+    mirrored taps in another order, and the leapfrog does not damp the
+    ulps that makes; at |u| ~ 4 a bf16 ulp is 0.03); returns the
+    two-level launches (``bc`` dynamic: the pins ones), counts set to 0
+    just before, every one a bf16 launch."""
+    import torch
+
+    from stencil_tpu_torch.models.wave import WaveEquation
+
+    w = WaveEquation(shape=MAIN_SIZE, bc=bc, dtype="bfloat16", device=DEVICE)
+    prev, cur = w.initial_pair(rng.normal(size=MAIN_SIZE))
+    kernel.reset_counts()
+    _, got = w.simulate(prev, cur, WAVE_STEPS, method="tiled",
+                        sweeps_per_call=WAVE_K)
+    torch.cuda.synchronize()
+    count = ("two_level_pins_launches" if w.bc.any_dynamic
+             else "two_level_launches")
+    launches = getattr(kernel, count)
+    require(launches == WAVE_STEPS // WAVE_K and launches == kernel.launches
+            and kernel.bf16_launches == launches,
+            f"wave bf16 {walls_name(w.bc)}: {launches} {count}, "
+            f"{kernel.bf16_launches} bf16, {kernel.launches} in all")
+    _, want = w.simulate(prev, cur, WAVE_STEPS, method="eager")
+    g, e = got.data.float(), want.data.float()
+    diff = float((g - e).abs().max())
+    same = torch.equal(got.data, want.data)
+    bar = BF16_TOL * max(1.0, float(e.abs().max()))
+    print(f"wave {MAIN_SIZE} bf16 {walls_name(w.bc)}, {WAVE_STEPS} steps "
+          f"tiled k={WAVE_K} vs eager bf16: "
+          f"{'bitwise equal' if same else f'max abs diff {diff:.3e}'} (bar "
+          f"{BF16_TOL:g} x max |u| = {bar:.3e}); {launches} {count} "
+          f"[{label}]")
+    require(bool(torch.isfinite(g).all()) and diff <= bar,
+            f"wave bf16 {walls_name(w.bc)}: tiled vs eager {diff}")
+    require(same or w.bc.neumann_mask(3) != (False,) * 3,
+            f"wave bf16 {walls_name(w.bc)}: not bitwise without a Neumann "
+            "face")
+    return launches
+
+
+def run_mg_bf16(kernel, label):
+    """The multigrid fine level in bf16 (the Chebyshev and dual modes):
+    ``Multigrid(PoissonProblem(dtype="bfloat16"), smoother="chebyshev",
+    fine_method="pallas_tiled")`` at BF16_MG_SIZE, on the
+    manufactured sine, BF16_MG_CYCLES V(2,2) cycles from u = 0 on the card
+    against the same cycles on the CPU, where the wrapper runs the kernels'
+    plain versions and the coarse levels the same eager ops (within
+    BF16_TOL); bf16 holds this cycle to its rounding floor (the error
+    against the exact solution is printed: 0.18 after 4 cycles at 63^3 on
+    the CPU, JAX's cycle with its XLA fine level 0.83). Returns the launches
+    by mode, counts set to 0 just before; every one a bf16 launch."""
+    import torch
+
+    from stencil_tpu_torch.models.poisson import (
+        PoissonProblem, manufactured_sine,
+    )
+    from stencil_tpu_torch.multigrid import Multigrid
+
+    shape = BF16_MG_SIZE
+    f, u_exact = manufactured_sine(shape)
+    out = {}
+    for device in (DEVICE, "cpu"):
+        prob = PoissonProblem(shape=shape, dtype="bfloat16", device=device)
+        run = Multigrid(prob, smoother="chebyshev",
+                        fine_method="pallas_tiled").runner(f)
+        kernel.reset_counts()
+        out[device] = run.iterate(prob.initial_grid(), BF16_MG_CYCLES)
+        if device == DEVICE:
+            torch.cuda.synchronize()
+            counts = {"tiled_sweep+cheby+bf16": kernel.cheby_launches,
+                      "tiled_sweep+dual+bf16": kernel.dual_launches}
+            require(all(counts.values())
+                    and kernel.bf16_launches == kernel.launches
+                    and sum(counts.values()) == kernel.launches,
+                    f"multigrid bf16: launches {counts}, "
+                    f"{kernel.bf16_launches} bf16 of {kernel.launches}")
+    got = out[DEVICE].interior().float().cpu()
+    want = out["cpu"].interior().float()
+    diff = float((got - want).abs().max())
+    err = float((got.double() - torch.from_numpy(u_exact)).abs().max())
+    same = "bitwise equal" if diff == 0 else f"max abs diff {diff:.3e}"
+    print(f"multigrid bf16 chebyshev V(2,2) tiled fine level {shape}, "
+          f"{BF16_MG_CYCLES} cycles on the card vs on the CPU (plain "
+          f"versions): {same} (bar {BF16_TOL:g}); error vs exact "
+          f"{err:.3e} (printed); launches {counts} [{label}]")
+    require(bool(torch.isfinite(got).all()) and diff <= BF16_TOL,
+            f"multigrid bf16: card vs CPU {diff}")
+    return counts
 
 
 def run_advection(kernel, rng, label):
@@ -866,11 +1114,13 @@ def time_cycles(mg, f, device):
 
 
 def bound(plan, src, dual):
-    """(bound ms, 'bytes' or 'operations') of one launch of ``plan``."""
+    """(bound ms, 'bytes' or 'operations') of one launch of ``plan``, its
+    values ``plan.itemsize`` bytes each."""
     n_int = int(np.prod(plan.interior_shape))
     n_pad = int(np.prod(plan.layout.padded_shape))
-    nbytes = 4 * (n_pad + n_int + (n_pad if src is not None else 0)
-                  + (n_int if dual else 0))
+    nbytes = plan.itemsize * (n_pad + n_int
+                              + (n_pad if src is not None else 0)
+                              + (n_int if dual else 0))
     per_point = plan.spec.flops_per_point
     k = plan.sweeps_per_call
     if getattr(plan, "cheby_coeffs", ()):
@@ -879,14 +1129,16 @@ def bound(plan, src, dual):
                           for t in range(1, k + 1))
     else:
         ops = n_int * k * (per_point + (1 if src is not None else 0))
-    return bound_of(nbytes, ops)
+    return bound_of(nbytes, ops, plan.dtype)
 
 
-def bound_of(nbytes, ops):
+def bound_of(nbytes, ops, dtype="float32"):
     """(bound ms, 'bytes' or 'operations') of moving ``nbytes`` and doing
-    ``ops`` fp32 operations at the card's peaks."""
+    ``ops`` operations on ``dtype`` values at the card's peaks (fp32 outside
+    the tensor cores; bf16 at the table's bf16 rate)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_FP32_PER_S
+    t_ops = ops / (PEAK_BF16_PER_S if dtype == "bfloat16"
+                   else PEAK_FP32_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1079,40 +1331,52 @@ def poisson_solve(shape, kernel, device):
     return launches
 
 
-def poisson_golden(shape, kernel, rng, bc=None, count="source_launches"):
+def poisson_golden(shape, kernel, rng, bc=None, count="source_launches",
+                   dtype="float32"):
     """The Poisson runner (``method="auto"``, k=8) over POISSON_BIG_ITERS
-    sweeps at ``shape`` on walls ``bc`` (default zero), against the float64
-    NumPy golden with the source (full shape, iterations cut); returns
-    (runner, problem, f, launches by ``count``), the counts set to 0 just
-    before the run."""
+    sweeps at ``shape`` on walls ``bc`` (default zero) in ``dtype``, against
+    the float64 NumPy golden with the source (full shape, iterations cut)
+    from the same (dtype-rounded) u0, within GOLDEN_TOL (bf16:
+    BF16_SOURCE_TOL, and the source must move the golden by 5x that, where
+    fp32 asks 100x its bar); returns (runner, problem, f, launches by
+    ``count``), the counts set to 0 just before the run. In bf16 every
+    launch must be a bf16 one."""
     from stencil_tpu_torch.models.poisson import PoissonProblem
     from stencil_tpu_torch.ops import golden
 
-    prob = PoissonProblem(shape=shape, bc=bc, device=DEVICE)
+    prob = PoissonProblem(shape=shape, bc=bc, dtype=dtype, device=DEVICE)
+    tol, moved_by = ((BF16_SOURCE_TOL, 5) if dtype == "bfloat16"
+                     else (GOLDEN_TOL, 100))
     u0 = rng.random(shape, dtype=np.float32)
     # f of size 1/h^2 makes the source's share of each sweep O(1), so a
     # missing or misplaced source fails the check
     f = rng.normal(size=shape) / prob.h ** 2
     runner = prob.runner(f, method="auto")
+    grid0 = prob.initial_grid(u0)
+    u0 = grid0.interior().double().cpu().numpy()  # as the runner starts
     kernel.reset_counts()
-    out = runner.iterate(prob.initial_grid(u0), POISSON_BIG_ITERS)
+    out = runner.iterate(grid0, POISSON_BIG_ITERS)
     n_src = getattr(kernel, count)
+    require(dtype == "float32" or kernel.bf16_launches == kernel.launches,
+            f"Poisson {shape} {dtype}: {kernel.bf16_launches} bf16 launches "
+            f"of {kernel.launches}")
     got = out.interior().double().cpu().numpy()
     want = golden.golden_iterate(u0, prob.spec, POISSON_BIG_ITERS,
                                  bc=prob.bc, source=f,
                                  source_scale=prob.source_scale)
     moved = np.max(np.abs(want - golden.golden_iterate(
         u0, prob.spec, POISSON_BIG_ITERS, bc=prob.bc)))
-    chk = golden.check_against_golden(got, want, GOLDEN_TOL)
-    print(f"Poisson {shape} {walls_name(prob.bc)} {runner.name} tiles "
+    chk = golden.check_against_golden(got, want, tol)
+    print(f"Poisson {shape} {dtype} {walls_name(prob.bc)} {runner.name} tiles "
           f"{runner.plan_info['tiles']}, "
           f"{POISSON_BIG_ITERS} iterations vs the float64 NumPy golden with "
           f"the source (full shape, iterations cut to {POISSON_BIG_ITERS}): "
           f"{'OK' if chk.ok else 'FAILED'} {chk.message()}; the source "
-          f"moves the golden by {moved:.3e}; {n_src} {kernel.name} {count}")
+          f"moves the golden by {moved:.3e}; bar {tol:g}; {n_src} "
+          f"{kernel.name} {count}")
     require(chk.ok and np.isfinite(chk.max_abs_err),
-            f"Poisson {shape} golden check")
-    require(moved > 100 * GOLDEN_TOL,
+            f"Poisson {shape} {dtype} golden check")
+    require(moved > moved_by * tol,
             f"Poisson {shape}: the source does not move the golden")
     require(n_src == POISSON_BIG_ITERS // runner.plan_info["k"]
             and n_src == kernel.launches, f"Poisson {shape} launches")
@@ -1120,14 +1384,17 @@ def poisson_golden(shape, kernel, rng, bc=None, count="source_launches"):
 
 
 def bench(runner, grid, points, device, hbm, label, name=None):
+    """GLUPS of ``runner`` on ``grid``, its roofline at the grid's dtype
+    (2 bytes per value per sweep in bf16, 4 in fp32)."""
+    from stencil_tpu_torch.core.grid import dtype_name
     from stencil_tpu_torch.utils import roofline
     from stencil_tpu_torch.utils.timing import measure_marginal
 
     g = max(1, runner.granularity)
     m = measure_marginal(lambda n: runner.iterate(grid, n).data, device,
                          warmup_iters=g, granularity=g, repeats=2)
-    rep = roofline.report(points, 1, m.seconds_per_iteration, "float32",
-                          hbm)
+    rep = roofline.report(points, 1, m.seconds_per_iteration,
+                          dtype_name(grid.dtype), hbm)
     print(f"{name or runner.name}: {rep.glups:.2f} GLUPS, "
           f"{rep.roofline_fraction:.3f} x naive roofline "
           f"({rep.roofline_glups:.1f} GLUPS at {hbm:.1f} GB/s), marginals "
@@ -1174,6 +1441,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
 
+    def stamp(what):
+        """The script's clock at a section's end, for its time budget."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what}")
+
     # 1. device
     device = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
@@ -1203,7 +1474,7 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
-    print("PHASE 2 build: ok")
+    print(f"PHASE 2 build: ok at {time.perf_counter() - t_start:.1f} s")
 
     # 3. kernel vs plain on the card, per kernel mode
     from stencil_tpu_torch.core.spec import get_spec
@@ -1391,7 +1662,107 @@ def main() -> int:
             pprob2.source_scale, per0_2d).to(device)),
         compare_iterate(SlabStencil, j9, RAGGED_2D, 4, 11, rng, device,
                         scale=-0.01, bc=per0_2d))
-    print(f"PHASE 3 kernel vs plain: ok (max abs diff per mode "
+    # bf16: every mode but the coefficient one, bitwise, at the plans of
+    # the bf16 main paths of phase 4 (cfg3, cfg4's full shape, cfg1, cfg2,
+    # the Poisson runners, the wave, the multigrid levels), ragged, radius
+    # 2, on inputs near 0, and the runners over a remainder
+    t_bf16 = time.perf_counter()
+    bf = "bfloat16"
+    lap = get_spec("laplace3d_ho")
+    plan8b = make_tiled_plan(j7, MAIN_SIZE, bf, CFG3[2])
+    ragged3b = make_tiled_plan(j7, RAGGED_SIZE, bf, 3)
+    s16b = make_slab_plan(j5, CFG1[1], bf, CFG1[2])
+    mode = "tiled_sweep+bf16"
+    err[mode] = max(
+        compare_bf16(tiled, plan8b, mode, rng, device),
+        compare_bf16(tiled, ragged3b, mode, rng, device),
+        compare_bf16(tiled, ragged3b, mode, rng, device, tiny=True),
+        compare_bf16(tiled, make_tiled_plan(get_spec("jacobi27"), BOX_SIZE,
+                                            bf, 4), mode, rng, device),
+        compare_bf16(tiled, make_tiled_plan(lap, CFG4[1], bf, CFG4[2]), mode,
+                     rng, device),
+        compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
+                        dtype=bf))
+    mode = "tiled_sweep+source+bf16"
+    err[mode] = max(
+        compare_poisson(PoissonProblem(shape=POISSON_BIG, dtype=bf,
+                                       device=DEVICE),
+                        rng.normal(size=POISSON_BIG) * (POISSON_BIG[0] + 1)
+                        ** 2, tiled, make_tiled_plan, rng, device),
+        compare_bf16(tiled, ragged3b, mode, rng, device, tiny=True,
+                     src_scale=-0.01),
+        compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
+                        scale=-0.01, dtype=bf))
+    for mode, dual, cases in (
+            ("tiled_sweep+cheby+bf16", False,
+             (("chebyshev", 2), ("chebyshev", 4))),
+            ("tiled_sweep+dual+bf16", True,
+             (("wjacobi", 2), ("chebyshev", 4)))):
+        err[mode] = max(compare_cheby(tiled, shape, nu, smoother, dual, rng,
+                                      device, bf)
+                        for shape in (MG_SIZE, RAGGED_SIZE, BF16_MG_SIZE)
+                        for smoother, nu in cases)
+    mode = "tiled_sweep+two_level+bf16"
+    err[mode] = max(
+        compare_bf16(tiled, wave_plan(MAIN_SIZE, WAVE_K, bf), mode, rng,
+                     device, prev=True),
+        compare_bf16(tiled, wave_plan(RAGGED_SIZE, 3, bf), mode, rng, device,
+                     tiny=True, prev=True),
+        compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device, dtype=bf))
+    mode = "tiled_sweep+pins+bf16"
+    err[mode] = max(
+        compare_bf16(tiled, plan8b, mode, rng, device, per01),
+        compare_bf16(tiled, plan8b, mode, rng, device, neu01),
+        compare_bf16(tiled, ragged3b, mode, rng, device, mixed, tiny=True),
+        compare_bf16(tiled, make_tiled_plan(lap, BOX_SIZE, bf, 4), mode, rng,
+                     device, per01),
+        compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
+                        bc=per01, dtype=bf))
+    mode = "tiled_sweep+source+pins+bf16"
+    pplanb = make_tiled_plan(pprob.spec, POISSON_BIG, bf, 8)
+    err[mode] = max(
+        compare_bf16(tiled, pplanb, mode, rng, device, mixed,
+                     src_scale=pprob.source_scale,
+                     f=rng.normal(size=POISSON_BIG) / pprob.h ** 2),
+        compare_bf16(tiled, ragged3b, mode, rng, device, per01, tiny=True,
+                     src_scale=-0.01),
+        compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
+                        scale=-0.01, bc=per01, dtype=bf))
+    mode = "tiled_sweep+two_level+pins+bf16"
+    err[mode] = max(
+        compare_bf16(tiled, wave_plan(MAIN_SIZE, WAVE_K, bf), mode, rng,
+                     device, mixed, prev=True),
+        compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device, bc=per01,
+                             dtype=bf))
+    mode = "slab_sweep+bf16"
+    err[mode] = max(
+        compare_bf16(slab, s16b, mode, rng, device),
+        compare_bf16(slab, make_slab_plan(j9, CFG2[1], bf, CFG2[2],
+                                          t0_fixed=CFG2[3]), mode, rng,
+                     device),
+        compare_bf16(slab, make_slab_plan(get_spec("star2d_r2"), RAGGED_2D,
+                                          bf, 3), mode, rng, device,
+                     tiny=True),
+        compare_iterate(SlabStencil, j5, RAGGED_2D, 4, 11, rng, device,
+                        dtype=bf))
+    mode = "slab_sweep+source+bf16"
+    err[mode] = max(
+        compare_poisson(PoissonProblem(shape=POISSON_BIG_2D, dtype=bf,
+                                       device=DEVICE),
+                        rng.normal(size=POISSON_BIG_2D)
+                        * (POISSON_BIG_2D[0] + 1) ** 2, slab,
+                        make_slab_plan, rng, device),
+        compare_iterate(SlabStencil, j9, RAGGED_2D, 4, 11, rng, device,
+                        scale=-0.01, dtype=bf))
+    mode = "slab_sweep+pins+bf16"
+    err[mode] = max(
+        compare_bf16(slab, s16b, mode, rng, device, per0_2d),
+        compare_bf16(slab, s16b, mode, rng, device, neu0_2d, tiny=True),
+        compare_iterate(SlabStencil, j5, RAGGED_2D, 4, 11, rng, device,
+                        bc=per0_2d, dtype=bf))
+    print(f"PHASE 3 kernel vs plain: ok at "
+          f"{time.perf_counter() - t_start:.1f} s (the bf16 cases "
+          f"{time.perf_counter() - t_bf16:.1f} s; max abs diff per mode "
           f"{ {k: float(f'{v:.3e}') for k, v in err.items()} })")
 
     # 4. main paths, launch counts set to 0 just before each
@@ -1468,7 +1839,49 @@ def main() -> int:
     launches["tiled_sweep+two_level+pins"] = run_wave_pins(tiled, rng, label)
     launches["tiled_sweep+coeff+pins"] = run_varcoeff_cli(
         cli, tiled, label, ("--periodic", "0", "1"), "coeff_pins_launches")
-    print(f"PHASE 4 main paths: ok (launches {launches})")
+    # the bf16 main paths, each -c at the bf16 bar and every launch a bf16
+    # one: cfg3 and cfg4-bf16 through the CLI (fewer iterations than the
+    # fp32 path, see BF16_TOL), cfg1 in bf16, the Poisson runners (cfg8 in
+    # bf16, 4096^2), the multigrid fine level, the wave, and the
+    # dynamic-wall paths
+    t_bf16 = time.perf_counter()
+    bf_runs = {}
+    for name, (spec_name, size, k, iters) in (("cfg3", CFG3),
+                                              ("cfg4-bf16", CFG4)):
+        bf_runs[name] = run_cli_bf16(
+            cli, ["-s", *map(str, size), "--spec", spec_name, "-m",
+                  "pallas_temporal", "-k", str(k), "-i", str(iters)],
+            tiled, label)
+    launches["tiled_sweep+bf16"] = sum(n for _, n in bf_runs.values())
+    cfg1_bf16 = ["-s", *map(str, CFG1[1]), "--spec", CFG1[0], "-m",
+                 "pallas_temporal", "-k", str(CFG1[2]), "-i",
+                 str(CFG1_BF16_ITERS)]
+    rec, launches["slab_sweep+bf16"] = run_cli_bf16(cli, cfg1_bf16, slab,
+                                                    label)
+    for mode, kernel, shape, bc, count in (
+            ("tiled_sweep+source+bf16", tiled, POISSON_BIG, None,
+             "source_launches"),
+            ("slab_sweep+source+bf16", slab, POISSON_BIG_2D, None,
+             "source_launches"),
+            ("tiled_sweep+source+pins+bf16", tiled, POISSON_BIG, mixed,
+             "source_pins_launches")):
+        poisson_big[mode] = poisson_golden(shape, kernel, rng, bc, count,
+                                           dtype="bfloat16")
+        launches[mode] = poisson_big[mode][3]
+    launches.update(run_mg_bf16(tiled, label))
+    launches["tiled_sweep+two_level+bf16"] = run_wave_bf16(tiled, rng, label)
+    launches["tiled_sweep+two_level+pins+bf16"] = run_wave_bf16(
+        tiled, rng, label, mixed)
+    launches["tiled_sweep+pins+bf16"] = run_cli_bf16(
+        cli, ["-s", *map(str, CFG3[1]), "--spec", CFG3[0], "-m",
+              "pallas_temporal", "-k", str(CFG3[2]), "-i", str(CFG3[3]),
+              "--periodic", "0", "1"], tiled, label, "pins_launches")[1]
+    launches["slab_sweep+pins+bf16"] = run_cli_bf16(
+        cli, [*cfg1_bf16, "--periodic", "0"], slab, label,
+        "pins_launches")[1]
+    print(f"PHASE 4 main paths: ok at {time.perf_counter() - t_start:.1f} s "
+          f"(the bf16 paths {time.perf_counter() - t_bf16:.1f} s; launches "
+          f"{launches})")
 
     # 5. times
     from stencil_tpu_torch import registry
@@ -1499,7 +1912,22 @@ def main() -> int:
     bench(runner, prob.initial_grid(), int(np.prod(POISSON_BIG)), device,
           hbm, label, f"cfg8 Poisson {POISSON_BIG} {runner.name} "
           f"{runner.plan_info['tiles']}")
+    # cfg3 and cfg4-bf16 on the tiled kernel's bf16 entries, and the fp32
+    # configurations it ran untimed before: cfg4, cfg5 and cfg6 (ragged)
+    for name, (spec_name, size, k), dtype in (
+            ("cfg3", CFG3[:3], "bfloat16"),
+            ("cfg4-bf16", CFG4[:3], "bfloat16"),
+            ("cfg4", CFG4[:3], "float32"), ("cfg5", CFG5, "float32"),
+            ("cfg6", CFG6, "float32")):
+        cfg = RunConfig(size=size, spec=spec_name, temporal=k,
+                        methods=("tiled",), dtype=dtype, device=DEVICE)
+        spec = get_spec(spec_name)
+        grid = cli.make_grid(cfg, spec)
+        runner = registry.get_runner("tiled", cfg, spec, grid)
+        bench(runner, grid, int(np.prod(size)), device, hbm, label,
+              f"{name} {spec_name} {size} {dtype} {runner.name}")
 
+    stamp("GLUPS of the iterate configurations")
     # the multigrid cells at 255^3, bench.py's seeded random f
     from stencil_tpu_torch.krylov import ConjugateGradient
     from stencil_tpu_torch.multigrid import Multigrid
@@ -1574,6 +2002,7 @@ def main() -> int:
                             f"span, idle {100 * (1 - busy / span):.1f}%")
           + f" [{label}]")
 
+    stamp("the multigrid and Krylov cells")
     # cfg9: the leapfrog wave at 256^3 on the two-level mode, k=8 (GLUPS
     # counts leapfrog steps, bench.py's rule), and on eager
     from stencil_tpu_torch.models.diffusion import (
@@ -1638,6 +2067,7 @@ def main() -> int:
                                 f"{100 * (1 - busy / span):.1f}%")
               + f" [{label}]")
 
+    stamp("cfg9, cfg16, cfg18")
     # one launch per kernel mode at the shape, spec, k, tiles and source
     # of a main path that phase 3 held it at and phase 4 counted
     launch_inputs = []  # (mode, kernel, plan, padded u, padded source)
@@ -1718,8 +2148,8 @@ def main() -> int:
     n_int = int(np.prod(plan.interior_shape))
     n_pad = int(np.prod(plan.layout.padded_shape))
     bound_ms[mode], bound_by[mode] = bound_of(
-        4 * (2 * n_pad + 2 * n_int),
-        n_int * WAVE_K * (plan.spec.flops_per_point + 1))
+        plan.itemsize * (2 * n_pad + 2 * n_int),
+        n_int * WAVE_K * (plan.spec.flops_per_point + 1), plan.dtype)
     print(f"one call of {mode} {plan.spec.name} {MAIN_SIZE} k={WAVE_K}, "
           f"tiles {plan.tiles}: kernel {ms[mode]:.4f} ms, plain "
           f"{plain_ms[mode]:.4f} ms, bound {bound_ms[mode]:.4f} ms (by "
@@ -1742,7 +2172,8 @@ def main() -> int:
     n_int = int(np.prod(plan.interior_shape))
     n_pad = int(np.prod(plan.layout.padded_shape))
     bound_ms[mode], bound_by[mode] = bound_of(
-        4 * (2 * n_pad + n_int), coeff_ops(n_int, plan.sweeps_per_call))
+        plan.itemsize * (2 * n_pad + n_int),
+        coeff_ops(n_int, plan.sweeps_per_call))
     offsets, fields = vdiff.tap_fields()
     fields = torch.from_numpy(fields).float().to(device)
     h = plan.layout.halo
@@ -1764,13 +2195,15 @@ def main() -> int:
                          device, 3)
     mv_eager = time_call(lambda: eprob.operator_apply(x, edata), device, 20)
     n_int = int(np.prod(HETERO_SIZE))
-    mv_bound, mv_by = bound_of(4 * (2 * int(np.prod(x.shape)) + n_int),
-                               coeff_ops(n_int, 1))
+    mv_bound, mv_by = bound_of(
+        kplan.itemsize * (2 * int(np.prod(x.shape)) + n_int),
+        coeff_ops(n_int, 1))
     print(f"one cfg18 matvec {HETERO_SIZE} (coeff mode k=1, tiles "
           f"{kplan.tiles}): kernel {mv_ms:.4f} ms, plain {mv_plain:.4f} ms, "
           f"bound {mv_bound:.4f} ms (by {mv_by}); the eager field matvec "
           f"{mv_eager:.4f} ms [{label}]")
 
+    stamp("one launch per fp32 mode")
     # the device's busy share over cfg1's main-path run (1024 iterations)
     cfg = RunConfig(size=CFG1[1], spec="jacobi5", temporal=CFG1[2],
                     methods=("slab",), device=DEVICE)
@@ -1897,14 +2330,15 @@ def main() -> int:
         if coeff is not None:
             library_ms[mode] = None
             bound_ms[mode], bound_by[mode] = bound_of(
-                4 * (2 * n_pad + n_int), coeff_ops(n_int, k))
+                plan.itemsize * (2 * n_pad + n_int), coeff_ops(n_int, k))
             lib_text = "library none (per-point weights)"
         else:
             if prev is not None:
                 lib, lib_check = wave_library_step(plan, cur, prev, bc)
                 bound_ms[mode], bound_by[mode] = bound_of(
-                    4 * (2 * n_pad + 2 * n_int),
-                    n_int * k * (plan.spec.flops_per_point + 1))
+                    plan.itemsize * (2 * n_pad + 2 * n_int),
+                    n_int * k * (plan.spec.flops_per_point + 1),
+                    plan.dtype)
             else:
                 lib, lib_check = library_sweep(plan, cur, src, bc)
                 bound_ms[mode], bound_by[mode] = bound(plan, src, False)
@@ -1918,6 +2352,78 @@ def main() -> int:
               f"{plain_ms[mode]:.4f} ms, bound {bound_ms[mode]:.4f} ms (by "
               f"{bound_by[mode]}); {lib_text}; the runner's refresh before "
               f"a launch {refresh_ms:.4f} ms [{label}]")
+    stamp("the dynamic-wall times")
+    # one launch of each bf16 mode at the plan of its phase-4 path (the
+    # Chebyshev and dual modes at the PCG path's fp32 plans, in bf16):
+    # kernel, plain, the bound at 2 bytes per value, and the library's conv
+    # in bf16 (one sweep, or one leapfrog step)
+    bf_inputs = []  # (mode, kernel, plan, walls, padded u, source, u_(n-1))
+
+    def bf_case(mode, kernel, plan, bc=None, src=None, prev=False):
+        bc = bc if bc is not None else walls(len(plan.interior_shape))
+        bf_inputs.append((mode, kernel, plan, bc,
+                          bf16_input(plan, bc, rng, device), src,
+                          bf16_input(plan, bc, rng, device) if prev
+                          else None))
+
+    bf_case("tiled_sweep+bf16", tiled, plan8b)
+    bf_case("tiled_sweep+pins+bf16", tiled, plan8b, per01)
+    for mode, kernel, make_plan in (
+            ("tiled_sweep+source+bf16", tiled, make_tiled_plan),
+            ("slab_sweep+source+bf16", slab, make_slab_plan),
+            ("tiled_sweep+source+pins+bf16", tiled, make_tiled_plan)):
+        runner, prob, f, _ = poisson_big[mode]
+        plan = make_plan(prob.spec, prob.shape, bf, runner.plan_info["k"])
+        require(list(plan.tiles) == runner.plan_info["tiles"],
+                f"{mode}: plan {plan.tiles} is not the runner's")
+        bf_case(mode, kernel, plan, prob.bc,
+                pad_source(plan, f, prob.source_scale, prob.bc).to(device))
+    prob, _, _, ops = solve_paths["pcg-cheby"]
+    for mode, op in ops:
+        plan = cheby_plan(MG_SIZE, op.plan.cheby_coeffs, op.plan.cheby_dual,
+                          bf)
+        bf_case(f"{mode}+bf16", tiled, plan,
+                src=pad_source(plan, mf, op.source_scale, prob.bc))
+    bf_case("tiled_sweep+two_level+bf16", tiled,
+            wave_plan(MAIN_SIZE, WAVE_K, bf), prev=True)
+    bf_case("tiled_sweep+two_level+pins+bf16", tiled,
+            wave_plan(MAIN_SIZE, WAVE_K, bf), mixed, prev=True)
+    bf_case("slab_sweep+bf16", slab, s16b)
+    bf_case("slab_sweep+pins+bf16", slab, s16b, per0_2d)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for mode, kernel, plan, bc, cur, src, prev in bf_inputs:
+        nd = len(plan.interior_shape)
+        pins = dynamic_pins(bc, nd)
+        dual = getattr(plan, "cheby_dual", False)
+        nxt = cur.clone()
+        out2 = prev.clone() if prev is not None else (
+            cur.clone() if dual else None)
+        ms[mode] = time_call(lambda: kernel(cur, nxt, plan, src, pins,
+                                            out2=out2, prev=prev), device, 20)
+        plain_ms[mode] = time_call(lambda: sweep_reference(
+            cur, plan, src, prev, pins=pins), device, 3)
+        n_int = int(np.prod(plan.interior_shape))
+        n_pad = int(np.prod(plan.layout.padded_shape))
+        k = plan.sweeps_per_call
+        if prev is not None:
+            lib, lib_check = wave_library_step(plan, cur, prev, bc)
+            bound_ms[mode], bound_by[mode] = bound_of(
+                plan.itemsize * (2 * n_pad + 2 * n_int),
+                n_int * k * (plan.spec.flops_per_point + 1), plan.dtype)
+        else:
+            lib, lib_check = library_sweep(plan, cur, src, bc)
+            bound_ms[mode], bound_by[mode] = bound(plan, src, dual)
+        library_ms[mode] = time_call(lib, device, 20)
+        print(f"one call of {mode} {plan.spec.name} {plan.interior_shape} "
+              f"k={k}, tiles {plan.tiles}, {walls_name(bc)}: kernel "
+              f"{ms[mode]:.4f} ms, plain {plain_ms[mode]:.4f} ms, bound "
+              f"{bound_ms[mode]:.4f} ms (by {bound_by[mode]}, "
+              f"{plan.itemsize} bytes per value); library "
+              f"{'F.pad + ' if bc.any_dynamic else ''}conv{nd}d in bf16 "
+              f"{library_ms[mode]:.4f} ms per "
+              f"{'step' if prev is not None else 'sweep'} (vs one plain "
+              f"sweep max abs diff {lib_check():.3e}) [{label}]")
     print(f"PHASE 5 times: ok ({time.perf_counter() - t_start:.1f} s in "
           "all)")
 
@@ -1932,13 +2438,7 @@ def main() -> int:
         "ms": ms[mode], "plain_ms": plain_ms[mode],
         "bound_ms": bound_ms[mode], "bound_by": bound_by[mode],
         "library_ms": library_ms[mode],
-    } for mode in ("tiled_sweep", "tiled_sweep+source", "tiled_sweep+cheby",
-                   "tiled_sweep+dual", "tiled_sweep+two_level",
-                   "tiled_sweep+coeff", "tiled_sweep+pins",
-                   "tiled_sweep+source+pins", "tiled_sweep+two_level+pins",
-                   "tiled_sweep+coeff+pins", "slab_sweep",
-                   "slab_sweep+source", "slab_sweep+pins",
-                   "slab_sweep+source+pins")]}))
+    } for mode in KERNEL_MODES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

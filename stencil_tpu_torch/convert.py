@@ -18,7 +18,9 @@ and compares what they compute. Nothing here imports JAX.
                    w.bc.neumann, w.dtype, device="cpu")
 
 A source ``f``, a coefficient field ``a`` and a leapfrog pair's interiors
-go across as the numpy arrays they are.
+go across as the numpy arrays they are; :func:`tensor_from_array` carries
+one bit for bit, a bfloat16 array (``ml_dtypes.bfloat16``, which numpy
+holds for a JAX bfloat16 array) included, without importing ``ml_dtypes``.
 """
 
 from __future__ import annotations
@@ -49,15 +51,30 @@ def spec_from_arrays(name: str, offsets, weights,
                        weights=ws, name=name)
 
 
+def tensor_from_array(data, device="cuda") -> torch.Tensor:
+    """A copy of the array ``data`` as a tensor on ``device``, bit for bit.
+    A bfloat16 array (recognised by its dtype's name and 2-byte items;
+    torch cannot read numpy's bfloat16 directly) goes across as its
+    uint16 bits, viewed as ``torch.bfloat16``."""
+    arr = np.asarray(data)
+    dev = check_device(device)
+    if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)
+                                .copy())
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.tensor(arr, device=dev)
+
+
 def grid_from_arrays(data, halo: int, bc_values,
                      periodic: Sequence[bool] = (),
                      neumann: Sequence[bool] = (),
                      device="cuda") -> HaloGrid:
     """A ``HaloGrid`` holding a copy of the padded array ``data`` (halo
-    ring included, as the JAX grid holds it) on ``device``."""
+    ring included, as the JAX grid holds it; float32, float64 or bfloat16)
+    on ``device``."""
     bc = bc_from_arrays(bc_values, periodic, neumann)
-    tensor = torch.tensor(np.asarray(data), device=check_device(device))
-    return HaloGrid(data=tensor, halo=int(halo), bc=bc)
+    return HaloGrid(data=tensor_from_array(data, device), halo=int(halo),
+                    bc=bc)
 
 
 def bc_from_arrays(values, periodic: Sequence[bool] = (),

@@ -1,13 +1,21 @@
 // k temporally blocked sweeps of a linear stencil over a deep-halo 2D
-// fp32 grid, in one launch. Hand-written for Hopper (sm_90a).
+// fp32 or bf16 grid, in one launch. Hand-written for Hopper (sm_90a).
 //
 // Replaces stencil_tpu/ops/pallas.py:build_sweep (the Pallas TPU slab
 // kernel, pallas_call at :675) on 2D grids, in its homogeneous mode and
 // in its source mode (has_source, u' = S(u) + src, added at :586-591),
-// with its lead-dim `pins` (:564-575). Wrapper and plain PyTorch version:
+// with its lead-dim `pins` (:564-575), in fp32 and in bf16 (the TPU kernel
+// at dtype=bfloat16). Wrapper and plain PyTorch version:
 // stencil_tpu_torch/ops/slab_kernel.py.
 //
-// What it computes. `in` and `out` are padded (n0+2H, n1+2H) fp32 arrays
+// Element type: the kernel is templated on T, float or __nv_bfloat16, as
+// tiled_sweep.cu is: windows, loads, stores and the source are T, values
+// are held in float registers, and in bf16 every add and multiply is
+// rounded to bf16 at once (stencil_taps.cuh), torch's rule for the plain
+// version's bf16 ops. Entries: stencil_slab_sweep (fp32) and
+// stencil_slab_sweep_bf16.
+//
+// What it computes. `in` and `out` are padded (n0+2H, n1+2H) T arrays
 // whose H >= k*r ghost layers hold the Dirichlet face values. `out`
 // receives k sweeps of the stencil applied to `in`, interior points only;
 // its ghosts are never written (the caller keeps them equal to those of
@@ -63,7 +71,9 @@
 
 namespace {
 
+using stencil::add;
 using stencil::Evaluator;
+using stencil::Num;
 using stencil::Taps;
 
 constexpr int kBlockX = 32;   // threads along d1 (contiguous)
@@ -87,17 +97,19 @@ struct Geometry {
 
 // NT > 0: a spec of exactly NT taps; NT == 0: any spec. SRC: every
 // update (live ghost rows included) adds the padded source `source` at its
-// point.
-template <int NT, bool SRC>
+// point. T: the element type.
+template <int NT, bool SRC, typename T>
 __global__ void __launch_bounds__(kThreads)
-slab_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
-                  const float* __restrict__ source, const Geometry g,
+slab_sweep_kernel(const T* __restrict__ in, T* __restrict__ out,
+                  const T* __restrict__ source, const Geometry g,
                   const __grid_constant__ Taps taps) {
-  extern __shared__ float smem[];
+  using N = Num<T>;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* const smem = reinterpret_cast<T*>(smem_bytes);
   const int wvol = g.w0 * g.w1;
-  float* cur = smem;
-  float* nxt = smem + wvol;  // exists only when k > 1
-  const Evaluator<NT> stencil_at(taps);
+  T* cur = smem;
+  T* nxt = smem + wvol;  // exists only when k > 1
+  const Evaluator<NT, T> stencil_at(taps);
 
   const int i1 = blockIdx.x % g.nt1;
   const int i0 = blockIdx.x / g.nt1;
@@ -144,44 +156,43 @@ slab_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
         float v;
         if (inner && c >= lo1 && c < hi1) {
           v = stencil_at(cur, p, taps);
-          if constexpr (SRC) v = __fadd_rn(v, __ldg(source + grow + c));
+          if constexpr (SRC) v = add<T>(v, N::ldg(source + grow + c));
         } else {
-          v = cur[p];
+          v = N::load(cur[p]);
         }
         if (last) {
-          out[grow + c] = v;
+          out[grow + c] = N::store(v);
         } else {
-          nxt[p] = v;
+          nxt[p] = N::store(v);
         }
       }
     }
     if (!last) {
       __syncthreads();
-      float* tmp = cur;
+      T* tmp = cur;
       cur = nxt;
       nxt = tmp;
     }
   }
 }
 
-template <int NT, bool SRC>
-cudaError_t launch(const float* in, float* out, const float* source,
-                   const Geometry& g, const Taps& taps, unsigned nblocks,
-                   size_t shared, cudaStream_t stream) {
+template <int NT, bool SRC, typename T>
+cudaError_t launch(const T* in, T* out, const T* source, const Geometry& g,
+                   const Taps& taps, unsigned nblocks, size_t shared,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      slab_sweep_kernel<NT, SRC>,
+      slab_sweep_kernel<NT, SRC, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
   if (err != cudaSuccess) return err;
-  slab_sweep_kernel<NT, SRC><<<nblocks, dim3(kBlockX, kBlockY), shared,
-                               stream>>>(in, out, source, g, taps);
+  slab_sweep_kernel<NT, SRC, T><<<nblocks, dim3(kBlockX, kBlockY), shared,
+                                  stream>>>(in, out, source, g, taps);
   return cudaGetLastError();
 }
 
-template <bool SRC>
-cudaError_t dispatch(int ntaps, const float* in, float* out,
-                     const float* source, const Geometry& g,
-                     const Taps& taps, unsigned nblocks, size_t shared,
-                     cudaStream_t stream) {
+template <bool SRC, typename T>
+cudaError_t dispatch(int ntaps, const T* in, T* out, const T* source,
+                     const Geometry& g, const Taps& taps, unsigned nblocks,
+                     size_t shared, cudaStream_t stream) {
   switch (ntaps) {
     case 4:  // jacobi5
       return launch<4, SRC>(in, out, source, g, taps, nblocks, shared,
@@ -195,27 +206,13 @@ cudaError_t dispatch(int ntaps, const float* in, float* out,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch k sweeps on `stream` (a cudaStream_t, 0 = the legacy default
-// stream) of device `device`. `source` is null, or a padded fp32 array of
-// the layout of `in` whose interior holds the pre-scaled source. `geom` is
-// int32[13]: n0 n1 p0 p1 halo t0 t1 nt0 nt1 k r, then the pins of the d0
-// lo and hi faces (1 pinned, 0 live; see the header). `tap_offsets` is
-// int32[ntaps * 2] in group order, `group_sizes` int32[ngroups],
-// `group_weights` float[ngroups]. Host arrays are copied before the launch
-// returns. Returns 0, a CUDA error code (cudaGetLastError after the
-// launch), or a negative code for a rejected argument (see
-// stencil_slab_sweep_error).
-int stencil_slab_sweep(const float* in, float* out, const float* source,
-                       const int32_t* geom, int ngeom,
-                       const int32_t* tap_offsets,
-                       const int32_t* group_sizes,
-                       const float* group_weights, int ntaps, int ngroups,
-                       int uniform, float uniform_weight, int device,
-                       void* stream) {
+// The entry's body for either element type (see stencil_slab_sweep).
+template <typename T>
+int sweep_entry(const T* in, T* out, const T* source, const int32_t* geom,
+                int ngeom, const int32_t* tap_offsets,
+                const int32_t* group_sizes, const float* group_weights,
+                int ntaps, int ngroups, int uniform, float uniform_weight,
+                int device, void* stream) {
   if (ngeom != kGeomLen) return kErrArgument;
   const int n0 = geom[0], n1 = geom[1];
   const int p0 = geom[2], p1 = geom[3], halo = geom[4];
@@ -242,7 +239,7 @@ int stencil_slab_sweep(const float* in, float* out, const float* source,
   g.w0 = t0 + 2 * k * r; g.w1 = t1 + 2 * k * r;
   g.pin_lo = pin_lo; g.pin_hi = pin_hi;
   const size_t window = (size_t)g.w0 * g.w1;
-  const size_t shared = (k > 1 ? 2 : 1) * window * sizeof(float);
+  const size_t shared = (k > 1 ? 2 : 1) * window * sizeof(T);
   if (shared > kMaxSharedBytes) return kErrShared;
 
   Taps taps;
@@ -263,6 +260,45 @@ int stencil_slab_sweep(const float* in, float* out, const float* source,
                                       shared, s)
                 : (int)dispatch<false>(ntaps, in, out, source, g, taps, nb,
                                        shared, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch k sweeps on `stream` (a cudaStream_t, 0 = the legacy default stream)
+// of device `device`. `source` is null, or a padded array of the layout and
+// type of `in` whose interior holds the pre-scaled source. `geom` is
+// int32[13]: n0 n1 p0 p1 halo t0 t1 nt0 nt1 k r, then the pins of the d0 lo
+// and hi faces (1 pinned, 0 live; see the header). `tap_offsets` is
+// int32[ntaps * 2] in group order, `group_sizes` int32[ngroups],
+// `group_weights` float[ngroups]. Host arrays are copied before the launch
+// returns. Returns 0, a CUDA error code (cudaGetLastError after the launch),
+// or a negative code for a rejected argument (see stencil_slab_sweep_error).
+int stencil_slab_sweep(const float* in, float* out, const float* source,
+                       const int32_t* geom, int ngeom,
+                       const int32_t* tap_offsets,
+                       const int32_t* group_sizes,
+                       const float* group_weights, int ntaps, int ngroups,
+                       int uniform, float uniform_weight, int device,
+                       void* stream) {
+  return sweep_entry(in, out, source, geom, ngeom, tap_offsets, group_sizes,
+                     group_weights, ntaps, ngroups, uniform, uniform_weight,
+                     device, stream);
+}
+
+// The same in bf16: `in`, `out` and `source` hold __nv_bfloat16; the
+// weights stay fp32, each a bf16 value.
+int stencil_slab_sweep_bf16(const __nv_bfloat16* in, __nv_bfloat16* out,
+                            const __nv_bfloat16* source, const int32_t* geom,
+                            int ngeom, const int32_t* tap_offsets,
+                            const int32_t* group_sizes,
+                            const float* group_weights, int ntaps,
+                            int ngroups, int uniform, float uniform_weight,
+                            int device, void* stream) {
+  return sweep_entry(in, out, source, geom, ngeom, tap_offsets, group_sizes,
+                     group_weights, ntaps, ngroups, uniform, uniform_weight,
+                     device, stream);
 }
 
 const char* stencil_slab_sweep_error(int code) {

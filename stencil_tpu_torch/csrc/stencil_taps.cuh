@@ -8,14 +8,68 @@
 // (ops/eager.py), so a kernel and its plain version agree bitwise. A
 // caller that adds a source term adds it after this value, as the eager
 // version does.
+//
+// The element type T of the windows is float or __nv_bfloat16. Values
+// live in float registers either way; in bfloat16 each add and multiply
+// is an fp32 _rn operation whose result is rounded to bfloat16 at once
+// (Num<T>::round), which is torch's rule for a bfloat16 op (compute in
+// fp32, round the result) and so the plain version's. Accumulating in
+// fp32 and rounding once would be another result. The weights come as
+// fp32 values already rounded to T on the host, so every product is the
+// one torch forms.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace stencil {
+
+// Loads, stores and the rounding of one element type.
+template <typename T>
+struct Num;
+
+template <>
+struct Num<float> {
+  static __device__ __forceinline__ float load(float x) { return x; }
+  static __device__ __forceinline__ float ldg(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ float store(float x) { return x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct Num<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+    return __bfloat162float(__ldg(p));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
+
+// One rounded operation of type T on values held in float.
+template <typename T>
+__device__ __forceinline__ float add(float a, float b) {
+  return Num<T>::round(__fadd_rn(a, b));
+}
+template <typename T>
+__device__ __forceinline__ float sub(float a, float b) {
+  return Num<T>::round(__fsub_rn(a, b));
+}
+template <typename T>
+__device__ __forceinline__ float mul(float a, float b) {
+  return Num<T>::round(__fmul_rn(a, b));
+}
 
 constexpr int kMaxTaps = 128;
 
@@ -50,76 +104,77 @@ inline bool fill_groups(Taps& taps, const int32_t* group_sizes,
   return end == ntaps;
 }
 
+template <typename T>
 __device__ __forceinline__ float close_group(float acc, float gacc, int g,
                                              const Taps& taps) {
   const float term =
-      taps.uniform ? gacc : __fmul_rn(gacc, taps.group_weight[g]);
-  return g == 0 ? term : __fadd_rn(acc, term);
+      taps.uniform ? gacc : mul<T>(gacc, taps.group_weight[g]);
+  return g == 0 ? term : add<T>(acc, term);
 }
 
 // Any tap count: the table is read in a loop.
-__device__ __forceinline__ float apply_taps(const float* __restrict__ s,
-                                            int p, const Taps& taps) {
+template <typename T>
+__device__ __forceinline__ float apply_taps(const T* __restrict__ s, int p,
+                                            const Taps& taps) {
   float acc = 0.0f;
   int t = 0;
   for (int g = 0; g < taps.ngroups; ++g) {
     const int end = taps.group_end[g];
-    float gacc = s[p + taps.off[t++]];
+    float gacc = Num<T>::load(s[p + taps.off[t++]]);
 #pragma unroll 4
-    for (; t < end; ++t) gacc = __fadd_rn(gacc, s[p + taps.off[t]]);
-    acc = close_group(acc, gacc, g, taps);
+    for (; t < end; ++t)
+      gacc = add<T>(gacc, Num<T>::load(s[p + taps.off[t]]));
+    acc = close_group<T>(acc, gacc, g, taps);
   }
-  return taps.uniform ? __fmul_rn(acc, taps.uniform_weight) : acc;
+  return taps.uniform ? mul<T>(acc, taps.uniform_weight) : acc;
 }
 
 // NT taps, offsets in registers: fully unrolled, so all NT shared loads
 // can be in flight before the adds, which still run in tap order.
-template <int NT>
-__device__ __forceinline__ float apply_fixed(const float* __restrict__ s,
-                                             int p, const int (&off)[NT],
+template <int NT, typename T>
+__device__ __forceinline__ float apply_fixed(const T* __restrict__ s, int p,
+                                             const int (&off)[NT],
                                              const Taps& taps) {
   float v[NT];
 #pragma unroll
-  for (int t = 0; t < NT; ++t) v[t] = s[p + off[t]];
+  for (int t = 0; t < NT; ++t) v[t] = Num<T>::load(s[p + off[t]]);
   float acc = 0.0f;
   float gacc = v[0];
   int g = 0;
 #pragma unroll
   for (int t = 1; t < NT; ++t) {
     if ((taps.group_starts >> t) & 1u) {
-      acc = close_group(acc, gacc, g++, taps);
+      acc = close_group<T>(acc, gacc, g++, taps);
       gacc = v[t];
     } else {
-      gacc = __fadd_rn(gacc, v[t]);
+      gacc = add<T>(gacc, v[t]);
     }
   }
-  acc = close_group(acc, gacc, g, taps);
-  return taps.uniform ? __fmul_rn(acc, taps.uniform_weight) : acc;
+  acc = close_group<T>(acc, gacc, g, taps);
+  return taps.uniform ? mul<T>(acc, taps.uniform_weight) : acc;
 }
 
 // NT > 0: a spec of exactly NT taps, offsets copied into registers;
-// NT == 0: any spec, through the table.
-template <int NT>
+// NT == 0: any spec, through the table. T: the window's element type.
+template <int NT, typename T>
 struct Evaluator {
   int off[NT];
   __device__ __forceinline__ explicit Evaluator(const Taps& taps) {
 #pragma unroll
     for (int t = 0; t < NT; ++t) off[t] = taps.off[t];
   }
-  __device__ __forceinline__ float operator()(const float* __restrict__ s,
-                                              int p,
+  __device__ __forceinline__ float operator()(const T* __restrict__ s, int p,
                                               const Taps& taps) const {
-    return apply_fixed<NT>(s, p, off, taps);
+    return apply_fixed<NT, T>(s, p, off, taps);
   }
 };
 
-template <>
-struct Evaluator<0> {
+template <typename T>
+struct Evaluator<0, T> {
   __device__ __forceinline__ explicit Evaluator(const Taps&) {}
-  __device__ __forceinline__ float operator()(const float* __restrict__ s,
-                                              int p,
+  __device__ __forceinline__ float operator()(const T* __restrict__ s, int p,
                                               const Taps& taps) const {
-    return apply_taps(s, p, taps);
+    return apply_taps<T>(s, p, taps);
   }
 };
 

@@ -1,5 +1,5 @@
 // k temporally blocked sweeps of a linear stencil over a deep-halo 3D
-// fp32 grid, in one launch. Hand-written for Hopper (sm_90a).
+// fp32 or bf16 grid, in one launch. Hand-written for Hopper (sm_90a).
 //
 // Replaces stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep (the Pallas
 // TPU kernel, pallas_call at :1821) in six of its modes, with its `pins`
@@ -28,16 +28,31 @@
 //     face means): heterogeneous FTCS diffusion (nb = dt/h^2, c0 = 1,
 //     cs = -dt/h^2) and, at k = 1, the steady operator's matvec (nb =
 //     -1/h^2, c0 = 0, cs = 1/h^2).
+// Every mode but the coefficient one runs in fp32 or bf16 (the TPU kernel
+// at dtype=bfloat16; its coeff mode needs a 4-byte dtype, :451-455).
 // Wrapper and plain PyTorch version: stencil_tpu_torch/ops/tiled_kernel.py.
 //
-// What it computes. `in` and `out` are padded (n0+2H, n1+2H, n2+2H) fp32
+// Element type. The kernel is templated on T, float or __nv_bfloat16: the
+// shared-memory windows, the global loads and stores, the source and the
+// prev/out2 operands are all T, so a bf16 window takes half the bytes and
+// the plan chooser (ops/tiled.py) counts 2-byte points. Values are held in
+// float registers; in bf16 every add and multiply (taps, source add,
+// Chebyshev combination, leapfrog subtraction) is an fp32 _rn operation
+// rounded to bf16 at once (stencil_taps.cuh), which is how torch computes
+// each bf16 op of the plain version, so kernel and plain version agree
+// bitwise in both types. The weights and Chebyshev coefficients come as
+// fp32 holding values the host rounded to T. Each mode has one C entry per
+// type: stencil_tiled_sweep, _cheby, _two_level (fp32) and the same names
+// + _bf16; the coefficient mode only in fp32.
+//
+// What it computes. `in` and `out` are padded (n0+2H, n1+2H, n2+2H) T
 // arrays whose H >= k*r ghost layers hold the Dirichlet face values. `out`
 // receives k sweeps of the stencil applied to `in`, interior points only;
 // ghost cells of `out` (and `out2`) are never written (the caller keeps
 // them equal to those of `in`). Holding the ghosts constant between sweeps
 // is what the TPU kernel's re-pinning of the ghost bands does. With a
 // source, every interior update of every sweep adds the padded source at
-// its point (one fp32 add after the taps, as the TPU kernel adds it at
+// its point (one add after the taps, as the TPU kernel adds it at
 // :1326-1335), read through the read-only cache; ghosts copy along
 // without it. In the Chebyshev modes the source holds the raw f and each
 // sweep scales it by its own s_t; the update is formed as
@@ -97,7 +112,7 @@
 // (ops/eager.py) rounds. The tap counts of the named 3D specs (6, 12, 26)
 // get an unrolled evaluator with the offsets in registers; any other count
 // up to stencil::kMaxTaps reads the table in a loop. The Chebyshev
-// coefficients are passed by value too, rounded to fp32 on the host.
+// coefficients are passed by value too, rounded to T on the host.
 //
 // Bound. Temporal blocking exists to cut HBM bytes: one launch reads the
 // padded array once (plus the windows' overlap, mostly from L2) and writes
@@ -129,7 +144,11 @@
 
 namespace {
 
+using stencil::add;
 using stencil::Evaluator;
+using stencil::mul;
+using stencil::Num;
+using stencil::sub;
 using stencil::Taps;
 
 constexpr int kBlockX = 32;   // threads along d2 (contiguous)
@@ -157,9 +176,10 @@ struct Geometry {
   int pins[4];      // d0 lo, d0 hi, d1 lo, d1 hi: 1 pinned, 0 live
 };
 
-// Per-sweep (c, n, pv, s) of the Chebyshev modes, fp32 as the host rounded
-// them; sweep t (1-based) uses entry t-1. (nb, c0, cs): the coefficient
-// mode's scales, fp32 as the host rounded them.
+// Per-sweep (c, n, pv, s) of the Chebyshev modes, as the host rounded them
+// to the element type (held in fp32); sweep t (1-based) uses entry t-1.
+// (nb, c0, cs): the coefficient mode's scales, fp32 as the host rounded
+// them.
 struct Coeffs {
   float c[kMaxSweeps], n[kMaxSweeps], pv[kMaxSweeps], s[kMaxSweeps];
   float nb, c0, cs;
@@ -202,18 +222,20 @@ __device__ __forceinline__ float coeff_update(
 // `source` is read in every mode but kPlain: the padded source, the raw f
 // (kCheby, kDual), L_{n-1} (kTwoLevel) or the coefficient a(x) (kCoeff);
 // `coeffs` in kCheby, kDual and kCoeff, `out2` in kDual and kTwoLevel.
-template <int NT, int MODE>
+// T: the element type (kCoeff: float only).
+template <int NT, int MODE, typename T>
 __global__ void __launch_bounds__(kThreads)
-tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
-                   float* __restrict__ out2,
-                   const float* __restrict__ source, const Geometry g,
-                   const __grid_constant__ Taps taps,
+tiled_sweep_kernel(const T* __restrict__ in, T* __restrict__ out,
+                   T* __restrict__ out2, const T* __restrict__ source,
+                   const Geometry g, const __grid_constant__ Taps taps,
                    const __grid_constant__ Coeffs coeffs) {
-  extern __shared__ float smem[];
+  using N = Num<T>;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* const smem = reinterpret_cast<T*>(smem_bytes);
   const int wvol = g.w0 * g.w1 * g.w2;
-  float* cur = smem;
-  float* nxt = g.k > 1 ? smem + wvol : smem;  // a second window when k > 1
-  const Evaluator<NT> stencil_at(taps);
+  T* cur = smem;
+  T* nxt = g.k > 1 ? smem + wvol : smem;  // a second window when k > 1
+  const Evaluator<NT, T> stencil_at(taps);
 
   int b = blockIdx.x;
   const int i2 = b % g.nt2;
@@ -301,29 +323,31 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
             v = stencil_at(cur, p, taps);
           }
           if constexpr (MODE == kSource) {
-            v = __fadd_rn(v, __ldg(source + grow + c));
+            v = add<T>(v, N::ldg(source + grow + c));
           } else if constexpr (MODE == kCheby || MODE == kDual) {
-            v = __fadd_rn(__fadd_rn(__fmul_rn(cn, v), __fmul_rn(cc, cur[p])),
-                          __fmul_rn(cs, __ldg(source + grow + c)));
+            v = add<T>(add<T>(mul<T>(cn, v), mul<T>(cc, N::load(cur[p]))),
+                       mul<T>(cs, N::ldg(source + grow + c)));
             // nxt still holds u_{t-2} here (see the header)
-            if (t >= 2) v = __fadd_rn(v, __fmul_rn(cpv, nxt[p]));
+            if (t >= 2) v = add<T>(v, mul<T>(cpv, N::load(nxt[p])));
           } else if constexpr (MODE == kTwoLevel) {
             // L_{t-2}: prev at sweep 1, then nxt (see the header)
-            v = __fsub_rn(v, t == 1 ? __ldg(source + grow + c) : nxt[p]);
+            v = sub<T>(v, t == 1 ? N::ldg(source + grow + c)
+                                 : N::load(nxt[p]));
           }
         } else {
-          v = cur[p];
+          v = N::load(cur[p]);
         }
         if (last) {
-          out[grow + c] = v;
+          out[grow + c] = N::store(v);
           // k = 1: L_{n+k-1} is the input itself (the region is the tile)
           if constexpr (MODE == kTwoLevel) {
             if (g.k == 1) out2[grow + c] = cur[p];
           }
         } else {
-          nxt[p] = v;
+          nxt[p] = N::store(v);
           if constexpr (kTwoOut) {
-            if (tile_row && c >= kr && c < kr + g.t2) out2[grow + c] = v;
+            if (tile_row && c >= kr && c < kr + g.t2)
+              out2[grow + c] = N::store(v);
           }
         }
       }
@@ -334,38 +358,39 @@ tiled_sweep_kernel(const float* __restrict__ in, float* __restrict__ out,
     }
     if (!last) {
       __syncthreads();
-      float* tmp = cur;
+      T* tmp = cur;
       cur = nxt;
       nxt = tmp;
     }
   }
 }
 
+template <typename T>
 struct Launch {
-  const float* in;
-  float* out;
-  float* out2;
-  const float* source;
+  const T* in;
+  T* out;
+  T* out2;
+  const T* source;
   Geometry g;
   unsigned nblocks;
   size_t shared;
   cudaStream_t stream;
 };
 
-template <int NT, int MODE>
-cudaError_t launch(const Launch& l, const Taps& taps, const Coeffs& co) {
+template <int NT, int MODE, typename T>
+cudaError_t launch(const Launch<T>& l, const Taps& taps, const Coeffs& co) {
   cudaError_t err = cudaFuncSetAttribute(
-      tiled_sweep_kernel<NT, MODE>,
+      tiled_sweep_kernel<NT, MODE, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.shared);
   if (err != cudaSuccess) return err;
-  tiled_sweep_kernel<NT, MODE><<<l.nblocks, dim3(kBlockX, kBlockY), l.shared,
-                                 l.stream>>>(l.in, l.out, l.out2, l.source,
-                                             l.g, taps, co);
+  tiled_sweep_kernel<NT, MODE, T><<<l.nblocks, dim3(kBlockX, kBlockY),
+                                    l.shared, l.stream>>>(
+      l.in, l.out, l.out2, l.source, l.g, taps, co);
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t dispatch(int ntaps, const Launch& l, const Taps& taps,
+template <int MODE, typename T>
+cudaError_t dispatch(int ntaps, const Launch<T>& l, const Taps& taps,
                      const Coeffs& co) {
   switch (ntaps) {
     case 6:   // jacobi7, the multigrid neighbour sum
@@ -381,7 +406,9 @@ cudaError_t dispatch(int ntaps, const Launch& l, const Taps& taps,
 
 // The two-level mode: the wave spec (7 taps) unrolled, any other through
 // the table.
-cudaError_t dispatch_two_level(int ntaps, const Launch& l, const Taps& taps) {
+template <typename T>
+cudaError_t dispatch_two_level(int ntaps, const Launch<T>& l,
+                               const Taps& taps) {
   const Coeffs none{};
   return ntaps == 7 ? launch<7, kTwoLevel>(l, taps, none)
                     : launch<0, kTwoLevel>(l, taps, none);
@@ -389,10 +416,11 @@ cudaError_t dispatch_two_level(int ntaps, const Launch& l, const Taps& taps) {
 
 // Checks the geometry and the tap table and fills `l` (but its pointers
 // and stream) and `taps`; 0 or a negative error code.
+template <typename T>
 int prepare(const int32_t* geom, int ngeom, const int32_t* tap_offsets,
             const int32_t* group_sizes, const float* group_weights,
             int ntaps, int ngroups, int uniform, float uniform_weight,
-            Launch& l, Taps& taps) {
+            Launch<T>& l, Taps& taps) {
   if (ngeom != kGeomLen) return kErrArgument;
   const int n0 = geom[0], n1 = geom[1], n2 = geom[2];
   const int p0 = geom[3], p1 = geom[4], p2 = geom[5], halo = geom[6];
@@ -422,7 +450,7 @@ int prepare(const int32_t* geom, int ngeom, const int32_t* tap_offsets,
   g.k = k; g.r = r;
   g.w0 = t0 + 2 * k * r; g.w1 = t1 + 2 * k * r; g.w2 = t2 + 2 * k * r;
   const size_t window = (size_t)g.w0 * g.w1 * g.w2;
-  l.shared = (k > 1 ? 2 : 1) * window * sizeof(float);
+  l.shared = (k > 1 ? 2 : 1) * window * sizeof(T);
   if (l.shared > kMaxSharedBytes) return kErrShared;
   l.nblocks = (unsigned)nblocks;
 
@@ -439,30 +467,14 @@ int prepare(const int32_t* geom, int ngeom, const int32_t* tap_offsets,
   return 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch k sweeps on `stream` (a cudaStream_t, 0 = the legacy default
-// stream) of device `device`. `source` is null, or a padded fp32 array of
-// the layout of `in` whose interior holds the pre-scaled source: each
-// update is then S(u) + source (the affine sweep u' = S(u) + c*f; pinned
-// ghosts get no source, live ones the source's image there). `geom` is
-// int32[19]: n0 n1 n2 p0 p1 p2 halo t0 t1 t2 nt0 nt1 nt2 k r, then the
-// pins of the d0 lo, d0 hi, d1 lo and d1 hi faces (1 pinned, 0 live; see
-// the header). `tap_offsets` is int32[ntaps * 3] in group order,
-// `group_sizes` int32[ngroups], `group_weights` float[ngroups].
-// Host arrays are copied before the launch returns. Returns 0, a CUDA
-// error code (cudaGetLastError after the launch), or a negative code for
-// a rejected argument (see stencil_tiled_sweep_error).
-int stencil_tiled_sweep(const float* in, float* out, const float* source,
-                        const int32_t* geom, int ngeom,
-                        const int32_t* tap_offsets,
-                        const int32_t* group_sizes,
-                        const float* group_weights, int ntaps, int ngroups,
-                        int uniform, float uniform_weight, int device,
-                        void* stream) {
-  Launch l;
+// The entries' bodies, one per mode, for either element type.
+template <typename T>
+int sweep_entry(const T* in, T* out, const T* source, const int32_t* geom,
+                int ngeom, const int32_t* tap_offsets,
+                const int32_t* group_sizes, const float* group_weights,
+                int ntaps, int ngroups, int uniform, float uniform_weight,
+                int device, void* stream) {
+  Launch<T> l;
   Taps taps;
   const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
                          group_weights, ntaps, ngroups, uniform,
@@ -477,22 +489,14 @@ int stencil_tiled_sweep(const float* in, float* out, const float* source,
                 : (int)dispatch<kPlain>(ntaps, l, taps, none);
 }
 
-// The Chebyshev modes: k sweeps of u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} +
-// pv_t*u_{t-2} + s_t*f, S the spec (radius 1), `source` the padded raw f
-// (required), `coeffs` float[4*k] as (c, n, pv, s) per sweep, k <= 16.
-// With `out2` (dual mode, k >= 2) sweep k-1 is written to `out2` as well,
-// and sweep k to `out`. Every face must be pinned (the multigrid levels
-// have Dirichlet walls). The other arguments and the return value are
-// those of stencil_tiled_sweep.
-int stencil_tiled_sweep_cheby(const float* in, float* out, float* out2,
-                              const float* source, const int32_t* geom,
-                              int ngeom, const float* coeffs, int ncoeffs,
-                              const int32_t* tap_offsets,
-                              const int32_t* group_sizes,
-                              const float* group_weights, int ntaps,
-                              int ngroups, int uniform, float uniform_weight,
-                              int device, void* stream) {
-  Launch l;
+template <typename T>
+int cheby_entry(const T* in, T* out, T* out2, const T* source,
+                const int32_t* geom, int ngeom, const float* coeffs,
+                int ncoeffs, const int32_t* tap_offsets,
+                const int32_t* group_sizes, const float* group_weights,
+                int ntaps, int ngroups, int uniform, float uniform_weight,
+                int device, void* stream) {
+  Launch<T> l;
   Taps taps;
   const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
                          group_weights, ntaps, ngroups, uniform,
@@ -519,6 +523,103 @@ int stencil_tiled_sweep_cheby(const float* in, float* out, float* out2,
               : (int)dispatch<kCheby>(ntaps, l, taps, co);
 }
 
+template <typename T>
+int two_level_entry(const T* in, const T* prev, T* out, T* out2,
+                    const int32_t* geom, int ngeom,
+                    const int32_t* tap_offsets, const int32_t* group_sizes,
+                    const float* group_weights, int ntaps, int ngroups,
+                    int uniform, float uniform_weight, int device,
+                    void* stream) {
+  Launch<T> l;
+  Taps taps;
+  const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps);
+  if (rc != 0) return rc;
+  if (prev == nullptr || out2 == nullptr) return kErrArgument;
+  l.in = in; l.out = out; l.out2 = out2; l.source = prev;
+  l.stream = (cudaStream_t)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)dispatch_two_level(ntaps, l, taps);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch k sweeps on `stream` (a cudaStream_t, 0 = the legacy default
+// stream) of device `device`. `source` is null, or a padded array of the
+// layout and type of `in` whose interior holds the pre-scaled source: each
+// update is then S(u) + source (the affine sweep u' = S(u) + c*f; pinned
+// ghosts get no source, live ones the source's image there). `geom` is
+// int32[19]: n0 n1 n2 p0 p1 p2 halo t0 t1 t2 nt0 nt1 nt2 k r, then the
+// pins of the d0 lo, d0 hi, d1 lo and d1 hi faces (1 pinned, 0 live; see
+// the header). `tap_offsets` is int32[ntaps * 3] in group order,
+// `group_sizes` int32[ngroups], `group_weights` float[ngroups].
+// Host arrays are copied before the launch returns. Returns 0, a CUDA
+// error code (cudaGetLastError after the launch), or a negative code for
+// a rejected argument (see stencil_tiled_sweep_error).
+int stencil_tiled_sweep(const float* in, float* out, const float* source,
+                        const int32_t* geom, int ngeom,
+                        const int32_t* tap_offsets,
+                        const int32_t* group_sizes,
+                        const float* group_weights, int ntaps, int ngroups,
+                        int uniform, float uniform_weight, int device,
+                        void* stream) {
+  return sweep_entry(in, out, source, geom, ngeom, tap_offsets, group_sizes,
+                     group_weights, ntaps, ngroups, uniform, uniform_weight,
+                     device, stream);
+}
+
+// The same in bf16: `in`, `out` and `source` hold __nv_bfloat16; the
+// weights stay fp32, each a bf16 value.
+int stencil_tiled_sweep_bf16(const __nv_bfloat16* in, __nv_bfloat16* out,
+                             const __nv_bfloat16* source,
+                             const int32_t* geom, int ngeom,
+                             const int32_t* tap_offsets,
+                             const int32_t* group_sizes,
+                             const float* group_weights, int ntaps,
+                             int ngroups, int uniform, float uniform_weight,
+                             int device, void* stream) {
+  return sweep_entry(in, out, source, geom, ngeom, tap_offsets, group_sizes,
+                     group_weights, ntaps, ngroups, uniform, uniform_weight,
+                     device, stream);
+}
+
+// The Chebyshev modes: k sweeps of u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} +
+// pv_t*u_{t-2} + s_t*f, S the spec (radius 1), `source` the padded raw f
+// (required), `coeffs` float[4*k] as (c, n, pv, s) per sweep, k <= 16.
+// With `out2` (dual mode, k >= 2) sweep k-1 is written to `out2` as well,
+// and sweep k to `out`. Every face must be pinned (the multigrid levels
+// have Dirichlet walls). The other arguments and the return value are
+// those of stencil_tiled_sweep.
+int stencil_tiled_sweep_cheby(const float* in, float* out, float* out2,
+                              const float* source, const int32_t* geom,
+                              int ngeom, const float* coeffs, int ncoeffs,
+                              const int32_t* tap_offsets,
+                              const int32_t* group_sizes,
+                              const float* group_weights, int ntaps,
+                              int ngroups, int uniform, float uniform_weight,
+                              int device, void* stream) {
+  return cheby_entry(in, out, out2, source, geom, ngeom, coeffs, ncoeffs,
+                     tap_offsets, group_sizes, group_weights, ntaps, ngroups,
+                     uniform, uniform_weight, device, stream);
+}
+
+// The same in bf16 (the coefficients fp32, each a bf16 value).
+int stencil_tiled_sweep_cheby_bf16(
+    const __nv_bfloat16* in, __nv_bfloat16* out, __nv_bfloat16* out2,
+    const __nv_bfloat16* source, const int32_t* geom, int ngeom,
+    const float* coeffs, int ncoeffs, const int32_t* tap_offsets,
+    const int32_t* group_sizes, const float* group_weights, int ntaps,
+    int ngroups, int uniform, float uniform_weight, int device,
+    void* stream) {
+  return cheby_entry(in, out, out2, source, geom, ngeom, coeffs, ncoeffs,
+                     tap_offsets, group_sizes, group_weights, ntaps, ngroups,
+                     uniform, uniform_weight, device, stream);
+}
+
 // The two-level (leapfrog) mode: k steps of L_t = S(L_{t-1}) - L_{t-2}
 // from `in` = L_n and `prev` = L_{n-1} (padded like `in`, required); sweep
 // k goes to `out`, sweep k-1 (at k = 1 the input L_n) to `out2`
@@ -533,18 +634,21 @@ int stencil_tiled_sweep_two_level(const float* in, const float* prev,
                                   int ngroups, int uniform,
                                   float uniform_weight, int device,
                                   void* stream) {
-  Launch l;
-  Taps taps;
-  const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
-                         group_weights, ntaps, ngroups, uniform,
-                         uniform_weight, l, taps);
-  if (rc != 0) return rc;
-  if (prev == nullptr || out2 == nullptr) return kErrArgument;
-  l.in = in; l.out = out; l.out2 = out2; l.source = prev;
-  l.stream = (cudaStream_t)stream;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  return (int)dispatch_two_level(ntaps, l, taps);
+  return two_level_entry(in, prev, out, out2, geom, ngeom, tap_offsets,
+                         group_sizes, group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, device, stream);
+}
+
+// The same in bf16.
+int stencil_tiled_sweep_two_level_bf16(
+    const __nv_bfloat16* in, const __nv_bfloat16* prev, __nv_bfloat16* out,
+    __nv_bfloat16* out2, const int32_t* geom, int ngeom,
+    const int32_t* tap_offsets, const int32_t* group_sizes,
+    const float* group_weights, int ntaps, int ngroups, int uniform,
+    float uniform_weight, int device, void* stream) {
+  return two_level_entry(in, prev, out, out2, geom, ngeom, tap_offsets,
+                         group_sizes, group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, device, stream);
 }
 
 // The coefficient mode: k sweeps of the radius-1 face-weight operator of
@@ -561,7 +665,7 @@ int stencil_tiled_sweep_coeff(const float* in, const float* coeff,
                               const float* group_weights, int ntaps,
                               int ngroups, int uniform, float uniform_weight,
                               int device, void* stream) {
-  Launch l;
+  Launch<float> l;
   Taps taps;
   const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
                          group_weights, ntaps, ngroups, uniform,

@@ -302,7 +302,7 @@ class HeterogeneousPoissonProblem:
                 f"unknown kernel {self.kernel!r} (auto | xla | pallas)")
         use_kernel = self.kernel == "pallas"
         if use_kernel and (len(self.shape) != 3
-                           or np.dtype(self.dtype).itemsize != 4):
+                           or torch_dtype(self.dtype).itemsize != 4):
             raise ValueError(
                 "kernel='pallas' needs a 3D fp32 problem")
         object.__setattr__(self, "_use_kernel", use_kernel)

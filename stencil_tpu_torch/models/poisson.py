@@ -16,7 +16,7 @@ picks the kernel of the problem's rank, as the JAX package does.
 
 The scaling rule differs per path, as in the JAX package: the eager
 runner scales a host ``f`` in its own precision (float64 for a float64
-array) and then casts, the kernel runners scale in float32
+array) and then casts, the kernel runners scale in the problem dtype
 (``ops/layout.py:pad_source``).
 """
 
@@ -131,10 +131,12 @@ class PoissonProblem:
         """The eager runner's source: a device tensor scaled on the device
         in the problem dtype, a host array scaled in its own precision
         and then cast (the JAX ``xla`` runner's rule)."""
+        from stencil_tpu_torch.ops.eager import round_to
+
         dt = torch_dtype(self.dtype)
         if isinstance(f, torch.Tensor):
-            scaled = f.to(device=self.device, dtype=dt) * float(
-                torch.tensor(self.source_scale, dtype=dt))
+            scaled = f.to(device=self.device, dtype=dt) \
+                * round_to(self.source_scale, dt)
         else:
             scaled = torch.as_tensor(np.asarray(f) * self.source_scale) \
                 .to(device=self.device, dtype=dt)

@@ -12,8 +12,11 @@ The per-point summation order is the JAX one, and the CUDA kernel's: taps
 in ``StencilSpec.weight_groups`` order, each group summed first and
 multiplied once by its weight; a uniform-weight spec is one group whose
 weight is applied once at the end. A source term is one more add, after
-the taps. Each step is a separate float32 add or multiply, so nothing can
-fuse into an FMA.
+the taps. Each step is a separate add or multiply, so nothing can fuse
+into an FMA. Each multiply takes its scalar rounded once to the tensor's
+dtype (:func:`round_to`), as JAX's ``jnp.asarray(w, dtype)`` does; in
+bfloat16 each add and multiply is then computed in float32 and rounded to
+bfloat16, which is what JAX's ``xla`` sweep computes on the CPU.
 
 Where the JAX loop is functional, this one ping-pongs two padded tensors
 and writes each sweep into the other's interior: no allocation per sweep.
@@ -21,12 +24,28 @@ and writes each sweep into the other's interior: no allocation per sweep.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
-from stencil_tpu_torch.core.grid import HaloGrid, refresh_dynamic
+from stencil_tpu_torch.core.grid import HaloGrid, refresh_dynamic, torch_dtype
 from stencil_tpu_torch.core.spec import StencilSpec
+
+
+@functools.lru_cache(maxsize=256)
+def round_to(value: float, dtype) -> float:
+    """``value`` rounded once to ``dtype`` (a torch dtype or its name), as a
+    Python float: the scalar every multiply of the eager sweep and of the
+    kernels' plain version uses, and the value the kernels take as float32
+    (exact there for float32 and bfloat16). The conversion goes through
+    float32, as ``jnp.asarray(w, dtype)`` converts a Python float; a
+    float64 tensor takes ``value`` as it is."""
+    dt = torch_dtype(dtype)
+    if dt == torch.float64:
+        return float(value)
+    return float(torch.tensor(float(np.float32(value))).to(dt).item())
 
 
 def _interior_index(shape, halo: int):
@@ -54,6 +73,8 @@ def apply_spec(padded: torch.Tensor, spec: StencilSpec,
                             for d in range(ndim))]
 
     uw = spec.uniform_weight
+    if uw is not None:
+        uw = round_to(uw, padded.dtype)
     for g, (w, offs) in enumerate(spec.weight_groups()):
         if g == 0:
             gacc = out
@@ -65,7 +86,7 @@ def apply_spec(padded: torch.Tensor, spec: StencilSpec,
         for off in offs[1:]:
             gacc.add_(tap(off))
         if uw is None:
-            gacc.mul_(w)
+            gacc.mul_(round_to(w, padded.dtype))
         if g > 0:
             out.add_(gacc)
     if uw is not None:

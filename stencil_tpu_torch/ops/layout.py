@@ -18,10 +18,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-import numpy as np
 import torch
 
-from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
+from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid, torch_dtype
+from stencil_tpu_torch.ops.eager import round_to
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,18 +129,20 @@ def refresh_dynamic_layout(padded: torch.Tensor, layout: PaddedLayout,
 
 def pad_source(plan, source, source_scale, bc: DirichletBC) -> torch.Tensor:
     """The padded source operand of a sweep kernel's plan (3D tiled or 2D
-    slab): interior ``float32(source) * float32(source_scale)``, scaled in
-    the plan dtype as the JAX ``pad_source`` scales it; Dirichlet ghosts 0
+    slab): interior ``dtype(source) * dtype(source_scale)`` in the plan
+    dtype, scaled there as the JAX ``pad_source`` scales it (the scale
+    rounded once, :func:`~stencil_tpu_torch.ops.eager.round_to`, the
+    product rounded to the dtype); Dirichlet ghosts 0
     (the kernels add no source to a pinned ghost); the ghosts of a periodic
     or Neumann dim hold the wrapped or mirrored source to the layout's full
     depth, once, since the source does not change (a live ghost update adds
     the source of the interior point it stands for). On the device of
     ``source`` when it is a tensor, else on the CPU; the caller moves it."""
-    scaled = torch.as_tensor(source).to(torch.float32)
+    scaled = torch.as_tensor(source).to(torch_dtype(plan.dtype))
     if tuple(scaled.shape) != plan.interior_shape:
         raise ValueError(f"source shape {tuple(scaled.shape)} != interior "
                          f"{plan.interior_shape}")
-    scaled = scaled * float(np.float32(source_scale))
+    scaled = scaled * round_to(source_scale, plan.dtype)
     ndim = len(plan.interior_shape)
     src_bc = DirichletBC(values=((0.0, 0.0),) * ndim, periodic=bc.periodic,
                          neumann=bc.neumann)

@@ -11,7 +11,8 @@ device memory.
 The TPU kernel streams slabs of full minor width; a CUDA block has 227 KB
 (232,448 bytes) of shared memory, which a 4096-wide slab with a k*r halo
 overflows, so the port tiles both dims: one block per (t0, t1) output tile
-and its k*r-deep window, two window buffers when k > 1. ``-b/--block``
+and its k*r-deep window, two window buffers when k > 1, of 4-byte points
+in float32 and 2-byte ones in bfloat16. ``-b/--block``
 pins t0, the rows per tile, as the JAX ``-b`` pins the rows per slab. The
 TPU's sublane rule (rows and slab a multiple of 8) is TPU layout machinery
 and is not carried: any row count runs.
@@ -34,12 +35,13 @@ import itertools
 import math
 from typing import Optional, Tuple
 
+from stencil_tpu_torch.core.grid import dtype_name, torch_dtype
 from stencil_tpu_torch.core.spec import StencilSpec
 from stencil_tpu_torch.ops.layout import PaddedLayout
 from stencil_tpu_torch.ops.slab_kernel import slab_sweep
 from stencil_tpu_torch.ops.sweep_kernel import KernelStencil
 from stencil_tpu_torch.ops.tiled import (
-    MAX_BLOCKS_PER_SM, SM_SHARED, SMEM_LIMIT, TiledPlan, _smem_bytes,
+    DTYPES, MAX_BLOCKS_PER_SM, SM_SHARED, SMEM_LIMIT, TiledPlan, _smem_bytes,
 )
 
 SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
@@ -68,14 +70,14 @@ def _t1_candidates(kr: int) -> Tuple[int, ...]:
 
 
 def _cost(tiles, k: int, spec: StencilSpec, interior_shape,
-          constants=COST_CONSTANTS) -> float:
+          constants=COST_CONSTANTS, itemsize: int = 4) -> float:
     """Estimated time of one launch over the whole grid: each SM runs
     ``ceil(blocks / SM_COUNT)`` blocks of the warp slots of one block (a
     fixed cost, then a load cost per 32-point segment of a window row, then
     sweep by sweep a row of c points takes ceil(c / 32) slots of
     ``num_taps`` plus a row cost; ``constants`` are the three costs),
     divided by the latency hiding of the blocks resident together,
-    ``resident ** 0.25``."""
+    ``resident ** 0.25``; the windows hold ``itemsize``-byte points."""
     block_cost, load_cost, row_cost = constants
     r = spec.radius
     w0, w1 = (t + 2 * k * r for t in tiles)
@@ -87,41 +89,45 @@ def _cost(tiles, k: int, spec: StencilSpec, interior_shape,
     blocks = math.prod(-(-n // t) for n, t in zip(interior_shape, tiles))
     per_sm = -(-blocks // SM_COUNT)
     resident = min(per_sm, MAX_BLOCKS_PER_SM,
-                   SM_SHARED // (_smem_bytes(tiles, k, r) + 1024))
+                   SM_SHARED // (_smem_bytes(tiles, k, r, itemsize) + 1024))
     return per_sm * slots / max(1, resident) ** 0.25
 
 
 def candidate_tiles(spec: StencilSpec, interior_shape, sweeps_per_call: int,
-                    t0_fixed: Optional[int] = None) -> list:
+                    t0_fixed: Optional[int] = None,
+                    itemsize: int = 4) -> list:
     """The tiles the chooser weighs, sorted: each t0 candidate (or
     ``t0_fixed``) with each t1 candidate, clamped to the grid, that fit one
-    block's shared memory."""
+    block's shared memory at ``itemsize`` bytes per point."""
     k, r = sweeps_per_call, spec.radius
     n0, n1 = interior_shape
     t0s = (t0_fixed,) if t0_fixed is not None else _T0_CANDIDATES
     tiles = {(min(t0, n0), min(t1, n1))
              for t0, t1 in itertools.product(t0s, _t1_candidates(k * r))}
-    return sorted(t for t in tiles if _smem_bytes(t, k, r) <= SMEM_LIMIT)
+    return sorted(t for t in tiles
+                  if _smem_bytes(t, k, r, itemsize) <= SMEM_LIMIT)
 
 
 def tile_key(tiles, k: int, spec: StencilSpec, interior_shape,
-             constants=COST_CONSTANTS):
+             constants=COST_CONSTANTS, itemsize: int = 4):
     """The chooser's order: least :func:`_cost`, then the wider t1, then
     the larger tile."""
-    return (_cost(tiles, k, spec, interior_shape, constants), -tiles[1],
-            -math.prod(tiles))
+    return (_cost(tiles, k, spec, interior_shape, constants, itemsize),
+            -tiles[1], -math.prod(tiles))
 
 
 def choose_tiles(spec: StencilSpec, interior_shape, sweeps_per_call: int,
-                 t0_fixed: Optional[int] = None
+                 t0_fixed: Optional[int] = None, dtype="float32"
                  ) -> Optional[Tuple[int, int]]:
-    """The feasible tile of least estimated time (:func:`tile_key`). None
-    if nothing fits."""
-    tiles = candidate_tiles(spec, interior_shape, sweeps_per_call, t0_fixed)
+    """The feasible tile of least estimated time (:func:`tile_key`) for
+    windows of ``dtype``. None if nothing fits."""
+    itemsize = torch_dtype(dtype).itemsize
+    tiles = candidate_tiles(spec, interior_shape, sweeps_per_call, t0_fixed,
+                            itemsize)
     if not tiles:
         return None
-    return min(tiles, key=lambda t: tile_key(t, sweeps_per_call, spec,
-                                             interior_shape))
+    return min(tiles, key=lambda t: tile_key(
+        t, sweeps_per_call, spec, interior_shape, itemsize=itemsize))
 
 
 def make_slab_plan(spec: StencilSpec, interior_shape, dtype="float32",
@@ -133,17 +139,19 @@ def make_slab_plan(spec: StencilSpec, interior_shape, dtype="float32",
     if spec.ndim != 2 or len(interior_shape) != 2:
         raise ValueError("slab kernel is 2D-only in the port (3D grids run "
                          "the tiled kernel)")
-    if dtype != "float32":
-        raise ValueError(f"slab kernel dtype {dtype!r}: only float32 is "
-                         "ported (bf16 is a later item)")
+    dtype = dtype_name(torch_dtype(dtype))
+    if dtype not in DTYPES:
+        raise ValueError(f"slab kernel dtype {dtype!r}: the kernel takes "
+                         f"{' or '.join(DTYPES)}")
     if sweeps_per_call < 1:
         raise ValueError("sweeps_per_call must be >= 1")
     if t0_fixed is not None and t0_fixed < 1:
         raise ValueError(f"block (t0) {t0_fixed} must be >= 1")
     interior_shape = tuple(int(n) for n in interior_shape)
     k, r = sweeps_per_call, spec.radius
+    itemsize = torch_dtype(dtype).itemsize
     if tiles is None:
-        tiles = choose_tiles(spec, interior_shape, k, t0_fixed)
+        tiles = choose_tiles(spec, interior_shape, k, t0_fixed, dtype)
         if tiles is None:
             raise ValueError(
                 f"no tile of {interior_shape} at k={k}"
@@ -153,10 +161,10 @@ def make_slab_plan(spec: StencilSpec, interior_shape, dtype="float32",
     if len(tiles) != 2 or any(t < 1 or t > n
                               for t, n in zip(tiles, interior_shape)):
         raise ValueError(f"tiles {tiles} must lie in [1, {interior_shape}]")
-    if _smem_bytes(tiles, k, r) > SMEM_LIMIT:
+    if _smem_bytes(tiles, k, r, itemsize) > SMEM_LIMIT:
         raise ValueError(
             f"tiles {tiles} at k={k}, r={r} need "
-            f"{_smem_bytes(tiles, k, r)} bytes of shared memory "
+            f"{_smem_bytes(tiles, k, r, itemsize)} bytes of shared memory "
             f"> {SMEM_LIMIT}")
     return SlabPlan(spec=spec, interior_shape=interior_shape, dtype=dtype,
                     sweeps_per_call=k, tiles=tiles,

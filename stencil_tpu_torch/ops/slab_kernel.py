@@ -1,13 +1,13 @@
 """The hand-written CUDA kernel ``csrc/slab_sweep.cu`` (2D), its wrapper
 and its plain PyTorch version.
 
-The kernel replaces ``stencil_tpu/ops/pallas.py:build_sweep`` on 2D grids,
-in its homogeneous mode and in its source mode (``has_source``): one
-launch runs k sweeps of a ``StencilSpec`` over a deep-halo padded fp32
-tensor, Dirichlet ghosts held constant, tiled in both dims where the TPU
-kernel streams full-width slabs; with the TPU kernel's lead-dim ``pins``, a
-periodic or Neumann d0 face is live, its refreshed ghost rows updated like
-interior rows. See the source's header for its design and what bounds it.
+The kernel replaces ``stencil_tpu/ops/pallas.py:build_sweep`` on 2D grids, in
+its homogeneous mode and in its source mode (``has_source``): one launch runs k
+sweeps of a ``StencilSpec`` over a deep-halo padded float32 or bfloat16 tensor,
+Dirichlet ghosts held constant, tiled in both dims where the TPU kernel streams
+full-width slabs; with the TPU kernel's lead-dim ``pins``, a periodic or
+Neumann d0 face is live, its refreshed ghost rows updated like interior rows.
+See the source's header for its design and what bounds it.
 
 ``slab_sweep(cur, nxt, plan, src=None, pins=None)`` takes the plain version
 (:func:`sweep_reference`: ``plan.sweeps_per_call`` eager sweeps, the
@@ -31,6 +31,10 @@ REPLACES = "stencil_tpu/ops/pallas.py:280"
 REPLACES_MODE = {
     "slab_sweep+pins": "stencil_tpu/ops/pallas.py:575",
     "slab_sweep+source+pins": "stencil_tpu/ops/pallas.py:575",
+    # the same kernel at dtype=bfloat16 (the slab's dtype, :292)
+    "slab_sweep+bf16": "stencil_tpu/ops/pallas.py:292",
+    "slab_sweep+source+bf16": "stencil_tpu/ops/pallas.py:586",
+    "slab_sweep+pins+bf16": "stencil_tpu/ops/pallas.py:575",
 }
 
 slab_sweep = SweepKernel("slab_sweep", SOURCE, REPLACES, ndim=2)

@@ -33,6 +33,14 @@ plan with ``coeff_scales`` (heterogeneous diffusion),
 center is ``c0 + cs * (sum of the six face means)``; it takes (nb, c0, cs)
 as float32[3].
 
+Each entry has a twin for bfloat16 tensors, ``stencil_<name>..._bf16``
+(none for the coefficient mode, which is float32 only, as in JAX): the
+same arguments, the windows and every tensor in bfloat16, every add and
+multiply computed in float32 and rounded to bfloat16, as the plain version
+computes them in torch. The tap weights and the mode's coefficients travel
+as float32 either way, each rounded once to the plan dtype on the host
+(:func:`~stencil_tpu_torch.ops.eager.round_to`).
+
 A wrapper takes the plain version only for tensors on the CPU (the tests);
 for CUDA tensors it launches the kernel or raises. :class:`KernelStencil`
 is the iterate both user-facing handles (``TiledStencil``,
@@ -50,39 +58,45 @@ import numpy as np
 import torch
 
 from stencil_tpu_torch import _build
-from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid, check_device
+from stencil_tpu_torch.core.grid import (
+    DirichletBC, HaloGrid, check_device, torch_dtype,
+)
 from stencil_tpu_torch.ops import eager
+from stencil_tpu_torch.ops.eager import round_to
 from stencil_tpu_torch.ops.layout import pad_source, refresh_dynamic_layout
 
 TAPS_HEADER = _build.PACKAGE_DIR / "csrc" / "stencil_taps.cuh"
 
 
-def tap_table(spec):
+def tap_table(spec, dtype="float32"):
     """The spec's taps in ``weight_groups`` order, as the kernels take
     them: (offsets int32[ntaps*ndim], group sizes int32, group weights
-    float32, uniform flag, uniform weight)."""
+    float32, uniform flag, uniform weight), each weight rounded once to
+    ``dtype`` (the plan's), as the plain version multiplies by it."""
     groups = spec.weight_groups()
     offsets = np.asarray([off for _, offs in groups for off in offs],
                          dtype=np.int32).reshape(-1)
     sizes = np.asarray([len(offs) for _, offs in groups], dtype=np.int32)
-    weights = np.asarray([w for w, _ in groups], dtype=np.float32)
+    weights = np.asarray([round_to(w, dtype) for w, _ in groups],
+                         dtype=np.float32)
     uw = spec.uniform_weight
-    return offsets, sizes, weights, uw is not None, float(
-        np.float32(uw if uw is not None else 0.0))
+    return offsets, sizes, weights, uw is not None, round_to(
+        uw if uw is not None else 0.0, dtype)
 
 
 def cheby_of(plan) -> Tuple[Tuple[float, float, float, float], ...]:
-    """The plan's Chebyshev coefficients, each rounded to float32 once
-    (kernel and plain version use these values); () outside that mode."""
-    return tuple(tuple(float(np.float32(v)) for v in c)
+    """The plan's Chebyshev coefficients, each rounded once to the plan
+    dtype (kernel and plain version use these values, exact in float32);
+    () outside that mode."""
+    return tuple(tuple(round_to(v, plan.dtype) for v in c)
                  for c in getattr(plan, "cheby_coeffs", ()))
 
 
 def coeff_of(plan) -> Tuple[float, ...]:
-    """The plan's coefficient-mode scales (nb, c0, cs), each rounded to
-    float32 once (kernel and plain version use these values); () outside
-    that mode."""
-    return tuple(float(np.float32(v))
+    """The plan's coefficient-mode scales (nb, c0, cs), each rounded once
+    to the plan dtype, float32 (kernel and plain version use these
+    values); () outside that mode."""
+    return tuple(round_to(v, plan.dtype)
                  for v in getattr(plan, "coeff_scales", ()))
 
 
@@ -99,7 +113,7 @@ def launch_tables(plan, pins: Tuple[int, ...]):
     c0, cs), empty otherwise), built once per plan and pins rather than per
     launch."""
     return (np.asarray((*plan.kernel_geometry(), *pins), dtype=np.int32),
-            *tap_table(plan.spec),
+            *tap_table(plan.spec, plan.dtype),
             np.asarray(cheby_of(plan) or coeff_of(plan),
                        dtype=np.float32).reshape(-1))
 
@@ -145,7 +159,8 @@ def _with_ghosts_of(cur: torch.Tensor, plan, result: torch.Tensor,
 def _cheby_reference(cur: torch.Tensor, plan, src: torch.Tensor):
     """Plain version of the Chebyshev modes, in the kernel's per-point
     order: ``((n*S(u) + c*u) + s*f) + pv*prev``, each a whole-array eager
-    op with the float32-rounded coefficient, no ``prev`` term at t = 1."""
+    op with the coefficient rounded to the plan dtype, no ``prev`` term at
+    t = 1."""
     h = plan.layout.halo
     idx = plan.layout.interior_index
     f = src[idx]
@@ -249,7 +264,11 @@ def sweep_reference(cur: torch.Tensor, plan,
     pair ``(sweep k, sweep k-1)``, the residual and the smoothed iterate. A
     ``two_level`` plan runs the leapfrog from ``(cur, prev)`` and returns
     the pair ``(sweep k, sweep k-1)``; a plan with ``coeff_scales`` runs
-    the coefficient operator of the padded ``coeff``."""
+    the coefficient operator of the padded ``coeff``.
+
+    In bfloat16 every op is torch's: computed in float32 and rounded to
+    bfloat16, each scalar rounded to bfloat16 first (:func:`cheby_of`,
+    ``eager.apply_spec``), the rule the kernels' bf16 entries follow."""
     pins = all_pinned(len(plan.interior_shape)) if pins is None \
         else tuple(int(p) for p in pins)
     if getattr(plan, "two_level", False):
@@ -278,7 +297,8 @@ class SweepKernel:
     two-level mode and ``coeff_launches`` in coefficient mode. Launches
     with a live face are counted again by mode: ``pins_launches`` in the
     homogeneous mode, ``source_pins_launches``, ``two_level_pins_launches``
-    and ``coeff_pins_launches``.
+    and ``coeff_pins_launches``; launches of a bfloat16 plan again in
+    ``bf16_launches``.
 
     ``name`` names the library and its C entry ``stencil_<name>``;
     ``source`` is the ``.cu`` file; ``replaces`` is where the TPU kernel
@@ -287,7 +307,7 @@ class SweepKernel:
     MODE_COUNTS = ("source_launches", "cheby_launches", "dual_launches",
                    "two_level_launches", "coeff_launches", "pins_launches",
                    "source_pins_launches", "two_level_pins_launches",
-                   "coeff_pins_launches")
+                   "coeff_pins_launches", "bf16_launches")
 
     def __init__(self, name: str, source: Path, replaces: str, ndim: int):
         self.name = name
@@ -314,7 +334,8 @@ class SweepKernel:
     def _entry(self):
         """The library's C entries by mode: ``plain`` (also the source
         mode), ``error``, and where the source has them ``cheby``,
-        ``two_level`` and ``coeff``."""
+        ``two_level`` and ``coeff``; each mode's bfloat16 twin, where the
+        source has it, under the mode's name + ``_bf16``."""
         lib = ctypes.CDLL(str(self.build().path))
         P, I = ctypes.c_void_p, ctypes.c_int
         taps = [
@@ -343,11 +364,12 @@ class SweepKernel:
         }
         entries = {}
         for suffix, args in argtypes.items():
-            fn = getattr(lib, f"stencil_{self.name}{suffix}", None)
-            if fn is not None:
-                fn.restype = ctypes.c_int
-                fn.argtypes = args + taps
-            entries[suffix.lstrip("_") or "plain"] = fn
+            for twin in ("", "_bf16"):
+                fn = getattr(lib, f"stencil_{self.name}{suffix}{twin}", None)
+                if fn is not None:
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = args + taps
+                entries[(suffix.lstrip("_") or "plain") + twin] = fn
         err = getattr(lib, f"stencil_{self.name}_error")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
@@ -376,12 +398,14 @@ class SweepKernel:
             raise ValueError(
                 f"pins {pins}: the Chebyshev modes run on static "
                 "Dirichlet walls (multigrid refuses dynamic BCs upstream)")
-        if plan.dtype != "float32":
-            raise ValueError(f"{self.name} dtype {plan.dtype!r}: only "
-                             "float32 is ported")
+        if plan.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"{self.name} dtype {plan.dtype!r}: float32 "
+                             "or bfloat16")
         dual = cheby and plan.cheby_dual
         two_level = getattr(plan, "two_level", False)
         has_coeff = getattr(plan, "has_coeff", False)
+        if has_coeff and plan.dtype != "float32":
+            raise ValueError("the coefficient mode runs in float32 only")
         if cheby and src is None:
             raise ValueError("a cheby_coeffs plan needs the padded source f")
         if (dual or two_level) != (out2 is not None):
@@ -399,9 +423,11 @@ class SweepKernel:
         tensors = [(name, t) for name, t in (
             ("cur", cur), ("nxt", nxt), ("src", src), ("out2", out2),
             ("prev", prev), ("coeff", coeff)) if t is not None]
+        want = torch_dtype(plan.dtype)
         for name, t in tensors:
-            if t.dtype != torch.float32:
-                raise ValueError(f"{name} dtype {t.dtype} != torch.float32")
+            if t.dtype != want:
+                raise ValueError(f"{name} dtype {t.dtype} != plan dtype "
+                                 f"{want}")
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name} shape {tuple(t.shape)} != padded "
                                  f"layout {shape}")
@@ -481,14 +507,17 @@ class SweepKernel:
             mode = "plain"
             args = (cur.data_ptr(), nxt.data_ptr(),
                     src.data_ptr() if src is not None else None, *geometry)
-        fn = entries[mode]
+        bf16 = plan.dtype == "bfloat16"
+        fn = entries[mode + ("_bf16" if bf16 else "")]
         if fn is None:
-            raise ValueError(f"{self.name} has no {mode} mode")
+            raise ValueError(f"{self.name} has no {mode} mode in "
+                             f"{plan.dtype}")
         rc = fn(*args, *taps)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed ({rc}): "
                                f"{entries['error'](rc).decode()}")
         self.launches += 1
+        self.bf16_launches += bf16
         live = not all(pins)
         if mode == "two_level":
             self.two_level_launches += 1
@@ -610,9 +639,10 @@ class KernelStencil:
         if getattr(plan, "cheby_dual", False):
             raise ValueError("a cheby_dual plan has two outputs; run it "
                              "through ops.tiled.cheby_dual, not iterate")
-        if grid.dtype != torch.float32:
+        if grid.dtype != torch_dtype(plan.dtype):
             raise ValueError(f"grid dtype {grid.dtype} != plan dtype "
-                             f"{plan.dtype}")
+                             f"{plan.dtype}; pass dtype= when "
+                             "constructing the stencil")
         if grid.device != self.device:
             raise ValueError(f"grid on {grid.device}, stencil on "
                              f"{self.device}")

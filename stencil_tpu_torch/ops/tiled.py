@@ -30,7 +30,8 @@ call.
 The plan is new, not a port of the TPU's ``choose_tiles``: a CUDA block
 holds one output tile of (t0, t1, t2) points plus its k*r-deep window in
 shared memory, at most 227 KB (232,448 bytes) on sm_90, two window buffers
-when k > 1. Among the tiles that fit, the chooser takes the one of least
+when k > 1, each point ``plan.itemsize`` bytes (4 in float32, 2 in
+bfloat16). Among the tiles that fit, the chooser takes the one of least
 estimated time per output point: the warp slots of the window load and of
 the k shrinking sweeps, discounted by the blocks that fit on one SM
 (:func:`_cost`, fitted to a tile sweep measured on an H100).
@@ -46,11 +47,12 @@ import itertools
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
+from stencil_tpu_torch.core.grid import (
+    DirichletBC, HaloGrid, dtype_name, torch_dtype,
+)
 from stencil_tpu_torch.core.spec import StencilSpec
 from stencil_tpu_torch.ops.layout import PaddedLayout, refresh_dynamic_layout
 from stencil_tpu_torch.ops.sweep_kernel import (  # noqa: F401 (re-export)
@@ -62,7 +64,7 @@ SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
 SM_SHARED = 233_472    # bytes of shared memory per SM; 1 KB more per block
 MAX_BLOCKS_PER_SM = 4  # 2048 threads per SM / 512 per block
 MAX_CHEBY_SWEEPS = 16  # coefficient tuples the kernel takes per launch
-_ITEMSIZE = 4          # float32
+DTYPES = ("float32", "bfloat16")  # the kernels' element types
 
 _T0_CANDIDATES = (1, 2, 4, 8, 16)
 _T1_CANDIDATES = (2, 4, 8, 16, 32)
@@ -105,6 +107,11 @@ class TiledPlan:
         return bool(self.coeff_scales)
 
     @property
+    def itemsize(self) -> int:
+        """Bytes per point of the padded tensors and the windows."""
+        return torch_dtype(self.dtype).itemsize
+
+    @property
     def halo(self) -> int:
         """Window overfetch per side, k*r."""
         return self.sweeps_per_call * self.spec.radius
@@ -124,7 +131,7 @@ class TiledPlan:
         k > 1 (the Chebyshev, dual and two-level modes write u_t over
         u_{t-2}; the coefficient mode reads a(x) from global memory)."""
         return _smem_bytes(self.tiles, self.sweeps_per_call,
-                           self.spec.radius)
+                           self.spec.radius, self.itemsize)
 
     def tile_starts(self, d: int) -> Tuple[int, ...]:
         """Interior start of each tile along dim ``d``; the last one is
@@ -157,18 +164,19 @@ class TiledPlan:
             cheby_dual=self.cheby_dual and k == self.sweeps_per_call)
 
 
-def _smem_bytes(tiles, k: int, r: int) -> int:
+def _smem_bytes(tiles, k: int, r: int, itemsize: int = 4) -> int:
     return (1 if k == 1 else 2) * math.prod(t + 2 * k * r for t in tiles) \
-        * _ITEMSIZE
+        * itemsize
 
 
-def _cost(tiles, k: int, spec: StencilSpec) -> float:
+def _cost(tiles, k: int, spec: StencilSpec, itemsize: int = 4) -> float:
     """Estimated time per output point of a tile: the warp slots of the
     window load (32 points each) and of the k sweeps (a row of c points
     takes ceil(c / 32) slots of ``num_taps + _ROW_COST``), divided by the
     latency hiding that resident blocks buy, ``min(blocks, 3) ** 0.25``.
-    On the sweep it was fitted to, it picks within 20% of the fastest
-    tile at every k, for jacobi7 and jacobi27."""
+    On the sweep it was fitted to (float32), it picks within 20% of the
+    fastest tile at every k, for jacobi7 and jacobi27; in bfloat16 the
+    same model counts 2-byte windows."""
     r = spec.radius
     w = [t + 2 * k * r for t in tiles]
     slots = math.prod(w) / 32
@@ -177,7 +185,7 @@ def _cost(tiles, k: int, spec: StencilSpec) -> float:
         slots += (w[0] - 2 * e) * (w[1] - 2 * e) * -(-(w[2] - 2 * e) // 32) \
             * (spec.num_taps + _ROW_COST)
     blocks = min(MAX_BLOCKS_PER_SM, _BLOCKS_SATURATE,
-                 SM_SHARED // (_smem_bytes(tiles, k, r) + 1024))
+                 SM_SHARED // (_smem_bytes(tiles, k, r, itemsize) + 1024))
     return slots / math.prod(tiles) / max(1, blocks) ** 0.25
 
 
@@ -189,20 +197,23 @@ def _t2_candidates(kr: int) -> Tuple[int, ...]:
 
 
 def choose_tiles(spec: StencilSpec, interior_shape, sweeps_per_call: int,
-                 t0_fixed: Optional[int] = None
+                 t0_fixed: Optional[int] = None, dtype="float32"
                  ) -> Optional[Tuple[int, int, int]]:
-    """The feasible tile of least estimated cost (:func:`_cost`); ties go
-    to the wider d2 extent. None if nothing fits."""
+    """The feasible tile of least estimated cost (:func:`_cost`) for
+    windows of ``dtype``; ties go to the wider d2 extent. None if nothing
+    fits."""
     k, r = sweeps_per_call, spec.radius
+    itemsize = torch_dtype(dtype).itemsize
     n0, n1, n2 = interior_shape
     t0s = (t0_fixed,) if t0_fixed is not None else _T0_CANDIDATES
     best, best_key = None, None
     for t0, t1, t2 in itertools.product(t0s, _T1_CANDIDATES,
                                         _t2_candidates(k * r)):
         tiles = (min(t0, n0), min(t1, n1), min(t2, n2))
-        if _smem_bytes(tiles, k, r) > SMEM_LIMIT:
+        if _smem_bytes(tiles, k, r, itemsize) > SMEM_LIMIT:
             continue
-        key = (_cost(tiles, k, spec), -tiles[2], -math.prod(tiles))
+        key = (_cost(tiles, k, spec, itemsize), -tiles[2],
+               -math.prod(tiles))
         if best_key is None or key < best_key:
             best, best_key = tiles, key
     return best
@@ -247,7 +258,7 @@ def _check_modes(spec: StencilSpec, dtype, has_source: bool,
     ``make_tiled_plan`` (``pallas_tiled.py:447-463, 477-491``, the same
     messages); returns the coefficient scales as a float 3-tuple, or ()."""
     if coeff_scales is not None:
-        if np.dtype(dtype).itemsize != 4:
+        if torch_dtype(dtype).itemsize != 4:
             raise ValueError(
                 "coeff tap mode needs a 4-byte dtype (its d1 shifts are "
                 "sublane rotates, which have no Mosaic-safe lowering "
@@ -294,19 +305,21 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     from global memory), so the chooser counts them the same."""
     if spec.ndim != 3 or len(interior_shape) != 3:
         raise ValueError("tiled kernel is 3D-only")
+    dtype = dtype_name(torch_dtype(dtype))
     scales = _check_modes(spec, dtype, has_source, two_level, coeff_scales,
                           cheby_coeffs)
-    if dtype != "float32":
-        raise ValueError(f"tiled kernel dtype {dtype!r}: only float32 is "
-                         "ported (bf16 is a later item)")
+    if dtype not in DTYPES:
+        raise ValueError(f"tiled kernel dtype {dtype!r}: the kernel takes "
+                         f"{' or '.join(DTYPES)}")
     if sweeps_per_call < 1:
         raise ValueError("sweeps_per_call must be >= 1")
     coeffs = _check_cheby(spec, sweeps_per_call, has_source, cheby_coeffs,
                           cheby_dual)
     interior_shape = tuple(int(n) for n in interior_shape)
     k, r = sweeps_per_call, spec.radius
+    itemsize = torch_dtype(dtype).itemsize
     if tiles is None:
-        tiles = choose_tiles(spec, interior_shape, k, t0_fixed)
+        tiles = choose_tiles(spec, interior_shape, k, t0_fixed, dtype)
         if tiles is None:
             raise ValueError(
                 f"no tile of {interior_shape} at k={k} fits "
@@ -314,10 +327,10 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     tiles = tuple(int(t) for t in tiles)
     if any(t < 1 or t > n for t, n in zip(tiles, interior_shape)):
         raise ValueError(f"tiles {tiles} must lie in [1, {interior_shape}]")
-    if _smem_bytes(tiles, k, r) > SMEM_LIMIT:
+    if _smem_bytes(tiles, k, r, itemsize) > SMEM_LIMIT:
         raise ValueError(
             f"tiles {tiles} at k={k}, r={r} need "
-            f"{_smem_bytes(tiles, k, r)} bytes of shared memory "
+            f"{_smem_bytes(tiles, k, r, itemsize)} bytes of shared memory "
             f"> {SMEM_LIMIT}")
     return TiledPlan(spec=spec, interior_shape=interior_shape, dtype=dtype,
                      sweeps_per_call=k, tiles=tiles,

@@ -3,7 +3,7 @@ and its plain PyTorch version.
 
 The kernel replaces ``stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep``
 in six modes: homogeneous and source (``has_source``), where one launch
-runs k sweeps of a ``StencilSpec`` over a deep-halo padded fp32 tensor,
+runs k sweeps of a ``StencilSpec`` over a deep-halo padded tensor,
 Dirichlet ghosts held constant, optionally adding a padded pre-scaled
 source after the taps of every interior update; the Chebyshev
 (``cheby_coeffs``) and dual (``cheby_dual``) modes of the multigrid fine
@@ -11,8 +11,10 @@ level; the two-level mode (``two_level``) of the wave equation; and the
 coefficient mode (``coeff_scales``) of heterogeneous diffusion. The
 homogeneous, source, two-level and coefficient modes also take the TPU
 kernel's ``pins``: a periodic or Neumann face of d0 or d1 is live, its
-refreshed ghosts updated like interior points. See the source's header for
-its design and what bounds it.
+refreshed ghosts updated like interior points. Every mode but the
+coefficient one runs in float32 or bfloat16 (the plan's dtype; separate C
+entries per type). See the source's header for its design and what bounds
+it.
 
 ``tiled_sweep(cur, nxt, plan, src=None, pins=None, out2=None, prev=None,
 coeff=None)`` takes the plain
@@ -43,6 +45,18 @@ REPLACES_MODE = {
     "tiled_sweep+source+pins": "stencil_tpu/ops/pallas_tiled.py:1270",
     "tiled_sweep+two_level+pins": "stencil_tpu/ops/pallas_tiled.py:1270",
     "tiled_sweep+coeff+pins": "stencil_tpu/ops/pallas_tiled.py:1270",
+    # the same kernel at dtype=bfloat16 (its dtype taken from the plan,
+    # :721), each bf16 mode beside the body of its fp32 mode; the coeff
+    # mode needs a 4-byte dtype (:451-455)
+    "tiled_sweep+bf16": "stencil_tpu/ops/pallas_tiled.py:721",
+    "tiled_sweep+source+bf16": "stencil_tpu/ops/pallas_tiled.py:1326",
+    "tiled_sweep+cheby+bf16": "stencil_tpu/ops/pallas_tiled.py:1433",
+    "tiled_sweep+dual+bf16": "stencil_tpu/ops/pallas_tiled.py:1476",
+    "tiled_sweep+two_level+bf16": "stencil_tpu/ops/pallas_tiled.py:1374",
+    "tiled_sweep+pins+bf16": "stencil_tpu/ops/pallas_tiled.py:1270",
+    "tiled_sweep+source+pins+bf16": "stencil_tpu/ops/pallas_tiled.py:1270",
+    "tiled_sweep+two_level+pins+bf16":
+        "stencil_tpu/ops/pallas_tiled.py:1270",
 }
 
 tiled_sweep = SweepKernel("tiled_sweep", SOURCE, REPLACES, ndim=3)

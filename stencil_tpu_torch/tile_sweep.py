@@ -1,4 +1,5 @@
-"""Tile sweep of the 2D slab kernel, and the score and fit of its chooser.
+"""Tile sweeps of the sweep kernels, and the score and fit of the 2D
+chooser.
 
 Measure, on a card: for each case of ``CASES`` one launch of
 ``csrc/slab_sweep.cu`` is timed (CUDA events) at every tile of a grid of
@@ -18,6 +19,16 @@ each case picking among its measured tiles as the chooser would:
 ``data/slab_tiles_h100_fit.csv`` holds the rows the constants were fitted
 to; ``data/slab_tiles_h100_check.csv`` a later sweep with the fitted
 chooser.
+
+``--dtype bfloat16`` times the kernels' bf16 entries, whose windows take 2
+bytes per point. ``--dims 3`` times the 3D tiled kernel instead, at the
+cases of ``CASES_3D`` (cfg3's and cfg4's shapes), every tile of its
+chooser's candidates (``ops/tiled.py``) that fits, and prints per case the
+chooser's pick against the fastest tile (its cost model was fitted in
+float32; this checks it at 2-byte windows):
+
+    python -m stencil_tpu_torch.tile_sweep --dims 3 --dtype bfloat16 \
+        --out rows3d.csv
 """
 
 from __future__ import annotations
@@ -33,7 +44,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from stencil_tpu_torch.core.grid import torch_dtype
 from stencil_tpu_torch.core.spec import get_spec
+from stencil_tpu_torch.ops import tiled
 from stencil_tpu_torch.ops.slab import (
     COST_CONSTANTS, SMEM_LIMIT, _t1_candidates, candidate_tiles,
     choose_tiles, make_slab_plan, tile_key,
@@ -59,22 +72,36 @@ T1_GRID = (16, 24, 32, 48, 56, 64, 88, 96, 120, 128, 184, 192, 248, 256)
 FIT_GRID = ((0, 50, 100, 200, 300, 400, 600), (0, 0.25, 0.5, 1, 2),
             (0, 2, 4, 6, 8, 12, 16))
 FIELDS = ("spec", "n0", "n1", "k", "t0_fixed", "t0", "t1", "ms")
+# the 3D cases: cfg3 (bench.py:80-81) and cfg4 (:82-83, :91-92)
+CASES_3D = (("jacobi7", (256, 256, 256), 8, None),
+            ("laplace3d_ho", (384, 384, 384), 4, None))
+FIELDS_3D = ("spec", "n0", "n1", "n2", "k", "dtype", "t0", "t1", "t2", "ms")
 
 Case = Tuple[str, Tuple[int, int], int, Optional[int]]
 
 
-def sweep_tiles(spec_name: str, shape, k: int,
-                t0_fixed: Optional[int]) -> List[Tuple[int, int]]:
-    """The tiles one case times: the grid (t0 pinned when ``t0_fixed``),
-    the chooser's t1 candidates and its pick, clamped, those that fit."""
+def sweep_tiles(spec_name: str, shape, k: int, t0_fixed: Optional[int],
+                dtype="float32") -> List[Tuple[int, ...]]:
+    """The tiles one case times, those that fit at ``dtype``'s item size.
+    2D: the grid (t0 pinned when ``t0_fixed``), the chooser's t1
+    candidates and its pick, clamped. 3D: the 3D chooser's candidates
+    and its pick, clamped."""
     spec = get_spec(spec_name)
-    t0s = (t0_fixed,) if t0_fixed is not None else T0_GRID
-    t1s = set(T1_GRID) | set(_t1_candidates(k * spec.radius))
-    tiles = {(min(t0, shape[0]), min(t1, shape[1]))
-             for t0, t1 in itertools.product(t0s, t1s)}
-    tiles.add(choose_tiles(spec, shape, k, t0_fixed))
+    itemsize = torch_dtype(dtype).itemsize
+    if len(shape) == 3:
+        tiles = {tuple(min(t, n) for t, n in zip(cand, shape))
+                 for cand in itertools.product(
+                     tiled._T0_CANDIDATES, tiled._T1_CANDIDATES,
+                     tiled._t2_candidates(k * spec.radius))}
+        tiles.add(tiled.choose_tiles(spec, shape, k, t0_fixed, dtype))
+    else:
+        t0s = (t0_fixed,) if t0_fixed is not None else T0_GRID
+        t1s = set(T1_GRID) | set(_t1_candidates(k * spec.radius))
+        tiles = {(min(t0, shape[0]), min(t1, shape[1]))
+                 for t0, t1 in itertools.product(t0s, t1s)}
+        tiles.add(choose_tiles(spec, shape, k, t0_fixed, dtype))
     return sorted(t for t in tiles
-                  if _smem_bytes(t, k, spec.radius) <= SMEM_LIMIT)
+                  if _smem_bytes(t, k, spec.radius, itemsize) <= SMEM_LIMIT)
 
 
 def gpu_label() -> str:
@@ -84,13 +111,17 @@ def gpu_label() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def measure(out: Path, cases: Sequence[Case] = CASES, seed: int = 0) -> None:
+def measure(out: Path, cases: Sequence[Case] = CASES, seed: int = 0,
+            dtype="float32") -> None:
     """Time one launch at every tile of every case on the current CUDA
-    device; writes the rows to ``out``."""
+    device, the grid in ``dtype``; writes the rows to ``out`` (2D cases as
+    ``FIELDS``, 3D cases as ``FIELDS_3D``). A 3D case prints the chooser's
+    pick against the fastest tile."""
     import torch
 
     from stencil_tpu_torch.core.grid import HaloGrid
     from stencil_tpu_torch.ops.slab_kernel import slab_sweep
+    from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
     from stencil_tpu_torch.utils.timing import timed
 
     if not torch.cuda.is_available():
@@ -100,29 +131,43 @@ def measure(out: Path, cases: Sequence[Case] = CASES, seed: int = 0) -> None:
     label = gpu_label()
     print(label)
     rng = np.random.default_rng(seed)
+    three_d = len(cases[0][1]) == 3
     with open(out, "w", newline="") as fh:
-        fh.write(f"# {label}\n")
+        fh.write(f"# {label}, {dtype}\n")
         writer = csv.writer(fh)
-        writer.writerow(FIELDS)
+        writer.writerow(FIELDS_3D if three_d else FIELDS)
         for name, shape, k, t0_fixed in cases:
             spec = get_spec(name)
             x = torch.from_numpy(rng.random(shape, dtype=np.float32))
-            grid = HaloGrid.from_interior(x, halo=spec.radius,
-                                          device=device)
+            grid = HaloGrid.from_interior(x.to(torch_dtype(dtype)),
+                                          halo=spec.radius, device=device)
             reps = max(5, min(200, int(2e8 / (math.prod(shape) * k))))
-            for tiles in sweep_tiles(name, shape, k, t0_fixed):
-                plan = make_slab_plan(spec, shape, "float32", k, tiles=tiles)
+            make, kernel = ((tiled.make_tiled_plan, tiled_sweep) if three_d
+                            else (make_slab_plan, slab_sweep))
+            times = {}
+            for tiles in sweep_tiles(name, shape, k, t0_fixed, dtype):
+                plan = make(spec, shape, dtype, k, tiles=tiles)
                 cur = plan.layout.pad_grid(grid)
                 nxt = cur.clone()
-                slab_sweep(cur, nxt, plan)
-                ms = timed(lambda: [slab_sweep(cur, nxt, plan)
+                kernel(cur, nxt, plan)
+                ms = timed(lambda: [kernel(cur, nxt, plan)
                                     for _ in range(reps)], device) \
                     / reps * 1e3
-                writer.writerow((name, *shape, k,
-                                 "" if t0_fixed is None else t0_fixed,
-                                 *tiles, repr(ms)))
+                times[tiles] = ms
+                if three_d:
+                    writer.writerow((name, *shape, k, dtype, *tiles,
+                                     repr(ms)))
+                else:
+                    writer.writerow((name, *shape, k,
+                                     "" if t0_fixed is None else t0_fixed,
+                                     *tiles, repr(ms)))
             fh.flush()
-            print(f"{name} {shape} k={k} t0_fixed={t0_fixed}: done")
+            pick = make(spec, shape, dtype, k, t0_fixed=t0_fixed).tiles
+            best = min(times, key=times.get)
+            print(f"{name} {shape} k={k} t0_fixed={t0_fixed} {dtype}: "
+                  f"{len(times)} tiles; chooser {pick} {times[pick]:.4f} "
+                  f"ms, fastest {best} {times[best]:.4f} ms, "
+                  f"{times[pick] / times[best]:.3f}x [{label}]")
             sys.stdout.flush()
 
 
@@ -180,11 +225,19 @@ def main(argv=None) -> int:
                     help="score the chooser against this CSV's rows")
     ap.add_argument("--fit", action="store_true",
                     help="with --score: refit the cost constants")
+    ap.add_argument("--dtype", default="float32",
+                    choices=list(tiled.DTYPES),
+                    help="with --out: the grid's dtype (the kernels' bf16 "
+                         "entries take 2-byte windows)")
+    ap.add_argument("--dims", type=int, default=2, choices=(2, 3),
+                    help="with --out: 2 (the slab kernel, CASES) or 3 (the "
+                         "tiled kernel, CASES_3D)")
     args = ap.parse_args(argv)
     if args.out is None and args.score is None:
         ap.error("give --out (measure) or --score (score, fit)")
     if args.out is not None:
-        measure(args.out)
+        measure(args.out, CASES_3D if args.dims == 3 else CASES,
+                dtype=args.dtype)
     if args.score is not None:
         cases = read_rows(args.score)
         results = score(cases)

@@ -487,3 +487,195 @@ def test_wave_pins_with_remainder_matches_eager(cuda_device):
     for g, w in zip(got, want):
         assert (g.data - w.data).abs().max().item() \
             <= 1e-6 * w.data.abs().max().item()
+
+
+# ---- bfloat16: every mode but the coefficient one ---------------------------
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16)
+
+
+def _bf16_input(plan, shape, radius, device, bc=None, seed=1, tiny=False):
+    """A bf16 padded input of ``plan`` with ``bc`` (refreshed when dynamic):
+    random values, or with ``tiny`` values near 0 (fp32 subnormals and
+    signed zeros), where the rounding after each op meets the subnormal
+    range."""
+    from stencil_tpu_torch.ops.layout import refresh_dynamic_layout
+
+    bc = bc if bc is not None else (BC3 if len(shape) == 3 else BC2)
+    x = np.random.default_rng(seed).random(shape).astype(np.float32)
+    if tiny:
+        x = (x - 0.5) * np.float32(1e-37)
+        x[::3] = 0.0
+        x[1::5] = -0.0
+        bc = DirichletBC(values=((1e-38, -1e-39),) * len(shape),
+                         periodic=bc.periodic, neumann=bc.neumann)
+    g = HaloGrid.from_interior(_bf16(torch.from_numpy(x)), halo=radius,
+                               bc=bc, device=device)
+    return refresh_dynamic_layout(plan.layout.pad_grid(g), plan.layout, bc,
+                                  plan.halo)
+
+
+@pytest.mark.parametrize("name,shape,k,periodic,neumann,tiny", [
+    ("jacobi7", (64, 48, 40), 8, (), (), False),
+    ("jacobi7", (57, 50, 46), 3, (), (), False),
+    ("jacobi7", (57, 50, 46), 3, (), (), True),
+    ("jacobi27", (33, 20, 41), 4, (), (), False),
+    ("laplace3d_ho", (30, 31, 32), 4, (), (), False),
+    ("star3d_r2", (30, 31, 32), 2, (), (), False),
+    ("heat3d", (29, 18, 35), 3, (), (), False),
+    ("jacobi7", (64, 48, 40), 8, (0, 1), (), False),
+    ("jacobi7", (57, 50, 46), 3, (0,), (1,), True),
+    ("laplace3d_ho", (30, 31, 32), 4, (), (0, 1), False)])
+def test_bf16_kernel_matches_plain(cuda_device, name, shape, k, periodic,
+                                   neumann, tiny):
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    sp = HeatDiffusion((8, 8, 8), dt=0.1).spec if name == "heat3d" \
+        else get_spec(name)
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(sp, shape, "bfloat16", k)
+    cur = _bf16_input(plan, shape, sp.radius, cuda_device, bc, tiny=tiny)
+    pins = dynamic_pins(bc, 3)
+    before = (tiled_sweep.bf16_launches, tiled_sweep.pins_launches)
+    got = tiled_sweep(cur, cur.clone(), plan, pins=pins)
+    want = sweep_reference(cur, plan, pins=pins)
+    torch.cuda.synchronize()
+    assert (tiled_sweep.bf16_launches, tiled_sweep.pins_launches) == (
+        before[0] + 1, before[1] + (not all(pins)))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,k,periodic,neumann,tiny", [
+    ((64, 48, 40), 8, (), (), False), ((57, 50, 46), 3, (), (), True),
+    ((57, 50, 46), 3, (0,), (1,), False)])
+def test_bf16_tiled_source_matches_plain(cuda_device, shape, k, periodic,
+                                         neumann, tiny):
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(get_spec("jacobi7"), shape, "bfloat16", k)
+    cur = _bf16_input(plan, shape, 1, cuda_device, bc, tiny=tiny)
+    src = pad_source(plan, _source(shape) * (1e-37 if tiny else 1.0), -0.01,
+                     bc).to(cuda_device)
+    assert src.dtype == torch.bfloat16
+    pins = dynamic_pins(bc, 3)
+    got = tiled_sweep(cur, cur.clone(), plan, src, pins)
+    want = sweep_reference(cur, plan, src, pins=pins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,k,dual,smoother", [
+    ((64, 48, 40), 2, False, "chebyshev"), ((57, 50, 46), 4, False,
+                                            "chebyshev"),
+    ((64, 48, 40), 3, True, "wjacobi"), ((57, 50, 46), 5, True,
+                                         "chebyshev")])
+def test_bf16_cheby_modes_match_plain(cuda_device, shape, k, dual,
+                                      smoother):
+    plan = make_tiled_plan(nbsum_spec(3), shape, "bfloat16", k,
+                           has_source=True,
+                           cheby_coeffs=_cheby_coeffs(shape, k, dual,
+                                                      smoother),
+                           cheby_dual=dual)
+    cur = _bf16_input(plan, shape, 1, cuda_device)
+    src = pad_source(plan, _source(shape), 1.0, BC3).to(cuda_device)
+    if dual:
+        got = tiled_sweep(cur, cur.clone(), plan, src, out2=cur.clone())
+    else:
+        got = (tiled_sweep(cur, cur.clone(), plan, src),)
+    want = sweep_reference(cur, plan, src)
+    want = want if dual else (want,)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape,k,periodic,neumann", [
+    ((64, 48, 40), 8, (), ()), ((33, 20, 41), 1, (), ()),
+    ((57, 50, 46), 3, (0,), (1,))])
+def test_bf16_two_level_matches_plain(cuda_device, shape, k, periodic,
+                                      neumann):
+    from stencil_tpu_torch.models.wave import WaveEquation
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    wave = WaveEquation(shape=shape, dt=0.5, device=cuda_device)
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(wave.spec, shape, "bfloat16", k, two_level=True)
+    cur = _bf16_input(plan, shape, 1, cuda_device, bc, seed=1)
+    prev = _bf16_input(plan, shape, 1, cuda_device, bc, seed=3)
+    pins = dynamic_pins(bc, 3)
+    got = tiled_sweep(cur, cur.clone(), plan, pins=pins, prev=prev,
+                      out2=prev.clone())
+    want = sweep_reference(cur, plan, prev=prev, pins=pins)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name,shape,k,t0,periodic,source,tiny", [
+    ("jacobi5", (512, 512), 16, None, (), False, False),
+    ("jacobi5", (32, 40), 2, None, (), False, True),
+    ("jacobi9", (600, 700), 4, 256, (), False, False),
+    ("star2d_r2", (250, 333), 3, None, (), False, False),
+    ("jacobi5", (300, 257), 4, None, (), True, False),
+    ("jacobi5", (512, 512), 16, None, (0,), False, False),
+    ("jacobi9", (64, 80), 8, None, (0,), True, False)])
+def test_bf16_slab_matches_plain(cuda_device, name, shape, k, t0, periodic,
+                                 source, tiny):
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    sp = get_spec(name)
+    bc = _walls(2, periodic)
+    plan = make_slab_plan(sp, shape, "bfloat16", k, t0_fixed=t0)
+    cur = _bf16_input(plan, shape, sp.radius, cuda_device, bc, tiny=tiny)
+    src = pad_source(plan, _source(shape), -0.01, bc).to(cuda_device) \
+        if source else None
+    pins = dynamic_pins(bc, 2)
+    before = slab_sweep.bf16_launches
+    got = slab_sweep(cur, cur.clone(), plan, src, pins)
+    want = sweep_reference(cur, plan, src, pins=pins)
+    torch.cuda.synchronize()
+    assert slab_sweep.bf16_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,shape,periodic,source", [
+    ("jacobi27", (40, 36, 44), (), False), ("jacobi7", (21, 30, 19), (0,),
+                                            True),
+    ("jacobi5", (61, 75), (0,), True), ("jacobi9", (64, 80), (), False)])
+def test_bf16_iterate_with_remainder_matches_eager(cuda_device, name, shape,
+                                                   periodic, source):
+    """The bf16 runners over a remainder against the eager bf16 iterate,
+    bitwise: both round every op to bf16 in the same order."""
+    from stencil_tpu_torch.ops.eager import round_to
+
+    sp = get_spec(name)
+    bc = _walls(len(shape), periodic)
+    x = np.random.default_rng(1).random(shape).astype(np.float32)
+    g = HaloGrid.from_interior(_bf16(torch.from_numpy(x)), halo=1, bc=bc,
+                               device=cuda_device)
+    f = _source(shape) if source else None
+    stencil = SlabStencil if len(shape) == 2 else TiledStencil
+    got = stencil(sp, shape, "bfloat16", sweeps_per_call=4,
+                  device=cuda_device, source=f,
+                  source_scale=-0.02).iterate(g, 11)
+    scaled = None if f is None else \
+        _bf16(torch.from_numpy(f)).to(cuda_device) \
+        * round_to(-0.02, torch.bfloat16)
+    want = eager.iterate(g, sp, 11, scaled)
+    assert got.data.dtype == torch.bfloat16
+    assert torch.equal(got.data, want.data)
+
+
+def test_bf16_refuses_coeff_and_a_dtype_mix(cuda_device):
+    sp = get_spec("jacobi7")
+    with pytest.raises(ValueError, match="4-byte dtype"):
+        make_tiled_plan(sp, (16, 16, 16), "bfloat16",
+                        coeff_scales=(0.1, 1.0, -0.1))
+    plan = make_tiled_plan(sp, (8, 8, 8), "bfloat16", 2)
+    cur = plan.layout.pad_grid(_grid((8, 8, 8), 1, cuda_device))
+    with pytest.raises(ValueError, match="plan dtype"):
+        tiled_sweep(cur, cur.clone(), plan)

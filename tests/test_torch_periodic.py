@@ -198,16 +198,19 @@ def test_update_boxes_are_the_kernels_update_test(name, shape, k, tiles):
                                                      t, d, p)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name,shape,k,tiles", PLANS + [
     ("jacobi5", (25, 33), 3, None), ("star2d_r2", (40, 24), 4, (8, 8))])
-def test_launch_reads_stay_in_bounds(name, shape, k, tiles):
+def test_launch_reads_stay_in_bounds(name, shape, k, tiles, dtype):
     """Every window lies inside the padded tensor; at sweep t every
     update (live ghosts included) reads its taps inside the window, and in
     the coefficient mode a(x) one cell further, still inside the padded
-    tensor; a source or older level is read at the point itself."""
+    tensor; a source or older level is read at the point itself. In
+    bfloat16 the chooser may pick other tiles (2-byte windows); the
+    geometry holds for them too."""
     sp = tspec.get_spec(name)
     make = make_tiled_plan if len(shape) == 3 else make_slab_plan
-    plan0 = make(sp, shape, "float32", k, tiles=tiles)
+    plan0 = make(sp, shape, dtype, k, tiles=tiles)
     padded = plan0.layout.padded_shape
     for plan in launch_plans(plan0, 1, k - 1):
         for _, window, regions in _kernel_windows(plan):

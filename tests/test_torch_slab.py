@@ -152,8 +152,11 @@ def test_plan_refuses_what_is_not_ported():
     sp = tspec.get_spec("jacobi5")
     with pytest.raises(ValueError, match="2D-only"):
         make_slab_plan(tspec.get_spec("jacobi7"), (16, 16, 16))
-    with pytest.raises(ValueError, match="float32"):
-        make_slab_plan(sp, (16, 16), "bfloat16")
+    # bf16 is ported: its plan builds, with 2-byte windows
+    bf16 = make_slab_plan(sp, (16, 16), "bfloat16")
+    assert bf16.dtype == "bfloat16" and bf16.itemsize == 2
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        make_slab_plan(sp, (16, 16), "float64")
     with pytest.raises(ValueError, match="shared memory"):
         make_slab_plan(sp, (512, 512), "float32", 8, tiles=(256, 256))
     with pytest.raises(ValueError, match="fits"):

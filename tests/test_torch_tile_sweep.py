@@ -90,3 +90,35 @@ def test_cli_scores_and_refuses_nothing_to_do(capsys):
     assert "was not measured" not in out
     with pytest.raises(SystemExit):
         tile_sweep.main([])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", tile_sweep.CASES_3D)
+def test_sweep_tiles_3d_fit_and_hold_the_pick(case, dtype):
+    """``--dims 3``: the 3D chooser's candidates at cfg3's and cfg4's
+    shapes, clamped, that fit at the dtype's item size, its pick among
+    them; 2-byte windows let more (and wider) tiles fit."""
+    from stencil_tpu_torch.ops import tiled
+
+    name, shape, k, t0_fixed = case
+    spec = get_spec(name)
+    itemsize = 2 if dtype == "bfloat16" else 4
+    tiles = tile_sweep.sweep_tiles(name, shape, k, t0_fixed, dtype)
+    assert tiled.choose_tiles(spec, shape, k, t0_fixed, dtype) in tiles
+    assert all(len(t) == 3 for t in tiles)
+    assert all(_smem_bytes(t, k, spec.radius, itemsize) <= SMEM_LIMIT
+               for t in tiles)
+    if dtype == "bfloat16":
+        assert len(tiles) > len(tile_sweep.sweep_tiles(name, shape, k,
+                                                       t0_fixed))
+
+
+def test_cli_takes_dims_and_dtype(tmp_path, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a card"):
+        tile_sweep.main(["--dims", "3", "--dtype", "bfloat16", "--out",
+                         str(tmp_path / "rows3d.csv")])
+    with pytest.raises(SystemExit):
+        tile_sweep.main(["--dims", "4", "--out", str(tmp_path / "x.csv")])

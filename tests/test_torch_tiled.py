@@ -121,8 +121,11 @@ def test_plan_refuses_what_is_not_ported():
     sp = tspec.get_spec("jacobi7")
     with pytest.raises(ValueError, match="3D-only"):
         make_tiled_plan(tspec.get_spec("jacobi5"), (16, 16))
-    with pytest.raises(ValueError, match="float32"):
-        make_tiled_plan(sp, (16, 16, 16), "bfloat16")
+    # bf16 is ported: its plan builds, with 2-byte windows
+    bf16 = make_tiled_plan(sp, (16, 16, 16), "bfloat16")
+    assert bf16.dtype == "bfloat16" and bf16.itemsize == 2
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        make_tiled_plan(sp, (16, 16, 16), "float64")
     with pytest.raises(ValueError, match="shared memory"):
         make_tiled_plan(sp, (64, 64, 64), "float32", 8, tiles=(32, 32, 32))
     with pytest.raises(ValueError, match="fits"):
