@@ -8,8 +8,9 @@ Run from the repository root with no arguments:
 Phases, each ending in a line of its own:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles the two CUDA kernels (``csrc/tiled_sweep.cu``, six modes,
-   ``csrc/slab_sweep.cu``) and the native golden from the sources in this
+2. build: compiles the two CUDA kernels (``csrc/tiled_sweep.cu``, six modes
+   and tile subsets, ``csrc/slab_sweep.cu``) and the native golden from the
+   sources in this
    checkout, all three compilers started together (into
    ``build/stencil_tpu_torch/``);
 3. kernel vs plain: each kernel mode (3D tiled, 3D tiled with a source,
@@ -48,7 +49,16 @@ Phases, each ending in a line of its own:
    mixed, radius 2) and those of its source and two-level modes; the 2D
    kernel at cfg1's and cfg2's plans, ``star2d_r2`` ragged near 0, its
    source mode at 4096² and its pins; and the bf16 runners over a
-   remainder against the eager bf16 iterate;
+   remainder against the eager bf16 iterate; then the tile subsets (B1f):
+   for every mode that takes one, the interior and then the edge columns
+   (``partition_tiles``) launched into one output, each launch bitwise
+   against its plain version and the pair bitwise against the full launch,
+   with rank (0, 0)'s pins of a (2, 2) mesh (its hi faces mesh-internal,
+   live) or a dynamic-wall path's: homogeneous and source, fp32 and bf16,
+   at the local blocks of the phase-4 sharded paths (256³ over (2, 2)) and
+   of phase 5 (1024³ over (2, 2)), their remainder depth, ragged, radius
+   2 and ``jacobi27``; the Chebyshev, dual and coefficient modes once
+   each;
 4. main paths, each with the launch counts set to 0 just before it and
    read just after: the 3D CLI (``-s 256 256 256 --spec jacobi7 -m
    pallas_temporal -k 8 -i 64 -c``), the 2D CLI (``-s 512 512 --spec
@@ -93,7 +103,15 @@ Phases, each ending in a line of its own:
    in bf16 (Chebyshev V(2,2) at 63³, the card against the CPU's plain
    versions), the wave in bf16 at 256³ (Dirichlet and periodic 0 with
    Neumann 1, tiled against eager), and the 3D CLI with ``--periodic 0
-   1`` and cfg1 with ``--periodic 0`` in bf16;
+   1`` and cfg1 with ``--periodic 0`` in bf16; then the sharded paths on
+   a (2, 2) mesh whose four ranks share the card, every launch of each an
+   interior or edge subset launch: ``-s 256 256 256 --spec jacobi7 -m
+   sharded_pallas --mesh 2 2 -k 8 -c`` (64 iterations; in bf16 16), ``-m
+   sharded --mesh 2 2 -c`` (the eager method, ``jacobi27`` at 64³), the
+   sharded Poisson runner at 256³ (periodic 0, Neumann 1; fp32 and bf16)
+   bitwise against the single-device Poisson tiled runner, and 2D
+   ``sharded_pallas --mesh 4`` at 4096² (the slab kernel) bitwise against
+   ``slab``;
 5. times: GLUPS of the 3D tiled kernel at k=8 and k=1 and of ``eager`` at
    256³; of cfg1 (2D 5-pt 512², slab k=16) and cfg2 (2D 9-pt 4096², slab
    k=4, ``-b 256``) and ``eager`` at both sizes; of cfg8 (Poisson 256³, the
@@ -132,7 +150,17 @@ Phases, each ending in a line of its own:
    beside it; GLUPS of cfg3 and cfg4-bf16 and of the fp32 cfg4, cfg5
    (256×256×1024 k=8) and cfg6 (ragged 257³ k=8); one launch of each
    bf16 mode against its plain version, its bound (2 bytes per value) and
-   one bf16 ``conv3d``/``conv2d`` call.
+   one bf16 ``conv3d``/``conv2d`` call; BASELINE.json:11's sharded
+   headline, jacobi7 1024³ fp32 k=8 from a seeded random interior, on
+   ``tiled`` and on ``sharded_pallas`` over (1,), (2,), (2, 2) and (2, 2)
+   with ``--no-overlap``, each result bitwise the single-device one after
+   16 sweeps (the race check of the in-place exchange), with GLUPS, ms per
+   outer step (the marginal of 16 and 32 sweeps), the exchange's ms alone
+   on its side stream, the bytes it moves (the audit) and the (2, 2) run's
+   device idle share; one interior and one edge launch of each subset mode
+   beside the full launch on the same block (rank 0's at 1024³ for
+   ``tiled_sweep+subset``, at the phase-4 paths' 128×128×256 for the other
+   three).
 
 Each kernel's ``launches`` in the kernel record sums the phase-4 runs of
 that mode (a bf16 mode, name ending ``+bf16``, its bf16 runs); its
@@ -146,7 +174,12 @@ and ``COEFF_SWEEP_OPS`` per update) over 67 TFLOP/s in fp32 and 989
 TFLOP/s in bf16, the H100 SXM's published peaks; ``bound_by`` names the
 larger.
 The two-level mode reads two padded levels and writes two interiors, the
-coefficient mode reads the padded u and a(x) and writes one interior.
+coefficient mode reads the padded u and a(x) and writes one interior. A
+subset mode's ``ms`` is one interior launch plus one edge launch, its
+``plain_ms`` their plain versions', its ``bound_ms`` the two launches'
+bounds summed, each the input cells its windows cover read once and its
+columns written once (the full launch's bound is printed beside), its
+``library_ms`` one conv3d sweep over the block.
 
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -251,6 +284,23 @@ CFG6 = ("jacobi7", (257, 257, 257), 8)               # bench.py:95-96
 TINY = 1e-37                 # inputs near 0: fp32 subnormals, signed zeros
 BF16_MG_SIZE = (63, 63, 63)  # the bf16 multigrid path: the FMG path's size
 BF16_MG_CYCLES = 2
+# the sharded paths (B1f, the tiled kernel's tile subsets, on a
+# single-controller mesh whose ranks share the card): phase 3 holds each
+# subset mode against its plain version at the local blocks of the phase-4
+# and phase-5 meshes with rank (0, 0)'s pins (its hi faces mesh-internal);
+# phase 4 runs the sharded CLI, Poisson and 2D paths; phase 5 times
+# BASELINE.json:11's headline, jacobi7 1024^3 fp32 k=8, on tiled and on
+# sharded_pallas over these meshes (name, mesh, overlap)
+SHARDED_MESH = (2, 2)
+MESH_PINS = (1, 0, 1, 0)
+SHARDED_SIZE = (1024, 1024, 1024)
+SHARDED_K = 8
+SHARDED_TIMED = (("tiled", None, True), ("sharded_pallas", (1,), True),
+                 ("sharded_pallas", (2,), True),
+                 ("sharded_pallas", SHARDED_MESH, True),
+                 ("sharded_pallas", SHARDED_MESH, False))
+SHARDED_EAGER_SIZE = (64, 64, 64)
+SHARDED_2D = ("jacobi5", (4096, 4096), 8, (4,), 16)  # spec, size, k, mesh, -i
 # the H100 SXM's published peaks (NVIDIA's data sheet): device memory, fp32
 # outside the tensor cores, and bf16 (the table's rate for bf16 operations)
 PEAK_BYTES_PER_S = 3.35e12
@@ -269,7 +319,9 @@ KERNEL_MODES = (
     "tiled_sweep+dual+bf16", "tiled_sweep+two_level+bf16",
     "tiled_sweep+pins+bf16", "tiled_sweep+source+pins+bf16",
     "tiled_sweep+two_level+pins+bf16", "slab_sweep+bf16",
-    "slab_sweep+source+bf16", "slab_sweep+pins+bf16")
+    "slab_sweep+source+bf16", "slab_sweep+pins+bf16",
+    "tiled_sweep+subset", "tiled_sweep+source+subset",
+    "tiled_sweep+subset+bf16", "tiled_sweep+source+subset+bf16")
 
 
 def require(cond, msg):
@@ -1402,6 +1454,327 @@ def bench(runner, grid, points, device, hbm, label, name=None):
     return rep.glups
 
 
+def compare_subset(kernel, plan, cur, pins, mode, src=None, coeff=None,
+                   dual=False):
+    """The interior and then the edge tile subsets of ``plan``
+    (``partition_tiles``) launched into one output whose interior starts at
+    -1: each launch bitwise against its plain version (which leaves the
+    other columns as they were), the pair bitwise against the full launch;
+    a dual plan's two outputs both. Returns the max abs difference."""
+    import torch
+
+    from stencil_tpu_torch.ops.sweep_kernel import subset_reference
+    from stencil_tpu_torch.ops.tiled import partition_tiles
+
+    interior, edge = partition_tiles(plan)
+    require(interior and edge, f"{mode} {plan.interior_shape} tiles "
+            f"{plan.tiles}: no interior/edge split")
+    base = [cur.clone() for _ in range(2 if dual else 1)]
+    for t in base:
+        t[plan.layout.interior_index] = -1.0
+
+    def pair(x):
+        return list(x) if isinstance(x, tuple) else [x]
+
+    def launch(outs, subset):
+        got = kernel(cur, outs[0].clone(), plan, src, pins,
+                     out2=outs[1].clone() if dual else None, coeff=coeff,
+                     subset=subset)
+        want = subset_reference(cur, outs[0], plan, subset, src, coeff,
+                                pins, outs[1] if dual else None)
+        return pair(got), pair(want)
+
+    label = (f"{mode} {plan.spec.name} {plan.interior_shape} k="
+             f"{plan.sweeps_per_call} tiles {plan.tiles}, pins {list(pins)}, "
+             f"{len(interior)} interior + {len(edge)} edge columns")
+    part, want = launch(base, interior)
+    diff = max(check_equal(f"{label}: interior launch", g, w, True)
+               for g, w in zip(part, want))
+    got, want = launch(part, edge)
+    full = pair(kernel(cur, base[0].clone(), plan, src, pins,
+                       out2=base[1].clone() if dual else None, coeff=coeff))
+    torch.cuda.synchronize()
+    for g, w, f in zip(got, want, full):
+        diff = max(diff, check_equal(f"{label}: then the edge launch", g, w,
+                                     True))
+        require(torch.equal(g, f), f"{label}: interior + edge launches are "
+                "not the full launch")
+    print(f"  {label}: interior + edge launches bitwise equal to the full "
+          "launch")
+    return diff
+
+
+def subset_bound(plan, subset, src):
+    """(bound ms, 'bytes' or 'operations') of one subset launch: the padded
+    input cells its windows cover read once (the source's too), its
+    columns' points written once, k sweeps of updates on those points."""
+    from stencil_tpu_torch.ops.sweep_kernel import column_boxes
+
+    kr = plan.halo
+    p0, p1, _ = plan.layout.padded_shape
+    n2 = plan.interior_shape[2]
+    cover = np.zeros((p0, p1), bool)
+    tiles = np.zeros((p0, p1), bool)
+    for b0, b1, _ in column_boxes(plan, subset):
+        tiles[b0, b1] = True
+        cover[b0.start - kr:b0.stop + kr, b1.start - kr:b1.stop + kr] = True
+    written = int(tiles.sum()) * n2
+    read = int(cover.sum()) * (n2 + 2 * kr) * (2 if src is not None else 1)
+    ops = written * plan.sweeps_per_call * (
+        plan.spec.flops_per_point + (1 if src is not None else 0))
+    return bound_of(plan.itemsize * (read + written), ops, plan.dtype)
+
+
+def subset_times(kernel, plan, cur, pins, src, reps):
+    """One interior and one edge launch of ``plan`` and the full launch on
+    the same block: kernel ms of each, the plain version's ms of the pair,
+    and the pair's bound (the two launches' bounds summed)."""
+    from stencil_tpu_torch.ops.sweep_kernel import subset_reference
+    from stencil_tpu_torch.ops.tiled import partition_tiles
+
+    interior, edge = partition_tiles(plan)
+    nxt = cur.clone()
+    t_int = time_call(lambda: kernel(cur, nxt, plan, src, pins,
+                                     subset=interior), DEVICE, reps)
+    t_edge = time_call(lambda: kernel(cur, nxt, plan, src, pins,
+                                      subset=edge), DEVICE, reps)
+    t_full = time_call(lambda: kernel(cur, nxt, plan, src, pins), DEVICE,
+                       reps)
+    plain = time_call(lambda: [subset_reference(cur, nxt, plan, s, src,
+                                                pins=pins)
+                               for s in (interior, edge)], DEVICE, 2)
+    b_int, b_edge = (subset_bound(plan, s, src) for s in (interior, edge))
+    by = "bytes" if "bytes" in (b_int[1], b_edge[1]) else "operations"
+    return dict(interior=t_int, edge=t_edge, full=t_full, plain=plain,
+                bound=b_int[0] + b_edge[0], by=by,
+                columns=(len(interior), len(edge)))
+
+
+def run_sharded_eager_cli(cli, label):
+    """``-m sharded --mesh 2 2 -c`` (the eager sweep per rank, r-deep halos
+    every sweep) at SHARDED_EAGER_SIZE: the float64 golden over every
+    iteration."""
+    args = ["-s", *map(str, SHARDED_EAGER_SIZE), "--spec", "jacobi27", "-m",
+            "sharded", "--mesh", "2", "2", "-i", "16"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "sharded.jsonl"
+        rc = cli.main([*args, "-c", "--device", DEVICE, "--json-out",
+                       str(out)])
+        rec = json.loads(out.read_text().splitlines()[0])
+    chk = rec["check"]
+    require(rc == 0 and chk["ok"] and not chk["capped"]
+            and np.isfinite(chk["max_abs_err"]),
+            f"main path {args}: rc {rc}, check {chk}")
+    print(f"main path {' '.join(args)}: check OK over "
+          f"{chk['iterations_checked']} iterations vs the float64 golden, "
+          f"max abs err {chk['max_abs_err']:.3e}; plan {rec['plan']}; "
+          f"{rec['glups']:.2f} GLUPS [{label}]")
+
+
+def run_sharded_poisson(kernel, rng, label, dtype):
+    """The sharded Poisson runner at POISSON_BIG on a (2, 2) mesh, periodic
+    d0 and Neumann d1, k=8, over POISSON_COMPARE_ITERS sweeps (two steps
+    and a remainder of 3), against the single-device Poisson tiled runner:
+    bitwise. Every launch a source subset launch (and in bf16 a bf16 one);
+    returns their count, the counts set to 0 just before."""
+    import torch
+
+    from stencil_tpu_torch.models.poisson import PoissonProblem
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+
+    bc = walls(3, (0,), (1,))
+    prob = PoissonProblem(shape=POISSON_BIG, bc=bc, dtype=dtype,
+                          device=DEVICE)
+    f = rng.normal(size=POISSON_BIG) / prob.h ** 2
+    mesh = make_mesh(SHARDED_MESH, ("x", "y"), DEVICE)
+    runner = prob.sharded_runner(f, mesh, sweeps_per_call=8,
+                                 axis_names=("x", "y"))
+    g0 = prob.initial_grid(rng.random(POISSON_BIG, dtype=np.float32))
+    kernel.reset_counts()
+    got = runner.iterate(g0, POISSON_COMPARE_ITERS)
+    torch.cuda.synchronize()
+    n = kernel.source_subset_launches
+    steps = -(-POISSON_COMPARE_ITERS // 8)
+    require(n == kernel.launches == 2 * steps * mesh.size
+            and (dtype == "float32" or kernel.bf16_launches == n),
+            f"sharded Poisson {dtype}: {n} source subset launches, "
+            f"{kernel.bf16_launches} bf16, {kernel.launches} in all")
+    want = prob.runner(f, method="tiled", sweeps_per_call=8).iterate(
+        g0, POISSON_COMPARE_ITERS)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got.data.float()).all())
+            and torch.equal(got.data, want.data),
+            f"sharded Poisson {dtype}: not bitwise the single-device runner")
+    print(f"sharded Poisson {POISSON_BIG} {dtype} {walls_name(bc)} "
+          f"{runner.name} mesh {SHARDED_MESH} local tiles "
+          f"{runner.plan_info['tiles']}, {POISSON_COMPARE_ITERS} sweeps: "
+          f"bitwise equal to the single-device Poisson tiled runner (max |u| "
+          f"{float(got.interior().float().abs().max()):.3e}); {n} "
+          f"{kernel.name} source subset launches [{label}]")
+    return n
+
+
+def run_sharded_2d(kernel, label):
+    """2D ``sharded_pallas`` on a 1D mesh (the slab kernel per rank, no
+    split) at SHARDED_2D against ``slab``: bitwise; returns the launches."""
+    import torch
+
+    from stencil_tpu_torch import cli, registry
+    from stencil_tpu_torch.config import RunConfig
+    from stencil_tpu_torch.core.spec import get_spec
+
+    spec_name, size, k, mesh, iters = SHARDED_2D
+    spec = get_spec(spec_name)
+    cfg = RunConfig(size=size, spec=spec_name, temporal=k, mesh=mesh,
+                    device=DEVICE)
+    grid = cli.make_grid(cfg, spec)
+    runner = registry.get_runner("sharded_pallas", cfg, spec, grid)
+    kernel.reset_counts()
+    got = runner.iterate(grid, iters)
+    torch.cuda.synchronize()
+    n = kernel.launches
+    want = registry.get_runner("slab", cfg, spec, grid).iterate(grid, iters)
+    torch.cuda.synchronize()
+    require(n == iters // k * int(np.prod(mesh)) and
+            torch.equal(got.data, want.data),
+            f"2D sharded_pallas {size}: {n} launches, or not bitwise slab")
+    print(f"2D {runner.name} {spec_name} {size}, {iters} sweeps: bitwise "
+          f"equal to slab; plan {runner.plan_info}; {n} {kernel.name} "
+          f"launches [{label}]")
+    return n
+
+
+def time_sharded(kernel, label):
+    """The sharded headline at BASELINE's width: jacobi7 SHARDED_SIZE fp32
+    k=8 from a seeded random interior, on ``tiled`` and on
+    ``sharded_pallas`` over SHARDED_TIMED meshes. Each sharded result after
+    2k sweeps bitwise the single-device one (the race check of the in-place
+    exchange); per run GLUPS and ms per outer step from the marginal of 2k
+    and 4k sweeps (CUDA events); per mesh the exchange's ms alone on its
+    side stream and the bytes it moves (the audit); the (2, 2) run's device
+    idle share. Then the subset launches' times at the (2, 2) local block.
+    Returns the kernel record's row of ``tiled_sweep+subset``."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.core.spec import get_spec
+    from stencil_tpu_torch.ops.tiled import TiledStencil
+    from stencil_tpu_torch.parallel import comm_audit
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.sharded_kernel import (
+        ShardedKernelStencil,
+    )
+    from stencil_tpu_torch.utils.timing import timed
+
+    j7, k = get_spec("jacobi7"), SHARDED_K
+    points = int(np.prod(SHARDED_SIZE))
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    grid = HaloGrid.from_interior(
+        torch.rand(SHARDED_SIZE, generator=gen, device=DEVICE), halo=1,
+        device=DEVICE)
+    n1, n2 = 2 * k, 4 * k
+    ref = None
+    record = None
+    for method_name, mesh_sizes, overlap in SHARDED_TIMED:
+        if method_name == "tiled":
+            name = f"tiled k={k}"
+            st = TiledStencil(j7, SHARDED_SIZE, sweeps_per_call=k,
+                              device=DEVICE)
+
+            def run(n, st=st):
+                return st.iterate(grid, n)
+        else:
+            axes = ("x", "y")[:len(mesh_sizes)]
+            mesh = make_mesh(mesh_sizes, axes, DEVICE)
+            st = ShardedKernelStencil(j7, SHARDED_SIZE, axis_names=axes,
+                                      sweeps_per_call=k, overlap=overlap)
+            name = (f"sharded_pallas mesh {mesh_sizes} k={k}"
+                    f"{'' if overlap else ' --no-overlap'}")
+
+            def run(n, st=st, mesh=mesh):
+                return st.iterate(grid, n, mesh)
+        kernel.reset_counts()
+        out = run(n1)
+        torch.cuda.synchronize()
+        launches, subsets = kernel.launches, kernel.subset_launches
+        if ref is None:
+            ref = out.data
+            same = "the reference"
+        else:
+            require(torch.equal(out.data, ref),
+                    f"{name}: not bitwise the single-device result")
+            same = "bitwise equal to tiled"
+        del out
+        t1 = sorted(timed(lambda: run(n1), DEVICE) for _ in range(2))[0]
+        t2 = sorted(timed(lambda: run(n2), DEVICE) for _ in range(2))[0]
+        per_sweep = (t2 - t1) / (n2 - n1)
+        extra = ""
+        if method_name != "tiled":
+            plan = st.local_plan(mesh_sizes)
+            blocks = st.scatter(grid, mesh)
+            with comm_audit.audit() as rec:
+                st.exchange(mesh, blocks, plan, grid.bc)
+            side = mesh.side_stream(mesh.devices[0])
+            # the exchange's blocks were padded on the compute stream
+            side.wait_stream(torch.cuda.current_stream(mesh.devices[0]))
+            with mesh.exchange_streams():
+                st.exchange(mesh, blocks, plan, grid.bc)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(side)
+                for _ in range(10):
+                    st.exchange(mesh, blocks, plan, grid.bc)
+                end.record(side)
+            end.synchronize()
+            xms = start.elapsed_time(end) / 10
+            del blocks
+            extra = (f"; the exchange alone {xms:.4f} ms per outer step on "
+                     f"its side stream, {rec.ppermute_count} ppermutes of "
+                     f"{rec.ppermute_bytes} bytes per rank "
+                     f"({rec.ppermute_bytes * mesh.size / 1e6:.1f} MB over "
+                     f"the {mesh.size} ranks); local plan "
+                     f"{plan.interior_shape} tiles {plan.tiles}")
+            if mesh_sizes == SHARDED_MESH and overlap:
+                wall, busy, span = device_busy(lambda: run(n1), DEVICE)
+                extra += ("; device busy share not measured (the trace "
+                          "holds no device events)" if busy is None else
+                          f"; {n1} sweeps: host wall {wall:.3f} ms "
+                          f"unprofiled, device busy {busy:.3f} ms of a "
+                          f"{span:.3f} ms span, idle "
+                          f"{100 * (1 - busy / span):.1f}%")
+        print(f"{name} jacobi7 {SHARDED_SIZE} fp32: "
+              f"{points / per_sweep / 1e9:.2f} GLUPS, "
+              f"{per_sweep * k * 1e3:.3f} ms per outer step (marginal of "
+              f"{n1} and {n2} sweeps: {t1 * 1e3:.1f} / {t2 * 1e3:.1f} ms); "
+              f"{launches} launches for {n1} sweeps, {subsets} of them "
+              f"subset launches; {same}{extra} [{label}]")
+        if mesh_sizes == SHARDED_MESH and overlap:
+            plan = st.local_plan(mesh_sizes)
+            cur = st.scatter(grid, mesh)[0]
+            pins = st.pins(mesh, 0, grid.bc)
+            record = subset_times(kernel, plan, cur, pins, None, 3)
+            lib, lib_check = library_sweep(plan, cur, None)
+            record["library"] = time_call(lib, DEVICE, 3)
+            record["full_bound"] = bound(plan, None, False)[0]
+            print(f"one interior + one edge launch of tiled_sweep+subset "
+                  f"(rank 0's block {plan.interior_shape} k={k} tiles "
+                  f"{plan.tiles}, pins {list(pins)}, "
+                  f"{record['columns'][0]} interior + "
+                  f"{record['columns'][1]} edge columns): kernel "
+                  f"{record['interior']:.4f} + {record['edge']:.4f} ms "
+                  f"beside {record['full']:.4f} ms for the full launch; "
+                  f"plain {record['plain']:.4f} ms; bound "
+                  f"{record['bound']:.4f} ms (by {record['by']}; the full "
+                  f"launch {record['full_bound']:.4f}); library conv3d "
+                  f"{record['library']:.4f} ms per sweep (vs one plain sweep "
+                  f"max abs diff {lib_check():.3e}) [{label}]")
+            del cur
+        del st
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return record
+
+
 def device_busy(run, device):
     """(host wall ms, device busy ms, device span ms) of ``run()`` from a
     ``torch.profiler`` trace; busy is None when the trace holds no device
@@ -1760,9 +2133,79 @@ def main() -> int:
         compare_bf16(slab, s16b, mode, rng, device, neu0_2d, tiny=True),
         compare_iterate(SlabStencil, j5, RAGGED_2D, 4, 11, rng, device,
                         bc=per0_2d, dtype=bf))
+    # B1f: the interior and edge subsets of every mode that takes one, with
+    # live faces where a mesh rank has neighbours, at the local blocks of
+    # the sharded paths: the phase-4 CLI's and Poisson runner's (256^3 over
+    # (2, 2), in fp32 and bf16), phase 5's (1024^3 over (2, 2)), ragged and
+    # radius 2, and the remainder launch's depth
+    t_sub = time.perf_counter()
+    local = tuple(n // m for n, m in zip(MAIN_SIZE, SHARDED_MESH + (1,)))
+    big = tuple(n // m for n, m in zip(SHARDED_SIZE, SHARDED_MESH + (1,)))
+    star2 = get_spec("star3d_r2")
+
+    def subset_case(mode, plan, pins=MESH_PINS, bc=None, scale=None, **kw):
+        cur = (bf16_input(plan, bc or walls(3), rng, device)
+               if plan.dtype == "bfloat16" else
+               pins_input(plan, bc or walls(3), rng, device))
+        src = None if scale is None else pad_source(
+            plan, rng.normal(size=plan.interior_shape), scale,
+            bc or walls(3)).to(device)
+        return compare_subset(tiled, plan, cur, pins, mode, src, **kw)
+
+    mode = "tiled_sweep+subset"
+    sub8 = make_tiled_plan(j7, local, "float32", 8)
+    err[mode] = max(
+        subset_case(mode, sub8), subset_case(mode, sub8.with_sweeps(3)),
+        subset_case(mode, make_tiled_plan(j7, big, "float32", 8)),
+        subset_case(mode, make_tiled_plan(star2, RAGGED_SIZE, "float32", 2,
+                                          tiles=(8, 8, 16)), (0, 0, 0, 0),
+                    per01),
+        subset_case(mode, make_tiled_plan(get_spec("jacobi27"), local,
+                                          "float32", 4)))
+    mode = "tiled_sweep+source+subset"
+    psub = make_tiled_plan(pprob.spec, local, "float32", 8, has_source=True)
+    err[mode] = max(
+        subset_case(mode, psub, (0, 0, 0, 0), mixed,
+                    pprob.source_scale * 100),
+        subset_case(mode, psub.with_sweeps(3), (0, 0, 0, 0), mixed, -0.01),
+        subset_case(mode, make_tiled_plan(j7, RAGGED_SIZE, "float32", 3,
+                                          tiles=(8, 8, 16)), MESH_PINS,
+                    scale=-0.01))
+    mode = "tiled_sweep+subset+bf16"
+    err[mode] = max(
+        subset_case(mode, make_tiled_plan(j7, local, bf, 8)),
+        subset_case(mode, make_tiled_plan(j7, local, bf, 3)),
+        subset_case(mode, make_tiled_plan(star2, RAGGED_SIZE, bf, 2,
+                                          tiles=(8, 8, 16)), (0, 0, 0, 0),
+                    per01))
+    mode = "tiled_sweep+source+subset+bf16"
+    err[mode] = max(
+        subset_case(mode, make_tiled_plan(pprob.spec, local, bf, 8,
+                                          has_source=True), (0, 0, 0, 0),
+                    mixed, pprob.source_scale * 100),
+        subset_case(mode, make_tiled_plan(j7, RAGGED_SIZE, bf, 3,
+                                          tiles=(8, 8, 16)), MESH_PINS,
+                    scale=-0.01))
+    # the modes no sharded path runs take a subset too (every face pinned
+    # in the Chebyshev modes)
+    from stencil_tpu_torch.ops.tiled import pad_coeff
+
+    cheby = ((0.1, 0.2, -0.05, 0.3), (0.2, 0.1, 0.4, -0.2),
+             (0.3, 0.15, 0.05, 0.1))
+    for dual in (False, True):
+        mode = f"tiled_sweep+{'dual' if dual else 'cheby'}+subset"
+        err[mode] = subset_case(mode, cheby_plan(local, cheby, dual),
+                                (1, 1, 1, 1), scale=1.0, dual=dual)
+    mode = "tiled_sweep+coeff+subset"
+    cplan = make_tiled_plan(j7, local, "float32", 8,
+                            coeff_scales=(0.1, 1.0, -0.1))
+    err[mode] = subset_case(
+        mode, cplan, coeff=pad_coeff(cplan, rng.random(local) + 0.5,
+                                     walls(3)).to(device))
     print(f"PHASE 3 kernel vs plain: ok at "
           f"{time.perf_counter() - t_start:.1f} s (the bf16 cases "
-          f"{time.perf_counter() - t_bf16:.1f} s; max abs diff per mode "
+          f"{t_sub - t_bf16:.1f} s, the subset cases "
+          f"{time.perf_counter() - t_sub:.1f} s; max abs diff per mode "
           f"{ {k: float(f'{v:.3e}') for k, v in err.items()} })")
 
     # 4. main paths, launch counts set to 0 just before each
@@ -1879,9 +2322,31 @@ def main() -> int:
     launches["slab_sweep+pins+bf16"] = run_cli_bf16(
         cli, [*cfg1_bf16, "--periodic", "0"], slab, label,
         "pins_launches")[1]
+    # the sharded paths on a (2, 2) mesh whose four ranks share the card:
+    # sharded_pallas through the CLI in fp32 and bf16 (every launch an
+    # interior or edge subset launch), the eager sharded method, the sharded
+    # Poisson runner against the single-device one, 2D over d0 on slab
+    t_sharded = time.perf_counter()
+    sharded3d = ["-s", *map(str, MAIN_SIZE), "--spec", "jacobi7", "-m",
+                 "sharded_pallas", "--mesh", *map(str, SHARDED_MESH), "-k",
+                 "8"]
+    rec, launches["tiled_sweep+subset"] = run_cli(
+        cli, [*sharded3d, "-i", str(MAIN_ITERS)], tiled, label,
+        "subset_launches")
+    require(rec["plan"]["split"], f"sharded_pallas did not split: "
+            f"{rec['plan']}")
+    launches["tiled_sweep+subset+bf16"] = run_cli_bf16(
+        cli, [*sharded3d, "-i", str(CFG3[3])], tiled, label,
+        "subset_launches")[1]
+    run_sharded_eager_cli(cli, label)
+    launches["tiled_sweep+source+subset"] = run_sharded_poisson(
+        tiled, rng, label, "float32")
+    launches["tiled_sweep+source+subset+bf16"] = run_sharded_poisson(
+        tiled, rng, label, "bfloat16")
+    run_sharded_2d(slab, label)
     print(f"PHASE 4 main paths: ok at {time.perf_counter() - t_start:.1f} s "
-          f"(the bf16 paths {time.perf_counter() - t_bf16:.1f} s; launches "
-          f"{launches})")
+          f"(the bf16 paths {t_sharded - t_bf16:.1f} s, the sharded paths "
+          f"{time.perf_counter() - t_sharded:.1f} s; launches {launches})")
 
     # 5. times
     from stencil_tpu_torch import registry
@@ -2424,6 +2889,49 @@ def main() -> int:
               f"{library_ms[mode]:.4f} ms per "
               f"{'step' if prev is not None else 'sweep'} (vs one plain "
               f"sweep max abs diff {lib_check():.3e}) [{label}]")
+    stamp("the bf16 modes")
+    # the sharded headline at 1024^3 (the single-device run, then each
+    # mesh; each run's tensors freed before the next), and one launch of
+    # each other subset mode at its phase-4 path's local block
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sub = {"tiled_sweep+subset": time_sharded(tiled, label)}
+    stamp("the sharded runs at 1024^3")
+    local = tuple(n // m for n, m in zip(MAIN_SIZE, SHARDED_MESH + (1,)))
+    pprob_sh = PoissonProblem(shape=POISSON_BIG, bc=mixed, device=DEVICE)
+    for mode, dtype, source in (
+            ("tiled_sweep+source+subset", "float32", True),
+            ("tiled_sweep+subset+bf16", bf, False),
+            ("tiled_sweep+source+subset+bf16", bf, True)):
+        spec = pprob_sh.spec if source else j7
+        plan = make_tiled_plan(spec, local, dtype, 8, has_source=source)
+        bc = mixed if source else walls(3)
+        pins = (0, 0, 0, 0) if source else MESH_PINS
+        cur = (bf16_input(plan, bc, rng, device) if dtype == bf
+               else pins_input(plan, bc, rng, device))
+        src = pad_source(plan, rng.normal(size=local) / pprob_sh.h ** 2,
+                         pprob_sh.source_scale, bc).to(device) \
+            if source else None
+        rec = subset_times(tiled, plan, cur, pins, src, 10)
+        lib, lib_check = library_sweep(plan, cur, src)
+        rec["library"] = time_call(lib, device, 10)
+        rec["full_bound"] = bound(plan, src, False)[0]
+        sub[mode] = rec
+        print(f"one interior + one edge launch of {mode} ({spec.name} "
+              f"{local} k=8 tiles {plan.tiles}, pins {list(pins)}, "
+              f"{rec['columns'][0]} interior + {rec['columns'][1]} edge "
+              f"columns): kernel {rec['interior']:.4f} + "
+              f"{rec['edge']:.4f} ms beside {rec['full']:.4f} ms for the "
+              f"full launch; plain {rec['plain']:.4f} ms; bound "
+              f"{rec['bound']:.4f} ms (by {rec['by']}; the full launch "
+              f"{rec['full_bound']:.4f}); library conv3d "
+              f"{rec['library']:.4f} ms per sweep (vs one plain sweep max "
+              f"abs diff {lib_check():.3e}) [{label}]")
+    for mode, rec in sub.items():
+        ms[mode] = rec["interior"] + rec["edge"]
+        plain_ms[mode] = rec["plain"]
+        bound_ms[mode], bound_by[mode] = rec["bound"], rec["by"]
+        library_ms[mode] = rec["library"]
     print(f"PHASE 5 times: ok ({time.perf_counter() - t_start:.1f} s in "
           "all)")
 

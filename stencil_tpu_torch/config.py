@@ -11,13 +11,16 @@ Two groups of flags do nothing here, on purpose:
   ``--embed``, ``--autotune``) are accepted and recorded in the runner's
   ``plan_info`` under ``ignored``; the machinery they tune does not exist
   on the GPU and is removed by design.
-- Flags of features outside the ported slice (``--mesh``, ``--chunks``,
+- Flags of features outside the ported slice (``--chunks``,
   ``--checkpoint-dir``, ``--dump-image``, ``--profile``) raise
   ``NotImplementedError`` from :meth:`RunConfig.check_ported`. In solve
   mode (``--solve``, ported for the ``poisson`` and ``hetero`` families)
-  ``solve_cli.run_solve`` reports ``--mesh``, ``--checkpoint-dir`` and
-  ``--dump-image`` as an error record instead, as the JAX ``run_solve``
-  reports its own refusals.
+  ``solve_cli.run_solve`` reports ``--mesh`` (the distributed solvers),
+  ``--checkpoint-dir`` and ``--dump-image`` as an error record instead, as
+  the JAX ``run_solve`` reports its own refusals.
+
+``--mesh`` and ``--no-overlap`` drive the sharded methods in iterate mode
+(``registry.py``).
 """
 
 from __future__ import annotations
@@ -65,10 +68,13 @@ class RunConfig:
     # ported)
     solve: Optional[str] = None
 
-    # not ported yet: set -> check_ported() raises (or, in solve mode,
-    # run_solve's error record)
+    # the sharded methods' mesh (in solve mode run_solve's error record)
+    # and their interior-first split
     mesh: Tuple[int, ...] = ()
     no_overlap: bool = False
+
+    # not ported yet: set -> check_ported() raises (or, in solve mode,
+    # run_solve's error record)
     chunks: Optional[int] = None
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 100
@@ -141,12 +147,10 @@ class RunConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for a requested feature that the
-        port does not have yet (solve mode leaves ``--mesh``,
-        ``--checkpoint-dir`` and ``--dump-image`` to ``run_solve``)."""
+        port does not have yet (solve mode leaves ``--checkpoint-dir`` and
+        ``--dump-image`` to ``run_solve``)."""
         iterate = self.solve is None
         missing = [flag for flag, on in (
-            ("--mesh", bool(self.mesh) and iterate),
-            ("--no-overlap", self.no_overlap),
             ("--chunks", self.chunks is not None),
             ("--checkpoint-dir", self.checkpoint_dir is not None and iterate),
             ("--dump-image", self.dump_image is not None and iterate),
@@ -177,7 +181,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--methods", type=str, nargs="+",
                    default=list(DEFAULT_METHODS),
                    help="methods to run: eager, tiled (3D), slab (2D), "
-                        "varcoeff (heterogeneous diffusion), or the JAX "
+                        "varcoeff (heterogeneous diffusion), sharded, "
+                        "sharded_noverlap, sharded_pallas, or the JAX "
                         "package's names xla, pallas, pallas_temporal, "
                         "pallas_tiled")
     p.add_argument("-b", "--block", type=int, default=None,
@@ -189,9 +194,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda); 'cpu' runs the plain "
                         "PyTorch versions of the kernels")
     p.add_argument("--mesh", type=int, nargs="*", default=[],
-                   help="device mesh (not ported yet)")
+                   help="sharded methods: the mesh shape, e.g. --mesh 2 2 "
+                        "(default one rank per visible CUDA device; ranks "
+                        "may share a card)")
     p.add_argument("--no-overlap", action="store_true",
-                   help="sharded methods (not ported yet)")
+                   help="sharded methods: no interior-first split of the "
+                        "step around the halo exchange")
     p.add_argument("--autotune", nargs="?", const="on", default=False,
                    choices=("on", "force"),
                    help="TPU plan tuning: accepted and ignored")

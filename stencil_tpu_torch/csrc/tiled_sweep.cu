@@ -2,7 +2,8 @@
 // fp32 or bf16 grid, in one launch. Hand-written for Hopper (sm_90a).
 //
 // Replaces stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep (the Pallas
-// TPU kernel, pallas_call at :1821) in six of its modes, with its `pins`
+// TPU kernel, pallas_call at :1821) in six of its modes and its tile
+// subsets (`subset`, B1f; every mode but the two-level one), with its `pins`
 // (one per face of d0 and d1, :1270-1305) in the homogeneous, source,
 // two-level and coefficient modes; the Chebyshev modes keep every face
 // pinned:
@@ -106,6 +107,22 @@
 // the tile starts early, at n - t (clamped, as build_tiled_sweep does at
 // :732-745). It overlaps its neighbour; both compute the overlap from the
 // same input with the same arithmetic and write identical values.
+//
+// Tile subsets (build_tiled_sweep(subset=...) at :705, :746-758, the phase
+// split of the overlapped sharded step, stencil_tpu/parallel/
+// pallas_sharded.py:280-290, 447-456): a launch may sweep only a list of
+// tile columns. A column is one (i0, i1) pair with every i2 of it, named
+// by its id i0 * nt1 + i1 (ops/tiled.py:partition_tiles). The caller
+// passes the ids as a device int32 array `cols` of ncols entries; the
+// grid then has ncols * nt2 blocks, block b sweeping tile i2 = b % nt2 of
+// column cols[b / nt2]. Nothing else changes: the tiles outside the list
+// are not written, so `out` keeps what it held (the TPU kernel's output
+// aliasing). Every mode but the two-level one takes a subset (the TPU
+// kernel refuses it there, :752-755). A null `cols` is the full launch.
+// The interior launch followed by the edge launch into one `out` writes
+// every tile once with the values of the full launch, so the pair is
+// bitwise the full launch whenever the interior tiles' windows read no
+// cell the exchange between them writes (the sharded step's geometry).
 //
 // Taps: a table in StencilSpec.weight_groups order, passed by value and
 // evaluated by stencil_taps.cuh, bitwise as the eager torch version
@@ -219,6 +236,8 @@ __device__ __forceinline__ float coeff_update(
 }
 
 // NT > 0: a spec of exactly NT taps; NT == 0: any spec. MODE: see Mode;
+// `cols`: a tile subset's column ids (i0 * nt1 + i1), or null for every
+// tile (see the header);
 // `source` is read in every mode but kPlain: the padded source, the raw f
 // (kCheby, kDual), L_{n-1} (kTwoLevel) or the coefficient a(x) (kCoeff);
 // `coeffs` in kCheby, kDual and kCoeff, `out2` in kDual and kTwoLevel.
@@ -227,7 +246,8 @@ template <int NT, int MODE, typename T>
 __global__ void __launch_bounds__(kThreads)
 tiled_sweep_kernel(const T* __restrict__ in, T* __restrict__ out,
                    T* __restrict__ out2, const T* __restrict__ source,
-                   const Geometry g, const __grid_constant__ Taps taps,
+                   const int32_t* __restrict__ cols, const Geometry g,
+                   const __grid_constant__ Taps taps,
                    const __grid_constant__ Coeffs coeffs) {
   using N = Num<T>;
   extern __shared__ __align__(16) unsigned char smem_bytes[];
@@ -237,11 +257,13 @@ tiled_sweep_kernel(const T* __restrict__ in, T* __restrict__ out,
   T* nxt = g.k > 1 ? smem + wvol : smem;  // a second window when k > 1
   const Evaluator<NT, T> stencil_at(taps);
 
-  int b = blockIdx.x;
-  const int i2 = b % g.nt2;
-  b /= g.nt2;
-  const int i1 = b % g.nt1;
-  const int i0 = b / g.nt1;
+  // this block's tile: i2 from the block index, its column (i0, i1) from
+  // the block index or, in a subset launch, from the column list
+  const int i2 = blockIdx.x % g.nt2;
+  int col = blockIdx.x / g.nt2;
+  if (cols != nullptr) col = cols[col];
+  const int i1 = col % g.nt1;
+  const int i0 = col / g.nt1;
   const int kr = g.k * g.r;
   // window origin in padded coordinates: clamped tile start - k*r + H
   const int o0 = min(i0 * g.t0, g.n0 - g.t0) + g.halo - kr;
@@ -371,6 +393,7 @@ struct Launch {
   T* out;
   T* out2;
   const T* source;
+  const int32_t* cols;  // the subset's column ids (device), or null
   Geometry g;
   unsigned nblocks;
   size_t shared;
@@ -385,7 +408,7 @@ cudaError_t launch(const Launch<T>& l, const Taps& taps, const Coeffs& co) {
   if (err != cudaSuccess) return err;
   tiled_sweep_kernel<NT, MODE, T><<<l.nblocks, dim3(kBlockX, kBlockY),
                                     l.shared, l.stream>>>(
-      l.in, l.out, l.out2, l.source, l.g, taps, co);
+      l.in, l.out, l.out2, l.source, l.cols, l.g, taps, co);
   return cudaGetLastError();
 }
 
@@ -414,13 +437,14 @@ cudaError_t dispatch_two_level(int ntaps, const Launch<T>& l,
                     : launch<0, kTwoLevel>(l, taps, none);
 }
 
-// Checks the geometry and the tap table and fills `l` (but its pointers
-// and stream) and `taps`; 0 or a negative error code.
+// Checks the geometry, the subset's length and the tap table and fills `l`
+// (but its tensor pointers and stream) and `taps`; 0 or a negative error
+// code. `cols` (device) is not read here: the wrapper checks its ids.
 template <typename T>
-int prepare(const int32_t* geom, int ngeom, const int32_t* tap_offsets,
-            const int32_t* group_sizes, const float* group_weights,
-            int ntaps, int ngroups, int uniform, float uniform_weight,
-            Launch<T>& l, Taps& taps) {
+int prepare(const int32_t* geom, int ngeom, const int32_t* cols, int ncols,
+            const int32_t* tap_offsets, const int32_t* group_sizes,
+            const float* group_weights, int ntaps, int ngroups, int uniform,
+            float uniform_weight, Launch<T>& l, Taps& taps) {
   if (ngeom != kGeomLen) return kErrArgument;
   const int n0 = geom[0], n1 = geom[1], n2 = geom[2];
   const int p0 = geom[3], p1 = geom[4], p2 = geom[5], halo = geom[6];
@@ -439,8 +463,12 @@ int prepare(const int32_t* geom, int ngeom, const int32_t* tap_offsets,
   if (nt0 != (n0 + t0 - 1) / t0 || nt1 != (n1 + t1 - 1) / t1 ||
       nt2 != (n2 + t2 - 1) / t2)
     return kErrArgument;
-  const int64_t nblocks = (int64_t)nt0 * nt1 * nt2;
+  if ((cols == nullptr) != (ncols == 0) || ncols < 0 ||
+      (int64_t)ncols > (int64_t)nt0 * nt1)
+    return kErrArgument;
+  const int64_t nblocks = (int64_t)(cols ? ncols : nt0 * nt1) * nt2;
   if (nblocks > 0x7fffffff) return kErrArgument;
+  l.cols = cols;
 
   Geometry& g = l.g;
   g.n0 = n0; g.n1 = n1; g.n2 = n2;
@@ -470,13 +498,13 @@ int prepare(const int32_t* geom, int ngeom, const int32_t* tap_offsets,
 // The entries' bodies, one per mode, for either element type.
 template <typename T>
 int sweep_entry(const T* in, T* out, const T* source, const int32_t* geom,
-                int ngeom, const int32_t* tap_offsets,
-                const int32_t* group_sizes, const float* group_weights,
-                int ntaps, int ngroups, int uniform, float uniform_weight,
-                int device, void* stream) {
+                int ngeom, const int32_t* cols, int ncols,
+                const int32_t* tap_offsets, const int32_t* group_sizes,
+                const float* group_weights, int ntaps, int ngroups,
+                int uniform, float uniform_weight, int device, void* stream) {
   Launch<T> l;
   Taps taps;
-  const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
+  const int rc = prepare(geom, ngeom, cols, ncols, tap_offsets, group_sizes,
                          group_weights, ntaps, ngroups, uniform,
                          uniform_weight, l, taps);
   if (rc != 0) return rc;
@@ -492,13 +520,13 @@ int sweep_entry(const T* in, T* out, const T* source, const int32_t* geom,
 template <typename T>
 int cheby_entry(const T* in, T* out, T* out2, const T* source,
                 const int32_t* geom, int ngeom, const float* coeffs,
-                int ncoeffs, const int32_t* tap_offsets,
-                const int32_t* group_sizes, const float* group_weights,
-                int ntaps, int ngroups, int uniform, float uniform_weight,
-                int device, void* stream) {
+                int ncoeffs, const int32_t* cols, int ncols,
+                const int32_t* tap_offsets, const int32_t* group_sizes,
+                const float* group_weights, int ntaps, int ngroups,
+                int uniform, float uniform_weight, int device, void* stream) {
   Launch<T> l;
   Taps taps;
-  const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
+  const int rc = prepare(geom, ngeom, cols, ncols, tap_offsets, group_sizes,
                          group_weights, ntaps, ngroups, uniform,
                          uniform_weight, l, taps);
   if (rc != 0) return rc;
@@ -532,7 +560,8 @@ int two_level_entry(const T* in, const T* prev, T* out, T* out2,
                     void* stream) {
   Launch<T> l;
   Taps taps;
-  const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
+  // no subset: the TPU kernel refuses one in the two-level mode
+  const int rc = prepare(geom, ngeom, nullptr, 0, tap_offsets, group_sizes,
                          group_weights, ntaps, ngroups, uniform,
                          uniform_weight, l, taps);
   if (rc != 0) return rc;
@@ -555,21 +584,24 @@ extern "C" {
 // ghosts get no source, live ones the source's image there). `geom` is
 // int32[19]: n0 n1 n2 p0 p1 p2 halo t0 t1 t2 nt0 nt1 nt2 k r, then the
 // pins of the d0 lo, d0 hi, d1 lo and d1 hi faces (1 pinned, 0 live; see
-// the header). `tap_offsets` is int32[ntaps * 3] in group order,
+// the header). `cols` is null (every tile) or a device int32[ncols] of
+// column ids, the tile subset to sweep (see the header); the caller
+// checks each id lies in [0, nt0 * nt1). `tap_offsets` is int32[ntaps * 3]
+// in group order,
 // `group_sizes` int32[ngroups], `group_weights` float[ngroups].
 // Host arrays are copied before the launch returns. Returns 0, a CUDA
 // error code (cudaGetLastError after the launch), or a negative code for
 // a rejected argument (see stencil_tiled_sweep_error).
 int stencil_tiled_sweep(const float* in, float* out, const float* source,
-                        const int32_t* geom, int ngeom,
-                        const int32_t* tap_offsets,
+                        const int32_t* geom, int ngeom, const int32_t* cols,
+                        int ncols, const int32_t* tap_offsets,
                         const int32_t* group_sizes,
                         const float* group_weights, int ntaps, int ngroups,
                         int uniform, float uniform_weight, int device,
                         void* stream) {
-  return sweep_entry(in, out, source, geom, ngeom, tap_offsets, group_sizes,
-                     group_weights, ntaps, ngroups, uniform, uniform_weight,
-                     device, stream);
+  return sweep_entry(in, out, source, geom, ngeom, cols, ncols, tap_offsets,
+                     group_sizes, group_weights, ntaps, ngroups, uniform,
+                     uniform_weight, device, stream);
 }
 
 // The same in bf16: `in`, `out` and `source` hold __nv_bfloat16; the
@@ -577,14 +609,15 @@ int stencil_tiled_sweep(const float* in, float* out, const float* source,
 int stencil_tiled_sweep_bf16(const __nv_bfloat16* in, __nv_bfloat16* out,
                              const __nv_bfloat16* source,
                              const int32_t* geom, int ngeom,
+                             const int32_t* cols, int ncols,
                              const int32_t* tap_offsets,
                              const int32_t* group_sizes,
                              const float* group_weights, int ntaps,
                              int ngroups, int uniform, float uniform_weight,
                              int device, void* stream) {
-  return sweep_entry(in, out, source, geom, ngeom, tap_offsets, group_sizes,
-                     group_weights, ntaps, ngroups, uniform, uniform_weight,
-                     device, stream);
+  return sweep_entry(in, out, source, geom, ngeom, cols, ncols, tap_offsets,
+                     group_sizes, group_weights, ntaps, ngroups, uniform,
+                     uniform_weight, device, stream);
 }
 
 // The Chebyshev modes: k sweeps of u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} +
@@ -597,34 +630,35 @@ int stencil_tiled_sweep_bf16(const __nv_bfloat16* in, __nv_bfloat16* out,
 int stencil_tiled_sweep_cheby(const float* in, float* out, float* out2,
                               const float* source, const int32_t* geom,
                               int ngeom, const float* coeffs, int ncoeffs,
+                              const int32_t* cols, int ncols,
                               const int32_t* tap_offsets,
                               const int32_t* group_sizes,
                               const float* group_weights, int ntaps,
                               int ngroups, int uniform, float uniform_weight,
                               int device, void* stream) {
   return cheby_entry(in, out, out2, source, geom, ngeom, coeffs, ncoeffs,
-                     tap_offsets, group_sizes, group_weights, ntaps, ngroups,
-                     uniform, uniform_weight, device, stream);
+                     cols, ncols, tap_offsets, group_sizes, group_weights,
+                     ntaps, ngroups, uniform, uniform_weight, device, stream);
 }
 
 // The same in bf16 (the coefficients fp32, each a bf16 value).
 int stencil_tiled_sweep_cheby_bf16(
     const __nv_bfloat16* in, __nv_bfloat16* out, __nv_bfloat16* out2,
     const __nv_bfloat16* source, const int32_t* geom, int ngeom,
-    const float* coeffs, int ncoeffs, const int32_t* tap_offsets,
-    const int32_t* group_sizes, const float* group_weights, int ntaps,
-    int ngroups, int uniform, float uniform_weight, int device,
-    void* stream) {
+    const float* coeffs, int ncoeffs, const int32_t* cols, int ncols,
+    const int32_t* tap_offsets, const int32_t* group_sizes,
+    const float* group_weights, int ntaps, int ngroups, int uniform,
+    float uniform_weight, int device, void* stream) {
   return cheby_entry(in, out, out2, source, geom, ngeom, coeffs, ncoeffs,
-                     tap_offsets, group_sizes, group_weights, ntaps, ngroups,
-                     uniform, uniform_weight, device, stream);
+                     cols, ncols, tap_offsets, group_sizes, group_weights,
+                     ntaps, ngroups, uniform, uniform_weight, device, stream);
 }
 
 // The two-level (leapfrog) mode: k steps of L_t = S(L_{t-1}) - L_{t-2}
 // from `in` = L_n and `prev` = L_{n-1} (padded like `in`, required); sweep
 // k goes to `out`, sweep k-1 (at k = 1 the input L_n) to `out2`
-// (required), tile points only. The other arguments and the return value
-// are those of stencil_tiled_sweep.
+// (required), tile points only; it takes no tile subset. The other
+// arguments and the return value are those of stencil_tiled_sweep.
 int stencil_tiled_sweep_two_level(const float* in, const float* prev,
                                   float* out, float* out2,
                                   const int32_t* geom, int ngeom,
@@ -660,6 +694,7 @@ int stencil_tiled_sweep_two_level_bf16(
 int stencil_tiled_sweep_coeff(const float* in, const float* coeff,
                               float* out, const int32_t* geom, int ngeom,
                               const float* scales, int nscales,
+                              const int32_t* cols, int ncols,
                               const int32_t* tap_offsets,
                               const int32_t* group_sizes,
                               const float* group_weights, int ntaps,
@@ -667,7 +702,7 @@ int stencil_tiled_sweep_coeff(const float* in, const float* coeff,
                               int device, void* stream) {
   Launch<float> l;
   Taps taps;
-  const int rc = prepare(geom, ngeom, tap_offsets, group_sizes,
+  const int rc = prepare(geom, ngeom, cols, ncols, tap_offsets, group_sizes,
                          group_weights, ntaps, ngroups, uniform,
                          uniform_weight, l, taps);
   if (rc != 0) return rc;

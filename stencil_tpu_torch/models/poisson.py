@@ -205,11 +205,40 @@ class PoissonProblem:
             plan_info=info,
         )
 
-    def sharded_runner(self, f, mesh, sweeps_per_call: int = 8, **kw):
-        raise NotImplementedError(
-            "sharded Poisson is not ported yet to stencil_tpu_torch "
-            "(replaces stencil_tpu/parallel/pallas_sharded.py:"
-            "ShardedPallasStencil)")
+    def sharded_runner(self, f, mesh, sweeps_per_call: int = 8,
+                       axis_names=("x",), **kw) -> Runner:
+        """Distributed Poisson relaxation: the tiled kernel's source mode
+        per rank + a k*r-deep halo exchange over ``mesh``
+        (``parallel/mesh.py``; its axes ``axis_names`` shard d0, or d0 and
+        d1), 3D only. The static source is exchanged once per iterate
+        call (``parallel/sharded_kernel.py``); ``kw`` goes to
+        ``ShardedKernelStencil`` (``overlap``, ``t0_fixed``).
+
+        Counterpart of ``stencil_tpu/models/poisson.py:sharded_runner``
+        (:242-267)."""
+        if self.ndim != 3:
+            raise ValueError("sharded Poisson is 3D-only")
+        from stencil_tpu_torch.parallel.sharded_kernel import (
+            ShardedKernelStencil,
+        )
+
+        m = ShardedKernelStencil(
+            self.spec, self.shape, dtype=self.dtype,
+            sweeps_per_call=sweeps_per_call, axis_names=tuple(axis_names),
+            has_source=True, **kw)
+        plan = m.local_plan(m.mesh_shape(mesh))
+        return Runner(
+            name=f"poisson_sharded(k={sweeps_per_call})",
+            iterate=lambda g, n: m.iterate(
+                g, n, mesh, source=f, source_scale=self.source_scale),
+            granularity=sweeps_per_call,
+            description="distributed Jacobi relaxation of laplacian(u)=f "
+                        "(the tiled source kernel per rank + halo "
+                        "exchange)",
+            plan_info={"kernel": "tiled", "k": sweeps_per_call,
+                       "mesh": list(m.mesh_shape(mesh)),
+                       "tiles": list(plan.tiles), "has_source": True},
+        )
 
     def solve(self, f, tolerance: float = 1e-6,
               max_iterations: int = 200_000, check_every: int = 200,

@@ -33,6 +33,14 @@ plan with ``coeff_scales`` (heterogeneous diffusion),
 center is ``c0 + cs * (sum of the six face means)``; it takes (nb, c0, cs)
 as float32[3].
 
+The 3D kernel's entries but the two-level one also take a tile subset
+(B1f, ``build_tiled_sweep(subset=...)``): a device int32 list of tile
+columns, each an (i0, i1) pair with all of its d2 tiles
+(``ops/tiled.py:partition_tiles``), after the geometry; a launch with one
+sweeps those columns only and leaves every other point of its outputs as
+it was. The list is built once per subset and device and kept there
+(:func:`column_ids`).
+
 Each entry has a twin for bfloat16 tensors, ``stencil_<name>..._bf16``
 (none for the coefficient mode, which is float32 only, as in JAX): the
 same arguments, the windows and every tensor in bfloat16, every add and
@@ -136,6 +144,66 @@ def update_boxes(plan, pins: Tuple[int, ...]) -> Tuple[tuple, ...]:
             box.append(slice(lo, hi))
         boxes.append(tuple(box))
     return tuple(boxes)
+
+
+def column_boxes(plan, subset) -> Tuple[tuple, ...]:
+    """The padded-index box of each tile column of ``subset`` (ids ``i0 *
+    nt1 + i1`` of a 3D plan): the clamped tiles' extent in d0 and d1, the
+    whole interior in d2, the points a subset launch writes."""
+    h = plan.layout.halo
+    t0, t1, _ = plan.tiles
+    starts0, starts1 = plan.tile_starts(0), plan.tile_starts(1)
+    boxes = []
+    for col in subset:
+        i0, i1 = divmod(col, len(starts1))
+        s0, s1 = starts0[i0], starts1[i1]
+        boxes.append((slice(h + s0, h + s0 + t0), slice(h + s1, h + s1 + t1),
+                      slice(h, h + plan.interior_shape[2])))
+    return tuple(boxes)
+
+
+def check_subset(plan, subset) -> Tuple[int, ...]:
+    """``subset`` as a tuple of column ids; ``ValueError`` where the
+    kernel cannot sweep it, with JAX's messages (``pallas_tiled.py:
+    747-757``): the two-level mode takes none, the ids must be a non-empty
+    list inside [0, nt0 * nt1)."""
+    if getattr(plan, "two_level", False):
+        raise ValueError(
+            "tile subsets are not implemented for the two-level "
+            "(leapfrog) recursion")
+    ids = tuple(int(c) for c in subset)
+    nt = plan.num_tiles[0] * plan.num_tiles[1]
+    if not ids or any(c < 0 or c >= nt for c in ids):
+        raise ValueError(f"tile subset out of range [0, {nt})")
+    return ids
+
+
+@functools.lru_cache(maxsize=256)
+def column_ids(subset: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The device int32 list a subset launch passes, built once per subset
+    and device: a launch copies nothing from the host."""
+    return torch.tensor(subset, dtype=torch.int32, device=device)
+
+
+def subset_reference(cur: torch.Tensor, nxt: torch.Tensor, plan, subset,
+                     src: Optional[torch.Tensor] = None,
+                     coeff: Optional[torch.Tensor] = None, pins=None,
+                     out2: Optional[torch.Tensor] = None):
+    """Plain version of a subset launch: :func:`sweep_reference` of
+    ``cur``, copied into a clone of ``nxt`` on the subset's column boxes
+    (:func:`column_boxes`) only, every other point passing through as the
+    TPU kernel's output aliasing leaves it; a dual plan's second output
+    likewise into a clone of ``out2``. Returns the new tensor, or the pair;
+    ``nxt`` and ``out2`` are unchanged."""
+    want = sweep_reference(cur, plan, src, coeff=coeff, pins=pins)
+    pairs = [(want, nxt)] if out2 is None else list(zip(want, (nxt, out2)))
+    got = []
+    for full, base in pairs:
+        out = base.clone()
+        for box in column_boxes(plan, check_subset(plan, subset)):
+            out[box] = full[box]
+        got.append(out)
+    return got[0] if out2 is None else tuple(got)
 
 
 def _grown(box, r: int):
@@ -291,14 +359,17 @@ def sweep_reference(cur: torch.Tensor, plan,
 class SweepKernel:
     """One hand-written sweep kernel: its build, its wrapper (call it as
     ``kernel(cur, nxt, plan, src=None, pins=None, out2=None, prev=None,
-    coeff=None)``) and its counts of launches: ``launches`` in all, of them
+    coeff=None, subset=None)``) and its counts of launches: ``launches`` in
+    all, of them
     ``source_launches`` in source mode, ``cheby_launches`` in Chebyshev
     mode, ``dual_launches`` in its dual mode, ``two_level_launches`` in
     two-level mode and ``coeff_launches`` in coefficient mode. Launches
     with a live face are counted again by mode: ``pins_launches`` in the
     homogeneous mode, ``source_pins_launches``, ``two_level_pins_launches``
     and ``coeff_pins_launches``; launches of a bfloat16 plan again in
-    ``bf16_launches``.
+    ``bf16_launches``; launches over a tile subset again in
+    ``subset_launches``, those of the source mode also in
+    ``source_subset_launches``.
 
     ``name`` names the library and its C entry ``stencil_<name>``;
     ``source`` is the ``.cu`` file; ``replaces`` is where the TPU kernel
@@ -307,7 +378,8 @@ class SweepKernel:
     MODE_COUNTS = ("source_launches", "cheby_launches", "dual_launches",
                    "two_level_launches", "coeff_launches", "pins_launches",
                    "source_pins_launches", "two_level_pins_launches",
-                   "coeff_pins_launches", "bf16_launches")
+                   "coeff_pins_launches", "bf16_launches",
+                   "subset_launches", "source_subset_launches")
 
     def __init__(self, name: str, source: Path, replaces: str, ndim: int):
         self.name = name
@@ -338,6 +410,8 @@ class SweepKernel:
         source has it, under the mode's name + ``_bf16``."""
         lib = ctypes.CDLL(str(self.build().path))
         P, I = ctypes.c_void_p, ctypes.c_int
+        # the 3D kernel's tile subset: column ids (device) and their count
+        cols = [P, I] if self.ndim == 3 else []
         taps = [
             P,                # tap offsets, int32[ntaps * ndim] (host)
             P,                # group sizes, int32[ngroups] (host)
@@ -351,16 +425,16 @@ class SweepKernel:
         ]
         argtypes = {
             # in, out, padded source or null (device); geometry int32
-            # (host) and its length
-            "": [P, P, P, P, I],
+            # (host) and its length; [3D] the subset
+            "": [P, P, P, P, I] + cols,
             # in, out, out2 or null, padded raw source (device); geometry;
-            # coefficients float32[4k] (host) and their count
-            "_cheby": [P, P, P, P, P, I, P, I],
+            # coefficients float32[4k] (host) and their count; the subset
+            "_cheby": [P, P, P, P, P, I, P, I] + cols,
             # in, prev, out, out2 (device); geometry
             "_two_level": [P, P, P, P, P, I],
             # in, padded coefficient, out (device); geometry; (nb, c0, cs)
-            # float32[3] (host) and their count
-            "_coeff": [P, P, P, P, I, P, I],
+            # float32[3] (host) and their count; the subset
+            "_coeff": [P, P, P, P, I, P, I] + cols,
         }
         entries = {}
         for suffix, args in argtypes.items():
@@ -385,9 +459,16 @@ class SweepKernel:
               src: Optional[torch.Tensor], pins: Tuple[int, ...],
               out2: Optional[torch.Tensor] = None,
               prev: Optional[torch.Tensor] = None,
-              coeff: Optional[torch.Tensor] = None) -> None:
-        """Raise ``ValueError`` on what the kernel does not take."""
+              coeff: Optional[torch.Tensor] = None,
+              subset=None) -> Optional[Tuple[int, ...]]:
+        """Raise ``ValueError`` on what the kernel does not take; returns
+        the subset as a tuple of column ids, or None."""
         cheby = bool(getattr(plan, "cheby_coeffs", ()))
+        if subset is not None:
+            if self.ndim != 3:
+                raise ValueError(f"{self.name} takes no tile subset (the 3D "
+                                 "tiled kernel does)")
+            subset = check_subset(plan, subset)
         # one pin per face of every dim but the last (the TPU kernels' own)
         if len(pins) != 2 * (self.ndim - 1) or \
                 any(p not in (0, 1) for p in pins):
@@ -440,12 +521,13 @@ class SweepKernel:
         if len(set(ptrs)) != len(ptrs):
             raise ValueError("cur, nxt, out2, prev and coeff must be "
                              "distinct tensors")
+        return subset
 
     def __call__(self, cur: torch.Tensor, nxt: torch.Tensor, plan,
                  src: Optional[torch.Tensor] = None, pins=None,
                  out2: Optional[torch.Tensor] = None,
                  prev: Optional[torch.Tensor] = None,
-                 coeff: Optional[torch.Tensor] = None):
+                 coeff: Optional[torch.Tensor] = None, subset=None):
         """``plan.sweeps_per_call`` sweeps of ``cur`` into the interior of
         ``nxt`` (both padded per ``plan.layout``; ``nxt``'s ghosts must
         already hold the BC), adding the padded source ``src`` after the
@@ -461,15 +543,24 @@ class SweepKernel:
         ``(nxt, out2)``. A ``two_level`` plan takes the older level
         ``prev`` and ``out2`` and returns ``(nxt, out2)`` likewise. A plan
         with ``coeff_scales`` takes the padded coefficient ``coeff``.
+        ``subset`` (3D, every mode but the two-level one) lists the tile
+        columns to sweep; every other point of ``nxt`` (and ``out2``)
+        keeps what it held.
 
         A CUDA tensor launches the kernel on the current stream (no
         synchronisation) and raises ``RuntimeError`` if the launch fails;
-        a CPU tensor runs :func:`sweep_reference`."""
+        a CPU tensor runs :func:`sweep_reference` (:func:`subset_reference`
+        with a subset)."""
         pins = all_pinned(self.ndim) if pins is None \
             else tuple(int(p) for p in pins)
-        self.check(cur, nxt, plan, src, pins, out2, prev, coeff)
+        subset = self.check(cur, nxt, plan, src, pins, out2, prev, coeff,
+                            subset)
         if cur.device.type == "cpu":
-            want = sweep_reference(cur, plan, src, prev, coeff, pins)
+            if subset is not None:
+                want = subset_reference(cur, nxt, plan, subset, src, coeff,
+                                        pins, out2)
+            else:
+                want = sweep_reference(cur, plan, src, prev, coeff, pins)
             if out2 is None:
                 nxt.copy_(want)
                 return nxt
@@ -490,6 +581,10 @@ class SweepKernel:
                 device, stream)
         geometry = (geom.ctypes.data, len(geom))
         scalar_args = (scalars.ctypes.data, len(scalars))
+        cols = ()
+        if self.ndim == 3:
+            cols = (None, 0) if subset is None else (
+                column_ids(subset, cur.device).data_ptr(), len(subset))
         if getattr(plan, "two_level", False):
             mode = "two_level"
             args = (cur.data_ptr(), prev.data_ptr(), nxt.data_ptr(),
@@ -497,16 +592,17 @@ class SweepKernel:
         elif getattr(plan, "has_coeff", False):
             mode = "coeff"
             args = (cur.data_ptr(), coeff.data_ptr(), nxt.data_ptr(),
-                    *geometry, *scalar_args)
+                    *geometry, *scalar_args, *cols)
         elif len(scalars):
             mode = "cheby"
             args = (cur.data_ptr(), nxt.data_ptr(),
                     out2.data_ptr() if out2 is not None else None,
-                    src.data_ptr(), *geometry, *scalar_args)
+                    src.data_ptr(), *geometry, *scalar_args, *cols)
         else:
             mode = "plain"
             args = (cur.data_ptr(), nxt.data_ptr(),
-                    src.data_ptr() if src is not None else None, *geometry)
+                    src.data_ptr() if src is not None else None, *geometry,
+                    *cols)
         bf16 = plan.dtype == "bfloat16"
         fn = entries[mode + ("_bf16" if bf16 else "")]
         if fn is None:
@@ -518,6 +614,7 @@ class SweepKernel:
                                f"{entries['error'](rc).decode()}")
         self.launches += 1
         self.bf16_launches += bf16
+        self.subset_launches += subset is not None
         live = not all(pins)
         if mode == "two_level":
             self.two_level_launches += 1
@@ -532,6 +629,7 @@ class SweepKernel:
         elif src is not None:
             self.source_launches += 1
             self.source_pins_launches += live
+            self.source_subset_launches += subset is not None
         else:
             self.pins_launches += live
         return nxt if out2 is None else (nxt, out2)

@@ -37,7 +37,9 @@ the k shrinking sweeps, discounted by the blocks that fit on one SM
 (:func:`_cost`, fitted to a tile sweep measured on an H100).
 
 ``TiledStencil.iterate`` is the iterate both kernels share
-(``ops/sweep_kernel.py:KernelStencil``).
+(``ops/sweep_kernel.py:KernelStencil``). :func:`partition_tiles` splits a
+plan's tile columns into the interior and edge subsets of the overlapped
+sharded step (``parallel/sharded_kernel.py``).
 """
 
 from __future__ import annotations
@@ -337,6 +339,31 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
                      layout=PaddedLayout.for_halo(interior_shape, k * r),
                      cheby_coeffs=coeffs, cheby_dual=bool(cheby_dual),
                      two_level=bool(two_level), coeff_scales=scales)
+
+
+def partition_tiles(plan: TiledPlan) -> Tuple[Tuple[int, ...],
+                                              Tuple[int, ...]]:
+    """(interior ids, edge ids) of the plan's tile columns, the phase split
+    of the overlapped sharded step. A column is one (i0, i1) pair with
+    every d2 tile of it, id ``i0 * nt1 + i1`` (the kernel's subset unit,
+    ``csrc/tiled_sweep.cu``). It is interior when its windows stay clear
+    of the ``k*r``-deep d0 and d1 ghost bands, which a mesh exchange and
+    the refresh of an unsharded periodic or Neumann dim write: its clamped
+    tile start is ``>= k*r`` and start + t + ``k*r`` ``<= n`` in d0 and in
+    d1. Every other column is edge. Device-independent, as JAX's: a
+    column by a physical wall is edge too, a scheduling choice only.
+
+    Counterpart of ``pallas_tiled.partition_tiles`` (:1879-1908), whose
+    tiles span d2 whole."""
+    kr = plan.halo
+    starts = [plan.tile_starts(d) for d in (0, 1)]
+    interior, edge = [], []
+    for i0, s0 in enumerate(starts[0]):
+        for i1, s1 in enumerate(starts[1]):
+            clear = all(kr <= s and s + t + kr <= n for s, t, n in zip(
+                (s0, s1), plan.tiles[:2], plan.interior_shape[:2]))
+            (interior if clear else edge).append(i0 * len(starts[1]) + i1)
+    return tuple(interior), tuple(edge)
 
 
 def _interior(data: torch.Tensor, halo: int) -> torch.Tensor:

@@ -2,8 +2,10 @@
 and its plain PyTorch version.
 
 The kernel replaces ``stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep``
-in six modes: homogeneous and source (``has_source``), where one launch
-runs k sweeps of a ``StencilSpec`` over a deep-halo padded tensor,
+in six modes and its tile subsets (B1f, ``subset=``: a launch over a list
+of tile columns, every mode but the two-level one): homogeneous and
+source (``has_source``), where one launch runs k sweeps of a
+``StencilSpec`` over a deep-halo padded tensor,
 Dirichlet ghosts held constant, optionally adding a padded pre-scaled
 source after the taps of every interior update; the Chebyshev
 (``cheby_coeffs``) and dual (``cheby_dual``) modes of the multigrid fine
@@ -17,7 +19,7 @@ entries per type). See the source's header for its design and what bounds
 it.
 
 ``tiled_sweep(cur, nxt, plan, src=None, pins=None, out2=None, prev=None,
-coeff=None)`` takes the plain
+coeff=None, subset=None)`` takes the plain
 version (:func:`sweep_reference`) only for tensors on the CPU (the tests);
 for CUDA tensors it launches the kernel or raises. The binding, checks and
 plain version are shared with the 2D kernel (``ops/sweep_kernel.py``).
@@ -57,6 +59,13 @@ REPLACES_MODE = {
     "tiled_sweep+source+pins+bf16": "stencil_tpu/ops/pallas_tiled.py:1270",
     "tiled_sweep+two_level+pins+bf16":
         "stencil_tpu/ops/pallas_tiled.py:1270",
+    # a launch over a tile subset (B1f: build_tiled_sweep(subset=...), its
+    # run list of tile ids at :746-758), the phase split of the overlapped
+    # sharded step
+    "tiled_sweep+subset": "stencil_tpu/ops/pallas_tiled.py:746",
+    "tiled_sweep+source+subset": "stencil_tpu/ops/pallas_tiled.py:746",
+    "tiled_sweep+subset+bf16": "stencil_tpu/ops/pallas_tiled.py:746",
+    "tiled_sweep+source+subset+bf16": "stencil_tpu/ops/pallas_tiled.py:746",
 }
 
 tiled_sweep = SweepKernel("tiled_sweep", SOURCE, REPLACES, ndim=3)

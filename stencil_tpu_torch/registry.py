@@ -2,7 +2,8 @@
 
 Counterpart of ``stencil_tpu/registry.py`` (``Runner``, ``make_xla``,
 ``_dynamic_kernel_constraints``, ``_make_pallas``, ``_make_pallas_tiled``,
-``REGISTRY``, ``get_runner``). Four methods are ported:
+``REGISTRY``, ``get_runner``, ``_make_sharded``, ``make_sharded_pallas``).
+Seven methods are ported:
 
   ``eager``     the eager torch shifted-slice sweep (``ops/eager.py``), the
                 counterpart of ``xla``
@@ -13,13 +14,26 @@ Counterpart of ``stencil_tpu/registry.py`` (``Runner``, ``make_xla``,
   ``varcoeff``  heterogeneous FTCS diffusion (``models/diffusion.py``): the
                 3D kernel's coefficient mode at ``-k``, or the eager field
                 sweep; ``-c`` checks it against the float64 field golden
+  ``sharded``, ``sharded_noverlap``
+                the eager sweep per rank of a mesh, radius-deep halos
+                exchanged every sweep (``parallel/halo.py``), with or
+                without the interior-first split
+  ``sharded_pallas``
+                the kernels per rank, a k*r-deep exchange per launch, the
+                tiled kernel's interior/edge split around it
+                (``parallel/sharded_kernel.py``)
 
 The JAX package's names resolve too, so its command lines run unchanged:
 ``xla`` is ``eager``; ``pallas`` runs at k=1 and ``pallas_temporal`` at
 ``-k`` (default 8), on ``slab`` for 2D grids and ``tiled`` for 3D grids;
 ``pallas_tiled`` is ``tiled`` at ``-k`` (default 1) and, as in the JAX
-package, refuses 2D grids. Methods not ported yet raise
-``NotImplementedError`` naming the JAX code a later port replaces.
+package, refuses 2D grids. Methods not ported yet (``rma``, ``streamed``)
+raise ``NotImplementedError`` naming the JAX code a later port replaces.
+
+The sharded methods run on a single-controller mesh (``parallel/mesh.py``):
+``--mesh`` gives its shape, by default one rank per visible CUDA device
+(one on the CPU), and several ranks may share one card. ``--no-overlap``
+turns the interior-first split off.
 
 Periodic and Neumann walls (``--periodic``/``--neumann``) run on every
 ported method: on the kernels with JAX's gates, raised when the runner is
@@ -202,6 +216,118 @@ def make_varcoeff(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
     return runner
 
 
+def _mesh_sizes(config, grid: HaloGrid):
+    """``--mesh``, or one rank per visible device of the grid's kind."""
+    from stencil_tpu_torch.parallel.mesh import default_mesh_shape
+
+    if config is not None and config.mesh:
+        return tuple(config.mesh)
+    return default_mesh_shape(grid.device)
+
+
+def _make_sharded(config, spec: StencilSpec, grid: HaloGrid,
+                  overlap: bool) -> Runner:
+    """``sharded``/``sharded_noverlap``: grid dim d sharded over mesh axis
+    d where that axis has more than one rank (``registry.py:293-316``)."""
+    from stencil_tpu_torch.parallel.halo import ShardedStencil
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+
+    mesh_sizes = _mesh_sizes(config, grid)
+    names = iter(("x", "y", "z"))
+    axis_names = tuple(
+        next(names) if d < len(mesh_sizes) and mesh_sizes[d] > 1 else None
+        for d in range(spec.ndim))
+    mesh = make_mesh([s for s in mesh_sizes if s > 1],
+                     [n for n in axis_names if n is not None], grid.device)
+    method = ShardedStencil(spec, axis_names, overlap=overlap)
+    return Runner(
+        name="sharded" if overlap else "sharded_noverlap",
+        iterate=lambda g, n: method.iterate(g, n, mesh),
+        description=(
+            "eager sweep per rank + halo exchange over a single-controller "
+            "mesh" + (" (interior-first overlap)" if overlap else "")
+            + "; counterpart of stencil_tpu/parallel/halo.py:ShardedStencil"),
+        plan_info={"kernel": "eager", "mesh": list(mesh_sizes),
+                   "overlap": overlap},
+    )
+
+
+def make_sharded(config, spec, grid) -> Runner:
+    # --no-overlap switches the interior-first split off, as the
+    # sharded_noverlap name does
+    return _make_sharded(config, spec, grid,
+                         not (config is not None and config.no_overlap))
+
+
+def make_sharded_noverlap(config, spec, grid) -> Runner:
+    return _make_sharded(config, spec, grid, False)
+
+
+def make_sharded_pallas(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
+    """The kernels per rank + a k*r-deep halo exchange (BASELINE config 5):
+    ``--mesh a`` shards d0, ``--mesh a b`` d0 and d1 of a 3D grid; JAX's
+    gates raised when the runner is made (``registry.py:319-391``).
+    ``plan_info`` records the mesh, the local plan, the interior and edge
+    tile columns of the split and the bytes one rank receives per outer
+    step."""
+    from stencil_tpu_torch.ops.tiled import partition_tiles
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.sharded_kernel import (
+        ShardedKernelStencil,
+    )
+
+    mesh_sizes = _mesh_sizes(config, grid)
+    if len(mesh_sizes) > 2:
+        raise ValueError("mesh must be 1D or 2D over the leading grid dims")
+    axes = ("x", "y")[:len(mesh_sizes)]
+    k = _temporal(config, 1)
+    if grid.bc.any_dynamic:
+        nd = len(grid.interior_shape)
+        dyn, neu = grid.bc.dynamic_mask(nd), grid.bc.neumann_mask(nd)
+        if dyn[-1]:
+            raise ValueError(
+                "a periodic/Neumann lane (last) dim is unsupported by "
+                "'sharded_pallas'; use the 'sharded' or 'xla' method")
+        if k > 1:
+            for d in range(nd - 1):
+                if neu[d] and not spec.symmetric_in(d):
+                    raise ValueError(
+                        f"a Neumann dim {d} at temporal depth k>1 needs "
+                        f"the stencil mirror-symmetric in dim {d} "
+                        "(use -k 1)")
+    overlap = not (config is not None and config.no_overlap)
+    method = ShardedKernelStencil(
+        spec, grid.interior_shape, axis_names=axes,
+        dtype=dtype_name(grid.dtype), sweeps_per_call=k,
+        t0_fixed=config.block if config is not None else None,
+        overlap=overlap)
+    plan = method.local_plan(mesh_sizes)  # divisibility and fit, eagerly
+    mesh = make_mesh(mesh_sizes, axes, grid.device)
+    interior, edge = partition_tiles(plan) if spec.ndim == 3 else ((), ())
+    plan_info = {"kernel": "tiled" if spec.ndim == 3 else "slab",
+                 "mesh": list(mesh_sizes), "k": k,
+                 "local_shape": list(plan.interior_shape),
+                 "tiles": list(plan.tiles), "overlap": overlap,
+                 "split": bool(method.splits(mesh_sizes) and interior
+                               and edge),
+                 "interior_columns": len(interior),
+                 "edge_columns": len(edge),
+                 "exchange_bytes_per_step": method.exchange_bytes(plan)}
+    ignored = config.ignored_tpu_flags() if config is not None else {}
+    if ignored:
+        plan_info["ignored"] = ignored
+    return Runner(
+        name=f"sharded_pallas(mesh={'x'.join(map(str, mesh_sizes))},k={k})",
+        iterate=lambda g, it: method.iterate(g, it, mesh),
+        description=(
+            "hand-written kernel per rank + in-place halo exchange over a "
+            "single-controller mesh (leading-dim sharding); counterpart of "
+            "stencil_tpu/parallel/pallas_sharded.py:ShardedPallasStencil"),
+        granularity=k,
+        plan_info=plan_info,
+    )
+
+
 def _not_ported(replaces: str) -> Callable:
     def factory(config, spec, grid) -> Runner:
         raise NotImplementedError(
@@ -218,11 +344,9 @@ REGISTRY: Dict[str, Callable] = {
     "pallas": make_pallas,
     "pallas_temporal": make_pallas_temporal,
     "pallas_tiled": make_tiled,
-    "sharded": _not_ported("stencil_tpu/parallel/halo.py:ShardedStencil"),
-    "sharded_noverlap": _not_ported(
-        "stencil_tpu/parallel/halo.py:ShardedStencil"),
-    "sharded_pallas": _not_ported(
-        "stencil_tpu/parallel/pallas_sharded.py:ShardedPallasStencil"),
+    "sharded": make_sharded,
+    "sharded_noverlap": make_sharded_noverlap,
+    "sharded_pallas": make_sharded_pallas,
     "rma": _not_ported("stencil_tpu/parallel/rma.py:build_rma_iterate"),
     "streamed": _not_ported("stencil_tpu/streaming.py:StreamedStencil"),
     "varcoeff": make_varcoeff,

@@ -131,15 +131,19 @@ def test_cuda_request_without_card_raises():
 
 
 # (--solve is ported; its own refusals are error records, tested in
-# tests/test_torch_solve_cli.py)
-@pytest.mark.parametrize("flag", [["--no-overlap"], ["--mesh", "2"],
+# tests/test_torch_solve_cli.py. --no-overlap and --mesh are ported: beside
+# an unported flag they are accepted and not named in the refusal)
+@pytest.mark.parametrize("flag", [["--no-overlap", "--chunks", "2"],
+                                  ["--mesh", "2", "--profile", "x"],
                                   ["--chunks", "2"],
                                   ["--checkpoint-dir", "x"],
                                   ["--dump-image", "x.bmp"],
                                   ["--profile", "x"]])
 def test_features_outside_slice_refuse(capsys, flag):
     assert cli.main([*MAIN_ARGS, "--device", "cpu", *flag]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported yet" in err
+    assert "--mesh" not in err and "--no-overlap" not in err
     cfg = parse_args([*MAIN_ARGS, "--device", "cpu", *flag])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.run_all(cfg, out=io.StringIO())
@@ -169,8 +173,16 @@ def test_2d_method_aliases(method, k_expected):
 @pytest.mark.parametrize("method", ["sharded", "sharded_noverlap",
                                     "sharded_pallas", "rma", "streamed"])
 def test_unported_methods_name_their_jax_code(method):
+    """``rma`` and ``streamed`` refuse, naming the JAX code a later port
+    replaces; the sharded methods (ported) name it in their runner's
+    description."""
     cfg = RunConfig(size=(12, 10, 14), spec="jacobi7", device="cpu")
     spec = cfg.resolved_spec()
+    if method.startswith("sharded"):
+        runner = registry.get_runner(method, cfg, spec,
+                                     cli.make_grid(cfg, spec))
+        assert "stencil_tpu/parallel/" in runner.description
+        return
     with pytest.raises(NotImplementedError, match="stencil_tpu/"):
         registry.get_runner(method, cfg, spec, cli.make_grid(cfg, spec))
 

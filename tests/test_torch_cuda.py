@@ -679,3 +679,85 @@ def test_bf16_refuses_coeff_and_a_dtype_mix(cuda_device):
     cur = plan.layout.pad_grid(_grid((8, 8, 8), 1, cuda_device))
     with pytest.raises(ValueError, match="plan dtype"):
         tiled_sweep(cur, cur.clone(), plan)
+
+
+# ---- B1f: tile subsets, and the sharded kernel path ------------------------
+
+
+@pytest.mark.parametrize("name,shape,k,tiles,dtype,periodic,neumann,source", [
+    ("jacobi7", (64, 48, 40), 8, (8, 16, 16), "float32", (), (), False),
+    ("jacobi7", (57, 50, 46), 3, (8, 8, 16), "float32", (0,), (1,), True),
+    ("jacobi27", (40, 36, 44), 2, None, "float32", (0, 1), (), False),
+    ("star3d_r2", (48, 40, 32), 2, (8, 8, 16), "float32", (), (0,), True),
+    ("jacobi7", (64, 48, 40), 8, (16, 16, 16), "bfloat16", (), (), False),
+    ("jacobi7", (57, 50, 46), 3, (8, 8, 16), "bfloat16", (0,), (1,), True),
+])
+def test_subset_launches_match_plain(cuda_device, name, shape, k, tiles,
+                                     dtype, periodic, neumann, source):
+    """The interior launch, then the edge launch into the same output:
+    each bitwise its plain version (the other columns untouched), the pair
+    bitwise the full launch; live faces as a mesh's internal ones."""
+    from stencil_tpu_torch.ops.sweep_kernel import subset_reference
+    from stencil_tpu_torch.ops.tiled import dynamic_pins, partition_tiles
+
+    sp = get_spec(name)
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(sp, shape, dtype, k, tiles=tiles,
+                           has_source=source)
+    cur = _bf16_input(plan, shape, sp.radius, cuda_device, bc) \
+        if dtype == "bfloat16" else _refreshed(plan, bc, shape, sp.radius,
+                                               cuda_device)
+    nxt = cur.clone()
+    nxt[plan.layout.interior_index] = -1.0
+    src = pad_source(plan, _source(shape), -0.02, bc).to(cuda_device) \
+        if source else None
+    pins = dynamic_pins(bc, 3)
+    interior, edge = partition_tiles(plan)
+    assert interior and edge
+    before = (tiled_sweep.subset_launches, tiled_sweep.source_subset_launches)
+    part = tiled_sweep(cur, nxt.clone(), plan, src, pins, subset=interior)
+    want_part = subset_reference(cur, nxt, plan, interior, src, pins=pins)
+    torch.cuda.synchronize()
+    assert torch.equal(part, want_part)
+    got = tiled_sweep(cur, part.clone(), plan, src, pins, subset=edge)
+    want = subset_reference(cur, want_part, plan, edge, src, pins=pins)
+    full = tiled_sweep(cur, nxt.clone(), plan, src, pins)
+    torch.cuda.synchronize()
+    assert tiled_sweep.subset_launches == before[0] + 2
+    assert tiled_sweep.source_subset_launches == before[1] + 2 * source
+    assert torch.equal(got, want)
+    assert torch.equal(got, full)
+
+
+@pytest.mark.parametrize("sizes,dtype,periodic,neumann", [
+    ((2, 2), "float32", (), ()), ((4,), "float32", (0,), (1,)),
+    ((2, 2), "bfloat16", (0,), ()), ((2, 2), "float32", (), (0, 1))])
+def test_sharded_pallas_matches_tiled(cuda_device, sizes, dtype, periodic,
+                                      neumann):
+    """``sharded_pallas`` on a mesh whose ranks share the card: the
+    interior and edge launches around the in-place exchange on its side
+    stream, bitwise the single-device tiled iterate (also the race check
+    of the exchange against the interior launch)."""
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.sharded_kernel import (
+        ShardedKernelStencil,
+    )
+
+    sp = get_spec("jacobi7")
+    shape, k, iters = (128, 96, 64), 4, 19
+    bc = _walls(3, periodic, neumann)
+    x = np.random.default_rng(4).random(shape).astype(np.float32)
+    g = HaloGrid.from_interior(torch.from_numpy(x).to(getattr(torch, dtype)),
+                               halo=1, bc=bc, device=cuda_device)
+    axes = ("x", "y")[:len(sizes)]
+    method = ShardedKernelStencil(sp, shape, axis_names=axes, dtype=dtype,
+                                  sweeps_per_call=k, tiles=(8, 8, 16))
+    mesh = make_mesh(sizes, axes, device=cuda_device)
+    tiled_sweep.reset_counts()
+    got = method.iterate(g, iters, mesh)
+    n_launch = (iters // k + 1) * mesh.size
+    assert tiled_sweep.subset_launches == 2 * n_launch
+    want = TiledStencil(sp, shape, dtype, sweeps_per_call=k,
+                        device=cuda_device).iterate(g, iters)
+    torch.cuda.synchronize()
+    assert torch.equal(got.data, want.data)

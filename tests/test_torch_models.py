@@ -139,7 +139,7 @@ def test_poisson_runner_refusals_and_ignored_flags():
         tp.runner(f, method="rma")
     with pytest.raises(ValueError, match="source shape"):
         tp.runner(np.zeros((4, 4)), method="xla")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="sharded Poisson is 3D-only"):
         tp.sharded_runner(f, mesh=None)
     r = tp.runner(f, method="slab", sweeps_per_call=2, autotune="force")
     assert r.plan_info["ignored"] == {"autotune": "force"}
