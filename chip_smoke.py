@@ -8,11 +8,10 @@ Run from the repository root with no arguments:
 Phases, each ending in a line of its own:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles the two CUDA kernels (``csrc/tiled_sweep.cu``, six modes
-   and tile subsets, ``csrc/slab_sweep.cu``) and the native golden from the
-   sources in this
-   checkout, all three compilers started together (into
-   ``build/stencil_tpu_torch/``);
+2. build: compiles the three CUDA kernels (``csrc/tiled_sweep.cu``, six
+   modes and tile subsets, ``csrc/slab_sweep.cu``, ``csrc/rma_iterate.cu``)
+   and the native golden from the sources in this checkout, all four
+   compilers started together (into ``build/stencil_tpu_torch/``);
 3. kernel vs plain: each kernel mode (3D tiled, 3D tiled with a source,
    the 3D tiled kernel's Chebyshev, dual, two-level and coefficient modes,
    2D slab, 2D slab with a source) against its plain PyTorch version on the
@@ -58,7 +57,12 @@ Phases, each ending in a line of its own:
    at the local blocks of the phase-4 sharded paths (256³ over (2, 2)) and
    of phase 5 (1024³ over (2, 2)), their remainder depth, ragged, radius
    2 and ``jacobi27``; the Chebyshev, dual and coefficient modes once
-   each;
+   each; then B3 (``rma_iterate``, the in-kernel exchange): one launch of
+   ``iters // k`` outer steps and one of the remainder on every rank's
+   buffers, the whole buffer tensor bitwise the plain version's, with
+   distinct face values, at the cases of ``RMA_CASES`` (jacobi7
+   64×64×128 k=2 on (1,), (2,), (2, 2); a box on (2, 4); radius 2 on (2,
+   2); 2D with a remainder on (4,) and on (2, 2); 128³ on (2, 2));
 4. main paths, each with the launch counts set to 0 just before it and
    read just after: the 3D CLI (``-s 256 256 256 --spec jacobi7 -m
    pallas_temporal -k 8 -i 64 -c``), the 2D CLI (``-s 512 512 --spec
@@ -111,7 +115,10 @@ Phases, each ending in a line of its own:
    sharded Poisson runner at 256³ (periodic 0, Neumann 1; fp32 and bf16)
    bitwise against the single-device Poisson tiled runner, and 2D
    ``sharded_pallas --mesh 4`` at 4096² (the slab kernel) bitwise against
-   ``slab``;
+   ``slab``; then the rma bench cell, ``-s 64 64 128 --spec jacobi7 -m rma
+   -k 2 -i 64 -c`` on (1,) and with ``--mesh 2 2``, every launch an
+   ``rma_iterate`` one, and each runner's 64 sweeps (one launch) bitwise
+   ``tiled`` at k=2;
 5. times: GLUPS of the 3D tiled kernel at k=8 and k=1 and of ``eager`` at
    256³; of cfg1 (2D 5-pt 512², slab k=16) and cfg2 (2D 9-pt 4096², slab
    k=4, ``-b 256``) and ``eager`` at both sizes; of cfg8 (Poisson 256³, the
@@ -160,7 +167,10 @@ Phases, each ending in a line of its own:
    device idle share; one interior and one edge launch of each subset mode
    beside the full launch on the same block (rank 0's at 1024³ for
    ``tiled_sweep+subset``, at the phase-4 paths' 128×128×256 for the other
-   three).
+   three); the rma bench cell (64×64×128 k=2) and 128³ on (1,) and (2, 2)
+   as GLUPS and ms per outer step beside ``tiled`` k=2 and k=8, the bench
+   cell's idle share, and launches alone of 32 and 64 steps at the bench
+   cell and at 8×8×16, whose step is mostly its grid barriers.
 
 Each kernel's ``launches`` in the kernel record sums the phase-4 runs of
 that mode (a bf16 mode, name ending ``+bf16``, its bf16 runs); its
@@ -179,7 +189,11 @@ subset mode's ``ms`` is one interior launch plus one edge launch, its
 ``plain_ms`` their plain versions', its ``bound_ms`` the two launches'
 bounds summed, each the input cells its windows cover read once and its
 columns written once (the full launch's bound is printed beside), its
-``library_ms`` one conv3d sweep over the block.
+``library_ms`` one conv3d sweep over the block. The ``rma_iterate`` row is
+one launch of 32 outer steps of the bench cell on (1,): its bound reads
+the grid with its radius-deep ghosts once and writes the interior once,
+with the taps of all 64 sweeps; its ``library_ms`` one conv3d sweep of
+the grid; its ``launches`` the two phase-4 CLI runs'.
 
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -301,6 +315,33 @@ SHARDED_TIMED = (("tiled", None, True), ("sharded_pallas", (1,), True),
                  ("sharded_pallas", SHARDED_MESH, False))
 SHARDED_EAGER_SIZE = (64, 64, 64)
 SHARDED_2D = ("jacobi5", (4096, 4096), 8, (4,), 16)  # spec, size, k, mesh, -i
+# the in-kernel exchange (B3, csrc/rma_iterate.cu): phase 3 holds one
+# launch (and one of a remainder) against the plain version on every rank's
+# buffers, with distinct face values (a corner of a physical and a
+# mesh-internal face shows a wrong face); phase 4 runs the bench cell
+# (bench.py:106-107) through the CLI on (1,) and (2, 2); phase 5 times it
+# and 128^3, near the L2 budget, beside tiled, and a tiny block whose steps
+# are mostly the grid barriers
+RMA_CASES = (  # spec, global shape, mesh, k, iterations
+    ("jacobi7", (64, 64, 128), (1,), 2, 8),
+    ("jacobi7", (64, 64, 128), (2,), 2, 8),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 8),
+    ("box3", (32, 64, 40), (2, 4), 2, 6),
+    ("star3_r2", (32, 32, 20), (2, 2), 2, 6),
+    ("jacobi5", (64, 40), (4,), 4, 10),
+    ("jacobi5", (32, 256), (2, 2), 2, 7),
+    ("jacobi7", (128, 128, 128), (2, 2), 2, 6),
+)
+RMA_FACES = {2: ((0.5, -1.0), (2.0, 0.25)),
+             3: ((0.5, -1.0), (2.0, 0.25), (1.0, 1.5))}
+RMA_SIZE = (64, 64, 128)
+RMA_K = 2
+RMA_ITERS = 64
+RMA_MESHES = ((1,), (2, 2))
+RMA_BIG = (128, 128, 128)
+RMA_TINY = (8, 8, 16)
+RMA_STEPS = 32               # the kernel record's launch: 32 outer steps
+RMA_TIMED_STEPS = (64, 256)  # the iterate's marginal, in outer steps
 # the H100 SXM's published peaks (NVIDIA's data sheet): device memory, fp32
 # outside the tensor cores, and bf16 (the table's rate for bf16 operations)
 PEAK_BYTES_PER_S = 3.35e12
@@ -321,7 +362,8 @@ KERNEL_MODES = (
     "tiled_sweep+two_level+pins+bf16", "slab_sweep+bf16",
     "slab_sweep+source+bf16", "slab_sweep+pins+bf16",
     "tiled_sweep+subset", "tiled_sweep+source+subset",
-    "tiled_sweep+subset+bf16", "tiled_sweep+source+subset+bf16")
+    "tiled_sweep+subset+bf16", "tiled_sweep+source+subset+bf16",
+    "rma_iterate")
 
 
 def require(cond, msg):
@@ -1775,10 +1817,211 @@ def time_sharded(kernel, label):
     return record
 
 
-def device_busy(run, device):
+def rma_spec(name):
+    from stencil_tpu_torch.core.spec import box, get_spec, star
+
+    return {"box3": lambda: box(3, 1),
+            "star3_r2": lambda: star(3, 2)}.get(name,
+                                                lambda: get_spec(name))()
+
+
+def compare_rma(kernel, rng):
+    """Each of RMA_CASES: one launch of ``iters // k`` steps and one of the
+    remainder on every rank's buffers (scattered from a random grid with
+    RMA_FACES), the whole buffer tensor against the plain version's from
+    the same buffers, bitwise required. Returns the largest difference."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.rma import (
+        RmaStencil, rma_iterate_reference,
+    )
+
+    worst = 0.0
+    for name, shape, sizes, k, iters in RMA_CASES:
+        sp = rma_spec(name)
+        x = rng.random(shape, dtype=np.float32)
+        g = HaloGrid.from_interior(
+            torch.from_numpy(x), halo=sp.radius,
+            bc=DirichletBC(values=RMA_FACES[len(shape)]), device=DEVICE)
+        mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], DEVICE)
+        method = RmaStencil(sp, shape, sweeps_per_call=k)
+        plan = method.plan_for(mesh)
+        n_outer, rem = divmod(iters, k)
+        got = method.scatter(g, mesh, plan)
+        want = got.clone()
+        kernel(got, plan, n_outer)
+        rma_iterate_reference(want, plan, n_outer)
+        if rem:
+            kernel(got, plan.with_sweeps(rem), 1, n_outer % 2)
+            rma_iterate_reference(want, plan.with_sweeps(rem), 1,
+                                  n_outer % 2)
+        worst = max(worst, check_equal(
+            f"rma_iterate {sp.name} {shape} mesh {sizes} k={k}, "
+            f"{n_outer} steps{f' + a remainder of {rem}' if rem else ''}, "
+            f"buffers {tuple(plan.buffer_shape)}", got, want, exact=True))
+        del got, want
+    return worst
+
+
+def run_rma_paths(cli, kernel, label):
+    """The bench cell through the CLI, ``-s 64 64 128 -i 64 --spec jacobi7
+    -m rma -k 2 -c``, on (1,) and with ``--mesh 2 2``, each run's launches
+    counted from 0; then each runner's result after RMA_ITERS sweeps
+    bitwise the ``tiled`` runner's at the same k. Returns the launches of
+    the two CLI runs."""
+    import torch
+
+    from stencil_tpu_torch import registry
+    from stencil_tpu_torch.config import parse_args
+
+    total = 0
+    for mesh in RMA_MESHES:
+        args = ["-s", *map(str, RMA_SIZE), "--spec", "jacobi7", "-m", "rma",
+                "-k", str(RMA_K), "-i", str(RMA_ITERS)]
+        if mesh != (1,):
+            args += ["--mesh", *map(str, mesh)]
+        rec, n = run_cli(cli, args, kernel, label)
+        require(rec["plan"]["kernel"] == "rma_iterate"
+                and rec["plan"]["mesh"] == list(mesh), f"{args} ran "
+                f"{rec['plan']}")
+        total += n
+        cfg = parse_args([*args, "--device", DEVICE])
+        sp = cfg.resolved_spec()
+        grid = cli.make_grid(cfg, sp)
+        kernel.reset_counts()
+        got = registry.get_runner("rma", cfg, sp, grid).iterate(
+            grid, RMA_ITERS)
+        launches = kernel.launches
+        want = registry.get_runner("tiled", cfg, sp, grid).iterate(
+            grid, RMA_ITERS)
+        torch.cuda.synchronize()
+        require(launches == 1 and torch.equal(got.data, want.data),
+                f"rma mesh {mesh}: {launches} launches, or not bitwise tiled")
+        print(f"rma mesh {mesh} k={RMA_K} {RMA_SIZE}, {RMA_ITERS} sweeps in "
+              f"one launch: bitwise equal to tiled k={RMA_K} [{label}]")
+    return total
+
+
+def time_rma(kernel, label):
+    """GLUPS and ms per outer step of ``rma`` k=2 on RMA_MESHES at RMA_SIZE
+    (the bench cell) and RMA_BIG, beside ``tiled`` at k=2 and k=8: the
+    marginal of RMA_TIMED_STEPS outer steps of the iterate, on the host's
+    clock after a synchronisation (an rma iterate is one launch between a
+    scatter and a gather whose host time hides a short launch from CUDA
+    events around it); the device idle share of the bench cell's iterate,
+    where the trace holds the cooperative launch. Then launches alone, of
+    RMA_STEPS and 2 * RMA_STEPS steps, and their marginal per step, at the
+    bench cell (its plain version beside) and at RMA_TINY, whose step is
+    mostly its grid barriers. Then the kernel record's row: the bench
+    cell's launch of RMA_STEPS steps on (1,), its plain version, its bound
+    and one conv3d sweep of the same grid. Returns the row."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.core.spec import get_spec
+    from stencil_tpu_torch.ops.tiled import TiledStencil, make_tiled_plan
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.rma import (
+        RmaStencil, rma_iterate_reference,
+    )
+    def wall(run, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    j7 = get_spec("jacobi7")
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    grids = {shape: HaloGrid.from_interior(
+        torch.rand(shape, generator=gen, device=DEVICE), halo=1,
+        device=DEVICE) for shape in (RMA_SIZE, RMA_BIG, RMA_TINY)}
+    meshes = {sizes: make_mesh(sizes, ("x", "y")[:len(sizes)], DEVICE)
+              for sizes in RMA_MESHES}
+    for shape in (RMA_SIZE, RMA_BIG):
+        grid = grids[shape]
+        runs = [(f"rma mesh {sizes} k={RMA_K}", RMA_K,
+                 lambda n, st=RmaStencil(j7, shape, sweeps_per_call=RMA_K),
+                 mesh=mesh: st.iterate(grid, n, mesh))
+                for sizes, mesh in meshes.items()]
+        runs += [(f"tiled k={k}", k,
+                  lambda n, st=TiledStencil(j7, shape, sweeps_per_call=k,
+                                            device=DEVICE):
+                  st.iterate(grid, n))
+                 for k in (RMA_K, 8)]
+        for name, k, run in runs:
+            n1, n2 = (steps * k for steps in RMA_TIMED_STEPS)
+            run(n1)
+            t1 = min(wall(run, n1) for _ in range(3))
+            t2 = min(wall(run, n2) for _ in range(3))
+            per_sweep = (t2 - t1) / (n2 - n1)
+            print(f"{name} jacobi7 {shape} fp32: "
+                  f"{int(np.prod(shape)) / per_sweep / 1e9:.2f} GLUPS, "
+                  f"{per_sweep * k * 1e3:.4f} ms per outer step (marginal "
+                  f"of {n1} and {n2} sweeps: {t1 * 1e3:.3f} / "
+                  f"{t2 * 1e3:.3f} ms) [{label}]")
+            if shape == RMA_SIZE and name.startswith("rma"):
+                host, busy, span = device_busy(lambda: run(RMA_ITERS),
+                                               DEVICE, "rma_iterate")
+                print(f"  {name} {RMA_ITERS} sweeps: host wall {host:.3f} "
+                      "ms unprofiled, " + (
+                          "device busy share not measured (the trace holds "
+                          "no rma_iterate launch)" if busy is None else
+                          f"device busy {busy:.3f} ms of a {span:.3f} ms "
+                          f"span, idle {100 * (1 - busy / span):.1f}%")
+                      + f" [{label}]")
+    row = {}
+    for shape in (RMA_SIZE, RMA_TINY):
+        st = RmaStencil(j7, shape, sweeps_per_call=RMA_K)
+        for sizes, mesh in meshes.items():
+            plan = st.plan_for(mesh)
+            bufs = st.scatter(grids[shape], mesh, plan)
+            t1 = time_call(lambda: kernel(bufs, plan, RMA_STEPS), DEVICE, 10)
+            t2 = time_call(lambda: kernel(bufs, plan, 2 * RMA_STEPS),
+                           DEVICE, 10)
+            step = (t2 - t1) / RMA_STEPS * 1e3
+            barriers = len(sizes) + RMA_K
+            line = (f"one rma_iterate launch of {RMA_STEPS} steps, jacobi7 "
+                    f"{shape} k={RMA_K} mesh {sizes}: {t1:.4f} ms, "
+                    f"{step:.2f} us per step (the marginal of {RMA_STEPS} "
+                    f"and {2 * RMA_STEPS} steps), {barriers} grid barriers "
+                    f"per step ({step / barriers:.2f} us of the step per "
+                    "barrier)")
+            if shape == RMA_SIZE:
+                plain = st.scatter(grids[shape], mesh, plan)
+                plain_ms = time_call(lambda: rma_iterate_reference(
+                    plain, plan, RMA_STEPS), DEVICE, 1)
+                line += f"; plain {plain_ms:.4f} ms"
+                if sizes == (1,):  # the bench cell's launch is the record's
+                    row.update(ms=t1, plain=plain_ms)
+                del plain
+            print(f"{line} [{label}]")
+            del bufs
+    # the function: RMA_STEPS * k sweeps of the grid; the grid and its
+    # radius-deep Dirichlet ghosts read once, the interior written once,
+    # the taps of every update
+    n_int = int(np.prod(RMA_SIZE))
+    n_pad = int(np.prod([n + 2 * j7.radius for n in RMA_SIZE]))
+    row["bound"], row["by"] = bound_of(
+        4 * (n_pad + n_int), n_int * RMA_STEPS * RMA_K * j7.flops_per_point)
+    tplan = make_tiled_plan(j7, RMA_SIZE, "float32", 1)
+    lib, lib_check = library_sweep(tplan,
+                                   tplan.layout.pad_grid(grids[RMA_SIZE]),
+                                   None)
+    row["library"] = time_call(lib, DEVICE, 20)
+    print(f"rma_iterate bound for {RMA_STEPS} steps of k={RMA_K} at "
+          f"{RMA_SIZE}: {row['bound']:.4f} ms (by {row['by']}); library "
+          f"conv3d {row['library']:.4f} ms per sweep (vs one plain sweep max "
+          f"abs diff {lib_check():.3e}) [{label}]")
+    return row
+
+
+def device_busy(run, device, kernel_name=""):
     """(host wall ms, device busy ms, device span ms) of ``run()`` from a
     ``torch.profiler`` trace; busy is None when the trace holds no device
-    events."""
+    event whose name holds ``kernel_name``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1792,10 +2035,11 @@ def device_busy(run, device):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
+    events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not ranges:
+    if not any(kernel_name in e.name for e in events):
         return wall, None, None
+    ranges = [(e.time_range.start, e.time_range.end) for e in events]
     busy = sum(end - start for start, end in ranges) / 1e3
     span = (max(e for _, e in ranges) - min(s for s, _ in ranges)) / 1e3
     return wall, busy, span
@@ -1831,9 +2075,11 @@ def main() -> int:
     # 2. build: nvcc for each kernel and g++ for the golden, together
     from stencil_tpu_torch import native
     from stencil_tpu_torch.ops import slab_kernel, tiled_kernel
+    from stencil_tpu_torch.parallel import rma as rma_module
 
-    kernels = (tiled_kernel.tiled_sweep, slab_kernel.slab_sweep)
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    kernels = (tiled_kernel.tiled_sweep, slab_kernel.slab_sweep,
+               rma_module.rma_iterate)
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         t0 = time.perf_counter()
         golden = pool.submit(native.available)
         builds = [pool.submit(kernel.build) for kernel in kernels]
@@ -2202,6 +2448,10 @@ def main() -> int:
     err[mode] = subset_case(
         mode, cplan, coeff=pad_coeff(cplan, rng.random(local) + 0.5,
                                      walls(3)).to(device))
+    # B3: every rank's buffers after one launch (and a remainder)
+    t_rma = time.perf_counter()
+    err["rma_iterate"] = compare_rma(rma_module.rma_iterate, rng)
+    stamp(f"the rma cases ({time.perf_counter() - t_rma:.1f} s)")
     print(f"PHASE 3 kernel vs plain: ok at "
           f"{time.perf_counter() - t_start:.1f} s (the bf16 cases "
           f"{t_sub - t_bf16:.1f} s, the subset cases "
@@ -2344,9 +2594,14 @@ def main() -> int:
     launches["tiled_sweep+source+subset+bf16"] = run_sharded_poisson(
         tiled, rng, label, "bfloat16")
     run_sharded_2d(slab, label)
+    # B3: the bench cell through the CLI on (1,) and (2, 2)
+    t_rma = time.perf_counter()
+    launches["rma_iterate"] = run_rma_paths(cli, rma_module.rma_iterate,
+                                            label)
     print(f"PHASE 4 main paths: ok at {time.perf_counter() - t_start:.1f} s "
           f"(the bf16 paths {t_sharded - t_bf16:.1f} s, the sharded paths "
-          f"{time.perf_counter() - t_sharded:.1f} s; launches {launches})")
+          f"{t_rma - t_sharded:.1f} s, the rma paths "
+          f"{time.perf_counter() - t_rma:.1f} s; launches {launches})")
 
     # 5. times
     from stencil_tpu_torch import registry
@@ -2890,6 +3145,16 @@ def main() -> int:
               f"{'step' if prev is not None else 'sweep'} (vs one plain "
               f"sweep max abs diff {lib_check():.3e}) [{label}]")
     stamp("the bf16 modes")
+    # B3: the bench cell and 128^3 beside tiled, the barrier floor, the
+    # kernel record's launch (before the 1024^3 runs, whose traces are the
+    # largest of the script)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rec = time_rma(rma_module.rma_iterate, label)
+    ms["rma_iterate"], plain_ms["rma_iterate"] = rec["ms"], rec["plain"]
+    bound_ms["rma_iterate"], bound_by["rma_iterate"] = rec["bound"], rec["by"]
+    library_ms["rma_iterate"] = rec["library"]
+    stamp("the rma runs")
     # the sharded headline at 1024^3 (the single-device run, then each
     # mesh; each run's tensors freed before the next), and one launch of
     # each other subset mode at its phase-4 path's local block
@@ -2935,7 +3200,8 @@ def main() -> int:
     print(f"PHASE 5 times: ok ({time.perf_counter() - t_start:.1f} s in "
           "all)")
 
-    modules = {"tiled_sweep": tiled_kernel, "slab_sweep": slab_kernel}
+    modules = {"tiled_sweep": tiled_kernel, "slab_sweep": slab_kernel,
+               "rma_iterate": rma_module}
     print(json.dumps({"kernels": [{
         "name": mode, "route": "cuda",
         "source": str(modules[mode.split("+")[0]].SOURCE.relative_to(ROOT)),

@@ -78,6 +78,26 @@ from stencil_tpu_torch.parallel.halo import block_index
 from stencil_tpu_torch.parallel.mesh import Mesh
 
 
+def strip_box(plan, nsh: int, d: int, start: int) -> tuple:
+    """The index of the phase-``d`` strip of a launch of ``plan`` sharded
+    over its first ``nsh`` dims, whose dim-``d`` rows start at padded index
+    ``start``, ``plan.halo`` (the launch's k*r) deep: the launch's padded
+    extent ``[H - k*r, H + n + k*r)`` in the earlier sharded dims and in the
+    unsharded dims, the interior in the later sharded dims
+    (``_strip_bounds``, :320-340; the ``rma`` method's pushes have the same
+    footprint, ``parallel/rma.py:strip_extent``, :385-395)."""
+    kr, h = plan.halo, plan.layout.halo
+    box = []
+    for e, n in enumerate(plan.interior_shape):
+        if e == d:
+            box.append(slice(start, start + kr))
+        elif d < e < nsh:
+            box.append(slice(h, h + n))
+        else:
+            box.append(slice(h - kr, h + n + kr))
+    return tuple(box)
+
+
 def _cuda_devices(mesh: Mesh) -> List[torch.device]:
     return [d for d in dict.fromkeys(mesh.devices) if d.type == "cuda"]
 
@@ -206,19 +226,8 @@ class ShardedKernelStencil:
     # -- the exchange and the pins ------------------------------------------
 
     def strip_box(self, plan, d: int, start: int) -> tuple:
-        """The index of the phase-``d`` strip whose dim-``d`` rows start at
-        padded index ``start``, ``plan.halo`` (the launch's k*r) deep
-        (``_strip_bounds``, :320-340)."""
-        kr, h = plan.halo, plan.layout.halo
-        box = []
-        for e, n in enumerate(plan.interior_shape):
-            if e == d:
-                box.append(slice(start, start + kr))
-            elif d < e < len(self.axis_names):
-                box.append(slice(h, h + n))
-            else:
-                box.append(slice(h - kr, h + n + kr))
-        return tuple(box)
+        """:func:`strip_box` on this stencil's sharded axes."""
+        return strip_box(plan, len(self.axis_names), d, start)
 
     def exchange_bytes(self, plan) -> int:
         """Bytes one rank receives in one exchange of ``plan`` (both

@@ -2,8 +2,8 @@
 
 Counterpart of ``stencil_tpu/registry.py`` (``Runner``, ``make_xla``,
 ``_dynamic_kernel_constraints``, ``_make_pallas``, ``_make_pallas_tiled``,
-``REGISTRY``, ``get_runner``, ``_make_sharded``, ``make_sharded_pallas``).
-Seven methods are ported:
+``REGISTRY``, ``get_runner``, ``_make_sharded``, ``make_sharded_pallas``,
+``make_rma``). Eight methods are ported:
 
   ``eager``     the eager torch shifted-slice sweep (``ops/eager.py``), the
                 counterpart of ``xla``
@@ -22,24 +22,29 @@ Seven methods are ported:
                 the kernels per rank, a k*r-deep exchange per launch, the
                 tiled kernel's interior/edge split around it
                 (``parallel/sharded_kernel.py``)
+  ``rma``       every rank's blocks resident on one card for a whole
+                iterate, the strips pushed inside one cooperative launch
+                (``parallel/rma.py``, ``csrc/rma_iterate.cu``); Dirichlet
+                walls, float32
 
 The JAX package's names resolve too, so its command lines run unchanged:
 ``xla`` is ``eager``; ``pallas`` runs at k=1 and ``pallas_temporal`` at
 ``-k`` (default 8), on ``slab`` for 2D grids and ``tiled`` for 3D grids;
 ``pallas_tiled`` is ``tiled`` at ``-k`` (default 1) and, as in the JAX
-package, refuses 2D grids. Methods not ported yet (``rma``, ``streamed``)
-raise ``NotImplementedError`` naming the JAX code a later port replaces.
+package, refuses 2D grids. A method not ported yet (``streamed``) raises
+``NotImplementedError`` naming the JAX code a later port replaces.
 
-The sharded methods run on a single-controller mesh (``parallel/mesh.py``):
-``--mesh`` gives its shape, by default one rank per visible CUDA device
-(one on the CPU), and several ranks may share one card. ``--no-overlap``
-turns the interior-first split off.
+The sharded methods and ``rma`` run on a single-controller mesh
+(``parallel/mesh.py``): ``--mesh`` gives its shape, by default one rank per
+visible CUDA device (one on the CPU), and several ranks may share one card
+(``rma``'s must). ``--no-overlap`` turns the interior-first split off.
 
 Periodic and Neumann walls (``--periodic``/``--neumann``) run on every
-ported method: on the kernels with JAX's gates, raised when the runner is
-made (a dynamic lane dim needs k=1, a Neumann leading dim at k>1 a
-mirror-symmetric spec; ``--embed`` and ``--slide`` are refused), each
-launch with the dynamic faces live (``plan_info["pins"]``).
+ported method but ``rma`` (not ported yet, B3-pins): on the kernels with
+JAX's gates, raised when the runner is made (a dynamic lane dim needs k=1,
+a Neumann leading dim at k>1 a mirror-symmetric spec; ``--embed`` and
+``--slide`` are refused), each launch with the dynamic faces live
+(``plan_info["pins"]``).
 
 Each entry is a factory ``(config, spec, grid) -> Runner`` where a Runner
 has ``iterate(grid, n) -> HaloGrid``.
@@ -328,6 +333,53 @@ def make_sharded_pallas(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
     )
 
 
+def make_rma(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
+    """Every rank's blocks resident for a whole iterate, the k*r-deep
+    strips pushed inside one cooperative launch with grid barriers between
+    phases (``csrc/rma_iterate.cu``): ``--mesh a`` shards d0, ``--mesh a
+    b`` d0 and d1, every rank on one card; ``-k`` sweeps per exchange.
+    JAX's gates are raised when the runner is made
+    (``registry.py:394-460``), then the card's L2 budget; periodic and
+    Neumann walls and bfloat16 raise ``NotImplementedError`` (B3-pins,
+    B3-bf16). ``plan_info`` records the mesh, the local block, its
+    buffers, the bytes resident on the card and those a mesh-interior rank
+    pushes per outer step."""
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.rma import (
+        RmaStencil, check_ported, push_bytes_per_step,
+    )
+
+    mesh_sizes = _mesh_sizes(config, grid)
+    if len(mesh_sizes) > 2:
+        raise ValueError("mesh must be 1D or 2D over the leading grid dims")
+    check_ported(grid.bc, grid.dtype)
+    axes = ("x", "y")[:len(mesh_sizes)]
+    k = _temporal(config, 1)
+    method = RmaStencil(spec, grid.interior_shape,
+                        dtype=dtype_name(grid.dtype), sweeps_per_call=k)
+    mesh = make_mesh(mesh_sizes, axes, grid.device)
+    plan = method.plan_for(mesh)  # divisibility, depth and budget, eagerly
+    plan_info = {"kernel": "rma_iterate", "mesh": list(mesh_sizes), "k": k,
+                 "local_shape": list(plan.local_shape),
+                 "block_shape": list(plan.block_shape),
+                 "buffers": plan.num_buffers,
+                 "resident_bytes": plan.resident_bytes,
+                 "push_bytes_per_step": push_bytes_per_step(plan)}
+    ignored = config.ignored_tpu_flags() if config is not None else {}
+    if ignored:
+        plan_info["ignored"] = ignored
+    return Runner(
+        name=f"rma(mesh={'x'.join(map(str, mesh_sizes))},k={k})",
+        iterate=lambda g, it: method.iterate(g, it, mesh),
+        description=(
+            "every rank's blocks resident on one card, strips pushed "
+            "in-kernel between grid barriers, one cooperative launch per "
+            "run; counterpart of stencil_tpu/parallel/rma.py:RmaStencil"),
+        granularity=k,
+        plan_info=plan_info,
+    )
+
+
 def _not_ported(replaces: str) -> Callable:
     def factory(config, spec, grid) -> Runner:
         raise NotImplementedError(
@@ -347,7 +399,7 @@ REGISTRY: Dict[str, Callable] = {
     "sharded": make_sharded,
     "sharded_noverlap": make_sharded_noverlap,
     "sharded_pallas": make_sharded_pallas,
-    "rma": _not_ported("stencil_tpu/parallel/rma.py:build_rma_iterate"),
+    "rma": make_rma,
     "streamed": _not_ported("stencil_tpu/streaming.py:StreamedStencil"),
     "varcoeff": make_varcoeff,
 }

@@ -173,12 +173,12 @@ def test_2d_method_aliases(method, k_expected):
 @pytest.mark.parametrize("method", ["sharded", "sharded_noverlap",
                                     "sharded_pallas", "rma", "streamed"])
 def test_unported_methods_name_their_jax_code(method):
-    """``rma`` and ``streamed`` refuse, naming the JAX code a later port
-    replaces; the sharded methods (ported) name it in their runner's
+    """``streamed`` refuses, naming the JAX code a later port replaces;
+    the sharded methods and ``rma`` (ported) name it in their runner's
     description."""
     cfg = RunConfig(size=(12, 10, 14), spec="jacobi7", device="cpu")
     spec = cfg.resolved_spec()
-    if method.startswith("sharded"):
+    if method.startswith("sharded") or method == "rma":
         runner = registry.get_runner(method, cfg, spec,
                                      cli.make_grid(cfg, spec))
         assert "stencil_tpu/parallel/" in runner.description

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels (stencil_tpu_torch/csrc/tiled_sweep.cu, 3D,
-and csrc/slab_sweep.cu, 2D), homogeneous and with a source, and the 3D
-kernel's Chebyshev, dual, two-level and coefficient modes, against their
-plain PyTorch versions, on an NVIDIA GPU. Marked ``cuda``; without a card
+and csrc/slab_sweep.cu, 2D), homogeneous and with a source, the 3D
+kernel's Chebyshev, dual, two-level and coefficient modes, and the
+in-kernel exchange csrc/rma_iterate.cu (every rank's buffers after one
+cooperative launch), against their plain PyTorch versions, on an NVIDIA
+GPU. Marked ``cuda``; without a card
 every test skips. This file imports no JAX, so it also runs where only the
 port is installed:
 
@@ -761,3 +763,77 @@ def test_sharded_pallas_matches_tiled(cuda_device, sizes, dtype, periodic,
                         device=cuda_device).iterate(g, iters)
     torch.cuda.synchronize()
     assert torch.equal(got.data, want.data)
+
+
+# ---- B3: the in-kernel halo exchange (csrc/rma_iterate.cu) ------------------
+
+RMA_CASES = [  # spec, global shape, mesh, k, iterations
+    ("jacobi7", (64, 64, 128), (1,), 2, 8),
+    ("jacobi7", (64, 64, 128), (2,), 2, 8),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 8),
+    ("box3", (32, 64, 40), (2, 4), 2, 6),
+    ("star3_r2", (32, 32, 20), (2, 2), 2, 6),
+    ("jacobi5", (64, 40), (4,), 4, 10),
+    ("jacobi5", (32, 256), (2, 2), 2, 7),
+    ("jacobi7", (48, 40, 36), (3, 2), 3, 7),
+]
+
+
+def _rma_spec(name):
+    from stencil_tpu_torch.core.spec import box, star
+
+    if name == "box3":
+        return box(3, 1)
+    if name == "star3_r2":
+        return star(3, 2)
+    return get_spec(name)
+
+
+@pytest.mark.parametrize("name,shape,sizes,k,iters", RMA_CASES)
+def test_rma_kernel_matches_plain(cuda_device, name, shape, sizes, k, iters):
+    """One launch of ``iters // k`` steps (and one of the remainder) on
+    every rank's buffers: the whole buffer tensor bitwise the plain
+    version's on the same inputs; then ``RmaStencil.iterate`` makes one
+    launch (plus one for a remainder) and is bitwise the single-device
+    eager iterate."""
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.rma import (
+        RmaStencil, rma_iterate, rma_iterate_reference,
+    )
+
+    sp = _rma_spec(name)
+    g = _grid(shape, sp.radius, cuda_device)
+    mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], device=cuda_device)
+    method = RmaStencil(sp, shape, sweeps_per_call=k)
+    plan = method.plan_for(mesh)
+    n_outer, rem = divmod(iters, k)
+    bufs = method.scatter(g, mesh, plan)
+    want = bufs.clone()
+    rma_iterate.reset_counts()
+    rma_iterate(bufs, plan, n_outer)
+    rma_iterate_reference(want, plan, n_outer)
+    if rem:
+        rma_iterate(bufs, plan.with_sweeps(rem), 1, n_outer % 2)
+        rma_iterate_reference(want, plan.with_sweeps(rem), 1, n_outer % 2)
+    torch.cuda.synchronize()
+    assert rma_iterate.launches == 1 + bool(rem)
+    assert torch.equal(bufs, want)
+    rma_iterate.reset_counts()
+    got = method.iterate(g, iters, mesh)
+    torch.cuda.synchronize()
+    assert rma_iterate.launches == 1 + bool(rem)
+    assert torch.equal(got.interior(), eager.iterate(g, sp, iters).interior())
+
+
+def test_rma_budget_refusal_before_any_launch(cuda_device):
+    """160^3 at k=2 on one rank is 3 x 164^3 x 4 B > the card's L2."""
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.rma import RmaStencil, rma_iterate
+
+    shape = (160, 160, 160)
+    g = HaloGrid.create(shape, halo=1, device=cuda_device)
+    rma_iterate.reset_counts()
+    with pytest.raises(ValueError, match="exceeds the L2-resident budget"):
+        RmaStencil(get_spec("jacobi7"), shape, sweeps_per_call=2).iterate(
+            g, 4, make_mesh((1,), ("x",), device=cuda_device))
+    assert rma_iterate.launches == 0
