@@ -60,9 +60,13 @@ Phases, each ending in a line of its own:
    each; then B3 (``rma_iterate``, the in-kernel exchange): one launch of
    ``iters // k`` outer steps and one of the remainder on every rank's
    buffers, the whole buffer tensor bitwise the plain version's, with
-   distinct face values, at the cases of ``RMA_CASES`` (jacobi7
-   64×64×128 k=2 on (1,), (2,), (2, 2); a box on (2, 4); radius 2 on (2,
-   2); 2D with a remainder on (4,) and on (2, 2); 128³ on (2, 2));
+   distinct face values, at the cases of ``RMA_CASES``: Dirichlet fp32
+   (jacobi7 64×64×128 k=2 on (1,), (2,), (2, 2); a box on (2, 4); radius 2
+   on (2, 2); 2D with a remainder on (4,) and on (2, 2); 128³ on (2, 2)),
+   on dynamic walls (rings of 1, 2 and 4 in d0 and d1, Neumann mirrors,
+   the local refresh of d1 on (2,), mixed walls, jacobi27, a box, radius
+   2, 2D) and in bf16 (the bench cell on (1,), rings, the refresh, 2D, and
+   160³ on (1,), which fits the L2 only in bf16);
 4. main paths, each with the launch counts set to 0 just before it and
    read just after: the 3D CLI (``-s 256 256 256 --spec jacobi7 -m
    pallas_temporal -k 8 -i 64 -c``), the 2D CLI (``-s 512 512 --spec
@@ -117,8 +121,11 @@ Phases, each ending in a line of its own:
    ``sharded_pallas --mesh 4`` at 4096² (the slab kernel) bitwise against
    ``slab``; then the rma bench cell, ``-s 64 64 128 --spec jacobi7 -m rma
    -k 2 -i 64 -c`` on (1,) and with ``--mesh 2 2``, every launch an
-   ``rma_iterate`` one, and each runner's 64 sweeps (one launch) bitwise
-   ``tiled`` at k=2;
+   ``rma_iterate`` one, then with ``--periodic 0 1 --mesh 2 2`` and
+   ``--neumann 1 --mesh 2`` (every launch a pins one) and with ``--dtype
+   bfloat16`` on (1,) and (2, 2) at 16 sweeps (every launch a bf16 one),
+   and each runner's sweeps (one launch) bitwise ``tiled`` at k=2 on the
+   same walls and dtype;
 5. times: GLUPS of the 3D tiled kernel at k=8 and k=1 and of ``eager`` at
    256³; of cfg1 (2D 5-pt 512², slab k=16) and cfg2 (2D 9-pt 4096², slab
    k=4, ``-b 256``) and ``eager`` at both sizes; of cfg8 (Poisson 256³, the
@@ -169,8 +176,12 @@ Phases, each ending in a line of its own:
    ``tiled_sweep+subset``, at the phase-4 paths' 128×128×256 for the other
    three); the rma bench cell (64×64×128 k=2) and 128³ on (1,) and (2, 2)
    as GLUPS and ms per outer step beside ``tiled`` k=2 and k=8, the bench
-   cell's idle share, and launches alone of 32 and 64 steps at the bench
-   cell and at 8×8×16, whose step is mostly its grid barriers.
+   cell with ``--periodic 0 1`` on (2, 2), ``--neumann 1`` on (2,) and in
+   bf16 on (1,) and (2, 2), and 160³ bf16 on (1,), each beside ``tiled``
+   k=2 on the same walls and dtype, the bench cell's idle share, and
+   launches alone of 32 and 64 steps at the bench cell, with each of
+   those walls and dtypes, and at 8×8×16, whose step is mostly its grid
+   barriers.
 
 Each kernel's ``launches`` in the kernel record sums the phase-4 runs of
 that mode (a bf16 mode, name ending ``+bf16``, its bf16 runs); its
@@ -193,7 +204,14 @@ columns written once (the full launch's bound is printed beside), its
 one launch of 32 outer steps of the bench cell on (1,): its bound reads
 the grid with its radius-deep ghosts once and writes the interior once,
 with the taps of all 64 sweeps; its ``library_ms`` one conv3d sweep of
-the grid; its ``launches`` the two phase-4 CLI runs'.
+the grid; its ``launches`` the two phase-4 CLI runs'. The
+``rma_iterate+pins`` row is the same launch with ``--neumann 1`` on (2,)
+(the library after ``F.pad``), its ``launches`` the pins launches of the
+two phase-4 dynamic-wall runs; ``rma_iterate+bf16`` the bf16 launch on
+(1,) at 2 bytes per value and the bf16 rate, its ``launches`` the bf16
+launches of the two phase-4 bf16 runs. The runner-against-eager case on a
+Neumann face is printed apart from the kernel rows (it agrees to fp32
+rounding, where every kernel-against-plain case is bitwise).
 
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -317,31 +335,69 @@ SHARDED_EAGER_SIZE = (64, 64, 64)
 SHARDED_2D = ("jacobi5", (4096, 4096), 8, (4,), 16)  # spec, size, k, mesh, -i
 # the in-kernel exchange (B3, csrc/rma_iterate.cu): phase 3 holds one
 # launch (and one of a remainder) against the plain version on every rank's
-# buffers, with distinct face values (a corner of a physical and a
-# mesh-internal face shows a wrong face); phase 4 runs the bench cell
-# (bench.py:106-107) through the CLI on (1,) and (2, 2); phase 5 times it
-# and 128^3, near the L2 budget, beside tiled, and a tiny block whose steps
-# are mostly the grid barriers
-RMA_CASES = (  # spec, global shape, mesh, k, iterations
-    ("jacobi7", (64, 64, 128), (1,), 2, 8),
-    ("jacobi7", (64, 64, 128), (2,), 2, 8),
-    ("jacobi7", (64, 64, 128), (2, 2), 2, 8),
-    ("box3", (32, 64, 40), (2, 4), 2, 6),
-    ("star3_r2", (32, 32, 20), (2, 2), 2, 6),
-    ("jacobi5", (64, 40), (4,), 4, 10),
-    ("jacobi5", (32, 256), (2, 2), 2, 7),
-    ("jacobi7", (128, 128, 128), (2, 2), 2, 6),
+# buffers, with distinct face values (a corner of a Dirichlet and a live
+# face shows a wrong face), on Dirichlet, periodic and Neumann walls, in
+# fp32 and bf16; phase 4 runs the bench cell (bench.py:106-107) through the
+# CLI on (1,) and (2, 2), with periodic d0 d1 on (2, 2), Neumann d1 on (2,)
+# (the local refresh) and in bf16; phase 5 times them and 128^3, near the
+# L2 budget, beside tiled, 160^3 in bf16 (fp32 exceeds the budget there),
+# and a tiny block whose steps are mostly the grid barriers
+RMA_CASES = (  # spec, global shape, mesh, k, iterations, periodic, neumann,
+    # dtype
+    ("jacobi7", (64, 64, 128), (1,), 2, 8, (), (), "float32"),
+    ("jacobi7", (64, 64, 128), (2,), 2, 8, (), (), "float32"),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 8, (), (), "float32"),
+    ("box3", (32, 64, 40), (2, 4), 2, 6, (), (), "float32"),
+    ("star3_r2", (32, 32, 20), (2, 2), 2, 6, (), (), "float32"),
+    ("jacobi5", (64, 40), (4,), 4, 10, (), (), "float32"),
+    ("jacobi5", (32, 256), (2, 2), 2, 7, (), (), "float32"),
+    ("jacobi7", (128, 128, 128), (2, 2), 2, 6, (), (), "float32"),
+    # rings (of 1, 2 and 4), mirrors, the local refresh of d1, mixed walls
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 8, (0, 1), (), "float32"),
+    ("jacobi7", (64, 64, 128), (2,), 2, 7, (), (1,), "float32"),
+    ("jacobi7", (64, 64, 128), (1,), 2, 7, (0, 1), (), "float32"),
+    ("jacobi27", (32, 64, 40), (2,), 3, 7, (0,), (1,), "float32"),
+    ("box3", (32, 64, 40), (2, 4), 2, 6, (1,), (0,), "float32"),
+    ("star3_r2", (32, 32, 20), (2, 2), 2, 6, (0,), (1,), "float32"),
+    ("jacobi5", (64, 40), (4,), 4, 10, (), (0,), "float32"),
+    ("jacobi5", (32, 256), (2, 2), 2, 7, (0,), (), "float32"),
+    # bf16
+    ("jacobi7", (64, 64, 128), (1,), 2, 8, (), (), "bfloat16"),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 7, (0, 1), (), "bfloat16"),
+    ("jacobi7", (64, 64, 128), (2,), 2, 8, (), (1,), "bfloat16"),
+    ("jacobi27", (32, 64, 40), (2,), 3, 7, (0,), (1,), "bfloat16"),
+    ("jacobi5", (32, 256), (2, 2), 2, 7, (), (0,), "bfloat16"),
+    ("jacobi7", (160, 160, 160), (1,), 2, 4, (), (), "bfloat16"),
 )
 RMA_FACES = {2: ((0.5, -1.0), (2.0, 0.25)),
              3: ((0.5, -1.0), (2.0, 0.25), (1.0, 1.5))}
 RMA_SIZE = (64, 64, 128)
 RMA_K = 2
 RMA_ITERS = 64
+RMA_BF16_ITERS = 16          # bf16 -c: the 3D bf16 bar's depth (BF16_TOL)
 RMA_MESHES = ((1,), (2, 2))
 RMA_BIG = (128, 128, 128)
+RMA_BF16_BIG = (160, 160, 160)
 RMA_TINY = (8, 8, 16)
 RMA_STEPS = 32               # the kernel record's launch: 32 outer steps
 RMA_TIMED_STEPS = (64, 256)  # the iterate's marginal, in outer steps
+RMA_REPEATS = 2              # each marginal's runs, the least taken
+# the dynamic-wall and bf16 runs of the bench cell (phases 4 and 5): the
+# CLI's wall flags, the mesh, the dtype, the kernel count they all bump,
+# the kernel record's mode
+RMA_WALL_RUNS = (
+    (("--periodic", "0", "1"), (2, 2), "float32", "pins_launches",
+     "rma_iterate+pins"),
+    (("--neumann", "1"), (2,), "float32", "pins_launches",
+     "rma_iterate+pins"),
+    ((), (1,), "bfloat16", "bf16_launches", "rma_iterate+bf16"),
+    ((), (2, 2), "bfloat16", "bf16_launches", "rma_iterate+bf16"),
+)
+# the kernel record's launch of each rma mode (walls flags, mesh, dtype):
+# the Dirichlet fp32 bench cell on (1,), the refresh's run, bf16 on (1,)
+RMA_RECORD = {((), (1,), "float32"): "rma_iterate",
+              (("--neumann", "1"), (2,), "float32"): "rma_iterate+pins",
+              ((), (1,), "bfloat16"): "rma_iterate+bf16"}
 # the H100 SXM's published peaks (NVIDIA's data sheet): device memory, fp32
 # outside the tensor cores, and bf16 (the table's rate for bf16 operations)
 PEAK_BYTES_PER_S = 3.35e12
@@ -363,7 +419,7 @@ KERNEL_MODES = (
     "slab_sweep+source+bf16", "slab_sweep+pins+bf16",
     "tiled_sweep+subset", "tiled_sweep+source+subset",
     "tiled_sweep+subset+bf16", "tiled_sweep+source+subset+bf16",
-    "rma_iterate")
+    "rma_iterate", "rma_iterate+pins", "rma_iterate+bf16")
 
 
 def require(cond, msg):
@@ -1825,29 +1881,51 @@ def rma_spec(name):
                                                 lambda: get_spec(name))()
 
 
+def rma_walls(ndim, periodic, neumann):
+    """RMA_FACES on ``ndim`` dims with the given dims periodic or
+    Neumann."""
+    from stencil_tpu_torch.core.grid import DirichletBC
+
+    bc = DirichletBC(values=RMA_FACES[ndim])
+    if periodic:
+        bc = bc.with_periodic(periodic)
+    if neumann:
+        bc = bc.with_neumann(neumann)
+    return bc
+
+
+def rma_mode(periodic, neumann, dtype):
+    """The kernel record's mode of an rma case."""
+    if dtype == "bfloat16":
+        return "rma_iterate+bf16"
+    return "rma_iterate+pins" if periodic or neumann else "rma_iterate"
+
+
 def compare_rma(kernel, rng):
     """Each of RMA_CASES: one launch of ``iters // k`` steps and one of the
     remainder on every rank's buffers (scattered from a random grid with
-    RMA_FACES), the whole buffer tensor against the plain version's from
-    the same buffers, bitwise required. Returns the largest difference."""
+    RMA_FACES on the case's walls, in its dtype), the whole buffer tensor
+    against the plain version's from the same buffers, bitwise required.
+    Returns the largest difference per kernel record mode."""
     import torch
 
-    from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
+    from stencil_tpu_torch.core.grid import HaloGrid, torch_dtype
     from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
         RmaStencil, rma_iterate_reference,
     )
 
-    worst = 0.0
-    for name, shape, sizes, k, iters in RMA_CASES:
+    worst = {}
+    for name, shape, sizes, k, iters, per, neu, dtype in RMA_CASES:
         sp = rma_spec(name)
+        bc = rma_walls(len(shape), per, neu)
         x = rng.random(shape, dtype=np.float32)
         g = HaloGrid.from_interior(
-            torch.from_numpy(x), halo=sp.radius,
-            bc=DirichletBC(values=RMA_FACES[len(shape)]), device=DEVICE)
+            torch.from_numpy(x).to(torch_dtype(dtype)), halo=sp.radius,
+            bc=bc, device=DEVICE)
         mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], DEVICE)
-        method = RmaStencil(sp, shape, sweeps_per_call=k)
-        plan = method.plan_for(mesh)
+        method = RmaStencil(sp, shape, dtype, sweeps_per_call=k)
+        plan = method.plan_for(mesh, bc)
         n_outer, rem = divmod(iters, k)
         got = method.scatter(g, mesh, plan)
         want = got.clone()
@@ -1857,75 +1935,97 @@ def compare_rma(kernel, rng):
             kernel(got, plan.with_sweeps(rem), 1, n_outer % 2)
             rma_iterate_reference(want, plan.with_sweeps(rem), 1,
                                   n_outer % 2)
-        worst = max(worst, check_equal(
-            f"rma_iterate {sp.name} {shape} mesh {sizes} k={k}, "
-            f"{n_outer} steps{f' + a remainder of {rem}' if rem else ''}, "
-            f"buffers {tuple(plan.buffer_shape)}", got, want, exact=True))
+        mode = rma_mode(per, neu, dtype)
+        worst[mode] = max(worst.get(mode, 0.0), check_equal(
+            f"rma_iterate {sp.name} {shape} mesh {sizes} k={k} {dtype}, "
+            f"{walls_name(bc)}, {n_outer} steps"
+            f"{f' + a remainder of {rem}' if rem else ''}, buffers "
+            f"{tuple(plan.buffer_shape)}", got, want, exact=True))
         del got, want
     return worst
 
 
 def run_rma_paths(cli, kernel, label):
     """The bench cell through the CLI, ``-s 64 64 128 -i 64 --spec jacobi7
-    -m rma -k 2 -c``, on (1,) and with ``--mesh 2 2``, each run's launches
-    counted from 0; then each runner's result after RMA_ITERS sweeps
-    bitwise the ``tiled`` runner's at the same k. Returns the launches of
-    the two CLI runs."""
+    -m rma -k 2 -c``, on (1,) and with ``--mesh 2 2``, then each of
+    RMA_WALL_RUNS (``--periodic 0 1 --mesh 2 2``, ``--neumann 1 --mesh 2``;
+    ``--dtype bfloat16`` on (1,) and (2, 2) at RMA_BF16_ITERS sweeps, the
+    golden's bf16 bar), each run's launches counted from 0 and every one
+    of them of the run's kind; then each runner's result bitwise the
+    ``tiled`` runner's at the same k, walls and dtype. Returns the
+    launches per kernel record mode."""
     import torch
 
     from stencil_tpu_torch import registry
     from stencil_tpu_torch.config import parse_args
 
-    total = 0
-    for mesh in RMA_MESHES:
+    runs = [((), mesh, "float32", "launches", "rma_iterate")
+            for mesh in RMA_MESHES] + list(RMA_WALL_RUNS)
+    total = {}
+    for flags, mesh, dtype, count, mode in runs:
+        iters = RMA_BF16_ITERS if dtype == "bfloat16" else RMA_ITERS
         args = ["-s", *map(str, RMA_SIZE), "--spec", "jacobi7", "-m", "rma",
-                "-k", str(RMA_K), "-i", str(RMA_ITERS)]
+                "-k", str(RMA_K), "-i", str(iters), *flags]
         if mesh != (1,):
             args += ["--mesh", *map(str, mesh)]
-        rec, n = run_cli(cli, args, kernel, label)
+        if dtype != "float32":
+            args += ["--dtype", dtype]
+        rec, n = run_cli(cli, args, kernel, label, count)
         require(rec["plan"]["kernel"] == "rma_iterate"
                 and rec["plan"]["mesh"] == list(mesh), f"{args} ran "
                 f"{rec['plan']}")
-        total += n
+        total[mode] = total.get(mode, 0) + n
         cfg = parse_args([*args, "--device", DEVICE])
         sp = cfg.resolved_spec()
         grid = cli.make_grid(cfg, sp)
         kernel.reset_counts()
-        got = registry.get_runner("rma", cfg, sp, grid).iterate(
-            grid, RMA_ITERS)
-        launches = kernel.launches
-        want = registry.get_runner("tiled", cfg, sp, grid).iterate(
-            grid, RMA_ITERS)
+        got = registry.get_runner("rma", cfg, sp, grid).iterate(grid, iters)
+        launches = getattr(kernel, count)
+        want = registry.get_runner("tiled", cfg, sp, grid).iterate(grid,
+                                                                   iters)
         torch.cuda.synchronize()
-        require(launches == 1 and torch.equal(got.data, want.data),
-                f"rma mesh {mesh}: {launches} launches, or not bitwise tiled")
-        print(f"rma mesh {mesh} k={RMA_K} {RMA_SIZE}, {RMA_ITERS} sweeps in "
-              f"one launch: bitwise equal to tiled k={RMA_K} [{label}]")
+        require(launches == kernel.launches == 1
+                and torch.equal(got.data, want.data),
+                f"rma {args}: {launches} {count} of {kernel.launches} "
+                "launches, or not bitwise tiled")
+        print(f"rma {' '.join(flags) or 'dirichlet'} mesh {mesh} k={RMA_K} "
+              f"{dtype} {RMA_SIZE}, {iters} sweeps in one launch: bitwise "
+              f"equal to tiled k={RMA_K} [{label}]")
     return total
 
 
 def time_rma(kernel, label):
-    """GLUPS and ms per outer step of ``rma`` k=2 on RMA_MESHES at RMA_SIZE
-    (the bench cell) and RMA_BIG, beside ``tiled`` at k=2 and k=8: the
-    marginal of RMA_TIMED_STEPS outer steps of the iterate, on the host's
-    clock after a synchronisation (an rma iterate is one launch between a
-    scatter and a gather whose host time hides a short launch from CUDA
-    events around it); the device idle share of the bench cell's iterate,
+    """GLUPS and ms per outer step of ``rma`` k=2 beside ``tiled`` on the
+    same walls and dtype: on RMA_MESHES at RMA_SIZE (the bench cell) and
+    RMA_BIG, Dirichlet fp32, beside ``tiled`` at k=2 and k=8; at RMA_SIZE
+    on each of RMA_WALL_RUNS' walls, mesh and dtype; at RMA_BF16_BIG in
+    bf16 on (1,). Each the marginal of RMA_TIMED_STEPS outer steps of the
+    iterate (the least of RMA_REPEATS runs), on the host's clock after a
+    synchronisation (an rma iterate is one launch between a scatter and a
+    gather whose host time hides a short launch from CUDA events around
+    it); the device idle share of the bench cell's Dirichlet iterates,
     where the trace holds the cooperative launch. Then launches alone, of
     RMA_STEPS and 2 * RMA_STEPS steps, and their marginal per step, at the
-    bench cell (its plain version beside) and at RMA_TINY, whose step is
-    mostly its grid barriers. Then the kernel record's row: the bench
-    cell's launch of RMA_STEPS steps on (1,), its plain version, its bound
-    and one conv3d sweep of the same grid. Returns the row."""
+    bench cell (its plain version beside) on RMA_MESHES and (2,) (the
+    Dirichlet twin of ``--neumann 1``'s mesh) and with every run's walls,
+    mesh and dtype, and at RMA_TINY, whose step is mostly its grid
+    barriers.
+    Then the kernel record's rows: one launch of RMA_STEPS steps at the
+    bench cell, its plain version, its bound and the library's one sweep
+    of the same grid (after ``F.pad`` with dynamic walls): Dirichlet fp32
+    on (1,) for ``rma_iterate``, ``--neumann 1`` on (2,) (the refresh) for
+    ``rma_iterate+pins``, bf16 on (1,) for ``rma_iterate+bf16``. Returns
+    the rows by mode."""
     import torch
 
-    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.core.grid import HaloGrid, torch_dtype
     from stencil_tpu_torch.core.spec import get_spec
     from stencil_tpu_torch.ops.tiled import TiledStencil, make_tiled_plan
     from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
         RmaStencil, rma_iterate_reference,
     )
+
     def wall(run, n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1933,95 +2033,131 @@ def time_rma(kernel, label):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def walls_of(flags):
+        per = tuple(int(d) for d in flags[1:]) if "--periodic" in flags \
+            else ()
+        neu = tuple(int(d) for d in flags[1:]) if "--neumann" in flags \
+            else ()
+        return rma_walls(3, per, neu)
+
     j7 = get_spec("jacobi7")
     gen = torch.Generator(DEVICE).manual_seed(SEED)
-    grids = {shape: HaloGrid.from_interior(
-        torch.rand(shape, generator=gen, device=DEVICE), halo=1,
-        device=DEVICE) for shape in (RMA_SIZE, RMA_BIG, RMA_TINY)}
-    meshes = {sizes: make_mesh(sizes, ("x", "y")[:len(sizes)], DEVICE)
-              for sizes in RMA_MESHES}
-    for shape in (RMA_SIZE, RMA_BIG):
-        grid = grids[shape]
+
+    def grid_of(shape, bc=None, dtype="float32"):
+        x = torch.rand(shape, generator=gen, device=DEVICE)
+        return HaloGrid.from_interior(x.to(torch_dtype(dtype)), halo=1,
+                                      bc=bc, device=DEVICE)
+
+    def mesh_of(sizes):
+        return make_mesh(sizes, ("x", "y")[:len(sizes)], DEVICE)
+
+    # (label, shape, grid, dtype, rma meshes, tiled ks)
+    cells = [("dirichlet", shape, grid_of(shape), "float32", RMA_MESHES,
+              (RMA_K, 8)) for shape in (RMA_SIZE, RMA_BIG)]
+    for flags, sizes, dtype, _, _ in RMA_WALL_RUNS:
+        bc = walls_of(flags) if flags else None
+        cells.append((" ".join(flags) or "dirichlet", RMA_SIZE,
+                      grid_of(RMA_SIZE, bc, dtype), dtype, (sizes,),
+                      (RMA_K,)))
+    cells.append(("dirichlet", RMA_BF16_BIG,
+                  grid_of(RMA_BF16_BIG, dtype="bfloat16"), "bfloat16",
+                  ((1,),), (RMA_K,)))
+    for walls, shape, grid, dtype, meshes, ks in cells:
         runs = [(f"rma mesh {sizes} k={RMA_K}", RMA_K,
-                 lambda n, st=RmaStencil(j7, shape, sweeps_per_call=RMA_K),
-                 mesh=mesh: st.iterate(grid, n, mesh))
-                for sizes, mesh in meshes.items()]
+                 lambda n, st=RmaStencil(j7, shape, dtype, RMA_K),
+                 mesh=mesh_of(sizes): st.iterate(grid, n, mesh))
+                for sizes in meshes]
         runs += [(f"tiled k={k}", k,
-                  lambda n, st=TiledStencil(j7, shape, sweeps_per_call=k,
+                  lambda n, st=TiledStencil(j7, shape, dtype,
+                                            sweeps_per_call=k,
                                             device=DEVICE):
                   st.iterate(grid, n))
-                 for k in (RMA_K, 8)]
+                 for k in ks]
         for name, k, run in runs:
             n1, n2 = (steps * k for steps in RMA_TIMED_STEPS)
             run(n1)
-            t1 = min(wall(run, n1) for _ in range(3))
-            t2 = min(wall(run, n2) for _ in range(3))
+            t1 = min(wall(run, n1) for _ in range(RMA_REPEATS))
+            t2 = min(wall(run, n2) for _ in range(RMA_REPEATS))
             per_sweep = (t2 - t1) / (n2 - n1)
-            print(f"{name} jacobi7 {shape} fp32: "
+            print(f"{name} jacobi7 {shape} {dtype} {walls}: "
                   f"{int(np.prod(shape)) / per_sweep / 1e9:.2f} GLUPS, "
                   f"{per_sweep * k * 1e3:.4f} ms per outer step (marginal "
                   f"of {n1} and {n2} sweeps: {t1 * 1e3:.3f} / "
                   f"{t2 * 1e3:.3f} ms) [{label}]")
-            if shape == RMA_SIZE and name.startswith("rma"):
+            if (shape == RMA_SIZE and walls == "dirichlet"
+                    and dtype == "float32" and name.startswith("rma")):
                 host, busy, span = device_busy(lambda: run(RMA_ITERS),
-                                               DEVICE, "rma_iterate")
+                                               DEVICE, "rma_iterate",
+                                               tries=3)
                 print(f"  {name} {RMA_ITERS} sweeps: host wall {host:.3f} "
                       "ms unprofiled, " + (
-                          "device busy share not measured (the trace holds "
-                          "no rma_iterate launch)" if busy is None else
+                          "device busy share not measured (no trace of 3 "
+                          "held an rma_iterate launch)" if busy is None else
                           f"device busy {busy:.3f} ms of a {span:.3f} ms "
                           f"span, idle {100 * (1 - busy / span):.1f}%")
                       + f" [{label}]")
-    row = {}
-    for shape in (RMA_SIZE, RMA_TINY):
-        st = RmaStencil(j7, shape, sweeps_per_call=RMA_K)
-        for sizes, mesh in meshes.items():
-            plan = st.plan_for(mesh)
-            bufs = st.scatter(grids[shape], mesh, plan)
-            t1 = time_call(lambda: kernel(bufs, plan, RMA_STEPS), DEVICE, 10)
-            t2 = time_call(lambda: kernel(bufs, plan, 2 * RMA_STEPS),
-                           DEVICE, 10)
-            step = (t2 - t1) / RMA_STEPS * 1e3
-            barriers = len(sizes) + RMA_K
-            line = (f"one rma_iterate launch of {RMA_STEPS} steps, jacobi7 "
-                    f"{shape} k={RMA_K} mesh {sizes}: {t1:.4f} ms, "
-                    f"{step:.2f} us per step (the marginal of {RMA_STEPS} "
-                    f"and {2 * RMA_STEPS} steps), {barriers} grid barriers "
-                    f"per step ({step / barriers:.2f} us of the step per "
-                    "barrier)")
-            if shape == RMA_SIZE:
-                plain = st.scatter(grids[shape], mesh, plan)
-                plain_ms = time_call(lambda: rma_iterate_reference(
-                    plain, plan, RMA_STEPS), DEVICE, 1)
-                line += f"; plain {plain_ms:.4f} ms"
-                if sizes == (1,):  # the bench cell's launch is the record's
-                    row.update(ms=t1, plain=plain_ms)
-                del plain
-            print(f"{line} [{label}]")
-            del bufs
-    # the function: RMA_STEPS * k sweeps of the grid; the grid and its
-    # radius-deep Dirichlet ghosts read once, the interior written once,
-    # the taps of every update
-    n_int = int(np.prod(RMA_SIZE))
-    n_pad = int(np.prod([n + 2 * j7.radius for n in RMA_SIZE]))
-    row["bound"], row["by"] = bound_of(
-        4 * (n_pad + n_int), n_int * RMA_STEPS * RMA_K * j7.flops_per_point)
-    tplan = make_tiled_plan(j7, RMA_SIZE, "float32", 1)
-    lib, lib_check = library_sweep(tplan,
-                                   tplan.layout.pad_grid(grids[RMA_SIZE]),
-                                   None)
-    row["library"] = time_call(lib, DEVICE, 20)
-    print(f"rma_iterate bound for {RMA_STEPS} steps of k={RMA_K} at "
-          f"{RMA_SIZE}: {row['bound']:.4f} ms (by {row['by']}); library "
-          f"conv3d {row['library']:.4f} ms per sweep (vs one plain sweep max "
-          f"abs diff {lib_check():.3e}) [{label}]")
-    return row
+    # launches alone: walls flags, shape, mesh, dtype
+    alone = [((), shape, sizes, "float32") for shape in (RMA_SIZE, RMA_TINY)
+             for sizes in RMA_MESHES + ((2,),)]
+    alone += [(flags, RMA_SIZE, sizes, dtype)
+              for flags, sizes, dtype, _, _ in RMA_WALL_RUNS]
+    rows = {}
+    for flags, shape, sizes, dtype in alone:
+        walls = " ".join(flags) or "dirichlet"
+        mode = RMA_RECORD.get((flags, sizes, dtype)) \
+            if shape == RMA_SIZE else None
+        bc = walls_of(flags) if flags else None
+        grid = grid_of(shape, bc, dtype)
+        mesh = mesh_of(sizes)
+        st = RmaStencil(j7, shape, dtype, RMA_K)
+        plan = st.plan_for(mesh, bc)
+        bufs = st.scatter(grid, mesh, plan)
+        t1 = time_call(lambda: kernel(bufs, plan, RMA_STEPS), DEVICE, 5)
+        t2 = time_call(lambda: kernel(bufs, plan, 2 * RMA_STEPS), DEVICE, 5)
+        step = (t2 - t1) / RMA_STEPS * 1e3
+        barriers = (len(sizes) + RMA_K
+                    + (plan.refresh_dim is not None))
+        line = (f"one rma_iterate launch of {RMA_STEPS} steps, jacobi7 "
+                f"{shape} k={RMA_K} mesh {sizes} {dtype} {walls}: "
+                f"{t1:.4f} ms, {step:.2f} us per step (the marginal of "
+                f"{RMA_STEPS} and {2 * RMA_STEPS} steps), {barriers} grid "
+                f"barriers per step ({step / barriers:.2f} us of the step "
+                "per barrier)")
+        if shape == RMA_SIZE:
+            plain = st.scatter(grid, mesh, plan)
+            plain_ms = time_call(lambda: rma_iterate_reference(
+                plain, plan, RMA_STEPS), DEVICE, 1)
+            line += f"; plain {plain_ms:.4f} ms"
+            del plain
+        print(f"{line} [{label}]")
+        if mode is not None:
+            # the function: RMA_STEPS * k sweeps of the grid; the grid
+            # and its radius-deep ghosts read once, the interior written
+            # once, the taps of every update
+            n_int = int(np.prod(shape))
+            n_pad = int(np.prod([n + 2 * j7.radius for n in shape]))
+            bound, by = bound_of(
+                plan.itemsize * (n_pad + n_int),
+                n_int * RMA_STEPS * RMA_K * j7.flops_per_point, dtype)
+            tplan = make_tiled_plan(j7, shape, dtype, 1)
+            lib, lib_check = library_sweep(tplan, refreshed(tplan, grid),
+                                           None, bc)
+            library = time_call(lib, DEVICE, 20)
+            rows[mode] = {"ms": t1, "plain": plain_ms, "bound": bound,
+                          "by": by, "library": library}
+            print(f"{mode} bound for {RMA_STEPS} steps of k={RMA_K} at "
+                  f"{shape} {dtype} {walls}: {bound:.4f} ms (by {by}); "
+                  f"library {'F.pad + ' if bc is not None else ''}conv3d "
+                  f"{library:.4f} ms per sweep (vs one plain sweep max abs "
+                  f"diff {lib_check():.3e}) [{label}]")
+        del bufs, grid
+    return rows
 
 
-def device_busy(run, device, kernel_name=""):
+def device_busy(run, device, kernel_name="", tries=1):
     """(host wall ms, device busy ms, device span ms) of ``run()`` from a
-    ``torch.profiler`` trace; busy is None when the trace holds no device
-    event whose name holds ``kernel_name``."""
+    ``torch.profiler`` trace; busy is None when none of ``tries`` traces
+    holds a device event whose name holds ``kernel_name``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2031,13 +2167,16 @@ def device_busy(run, device, kernel_name=""):
     run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not any(kernel_name in e.name for e in events):
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(kernel_name in e.name for e in events):
+            break
+    else:
         return wall, None, None
     ranges = [(e.time_range.start, e.time_range.end) for e in events]
     busy = sum(end - start for start, end in ranges) / 1e3
@@ -2228,9 +2367,14 @@ def main() -> int:
                                             BOX_SIZE, "float32", 4),
                      per01, mode),
            pins_case(tiled, make_tiled_plan(j7, MAIN_SIZE, "float32", 1),
-                     per_all, mode),
-           compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
-                           bc=mixed)])
+                     per_all, mode)])
+    # the runner against the eager iterate with a Neumann face at k=3: a
+    # live Neumann ghost sums its mirrored taps in another order, so the
+    # two agree to fp32 rounding; filed apart from the kernel's row, whose
+    # every case is kernel against plain
+    runner_err = {"TiledStencil vs eager, periodic 0, neumann 1": (
+        compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
+                        bc=mixed))}
     mode = "tiled_sweep+source+pins"
     pprob = PoissonProblem(shape=POISSON_BIG, bc=mixed, device=DEVICE)
     pplan = make_tiled_plan(pprob.spec, POISSON_BIG, "float32", 8)
@@ -2450,13 +2594,15 @@ def main() -> int:
                                      walls(3)).to(device))
     # B3: every rank's buffers after one launch (and a remainder)
     t_rma = time.perf_counter()
-    err["rma_iterate"] = compare_rma(rma_module.rma_iterate, rng)
+    err.update(compare_rma(rma_module.rma_iterate, rng))
     stamp(f"the rma cases ({time.perf_counter() - t_rma:.1f} s)")
     print(f"PHASE 3 kernel vs plain: ok at "
           f"{time.perf_counter() - t_start:.1f} s (the bf16 cases "
           f"{t_sub - t_bf16:.1f} s, the subset cases "
           f"{time.perf_counter() - t_sub:.1f} s; max abs diff per mode "
-          f"{ {k: float(f'{v:.3e}') for k, v in err.items()} })")
+          f"{ {k: float(f'{v:.3e}') for k, v in err.items()} }; runners "
+          f"against the eager iterate "
+          f"{ {k: float(f'{v:.3e}') for k, v in runner_err.items()} })")
 
     # 4. main paths, launch counts set to 0 just before each
     from stencil_tpu_torch import cli
@@ -2594,10 +2740,10 @@ def main() -> int:
     launches["tiled_sweep+source+subset+bf16"] = run_sharded_poisson(
         tiled, rng, label, "bfloat16")
     run_sharded_2d(slab, label)
-    # B3: the bench cell through the CLI on (1,) and (2, 2)
+    # B3: the bench cell through the CLI on (1,) and (2, 2), on dynamic
+    # walls and in bf16
     t_rma = time.perf_counter()
-    launches["rma_iterate"] = run_rma_paths(cli, rma_module.rma_iterate,
-                                            label)
+    launches.update(run_rma_paths(cli, rma_module.rma_iterate, label))
     print(f"PHASE 4 main paths: ok at {time.perf_counter() - t_start:.1f} s "
           f"(the bf16 paths {t_sharded - t_bf16:.1f} s, the sharded paths "
           f"{t_rma - t_sharded:.1f} s, the rma paths "
@@ -3150,10 +3296,10 @@ def main() -> int:
     # largest of the script)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    rec = time_rma(rma_module.rma_iterate, label)
-    ms["rma_iterate"], plain_ms["rma_iterate"] = rec["ms"], rec["plain"]
-    bound_ms["rma_iterate"], bound_by["rma_iterate"] = rec["bound"], rec["by"]
-    library_ms["rma_iterate"] = rec["library"]
+    for mode, rec in time_rma(rma_module.rma_iterate, label).items():
+        ms[mode], plain_ms[mode] = rec["ms"], rec["plain"]
+        bound_ms[mode], bound_by[mode] = rec["bound"], rec["by"]
+        library_ms[mode] = rec["library"]
     stamp("the rma runs")
     # the sharded headline at 1024^3 (the single-device run, then each
     # mesh; each run's tensors freed before the next), and one launch of

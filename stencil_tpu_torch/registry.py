@@ -24,8 +24,7 @@ Counterpart of ``stencil_tpu/registry.py`` (``Runner``, ``make_xla``,
                 (``parallel/sharded_kernel.py``)
   ``rma``       every rank's blocks resident on one card for a whole
                 iterate, the strips pushed inside one cooperative launch
-                (``parallel/rma.py``, ``csrc/rma_iterate.cu``); Dirichlet
-                walls, float32
+                (``parallel/rma.py``, ``csrc/rma_iterate.cu``)
 
 The JAX package's names resolve too, so its command lines run unchanged:
 ``xla`` is ``eager``; ``pallas`` runs at k=1 and ``pallas_temporal`` at
@@ -40,11 +39,11 @@ visible CUDA device (one on the CPU), and several ranks may share one card
 (``rma``'s must). ``--no-overlap`` turns the interior-first split off.
 
 Periodic and Neumann walls (``--periodic``/``--neumann``) run on every
-ported method but ``rma`` (not ported yet, B3-pins): on the kernels with
-JAX's gates, raised when the runner is made (a dynamic lane dim needs k=1,
-a Neumann leading dim at k>1 a mirror-symmetric spec; ``--embed`` and
-``--slide`` are refused), each launch with the dynamic faces live
-(``plan_info["pins"]``).
+ported method: on the kernels with JAX's gates, raised when the runner is
+made (a dynamic lane dim needs k=1, a Neumann leading dim at k>1 a
+mirror-symmetric spec; ``--embed`` and ``--slide`` are refused), each
+launch with the dynamic faces live (``plan_info["pins"]``); on ``rma``
+with JAX's gates for that method (no dynamic lane dim at any k).
 
 Each entry is a factory ``(config, spec, grid) -> Runner`` where a Runner
 has ``iterate(grid, n) -> HaloGrid``.
@@ -337,28 +336,53 @@ def make_rma(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
     """Every rank's blocks resident for a whole iterate, the k*r-deep
     strips pushed inside one cooperative launch with grid barriers between
     phases (``csrc/rma_iterate.cu``): ``--mesh a`` shards d0, ``--mesh a
-    b`` d0 and d1, every rank on one card; ``-k`` sweeps per exchange.
-    JAX's gates are raised when the runner is made
-    (``registry.py:394-460``), then the card's L2 budget; periodic and
-    Neumann walls and bfloat16 raise ``NotImplementedError`` (B3-pins,
-    B3-bf16). ``plan_info`` records the mesh, the local block, its
-    buffers, the bytes resident on the card and those a mesh-interior rank
-    pushes per outer step."""
+    b`` d0 and d1, every rank on one card; ``-k`` sweeps per exchange, in
+    the grid's dtype (float32 or bfloat16). Periodic and Neumann walls
+    take JAX's gates and messages, raised when the runner is made
+    (``registry.py:415-445``: a dynamic lane dim, a Neumann dim at k>1
+    with a spec not mirror-symmetric in it, a dynamic unsharded dim
+    shallower than k*r), then the card's L2 budget. ``plan_info`` records
+    the mesh, the local block, its buffers, the bytes resident on the card
+    and those a mesh-interior rank pushes per outer step."""
     from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
-        RmaStencil, check_ported, push_bytes_per_step,
+        RmaStencil, push_bytes_per_step,
     )
 
     mesh_sizes = _mesh_sizes(config, grid)
     if len(mesh_sizes) > 2:
         raise ValueError("mesh must be 1D or 2D over the leading grid dims")
-    check_ported(grid.bc, grid.dtype)
     axes = ("x", "y")[:len(mesh_sizes)]
     k = _temporal(config, 1)
+    if grid.bc.any_dynamic:
+        ndim = len(grid.interior_shape)
+        per = grid.bc.periodic_mask(ndim)
+        neu = grid.bc.neumann_mask(ndim)
+        if per[ndim - 1] or neu[ndim - 1]:
+            raise ValueError(
+                "a periodic/Neumann LANE (last) dim is unsupported by "
+                "'rma' (use 'xla', or 'pallas_tiled' at -k 1)")
+        if k > 1:
+            asym = [d for d in range(ndim - 1)
+                    if neu[d] and not spec.symmetric_in(d)]
+            if asym:
+                raise ValueError(
+                    f"Neumann dim(s) {asym} at -k {k} need the stencil "
+                    "mirror-symmetric in those dims (use -k 1 for "
+                    "asymmetric taps)")
+        kr = k * spec.radius
+        shallow = [d for d in range(len(mesh_sizes), ndim - 1)
+                   if (per[d] or neu[d])
+                   and grid.interior_shape[d] < kr]
+        if shallow:
+            raise ValueError(
+                f"dynamic unsharded dim(s) {shallow} are shallower than "
+                f"the temporal ghost depth k*r = {kr}")
     method = RmaStencil(spec, grid.interior_shape,
                         dtype=dtype_name(grid.dtype), sweeps_per_call=k)
     mesh = make_mesh(mesh_sizes, axes, grid.device)
-    plan = method.plan_for(mesh)  # divisibility, depth and budget, eagerly
+    # divisibility, depth and budget, eagerly
+    plan = method.plan_for(mesh, grid.bc)
     plan_info = {"kernel": "rma_iterate", "mesh": list(mesh_sizes), "k": k,
                  "local_shape": list(plan.local_shape),
                  "block_shape": list(plan.block_shape),

@@ -2,7 +2,8 @@
 and csrc/slab_sweep.cu, 2D), homogeneous and with a source, the 3D
 kernel's Chebyshev, dual, two-level and coefficient modes, and the
 in-kernel exchange csrc/rma_iterate.cu (every rank's buffers after one
-cooperative launch), against their plain PyTorch versions, on an NVIDIA
+cooperative launch, on Dirichlet, periodic and Neumann walls, in fp32 and
+bf16), against their plain PyTorch versions, on an NVIDIA
 GPU. Marked ``cuda``; without a card
 every test skips. This file imports no JAX, so it also runs where only the
 port is installed:
@@ -837,3 +838,68 @@ def test_rma_budget_refusal_before_any_launch(cuda_device):
         RmaStencil(get_spec("jacobi7"), shape, sweeps_per_call=2).iterate(
             g, 4, make_mesh((1,), ("x",), device=cuda_device))
     assert rma_iterate.launches == 0
+
+
+RMA_PINS_CASES = [  # spec, global shape, mesh, k, iterations, periodic,
+    # neumann, dtype
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 7, (0, 1), (), "float32"),
+    ("jacobi7", (64, 64, 128), (2,), 2, 7, (), (0, 1), "float32"),
+    ("jacobi27", (32, 32, 40), (2,), 3, 7, (0,), (1,), "float32"),
+    ("jacobi7", (32, 32, 40), (1,), 2, 5, (0,), (), "float32"),  # ring of 1
+    ("star3_r2", (32, 32, 20), (2, 2), 2, 5, (1,), (0,), "float32"),
+    ("jacobi5", (64, 40), (4,), 4, 10, (), (0,), "float32"),
+    ("jacobi5", (32, 256), (2, 2), 2, 7, (0,), (), "float32"),
+    ("jacobi7", (64, 64, 128), (1,), 2, 7, (), (), "bfloat16"),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 7, (0,), (1,), "bfloat16"),
+    ("jacobi27", (32, 32, 40), (2,), 3, 7, (), (0, 1), "bfloat16"),
+    ("jacobi5", (64, 40), (4,), 2, 5, (0,), (), "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("name,shape,sizes,k,iters,periodic,neumann,dtype",
+                         RMA_PINS_CASES)
+def test_rma_kernel_matches_plain_on_dynamic_walls_and_bf16(
+        cuda_device, name, shape, sizes, k, iters, periodic, neumann, dtype):
+    """Rings (of 1, 2 and more), Neumann mirrors, the local refresh of an
+    unsharded dynamic d1 and mixed walls, fp32 and bf16, distinct face
+    values: one launch of ``iters // k`` steps and one of the remainder,
+    the whole buffer tensor bitwise the plain version's; the counts of
+    pins and bf16 launches; ``RmaStencil.iterate`` bitwise the same
+    launches' result."""
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.rma import (
+        RmaStencil, rma_iterate, rma_iterate_reference,
+    )
+
+    sp = _rma_spec(name)
+    bc = (BC3 if len(shape) == 3 else BC2)
+    if periodic:
+        bc = bc.with_periodic(periodic)
+    if neumann:
+        bc = bc.with_neumann(neumann)
+    g = _grid(shape, sp.radius, "cpu", bc=bc)
+    g = HaloGrid.from_interior(g.interior().to(getattr(torch, dtype)),
+                               halo=sp.radius, bc=bc, device=cuda_device)
+    mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], device=cuda_device)
+    method = RmaStencil(sp, shape, dtype, sweeps_per_call=k)
+    plan = method.plan_for(mesh, bc)
+    n_outer, rem = divmod(iters, k)
+    bufs = method.scatter(g, mesh, plan)
+    want = bufs.clone()
+    rma_iterate.reset_counts()
+    rma_iterate(bufs, plan, n_outer)
+    rma_iterate_reference(want, plan, n_outer)
+    if rem:
+        rma_iterate(bufs, plan.with_sweeps(rem), 1, n_outer % 2)
+        rma_iterate_reference(want, plan.with_sweeps(rem), 1, n_outer % 2)
+    torch.cuda.synchronize()
+    n = 1 + bool(rem)
+    assert (rma_iterate.launches, rma_iterate.pins_launches,
+            rma_iterate.bf16_launches) == (
+        n, n * bool(periodic or neumann), n * (dtype == "bfloat16"))
+    assert torch.equal(bufs, want)
+    got = method.iterate(g, iters, mesh)
+    slot = (n_outer + bool(rem)) % 2
+    torch.cuda.synchronize()
+    assert torch.equal(got.interior(), method.gather(
+        bufs, slot, mesh, plan, g).interior())

@@ -4,8 +4,9 @@ blocks resident for a whole run, strips pushed between ranks inside one
 launch. Held against the float64 golden, JAX's ``RmaStencil`` in interpret
 mode (tiny cases) and JAX's ``xla`` iterate, the port's single-device
 plain results, ``sharded_pallas --no-overlap``, JAX's gates, and, in pure
-Python, the tables the kernel and the plain version walk. The kernel
-itself is held against the plain version on a card by
+Python, the tables the kernel and the plain version walk (Dirichlet walls
+in fp32; tests/test_torch_rma_pins.py holds periodic and Neumann walls and
+bf16). The kernel itself is held against the plain version on a card by
 tests/test_torch_cuda.py.
 
 Tolerances: vs the golden and vs JAX 5e-6 (the JAX suite's own,
@@ -225,18 +226,26 @@ def test_budget_refusal_names_the_l2_and_the_way_out():
 @pytest.mark.parametrize("argv", [
     ["--periodic", "0"], ["--neumann", "1"], ["--dtype", "bfloat16"],
 ])
-def test_dynamic_walls_and_bf16_are_not_ported_yet(argv):
+def test_dynamic_walls_and_bf16_run_through_the_registry(argv):
+    """The runs once refused as "not ported yet (B3-pins / B3-bf16)": the
+    registry's runner and ``RmaStencil.iterate`` agree bitwise and are
+    within the golden's bar (5e-6, bf16 3e-2);
+    tests/test_torch_rma_pins.py holds every case of JAX's suite."""
     cfg = parse_args(["-s", "16", "12", "20", "--spec", "jacobi7", "-m",
-                      "rma", "--mesh", "2", "--device", "cpu", *argv])
+                      "rma", "--mesh", "2", "-k", "2", "--device", "cpu",
+                      *argv])
     sp = cfg.resolved_spec()
     g = cli.make_grid(cfg, sp)
-    with pytest.raises(NotImplementedError,
-                       match=r"not ported yet \(B3-pins / B3-bf16, "
-                             r"ROADMAP\)"):
-        registry.get_runner("rma", cfg, sp, g)
-    with pytest.raises(NotImplementedError, match="B3-pins / B3-bf16"):
-        RmaStencil(sp, (16, 12, 20)).iterate(
-            g, 2, make_mesh((2,), ("x",), device="cpu"))
+    got = registry.get_runner("rma", cfg, sp, g).iterate(g, 5)
+    again = RmaStencil(sp, (16, 12, 20), tgrid.dtype_name(g.dtype),
+                       2).iterate(g, 5, make_mesh((2,), ("x",),
+                                                  device="cpu"))
+    assert torch.equal(got.interior(), again.interior())
+    tol = 3e-2 if "bfloat16" in argv else TOL
+    ref = golden.golden_iterate(g.interior().double().numpy(), sp, 5,
+                                bc=g.bc)
+    np.testing.assert_allclose(got.interior().double().numpy(), ref,
+                               atol=tol, rtol=tol)
 
 
 def test_a_mesh_over_two_cards_is_refused():
@@ -273,7 +282,8 @@ def test_wrapper_checks():
         rma_iterate(bufs[:, :2], plan, 1)
     with pytest.raises(ValueError, match="n_steps 0"):
         rma_iterate(bufs, plan, 0)
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(ValueError,
+                       match="buffers dtype float64 != plan dtype float32"):
         rma_iterate(bufs.double(), plan, 1)
     with pytest.raises(ValueError, match=r"sweeps 3 outside \[1, 2\]"):
         plan.with_sweeps(3)
