@@ -8,11 +8,16 @@ Run from the repository root with no arguments:
 Phases, each ending in a line of its own:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles the three CUDA kernels (``csrc/tiled_sweep.cu``, six
-   modes and tile subsets, ``csrc/slab_sweep.cu``, ``csrc/rma_iterate.cu``)
-   and the native golden from the sources in this checkout, all four
-   compilers started together (into ``build/stencil_tpu_torch/``);
+2. build: compiles the CUDA kernels (``csrc/tiled_sweep.cu``, the 3D
+   kernel's window schedule, six modes and tile subsets;
+   ``csrc/tiled_march.cu``, its d0 march, the homogeneous and source modes
+   with pins, bf16 and subsets; ``csrc/slab_sweep.cu``;
+   ``csrc/rma_iterate.cu``) and the native golden from the sources in this
+   checkout, all five compilers started together (into
+   ``build/stencil_tpu_torch/``);
 3. kernel vs plain: each kernel mode (3D tiled, 3D tiled with a source,
+   each of the two on the march schedule wherever the plan rule gives it,
+   so on every homogeneous and source case below,
    the 3D tiled kernel's Chebyshev, dual, two-level and coefficient modes,
    2D slab, 2D slab with a source) against its plain PyTorch version on the
    card, on random fp32
@@ -66,9 +71,18 @@ Phases, each ending in a line of its own:
    on dynamic walls (rings of 1, 2 and 4 in d0 and d1, Neumann mirrors,
    the local refresh of d1 on (2,), mixed walls, jacobi27, a box, radius
    2, 2D) and in bf16 (the bench cell on (1,), rings, the refresh, 2D, and
-   160³ on (1,), which fits the L2 only in bf16);
+   160³ on (1,), which fits the L2 only in bf16); and the march itself:
+   ``jacobi7``, ``jacobi27`` and ``star3d_r2`` in fp32 and bf16 at k = 1,
+   2, 3 and 8 on the ragged 57×50×46, then with ``--periodic 0 1``,
+   ``--neumann 0 1`` and the source mode, each launch bitwise its plain
+   version on the whole padded output and bitwise the window schedule's
+   launch of the same sweeps (filed under the window's modes), and the
+   window's own subset launches;
 4. main paths, each with the launch counts set to 0 just before it and
-   read just after: the 3D CLI (``-s 256 256 256 --spec jacobi7 -m
+   read just after (every launch of a homogeneous or source path must be
+   a march launch, ``march_launches`` and its mode's ``march_*`` count: the
+   headline, cfg3, the Poisson runners (cfg8), the sharded paths): the 3D
+   CLI (``-s 256 256 256 --spec jacobi7 -m
    pallas_temporal -k 8 -i 64 -c``), the 2D CLI (``-s 512 512 --spec
    jacobi5 -m pallas_temporal -k 16 -i 1024 -c`` and ``-s 4096 4096 --spec
    jacobi9 -m pallas_temporal -k 4 -b 256 -i 64 -c``), each passing the
@@ -126,8 +140,11 @@ Phases, each ending in a line of its own:
    bfloat16`` on (1,) and (2, 2) at 16 sweeps (every launch a bf16 one),
    and each runner's sweeps (one launch) bitwise ``tiled`` at k=2 on the
    same walls and dtype;
-5. times: GLUPS of the 3D tiled kernel at k=8 and k=1 and of ``eager`` at
-   256³; of cfg1 (2D 5-pt 512², slab k=16) and cfg2 (2D 9-pt 4096², slab
+5. times: GLUPS of the 3D tiled kernel on the march and on the window
+   schedule at k = 1, 2, 4 and 8 and of ``eager`` at 256³ (the k=1 pair
+   printed beside the schedule the plan rule gives k=1); cfg3–cfg6 and
+   cfg8 on both schedules (cfg5, cfg6 and cfg8 required to march); the
+   sharded 1024³ meshes on both; of cfg1 (2D 5-pt 512², slab k=16) and cfg2 (2D 9-pt 4096², slab
    k=4, ``-b 256``) and ``eager`` at both sizes; of cfg8 (Poisson 256³, the
    tiled source kernel at k=8); ms per V-cycle, contraction per cycle and
    ms per decade of cfg10 (weighted Jacobi V(4,4), tiled fine level), cfg11
@@ -183,6 +200,11 @@ Phases, each ending in a line of its own:
    those walls and dtypes, and at 8×8×16, whose step is mostly its grid
    barriers.
 
+The march replaces the window schedule in the homogeneous and source
+modes, with pins, bf16 and subsets: their rows are ``tiled_march...``,
+each with ``window_ms``, the window schedule's time for the same launch
+(its own chooser's tiles; a subset row the window's interior + edge pair).
+
 Each kernel's ``launches`` in the kernel record sums the phase-4 runs of
 that mode (a bf16 mode, name ending ``+bf16``, its bf16 runs); its
 ``max_abs_err`` is the largest of its phase-3 cases. Its ``bound_ms`` is
@@ -219,6 +241,8 @@ so does a host without a CUDA device, or a directory without the package.
 """
 
 import concurrent.futures
+import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -327,6 +351,7 @@ SHARDED_MESH = (2, 2)
 MESH_PINS = (1, 0, 1, 0)
 SHARDED_SIZE = (1024, 1024, 1024)
 SHARDED_K = 8
+SCHEDULE_DEPTHS = (1, 2, 4, 8)  # phase 5: 256^3 GLUPS on both schedules
 SHARDED_TIMED = (("tiled", None, True), ("sharded_pallas", (1,), True),
                  ("sharded_pallas", (2,), True),
                  ("sharded_pallas", SHARDED_MESH, True),
@@ -407,18 +432,18 @@ PEAK_BF16_PER_S = 989e12
 
 # the kernel record's modes: every fp32 mode, then each bf16 one
 KERNEL_MODES = (
-    "tiled_sweep", "tiled_sweep+source", "tiled_sweep+cheby",
+    "tiled_march", "tiled_march+source", "tiled_sweep+cheby",
     "tiled_sweep+dual", "tiled_sweep+two_level", "tiled_sweep+coeff",
-    "tiled_sweep+pins", "tiled_sweep+source+pins",
+    "tiled_march+pins", "tiled_march+source+pins",
     "tiled_sweep+two_level+pins", "tiled_sweep+coeff+pins", "slab_sweep",
     "slab_sweep+source", "slab_sweep+pins", "slab_sweep+source+pins",
-    "tiled_sweep+bf16", "tiled_sweep+source+bf16", "tiled_sweep+cheby+bf16",
+    "tiled_march+bf16", "tiled_march+source+bf16", "tiled_sweep+cheby+bf16",
     "tiled_sweep+dual+bf16", "tiled_sweep+two_level+bf16",
-    "tiled_sweep+pins+bf16", "tiled_sweep+source+pins+bf16",
+    "tiled_march+pins+bf16", "tiled_march+source+pins+bf16",
     "tiled_sweep+two_level+pins+bf16", "slab_sweep+bf16",
     "slab_sweep+source+bf16", "slab_sweep+pins+bf16",
-    "tiled_sweep+subset", "tiled_sweep+source+subset",
-    "tiled_sweep+subset+bf16", "tiled_sweep+source+subset+bf16",
+    "tiled_march+subset", "tiled_march+source+subset",
+    "tiled_march+subset+bf16", "tiled_march+source+subset+bf16",
     "rma_iterate", "rma_iterate+pins", "rma_iterate+bf16")
 
 
@@ -618,6 +643,49 @@ def compare_launch(kernel, make_plan, spec, shape, k, rng, device,
                        got, want)
 
 
+def compare_march(kernel, spec, shape, k, dtype, bc, source, rng, device):
+    """One launch of the march plan of ``spec`` at ``shape``, k sweeps, in
+    ``dtype``, on walls ``bc`` with their pins (``source``: a random padded
+    source), bitwise against its plain version on the whole padded output
+    and against the window schedule's launch of the same sweeps where a
+    window fits. Returns {mode: max abs difference} for the march's mode
+    and, where it ran, the window's (``tiled_sweep...``)."""
+    import torch
+
+    from stencil_tpu_torch.ops.layout import pad_source
+    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+    from stencil_tpu_torch.ops.tiled import dynamic_pins, make_tiled_plan
+
+    plan = make_tiled_plan(spec, shape, dtype, k, has_source=source)
+    require(plan.schedule == "march", f"{spec.name} {shape} k={k} {dtype}: "
+            f"a {plan.schedule} plan")
+    try:
+        window = make_tiled_plan(spec, shape, dtype, k, has_source=source,
+                                 schedule="window")
+    except ValueError:
+        window = None  # no window fits: the march alone runs these sweeps
+    cur = (bf16_input(plan, bc, rng, device) if dtype == "bfloat16"
+           else pins_input(plan, bc, rng, device))
+    src = pad_source(plan, rng.normal(size=shape), -0.01, bc).to(device) \
+        if source else None
+    pins = dynamic_pins(bc, 3)
+    suffix = (("+source" if source else "") + ("" if all(pins) else "+pins")
+              + ("+bf16" if dtype == "bfloat16" else ""))
+    label = (f"{spec.name} {shape} k={k} {dtype}, {walls_name(bc)}, march "
+             f"tiles {plan.tiles}")
+    want = sweep_reference(cur, plan, src, pins=pins)
+    out = {"tiled_march" + suffix: check_equal(
+        f"tiled_march{suffix} {label}",
+        kernel(cur, cur.clone(), plan, src, pins), want, True)}
+    if window is not None:
+        got = kernel(cur, cur.clone(), window, src, pins)
+        out["tiled_sweep" + suffix] = check_equal(
+            f"tiled_sweep{suffix} (window tiles {window.tiles}) {label}",
+            got, want, True)
+        torch.cuda.synchronize()
+    return out
+
+
 def compare_iterate(stencil_cls, spec, shape, k, iters, rng, device,
                     scale=None, bc=None, dtype="float32"):
     """The iterate (iters // k launches plus a remainder launch) against
@@ -780,7 +848,9 @@ def solve_path(args):
     pre, res, post, fused = mg._fine_ops()
     require(fused is not None and mg.nu2 > 0, f"{args}: no fused level")
     post_mode = ("tiled_sweep+cheby" if post.plan.cheby_coeffs
-                 else "tiled_sweep+source")
+                 else "tiled_march+source")
+    require(post.plan.cheby_coeffs or post.plan.schedule == "march",
+            f"{args}: the source smoother takes a {post.plan.schedule} plan")
     return prob, f, mg, (("tiled_sweep+dual", fused), (post_mode, post))
 
 
@@ -795,7 +865,7 @@ def run_solve_cli(cli, kernel, name, args, bar_h2, label):
         rc = cli.main([*args, "-c", "--device", DEVICE, "--json-out",
                        str(out)])
         seconds = time.perf_counter() - t0
-        counts = {"tiled_sweep+source": kernel.source_launches,
+        counts = {"tiled_march+source": kernel.march_source_launches,
                   "tiled_sweep+cheby": kernel.cheby_launches,
                   "tiled_sweep+dual": kernel.dual_launches}
         rec = json.loads(out.read_text().splitlines()[0])
@@ -1106,13 +1176,13 @@ def run_mg_bf16(kernel, label):
     return counts
 
 
-def run_advection(kernel, rng, label):
+def run_advection(kernel, rng, label, count="pins_launches"):
     """The advection family on the tiled kernel: upwind at cfg12's velocity
     on a box periodic in d0 and d1 (d2 the reference faces), k=8, against
     the float64 native golden over ADVECT_ITERS iterations; then integer
     CFL on a fully periodic box at k=1 against ``exact_translate``,
-    bitwise. Returns the pins launches, counts set to 0 just before each
-    run."""
+    bitwise. Returns the pins launches (by ``count``, which must be all of
+    each run's launches), counts set to 0 just before each run."""
     from stencil_tpu_torch import native
     from stencil_tpu_torch.models.advection import Advection
     from stencil_tpu_torch.ops import golden
@@ -1125,7 +1195,7 @@ def run_advection(kernel, rng, label):
                            device=DEVICE)
     kernel.reset_counts()
     got = stencil.iterate(adv.initial_grid(u0), ADVECT_ITERS)
-    total = kernel.pins_launches
+    total = getattr(kernel, count)
     require(total == ADVECT_ITERS // 8 and total == kernel.launches,
             f"advection: {total} pins launches of {kernel.launches}")
     want = native.golden_iterate_native(u0, adv.spec, ADVECT_ITERS,
@@ -1145,7 +1215,7 @@ def run_advection(kernel, rng, label):
                                device=DEVICE)
         kernel.reset_counts()
         got = stencil.iterate(adv.initial_grid(u0), TRANSLATE_STEPS)
-        n = kernel.pins_launches
+        n = getattr(kernel, count)
         require(n == TRANSLATE_STEPS and n == kernel.launches,
                 f"translation {velocity}: {n} pins launches")
         same = np.array_equal(got.interior().cpu().numpy(),
@@ -1415,6 +1485,17 @@ def library_sweep(plan, cur, src, bc=None):
     return call, check
 
 
+def window_twin(plan):
+    """The window schedule's plan of the same launch as the march ``plan``
+    (its own chooser's tiles, the same padded layout)."""
+    from stencil_tpu_torch.ops.tiled import make_tiled_plan
+
+    twin = make_tiled_plan(plan.spec, plan.interior_shape, plan.dtype,
+                           plan.sweeps_per_call, schedule="window")
+    require(twin.layout == plan.layout, f"{plan.tiles}: layouts differ")
+    return twin
+
+
 def time_call(fn, device, reps):
     from stencil_tpu_torch.utils.timing import timed
 
@@ -1452,9 +1533,10 @@ def run_cli(cli, args, kernel, label, count="launches"):
     return rec, launches
 
 
-def poisson_solve(shape, kernel, device):
+def poisson_solve(shape, kernel, device, count="source_launches"):
     """The manufactured solve through ``method="auto"``; returns the
-    source-mode launches it made."""
+    source-mode launches it made (by ``count``), which must be all of its
+    launches."""
     from stencil_tpu_torch.models.poisson import (
         PoissonProblem, manufactured_sine,
     )
@@ -1466,7 +1548,7 @@ def poisson_solve(shape, kernel, device):
     res = prob.solve(f, tolerance=1e-6, max_iterations=100_000,
                      check_every=200, method="auto")
     seconds = time.perf_counter() - t0
-    launches = kernel.source_launches
+    launches = getattr(kernel, count)
     u = res.grid.interior().double().cpu().numpy()
     err = float(np.max(np.abs(u - u_exact)))
     bar = 5.0 * prob.h ** 2
@@ -1648,6 +1730,20 @@ def subset_times(kernel, plan, cur, pins, src, reps):
                 columns=(len(interior), len(edge)))
 
 
+def window_pair_ms(kernel, plan, cur, pins, src, reps):
+    """The window schedule's interior + edge launches of the same block
+    as the march ``plan`` (its own partition), or its full launch where
+    its tiles leave either set empty."""
+    from stencil_tpu_torch.ops.tiled import partition_tiles
+
+    twin = window_twin(plan)
+    if all(partition_tiles(twin)):
+        rec = subset_times(kernel, twin, cur, pins, src, reps)
+        return rec["interior"] + rec["edge"]
+    nxt = cur.clone()
+    return time_call(lambda: kernel(cur, nxt, twin, src, pins), DEVICE, reps)
+
+
 def run_sharded_eager_cli(cli, label):
     """``-m sharded --mesh 2 2 -c`` (the eager sweep per rank, r-deep halos
     every sweep) at SHARDED_EAGER_SIZE: the float64 golden over every
@@ -1691,7 +1787,7 @@ def run_sharded_poisson(kernel, rng, label, dtype):
     kernel.reset_counts()
     got = runner.iterate(g0, POISSON_COMPARE_ITERS)
     torch.cuda.synchronize()
-    n = kernel.source_subset_launches
+    n = kernel.march_source_subset_launches
     steps = -(-POISSON_COMPARE_ITERS // 8)
     require(n == kernel.launches == 2 * steps * mesh.size
             and (dtype == "float32" or kernel.bf16_launches == n),
@@ -1751,7 +1847,7 @@ def time_sharded(kernel, label):
     and 4k sweeps (CUDA events); per mesh the exchange's ms alone on its
     side stream and the bytes it moves (the audit); the (2, 2) run's device
     idle share. Then the subset launches' times at the (2, 2) local block.
-    Returns the kernel record's row of ``tiled_sweep+subset``."""
+    Returns the kernel record's row of ``tiled_march+subset``."""
     import torch
 
     from stencil_tpu_torch.core.grid import HaloGrid
@@ -1773,11 +1869,12 @@ def time_sharded(kernel, label):
     n1, n2 = 2 * k, 4 * k
     ref = None
     record = None
-    for method_name, mesh_sizes, overlap in SHARDED_TIMED:
+    for (method_name, mesh_sizes, overlap), schedule in itertools.product(
+            SHARDED_TIMED, ("march", "window")):
         if method_name == "tiled":
-            name = f"tiled k={k}"
+            name = f"tiled k={k} {schedule}"
             st = TiledStencil(j7, SHARDED_SIZE, sweeps_per_call=k,
-                              device=DEVICE)
+                              device=DEVICE, schedule=schedule)
 
             def run(n, st=st):
                 return st.iterate(grid, n)
@@ -1785,9 +1882,10 @@ def time_sharded(kernel, label):
             axes = ("x", "y")[:len(mesh_sizes)]
             mesh = make_mesh(mesh_sizes, axes, DEVICE)
             st = ShardedKernelStencil(j7, SHARDED_SIZE, axis_names=axes,
-                                      sweeps_per_call=k, overlap=overlap)
+                                      sweeps_per_call=k, overlap=overlap,
+                                      schedule=schedule)
             name = (f"sharded_pallas mesh {mesh_sizes} k={k}"
-                    f"{'' if overlap else ' --no-overlap'}")
+                    f"{'' if overlap else ' --no-overlap'} {schedule}")
 
             def run(n, st=st, mesh=mesh):
                 return st.iterate(grid, n, mesh)
@@ -1795,6 +1893,10 @@ def time_sharded(kernel, label):
         out = run(n1)
         torch.cuda.synchronize()
         launches, subsets = kernel.launches, kernel.subset_launches
+        require(schedule == "window" or (
+            kernel.march_launches == launches > 0
+            and kernel.march_subset_launches == subsets),
+            f"{name}: {kernel.march_launches} march launches of {launches}")
         if ref is None:
             ref = out.data
             same = "the reference"
@@ -1807,7 +1909,7 @@ def time_sharded(kernel, label):
         t2 = sorted(timed(lambda: run(n2), DEVICE) for _ in range(2))[0]
         per_sweep = (t2 - t1) / (n2 - n1)
         extra = ""
-        if method_name != "tiled":
+        if method_name != "tiled" and schedule == "march":
             plan = st.local_plan(mesh_sizes)
             blocks = st.scatter(grid, mesh)
             with comm_audit.audit() as rec:
@@ -1846,21 +1948,24 @@ def time_sharded(kernel, label):
               f"{n1} and {n2} sweeps: {t1 * 1e3:.1f} / {t2 * 1e3:.1f} ms); "
               f"{launches} launches for {n1} sweeps, {subsets} of them "
               f"subset launches; {same}{extra} [{label}]")
-        if mesh_sizes == SHARDED_MESH and overlap:
+        if mesh_sizes == SHARDED_MESH and overlap and schedule == "march":
             plan = st.local_plan(mesh_sizes)
             cur = st.scatter(grid, mesh)[0]
             pins = st.pins(mesh, 0, grid.bc)
             record = subset_times(kernel, plan, cur, pins, None, 3)
+            record["window"] = window_pair_ms(kernel, plan, cur, pins, None,
+                                              2)
             lib, lib_check = library_sweep(plan, cur, None)
             record["library"] = time_call(lib, DEVICE, 3)
             record["full_bound"] = bound(plan, None, False)[0]
-            print(f"one interior + one edge launch of tiled_sweep+subset "
+            print(f"one interior + one edge launch of tiled_march+subset "
                   f"(rank 0's block {plan.interior_shape} k={k} tiles "
                   f"{plan.tiles}, pins {list(pins)}, "
                   f"{record['columns'][0]} interior + "
                   f"{record['columns'][1]} edge columns): kernel "
                   f"{record['interior']:.4f} + {record['edge']:.4f} ms "
                   f"beside {record['full']:.4f} ms for the full launch; "
+                  f"the window schedule's pair {record['window']:.4f} ms; "
                   f"plain {record['plain']:.4f} ms; bound "
                   f"{record['bound']:.4f} ms (by {record['by']}; the full "
                   f"launch {record['full_bound']:.4f}); library conv3d "
@@ -2216,9 +2321,9 @@ def main() -> int:
     from stencil_tpu_torch.ops import slab_kernel, tiled_kernel
     from stencil_tpu_torch.parallel import rma as rma_module
 
-    kernels = (tiled_kernel.tiled_sweep, slab_kernel.slab_sweep,
-               rma_module.rma_iterate)
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    kernels = (tiled_kernel.tiled_sweep, tiled_kernel.tiled_march,
+               slab_kernel.slab_sweep, rma_module.rma_iterate)
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         t0 = time.perf_counter()
         golden = pool.submit(native.available)
         builds = [pool.submit(kernel.build) for kernel in kernels]
@@ -2247,7 +2352,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     j5, j7, j9 = get_spec("jacobi5"), get_spec("jacobi7"), get_spec("jacobi9")
     err = {}
-    err["tiled_sweep"] = max(
+    err["tiled_march"] = max(
         [compare_launch(tiled, make_tiled_plan, j7, s, k, rng, device)
          for s in (MAIN_SIZE, RAGGED_SIZE) for k in (1, 2, 8)]
         + [compare_launch(tiled, make_tiled_plan, get_spec(n), BOX_SIZE, 4,
@@ -2255,7 +2360,7 @@ def main() -> int:
            for n in ("jacobi27", "laplace3d_ho")]
         + [compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng,
                            device)])
-    err["tiled_sweep+source"] = max(
+    err["tiled_march+source"] = max(
         compare_launch(tiled, make_tiled_plan, j7, MAIN_SIZE, 8, rng, device,
                        scale=-0.01),
         compare_launch(tiled, make_tiled_plan, j7, RAGGED_SIZE, 3, rng,
@@ -2281,9 +2386,9 @@ def main() -> int:
     poisson_f = {}
     for shape, kernel, make_plan, mode in (
             (POISSON_2D, slab, make_slab_plan, "slab_sweep+source"),
-            (POISSON_3D, tiled, make_tiled_plan, "tiled_sweep+source"),
+            (POISSON_3D, tiled, make_tiled_plan, "tiled_march+source"),
             (POISSON_BIG_2D, slab, make_slab_plan, "slab_sweep+source"),
-            (POISSON_BIG, tiled, make_tiled_plan, "tiled_sweep+source")):
+            (POISSON_BIG, tiled, make_tiled_plan, "tiled_march+source")):
         prob = PoissonProblem(shape=shape, device=DEVICE)
         f = manufactured_sine(shape)[0] if shape in (POISSON_2D, POISSON_3D) \
             else rng.normal(size=shape) / prob.h ** 2
@@ -2357,7 +2462,7 @@ def main() -> int:
         return compare_pins(kernel, plan, bc, pins_input(plan, bc, rng,
                                                          device), mode, **kw)
 
-    mode = "tiled_sweep+pins"
+    mode = "tiled_march+pins"
     plan8 = make_tiled_plan(j7, MAIN_SIZE, "float32", 8)
     err[mode] = max(
         [pins_case(tiled, plan8, bc, mode) for bc in (per01, neu01, mixed)]
@@ -2375,7 +2480,7 @@ def main() -> int:
     runner_err = {"TiledStencil vs eager, periodic 0, neumann 1": (
         compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
                         bc=mixed))}
-    mode = "tiled_sweep+source+pins"
+    mode = "tiled_march+source+pins"
     pprob = PoissonProblem(shape=POISSON_BIG, bc=mixed, device=DEVICE)
     pplan = make_tiled_plan(pprob.spec, POISSON_BIG, "float32", 8)
     ragged3 = make_tiled_plan(j7, RAGGED_SIZE, "float32", 3)
@@ -2435,7 +2540,7 @@ def main() -> int:
     plan8b = make_tiled_plan(j7, MAIN_SIZE, bf, CFG3[2])
     ragged3b = make_tiled_plan(j7, RAGGED_SIZE, bf, 3)
     s16b = make_slab_plan(j5, CFG1[1], bf, CFG1[2])
-    mode = "tiled_sweep+bf16"
+    mode = "tiled_march+bf16"
     err[mode] = max(
         compare_bf16(tiled, plan8b, mode, rng, device),
         compare_bf16(tiled, ragged3b, mode, rng, device),
@@ -2446,7 +2551,7 @@ def main() -> int:
                      rng, device),
         compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
                         dtype=bf))
-    mode = "tiled_sweep+source+bf16"
+    mode = "tiled_march+source+bf16"
     err[mode] = max(
         compare_poisson(PoissonProblem(shape=POISSON_BIG, dtype=bf,
                                        device=DEVICE),
@@ -2472,7 +2577,7 @@ def main() -> int:
         compare_bf16(tiled, wave_plan(RAGGED_SIZE, 3, bf), mode, rng, device,
                      tiny=True, prev=True),
         compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device, dtype=bf))
-    mode = "tiled_sweep+pins+bf16"
+    mode = "tiled_march+pins+bf16"
     err[mode] = max(
         compare_bf16(tiled, plan8b, mode, rng, device, per01),
         compare_bf16(tiled, plan8b, mode, rng, device, neu01),
@@ -2481,7 +2586,7 @@ def main() -> int:
                      device, per01),
         compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
                         bc=per01, dtype=bf))
-    mode = "tiled_sweep+source+pins+bf16"
+    mode = "tiled_march+source+pins+bf16"
     pplanb = make_tiled_plan(pprob.spec, POISSON_BIG, bf, 8)
     err[mode] = max(
         compare_bf16(tiled, pplanb, mode, rng, device, mixed,
@@ -2528,9 +2633,12 @@ def main() -> int:
     # the sharded paths: the phase-4 CLI's and Poisson runner's (256^3 over
     # (2, 2), in fp32 and bf16), phase 5's (1024^3 over (2, 2)), ragged and
     # radius 2, and the remainder launch's depth
+    from stencil_tpu_torch.parallel.sharded_kernel import (
+        ShardedKernelStencil,
+    )
+
     t_sub = time.perf_counter()
     local = tuple(n // m for n, m in zip(MAIN_SIZE, SHARDED_MESH + (1,)))
-    big = tuple(n // m for n, m in zip(SHARDED_SIZE, SHARDED_MESH + (1,)))
     star2 = get_spec("star3d_r2")
 
     def subset_case(mode, plan, pins=MESH_PINS, bc=None, scale=None, **kw):
@@ -2542,17 +2650,19 @@ def main() -> int:
             bc or walls(3)).to(device)
         return compare_subset(tiled, plan, cur, pins, mode, src, **kw)
 
-    mode = "tiled_sweep+subset"
+    mode = "tiled_march+subset"
     sub8 = make_tiled_plan(j7, local, "float32", 8)
     err[mode] = max(
         subset_case(mode, sub8), subset_case(mode, sub8.with_sweeps(3)),
-        subset_case(mode, make_tiled_plan(j7, big, "float32", 8)),
+        subset_case(mode, ShardedKernelStencil(
+            j7, SHARDED_SIZE, axis_names=("x", "y"),
+            sweeps_per_call=SHARDED_K).local_plan(SHARDED_MESH)),
         subset_case(mode, make_tiled_plan(star2, RAGGED_SIZE, "float32", 2,
                                           tiles=(8, 8, 16)), (0, 0, 0, 0),
                     per01),
         subset_case(mode, make_tiled_plan(get_spec("jacobi27"), local,
                                           "float32", 4)))
-    mode = "tiled_sweep+source+subset"
+    mode = "tiled_march+source+subset"
     psub = make_tiled_plan(pprob.spec, local, "float32", 8, has_source=True)
     err[mode] = max(
         subset_case(mode, psub, (0, 0, 0, 0), mixed,
@@ -2561,14 +2671,14 @@ def main() -> int:
         subset_case(mode, make_tiled_plan(j7, RAGGED_SIZE, "float32", 3,
                                           tiles=(8, 8, 16)), MESH_PINS,
                     scale=-0.01))
-    mode = "tiled_sweep+subset+bf16"
+    mode = "tiled_march+subset+bf16"
     err[mode] = max(
         subset_case(mode, make_tiled_plan(j7, local, bf, 8)),
-        subset_case(mode, make_tiled_plan(j7, local, bf, 3)),
+        subset_case(mode, make_tiled_plan(j7, local, bf, 8).with_sweeps(3)),
         subset_case(mode, make_tiled_plan(star2, RAGGED_SIZE, bf, 2,
                                           tiles=(8, 8, 16)), (0, 0, 0, 0),
                     per01))
-    mode = "tiled_sweep+source+subset+bf16"
+    mode = "tiled_march+source+subset+bf16"
     err[mode] = max(
         subset_case(mode, make_tiled_plan(pprob.spec, local, bf, 8,
                                           has_source=True), (0, 0, 0, 0),
@@ -2592,6 +2702,41 @@ def main() -> int:
     err[mode] = subset_case(
         mode, cplan, coeff=pad_coeff(cplan, rng.random(local) + 0.5,
                                      walls(3)).to(device))
+    # the march (csrc/tiled_march.cu): jacobi7, jacobi27 and star3d_r2 in
+    # fp32 and bf16 at k = 1, 2, 3, 8 on the ragged shape, then with
+    # --periodic 0 1, --neumann 0 1 and the source mode, each launch
+    # bitwise its plain version and the window schedule's launch (whose
+    # errors file under the window's modes); the subset cases above ran on
+    # march plans, and the window's subsets run here
+    t_march = time.perf_counter()
+    j27 = get_spec("jacobi27")
+
+    def fold(found):
+        for m, d in found.items():
+            err[m] = max(err.get(m, 0.0), d)
+
+    for spec in (j7, j27, star2):
+        for dtype in ("float32", bf):
+            for k in (1, 2, 3, 8):
+                fold(compare_march(tiled, spec, RAGGED_SIZE, k, dtype,
+                                   walls(3), False, rng, device))
+    for spec, k in ((j7, 3), (j7, 8), (j27, 2), (star2, 2)):
+        for dtype in ("float32", bf):
+            for bc, source in ((per01, False), (neu01, False),
+                               (walls(3), True), (mixed, True)):
+                fold(compare_march(tiled, spec, RAGGED_SIZE, k, dtype, bc,
+                                   source, rng, device))
+    wsub = functools.partial(make_tiled_plan, schedule="window")
+    for mode, plan, pins, bc, scale in (
+            ("tiled_sweep+subset", wsub(j7, local, "float32", 8), MESH_PINS,
+             None, None),
+            ("tiled_sweep+source+subset", wsub(pprob.spec, local, "float32",
+                                               8, has_source=True),
+             (0, 0, 0, 0), mixed, pprob.source_scale * 100),
+            ("tiled_sweep+subset+bf16", wsub(j7, local, bf, 8), MESH_PINS,
+             None, None)):
+        err[mode] = subset_case(mode, plan, pins, bc, scale)
+    stamp(f"the march cases ({time.perf_counter() - t_march:.1f} s)")
     # B3: every rank's buffers after one launch (and a remainder)
     t_rma = time.perf_counter()
     err.update(compare_rma(rma_module.rma_iterate, rng))
@@ -2608,11 +2753,13 @@ def main() -> int:
     from stencil_tpu_torch import cli
 
     launches = {}
-    rec3d, launches["tiled_sweep"] = run_cli(
+    rec3d, launches["tiled_march"] = run_cli(
         cli, ["-s", *map(str, MAIN_SIZE), "--spec", "jacobi7", "-m",
               "pallas_temporal", "-k", "8", "-i", str(MAIN_ITERS)],
-        tiled, label)
+        tiled, label, "march_launches")
     require(tiled.source_launches == 0, "3D main path ran the source mode")
+    require(rec3d["plan"]["schedule"] == "march",
+            f"3D main path plan {rec3d['plan']}")
     slab_runs = []
     for spec_name, size, k, block, iters in (CFG1, CFG2):
         args = ["-s", *map(str, size), "--spec", spec_name, "-m",
@@ -2628,9 +2775,11 @@ def main() -> int:
     poisson_big = {}
     for mode, kernel, small, big in (
             ("slab_sweep+source", slab, POISSON_2D, POISSON_BIG_2D),
-            ("tiled_sweep+source", tiled, POISSON_3D, POISSON_BIG)):
-        n_solve = poisson_solve(small, kernel, device)
-        poisson_big[mode] = poisson_golden(big, kernel, rng)
+            ("tiled_march+source", tiled, POISSON_3D, POISSON_BIG)):
+        count = ("march_source_launches" if kernel is tiled
+                 else "source_launches")
+        n_solve = poisson_solve(small, kernel, device, count)
+        poisson_big[mode] = poisson_golden(big, kernel, rng, count=count)
         launches[mode] = n_solve + poisson_big[mode][3]
     # the solver paths: PCG (Chebyshev and dual modes), multigrid V(4,4)
     # (source and dual modes), FMG on the tiled fine level
@@ -2639,13 +2788,13 @@ def main() -> int:
                     for name, args, bar in SOLVE_PATHS}
     for name, modes in (("pcg-cheby", ("tiled_sweep+cheby",
                                        "tiled_sweep+dual")),
-                        ("mg-nu4", ("tiled_sweep+source",
+                        ("mg-nu4", ("tiled_march+source",
                                     "tiled_sweep+dual")),
-                        ("fmg", ("tiled_sweep+source", "tiled_sweep+dual"))):
+                        ("fmg", ("tiled_march+source", "tiled_sweep+dual"))):
         for mode in modes:
             require(solve_counts[name][mode] > 0,
                     f"solver path {name} launched no {mode}")
-    for mode in ("tiled_sweep+source", "tiled_sweep+cheby",
+    for mode in ("tiled_march+source", "tiled_sweep+cheby",
                  "tiled_sweep+dual"):
         launches[mode] = launches.get(mode, 0) + sum(
             c[mode] for c in solve_counts.values())
@@ -2658,22 +2807,24 @@ def main() -> int:
     # launch of its mode (no eager or plain fallback)
     main3d = ["-s", *map(str, MAIN_SIZE), "--spec", "jacobi7", "-i",
               str(MAIN_ITERS)]
-    launches["tiled_sweep+pins"] = sum(
-        run_cli(cli, main3d + extra, tiled, label, "pins_launches")[1]
+    launches["tiled_march+pins"] = sum(
+        run_cli(cli, main3d + extra, tiled, label, "march_pins_launches")[1]
         for extra in (["-m", "pallas_temporal", "-k", "8", "--periodic",
                        "0", "1"],
                       ["-m", "pallas", "-k", "1", "--periodic", "all"]))
-    launches["tiled_sweep+pins"] += run_advection(tiled, rng, label)
+    launches["tiled_march+pins"] += run_advection(tiled, rng, label,
+                                                  "march_pins_launches")
     spec_name, size, k, _, iters = CFG1
     rec, launches["slab_sweep+pins"] = run_cli(
         cli, ["-s", *map(str, size), "--spec", spec_name, "-m",
               "pallas_temporal", "-k", str(k), "-i", str(iters), "--periodic",
               "0"], slab, label, "pins_launches")
-    for mode, kernel, shape, bc in (
-            ("tiled_sweep+source+pins", tiled, POISSON_BIG, mixed),
-            ("slab_sweep+source+pins", slab, POISSON_BIG_2D, per0_2d)):
-        poisson_big[mode] = poisson_golden(shape, kernel, rng, bc,
-                                           "source_pins_launches")
+    for mode, kernel, shape, bc, count in (
+            ("tiled_march+source+pins", tiled, POISSON_BIG, mixed,
+             "march_source_pins_launches"),
+            ("slab_sweep+source+pins", slab, POISSON_BIG_2D, per0_2d,
+             "source_pins_launches")):
+        poisson_big[mode] = poisson_golden(shape, kernel, rng, bc, count)
         launches[mode] = poisson_big[mode][3]
     launches["tiled_sweep+two_level+pins"] = run_wave_pins(tiled, rng, label)
     launches["tiled_sweep+coeff+pins"] = run_varcoeff_cli(
@@ -2690,20 +2841,20 @@ def main() -> int:
         bf_runs[name] = run_cli_bf16(
             cli, ["-s", *map(str, size), "--spec", spec_name, "-m",
                   "pallas_temporal", "-k", str(k), "-i", str(iters)],
-            tiled, label)
-    launches["tiled_sweep+bf16"] = sum(n for _, n in bf_runs.values())
+            tiled, label, "march_bf16_launches")
+    launches["tiled_march+bf16"] = sum(n for _, n in bf_runs.values())
     cfg1_bf16 = ["-s", *map(str, CFG1[1]), "--spec", CFG1[0], "-m",
                  "pallas_temporal", "-k", str(CFG1[2]), "-i",
                  str(CFG1_BF16_ITERS)]
     rec, launches["slab_sweep+bf16"] = run_cli_bf16(cli, cfg1_bf16, slab,
                                                     label)
     for mode, kernel, shape, bc, count in (
-            ("tiled_sweep+source+bf16", tiled, POISSON_BIG, None,
-             "source_launches"),
+            ("tiled_march+source+bf16", tiled, POISSON_BIG, None,
+             "march_source_launches"),
             ("slab_sweep+source+bf16", slab, POISSON_BIG_2D, None,
              "source_launches"),
-            ("tiled_sweep+source+pins+bf16", tiled, POISSON_BIG, mixed,
-             "source_pins_launches")):
+            ("tiled_march+source+pins+bf16", tiled, POISSON_BIG, mixed,
+             "march_source_pins_launches")):
         poisson_big[mode] = poisson_golden(shape, kernel, rng, bc, count,
                                            dtype="bfloat16")
         launches[mode] = poisson_big[mode][3]
@@ -2711,10 +2862,11 @@ def main() -> int:
     launches["tiled_sweep+two_level+bf16"] = run_wave_bf16(tiled, rng, label)
     launches["tiled_sweep+two_level+pins+bf16"] = run_wave_bf16(
         tiled, rng, label, mixed)
-    launches["tiled_sweep+pins+bf16"] = run_cli_bf16(
+    launches["tiled_march+pins+bf16"] = run_cli_bf16(
         cli, ["-s", *map(str, CFG3[1]), "--spec", CFG3[0], "-m",
               "pallas_temporal", "-k", str(CFG3[2]), "-i", str(CFG3[3]),
-              "--periodic", "0", "1"], tiled, label, "pins_launches")[1]
+              "--periodic", "0", "1"], tiled, label,
+        "march_pins_launches")[1]
     launches["slab_sweep+pins+bf16"] = run_cli_bf16(
         cli, [*cfg1_bf16, "--periodic", "0"], slab, label,
         "pins_launches")[1]
@@ -2726,18 +2878,18 @@ def main() -> int:
     sharded3d = ["-s", *map(str, MAIN_SIZE), "--spec", "jacobi7", "-m",
                  "sharded_pallas", "--mesh", *map(str, SHARDED_MESH), "-k",
                  "8"]
-    rec, launches["tiled_sweep+subset"] = run_cli(
+    rec, launches["tiled_march+subset"] = run_cli(
         cli, [*sharded3d, "-i", str(MAIN_ITERS)], tiled, label,
-        "subset_launches")
+        "march_subset_launches")
     require(rec["plan"]["split"], f"sharded_pallas did not split: "
             f"{rec['plan']}")
-    launches["tiled_sweep+subset+bf16"] = run_cli_bf16(
+    launches["tiled_march+subset+bf16"] = run_cli_bf16(
         cli, [*sharded3d, "-i", str(CFG3[3])], tiled, label,
-        "subset_launches")[1]
+        "march_subset_launches")[1]
     run_sharded_eager_cli(cli, label)
-    launches["tiled_sweep+source+subset"] = run_sharded_poisson(
+    launches["tiled_march+source+subset"] = run_sharded_poisson(
         tiled, rng, label, "float32")
-    launches["tiled_sweep+source+subset+bf16"] = run_sharded_poisson(
+    launches["tiled_march+source+subset+bf16"] = run_sharded_poisson(
         tiled, rng, label, "bfloat16")
     run_sharded_2d(slab, label)
     # B3: the bench cell through the CLI on (1,) and (2, 2), on dynamic
@@ -2758,9 +2910,28 @@ def main() -> int:
 
     hbm = roofline.measure_hbm_bandwidth(device)
     print(f"measured HBM bandwidth: {hbm:.1f} GB/s [{label}]")
+    # 3D jacobi7 at 256^3 on both schedules at k = 1, 2, 4, 8: the k=1
+    # pair decides which schedule serves k=1 (the ops/tiled.py docstring)
+    glups = {}
+    for k in SCHEDULE_DEPTHS:
+        for schedule in ("march", "window"):
+            st = TiledStencil(j7, MAIN_SIZE, sweeps_per_call=k,
+                              device=DEVICE, schedule=schedule)
+            grid = cli.make_grid(RunConfig(size=MAIN_SIZE, spec="jacobi7",
+                                           device=DEVICE), j7)
+            glups[(k, schedule)] = bench(
+                registry.Runner(name=f"tiled_{schedule}", granularity=k,
+                                iterate=st.iterate), grid,
+                int(np.prod(MAIN_SIZE)), device, hbm, label,
+                f"jacobi7 {MAIN_SIZE} {schedule} k={k} tiles "
+                f"{st.plan.tiles}")
+    faster = max(("march", "window"), key=lambda sc: glups[(1, sc)])
+    served = make_tiled_plan(j7, MAIN_SIZE, "float32", 1).schedule
+    print(f"k=1 at {MAIN_SIZE}: march {glups[(1, 'march')]:.2f} GLUPS, "
+          f"window {glups[(1, 'window')]:.2f}: the {faster} is faster in "
+          f"this run; the plan rule serves k=1 by the {served} [{label}]")
     for spec, size, methods in (
-            (j7, MAIN_SIZE, (("tiled", 8, None), ("tiled", 1, None),
-                             ("eager", 1, None))),
+            (j7, MAIN_SIZE, (("eager", 1, None),)),
             (j5, CFG1[1], (("slab", CFG1[2], CFG1[3]), ("eager", 1, None))),
             (j9, CFG2[1], (("slab", CFG2[2], CFG2[3]), ("eager", 1, None)))):
         for method, k, block in methods:
@@ -2774,10 +2945,16 @@ def main() -> int:
     prob = PoissonProblem(shape=POISSON_BIG, device=DEVICE)
     f = np.random.default_rng(SEED).normal(size=POISSON_BIG) \
         .astype(np.float32)
-    runner = prob.runner(f, method="pallas_tiled", sweeps_per_call=8)
-    bench(runner, prob.initial_grid(), int(np.prod(POISSON_BIG)), device,
-          hbm, label, f"cfg8 Poisson {POISSON_BIG} {runner.name} "
-          f"{runner.plan_info['tiles']}")
+    for schedule in ("march", "window"):
+        runner = prob.runner(f, method="pallas_tiled", sweeps_per_call=8,
+                             schedule=schedule)
+        tiled.reset_counts()
+        bench(runner, prob.initial_grid(), int(np.prod(POISSON_BIG)), device,
+              hbm, label, f"cfg8 Poisson {POISSON_BIG} {runner.name} "
+              f"{schedule} {runner.plan_info['tiles']}")
+        require(schedule == "window" or tiled.march_source_launches
+                == tiled.launches > 0, f"cfg8: {tiled.launches} launches, "
+                f"{tiled.march_source_launches} march source launches")
     # cfg3 and cfg4-bf16 on the tiled kernel's bf16 entries, and the fp32
     # configurations it ran untimed before: cfg4, cfg5 and cfg6 (ragged)
     for name, (spec_name, size, k), dtype in (
@@ -2790,8 +2967,22 @@ def main() -> int:
         spec = get_spec(spec_name)
         grid = cli.make_grid(cfg, spec)
         runner = registry.get_runner("tiled", cfg, spec, grid)
+        tiled.reset_counts()
         bench(runner, grid, int(np.prod(size)), device, hbm, label,
-              f"{name} {spec_name} {size} {dtype} {runner.name}")
+              f"{name} {spec_name} {size} {dtype} {runner.name} "
+              f"{runner.plan_info['schedule']}")
+        require(runner.plan_info["schedule"] == "march"
+                and tiled.march_launches == tiled.launches > 0,
+                f"{name}: {tiled.march_launches} march launches of "
+                f"{tiled.launches}, plan {runner.plan_info}")
+        wst = TiledStencil(spec, size, dtype, sweeps_per_call=k,
+                           device=DEVICE, schedule="window")
+        bench(registry.Runner(name="tiled_window", granularity=k,
+                              iterate=wst.iterate), grid,
+              int(np.prod(size)), device, hbm, label,
+              f"{name} {spec_name} {size} {dtype} window k={k} tiles "
+              f"{wst.plan.tiles}")
+        del wst, grid
 
     stamp("GLUPS of the iterate configurations")
     # the multigrid cells at 255^3, bench.py's seeded random f
@@ -2938,13 +3129,13 @@ def main() -> int:
     # of a main path that phase 3 held it at and phase 4 counted
     launch_inputs = []  # (mode, kernel, plan, padded u, padded source)
     for mode, kernel, make_plan, spec, size, k in (
-            ("tiled_sweep", tiled, make_tiled_plan, j7, MAIN_SIZE, 8),
+            ("tiled_march", tiled, make_tiled_plan, j7, MAIN_SIZE, 8),
             ("slab_sweep", slab, make_slab_plan, j5, CFG1[1], CFG1[2])):
         plan = make_plan(spec, size, "float32", k)
         launch_inputs.append((mode, kernel, plan, plan.layout.pad_grid(
             random_grid(size, spec.radius, rng, device)), None))
     for mode, kernel, make_plan in (
-            ("tiled_sweep+source", tiled, make_tiled_plan),
+            ("tiled_march+source", tiled, make_tiled_plan),
             ("slab_sweep+source", slab, make_slab_plan)):
         runner, prob, f, _ = poisson_big[mode]
         plan = make_plan(prob.spec, prob.shape, "float32",
@@ -2980,11 +3171,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
     ms, plain_ms, library_ms, bound_ms, bound_by = {}, {}, {}, {}, {}
+    window_ms = {}  # the window schedule's time for each march row's launch
     for mode, kernel, plan, cur, src in launch_inputs:
         nxt = cur.clone()
         out2 = cur.clone() if getattr(plan, "cheby_dual", False) else None
         ms[mode] = time_call(lambda: kernel(cur, nxt, plan, src, out2=out2),
                              device, 20)
+        if mode.startswith("tiled_march"):
+            twin = window_twin(plan)
+            window_ms[mode] = time_call(lambda: kernel(cur, nxt, twin, src),
+                                        device, 10)
+            print(f"  the window schedule's launch of {mode} (tiles "
+                  f"{twin.tiles}): {window_ms[mode]:.4f} ms [{label}]")
         plain_ms[mode] = time_call(lambda: sweep_reference(cur, plan, src),
                                    device, 5)
         lib, lib_check = library_sweep(plan, cur, src)
@@ -3151,10 +3349,10 @@ def main() -> int:
     # one launch of each pins mode at the plan of a phase-4 dynamic-wall
     # path, on a refreshed random grid: (mode, kernel, plan, walls, u,
     # source, u_(n-1), a(x))
-    pins_inputs = [("tiled_sweep+pins", tiled, plan8, per01,
+    pins_inputs = [("tiled_march+pins", tiled, plan8, per01,
                     pins_input(plan8, per01, rng, device), None, None, None)]
     for mode, kernel, make_plan in (
-            ("tiled_sweep+source+pins", tiled, make_tiled_plan),
+            ("tiled_march+source+pins", tiled, make_tiled_plan),
             ("slab_sweep+source+pins", slab, make_slab_plan)):
         runner, prob, f, _ = poisson_big[mode]
         plan = make_plan(prob.spec, prob.shape, "float32",
@@ -3184,6 +3382,12 @@ def main() -> int:
         ms[mode] = time_call(lambda: kernel(cur, nxt, plan, src, pins,
                                             out2=out2, prev=prev,
                                             coeff=coeff), device, 10)
+        if mode.startswith("tiled_march"):
+            twin = window_twin(plan)
+            window_ms[mode] = time_call(lambda: kernel(cur, nxt, twin, src,
+                                                       pins), device, 5)
+            print(f"  the window schedule's launch of {mode} (tiles "
+                  f"{twin.tiles}): {window_ms[mode]:.4f} ms [{label}]")
         plain_ms[mode] = time_call(lambda: sweep_reference(
             cur, plan, src, prev, coeff, pins), device, 3)
         # the runner refreshes each input level before every launch
@@ -3232,12 +3436,12 @@ def main() -> int:
                           bf16_input(plan, bc, rng, device) if prev
                           else None))
 
-    bf_case("tiled_sweep+bf16", tiled, plan8b)
-    bf_case("tiled_sweep+pins+bf16", tiled, plan8b, per01)
+    bf_case("tiled_march+bf16", tiled, plan8b)
+    bf_case("tiled_march+pins+bf16", tiled, plan8b, per01)
     for mode, kernel, make_plan in (
-            ("tiled_sweep+source+bf16", tiled, make_tiled_plan),
+            ("tiled_march+source+bf16", tiled, make_tiled_plan),
             ("slab_sweep+source+bf16", slab, make_slab_plan),
-            ("tiled_sweep+source+pins+bf16", tiled, make_tiled_plan)):
+            ("tiled_march+source+pins+bf16", tiled, make_tiled_plan)):
         runner, prob, f, _ = poisson_big[mode]
         plan = make_plan(prob.spec, prob.shape, bf, runner.plan_info["k"])
         require(list(plan.tiles) == runner.plan_info["tiles"],
@@ -3267,6 +3471,12 @@ def main() -> int:
             cur.clone() if dual else None)
         ms[mode] = time_call(lambda: kernel(cur, nxt, plan, src, pins,
                                             out2=out2, prev=prev), device, 20)
+        if mode.startswith("tiled_march"):
+            twin = window_twin(plan)
+            window_ms[mode] = time_call(lambda: kernel(cur, nxt, twin, src,
+                                                       pins), device, 10)
+            print(f"  the window schedule's launch of {mode} (tiles "
+                  f"{twin.tiles}): {window_ms[mode]:.4f} ms [{label}]")
         plain_ms[mode] = time_call(lambda: sweep_reference(
             cur, plan, src, prev, pins=pins), device, 3)
         n_int = int(np.prod(plan.interior_shape))
@@ -3306,14 +3516,14 @@ def main() -> int:
     # each other subset mode at its phase-4 path's local block
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    sub = {"tiled_sweep+subset": time_sharded(tiled, label)}
+    sub = {"tiled_march+subset": time_sharded(tiled, label)}
     stamp("the sharded runs at 1024^3")
     local = tuple(n // m for n, m in zip(MAIN_SIZE, SHARDED_MESH + (1,)))
     pprob_sh = PoissonProblem(shape=POISSON_BIG, bc=mixed, device=DEVICE)
     for mode, dtype, source in (
-            ("tiled_sweep+source+subset", "float32", True),
-            ("tiled_sweep+subset+bf16", bf, False),
-            ("tiled_sweep+source+subset+bf16", bf, True)):
+            ("tiled_march+source+subset", "float32", True),
+            ("tiled_march+subset+bf16", bf, False),
+            ("tiled_march+source+subset+bf16", bf, True)):
         spec = pprob_sh.spec if source else j7
         plan = make_tiled_plan(spec, local, dtype, 8, has_source=source)
         bc = mixed if source else walls(3)
@@ -3324,6 +3534,7 @@ def main() -> int:
                          pprob_sh.source_scale, bc).to(device) \
             if source else None
         rec = subset_times(tiled, plan, cur, pins, src, 10)
+        rec["window"] = window_pair_ms(tiled, plan, cur, pins, src, 5)
         lib, lib_check = library_sweep(plan, cur, src)
         rec["library"] = time_call(lib, device, 10)
         rec["full_bound"] = bound(plan, src, False)[0]
@@ -3333,24 +3544,28 @@ def main() -> int:
               f"{rec['columns'][0]} interior + {rec['columns'][1]} edge "
               f"columns): kernel {rec['interior']:.4f} + "
               f"{rec['edge']:.4f} ms beside {rec['full']:.4f} ms for the "
-              f"full launch; plain {rec['plain']:.4f} ms; bound "
+              f"full launch; the window schedule's pair {rec['window']:.4f} "
+              f"ms; plain {rec['plain']:.4f} ms; bound "
               f"{rec['bound']:.4f} ms (by {rec['by']}; the full launch "
               f"{rec['full_bound']:.4f}); library conv3d "
               f"{rec['library']:.4f} ms per sweep (vs one plain sweep max "
               f"abs diff {lib_check():.3e}) [{label}]")
     for mode, rec in sub.items():
         ms[mode] = rec["interior"] + rec["edge"]
+        window_ms[mode] = rec["window"]
         plain_ms[mode] = rec["plain"]
         bound_ms[mode], bound_by[mode] = rec["bound"], rec["by"]
         library_ms[mode] = rec["library"]
     print(f"PHASE 5 times: ok ({time.perf_counter() - t_start:.1f} s in "
           "all)")
 
-    modules = {"tiled_sweep": tiled_kernel, "slab_sweep": slab_kernel,
-               "rma_iterate": rma_module}
+    modules = {"tiled_sweep": tiled_kernel, "tiled_march": tiled_kernel,
+               "slab_sweep": slab_kernel, "rma_iterate": rma_module}
+    sources = {"tiled_march": tiled_kernel.MARCH_SOURCE}
     print(json.dumps({"kernels": [{
         "name": mode, "route": "cuda",
-        "source": str(modules[mode.split("+")[0]].SOURCE.relative_to(ROOT)),
+        "source": str(sources.get(mode.split("+")[0], modules[
+            mode.split("+")[0]].SOURCE).relative_to(ROOT)),
         "replaces": getattr(modules[mode.split("+")[0]], "REPLACES_MODE",
                             {}).get(mode,
                                     modules[mode.split("+")[0]].REPLACES),
@@ -3358,6 +3573,7 @@ def main() -> int:
         "ms": ms[mode], "plain_ms": plain_ms[mode],
         "bound_ms": bound_ms[mode], "bound_by": bound_by[mode],
         "library_ms": library_ms[mode],
+        **({"window_ms": window_ms[mode]} if mode in window_ms else {}),
     } for mode in KERNEL_MODES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,531 @@
+// k temporally blocked sweeps of a linear stencil over a deep-halo 3D
+// fp32 or bf16 grid, in one launch, marching d0 through one ring of planes
+// per sweep. Hand-written for Hopper (sm_90a).
+//
+// Replaces stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep (the Pallas
+// TPU kernel, :704, pallas_call at :1821) in its homogeneous and source
+// (has_source, :1326) modes, with its pins (:1270-1305) and its tile
+// subsets (:746-758), in fp32 and bf16. The TPU kernel's Chebyshev, dual,
+// two-level and coefficient modes run on the window schedule of
+// tiled_sweep.cu. Wrapper, plan and plain PyTorch version:
+// stencil_tpu_torch/ops/tiled_kernel.py, ops/tiled.py (schedule "march"),
+// ops/sweep_kernel.py:sweep_reference.
+//
+// What it computes: exactly what tiled_sweep.cu computes in those modes
+// (see its header), bitwise: `in` and `out` are padded (n0+2H, n1+2H,
+// n2+2H) T arrays with H >= k*r; `out` receives k sweeps of the stencil
+// applied to `in` on its interior points only, each update the taps in
+// StencilSpec.weight_groups order (stencil_taps.cuh, -fmad=false) and, in
+// the source mode, + the padded source at the point. A point inside the
+// grid gets the full update; a pinned ghost copies its constant; a live
+// face (pins 0, d0 and d1 only) is updated like the interior; d2 is always
+// pinned; the ghosts of `out` are never written.
+//
+// What bounds it on this card. By the roofline rule (each input read once,
+// each output written once) k sweeps in one launch are bound by bytes, at
+// 256^3 k=8 fp32 by ~0.044 ms. The window schedule (tiled_sweep.cu) loses
+// to its instruction count instead: its 3D windows shrink by r per sweep in
+// every dim, so an (8,16,16) tile at k=8 updates ~4.5 points per useful
+// update, two fp32 windows of 24x32x32 leave one block of 512 threads per
+// SM, and the load of a window does not overlap its sweeps. This kernel
+// keeps the instruction and shared-memory traffic per useful update down:
+//
+//   - Blocks. Each block owns one (d1, d2) tile of t1 x t2 points and one
+//     chunk of t0 planes of d0 (the plan's tiles; the last tile of a
+//     ragged dim and the last chunk start early, clamped at n - t, as in
+//     tiled_sweep.cu), and walks the padded planes of d0 from chunk start
+//     - k*r to chunk end + k*r.
+//   - Rings. Sweep level s (0 = the input, 1 .. k-1 the intermediate
+//     sweeps) keeps a ring of S = 2r+2 planes in shared memory, each as
+//     wide as the level's region, (t1 + 2(k-s)r) x (t2 + 2(k-s)r). Level
+//     s computes a plane of its region once the 2r+1 planes of level s-1
+//     that it reads are complete; level k stores straight to `out`. The
+//     regions shrink in d1 and d2 only: a chunk of t0 planes recomputes
+//     2(k-s)r planes per level, not a shrinking window's overlap in all
+//     three dims (32x32 tiles at k=8: ~1.5 points per useful update in d1
+//     and d2, ~1.1 more from a 64-plane chunk).
+//   - Order. Level s runs L_s = s(r+1) - 1 steps behind the input (the
+//     input plane m arrives in step m-1), one plane more than its radius
+//     needs, so a step reads only planes completed in earlier steps: one
+//     __syncthreads per step for all levels together, each ring 2r+2
+//     planes. (The other order, 2r+1 planes and one barrier per level, is
+//     not built: it would cost k barriers per step.) Plane m of level s
+//     lives in slot (m + L_{s+1}) mod S, so at step j every level reads
+//     slots j-r .. j+r and writes slot j+r+1 (mod S): one table of slot
+//     offsets per step serves every level. The slots of one index hold
+//     every level's plane, one after the other.
+//   - Loads. The input planes come in one plane ahead of their use: in
+//     fp32 with cp.async (4-byte copies, any alignment), committed each
+//     step and waited for just before the step's barrier, so the copy of
+//     plane j+1 overlaps the compute of step j; cp.async copies no fewer
+//     than 4 bytes, so in bf16 each thread loads its share of the plane
+//     into registers at the step's start and stores it to shared memory
+//     at its end. TMA may replace both later.
+//   - Work. Every level's plane is flattened over the block's 512 threads
+//     (carried row/column, no division per point), so narrow planes keep
+//     every lane busy. Taps read shared memory at an offset that is the
+//     step's slot delta plus d1 times the level's row width, formed once
+//     per level and step.
+//
+// Shared memory: S * sum_{s=0}^{k-1} (t1 + 2(k-s)r)(t2 + 2(k-s)r) * sizeof(T)
+// <= 232,448 bytes (the plan chooser, ops/tiled.py:march_smem_bytes, keeps
+// within it; jacobi7 fp32 k=8 with 32x32 tiles: 217,856 bytes).
+//
+// Tile subsets: as in tiled_sweep.cu, a launch may sweep only a list of
+// (d0 chunk, d1 tile) columns, each with every d2 tile, id i0 * nt1 + i1,
+// passed as a device int32 array `cols`; the points outside the list keep
+// what `out` held.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+
+#include "stencil_taps.cuh"
+
+namespace {
+
+using stencil::add;
+using stencil::apply_fixed;
+using stencil::close_group;
+using stencil::mul;
+using stencil::Num;
+using stencil::Taps;
+
+constexpr int kThreads = 512;
+constexpr int kGeomLen = 19;
+constexpr int kMaxLevels = 16;  // sweeps per launch
+constexpr int kStage = 16;      // bf16: input plane <= kStage * kThreads
+constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
+constexpr int kErrArgument = -1;
+constexpr int kErrShared = -2;
+constexpr int kErrPlane = -3;
+
+struct Geometry {
+  int n0, n1, n2;  // interior extents
+  int p1, p2;      // padded extents of d1 and d2 (row strides)
+  int halo;        // pad depth H
+  int t0, t1, t2;  // d0 chunk, d1 and d2 tile
+  int nt1, nt2;    // tiles along d1 and d2
+  int k, r;        // sweeps per launch, stencil radius
+  int slots;       // ring depth S = 2r+2
+  int planes;      // input planes a block walks, t0 + 2kr
+  int q;           // elements of one slot index, every level's plane
+  int pins[4];     // d0 lo, d0 hi, d1 lo, d1 hi: 1 pinned, 0 live
+  // per level s = 0..k: the plane's rows (d1) and columns (d2), 1/columns
+  // (fp32, for the thread's start), and the (rows, columns) step of
+  // kThreads points in the flattened plane; for s < k, the ring's offset
+  // in a slot
+  int rows[kMaxLevels + 1], cols[kMaxLevels + 1];
+  float inv_cols[kMaxLevels + 1];
+  int srow[kMaxLevels + 1], scol[kMaxLevels + 1];
+  int ring[kMaxLevels];
+};
+
+// The d0 and d2 offsets of each tap (the d1 offset rides in Taps::off).
+struct TapPlanes {
+  signed char d0[stencil::kMaxTaps], d2[stencil::kMaxTaps];
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Offset, in elements, from slot c to the slot of d0 offset d (mod S).
+__device__ __forceinline__ int slot_delta(int c, int d, int S, int Q) {
+  int x = c + d;
+  x += x < 0 ? S : 0;
+  x -= x >= S ? S : 0;
+  return (x - c) * Q;
+}
+
+// Any tap count: apply_taps' order (stencil_taps.cuh), each offset formed
+// from the tap's (d0, d1, d2) at the point.
+template <typename T>
+__device__ __forceinline__ float taps_any(const T* __restrict__ s, int p,
+                                          const Taps& taps,
+                                          const TapPlanes& tp, int c, int S,
+                                          int Q, int wp) {
+  float acc = 0.0f;
+  int t = 0;
+  for (int g = 0; g < taps.ngroups; ++g) {
+    const int end = taps.group_end[g];
+    float gacc = Num<T>::load(
+        s[p + slot_delta(c, tp.d0[t], S, Q) + taps.off[t] * wp + tp.d2[t]]);
+    for (++t; t < end; ++t)
+      gacc = add<T>(gacc, Num<T>::load(s[p + slot_delta(c, tp.d0[t], S, Q) +
+                                         taps.off[t] * wp + tp.d2[t]]));
+    acc = close_group<T>(acc, gacc, g, taps);
+  }
+  return taps.uniform ? mul<T>(acc, taps.uniform_weight) : acc;
+}
+
+// The taps at point p of level s-1's ring `src`: NT > 0 with this level's
+// and step's offsets `off`, NT == 0 through the table.
+template <int NT, typename T>
+__device__ __forceinline__ float tap_sum(const T* __restrict__ src, int p,
+                                         const int (&off)[NT > 0 ? NT : 1],
+                                         const Taps& taps,
+                                         const TapPlanes& tp, int c, int S,
+                                         int Q, int wp) {
+  if constexpr (NT > 0) {
+    return apply_fixed<NT, T>(src, p, off, taps);
+  } else {
+    return taps_any<T>(src, p, taps, tp, c, S, Q, wp);
+  }
+}
+
+// NT > 0: a spec of exactly NT taps, offsets in registers; NT == 0: any
+// spec. SOURCE: add the padded source after the taps. T: float or bf16.
+template <int NT, bool SOURCE, typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
+                   const T* __restrict__ source,
+                   const int32_t* __restrict__ cols,
+                   const __grid_constant__ Geometry g,
+                   const __grid_constant__ Taps taps,
+                   const __grid_constant__ TapPlanes tp) {
+  using N = Num<T>;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* const ring = reinterpret_cast<T*>(smem_bytes);
+  const int tid = threadIdx.x;
+
+  // this block's column (i0, i1) and d2 tile, as tiled_sweep.cu
+  const int i2 = blockIdx.x % g.nt2;
+  int col = blockIdx.x / g.nt2;
+  if (cols != nullptr) col = cols[col];
+  const int i1 = col % g.nt1;
+  const int i0 = col / g.nt1;
+  const int kr = g.k * g.r;
+  // padded origin of the input region: clamped start - k*r + H
+  const int a0 = min(i0 * g.t0, g.n0 - g.t0) + g.halo - kr;
+  const int o1 = min(i1 * g.t1, g.n1 - g.t1) + g.halo - kr;
+  const int o2 = min(i2 * g.t2, g.n2 - g.t2) + g.halo - kr;
+  const int64_t pstride = (int64_t)g.p1 * g.p2;
+  const int S = g.slots, Q = g.q, r = g.r;
+
+  // the input plane: this thread's first point (ly, lx) of the flattened
+  // rows[0] x cols[0] region
+  const int w0 = g.cols[0], a0n = g.rows[0] * w0;
+  const int ly = tid / w0, lx = tid % w0;
+  const T* const in0 = in + (int64_t)a0 * pstride + (int64_t)o1 * g.p2 + o2;
+  T stage[sizeof(T) == 4 ? 1 : kStage];  // bf16: the next plane's share
+
+  // fetch input plane m (into slot w): fp32 by cp.async, bf16 into stage
+  auto fetch = [&](int m, int w) {
+    const T* src = in0 + (int64_t)m * pstride;
+    int y = ly, x = lx;
+    if constexpr (sizeof(T) == 4) {
+      T* dst = ring + w * Q;
+      for (int i = tid; i < a0n; i += kThreads) {
+        cp_async4(dst + i, src + y * g.p2 + x);
+        x += g.scol[0];
+        y += g.srow[0];
+        if (x >= w0) { x -= w0; ++y; }
+      }
+      cp_async_commit();
+    } else {
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        if (tid + u * kThreads < a0n) stage[u] = __ldg(src + y * g.p2 + x);
+        x += g.scol[0];
+        y += g.srow[0];
+        if (x >= w0) { x -= w0; ++y; }
+      }
+    }
+  };
+  // bf16: store the fetched share into slot w
+  auto place = [&](int w) {
+    if constexpr (sizeof(T) != 4) {
+      T* dst = ring + w * Q;
+#pragma unroll
+      for (int u = 0; u < kStage; ++u)
+        if (tid + u * kThreads < a0n) dst[tid + u * kThreads] = stage[u];
+    }
+  };
+
+  // the planes a sweep updates, padded: the grid's interior, widened to
+  // the region's edge at a live face
+  const int lo0 = g.pins[0] ? g.halo : INT_MIN;
+  const int hi0 = g.pins[1] ? g.halo + g.n0 : INT_MAX;
+
+  // prologue: input plane 0 into its slot, r (step -1 writes slot r)
+  fetch(0, r);
+  place(r);
+  if constexpr (sizeof(T) == 4) cp_async_wait_all();
+  __syncthreads();
+
+  const int last = g.t0 + kr - 1 + g.k * (r + 1) - 1;  // level k's last step
+  int c = 0;  // j mod S: the slot of each level's centre plane
+  for (int j = 0; j <= last; ++j) {
+    const int w = c + r + 1 >= S ? c + r + 1 - S : c + r + 1;
+    if (j + 1 < g.planes) fetch(j + 1, w);
+    // this step's slot offset of each tap, + its d2 offset
+    int sdd[NT > 0 ? NT : 1];
+    if constexpr (NT > 0) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        sdd[t] = slot_delta(c, tp.d0[t], S, Q) + tp.d2[t];
+    }
+    for (int s = 1; s <= g.k; ++s) {
+      const int m = j - (s * (r + 1) - 1);  // level s's plane this step
+      if (m < s * r || m >= g.planes - s * r) continue;
+      const int wp = g.cols[s - 1], ws = g.cols[s];
+      const int n = g.rows[s] * ws;
+      // level s-1's centre plane, shifted to level s's origin
+      const T* const src = ring + c * Q + g.ring[s - 1] + r * wp + r;
+      int off[NT > 0 ? NT : 1];
+      if constexpr (NT > 0) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) off[t] = sdd[t] + taps.off[t] * wp;
+      }
+      // padded origin of level s's plane; the global index of its (y, x)
+      const int p0 = a0 + m, r1 = o1 + s * r, r2 = o2 + s * r;
+      const int64_t gbase = (int64_t)p0 * pstride + (int64_t)r1 * g.p2 + r2;
+      int y = __float2int_rz(__fmul_rn((float)tid + 0.5f, g.inv_cols[s]));
+      int x = tid - y * ws;
+      const int sy = g.srow[s], sx = g.scol[s];
+      if (s < g.k) {
+        const bool live0 = p0 >= lo0 && p0 < hi0;
+        const int ylo = g.pins[2] ? g.halo - r1 : INT_MIN;
+        const int yhi = g.pins[3] ? g.halo + g.n1 - r1 : INT_MAX;
+        const int xlo = g.halo - r2, xhi = xlo + g.n2;
+        T* const dst = ring + w * Q + g.ring[s];
+        for (int i = tid; i < n; i += kThreads) {
+          const int p = y * wp + x;
+          float v;
+          if (live0 && y >= ylo && y < yhi && x >= xlo && x < xhi) {
+            v = tap_sum<NT, T>(src, p, off, taps, tp, c, S, Q, wp);
+            if constexpr (SOURCE)
+              v = add<T>(v, N::ldg(source + gbase + y * g.p2 + x));
+          } else {
+            v = N::load(src[p]);
+          }
+          dst[i] = N::store(v);
+          x += sx;
+          y += sy;
+          if (x >= ws) { x -= ws; ++y; }
+        }
+      } else {
+        // level k: the tile, every point interior, straight to `out`
+        for (int i = tid; i < n; i += kThreads) {
+          float v = tap_sum<NT, T>(src, y * wp + x, off, taps, tp, c, S, Q,
+                                   wp);
+          const int64_t q = gbase + y * g.p2 + x;
+          if constexpr (SOURCE) v = add<T>(v, N::ldg(source + q));
+          out[q] = N::store(v);
+          x += sx;
+          y += sy;
+          if (x >= ws) { x -= ws; ++y; }
+        }
+      }
+    }
+    if (j + 1 < g.planes) {
+      place(w);
+      if constexpr (sizeof(T) == 4) cp_async_wait_all();
+    }
+    __syncthreads();
+    c = c + 1 == S ? 0 : c + 1;
+  }
+}
+
+template <typename T>
+struct Launch {
+  const T* in;
+  T* out;
+  const T* source;
+  const int32_t* cols;  // the subset's column ids (device), or null
+  Geometry g;
+  unsigned nblocks;
+  size_t shared;
+  cudaStream_t stream;
+};
+
+template <int NT, bool SOURCE, typename T>
+cudaError_t launch(const Launch<T>& l, const Taps& taps,
+                   const TapPlanes& tp) {
+  cudaError_t err = cudaFuncSetAttribute(
+      tiled_march_kernel<NT, SOURCE, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.shared);
+  if (err != cudaSuccess) return err;
+  tiled_march_kernel<NT, SOURCE, T><<<l.nblocks, kThreads, l.shared,
+                                      l.stream>>>(l.in, l.out, l.source,
+                                                  l.cols, l.g, taps, tp);
+  return cudaGetLastError();
+}
+
+template <bool SOURCE, typename T>
+cudaError_t dispatch(int ntaps, const Launch<T>& l, const Taps& taps,
+                     const TapPlanes& tp) {
+  switch (ntaps) {
+    case 6:   // jacobi7, star3d_r1 (Poisson)
+      return launch<6, SOURCE>(l, taps, tp);
+    case 12:  // star3d_r2, laplace3d_ho
+      return launch<12, SOURCE>(l, taps, tp);
+    case 26:  // jacobi27
+      return launch<26, SOURCE>(l, taps, tp);
+    default:
+      return launch<0, SOURCE>(l, taps, tp);
+  }
+}
+
+// Checks the geometry, the subset's length and the tap table and fills `l`
+// (but its tensor pointers and stream), `taps` and `tp`; 0 or a negative
+// error code.
+template <typename T>
+int prepare(const int32_t* geom, int ngeom, const int32_t* cols, int ncols,
+            const int32_t* tap_offsets, const int32_t* group_sizes,
+            const float* group_weights, int ntaps, int ngroups, int uniform,
+            float uniform_weight, Launch<T>& l, Taps& taps, TapPlanes& tp) {
+  if (ngeom != kGeomLen) return kErrArgument;
+  const int n0 = geom[0], n1 = geom[1], n2 = geom[2];
+  const int p0 = geom[3], p1 = geom[4], p2 = geom[5], halo = geom[6];
+  const int t0 = geom[7], t1 = geom[8], t2 = geom[9];
+  const int nt0 = geom[10], nt1 = geom[11], nt2 = geom[12];
+  const int k = geom[13], r = geom[14];
+  if (k < 1 || k > kMaxLevels || r < 1 || r > 32 ||
+      (int64_t)k * r > halo)
+    return kErrArgument;
+  Geometry& g = l.g;
+  for (int i = 0; i < 4; ++i) {
+    if (geom[15 + i] != 0 && geom[15 + i] != 1) return kErrArgument;
+    g.pins[i] = geom[15 + i];
+  }
+  if (p0 != n0 + 2 * halo || p1 != n1 + 2 * halo || p2 != n2 + 2 * halo)
+    return kErrArgument;
+  if (t0 < 1 || t0 > n0 || t1 < 1 || t1 > n1 || t2 < 1 || t2 > n2)
+    return kErrArgument;
+  if (nt0 != (n0 + t0 - 1) / t0 || nt1 != (n1 + t1 - 1) / t1 ||
+      nt2 != (n2 + t2 - 1) / t2)
+    return kErrArgument;
+  if ((cols == nullptr) != (ncols == 0) || ncols < 0 ||
+      (int64_t)ncols > (int64_t)nt0 * nt1)
+    return kErrArgument;
+  const int64_t nblocks = (int64_t)(cols ? ncols : nt0 * nt1) * nt2;
+  if (nblocks > 0x7fffffff) return kErrArgument;
+  l.cols = cols;
+
+  g.n0 = n0; g.n1 = n1; g.n2 = n2;
+  g.p1 = p1; g.p2 = p2; g.halo = halo;
+  g.t0 = t0; g.t1 = t1; g.t2 = t2;
+  g.nt1 = nt1; g.nt2 = nt2;
+  g.k = k; g.r = r;
+  g.slots = 2 * r + 2;
+  g.planes = t0 + 2 * k * r;
+  int64_t q = 0;
+  for (int s = 0; s <= k; ++s) {
+    const int rows = t1 + 2 * (k - s) * r, cols_s = t2 + 2 * (k - s) * r;
+    g.rows[s] = rows;
+    g.cols[s] = cols_s;
+    g.inv_cols[s] = 1.0f / (float)cols_s;
+    g.srow[s] = kThreads / cols_s;
+    g.scol[s] = kThreads % cols_s;
+    if (s < k) {
+      g.ring[s] = (int)q;
+      q += (int64_t)rows * cols_s;
+    }
+  }
+  l.shared = (size_t)g.slots * q * sizeof(T);
+  if (l.shared > kMaxSharedBytes) return kErrShared;
+  g.q = (int)q;
+  if (sizeof(T) != 4 && g.rows[0] * g.cols[0] > kStage * kThreads)
+    return kErrPlane;
+  l.nblocks = (unsigned)nblocks;
+
+  if (!stencil::fill_groups(taps, group_sizes, group_weights, ntaps,
+                            ngroups, uniform, uniform_weight))
+    return kErrArgument;
+  for (int i = 0; i < ntaps; ++i) {
+    const int d0 = tap_offsets[3 * i], d1 = tap_offsets[3 * i + 1],
+              d2 = tap_offsets[3 * i + 2];
+    if (d0 < -r || d0 > r || d1 < -r || d1 > r || d2 < -r || d2 > r)
+      return kErrArgument;
+    tp.d0[i] = (signed char)d0;
+    taps.off[i] = d1;
+    tp.d2[i] = (signed char)d2;
+  }
+  return 0;
+}
+
+template <typename T>
+int march_entry(const T* in, T* out, const T* source, const int32_t* geom,
+                int ngeom, const int32_t* cols, int ncols,
+                const int32_t* tap_offsets, const int32_t* group_sizes,
+                const float* group_weights, int ntaps, int ngroups,
+                int uniform, float uniform_weight, int device, void* stream) {
+  Launch<T> l;
+  Taps taps;
+  TapPlanes tp;
+  const int rc = prepare(geom, ngeom, cols, ncols, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps, tp);
+  if (rc != 0) return rc;
+  l.in = in; l.out = out; l.source = source;
+  l.stream = (cudaStream_t)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return source ? (int)dispatch<true>(ntaps, l, taps, tp)
+                : (int)dispatch<false>(ntaps, l, taps, tp);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch k sweeps on `stream` (a cudaStream_t, 0 = the legacy default
+// stream) of device `device`, marching d0. The arguments are those of
+// stencil_tiled_sweep (tiled_sweep.cu): `source` null or the padded
+// pre-scaled source; `geom` int32[19] = n0 n1 n2 p0 p1 p2 halo t0 t1 t2 nt0
+// nt1 nt2 k r and the pins of the d0 lo, d0 hi, d1 lo and d1 hi faces, t0
+// being the d0 chunk; `cols` null or a device int32[ncols] of column ids;
+// the tap table in group order (host). k <= 16. Returns 0, a CUDA error
+// code (cudaGetLastError after the launch), or a negative code for a
+// rejected argument (see stencil_tiled_march_error).
+int stencil_tiled_march(const float* in, float* out, const float* source,
+                        const int32_t* geom, int ngeom, const int32_t* cols,
+                        int ncols, const int32_t* tap_offsets,
+                        const int32_t* group_sizes,
+                        const float* group_weights, int ntaps, int ngroups,
+                        int uniform, float uniform_weight, int device,
+                        void* stream) {
+  return march_entry(in, out, source, geom, ngeom, cols, ncols, tap_offsets,
+                     group_sizes, group_weights, ntaps, ngroups, uniform,
+                     uniform_weight, device, stream);
+}
+
+// The same in bf16: `in`, `out` and `source` hold __nv_bfloat16; the
+// weights stay fp32, each a bf16 value.
+int stencil_tiled_march_bf16(const __nv_bfloat16* in, __nv_bfloat16* out,
+                             const __nv_bfloat16* source,
+                             const int32_t* geom, int ngeom,
+                             const int32_t* cols, int ncols,
+                             const int32_t* tap_offsets,
+                             const int32_t* group_sizes,
+                             const float* group_weights, int ntaps,
+                             int ngroups, int uniform, float uniform_weight,
+                             int device, void* stream) {
+  return march_entry(in, out, source, geom, ngeom, cols, ncols, tap_offsets,
+                     group_sizes, group_weights, ntaps, ngroups, uniform,
+                     uniform_weight, device, stream);
+}
+
+const char* stencil_tiled_march_error(int code) {
+  if (code == kErrArgument) return "rejected geometry or tap table";
+  if (code == kErrShared)
+    return "rings exceed 232448 bytes of shared memory";
+  if (code == kErrPlane)
+    return "a bf16 input plane exceeds 8192 points";
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -150,8 +150,12 @@
 // coefficient mode 7 global loads, 6 divides and 44 more operations per
 // update, which make it bound by operations even by the roofline rule.
 // Loads are plain, not TMA or cp.async, and do not overlap compute within
-// a block: that, and streaming d0 through registers so that d0 is not
-// recomputed, is later work.
+// a block. The homogeneous and source modes (with pins, bf16 and tile
+// subsets) run instead on the d0 march of tiled_march.cu wherever its
+// rings fit (ops/tiled.py, schedule "march"): one ring of planes per sweep
+// level, so d0 is not recomputed and the input loads overlap the sweeps.
+// The Chebyshev, dual, two-level and coefficient modes stay on this
+// window schedule.
 
 #include <cuda_runtime.h>
 

@@ -30,7 +30,7 @@ import torch
 
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid, torch_dtype
 from stencil_tpu_torch.core.spec import StencilSpec, star, weighted
-from stencil_tpu_torch.registry import Runner
+from stencil_tpu_torch.registry import Runner, schedule_info
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,7 +193,8 @@ class PoissonProblem:
                     sweeps_per_call=sweeps_per_call, device=self.device,
                     source=f, source_scale=self.source_scale, **plan_kw)
         info = {"kernel": kernel, "k": sweeps_per_call,
-                "tiles": list(m.plan.tiles), "has_source": True}
+                "tiles": list(m.plan.tiles), **schedule_info(m.plan),
+                "smem_bytes": m.plan.smem_bytes, "has_source": True}
         if ignored:
             info["ignored"] = ignored
         return Runner(
@@ -237,7 +238,8 @@ class PoissonProblem:
                         "exchange)",
             plan_info={"kernel": "tiled", "k": sweeps_per_call,
                        "mesh": list(m.mesh_shape(mesh)),
-                       "tiles": list(plan.tiles), "has_source": True},
+                       "tiles": list(plan.tiles), **schedule_info(plan),
+                       "smem_bytes": plan.smem_bytes, "has_source": True},
         )
 
     def solve(self, f, tolerance: float = 1e-6,

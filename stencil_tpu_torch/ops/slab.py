@@ -41,10 +41,10 @@ from stencil_tpu_torch.ops.layout import PaddedLayout
 from stencil_tpu_torch.ops.slab_kernel import slab_sweep
 from stencil_tpu_torch.ops.sweep_kernel import KernelStencil
 from stencil_tpu_torch.ops.tiled import (
-    DTYPES, MAX_BLOCKS_PER_SM, SM_SHARED, SMEM_LIMIT, TiledPlan, _smem_bytes,
+    DTYPES, MAX_BLOCKS_PER_SM, SM_COUNT, SM_SHARED, SMEM_LIMIT, TiledPlan,
+    _smem_bytes,
 )
 
-SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
 _T0_CANDIDATES = (8, 16, 32, 64, 128, 256)
 # the chooser's cost model in warp slots: a block's fixed cost, a window
 # row segment's load, a swept row's cost beyond its tap loads; fitted to a

@@ -49,6 +49,13 @@ computes them in torch. The tap weights and the mode's coefficients travel
 as float32 either way, each rounded once to the plan dtype on the host
 (:func:`~stencil_tpu_torch.ops.eager.round_to`).
 
+The 3D kernel has a second schedule, the d0 march (``csrc/tiled_march.cu``,
+``plan.schedule == "march"``): the homogeneous and source modes, in both
+types, with pins and tile subsets, through entries ``stencil_tiled_march``
+and ``stencil_tiled_march_bf16`` of the arguments of
+``stencil_tiled_sweep``. The 3D wrapper launches it for a march plan and
+the window kernel for a window plan.
+
 A wrapper takes the plain version only for tensors on the CPU (the tests);
 for CUDA tensors it launches the kernel or raises. :class:`KernelStencil`
 is the iterate both user-facing handles (``TiledStencil``,
@@ -369,23 +376,37 @@ class SweepKernel:
     and ``coeff_pins_launches``; launches of a bfloat16 plan again in
     ``bf16_launches``; launches over a tile subset again in
     ``subset_launches``, those of the source mode also in
-    ``source_subset_launches``.
+    ``source_subset_launches``. The launches of a march plan count in all
+    of those and again in ``march_launches`` and, by mode,
+    ``march_source_launches``, ``march_pins_launches`` (homogeneous, a
+    live face), ``march_source_pins_launches``, ``march_bf16_launches``,
+    ``march_subset_launches`` and ``march_source_subset_launches``.
 
     ``name`` names the library and its C entry ``stencil_<name>``;
     ``source`` is the ``.cu`` file; ``replaces`` is where the TPU kernel
-    it replaces is defined."""
+    it replaces is defined; ``schedule`` the plans' schedule its library
+    runs; ``march``, the handle of the march library, which a plan of that
+    schedule launches."""
 
     MODE_COUNTS = ("source_launches", "cheby_launches", "dual_launches",
                    "two_level_launches", "coeff_launches", "pins_launches",
                    "source_pins_launches", "two_level_pins_launches",
                    "coeff_pins_launches", "bf16_launches",
-                   "subset_launches", "source_subset_launches")
+                   "subset_launches", "source_subset_launches",
+                   "march_launches", "march_source_launches",
+                   "march_pins_launches", "march_source_pins_launches",
+                   "march_bf16_launches", "march_subset_launches",
+                   "march_source_subset_launches")
 
-    def __init__(self, name: str, source: Path, replaces: str, ndim: int):
+    def __init__(self, name: str, source: Path, replaces: str, ndim: int,
+                 schedule: str = "window",
+                 march: Optional["SweepKernel"] = None):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.ndim = ndim
+        self.schedule = schedule
+        self.march = march
         # kernel launches since the last reset (plain-version calls do not
         # count)
         self.reset_counts()
@@ -455,6 +476,18 @@ class SweepKernel:
         ``stencil_<name>``."""
         return self._entry["plain"]
 
+    def entries(self, plan):
+        """The C entries that run ``plan``'s schedule: this library's, or
+        the march library's for a march plan; ``ValueError`` if neither
+        runs it."""
+        schedule = getattr(plan, "schedule", "window")
+        if schedule == self.schedule:
+            return self._entry
+        if schedule == "march" and self.march is not None:
+            return self.march._entry
+        raise ValueError(f"{self.name} does not run the {schedule} "
+                         "schedule")
+
     def check(self, cur: torch.Tensor, nxt: torch.Tensor, plan,
               src: Optional[torch.Tensor], pins: Tuple[int, ...],
               out2: Optional[torch.Tensor] = None,
@@ -523,6 +556,42 @@ class SweepKernel:
                              "distinct tensors")
         return subset
 
+    def count_launch(self, plan, src, pins: Tuple[int, ...], out2=None,
+                     subset=None) -> None:
+        """Add one launch of ``plan`` to the counts (the wrapper calls it
+        after each kernel launch, and only there)."""
+        self.launches += 1
+        bf16 = plan.dtype == "bfloat16"
+        self.bf16_launches += bf16
+        self.subset_launches += subset is not None
+        live = not all(pins)
+        if getattr(plan, "two_level", False):
+            self.two_level_launches += 1
+            self.two_level_pins_launches += live
+        elif getattr(plan, "has_coeff", False):
+            self.coeff_launches += 1
+            self.coeff_pins_launches += live
+        elif out2 is not None:
+            self.dual_launches += 1
+        elif getattr(plan, "cheby_coeffs", ()):
+            self.cheby_launches += 1
+        elif src is not None:
+            self.source_launches += 1
+            self.source_pins_launches += live
+            self.source_subset_launches += subset is not None
+        else:
+            self.pins_launches += live
+        if getattr(plan, "schedule", "window") == "march":
+            self.march_launches += 1
+            self.march_bf16_launches += bf16
+            self.march_subset_launches += subset is not None
+            if src is not None:
+                self.march_source_launches += 1
+                self.march_source_pins_launches += live
+                self.march_source_subset_launches += subset is not None
+            else:
+                self.march_pins_launches += live
+
     def __call__(self, cur: torch.Tensor, nxt: torch.Tensor, plan,
                  src: Optional[torch.Tensor] = None, pins=None,
                  out2: Optional[torch.Tensor] = None,
@@ -570,7 +639,8 @@ class SweepKernel:
         if cur.device.type != "cuda":
             raise ValueError(f"{self.name} runs on cuda (or cpu for the "
                              f"plain version), not {cur.device}")
-        entries = self._entry
+        entries = self.entries(plan)
+        march = getattr(plan, "schedule", "window") == "march"
         geom, offsets, sizes, weights, uniform, uw, scalars = \
             launch_tables(plan, pins)
         device = cur.device.index if cur.device.index is not None \
@@ -607,31 +677,13 @@ class SweepKernel:
         fn = entries[mode + ("_bf16" if bf16 else "")]
         if fn is None:
             raise ValueError(f"{self.name} has no {mode} mode in "
-                             f"{plan.dtype}")
+                             f"{plan.dtype}"
+                             + (" on the march schedule" if march else ""))
         rc = fn(*args, *taps)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed ({rc}): "
                                f"{entries['error'](rc).decode()}")
-        self.launches += 1
-        self.bf16_launches += bf16
-        self.subset_launches += subset is not None
-        live = not all(pins)
-        if mode == "two_level":
-            self.two_level_launches += 1
-            self.two_level_pins_launches += live
-        elif mode == "coeff":
-            self.coeff_launches += 1
-            self.coeff_pins_launches += live
-        elif out2 is not None:
-            self.dual_launches += 1
-        elif mode == "cheby":
-            self.cheby_launches += 1
-        elif src is not None:
-            self.source_launches += 1
-            self.source_pins_launches += live
-            self.source_subset_launches += subset is not None
-        else:
-            self.pins_launches += live
+        self.count_launch(plan, src, pins, out2, subset)
         return nxt if out2 is None else (nxt, out2)
 
 

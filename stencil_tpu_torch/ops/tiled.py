@@ -27,14 +27,31 @@ marches the two levels of a ``two_level`` plan; :func:`coeff_iterate`
 matvec, both with the padded coefficient (:func:`pad_coeff`) given per
 call.
 
-The plan is new, not a port of the TPU's ``choose_tiles``: a CUDA block
-holds one output tile of (t0, t1, t2) points plus its k*r-deep window in
-shared memory, at most 227 KB (232,448 bytes) on sm_90, two window buffers
-when k > 1, each point ``plan.itemsize`` bytes (4 in float32, 2 in
-bfloat16). Among the tiles that fit, the chooser takes the one of least
-estimated time per output point: the warp slots of the window load and of
-the k shrinking sweeps, discounted by the blocks that fit on one SM
-(:func:`_cost`, fitted to a tile sweep measured on an H100).
+The plan is new, not a port of the TPU's ``choose_tiles``. It picks one of
+two schedules of the kernel (``TiledPlan.schedule``):
+
+- ``"march"`` (``csrc/tiled_march.cu``): a CUDA block owns a (t1, t2) tile
+  of d1 and d2 and a chunk of t0 planes of d0, and marches d0 through one
+  ring of 2r+2 planes per sweep level, each level's planes as wide as the
+  tile grown by (k-s)*r; the rings, :func:`march_smem_bytes`, must fit
+  227 KB (232,448 bytes) on sm_90. The homogeneous and source modes take
+  it, in float32 and bfloat16, with pins and tile subsets, wherever their
+  rings fit (k <= 16; a bf16 input plane of at most 8192 points), the
+  tiles from :func:`choose_march_tiles`. That holds at k=1 too: the two
+  schedules' k=1 launches timed at 256^3 by ``chip_smoke.py`` put the
+  march ahead (PERF.md).
+- ``"window"`` (``csrc/tiled_sweep.cu``): a block holds one output tile of
+  (t0, t1, t2) points plus its k*r-deep 3D window in shared memory, two
+  window buffers when k > 1, the windows shrinking by r per sweep in
+  every dim. Every other mode (Chebyshev, dual, two-level, coefficient)
+  takes it, and so do plain and source plans whose rings do not fit.
+  Among the tiles that fit, :func:`choose_tiles` takes the one of least
+  estimated time per output point: the warp slots of the window load and
+  of the k shrinking sweeps, discounted by the blocks that fit on one SM
+  (:func:`_cost`, fitted to a tile sweep measured on an H100).
+
+Each point takes ``plan.itemsize`` bytes of shared memory (4 in float32,
+2 in bfloat16).
 
 ``TiledStencil.iterate`` is the iterate both kernels share
 (``ops/sweep_kernel.py:KernelStencil``). :func:`partition_tiles` splits a
@@ -67,6 +84,12 @@ SM_SHARED = 233_472    # bytes of shared memory per SM; 1 KB more per block
 MAX_BLOCKS_PER_SM = 4  # 2048 threads per SM / 512 per block
 MAX_CHEBY_SWEEPS = 16  # coefficient tuples the kernel takes per launch
 DTYPES = ("float32", "bfloat16")  # the kernels' element types
+
+SM_COUNT = 132          # streaming multiprocessors of an H100 SXM
+SCHEDULES = ("march", "window")
+MARCH_MAX_SWEEPS = 16   # sweep levels the march kernel takes per launch
+MARCH_THREADS = 512     # threads of a march block
+MARCH_STAGE = 16        # bf16: input plane points per thread (registers)
 
 _T0_CANDIDATES = (1, 2, 4, 8, 16)
 _T1_CANDIDATES = (2, 4, 8, 16, 32)
@@ -103,6 +126,9 @@ class TiledPlan:
     # weights nb*harm(a(p), a(p+-e_d)) and center c0 + cs*sum(face means)
     # over a padded coefficient a(x); () = not that mode
     coeff_scales: Tuple = ()
+    # "window" (tiled_sweep.cu, every mode) or "march" (tiled_march.cu,
+    # the homogeneous and source modes; tiles = (d0 chunk, t1, t2))
+    schedule: str = "window"
 
     @property
     def has_coeff(self) -> bool:
@@ -129,9 +155,13 @@ class TiledPlan:
 
     @property
     def smem_bytes(self) -> int:
-        """Shared memory of one block, in every mode: one window, two when
-        k > 1 (the Chebyshev, dual and two-level modes write u_t over
+        """Shared memory of one block. March: the rings
+        (:func:`march_smem_bytes`). Window, in every mode: one window, two
+        when k > 1 (the Chebyshev, dual and two-level modes write u_t over
         u_{t-2}; the coefficient mode reads a(x) from global memory)."""
+        if self.schedule == "march":
+            return march_smem_bytes(self.tiles, self.sweeps_per_call,
+                                    self.spec.radius, self.itemsize)
         return _smem_bytes(self.tiles, self.sweeps_per_call,
                            self.spec.radius, self.itemsize)
 
@@ -189,6 +219,90 @@ def _cost(tiles, k: int, spec: StencilSpec, itemsize: int = 4) -> float:
     blocks = min(MAX_BLOCKS_PER_SM, _BLOCKS_SATURATE,
                  SM_SHARED // (_smem_bytes(tiles, k, r, itemsize) + 1024))
     return slots / math.prod(tiles) / max(1, blocks) ** 0.25
+
+
+def march_smem_bytes(tiles, k: int, r: int, itemsize: int = 4) -> int:
+    """Shared memory of a march block: 2r+2 planes per sweep level s = 0 ..
+    k-1, each (t1 + 2(k-s)r) x (t2 + 2(k-s)r) points."""
+    _, t1, t2 = tiles
+    return (2 * r + 2) * itemsize * sum(
+        (t1 + 2 * (k - s) * r) * (t2 + 2 * (k - s) * r) for s in range(k))
+
+
+def march_fits(tiles, k: int, r: int, itemsize: int = 4) -> bool:
+    """Whether the march kernel takes these tiles: k <= 16, the rings in
+    one block's shared memory, and in bfloat16 (2-byte points, which the
+    kernel stages through registers) an input plane of at most 8192
+    points."""
+    _, t1, t2 = tiles
+    plane = (t1 + 2 * k * r) * (t2 + 2 * k * r)
+    return (k <= MARCH_MAX_SWEEPS
+            and march_smem_bytes(tiles, k, r, itemsize) <= SMEM_LIMIT
+            and (itemsize == 4 or plane <= MARCH_STAGE * MARCH_THREADS))
+
+
+# the march chooser's cost model, in warp slots of one block, fitted to
+# march tiles timed at 256^3 on an H100 (jacobi7 k = 1, 2, 4, 8 fp32 and
+# k=8 bf16; data/march_tiles_h100_fit.csv, tile_sweep.py --march): a
+# point's cost beyond its tap loads, an input point's load, a step's
+# barrier and the imbalance it exposes
+MARCH_COST_CONSTANTS = (10, 32, 2048)
+
+
+def _march_cost(tiles, interior_shape, k: int, spec: StencilSpec,
+                constants=MARCH_COST_CONSTANTS) -> float:
+    """Estimated time per output point of a march plan: per block, each
+    level's planes (t0 + 2(k-s)r of them) in passes of 512 threads of
+    ``num_taps`` + the row cost slots per point, the input planes' loads
+    and one barrier per step; times the blocks each of the 132 SMs
+    runs (blocks resident together share the SM: on the sweep it was
+    fitted to, more of them per SM hid nothing). On that sweep it picks
+    the fastest tile of each of the five cases; the fit needed no term
+    for the item size."""
+    row_cost, load_cost, step_cost = constants
+    r = spec.radius
+    t0, t1, t2 = tiles
+    warps = MARCH_THREADS // 32
+
+    def passes(s):
+        return -(-(t1 + 2 * (k - s) * r) * (t2 + 2 * (k - s) * r)
+                 // MARCH_THREADS)
+
+    slots = sum((t0 + 2 * (k - s) * r) * passes(s) * warps
+                * (spec.num_taps + row_cost) for s in range(1, k + 1))
+    slots += (t0 + 2 * k * r) * passes(0) * warps * load_cost
+    slots += (t0 + 2 * k * r + k) * step_cost
+    blocks = math.prod(-(-n // t) for n, t in zip(interior_shape, tiles))
+    return -(-blocks // SM_COUNT) * slots / math.prod(interior_shape)
+
+
+MARCH_T0_CANDIDATES = (8, 16, 32, 64, 128, 256)
+_MARCH_T_CANDIDATES = (8, 16, 24, 32, 48, 64)
+
+
+def choose_march_tiles(spec: StencilSpec, interior_shape,
+                       sweeps_per_call: int,
+                       t0_fixed: Optional[int] = None, dtype="float32"
+                       ) -> Optional[Tuple[int, int, int]]:
+    """The (d0 chunk, t1, t2) of least estimated cost
+    (:func:`_march_cost`) among those whose rings fit
+    (:func:`march_fits`); ties go to the wider d2 extent. None if nothing
+    fits. ``t0_fixed`` pins the chunk."""
+    k, r = sweeps_per_call, spec.radius
+    itemsize = torch_dtype(dtype).itemsize
+    n0, n1, n2 = interior_shape
+    t0s = (t0_fixed,) if t0_fixed is not None else MARCH_T0_CANDIDATES
+    best, best_key = None, None
+    for t0, t1, t2 in itertools.product(t0s, _MARCH_T_CANDIDATES,
+                                        _MARCH_T_CANDIDATES):
+        tiles = (min(t0, n0), min(t1, n1), min(t2, n2))
+        if not march_fits(tiles, k, r, itemsize):
+            continue
+        key = (_march_cost(tiles, interior_shape, k, spec), -tiles[2],
+               -math.prod(tiles))
+        if best_key is None or key < best_key:
+            best, best_key = tiles, key
+    return best
 
 
 def _t2_candidates(kr: int) -> Tuple[int, ...]:
@@ -295,16 +409,22 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
                     sweeps_per_call: int = 1, tiles=None,
                     t0_fixed: Optional[int] = None, has_source: bool = False,
                     cheby_coeffs=None, cheby_dual: bool = False,
-                    two_level: bool = False, coeff_scales=None
-                    ) -> TiledPlan:
+                    two_level: bool = False, coeff_scales=None,
+                    schedule: Optional[str] = None) -> TiledPlan:
     """Plan for ``sweeps_per_call`` sweeps per launch; ``tiles`` pins
-    (t0, t1, t2), ``t0_fixed`` pins only t0. ``cheby_coeffs`` (one
-    ``(c, n, pv, s)`` per sweep; needs ``has_source``, the padded raw f of
-    every launch) selects the Chebyshev mode, ``cheby_dual`` its fused
-    smooth+residual; ``two_level`` the leapfrog; ``coeff_scales`` (nb, c0,
-    cs) the coefficient mode. Every mode takes the shared memory of a
-    source plan (the kernel writes u_t over u_{t-2} in place; a(x) is read
-    from global memory), so the chooser counts them the same."""
+    (t0, t1, t2), ``t0_fixed`` pins only t0 (a march plan's d0 chunk).
+    ``cheby_coeffs`` (one ``(c, n, pv, s)`` per sweep; needs
+    ``has_source``, the padded raw f of every launch) selects the
+    Chebyshev mode, ``cheby_dual`` its fused smooth+residual;
+    ``two_level`` the leapfrog; ``coeff_scales`` (nb, c0, cs) the
+    coefficient mode. On the window schedule every mode takes the shared
+    memory of a source plan (the kernel writes u_t over u_{t-2} in place;
+    a(x) is read from global memory), so the chooser counts them the same.
+
+    ``schedule`` None takes the rule of the module docstring: a plain or
+    source plan marches where its rings fit, every other plan takes the
+    window; "march" or "window" asks for one (``ValueError`` where it
+    cannot run the plan)."""
     if spec.ndim != 3 or len(interior_shape) != 3:
         raise ValueError("tiled kernel is 3D-only")
     dtype = dtype_name(torch_dtype(dtype))
@@ -320,6 +440,19 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     interior_shape = tuple(int(n) for n in interior_shape)
     k, r = sweeps_per_call, spec.radius
     itemsize = torch_dtype(dtype).itemsize
+    if schedule is not None and schedule not in SCHEDULES:
+        raise ValueError(f"schedule {schedule!r}: one of {SCHEDULES}")
+    plain = not coeffs and not two_level and not scales
+    if schedule == "march" and not plain:
+        raise ValueError("the march schedule runs the homogeneous and "
+                         "source modes only")
+    march = plain and schedule != "window"
+    if tiles is None and march:
+        tiles = choose_march_tiles(spec, interior_shape, k, t0_fixed, dtype)
+        if tiles is None and schedule == "march":
+            raise ValueError(f"no march tile of {interior_shape} at k={k} "
+                             f"fits {SMEM_LIMIT} bytes of shared memory")
+        march = tiles is not None
     if tiles is None:
         tiles = choose_tiles(spec, interior_shape, k, t0_fixed, dtype)
         if tiles is None:
@@ -329,7 +462,13 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     tiles = tuple(int(t) for t in tiles)
     if any(t < 1 or t > n for t, n in zip(tiles, interior_shape)):
         raise ValueError(f"tiles {tiles} must lie in [1, {interior_shape}]")
-    if _smem_bytes(tiles, k, r, itemsize) > SMEM_LIMIT:
+    march = march and march_fits(tiles, k, r, itemsize)
+    if schedule == "march" and not march:
+        raise ValueError(
+            f"tiles {tiles} at k={k}, r={r} do not fit the march kernel "
+            f"({march_smem_bytes(tiles, k, r, itemsize)} bytes of rings, "
+            f"at most {SMEM_LIMIT}; k <= {MARCH_MAX_SWEEPS})")
+    if not march and _smem_bytes(tiles, k, r, itemsize) > SMEM_LIMIT:
         raise ValueError(
             f"tiles {tiles} at k={k}, r={r} need "
             f"{_smem_bytes(tiles, k, r, itemsize)} bytes of shared memory "
@@ -338,7 +477,8 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
                      sweeps_per_call=k, tiles=tiles,
                      layout=PaddedLayout.for_halo(interior_shape, k * r),
                      cheby_coeffs=coeffs, cheby_dual=bool(cheby_dual),
-                     two_level=bool(two_level), coeff_scales=scales)
+                     two_level=bool(two_level), coeff_scales=scales,
+                     schedule="march" if march else "window")
 
 
 def partition_tiles(plan: TiledPlan) -> Tuple[Tuple[int, ...],
@@ -526,7 +666,8 @@ class TiledStencil(KernelStencil):
     optional static ``source`` (``u' = S(u) + source_scale * source``), or
     with ``cheby_coeffs`` the Chebyshev recurrence over
     ``source_scale * source`` (each launch restarts it; the remainder launch
-    runs the first coefficients)."""
+    runs the first coefficients). ``schedule`` goes to
+    :func:`make_tiled_plan` (None: the rule)."""
 
     kernel = tiled_sweep
 
@@ -534,10 +675,11 @@ class TiledStencil(KernelStencil):
                  sweeps_per_call: int = 1, tiles=None,
                  t0_fixed: Optional[int] = None, device="cuda",
                  source=None, source_scale=1.0, cheby_coeffs=None,
-                 cheby_dual: bool = False):
+                 cheby_dual: bool = False, schedule: Optional[str] = None):
         super().__init__(make_tiled_plan(spec, interior_shape, dtype,
                                          sweeps_per_call, tiles, t0_fixed,
                                          has_source=source is not None,
                                          cheby_coeffs=cheby_coeffs,
-                                         cheby_dual=cheby_dual),
+                                         cheby_dual=cheby_dual,
+                                         schedule=schedule),
                          device, source, source_scale)

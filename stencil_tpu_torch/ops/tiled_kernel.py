@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernel ``csrc/tiled_sweep.cu`` (3D), its wrapper
-and its plain PyTorch version.
+"""The hand-written CUDA kernels ``csrc/tiled_sweep.cu`` and
+``csrc/tiled_march.cu`` (3D, the window and march schedules of one
+kernel), their wrapper and their plain PyTorch version.
 
 The kernel replaces ``stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep``
 in six modes and its tile subsets (B1f, ``subset=``: a launch over a list
@@ -17,6 +18,14 @@ refreshed ghosts updated like interior points. Every mode but the
 coefficient one runs in float32 or bfloat16 (the plan's dtype; separate C
 entries per type). See the source's header for its design and what bounds
 it.
+
+The march schedule (``plan.schedule == "march"``, ``ops/tiled.py``)
+replaces the window kernel in its homogeneous and source modes, with pins
+and tile subsets, in both types: ``csrc/tiled_march.cu`` walks each
+(d1, d2) tile's chunk of d0 planes through one shared-memory ring of planes
+per sweep level. ``tiled_sweep`` launches it for a march plan (the
+library handle ``tiled_march``) and counts the launch also in
+``march_launches`` and its mode's ``march_*`` count.
 
 ``tiled_sweep(cur, nxt, plan, src=None, pins=None, out2=None, prev=None,
 coeff=None, subset=None)`` takes the plain
@@ -68,5 +77,29 @@ REPLACES_MODE = {
     "tiled_sweep+source+subset+bf16": "stencil_tpu/ops/pallas_tiled.py:746",
 }
 
-tiled_sweep = SweepKernel("tiled_sweep", SOURCE, REPLACES, ndim=3)
+MARCH_SOURCE = _build.PACKAGE_DIR / "csrc" / "tiled_march.cu"
+# the TPU kernel body of each march mode (the march replaces the window in
+# these; the same TPU lines as the window's rows of these modes)
+REPLACES_MODE.update({
+    "tiled_march": REPLACES,
+    "tiled_march+source": REPLACES_MODE["tiled_sweep+source"],
+    "tiled_march+pins": REPLACES_MODE["tiled_sweep+pins"],
+    "tiled_march+source+pins": REPLACES_MODE["tiled_sweep+source+pins"],
+    "tiled_march+bf16": REPLACES_MODE["tiled_sweep+bf16"],
+    "tiled_march+source+bf16": REPLACES_MODE["tiled_sweep+source+bf16"],
+    "tiled_march+pins+bf16": REPLACES_MODE["tiled_sweep+pins+bf16"],
+    "tiled_march+source+pins+bf16":
+        REPLACES_MODE["tiled_sweep+source+pins+bf16"],
+    "tiled_march+subset": REPLACES_MODE["tiled_sweep+subset"],
+    "tiled_march+source+subset": REPLACES_MODE["tiled_sweep+source+subset"],
+    "tiled_march+subset+bf16": REPLACES_MODE["tiled_sweep+subset+bf16"],
+    "tiled_march+source+subset+bf16":
+        REPLACES_MODE["tiled_sweep+source+subset+bf16"],
+})
+
+# the march library (launched through tiled_sweep for a march plan)
+tiled_march = SweepKernel("tiled_march", MARCH_SOURCE, REPLACES, ndim=3,
+                          schedule="march")
+tiled_sweep = SweepKernel("tiled_sweep", SOURCE, REPLACES, ndim=3,
+                          march=tiled_march)
 

@@ -72,7 +72,9 @@ from stencil_tpu_torch.ops.layout import refresh_dynamic_layout
 from stencil_tpu_torch.ops.slab import make_slab_plan
 from stencil_tpu_torch.ops.slab_kernel import slab_sweep
 from stencil_tpu_torch.ops.sweep_kernel import launch_plans
-from stencil_tpu_torch.ops.tiled import make_tiled_plan, partition_tiles
+from stencil_tpu_torch.ops.tiled import (
+    MARCH_T0_CANDIDATES, make_tiled_plan, partition_tiles,
+)
 from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
 from stencil_tpu_torch.parallel.halo import block_index
 from stencil_tpu_torch.parallel.mesh import Mesh
@@ -112,7 +114,9 @@ class ShardedKernelStencil:
     ``overlap`` splits each outer
     step into interior and edge launches around the exchange;
     ``has_source`` makes every sweep ``u' = S(u) + source_scale *
-    source`` (3D), the source given to :meth:`iterate`."""
+    source`` (3D), the source given to :meth:`iterate`. ``schedule`` goes
+    to the 3D local plan (``ops/tiled.py:make_tiled_plan``; None: the
+    rule)."""
 
     spec: StencilSpec
     interior_shape: Tuple[int, ...]
@@ -123,6 +127,7 @@ class ShardedKernelStencil:
     t0_fixed: Optional[int] = None
     overlap: bool = True
     has_source: bool = False
+    schedule: Optional[str] = None
 
     def local_plan(self, mesh_shape):
         """The per-rank kernel plan, with JAX's gates and messages
@@ -151,10 +156,25 @@ class ShardedKernelStencil:
                     f"axis size {n_dev}")
             local[d] //= n_dev
         if len(self.interior_shape) == 3:
-            return make_tiled_plan(self.spec, tuple(local), self.dtype,
-                                   self.sweeps_per_call, tiles=self.tiles,
-                                   t0_fixed=self.t0_fixed,
-                                   has_source=self.has_source)
+            def plan_of(t0_fixed):
+                return make_tiled_plan(
+                    self.spec, tuple(local), self.dtype,
+                    self.sweeps_per_call, tiles=self.tiles,
+                    t0_fixed=t0_fixed, has_source=self.has_source,
+                    schedule=self.schedule)
+
+            plan = plan_of(self.t0_fixed)
+            if plan.schedule == "march" and self.tiles is None \
+                    and self.t0_fixed is None and self.splits(mesh_shape):
+                # the overlapped step needs interior columns: a chunk so
+                # long that no d0 chunk clears the ghost bands leaves none,
+                # so take the longest chunk that leaves some
+                for t0 in sorted((t for t in MARCH_T0_CANDIDATES
+                                  if t < plan.tiles[0]), reverse=True):
+                    if all(partition_tiles(plan)):
+                        break
+                    plan = plan_of(t0)
+            return plan
         if self.has_source:
             raise ValueError(
                 "the fused source term is 3D-only (the 2D slab kernel "

@@ -114,6 +114,17 @@ def _dynamic_kernel_constraints(grid: HaloGrid, spec: StencilSpec, k: int,
         )
 
 
+def schedule_info(plan) -> dict:
+    """A 3D tiled plan's schedule for ``plan_info``: "march" with its d0
+    chunk, or "window"; nothing for a 2D slab plan."""
+    if len(plan.interior_shape) != 3:
+        return {}
+    info = {"schedule": plan.schedule}
+    if plan.schedule == "march":
+        info["chunk"] = plan.tiles[0]
+    return info
+
+
 def _make_kernel(kind: str, stencil_cls, config, spec: StencilSpec,
                  grid: HaloGrid, k: int) -> Runner:
     """A runner on a hand-written kernel (``kind`` "tiled" or "slab");
@@ -137,7 +148,7 @@ def _make_kernel(kind: str, stencil_cls, config, spec: StencilSpec,
     )
     plan = method.plan
     plan_info = {"kernel": kind, "k": k, "tiles": list(plan.tiles),
-                 "smem_bytes": plan.smem_bytes,
+                 **schedule_info(plan), "smem_bytes": plan.smem_bytes,
                  "source": "flag" if config is not None and config.block
                  else "chooser",
                  "pins": list(dynamic_pins(grid.bc, spec.ndim))}
@@ -311,7 +322,8 @@ def make_sharded_pallas(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
     plan_info = {"kernel": "tiled" if spec.ndim == 3 else "slab",
                  "mesh": list(mesh_sizes), "k": k,
                  "local_shape": list(plan.interior_shape),
-                 "tiles": list(plan.tiles), "overlap": overlap,
+                 "tiles": list(plan.tiles), **schedule_info(plan),
+                 "smem_bytes": plan.smem_bytes, "overlap": overlap,
                  "split": bool(method.splits(mesh_sizes) and interior
                                and edge),
                  "interior_columns": len(interior),

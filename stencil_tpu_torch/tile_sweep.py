@@ -29,6 +29,18 @@ float32; this checks it at 2-byte windows):
 
     python -m stencil_tpu_torch.tile_sweep --dims 3 --dtype bfloat16 \
         --out rows3d.csv
+
+``--march`` does the same for the 3D kernel's march schedule
+(``csrc/tiled_march.cu``): ``--out`` times every tile of ``MARCH_TILES``
+that fits at each case of ``MARCH_CASES`` (each with its own dtype) and
+the march chooser's pick; ``--score`` scores the march chooser
+(``ops/tiled.py:choose_march_tiles``) against such rows, and ``--fit``
+refits its three constants (``ops/tiled.py:MARCH_COST_CONSTANTS``). ``data/march_tiles_h100_fit.csv`` holds the rows
+they were fitted to:
+
+    python -m stencil_tpu_torch.tile_sweep --march --out rows.csv
+    python -m stencil_tpu_torch.tile_sweep --march --score \
+        stencil_tpu_torch/data/march_tiles_h100_fit.csv --fit
 """
 
 from __future__ import annotations
@@ -77,7 +89,22 @@ CASES_3D = (("jacobi7", (256, 256, 256), 8, None),
             ("laplace3d_ho", (384, 384, 384), 4, None))
 FIELDS_3D = ("spec", "n0", "n1", "n2", "k", "dtype", "t0", "t1", "t2", "ms")
 
+# the march cases (spec, shape, k, dtype): the headline at the depths
+# chip_smoke.py times, and cfg3
+MARCH_CASES = (("jacobi7", (256, 256, 256), 8, "float32"),
+               ("jacobi7", (256, 256, 256), 8, "bfloat16"),
+               ("jacobi7", (256, 256, 256), 4, "float32"),
+               ("jacobi7", (256, 256, 256), 2, "float32"),
+               ("jacobi7", (256, 256, 256), 1, "float32"))
+MARCH_TILES = tuple((t0, t1, t2) for t0 in (16, 32, 64, 128, 256)
+                    for t1, t2 in ((16, 16), (16, 32), (16, 64), (24, 24),
+                                   (32, 32), (32, 64), (48, 48), (64, 64)))
+# the march constants --fit tries: point, load and step costs
+MARCH_FIT_GRID = ((4, 6, 8, 10, 14, 20, 30), (2, 4, 8, 16, 32, 64),
+                  (0, 512, 1024, 2048, 4096, 8192))
+
 Case = Tuple[str, Tuple[int, int], int, Optional[int]]
+MarchCase = Tuple[str, Tuple[int, int, int], int, str]
 
 
 def sweep_tiles(spec_name: str, shape, k: int, t0_fixed: Optional[int],
@@ -171,6 +198,94 @@ def measure(out: Path, cases: Sequence[Case] = CASES, seed: int = 0,
             sys.stdout.flush()
 
 
+def measure_march(out: Path, cases: Sequence[MarchCase] = MARCH_CASES,
+                  seed: int = 0) -> None:
+    """Time one march launch at every tile of ``MARCH_TILES`` that fits,
+    and at the march chooser's pick, for every case on the current CUDA
+    device; writes ``FIELDS_3D`` rows to ``out`` and prints per case the
+    pick against the fastest tile."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
+    from stencil_tpu_torch.utils.timing import timed
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the tile sweep times the CUDA kernel: it needs "
+                           "a card (score and fit need none)")
+    device = torch.device("cuda")
+    label = gpu_label()
+    print(label)
+    rng = np.random.default_rng(seed)
+    with open(out, "w", newline="") as fh:
+        fh.write(f"# {label}, march\n")
+        writer = csv.writer(fh)
+        writer.writerow(FIELDS_3D)
+        for name, shape, k, dtype in cases:
+            spec = get_spec(name)
+            x = torch.from_numpy(rng.random(shape, dtype=np.float32))
+            grid = HaloGrid.from_interior(x.to(torch_dtype(dtype)),
+                                          halo=spec.radius, device=device)
+            reps = max(5, min(50, int(4e8 / (math.prod(shape) * k))))
+            itemsize = torch_dtype(dtype).itemsize
+            pick = tiled.choose_march_tiles(spec, shape, k, dtype=dtype)
+            times = {}
+            for tiles in sorted({*MARCH_TILES, pick}):
+                tiles = tuple(min(t, n) for t, n in zip(tiles, shape))
+                if tiles in times or not tiled.march_fits(
+                        tiles, k, spec.radius, itemsize):
+                    continue
+                plan = tiled.make_tiled_plan(spec, shape, dtype, k,
+                                             tiles=tiles, schedule="march")
+                cur = plan.layout.pad_grid(grid)
+                nxt = cur.clone()
+                tiled_sweep(cur, nxt, plan)
+                ms = timed(lambda: [tiled_sweep(cur, nxt, plan)
+                                    for _ in range(reps)], device) \
+                    / reps * 1e3
+                times[tiles] = ms
+                writer.writerow((name, *shape, k, dtype, *tiles, repr(ms)))
+            fh.flush()
+            best = min(times, key=times.get)
+            print(f"march {name} {shape} k={k} {dtype}: {len(times)} tiles; "
+                  f"chooser {pick} {times[pick]:.4f} ms, fastest {best} "
+                  f"{times[best]:.4f} ms, {times[pick] / times[best]:.3f}x "
+                  f"[{label}]")
+            sys.stdout.flush()
+
+
+def read_march_rows(path: Path) -> Dict[MarchCase,
+                                        Dict[Tuple[int, int, int], float]]:
+    """Rows of a march sweep, grouped by case: {case: {tiles: ms}}."""
+    cases: Dict[MarchCase, Dict[Tuple[int, int, int], float]] = {}
+    with open(path, newline="") as fh:
+        lines = (line for line in fh if not line.startswith("#"))
+        for row in csv.DictReader(lines):
+            case = (row["spec"], tuple(int(row[f"n{d}"]) for d in range(3)),
+                    int(row["k"]), row["dtype"])
+            tiles = tuple(int(row[f"t{d}"]) for d in range(3))
+            cases.setdefault(case, {})[tiles] = float(row["ms"])
+    return cases
+
+
+def score_march(cases, constants=tiled.MARCH_COST_CONSTANTS) -> List[dict]:
+    """Per march case: the tile the march cost model with ``constants``
+    (point, load, step) picks among the measured tiles, its ms, the best
+    measured tile and its ms."""
+    out = []
+    for (name, shape, k, dtype), measured in cases.items():
+        spec = get_spec(name)
+        pick = min(measured, key=lambda t: (
+            tiled._march_cost(t, shape, k, spec, constants), -t[2],
+            -math.prod(t)))
+        best = min(measured, key=measured.get)
+        out.append({"case": (name, shape, k, dtype), "pick": pick,
+                    "pick_ms": measured[pick], "best": best,
+                    "best_ms": measured[best],
+                    "ratio": measured[pick] / measured[best]})
+    return out
+
+
 def read_rows(path: Path) -> Dict[Case, Dict[Tuple[int, int], float]]:
     """Rows of a sweep, grouped by case: {case: {tiles: ms}}."""
     cases: Dict[Case, Dict[Tuple[int, int], float]] = {}
@@ -232,9 +347,33 @@ def main(argv=None) -> int:
     ap.add_argument("--dims", type=int, default=2, choices=(2, 3),
                     help="with --out: 2 (the slab kernel, CASES) or 3 (the "
                          "tiled kernel, CASES_3D)")
+    ap.add_argument("--march", action="store_true",
+                    help="the 3D kernel's march schedule: time "
+                         "MARCH_TILES at MARCH_CASES, or score and refit "
+                         "the march chooser")
     args = ap.parse_args(argv)
     if args.out is None and args.score is None:
         ap.error("give --out (measure) or --score (score, fit)")
+    if args.march:
+        if args.out is not None:
+            measure_march(args.out)
+        if args.score is not None:
+            cases = read_march_rows(args.score)
+            results = score_march(cases)
+            for r in results:
+                print(f"march {r['case']}: pick {r['pick']} "
+                      f"{r['pick_ms']:.4f} ms, best {r['best']} "
+                      f"{r['best_ms']:.4f} ms, {r['ratio']:.3f}x")
+            print(f"march constants {tiled.MARCH_COST_CONSTANTS}: geometric "
+                  f"mean {geomean(results):.4f}x "
+                  f"the best tile, worst "
+                  f"{max(r['ratio'] for r in results):.4f}x")
+            if args.fit:
+                ranked = sorted((geomean(score_march(cases, c)), c)
+                                for c in itertools.product(*MARCH_FIT_GRID))
+                for g, c in ranked[:5]:
+                    print(f"fit: constants {c}: geometric mean {g:.4f}x")
+        return 0
     if args.out is not None:
         measure(args.out, CASES_3D if args.dims == 3 else CASES,
                 dtype=args.dtype)

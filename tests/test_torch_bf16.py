@@ -479,11 +479,12 @@ def test_coeff_mode_refuses_bf16_with_jax_message():
     ("jacobi27", (57, 50, 46), 3), ("jacobi5", (512, 512), 16),
     ("jacobi9", (4096, 4096), 4)])
 def test_bf16_windows_take_half_the_shared_memory(name, shape, k):
-    """For the same tiles a bf16 plan's windows take half the bytes of a
-    fp32 plan's; the bf16 chooser picks a tile that fits, and both cfg4
-    plans (laplace3d_ho 384^3 k=4, radius 2) fit one block."""
+    """For the same tiles a bf16 plan's windows (or rings) take half the
+    bytes of a fp32 plan's; the bf16 chooser of the plan's schedule picks a
+    tile that fits, and both cfg4 plans (laplace3d_ho 384^3 k=4, radius 2)
+    fit one block."""
     from stencil_tpu_torch.core.spec import get_spec
-    from stencil_tpu_torch.ops.tiled import SMEM_LIMIT
+    from stencil_tpu_torch.ops.tiled import SMEM_LIMIT, choose_march_tiles
 
     sp = get_spec(name)
     make = make_tiled_plan if len(shape) == 3 else make_slab_plan
@@ -494,7 +495,9 @@ def test_bf16_windows_take_half_the_shared_memory(name, shape, k):
     chosen = make(sp, shape, "bfloat16", k)
     assert chosen.smem_bytes <= SMEM_LIMIT
     if len(shape) == 3:
-        assert choose_tiles(sp, shape, k, dtype="bfloat16") == chosen.tiles
+        chooser = (choose_march_tiles if chosen.schedule == "march"
+                   else choose_tiles)
+        assert chooser(sp, shape, k, dtype="bfloat16") == chosen.tiles
 
 
 def test_varcoeff_bf16_takes_the_eager_field_sweep_as_jax():

@@ -903,3 +903,106 @@ def test_rma_kernel_matches_plain_on_dynamic_walls_and_bf16(
     torch.cuda.synchronize()
     assert torch.equal(got.interior(), method.gather(
         bufs, slot, mesh, plan, g).interior())
+
+
+# ---- the d0 march (csrc/tiled_march.cu) -------------------------------------
+
+
+@pytest.mark.parametrize("name,shape,k,dtype,periodic,neumann,source", [
+    ("jacobi7", (64, 48, 40), 1, "float32", (), (), False),
+    ("jacobi7", (64, 48, 40), 2, "float32", (), (), True),
+    ("jacobi7", (57, 50, 46), 3, "float32", (0, 1), (), False),
+    ("jacobi7", (64, 48, 40), 8, "float32", (), (0, 1), True),
+    ("jacobi27", (57, 50, 46), 3, "float32", (0,), (1,), False),
+    ("star3d_r2", (57, 50, 46), 2, "float32", (), (), True),
+    ("jacobi7", (64, 48, 40), 8, "bfloat16", (0, 1), (), False),
+    ("jacobi27", (57, 50, 46), 2, "bfloat16", (), (), True),
+    ("star3d_r2", (57, 50, 46), 3, "bfloat16", (), (0,), False)])
+def test_march_matches_plain_and_window(cuda_device, name, shape, k, dtype,
+                                        periodic, neumann, source):
+    """One march launch bitwise its plain version and the window
+    schedule's launch of the same sweeps, every count of its mode bumped
+    once; a plain or source plan marches by default."""
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    sp = get_spec(name)
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(sp, shape, dtype, k, has_source=source)
+    window = make_tiled_plan(sp, shape, dtype, k, has_source=source,
+                             schedule="window")
+    assert plan.schedule == "march" and window.schedule == "window"
+    cur = _bf16_input(plan, shape, sp.radius, cuda_device, bc) \
+        if dtype == "bfloat16" else _refreshed(plan, bc, shape, sp.radius,
+                                               cuda_device)
+    src = pad_source(plan, _source(shape), -0.02, bc).to(cuda_device) \
+        if source else None
+    pins = dynamic_pins(bc, 3)
+    tiled_sweep.reset_counts()
+    got = tiled_sweep(cur, cur.clone(), plan, src, pins)
+    torch.cuda.synchronize()
+    live = not all(pins)
+    assert (tiled_sweep.march_launches, tiled_sweep.march_source_launches,
+            tiled_sweep.march_pins_launches,
+            tiled_sweep.march_source_pins_launches,
+            tiled_sweep.march_bf16_launches) == (
+        1, source, live and not source, live and source,
+        dtype == "bfloat16")
+    want = sweep_reference(cur, plan, src, pins=pins)
+    via_window = tiled_sweep(cur, cur.clone(), window, src, pins)
+    torch.cuda.synchronize()
+    assert tiled_sweep.march_launches == 1 and tiled_sweep.launches == 2
+    assert torch.equal(got, want)
+    assert torch.equal(got, via_window)
+
+
+@pytest.mark.parametrize("dtype,source", [("float32", False),
+                                          ("bfloat16", True)])
+def test_march_subsets_pair_is_the_full_launch(cuda_device, dtype, source):
+    """An interior then an edge subset launch of a march plan into one
+    output, each bitwise its plain version, the pair the full launch."""
+    from stencil_tpu_torch.ops.sweep_kernel import subset_reference
+    from stencil_tpu_torch.ops.tiled import dynamic_pins, partition_tiles
+
+    sp, shape, k = get_spec("jacobi7"), (96, 80, 72), 4
+    bc = _walls(3, (0,), (1,))
+    plan = make_tiled_plan(sp, shape, dtype, k, tiles=(16, 16, 32),
+                           has_source=source)
+    assert plan.schedule == "march"
+    cur = _bf16_input(plan, shape, sp.radius, cuda_device, bc) \
+        if dtype == "bfloat16" else _refreshed(plan, bc, shape, sp.radius,
+                                               cuda_device)
+    src = pad_source(plan, _source(shape), -0.02, bc).to(cuda_device) \
+        if source else None
+    nxt = cur.clone()
+    nxt[plan.layout.interior_index] = -1.0
+    pins = dynamic_pins(bc, 3)
+    interior, edge = partition_tiles(plan)
+    assert interior and edge
+    tiled_sweep.reset_counts()
+    part = tiled_sweep(cur, nxt.clone(), plan, src, pins, subset=interior)
+    got = tiled_sweep(cur, part.clone(), plan, src, pins, subset=edge)
+    full = tiled_sweep(cur, nxt.clone(), plan, src, pins)
+    torch.cuda.synchronize()
+    assert tiled_sweep.march_subset_launches == 2
+    assert tiled_sweep.march_source_subset_launches == 2 * source
+    assert torch.equal(part, subset_reference(cur, nxt, plan, interior, src,
+                                              pins=pins))
+    assert torch.equal(got, subset_reference(cur, part, plan, edge, src,
+                                             pins=pins))
+    assert torch.equal(got, full)
+
+
+def test_march_refuses_rather_than_falls_back(cuda_device):
+    """A CUDA tensor with a march plan launches the march kernel or
+    raises: a geometry the kernel refuses is an error, not a window or
+    plain launch."""
+    import dataclasses
+
+    sp, shape = get_spec("jacobi7"), (64, 64, 64)
+    plan = make_tiled_plan(sp, shape, "float32", 8)
+    big = dataclasses.replace(plan, tiles=(64, 64, 64))  # rings overflow
+    cur = plan.layout.pad_grid(_grid(shape, 1, cuda_device))
+    tiled_sweep.reset_counts()
+    with pytest.raises(RuntimeError, match="shared memory"):
+        tiled_sweep(cur, cur.clone(), big)
+    assert tiled_sweep.launches == 0

@@ -126,11 +126,23 @@ def test_plan_refuses_what_is_not_ported():
     assert bf16.dtype == "bfloat16" and bf16.itemsize == 2
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         make_tiled_plan(sp, (16, 16, 16), "float64")
+    # the window schedule's 3D windows refuse what the march's rings take
     with pytest.raises(ValueError, match="shared memory"):
-        make_tiled_plan(sp, (64, 64, 64), "float32", 8, tiles=(32, 32, 32))
+        make_tiled_plan(sp, (64, 64, 64), "float32", 8, tiles=(32, 32, 32),
+                        schedule="window")
     with pytest.raises(ValueError, match="fits"):
         make_tiled_plan(tspec.get_spec("star3d_r2"), (64, 64, 64),
-                        "float32", 8)
+                        "float32", 8, schedule="window")
+    assert make_tiled_plan(sp, (64, 64, 64), "float32", 8,
+                           tiles=(32, 32, 32)).schedule == "march"
+    assert make_tiled_plan(tspec.get_spec("star3d_r2"), (64, 64, 64),
+                           "float32", 8).schedule == "march"
+    # and neither takes tiles whose rings and windows overflow
+    with pytest.raises(ValueError, match="shared memory"):
+        make_tiled_plan(sp, (64, 64, 64), "float32", 8, tiles=(64, 64, 64))
+    with pytest.raises(ValueError, match="fits"):
+        make_tiled_plan(tspec.get_spec("star3d_r2"), (64, 64, 64),
+                        "float32", 17)
 
 
 def test_wrapper_checks_and_cpu_path(rng):
@@ -347,9 +359,10 @@ def test_cheby_remainder_plan_slices_coefficients():
     assert rem.cheby_coeffs == co[:2] and not rem.cheby_dual
     assert rem.tiles == plan.tiles and rem.layout == plan.layout
     assert plan.with_sweeps(4) == plan
-    # the smoother modes take the shared memory of a source plan
+    # the smoother modes take the shared memory of a source plan on the
+    # window schedule (a source plan would march by default)
     src = make_tiled_plan(nbsum_spec(3), (16, 16, 16), "float32", 4,
-                          tiles=plan.tiles)
+                          tiles=plan.tiles, schedule="window")
     assert plan.smem_bytes == src.smem_bytes
 
 

@@ -155,9 +155,12 @@ def test_two_level_plan_and_wrapper(rng):
     spec = twave.WaveEquation(shape=shape, device="cpu").spec
     plan = make_tiled_plan(spec, shape, "float32", 3, two_level=True)
     assert plan.two_level and plan.with_sweeps(2).two_level
-    # two windows, as a source plan: u_t is written over u_{t-2}
+    # two windows, as a plain plan on the window schedule: u_t is written
+    # over u_{t-2}
+    assert plan.schedule == "window"
     assert plan.smem_bytes == make_tiled_plan(
-        spec, shape, "float32", 3, tiles=plan.tiles).smem_bytes
+        spec, shape, "float32", 3, tiles=plan.tiles,
+        schedule="window").smem_bytes
     x = torch.from_numpy(rng.random(plan.layout.padded_shape)
                          .astype(np.float32))
     y = torch.from_numpy(rng.random(plan.layout.padded_shape)
