@@ -11,10 +11,11 @@ Phases, each ending in a line of its own:
 2. build: compiles the CUDA kernels (``csrc/tiled_sweep.cu``, the 3D
    kernel's window schedule, six modes and tile subsets;
    ``csrc/tiled_march.cu``, its d0 march, the homogeneous and source modes
-   with pins, bf16 and subsets; ``csrc/slab_sweep.cu``;
-   ``csrc/rma_iterate.cu``) and the native golden from the sources in this
-   checkout, all five compilers started together (into
-   ``build/stencil_tpu_torch/``);
+   with pins, bf16 and subsets and the coefficient mode with pins and
+   subsets; ``csrc/coeff_weights.cu``, the coefficient mode's weights;
+   ``csrc/slab_sweep.cu``; ``csrc/rma_iterate.cu``) and the native golden
+   from the sources in this checkout, all six compilers started together
+   (into ``build/stencil_tpu_torch/``);
 3. kernel vs plain: each kernel mode (3D tiled, 3D tiled with a source,
    each of the two on the march schedule wherever the plan rule gives it,
    so on every homogeneous and source case below,
@@ -31,15 +32,20 @@ Phases, each ending in a line of its own:
    path's own plan (shape, tiles, coefficients) and right-hand side; the
    two-level mode at cfg9's plan (wave 256³ k=8), at k=1 and ragged k=3,
    both outputs, and ``WaveEquation.simulate(method="tiled")`` with a
-   remainder against the eager leapfrog; the coefficient mode at cfg16's
-   plan (256³ k=8, two_material contrast 100) and ragged k=3, and as
-   cfg18's k=1 matvec (255³) at every ``OperatorMultigrid`` level on a
-   random ghost ring; the pins (periodic and Neumann faces live) of every
+   remainder against the eager leapfrog; the coefficient mode on the
+   march, each case the weights kernel bitwise its plain version and the
+   march launch through its weights bitwise its plain version and the
+   window's launch from a(x): cfg16's plan (256³ k=8, two_material
+   contrast 100) and ragged k=3, with ``--periodic 0 1`` at 256³,
+   ``--neumann 1`` and periodic 0 + Neumann 1 ragged, and as cfg18's k=1
+   matvec (255³) at every ``OperatorMultigrid`` level on a random ghost
+   ring, the level's own weights equal to the kernel's; the pins
+   (periodic and Neumann faces live) of every other
    mode on a dynamic-wall path, on refreshed random grids: the 3D kernel
    at 256³ k=8 with periodic 0 1, Neumann 0 1 and periodic 0 + Neumann 1,
    ragged k=3, ``laplace3d_ho`` k=4, ``--periodic all`` at k=1; its source
    mode at the periodic/Neumann Poisson path's plan; its two-level mode at
-   cfg9's plan (both outputs) and its coefficient mode at cfg16's; the 2D
+   cfg9's plan (both outputs); the 2D
    kernel at cfg1's plan (periodic 0, Neumann 0), cfg2's, ``star2d_r2``
    ragged, ``--periodic all`` at k=1 and its source mode at 4096²; and
    the runners over a remainder against the eager iterate; then every
@@ -61,8 +67,9 @@ Phases, each ending in a line of its own:
    live) or a dynamic-wall path's: homogeneous and source, fp32 and bf16,
    at the local blocks of the phase-4 sharded paths (256³ over (2, 2)) and
    of phase 5 (1024³ over (2, 2)), their remainder depth, ragged, radius
-   2 and ``jacobi27``; the Chebyshev, dual and coefficient modes once
-   each; then B3 (``rma_iterate``, the in-kernel exchange): one launch of
+   2 and ``jacobi27``; the Chebyshev and dual modes once each, the
+   coefficient mode on the march (through its weights) and on the window;
+   then B3 (``rma_iterate``, the in-kernel exchange): one launch of
    ``iters // k`` outer steps and one of the remainder on every rank's
    buffers, the whole buffer tensor bitwise the plain version's, with
    distinct face values, at the cases of ``RMA_CASES``: Dirichlet fp32
@@ -104,7 +111,10 @@ Phases, each ending in a line of its own:
    ``-s 128 128 128 --spec jacobi7 -m varcoeff -k 8 -i 64 -c`` against the
    float64 field golden (capped at 50 iterations); ``--solve hetero -s 255
    255 255 --tol 1e-4 -c`` with ``--op-kernel auto`` and ``pallas``, both
-   converged within one iteration of each other; then the dynamic-wall
+   converged within one iteration of each other (the ``pallas`` run and
+   ``-m varcoeff`` with ``plan`` schedule ``march``, every coefficient
+   launch a march one, the weights formed once per runner and once per
+   multigrid level); then the dynamic-wall
    paths, each launch of each a pins launch of its mode: the 3D CLI with
    ``--periodic 0 1`` at k=8 and ``-m pallas --periodic all`` (k=1), the
    2D CLI cfg1 with ``--periodic 0``, each ``-c`` over every iteration;
@@ -157,8 +167,9 @@ Phases, each ending in a line of its own:
    in fp32 on both fine levels and in fp64 on the eager one; cfg9 (the
    wave at 256³, leapfrog steps per second) on ``tiled`` k=8 and
    ``eager``; cfg16/cfg16b (FTCS diffusion at 256³) on the coefficient mode
-   k=8 and the eager field sweep; cfg18 (BiCGStab + OperatorMultigrid,
-   255³, tol 1e-4, f seed 7) as time to solution and iterations with
+   k=8, on the march and on the window, and the eager field sweep; cfg18
+   (BiCGStab + OperatorMultigrid, 255³, tol 1e-4, f seed 7) as time to
+   solution and iterations with
    ``--op-kernel auto`` and ``pallas``, and each solve's device idle share;
    for each kernel mode one launch's kernel ms
    against its plain version's, against one call of
@@ -168,8 +179,10 @@ Phases, each ending in a line of its own:
    the eager field sweep is printed beside it) and against the bound the
    card's peaks give, at a main path's shape (the source modes at the
    Poisson golden checks', the Chebyshev and dual modes at the PCG path's,
-   the two-level mode at cfg9's, the coefficient mode at cfg16's, and its
-   k=1 matvec at cfg18's against the eager matvec); the device's busy
+   the two-level mode at cfg9's, the coefficient mode at cfg16's beside
+   the window's launch, the weights kernel at cfg16's padded grid, and the
+   k=1 matvec at cfg18's beside the window's and the eager matvec); the
+   device's busy
    share over cfg1's main-path run and over one cfg13 solve, from
    ``torch.profiler`` traces; then GLUPS of 3D k=8 ``--periodic 0 1`` and
    cfg1 ``--periodic 0`` beside the Dirichlet runs, of cfg12 (upwind
@@ -201,9 +214,16 @@ Phases, each ending in a line of its own:
    barriers.
 
 The march replaces the window schedule in the homogeneous and source
-modes, with pins, bf16 and subsets: their rows are ``tiled_march...``,
-each with ``window_ms``, the window schedule's time for the same launch
-(its own chooser's tiles; a subset row the window's interior + edge pair).
+modes, with pins, bf16 and subsets, and in the coefficient mode with
+pins: their rows are ``tiled_march...``, each with ``window_ms``, the
+window schedule's time for the same launch (its own chooser's tiles; a
+subset row the window's interior + edge pair; the coefficient rows the
+window's launch from a(x)). The ``coeff_weights`` row is the weights
+kernel at cfg16's padded grid: a(x) read once and four fields written,
+``WEIGHTS_KERNEL_OPS`` per padded point; its ``launches`` one per
+phase-4 varcoeff run and one per multigrid level of the hetero run. The
+coefficient subsets' pair is printed beside the window's pair (no
+phase-4 path runs them).
 
 Each kernel's ``launches`` in the kernel record sums the phase-4 runs of
 that mode (a bf16 mode, name ending ``+bf16``, its bf16 runs); its
@@ -433,9 +453,9 @@ PEAK_BF16_PER_S = 989e12
 # the kernel record's modes: every fp32 mode, then each bf16 one
 KERNEL_MODES = (
     "tiled_march", "tiled_march+source", "tiled_sweep+cheby",
-    "tiled_sweep+dual", "tiled_sweep+two_level", "tiled_sweep+coeff",
-    "tiled_march+pins", "tiled_march+source+pins",
-    "tiled_sweep+two_level+pins", "tiled_sweep+coeff+pins", "slab_sweep",
+    "tiled_sweep+dual", "tiled_sweep+two_level", "tiled_march+coeff",
+    "coeff_weights", "tiled_march+pins", "tiled_march+source+pins",
+    "tiled_sweep+two_level+pins", "tiled_march+coeff+pins", "slab_sweep",
     "slab_sweep+source", "slab_sweep+pins", "slab_sweep+source+pins",
     "tiled_march+bf16", "tiled_march+source+bf16", "tiled_sweep+cheby+bf16",
     "tiled_sweep+dual+bf16", "tiled_sweep+two_level+bf16",
@@ -932,20 +952,46 @@ def compare_wave_iterate(shape, k, steps, rng, device, bc=None,
                for name, g, e in zip(("L_(n+s-1)", "L_(n+s)"), got, want))
 
 
-def compare_coeff(kernel, plan, cur, coeff, label):
-    """One coefficient-mode launch against the plain version."""
-    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+def compare_coeff(kernel, plan, cur, a, label, bc=None):
+    """The coefficient mode of the march ``plan`` on ``cur`` with ``bc``'s
+    pins (default every face pinned), from the padded a(x) ``a``: the
+    weights kernel bitwise its plain version; one march launch through
+    those weights bitwise its plain version and the window schedule's
+    launch from ``a``. Returns ({mode: max abs difference} for
+    ``coeff_weights``, the march's mode and the window's
+    ``tiled_sweep+coeff...``, and the weights)."""
+    from stencil_tpu_torch.ops.sweep_kernel import (
+        coeff_weights_reference, sweep_reference,
+    )
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+    from stencil_tpu_torch.ops.tiled_kernel import coeff_weights
 
-    return check_equal(f"{kernel.name}+coeff {label} k="
-                       f"{plan.sweeps_per_call} tiles {plan.tiles}",
-                       kernel(cur, cur.clone(), plan, coeff=coeff),
-                       sweep_reference(cur, plan, coeff=coeff))
+    require(plan.schedule == "march", f"{label}: a {plan.schedule} plan")
+    pins = dynamic_pins(bc, 3) if bc is not None else (1, 1, 1, 1)
+    suffix = "+coeff" + ("" if all(pins) else "+pins")
+    label = (f"{label} k={plan.sweeps_per_call}"
+             + (f", {walls_name(bc)}" if bc is not None else "")
+             + f", march tiles {plan.tiles}")
+    w = coeff_weights(a, plan)
+    out = {"coeff_weights": check_equal(
+        f"coeff_weights {label}", w, coeff_weights_reference(a, plan),
+        True)}
+    got = kernel(cur, cur.clone(), plan, pins=pins, coeff=w)
+    out["tiled_march" + suffix] = check_equal(
+        f"tiled_march{suffix} {label}", got,
+        sweep_reference(cur, plan, coeff=w, pins=pins), True)
+    twin = window_twin(plan)
+    out["tiled_sweep" + suffix] = check_equal(
+        f"tiled_sweep{suffix} (window tiles {twin.tiles}) {label}",
+        kernel(cur, cur.clone(), twin, pins=pins, coeff=a), got, True)
+    return out, w
 
 
 def marching_inputs(shape, k, rng, device, bc=None):
-    """cfg16's FTCS plan (the runner's), padded coefficient and a random
-    padded u at ``shape``, on walls ``bc`` (default the reference faces;
-    u refreshed, a(x) wrapped or mirrored for dynamic ones)."""
+    """cfg16's FTCS plan (the runner's, a march plan), padded coefficient
+    a(x) and a random padded u at ``shape``, on walls ``bc`` (default the
+    reference faces; u refreshed, a(x) wrapped or mirrored for dynamic
+    ones)."""
     from stencil_tpu_torch.core.spec import get_spec
     from stencil_tpu_torch.models.diffusion import (
         HeterogeneousDiffusion, two_material,
@@ -1231,32 +1277,40 @@ def run_advection(kernel, rng, label, count="pins_launches"):
 
 
 def run_varcoeff_cli(cli, kernel, label, walls_args=(),
-                     count="coeff_launches"):
+                     count="march_coeff_launches"):
     """``-m varcoeff -c`` at 128^3 k=8 with ``walls_args``: the float64
-    field golden (NumPy, capped at 50 iterations); returns the launches by
-    ``count``, counts set to 0 just before."""
+    field golden (NumPy, capped at 50 iterations), on the march
+    (``plan_info`` schedule ``march``), the weights formed once; returns
+    the launches by ``count`` and the weights kernel's, counts set to 0
+    just before."""
+    from stencil_tpu_torch.ops.tiled_kernel import coeff_weights
+
     kernel.reset_counts()
+    coeff_weights.reset_counts()
     args = [*VARCOEFF_ARGS, *walls_args]
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "varcoeff.jsonl"
         rc = cli.main([*args, "-c", "--device", DEVICE,
                        "--json-out", str(out)])
         launches = getattr(kernel, count)
+        weights = coeff_weights.launches
         rec = json.loads(out.read_text().splitlines()[0])
     chk = rec["check"]
     print(f"main path {' '.join(args)} -c: check "
           f"{'OK' if chk['ok'] else 'FAILED'} over "
           f"{chk['iterations_checked']} iterations vs the float64 field "
           f"golden (NumPy, capped), max abs err {chk['max_abs_err']:.3e}; "
-          f"{launches} {count}; plan {rec['plan']}; "
-          f"{rec['glups']:.2f} GLUPS [{label}]")
+          f"{launches} {count}, {weights} coeff_weights launches; plan "
+          f"{rec['plan']}; {rec['glups']:.2f} GLUPS [{label}]")
     require(rc == 0 and chk["ok"] and np.isfinite(chk["max_abs_err"])
             and chk["iterations_checked"] == 50,
             f"varcoeff main path: {rec}")
-    require(rec["plan"]["kernel"] == "tiled" and launches > 0
-            and launches == kernel.launches,
-            f"varcoeff main path did not run the coefficient mode")
-    return launches
+    require(rec["plan"]["kernel"] == "tiled"
+            and rec["plan"]["schedule"] == "march" and launches > 0
+            and launches == kernel.launches and weights == 1,
+            f"varcoeff main path did not run the march coefficient mode "
+            f"with its weights formed once: {weights} weights launches")
+    return launches, weights
 
 
 def run_hetero_cli(cli, kernel, label):
@@ -1265,18 +1319,27 @@ def run_hetero_cli(cli, kernel, label):
     float64 certificates under ``HETERO_CERT_BAR`` that agree within
     ``HETERO_CERT_AGREE`` (the solver judges convergence with the operator
     it applies; the certificate applies an independent one), and only
-    ``pallas`` launches the coefficient mode. Returns the coefficient
-    launches of the ``pallas`` run, counts set to 0 just before each."""
-    recs, counts = {}, {}
+    ``pallas`` launches the coefficient mode, on the march (``plan``
+    schedule ``march``), its weights formed once per OperatorMultigrid
+    level. Returns the march coefficient launches and the weights
+    kernel's of the ``pallas`` run, counts set to 0 just before each."""
+    from stencil_tpu_torch.ops.tiled_kernel import coeff_weights
+
+    recs, counts, weights = {}, {}, {}
     for op in ("auto", "pallas"):
         kernel.reset_counts()
+        coeff_weights.reset_counts()
         with tempfile.TemporaryDirectory() as tmp:
             out = Path(tmp) / "hetero.jsonl"
             t0 = time.perf_counter()
             rc = cli.main([*HETERO_ARGS, "--op-kernel", op, "-c",
                            "--device", DEVICE, "--json-out", str(out)])
             seconds = time.perf_counter() - t0
-            counts[op] = kernel.coeff_launches
+            counts[op] = kernel.march_coeff_launches
+            require(counts[op] == kernel.launches,
+                    f"hetero --op-kernel {op}: {kernel.launches} launches, "
+                    f"{counts[op]} on the march")
+            weights[op] = coeff_weights.launches
             rec = recs[op] = json.loads(out.read_text().splitlines()[0])
         chk = rec.get("check", {})
         tag = "converged" if rec.get("converged") else "NOT converged"
@@ -1286,8 +1349,9 @@ def run_hetero_cli(cli, kernel, label):
               f"float64 certificate max |f - A u| = "
               f"{chk.get('residual_f64', float('nan')):.3e} (rel "
               f"{chk.get('residual_f64_rel', float('nan')):.3e}); plan "
-              f"{rec.get('plan')}; {counts[op]} {kernel.name}+coeff "
-              f"launches; {seconds:.2f} s with the f64 check [{label}]")
+              f"{rec.get('plan')}; {counts[op]} tiled_march+coeff "
+              f"launches, {weights[op]} coeff_weights launches; "
+              f"{seconds:.2f} s with the f64 check [{label}]")
         require(rc == 0 and rec.get("converged")
                 and chk.get("residual_f64_rel", float("nan"))
                 < HETERO_CERT_BAR,
@@ -1298,9 +1362,12 @@ def run_hetero_cli(cli, kernel, label):
     require(abs(certs[0] - certs[1]) <= HETERO_CERT_AGREE * max(certs),
             f"hetero float64 certificates {certs} differ by more than "
             f"{HETERO_CERT_AGREE:.0%}")
-    require(counts["auto"] == 0 and counts["pallas"] > 0,
-            f"hetero coefficient launches {counts}")
-    return counts["pallas"]
+    require(counts["auto"] == 0 and counts["pallas"] > 0
+            and weights["auto"] == 0 and weights["pallas"] > 0
+            and recs["pallas"]["plan"].get("schedule") == "march",
+            f"hetero coefficient launches {counts}, weights {weights}, plan "
+            f"{recs['pallas']['plan']}")
+    return counts["pallas"], weights["pallas"]
 
 
 def time_cycles(mg, f, device):
@@ -1364,12 +1431,14 @@ def bound_of(nbytes, ops, dtype="float32"):
 
 
 # fp32 operations of the coefficient mode. The function needs the weights
-# once per point and launch (a(x) is fixed; the kernel recomputing them at
-# every sweep is its own choice): six face means of 4 (2x, *y, x+y, /),
-# their sum 5, the center 2, six weights 6. Then per update seven
-# products and six sums.
+# once per point and launch (a(x) is fixed; the window kernel recomputing
+# them at every sweep is its own choice): six face means of 4 (2x, *y,
+# x+y, /), their sum 5, the center 2, six weights 6. Then per update seven
+# products and six sums. The weights kernel forms three weights per
+# padded point (the hi faces are the neighbours' lo weights): 34.
 COEFF_WEIGHT_OPS = 37
 COEFF_SWEEP_OPS = 13
+WEIGHTS_KERNEL_OPS = 34
 
 
 def coeff_ops(n_int, k):
@@ -1491,7 +1560,8 @@ def window_twin(plan):
     from stencil_tpu_torch.ops.tiled import make_tiled_plan
 
     twin = make_tiled_plan(plan.spec, plan.interior_shape, plan.dtype,
-                           plan.sweeps_per_call, schedule="window")
+                           plan.sweeps_per_call, schedule="window",
+                           coeff_scales=plan.coeff_scales or None)
     require(twin.layout == plan.layout, f"{plan.tiles}: layouts differ")
     return twin
 
@@ -1501,6 +1571,15 @@ def time_call(fn, device, reps):
 
     fn()
     return timed(lambda: [fn() for _ in range(reps)], device) / reps * 1e3
+
+
+def discarding(fn):
+    """``fn`` with its result dropped at once: timed repeats of a call that
+    allocates its output then reuse one block of the allocator's instead
+    of holding every output (and paying a new allocation for each)."""
+    def call():
+        fn()
+    return call
 
 
 def run_cli(cli, args, kernel, label, count="launches"):
@@ -1686,8 +1765,10 @@ def compare_subset(kernel, plan, cur, pins, mode, src=None, coeff=None,
 
 def subset_bound(plan, subset, src):
     """(bound ms, 'bytes' or 'operations') of one subset launch: the padded
-    input cells its windows cover read once (the source's too), its
-    columns' points written once, k sweeps of updates on those points."""
+    input cells its windows cover read once (the source's, or a
+    coefficient plan's a(x), too), its columns' points written once, k
+    sweeps of updates on those points (a coefficient plan's weights once
+    per point, ``coeff_ops``)."""
     from stencil_tpu_torch.ops.sweep_kernel import column_boxes
 
     kr = plan.halo
@@ -1699,29 +1780,32 @@ def subset_bound(plan, subset, src):
         tiles[b0, b1] = True
         cover[b0.start - kr:b0.stop + kr, b1.start - kr:b1.stop + kr] = True
     written = int(tiles.sum()) * n2
-    read = int(cover.sum()) * (n2 + 2 * kr) * (2 if src is not None else 1)
-    ops = written * plan.sweeps_per_call * (
-        plan.spec.flops_per_point + (1 if src is not None else 0))
+    two = src is not None or plan.has_coeff
+    read = int(cover.sum()) * (n2 + 2 * kr) * (2 if two else 1)
+    ops = coeff_ops(written, plan.sweeps_per_call) if plan.has_coeff else \
+        written * plan.sweeps_per_call * (
+            plan.spec.flops_per_point + (1 if src is not None else 0))
     return bound_of(plan.itemsize * (read + written), ops, plan.dtype)
 
 
-def subset_times(kernel, plan, cur, pins, src, reps):
-    """One interior and one edge launch of ``plan`` and the full launch on
-    the same block: kernel ms of each, the plain version's ms of the pair,
-    and the pair's bound (the two launches' bounds summed)."""
+def subset_times(kernel, plan, cur, pins, src, reps, coeff=None):
+    """One interior and one edge launch of ``plan`` (a coefficient plan
+    with its operand ``coeff``) and the full launch on the same block:
+    kernel ms of each, the plain version's ms of the pair, and the pair's
+    bound (the two launches' bounds summed)."""
     from stencil_tpu_torch.ops.sweep_kernel import subset_reference
     from stencil_tpu_torch.ops.tiled import partition_tiles
 
     interior, edge = partition_tiles(plan)
     nxt = cur.clone()
-    t_int = time_call(lambda: kernel(cur, nxt, plan, src, pins,
+    t_int = time_call(lambda: kernel(cur, nxt, plan, src, pins, coeff=coeff,
                                      subset=interior), DEVICE, reps)
-    t_edge = time_call(lambda: kernel(cur, nxt, plan, src, pins,
+    t_edge = time_call(lambda: kernel(cur, nxt, plan, src, pins, coeff=coeff,
                                       subset=edge), DEVICE, reps)
-    t_full = time_call(lambda: kernel(cur, nxt, plan, src, pins), DEVICE,
-                       reps)
+    t_full = time_call(lambda: kernel(cur, nxt, plan, src, pins,
+                                      coeff=coeff), DEVICE, reps)
     plain = time_call(lambda: [subset_reference(cur, nxt, plan, s, src,
-                                                pins=pins)
+                                                coeff, pins)
                                for s in (interior, edge)], DEVICE, 2)
     b_int, b_edge = (subset_bound(plan, s, src) for s in (interior, edge))
     by = "bytes" if "bytes" in (b_int[1], b_edge[1]) else "operations"
@@ -1730,18 +1814,20 @@ def subset_times(kernel, plan, cur, pins, src, reps):
                 columns=(len(interior), len(edge)))
 
 
-def window_pair_ms(kernel, plan, cur, pins, src, reps):
+def window_pair_ms(kernel, plan, cur, pins, src, reps, coeff=None):
     """The window schedule's interior + edge launches of the same block
-    as the march ``plan`` (its own partition), or its full launch where
+    as the march ``plan`` (its own partition; a coefficient plan with the
+    window's operand ``coeff``, the padded a(x)), or its full launch where
     its tiles leave either set empty."""
     from stencil_tpu_torch.ops.tiled import partition_tiles
 
     twin = window_twin(plan)
     if all(partition_tiles(twin)):
-        rec = subset_times(kernel, twin, cur, pins, src, reps)
+        rec = subset_times(kernel, twin, cur, pins, src, reps, coeff)
         return rec["interior"] + rec["edge"]
     nxt = cur.clone()
-    return time_call(lambda: kernel(cur, nxt, twin, src, pins), DEVICE, reps)
+    return time_call(lambda: kernel(cur, nxt, twin, src, pins, coeff=coeff),
+                     DEVICE, reps)
 
 
 def run_sharded_eager_cli(cli, label):
@@ -1905,8 +1991,10 @@ def time_sharded(kernel, label):
                     f"{name}: not bitwise the single-device result")
             same = "bitwise equal to tiled"
         del out
-        t1 = sorted(timed(lambda: run(n1), DEVICE) for _ in range(2))[0]
-        t2 = sorted(timed(lambda: run(n2), DEVICE) for _ in range(2))[0]
+        # the least of two runs each (the window's, steady to 1%: one)
+        tries = range(2 if schedule == "march" else 1)
+        t1 = min(timed(lambda: run(n1), DEVICE) for _ in tries)
+        t2 = min(timed(lambda: run(n2), DEVICE) for _ in tries)
         per_sweep = (t2 - t1) / (n2 - n1)
         extra = ""
         if method_name != "tiled" and schedule == "march":
@@ -2322,8 +2410,9 @@ def main() -> int:
     from stencil_tpu_torch.parallel import rma as rma_module
 
     kernels = (tiled_kernel.tiled_sweep, tiled_kernel.tiled_march,
-               slab_kernel.slab_sweep, rma_module.rma_iterate)
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+               tiled_kernel.coeff_weights, slab_kernel.slab_sweep,
+               rma_module.rma_iterate)
+    with concurrent.futures.ThreadPoolExecutor(len(kernels) + 1) as pool:
         t0 = time.perf_counter()
         golden = pool.submit(native.available)
         builds = [pool.submit(kernel.build) for kernel in kernels]
@@ -2429,33 +2518,44 @@ def main() -> int:
         compare_two_level(tiled, MAIN_SIZE, 1, rng, device),
         compare_two_level(tiled, RAGGED_SIZE, 3, rng, device),
         compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device))
-    # the coefficient mode: cfg16's marching plan and ragged at k=3; the
-    # k=1 matvec of cfg18 (its scales, a random ghost ring) at 255^3 and
-    # at every OperatorMultigrid level below it
+    # the coefficient mode on the march, its weights from the weights
+    # kernel, each case also against the window's launch from a(x):
+    # cfg16's marching plan and ragged at k=3, with periodic 0 1, neumann
+    # 1 and periodic 0 + neumann 1; the k=1 matvec of cfg18 (its scales,
+    # a random ghost ring) at 255^3 and at every OperatorMultigrid level
+    # below it, the level's own weights (operator_data) equal to the
+    # kernel's
     from stencil_tpu_torch.multigrid import OperatorMultigrid
+    from stencil_tpu_torch.ops.tiled import pad_coeff
 
-    coeff_errs = []
-    for shape, k in ((MAIN_SIZE, 8), (RAGGED_SIZE, 3)):
-        plan, cur, coeff = marching_inputs(shape, k, rng, device)
-        coeff_errs.append(compare_coeff(
-            tiled, plan, cur, coeff,
-            f"FTCS {shape} two_material contrast {CONTRAST:g}"))
+    def fold(found):
+        for m, d in found.items():
+            err[m] = max(err.get(m, 0.0), d)
+
+    per01, neu01 = walls(3, (0, 1)), walls(3, (), (0, 1))
+    mixed, neu1 = walls(3, (0,), (1,)), walls(3, (), (1,))
+    for shape, k, bc in ((MAIN_SIZE, 8, None), (RAGGED_SIZE, 3, None),
+                         (MAIN_SIZE, 8, per01), (RAGGED_SIZE, 3, neu1),
+                         (RAGGED_SIZE, 3, mixed)):
+        plan, cur, a = marching_inputs(shape, k, rng, device, bc)
+        fold(compare_coeff(tiled, plan, cur, a, f"FTCS {shape} two_material"
+                           f" contrast {CONTRAST:g}", bc)[0])
     for level, lp in enumerate(OperatorMultigrid(
             hetero_problem("pallas"))._probs):
-        coeff_errs.append(compare_coeff(
-            tiled, lp._kernel_plan(), random_ring(lp.shape, rng, device),
-            lp.operator_data()[1],
+        lplan = lp._kernel_plan()
+        found, w = compare_coeff(
+            tiled, lplan, random_ring(lp.shape, rng, device),
+            pad_coeff(lplan, lp.a, lp.bc).to(device),
             f"cfg18 matvec, OperatorMultigrid level {level} {lp.shape}, "
-            f"random ghost ring,"))
-    err["tiled_sweep+coeff"] = max(coeff_errs)
+            f"random ghost ring,")
+        fold(found)
+        require(torch.equal(lp.operator_data()[1], w),
+                f"level {level}: operator_data's weights differ")
     # the pins: every mode on a dynamic-wall path, one launch on a refreshed
     # random grid at the main paths' plans (periodic, Neumann, mixed,
     # ragged, radius 2, --periodic all at k=1), and the runners over a
-    # remainder against the eager iterate
-    from stencil_tpu_torch.ops.tiled import pad_coeff
-
-    per01, neu01 = walls(3, (0, 1)), walls(3, (), (0, 1))
-    mixed, per_all = walls(3, (0,), (1,)), walls(3, (0, 1, 2))
+    # remainder against the eager iterate (the coefficient mode's above)
+    per_all = walls(3, (0, 1, 2))
     per0_2d, neu0_2d = walls(2, (0,)), walls(2, (), (0,))
 
     def pins_case(kernel, plan, bc, mode, **kw):
@@ -2501,13 +2601,6 @@ def main() -> int:
                   prev=pins_input(wave_plan(RAGGED_SIZE, 3), per01, rng,
                                   device)),
         compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device, bc=per01))
-    mode = "tiled_sweep+coeff+pins"
-    coeff_errs = []
-    for shape, k, bc in ((MAIN_SIZE, 8, per01), (RAGGED_SIZE, 3, mixed)):
-        plan, cur, coeff = marching_inputs(shape, k, rng, device, bc)
-        coeff_errs.append(compare_pins(tiled, plan, bc, cur, mode,
-                                       coeff=coeff))
-    err[mode] = max(coeff_errs)
     mode = "slab_sweep+pins"
     s16 = make_slab_plan(j5, CFG1[1], "float32", CFG1[2])
     err[mode] = max(
@@ -2687,8 +2780,9 @@ def main() -> int:
                                           tiles=(8, 8, 16)), MESH_PINS,
                     scale=-0.01))
     # the modes no sharded path runs take a subset too (every face pinned
-    # in the Chebyshev modes)
-    from stencil_tpu_torch.ops.tiled import pad_coeff
+    # in the Chebyshev modes); the coefficient mode on the march through
+    # its weights and on the window from a(x)
+    from stencil_tpu_torch.ops.tiled_kernel import coeff_weights
 
     cheby = ((0.1, 0.2, -0.05, 0.3), (0.2, 0.1, 0.4, -0.2),
              (0.3, 0.15, 0.05, 0.1))
@@ -2696,12 +2790,13 @@ def main() -> int:
         mode = f"tiled_sweep+{'dual' if dual else 'cheby'}+subset"
         err[mode] = subset_case(mode, cheby_plan(local, cheby, dual),
                                 (1, 1, 1, 1), scale=1.0, dual=dual)
-    mode = "tiled_sweep+coeff+subset"
     cplan = make_tiled_plan(j7, local, "float32", 8,
                             coeff_scales=(0.1, 1.0, -0.1))
-    err[mode] = subset_case(
-        mode, cplan, coeff=pad_coeff(cplan, rng.random(local) + 0.5,
-                                     walls(3)).to(device))
+    ca = pad_coeff(cplan, rng.random(local) + 0.5, walls(3)).to(device)
+    err["tiled_march+coeff+subset"] = subset_case(
+        "tiled_march+coeff+subset", cplan, coeff=coeff_weights(ca, cplan))
+    err["tiled_sweep+coeff+subset"] = subset_case(
+        "tiled_sweep+coeff+subset", window_twin(cplan), coeff=ca)
     # the march (csrc/tiled_march.cu): jacobi7, jacobi27 and star3d_r2 in
     # fp32 and bf16 at k = 1, 2, 3, 8 on the ragged shape, then with
     # --periodic 0 1, --neumann 0 1 and the source mode, each launch
@@ -2710,11 +2805,6 @@ def main() -> int:
     # march plans, and the window's subsets run here
     t_march = time.perf_counter()
     j27 = get_spec("jacobi27")
-
-    def fold(found):
-        for m, d in found.items():
-            err[m] = max(err.get(m, 0.0), d)
-
     for spec in (j7, j27, star2):
         for dtype in ("float32", bf):
             for k in (1, 2, 3, 8):
@@ -2799,10 +2889,12 @@ def main() -> int:
         launches[mode] = launches.get(mode, 0) + sum(
             c[mode] for c in solve_counts.values())
     # the wave main path (two-level mode), -m varcoeff and --solve hetero
-    # (coefficient mode)
+    # (the coefficient mode on the march, and the weights kernel)
     launches["tiled_sweep+two_level"] = run_wave(tiled, rng, label)
-    launches["tiled_sweep+coeff"] = (run_varcoeff_cli(cli, tiled, label)
-                                     + run_hetero_cli(cli, tiled, label))
+    coeff_runs = [run_varcoeff_cli(cli, tiled, label),
+                  run_hetero_cli(cli, tiled, label)]
+    launches["tiled_march+coeff"] = sum(n for n, _ in coeff_runs)
+    launches["coeff_weights"] = sum(w for _, w in coeff_runs)
     # the dynamic-wall paths: every launch of each run must be a pins
     # launch of its mode (no eager or plain fallback)
     main3d = ["-s", *map(str, MAIN_SIZE), "--spec", "jacobi7", "-i",
@@ -2827,8 +2919,10 @@ def main() -> int:
         poisson_big[mode] = poisson_golden(shape, kernel, rng, bc, count)
         launches[mode] = poisson_big[mode][3]
     launches["tiled_sweep+two_level+pins"] = run_wave_pins(tiled, rng, label)
-    launches["tiled_sweep+coeff+pins"] = run_varcoeff_cli(
-        cli, tiled, label, ("--periodic", "0", "1"), "coeff_pins_launches")
+    launches["tiled_march+coeff+pins"], weights = run_varcoeff_cli(
+        cli, tiled, label, ("--periodic", "0", "1"),
+        "march_coeff_pins_launches")
+    launches["coeff_weights"] += weights
     # the bf16 main paths, each -c at the bf16 bar and every launch a bf16
     # one: cfg3 and cfg4-bf16 through the CLI (fewer iterations than the
     # fp32 path, see BF16_TOL), cfg1 in bf16, the Poisson runners (cfg8 in
@@ -3086,9 +3180,30 @@ def main() -> int:
         device=DEVICE)
     for name, method in (("cfg16", "tiled"), ("cfg16b", "eager")):
         vrun = vdiff.runner(method=method, sweeps_per_call=8)
+        require(method != "tiled" or vrun.plan_info["schedule"] == "march",
+                f"cfg16: plan {vrun.plan_info}")
         bench(vrun, vdiff.initial_grid(), int(np.prod(MAIN_SIZE)), device,
               hbm, label, f"{name} varcoeff {MAIN_SIZE} {vrun.name} "
               f"{vrun.plan_info}")
+    # cfg16 on the window schedule: the same sweeps from the padded a(x)
+    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.ops.tiled import coeff_iterate, pad_coeff
+
+    lam = vdiff.stable_dt / vdiff.h ** 2
+    wplan = make_tiled_plan(j7, MAIN_SIZE, "float32", 8,
+                            coeff_scales=(lam, 1.0, -lam), schedule="window")
+    wa = pad_coeff(wplan, vdiff.a, vdiff.bc).to(device)
+
+    def window16(g, n):
+        return HaloGrid(data=coeff_iterate(wplan, g.data, vdiff.bc, wa,
+                                           n // 8, g.halo, n % 8),
+                        halo=g.halo, bc=g.bc)
+
+    bench(registry.Runner(name="cfg16_window", granularity=8,
+                          iterate=window16), vdiff.initial_grid(),
+          int(np.prod(MAIN_SIZE)), device, hbm, label,
+          f"cfg16 varcoeff {MAIN_SIZE} window k=8 tiles {wplan.tiles}")
+    del wa
     # cfg18: BiCGStab + OperatorMultigrid on the 255^3 heterogeneous
     # Poisson problem, tol 1e-4, at most 1000 iterations, f seed 7, with
     # the eager matvec (auto) and the coefficient mode's (pallas)
@@ -3220,17 +3335,23 @@ def main() -> int:
           f"{bound_by[mode]}); library conv3d (2 channels) "
           f"{library_ms[mode]:.4f} ms per step (the kernel does {WAVE_K}; "
           f"vs one plain step max abs diff {lib_check():.3e}) [{label}]")
-    # the coefficient mode at cfg16's plan: no single PyTorch call forms
+    # the coefficient mode at cfg16's plan, on the march through the
+    # weights and on the window from a(x): no single PyTorch call forms
     # per-point weights; the eager field sweep (cfg16b's) is printed beside
     from stencil_tpu_torch.ops.eager import apply_fields
+    from stencil_tpu_torch.ops.sweep_kernel import coeff_weights_reference
+    from stencil_tpu_torch.ops.tiled import coeff_apply
+    from stencil_tpu_torch.ops.tiled_kernel import coeff_weights
 
-    mode = "tiled_sweep+coeff"
-    plan, cur, coeff = marching_inputs(MAIN_SIZE, 8, rng, device)
+    mode = "tiled_march+coeff"
+    plan, cur, a = marching_inputs(MAIN_SIZE, 8, rng, device)
+    w = coeff_weights(a, plan)
+    twin = window_twin(plan)
     nxt = cur.clone()
-    ms[mode] = time_call(lambda: tiled(cur, nxt, plan, coeff=coeff), device,
-                         10)
-    plain_ms[mode] = time_call(lambda: sweep_reference(cur, plan,
-                                                       coeff=coeff),
+    ms[mode] = time_call(lambda: tiled(cur, nxt, plan, coeff=w), device, 10)
+    window_ms[mode] = time_call(lambda: tiled(cur, nxt, twin, coeff=a),
+                                device, 3)
+    plain_ms[mode] = time_call(lambda: sweep_reference(cur, plan, coeff=w),
                                device, 3)
     library_ms[mode] = None
     n_int = int(np.prod(plan.interior_shape))
@@ -3244,28 +3365,59 @@ def main() -> int:
     cur_h1 = cur[tuple(slice(h - 1, h + n + 1) for n in MAIN_SIZE)]
     eager_ms = time_call(lambda: apply_fields(cur_h1, offsets, fields, 1),
                          device, 10)
-    print(f"one call of {mode} {MAIN_SIZE} k={plan.sweeps_per_call}, tiles "
-          f"{plan.tiles}: kernel {ms[mode]:.4f} ms, plain "
+    del fields
+    print(f"one call of {mode} {MAIN_SIZE} k={plan.sweeps_per_call}, march "
+          f"tiles {plan.tiles}: kernel {ms[mode]:.4f} ms, the window's "
+          f"launch (tiles {twin.tiles}) {window_ms[mode]:.4f} ms, plain "
           f"{plain_ms[mode]:.4f} ms, bound {bound_ms[mode]:.4f} ms (by "
           f"{bound_by[mode]}); library none (per-point weights); the eager "
           f"field sweep (cfg16b) {eager_ms:.4f} ms per sweep [{label}]")
-    # the k=1 matvec of cfg18 at 255^3: kernel, plain, eager field matvec
+    # the weights kernel, once per run, at cfg16's padded grid: a(x) read
+    # once, four fields written
+    mode = "coeff_weights"
+    ms[mode] = time_call(discarding(lambda: coeff_weights(a, plan)), device,
+                         10)
+    plain_ms[mode] = time_call(
+        discarding(lambda: coeff_weights_reference(a, plan)), device, 3)
+    library_ms[mode] = None
+    bound_ms[mode], bound_by[mode] = bound_of(20 * n_pad,
+                                              WEIGHTS_KERNEL_OPS * n_pad)
+    print(f"one call of {mode} {plan.layout.padded_shape} (cfg16's padded "
+          f"a(x), once per run): kernel {ms[mode]:.4f} ms, plain "
+          f"{plain_ms[mode]:.4f} ms, bound {bound_ms[mode]:.4f} ms (by "
+          f"{bound_by[mode]}); library none [{label}]")
+    del w, a, cur, nxt
+    # the k=1 matvec of cfg18 at 255^3: one launch on the march through
+    # the level's weights and one on the window from a(x), into one
+    # output; the operator's matvec around the march launch; plain; the
+    # eager field matvec
     kprob, eprob = hetero_problem("pallas"), hetero_problem("auto")
     kplan, kdata, edata = (kprob._kernel_plan(), kprob.operator_data(),
                            eprob.operator_data())
     x = random_ring(HETERO_SIZE, rng, device)
-    mv_ms = time_call(lambda: kprob.operator_apply(x, kdata), device, 20)
-    mv_plain = time_call(lambda: sweep_reference(x, kplan, coeff=kdata[1]),
-                         device, 3)
-    mv_eager = time_call(lambda: eprob.operator_apply(x, edata), device, 20)
+    y = torch.empty_like(x)
+    mv_twin = window_twin(kplan)
+    mv_a = pad_coeff(kplan, kprob.a, kprob.bc).to(device)
+    mv_ms = time_call(lambda: tiled(x, y, kplan, coeff=kdata[1]), device, 20)
+    mv_window = time_call(lambda: tiled(x, y, mv_twin, coeff=mv_a), device,
+                          20)
+    mv_apply = time_call(discarding(lambda: kprob.operator_apply(x, kdata)),
+                         device, 20)
+    mv_plain = time_call(discarding(lambda: sweep_reference(
+        x, kplan, coeff=kdata[1])), device, 3)
+    mv_eager = time_call(discarding(lambda: eprob.operator_apply(x, edata)),
+                         device, 20)
     n_int = int(np.prod(HETERO_SIZE))
     mv_bound, mv_by = bound_of(
         kplan.itemsize * (2 * int(np.prod(x.shape)) + n_int),
         coeff_ops(n_int, 1))
-    print(f"one cfg18 matvec {HETERO_SIZE} (coeff mode k=1, tiles "
-          f"{kplan.tiles}): kernel {mv_ms:.4f} ms, plain {mv_plain:.4f} ms, "
-          f"bound {mv_bound:.4f} ms (by {mv_by}); the eager field matvec "
+    print(f"one cfg18 matvec {HETERO_SIZE} (coeff mode k=1, march tiles "
+          f"{kplan.tiles}): kernel {mv_ms:.4f} ms, the window's launch "
+          f"(tiles {mv_twin.tiles}) {mv_window:.4f} ms, operator_apply "
+          f"{mv_apply:.4f} ms, plain {mv_plain:.4f} ms, bound "
+          f"{mv_bound:.4f} ms (by {mv_by}); the eager field matvec "
           f"{mv_eager:.4f} ms [{label}]")
+    del kdata, edata, mv_a, x, y
 
     stamp("one launch per fp32 mode")
     # the device's busy share over cfg1's main-path run (1024 iterations)
@@ -3367,9 +3519,10 @@ def main() -> int:
     pins_inputs.append(("tiled_sweep+two_level+pins", tiled, wplan, mixed,
                         pins_input(wplan, mixed, rng, device), None,
                         pins_input(wplan, mixed, rng, device), None))
-    plan, cur, coeff = marching_inputs(MAIN_SIZE, 8, rng, device, per01)
-    pins_inputs.append(("tiled_sweep+coeff+pins", tiled, plan, per01, cur,
-                        None, None, coeff))
+    plan, cur, a = marching_inputs(MAIN_SIZE, 8, rng, device, per01)
+    window_coeff = {"tiled_march+coeff+pins": a}  # the window reads a(x)
+    pins_inputs.append(("tiled_march+coeff+pins", tiled, plan, per01, cur,
+                        None, None, coeff_weights(a, plan)))
     pins_inputs.append(("slab_sweep+pins", slab, s16, per0_2d,
                         pins_input(s16, per0_2d, rng, device), None, None,
                         None))
@@ -3384,8 +3537,9 @@ def main() -> int:
                                             coeff=coeff), device, 10)
         if mode.startswith("tiled_march"):
             twin = window_twin(plan)
-            window_ms[mode] = time_call(lambda: kernel(cur, nxt, twin, src,
-                                                       pins), device, 5)
+            window_ms[mode] = time_call(lambda: kernel(
+                cur, nxt, twin, src, pins, coeff=window_coeff.get(mode)),
+                device, 3 if mode in window_coeff else 5)
             print(f"  the window schedule's launch of {mode} (tiles "
                   f"{twin.tiles}): {window_ms[mode]:.4f} ms [{label}]")
         plain_ms[mode] = time_call(lambda: sweep_reference(
@@ -3550,6 +3704,27 @@ def main() -> int:
               f"{rec['full_bound']:.4f}); library conv3d "
               f"{rec['library']:.4f} ms per sweep (vs one plain sweep max "
               f"abs diff {lib_check():.3e}) [{label}]")
+    # the coefficient subsets (no sharded path runs them): one interior +
+    # one edge launch on the march through the weights beside the
+    # window's pair from a(x), at the same local block
+    cplan = make_tiled_plan(j7, local, "float32", 8,
+                            coeff_scales=(0.1, 1.0, -0.1))
+    cur = pins_input(cplan, walls(3), rng, device)
+    ca = pad_coeff(cplan, rng.random(local) + 0.5, walls(3)).to(device)
+    rec = subset_times(tiled, cplan, cur, MESH_PINS, None, 10,
+                       coeff_weights(ca, cplan))
+    rec["window"] = window_pair_ms(tiled, cplan, cur, MESH_PINS, None, 3, ca)
+    n_local = int(np.prod(local))
+    full_bound = bound_of(cplan.itemsize * (2 * ca.numel() + n_local),
+                          coeff_ops(n_local, cplan.sweeps_per_call))[0]
+    print(f"one interior + one edge launch of tiled_march+coeff+subset "
+          f"({local} k=8 tiles {cplan.tiles}, pins {list(MESH_PINS)}, "
+          f"{rec['columns'][0]} interior + {rec['columns'][1]} edge "
+          f"columns): kernel {rec['interior']:.4f} + {rec['edge']:.4f} ms "
+          f"beside {rec['full']:.4f} ms for the full launch; the window "
+          f"schedule's pair {rec['window']:.4f} ms; plain "
+          f"{rec['plain']:.4f} ms; bound {rec['bound']:.4f} ms (by "
+          f"{rec['by']}; the full launch {full_bound:.4f}) [{label}]")
     for mode, rec in sub.items():
         ms[mode] = rec["interior"] + rec["edge"]
         window_ms[mode] = rec["window"]
@@ -3560,8 +3735,10 @@ def main() -> int:
           "all)")
 
     modules = {"tiled_sweep": tiled_kernel, "tiled_march": tiled_kernel,
-               "slab_sweep": slab_kernel, "rma_iterate": rma_module}
-    sources = {"tiled_march": tiled_kernel.MARCH_SOURCE}
+               "coeff_weights": tiled_kernel, "slab_sweep": slab_kernel,
+               "rma_iterate": rma_module}
+    sources = {"tiled_march": tiled_kernel.MARCH_SOURCE,
+               "coeff_weights": tiled_kernel.WEIGHTS_SOURCE}
     print(json.dumps({"kernels": [{
         "name": mode, "route": "cuda",
         "source": str(sources.get(mode.split("+")[0], modules[

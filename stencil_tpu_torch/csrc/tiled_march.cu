@@ -4,12 +4,13 @@
 //
 // Replaces stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep (the Pallas
 // TPU kernel, :704, pallas_call at :1821) in its homogeneous and source
-// (has_source, :1326) modes, with its pins (:1270-1305) and its tile
-// subsets (:746-758), in fp32 and bf16. The TPU kernel's Chebyshev, dual,
-// two-level and coefficient modes run on the window schedule of
-// tiled_sweep.cu. Wrapper, plan and plain PyTorch version:
-// stencil_tpu_torch/ops/tiled_kernel.py, ops/tiled.py (schedule "march"),
-// ops/sweep_kernel.py:sweep_reference.
+// (has_source, :1326) modes, in fp32 and bf16, and in its coefficient mode
+// (tap_mode='coeff', taps_coeff :1195-1229; fp32 only, as the TPU kernel,
+// :451-455), each with its pins (:1270-1305) and its tile subsets
+// (:746-758). The TPU kernel's Chebyshev, dual and two-level modes run on
+// the window schedule of tiled_sweep.cu. Wrapper, plan and plain PyTorch
+// version: stencil_tpu_torch/ops/tiled_kernel.py, ops/tiled.py (schedule
+// "march"), ops/sweep_kernel.py:sweep_reference.
 //
 // What it computes: exactly what tiled_sweep.cu computes in those modes
 // (see its header), bitwise: `in` and `out` are padded (n0+2H, n1+2H,
@@ -21,9 +22,21 @@
 // face (pins 0, d0 and d1 only) is updated like the interior; d2 is always
 // pinned; the ghosts of `out` are never written.
 //
+// The coefficient mode (radius 1): each update is
+//   W3(p)u(p) + W1(p)u(p-e1) + W1(p+e1)u(p+e1) + W2(p)u(p-e2)
+//   + W2(p+e2)u(p+e2) + W0(p)u(p-e0) + W0(p+e0)u(p+e0),
+// summed left to right, of the four weight fields W (nb*harm of the lo
+// face in d0, d1, d2, and the centre c0 + cs*sum of the six face means)
+// that coeff_weights.cu forms once per run from the padded a(x): the hi
+// face's weight at p is the lo face's at p+e_d (harm is bitwise
+// symmetric), and a stored nb*harm times u is the product tiled_sweep.cu
+// forms, so the two schedules agree bitwise. The weights come through the
+// read-only cache at every level; only u lives in the rings.
+//
 // What bounds it on this card. By the roofline rule (each input read once,
 // each output written once) k sweeps in one launch are bound by bytes, at
-// 256^3 k=8 fp32 by ~0.044 ms. The window schedule (tiled_sweep.cu) loses
+// 256^3 k=8 fp32 by ~0.044 ms (the coefficient mode, which also reads
+// a(x) once, by ~0.068 ms). The window schedule (tiled_sweep.cu) loses
 // to its instruction count instead: its 3D windows shrink by r per sweep in
 // every dim, so an (8,16,16) tile at k=8 updates ~4.5 points per useful
 // update, two fp32 windows of 24x32x32 leave one block of 512 threads per
@@ -66,6 +79,13 @@
 //     every lane busy. Taps read shared memory at an offset that is the
 //     step's slot delta plus d1 times the level's row width, formed once
 //     per level and step.
+//   - Coefficients. The window schedule's coefficient mode formed six face
+//     means from a(x) at every update of every sweep (7 loads, 6 divides
+//     and ~44 more operations) on top of its 3D windows' recomputation.
+//     Here the weights are formed once per run (coeff_weights.cu), and an
+//     update costs 7 weight loads from L2 or HBM and 13 operations: W is 16
+//     bytes per padded point, and the k levels re-read a plane's weights
+//     within k(r+1) steps of each other.
 //
 // Shared memory: S * sum_{s=0}^{k-1} (t1 + 2(k-s)r)(t2 + 2(k-s)r) * sizeof(T)
 // <= 232,448 bytes (the plan chooser, ops/tiled.py:march_smem_bytes, keeps
@@ -185,9 +205,34 @@ __device__ __forceinline__ float tap_sum(const T* __restrict__ src, int p,
   }
 }
 
+// The coefficient mode's update at point p of level s-1's centre plane `u`
+// in the ring (row width wp; its d0 neighbours at offsets dm and dp), the
+// weights read at padded index q of `w` (four fields of `field` points,
+// d0 stride pstride, d1 stride p2): tiled_sweep.cu's order
+// (coeff_update), each step rounded.
+__device__ __forceinline__ float coeff_update(
+    const float* __restrict__ u, int p, int wp, int dm, int dp,
+    const float* __restrict__ w, int64_t q, int64_t field, int64_t pstride,
+    int p2) {
+  const float* const w1 = w + field;
+  const float* const w2 = w1 + field;
+  float acc = __fmul_rn(__ldg(w2 + field + q), u[p]);
+  acc = __fadd_rn(acc, __fmul_rn(__ldg(w1 + q), u[p - wp]));
+  acc = __fadd_rn(acc, __fmul_rn(__ldg(w1 + q + p2), u[p + wp]));
+  acc = __fadd_rn(acc, __fmul_rn(__ldg(w2 + q), u[p - 1]));
+  acc = __fadd_rn(acc, __fmul_rn(__ldg(w2 + q + 1), u[p + 1]));
+  acc = __fadd_rn(acc, __fmul_rn(__ldg(w + q), u[p + dm]));
+  return __fadd_rn(acc, __fmul_rn(__ldg(w + q + pstride), u[p + dp]));
+}
+
+// What a launch computes (see the header).
+enum Mode { kPlain = 0, kSource = 1, kCoeff = 2 };
+
 // NT > 0: a spec of exactly NT taps, offsets in registers; NT == 0: any
-// spec. SOURCE: add the padded source after the taps. T: float or bf16.
-template <int NT, bool SOURCE, typename T>
+// spec (kCoeff: the taps unused). MODE: kPlain, kSource (add the padded
+// source after the taps) or kCoeff (`source` holds the weight fields W).
+// T: float or bf16 (kCoeff: float only).
+template <int NT, int MODE, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
                    const T* __restrict__ source,
@@ -212,6 +257,8 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
   const int o1 = min(i1 * g.t1, g.n1 - g.t1) + g.halo - kr;
   const int o2 = min(i2 * g.t2, g.n2 - g.t2) + g.halo - kr;
   const int64_t pstride = (int64_t)g.p1 * g.p2;
+  // kCoeff: the points of one weight field, the padded grid
+  const int64_t field = (int64_t)(g.n0 + 2 * g.halo) * pstride;
   const int S = g.slots, Q = g.q, r = g.r;
 
   // the input plane: this thread's first point (ly, lx) of the flattened
@@ -277,6 +324,8 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
       for (int t = 0; t < NT; ++t)
         sdd[t] = slot_delta(c, tp.d0[t], S, Q) + tp.d2[t];
     }
+    // kCoeff: the slot offsets of the d0 neighbours (r = 1)
+    const int dm = slot_delta(c, -1, S, Q), dp = slot_delta(c, 1, S, Q);
     for (int s = 1; s <= g.k; ++s) {
       const int m = j - (s * (r + 1) - 1);  // level s's plane this step
       if (m < s * r || m >= g.planes - s * r) continue;
@@ -305,9 +354,14 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
           const int p = y * wp + x;
           float v;
           if (live0 && y >= ylo && y < yhi && x >= xlo && x < xhi) {
-            v = tap_sum<NT, T>(src, p, off, taps, tp, c, S, Q, wp);
-            if constexpr (SOURCE)
-              v = add<T>(v, N::ldg(source + gbase + y * g.p2 + x));
+            if constexpr (MODE == kCoeff) {
+              v = coeff_update(src, p, wp, dm, dp, source,
+                               gbase + y * g.p2 + x, field, pstride, g.p2);
+            } else {
+              v = tap_sum<NT, T>(src, p, off, taps, tp, c, S, Q, wp);
+              if constexpr (MODE == kSource)
+                v = add<T>(v, N::ldg(source + gbase + y * g.p2 + x));
+            }
           } else {
             v = N::load(src[p]);
           }
@@ -319,10 +373,15 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
       } else {
         // level k: the tile, every point interior, straight to `out`
         for (int i = tid; i < n; i += kThreads) {
-          float v = tap_sum<NT, T>(src, y * wp + x, off, taps, tp, c, S, Q,
-                                   wp);
           const int64_t q = gbase + y * g.p2 + x;
-          if constexpr (SOURCE) v = add<T>(v, N::ldg(source + q));
+          float v;
+          if constexpr (MODE == kCoeff) {
+            v = coeff_update(src, y * wp + x, wp, dm, dp, source, q, field,
+                             pstride, g.p2);
+          } else {
+            v = tap_sum<NT, T>(src, y * wp + x, off, taps, tp, c, S, Q, wp);
+          }
+          if constexpr (MODE == kSource) v = add<T>(v, N::ldg(source + q));
           out[q] = N::store(v);
           x += sx;
           y += sy;
@@ -351,31 +410,31 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <int NT, bool SOURCE, typename T>
+template <int NT, int MODE, typename T>
 cudaError_t launch(const Launch<T>& l, const Taps& taps,
                    const TapPlanes& tp) {
   cudaError_t err = cudaFuncSetAttribute(
-      tiled_march_kernel<NT, SOURCE, T>,
+      tiled_march_kernel<NT, MODE, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.shared);
   if (err != cudaSuccess) return err;
-  tiled_march_kernel<NT, SOURCE, T><<<l.nblocks, kThreads, l.shared,
-                                      l.stream>>>(l.in, l.out, l.source,
-                                                  l.cols, l.g, taps, tp);
+  tiled_march_kernel<NT, MODE, T><<<l.nblocks, kThreads, l.shared,
+                                    l.stream>>>(l.in, l.out, l.source,
+                                                l.cols, l.g, taps, tp);
   return cudaGetLastError();
 }
 
-template <bool SOURCE, typename T>
+template <int MODE, typename T>
 cudaError_t dispatch(int ntaps, const Launch<T>& l, const Taps& taps,
                      const TapPlanes& tp) {
   switch (ntaps) {
     case 6:   // jacobi7, star3d_r1 (Poisson)
-      return launch<6, SOURCE>(l, taps, tp);
+      return launch<6, MODE>(l, taps, tp);
     case 12:  // star3d_r2, laplace3d_ho
-      return launch<12, SOURCE>(l, taps, tp);
+      return launch<12, MODE>(l, taps, tp);
     case 26:  // jacobi27
-      return launch<26, SOURCE>(l, taps, tp);
+      return launch<26, MODE>(l, taps, tp);
     default:
-      return launch<0, SOURCE>(l, taps, tp);
+      return launch<0, MODE>(l, taps, tp);
   }
 }
 
@@ -474,8 +533,29 @@ int march_entry(const T* in, T* out, const T* source, const int32_t* geom,
   l.stream = (cudaStream_t)stream;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return source ? (int)dispatch<true>(ntaps, l, taps, tp)
-                : (int)dispatch<false>(ntaps, l, taps, tp);
+  return source ? (int)dispatch<kSource>(ntaps, l, taps, tp)
+                : (int)dispatch<kPlain>(ntaps, l, taps, tp);
+}
+
+int coeff_entry(const float* in, const float* weights, float* out,
+                const int32_t* geom, int ngeom, const int32_t* cols,
+                int ncols, const int32_t* tap_offsets,
+                const int32_t* group_sizes, const float* group_weights,
+                int ntaps, int ngroups, int uniform, float uniform_weight,
+                int device, void* stream) {
+  Launch<float> l;
+  Taps taps;
+  TapPlanes tp;
+  const int rc = prepare(geom, ngeom, cols, ncols, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps, tp);
+  if (rc != 0) return rc;
+  if (weights == nullptr || l.g.r != 1) return kErrArgument;
+  l.in = in; l.out = out; l.source = weights;
+  l.stream = (cudaStream_t)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch<0, kCoeff>(l, taps, tp);
 }
 
 }  // namespace
@@ -517,6 +597,25 @@ int stencil_tiled_march_bf16(const __nv_bfloat16* in, __nv_bfloat16* out,
   return march_entry(in, out, source, geom, ngeom, cols, ncols, tap_offsets,
                      group_sizes, group_weights, ntaps, ngroups, uniform,
                      uniform_weight, device, stream);
+}
+
+// The coefficient mode: k sweeps of the radius-1 face-weight operator
+// whose weights `weights` (float32[4 * p0 * p1 * p2], device, required)
+// coeff_weights.cu formed from the padded a(x) (see the header). The tap
+// table is that of the plan's radius-1 spec; it sets the radius and is
+// otherwise unused. The other arguments and the return value are those of
+// stencil_tiled_march.
+int stencil_tiled_march_coeff(const float* in, const float* weights,
+                              float* out, const int32_t* geom, int ngeom,
+                              const int32_t* cols, int ncols,
+                              const int32_t* tap_offsets,
+                              const int32_t* group_sizes,
+                              const float* group_weights, int ntaps,
+                              int ngroups, int uniform, float uniform_weight,
+                              int device, void* stream) {
+  return coeff_entry(in, weights, out, geom, ngeom, cols, ncols,
+                     tap_offsets, group_sizes, group_weights, ntaps, ngroups,
+                     uniform, uniform_weight, device, stream);
 }
 
 const char* stencil_tiled_march_error(int code) {

@@ -28,7 +28,11 @@
 //     coefficient field a(x) and whose center is c0 + cs*(sum of the six
 //     face means): heterogeneous FTCS diffusion (nb = dt/h^2, c0 = 1,
 //     cs = -dt/h^2) and, at k = 1, the steady operator's matvec (nb =
-//     -1/h^2, c0 = 0, cs = 1/h^2).
+//     -1/h^2, c0 = 0, cs = 1/h^2). The plan rule (ops/tiled.py) runs
+//     this mode on the d0 march (tiled_march.cu) wherever its rings fit,
+//     from weights formed once per run (coeff_weights.cu); this window
+//     mode is the march's comparison, bitwise equal, and the schedule of
+//     a plan whose rings do not fit or that asks for the window.
 // Every mode but the coefficient one runs in fp32 or bf16 (the TPU kernel
 // at dtype=bfloat16; its coeff mode needs a 4-byte dtype, :451-455).
 // Wrapper and plain PyTorch version: stencil_tpu_torch/ops/tiled_kernel.py.
@@ -85,7 +89,11 @@
 // hi face equals the neighbour's lo face as the TPU kernel assumes. It
 // recomputes the weights at every sweep (7 loads, 6 divides per update)
 // where the TPU kernel stores them in five weight windows once per tile;
-// both modes thus keep the shared memory of a source launch.
+// both modes thus keep the shared memory of a source launch. That
+// recomputation, on top of the shrinking windows' overlap, is what binds
+// this mode (on an H100, 10.66 ms a launch at 256^3 k=8, 157x its bound,
+// PERF.md); the march
+// forms the weights once per run instead and reads four fields of them.
 //
 // Pins: the geometry carries one flag per face of d0 and d1 (lo, hi). A
 // pinned face (1) is a Dirichlet wall, as above. A live face (0) is a
@@ -151,11 +159,11 @@
 // update, which make it bound by operations even by the roofline rule.
 // Loads are plain, not TMA or cp.async, and do not overlap compute within
 // a block. The homogeneous and source modes (with pins, bf16 and tile
-// subsets) run instead on the d0 march of tiled_march.cu wherever its
-// rings fit (ops/tiled.py, schedule "march"): one ring of planes per sweep
-// level, so d0 is not recomputed and the input loads overlap the sweeps.
-// The Chebyshev, dual, two-level and coefficient modes stay on this
-// window schedule.
+// subsets) and the coefficient mode (with pins and subsets) run instead
+// on the d0 march of tiled_march.cu wherever its rings fit (ops/tiled.py,
+// schedule "march"): one ring of planes per sweep level, so d0 is not
+// recomputed and the input loads overlap the sweeps. The Chebyshev, dual
+// and two-level modes stay on this window schedule.
 
 #include <cuda_runtime.h>
 

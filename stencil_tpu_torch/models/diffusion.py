@@ -13,9 +13,11 @@ values (flux continuity across material interfaces): ``2*ndim + 1`` taps
 whose weights are fields. Two engines evaluate it. The eager one
 (``ops/eager.py:apply_fields``) reads the stacked float64-built weight
 fields, any rank and walls. The tiled kernel's coefficient mode (3D fp32;
-Dirichlet, periodic or Neumann d0 and d1) reads the padded a(x) and forms
-the face means itself, k sweeps per launch (``ops/tiled.py:coeff_iterate``;
-at k=1, on Dirichlet walls, the Krylov matvec ``coeff_apply``).
+Dirichlet, periodic or Neumann d0 and d1) runs k sweeps per launch
+(``ops/tiled.py:coeff_iterate``; at k=1, on Dirichlet walls, the Krylov
+matvec ``coeff_apply``) from the padded a(x): on the d0 march its face
+weights are formed once per runner or problem by the weights kernel
+(``ops/tiled.py:coeff_operand``), on the window schedule at every update.
 """
 
 from __future__ import annotations
@@ -154,10 +156,11 @@ class HeterogeneousDiffusion:
         steady states.
 
         ``method``: ``pallas_tiled``/``tiled`` (3D fp32, a Dirichlet d2)
-        runs the tiled kernel's coefficient mode, a(x) read per update and
-        the harmonic face weights formed in the kernel, ``sweeps_per_call``
-        sweeps per launch; ``xla``/``eager`` the rank-general eager field
-        sweep; ``auto`` the kernel where :meth:`uses_kernel`, else eager.
+        runs the tiled kernel's coefficient mode, ``sweeps_per_call``
+        sweeps per launch, its harmonic face weights formed once per
+        runner (on the march; ``plan_info["schedule"]``); ``xla``/
+        ``eager`` the rank-general eager field sweep; ``auto`` the kernel
+        where :meth:`uses_kernel`, else eager.
         ``plan_info["kernel"]`` says which ran. ``tiles``/``t0_fixed`` pin
         the kernel's tile; the JAX package's ``interpret`` is accepted and
         ignored."""
@@ -186,8 +189,9 @@ class HeterogeneousDiffusion:
     def _kernel_runner(self, k: int, tiles, t0_fixed) -> Runner:
         from stencil_tpu_torch.core.spec import get_spec
         from stencil_tpu_torch.ops.tiled import (
-            coeff_iterate, make_tiled_plan, pad_coeff,
+            coeff_iterate, coeff_operand, make_tiled_plan, pad_coeff,
         )
+        from stencil_tpu_torch.registry import schedule_info
 
         if self.ndim != 3:
             raise ValueError("the tiled coefficient kernel is 3D-only; "
@@ -200,7 +204,8 @@ class HeterogeneousDiffusion:
         plan = make_tiled_plan(get_spec("jacobi7"), tuple(self.shape),
                                self.dtype, k, tiles=tiles, t0_fixed=t0_fixed,
                                coeff_scales=(lam, 1.0, -lam))
-        coeff = pad_coeff(plan, self.a, self.bc).to(self.device)
+        coeff = coeff_operand(plan, pad_coeff(plan, self.a, self.bc)
+                              .to(self.device))
         bc = self.bc
 
         def iterate(grid: HaloGrid, n: int) -> HaloGrid:
@@ -214,10 +219,11 @@ class HeterogeneousDiffusion:
             iterate=iterate,
             granularity=k,
             description="variable-coefficient FTCS diffusion on the tiled "
-                        "kernel (a(x) read per update, harmonic face "
-                        "weights formed in the kernel)",
+                        "kernel (harmonic face weights formed once per "
+                        "runner on the march)",
             plan_info={"kernel": "tiled", "tiles": list(plan.tiles),
-                       "tap_mode": "coeff", "sweeps_per_call": k},
+                       **schedule_info(plan), "tap_mode": "coeff",
+                       "sweeps_per_call": k},
         )
 
     def initial_grid(self, interior=None) -> HaloGrid:
@@ -265,7 +271,8 @@ class HeterogeneousPoissonProblem:
     ``kernel``: ``auto``/``eager``/``xla`` evaluate the matvec with the
     eager field sweep over the float64-built weight fields; ``pallas``
     (3D fp32) with the tiled kernel's coefficient mode at k=1
-    (``ops/tiled.py:coeff_apply``), the face weights formed in the kernel.
+    (``ops/tiled.py:coeff_apply``), the face weights formed once per
+    problem (:meth:`operator_data`).
     ``with_discretization`` keeps ``kernel``, so a preconditioning
     hierarchy runs the same engine at every level. ``interpret`` (the JAX
     package's Pallas flag) is accepted and ignored.
@@ -341,16 +348,22 @@ class HeterogeneousPoissonProblem:
     def operator_data(self):
         """The operator's device tensors, built once: the stacked weight
         fields (the Jacobi diagonal and the eager matvec read them), and
-        with ``kernel='pallas'`` the pair (fields, padded coefficient)."""
+        with ``kernel='pallas'`` the pair (fields, the kernel plan's
+        coefficient operand: on the march the weight fields of the padded
+        a(x), formed here by the weights kernel, once per problem and so
+        once per ``OperatorMultigrid`` level)."""
         if self._data_cache is None:
             _, fields = self.operator_fields()
             data = torch.as_tensor(fields).to(
                 device=self.device, dtype=torch_dtype(self.dtype))
             if self._use_kernel:
-                from stencil_tpu_torch.ops.tiled import pad_coeff
+                from stencil_tpu_torch.ops.tiled import (
+                    coeff_operand, pad_coeff,
+                )
 
-                data = (data, pad_coeff(self._kernel_plan(), self.a,
-                                        self.bc).to(self.device))
+                plan = self._kernel_plan()
+                data = (data, coeff_operand(plan, pad_coeff(
+                    plan, self.a, self.bc).to(self.device)))
             object.__setattr__(self, "_data_cache", data)
         return self._data_cache
 

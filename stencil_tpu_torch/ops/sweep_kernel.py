@@ -30,8 +30,11 @@ L_{t-2}`` from two padded levels, sweeps k and k-1 to two outputs. For a
 plan with ``coeff_scales`` (heterogeneous diffusion),
 ``stencil_<name>_coeff``: the radius-1 operator whose face weights are
 ``nb * harm(a(p), a(p +- e_d))`` of a padded coefficient field and whose
-center is ``c0 + cs * (sum of the six face means)``; it takes (nb, c0, cs)
-as float32[3].
+center is ``c0 + cs * (sum of the six face means)``. On the window
+schedule it takes the padded a(x) and (nb, c0, cs) as float32[3], and
+forms the weights at every update; on the march it takes the four weight
+fields that ``csrc/coeff_weights.cu`` forms once per run
+(:func:`coeff_weights_reference`, ``ops/tiled.py:coeff_operand``).
 
 The 3D kernel's entries but the two-level one also take a tile subset
 (B1f, ``build_tiled_sweep(subset=...)``): a device int32 list of tile
@@ -51,10 +54,12 @@ as float32 either way, each rounded once to the plan dtype on the host
 
 The 3D kernel has a second schedule, the d0 march (``csrc/tiled_march.cu``,
 ``plan.schedule == "march"``): the homogeneous and source modes, in both
-types, with pins and tile subsets, through entries ``stencil_tiled_march``
-and ``stencil_tiled_march_bf16`` of the arguments of
-``stencil_tiled_sweep``. The 3D wrapper launches it for a march plan and
-the window kernel for a window plan.
+types, through entries ``stencil_tiled_march`` and
+``stencil_tiled_march_bf16`` of the arguments of ``stencil_tiled_sweep``,
+and the coefficient mode through ``stencil_tiled_march_coeff`` (the
+weights in place of a(x), no scales), each with pins and tile subsets. The
+3D wrapper launches it for a march plan and the window kernel for a window
+plan.
 
 A wrapper takes the plain version only for tensors on the CPU (the tests);
 for CUDA tensors it launches the kernel or raises. :class:`KernelStencil`
@@ -281,41 +286,58 @@ def _harm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x * 2.0).mul_(y).div_(x + y)
 
 
+def coeff_weights_reference(coeff: torch.Tensor, plan) -> torch.Tensor:
+    """Plain version of ``csrc/coeff_weights.cu``: the four weight fields
+    of the coefficient mode of ``plan`` over the whole padded coefficient
+    ``coeff``, float32 ``[4, *coeff.shape]``, with whole-array ops in the
+    kernel's order. ``W[d] = nb * harm(a(p), a(p - e_d))`` for d = 0, 1, 2
+    and ``W[3] = c0 + cs * (lo0 + hi0 + lo1 + hi1 + lo2 + hi2)``, the six
+    face means ``harm(a(p), a(p -+ e_d))`` summed left to right. A
+    neighbour beyond the padded array is the point itself (edge
+    replication); no update reads a weight that depends on it. The hi
+    face's weight at p is ``W[d](p + e_d)``: ``harm`` is bitwise
+    symmetric."""
+    nb, c0, cs = coeff_of(plan)
+    edge = torch.nn.functional.pad(coeff[None, None], (1,) * 6,
+                                   mode="replicate")[0, 0]
+    inner = tuple(slice(1, n + 1) for n in coeff.shape)
+
+    def shifted(d, s):
+        return edge[tuple(slice(b.start + (s if e == d else 0),
+                                b.stop + (s if e == d else 0))
+                          for e, b in enumerate(inner))]
+
+    means = [(_harm(coeff, shifted(d, -1)), _harm(coeff, shifted(d, 1)))
+             for d in range(3)]
+    total = means[0][0] + means[0][1]
+    for m in (means[1][0], means[1][1], means[2][0], means[2][1]):
+        total.add_(m)
+    return torch.stack([lo * nb for lo, _ in means]
+                       + [total.mul_(cs).add_(c0)])
+
+
 def _coeff_reference(cur: torch.Tensor, plan, coeff: torch.Tensor,
                      pins: Tuple[int, ...]):
-    """Plain version of the coefficient mode. The five weight fields and
-    the center are computed once per call with whole-array ops in the
-    kernel's order, over sweep 1's region (which holds every later one):
-    the six face means ``harm(a(p), a(p -+ e_d))``, their sum lo0, hi0,
-    lo1, hi1, lo2, hi2, ``ctr = c0 + cs * sum``, ``w = nb * mean``. Then k
-    sweeps of ``((((ctr*u + w1lo*u(-e1)) + w1hi*u(+e1)) + w2lo*u(-e2)) +
-    w2hi*u(+e2)) + w0lo*u(-e0)) + w0hi*u(+e0)`` over each sweep's region,
-    other ghosts held."""
-    nb, c0, cs = coeff_of(plan)
-    boxes = update_boxes(plan, pins)
-    outer = boxes[0]
+    """Plain version of the coefficient mode: the weight fields W
+    (``coeff`` itself on the march; :func:`coeff_weights_reference` of the
+    padded a(x) on the window, which forms the same values at every
+    update), then k sweeps of ``((((W3*u + W1*u(-e1)) + W1(+e1)*u(+e1)) +
+    W2*u(-e2)) + W2(+e2)*u(+e2)) + W0*u(-e0)) + W0(+e0)*u(+e0)`` over each
+    sweep's region, other ghosts held."""
+    w = coeff if plan.schedule == "march" else \
+        coeff_weights_reference(coeff, plan)
 
     def shifted(t, box, d, s):
         return t[tuple(slice(b.start + (s if e == d else 0),
                              b.stop + (s if e == d else 0))
                        for e, b in enumerate(box))]
 
-    a = coeff[outer]
-    means = [(_harm(a, shifted(coeff, outer, d, -1)),
-              _harm(a, shifted(coeff, outer, d, 1))) for d in range(3)]
-    total = means[0][0] + means[0][1]
-    for m in (means[1][0], means[1][1], means[2][0], means[2][1]):
-        total.add_(m)
-    ctr = total.mul_(cs).add_(c0)
-    w = [(lo * nb, hi * nb) for lo, hi in means]
     u = cur
-    for box in boxes:
-        rel = tuple(slice(b.start - o.start, b.stop - o.start)
-                    for b, o in zip(box, outer))
-        acc = ctr[rel] * u[box]
+    for box in update_boxes(plan, pins):
+        acc = w[3][box] * u[box]
         for d in (1, 2, 0):
-            acc.add_(w[d][0][rel] * shifted(u, box, d, -1))
-            acc.add_(w[d][1][rel] * shifted(u, box, d, 1))
+            acc.add_(w[d][box] * shifted(u, box, d, -1))
+            acc.add_(shifted(w[d], box, d, 1) * shifted(u, box, d, 1))
         nxt = u.clone()
         nxt[box] = acc
         u = nxt
@@ -339,7 +361,8 @@ def sweep_reference(cur: torch.Tensor, plan,
     pair ``(sweep k, sweep k-1)``, the residual and the smoothed iterate. A
     ``two_level`` plan runs the leapfrog from ``(cur, prev)`` and returns
     the pair ``(sweep k, sweep k-1)``; a plan with ``coeff_scales`` runs
-    the coefficient operator of the padded ``coeff``.
+    the coefficient operator of ``coeff``, the padded a(x) on the window
+    schedule and its weight fields on the march.
 
     In bfloat16 every op is torch's: computed in float32 and rounded to
     bfloat16, each scalar rounded to bfloat16 first (:func:`cheby_of`,
@@ -378,9 +401,11 @@ class SweepKernel:
     ``subset_launches``, those of the source mode also in
     ``source_subset_launches``. The launches of a march plan count in all
     of those and again in ``march_launches`` and, by mode,
-    ``march_source_launches``, ``march_pins_launches`` (homogeneous, a
-    live face), ``march_source_pins_launches``, ``march_bf16_launches``,
-    ``march_subset_launches`` and ``march_source_subset_launches``.
+    ``march_source_launches``, ``march_coeff_launches``,
+    ``march_pins_launches`` (homogeneous, a live face),
+    ``march_source_pins_launches``, ``march_coeff_pins_launches``,
+    ``march_bf16_launches``, ``march_subset_launches`` and
+    ``march_source_subset_launches``.
 
     ``name`` names the library and its C entry ``stencil_<name>``;
     ``source`` is the ``.cu`` file; ``replaces`` is where the TPU kernel
@@ -394,7 +419,8 @@ class SweepKernel:
                    "coeff_pins_launches", "bf16_launches",
                    "subset_launches", "source_subset_launches",
                    "march_launches", "march_source_launches",
-                   "march_pins_launches", "march_source_pins_launches",
+                   "march_coeff_launches", "march_pins_launches",
+                   "march_source_pins_launches", "march_coeff_pins_launches",
                    "march_bf16_launches", "march_subset_launches",
                    "march_source_subset_launches")
 
@@ -454,8 +480,10 @@ class SweepKernel:
             # in, prev, out, out2 (device); geometry
             "_two_level": [P, P, P, P, P, I],
             # in, padded coefficient, out (device); geometry; (nb, c0, cs)
-            # float32[3] (host) and their count; the subset
-            "_coeff": [P, P, P, P, I, P, I] + cols,
+            # float32[3] (host) and their count; the subset. The march's:
+            # in, the weight fields, out (device); geometry; the subset
+            "_coeff": ([P, P, P, P, I] if self.schedule == "march"
+                       else [P, P, P, P, I, P, I]) + cols,
         }
         entries = {}
         for suffix, args in argtypes.items():
@@ -529,7 +557,8 @@ class SweepKernel:
             raise ValueError("prev (the level L_{n-1}) goes with a "
                              "two_level plan, and only with one")
         if has_coeff != (coeff is not None):
-            raise ValueError("coeff (the padded coefficient) goes with a "
+            raise ValueError("coeff (the padded coefficient, or on the "
+                             "march its weight fields) goes with a "
                              "coeff_scales plan, and only with one")
         if (two_level or has_coeff) and src is not None:
             raise ValueError("the two_level and coeff modes take no source")
@@ -538,13 +567,18 @@ class SweepKernel:
             ("cur", cur), ("nxt", nxt), ("src", src), ("out2", out2),
             ("prev", prev), ("coeff", coeff)) if t is not None]
         want = torch_dtype(plan.dtype)
+        # a march coeff plan reads the four weight fields of a(x)
+        weights = has_coeff and getattr(plan, "schedule", "") == "march"
         for name, t in tensors:
             if t.dtype != want:
                 raise ValueError(f"{name} dtype {t.dtype} != plan dtype "
                                  f"{want}")
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{name} shape {tuple(t.shape)} != padded "
-                                 f"layout {shape}")
+            expect = (4, *shape) if weights and name == "coeff" else shape
+            if tuple(t.shape) != expect:
+                raise ValueError(
+                    f"{name} shape {tuple(t.shape)} != {expect}, the "
+                    + ("weight fields (ops/tiled.py:coeff_operand)"
+                       if expect != shape else "padded layout"))
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
             if t.device != cur.device:
@@ -585,7 +619,10 @@ class SweepKernel:
             self.march_launches += 1
             self.march_bf16_launches += bf16
             self.march_subset_launches += subset is not None
-            if src is not None:
+            if getattr(plan, "has_coeff", False):
+                self.march_coeff_launches += 1
+                self.march_coeff_pins_launches += live
+            elif src is not None:
                 self.march_source_launches += 1
                 self.march_source_pins_launches += live
                 self.march_source_subset_launches += subset is not None
@@ -611,7 +648,9 @@ class SweepKernel:
         BC), receives sweep k-1 there and sweep k in ``nxt``, and returns
         ``(nxt, out2)``. A ``two_level`` plan takes the older level
         ``prev`` and ``out2`` and returns ``(nxt, out2)`` likewise. A plan
-        with ``coeff_scales`` takes the padded coefficient ``coeff``.
+        with ``coeff_scales`` takes ``coeff``: the padded coefficient on the
+        window schedule, its weight fields on the march
+        (``ops/tiled.py:coeff_operand``).
         ``subset`` (3D, every mode but the two-level one) lists the tile
         columns to sweep; every other point of ``nxt`` (and ``out2``)
         keeps what it held.
@@ -662,7 +701,7 @@ class SweepKernel:
         elif getattr(plan, "has_coeff", False):
             mode = "coeff"
             args = (cur.data_ptr(), coeff.data_ptr(), nxt.data_ptr(),
-                    *geometry, *scalar_args, *cols)
+                    *geometry, *(() if march else scalar_args), *cols)
         elif len(scalars):
             mode = "cheby"
             args = (cur.data_ptr(), nxt.data_ptr(),

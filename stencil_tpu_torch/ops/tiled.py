@@ -24,8 +24,10 @@ given per call: :func:`source_iterate` (counterpart of
 marches the two levels of a ``two_level`` plan; :func:`coeff_iterate`
 (``_cached_tiled_coeff_iterate``) marches a ``coeff`` plan and
 :func:`coeff_apply` (``_cached_coeff_apply``) applies it once, the Krylov
-matvec, both with the padded coefficient (:func:`pad_coeff`) given per
-call.
+matvec, both with the plan's coefficient operand given per call
+(:func:`coeff_operand`: on the march the weight fields that
+``csrc/coeff_weights.cu`` forms once from :func:`pad_coeff`'s padded a(x),
+on the window the padded a(x) itself).
 
 The plan is new, not a port of the TPU's ``choose_tiles``. It picks one of
 two schedules of the kernel (``TiledPlan.schedule``):
@@ -34,17 +36,19 @@ two schedules of the kernel (``TiledPlan.schedule``):
   of d1 and d2 and a chunk of t0 planes of d0, and marches d0 through one
   ring of 2r+2 planes per sweep level, each level's planes as wide as the
   tile grown by (k-s)*r; the rings, :func:`march_smem_bytes`, must fit
-  227 KB (232,448 bytes) on sm_90. The homogeneous and source modes take
-  it, in float32 and bfloat16, with pins and tile subsets, wherever their
-  rings fit (k <= 16; a bf16 input plane of at most 8192 points), the
-  tiles from :func:`choose_march_tiles`. That holds at k=1 too: the two
-  schedules' k=1 launches timed at 256^3 by ``chip_smoke.py`` put the
-  march ahead (PERF.md).
+  227 KB (232,448 bytes) on sm_90. The homogeneous and source modes (in
+  float32 and bfloat16) and the coefficient mode (float32) take it, with
+  pins and tile subsets, wherever their rings fit (k <= 16; a bf16 input
+  plane of at most 8192 points), the tiles from :func:`choose_march_tiles`.
+  That holds at k=1 too: the two schedules' k=1 launches timed at 256^3 by
+  ``chip_smoke.py`` put the march ahead (PERF.md), and the Krylov matvec
+  (a coefficient plan at k=1) marches as well; ``chip_smoke.py`` times it
+  on both schedules.
 - ``"window"`` (``csrc/tiled_sweep.cu``): a block holds one output tile of
   (t0, t1, t2) points plus its k*r-deep 3D window in shared memory, two
   window buffers when k > 1, the windows shrinking by r per sweep in
-  every dim. Every other mode (Chebyshev, dual, two-level, coefficient)
-  takes it, and so do plain and source plans whose rings do not fit.
+  every dim. Every other mode (Chebyshev, dual, two-level) takes it, and
+  so do plain, source and coefficient plans whose rings do not fit.
   Among the tiles that fit, :func:`choose_tiles` takes the one of least
   estimated time per output point: the warp slots of the window load and
   of the k shrinking sweeps, discounted by the blocks that fit on one SM
@@ -77,7 +81,7 @@ from stencil_tpu_torch.ops.layout import PaddedLayout, refresh_dynamic_layout
 from stencil_tpu_torch.ops.sweep_kernel import (  # noqa: F401 (re-export)
     KernelStencil, check_dynamic_walls, dynamic_pins, launch_plans,
 )
-from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
+from stencil_tpu_torch.ops.tiled_kernel import coeff_weights, tiled_sweep
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
 SM_SHARED = 233_472    # bytes of shared memory per SM; 1 KB more per block
@@ -127,7 +131,8 @@ class TiledPlan:
     # over a padded coefficient a(x); () = not that mode
     coeff_scales: Tuple = ()
     # "window" (tiled_sweep.cu, every mode) or "march" (tiled_march.cu,
-    # the homogeneous and source modes; tiles = (d0 chunk, t1, t2))
+    # the homogeneous, source and coefficient modes; tiles = (d0 chunk,
+    # t1, t2))
     schedule: str = "window"
 
     @property
@@ -421,10 +426,10 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     memory of a source plan (the kernel writes u_t over u_{t-2} in place;
     a(x) is read from global memory), so the chooser counts them the same.
 
-    ``schedule`` None takes the rule of the module docstring: a plain or
-    source plan marches where its rings fit, every other plan takes the
-    window; "march" or "window" asks for one (``ValueError`` where it
-    cannot run the plan)."""
+    ``schedule`` None takes the rule of the module docstring: a plain,
+    source or coefficient plan marches where its rings fit, every other
+    plan takes the window; "march" or "window" asks for one
+    (``ValueError`` where it cannot run the plan)."""
     if spec.ndim != 3 or len(interior_shape) != 3:
         raise ValueError("tiled kernel is 3D-only")
     dtype = dtype_name(torch_dtype(dtype))
@@ -442,10 +447,10 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     itemsize = torch_dtype(dtype).itemsize
     if schedule is not None and schedule not in SCHEDULES:
         raise ValueError(f"schedule {schedule!r}: one of {SCHEDULES}")
-    plain = not coeffs and not two_level and not scales
+    plain = not coeffs and not two_level
     if schedule == "march" and not plain:
-        raise ValueError("the march schedule runs the homogeneous and "
-                         "source modes only")
+        raise ValueError("the march schedule runs the homogeneous, source "
+                         "and coefficient modes only")
     march = plain and schedule != "window"
     if tiles is None and march:
         tiles = choose_march_tiles(spec, interior_shape, k, t0_fixed, dtype)
@@ -613,17 +618,35 @@ def pad_coeff(plan: TiledPlan, a, bc: DirichletBC) -> torch.Tensor:
     return refresh_dynamic_layout(padded, plan.layout, bc, plan.halo)
 
 
+def coeff_operand(plan: TiledPlan, coeff_padded: torch.Tensor
+                  ) -> torch.Tensor:
+    """What the launches of the ``coeff`` ``plan`` read, from the padded
+    coefficient ``coeff_padded`` (:func:`pad_coeff`, on the launches'
+    device): on the march the four weight fields ``[4, *padded]``, formed
+    here once by the weights kernel (``ops/tiled_kernel.py:
+    coeff_weights``, the TPU kernel's ``prep_weights``); on the window the
+    padded a(x) itself, whose weights that kernel forms at every update.
+    a(x) is static and its wall images are filled once, so a runner calls
+    this once and passes the result to every launch; no launch refreshes
+    it."""
+    if not plan.has_coeff:
+        raise ValueError("coeff_operand() takes a coeff plan")
+    if plan.schedule == "march":
+        return coeff_weights(coeff_padded, plan)
+    return coeff_padded
+
+
 def coeff_iterate(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
-                  coeff_padded: torch.Tensor, n_outer: int = 1,
+                  coeff: torch.Tensor, n_outer: int = 1,
                   grid_halo: int = 1, rem: int = 0) -> torch.Tensor:
     """``n_outer`` launches of the ``coeff`` ``plan``, then one of ``rem``
-    sweeps, on the ``grid_halo``-padded ``data`` with the padded
-    coefficient given per call (:func:`pad_coeff`): returns a new
-    ``grid_halo``-padded tensor with the ring set to ``bc``.
+    sweeps, on the ``grid_halo``-padded ``data`` with the plan's
+    coefficient operand given per call (:func:`coeff_operand`): returns a
+    new ``grid_halo``-padded tensor with the ring set to ``bc``.
 
     Counterpart of ``pallas_tiled._cached_tiled_coeff_iterate(plan, bc,
     interpret, grid_halo)(data, n_outer, coeff_padded)`` (:2125-2161);
-    with periodic/Neumann walls ``coeff_padded`` must carry their images
+    with periodic/Neumann walls the operand must carry their images
     (:func:`pad_coeff` with ``bc``)."""
     if not plan.has_coeff:
         raise ValueError("coeff_iterate() runs a coeff plan")
@@ -632,21 +655,24 @@ def coeff_iterate(plan: TiledPlan, data: torch.Tensor, bc: DirichletBC,
     nxt = cur.clone()
     for launch_plan in launch_plans(plan, n_outer, rem):
         refresh_dynamic_layout(cur, plan.layout, bc, launch_plan.halo)
-        tiled_sweep(cur, nxt, launch_plan, pins=pins, coeff=coeff_padded)
+        tiled_sweep(cur, nxt, launch_plan, pins=pins, coeff=coeff)
         cur, nxt = nxt, cur
     return _repad(plan, cur, grid_halo, bc)
 
 
 def coeff_apply(plan: TiledPlan, padded_h1: torch.Tensor,
-                coeff_padded: torch.Tensor) -> torch.Tensor:
+                coeff: torch.Tensor) -> torch.Tensor:
     """One application of the coefficient operator of a k=1 ``coeff``
-    ``plan`` to the halo-1 padded ``padded_h1``: returns the interior.
+    ``plan`` to the halo-1 padded ``padded_h1``, with the plan's
+    coefficient operand (:func:`coeff_operand`): returns the interior.
 
     The operator honours the ghost ring of its input (the Krylov solvers
     apply it to a zero-padded correction and to the true-wall iterate). At
     k=1 the layout's halo is 1, so ``padded_h1`` is the kernel's padded
     input as it is and its ring is read directly; the wall faces, d2's
-    included, weigh it by ``nb * harm(a, a)`` like every face.
+    included, weigh it by ``nb * harm(a, a)`` like every face (on the
+    march the weights at padded index 1 .. n+1 of each dim, which the
+    weights kernel forms from neighbours inside the padded array).
 
     Counterpart of ``pallas_tiled._cached_coeff_apply(plan,
     interpret)(padded_h1, coeff_padded)`` (:2165-2212), whose lane layout
@@ -656,7 +682,7 @@ def coeff_apply(plan: TiledPlan, padded_h1: torch.Tensor,
                          "plan")
     cur = padded_h1.contiguous()
     out = torch.empty_like(cur)  # only its interior is written and read
-    tiled_sweep(cur, out, plan, coeff=coeff_padded)
+    tiled_sweep(cur, out, plan, coeff=coeff)
     return plan.layout.unpad(out)
 
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels ``csrc/tiled_sweep.cu`` and
 ``csrc/tiled_march.cu`` (3D, the window and march schedules of one
-kernel), their wrapper and their plain PyTorch version.
+kernel) and ``csrc/coeff_weights.cu`` (the coefficient mode's weights),
+their wrappers and their plain PyTorch versions.
 
 The kernel replaces ``stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep``
 in six modes and its tile subsets (B1f, ``subset=``: a launch over a list
@@ -20,12 +21,17 @@ entries per type). See the source's header for its design and what bounds
 it.
 
 The march schedule (``plan.schedule == "march"``, ``ops/tiled.py``)
-replaces the window kernel in its homogeneous and source modes, with pins
-and tile subsets, in both types: ``csrc/tiled_march.cu`` walks each
-(d1, d2) tile's chunk of d0 planes through one shared-memory ring of planes
-per sweep level. ``tiled_sweep`` launches it for a march plan (the
-library handle ``tiled_march``) and counts the launch also in
-``march_launches`` and its mode's ``march_*`` count.
+replaces the window kernel in its homogeneous and source modes, in both
+types, and in its coefficient mode, each with pins and tile subsets:
+``csrc/tiled_march.cu`` walks each (d1, d2) tile's chunk of d0 planes
+through one shared-memory ring of planes per sweep level. ``tiled_sweep``
+launches it for a march plan (the library handle ``tiled_march``) and
+counts the launch also in ``march_launches`` and its mode's ``march_*``
+count. A march coefficient launch reads the four weight fields that
+``coeff_weights(coeff, plan)`` forms from the padded a(x) once per run
+(``csrc/coeff_weights.cu``; plain version
+``sweep_kernel.coeff_weights_reference``; count ``launches``), in place
+of the a(x) the window reads.
 
 ``tiled_sweep(cur, nxt, plan, src=None, pins=None, out2=None, prev=None,
 coeff=None, subset=None)`` takes the plain
@@ -36,9 +42,16 @@ plain version are shared with the 2D kernel (``ops/sweep_kernel.py``).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
 from stencil_tpu_torch import _build
 from stencil_tpu_torch.ops.sweep_kernel import (  # noqa: F401 (re-export)
-    SweepKernel, sweep_reference, tap_table,
+    SweepKernel, coeff_of, coeff_weights_reference, sweep_reference,
+    tap_table,
 )
 
 SOURCE = _build.PACKAGE_DIR / "csrc" / "tiled_sweep.cu"
@@ -95,7 +108,13 @@ REPLACES_MODE.update({
     "tiled_march+subset+bf16": REPLACES_MODE["tiled_sweep+subset+bf16"],
     "tiled_march+source+subset+bf16":
         REPLACES_MODE["tiled_sweep+source+subset+bf16"],
+    "tiled_march+coeff": REPLACES_MODE["tiled_sweep+coeff"],
+    "tiled_march+coeff+pins": REPLACES_MODE["tiled_sweep+coeff+pins"],
 })
+
+WEIGHTS_SOURCE = _build.PACKAGE_DIR / "csrc" / "coeff_weights.cu"
+# the TPU kernel's weight synthesis of the coefficient mode (prep_weights)
+REPLACES_MODE["coeff_weights"] = "stencil_tpu/ops/pallas_tiled.py:871"
 
 # the march library (launched through tiled_sweep for a march plan)
 tiled_march = SweepKernel("tiled_march", MARCH_SOURCE, REPLACES, ndim=3,
@@ -103,3 +122,82 @@ tiled_march = SweepKernel("tiled_march", MARCH_SOURCE, REPLACES, ndim=3,
 tiled_sweep = SweepKernel("tiled_sweep", SOURCE, REPLACES, ndim=3,
                           march=tiled_march)
 
+
+
+class WeightsKernel:
+    """The hand-written kernel ``csrc/coeff_weights.cu``: its build, its
+    wrapper (``coeff_weights(coeff, plan)``) and its count of launches,
+    ``launches`` (plain-version calls do not count)."""
+
+    name = "coeff_weights"
+
+    def __init__(self):
+        self.source = WEIGHTS_SOURCE
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+
+    def build(self) -> _build.BuildResult:
+        """Compile the source (cached by content). Raises
+        ``_build.BuildError`` with the compiler's stderr on failure."""
+        return _build.build(_build.find_nvcc(), [self.source],
+                            _build.NVCC_FLAGS, self.name)
+
+    @functools.cached_property
+    def _entries(self):
+        lib = ctypes.CDLL(str(self.build().path))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn = lib.stencil_coeff_weights
+        fn.restype = I
+        # a, w (device); padded shape int32[3] and (nb, c0, cs) float32[3]
+        # (host), each with its length; device, stream
+        fn.argtypes = [P, P, P, I, P, I, I, P]
+        err = lib.stencil_coeff_weights_error
+        err.restype = ctypes.c_char_p
+        err.argtypes = [I]
+        return fn, err
+
+    def library(self):
+        """Build and load the library; returns its C entry."""
+        return self._entries[0]
+
+    def __call__(self, coeff: torch.Tensor, plan) -> torch.Tensor:
+        """The four weight fields ``[4, *padded]`` (float32) of the
+        coefficient mode of ``plan`` over the padded coefficient ``coeff``
+        (``ops/tiled.py:pad_coeff``), as a new tensor on its device.
+
+        A CUDA tensor launches the kernel on the current stream (no
+        synchronisation) and raises ``RuntimeError`` if the launch fails;
+        a CPU tensor runs :func:`coeff_weights_reference`."""
+        if not getattr(plan, "has_coeff", False):
+            raise ValueError("coeff_weights() takes a coeff_scales plan")
+        shape = plan.layout.padded_shape
+        if coeff.dtype != torch.float32 or tuple(coeff.shape) != shape \
+                or not coeff.is_contiguous():
+            raise ValueError(f"coeff must be a contiguous float32 tensor of "
+                             f"the padded layout {shape}, not "
+                             f"{coeff.dtype} {tuple(coeff.shape)}")
+        if coeff.device.type == "cpu":
+            return coeff_weights_reference(coeff, plan)
+        if coeff.device.type != "cuda":
+            raise ValueError(f"{self.name} runs on cuda (or cpu for the "
+                             f"plain version), not {coeff.device}")
+        fn, err = self._entries
+        w = torch.empty((4, *shape), dtype=torch.float32,
+                        device=coeff.device)
+        dims = np.asarray(shape, dtype=np.int32)
+        scales = np.asarray(coeff_of(plan), dtype=np.float32)
+        device = coeff.device.index if coeff.device.index is not None \
+            else torch.cuda.current_device()
+        rc = fn(coeff.data_ptr(), w.data_ptr(), dims.ctypes.data, len(dims),
+                scales.ctypes.data, len(scales), device,
+                torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} launch failed ({rc}): "
+                               f"{err(rc).decode()}")
+        self.launches += 1
+        return w
+
+
+coeff_weights = WeightsKernel()

@@ -224,6 +224,11 @@ def build_solver(config: RunConfig, problem):
             pre = OperatorMultigrid(problem, nu1=nu1, nu2=nu2,
                                     gamma=config.gamma)
         plan["precond"] = precond
+        if getattr(problem, "kernel", None) == "pallas":
+            from stencil_tpu_torch.registry import schedule_info
+
+            # the schedule the coefficient-mode matvec runs on
+            plan.update(schedule_info(problem._kernel_plan()))
         return BiCGStab(problem, preconditioner=pre), "krylov", plan
     raise ValueError(
         f"unknown --solver {name!r} (choose from {SOLVERS})")

@@ -41,6 +41,14 @@ they were fitted to:
     python -m stencil_tpu_torch.tile_sweep --march --out rows.csv
     python -m stencil_tpu_torch.tile_sweep --march --score \
         stencil_tpu_torch/data/march_tiles_h100_fit.csv --fit
+
+``--march --coeff`` times the march's coefficient mode instead, at
+``MARCH_COEFF_CASES`` (cfg16's FTCS launch and cfg18's k=1 matvec, the
+two-material field of contrast 100, the weights formed once per case);
+``data/march_coeff_tiles_h100.csv`` holds such a sweep, which ``--score``
+reads like any other:
+
+    python -m stencil_tpu_torch.tile_sweep --march --coeff --out rows.csv
 """
 
 from __future__ import annotations
@@ -96,6 +104,12 @@ MARCH_CASES = (("jacobi7", (256, 256, 256), 8, "float32"),
                ("jacobi7", (256, 256, 256), 4, "float32"),
                ("jacobi7", (256, 256, 256), 2, "float32"),
                ("jacobi7", (256, 256, 256), 1, "float32"))
+# the march's coefficient mode (spec, shape, k, dtype): cfg16's FTCS
+# launch and cfg18's k=1 matvec (bench.py:435-463)
+MARCH_COEFF_CASES = (("jacobi7", (256, 256, 256), 8, "float32"),
+                     ("jacobi7", (255, 255, 255), 1, "float32"))
+# their scales (nb, c0, cs): FTCS at the stable step of max a = 1
+COEFF_SCALES = (1.0 / 6.0, 1.0, -1.0 / 6.0)
 MARCH_TILES = tuple((t0, t1, t2) for t0 in (16, 32, 64, 128, 256)
                     for t1, t2 in ((16, 16), (16, 32), (16, 64), (24, 24),
                                    (32, 32), (32, 64), (48, 48), (64, 64)))
@@ -199,15 +213,18 @@ def measure(out: Path, cases: Sequence[Case] = CASES, seed: int = 0,
 
 
 def measure_march(out: Path, cases: Sequence[MarchCase] = MARCH_CASES,
-                  seed: int = 0) -> None:
+                  seed: int = 0, coeff: bool = False) -> None:
     """Time one march launch at every tile of ``MARCH_TILES`` that fits,
     and at the march chooser's pick, for every case on the current CUDA
     device; writes ``FIELDS_3D`` rows to ``out`` and prints per case the
-    pick against the fastest tile."""
+    pick against the fastest tile. ``coeff``: the coefficient mode
+    (``COEFF_SCALES``, cfg16's two-material field), its weights formed
+    once per case."""
     import torch
 
-    from stencil_tpu_torch.core.grid import HaloGrid
-    from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
+    from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
+    from stencil_tpu_torch.models.diffusion import two_material
+    from stencil_tpu_torch.ops.tiled_kernel import coeff_weights, tiled_sweep
     from stencil_tpu_torch.utils.timing import timed
 
     if not torch.cuda.is_available():
@@ -218,7 +235,7 @@ def measure_march(out: Path, cases: Sequence[MarchCase] = MARCH_CASES,
     print(label)
     rng = np.random.default_rng(seed)
     with open(out, "w", newline="") as fh:
-        fh.write(f"# {label}, march\n")
+        fh.write(f"# {label}, march{' coeff' if coeff else ''}\n")
         writer = csv.writer(fh)
         writer.writerow(FIELDS_3D)
         for name, shape, k, dtype in cases:
@@ -229,6 +246,8 @@ def measure_march(out: Path, cases: Sequence[MarchCase] = MARCH_CASES,
             reps = max(5, min(50, int(4e8 / (math.prod(shape) * k))))
             itemsize = torch_dtype(dtype).itemsize
             pick = tiled.choose_march_tiles(spec, shape, k, dtype=dtype)
+            scales = COEFF_SCALES if coeff else None
+            weights = None
             times = {}
             for tiles in sorted({*MARCH_TILES, pick}):
                 tiles = tuple(min(t, n) for t, n in zip(tiles, shape))
@@ -236,18 +255,25 @@ def measure_march(out: Path, cases: Sequence[MarchCase] = MARCH_CASES,
                         tiles, k, spec.radius, itemsize):
                     continue
                 plan = tiled.make_tiled_plan(spec, shape, dtype, k,
-                                             tiles=tiles, schedule="march")
+                                             tiles=tiles, schedule="march",
+                                             coeff_scales=scales)
+                if coeff and weights is None:  # one layout for every tile
+                    weights = coeff_weights(tiled.pad_coeff(
+                        plan, two_material(shape, lo=0.01, hi=1.0, seed=0),
+                        DirichletBC.zero(3)).to(device), plan)
                 cur = plan.layout.pad_grid(grid)
                 nxt = cur.clone()
-                tiled_sweep(cur, nxt, plan)
-                ms = timed(lambda: [tiled_sweep(cur, nxt, plan)
+                tiled_sweep(cur, nxt, plan, coeff=weights)
+                ms = timed(lambda: [tiled_sweep(cur, nxt, plan,
+                                                coeff=weights)
                                     for _ in range(reps)], device) \
                     / reps * 1e3
                 times[tiles] = ms
                 writer.writerow((name, *shape, k, dtype, *tiles, repr(ms)))
             fh.flush()
             best = min(times, key=times.get)
-            print(f"march {name} {shape} k={k} {dtype}: {len(times)} tiles; "
+            print(f"march{' coeff' if coeff else ''} {name} {shape} k={k} "
+                  f"{dtype}: {len(times)} tiles; "
                   f"chooser {pick} {times[pick]:.4f} ms, fastest {best} "
                   f"{times[best]:.4f} ms, {times[pick] / times[best]:.3f}x "
                   f"[{label}]")
@@ -351,12 +377,16 @@ def main(argv=None) -> int:
                     help="the 3D kernel's march schedule: time "
                          "MARCH_TILES at MARCH_CASES, or score and refit "
                          "the march chooser")
+    ap.add_argument("--coeff", action="store_true",
+                    help="with --march --out: the coefficient mode at "
+                         "MARCH_COEFF_CASES")
     args = ap.parse_args(argv)
     if args.out is None and args.score is None:
         ap.error("give --out (measure) or --score (score, fit)")
     if args.march:
         if args.out is not None:
-            measure_march(args.out)
+            measure_march(args.out, MARCH_COEFF_CASES if args.coeff
+                          else MARCH_CASES, coeff=args.coeff)
         if args.score is not None:
             cases = read_march_rows(args.score)
             results = score_march(cases)

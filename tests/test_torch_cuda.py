@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (stencil_tpu_torch/csrc/tiled_sweep.cu, 3D,
 and csrc/slab_sweep.cu, 2D), homogeneous and with a source, the 3D
-kernel's Chebyshev, dual, two-level and coefficient modes, and the
+kernel's Chebyshev, dual, two-level and coefficient modes, its d0 march
+(csrc/tiled_march.cu) and the coefficient mode's weights
+(csrc/coeff_weights.cu), and the
 in-kernel exchange csrc/rma_iterate.cu (every rank's buffers after one
 cooperative launch, on Dirichlet, periodic and Neumann walls, in fp32 and
 bf16), against their plain PyTorch versions, on an NVIDIA
@@ -277,12 +279,13 @@ def _coeff_field(shape, seed=5):
     ((57, 50, 46), 3, (0.125, 1.0, -0.125)),
     ((33, 20, 41), 1, (-1156.0, 0.0, 1156.0))])
 def test_coeff_matches_plain(cuda_device, shape, k, scales):
-    from stencil_tpu_torch.ops.tiled import pad_coeff
+    from stencil_tpu_torch.ops.tiled import coeff_operand, pad_coeff
 
     plan = make_tiled_plan(get_spec("jacobi7"), shape, "float32", k,
                            coeff_scales=scales)
     cur = plan.layout.pad_grid(_grid(shape, 1, cuda_device))
-    coeff = pad_coeff(plan, _coeff_field(shape), BC3).to(cuda_device)
+    coeff = coeff_operand(plan, pad_coeff(plan, _coeff_field(shape),
+                                          BC3).to(cuda_device))
     before = tiled_sweep.coeff_launches
     got = tiled_sweep(cur, cur.clone(), plan, coeff=coeff)
     want = sweep_reference(cur, plan, coeff=coeff)
@@ -401,13 +404,16 @@ def test_two_level_pins_match_plain(cuda_device, shape, k, periodic,
 @pytest.mark.parametrize("shape,k,periodic,neumann", [
     ((64, 48, 40), 8, (0, 1), ()), ((57, 50, 46), 3, (1,), (0,))])
 def test_coeff_pins_match_plain(cuda_device, shape, k, periodic, neumann):
-    from stencil_tpu_torch.ops.tiled import dynamic_pins, pad_coeff
+    from stencil_tpu_torch.ops.tiled import (
+        coeff_operand, dynamic_pins, pad_coeff,
+    )
 
     bc = _walls(3, periodic, neumann)
     plan = make_tiled_plan(get_spec("jacobi7"), shape, "float32", k,
                            coeff_scales=(0.125, 1.0, -0.125))
     cur = _refreshed(plan, bc, shape, 1, cuda_device)
-    coeff = pad_coeff(plan, _coeff_field(shape), bc).to(cuda_device)
+    coeff = coeff_operand(plan, pad_coeff(plan, _coeff_field(shape),
+                                          bc).to(cuda_device))
     pins = dynamic_pins(bc, 3)
     before = tiled_sweep.coeff_pins_launches
     got = tiled_sweep(cur, cur.clone(), plan, pins=pins, coeff=coeff)
@@ -990,6 +996,67 @@ def test_march_subsets_pair_is_the_full_launch(cuda_device, dtype, source):
     assert torch.equal(got, subset_reference(cur, part, plan, edge, src,
                                              pins=pins))
     assert torch.equal(got, full)
+
+
+@pytest.mark.parametrize("shape,k,tiles,periodic,neumann,scales", [
+    ((256, 256, 256), 8, None, (), (), (1 / 6, 1.0, -1 / 6)),
+    ((57, 50, 46), 3, None, (0, 1), (), (0.125, 1.0, -0.125)),
+    ((57, 50, 46), 5, (16, 8, 16), (), (1,), (0.125, 1.0, -0.125)),
+    ((63, 63, 63), 1, None, (), (), (-4096.0, 0.0, 4096.0))])
+def test_march_coeff_matches_plain_and_window(cuda_device, shape, k, tiles,
+                                              periodic, neumann, scales):
+    """The weights kernel bitwise its plain version; one march
+    coefficient launch through those weights bitwise its plain version
+    and the window schedule's launch from the padded a(x), with its
+    counts; an interior then an edge subset launch, the pair the full
+    launch."""
+    from stencil_tpu_torch.ops.sweep_kernel import (
+        coeff_weights_reference, subset_reference,
+    )
+    from stencil_tpu_torch.ops.tiled import (
+        dynamic_pins, pad_coeff, partition_tiles,
+    )
+    from stencil_tpu_torch.ops.tiled_kernel import coeff_weights
+
+    sp = get_spec("jacobi7")
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(sp, shape, "float32", k, tiles=tiles,
+                           coeff_scales=scales)
+    window = make_tiled_plan(sp, shape, "float32", k, coeff_scales=scales,
+                             schedule="window")
+    assert plan.schedule == "march" and window.schedule == "window"
+    cur = _refreshed(plan, bc, shape, 1, cuda_device)
+    a = pad_coeff(plan, _coeff_field(shape), bc).to(cuda_device)
+    pins = dynamic_pins(bc, 3)
+    before = coeff_weights.launches
+    w = coeff_weights(a, plan)
+    torch.cuda.synchronize()
+    assert coeff_weights.launches == before + 1
+    assert torch.equal(w, coeff_weights_reference(a, plan))
+    tiled_sweep.reset_counts()
+    got = tiled_sweep(cur, cur.clone(), plan, pins=pins, coeff=w)
+    torch.cuda.synchronize()
+    live = not all(pins)
+    assert (tiled_sweep.march_coeff_launches,
+            tiled_sweep.march_coeff_pins_launches,
+            tiled_sweep.coeff_launches, tiled_sweep.march_pins_launches) \
+        == (1, live, 1, 0)
+    via_window = tiled_sweep(cur, cur.clone(), window, pins=pins, coeff=a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sweep_reference(cur, plan, coeff=w, pins=pins))
+    assert torch.equal(got, via_window)
+    interior, edge = partition_tiles(plan)
+    if interior and edge:
+        nxt = cur.clone()
+        nxt[plan.layout.interior_index] = -1.0
+        part = tiled_sweep(cur, nxt.clone(), plan, pins=pins, coeff=w,
+                           subset=interior)
+        both = tiled_sweep(cur, part.clone(), plan, pins=pins, coeff=w,
+                           subset=edge)
+        torch.cuda.synchronize()
+        assert torch.equal(part, subset_reference(
+            cur, nxt, plan, interior, coeff=w, pins=pins))
+        assert torch.equal(both, got)
 
 
 def test_march_refuses_rather_than_falls_back(cuda_device):

@@ -254,7 +254,7 @@ def test_subset_in_the_other_modes():
     """The Chebyshev, dual and coefficient modes take a subset too; their
     interior + edge pairs equal their full launches."""
     from stencil_tpu_torch.multigrid import nbsum_spec
-    from stencil_tpu_torch.ops.tiled import pad_coeff
+    from stencil_tpu_torch.ops.tiled import coeff_operand, pad_coeff
 
     shape = (30, 28, 20)
     cheby = [(0.1, 0.2, -0.05, 0.3), (0.2, 0.1, 0.4, -0.2),
@@ -276,7 +276,7 @@ def test_subset_in_the_other_modes():
             kw["out2"] = _padded_random(plan, 7, ghosts_of=cur)
         if plan.has_coeff:
             a = np.random.default_rng(8).random(shape) + 0.5
-            kw["coeff"] = pad_coeff(plan, a, _bc(3))
+            kw["coeff"] = coeff_operand(plan, pad_coeff(plan, a, _bc(3)))
         interior, edge = partition_tiles(plan)
         full = tiled_sweep(cur, nxt.clone(), plan, **{
             key: (v.clone() if key == "out2" else v)

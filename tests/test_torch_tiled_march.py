@@ -269,8 +269,8 @@ def test_thread_start_division_is_exact():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_chooser_fits_and_schedule_rule(dtype):
     """Every chosen march plan fits 232,448 bytes (and, in bf16, the
-    kernel's 8192-point staged plane); plain and source plans march,
-    every other mode takes the window."""
+    kernel's 8192-point staged plane); plain, source and (fp32)
+    coefficient plans march, every other mode takes the window."""
     for name, shape, k in [("jacobi7", (256, 256, 256), 8),
                            ("jacobi7", (256, 256, 256), 1),
                            ("jacobi7", (257, 257, 257), 8),
@@ -300,10 +300,11 @@ def test_chooser_fits_and_schedule_rule(dtype):
         make_tiled_plan(get_spec("jacobi7"), (16, 16, 16), dtype, 2,
                         two_level=True)]
     if dtype == "float32":
-        others.append(make_tiled_plan(get_spec("jacobi7"), (16, 16, 16),
-                                      dtype, 2, coeff_scales=(1, 1, -6)))
+        assert make_tiled_plan(get_spec("jacobi7"), (16, 16, 16), dtype, 2,
+                               coeff_scales=(1, 1, -6)).schedule == "march"
     assert all(p.schedule == "window" for p in others)
-    with pytest.raises(ValueError, match="homogeneous and source"):
+    with pytest.raises(ValueError, match="homogeneous, source and "
+                                         "coefficient"):
         make_tiled_plan(get_spec("jacobi7"), (16, 16, 16), dtype, 2,
                         two_level=True, schedule="march")
     # a plain plan takes the window when asked; beyond 16 sweeps neither

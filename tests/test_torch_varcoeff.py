@@ -144,8 +144,10 @@ def test_varcoeff_cli_record_matches_jax(monkeypatch):
     for key in ("ok", "iterations_checked", "capped"):
         assert got["check"][key] == want["check"][key], key
     assert got["check"]["max_abs_err"] < 1e-5
+    # the port's own keys: its kernel, and the schedule (the d0 march)
+    assert got["plan"]["schedule"] == "march"
     assert {k: v for k, v in got["plan"].items()
-            if k not in ("tiles", "kernel")} == \
+            if k not in ("tiles", "kernel", "schedule", "chunk")} == \
         {k: v for k, v in want["plan"].items() if k != "tiles"}
 
 
@@ -213,7 +215,9 @@ def test_coeff_plan_gates_and_wrapper(rng):
     from stencil_tpu.ops import pallas_tiled as jpt
     from stencil_tpu_torch.core.spec import get_spec
     from stencil_tpu_torch.ops.sweep_kernel import coeff_of, sweep_reference
-    from stencil_tpu_torch.ops.tiled import make_tiled_plan, pad_coeff
+    from stencil_tpu_torch.ops.tiled import (
+        coeff_operand, make_tiled_plan, pad_coeff,
+    )
 
     scales = (1.0, 1.0, -1.0)
     for name, dtype in (("jacobi7", "bfloat16"), ("laplace3d_ho", "float32")):
@@ -236,14 +240,16 @@ def test_coeff_plan_gates_and_wrapper(rng):
         coeff.numpy(), np.pad(a.astype(np.float32), 2, mode="edge"))
     x = torch.from_numpy(rng.random(plan.layout.padded_shape)
                          .astype(np.float32))
+    # the launches read the plan's operand: on the march the weight fields
+    op = coeff_operand(plan, coeff)
     with pytest.raises(ValueError, match="coeff"):
         tiled_sweep(x, x.clone(), plan)
     with pytest.raises(ValueError, match="no source"):
-        tiled_sweep(x, x.clone(), plan, src=x.clone(), coeff=coeff)
+        tiled_sweep(x, x.clone(), plan, src=x.clone(), coeff=op)
     with pytest.raises(ValueError, match="shape"):
-        tiled_sweep(x, x.clone(), plan, coeff=coeff[1:])
-    got = tiled_sweep(x, x.clone(), plan, coeff=coeff)
-    assert torch.equal(got, sweep_reference(x, plan, coeff=coeff))
+        tiled_sweep(x, x.clone(), plan, coeff=op[1:])
+    got = tiled_sweep(x, x.clone(), plan, coeff=op)
+    assert torch.equal(got, sweep_reference(x, plan, coeff=op))
     # periodic d0: edge-replicated, then wrapped over the full extent of
     # the other dims (pallas_tiled.pad_coeff's order)
     want = np.pad(np.pad(a.astype(np.float32), ((0, 0), (2, 2), (2, 2)),
