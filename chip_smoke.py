@@ -13,10 +13,17 @@ Phases, each ending in a line of its own:
    ``csrc/tiled_march.cu``, its d0 march, the homogeneous and source modes
    with pins, bf16 and subsets and the coefficient mode with pins and
    subsets; ``csrc/coeff_weights.cu``, the coefficient mode's weights;
-   ``csrc/slab_sweep.cu``; ``csrc/rma_iterate.cu``) and the native golden
-   from the sources in this checkout, all six compilers started together
+   ``csrc/slab_sweep.cu``, the 2D kernel's window schedule;
+   ``csrc/slab_march.cu``, its d0 march, every mode of the window;
+   ``csrc/rma_iterate.cu``) and the native golden from the sources in
+   this checkout, all seven compilers started together
    (into ``build/stencil_tpu_torch/``);
-3. kernel vs plain: each kernel mode (3D tiled, 3D tiled with a source,
+3. kernel vs plain: the 2D march (``slab_march``) in every mode against
+   its plain version and the window's launch, bitwise, at cfg1, cfg2 (-b
+   256), the ragged ``star2d_r2`` and the Poisson 63² and 4096² shapes,
+   on Dirichlet, periodic and Neumann d0 faces, in fp32 and bf16 (the
+   ``slab_sweep`` rows below ask their plans for the window); each kernel
+   mode (3D tiled, 3D tiled with a source,
    each of the two on the march schedule wherever the plan rule gives it,
    so on every homogeneous and source case below,
    the 3D tiled kernel's Chebyshev, dual, two-level and coefficient modes,
@@ -88,7 +95,10 @@ Phases, each ending in a line of its own:
 4. main paths, each with the launch counts set to 0 just before it and
    read just after (every launch of a homogeneous or source path must be
    a march launch, ``march_launches`` and its mode's ``march_*`` count: the
-   headline, cfg3, the Poisson runners (cfg8), the sharded paths): the 3D
+   headline, cfg3, the Poisson runners (cfg8), the sharded paths; every
+   2D path runs on the schedule ``make_slab_plan`` gives it, required, and
+   the ``slab_sweep*`` rows count its window launches, the
+   ``slab_march*`` rows its march launches): the 3D
    CLI (``-s 256 256 256 --spec jacobi7 -m
    pallas_temporal -k 8 -i 64 -c``), the 2D CLI (``-s 512 512 --spec
    jacobi5 -m pallas_temporal -k 16 -i 1024 -c`` and ``-s 4096 4096 --spec
@@ -154,7 +164,13 @@ Phases, each ending in a line of its own:
    schedule at k = 1, 2, 4 and 8 and of ``eager`` at 256³ (the k=1 pair
    printed beside the schedule the plan rule gives k=1); cfg3–cfg6 and
    cfg8 on both schedules (cfg5, cfg6 and cfg8 required to march); the
-   sharded 1024³ meshes on both; of cfg1 (2D 5-pt 512², slab k=16) and cfg2 (2D 9-pt 4096², slab
+   sharded 1024³ meshes on both; of cfg1 (2D 5-pt 512², slab k=16) and
+   cfg2 (2D 9-pt 4096², slab, both also on the schedule their plans do
+   not give; every ``slab_sweep`` mode's launch beside the march's launch
+   of its sweeps, the ``slab_march`` rows the main paths launch (cfg2,
+   the 63² Poisson solve) timed at their shapes beside the window's;
+   cfg1's host µs per launch, the iterate's return before a synchronize,
+   beside its wall and device time per launch on both schedules; cfg2 at
    k=4, ``-b 256``) and ``eager`` at both sizes; of cfg8 (Poisson 256³, the
    tiled source kernel at k=8); ms per V-cycle, contraction per cycle and
    ms per decade of cfg10 (weighted Jacobi V(4,4), tiled fine level), cfg11
@@ -462,6 +478,9 @@ KERNEL_MODES = (
     "tiled_march+pins+bf16", "tiled_march+source+pins+bf16",
     "tiled_sweep+two_level+pins+bf16", "slab_sweep+bf16",
     "slab_sweep+source+bf16", "slab_sweep+pins+bf16",
+    "slab_march", "slab_march+source", "slab_march+pins",
+    "slab_march+source+pins", "slab_march+bf16", "slab_march+source+bf16",
+    "slab_march+pins+bf16",
     "tiled_march+subset", "tiled_march+source+subset",
     "tiled_march+subset+bf16", "tiled_march+source+subset+bf16",
     "rma_iterate", "rma_iterate+pins", "rma_iterate+bf16")
@@ -706,8 +725,52 @@ def compare_march(kernel, spec, shape, k, dtype, bc, source, rng, device):
     return out
 
 
+def compare_slab_march(kernel, spec, shape, k, dtype, bc, rng, device,
+                       t0=None, scale=None, f=None):
+    """One launch of the 2D march plan of ``spec`` at ``shape`` (``t0``:
+    the chunk pinned as ``-b`` pins it), k sweeps, in ``dtype``, on walls
+    ``bc`` with their pins (``scale``: a padded source of that scale, from
+    ``f`` or random), bitwise against its plain version and against the
+    window schedule's launch of the same sweeps. Returns {mode: max abs
+    difference} for the march's mode (``slab_march...``) and the window's
+    (``slab_sweep...``)."""
+    import torch
+
+    from stencil_tpu_torch.ops.layout import pad_source
+    from stencil_tpu_torch.ops.slab import make_slab_plan
+    from stencil_tpu_torch.ops.sweep_kernel import dynamic_pins, sweep_reference
+
+    plan = make_slab_plan(spec, shape, dtype, k, t0_fixed=t0,
+                          schedule="march")
+    window = make_slab_plan(spec, shape, dtype, k, t0_fixed=t0,
+                            schedule="window")
+    require(plan.layout == window.layout, f"{shape}: layouts differ")
+    cur = (bf16_input(plan, bc, rng, device) if dtype == "bfloat16"
+           else pins_input(plan, bc, rng, device))
+    src = None
+    if scale is not None:
+        src = pad_source(plan, rng.normal(size=shape) if f is None else f,
+                         scale, bc).to(device)
+    pins = dynamic_pins(bc, 2)
+    suffix = (("+source" if src is not None else "")
+              + ("" if all(pins) else "+pins")
+              + ("+bf16" if dtype == "bfloat16" else ""))
+    label = (f"{spec.name} {shape} k={k} {dtype}, {walls_name(bc)}, march "
+             f"tiles {plan.tiles}, window tiles {window.tiles}")
+    want = sweep_reference(cur, plan, src, pins=pins)
+    got = kernel(cur, cur.clone(), plan, src, pins)
+    via = kernel(cur, cur.clone(), window, src, pins)
+    torch.cuda.synchronize()
+    require(torch.equal(got, via), f"slab_march{suffix} {label}: not "
+            "bitwise the window's launch")
+    return {"slab_march" + suffix: check_equal(
+                f"slab_march{suffix} {label}", got, want, True),
+            "slab_sweep" + suffix: check_equal(
+                f"slab_sweep{suffix} (window) {label}", via, want, True)}
+
+
 def compare_iterate(stencil_cls, spec, shape, k, iters, rng, device,
-                    scale=None, bc=None, dtype="float32"):
+                    scale=None, bc=None, dtype="float32", schedule=None):
     """The iterate (iters // k launches plus a remainder launch) against
     the eager iterate, on walls ``bc`` (default the reference faces), in
     ``dtype`` (bf16: bitwise required; no Neumann face there, whose live
@@ -721,7 +784,7 @@ def compare_iterate(stencil_cls, spec, shape, k, iters, rng, device,
     grid = random_grid(shape, spec.radius, rng, device, bc, dtype)
     f = rng.normal(size=shape) if scale is not None else None
     got = stencil_cls(spec, shape, dtype, sweeps_per_call=k, device=device,
-                      source=f, source_scale=scale or 1.0
+                      source=f, source_scale=scale or 1.0, schedule=schedule
                       ).iterate(grid, iters).data
     scaled = None
     if f is not None:
@@ -729,7 +792,9 @@ def compare_iterate(stencil_cls, spec, shape, k, iters, rng, device,
             * round_to(scale, dtype)
     want = eager.iterate(grid, spec, iters, scaled).data
     return check_equal(f"{stencil_cls.__name__}"
-                       f"{'+source' if f is not None else ''} {spec.name} "
+                       f"{'+source' if f is not None else ''}"
+                       f"{'' if schedule is None else ' ' + schedule} "
+                       f"{spec.name} "
                        f"{shape} k={k} {dtype}, {iters} iterations, "
                        f"{walls_name(grid.bc)}", got, want,
                        exact=dtype == "bfloat16")
@@ -1582,6 +1647,27 @@ def discarding(fn):
     return call
 
 
+def slab_row(schedule, suffix=""):
+    """The kernel record's row of a 2D launch on ``schedule``."""
+    return ("slab_march" if schedule == "march" else "slab_sweep") + suffix
+
+
+def slab_schedule(plan_info, spec, shape, dtype, k, block=None):
+    """The schedule a 2D main path ran on (its ``plan_info``), required to
+    be the one its plan gives (``make_slab_plan``'s rule)."""
+    from stencil_tpu_torch.ops.slab import make_slab_plan
+
+    want = make_slab_plan(spec, shape, dtype, k, t0_fixed=block).schedule
+    require(plan_info.get("schedule") == want,
+            f"{spec.name} {shape} {dtype} k={k}: ran {plan_info}, the plan "
+            f"gives the {want}")
+    return want
+
+
+def other_schedule(schedule):
+    return "window" if schedule == "march" else "march"
+
+
 def run_cli(cli, args, kernel, label, count="launches"):
     """One CLI main path with ``kernel``'s counts set to 0 just before;
     returns (record, launches by ``count``), which must be all of the
@@ -1918,6 +2004,8 @@ def run_sharded_2d(kernel, label):
     require(n == iters // k * int(np.prod(mesh)) and
             torch.equal(got.data, want.data),
             f"2D sharded_pallas {size}: {n} launches, or not bitwise slab")
+    local = (size[0] // mesh[0], *size[1:])
+    slab_schedule(runner.plan_info, spec, local, "float32", k)
     print(f"2D {runner.name} {spec_name} {size}, {iters} sweeps: bitwise "
           f"equal to slab; plan {runner.plan_info}; {n} {kernel.name} "
           f"launches [{label}]")
@@ -2411,7 +2499,7 @@ def main() -> int:
 
     kernels = (tiled_kernel.tiled_sweep, tiled_kernel.tiled_march,
                tiled_kernel.coeff_weights, slab_kernel.slab_sweep,
-               rma_module.rma_iterate)
+               slab_kernel.slab_march, rma_module.rma_iterate)
     with concurrent.futures.ThreadPoolExecutor(len(kernels) + 1) as pool:
         t0 = time.perf_counter()
         golden = pool.submit(native.available)
@@ -2438,6 +2526,9 @@ def main() -> int:
 
     tiled = tiled_kernel.tiled_sweep
     slab = slab_kernel.slab_sweep
+    # the slab_sweep rows hold the window schedule, the slab_march rows the
+    # march: each asks its plan for its schedule
+    window_slab = functools.partial(make_slab_plan, schedule="window")
     rng = np.random.default_rng(SEED)
     j5, j7, j9 = get_spec("jacobi5"), get_spec("jacobi7"), get_spec("jacobi9")
     err = {}
@@ -2457,16 +2548,16 @@ def main() -> int:
         compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
                         scale=-0.01))
     err["slab_sweep"] = max(
-        compare_launch(slab, make_slab_plan, j5, CFG1[1], 1, rng, device),
-        compare_launch(slab, make_slab_plan, j5, CFG1[1], CFG1[2], rng,
+        compare_launch(slab, window_slab, j5, CFG1[1], 1, rng, device),
+        compare_launch(slab, window_slab, j5, CFG1[1], CFG1[2], rng,
                        device),
-        compare_launch(slab, make_slab_plan, j9, CFG2[1], CFG2[2], rng,
+        compare_launch(slab, window_slab, j9, CFG2[1], CFG2[2], rng,
                        device, t0=CFG2[3]),
-        compare_launch(slab, make_slab_plan, get_spec("star2d_r2"),
+        compare_launch(slab, window_slab, get_spec("star2d_r2"),
                        RAGGED_2D, 3, rng, device),
         compare_iterate(SlabStencil, j5, RAGGED_2D, 4, 11, rng, device))
     err["slab_sweep+source"] = max(
-        compare_launch(slab, make_slab_plan, j5, SLAB_SOURCE_SIZE, 4, rng,
+        compare_launch(slab, window_slab, j5, SLAB_SOURCE_SIZE, 4, rng,
                        device, scale=-0.01),
         compare_iterate(SlabStencil, j9, RAGGED_2D, 4, 11, rng, device,
                         scale=-0.01))
@@ -2481,8 +2572,11 @@ def main() -> int:
         prob = PoissonProblem(shape=shape, device=DEVICE)
         f = manufactured_sine(shape)[0] if shape in (POISSON_2D, POISSON_3D) \
             else rng.normal(size=shape) / prob.h ** 2
-        err[mode] = max(err[mode], compare_poisson(prob, f, kernel,
-                                                   make_plan, rng, device))
+        if kernel is slab:  # the row of the schedule the plan gives
+            mode = slab_row(make_slab_plan(prob.spec, shape, "float32",
+                                           8).schedule, "+source")
+        err[mode] = max(err.get(mode, 0.0), compare_poisson(
+            prob, f, kernel, make_plan, rng, device))
     # the Chebyshev and dual modes at 255^3 and ragged, and a remainder run
     err["tiled_sweep+cheby"] = max(
         [compare_cheby(tiled, shape, nu, "chebyshev", False, rng, device)
@@ -2602,21 +2696,21 @@ def main() -> int:
                                   device)),
         compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device, bc=per01))
     mode = "slab_sweep+pins"
-    s16 = make_slab_plan(j5, CFG1[1], "float32", CFG1[2])
+    s16 = window_slab(j5, CFG1[1], "float32", CFG1[2])
     err[mode] = max(
         pins_case(slab, s16, per0_2d, mode),
         pins_case(slab, s16, neu0_2d, mode),
-        pins_case(slab, make_slab_plan(j9, CFG2[1], "float32", CFG2[2],
+        pins_case(slab, window_slab(j9, CFG2[1], "float32", CFG2[2],
                                        t0_fixed=CFG2[3]), per0_2d, mode),
-        pins_case(slab, make_slab_plan(get_spec("star2d_r2"), RAGGED_2D,
+        pins_case(slab, window_slab(get_spec("star2d_r2"), RAGGED_2D,
                                        "float32", 3), neu0_2d, mode),
-        pins_case(slab, make_slab_plan(j5, CFG1[1], "float32", 1),
+        pins_case(slab, window_slab(j5, CFG1[1], "float32", 1),
                   walls(2, (0, 1)), mode),
         compare_iterate(SlabStencil, j5, RAGGED_2D, 4, 11, rng, device,
                         bc=per0_2d))
     mode = "slab_sweep+source+pins"
     pprob2 = PoissonProblem(shape=POISSON_BIG_2D, bc=per0_2d, device=DEVICE)
-    splan = make_slab_plan(pprob2.spec, POISSON_BIG_2D, "float32", 8)
+    splan = window_slab(pprob2.spec, POISSON_BIG_2D, "float32", 8)
     err[mode] = max(
         pins_case(slab, splan, per0_2d, mode, src=pad_source(
             splan, rng.normal(size=POISSON_BIG_2D) / pprob2.h ** 2,
@@ -2632,7 +2726,7 @@ def main() -> int:
     lap = get_spec("laplace3d_ho")
     plan8b = make_tiled_plan(j7, MAIN_SIZE, bf, CFG3[2])
     ragged3b = make_tiled_plan(j7, RAGGED_SIZE, bf, 3)
-    s16b = make_slab_plan(j5, CFG1[1], bf, CFG1[2])
+    s16b = window_slab(j5, CFG1[1], bf, CFG1[2])
     mode = "tiled_march+bf16"
     err[mode] = max(
         compare_bf16(tiled, plan8b, mode, rng, device),
@@ -2698,10 +2792,10 @@ def main() -> int:
     mode = "slab_sweep+bf16"
     err[mode] = max(
         compare_bf16(slab, s16b, mode, rng, device),
-        compare_bf16(slab, make_slab_plan(j9, CFG2[1], bf, CFG2[2],
+        compare_bf16(slab, window_slab(j9, CFG2[1], bf, CFG2[2],
                                           t0_fixed=CFG2[3]), mode, rng,
                      device),
-        compare_bf16(slab, make_slab_plan(get_spec("star2d_r2"), RAGGED_2D,
+        compare_bf16(slab, window_slab(get_spec("star2d_r2"), RAGGED_2D,
                                           bf, 3), mode, rng, device,
                      tiny=True),
         compare_iterate(SlabStencil, j5, RAGGED_2D, 4, 11, rng, device,
@@ -2721,6 +2815,31 @@ def main() -> int:
         compare_bf16(slab, s16b, mode, rng, device, neu0_2d, tiny=True),
         compare_iterate(SlabStencil, j5, RAGGED_2D, 4, 11, rng, device,
                         bc=per0_2d, dtype=bf))
+    # the 2D march (csrc/slab_march.cu): every mode against its plain
+    # version and the window's launch, bitwise, at cfg1, cfg2 (-b 256), the
+    # ragged star2d_r2 and the Poisson shapes, on Dirichlet, periodic and
+    # Neumann d0 faces, in both dtypes
+    t_march2d = time.perf_counter()
+    sr2 = get_spec("star2d_r2")
+    for dtype in ("float32", bf):
+        for bc in (walls(2), per0_2d, neu0_2d):
+            cases2d = [
+                (j5, CFG1[1], CFG1[2], None, None),
+                (j9, CFG2[1], CFG2[2], CFG2[3], None),
+                (sr2, RAGGED_2D, 3, None, None),
+                (pprob2.spec, POISSON_2D, 8, None, -0.25),
+                (pprob2.spec, POISSON_BIG_2D, 8, None, pprob2.source_scale)]
+            for spec, shape, k, t0, scale in cases2d:
+                f = None
+                if scale is not None and shape == POISSON_BIG_2D:
+                    f = rng.normal(size=shape) / pprob2.h ** 2
+                for m, e in compare_slab_march(slab, spec, shape, k, dtype,
+                                               bc, rng, device, t0, scale,
+                                               f).items():
+                    err[m] = max(err.get(m, 0.0), e)
+    err["slab_march"] = max(err["slab_march"], compare_iterate(
+        SlabStencil, j5, RAGGED_2D, 4, 11, rng, device, schedule="march"))
+    print(f"the 2D march's cases: {time.perf_counter() - t_march2d:.1f} s")
     # B1f: the interior and edge subsets of every mode that takes one, with
     # live faces where a mesh rank has neighbours, at the local blocks of
     # the sharded paths: the phase-4 CLI's and Poisson runner's (256^3 over
@@ -2850,7 +2969,11 @@ def main() -> int:
     require(tiled.source_launches == 0, "3D main path ran the source mode")
     require(rec3d["plan"]["schedule"] == "march",
             f"3D main path plan {rec3d['plan']}")
-    slab_runs = []
+    # the 2D paths: each on the schedule its plan gives, through the CLI
+    # (the rows slab_sweep* and slab_march* count the launches of each)
+    launches.update({slab_row(sc, sfx): 0 for sc in ("march", "window")
+                     for sfx in ("", "+source", "+pins", "+source+pins",
+                                 "+bf16", "+source+bf16", "+pins+bf16")})
     for spec_name, size, k, block, iters in (CFG1, CFG2):
         args = ["-s", *map(str, size), "--spec", spec_name, "-m",
                 "pallas_temporal", "-k", str(k), "-i", str(iters)]
@@ -2858,8 +2981,9 @@ def main() -> int:
             args += ["-b", str(block)]
         rec, n = run_cli(cli, args, slab, label)
         require(rec["plan"]["kernel"] == "slab", f"{args} ran {rec['plan']}")
-        slab_runs.append(n)
-    launches["slab_sweep"] = sum(slab_runs)
+        spec = get_spec(spec_name)
+        sched = slab_schedule(rec["plan"], spec, size, "float32", k, block)
+        launches[slab_row(sched)] += n
     # each source mode: a manufactured solve and a golden check, at the
     # shapes phase 3 held the kernel at
     poisson_big = {}
@@ -2869,8 +2993,21 @@ def main() -> int:
         count = ("march_source_launches" if kernel is tiled
                  else "source_launches")
         n_solve = poisson_solve(small, kernel, device, count)
+        n_solve_march = kernel.march_launches
         poisson_big[mode] = poisson_golden(big, kernel, rng, count=count)
-        launches[mode] = n_solve + poisson_big[mode][3]
+        if kernel is tiled:
+            launches[mode] = n_solve + poisson_big[mode][3]
+            continue
+        runner, prob, f, n_big = poisson_big[mode]
+        small_sched = make_slab_plan(prob.spec, small, "float32",
+                                     runner.plan_info["k"]).schedule
+        big_sched = slab_schedule(runner.plan_info, prob.spec, big,
+                                  "float32", runner.plan_info["k"])
+        require((n_solve_march == n_solve) == (small_sched == "march"),
+                f"Poisson {small}: {n_solve_march} march launches of "
+                f"{n_solve}, the plan gives the {small_sched}")
+        launches[slab_row(small_sched, "+source")] += n_solve
+        launches[slab_row(big_sched, "+source")] += n_big
     # the solver paths: PCG (Chebyshev and dual modes), multigrid V(4,4)
     # (source and dual modes), FMG on the tiled fine level
     solve_counts = {name: run_solve_cli(cli, tiled, name, args, bar,
@@ -2907,17 +3044,25 @@ def main() -> int:
     launches["tiled_march+pins"] += run_advection(tiled, rng, label,
                                                   "march_pins_launches")
     spec_name, size, k, _, iters = CFG1
-    rec, launches["slab_sweep+pins"] = run_cli(
+    rec, n = run_cli(
         cli, ["-s", *map(str, size), "--spec", spec_name, "-m",
               "pallas_temporal", "-k", str(k), "-i", str(iters), "--periodic",
               "0"], slab, label, "pins_launches")
+    sched = slab_schedule(rec["plan"], j5, size, "float32", k)
+    launches[slab_row(sched, "+pins")] += n
     for mode, kernel, shape, bc, count in (
             ("tiled_march+source+pins", tiled, POISSON_BIG, mixed,
              "march_source_pins_launches"),
             ("slab_sweep+source+pins", slab, POISSON_BIG_2D, per0_2d,
              "source_pins_launches")):
         poisson_big[mode] = poisson_golden(shape, kernel, rng, bc, count)
-        launches[mode] = poisson_big[mode][3]
+        if kernel is tiled:
+            launches[mode] = poisson_big[mode][3]
+            continue
+        runner, prob, f, n = poisson_big[mode]
+        sched = slab_schedule(runner.plan_info, prob.spec, shape, "float32",
+                              runner.plan_info["k"])
+        launches[slab_row(sched, "+source+pins")] += n
     launches["tiled_sweep+two_level+pins"] = run_wave_pins(tiled, rng, label)
     launches["tiled_march+coeff+pins"], weights = run_varcoeff_cli(
         cli, tiled, label, ("--periodic", "0", "1"),
@@ -2940,8 +3085,9 @@ def main() -> int:
     cfg1_bf16 = ["-s", *map(str, CFG1[1]), "--spec", CFG1[0], "-m",
                  "pallas_temporal", "-k", str(CFG1[2]), "-i",
                  str(CFG1_BF16_ITERS)]
-    rec, launches["slab_sweep+bf16"] = run_cli_bf16(cli, cfg1_bf16, slab,
-                                                    label)
+    rec, n = run_cli_bf16(cli, cfg1_bf16, slab, label)
+    sched = slab_schedule(rec["plan"], j5, CFG1[1], bf, CFG1[2])
+    launches[slab_row(sched, "+bf16")] += n
     for mode, kernel, shape, bc, count in (
             ("tiled_march+source+bf16", tiled, POISSON_BIG, None,
              "march_source_launches"),
@@ -2951,7 +3097,13 @@ def main() -> int:
              "march_source_pins_launches")):
         poisson_big[mode] = poisson_golden(shape, kernel, rng, bc, count,
                                            dtype="bfloat16")
-        launches[mode] = poisson_big[mode][3]
+        if kernel is tiled:
+            launches[mode] = poisson_big[mode][3]
+            continue
+        runner, prob, f, n = poisson_big[mode]
+        sched = slab_schedule(runner.plan_info, prob.spec, shape, bf,
+                              runner.plan_info["k"])
+        launches[slab_row(sched, "+source+bf16")] += n
     launches.update(run_mg_bf16(tiled, label))
     launches["tiled_sweep+two_level+bf16"] = run_wave_bf16(tiled, rng, label)
     launches["tiled_sweep+two_level+pins+bf16"] = run_wave_bf16(
@@ -2961,9 +3113,10 @@ def main() -> int:
               "pallas_temporal", "-k", str(CFG3[2]), "-i", str(CFG3[3]),
               "--periodic", "0", "1"], tiled, label,
         "march_pins_launches")[1]
-    launches["slab_sweep+pins+bf16"] = run_cli_bf16(
-        cli, [*cfg1_bf16, "--periodic", "0"], slab, label,
-        "pins_launches")[1]
+    rec, n = run_cli_bf16(cli, [*cfg1_bf16, "--periodic", "0"], slab,
+                          label, "pins_launches")
+    sched = slab_schedule(rec["plan"], j5, CFG1[1], bf, CFG1[2])
+    launches[slab_row(sched, "+pins+bf16")] += n
     # the sharded paths on a (2, 2) mesh whose four ranks share the card:
     # sharded_pallas through the CLI in fp32 and bf16 (every launch an
     # interior or edge subset launch), the eager sharded method, the sharded
@@ -3034,7 +3187,20 @@ def main() -> int:
             grid = cli.make_grid(cfg, spec)
             runner = registry.get_runner(method, cfg, spec, grid)
             bench(runner, grid, int(np.prod(size)), device, hbm, label,
-                  f"{spec.name} {size} {runner.name}")
+                  f"{spec.name} {size} {runner.name} "
+                  f"{runner.plan_info.get('schedule', '')}")
+    # cfg1 and cfg2 on the schedule their plans do not give
+    for spec, (_, size, k, block, _) in ((j5, CFG1), (j9, CFG2)):
+        other = other_schedule(make_slab_plan(spec, size, "float32", k,
+                                              t0_fixed=block).schedule)
+        st = SlabStencil(spec, size, sweeps_per_call=k, t0_fixed=block,
+                         device=DEVICE, schedule=other)
+        grid = cli.make_grid(RunConfig(size=size, spec=spec.name,
+                                       device=DEVICE), spec)
+        bench(registry.Runner(name=f"slab_{other}", granularity=k,
+                              iterate=st.iterate), grid,
+              int(np.prod(size)), device, hbm, label,
+              f"{spec.name} {size} {other} k={k} tiles {st.plan.tiles}")
     # cfg8: Poisson 256^3 through the tiled source kernel at k=8
     prob = PoissonProblem(shape=POISSON_BIG, device=DEVICE)
     f = np.random.default_rng(SEED).normal(size=POISSON_BIG) \
@@ -3245,13 +3411,13 @@ def main() -> int:
     launch_inputs = []  # (mode, kernel, plan, padded u, padded source)
     for mode, kernel, make_plan, spec, size, k in (
             ("tiled_march", tiled, make_tiled_plan, j7, MAIN_SIZE, 8),
-            ("slab_sweep", slab, make_slab_plan, j5, CFG1[1], CFG1[2])):
+            ("slab_sweep", slab, window_slab, j5, CFG1[1], CFG1[2])):
         plan = make_plan(spec, size, "float32", k)
         launch_inputs.append((mode, kernel, plan, plan.layout.pad_grid(
             random_grid(size, spec.radius, rng, device)), None))
     for mode, kernel, make_plan in (
             ("tiled_march+source", tiled, make_tiled_plan),
-            ("slab_sweep+source", slab, make_slab_plan)):
+            ("slab_sweep+source", slab, window_slab)):
         runner, prob, f, _ = poisson_big[mode]
         plan = make_plan(prob.spec, prob.shape, "float32",
                          runner.plan_info["k"])
@@ -3261,6 +3427,28 @@ def main() -> int:
         launch_inputs.append((mode, kernel, plan, plan.layout.pad_grid(grid),
                               pad_source(plan, f, prob.source_scale,
                                          grid.bc).to(device)))
+    # the march rows the 2D main paths launch, at their shapes: cfg2 (-b
+    # 256) and the 63^2 Poisson solve's source mode, each beside the
+    # window's launch of the same sweeps on the same inputs
+    slab_windows = {}
+    plan = make_slab_plan(j9, CFG2[1], "float32", CFG2[2], t0_fixed=CFG2[3])
+    slab_windows["slab_march"] = window_slab(j9, CFG2[1], "float32", CFG2[2],
+                                             t0_fixed=CFG2[3])
+    launch_inputs.append(("slab_march", slab, plan, plan.layout.pad_grid(
+        random_grid(CFG2[1], j9.radius, rng, device)), None))
+    prob = PoissonProblem(shape=POISSON_2D, device=DEVICE)
+    plan = make_slab_plan(prob.spec, POISSON_2D, "float32", 8)
+    slab_windows["slab_march+source"] = window_slab(prob.spec, POISSON_2D,
+                                                    "float32", 8)
+    grid = prob.initial_grid(rng.random(POISSON_2D, dtype=np.float32))
+    launch_inputs.append(("slab_march+source", slab, plan,
+                          plan.layout.pad_grid(grid),
+                          pad_source(plan, rng.normal(size=POISSON_2D),
+                                     prob.source_scale, grid.bc).to(device)))
+    for mode, _, plan, _, _ in launch_inputs[-2:]:
+        require(plan.schedule == "march"
+                and slab_windows[mode].layout == plan.layout,
+                f"{mode}: the plan gives the {plan.schedule}")
     # the Chebyshev and dual modes at the PCG path's plans, random f
     prob, _, _, ops = solve_paths["pcg-cheby"]
     for mode, op in ops:
@@ -3287,6 +3475,28 @@ def main() -> int:
     torch.backends.cudnn.benchmark = True
     ms, plain_ms, library_ms, bound_ms, bound_by = {}, {}, {}, {}, {}
     window_ms = {}  # the window schedule's time for each march row's launch
+    def slab_twin(mode, plan, cur, src, pins=None):
+        """The march's launch of a slab_sweep row's sweeps on its inputs
+        beside the window's time; the slab_march row's numbers where no
+        main path launches that row (``slab_windows`` holds those that one
+        does, timed at its shape); the bound, plain and library times are
+        the same function's."""
+        row = mode.replace("slab_sweep", "slab_march")
+        twin = make_slab_plan(plan.spec, plan.interior_shape, plan.dtype,
+                              plan.sweeps_per_call, schedule="march")
+        require(twin.layout == plan.layout, f"{row}: layouts differ")
+        nxt = cur.clone()
+        twin_ms = time_call(lambda: slab(cur, nxt, twin, src, pins), device,
+                            20)
+        print(f"  the march's launch of {mode}'s sweeps (tiles "
+              f"{twin.tiles}): {twin_ms:.4f} ms beside the window's "
+              f"{ms[mode]:.4f} ms [{label}]")
+        if row in slab_windows:
+            return
+        ms[row], window_ms[row] = twin_ms, ms[mode]
+        for rec in (plain_ms, bound_ms, bound_by, library_ms):
+            rec[row] = rec[mode]
+
     for mode, kernel, plan, cur, src in launch_inputs:
         nxt = cur.clone()
         out2 = cur.clone() if getattr(plan, "cheby_dual", False) else None
@@ -3296,6 +3506,12 @@ def main() -> int:
             twin = window_twin(plan)
             window_ms[mode] = time_call(lambda: kernel(cur, nxt, twin, src),
                                         device, 10)
+            print(f"  the window schedule's launch of {mode} (tiles "
+                  f"{twin.tiles}): {window_ms[mode]:.4f} ms [{label}]")
+        elif mode in slab_windows:
+            twin = slab_windows[mode]
+            window_ms[mode] = time_call(lambda: kernel(cur, nxt, twin, src),
+                                        device, 20)
             print(f"  the window schedule's launch of {mode} (tiles "
                   f"{twin.tiles}): {window_ms[mode]:.4f} ms [{label}]")
         plain_ms[mode] = time_call(lambda: sweep_reference(cur, plan, src),
@@ -3310,6 +3526,8 @@ def main() -> int:
               f"conv{len(plan.interior_shape)}d {library_ms[mode]:.4f} ms "
               f"per sweep (the kernel does {plan.sweeps_per_call}; vs one "
               f"plain sweep max abs diff {lib_check():.3e}) [{label}]")
+        if mode.startswith("slab_sweep"):
+            slab_twin(mode, plan, cur, src)
 
     # the two-level mode at cfg9's plan: the yardstick is one 2-channel
     # conv3d per leapfrog step
@@ -3425,16 +3643,38 @@ def main() -> int:
                     methods=("slab",), device=DEVICE)
     grid = cli.make_grid(cfg, j5)
     runner = registry.get_runner("slab", cfg, j5, grid)
-    wall, busy, span = device_busy(lambda: runner.iterate(grid, CFG1[4]),
-                                   device)
-    if busy is None:
-        print(f"cfg1 {CFG1[4]} iterations: host wall {wall:.3f} ms; device "
-              f"busy share not measured (the trace holds no device events)")
-    else:
-        print(f"cfg1 {CFG1[4]} iterations ({runner.name}): host wall "
-              f"{wall:.3f} ms unprofiled; device busy {busy:.3f} ms of a "
-              f"{span:.3f} ms span, idle {100 * (1 - busy / span):.1f}% "
-              f"[{label}]")
+    march1 = SlabStencil(j5, CFG1[1], sweeps_per_call=CFG1[2], device=DEVICE,
+                         schedule="march")
+    for name, iterate in ((f"{runner.name}, {runner.plan_info['schedule']}",
+                           runner.iterate),
+                          (f"slab march {march1.plan.tiles}",
+                           march1.iterate)):
+        wall, busy, span = device_busy(lambda: iterate(grid, CFG1[4]),
+                                       device)
+        n_launch = CFG1[4] // CFG1[2]
+        # the host's own cost: the iterate's return, before a synchronize,
+        # the least of 3 runs (its 64 launches queue without a wait)
+        enqueue = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iterate(grid, CFG1[4])
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        host = (f"host {min(enqueue):.3f} ms to enqueue, "
+                f"{min(enqueue) / n_launch * 1e3:.1f} us of host per launch; "
+                f"wall {wall:.3f} ms to the synchronize, "
+                f"{wall / n_launch * 1e3:.1f} us per launch")
+        if busy is None:
+            print(f"cfg1 {CFG1[4]} iterations ({name}): {host}; device "
+                  f"busy share not measured (the trace holds no device "
+                  f"events) [{label}]")
+        else:
+            print(f"cfg1 {CFG1[4]} iterations ({name}): {host} "
+                  f"(unprofiled); device busy {busy:.3f} ms, "
+                  f"{busy / n_launch * 1e3:.1f} us per launch, of a "
+                  f"{span:.3f} ms span, idle {100 * (1 - busy / span):.1f}% "
+                  f"[{label}]")
 
     # the dynamic-wall paths: GLUPS beside the Dirichlet runs above, cfg12,
     # the device's idle share, and one launch of each pins mode
@@ -3505,7 +3745,7 @@ def main() -> int:
                     pins_input(plan8, per01, rng, device), None, None, None)]
     for mode, kernel, make_plan in (
             ("tiled_march+source+pins", tiled, make_tiled_plan),
-            ("slab_sweep+source+pins", slab, make_slab_plan)):
+            ("slab_sweep+source+pins", slab, window_slab)):
         runner, prob, f, _ = poisson_big[mode]
         plan = make_plan(prob.spec, prob.shape, "float32",
                          runner.plan_info["k"])
@@ -3576,6 +3816,8 @@ def main() -> int:
               f"{plain_ms[mode]:.4f} ms, bound {bound_ms[mode]:.4f} ms (by "
               f"{bound_by[mode]}); {lib_text}; the runner's refresh before "
               f"a launch {refresh_ms:.4f} ms [{label}]")
+        if mode.startswith("slab_sweep"):
+            slab_twin(mode, plan, cur, src, pins)
     stamp("the dynamic-wall times")
     # one launch of each bf16 mode at the plan of its phase-4 path (the
     # Chebyshev and dual modes at the PCG path's fp32 plans, in bf16):
@@ -3594,7 +3836,7 @@ def main() -> int:
     bf_case("tiled_march+pins+bf16", tiled, plan8b, per01)
     for mode, kernel, make_plan in (
             ("tiled_march+source+bf16", tiled, make_tiled_plan),
-            ("slab_sweep+source+bf16", slab, make_slab_plan),
+            ("slab_sweep+source+bf16", slab, window_slab),
             ("tiled_march+source+pins+bf16", tiled, make_tiled_plan)):
         runner, prob, f, _ = poisson_big[mode]
         plan = make_plan(prob.spec, prob.shape, bf, runner.plan_info["k"])
@@ -3654,6 +3896,8 @@ def main() -> int:
               f"{library_ms[mode]:.4f} ms per "
               f"{'step' if prev is not None else 'sweep'} (vs one plain "
               f"sweep max abs diff {lib_check():.3e}) [{label}]")
+        if mode.startswith("slab_sweep"):
+            slab_twin(mode, plan, cur, src, pins)
     stamp("the bf16 modes")
     # B3: the bench cell and 128^3 beside tiled, the barrier floor, the
     # kernel record's launch (before the 1024^3 runs, whose traces are the
@@ -3737,8 +3981,10 @@ def main() -> int:
     modules = {"tiled_sweep": tiled_kernel, "tiled_march": tiled_kernel,
                "coeff_weights": tiled_kernel, "slab_sweep": slab_kernel,
                "rma_iterate": rma_module}
+    modules["slab_march"] = slab_kernel
     sources = {"tiled_march": tiled_kernel.MARCH_SOURCE,
-               "coeff_weights": tiled_kernel.WEIGHTS_SOURCE}
+               "coeff_weights": tiled_kernel.WEIGHTS_SOURCE,
+               "slab_march": slab_kernel.MARCH_SOURCE}
     print(json.dumps({"kernels": [{
         "name": mode, "route": "cuda",
         "source": str(sources.get(mode.split("+")[0], modules[

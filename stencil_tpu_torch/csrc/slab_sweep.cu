@@ -61,7 +61,11 @@
 // per useful one) and the shared-memory tap loads bind it. The plan
 // (ops/slab.py) trades that recompute against the number of blocks, which
 // on small grids is what fills the card. Loads are plain (no TMA or
-// cp.async) and do not overlap compute within a block: later work.
+// cp.async) and do not overlap compute within a block. The second
+// schedule, csrc/slab_march.cu, marches d0 through per-level rings of
+// rows instead, its rows by cp.async one step ahead, recomputing in d0
+// only the k*r rows at each end of a chunk; ops/slab.py:make_slab_plan
+// picks between the two by a rule fitted on an H100.
 
 #include <cuda_runtime.h>
 

@@ -1,9 +1,10 @@
 """What the hand-written sweep kernels share: their ``ctypes`` binding, the
 checks and launch of their wrappers, and their plain PyTorch version.
 
-Two kernels sit behind it, one source each: ``csrc/tiled_sweep.cu`` (3D,
+Two kernels sit behind it, each with a window and a march schedule
+(below), one source each: ``csrc/tiled_sweep.cu`` (3D,
 ``ops/tiled_kernel.py``) and ``csrc/slab_sweep.cu`` (2D,
-``ops/slab_kernel.py``); both include the tap evaluator
+``ops/slab_kernel.py``) for the windows; all include the tap evaluator
 ``csrc/stencil_taps.cuh``. They take the same C arguments: the padded input
 and output, an optional padded source, the plan's int32 geometry, the tap
 table in ``weight_groups`` order, the device and the stream. Each launch
@@ -58,8 +59,10 @@ types, through entries ``stencil_tiled_march`` and
 ``stencil_tiled_march_bf16`` of the arguments of ``stencil_tiled_sweep``,
 and the coefficient mode through ``stencil_tiled_march_coeff`` (the
 weights in place of a(x), no scales), each with pins and tile subsets. The
-3D wrapper launches it for a march plan and the window kernel for a window
-plan.
+2D kernel has one too (``csrc/slab_march.cu``): every mode of the window,
+through ``stencil_slab_march`` and ``stencil_slab_march_bf16`` of the
+arguments of ``stencil_slab_sweep``. Each wrapper launches the march for a
+march plan and the window kernel for a window plan.
 
 A wrapper takes the plain version only for tensors on the CPU (the tests);
 for CUDA tensors it launches the kernel or raises. :class:`KernelStencil`

@@ -181,7 +181,8 @@ class ShardedKernelStencil:
                 "has no source path); use the 'xla' source path for 2D")
         return make_slab_plan(self.spec, tuple(local), self.dtype,
                               self.sweeps_per_call, tiles=self.tiles,
-                              t0_fixed=self.t0_fixed)
+                              t0_fixed=self.t0_fixed,
+                              schedule=self.schedule)
 
     def mesh_shape(self, mesh: Mesh) -> Tuple[int, ...]:
         return tuple(mesh.axis_size(a) for a in self.axis_names)

@@ -115,10 +115,8 @@ def _dynamic_kernel_constraints(grid: HaloGrid, spec: StencilSpec, k: int,
 
 
 def schedule_info(plan) -> dict:
-    """A 3D tiled plan's schedule for ``plan_info``: "march" with its d0
-    chunk, or "window"; nothing for a 2D slab plan."""
-    if len(plan.interior_shape) != 3:
-        return {}
+    """A kernel plan's schedule for ``plan_info`` (3D tiled or 2D slab):
+    "march" with its d0 chunk, or "window"."""
     info = {"schedule": plan.schedule}
     if plan.schedule == "march":
         info["chunk"] = plan.tiles[0]

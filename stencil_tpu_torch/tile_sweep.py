@@ -49,6 +49,30 @@ two-material field of contrast 100, the weights formed once per case);
 reads like any other:
 
     python -m stencil_tpu_torch.tile_sweep --march --coeff --out rows.csv
+
+``--dims 2 --march`` does it for the 2D kernel's march schedule
+(``csrc/slab_march.cu``): ``--out`` times every march tile of the chooser's
+candidates (``ops/slab.py:march_candidates``) at each case of
+``SLAB_MARCH_CASES`` (each with its dtype, source and ``-b``), and the
+window at its own chooser's tile, in the same run (``schedule`` column);
+``--score`` scores the march chooser (``choose_slab_march_tiles``) and the
+schedule rule of ``make_slab_plan`` against such rows, and ``--fit``
+refits ``SLAB_MARCH_COST_CONSTANTS`` (least log error of the march's
+estimated ms over its rows) and ``WINDOW_MS_CONSTANTS`` (the same over the
+window's rows). ``data/slab_march_tiles_h100_fit.csv`` holds the rows
+they were fitted to:
+
+    python -m stencil_tpu_torch.tile_sweep --dims 2 --march --out rows.csv
+    python -m stencil_tpu_torch.tile_sweep --dims 2 --march --score \
+        stencil_tpu_torch/data/slab_march_tiles_h100_fit.csv --fit
+
+``--held-out`` times ``SLAB_MARCH_HELD_OUT`` instead: shapes, specs and
+bf16 cases the fit never saw, on which ``--score`` checks the fitted
+constants (``data/slab_march_tiles_h100_held_out.csv``; never passed to
+``--fit``):
+
+    python -m stencil_tpu_torch.tile_sweep --dims 2 --march --held-out \
+        --out held_out.csv
 """
 
 from __future__ import annotations
@@ -65,8 +89,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from stencil_tpu_torch.core.grid import torch_dtype
-from stencil_tpu_torch.core.spec import get_spec
-from stencil_tpu_torch.ops import tiled
+from stencil_tpu_torch.core.spec import get_spec, star
+from stencil_tpu_torch.ops import slab, tiled
 from stencil_tpu_torch.ops.slab import (
     COST_CONSTANTS, SMEM_LIMIT, _t1_candidates, candidate_tiles,
     choose_tiles, make_slab_plan, tile_key,
@@ -117,8 +141,49 @@ MARCH_TILES = tuple((t0, t1, t2) for t0 in (16, 32, 64, 128, 256)
 MARCH_FIT_GRID = ((4, 6, 8, 10, 14, 20, 30), (2, 4, 8, 16, 32, 64),
                   (0, 512, 1024, 2048, 4096, 8192))
 
+# the 2D march cases (spec, shape, k, dtype, source, t0 pinned by -b or
+# None): cfg1 at k = 1, 4, 16 and in bf16, cfg2 (bench.py:76-79) free and
+# at its -b 256, the Poisson source mode at 4096^2 k=8, the ragged
+# star2d_r2 of the CPU smoke
+SLAB_MARCH_CASES = (
+    ("jacobi5", (512, 512), 16, "float32", False, None),
+    ("jacobi5", (512, 512), 4, "float32", False, None),
+    ("jacobi5", (512, 512), 1, "float32", False, None),
+    ("jacobi5", (512, 512), 16, "bfloat16", False, None),
+    ("jacobi9", (4096, 4096), 4, "float32", False, 256),
+    ("jacobi9", (4096, 4096), 4, "float32", False, None),
+    ("star2d_r1", (4096, 4096), 8, "float32", True, None),
+    ("star2d_r2", (250, 333), 3, "float32", False, None))
+# cases kept out of the fit, to check it: cfg2 in bf16, the 63^2 Poisson
+# solve in both dtypes, 2D sharded_pallas's (1024, 4096) block of 4096^2
+# over --mesh 4, and two shapes and specs no fitted case has
+SLAB_MARCH_HELD_OUT = (
+    ("jacobi9", (4096, 4096), 4, "bfloat16", False, 256),
+    ("star2d_r1", (63, 63), 8, "float32", True, None),
+    ("star2d_r1", (63, 63), 8, "bfloat16", True, None),
+    ("jacobi5", (1024, 4096), 8, "float32", False, None),
+    ("laplace2d_ho", (1024, 1024), 4, "float32", False, None),
+    ("jacobi9", (2048, 2048), 2, "float32", False, None))
+FIELDS_MARCH_2D = ("spec", "n0", "n1", "k", "dtype", "source", "t0_fixed",
+                   "schedule", "t0", "t1", "ms")
+# the constants --fit tries: the march's point cost, ns per step, ns per
+# chain slot, ns per warp slot, launch ms; the window's ms per cost unit
+# (x 1e-6) and its floor in ms
+SLAB_MARCH_FIT_GRID = ((8, 16, 24, 32, 48), (100, 200, 300, 400, 500),
+                       (1, 2, 3, 4, 8), (0.1, 0.2, 0.3, 0.4, 0.5, 0.6),
+                       (0.01, 0.015, 0.02, 0.025))
+WINDOW_FIT_GRID = (tuple(x / 10 for x in range(5, 31)),
+                   tuple(x / 1000 for x in range(10, 51)))
+
 Case = Tuple[str, Tuple[int, int], int, Optional[int]]
 MarchCase = Tuple[str, Tuple[int, int, int], int, str]
+SlabMarchCase = Tuple[str, Tuple[int, int], int, str, bool, Optional[int]]
+
+
+def spec_of(name: str):
+    """A spec by name; ``star2d_r1`` is the Poisson runner's (``star(2,
+    1)``), which the spec table does not name."""
+    return star(2, 1) if name == "star2d_r1" else get_spec(name)
 
 
 def sweep_tiles(spec_name: str, shape, k: int, t0_fixed: Optional[int],
@@ -280,6 +345,157 @@ def measure_march(out: Path, cases: Sequence[MarchCase] = MARCH_CASES,
             sys.stdout.flush()
 
 
+def measure_slab_march(out: Path,
+                       cases: Sequence[SlabMarchCase] = SLAB_MARCH_CASES,
+                       seed: int = 0) -> None:
+    """Time one launch of the 2D march at every tile of its chooser's
+    candidates, and one of the window at its chooser's tile, for every
+    case on the current CUDA device; writes ``FIELDS_MARCH_2D`` rows to
+    ``out`` and prints per case the march chooser's pick against the
+    fastest march tile, and the window's time."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.ops.slab_kernel import slab_sweep
+    from stencil_tpu_torch.utils.timing import timed
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the tile sweep times the CUDA kernel: it needs "
+                           "a card (score and fit need none)")
+    device = torch.device("cuda")
+    label = gpu_label()
+    print(label)
+    rng = np.random.default_rng(seed)
+    with open(out, "w", newline="") as fh:
+        fh.write(f"# {label}, 2D march\n")
+        writer = csv.writer(fh)
+        writer.writerow(FIELDS_MARCH_2D)
+        for name, shape, k, dtype, source, t0_fixed in cases:
+            spec = spec_of(name)
+            tdt = torch_dtype(dtype)
+            x = torch.from_numpy(rng.random(shape, dtype=np.float32))
+            grid = HaloGrid.from_interior(x.to(tdt), halo=spec.radius,
+                                          device=device)
+            reps = max(5, min(100, int(4e8 / (math.prod(shape) * k))))
+            pick = slab.choose_slab_march_tiles(spec, shape, k, t0_fixed,
+                                                dtype)
+            tiles = slab.march_candidates(spec, shape, k, t0_fixed,
+                                          tdt.itemsize)
+            window = make_slab_plan(spec, shape, dtype, k, t0_fixed=t0_fixed,
+                                    schedule="window")
+            times = {}
+            for sched, t in [("march", t) for t in tiles] \
+                    + [("window", window.tiles)]:
+                plan = make_slab_plan(spec, shape, dtype, k, tiles=t,
+                                      schedule=sched)
+                cur = plan.layout.pad_grid(grid)
+                nxt = cur.clone()
+                src = torch.full_like(cur, 0.01) if source else None
+                slab_sweep(cur, nxt, plan, src)
+                ms = timed(lambda: [slab_sweep(cur, nxt, plan, src)
+                                    for _ in range(reps)], device) \
+                    / reps * 1e3
+                times[(sched, t)] = ms
+                writer.writerow((name, *shape, k, dtype, int(source),
+                                 "" if t0_fixed is None else t0_fixed,
+                                 sched, *t, repr(ms)))
+            fh.flush()
+            march = {t: ms for (sched, t), ms in times.items()
+                     if sched == "march"}
+            best = min(march, key=march.get)
+            wms = times[("window", window.tiles)]
+            print(f"2D march {name} {shape} k={k} {dtype} source={source} "
+                  f"t0_fixed={t0_fixed}: {len(march)} tiles; chooser {pick}"
+                  f" {march[pick]:.4f} ms, fastest {best} {march[best]:.4f}"
+                  f" ms, {march[pick] / march[best]:.3f}x; window "
+                  f"{window.tiles} {wms:.4f} ms [{label}]")
+            sys.stdout.flush()
+
+
+def read_slab_march_rows(path: Path) -> Dict[SlabMarchCase, Dict[
+        Tuple[str, Tuple[int, int]], float]]:
+    """Rows of a 2D march sweep, grouped by case: {case: {(schedule,
+    tiles): ms}}."""
+    cases: Dict[SlabMarchCase, Dict[Tuple[str, Tuple[int, int]], float]] \
+        = {}
+    with open(path, newline="") as fh:
+        lines = (line for line in fh if not line.startswith("#"))
+        for row in csv.DictReader(lines):
+            case = (row["spec"], (int(row["n0"]), int(row["n1"])),
+                    int(row["k"]), row["dtype"], bool(int(row["source"])),
+                    int(row["t0_fixed"]) if row["t0_fixed"] else None)
+            key = (row["schedule"], (int(row["t0"]), int(row["t1"])))
+            cases.setdefault(case, {})[key] = float(row["ms"])
+    return cases
+
+
+def score_slab_march(cases, constants=None, window=None) -> List[dict]:
+    """Per 2D march case: the tile the march model (``constants``, default
+    ``SLAB_MARCH_COST_CONSTANTS``) picks among the measured march tiles,
+    its ms, the fastest measured march tile and its ms; the window's ms;
+    the schedule the rule (``window``: ``WINDOW_MS_CONSTANTS``) gives and
+    the faster measured one."""
+    constants = constants or slab.SLAB_MARCH_COST_CONSTANTS
+    window = window or slab.WINDOW_MS_CONSTANTS
+    out = []
+    for case, measured in cases.items():
+        name, shape, k, dtype, _, _ = case
+        spec = spec_of(name)
+        item = torch_dtype(dtype).itemsize
+        march = {t: ms for (sched, t), ms in measured.items()
+                 if sched == "march"}
+        (wtiles, wms), = ((t, ms) for (sched, t), ms in measured.items()
+                          if sched == "window")
+        pick = min(march, key=lambda t: slab.march_key(
+            t, k, spec, shape, item, constants))
+        rule = "march" if slab.march_wins(pick, wtiles, k, spec, shape,
+                                          item, constants, window) \
+            else "window"
+        best = min(march, key=march.get)
+        out.append({"case": case, "pick": pick, "pick_ms": march[pick],
+                    "best": best, "best_ms": march[best],
+                    "ratio": march[pick] / march[best],
+                    "window_ms": wms, "rule": rule,
+                    "faster": "march" if march[pick] < wms else "window"})
+    return out
+
+
+def fit_slab_march(cases) -> Tuple[tuple, tuple]:
+    """The march's constants of least squared log error over its rows;
+    then the window's (ms per cost unit, floor ms) under which the rule
+    takes the faster measured schedule in the most cases, and of those
+    the least squared log error over the window rows."""
+    def log_err(pairs):
+        return sum(math.log(p / m) ** 2 for p, m in pairs)
+
+    rows = [(case, sched, t, ms) for case, measured in cases.items()
+            for (sched, t), ms in measured.items()]
+
+    def args(case):
+        name, shape, k, dtype, _, _ = case
+        return spec_of(name), shape, k, torch_dtype(dtype).itemsize
+
+    marches = [(args(c), t, ms) for c, sched, t, ms in rows
+               if sched == "march"]
+    march = min(itertools.product(*SLAB_MARCH_FIT_GRID),
+                key=lambda cst: log_err(
+                    (slab._slab_march_cost(t, a[1], a[2], a[0], a[3], cst),
+                     ms) for a, t, ms in marches))
+    costs = [(slab._cost(t, a[2], a[0], a[1], itemsize=a[3]), ms)
+             for a, t, ms in ((args(c), t, ms) for c, sched, t, ms in rows
+                              if sched == "window")]
+
+    def key(w):
+        agree = sum(r["rule"] == r["faster"]
+                    for r in score_slab_march(cases, march, w))
+        return -agree, log_err((max(w[1], w[0] * c), ms) for c, ms in costs)
+
+    window = min(((scale * 1e-6, launch)
+                  for scale, launch in itertools.product(*WINDOW_FIT_GRID)),
+                 key=key)
+    return march, window
+
+
 def read_march_rows(path: Path) -> Dict[MarchCase,
                                         Dict[Tuple[int, int, int], float]]:
     """Rows of a march sweep, grouped by case: {case: {tiles: ms}}."""
@@ -345,6 +561,22 @@ def score(cases: Dict[Case, Dict[Tuple[int, int], float]],
     return out
 
 
+def report_slab_march(cases, constants, window) -> None:
+    """Print :func:`score_slab_march` per case and in sum."""
+    results = score_slab_march(cases, constants, window)
+    for r in results:
+        print(f"2D march {r['case']}: pick {r['pick']} {r['pick_ms']:.4f} "
+              f"ms, best {r['best']} {r['best_ms']:.4f} ms, "
+              f"{r['ratio']:.3f}x; window {r['window_ms']:.4f} ms; rule "
+              f"{r['rule']}, faster {r['faster']}")
+    print(f"march constants {constants}, window constants {window}: "
+          f"geometric mean {geomean(results):.4f}x the best tile, worst "
+          f"{max(r['ratio'] for r in results):.4f}x; the rule takes the "
+          f"faster schedule in "
+          f"{sum(r['rule'] == r['faster'] for r in results)} of "
+          f"{len(results)} cases")
+
+
 def geomean(results: List[dict]) -> float:
     return math.exp(sum(math.log(r["ratio"]) for r in results)
                     / len(results))
@@ -370,19 +602,38 @@ def main(argv=None) -> int:
                     choices=list(tiled.DTYPES),
                     help="with --out: the grid's dtype (the kernels' bf16 "
                          "entries take 2-byte windows)")
-    ap.add_argument("--dims", type=int, default=2, choices=(2, 3),
-                    help="with --out: 2 (the slab kernel, CASES) or 3 (the "
-                         "tiled kernel, CASES_3D)")
+    ap.add_argument("--dims", type=int, default=None, choices=(2, 3),
+                    help="2 (the slab kernel, CASES; the default) or 3 "
+                         "(the tiled kernel, CASES_3D); with --march, 3 "
+                         "unless 2 is given")
     ap.add_argument("--march", action="store_true",
-                    help="the 3D kernel's march schedule: time "
-                         "MARCH_TILES at MARCH_CASES, or score and refit "
-                         "the march chooser")
+                    help="the march schedule: time MARCH_TILES at "
+                         "MARCH_CASES (--dims 3, the default with --march) "
+                         "or the 2D march at SLAB_MARCH_CASES (--dims 2), "
+                         "or score and refit the march chooser")
+    ap.add_argument("--held-out", action="store_true",
+                    help="with --dims 2 --march --out: time "
+                         "SLAB_MARCH_HELD_OUT, the cases the fit never saw")
     ap.add_argument("--coeff", action="store_true",
                     help="with --march --out: the coefficient mode at "
                          "MARCH_COEFF_CASES")
     args = ap.parse_args(argv)
     if args.out is None and args.score is None:
         ap.error("give --out (measure) or --score (score, fit)")
+    if args.march and args.dims == 2:
+        if args.out is not None:
+            measure_slab_march(args.out, SLAB_MARCH_HELD_OUT
+                               if args.held_out else SLAB_MARCH_CASES)
+        if args.score is not None:
+            cases = read_slab_march_rows(args.score)
+            report_slab_march(cases, slab.SLAB_MARCH_COST_CONSTANTS,
+                              slab.WINDOW_MS_CONSTANTS)
+            if args.fit:
+                march, window = fit_slab_march(cases)
+                print(f"fit: march constants {march}, window constants "
+                      f"{window}")
+                report_slab_march(cases, march, window)
+        return 0
     if args.march:
         if args.out is not None:
             measure_march(args.out, MARCH_COEFF_CASES if args.coeff

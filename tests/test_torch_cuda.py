@@ -1073,3 +1073,117 @@ def test_march_refuses_rather_than_falls_back(cuda_device):
     with pytest.raises(RuntimeError, match="shared memory"):
         tiled_sweep(cur, cur.clone(), big)
     assert tiled_sweep.launches == 0
+
+
+# ---- the 2D d0 march (csrc/slab_march.cu) ----------------------------------
+
+
+def _slab_spec(name):
+    """A 2D spec by name: the spec table's, ``star2d_r1`` (the Poisson
+    runner's), or ``upwind3`` (three taps, the kernels' table loop)."""
+    from stencil_tpu_torch.core.spec import star, weighted
+
+    if name == "star2d_r1":
+        return star(2, 1)
+    if name == "upwind3":
+        return weighted(2, [((0, 0), 0.5), ((-1, 0), 0.25),
+                            ((0, -1), 0.25)])
+    return get_spec(name)
+
+
+@pytest.mark.parametrize("name,shape,k,t0,dtype,periodic,neumann,source", [
+    ("jacobi5", (512, 512), 16, None, "float32", (), (), False),
+    ("jacobi5", (512, 512), 16, None, "float32", (0,), (), False),
+    ("jacobi5", (512, 512), 1, None, "float32", (), (0,), False),
+    ("jacobi9", (4096, 4096), 4, 256, "float32", (), (), False),
+    ("star2d_r1", (4096, 4096), 8, None, "float32", (0,), (), True),
+    ("star2d_r1", (63, 63), 8, None, "float32", (), (0,), True),
+    ("star2d_r2", (250, 333), 3, None, "float32", (), (), False),
+    ("laplace2d_ho", (250, 333), 3, 16, "float32", (0,), (), True),
+    ("upwind3", (61, 70), 5, None, "float32", (0,), (), False),
+    ("jacobi5", (512, 512), 16, None, "bfloat16", (), (), False),
+    ("jacobi5", (512, 512), 16, None, "bfloat16", (0,), (), False),
+    ("star2d_r1", (4096, 4096), 8, None, "bfloat16", (), (), True),
+    ("star2d_r2", (251, 333), 3, None, "bfloat16", (0,), (), True),
+    ("jacobi9", (63, 63), 8, 8, "bfloat16", (), (0,), False)])
+def test_slab_march_matches_plain_and_window(cuda_device, name, shape, k, t0,
+                                             dtype, periodic, neumann,
+                                             source):
+    """One 2D march launch bitwise its plain version and the window
+    schedule's launch of the same sweeps, every count of its mode bumped
+    once: cfg1, cfg2 at -b 256, the Poisson shapes, the ragged star2d_r2
+    (odd row stride; at (251, 333) an odd-sized array, whose last bf16
+    word is copied alone), radius 2 with two weight groups, the table loop
+    of a 3-tap spec; periodic and Neumann d0 faces; both dtypes."""
+    from stencil_tpu_torch.ops.sweep_kernel import dynamic_pins
+
+    sp = _slab_spec(name)
+    bc = _walls(2, periodic, neumann)
+    plan = make_slab_plan(sp, shape, dtype, k, t0_fixed=t0,
+                          schedule="march")
+    window = make_slab_plan(sp, shape, dtype, k, t0_fixed=t0,
+                            schedule="window")
+    assert plan.schedule == "march" and window.schedule == "window"
+    cur = _bf16_input(plan, shape, sp.radius, cuda_device, bc) \
+        if dtype == "bfloat16" else _refreshed(plan, bc, shape, sp.radius,
+                                               cuda_device)
+    src = pad_source(plan, _source(shape), -0.02, bc).to(cuda_device) \
+        if source else None
+    pins = dynamic_pins(bc, 2)
+    slab_sweep.reset_counts()
+    got = slab_sweep(cur, cur.clone(), plan, src, pins)
+    torch.cuda.synchronize()
+    live = not all(pins)
+    assert (slab_sweep.march_launches, slab_sweep.march_source_launches,
+            slab_sweep.march_pins_launches,
+            slab_sweep.march_source_pins_launches,
+            slab_sweep.march_bf16_launches) == (
+        1, source, live and not source, live and source,
+        dtype == "bfloat16")
+    want = sweep_reference(cur, plan, src, pins=pins)
+    via_window = slab_sweep(cur, cur.clone(), window, src, pins)
+    torch.cuda.synchronize()
+    assert slab_sweep.march_launches == 1 and slab_sweep.launches == 2
+    assert torch.equal(got, want)
+    assert torch.equal(got, via_window)
+
+
+@pytest.mark.parametrize("dtype,periodic", [("float32", ()),
+                                            ("bfloat16", (0,))])
+def test_slab_march_iterate_with_remainder_matches_window(cuda_device,
+                                                          dtype, periodic):
+    """``SlabStencil.iterate`` on the march, 16 + 5 sweeps at cfg1's k=16
+    (a remainder launch of k=5 on the same rings' layout), bitwise the
+    window's iterate; each launch counted once on the march."""
+    sp, shape = get_spec("jacobi5"), (512, 512)
+    bc = _walls(2, periodic)
+    g = _grid(shape, 1, cuda_device, bc=bc)
+    if dtype == "bfloat16":
+        g = HaloGrid.from_interior(_bf16(g.interior()), halo=1, bc=bc,
+                                   device=cuda_device)
+    slab_sweep.reset_counts()
+    got = SlabStencil(sp, shape, dtype, 16, device=cuda_device,
+                      schedule="march").iterate(g, 21)
+    torch.cuda.synchronize()
+    assert slab_sweep.march_launches == 2
+    want = SlabStencil(sp, shape, dtype, 16, device=cuda_device,
+                       schedule="window").iterate(g, 21)
+    torch.cuda.synchronize()
+    assert torch.equal(got.interior(), want.interior())
+
+
+def test_slab_march_refuses_rather_than_falls_back(cuda_device):
+    """A CUDA tensor with a 2D march plan launches the march kernel or
+    raises: a geometry the kernel refuses is an error, not a window or
+    plain launch."""
+    import dataclasses
+
+    sp, shape = get_spec("jacobi5"), (512, 512)
+    plan = make_slab_plan(sp, shape, "float32", 16, schedule="march")
+    big = dataclasses.replace(plan, tiles=(64, 512), sweeps_per_call=32,
+                              layout=plan.layout.for_halo(shape, 32))
+    cur = big.layout.pad_grid(_grid(shape, 1, cuda_device))
+    slab_sweep.reset_counts()
+    with pytest.raises(RuntimeError, match="shared memory"):
+        slab_sweep(cur, cur.clone(), big)
+    assert slab_sweep.launches == 0
