@@ -11,10 +11,11 @@ Phases, each ending in a line of its own:
 2. build: compiles the CUDA kernels (``csrc/tiled_sweep.cu``, the 3D
    kernel's window schedule, six modes and tile subsets;
    ``csrc/tiled_march.cu``, its d0 march, the homogeneous and source modes
-   with pins, bf16 and subsets and the coefficient mode with pins and
-   subsets; ``csrc/coeff_weights.cu``, the coefficient mode's weights;
-   ``csrc/slab_sweep.cu``, the 2D kernel's window schedule;
-   ``csrc/slab_march.cu``, its d0 march, every mode of the window;
+   with pins, bf16 and subsets, the two-level mode with pins and bf16 and
+   the coefficient mode with pins and subsets; ``csrc/coeff_weights.cu``,
+   the coefficient mode's weights; ``csrc/slab_sweep.cu``, the 2D
+   kernel's window schedule; ``csrc/slab_march.cu``, its d0 march, every
+   mode of the window;
    ``csrc/rma_iterate.cu``) and the native golden from the sources in
    this checkout, all seven compilers started together
    (into ``build/stencil_tpu_torch/``);
@@ -37,8 +38,9 @@ Phases, each ending in a line of its own:
    nu1 = 4, at 255³ and ragged, with both dual outputs compared; every
    fine-level operation of the three solver paths of phase 4 at that
    path's own plan (shape, tiles, coefficients) and right-hand side; the
-   two-level mode at cfg9's plan (wave 256³ k=8), at k=1 and ragged k=3,
-   both outputs, and ``WaveEquation.simulate(method="tiled")`` with a
+   two-level mode on the march at cfg9's plan (wave 256³ k=8), at k=1 and
+   ragged k=3 and k=8, both outputs, each launch bitwise its plain version
+   and the window's launch, and ``WaveEquation.simulate(method="tiled")`` with a
    remainder against the eager leapfrog; the coefficient mode on the
    march, each case the weights kernel bitwise its plain version and the
    march launch through its weights bitwise its plain version and the
@@ -51,8 +53,9 @@ Phases, each ending in a line of its own:
    mode on a dynamic-wall path, on refreshed random grids: the 3D kernel
    at 256³ k=8 with periodic 0 1, Neumann 0 1 and periodic 0 + Neumann 1,
    ragged k=3, ``laplace3d_ho`` k=4, ``--periodic all`` at k=1; its source
-   mode at the periodic/Neumann Poisson path's plan; its two-level mode at
-   cfg9's plan (both outputs); the 2D
+   mode at the periodic/Neumann Poisson path's plan; its two-level mode on
+   the march at cfg9's plan and ragged with periodic 0 + Neumann 1 and
+   ragged k=1 periodic (both outputs, also against the window); the 2D
    kernel at cfg1's plan (periodic 0, Neumann 0), cfg2's, ``star2d_r2``
    ragged, ``--periodic all`` at k=1 and its source mode at 4096²; and
    the runners over a remainder against the eager iterate; then every
@@ -62,8 +65,10 @@ Phases, each ending in a line of its own:
    (fp32 subnormals, signed zeros); its source mode at the bf16 Poisson
    path's plan (one launch and the runner) and ragged near 0; its
    Chebyshev and dual modes at 255³, ragged and the bf16 multigrid path's
-   63³; its two-level mode at cfg9's plan; its pins (periodic, Neumann,
-   mixed, radius 2) and those of its source and two-level modes; the 2D
+   63³; its two-level mode on the march at cfg9's plan, ragged k=1 and
+   ragged k=3 near 0 (also against the window), with periodic 0 + Neumann
+   1 at cfg9's plan, ragged k=3 near 0 and ragged k=8; its pins
+   (periodic, Neumann, mixed, radius 2) and those of its source mode; the 2D
    kernel at cfg1's and cfg2's plans, ``star2d_r2`` ragged near 0, its
    source mode at 4096² and its pins; and the bf16 runners over a
    remainder against the eager bf16 iterate; then the tile subsets (B1f):
@@ -116,7 +121,8 @@ Phases, each ending in a line of its own:
    converged and within 3 h² of the exact solution (4 h² for the
    weighted-Jacobi tiled cycle, whose fp32 floor is ~3.3 h² at 255³; see
    ``SOLVE_PATHS``), the float64 certificate printed; the
-   wave at 256³ (16 steps on ``tiled`` k=8 against ``eager``) and at 64³
+   wave at 256³ (16 steps on ``tiled`` k=8 against ``eager``, every launch
+   a march two-level one) and at 64³
    (against the float64 golden loop and the analytic standing mode);
    ``-s 128 128 128 --spec jacobi7 -m varcoeff -k 8 -i 64 -c`` against the
    float64 field golden (capped at 50 iterations); ``--solve hetero -s 255
@@ -181,11 +187,11 @@ Phases, each ending in a line of its own:
    solution and iterations; the error floor of the multigrid cycles at
    255³ (manufactured sine, error against the exact solution per cycle)
    in fp32 on both fine levels and in fp64 on the eager one; cfg9 (the
-   wave at 256³, leapfrog steps per second) on ``tiled`` k=8 and
-   ``eager``; cfg16/cfg16b (FTCS diffusion at 256³) on the coefficient mode
-   k=8, on the march and on the window, and the eager field sweep; cfg18
-   (BiCGStab + OperatorMultigrid, 255³, tol 1e-4, f seed 7) as time to
-   solution and iterations with
+   wave at 256³, leapfrog steps per second) on ``tiled`` k=8, on the march
+   and on the window, and ``eager``; cfg16/cfg16b (FTCS diffusion at
+   256³) on the coefficient mode k=8, on the march and on the window, and
+   the eager field sweep; cfg18 (BiCGStab + OperatorMultigrid, 255³, tol
+   1e-4, f seed 7) as time to solution and iterations with
    ``--op-kernel auto`` and ``pallas``, and each solve's device idle share;
    for each kernel mode one launch's kernel ms
    against its plain version's, against one call of
@@ -195,7 +201,8 @@ Phases, each ending in a line of its own:
    the eager field sweep is printed beside it) and against the bound the
    card's peaks give, at a main path's shape (the source modes at the
    Poisson golden checks', the Chebyshev and dual modes at the PCG path's,
-   the two-level mode at cfg9's, the coefficient mode at cfg16's beside
+   the two-level mode at cfg9's beside the window's launch, the
+   coefficient mode at cfg16's beside
    the window's launch, the weights kernel at cfg16's padded grid, and the
    k=1 matvec at cfg18's beside the window's and the eager matvec); the
    device's busy
@@ -230,8 +237,9 @@ Phases, each ending in a line of its own:
    barriers.
 
 The march replaces the window schedule in the homogeneous and source
-modes, with pins, bf16 and subsets, and in the coefficient mode with
-pins: their rows are ``tiled_march...``, each with ``window_ms``, the
+modes, with pins, bf16 and subsets, in the two-level mode with pins and
+bf16, and in the coefficient mode with pins: their rows are
+``tiled_march...``, each with ``window_ms``, the
 window schedule's time for the same launch (its own chooser's tiles; a
 subset row the window's interior + edge pair; the coefficient rows the
 window's launch from a(x)). The ``coeff_weights`` row is the weights
@@ -469,14 +477,14 @@ PEAK_BF16_PER_S = 989e12
 # the kernel record's modes: every fp32 mode, then each bf16 one
 KERNEL_MODES = (
     "tiled_march", "tiled_march+source", "tiled_sweep+cheby",
-    "tiled_sweep+dual", "tiled_sweep+two_level", "tiled_march+coeff",
+    "tiled_sweep+dual", "tiled_march+two_level", "tiled_march+coeff",
     "coeff_weights", "tiled_march+pins", "tiled_march+source+pins",
-    "tiled_sweep+two_level+pins", "tiled_march+coeff+pins", "slab_sweep",
+    "tiled_march+two_level+pins", "tiled_march+coeff+pins", "slab_sweep",
     "slab_sweep+source", "slab_sweep+pins", "slab_sweep+source+pins",
     "tiled_march+bf16", "tiled_march+source+bf16", "tiled_sweep+cheby+bf16",
-    "tiled_sweep+dual+bf16", "tiled_sweep+two_level+bf16",
+    "tiled_sweep+dual+bf16", "tiled_march+two_level+bf16",
     "tiled_march+pins+bf16", "tiled_march+source+pins+bf16",
-    "tiled_sweep+two_level+pins+bf16", "slab_sweep+bf16",
+    "tiled_march+two_level+pins+bf16", "slab_sweep+bf16",
     "slab_sweep+source+bf16", "slab_sweep+pins+bf16",
     "slab_march", "slab_march+source", "slab_march+pins",
     "slab_march+source+pins", "slab_march+bf16", "slab_march+source+bf16",
@@ -974,29 +982,59 @@ def run_solve_cli(cli, kernel, name, args, bar_h2, label):
     return rec, counts
 
 
-def wave_plan(shape, k, dtype="float32"):
-    """The chooser's two-level plan of the wave spec at the CFL limit."""
+def wave_plan(shape, k, dtype="float32", schedule=None):
+    """The chooser's two-level plan of the wave spec at the CFL limit (the
+    rule's schedule, or ``schedule``)."""
     from stencil_tpu_torch.models.wave import WaveEquation
     from stencil_tpu_torch.ops.tiled import make_tiled_plan
 
     spec = WaveEquation(shape=shape, device=DEVICE).spec
-    return make_tiled_plan(spec, shape, dtype, k, two_level=True)
+    return make_tiled_plan(spec, shape, dtype, k, two_level=True,
+                           schedule=schedule)
 
 
-def compare_two_level(kernel, shape, k, rng, device):
-    """One two-level launch against the plain version, both outputs, two
-    random levels (reference walls)."""
+def compare_two_level(kernel, shape, k, rng, device, bc=None,
+                      dtype="float32", tiny=False):
+    """One two-level launch of the march plan of the wave at ``shape``, k
+    steps (at k=1 the march asked for: the rule gives the window), in
+    ``dtype``, on two random levels with walls ``bc`` (default
+    the reference faces) and their pins (bf16 ``tiny``: values near 0),
+    bitwise against its plain version and against the window schedule's
+    launch, on both outputs. Returns {mode: max abs difference} for the
+    march's row (``tiled_march+two_level...``) and the window's
+    (``tiled_sweep+two_level...``)."""
+    import torch
+
     from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
 
-    plan = wave_plan(shape, k)
-    cur = plan.layout.pad_grid(random_grid(shape, 1, rng, device))
-    prev = plan.layout.pad_grid(random_grid(shape, 1, rng, device))
-    got = kernel(cur, cur.clone(), plan, prev=prev, out2=prev.clone())
-    want = sweep_reference(cur, plan, prev=prev)
-    label = f"{kernel.name}+two_level {plan.spec.name} {shape} k={k} " \
-            f"tiles {plan.tiles}"
-    return max(check_equal(f"{label}, L_(n+k)", got[0], want[0]),
-               check_equal(f"{label}, L_(n+k-1)", got[1], want[1]))
+    plan = wave_plan(shape, k, dtype, "march")  # k=1: the rule's is a window
+    twin = window_twin(plan)
+    bc = bc if bc is not None else walls(3)
+    pins = dynamic_pins(bc, 3)
+    if dtype == "bfloat16":
+        cur, prev = (bf16_input(plan, bc, rng, device, tiny)
+                     for _ in range(2))
+    else:
+        cur, prev = (pins_input(plan, bc, rng, device) for _ in range(2))
+    got = kernel(cur, cur.clone(), plan, pins=pins, prev=prev,
+                 out2=prev.clone())
+    via = kernel(cur, cur.clone(), twin, pins=pins, prev=prev,
+                 out2=prev.clone())
+    want = sweep_reference(cur, plan, prev=prev, pins=pins)
+    suffix = ("+two_level" + ("" if all(pins) else "+pins")
+              + ("+bf16" if dtype == "bfloat16" else ""))
+    label = (f"{plan.spec.name} {shape} k={k} {dtype}, {walls_name(bc)}"
+             f"{', values near 0' if tiny else ''}, march tiles "
+             f"{plan.tiles}, window tiles {twin.tiles}")
+    out = {}
+    for name, g, w, v in zip(("L_(n+k)", "L_(n+k-1)"), got, want, via):
+        require(torch.equal(g, v), f"tiled_march{suffix} {label}, {name}: "
+                "not bitwise the window's launch")
+        for row, t in (("tiled_march", g), ("tiled_sweep", v)):
+            out[row + suffix] = max(out.get(row + suffix, 0.0), check_equal(
+                f"{row}{suffix} {label}, {name}", t, w, True))
+    return out
 
 
 def compare_wave_iterate(shape, k, steps, rng, device, bc=None,
@@ -1101,7 +1139,8 @@ def run_wave(kernel, rng, label):
     """The wave main path: cfg9's WaveEquation at 256^3 over WAVE_STEPS
     steps on ``tiled`` k=8 against ``eager``; at 64^3 against the float64
     golden loop (5e-4) and the analytic standing mode (3e-4, the JAX
-    tests' bars). Returns the two-level launches, counts set to 0 just
+    tests' bars). Every launch must be a march two-level one (cfg9's plan
+    marches). Returns the two-level launches, counts set to 0 just
     before."""
     import torch
 
@@ -1125,6 +1164,8 @@ def run_wave(kernel, rng, label):
             f"wave {MAIN_SIZE}: tiled vs eager {diff}")
     require(launches == WAVE_STEPS // WAVE_K
             and launches == kernel.launches, f"wave launches {launches}")
+    require_marched(kernel, wave_plan(MAIN_SIZE, WAVE_K), launches,
+                    "march_two_level_launches")
     small = WaveEquation(shape=WAVE_SMALL, device=DEVICE)
     u0 = rng.normal(size=WAVE_SMALL)
     got = small.simulate_interior(u0, 24, method="tiled",
@@ -1149,7 +1190,17 @@ def run_wave(kernel, rng, label):
           f"launches in all [{label}]")
     require(np.isfinite(err) and err < 5e-4, f"wave golden {err}")
     require(np.isfinite(err_m) and err_m < 3e-4, f"wave standing {err_m}")
+    require_marched(kernel, wave_plan(WAVE_SMALL, WAVE_K), launches,
+                    "march_two_level_launches")
     return launches
+
+
+def require_marched(kernel, plan, launches, count):
+    """A wave path's plan is a march plan, and every one of its
+    ``launches`` two-level launches a march one (``count``)."""
+    require(plan.schedule == "march" and getattr(kernel, count) == launches,
+            f"wave {plan.interior_shape} {plan.dtype}: a {plan.schedule} "
+            f"plan, {getattr(kernel, count)} {count} of {launches}")
 
 
 def run_wave_pins(kernel, rng, label):
@@ -1170,6 +1221,8 @@ def run_wave_pins(kernel, rng, label):
     require(launches == WAVE_STEPS // WAVE_K and launches == kernel.launches,
             f"wave {walls_name(w.bc)}: {launches} pins launches of "
             f"{kernel.launches}")
+    require_marched(kernel, wave_plan(MAIN_SIZE, WAVE_K), launches,
+                    "march_two_level_pins_launches")
     _, want = w.simulate(prev, cur, WAVE_STEPS, method="eager")
     diff = float((got.data - want.data).abs().max())
     print(f"wave {MAIN_SIZE} {walls_name(w.bc)}, {WAVE_STEPS} steps tiled "
@@ -1219,6 +1272,8 @@ def run_wave_bf16(kernel, rng, label, bc=None):
             and kernel.bf16_launches == launches,
             f"wave bf16 {walls_name(w.bc)}: {launches} {count}, "
             f"{kernel.bf16_launches} bf16, {kernel.launches} in all")
+    require_marched(kernel, wave_plan(MAIN_SIZE, WAVE_K, "bfloat16"),
+                    launches, "march_" + count)
     _, want = w.simulate(prev, cur, WAVE_STEPS, method="eager")
     g, e = got.data.float(), want.data.float()
     diff = float((g - e).abs().max())
@@ -1626,7 +1681,8 @@ def window_twin(plan):
 
     twin = make_tiled_plan(plan.spec, plan.interior_shape, plan.dtype,
                            plan.sweeps_per_call, schedule="window",
-                           coeff_scales=plan.coeff_scales or None)
+                           coeff_scales=plan.coeff_scales or None,
+                           two_level=plan.two_level)
     require(twin.layout == plan.layout, f"{plan.tiles}: layouts differ")
     return twin
 
@@ -2605,13 +2661,19 @@ def main() -> int:
                 f"{mode} on the {name} path {prob.shape} "
                 f"{op.plan.spec.name} k={op.plan.sweeps_per_call} tiles "
                 f"{op.plan.tiles}"))
-    # the two-level mode at cfg9's plan (256^3 k=8), at k=1, ragged, and
-    # through the wave runner with a remainder
-    err["tiled_sweep+two_level"] = max(
-        compare_two_level(tiled, MAIN_SIZE, WAVE_K, rng, device),
-        compare_two_level(tiled, MAIN_SIZE, 1, rng, device),
-        compare_two_level(tiled, RAGGED_SIZE, 3, rng, device),
-        compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device))
+    def fold(found):
+        for m, d in found.items():
+            err[m] = max(err.get(m, 0.0), d)
+
+    # the two-level mode on the march, each launch bitwise its plain
+    # version and the window's launch on both outputs: cfg9's plan (256^3
+    # k=8), k=1, ragged k=3 and k=8 (the pins and bf16 below), and through
+    # the wave runner with a remainder
+    for shape, k in ((MAIN_SIZE, WAVE_K), (MAIN_SIZE, 1), (RAGGED_SIZE, 3),
+                     (RAGGED_SIZE, WAVE_K)):
+        fold(compare_two_level(tiled, shape, k, rng, device))
+    fold({"tiled_march+two_level": compare_wave_iterate(RAGGED_SIZE, 4, 11,
+                                                        rng, device)})
     # the coefficient mode on the march, its weights from the weights
     # kernel, each case also against the window's launch from a(x):
     # cfg16's marching plan and ragged at k=3, with periodic 0 1, neumann
@@ -2621,10 +2683,6 @@ def main() -> int:
     # kernel's
     from stencil_tpu_torch.multigrid import OperatorMultigrid
     from stencil_tpu_torch.ops.tiled import pad_coeff
-
-    def fold(found):
-        for m, d in found.items():
-            err[m] = max(err.get(m, 0.0), d)
 
     per01, neu01 = walls(3, (0, 1)), walls(3, (), (0, 1))
     mixed, neu1 = walls(3, (0,), (1,)), walls(3, (), (1,))
@@ -2686,15 +2744,11 @@ def main() -> int:
             ragged3, rng.normal(size=RAGGED_SIZE), -0.01, per01).to(device)),
         compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
                         scale=-0.01, bc=per01))
-    mode = "tiled_sweep+two_level+pins"
-    err[mode] = max(
-        pins_case(tiled, wave_plan(MAIN_SIZE, WAVE_K), mixed, mode,
-                  prev=pins_input(wave_plan(MAIN_SIZE, WAVE_K), mixed, rng,
-                                  device)),
-        pins_case(tiled, wave_plan(RAGGED_SIZE, 3), per01, mode,
-                  prev=pins_input(wave_plan(RAGGED_SIZE, 3), per01, rng,
-                                  device)),
-        compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device, bc=per01))
+    fold(compare_two_level(tiled, MAIN_SIZE, WAVE_K, rng, device, mixed))
+    fold(compare_two_level(tiled, RAGGED_SIZE, 3, rng, device, mixed))
+    fold(compare_two_level(tiled, RAGGED_SIZE, 1, rng, device, per01))
+    fold({"tiled_march+two_level+pins": compare_wave_iterate(
+        RAGGED_SIZE, 4, 11, rng, device, bc=per01)})
     mode = "slab_sweep+pins"
     s16 = window_slab(j5, CFG1[1], "float32", CFG1[2])
     err[mode] = max(
@@ -2757,13 +2811,12 @@ def main() -> int:
                                       device, bf)
                         for shape in (MG_SIZE, RAGGED_SIZE, BF16_MG_SIZE)
                         for smoother, nu in cases)
-    mode = "tiled_sweep+two_level+bf16"
-    err[mode] = max(
-        compare_bf16(tiled, wave_plan(MAIN_SIZE, WAVE_K, bf), mode, rng,
-                     device, prev=True),
-        compare_bf16(tiled, wave_plan(RAGGED_SIZE, 3, bf), mode, rng, device,
-                     tiny=True, prev=True),
-        compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device, dtype=bf))
+    fold(compare_two_level(tiled, MAIN_SIZE, WAVE_K, rng, device, dtype=bf))
+    fold(compare_two_level(tiled, RAGGED_SIZE, 3, rng, device, dtype=bf,
+                           tiny=True))
+    fold(compare_two_level(tiled, RAGGED_SIZE, 1, rng, device, dtype=bf))
+    fold({"tiled_march+two_level+bf16": compare_wave_iterate(
+        RAGGED_SIZE, 4, 11, rng, device, dtype=bf)})
     mode = "tiled_march+pins+bf16"
     err[mode] = max(
         compare_bf16(tiled, plan8b, mode, rng, device, per01),
@@ -2783,12 +2836,14 @@ def main() -> int:
                      src_scale=-0.01),
         compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
                         scale=-0.01, bc=per01, dtype=bf))
-    mode = "tiled_sweep+two_level+pins+bf16"
-    err[mode] = max(
-        compare_bf16(tiled, wave_plan(MAIN_SIZE, WAVE_K, bf), mode, rng,
-                     device, mixed, prev=True),
-        compare_wave_iterate(RAGGED_SIZE, 4, 11, rng, device, bc=per01,
-                             dtype=bf))
+    fold(compare_two_level(tiled, MAIN_SIZE, WAVE_K, rng, device, mixed,
+                           bf))
+    fold(compare_two_level(tiled, RAGGED_SIZE, 3, rng, device, mixed, bf,
+                           tiny=True))
+    fold(compare_two_level(tiled, RAGGED_SIZE, WAVE_K, rng, device, mixed,
+                           bf))
+    fold({"tiled_march+two_level+pins+bf16": compare_wave_iterate(
+        RAGGED_SIZE, 4, 11, rng, device, bc=per01, dtype=bf)})
     mode = "slab_sweep+bf16"
     err[mode] = max(
         compare_bf16(slab, s16b, mode, rng, device),
@@ -3027,7 +3082,7 @@ def main() -> int:
             c[mode] for c in solve_counts.values())
     # the wave main path (two-level mode), -m varcoeff and --solve hetero
     # (the coefficient mode on the march, and the weights kernel)
-    launches["tiled_sweep+two_level"] = run_wave(tiled, rng, label)
+    launches["tiled_march+two_level"] = run_wave(tiled, rng, label)
     coeff_runs = [run_varcoeff_cli(cli, tiled, label),
                   run_hetero_cli(cli, tiled, label)]
     launches["tiled_march+coeff"] = sum(n for n, _ in coeff_runs)
@@ -3063,7 +3118,7 @@ def main() -> int:
         sched = slab_schedule(runner.plan_info, prob.spec, shape, "float32",
                               runner.plan_info["k"])
         launches[slab_row(sched, "+source+pins")] += n
-    launches["tiled_sweep+two_level+pins"] = run_wave_pins(tiled, rng, label)
+    launches["tiled_march+two_level+pins"] = run_wave_pins(tiled, rng, label)
     launches["tiled_march+coeff+pins"], weights = run_varcoeff_cli(
         cli, tiled, label, ("--periodic", "0", "1"),
         "march_coeff_pins_launches")
@@ -3105,8 +3160,8 @@ def main() -> int:
                               runner.plan_info["k"])
         launches[slab_row(sched, "+source+bf16")] += n
     launches.update(run_mg_bf16(tiled, label))
-    launches["tiled_sweep+two_level+bf16"] = run_wave_bf16(tiled, rng, label)
-    launches["tiled_sweep+two_level+pins+bf16"] = run_wave_bf16(
+    launches["tiled_march+two_level+bf16"] = run_wave_bf16(tiled, rng, label)
+    launches["tiled_march+two_level+pins+bf16"] = run_wave_bf16(
         tiled, rng, label, mixed)
     launches["tiled_march+pins+bf16"] = run_cli_bf16(
         cli, ["-s", *map(str, CFG3[1]), "--spec", CFG3[0], "-m",
@@ -3330,14 +3385,17 @@ def main() -> int:
     w = WaveEquation(shape=MAIN_SIZE, device=DEVICE)
     wprev, wcur = w.initial_pair(np.random.default_rng(1).normal(
         size=MAIN_SIZE) * 0.01)
-    for method, k in (("tiled", WAVE_K), ("eager", 1)):
+    for method, k, sched in (("tiled", WAVE_K, None),
+                             ("tiled", WAVE_K, "window"), ("eager", 1, None)):
+        kw = {} if sched is None else {"schedule": sched}
         wrun = registry.Runner(
             name=f"wave_{method}", granularity=k,
-            iterate=lambda g, n, m=method, k_=k: w.simulate(
-                wprev, g, n, method=m, sweeps_per_call=k_)[1])
+            iterate=lambda g, n, m=method, k_=k, kw=kw: w.simulate(
+                wprev, g, n, method=m, sweeps_per_call=k_, **kw)[1])
+        wp = wave_plan(MAIN_SIZE, k, schedule=sched)
         bench(wrun, wcur, int(np.prod(MAIN_SIZE)), device, hbm, label,
               f"cfg9 wave {MAIN_SIZE} {method} k={k}"
-              + (f" tiles {wave_plan(MAIN_SIZE, k).tiles}"
+              + (f", {wp.schedule} tiles {wp.tiles}"
                  if method == "tiled" else ""))
     # cfg16 / cfg16b: two-material FTCS diffusion at 256^3 (contrast 100,
     # seed 0) on the coefficient mode at k=8 and on the eager field sweep
@@ -3529,15 +3587,18 @@ def main() -> int:
         if mode.startswith("slab_sweep"):
             slab_twin(mode, plan, cur, src)
 
-    # the two-level mode at cfg9's plan: the yardstick is one 2-channel
-    # conv3d per leapfrog step
-    mode = "tiled_sweep+two_level"
+    # the two-level mode at cfg9's plan, on the march and on the window:
+    # the yardstick is one 2-channel conv3d per leapfrog step
+    mode = "tiled_march+two_level"
     plan = wave_plan(MAIN_SIZE, WAVE_K)
+    twin = window_twin(plan)
     cur = plan.layout.pad_grid(random_grid(MAIN_SIZE, 1, rng, device))
     prev = plan.layout.pad_grid(random_grid(MAIN_SIZE, 1, rng, device))
     nxt, out2 = cur.clone(), prev.clone()
     ms[mode] = time_call(lambda: tiled(cur, nxt, plan, prev=prev, out2=out2),
                          device, 20)
+    window_ms[mode] = time_call(lambda: tiled(cur, nxt, twin, prev=prev,
+                                              out2=out2), device, 10)
     plain_ms[mode] = time_call(lambda: sweep_reference(cur, plan, prev=prev),
                                device, 3)
     lib, lib_check = wave_library_step(plan, cur, prev)
@@ -3548,8 +3609,9 @@ def main() -> int:
         plan.itemsize * (2 * n_pad + 2 * n_int),
         n_int * WAVE_K * (plan.spec.flops_per_point + 1), plan.dtype)
     print(f"one call of {mode} {plan.spec.name} {MAIN_SIZE} k={WAVE_K}, "
-          f"tiles {plan.tiles}: kernel {ms[mode]:.4f} ms, plain "
-          f"{plain_ms[mode]:.4f} ms, bound {bound_ms[mode]:.4f} ms (by "
+          f"march tiles {plan.tiles}: kernel {ms[mode]:.4f} ms, the "
+          f"window's launch (tiles {twin.tiles}) {window_ms[mode]:.4f} ms, "
+          f"plain {plain_ms[mode]:.4f} ms, bound {bound_ms[mode]:.4f} ms (by "
           f"{bound_by[mode]}); library conv3d (2 channels) "
           f"{library_ms[mode]:.4f} ms per step (the kernel does {WAVE_K}; "
           f"vs one plain step max abs diff {lib_check():.3e}) [{label}]")
@@ -3756,7 +3818,7 @@ def main() -> int:
                             pad_source(plan, f, prob.source_scale,
                                        prob.bc).to(device), None, None))
     wplan = wave_plan(MAIN_SIZE, WAVE_K)
-    pins_inputs.append(("tiled_sweep+two_level+pins", tiled, wplan, mixed,
+    pins_inputs.append(("tiled_march+two_level+pins", tiled, wplan, mixed,
                         pins_input(wplan, mixed, rng, device), None,
                         pins_input(wplan, mixed, rng, device), None))
     plan, cur, a = marching_inputs(MAIN_SIZE, 8, rng, device, per01)
@@ -3778,7 +3840,8 @@ def main() -> int:
         if mode.startswith("tiled_march"):
             twin = window_twin(plan)
             window_ms[mode] = time_call(lambda: kernel(
-                cur, nxt, twin, src, pins, coeff=window_coeff.get(mode)),
+                cur, nxt, twin, src, pins, out2=out2, prev=prev,
+                coeff=window_coeff.get(mode)),
                 device, 3 if mode in window_coeff else 5)
             print(f"  the window schedule's launch of {mode} (tiles "
                   f"{twin.tiles}): {window_ms[mode]:.4f} ms [{label}]")
@@ -3850,9 +3913,9 @@ def main() -> int:
                           bf)
         bf_case(f"{mode}+bf16", tiled, plan,
                 src=pad_source(plan, mf, op.source_scale, prob.bc))
-    bf_case("tiled_sweep+two_level+bf16", tiled,
+    bf_case("tiled_march+two_level+bf16", tiled,
             wave_plan(MAIN_SIZE, WAVE_K, bf), prev=True)
-    bf_case("tiled_sweep+two_level+pins+bf16", tiled,
+    bf_case("tiled_march+two_level+pins+bf16", tiled,
             wave_plan(MAIN_SIZE, WAVE_K, bf), mixed, prev=True)
     bf_case("slab_sweep+bf16", slab, s16b)
     bf_case("slab_sweep+pins+bf16", slab, s16b, per0_2d)
@@ -3869,8 +3932,8 @@ def main() -> int:
                                             out2=out2, prev=prev), device, 20)
         if mode.startswith("tiled_march"):
             twin = window_twin(plan)
-            window_ms[mode] = time_call(lambda: kernel(cur, nxt, twin, src,
-                                                       pins), device, 10)
+            window_ms[mode] = time_call(lambda: kernel(
+                cur, nxt, twin, src, pins, out2=out2, prev=prev), device, 10)
             print(f"  the window schedule's launch of {mode} (tiles "
                   f"{twin.tiles}): {window_ms[mode]:.4f} ms [{label}]")
         plain_ms[mode] = time_call(lambda: sweep_reference(

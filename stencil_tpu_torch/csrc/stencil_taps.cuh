@@ -154,6 +154,36 @@ __device__ __forceinline__ float apply_fixed(const T* __restrict__ s, int p,
   return taps.uniform ? mul<T>(acc, taps.uniform_weight) : acc;
 }
 
+// NT taps in groups that open at the set bits of STARTS (bit 0 set),
+// known at compile time, and no uniform weight (taps.group_starts ==
+// STARTS, taps.uniform == 0): apply_fixed's sums in its order, without its
+// per-tap test of the group table, each group's weight read at a constant
+// offset.
+template <int NT, uint32_t STARTS, typename T>
+__device__ __forceinline__ float apply_grouped(const T* __restrict__ s,
+                                               int p, const int (&off)[NT],
+                                               const Taps& taps) {
+  static_assert(NT <= 32 && (STARTS & 1u), "groups open at tap 0");
+  float v[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) v[t] = Num<T>::load(s[p + off[t]]);
+  float acc = 0.0f;
+  float gacc = v[0];
+  int g = 0;
+#pragma unroll
+  for (int t = 1; t <= NT; ++t) {
+    if (t == NT || ((STARTS >> t) & 1u)) {
+      const float term = mul<T>(gacc, taps.group_weight[g]);
+      acc = g == 0 ? term : add<T>(acc, term);
+      ++g;
+      if (t < NT) gacc = v[t];
+    } else {
+      gacc = add<T>(gacc, v[t]);
+    }
+  }
+  return acc;
+}
+
 // NT > 0: a spec of exactly NT taps, offsets copied into registers;
 // NT == 0: any spec, through the table. T: the window's element type.
 template <int NT, typename T>

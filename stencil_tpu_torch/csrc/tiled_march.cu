@@ -3,24 +3,37 @@
 // per sweep. Hand-written for Hopper (sm_90a).
 //
 // Replaces stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep (the Pallas
-// TPU kernel, :704, pallas_call at :1821) in its homogeneous and source
-// (has_source, :1326) modes, in fp32 and bf16, and in its coefficient mode
-// (tap_mode='coeff', taps_coeff :1195-1229; fp32 only, as the TPU kernel,
-// :451-455), each with its pins (:1270-1305) and its tile subsets
-// (:746-758). The TPU kernel's Chebyshev, dual and two-level modes run on
-// the window schedule of tiled_sweep.cu. Wrapper, plan and plain PyTorch
-// version: stencil_tpu_torch/ops/tiled_kernel.py, ops/tiled.py (schedule
-// "march"), ops/sweep_kernel.py:sweep_reference.
+// TPU kernel, :704, pallas_call at :1821) in its homogeneous, source
+// (has_source, :1326) and two-level (two_level, body compute2 :1374-1431)
+// modes, in fp32 and bf16, and in its coefficient mode (tap_mode='coeff',
+// taps_coeff :1195-1229; fp32 only, as the TPU kernel, :451-455), each
+// with its pins (:1270-1305) and, but the two-level mode (which the TPU
+// kernel refuses them, :752-755), its tile subsets (:746-758). The TPU
+// kernel's Chebyshev and dual modes run on the window schedule of
+// tiled_sweep.cu. Wrapper, plan and plain PyTorch version:
+// stencil_tpu_torch/ops/tiled_kernel.py, ops/tiled.py (schedule "march"),
+// ops/sweep_kernel.py:sweep_reference.
 //
 // What it computes: exactly what tiled_sweep.cu computes in those modes
 // (see its header), bitwise: `in` and `out` are padded (n0+2H, n1+2H,
 // n2+2H) T arrays with H >= k*r; `out` receives k sweeps of the stencil
 // applied to `in` on its interior points only, each update the taps in
 // StencilSpec.weight_groups order (stencil_taps.cuh, -fmad=false) and, in
-// the source mode, + the padded source at the point. A point inside the
-// grid gets the full update; a pinned ghost copies its constant; a live
+// the source mode, + the padded source at the point; in the two-level
+// mode, - the level before the last at the point (below). A point inside
+// the grid gets the full update; a pinned ghost copies its constant; a live
 // face (pins 0, d0 and d1 only) is updated like the interior; d2 is always
 // pinned; the ghosts of `out` are never written.
+//
+// The two-level mode (the leapfrog of the wave equation): `in` is L_n and
+// a second padded input `prev` is L_{n-1}; sweep t computes
+// L_{n+t} = S(L_{n+t-1}) - L_{n+t-2}, the taps as above and then one
+// subtraction (sub<T>), the window's order. Sweep k goes to `out` and sweep
+// k-1 (at k = 1 the input L_n itself) to a second output `out2`, tile
+// points only. The subtrahend of level 1 is `prev`, read once at the point
+// through the read-only cache; that of level s >= 2 is level s-2's plane,
+// at the point, in its ring; the store to `out2` is the centre tap that
+// level k has just read from level k-1's ring.
 //
 // The coefficient mode (radius 1): each update is
 //   W3(p)u(p) + W1(p)u(p-e1) + W1(p+e1)u(p+e1) + W2(p)u(p-e2)
@@ -49,7 +62,8 @@
 //     tiled_sweep.cu), and walks the padded planes of d0 from chunk start
 //     - k*r to chunk end + k*r.
 //   - Rings. Sweep level s (0 = the input, 1 .. k-1 the intermediate
-//     sweeps) keeps a ring of S = 2r+2 planes in shared memory, each as
+//     sweeps) keeps a ring of S = 2r+2 planes in shared memory (2r+3 in
+//     the two-level mode, below), each as
 //     wide as the level's region, (t1 + 2(k-s)r) x (t2 + 2(k-s)r). Level
 //     s computes a plane of its region once the 2r+1 planes of level s-1
 //     that it reads are complete; level k stores straight to `out`. The
@@ -67,6 +81,15 @@
 //     slots j-r .. j+r and writes slot j+r+1 (mod S): one table of slot
 //     offsets per step serves every level. The slots of one index hold
 //     every level's plane, one after the other.
+//   - The subtrahend. Level s reads level s-2's plane m, which lives in
+//     slot (m + L_{s-1}) mod S = j-r-1 at step j. With 2r+2 slots that is
+//     j+r+1, the slot every level writes in the same step, with no
+//     barrier between: a race. The two-level mode keeps 2r+3 slots
+//     instead, so a step reads slots j-r .. j+r and j+r+2 and writes
+//     j+r+1, and one table of slots still serves every level; any depth
+//     above 2(r+1) would do, 2r+3 is the least. It costs (2r+3)/(2r+2)
+//     of the rings' bytes, so the chooser (ops/tiled.py) takes narrower
+//     tiles there: at 256^3 k=8 fp32 (32,32) no longer fits.
 //   - Loads. The input planes come in one plane ahead of their use: in
 //     fp32 with cp.async (4-byte copies, any alignment), committed each
 //     step and waited for just before the step's barrier, so the copy of
@@ -88,8 +111,10 @@
 //     within k(r+1) steps of each other.
 //
 // Shared memory: S * sum_{s=0}^{k-1} (t1 + 2(k-s)r)(t2 + 2(k-s)r) * sizeof(T)
-// <= 232,448 bytes (the plan chooser, ops/tiled.py:march_smem_bytes, keeps
-// within it; jacobi7 fp32 k=8 with 32x32 tiles: 217,856 bytes).
+// with S = 2r+2 (2r+3 in the two-level mode) <= 232,448 bytes (the plan
+// chooser, ops/tiled.py:march_smem_bytes, keeps within it; jacobi7 fp32
+// k=8 with 32x32 tiles: 217,856 bytes; the wave spec's two-level mode at
+// k=8 with 32x24 tiles: 219,840 bytes).
 //
 // Tile subsets: as in tiled_sweep.cu, a launch may sweep only a list of
 // (d0 chunk, d1 tile) columns, each with every d2 tile, id i0 * nt1 + i1,
@@ -107,9 +132,11 @@ namespace {
 
 using stencil::add;
 using stencil::apply_fixed;
+using stencil::apply_grouped;
 using stencil::close_group;
 using stencil::mul;
 using stencil::Num;
+using stencil::sub;
 using stencil::Taps;
 
 constexpr int kThreads = 512;
@@ -117,6 +144,9 @@ constexpr int kGeomLen = 19;
 constexpr int kMaxLevels = 16;  // sweeps per launch
 constexpr int kStage = 16;      // bf16: input plane <= kStage * kThreads
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
+// the wave spec's groups (models/wave.py): the centre, then the six
+// neighbours
+constexpr uint32_t kWaveStarts = 0x3;
 constexpr int kErrArgument = -1;
 constexpr int kErrShared = -2;
 constexpr int kErrPlane = -3;
@@ -128,7 +158,7 @@ struct Geometry {
   int t0, t1, t2;  // d0 chunk, d1 and d2 tile
   int nt1, nt2;    // tiles along d1 and d2
   int k, r;        // sweeps per launch, stencil radius
-  int slots;       // ring depth S = 2r+2
+  int slots;       // ring depth S: 2r+2, the two-level mode 2r+3
   int planes;      // input planes a block walks, t0 + 2kr
   int q;           // elements of one slot index, every level's plane
   int pins[4];     // d0 lo, d0 hi, d1 lo, d1 hi: 1 pinned, 0 live
@@ -191,14 +221,17 @@ __device__ __forceinline__ float taps_any(const T* __restrict__ s, int p,
 }
 
 // The taps at point p of level s-1's ring `src`: NT > 0 with this level's
-// and step's offsets `off`, NT == 0 through the table.
-template <int NT, typename T>
+// and step's offsets `off` (WAVE: the wave spec's groups compiled in),
+// NT == 0 through the table.
+template <int NT, bool WAVE, typename T>
 __device__ __forceinline__ float tap_sum(const T* __restrict__ src, int p,
                                          const int (&off)[NT > 0 ? NT : 1],
                                          const Taps& taps,
                                          const TapPlanes& tp, int c, int S,
                                          int Q, int wp) {
-  if constexpr (NT > 0) {
+  if constexpr (WAVE) {
+    return apply_grouped<NT, kWaveStarts, T>(src, p, off, taps);
+  } else if constexpr (NT > 0) {
     return apply_fixed<NT, T>(src, p, off, taps);
   } else {
     return taps_any<T>(src, p, taps, tp, c, S, Q, wp);
@@ -226,21 +259,24 @@ __device__ __forceinline__ float coeff_update(
 }
 
 // What a launch computes (see the header).
-enum Mode { kPlain = 0, kSource = 1, kCoeff = 2 };
+enum Mode { kPlain = 0, kSource = 1, kCoeff = 2, kTwoLevel = 3 };
 
 // NT > 0: a spec of exactly NT taps, offsets in registers; NT == 0: any
 // spec (kCoeff: the taps unused). MODE: kPlain, kSource (add the padded
-// source after the taps) or kCoeff (`source` holds the weight fields W).
+// source after the taps), kCoeff (`source` holds the weight fields W) or
+// kTwoLevel (`source` holds L_{n-1}; `out2` receives sweep k-1; its NT = 7
+// instance is the wave spec, whose groups it compiles in).
 // T: float or bf16 (kCoeff: float only).
 template <int NT, int MODE, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
-                   const T* __restrict__ source,
+                   T* __restrict__ out2, const T* __restrict__ source,
                    const int32_t* __restrict__ cols,
                    const __grid_constant__ Geometry g,
                    const __grid_constant__ Taps taps,
                    const __grid_constant__ TapPlanes tp) {
   using N = Num<T>;
+  constexpr bool kWave = MODE == kTwoLevel && NT == 7;
   extern __shared__ __align__(16) unsigned char smem_bytes[];
   T* const ring = reinterpret_cast<T*>(smem_bytes);
   const int tid = threadIdx.x;
@@ -326,6 +362,8 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
     }
     // kCoeff: the slot offsets of the d0 neighbours (r = 1)
     const int dm = slot_delta(c, -1, S, Q), dp = slot_delta(c, 1, S, Q);
+    // kTwoLevel: the slot of the subtrahend planes, j-r-1 (S = 2r+3)
+    const int sb = slot_delta(c, -(r + 1), S, Q);
     for (int s = 1; s <= g.k; ++s) {
       const int m = j - (s * (r + 1) - 1);  // level s's plane this step
       if (m < s * r || m >= g.planes - s * r) continue;
@@ -341,6 +379,17 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
       // padded origin of level s's plane; the global index of its (y, x)
       const int p0 = a0 + m, r1 = o1 + s * r, r2 = o2 + s * r;
       const int64_t gbase = (int64_t)p0 * pstride + (int64_t)r1 * g.p2 + r2;
+      // kTwoLevel, s >= 2: level s-2's plane m, shifted to level s's
+      // origin (row width wq); level 1 reads `prev` at gbase instead
+      const int wq = s >= 2 ? g.cols[s - 2] : 0;
+      const T* const older =
+          s >= 2 ? ring + c * Q + sb + g.ring[s - 2] + 2 * r * wq + 2 * r
+                 : nullptr;
+      // the level before the last at (y, x): L_{t-2} of the leapfrog
+      auto subtrahend = [&](int py, int px) {
+        return s == 1 ? N::ldg(source + gbase + py * g.p2 + px)
+                      : N::load(older[py * wq + px]);
+      };
       int y = __float2int_rz(__fmul_rn((float)tid + 0.5f, g.inv_cols[s]));
       int x = tid - y * ws;
       const int sy = g.srow[s], sx = g.scol[s];
@@ -358,9 +407,12 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
               v = coeff_update(src, p, wp, dm, dp, source,
                                gbase + y * g.p2 + x, field, pstride, g.p2);
             } else {
-              v = tap_sum<NT, T>(src, p, off, taps, tp, c, S, Q, wp);
+              v = tap_sum<NT, kWave, T>(src, p, off, taps, tp, c, S, Q,
+                                        wp);
               if constexpr (MODE == kSource)
                 v = add<T>(v, N::ldg(source + gbase + y * g.p2 + x));
+              if constexpr (MODE == kTwoLevel)
+                v = sub<T>(v, subtrahend(y, x));
             }
           } else {
             v = N::load(src[p]);
@@ -379,9 +431,14 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
             v = coeff_update(src, y * wp + x, wp, dm, dp, source, q, field,
                              pstride, g.p2);
           } else {
-            v = tap_sum<NT, T>(src, y * wp + x, off, taps, tp, c, S, Q, wp);
+            v = tap_sum<NT, kWave, T>(src, y * wp + x, off, taps, tp, c, S,
+                                      Q, wp);
           }
           if constexpr (MODE == kSource) v = add<T>(v, N::ldg(source + q));
+          if constexpr (MODE == kTwoLevel) {
+            v = sub<T>(v, subtrahend(y, x));
+            out2[q] = src[y * wp + x];  // level k-1, the centre tap
+          }
           out[q] = N::store(v);
           x += sx;
           y += sy;
@@ -402,6 +459,7 @@ template <typename T>
 struct Launch {
   const T* in;
   T* out;
+  T* out2;  // kTwoLevel: sweep k-1; else null
   const T* source;
   const int32_t* cols;  // the subset's column ids (device), or null
   Geometry g;
@@ -418,8 +476,9 @@ cudaError_t launch(const Launch<T>& l, const Taps& taps,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.shared);
   if (err != cudaSuccess) return err;
   tiled_march_kernel<NT, MODE, T><<<l.nblocks, kThreads, l.shared,
-                                    l.stream>>>(l.in, l.out, l.source,
-                                                l.cols, l.g, taps, tp);
+                                    l.stream>>>(l.in, l.out, l.out2,
+                                                l.source, l.cols, l.g, taps,
+                                                tp);
   return cudaGetLastError();
 }
 
@@ -438,14 +497,27 @@ cudaError_t dispatch(int ntaps, const Launch<T>& l, const Taps& taps,
   }
 }
 
+// The two-level mode: the wave spec (7 taps, the centre then the six
+// neighbours, no uniform weight) unrolled with its groups compiled in, any
+// other spec through the table.
+template <typename T>
+cudaError_t dispatch_two_level(int ntaps, const Launch<T>& l,
+                               const Taps& taps, const TapPlanes& tp) {
+  const bool wave =
+      ntaps == 7 && !taps.uniform && taps.group_starts == kWaveStarts;
+  return wave ? launch<7, kTwoLevel>(l, taps, tp)
+              : launch<0, kTwoLevel>(l, taps, tp);
+}
+
 // Checks the geometry, the subset's length and the tap table and fills `l`
-// (but its tensor pointers and stream), `taps` and `tp`; 0 or a negative
-// error code.
+// (but its tensor pointers and stream), `taps` and `tp`, the rings 2r+2
+// planes deep, 2r+3 for the two-level mode; 0 or a negative error code.
 template <typename T>
 int prepare(const int32_t* geom, int ngeom, const int32_t* cols, int ncols,
             const int32_t* tap_offsets, const int32_t* group_sizes,
             const float* group_weights, int ntaps, int ngroups, int uniform,
-            float uniform_weight, Launch<T>& l, Taps& taps, TapPlanes& tp) {
+            float uniform_weight, Launch<T>& l, Taps& taps, TapPlanes& tp,
+            bool two_level = false) {
   if (ngeom != kGeomLen) return kErrArgument;
   const int n0 = geom[0], n1 = geom[1], n2 = geom[2];
   const int p0 = geom[3], p1 = geom[4], p2 = geom[5], halo = geom[6];
@@ -479,7 +551,7 @@ int prepare(const int32_t* geom, int ngeom, const int32_t* cols, int ncols,
   g.t0 = t0; g.t1 = t1; g.t2 = t2;
   g.nt1 = nt1; g.nt2 = nt2;
   g.k = k; g.r = r;
-  g.slots = 2 * r + 2;
+  g.slots = 2 * r + 2 + (two_level ? 1 : 0);
   g.planes = t0 + 2 * k * r;
   int64_t q = 0;
   for (int s = 0; s <= k; ++s) {
@@ -529,7 +601,7 @@ int march_entry(const T* in, T* out, const T* source, const int32_t* geom,
                          group_weights, ntaps, ngroups, uniform,
                          uniform_weight, l, taps, tp);
   if (rc != 0) return rc;
-  l.in = in; l.out = out; l.source = source;
+  l.in = in; l.out = out; l.out2 = nullptr; l.source = source;
   l.stream = (cudaStream_t)stream;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -551,11 +623,34 @@ int coeff_entry(const float* in, const float* weights, float* out,
                          uniform_weight, l, taps, tp);
   if (rc != 0) return rc;
   if (weights == nullptr || l.g.r != 1) return kErrArgument;
-  l.in = in; l.out = out; l.source = weights;
+  l.in = in; l.out = out; l.out2 = nullptr; l.source = weights;
   l.stream = (cudaStream_t)stream;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return (int)launch<0, kCoeff>(l, taps, tp);
+}
+
+template <typename T>
+int two_level_entry(const T* in, const T* prev, T* out, T* out2,
+                    const int32_t* geom, int ngeom,
+                    const int32_t* tap_offsets, const int32_t* group_sizes,
+                    const float* group_weights, int ntaps, int ngroups,
+                    int uniform, float uniform_weight, int device,
+                    void* stream) {
+  Launch<T> l;
+  Taps taps;
+  TapPlanes tp;
+  // no subset: the TPU kernel refuses one in the two-level mode
+  const int rc = prepare(geom, ngeom, nullptr, 0, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps, tp, true);
+  if (rc != 0) return rc;
+  if (prev == nullptr || out2 == nullptr) return kErrArgument;
+  l.in = in; l.out = out; l.out2 = out2; l.source = prev;
+  l.stream = (cudaStream_t)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)dispatch_two_level(ntaps, l, taps, tp);
 }
 
 }  // namespace
@@ -616,6 +711,38 @@ int stencil_tiled_march_coeff(const float* in, const float* weights,
   return coeff_entry(in, weights, out, geom, ngeom, cols, ncols,
                      tap_offsets, group_sizes, group_weights, ntaps, ngroups,
                      uniform, uniform_weight, device, stream);
+}
+
+// The two-level (leapfrog) mode: k steps of L_t = S(L_{t-1}) - L_{t-2}
+// from `in` = L_n and `prev` = L_{n-1} (padded like `in`, required); sweep
+// k goes to `out`, sweep k-1 (at k = 1 the input L_n) to `out2`
+// (required), tile points only; no tile subset; the rings 2r+3 planes
+// deep (see the header). The arguments and the return value are those of
+// stencil_tiled_sweep_two_level (tiled_sweep.cu).
+int stencil_tiled_march_two_level(const float* in, const float* prev,
+                                  float* out, float* out2,
+                                  const int32_t* geom, int ngeom,
+                                  const int32_t* tap_offsets,
+                                  const int32_t* group_sizes,
+                                  const float* group_weights, int ntaps,
+                                  int ngroups, int uniform,
+                                  float uniform_weight, int device,
+                                  void* stream) {
+  return two_level_entry(in, prev, out, out2, geom, ngeom, tap_offsets,
+                         group_sizes, group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, device, stream);
+}
+
+// The same in bf16.
+int stencil_tiled_march_two_level_bf16(
+    const __nv_bfloat16* in, const __nv_bfloat16* prev, __nv_bfloat16* out,
+    __nv_bfloat16* out2, const int32_t* geom, int ngeom,
+    const int32_t* tap_offsets, const int32_t* group_sizes,
+    const float* group_weights, int ntaps, int ngroups, int uniform,
+    float uniform_weight, int device, void* stream) {
+  return two_level_entry(in, prev, out, out2, geom, ngeom, tap_offsets,
+                         group_sizes, group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, device, stream);
 }
 
 const char* stencil_tiled_march_error(int code) {

@@ -21,7 +21,11 @@
 //   - two-level (two_level, TPU body compute2 at :1374-1431): k leapfrog
 //     steps L_t = S(L_{t-1}) - L_{t-2} of the wave equation from the two
 //     levels `in` (L_n) and `prev` (L_{n-1}); sweep k goes to `out`, sweep
-//     k-1 (at k = 1 the input L_n) to `out2`;
+//     k-1 (at k = 1 the input L_n) to `out2`. The plan rule runs this
+//     mode on the d0 march (tiled_march.cu, rings of 2r+3 planes) wherever
+//     its rings fit; this window mode is the march's comparison, bitwise
+//     equal on both outputs, and the schedule of a plan whose rings do not
+//     fit or that asks for the window;
 //   - coefficient (tap_mode='coeff', TPU weights prep_weights :871-912 and
 //     taps taps_coeff :1195-1229): k sweeps of the radius-1 operator whose
 //     per-point face weights are nb*harm(a(p), a(p+-e_d)) of a padded
@@ -159,11 +163,12 @@
 // update, which make it bound by operations even by the roofline rule.
 // Loads are plain, not TMA or cp.async, and do not overlap compute within
 // a block. The homogeneous and source modes (with pins, bf16 and tile
-// subsets) and the coefficient mode (with pins and subsets) run instead
-// on the d0 march of tiled_march.cu wherever its rings fit (ops/tiled.py,
-// schedule "march"): one ring of planes per sweep level, so d0 is not
-// recomputed and the input loads overlap the sweeps. The Chebyshev, dual
-// and two-level modes stay on this window schedule.
+// subsets), the two-level mode (with pins and bf16) and the coefficient
+// mode (with pins and subsets) run instead on the d0 march of
+// tiled_march.cu wherever its rings fit (ops/tiled.py, schedule "march"):
+// one ring of planes per sweep level, so d0 is not recomputed and the
+// input loads overlap the sweeps. The Chebyshev and dual modes stay on
+// this window schedule.
 
 #include <cuda_runtime.h>
 

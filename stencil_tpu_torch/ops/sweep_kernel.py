@@ -57,8 +57,11 @@ The 3D kernel has a second schedule, the d0 march (``csrc/tiled_march.cu``,
 ``plan.schedule == "march"``): the homogeneous and source modes, in both
 types, through entries ``stencil_tiled_march`` and
 ``stencil_tiled_march_bf16`` of the arguments of ``stencil_tiled_sweep``,
-and the coefficient mode through ``stencil_tiled_march_coeff`` (the
-weights in place of a(x), no scales), each with pins and tile subsets. The
+the two-level mode through ``stencil_tiled_march_two_level`` and its
+``_bf16`` twin (the arguments of ``stencil_tiled_sweep_two_level``), and
+the coefficient mode through ``stencil_tiled_march_coeff`` (the weights in
+place of a(x), no scales), each with pins and, but the two-level one,
+tile subsets. The
 2D kernel has one too (``csrc/slab_march.cu``): every mode of the window,
 through ``stencil_slab_march`` and ``stencil_slab_march_bf16`` of the
 arguments of ``stencil_slab_sweep``. Each wrapper launches the march for a
@@ -404,9 +407,10 @@ class SweepKernel:
     ``subset_launches``, those of the source mode also in
     ``source_subset_launches``. The launches of a march plan count in all
     of those and again in ``march_launches`` and, by mode,
-    ``march_source_launches``, ``march_coeff_launches``,
-    ``march_pins_launches`` (homogeneous, a live face),
-    ``march_source_pins_launches``, ``march_coeff_pins_launches``,
+    ``march_source_launches``, ``march_two_level_launches``,
+    ``march_coeff_launches``, ``march_pins_launches`` (homogeneous, a live
+    face), ``march_source_pins_launches``,
+    ``march_two_level_pins_launches``, ``march_coeff_pins_launches``,
     ``march_bf16_launches``, ``march_subset_launches`` and
     ``march_source_subset_launches``.
 
@@ -422,10 +426,11 @@ class SweepKernel:
                    "coeff_pins_launches", "bf16_launches",
                    "subset_launches", "source_subset_launches",
                    "march_launches", "march_source_launches",
-                   "march_coeff_launches", "march_pins_launches",
-                   "march_source_pins_launches", "march_coeff_pins_launches",
-                   "march_bf16_launches", "march_subset_launches",
-                   "march_source_subset_launches")
+                   "march_two_level_launches", "march_coeff_launches",
+                   "march_pins_launches", "march_source_pins_launches",
+                   "march_two_level_pins_launches",
+                   "march_coeff_pins_launches", "march_bf16_launches",
+                   "march_subset_launches", "march_source_subset_launches")
 
     def __init__(self, name: str, source: Path, replaces: str, ndim: int,
                  schedule: str = "window",
@@ -622,7 +627,10 @@ class SweepKernel:
             self.march_launches += 1
             self.march_bf16_launches += bf16
             self.march_subset_launches += subset is not None
-            if getattr(plan, "has_coeff", False):
+            if getattr(plan, "two_level", False):
+                self.march_two_level_launches += 1
+                self.march_two_level_pins_launches += live
+            elif getattr(plan, "has_coeff", False):
                 self.march_coeff_launches += 1
                 self.march_coeff_pins_launches += live
             elif src is not None:

@@ -34,21 +34,25 @@ two schedules of the kernel (``TiledPlan.schedule``):
 
 - ``"march"`` (``csrc/tiled_march.cu``): a CUDA block owns a (t1, t2) tile
   of d1 and d2 and a chunk of t0 planes of d0, and marches d0 through one
-  ring of 2r+2 planes per sweep level, each level's planes as wide as the
-  tile grown by (k-s)*r; the rings, :func:`march_smem_bytes`, must fit
-  227 KB (232,448 bytes) on sm_90. The homogeneous and source modes (in
-  float32 and bfloat16) and the coefficient mode (float32) take it, with
-  pins and tile subsets, wherever their rings fit (k <= 16; a bf16 input
-  plane of at most 8192 points), the tiles from :func:`choose_march_tiles`.
-  That holds at k=1 too: the two schedules' k=1 launches timed at 256^3 by
-  ``chip_smoke.py`` put the march ahead (PERF.md), and the Krylov matvec
-  (a coefficient plan at k=1) marches as well; ``chip_smoke.py`` times it
-  on both schedules.
+  ring of 2r+2 planes per sweep level (2r+3 in the two-level mode, whose
+  level s also reads level s-2's plane), each level's planes as wide as
+  the tile grown by (k-s)*r; the rings, :func:`march_smem_bytes`, must fit
+  227 KB (232,448 bytes) on sm_90. The homogeneous, source and two-level
+  modes (in float32 and bfloat16) and the coefficient mode (float32) take
+  it, with pins (and, but in the two-level mode, tile subsets), wherever
+  their rings fit (k <= 16; a bf16 input plane of at most 8192 points),
+  the tiles from :func:`choose_march_tiles`. That holds at k=1 too: the
+  two schedules' k=1 launches timed at 256^3 by ``chip_smoke.py`` put the
+  march ahead (PERF.md), and the Krylov matvec (a coefficient plan at
+  k=1) marches as well; ``chip_smoke.py`` times it on both schedules. A
+  two-level plan of one sweep takes the window: its launch, which reads
+  two levels and writes two, was the faster at cfg9's 256^3 (the
+  two-level tile sweep, ``data/march_two_level_tiles_h100.csv``).
 - ``"window"`` (``csrc/tiled_sweep.cu``): a block holds one output tile of
   (t0, t1, t2) points plus its k*r-deep 3D window in shared memory, two
   window buffers when k > 1, the windows shrinking by r per sweep in
-  every dim. Every other mode (Chebyshev, dual, two-level) takes it, and
-  so do plain, source and coefficient plans whose rings do not fit.
+  every dim. The Chebyshev and dual modes take it, a two-level plan at
+  k=1, and plans of the other modes whose rings do not fit.
   Among the tiles that fit, :func:`choose_tiles` takes the one of least
   estimated time per output point: the warp slots of the window load and
   of the k shrinking sweeps, discounted by the blocks that fit on one SM
@@ -131,8 +135,8 @@ class TiledPlan:
     # over a padded coefficient a(x); () = not that mode
     coeff_scales: Tuple = ()
     # "window" (tiled_sweep.cu, every mode) or "march" (tiled_march.cu,
-    # the homogeneous, source and coefficient modes; tiles = (d0 chunk,
-    # t1, t2))
+    # the homogeneous, source, two-level and coefficient modes; tiles =
+    # (d0 chunk, t1, t2))
     schedule: str = "window"
 
     @property
@@ -166,7 +170,8 @@ class TiledPlan:
         u_{t-2}; the coefficient mode reads a(x) from global memory)."""
         if self.schedule == "march":
             return march_smem_bytes(self.tiles, self.sweeps_per_call,
-                                    self.spec.radius, self.itemsize)
+                                    self.spec.radius, self.itemsize,
+                                    self.two_level)
         return _smem_bytes(self.tiles, self.sweeps_per_call,
                            self.spec.radius, self.itemsize)
 
@@ -226,15 +231,26 @@ def _cost(tiles, k: int, spec: StencilSpec, itemsize: int = 4) -> float:
     return slots / math.prod(tiles) / max(1, blocks) ** 0.25
 
 
-def march_smem_bytes(tiles, k: int, r: int, itemsize: int = 4) -> int:
-    """Shared memory of a march block: 2r+2 planes per sweep level s = 0 ..
-    k-1, each (t1 + 2(k-s)r) x (t2 + 2(k-s)r) points."""
+def march_slots(r: int, two_level: bool = False) -> int:
+    """Planes in each ring of a march block: 2r+2, one more in the
+    two-level mode. A step reads planes j-r .. j+r of every level's ring
+    and writes plane j+r+1; the two-level mode also reads level s-2's
+    plane j-r-1 (the subtrahend), which must not be the slot written in
+    the same step: 2r+3 is the least depth for which it is not."""
+    return 2 * r + 2 + bool(two_level)
+
+
+def march_smem_bytes(tiles, k: int, r: int, itemsize: int = 4,
+                     two_level: bool = False) -> int:
+    """Shared memory of a march block: :func:`march_slots` planes per sweep
+    level s = 0 .. k-1, each (t1 + 2(k-s)r) x (t2 + 2(k-s)r) points."""
     _, t1, t2 = tiles
-    return (2 * r + 2) * itemsize * sum(
+    return march_slots(r, two_level) * itemsize * sum(
         (t1 + 2 * (k - s) * r) * (t2 + 2 * (k - s) * r) for s in range(k))
 
 
-def march_fits(tiles, k: int, r: int, itemsize: int = 4) -> bool:
+def march_fits(tiles, k: int, r: int, itemsize: int = 4,
+               two_level: bool = False) -> bool:
     """Whether the march kernel takes these tiles: k <= 16, the rings in
     one block's shared memory, and in bfloat16 (2-byte points, which the
     kernel stages through registers) an input plane of at most 8192
@@ -242,7 +258,8 @@ def march_fits(tiles, k: int, r: int, itemsize: int = 4) -> bool:
     _, t1, t2 = tiles
     plane = (t1 + 2 * k * r) * (t2 + 2 * k * r)
     return (k <= MARCH_MAX_SWEEPS
-            and march_smem_bytes(tiles, k, r, itemsize) <= SMEM_LIMIT
+            and march_smem_bytes(tiles, k, r, itemsize,
+                                 two_level) <= SMEM_LIMIT
             and (itemsize == 4 or plane <= MARCH_STAGE * MARCH_THREADS))
 
 
@@ -285,25 +302,40 @@ MARCH_T0_CANDIDATES = (8, 16, 32, 64, 128, 256)
 _MARCH_T_CANDIDATES = (8, 16, 24, 32, 48, 64)
 
 
+# the same model's constants for the two-level mode, whose update adds a
+# subtrahend read and a subtraction to the taps and whose rings are a plane
+# deeper, fitted to its tiles timed at cfg9's 256^3 on an H100 (k = 1, 2,
+# 4, 8 fp32, k=8 bf16 and with periodic d0 and Neumann d1;
+# data/march_two_level_tiles_h100.csv, tile_sweep.py --march --two-level):
+# among the constants of the fit grid that pick the fastest tile of every
+# case, the nearest to MARCH_COST_CONSTANTS
+MARCH_TWO_LEVEL_COST_CONSTANTS = (8, 32, 8192)
+
+
 def choose_march_tiles(spec: StencilSpec, interior_shape,
                        sweeps_per_call: int,
-                       t0_fixed: Optional[int] = None, dtype="float32"
+                       t0_fixed: Optional[int] = None, dtype="float32",
+                       two_level: bool = False
                        ) -> Optional[Tuple[int, int, int]]:
     """The (d0 chunk, t1, t2) of least estimated cost
     (:func:`_march_cost`) among those whose rings fit
     (:func:`march_fits`); ties go to the wider d2 extent. None if nothing
-    fits. ``t0_fixed`` pins the chunk."""
+    fits. ``t0_fixed`` pins the chunk. ``two_level``: the two-level mode's
+    deeper rings and cost constants (``MARCH_TWO_LEVEL_COST_CONSTANTS``)."""
     k, r = sweeps_per_call, spec.radius
     itemsize = torch_dtype(dtype).itemsize
     n0, n1, n2 = interior_shape
     t0s = (t0_fixed,) if t0_fixed is not None else MARCH_T0_CANDIDATES
+    constants = (MARCH_TWO_LEVEL_COST_CONSTANTS if two_level
+                 else MARCH_COST_CONSTANTS)
     best, best_key = None, None
     for t0, t1, t2 in itertools.product(t0s, _MARCH_T_CANDIDATES,
                                         _MARCH_T_CANDIDATES):
         tiles = (min(t0, n0), min(t1, n1), min(t2, n2))
-        if not march_fits(tiles, k, r, itemsize):
+        if not march_fits(tiles, k, r, itemsize, two_level):
             continue
-        key = (_march_cost(tiles, interior_shape, k, spec), -tiles[2],
+        key = (_march_cost(tiles, interior_shape, k, spec, constants),
+               -tiles[2],
                -math.prod(tiles))
         if best_key is None or key < best_key:
             best, best_key = tiles, key
@@ -427,9 +459,10 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     a(x) is read from global memory), so the chooser counts them the same.
 
     ``schedule`` None takes the rule of the module docstring: a plain,
-    source or coefficient plan marches where its rings fit, every other
-    plan takes the window; "march" or "window" asks for one
-    (``ValueError`` where it cannot run the plan)."""
+    source, two-level (but at k=1) or coefficient plan marches where its
+    rings fit, a Chebyshev or dual plan takes the window; "march" or
+    "window" asks for one (``ValueError`` where it cannot run the
+    plan)."""
     if spec.ndim != 3 or len(interior_shape) != 3:
         raise ValueError("tiled kernel is 3D-only")
     dtype = dtype_name(torch_dtype(dtype))
@@ -447,13 +480,17 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     itemsize = torch_dtype(dtype).itemsize
     if schedule is not None and schedule not in SCHEDULES:
         raise ValueError(f"schedule {schedule!r}: one of {SCHEDULES}")
-    plain = not coeffs and not two_level
-    if schedule == "march" and not plain:
-        raise ValueError("the march schedule runs the homogeneous, source "
-                         "and coefficient modes only")
-    march = plain and schedule != "window"
+    if schedule == "march" and coeffs:
+        raise ValueError("the march schedule runs the homogeneous, source, "
+                         "two-level and coefficient modes only")
+    # a two-level launch of one sweep: the window's (one window, no
+    # second buffer) beats the march's at cfg9's 256^3 on an H100, 0.1615
+    # against 0.2012 ms (data/march_two_level_tiles_h100.csv)
+    march = not coeffs and (schedule == "march" or (
+        schedule is None and not (two_level and k == 1)))
     if tiles is None and march:
-        tiles = choose_march_tiles(spec, interior_shape, k, t0_fixed, dtype)
+        tiles = choose_march_tiles(spec, interior_shape, k, t0_fixed, dtype,
+                                   two_level)
         if tiles is None and schedule == "march":
             raise ValueError(f"no march tile of {interior_shape} at k={k} "
                              f"fits {SMEM_LIMIT} bytes of shared memory")
@@ -467,12 +504,12 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     tiles = tuple(int(t) for t in tiles)
     if any(t < 1 or t > n for t, n in zip(tiles, interior_shape)):
         raise ValueError(f"tiles {tiles} must lie in [1, {interior_shape}]")
-    march = march and march_fits(tiles, k, r, itemsize)
+    march = march and march_fits(tiles, k, r, itemsize, two_level)
     if schedule == "march" and not march:
         raise ValueError(
             f"tiles {tiles} at k={k}, r={r} do not fit the march kernel "
-            f"({march_smem_bytes(tiles, k, r, itemsize)} bytes of rings, "
-            f"at most {SMEM_LIMIT}; k <= {MARCH_MAX_SWEEPS})")
+            f"({march_smem_bytes(tiles, k, r, itemsize, two_level)} bytes "
+            f"of rings, at most {SMEM_LIMIT}; k <= {MARCH_MAX_SWEEPS})")
     if not march and _smem_bytes(tiles, k, r, itemsize) > SMEM_LIMIT:
         raise ValueError(
             f"tiles {tiles} at k={k}, r={r} need "

@@ -21,15 +21,16 @@ entries per type). See the source's header for its design and what bounds
 it.
 
 The march schedule (``plan.schedule == "march"``, ``ops/tiled.py``)
-replaces the window kernel in its homogeneous and source modes, in both
-types, and in its coefficient mode, each with pins and tile subsets:
-``csrc/tiled_march.cu`` walks each (d1, d2) tile's chunk of d0 planes
-through one shared-memory ring of planes per sweep level. ``tiled_sweep``
-launches it for a march plan (the library handle ``tiled_march``) and
-counts the launch also in ``march_launches`` and its mode's ``march_*``
-count. A march coefficient launch reads the four weight fields that
-``coeff_weights(coeff, plan)`` forms from the padded a(x) once per run
-(``csrc/coeff_weights.cu``; plain version
+replaces the window kernel in its homogeneous, source and two-level modes,
+in both types, and in its coefficient mode, each with pins and (but the
+two-level mode) tile subsets: ``csrc/tiled_march.cu`` walks each (d1, d2)
+tile's chunk of d0 planes through one shared-memory ring of planes per
+sweep level; the Chebyshev and dual modes stay on the window.
+``tiled_sweep`` launches it for a march plan (the library handle
+``tiled_march``) and counts the launch also in ``march_launches`` and its
+mode's ``march_*`` count. A march coefficient launch reads the four
+weight fields that ``coeff_weights(coeff, plan)`` forms from the padded
+a(x) once per run (``csrc/coeff_weights.cu``; plain version
 ``sweep_kernel.coeff_weights_reference``; count ``launches``), in place
 of the a(x) the window reads.
 
@@ -110,6 +111,13 @@ REPLACES_MODE.update({
         REPLACES_MODE["tiled_sweep+source+subset+bf16"],
     "tiled_march+coeff": REPLACES_MODE["tiled_sweep+coeff"],
     "tiled_march+coeff+pins": REPLACES_MODE["tiled_sweep+coeff+pins"],
+    "tiled_march+two_level": REPLACES_MODE["tiled_sweep+two_level"],
+    "tiled_march+two_level+pins":
+        REPLACES_MODE["tiled_sweep+two_level+pins"],
+    "tiled_march+two_level+bf16":
+        REPLACES_MODE["tiled_sweep+two_level+bf16"],
+    "tiled_march+two_level+pins+bf16":
+        REPLACES_MODE["tiled_sweep+two_level+pins+bf16"],
 })
 
 WEIGHTS_SOURCE = _build.PACKAGE_DIR / "csrc" / "coeff_weights.cu"

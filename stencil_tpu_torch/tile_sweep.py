@@ -50,6 +50,23 @@ reads like any other:
 
     python -m stencil_tpu_torch.tile_sweep --march --coeff --out rows.csv
 
+``--march --two-level`` times the march's two-level mode (the wave
+equation's leapfrog, its rings 2r+3 planes deep) at ``TWO_LEVEL_CASES``
+(cfg9's wave at 256^3, k = 1, 4 and 8 in fp32, k=8 in bf16 and with
+periodic d0 and Neumann d1), every tile of the march chooser's candidates
+that fits, and the window at its own chooser's tile in the same run
+(``schedule`` column); ``--score`` then scores the chooser
+(``choose_march_tiles(two_level=True)``) and the schedule rule on such
+rows, and ``--fit`` ranks the constants of ``MARCH_FIT_GRID`` for it
+(``ops/tiled.py:MARCH_TWO_LEVEL_COST_CONSTANTS``).
+``data/march_two_level_tiles_h100.csv`` holds the rows they were fitted
+to; ``--held-out`` times ``TWO_LEVEL_HELD_OUT`` instead (the ragged 257^3
+at k=8, never fitted; ``data/march_two_level_tiles_h100_held_out.csv``):
+
+    python -m stencil_tpu_torch.tile_sweep --march --two-level --out rows.csv
+    python -m stencil_tpu_torch.tile_sweep --march --two-level --score \
+        stencil_tpu_torch/data/march_two_level_tiles_h100.csv --fit
+
 ``--dims 2 --march`` does it for the 2D kernel's march schedule
 (``csrc/slab_march.cu``): ``--out`` times every march tile of the chooser's
 candidates (``ops/slab.py:march_candidates``) at each case of
@@ -132,6 +149,21 @@ MARCH_CASES = (("jacobi7", (256, 256, 256), 8, "float32"),
 # launch and cfg18's k=1 matvec (bench.py:435-463)
 MARCH_COEFF_CASES = (("jacobi7", (256, 256, 256), 8, "float32"),
                      ("jacobi7", (255, 255, 255), 1, "float32"))
+# the march's two-level mode (spec, shape, k, dtype, walls): cfg9's wave
+# (bench.py's wave cell) at the depths of its runs and at k=2, where the
+# schedules cross, in bf16 and on the wave main path's dynamic walls; and
+# the held-out case, ragged
+TWO_LEVEL_CASES = (("wave3d", (256, 256, 256), 8, "float32", "dirichlet"),
+                   ("wave3d", (256, 256, 256), 4, "float32", "dirichlet"),
+                   ("wave3d", (256, 256, 256), 2, "float32", "dirichlet"),
+                   ("wave3d", (256, 256, 256), 1, "float32", "dirichlet"),
+                   ("wave3d", (256, 256, 256), 8, "bfloat16", "dirichlet"),
+                   ("wave3d", (256, 256, 256), 8, "float32",
+                    "periodic 0, neumann 1"))
+TWO_LEVEL_HELD_OUT = (("wave3d", (257, 257, 257), 8, "float32",
+                       "dirichlet"),)
+FIELDS_TWO_LEVEL = ("spec", "n0", "n1", "n2", "k", "dtype", "walls",
+                    "schedule", "t0", "t1", "t2", "ms")
 # their scales (nb, c0, cs): FTCS at the stable step of max a = 1
 COEFF_SCALES = (1.0 / 6.0, 1.0, -1.0 / 6.0)
 MARCH_TILES = tuple((t0, t1, t2) for t0 in (16, 32, 64, 128, 256)
@@ -177,13 +209,35 @@ WINDOW_FIT_GRID = (tuple(x / 10 for x in range(5, 31)),
 
 Case = Tuple[str, Tuple[int, int], int, Optional[int]]
 MarchCase = Tuple[str, Tuple[int, int, int], int, str]
+TwoLevelCase = Tuple[str, Tuple[int, int, int], int, str, str]
 SlabMarchCase = Tuple[str, Tuple[int, int], int, str, bool, Optional[int]]
 
 
 def spec_of(name: str):
     """A spec by name; ``star2d_r1`` is the Poisson runner's (``star(2,
-    1)``), which the spec table does not name."""
+    1)``) and ``wave3d`` the 3D wave equation's at its CFL limit
+    (``models/wave.py``), which the spec table does not name."""
+    if name == "wave3d":
+        from stencil_tpu_torch.models.wave import WaveEquation
+
+        return WaveEquation(shape=(1, 1, 1), device="cpu").spec
     return star(2, 1) if name == "star2d_r1" else get_spec(name)
+
+
+def walls_of(name: str):
+    """The walls of a two-level case: the wave's zero walls, periodic and
+    Neumann dims as ``"periodic 0, neumann 1"`` names them."""
+    from stencil_tpu_torch.core.grid import DirichletBC
+
+    bc = DirichletBC.zero(3)
+    for part in name.split(", "):
+        kind, *dims = part.split()
+        dims = tuple(int(d) for d in dims)
+        if kind == "periodic":
+            bc = bc.with_periodic(dims)
+        elif kind == "neumann":
+            bc = bc.with_neumann(dims)
+    return bc
 
 
 def sweep_tiles(spec_name: str, shape, k: int, t0_fixed: Optional[int],
@@ -343,6 +397,148 @@ def measure_march(out: Path, cases: Sequence[MarchCase] = MARCH_CASES,
                   f"{times[best]:.4f} ms, {times[pick] / times[best]:.3f}x "
                   f"[{label}]")
             sys.stdout.flush()
+
+
+def measure_two_level(out: Path,
+                      cases: Sequence[TwoLevelCase] = TWO_LEVEL_CASES,
+                      seed: int = 0) -> None:
+    """Time one two-level march launch at every tile of the march
+    chooser's candidates that fits the mode's rings, and one window launch
+    at its chooser's tile, for every case on the current CUDA device, the
+    two levels random and refreshed for the case's walls; writes
+    ``FIELDS_TWO_LEVEL`` rows to ``out`` and prints per case the chooser's
+    pick against the fastest march tile, and the window's time."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.ops.layout import refresh_dynamic_layout
+    from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
+    from stencil_tpu_torch.utils.timing import timed
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the tile sweep times the CUDA kernel: it needs "
+                           "a card (score and fit need none)")
+    device = torch.device("cuda")
+    label = gpu_label()
+    print(label)
+    rng = np.random.default_rng(seed)
+    with open(out, "w", newline="") as fh:
+        fh.write(f"# {label}, march two-level\n")
+        writer = csv.writer(fh)
+        writer.writerow(FIELDS_TWO_LEVEL)
+        for name, shape, k, dtype, walls in cases:
+            spec, bc = spec_of(name), walls_of(walls)
+            pins = tiled.dynamic_pins(bc, 3)
+            levels = [HaloGrid.from_interior(torch.from_numpy(
+                rng.random(shape, dtype=np.float32)).to(torch_dtype(dtype)),
+                halo=spec.radius, bc=bc, device=device) for _ in range(2)]
+            reps = max(10, min(50, int(4e8 / (math.prod(shape) * k))))
+            pick = tiled.choose_march_tiles(spec, shape, k, dtype=dtype,
+                                            two_level=True)
+            window = tiled.make_tiled_plan(spec, shape, dtype, k,
+                                           two_level=True, schedule="window")
+            tiles = sorted({tuple(min(t, n) for t, n in zip(c, shape))
+                            for c in itertools.product(
+                                tiled.MARCH_T0_CANDIDATES,
+                                tiled._MARCH_T_CANDIDATES,
+                                tiled._MARCH_T_CANDIDATES)} | {pick})
+            tiles = [t for t in tiles if tiled.march_fits(
+                t, k, spec.radius, torch_dtype(dtype).itemsize, True)]
+            times = {}
+            for sched, t in [("march", t) for t in tiles] \
+                    + [("window", window.tiles)]:
+                plan = tiled.make_tiled_plan(spec, shape, dtype, k, tiles=t,
+                                             two_level=True, schedule=sched)
+                cur, prev = (refresh_dynamic_layout(
+                    plan.layout.pad_grid(g), plan.layout, bc, plan.halo)
+                    for g in levels)
+                nxt, out2 = cur.clone(), prev.clone()
+
+                def launch():
+                    tiled_sweep(cur, nxt, plan, pins=pins, prev=prev,
+                                out2=out2)
+
+                launch()
+                ms = timed(lambda: [launch() for _ in range(reps)],
+                           device) / reps * 1e3
+                times[(sched, t)] = ms
+                writer.writerow((name, *shape, k, dtype, walls, sched, *t,
+                                 repr(ms)))
+            fh.flush()
+            march = {t: ms for (sched, t), ms in times.items()
+                     if sched == "march"}
+            best = min(march, key=march.get)
+            wms = times[("window", window.tiles)]
+            print(f"march two-level {name} {shape} k={k} {dtype} {walls}: "
+                  f"{len(march)} tiles; chooser {pick} {march[pick]:.4f} "
+                  f"ms, fastest {best} {march[best]:.4f} ms, "
+                  f"{march[pick] / march[best]:.3f}x; window "
+                  f"{window.tiles} {wms:.4f} ms [{label}]")
+            sys.stdout.flush()
+
+
+def read_two_level_rows(path: Path) -> Dict[TwoLevelCase, Dict]:
+    """Rows of a two-level sweep, grouped by case: {case: {"march":
+    {tiles: ms}, "window": (tiles, ms)}}."""
+    cases: Dict[TwoLevelCase, Dict] = {}
+    with open(path, newline="") as fh:
+        lines = (line for line in fh if not line.startswith("#"))
+        for row in csv.DictReader(lines):
+            case = (row["spec"], tuple(int(row[f"n{d}"]) for d in range(3)),
+                    int(row["k"]), row["dtype"], row["walls"])
+            tiles = tuple(int(row[f"t{d}"]) for d in range(3))
+            rec = cases.setdefault(case, {"march": {}})
+            if row["schedule"] == "march":
+                rec["march"][tiles] = float(row["ms"])
+            else:
+                rec["window"] = (tiles, float(row["ms"]))
+    return cases
+
+
+def score_two_level(cases) -> List[dict]:
+    """Per two-level case: the chooser's pick
+    (``choose_march_tiles(two_level=True)``, among all its candidates), its
+    measured ms, the fastest measured march tile, their ratio, the
+    window's ms and the schedule ``make_tiled_plan`` gives the case."""
+    out = []
+    for (name, shape, k, dtype, walls), rec in cases.items():
+        spec = spec_of(name)
+        measured = rec["march"]
+        pick = tiled.choose_march_tiles(spec, shape, k, dtype=dtype,
+                                        two_level=True)
+        best = min(measured, key=measured.get)
+        out.append({
+            "case": (name, shape, k, dtype, walls), "pick": pick,
+            "pick_ms": measured[pick], "best": best,
+            "best_ms": measured[best],
+            "ratio": measured[pick] / measured[best],
+            "window": rec["window"],
+            "schedule": tiled.make_tiled_plan(spec, shape, dtype, k,
+                                              two_level=True).schedule})
+    return out
+
+
+def fit_two_level(cases) -> List[Tuple[float, tuple]]:
+    """Constants of ``MARCH_FIT_GRID`` ranked for the two-level mode: by
+    the geometric mean of the pick's time over the fastest tile's (each
+    case picking among its measured tiles), then by the distance, in logs,
+    from the homogeneous mode's ``MARCH_COST_CONSTANTS``."""
+    def geo(constants):
+        ratios = []
+        for (name, shape, k, _, _), rec in cases.items():
+            spec, measured = spec_of(name), rec["march"]
+            pick = min(measured, key=lambda t: (
+                tiled._march_cost(t, shape, k, spec, constants), -t[2],
+                -math.prod(t)))
+            ratios.append(measured[pick] / min(measured.values()))
+        return math.exp(sum(map(math.log, ratios)) / len(ratios))
+
+    def distance(constants):
+        return sum(abs(math.log(max(c, 1) / b)) for c, b in
+                   zip(constants, tiled.MARCH_COST_CONSTANTS))
+
+    return sorted(((geo(c), c) for c in itertools.product(*MARCH_FIT_GRID)),
+                  key=lambda gc: (gc[0], distance(gc[1])))
 
 
 def measure_slab_march(out: Path,
@@ -613,7 +809,11 @@ def main(argv=None) -> int:
                          "or score and refit the march chooser")
     ap.add_argument("--held-out", action="store_true",
                     help="with --dims 2 --march --out: time "
-                         "SLAB_MARCH_HELD_OUT, the cases the fit never saw")
+                         "SLAB_MARCH_HELD_OUT, the cases the fit never saw"
+                         " (with --two-level: TWO_LEVEL_HELD_OUT)")
+    ap.add_argument("--two-level", action="store_true",
+                    help="with --march: the two-level mode at "
+                         "TWO_LEVEL_CASES")
     ap.add_argument("--coeff", action="store_true",
                     help="with --march --out: the coefficient mode at "
                          "MARCH_COEFF_CASES")
@@ -633,6 +833,23 @@ def main(argv=None) -> int:
                 print(f"fit: march constants {march}, window constants "
                       f"{window}")
                 report_slab_march(cases, march, window)
+        return 0
+    if args.march and args.two_level:
+        if args.out is not None:
+            measure_two_level(args.out, TWO_LEVEL_HELD_OUT if args.held_out
+                              else TWO_LEVEL_CASES)
+        if args.score is not None:
+            cases = read_two_level_rows(args.score)
+            for r in score_two_level(cases):
+                wt, wms = r["window"]
+                print(f"march two-level {r['case']}: pick {r['pick']} "
+                      f"{r['pick_ms']:.4f} ms, best {r['best']} "
+                      f"{r['best_ms']:.4f} ms, {r['ratio']:.3f}x; window "
+                      f"{wt} {wms:.4f} ms; the plan takes the "
+                      f"{r['schedule']}")
+            if args.fit:
+                for g, c in fit_two_level(cases)[:5]:
+                    print(f"fit: constants {c}: geometric mean {g:.4f}x")
         return 0
     if args.march:
         if args.out is not None:

@@ -26,6 +26,7 @@ from stencil_tpu.ops import pallas_tiled as jpt
 from stencil_tpu_torch import convert
 from stencil_tpu_torch.core.grid import DirichletBC
 from stencil_tpu_torch.core.spec import get_spec
+from stencil_tpu_torch.multigrid import nbsum_spec
 from stencil_tpu_torch.ops.sweep_kernel import (
     _harm, coeff_of, coeff_weights_reference, subset_reference,
     sweep_reference, update_boxes,
@@ -152,9 +153,13 @@ def test_plan_rule():
         make_tiled_plan(J7, (16, 16, 16), "bfloat16",
                         coeff_scales=(1.0, 1.0, -1.0))
     assert str(got.value) == str(want.value)
+    # a two-level plan marches too; a Chebyshev plan refuses the march
+    assert make_tiled_plan(J7, (16, 16, 16), "float32", 2, two_level=True,
+                           schedule="march").schedule == "march"
     with pytest.raises(ValueError, match="march schedule runs"):
-        make_tiled_plan(J7, (16, 16, 16), "float32", 2, two_level=True,
-                        schedule="march")
+        make_tiled_plan(nbsum_spec(3), (16, 16, 16), "float32", 2,
+                        has_source=True, schedule="march",
+                        cheby_coeffs=((1.0, 0.1, 0.0, -0.1),) * 2)
     # the wrapper takes what the schedule reads
     plan = _plan((6, 7, 8), 2)
     x = torch.zeros(plan.layout.padded_shape)

@@ -1075,6 +1075,117 @@ def test_march_refuses_rather_than_falls_back(cuda_device):
     assert tiled_sweep.launches == 0
 
 
+# ---- the two-level mode on the d0 march (B1d) ------------------------------
+
+
+@pytest.mark.parametrize("shape,k,dtype,periodic,neumann", [
+    ((57, 50, 46), 1, "float32", (), ()),
+    ((57, 50, 46), 3, "float32", (), ()),
+    ((64, 48, 40), 8, "float32", (), ()),
+    ((57, 50, 46), 3, "float32", (0,), (1,)),
+    ((64, 48, 40), 8, "float32", (0,), (1,)),
+    ((57, 50, 46), 8, "float32", (0,), (1,)),
+    ((57, 50, 46), 1, "bfloat16", (0,), (1,)),
+    ((57, 50, 46), 3, "bfloat16", (), ()),
+    ((64, 48, 40), 8, "bfloat16", (0,), (1,))])
+def test_march_two_level_matches_plain_and_window(cuda_device, shape, k,
+                                                  dtype, periodic, neumann):
+    """One two-level march launch bitwise its plain version and the window
+    schedule's launch on both outputs (L_(n+k) and L_(n+k-1)), on Dirichlet
+    walls and with periodic 0 and Neumann 1, fp32 and bf16 (k=1 asks for
+    the march, which the rule gives only from k=2 on); its counts bumped
+    once."""
+    from stencil_tpu_torch.models.wave import WaveEquation
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+
+    spec = WaveEquation(shape=shape, dt=0.5, device=cuda_device).spec
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(spec, shape, dtype, k, two_level=True,
+                           schedule="march")
+    window = make_tiled_plan(spec, shape, dtype, k, two_level=True,
+                             schedule="window")
+    # the rule: the march from k=2 on, the window at k=1
+    assert make_tiled_plan(spec, shape, dtype, k, two_level=True).schedule \
+        == ("window" if k == 1 else "march")
+    if dtype == "bfloat16":
+        cur = _bf16_input(plan, shape, 1, cuda_device, bc, seed=1)
+        prev = _bf16_input(plan, shape, 1, cuda_device, bc, seed=3)
+    else:
+        cur = _refreshed(plan, bc, shape, 1, cuda_device, seed=1)
+        prev = _refreshed(plan, bc, shape, 1, cuda_device, seed=3)
+    pins = dynamic_pins(bc, 3)
+    tiled_sweep.reset_counts()
+    got = tiled_sweep(cur, cur.clone(), plan, pins=pins, prev=prev,
+                      out2=prev.clone())
+    torch.cuda.synchronize()
+    live = not all(pins)
+    assert (tiled_sweep.march_launches, tiled_sweep.march_two_level_launches,
+            tiled_sweep.march_two_level_pins_launches,
+            tiled_sweep.two_level_launches, tiled_sweep.march_bf16_launches,
+            tiled_sweep.march_pins_launches) == (
+        1, 1, live, 1, dtype == "bfloat16", 0)
+    want = sweep_reference(cur, plan, prev=prev, pins=pins)
+    via_window = tiled_sweep(cur, cur.clone(), window, pins=pins, prev=prev,
+                             out2=prev.clone())
+    torch.cuda.synchronize()
+    assert tiled_sweep.march_launches == 1 and tiled_sweep.launches == 2
+    for g, w, v in zip(got, want, via_window):
+        assert torch.equal(g, w)
+        assert torch.equal(g, v)
+
+
+def test_march_two_level_refuses_rather_than_falls_back(cuda_device):
+    """A CUDA tensor with a two-level march plan launches the march kernel
+    or raises: rings the kernel refuses are an error, not a window or
+    plain launch."""
+    import dataclasses
+
+    from stencil_tpu_torch.models.wave import WaveEquation
+
+    shape = (64, 64, 64)
+    spec = WaveEquation(shape=shape, device=cuda_device).spec
+    plan = make_tiled_plan(spec, shape, "float32", 8, two_level=True)
+    assert plan.schedule == "march"
+    big = dataclasses.replace(plan, tiles=(64, 32, 32))  # 2r+3 rings: too big
+    cur = plan.layout.pad_grid(_grid(shape, 1, cuda_device))
+    tiled_sweep.reset_counts()
+    with pytest.raises(RuntimeError, match="shared memory"):
+        tiled_sweep(cur, cur.clone(), big, prev=cur.clone(), out2=cur.clone())
+    assert tiled_sweep.launches == 0
+
+
+@pytest.mark.parametrize("dtype,periodic,neumann", [
+    ("float32", (), ()), ("float32", (0,), (1,)), ("bfloat16", (), ())])
+def test_march_wave_iterate_with_remainder_matches_window(cuda_device, dtype,
+                                                          periodic, neumann):
+    """``wave_iterate`` on a march plan, two launches of k=4 and a
+    remainder of 3, bitwise the same on the window schedule; each launch a
+    march two-level one."""
+    from stencil_tpu_torch.core.grid import torch_dtype
+    from stencil_tpu_torch.models.wave import WaveEquation
+    from stencil_tpu_torch.ops.tiled import wave_iterate
+
+    shape = (40, 36, 44)
+    bc = _walls(3, periodic, neumann)
+    spec = WaveEquation(shape=shape, device=cuda_device).spec
+    plan = make_tiled_plan(spec, shape, dtype, 4, two_level=True)
+    window = make_tiled_plan(spec, shape, dtype, 4, two_level=True,
+                             schedule="window")
+    assert plan.schedule == "march"
+    cur, prev = (_grid(shape, 1, cuda_device, seed=seed, bc=bc).data
+                 .to(torch_dtype(dtype)) for seed in (1, 3))
+    tiled_sweep.reset_counts()
+    got = wave_iterate(plan, cur, prev, bc, 2, rem=3)
+    torch.cuda.synchronize()
+    assert tiled_sweep.march_two_level_launches == 3
+    assert tiled_sweep.march_two_level_pins_launches == 3 * bool(periodic)
+    assert tiled_sweep.launches == 3
+    want = wave_iterate(window, cur, prev, bc, 2, rem=3)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # ---- the 2D d0 march (csrc/slab_march.cu) ----------------------------------
 
 

@@ -269,8 +269,9 @@ def test_thread_start_division_is_exact():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_chooser_fits_and_schedule_rule(dtype):
     """Every chosen march plan fits 232,448 bytes (and, in bf16, the
-    kernel's 8192-point staged plane); plain, source and (fp32)
-    coefficient plans march, every other mode takes the window."""
+    kernel's 8192-point staged plane); plain, source, two-level and (fp32)
+    coefficient plans march, the Chebyshev and dual modes take the
+    window."""
     for name, shape, k in [("jacobi7", (256, 256, 256), 8),
                            ("jacobi7", (256, 256, 256), 1),
                            ("jacobi7", (257, 257, 257), 8),
@@ -296,17 +297,17 @@ def test_chooser_fits_and_schedule_rule(dtype):
         make_tiled_plan(nb, (16, 16, 16), dtype, 2, has_source=True,
                         cheby_coeffs=co),
         make_tiled_plan(nb, (16, 16, 16), dtype, 2, has_source=True,
-                        cheby_coeffs=co, cheby_dual=True),
-        make_tiled_plan(get_spec("jacobi7"), (16, 16, 16), dtype, 2,
-                        two_level=True)]
+                        cheby_coeffs=co, cheby_dual=True)]
     if dtype == "float32":
         assert make_tiled_plan(get_spec("jacobi7"), (16, 16, 16), dtype, 2,
                                coeff_scales=(1, 1, -6)).schedule == "march"
+    assert make_tiled_plan(get_spec("jacobi7"), (16, 16, 16), dtype, 2,
+                           two_level=True).schedule == "march"
     assert all(p.schedule == "window" for p in others)
-    with pytest.raises(ValueError, match="homogeneous, source and "
-                                         "coefficient"):
-        make_tiled_plan(get_spec("jacobi7"), (16, 16, 16), dtype, 2,
-                        two_level=True, schedule="march")
+    with pytest.raises(ValueError, match="homogeneous, source, two-level "
+                                         "and coefficient"):
+        make_tiled_plan(nb, (16, 16, 16), dtype, 2, has_source=True,
+                        cheby_coeffs=co, schedule="march")
     # a plain plan takes the window when asked; beyond 16 sweeps neither
     # kernel takes a launch
     assert make_tiled_plan(get_spec("jacobi7"), (40, 40, 40), dtype, 8,

@@ -25,7 +25,9 @@ from stencil_tpu_torch import convert
 from stencil_tpu_torch.core.grid import DirichletBC
 from stencil_tpu_torch.core.spec import get_spec
 from stencil_tpu_torch.models import wave as twave
-from stencil_tpu_torch.ops.tiled import make_tiled_plan, wave_iterate
+from stencil_tpu_torch.ops.tiled import (
+    make_tiled_plan, march_smem_bytes, wave_iterate,
+)
 from stencil_tpu_torch.ops.tiled_kernel import sweep_reference, tiled_sweep
 
 TOL = 5e-6
@@ -155,11 +157,16 @@ def test_two_level_plan_and_wrapper(rng):
     spec = twave.WaveEquation(shape=shape, device="cpu").spec
     plan = make_tiled_plan(spec, shape, "float32", 3, two_level=True)
     assert plan.two_level and plan.with_sweeps(2).two_level
-    # two windows, as a plain plan on the window schedule: u_t is written
-    # over u_{t-2}
-    assert plan.schedule == "window"
-    assert plan.smem_bytes == make_tiled_plan(
-        spec, shape, "float32", 3, tiles=plan.tiles,
+    # the march, its rings one plane deeper than a plain plan's (level s
+    # reads level s-2's plane); on the window two windows, as a plain
+    # plan's: u_t is written over u_{t-2}
+    assert plan.schedule == "march"
+    assert plan.smem_bytes == march_smem_bytes(plan.tiles, 3, 1, 4, True) \
+        == march_smem_bytes(plan.tiles, 3, 1) * 5 // 4
+    window = make_tiled_plan(spec, shape, "float32", 3, two_level=True,
+                             schedule="window")
+    assert window.smem_bytes == make_tiled_plan(
+        spec, shape, "float32", 3, tiles=window.tiles,
         schedule="window").smem_bytes
     x = torch.from_numpy(rng.random(plan.layout.padded_shape)
                          .astype(np.float32))
