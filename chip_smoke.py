@@ -83,8 +83,9 @@ Phases, each ending in a line of its own:
    coefficient mode on the march (through its weights) and on the window;
    then B3 (``rma_iterate``, the in-kernel exchange): one launch of
    ``iters // k`` outer steps and one of the remainder on every rank's
-   buffers, the whole buffer tensor bitwise the plain version's, with
-   distinct face values, at the cases of ``RMA_CASES``: Dirichlet fp32
+   buffers, both slots bitwise the plain version's (the kernel runs the
+   sweeps between in shared memory and leaves the compute buffers alone),
+   with distinct face values, at the cases of ``RMA_CASES``: Dirichlet fp32
    (jacobi7 64×64×128 k=2 on (1,), (2,), (2, 2); a box on (2, 4); radius 2
    on (2, 2); 2D with a remainder on (4,) and on (2, 2); 128³ on (2, 2)),
    on dynamic walls (rings of 1, 2 and 4 in d0 and d1, Neumann mirrors,
@@ -233,8 +234,9 @@ Phases, each ending in a line of its own:
    bf16 on (1,) and (2, 2), and 160³ bf16 on (1,), each beside ``tiled``
    k=2 on the same walls and dtype, the bench cell's idle share, and
    launches alone of 32 and 64 steps at the bench cell, with each of
-   those walls and dtypes, and at 8×8×16, whose step is mostly its grid
-   barriers.
+   those walls and dtypes, and at 8×8×16, whose step is mostly the
+   kernel's fixed cost per step (the wait on the flags, the barriers
+   inside a block), each with its tile count and flag waits per step.
 
 The march replaces the window schedule in the homogeneous and source
 modes, with pins, bf16 and subsets, in the two-level mode with pins and
@@ -410,7 +412,7 @@ SHARDED_2D = ("jacobi5", (4096, 4096), 8, (4,), 16)  # spec, size, k, mesh, -i
 # CLI on (1,) and (2, 2), with periodic d0 d1 on (2, 2), Neumann d1 on (2,)
 # (the local refresh) and in bf16; phase 5 times them and 128^3, near the
 # L2 budget, beside tiled, 160^3 in bf16 (fp32 exceeds the budget there),
-# and a tiny block whose steps are mostly the grid barriers
+# and a tiny block whose steps are mostly the kernel's fixed cost per step
 RMA_CASES = (  # spec, global shape, mesh, k, iterations, periodic, neumann,
     # dtype
     ("jacobi7", (64, 64, 128), (1,), 2, 8, (), (), "float32"),
@@ -2241,9 +2243,11 @@ def rma_mode(periodic, neumann, dtype):
 def compare_rma(kernel, rng):
     """Each of RMA_CASES: one launch of ``iters // k`` steps and one of the
     remainder on every rank's buffers (scattered from a random grid with
-    RMA_FACES on the case's walls, in its dtype), the whole buffer tensor
-    against the plain version's from the same buffers, bitwise required.
-    Returns the largest difference per kernel record mode."""
+    RMA_FACES on the case's walls, in its dtype), both slots, cell for
+    cell, against the plain version's from the same buffers, bitwise
+    required. The compute buffers are left out: the kernel runs the sweeps
+    between in shared memory and never touches them. Returns the largest
+    difference per kernel record mode."""
     import torch
 
     from stencil_tpu_torch.core.grid import HaloGrid, torch_dtype
@@ -2276,8 +2280,9 @@ def compare_rma(kernel, rng):
         worst[mode] = max(worst.get(mode, 0.0), check_equal(
             f"rma_iterate {sp.name} {shape} mesh {sizes} k={k} {dtype}, "
             f"{walls_name(bc)}, {n_outer} steps"
-            f"{f' + a remainder of {rem}' if rem else ''}, buffers "
-            f"{tuple(plan.buffer_shape)}", got, want, exact=True))
+            f"{f' + a remainder of {rem}' if rem else ''}, tile "
+            f"{plan.tile}, both slots of {tuple(plan.buffer_shape)}",
+            got[:, :2], want[:, :2], exact=True))
         del got, want
     return worst
 
@@ -2345,8 +2350,9 @@ def time_rma(kernel, label):
     RMA_STEPS and 2 * RMA_STEPS steps, and their marginal per step, at the
     bench cell (its plain version beside) on RMA_MESHES and (2,) (the
     Dirichlet twin of ``--neumann 1``'s mesh) and with every run's walls,
-    mesh and dtype, and at RMA_TINY, whose step is mostly its grid
-    barriers.
+    mesh and dtype, and at RMA_TINY, whose step is mostly the kernel's
+    fixed cost per step; each line names the tile count and the flag
+    waits per step.
     Then the kernel record's rows: one launch of RMA_STEPS steps at the
     bench cell, its plain version, its bound and the library's one sweep
     of the same grid (after ``F.pad`` with dynamic walls): Dirichlet fp32
@@ -2360,7 +2366,7 @@ def time_rma(kernel, label):
     from stencil_tpu_torch.ops.tiled import TiledStencil, make_tiled_plan
     from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
-        RmaStencil, rma_iterate_reference,
+        RmaStencil, rma_iterate_reference, rma_tiles,
     )
 
     def wall(run, n):
@@ -2452,14 +2458,14 @@ def time_rma(kernel, label):
         t1 = time_call(lambda: kernel(bufs, plan, RMA_STEPS), DEVICE, 5)
         t2 = time_call(lambda: kernel(bufs, plan, 2 * RMA_STEPS), DEVICE, 5)
         step = (t2 - t1) / RMA_STEPS * 1e3
-        barriers = (len(sizes) + RMA_K
-                    + (plan.refresh_dim is not None))
+        tiles = rma_tiles(plan)
         line = (f"one rma_iterate launch of {RMA_STEPS} steps, jacobi7 "
                 f"{shape} k={RMA_K} mesh {sizes} {dtype} {walls}: "
                 f"{t1:.4f} ms, {step:.2f} us per step (the marginal of "
-                f"{RMA_STEPS} and {2 * RMA_STEPS} steps), {barriers} grid "
-                f"barriers per step ({step / barriers:.2f} us of the step "
-                "per barrier)")
+                f"{RMA_STEPS} and {2 * RMA_STEPS} steps); {tiles.ntiles} "
+                f"tiles of {plan.tile}, {tiles.waits_per_step} flag waits "
+                f"per step ({tiles.waits_per_step / tiles.ntiles:.1f} per "
+                "tile), one grid barrier per launch")
         if shape == RMA_SIZE:
             plain = st.scatter(grid, mesh, plan)
             plain_ms = time_call(lambda: rma_iterate_reference(
@@ -3962,7 +3968,7 @@ def main() -> int:
         if mode.startswith("slab_sweep"):
             slab_twin(mode, plan, cur, src, pins)
     stamp("the bf16 modes")
-    # B3: the bench cell and 128^3 beside tiled, the barrier floor, the
+    # B3: the bench cell and 128^3 beside tiled, the fixed cost, the
     # kernel record's launch (before the 1024^3 runs, whose traces are the
     # largest of the script)
     torch.cuda.synchronize()

@@ -10,22 +10,25 @@ for ``n_outer`` outer steps and pushes k*r-deep edge strips chip to chip by
 remote DMA, paced by semaphores. Its port, ``csrc/rma_iterate.cu``, keeps
 the contract and changes the means:
 
-- **one launch for the whole run**: a cooperative launch whose CTAs are all
-  co-resident; every phase is a grid-stride loop over (rank, cell);
+- **one launch for the whole run**: a cooperative launch whose blocks are
+  all co-resident, each owning fixed tiles of the ranks' interiors
+  (:func:`rma_tiles`, the tile chosen by :func:`choose_rma_tile`);
 - **the blocks never leave the device**: all ranks' buffers are one tensor
   ``[R, nbuf, *B]`` in device memory, sized by :func:`make_rma_plan` to
   stay inside the card's L2 (50 MiB on an H100), where the TPU kernel's
-  budget was VMEM;
-- **strips move inside the kernel**: one phase per sharded dim, each rank
-  storing its edge rows into its neighbours' opposite ghost bands of the
-  same slot, with JAX's footprint (:func:`strip_boxes`), so corners
-  transit and no cell is written twice; no host copy, no ``ppermute``;
-- **grid barriers in place of the neighbour semaphores**: one after each
-  phase and one after each sweep, so a phase's strips read what the last
-  phase wrote and a sweep reads what the last sweep wrote.
+  budget was VMEM; each step's k sweeps of a tile run in shared memory;
+- **the exchange written by its producer**: the phased exchange below is
+  a fixed map of ghost cells to the cells whose values they receive
+  (:func:`ghost_map`), so the tile that computes a source cell writes its
+  ghost copies after its last sweep; no host copy, no ``ppermute``;
+- **flags in place of the neighbour semaphores**: a tile waits, once per
+  step, for the tiles whose writes meet its window and those whose window
+  meets its writes (:attr:`RmaTiles.deps`), and publishes its own epoch;
+  one grid barrier per launch, after the opening exchange.
 
-One outer step from slot ``s`` to slot ``1 - s``, in phases that each end
-in a grid barrier (:func:`phase_copies` lists every copy of them):
+One outer step from slot ``s`` to slot ``1 - s``, as the plain version
+(:func:`rma_iterate_reference`) runs it (:func:`phase_copies` lists every
+copy of the exchange):
 
 - **the local refresh**, only where a dynamic dim is unsharded: its
   k*r-deep ghosts in slot ``s`` wrapped (periodic) or mirrored (Neumann:
@@ -45,9 +48,12 @@ in a grid barrier (:func:`phase_copies` lists every copy of them):
 - **k sweeps**: sweep t updates the rank's interior grown by (k-t)*r on
   every live face (a neighbour's, a ring's, a Neumann face, both faces of
   the unsharded dynamic dim: JAX's ``ext_dims``/``rect``, :286-332).
-  Sweeps 1..k-1 write the compute buffers, the last one the other slot.
+  Sweeps 1..k-1 write the compute buffers (the kernel keeps them in
+  shared memory), the last one the other slot.
 
-The buffer tensor holds ``2 + num_compute_bufs`` padded blocks per rank.
+The buffer tensor holds ``2 + num_compute_bufs`` padded blocks per rank,
+all of which the L2 budget counts, as JAX counts its VMEM
+(``resident_bytes``); the kernel touches the two slots (``live_bytes``).
 An iteration count that k does not divide ends in one launch of
 ``plan.with_sweeps(rem)`` on the same buffers: rem*r-deep refreshes,
 mirrors and strips, boxes grown by (rem-t)*r.
@@ -75,7 +81,12 @@ outside the update boxes.
 The per-rank tables (neighbour codes per phase, strip boxes, update boxes
 per sweep) are built once per launch plan in Python (:func:`rma_tables`);
 the plain version (:func:`rma_iterate_reference`) walks the copies and
-boxes the kernel's geometry describes, so a table fault shows on the CPU.
+boxes, the kernel the ghost map, tiles and dependencies built from them
+(:func:`device_table`); tests/test_torch_rma_tiles.py runs the kernel's
+schedule in Python, tile steps in any order the dependencies allow, so a
+table or schedule fault shows on the CPU. The kernel leaves the compute
+buffers alone: after a launch its slots, not its whole tensor, are the
+plain version's.
 
 JAX's TPU-layout rules are dropped: the DMA granules (``_dma_quantum``),
 the 128/sublane divisibility refusal and the rounded pads of
@@ -89,6 +100,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import itertools
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -124,8 +136,6 @@ H100_L2_BYTES = 50 * 2 ** 20
 # mirror, written in the dim's phase
 NBR_DIRICHLET = -1
 NBR_MIRROR = -2
-# the local refresh of the unsharded dynamic dim (_geometry)
-REFRESH_NONE, REFRESH_WRAP, REFRESH_MIRROR = -1, 0, 1
 
 
 def l2_budget(device) -> int:
@@ -143,8 +153,9 @@ class RmaPlan:
     padded by ``layout.halo`` = k*r on every side, ``sweeps_per_call``
     sweeps per outer step (``halo`` = sweeps*r, the strips' depth; below
     ``layout.halo`` only for a remainder plan, :meth:`with_sweeps`),
-    ``num_buffers`` padded blocks per rank, and the walls: ``periodic``
-    and ``neumann`` per grid dim (Dirichlet where both are False)."""
+    ``num_buffers`` padded blocks per rank, the walls: ``periodic`` and
+    ``neumann`` per grid dim (Dirichlet where both are False), and the
+    kernel's ``tile`` of each rank's interior (:func:`choose_rma_tile`)."""
 
     spec: StencilSpec
     local_shape: Tuple[int, ...]
@@ -155,6 +166,7 @@ class RmaPlan:
     num_buffers: int
     periodic: Tuple[bool, ...]
     neumann: Tuple[bool, ...]
+    tile: Tuple[int, ...]
 
     @property
     def interior_shape(self) -> Tuple[int, ...]:
@@ -195,7 +207,15 @@ class RmaPlan:
 
     @property
     def resident_bytes(self) -> int:
+        """The bytes the budget counts: every buffer of every rank, as
+        JAX counts its VMEM (the admission rule)."""
         return math.prod(self.buffer_shape) * self.itemsize
+
+    @property
+    def live_bytes(self) -> int:
+        """The bytes the kernel really touches: the two slots of every
+        rank (the sweeps between run in shared memory)."""
+        return 2 * self.ranks * math.prod(self.block_shape) * self.itemsize
 
     @property
     def dynamic(self) -> bool:
@@ -224,7 +244,8 @@ def make_rma_plan(spec: StencilSpec, local_shape, dtype="float32",
                   mesh_shape: Tuple[int, ...] = (1,),
                   sweeps_per_call: int = 1,
                   budget: int = H100_L2_BYTES,
-                  bc: Optional[DirichletBC] = None) -> RmaPlan:
+                  bc: Optional[DirichletBC] = None,
+                  tile: Optional[Tuple[int, ...]] = None) -> RmaPlan:
     """The plan, with JAX's gates and messages (``make_rma_plan``,
     :175-221): a 2D or 3D grid, a 1D or 2D mesh over the leading dims,
     k >= 1, a sharded local extent of at least 2*k*r; then the card's
@@ -232,7 +253,8 @@ def make_rma_plan(spec: StencilSpec, local_shape, dtype="float32",
     card, within ``budget`` (its L2), at the dtype's size. ``bc`` gives the
     walls (None: Dirichlet); a dynamic dim must be a leading one, and an
     unsharded one at least k*r deep (the gates of
-    :meth:`RmaStencil.iterate` say so in JAX's words first)."""
+    :meth:`RmaStencil.iterate` say so in JAX's words first). ``tile``
+    overrides :func:`choose_rma_tile`'s tile."""
     if spec.ndim not in (2, 3):
         raise ValueError("rma kernel supports 2D and 3D grids")
     ndim = spec.ndim
@@ -260,11 +282,22 @@ def make_rma_plan(spec: StencilSpec, local_shape, dtype="float32",
             raise ValueError(f"dynamic unsharded dim {d} ({local_shape[d]}) "
                              f"is shallower than k*r = {kr}")
     k = sweeps_per_call
+    itemsize = torch_dtype(dtype).itemsize
+    if tile is None:
+        tile = choose_rma_tile(local_shape, math.prod(mesh_shape), k,
+                               spec.radius, itemsize)
+    elif (len(tile) != ndim
+          or not all(1 <= t <= n for t, n in zip(tile, local_shape))
+          or tile_cost(local_shape, tile, 1, k, spec.radius,
+                       itemsize) is None):
+        raise ValueError(f"tile {tuple(tile)} does not fit {local_shape} "
+                         f"at k*r = {kr}")
     plan = RmaPlan(spec=spec, local_shape=tuple(local_shape), dtype=dtype,
                    mesh_shape=tuple(mesh_shape), sweeps_per_call=k,
                    layout=PaddedLayout.for_halo(local_shape, kr),
                    num_buffers=2 + (0 if k == 1 else (1 if k == 2 else 2)),
-                   periodic=tuple(per), neumann=tuple(neu))
+                   periodic=tuple(per), neumann=tuple(neu),
+                   tile=tuple(tile))
     if plan.resident_bytes > budget:
         B = plan.block_shape
         raise ValueError(
@@ -487,76 +520,308 @@ def rma_iterate_reference(buffers: torch.Tensor, plan: RmaPlan,
     return buffers
 
 
+# ---- the tiled schedule (csrc/rma_iterate.cu) ------------------------------
+
+# the card's limits the tile rule respects: shared memory per block (227
+# KB) and per SM (228 KB, 1 KB of it reserved per block), the SM count of
+# an H100 SXM, the kernel's threads per block and resident blocks per SM
+SHARED_PER_BLOCK = 232448
+SHARED_PER_SM = 233472
+SHARED_RESERVED = 1024
+H100_SMS = 132
+THREADS = 1024
+MAX_BLOCKS_PER_SM = 2048 // THREADS
+# the tile rule's cost of one step, in ns (choose_rma_tile): per window
+# cell loaded, per cell updated over the k sweeps, per wave of resident
+# tiles (the wait on the flags, the barriers, the latency of a tile);
+# fitted on an H100 by ``tile_sweep.py --rma --fit`` to
+# data/rma_tiles_h100_fit.csv
+RMA_TILE_CONSTANTS = (0.1355, 0.3131, 4162.0)
+
+
+def tile_candidates(n: int) -> List[int]:
+    """A dim's tile extents: the powers of two below ``n``, and ``n``."""
+    out, t = [n], 1
+    while t < n:
+        out.append(t)
+        t *= 2
+    return sorted(set(out))
+
+
+def shared_bytes(tile, ranks: int, k: int, kr: int, itemsize: int) -> int:
+    """One block's shared memory (rma_iterate.cu): two copies of the
+    window (the tile grown by ``kr``), then every rank's update boxes."""
+    window = 2 * math.prod(t + 2 * kr for t in tile) * itemsize
+    return -(-window // 16) * 16 + 4 * 6 * ranks * k
+
+
+def tile_features(local_shape, tile, ranks: int, k: int, r: int,
+                  itemsize: int, sms: int = H100_SMS
+                  ) -> Optional[Tuple[int, int, int]]:
+    """What one step costs with ``tile`` (one extent per grid dim), or
+    None where its window does not fit a block's shared memory: m =
+    ceil(tiles / sms) tiles per SM, resident ``bps`` at a time, each loading
+    its window (the tile grown by k*r: W cells) and updating the tile
+    grown by (k-t)*r at sweep t (C cells over the k sweeps), a row of the
+    last dim counted as whole warps of 32 cells. Returns (ceil(m / bps),
+    m * W, m * C)."""
+    def cells(grow):
+        *rows, width = (t + 2 * grow for t in tile)
+        return math.prod(rows) * -(-width // 32) * 32
+
+    kr = k * r
+    shared = shared_bytes(tile, ranks, k, kr, itemsize)
+    if shared > SHARED_PER_BLOCK:
+        return None
+    bps = min(MAX_BLOCKS_PER_SM,
+              SHARED_PER_SM // (shared + SHARED_RESERVED))
+    tiles = ranks * math.prod(-(-n // t) for n, t in zip(local_shape, tile))
+    m = -(-tiles // sms)
+    swept = sum(cells((k - s) * r) for s in range(1, k + 1))
+    return -(-m // bps), m * cells(kr), m * swept
+
+
+def tile_cost(local_shape, tile, ranks: int, k: int, r: int, itemsize: int,
+              constants=RMA_TILE_CONSTANTS) -> Optional[float]:
+    """The rule's estimate of one step's ns with ``tile``, or None where it
+    does not fit: ``constants`` (a, b, c) weigh :func:`tile_features`,
+    c * ceil(m / bps) + a * m * W + b * m * C."""
+    f = tile_features(local_shape, tile, ranks, k, r, itemsize)
+    if f is None:
+        return None
+    a, b, c = constants
+    return c * f[0] + a * f[1] + b * f[2]
+
+
+def choose_rma_tile(local_shape, ranks: int, k: int, r: int, itemsize: int,
+                    constants=RMA_TILE_CONSTANTS) -> Tuple[int, ...]:
+    """The tile of least :func:`tile_cost` among every product of
+    :func:`tile_candidates` whose window fits (ties: the larger tile)."""
+    best = None
+    for tile in itertools.product(*map(tile_candidates, local_shape)):
+        cost = tile_cost(local_shape, tile, ranks, k, r, itemsize,
+                         constants)
+        if cost is not None:
+            key = (cost, -math.prod(tile))
+            if best is None or key < best[0]:
+                best = (key, tile)
+    if best is None:
+        raise ValueError(f"no rma tile of {tuple(local_shape)} fits "
+                         f"{SHARED_PER_BLOCK} B of shared memory at k*r = "
+                         f"{k * r}")
+    return best[1]
+
+
+def ghost_map(plan: RmaPlan) -> Tuple[np.ndarray, np.ndarray]:
+    """What one step's exchange (:func:`phase_copies`) amounts to: every
+    ghost cell it writes, as a flat index ``rank * block + offset`` into
+    one slot of every rank, beside the cell whose value it ends up holding
+    (the refresh, the pushes, the rings and the mirrors in order, corners
+    riding through earlier phases): :func:`exchange_reference` run on the
+    cells' own indices. Raises if a source is itself written (the pairs
+    could then not all be applied at once)."""
+    return _ghost_map(plan)
+
+
+@functools.lru_cache(maxsize=64)
+def _ghost_map(plan: RmaPlan) -> Tuple[np.ndarray, np.ndarray]:
+    block = math.prod(plan.block_shape)
+    ids = torch.arange(plan.ranks * block, dtype=torch.int64).reshape(
+        (plan.ranks, 1) + plan.block_shape)
+    exchange_reference(ids, plan, 0)
+    flat = ids.reshape(-1).numpy()
+    dst = np.nonzero(flat != np.arange(flat.size))[0]
+    src = flat[dst]
+    if np.isin(src, dst).any():
+        raise AssertionError("an exchange source is itself written")
+    return dst, src
+
+
+@dataclasses.dataclass(frozen=True)
+class RmaTiles:
+    """The tiled schedule of one launch plan, the same every step. Tile
+    ``i`` of ``ntiles`` (rank-major, then the tile grid ``grid`` in C
+    order) owns ``tile`` interior cells per dim (fewer in a ragged last
+    tile) from ``lo[i]`` to ``hi[i]`` (padded coordinates) and loads its
+    window, ``lo - plan.halo`` to ``hi + plan.halo``, into shared memory of
+    row pitch ``pitch`` (the tile grown by k*r). Per tile, in CSR form
+    (``*_ptr[i]:*_ptr[i+1]``):
+
+    - ``pairs``: the ghost-map pairs it writes after its level k, (flat
+      destination, flat source, the source's index in its window or -1):
+      a source in its interior (the value in shared memory), or a source
+      no tile writes (a Dirichlet ghost a strip carries; index -1, read
+      from the output slot), given to the destination's rank's tile
+      nearest the destination;
+    - ``deps``: the tiles whose writes (interior or pairs) meet its window,
+      and those whose window meets its writes, itself excluded: the read-
+      after-write hazards between one step and the next, and the write-
+      after-read ones on the ping-pong slot. The relation is symmetric."""
+
+    grid: Tuple[int, ...]
+    tile: Tuple[int, ...]
+    pitch: Tuple[int, ...]
+    lo: np.ndarray          # [ntiles, ndim]
+    hi: np.ndarray
+    rank: np.ndarray        # [ntiles]
+    pair_ptr: np.ndarray    # [ntiles + 1]
+    pairs: np.ndarray       # [npairs, 3]
+    dep_ptr: np.ndarray     # [ntiles + 1]
+    deps: np.ndarray        # [ndeps]
+    shared_bytes: int       # one block's (:func:`shared_bytes`)
+
+    @property
+    def ntiles(self) -> int:
+        return len(self.rank)
+
+    @property
+    def waits_per_step(self) -> int:
+        """Flags all tiles wait on in one step (each a dependency)."""
+        return len(self.deps)
+
+
+
+def _csr(owner: np.ndarray, rows: np.ndarray, n: int):
+    order = np.argsort(owner, kind="stable")
+    ptr = np.zeros(n + 1, np.int64)
+    np.add.at(ptr, owner + 1, 1)
+    return np.cumsum(ptr), rows[order]
+
+
+@functools.lru_cache(maxsize=64)
+def rma_tiles(plan: RmaPlan) -> RmaTiles:
+    h, kr = plan.layout.halo, plan.halo
+    n = np.asarray(plan.local_shape)
+    T = np.asarray(plan.tile)
+    grid = tuple(int(v) for v in -(-n // T))
+    per_rank = math.prod(grid)
+    ntiles = plan.ranks * per_rank
+    idx = np.stack(np.unravel_index(np.arange(per_rank), grid), axis=1)
+    lo = np.tile(h + idx * T, (plan.ranks, 1))
+    hi = np.minimum(lo + T, h + n)
+    rank = np.repeat(np.arange(plan.ranks), per_rank)
+    pitch = tuple(int(t) + 2 * kr for t in T)
+
+    def tile_of(r, coords):
+        """The tile of rank(s) ``r`` holding interior cell(s) ``coords``."""
+        j = (coords - h) // T
+        return r * per_rank + np.ravel_multi_index(tuple(j.T), grid)
+
+    dst, src = ghost_map(plan)
+    block = math.prod(plan.block_shape)
+    s_rank, s_off = np.divmod(src, block)
+    d_rank, d_off = np.divmod(dst, block)
+    s_c = np.stack(np.unravel_index(s_off, plan.block_shape), axis=1)
+    d_c = np.stack(np.unravel_index(d_off, plan.block_shape), axis=1)
+    inside = ((s_c >= h) & (s_c < h + n)).all(axis=1)
+    owner = np.where(inside, tile_of(s_rank, np.clip(s_c, h, h + n - 1)),
+                     tile_of(d_rank, np.clip(d_c, h, h + n - 1)))
+    wlo = lo[owner] - kr
+    local = np.where(inside, np.ravel_multi_index(
+        tuple(np.clip(s_c - wlo, 0, np.asarray(pitch) - 1).T), pitch), -1)
+    pair_ptr, pairs = _csr(owner, np.stack([dst, src, local], axis=1),
+                           ntiles)
+
+    # read-after-write and write-after-read: a tile's writes meet another's
+    # window. Interiors against windows: per dim the tile indices within
+    # reach; ghost-map destinations against windows: per dim the tiles
+    # whose window spans the destination's coordinate.
+    edges = []
+    reach = [int(-(-kr // t)) for t in T]
+    for off in itertools.product(*(range(-q, q + 1) for q in reach)):
+        j = idx + np.asarray(off)
+        ok = ((j >= 0) & (j < np.asarray(grid))).all(axis=1)
+        if not any(off) or not ok.any():
+            continue
+        a = np.nonzero(ok)[0]
+        b = np.ravel_multi_index(tuple(j[ok].T), grid)
+        for r_ in range(plan.ranks):
+            edges.append(np.stack([a + r_ * per_rank, b + r_ * per_rank],
+                                  axis=1))
+    u = d_c - h
+    jlo = np.maximum(0, np.floor_divide(u - kr, T))
+    jhi = np.minimum(np.asarray(grid) - 1, np.floor_divide(u + kr, T))
+    span = int((jhi - jlo).max(initial=0)) + 1
+    for off in itertools.product(*(range(span) for _ in plan.local_shape)):
+        j = jlo + np.asarray(off)
+        ok = (j <= jhi).all(axis=1) & (u - kr < n).all(axis=1)
+        if ok.any():
+            reader = d_rank[ok] * per_rank + np.ravel_multi_index(
+                tuple(j[ok].T), grid)
+            edges.append(np.stack([owner[ok], reader], axis=1))
+    e = np.concatenate(edges + [np.zeros((0, 2), np.int64)])
+    e = np.concatenate([e, e[:, ::-1]])
+    e = np.unique(e[e[:, 0] != e[:, 1]], axis=0)
+    dep_ptr, deps = _csr(e[:, 0], e[:, 1], ntiles)
+    return RmaTiles(grid=grid, tile=tuple(int(t) for t in T), pitch=pitch,
+                    lo=lo, hi=hi, rank=rank, pair_ptr=pair_ptr, pairs=pairs,
+                    dep_ptr=dep_ptr, deps=deps,
+                    shared_bytes=shared_bytes(
+                        plan.tile, plan.ranks, plan.sweeps_per_call, kr,
+                        plan.itemsize))
+
+
 # the host geometry's layout (_geometry, rma_iterate.cu's kGeomLen)
-GEOM_HEADER = 10
-GEOM_REFRESH = 8
-GEOM_PHASE = 17
-MAX_PHASES = 2
-GEOM_LEN = GEOM_HEADER + GEOM_REFRESH + MAX_PHASES * GEOM_PHASE
+GEOM_LEN = 33
 
 
 def _geometry(plan: RmaPlan, n_steps: int, slot: int) -> np.ndarray:
-    """The host int32 geometry of a launch, every box in 3D padded
-    coordinates (a 2D plan gains a leading dim of 1): R, nbuf, P0 P1 P2,
-    the phase count, k, the steps, the first slot, the refresh's kind
-    (``REFRESH_*``); then the refresh's dim, that dim's interior extent n,
-    its box's extent and start at the first interior row (zeros without a
-    refresh); then for each of two phases the strip's extent, the
-    (source, destination) starts of the lo and the hi push, the dim and
-    its n (zeros past the phase count). A mirror or refresh item at depth
-    j (0-based) of a band whose first interior row is at flat offset a
-    writes a - (2j+1)*stride (the lo ghost) or a + n*stride (the hi one)
-    and reads what a wrap or a mirror gives (``band_copy`` in the kernel);
-    a mirror's band is the lo push's source strip."""
+    """The host int32 geometry of a launch, in 3D (a 2D plan gains a
+    leading dim of 1, with no tile, halo or radius): R, nbuf, P0 P1 P2, k,
+    the steps, the first slot, the tile count; per dim the tile extent,
+    the tile grid, the layout's halo, the launch's halo k*r, the interior
+    extent and the radius; the pair and dependency counts; then the
+    offsets in :func:`device_table` of the pair pointers, the pairs, the
+    dependency pointers and the dependencies (the boxes at 0)."""
+    tiles = rma_tiles(plan)
     lead = 3 - len(plan.local_shape)
-    pshape = (1,) * lead + plan.layout.padded_shape
-    rd = plan.refresh_dim
-    kind = REFRESH_NONE if rd is None else (
-        REFRESH_WRAP if plan.periodic[rd] else REFRESH_MIRROR)
-    geom = [plan.ranks, plan.num_buffers, *pshape, len(plan.mesh_shape),
-            plan.sweeps_per_call, n_steps, slot, kind]
-    if rd is None:
-        geom += [0] * GEOM_REFRESH
-    else:
-        box = refresh_box(plan, plan.layout.halo)
-        geom += [rd + lead, plan.local_shape[rd]]
-        geom += [1] * lead + [s.stop - s.start for s in box]
-        geom += [0] * lead + [s.start for s in box]
-    for d, pushes in enumerate(rma_tables(plan).strips):
-        src = pushes[0][0]
-        geom += [1] * lead + [s.stop - s.start for s in src]
-        for box_src, box_dst in pushes:
-            for box in (box_src, box_dst):
-                geom += [0] * lead + [s.start for s in box]
-        geom += [d + lead, plan.local_shape[d]]
-    geom += [0] * (GEOM_LEN - len(geom))
+
+    def per_dim(vals, pad):
+        return [pad] * lead + list(vals)
+
+    nd = len(plan.local_shape)
+    k = plan.sweeps_per_call
+    boxes = plan.ranks * k * 6
+    geom = [plan.ranks, plan.num_buffers,
+            *per_dim(plan.layout.padded_shape, 1), k, n_steps, slot,
+            tiles.ntiles, *per_dim(tiles.tile, 1), *per_dim(tiles.grid, 1),
+            *per_dim([plan.layout.halo] * nd, 0),
+            *per_dim([plan.halo] * nd, 0), *per_dim(plan.local_shape, 1),
+            *per_dim([plan.spec.radius] * nd, 0), len(tiles.pairs),
+            len(tiles.deps), boxes, boxes + tiles.ntiles + 1,
+            boxes + tiles.ntiles + 1 + 3 * len(tiles.pairs),
+            boxes + 2 * (tiles.ntiles + 1) + 3 * len(tiles.pairs)]
+    assert len(geom) == GEOM_LEN
     return np.asarray(geom, dtype=np.int32)
 
 
 @functools.lru_cache(maxsize=64)
 def device_table(plan: RmaPlan, device: torch.device) -> torch.Tensor:
-    """The int32 per-rank table the kernel reads from device memory, built
-    once per plan and device (a launch copies nothing from the host): the
-    neighbour codes [R][phases][2], the update boxes [R][k][start0..2,
-    size0..2], then each sweep's bounding box over the ranks [k][6], in 3D
-    padded coordinates."""
-    tables = rma_tables(plan)
+    """The int32 table the kernel reads from device memory, built once per
+    plan and device (a launch copies nothing from the host): each rank's
+    update boxes [R][k][start0..2, size0..2] in 3D padded coordinates, the
+    pair pointers [ntiles+1], the pairs [npairs][3] (destination and
+    source as ``rank * nbuf * block + offset`` in buffer 0 of the rank,
+    the source's window index or -1), the dependency pointers [ntiles+1]
+    and the dependencies."""
+    tables, tiles = rma_tables(plan), rma_tiles(plan)
     lead = 3 - len(plan.local_shape)
-    nbrs = [v for rank in tables.neighbours for lo_hi in rank for v in lo_hi]
+    block = math.prod(plan.block_shape)
+    if plan.ranks * plan.num_buffers * block >= 2 ** 31:
+        raise ValueError("the buffers exceed an int32 index")
 
     def six(box):
         return ([0] * lead + [b.start for b in box]
                 + [1] * lead + [b.stop - b.start for b in box])
 
     boxes = [v for rank in tables.boxes for box in rank for v in six(box)]
-    bound = []
-    for t in range(plan.sweeps_per_call):
-        per = [rank[t] for rank in tables.boxes]
-        bound += six(tuple(slice(min(b[d].start for b in per),
-                                 max(b[d].stop for b in per))
-                           for d in range(len(plan.local_shape))))
-    return torch.tensor(nbrs + boxes + bound, dtype=torch.int32,
-                        device=device)
+    pairs = tiles.pairs.copy()
+    for c in (0, 1):
+        rank, off = np.divmod(pairs[:, c], block)
+        pairs[:, c] = rank * plan.num_buffers * block + off
+    table = np.concatenate([np.asarray(boxes, np.int64), tiles.pair_ptr,
+                            pairs.reshape(-1), tiles.dep_ptr, tiles.deps])
+    return torch.from_numpy(table.astype(np.int32)).to(device)
 
 
 class RmaKernel:
@@ -593,12 +858,12 @@ class RmaKernel:
         for dtype, name in self.ENTRIES.items():
             fn = getattr(lib, name)
             fn.restype = I
-            # buffers, device table (device); geometry int32 (host) and its
-            # length; the tap table (host): offsets [ntaps*3], group sizes,
-            # group weights, ntaps, ngroups, uniform, uniform weight;
-            # device, stream
-            fn.argtypes = [P, P, P, I, P, P, P, I, I, I, ctypes.c_float, I,
-                           P]
+            # buffers, flags, device table (device); geometry int32 (host)
+            # and its length; the tap table (host): offsets [ntaps*3],
+            # group sizes, group weights, ntaps, ngroups, uniform, uniform
+            # weight; device, stream
+            fn.argtypes = [P, P, P, P, I, P, P, P, I, I, I, ctypes.c_float,
+                           I, P]
             entries[dtype] = fn
         err = lib.rma_iterate_error
         err.restype = ctypes.c_char_p
@@ -631,10 +896,11 @@ class RmaKernel:
         result lies in slot ``(slot + n_steps) % 2``. Returns ``buffers``.
 
         A CUDA tensor launches the kernel's entry for ``plan.dtype``
-        (float32 or bfloat16) on the current stream (no synchronisation)
-        and raises ``ValueError`` for another dtype and ``RuntimeError`` if
-        the build or the cooperative launch fails; a CPU tensor runs
-        :func:`rma_iterate_reference`."""
+        (float32 or bfloat16) on the current stream (no synchronisation),
+        its tiles' flags in a new int32 tensor, and leaves the compute
+        buffers as they were; it raises ``ValueError`` for another dtype
+        and ``RuntimeError`` if the build or the cooperative launch fails.
+        A CPU tensor runs :func:`rma_iterate_reference`."""
         self.check(buffers, plan, n_steps, slot)
         if buffers.device.type == "cpu":
             return rma_iterate_reference(buffers, plan, n_steps, slot)
@@ -654,12 +920,16 @@ class RmaKernel:
              offsets.reshape(-1, plan.spec.ndim)], axis=1).reshape(-1))
         geom = _geometry(plan, n_steps, slot)
         table = device_table(plan, buffers.device)
+        # the tiles' epochs, zeroed by the launch on its stream
+        flags = torch.empty(rma_tiles(plan).ntiles, dtype=torch.int32,
+                            device=buffers.device)
         device = buffers.device.index if buffers.device.index is not None \
             else torch.cuda.current_device()
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = entries[plan.dtype](
-            buffers.data_ptr(), table.data_ptr(), geom.ctypes.data,
-            len(geom), offsets.ctypes.data, sizes.ctypes.data,
+            buffers.data_ptr(), flags.data_ptr(), table.data_ptr(),
+            geom.ctypes.data, len(geom), offsets.ctypes.data,
+            sizes.ctypes.data,
             weights.ctypes.data, len(offsets) // 3, len(sizes), int(uniform),
             uw, device, stream)
         if rc != 0:

@@ -343,20 +343,24 @@ def make_sharded_pallas(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
 
 
 def make_rma(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
-    """Every rank's blocks resident for a whole iterate, the k*r-deep
-    strips pushed inside one cooperative launch with grid barriers between
-    phases (``csrc/rma_iterate.cu``): ``--mesh a`` shards d0, ``--mesh a
-    b`` d0 and d1, every rank on one card; ``-k`` sweeps per exchange, in
-    the grid's dtype (float32 or bfloat16). Periodic and Neumann walls
-    take JAX's gates and messages, raised when the runner is made
+    """Every rank's blocks resident for a whole iterate, in one
+    cooperative launch whose tiles run each step's k sweeps in shared
+    memory and write the exchange themselves, pacing each other by flags
+    (``csrc/rma_iterate.cu``): ``--mesh a`` shards d0, ``--mesh a b`` d0
+    and d1, every rank on one card; ``-k`` sweeps per exchange, in the
+    grid's dtype (float32 or bfloat16). Periodic and Neumann walls take
+    JAX's gates and messages, raised when the runner is made
     (``registry.py:415-445``: a dynamic lane dim, a Neumann dim at k>1
     with a spec not mirror-symmetric in it, a dynamic unsharded dim
     shallower than k*r), then the card's L2 budget. ``plan_info`` records
-    the mesh, the local block, its buffers, the bytes resident on the card
-    and those a mesh-interior rank pushes per outer step."""
+    the mesh, the local block, its buffers, the bytes the budget counts
+    (``resident_bytes``) and those the kernel touches (``live_bytes``, the
+    two slots), those a mesh-interior rank pushes per outer step, the
+    tile, the tile count, the flags all tiles wait on per step and one
+    block's shared memory."""
     from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
-        RmaStencil, push_bytes_per_step,
+        RmaStencil, push_bytes_per_step, rma_tiles,
     )
 
     mesh_sizes = _mesh_sizes(config, grid)
@@ -398,7 +402,12 @@ def make_rma(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
                  "block_shape": list(plan.block_shape),
                  "buffers": plan.num_buffers,
                  "resident_bytes": plan.resident_bytes,
+                 "live_bytes": plan.live_bytes,
                  "push_bytes_per_step": push_bytes_per_step(plan)}
+    tiles = rma_tiles(plan)
+    plan_info.update(tile=list(plan.tile), tiles=tiles.ntiles,
+                     waits_per_step=tiles.waits_per_step,
+                     shared_bytes=tiles.shared_bytes)
     ignored = config.ignored_tpu_flags() if config is not None else {}
     if ignored:
         plan_info["ignored"] = ignored
@@ -406,9 +415,10 @@ def make_rma(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
         name=f"rma(mesh={'x'.join(map(str, mesh_sizes))},k={k})",
         iterate=lambda g, it: method.iterate(g, it, mesh),
         description=(
-            "every rank's blocks resident on one card, strips pushed "
-            "in-kernel between grid barriers, one cooperative launch per "
-            "run; counterpart of stencil_tpu/parallel/rma.py:RmaStencil"),
+            "every rank's blocks resident on one card, the halos written "
+            "in-kernel by the tiles that compute them, one cooperative "
+            "launch per run; counterpart of "
+            "stencil_tpu/parallel/rma.py:RmaStencil"),
         granularity=k,
         plan_info=plan_info,
     )

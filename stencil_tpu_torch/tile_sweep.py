@@ -90,6 +90,19 @@ constants (``data/slab_march_tiles_h100_held_out.csv``; never passed to
 
     python -m stencil_tpu_torch.tile_sweep --dims 2 --march --held-out \
         --out held_out.csv
+
+``--rma`` times the in-kernel exchange (``csrc/rma_iterate.cu``): per case
+of ``RMA_CASES`` the step (the marginal of two launches) at 20 tiles, the
+ten its rule (``parallel/rma.py:choose_rma_tile``) ranks first and ten
+spread over the rest; ``--score`` scores the rule on such rows and
+``--fit`` refits its constants (``RMA_TILE_CONSTANTS``, a least-squares
+fit of the estimate to the rows' times). ``data/rma_tiles_h100_fit.csv``
+holds the rows they were fitted to; ``--held-out`` times ``RMA_HELD_OUT``
+(``data/rma_tiles_h100_held_out.csv``, never passed to ``--fit``):
+
+    python -m stencil_tpu_torch.tile_sweep --rma --out rows.csv
+    python -m stencil_tpu_torch.tile_sweep --rma --score \
+        stencil_tpu_torch/data/rma_tiles_h100_fit.csv --fit
 """
 
 from __future__ import annotations
@@ -785,6 +798,211 @@ def fit(cases, grid=FIT_GRID) -> List[Tuple[float, tuple]]:
                   for c in itertools.product(*grid))
 
 
+# the in-kernel exchange's tile rule (parallel/rma.py:choose_rma_tile):
+# the cases its constants are fitted to (spec, global shape, mesh, k,
+# dtype), and the cases held out of the fit
+RMA_CASES = (
+    ("jacobi7", (64, 64, 128), (1,), 2, "float32"),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, "float32"),
+    ("jacobi7", (128, 128, 128), (1,), 2, "float32"),
+    ("jacobi7", (8, 8, 16), (1,), 2, "float32"),
+    ("star3d_r2", (32, 32, 20), (2, 2), 2, "float32"),
+    ("jacobi27", (32, 64, 40), (2,), 3, "float32"),
+    ("jacobi5", (64, 40), (4,), 4, "float32"),
+    ("jacobi7", (64, 64, 128), (1,), 2, "bfloat16"),
+)
+RMA_HELD_OUT = (
+    ("jacobi7", (64, 64, 128), (2,), 2, "float32"),
+    ("jacobi7", (160, 160, 160), (1,), 2, "bfloat16"),
+    ("jacobi7", (128, 128, 128), (2, 2), 2, "float32"),
+    ("jacobi5", (32, 256), (2, 2), 2, "float32"),
+    ("jacobi27", (32, 64, 40), (2, 4), 2, "float32"),
+)
+RMA_FIELDS = ("spec", "shape", "mesh", "k", "dtype", "tile", "tiles",
+              "us_per_step")
+RMA_STEPS = (64, 256)   # the two launches whose marginal is the step
+RmaCase = Tuple[str, Tuple[int, ...], Tuple[int, ...], int, str]
+
+
+def _dims(text: str) -> Tuple[int, ...]:
+    return tuple(int(v) for v in text.split("x"))
+
+
+def _rma_plan(case: RmaCase):
+    from stencil_tpu_torch.parallel.rma import RmaStencil
+
+    name, shape, mesh, k, dtype = case
+    return RmaStencil(get_spec(name), shape, dtype, k).local_plan(mesh)
+
+
+def rma_tiles_to_time(case: RmaCase, count: int = 20) -> List[tuple]:
+    """The tiles one case times: the ``count`` // 2 the rule ranks first
+    (its pick first), then as many spread over the rest of its ranking."""
+    from stencil_tpu_torch.parallel.rma import tile_candidates, tile_cost
+
+    plan = _rma_plan(case)
+    ranked = sorted(
+        (c, t) for t in itertools.product(*map(tile_candidates,
+                                              plan.local_shape))
+        if (c := tile_cost(plan.local_shape, t, plan.ranks,
+                           plan.sweeps_per_call, plan.spec.radius,
+                           plan.itemsize)) is not None)
+    tiles = [t for _, t in ranked]
+    head, rest = tiles[:count // 2], tiles[count // 2:]
+    step = max(1, len(rest) // (count - len(head)))
+    return head + rest[::step][:count - len(head)]
+
+
+def measure_rma(out: Path, cases: Sequence[RmaCase] = RMA_CASES,
+                seed: int = 0) -> None:
+    """Time the rma kernel's step (the marginal of launches of the two
+    RMA_STEPS, each the mean of 5 launches back to back between CUDA
+    events, so the host's enqueue hides behind the device, the least of 3)
+    at :func:`rma_tiles_to_time` of every case on the current CUDA device;
+    writes ``RMA_FIELDS`` rows to ``out`` and prints per case the rule's
+    pick against the fastest tile."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import HaloGrid
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.rma import (
+        RmaStencil, make_rma_plan, rma_iterate, rma_tiles,
+    )
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the tile sweep times the CUDA kernel: it needs "
+                           "a card (score and fit need none)")
+    device = torch.device("cuda")
+    label = gpu_label()
+    print(label)
+    rng = np.random.default_rng(seed)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def ms(run):
+        run()
+        best = math.inf
+        for _ in range(3):
+            events[0].record()
+            for _ in range(5):
+                run()
+            events[1].record()
+            torch.cuda.synchronize()
+            best = min(best, events[0].elapsed_time(events[1]) / 5)
+        return best
+
+    with open(out, "w", newline="") as fh:
+        fh.write(f"# {label}\n")
+        writer = csv.writer(fh)
+        writer.writerow(RMA_FIELDS)
+        for case in cases:
+            name, shape, mesh_shape, k, dtype = case
+            spec = get_spec(name)
+            x = torch.from_numpy(rng.random(shape, dtype=np.float32))
+            grid = HaloGrid.from_interior(x.to(torch_dtype(dtype)),
+                                          halo=spec.radius, device=device)
+            mesh = make_mesh(mesh_shape, ("x", "y")[:len(mesh_shape)],
+                             device=device)
+            method = RmaStencil(spec, shape, dtype, k)
+            pick = method.plan_for(mesh)
+            times = {}
+            for tile in rma_tiles_to_time(case):
+                plan = make_rma_plan(spec, pick.local_shape, dtype,
+                                     mesh_shape, k, tile=tile)
+                bufs = method.scatter(grid, mesh, plan)
+                one, two = (ms(lambda n=n: rma_iterate(bufs, plan, n))
+                            for n in RMA_STEPS)
+                times[tile] = (two - one) / (RMA_STEPS[1] - RMA_STEPS[0]) \
+                    * 1e3
+                writer.writerow((name, "x".join(map(str, shape)),
+                                 "x".join(map(str, mesh_shape)), k, dtype,
+                                 "x".join(map(str, tile)),
+                                 rma_tiles(plan).ntiles,
+                                 repr(times[tile])))
+                del bufs
+            fh.flush()
+            best = min(times, key=times.get)
+            print(f"rma {name} {shape} mesh {mesh_shape} k={k} {dtype}: "
+                  f"{len(times)} tiles; rule {pick.tile} "
+                  f"{times[pick.tile]:.2f} us per step, fastest {best} "
+                  f"{times[best]:.2f}, {times[pick.tile] / times[best]:.3f}x"
+                  f" [{label}]")
+            sys.stdout.flush()
+
+
+def read_rma_rows(path: Path) -> Dict[RmaCase, Dict[tuple, float]]:
+    cases: Dict[RmaCase, Dict[tuple, float]] = {}
+    with open(path) as fh:
+        for row in csv.DictReader(line for line in fh
+                                  if not line.startswith("#")):
+            case = (row["spec"], _dims(row["shape"]), _dims(row["mesh"]),
+                    int(row["k"]), row["dtype"])
+            cases.setdefault(case, {})[_dims(row["tile"])] = float(
+                row["us_per_step"])
+    return cases
+
+
+def _rma_features(case: RmaCase, tile) -> Tuple[int, int, int]:
+    from stencil_tpu_torch.parallel.rma import tile_features
+
+    plan = _rma_plan(case)
+    return tile_features(plan.local_shape, tile, plan.ranks,
+                         plan.sweeps_per_call, plan.spec.radius,
+                         plan.itemsize)
+
+
+def score_rma(cases, constants=None) -> List[dict]:
+    """Per case, the rule's pick among the measured tiles (with
+    ``constants``, else the committed ones) against the fastest."""
+    from stencil_tpu_torch.parallel.rma import RMA_TILE_CONSTANTS
+
+    a, b, c = RMA_TILE_CONSTANTS if constants is None else constants
+    results = []
+    for case, times in cases.items():
+        est = {t: c * f[0] + a * f[1] + b * f[2]
+               for t in times for f in (_rma_features(case, t),)}
+        pick = min(times, key=lambda t: (est[t], -math.prod(t)))
+        best = min(times, key=times.get)
+        results.append({"case": case, "pick": pick, "pick_ms": times[pick],
+                        "best": best, "best_ms": times[best],
+                        "ratio": times[pick] / times[best]})
+    return results
+
+
+def fit_rma(cases) -> Tuple[float, float, float]:
+    """The constants (a, b, c) >= 0 of least squared relative error of the
+    estimate over every measured row: a least-squares fit of the rows'
+    features to their times, each row divided by its time, a constant
+    that comes out negative dropped and the rest fitted again."""
+    rows = [(_rma_features(case, t), us * 1e3)
+            for case, times in cases.items() for t, us in times.items()]
+    x = np.asarray([[f[1], f[2], f[0]] for f, _ in rows], float)
+    y = np.asarray([ns for _, ns in rows], float)
+    keep = [0, 1, 2]
+    while True:
+        sol, *_ = np.linalg.lstsq(x[:, keep] / y[:, None], np.ones(len(y)),
+                                  rcond=None)
+        if (sol >= 0).all():
+            break
+        keep.pop(int(np.argmin(sol)))
+    out = [0.0, 0.0, 0.0]
+    for i, v in zip(keep, sol):
+        out[i] = float(v)
+    return tuple(out)
+
+
+def report_rma(cases, constants=None) -> None:
+    results = score_rma(cases, constants)
+    for r in results:
+        name, shape, mesh, k, dtype = r["case"]
+        print(f"rma {name} {shape} mesh {mesh} k={k} {dtype}: pick "
+              f"{r['pick']} {r['pick_ms']:.2f} us, best {r['best']} "
+              f"{r['best_ms']:.2f} us, {r['ratio']:.3f}x")
+    print(f"rma constants {constants or 'committed'}: geometric mean "
+          f"{geomean(results):.4f}x the best tile, worst "
+          f"{max(r['ratio'] for r in results):.4f}x over {len(results)} "
+          "cases")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m stencil_tpu_torch.tile_sweep",
                                  description=__doc__.split("\n\n")[0])
@@ -817,9 +1035,25 @@ def main(argv=None) -> int:
     ap.add_argument("--coeff", action="store_true",
                     help="with --march --out: the coefficient mode at "
                          "MARCH_COEFF_CASES")
+    ap.add_argument("--rma", action="store_true",
+                    help="the in-kernel exchange's tiles: time RMA_CASES "
+                         "(--held-out: RMA_HELD_OUT), or score and refit "
+                         "its tile rule")
     args = ap.parse_args(argv)
     if args.out is None and args.score is None:
         ap.error("give --out (measure) or --score (score, fit)")
+    if args.rma:
+        if args.out is not None:
+            measure_rma(args.out, RMA_HELD_OUT if args.held_out
+                        else RMA_CASES)
+        if args.score is not None:
+            cases = read_rma_rows(args.score)
+            report_rma(cases)
+            if args.fit:
+                constants = fit_rma(cases)
+                print(f"fit: rma constants {constants}")
+                report_rma(cases, constants)
+        return 0
     if args.march and args.dims == 2:
         if args.out is not None:
             measure_slab_march(args.out, SLAB_MARCH_HELD_OUT

@@ -799,10 +799,11 @@ def _rma_spec(name):
 @pytest.mark.parametrize("name,shape,sizes,k,iters", RMA_CASES)
 def test_rma_kernel_matches_plain(cuda_device, name, shape, sizes, k, iters):
     """One launch of ``iters // k`` steps (and one of the remainder) on
-    every rank's buffers: the whole buffer tensor bitwise the plain
-    version's on the same inputs; then ``RmaStencil.iterate`` makes one
-    launch (plus one for a remainder) and is bitwise the single-device
-    eager iterate."""
+    every rank's buffers: both slots bitwise the plain version's on the
+    same inputs (the kernel runs the sweeps between in shared memory and
+    leaves the compute buffers alone); then ``RmaStencil.iterate`` makes
+    one launch (plus one for a remainder) and is bitwise the
+    single-device eager iterate."""
     from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
         RmaStencil, rma_iterate, rma_iterate_reference,
@@ -824,7 +825,7 @@ def test_rma_kernel_matches_plain(cuda_device, name, shape, sizes, k, iters):
         rma_iterate_reference(want, plan.with_sweeps(rem), 1, n_outer % 2)
     torch.cuda.synchronize()
     assert rma_iterate.launches == 1 + bool(rem)
-    assert torch.equal(bufs, want)
+    assert torch.equal(bufs[:, :2], want[:, :2])
     rma_iterate.reset_counts()
     got = method.iterate(g, iters, mesh)
     torch.cuda.synchronize()
@@ -869,7 +870,7 @@ def test_rma_kernel_matches_plain_on_dynamic_walls_and_bf16(
     """Rings (of 1, 2 and more), Neumann mirrors, the local refresh of an
     unsharded dynamic d1 and mixed walls, fp32 and bf16, distinct face
     values: one launch of ``iters // k`` steps and one of the remainder,
-    the whole buffer tensor bitwise the plain version's; the counts of
+    both slots bitwise the plain version's; the counts of
     pins and bf16 launches; ``RmaStencil.iterate`` bitwise the same
     launches' result."""
     from stencil_tpu_torch.parallel.mesh import make_mesh
@@ -903,12 +904,101 @@ def test_rma_kernel_matches_plain_on_dynamic_walls_and_bf16(
     assert (rma_iterate.launches, rma_iterate.pins_launches,
             rma_iterate.bf16_launches) == (
         n, n * bool(periodic or neumann), n * (dtype == "bfloat16"))
-    assert torch.equal(bufs, want)
+    assert torch.equal(bufs[:, :2], want[:, :2])
     got = method.iterate(g, iters, mesh)
     slot = (n_outer + bool(rem)) % 2
     torch.cuda.synchronize()
     assert torch.equal(got.interior(), method.gather(
         bufs, slot, mesh, plan, g).interior())
+
+
+RMA_TILE_CASES = [  # spec, global shape, mesh, k, periodic, neumann, dtype,
+    # tile (None: the plan's rule)
+    ("jacobi7", (16, 12, 20), (1,), 2, (), (), "float32", (3, 5, 8)),
+    ("jacobi7", (16, 12, 20), (2,), 2, (), (), "float32", (3, 5, 8)),
+    ("jacobi7", (16, 12, 20), (2, 2), 2, (), (), "float32", (3, 5, 8)),
+    ("jacobi7", (16, 24, 20), (2, 4), 2, (), (), "float32", (4, 3, 7)),
+    ("jacobi7", (12, 12, 20), (1,), 2, (0, 1), (), "float32", (5, 5, 8)),
+    ("jacobi7", (16, 12, 20), (2,), 2, (0,), (), "float32", (3, 5, 8)),
+    ("jacobi7", (16, 12, 20), (2, 2), 2, (0, 1), (), "float32", (3, 5, 8)),
+    ("jacobi7", (24, 12, 20), (4,), 2, (0,), (), "float32", (3, 5, 8)),
+    ("jacobi7", (16, 12, 20), (2,), 2, (), (0, 1), "float32", (3, 5, 8)),
+    ("jacobi7", (16, 12, 20), (2,), 2, (0,), (1,), "float32", (3, 5, 8)),
+    ("star3_r2", (16, 16, 12), (2, 2), 2, (1,), (0,), "float32", (3, 5, 7)),
+    ("jacobi27", (12, 16, 10), (2,), 3, (0,), (1,), "float32", (2, 5, 4)),
+    ("jacobi5", (32, 20), (2,), 4, (), (0,), "float32", (5, 7)),
+    ("jacobi7", (16, 12, 20), (2, 2), 2, (0,), (1,), "bfloat16", (3, 5, 8)),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, (), (), "float32", None),
+    ("jacobi7", (64, 64, 128), (2,), 2, (), (1,), "bfloat16", None),
+]
+
+
+@pytest.mark.parametrize("name,shape,sizes,k,periodic,neumann,dtype,tile",
+                         RMA_TILE_CASES)
+def test_rma_tiles_match_plain_on_both_slots(cuda_device, name, shape, sizes,
+                                             k, periodic, neumann, dtype,
+                                             tile):
+    """The tiled schedule at small tiles (many per rank, ragged ones
+    included) and at the plan's own: 1, 2 and 3 steps from either slot and
+    a remainder launch, both slots bitwise the plain version's on every
+    wall kind, in fp32 and bf16."""
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.rma import (
+        RmaStencil, make_rma_plan, rma_iterate, rma_iterate_reference,
+    )
+
+    sp = _rma_spec(name)
+    bc = (BC3 if len(shape) == 3 else BC2)
+    if periodic:
+        bc = bc.with_periodic(periodic)
+    if neumann:
+        bc = bc.with_neumann(neumann)
+    g = _grid(shape, sp.radius, "cpu", bc=bc)
+    g = HaloGrid.from_interior(g.interior().to(getattr(torch, dtype)),
+                               halo=sp.radius, bc=bc, device=cuda_device)
+    mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], device=cuda_device)
+    method = RmaStencil(sp, shape, dtype, sweeps_per_call=k)
+    base = method.plan_for(mesh, bc)
+    plan = base if tile is None else make_rma_plan(
+        sp, base.local_shape, dtype, sizes, k, bc=bc, tile=tile)
+    for slot in (0, 1):
+        for steps in (1, 2, 3):
+            bufs = method.scatter(g, mesh, plan)
+            want = bufs.clone()
+            rma_iterate(bufs, plan, steps, slot)
+            rma_iterate_reference(want, plan, steps, slot)
+            rem = plan.with_sweeps(max(1, k - 1))
+            rma_iterate(bufs, rem, 1, (slot + steps) % 2)
+            rma_iterate_reference(want, rem, 1, (slot + steps) % 2)
+            torch.cuda.synchronize()
+            assert torch.equal(bufs[:, :2], want[:, :2]), (slot, steps)
+
+
+@pytest.mark.parametrize("shape,sizes", [((64, 64, 128), (2, 2)),
+                                         ((8, 8, 16), (1,))])
+def test_rma_race_soak(cuda_device, shape, sizes):
+    """50 launches of 256 steps each from the same buffers, each bitwise
+    the plain version's: a race between the tiles' flags and their loads
+    would show in one of them."""
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.rma import (
+        RmaStencil, rma_iterate, rma_iterate_reference,
+    )
+
+    sp = get_spec("jacobi7")
+    g = _grid(shape, 1, cuda_device)
+    mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], device=cuda_device)
+    method = RmaStencil(sp, shape, sweeps_per_call=2)
+    plan = method.plan_for(mesh)
+    start = method.scatter(g, mesh, plan)
+    want = rma_iterate_reference(start.clone(), plan, 256)[:, :2]
+    bad = 0
+    for _ in range(50):
+        bufs = start.clone()
+        rma_iterate(bufs, plan, 256)
+        bad += not torch.equal(bufs[:, :2], want)
+    torch.cuda.synchronize()
+    assert bad == 0
 
 
 # ---- the d0 march (csrc/tiled_march.cu) -------------------------------------

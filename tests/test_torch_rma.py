@@ -494,6 +494,9 @@ def test_registry_runner_and_plan_info():
     assert info["resident_bytes"] == 4 * 4 * 18 * 16 * 34 * 4
     assert info["push_bytes_per_step"] == (2 * 3 * 10 * 34
                                            + 2 * 3 * 18 * 34) * 4
+    assert info["live_bytes"] == 4 * 2 * 18 * 16 * 34 * 4
+    assert len(info["tile"]) == 3 and info["tiles"] >= 4
+    assert 0 < info["shared_bytes"] <= 232448 and info["waits_per_step"] > 0
     assert "stencil_tpu/parallel/rma.py" in runner.description
     tiled = registry.get_runner("tiled", cfg, sp, g)
     assert torch.equal(runner.iterate(g, 7).interior(),

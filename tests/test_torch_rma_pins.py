@@ -10,8 +10,9 @@ Held against the float64 golden at every case of JAX's tests/test_rma.py
 word, and, in pure Python, the tables: every copy of a phase inside the
 block, no cell written twice or read and written in one phase, every
 value a sweep reads the golden's own (tracked as labels of the global
-padded grid), and an emulation of the kernel's index arithmetic that must
-give the plain version's copies. The kernel itself is held against the
+padded grid), and the kernel's pairs, read from its geometry and device
+table as it reads them, that must give what the plain version's copies
+give. The kernel itself is held against the
 plain version on a card by tests/test_torch_cuda.py.
 
 Tolerances: fp32 5e-6 against the golden and JAX (JAX's own,
@@ -43,9 +44,8 @@ from stencil_tpu_torch.ops.slab import SlabStencil
 from stencil_tpu_torch.ops.tiled import TiledStencil
 from stencil_tpu_torch.parallel.mesh import make_mesh
 from stencil_tpu_torch.parallel.rma import (
-    GEOM_HEADER, GEOM_PHASE, GEOM_REFRESH, NBR_MIRROR, REFRESH_NONE,
-    REFRESH_WRAP, RmaStencil, _geometry, buffer_of, device_table,
-    exchange_reference, make_rma_plan, phase_copies, rma_iterate,
+    RmaStencil, _geometry, buffer_of, device_table, exchange_reference,
+    ghost_map, make_rma_plan, phase_copies, rma_iterate,
     rma_iterate_reference, rma_tables,
 )
 
@@ -513,97 +513,53 @@ def test_tables_every_read_is_the_goldens_value(case):
                                    want[rank][constant[rank]])
 
 
-def _emulate_kernel(plan, geom, table):
-    """The kernel's index arithmetic for the copies of one step
-    (rma_iterate.cu: the refresh phase, then the phase loop with its
-    pushes and mirrors, ``band_copy``), in Python on the host geometry and
-    the device table: per phase a list of (source rank, source flat
-    offset, destination rank, destination flat offset) in one rank's
-    padded block."""
-    p1, p2 = int(geom[3]), int(geom[4])
-    ranks, nphase = int(geom[0]), int(geom[5])
-    nbr = table[:ranks * nphase * 2].reshape(ranks, nphase, 2)
-    strides = (p1 * p2, p2, 1)
-
-    def band_copy(a, jj, stride, n, side, wrap):
-        back, across = (2 * jj + 1) * stride, n * stride
-        if side == 0:
-            dst = a - back
-            return (dst + across if wrap else a), dst
-        dst = a + across
-        return (a if wrap else dst - back), dst
-
-    def items(size):
-        for i0 in range(size[0]):
-            for i1 in range(size[1]):
-                for i2 in range(size[2]):
-                    yield (i0, i1, i2), (i0 * p1 + i1) * p2 + i2
-
-    phases = []
-    kind = int(geom[9])
-    if kind != REFRESH_NONE:
-        q = geom[GEOM_HEADER:GEOM_HEADER + GEOM_REFRESH]
-        dim, n = int(q[0]), int(q[1])
-        size, start = q[2:5], q[5:8]
-        base = (start[0] * p1 + start[1]) * p2 + start[2]
-        copies = []
-        for rank in range(ranks):
-            for side in (0, 1):
-                for c, off in items(size):
-                    src, dst = band_copy(base + off, c[dim], strides[dim], n,
-                                         side, kind == REFRESH_WRAP)
-                    copies.append((rank, src, rank, dst))
-        phases.append(copies)
-    for ph in range(nphase):
-        q = geom[GEOM_HEADER + GEOM_REFRESH + ph * GEOM_PHASE:]
-        size = q[0:3]
-        flat = [(q[i] * p1 + q[i + 1]) * p2 + q[i + 2]
-                for i in (3, 6, 9, 12)]
-        dim, n = int(q[15]), int(q[16])
-        copies = []
-        for rank in range(ranks):
-            for side in (0, 1):
-                to = int(nbr[rank, ph, side])
-                for c, off in items(size):
-                    if to >= 0:
-                        copies.append((rank, flat[2 * side] + off, to,
-                                       flat[2 * side + 1] + off))
-                    elif to == NBR_MIRROR:
-                        src, dst = band_copy(flat[0] + off, c[dim],
-                                             strides[dim], n, side, False)
-                        copies.append((rank, src, rank, dst))
-        phases.append(copies)
-    return phases
+def _kernel_pairs(plan, geom, table):
+    """The exchange as the kernel applies it (rma_iterate.cu: the opening
+    exchange, and each tile's pairs after its level k): the pairs of the
+    device table at the geometry's offsets, each (destination rank,
+    offset, source rank, offset) in a padded block, the kernel's flat
+    ``rank * nbuf * block + offset`` indices decoded."""
+    per_rank = int(geom[1]) * int(np.prod(plan.block_shape))
+    npairs, start = int(geom[27]), int(geom[30])
+    pairs = table[start:start + 3 * npairs].reshape(-1, 3)
+    d_rank, d_off = np.divmod(pairs[:, 0], per_rank)
+    s_rank, s_off = np.divmod(pairs[:, 1], per_rank)
+    return sorted(zip(d_rank.tolist(), d_off.tolist(), s_rank.tolist(),
+                      s_off.tolist()))
 
 
 @pytest.mark.parametrize("case", GEOMETRY, ids=_ids)
 def test_kernel_geometry_gives_the_plain_versions_copies(case):
     """The kernel's geometry (``_geometry``) and device table
-    (``device_table``), walked as the kernel walks them, give each phase's
-    copies of :func:`phase_copies` cell for cell: the same sources, the
-    same destinations, the mirrors' flip included."""
+    (``device_table``), read as the kernel reads them, give the copies of
+    :func:`phase_copies` cell for cell: each phase walked in order on the
+    cells' own labels (the mirrors' flip included, corners riding through
+    earlier phases), every cell the phases write paired with the cell
+    whose value it ends up holding."""
     _, plans = _plans(*case)
     for plan in plans:
         geom = _geometry(plan, 1, 0)
         table = device_table(plan, torch.device("cpu")).numpy()
-        lead = 3 - len(plan.local_shape)
-        pshape = (1,) * lead + plan.block_shape
-        idx = np.arange(int(np.prod(pshape))).reshape(plan.block_shape)
-        want = []
+        block = int(np.prod(plan.block_shape))
+        label = np.arange(plan.ranks * block).reshape(
+            (plan.ranks,) + plan.block_shape)
+        written = np.zeros(label.shape, bool)
         for phase in phase_copies(plan):
-            pairs = []
+            new = label.copy()
             for cp in phase:
-                src = torch.from_numpy(idx[cp.src])
+                src = torch.from_numpy(label[(cp.src_rank,) + cp.src])
                 if cp.flip is not None:
                     src = torch.flip(src, (cp.flip,))
-                dst = idx[cp.dst]
-                pairs += zip([cp.src_rank] * dst.size,
-                             src.numpy().reshape(-1).tolist(),
-                             [cp.dst_rank] * dst.size,
-                             dst.reshape(-1).tolist())
-            want.append(sorted(pairs))
-        got = [sorted(p) for p in _emulate_kernel(plan, geom, table)]
-        assert got == want
+                new[(cp.dst_rank,) + cp.dst] = src.numpy()
+                written[(cp.dst_rank,) + cp.dst] = True
+            label = new
+        d_rank, d_off = np.divmod(np.nonzero(written.reshape(-1))[0], block)
+        s_rank, s_off = np.divmod(label.reshape(-1)[written.reshape(-1)],
+                                  block)
+        keep = (d_rank * block + d_off) != (s_rank * block + s_off)
+        want = sorted(zip(d_rank[keep].tolist(), d_off[keep].tolist(),
+                          s_rank[keep].tolist(), s_off[keep].tolist()))
+        assert _kernel_pairs(plan, geom, table) == want
 
 
 def test_ring_neighbours():
@@ -633,7 +589,12 @@ def test_the_refresh_is_d1_of_a_3d_grid_on_a_1d_mesh_only():
     plan = make_rma_plan(j7, (6, 6, 5), "float32", (2,), 2,
                          bc=_bc(tgrid, 3, (0, 1), ()))
     assert plan.refresh_dim == 1
-    assert _geometry(plan, 1, 0)[9] == REFRESH_WRAP
+    # the refresh wraps: a lo ghost row of d1 takes the last interior row
+    dst, src = ghost_map(plan)
+    h, (p0, p1, p2) = plan.layout.halo, plan.block_shape
+    cell = (h * p1 + h - 1) * p2 + h
+    assert dict(zip(dst.tolist(), src.tolist()))[cell] == \
+        (h * p1 + h + 5) * p2 + h
     for sizes, per in (((2, 2), (0, 1)), ((2,), (0,))):
         assert make_rma_plan(j7, (6, 6, 5), "float32", sizes, 1,
                              bc=_bc(tgrid, 3, per, ())).refresh_dim is None
