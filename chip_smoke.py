@@ -11,8 +11,9 @@ Phases, each ending in a line of its own:
 2. build: compiles the CUDA kernels (``csrc/tiled_sweep.cu``, the 3D
    kernel's window schedule, six modes and tile subsets;
    ``csrc/tiled_march.cu``, its d0 march, the homogeneous and source modes
-   with pins, bf16 and subsets, the two-level mode with pins and bf16 and
-   the coefficient mode with pins and subsets; ``csrc/coeff_weights.cu``,
+   with pins, bf16 and subsets, the two-level mode with pins and bf16, the
+   Chebyshev and dual modes with bf16 and subsets and the coefficient mode
+   with pins and subsets; ``csrc/coeff_weights.cu``,
    the coefficient mode's weights; ``csrc/slab_sweep.cu``, the 2D
    kernel's window schedule; ``csrc/slab_march.cu``, its d0 march, every
    mode of the window;
@@ -35,9 +36,12 @@ Phases, each ending in a line of its own:
    of its Poisson paths' own shape, spec, k, tiles, walls and source (one
    launch, and the runner over 19 sweeps); the Chebyshev mode at nu = 2
    and 4 and the dual mode for weighted Jacobi nu1 = 2 and Chebyshev
-   nu1 = 4, at 255³ and ragged, with both dual outputs compared; every
-   fine-level operation of the three solver paths of phase 4 at that
-   path's own plan (shape, tiles, coefficients) and right-hand side; the
+   nu1 = 4 (k = 2 .. 5), at 255³ and ragged, each launch on the march and
+   on the window, both bitwise their plain version and each other, with
+   both dual outputs compared; every fine-level operation of the three
+   solver paths of phase 4 at that path's own plan (shape, tiles,
+   coefficients) and right-hand side (the Chebyshev and dual ones on both
+   schedules); the
    two-level mode on the march at cfg9's plan (wave 256³ k=8), at k=1 and
    ragged k=3 and k=8, both outputs, each launch bitwise its plain version
    and the window's launch, and ``WaveEquation.simulate(method="tiled")`` with a
@@ -65,7 +69,8 @@ Phases, each ending in a line of its own:
    (fp32 subnormals, signed zeros); its source mode at the bf16 Poisson
    path's plan (one launch and the runner) and ragged near 0; its
    Chebyshev and dual modes at 255³, ragged and the bf16 multigrid path's
-   63³; its two-level mode on the march at cfg9's plan, ragged k=1 and
+   63³, on both schedules; its two-level mode on the march at cfg9's
+   plan, ragged k=1 and
    ragged k=3 near 0 (also against the window), with periodic 0 + Neumann
    1 at cfg9's plan, ragged k=3 near 0 and ragged k=8; its pins
    (periodic, Neumann, mixed, radius 2) and those of its source mode; the 2D
@@ -79,8 +84,9 @@ Phases, each ending in a line of its own:
    live) or a dynamic-wall path's: homogeneous and source, fp32 and bf16,
    at the local blocks of the phase-4 sharded paths (256³ over (2, 2)) and
    of phase 5 (1024³ over (2, 2)), their remainder depth, ragged, radius
-   2 and ``jacobi27``; the Chebyshev and dual modes once each, the
-   coefficient mode on the march (through its weights) and on the window;
+   2 and ``jacobi27``; the Chebyshev and dual modes on both schedules in
+   fp32 and bf16, the coefficient mode on the march (through its weights)
+   and on the window;
    then B3 (``rma_iterate``, the in-kernel exchange): one launch of
    ``iters // k`` outer steps and one of the remainder on every rank's
    buffers, both slots bitwise the plain version's (the kernel runs the
@@ -121,7 +127,11 @@ Phases, each ending in a line of its own:
    tiled fine level (``--solver fmg --fine-method pallas_tiled``), each
    converged and within 3 h² of the exact solution (4 h² for the
    weighted-Jacobi tiled cycle, whose fp32 floor is ~3.3 h² at 255³; see
-   ``SOLVE_PATHS``), the float64 certificate printed; the
+   ``SOLVE_PATHS``), the float64 certificate printed, and cfg17's
+   Chebyshev V(4,4) cycles at 255³ (their update norm falling), each
+   fine-level launch counted in the row of its plan's schedule
+   (``tiled_march+cheby``, ``tiled_march+dual``: the march from k=2 on)
+   and every one of the path's rows launched; the
    wave at 256³ (16 steps on ``tiled`` k=8 against ``eager``, every launch
    a march two-level one) and at 64³
    (against the float64 golden loop and the analytic standing mode);
@@ -150,7 +160,8 @@ Phases, each ending in a line of its own:
    runner in bf16 at 256³ (Dirichlet; periodic 0 with Neumann 1) and
    4096² against the float64 golden within 0.15, the multigrid fine level
    in bf16 (Chebyshev V(2,2) at 63³, the card against the CPU's plain
-   versions), the wave in bf16 at 256³ (Dirichlet and periodic 0 with
+   versions, its two launches on their plans' schedule), the wave in
+   bf16 at 256³ (Dirichlet and periodic 0 with
    Neumann 1, tiled against eager), and the 3D CLI with ``--periodic 0
    1`` and cfg1 with ``--periodic 0`` in bf16; then the sharded paths on
    a (2, 2) mesh whose four ranks share the card, every launch of each an
@@ -183,9 +194,12 @@ Phases, each ending in a line of its own:
    ms per decade of cfg10 (weighted Jacobi V(4,4), tiled fine level), cfg11
    (Chebyshev V(2,2), eager fine level), cfg17 (Chebyshev V(4,4), tiled
    fine level) and weighted Jacobi V(2,2) on both fine levels, at 255³ with
-   a seeded random f; cfg13 (PCG, Chebyshev multigrid on the tiled fine
-   level, 255³, random f, tol 1e-4, at most 50 iterations) as time to
-   solution and iterations; the error floor of the multigrid cycles at
+   a seeded random f, each tiled one again with every fine plan on the
+   window (:func:`on_window`; the same contraction required), each with
+   the device's busy ms per cycle; cfg13 (PCG, Chebyshev multigrid on the
+   tiled fine level, 255³, random f, tol 1e-4, at most 50 iterations) as
+   time to solution and iterations, also on the window (the same
+   iterations required); the error floor of the multigrid cycles at
    255³ (manufactured sine, error against the exact solution per cycle)
    in fp32 on both fine levels and in fp64 on the eager one; cfg9 (the
    wave at 256³, leapfrog steps per second) on ``tiled`` k=8, on the march
@@ -201,7 +215,9 @@ Phases, each ending in a line of its own:
    per step; none for the coefficient mode, whose weights are per point:
    the eager field sweep is printed beside it) and against the bound the
    card's peaks give, at a main path's shape (the source modes at the
-   Poisson golden checks', the Chebyshev and dual modes at the PCG path's,
+   Poisson golden checks', the Chebyshev and dual modes at the PCG path's
+   (cfg13's two launches) and at cfg10's and cfg17's (k = 4, 5), each on
+   the march and on the window in turns,
    the two-level mode at cfg9's beside the window's launch, the
    coefficient mode at cfg16's beside
    the window's launch, the weights kernel at cfg16's padded grid, and the
@@ -240,7 +256,8 @@ Phases, each ending in a line of its own:
 
 The march replaces the window schedule in the homogeneous and source
 modes, with pins, bf16 and subsets, in the two-level mode with pins and
-bf16, and in the coefficient mode with pins: their rows are
+bf16, in the Chebyshev and dual modes with bf16, and in the coefficient
+mode with pins: their rows are
 ``tiled_march...``, each with ``window_ms``, the
 window schedule's time for the same launch (its own chooser's tiles; a
 subset row the window's interior + edge pair; the coefficient rows the
@@ -254,20 +271,24 @@ phase-4 path runs them).
 Each kernel's ``launches`` in the kernel record sums the phase-4 runs of
 that mode (a bf16 mode, name ending ``+bf16``, its bf16 runs); its
 ``max_abs_err`` is the largest of its phase-3 cases. Its ``bound_ms`` is
-the larger of the bytes the launch must move (the padded input and source
-read once, each output's interior written once, at the plan's 4 or 2
-bytes per value) over 3.35 TB/s and its floating-point operations (every
+the larger of the bytes the launch must move (each operand read once
+where the function needs it: the input over the interior and, at a
+pinned face, the wall layer its taps read, at a live face the k*r ghosts
+the launch updates; a source at the points it is added to; each output's
+interior written once; at the plan's 4 or 2 bytes per value) over 3.35
+TB/s and its floating-point operations (every
 sweep's update of every interior point; in the coefficient mode, which
 a(x) fixes, the weights once per point and launch, ``COEFF_WEIGHT_OPS``,
 and ``COEFF_SWEEP_OPS`` per update) over 67 TFLOP/s in fp32 and 989
 TFLOP/s in bf16, the H100 SXM's published peaks; ``bound_by`` names the
 larger.
-The two-level mode reads two padded levels and writes two interiors, the
-coefficient mode reads the padded u and a(x) and writes one interior. A
+The two-level mode reads its input level so and the older level at the
+points it updates, and writes two interiors; the coefficient mode reads
+u and a(x) where the taps need them and writes one interior. A
 subset mode's ``ms`` is one interior launch plus one edge launch, its
 ``plain_ms`` their plain versions', its ``bound_ms`` the two launches'
-bounds summed, each the input cells its windows cover read once and its
-columns written once (the full launch's bound is printed beside), its
+bounds summed, each the input cells its columns' points need read once
+and its columns written once (the full launch's bound is printed beside), its
 ``library_ms`` one conv3d sweep over the block. The ``rma_iterate`` row is
 one launch of 32 outer steps of the bench cell on (1,): its bound reads
 the grid with its radius-deep ghosts once and writes the interior once,
@@ -287,9 +308,11 @@ so does a host without a CUDA device, or a directory without the package.
 """
 
 import concurrent.futures
+import contextlib
 import functools
 import itertools
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -364,7 +387,10 @@ ADVECT_ITERS = 32
 TRANSLATE_VELOCITIES = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0))
 TRANSLATE_STEPS = 40
 FLOOR_CYCLES = 12            # cycles of the phase-5 floor measurement
+CFG17_CYCLES = 4             # cfg17's phase-4 path
 CYCLE_REPEATS = 10           # V-cycles per timed run
+CYCLE_RUNS = 5               # timed runs per --cycles case
+BUSY_CYCLES = 2              # V-cycles per profiler trace of phase 5
 CONTRACTION_CYCLES = 6
 # bfloat16 (phase 3: every mode but coeff bitwise; phase 4: cfg3,
 # bench.py:80-81, and cfg4-bf16, :91-92, with cfg1, cfg8 and the other bf16
@@ -478,13 +504,13 @@ PEAK_BF16_PER_S = 989e12
 
 # the kernel record's modes: every fp32 mode, then each bf16 one
 KERNEL_MODES = (
-    "tiled_march", "tiled_march+source", "tiled_sweep+cheby",
-    "tiled_sweep+dual", "tiled_march+two_level", "tiled_march+coeff",
+    "tiled_march", "tiled_march+source", "tiled_march+cheby",
+    "tiled_march+dual", "tiled_march+two_level", "tiled_march+coeff",
     "coeff_weights", "tiled_march+pins", "tiled_march+source+pins",
     "tiled_march+two_level+pins", "tiled_march+coeff+pins", "slab_sweep",
     "slab_sweep+source", "slab_sweep+pins", "slab_sweep+source+pins",
-    "tiled_march+bf16", "tiled_march+source+bf16", "tiled_sweep+cheby+bf16",
-    "tiled_sweep+dual+bf16", "tiled_march+two_level+bf16",
+    "tiled_march+bf16", "tiled_march+source+bf16", "tiled_march+cheby+bf16",
+    "tiled_march+dual+bf16", "tiled_march+two_level+bf16",
     "tiled_march+pins+bf16", "tiled_march+source+pins+bf16",
     "tiled_march+two_level+pins+bf16", "slab_sweep+bf16",
     "slab_sweep+source+bf16", "slab_sweep+pins+bf16",
@@ -843,13 +869,22 @@ def compare_poisson(prob, f, kernel, make_plan, rng, device):
                                 f"iterations", got, want, exact))
 
 
-def cheby_plan(shape, coeffs, dual=False, dtype="float32"):
+def cheby_plan(shape, coeffs, dual=False, dtype="float32", schedule=None,
+               tiles=None):
     from stencil_tpu_torch.multigrid import nbsum_spec
     from stencil_tpu_torch.ops.tiled import make_tiled_plan
 
     return make_tiled_plan(nbsum_spec(3), shape, dtype, len(coeffs),
                            has_source=True, cheby_coeffs=coeffs,
-                           cheby_dual=dual)
+                           cheby_dual=dual, schedule=schedule, tiles=tiles)
+
+
+def cheby_row(plan):
+    """The kernel record's row of a Chebyshev or dual launch of ``plan``:
+    ``tiled_march+...`` on the march, ``tiled_sweep+...`` on the window."""
+    return (("tiled_march" if plan.schedule == "march" else "tiled_sweep")
+            + ("+dual" if plan.cheby_dual else "+cheby")
+            + ("+bf16" if plan.dtype == "bfloat16" else ""))
 
 
 def mg_coeffs(shape, nu, smoother, dual):
@@ -868,44 +903,75 @@ def mg_coeffs(shape, nu, smoother, dual):
     return co
 
 
-def compare_plan(kernel, plan, grid, src, label):
-    """One launch of ``plan`` (any mode; both outputs of a dual plan)
-    against the plain version; returns the max abs difference (bf16:
-    bitwise required)."""
+def compare_plan(kernel, plan, grid, src, mode, label):
+    """One launch of ``plan`` (row ``mode``) against the plain version
+    (bf16: bitwise required); a Chebyshev or dual plan on both schedules
+    (:func:`compare_schedules`), both outputs of a dual plan compared.
+    Returns {row: max abs difference}."""
     from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
 
-    exact = plan.dtype == "bfloat16"
     cur = plan.layout.pad_grid(grid)
-    if plan.cheby_dual:
-        got = kernel(cur, cur.clone(), plan, src, out2=cur.clone())
-        want = sweep_reference(cur, plan, src)
-        return max(check_equal(f"{label}, residual output", got[0], want[0],
-                               exact),
-                   check_equal(f"{label}, smoothed output", got[1], want[1],
-                               exact))
-    return check_equal(label, kernel(cur, cur.clone(), plan, src),
-                       sweep_reference(cur, plan, src), exact)
+    if plan.cheby_coeffs:
+        return compare_schedules(kernel, plan, cur, src, label)
+    return {mode: check_equal(f"{mode} {label}",
+                              kernel(cur, cur.clone(), plan, src),
+                              sweep_reference(cur, plan, src),
+                              plan.dtype == "bfloat16")}
+
+
+def compare_schedules(kernel, plan, cur, src, label):
+    """One Chebyshev or dual launch of ``plan`` on the march and on the
+    window (``window_twin``, or the march's twin of a window plan), each
+    bitwise its plain version on every output and the two bitwise each
+    other. Returns {row: max abs difference} for the two rows
+    (:func:`cheby_row`)."""
+    import torch
+
+    from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
+
+    other = "window" if plan.schedule == "march" else "march"
+    twin = cheby_plan(plan.interior_shape, plan.cheby_coeffs,
+                      plan.cheby_dual, plan.dtype, other)
+    require(twin.layout == plan.layout, f"{label}: layouts differ")
+    want = sweep_reference(cur, plan, src)
+    want = list(want) if plan.cheby_dual else [want]
+    outs = {}
+    for p in (plan, twin):
+        got = kernel(cur, cur.clone(), p, src,
+                     out2=cur.clone() if p.cheby_dual else None)
+        outs[cheby_row(p)] = (p, list(got) if p.cheby_dual else [got])
+    (_, a), (_, b) = outs.values()
+    torch.cuda.synchronize()
+    require(all(torch.equal(x, y) for x, y in zip(a, b)),
+            f"{label}: the march's launch is not bitwise the window's")
+    return {row: max(check_equal(
+        f"{row} {label}, {p.schedule} tiles {p.tiles}, {name}", g, w, True)
+        for name, g, w in zip(("residual output", "smoothed output")
+                              if p.cheby_dual else ("output",), got, want))
+        for row, (p, got) in outs.items()}
 
 
 def compare_cheby(kernel, shape, nu, smoother, dual, rng, device,
                   dtype="float32"):
-    """The Chebyshev (or dual) mode at ``shape`` in ``dtype`` against its
-    plain version, random u (reference walls) and a random f."""
+    """The Chebyshev (or dual) mode at ``shape`` in ``dtype``, random u
+    (reference walls) and a random f, on the march and on the window, each
+    bitwise its plain version and the other (:func:`compare_schedules`).
+    Returns {row: max abs difference}."""
     from stencil_tpu_torch.ops.layout import pad_source
 
     plan = cheby_plan(shape, mg_coeffs(shape, nu, smoother, dual), dual,
-                      dtype)
+                      dtype, "march")
     grid = random_grid(shape, 1, rng, device, dtype=dtype)
     src = pad_source(plan, rng.normal(size=shape), 1.0, grid.bc).to(device)
-    return compare_plan(kernel, plan, grid, src,
-                        f"{kernel.name}+{'dual' if dual else 'cheby'} "
-                        f"{smoother} nu={nu} {shape} k={plan.sweeps_per_call}"
-                        f" tiles {plan.tiles} {dtype}")
+    return compare_schedules(kernel, plan, plan.layout.pad_grid(grid), src,
+                             f"{smoother} nu={nu} {shape} k="
+                             f"{plan.sweeps_per_call} {dtype}")
 
 
 def compare_cheby_iterate(shape, k, iters, rng, device):
     """The Chebyshev iterate (iters // k launches and a remainder launch of
-    the first coefficients) against the plain version's launches."""
+    the first coefficients, on the plan's schedule) against the plain
+    version's launches."""
     from stencil_tpu_torch.multigrid import nbsum_spec
     from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
     from stencil_tpu_torch.ops.tiled import TiledStencil
@@ -922,8 +988,9 @@ def compare_cheby_iterate(shape, k, iters, rng, device):
         cur = sweep_reference(cur, plan, src)
     if iters % k:
         cur = sweep_reference(cur, plan.with_sweeps(iters % k), src)
-    return check_equal(f"TiledStencil+cheby {shape} k={k}, {iters} "
-                       f"iterations", got, plan.layout.unpad(cur))
+    return {cheby_row(plan): check_equal(
+        f"TiledStencil+cheby {shape} k={k} {plan.schedule}, {iters} "
+        f"iterations", got, plan.layout.unpad(cur), True)}
 
 
 def solve_path(args):
@@ -942,11 +1009,11 @@ def solve_path(args):
             f"solver path {args} does not run the tiled fine level: {plan}")
     pre, res, post, fused = mg._fine_ops()
     require(fused is not None and mg.nu2 > 0, f"{args}: no fused level")
-    post_mode = ("tiled_sweep+cheby" if post.plan.cheby_coeffs
+    post_mode = (cheby_row(post.plan) if post.plan.cheby_coeffs
                  else "tiled_march+source")
     require(post.plan.cheby_coeffs or post.plan.schedule == "march",
             f"{args}: the source smoother takes a {post.plan.schedule} plan")
-    return prob, f, mg, (("tiled_sweep+dual", fused), (post_mode, post))
+    return prob, f, mg, ((cheby_row(fused.plan), fused), (post_mode, post))
 
 
 def run_solve_cli(cli, kernel, name, args, bar_h2, label):
@@ -960,9 +1027,7 @@ def run_solve_cli(cli, kernel, name, args, bar_h2, label):
         rc = cli.main([*args, "-c", "--device", DEVICE, "--json-out",
                        str(out)])
         seconds = time.perf_counter() - t0
-        counts = {"tiled_march+source": kernel.march_source_launches,
-                  "tiled_sweep+cheby": kernel.cheby_launches,
-                  "tiled_sweep+dual": kernel.dual_launches}
+        counts = cheby_counts(kernel)
         rec = json.loads(out.read_text().splitlines()[0])
     n = int(args[args.index("-s") + 1])
     bar = bar_h2 / (n + 1) ** 2
@@ -982,6 +1047,71 @@ def run_solve_cli(cli, kernel, name, args, bar_h2, label):
     require(np.isfinite(err) and err < bar,
             f"solver path {name}: error {err} >= {bar}")
     return rec, counts
+
+
+def cheby_counts(kernel, bf16=False):
+    """The launches of a multigrid path by row: the source mode's on the
+    march, the Chebyshev and dual modes' on each schedule (``bf16``: the
+    bf16 rows, counted in the bf16 counts)."""
+    suffix, b = ("+bf16", "_bf16") if bf16 else ("", "")
+    march_cheby = getattr(kernel, f"march_cheby{b}_launches")
+    march_dual = getattr(kernel, f"march_dual{b}_launches")
+    return {"tiled_march+source" + suffix: kernel.march_source_launches,
+            "tiled_march+cheby" + suffix: march_cheby,
+            "tiled_march+dual" + suffix: march_dual,
+            "tiled_sweep+cheby" + suffix:
+                kernel.cheby_launches - kernel.march_cheby_launches,
+            "tiled_sweep+dual" + suffix:
+                kernel.dual_launches - kernel.march_dual_launches}
+
+
+def cfg17_multigrid():
+    """cfg17's multigrid (Chebyshev V(4,4), tiled fine level) at
+    MG_SIZE."""
+    from stencil_tpu_torch.models.poisson import PoissonProblem
+    from stencil_tpu_torch.multigrid import Multigrid
+
+    return Multigrid(PoissonProblem(shape=MG_SIZE, device=DEVICE), nu1=4,
+                     nu2=4, smoother="chebyshev", fine_method="pallas_tiled")
+
+
+def cheby_rows(run, bf16=False):
+    """The rows of a Chebyshev multigrid runner's two fine-level launches
+    (the smoother's and the fused launch's), their plans' schedules."""
+    s = run.plan_info["fine_schedules"]
+    return tuple(("tiled_march" if s[op] == "march" else "tiled_sweep")
+                 + mode + ("+bf16" if bf16 else "")
+                 for op, mode in (("pre", "+cheby"), ("fused", "+dual")))
+
+
+def run_cfg17(kernel, label):
+    """cfg17's path: CFG17_CYCLES V-cycles of Chebyshev V(4,4) on the tiled
+    fine level at MG_SIZE from u = 0 (bench.py's seeded random f), the
+    counts set to 0 just before and read just after; the update norm must
+    fall. Returns its launches by row (:func:`cheby_counts`)."""
+    import torch
+
+    mg = cfg17_multigrid()
+    f = np.random.default_rng(MG_SEED).normal(size=MG_SIZE).astype(
+        np.float32)
+    run, g = mg.runner(f), mg.problem.initial_grid()
+    kernel.reset_counts()
+    norms = []
+    for _ in range(CFG17_CYCLES):
+        nxt = run.iterate(g, 1)
+        norms.append(float((nxt.data - g.data).abs().max()))
+        g = nxt
+    torch.cuda.synchronize()
+    counts = cheby_counts(kernel)
+    print(f"cfg17 path: chebyshev V(4,4) tiled fine level {MG_SIZE}, "
+          f"{CFG17_CYCLES} cycles, update norms "
+          f"{[f'{u:.3e}' for u in norms]}; fine schedules "
+          f"{run.plan_info['fine_schedules']}; launches {counts} [{label}]")
+    require(all(np.isfinite(norms)) and norms[-1] < norms[0],
+            f"cfg17: update norms {norms}")
+    require(all(counts[m] > 0 for m in cheby_rows(run)),
+            f"cfg17: launches {counts}")
+    return counts
 
 
 def wave_plan(shape, k, dtype="float32", schedule=None):
@@ -1323,9 +1453,10 @@ def run_mg_bf16(kernel, label):
         out[device] = run.iterate(prob.initial_grid(), BF16_MG_CYCLES)
         if device == DEVICE:
             torch.cuda.synchronize()
-            counts = {"tiled_sweep+cheby+bf16": kernel.cheby_launches,
-                      "tiled_sweep+dual+bf16": kernel.dual_launches}
-            require(all(counts.values())
+            counts = {m: n for m, n in cheby_counts(kernel, True).items()
+                      if "source" not in m}
+            rows = cheby_rows(run, True)
+            require(all(counts[m] > 0 for m in rows)
                     and kernel.bf16_launches == kernel.launches
                     and sum(counts.values()) == kernel.launches,
                     f"multigrid bf16: launches {counts}, "
@@ -1492,13 +1623,28 @@ def run_hetero_cli(cli, kernel, label):
     return counts["pallas"], weights["pallas"]
 
 
+def on_window():
+    """A context in which ``make_tiled_plan`` gives the window schedule
+    wherever its caller asks for none: a multigrid's fine-level plans, made
+    inside it, take the window, the comparison the plan rule's cycles are
+    held to (the two schedules compute them bitwise)."""
+    from unittest import mock
+
+    from stencil_tpu_torch.ops import tiled
+
+    return mock.patch.object(tiled, "make_tiled_plan", functools.partial(
+        tiled.make_tiled_plan, schedule="window"))
+
+
 def time_cycles(mg, f, device):
     """(ms per V-cycle, contraction per cycle, ms per decade) of ``mg`` on
     ``f``: the median over 3 runs of CYCLE_REPEATS cycles, after one
     warm-up; the contraction is the geometric mean of the ratios of
     successive update norms max |u_{n+1} - u_n| over cycles 2..
     CONTRACTION_CYCLES from u = 0 (the asymptotic error contraction; the
-    fp32 residual certificate floors too early at 255^3 to read it)."""
+    fp32 residual certificate floors too early at 255^3 to read it), and
+    the device's busy ms per cycle in a profiler trace of BUSY_CYCLES
+    cycles."""
     import torch
 
     from stencil_tpu_torch.utils.timing import timed
@@ -1509,6 +1655,8 @@ def time_cycles(mg, f, device):
     runs = sorted(timed(lambda: runner.iterate(g0, CYCLE_REPEATS), device)
                   for _ in range(3))
     ms = runs[1] / CYCLE_REPEATS * 1e3
+    _, busy, _ = device_busy(lambda: runner.iterate(g0, BUSY_CYCLES),
+                             device)
     g, upd, res = g0, [], []
     for _ in range(CONTRACTION_CYCLES):
         nxt = runner.iterate(g, 1)
@@ -1519,16 +1667,46 @@ def time_cycles(mg, f, device):
     rho = float(np.prod(ratios)) ** (1.0 / len(ratios))
     decade = ms / -np.log10(rho) if 0 < rho < 1 else float("inf")
     torch.cuda.synchronize()
-    return ms, rho, decade, upd, res
+    return ms, rho, decade, upd, res, busy / BUSY_CYCLES
 
 
-def bound(plan, src, dual):
-    """(bound ms, 'bytes' or 'operations') of one launch of ``plan``, its
-    values ``plan.itemsize`` bytes each."""
+def needed_cells(plan, pins=None, pinned=None, live=None):
+    """The cells of one of ``plan``'s padded operands that a launch's
+    function needs: the interior widened on each face by ``pinned`` cells
+    where the face is pinned and by ``live`` where it is live (``pins``,
+    default every face pinned; the last dim's faces always pinned). The
+    defaults are the input's: the wall layer the taps read (the radius) at
+    a pinned face, the launch's ghosts (the halo k*r) at a live one."""
+    r, h = plan.spec.radius, plan.layout.halo
+    pinned = r if pinned is None else pinned
+    live = h if live is None else live
+    nd = len(plan.interior_shape)
+    pins = (1,) * (2 * (nd - 1)) if pins is None else tuple(pins)
+    cells = 1
+    for d, n in enumerate(plan.interior_shape):
+        ends = (pins[2 * d], pins[2 * d + 1]) if d < nd - 1 else (1, 1)
+        cells *= n + sum(pinned if p else live for p in ends)
+    return cells
+
+
+def point_cells(plan, pins=None):
+    """The cells of an operand a launch reads only at the points it
+    updates (a source f, the two-level mode's older level): the interior,
+    and at a live face the ghosts its first sweep updates, (k-1)*r."""
+    return needed_cells(plan, pins, 0,
+                        plan.layout.halo - plan.spec.radius)
+
+
+def bound(plan, src, dual, pins=None):
+    """(bound ms, 'bytes' or 'operations') of one launch of ``plan`` with
+    ``pins`` (default every face pinned), its values ``plan.itemsize``
+    bytes each: the input read once where the function needs it
+    (:func:`needed_cells`), a source where it is added
+    (:func:`point_cells`), each output's interior written once."""
     n_int = int(np.prod(plan.interior_shape))
-    n_pad = int(np.prod(plan.layout.padded_shape))
-    nbytes = plan.itemsize * (n_pad + n_int
-                              + (n_pad if src is not None else 0)
+    nbytes = plan.itemsize * (needed_cells(plan, pins) + n_int
+                              + (point_cells(plan, pins)
+                                 if src is not None else 0)
                               + (n_int if dual else 0))
     per_point = plan.spec.flops_per_point
     k = plan.sweeps_per_call
@@ -1550,6 +1728,19 @@ def bound_of(nbytes, ops, dtype="float32"):
                    else PEAK_FP32_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def wave_bound(plan, pins=None):
+    """(bound ms, 'bytes' or 'operations') of one two-level launch: the
+    input level read where the taps need it, the older one at the points
+    of the first sweep, both outputs' interiors written; per update the
+    taps and the subtraction."""
+    n_int = int(np.prod(plan.interior_shape))
+    return bound_of(
+        plan.itemsize * (needed_cells(plan, pins) + point_cells(plan, pins)
+                         + 2 * n_int),
+        n_int * plan.sweeps_per_call * (plan.spec.flops_per_point + 1),
+        plan.dtype)
 
 
 # fp32 operations of the coefficient mode. The function needs the weights
@@ -1676,15 +1867,19 @@ def library_sweep(plan, cur, src, bc=None):
     return call, check
 
 
-def window_twin(plan):
-    """The window schedule's plan of the same launch as the march ``plan``
-    (its own chooser's tiles, the same padded layout)."""
+def window_twin(plan, schedule="window"):
+    """The window schedule's plan (or ``schedule``'s) of the same launch
+    as the march ``plan`` (its own chooser's tiles, the same padded
+    layout)."""
     from stencil_tpu_torch.ops.tiled import make_tiled_plan
 
     twin = make_tiled_plan(plan.spec, plan.interior_shape, plan.dtype,
-                           plan.sweeps_per_call, schedule="window",
+                           plan.sweeps_per_call, schedule=schedule,
                            coeff_scales=plan.coeff_scales or None,
-                           two_level=plan.two_level)
+                           two_level=plan.two_level,
+                           has_source=bool(plan.cheby_coeffs),
+                           cheby_coeffs=plan.cheby_coeffs or None,
+                           cheby_dual=plan.cheby_dual)
     require(twin.layout == plan.layout, f"{plan.tiles}: layouts differ")
     return twin
 
@@ -1907,25 +2102,40 @@ def compare_subset(kernel, plan, cur, pins, mode, src=None, coeff=None,
     return diff
 
 
-def subset_bound(plan, subset, src):
-    """(bound ms, 'bytes' or 'operations') of one subset launch: the padded
-    input cells its windows cover read once (the source's, or a
-    coefficient plan's a(x), too), its columns' points written once, k
-    sweeps of updates on those points (a coefficient plan's weights once
-    per point, ``coeff_ops``)."""
+def subset_bound(plan, subset, src, pins):
+    """(bound ms, 'bytes' or 'operations') of one subset launch with
+    ``pins``: the input cells the function of its columns' points needs
+    read once (those within k*r of the columns, at a pinned face only the
+    wall layer, in d2 the interior and its wall layers; a coefficient
+    plan's a(x) the same cells), a source within (k-1)*r of the columns
+    (at a pinned face the interior only), its columns' points written
+    once, k sweeps of updates on those points (a coefficient plan's
+    weights once per point, ``coeff_ops``)."""
     from stencil_tpu_torch.ops.sweep_kernel import column_boxes
 
-    kr = plan.halo
+    kr, r = plan.halo, plan.spec.radius
+    h = plan.layout.halo
     p0, p1, _ = plan.layout.padded_shape
-    n2 = plan.interior_shape[2]
-    cover = np.zeros((p0, p1), bool)
-    tiles = np.zeros((p0, p1), bool)
-    for b0, b1, _ in column_boxes(plan, subset):
-        tiles[b0, b1] = True
-        cover[b0.start - kr:b0.stop + kr, b1.start - kr:b1.stop + kr] = True
-    written = int(tiles.sum()) * n2
-    two = src is not None or plan.has_coeff
-    read = int(cover.sum()) * (n2 + 2 * kr) * (2 if two else 1)
+    n0, n1, n2 = plan.interior_shape
+    pins = (1,) * 4 if pins is None else tuple(pins)
+
+    def cover(reach, wall):
+        """The (d0, d1) cells within ``reach`` of the columns, cut at a
+        pinned face ``wall`` cells past the interior."""
+        m = np.zeros((p0, p1), bool)
+        for b0, b1, _ in column_boxes(plan, subset):
+            m[b0.start - reach:b0.stop + reach,
+              b1.start - reach:b1.stop + reach] = True
+        lo0, hi0 = (h - wall if pins[0] else 0,
+                    h + n0 + wall if pins[1] else p0)
+        lo1, hi1 = (h - wall if pins[2] else 0,
+                    h + n1 + wall if pins[3] else p1)
+        return int(m[lo0:hi0, lo1:hi1].sum())
+
+    written = cover(0, 0) * n2
+    read = cover(kr, r) * (n2 + 2 * r) * (2 if plan.has_coeff else 1)
+    if src is not None:
+        read += cover(kr - r, 0) * n2
     ops = coeff_ops(written, plan.sweeps_per_call) if plan.has_coeff else \
         written * plan.sweeps_per_call * (
             plan.spec.flops_per_point + (1 if src is not None else 0))
@@ -1951,7 +2161,8 @@ def subset_times(kernel, plan, cur, pins, src, reps, coeff=None):
     plain = time_call(lambda: [subset_reference(cur, nxt, plan, s, src,
                                                 coeff, pins)
                                for s in (interior, edge)], DEVICE, 2)
-    b_int, b_edge = (subset_bound(plan, s, src) for s in (interior, edge))
+    b_int, b_edge = (subset_bound(plan, s, src, pins)
+                     for s in (interior, edge))
     by = "bytes" if "bytes" in (b_int[1], b_edge[1]) else "operations"
     return dict(interior=t_int, edge=t_edge, full=t_full, plain=plain,
                 bound=b_int[0] + b_edge[0], by=by,
@@ -2191,7 +2402,7 @@ def time_sharded(kernel, label):
                                               2)
             lib, lib_check = library_sweep(plan, cur, None)
             record["library"] = time_call(lib, DEVICE, 3)
-            record["full_bound"] = bound(plan, None, False)[0]
+            record["full_bound"] = bound(plan, None, False, pins)[0]
             print(f"one interior + one edge launch of tiled_march+subset "
                   f"(rank 0's block {plan.interior_shape} k={k} tiles "
                   f"{plan.tiles}, pins {list(pins)}, "
@@ -2527,6 +2738,116 @@ def device_busy(run, device, kernel_name="", tries=1):
     return wall, busy, span
 
 
+def cycles_main(checkout) -> int:
+    """``python3 chip_smoke.py --cycles CHECKOUT``: cfg10's V-cycle
+    (weighted Jacobi V(4,4), the tiled fine level, MG_SIZE, bench.py's
+    seeded f) on the package of CHECKOUT, which may be another commit's
+    (unpacked with ``git archive``). Run it for two checkouts in turns
+    (parent, change, change, parent, ...) to compare them on one card.
+    Four runs in turns, the plan rule's schedules and every fine plan on
+    the window (:func:`on_window`), each printing ms per V-cycle (the
+    median of CYCLE_RUNS runs of CYCLE_REPEATS cycles, CUDA events), the
+    host's ms per cycle to enqueue them (their median) and, from a
+    profiler trace of CYCLE_REPEATS cycles, per cycle the device's busy
+    ms, the host's CUDA runtime calls and the operators of most host time
+    (self CPU ms and calls); then one launch of each fine-level operation
+    (the mean of 20). The kernels build into CHECKOUT's ``build/``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    root = Path(checkout).resolve()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    if not (root / "stencil_tpu_torch").is_dir():
+        print(f"chip_smoke: no stencil_tpu_torch package in {root}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root))
+    import stencil_tpu_torch
+    from stencil_tpu_torch.models.poisson import PoissonProblem
+    from stencil_tpu_torch.multigrid import Multigrid
+    from stencil_tpu_torch.ops.layout import pad_source
+    from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
+
+    require(Path(stencil_tpu_torch.__file__).resolve().parents[1] == root,
+            f"imported {stencil_tpu_torch.__file__}, not {root}'s package")
+    label = f"{gpu_label()}; checkout {root}"
+    prob = PoissonProblem(shape=MG_SIZE, device=DEVICE)
+    f = torch.from_numpy(np.random.default_rng(MG_SEED).normal(
+        size=MG_SIZE).astype(np.float32)).to(DEVICE)
+    timed_ops = set()
+    for sched in ("rule", "window", "window", "rule"):
+        with on_window() if sched == "window" else contextlib.nullcontext():
+            mg = Multigrid(prob, nu1=4, nu2=4, fine_method="pallas_tiled")
+            run = mg.runner(f)
+            ops = [op for op in mg._fine_ops()[2:] if op is not None]
+        g0 = prob.initial_grid()
+        run.iterate(g0, 1)
+        torch.cuda.synchronize()
+        walls, hosts = [], []
+        for _ in range(CYCLE_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            run.iterate(g0, CYCLE_REPEATS)
+            end.record()
+            hosts.append((time.perf_counter() - t0) * 1e3)
+            end.synchronize()
+            walls.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run.iterate(g0, CYCLE_REPEATS)
+            torch.cuda.synchronize()
+        busy = sum(e.time_range.end - e.time_range.start
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        rows = [(a.key, a.self_cpu_time_total / 1e3 / CYCLE_REPEATS,
+                 a.count / CYCLE_REPEATS) for a in prof.key_averages()
+                if a.self_cpu_time_total > 0]
+        rows.sort(key=lambda row: -row[1])
+        host_ms = sum(ms for _, ms, _ in rows)
+        n_ops = sum(c for n, _, c in rows if not n.startswith("cuda"))
+
+        def listing(picked):
+            return "; ".join(f"{n} {ms:.4f} ms x{c:g}" for n, ms, c in picked)
+
+        calls = listing([row for row in rows
+                         if row[0].startswith("cuda")][:3])
+        top = listing([row for row in rows
+                       if not row[0].startswith("cuda")][:6])
+        where = "the plan rule's schedules" if sched == "rule" else \
+            "every fine plan on the window"
+        print(f"cfg10 wjacobi V(4,4) {MG_SIZE}, tiled fine level, {where}: "
+              f"{statistics.median(walls) / CYCLE_REPEATS:.4f} ms per "
+              f"V-cycle (median of {CYCLE_RUNS} runs of {CYCLE_REPEATS}; "
+              f"runs {[round(w / CYCLE_REPEATS, 3) for w in walls]}), the "
+              f"host {statistics.median(hosts) / CYCLE_REPEATS:.4f} ms per "
+              f"cycle to enqueue it; per cycle in the trace: device busy "
+              f"{busy / 1e3 / CYCLE_REPEATS:.4f} ms, host self CPU "
+              f"{host_ms:.4f} ms in {n_ops:g} operator calls; CUDA calls "
+              f"{calls}; operators {top} [{label}]")
+        sys.stdout.flush()
+        if sched in timed_ops:
+            continue
+        timed_ops.add(sched)
+        parts = []
+        for op in ops:
+            plan = op.plan
+            cur = plan.layout.pad_grid(g0)
+            src = pad_source(plan, f, op.source_scale, prob.bc)
+            nxt = cur.clone()
+            out2 = cur.clone() if plan.cheby_dual else None
+            ms = time_call(lambda: tiled_sweep(cur, nxt, plan, src,
+                                               out2=out2), DEVICE, 20)
+            parts.append(f"{plan.spec.name} k={plan.sweeps_per_call} "
+                         f"{plan.schedule} tiles {plan.tiles} {ms:.4f} ms")
+        print(f"  one launch of each fine-level operation, {where}: "
+              f"{'; '.join(parts)} [{label}]")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2639,18 +2960,26 @@ def main() -> int:
                                            8).schedule, "+source")
         err[mode] = max(err.get(mode, 0.0), compare_poisson(
             prob, f, kernel, make_plan, rng, device))
-    # the Chebyshev and dual modes at 255^3 and ragged, and a remainder run
-    err["tiled_sweep+cheby"] = max(
-        [compare_cheby(tiled, shape, nu, "chebyshev", False, rng, device)
-         for shape in (MG_SIZE, RAGGED_SIZE) for nu in (2, 4)]
-        + [compare_cheby_iterate(RAGGED_SIZE, 4, 11, rng, device)])
-    err["tiled_sweep+dual"] = max(
-        compare_cheby(tiled, shape, nu, smoother, True, rng, device)
-        for shape in (MG_SIZE, RAGGED_SIZE)
-        for smoother, nu in (("wjacobi", 2), ("chebyshev", 4)))
+    def fold(found):
+        for m, d in found.items():
+            err[m] = max(err.get(m, 0.0), d)
+
+    # the Chebyshev and dual modes, each launch on the march and on the
+    # window, bitwise its plain version and the other: k = 2 .. 5 at 255^3
+    # and ragged (the smoother nu = 2, 4 and the fused launch of nu1 = 2,
+    # 4), and a remainder run
+    for shape in (MG_SIZE, RAGGED_SIZE):
+        for nu in (2, 4):
+            fold(compare_cheby(tiled, shape, nu, "chebyshev", False, rng,
+                               device))
+        for smoother, nu in (("wjacobi", 2), ("chebyshev", 4)):
+            fold(compare_cheby(tiled, shape, nu, smoother, True, rng,
+                               device))
+    fold(compare_cheby_iterate(RAGGED_SIZE, 4, 11, rng, device))
     # each fine-level operation of the solver paths of phase 4 at the
     # path's own plan and right-hand side (PCG's cycle sees the CG residual
-    # there, for which a random field stands in), u random, zero walls
+    # there, for which a random field stands in), u random, zero walls;
+    # the Chebyshev and dual ones on both schedules
     from stencil_tpu_torch.ops.layout import pad_source
 
     solve_paths = {}
@@ -2662,14 +2991,12 @@ def main() -> int:
         for mode, op in ops:
             src = pad_source(op.plan, rhs, op.source_scale,
                              prob.bc).to(device)
-            err[mode] = max(err[mode], compare_plan(
-                tiled, op.plan, grid, src,
-                f"{mode} on the {name} path {prob.shape} "
-                f"{op.plan.spec.name} k={op.plan.sweeps_per_call} tiles "
-                f"{op.plan.tiles}"))
-    def fold(found):
-        for m, d in found.items():
-            err[m] = max(err.get(m, 0.0), d)
+            fold(compare_plan(
+                tiled, op.plan, grid, src, mode,
+                f"on the {name} path {prob.shape} {op.plan.spec.name} "
+                f"k={op.plan.sweeps_per_call}"
+                + ("" if op.plan.cheby_coeffs
+                   else f" tiles {op.plan.tiles}")))
 
     # the two-level mode on the march, each launch bitwise its plain
     # version and the window's launch on both outputs: cfg9's plan (256^3
@@ -2808,15 +3135,12 @@ def main() -> int:
                      src_scale=-0.01),
         compare_iterate(TiledStencil, j7, RAGGED_SIZE, 3, 7, rng, device,
                         scale=-0.01, dtype=bf))
-    for mode, dual, cases in (
-            ("tiled_sweep+cheby+bf16", False,
-             (("chebyshev", 2), ("chebyshev", 4))),
-            ("tiled_sweep+dual+bf16", True,
-             (("wjacobi", 2), ("chebyshev", 4)))):
-        err[mode] = max(compare_cheby(tiled, shape, nu, smoother, dual, rng,
-                                      device, bf)
-                        for shape in (MG_SIZE, RAGGED_SIZE, BF16_MG_SIZE)
-                        for smoother, nu in cases)
+    for dual, cases in ((False, (("chebyshev", 2), ("chebyshev", 4))),
+                        (True, (("wjacobi", 2), ("chebyshev", 4)))):
+        for shape in (MG_SIZE, RAGGED_SIZE, BF16_MG_SIZE):
+            for smoother, nu in cases:
+                fold(compare_cheby(tiled, shape, nu, smoother, dual, rng,
+                                   device, bf))
     fold(compare_two_level(tiled, MAIN_SIZE, WAVE_K, rng, device, dtype=bf))
     fold(compare_two_level(tiled, RAGGED_SIZE, 3, rng, device, dtype=bf,
                            tiny=True))
@@ -2966,10 +3290,14 @@ def main() -> int:
 
     cheby = ((0.1, 0.2, -0.05, 0.3), (0.2, 0.1, 0.4, -0.2),
              (0.3, 0.15, 0.05, 0.1))
-    for dual in (False, True):
-        mode = f"tiled_sweep+{'dual' if dual else 'cheby'}+subset"
-        err[mode] = subset_case(mode, cheby_plan(local, cheby, dual),
-                                (1, 1, 1, 1), scale=1.0, dual=dual)
+    cheby_tiles = tuple(min(t, n) for t, n in zip((8, 8, 32), local))
+    for dual, dtype, sched in itertools.product(
+            (False, True), ("float32", bf), ("march", "window")):
+        plan = cheby_plan(local, cheby, dual, dtype, sched, cheby_tiles)
+        mode = cheby_row(plan).replace("+bf16", "") + "+subset" + (
+            "+bf16" if dtype == bf else "")
+        fold({mode: subset_case(mode, plan, (1, 1, 1, 1), scale=1.0,
+                                dual=dual)})
     cplan = make_tiled_plan(j7, local, "float32", 8,
                             coeff_scales=(0.1, 1.0, -0.1))
     ca = pad_coeff(cplan, rng.random(local) + 0.5, walls(3)).to(device)
@@ -3069,23 +3397,22 @@ def main() -> int:
                 f"{n_solve}, the plan gives the {small_sched}")
         launches[slab_row(small_sched, "+source")] += n_solve
         launches[slab_row(big_sched, "+source")] += n_big
-    # the solver paths: PCG (Chebyshev and dual modes), multigrid V(4,4)
-    # (source and dual modes), FMG on the tiled fine level
+    # the solver paths: PCG (Chebyshev and dual modes, cfg13's), multigrid
+    # V(4,4) (source and dual modes, cfg10's), FMG on the tiled fine level,
+    # and cfg17's Chebyshev V(4,4) cycles; each fine-level launch on the
+    # schedule its plan gives (the row of that schedule), every mode of
+    # the path launched
     solve_counts = {name: run_solve_cli(cli, tiled, name, args, bar,
                                         label)[1]
                     for name, args, bar in SOLVE_PATHS}
-    for name, modes in (("pcg-cheby", ("tiled_sweep+cheby",
-                                       "tiled_sweep+dual")),
-                        ("mg-nu4", ("tiled_march+source",
-                                    "tiled_sweep+dual")),
-                        ("fmg", ("tiled_march+source", "tiled_sweep+dual"))):
-        for mode in modes:
+    solve_counts["cfg17"] = run_cfg17(tiled, label)
+    for name, (prob, _, mg, ops) in solve_paths.items():
+        for mode, op in ops:
             require(solve_counts[name][mode] > 0,
                     f"solver path {name} launched no {mode}")
-    for mode in ("tiled_march+source", "tiled_sweep+cheby",
-                 "tiled_sweep+dual"):
-        launches[mode] = launches.get(mode, 0) + sum(
-            c[mode] for c in solve_counts.values())
+    for counts in solve_counts.values():
+        for mode, n in counts.items():
+            launches[mode] = launches.get(mode, 0) + n
     # the wave main path (two-level mode), -m varcoeff and --solve hetero
     # (the coefficient mode on the march, and the weights kernel)
     launches["tiled_march+two_level"] = run_wave(tiled, rng, label)
@@ -3313,25 +3640,56 @@ def main() -> int:
     mprob = PoissonProblem(shape=MG_SIZE, device=DEVICE)
     mf = torch.from_numpy(np.random.default_rng(MG_SEED).normal(
         size=MG_SIZE).astype(np.float32)).to(device)
+    # (the tiled fine levels on the plan rule's schedules, then on the
+    # window's: the same cycles, bitwise, so the same contraction)
+    tiled_fine = dict(fine_method="pallas_tiled")
     for name, kw in (
             ("cfg10 wjacobi V(4,4), tiled fine level",
-             dict(nu1=4, nu2=4, fine_method="pallas_tiled")),
+             dict(nu1=4, nu2=4, **tiled_fine)),
             ("cfg11 chebyshev V(2,2), eager fine level",
              dict(smoother="chebyshev")),
             ("cfg17 chebyshev V(4,4), tiled fine level",
-             dict(nu1=4, nu2=4, smoother="chebyshev",
-                  fine_method="pallas_tiled")),
+             dict(nu1=4, nu2=4, smoother="chebyshev", **tiled_fine)),
             ("wjacobi V(2,2), eager fine level", {}),
-            ("wjacobi V(2,2), tiled fine level",
-             dict(fine_method="pallas_tiled"))):
-        ms_c, rho, decade, upd, res = time_cycles(Multigrid(mprob, **kw),
-                                                  mf, device)
-        print(f"{name} {MG_SIZE}: {ms_c:.4f} ms per V-cycle (median of 3 "
-              f"runs of {CYCLE_REPEATS}), contraction {rho:.4f} per cycle "
-              f"(update norms {[f'{u:.3e}' for u in upd]}; residual "
-              f"{[f'{r:.3e}' for r in res]}), {decade:.4f} ms per decade "
-              f"[{label}]")
-    # cfg13: PCG with Chebyshev multigrid on the tiled fine level
+            ("wjacobi V(2,2), tiled fine level", tiled_fine)):
+        found = {}
+        for sched in (("rule", "window") if "tiled" in name else ("rule",)):
+            with on_window() if sched == "window" else \
+                    contextlib.nullcontext():
+                mg = Multigrid(mprob, **kw)
+                ms_c, rho, decade, upd, res, busy = time_cycles(mg, mf,
+                                                                device)
+                scheds = (mg.runner(mf).plan_info["fine_schedules"]
+                          if mg.tiled_fine else "eager")
+            found[sched] = (rho, tuple(upd))
+            where = "" if sched == "rule" else ", every plan on the window"
+            print(f"{name}{where} {MG_SIZE}: {ms_c:.4f} ms per V-cycle "
+                  f"(median of 3 runs of {CYCLE_REPEATS}), the device busy "
+                  f"{busy:.4f} ms per cycle (profiler), contraction "
+                  f"{rho:.4f} per cycle (update norms "
+                  f"{[f'{u:.3e}' for u in upd]}; residual "
+                  f"{[f'{r:.3e}' for r in res]}), {decade:.4f} ms per "
+                  f"decade; fine schedules {scheds} [{label}]")
+        require(len(set(found.values())) == 1,
+                f"{name}: the march's and the window's cycles differ "
+                f"{found}")
+    # cfg13: PCG with Chebyshev multigrid on the tiled fine level, its
+    # plans on the window first (the same iterations, bitwise)
+    with on_window():
+        pcg_window = ConjugateGradient(mprob, preconditioner=Multigrid(
+            mprob, smoother="chebyshev", fine_method="pallas_tiled"))
+        res13w = pcg_window.solve(mf, tolerance=1e-4, max_iterations=50,
+                                  check_every=1)
+        wall_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pcg_window.solve(mf, tolerance=1e-4, max_iterations=50,
+                             check_every=1)
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"cfg13 PCG chebyshev tiled {MG_SIZE} tol 1e-4, check_every=1, "
+          f"every fine plan on the window: {res13w.summary()}; time to "
+          f"solution {sorted(wall_ms)[1]:.3f} ms (median of {wall_ms}) "
+          f"[{label}]")
     pcg = ConjugateGradient(mprob, preconditioner=Multigrid(
         mprob, smoother="chebyshev", fine_method="pallas_tiled"))
     for every in (8, 1):
@@ -3349,6 +3707,10 @@ def main() -> int:
               f"{every}: {res13.summary()}; time to solution "
               f"{sorted(wall_ms)[1]:.3f} ms (median of {wall_ms}) [{label}]")
         require(res13.converged, "cfg13 did not converge")
+    require(res13.iterations == res13w.iterations
+            and res13.residual_rel == res13w.residual_rel,
+            f"cfg13: {res13.summary()} on the plan rule's schedules, "
+            f"{res13w.summary()} on the window")
     # the error floor of the cycles at 255^3: manufactured sine, error
     # against the exact solution after each cycle
     from stencil_tpu_torch.models.poisson import manufactured_sine as sine
@@ -3513,14 +3875,6 @@ def main() -> int:
         require(plan.schedule == "march"
                 and slab_windows[mode].layout == plan.layout,
                 f"{mode}: the plan gives the {plan.schedule}")
-    # the Chebyshev and dual modes at the PCG path's plans, random f
-    prob, _, _, ops = solve_paths["pcg-cheby"]
-    for mode, op in ops:
-        grid = prob.initial_grid(rng.random(prob.shape, dtype=np.float32))
-        launch_inputs.append((mode, tiled, op.plan,
-                              op.plan.layout.pad_grid(grid),
-                              pad_source(op.plan, mf, op.source_scale,
-                                         prob.bc)))
     # the per-mode times below start from an empty allocator cache (the
     # plain versions allocate whole padded tensors), with the card's state
     # beside them
@@ -3568,7 +3922,8 @@ def main() -> int:
                              device, 20)
         if mode.startswith("tiled_march"):
             twin = window_twin(plan)
-            window_ms[mode] = time_call(lambda: kernel(cur, nxt, twin, src),
+            window_ms[mode] = time_call(lambda: kernel(cur, nxt, twin, src,
+                                                       out2=out2),
                                         device, 10)
             print(f"  the window schedule's launch of {mode} (tiles "
                   f"{twin.tiles}): {window_ms[mode]:.4f} ms [{label}]")
@@ -3593,6 +3948,59 @@ def main() -> int:
         if mode.startswith("slab_sweep"):
             slab_twin(mode, plan, cur, src)
 
+    # the Chebyshev and dual modes: cfg13's two launches (the PCG path's
+    # plans, bench.py's f), cfg10's fused launch (the mg-nu4 path's, k=5)
+    # and cfg17's two (k=4, k=5), each on the march and on the window in
+    # turns; the rows of the plan's schedule (cfg13's) take these times.
+    # Beside them cfg10's weighted-Jacobi smoother (the source mode, 7
+    # taps, k=4), which the march runs through its unrolled 7-tap instance
+    cheby_launches = [("cfg13", op) for _, op in
+                      solve_paths["pcg-cheby"][3]]
+    cheby_launches += [("cfg10", op) for _, op in solve_paths["mg-nu4"][3]]
+    pre17, _, _, fused17 = cfg17_multigrid()._fine_ops()
+    cheby_launches += [("cfg17", pre17), ("cfg17", fused17)]
+    cell_counts = {"cfg13": solve_counts["pcg-cheby"],
+                   "cfg10": solve_counts["mg-nu4"],
+                   "cfg17": solve_counts["cfg17"]}
+    for cell, op in cheby_launches:
+        plan = op.plan
+        dual = plan.cheby_dual
+        plans = [window_twin(plan, sched) for sched in ("march", "window")]
+        grid = random_grid(MG_SIZE, 1, rng, device)
+        cur = plan.layout.pad_grid(grid)
+        src = pad_source(plan, mf, op.source_scale, grid.bc)
+        nxt = cur.clone()
+        out2 = cur.clone() if dual else None
+        times = {}
+        for p in plans + plans[::-1]:
+            t = time_call(lambda: tiled(cur, nxt, p, src, out2=out2),
+                          device, 20)
+            times[p.schedule] = min(times.get(p.schedule, t), t)
+        plain = time_call(lambda: sweep_reference(cur, plan, src), device,
+                          5)
+        lib, lib_check = library_sweep(plan, cur, src)
+        lib_ms = time_call(lib, device, 20)
+        b_ms, b_by = bound(plan, src, dual)
+        row = cheby_row(plan) if plan.cheby_coeffs else \
+            "tiled_march+source"
+        print(f"one call of {row} ({cell}) {plan.spec.name} {MG_SIZE} "
+              f"k={plan.sweeps_per_call}: march (tiles {plans[0].tiles}) "
+              f"{times['march']:.4f} ms, window (tiles {plans[1].tiles}) "
+              f"{times['window']:.4f} ms (each the least of two runs of 20, "
+              f"in turns); the plan takes the {plan.schedule}; plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms (by {b_by}); library "
+              f"conv3d {lib_ms:.4f} ms per sweep (vs one plain sweep max "
+              f"abs diff {lib_check():.3e}); {row} launches on the "
+              f"{cell} path in phase 4 {cell_counts[cell][row]} [{label}]")
+        if cell != "cfg13" or not plan.cheby_coeffs:
+            continue
+        for p in plans:
+            r = cheby_row(p)
+            ms[r], plain_ms[r], library_ms[r] = times[p.schedule], plain, \
+                lib_ms
+            bound_ms[r], bound_by[r] = b_ms, b_by
+        window_ms[cheby_row(plans[0])] = times["window"]
+
     # the two-level mode at cfg9's plan, on the march and on the window:
     # the yardstick is one 2-channel conv3d per leapfrog step
     mode = "tiled_march+two_level"
@@ -3609,11 +4017,7 @@ def main() -> int:
                                device, 3)
     lib, lib_check = wave_library_step(plan, cur, prev)
     library_ms[mode] = time_call(lib, device, 20)
-    n_int = int(np.prod(plan.interior_shape))
-    n_pad = int(np.prod(plan.layout.padded_shape))
-    bound_ms[mode], bound_by[mode] = bound_of(
-        plan.itemsize * (2 * n_pad + 2 * n_int),
-        n_int * WAVE_K * (plan.spec.flops_per_point + 1), plan.dtype)
+    bound_ms[mode], bound_by[mode] = wave_bound(plan)
     print(f"one call of {mode} {plan.spec.name} {MAIN_SIZE} k={WAVE_K}, "
           f"march tiles {plan.tiles}: kernel {ms[mode]:.4f} ms, the "
           f"window's launch (tiles {twin.tiles}) {window_ms[mode]:.4f} ms, "
@@ -3643,7 +4047,7 @@ def main() -> int:
     n_int = int(np.prod(plan.interior_shape))
     n_pad = int(np.prod(plan.layout.padded_shape))
     bound_ms[mode], bound_by[mode] = bound_of(
-        plan.itemsize * (2 * n_pad + n_int),
+        plan.itemsize * (2 * needed_cells(plan) + n_int),
         coeff_ops(n_int, plan.sweeps_per_call))
     offsets, fields = vdiff.tap_fields()
     fields = torch.from_numpy(fields).float().to(device)
@@ -3858,23 +4262,21 @@ def main() -> int:
             t, plan.layout, bc, plan.halo) for t in (cur, prev)
             if t is not None], device, 20)
         n_int = int(np.prod(plan.interior_shape))
-        n_pad = int(np.prod(plan.layout.padded_shape))
         k = plan.sweeps_per_call
         if coeff is not None:
             library_ms[mode] = None
             bound_ms[mode], bound_by[mode] = bound_of(
-                plan.itemsize * (2 * n_pad + n_int), coeff_ops(n_int, k))
+                plan.itemsize * (2 * needed_cells(plan, pins) + n_int),
+                coeff_ops(n_int, k))
             lib_text = "library none (per-point weights)"
         else:
             if prev is not None:
                 lib, lib_check = wave_library_step(plan, cur, prev, bc)
-                bound_ms[mode], bound_by[mode] = bound_of(
-                    plan.itemsize * (2 * n_pad + 2 * n_int),
-                    n_int * k * (plan.spec.flops_per_point + 1),
-                    plan.dtype)
+                bound_ms[mode], bound_by[mode] = wave_bound(plan, pins)
             else:
                 lib, lib_check = library_sweep(plan, cur, src, bc)
-                bound_ms[mode], bound_by[mode] = bound(plan, src, False)
+                bound_ms[mode], bound_by[mode] = bound(plan, src, False,
+                                                       pins)
             library_ms[mode] = time_call(lib, device, 10)
             lib_text = (f"library F.pad + conv{len(plan.interior_shape)}d "
                         f"{library_ms[mode]:.4f} ms per sweep (vs one plain "
@@ -3917,7 +4319,7 @@ def main() -> int:
     for mode, op in ops:
         plan = cheby_plan(MG_SIZE, op.plan.cheby_coeffs, op.plan.cheby_dual,
                           bf)
-        bf_case(f"{mode}+bf16", tiled, plan,
+        bf_case(cheby_row(plan), tiled, plan,
                 src=pad_source(plan, mf, op.source_scale, prob.bc))
     bf_case("tiled_march+two_level+bf16", tiled,
             wave_plan(MAIN_SIZE, WAVE_K, bf), prev=True)
@@ -3945,16 +4347,13 @@ def main() -> int:
         plain_ms[mode] = time_call(lambda: sweep_reference(
             cur, plan, src, prev, pins=pins), device, 3)
         n_int = int(np.prod(plan.interior_shape))
-        n_pad = int(np.prod(plan.layout.padded_shape))
         k = plan.sweeps_per_call
         if prev is not None:
             lib, lib_check = wave_library_step(plan, cur, prev, bc)
-            bound_ms[mode], bound_by[mode] = bound_of(
-                plan.itemsize * (2 * n_pad + 2 * n_int),
-                n_int * k * (plan.spec.flops_per_point + 1), plan.dtype)
+            bound_ms[mode], bound_by[mode] = wave_bound(plan, pins)
         else:
             lib, lib_check = library_sweep(plan, cur, src, bc)
-            bound_ms[mode], bound_by[mode] = bound(plan, src, dual)
+            bound_ms[mode], bound_by[mode] = bound(plan, src, dual, pins)
         library_ms[mode] = time_call(lib, device, 20)
         print(f"one call of {mode} {plan.spec.name} {plan.interior_shape} "
               f"k={k}, tiles {plan.tiles}, {walls_name(bc)}: kernel "
@@ -4004,7 +4403,7 @@ def main() -> int:
         rec["window"] = window_pair_ms(tiled, plan, cur, pins, src, 5)
         lib, lib_check = library_sweep(plan, cur, src)
         rec["library"] = time_call(lib, device, 10)
-        rec["full_bound"] = bound(plan, src, False)[0]
+        rec["full_bound"] = bound(plan, src, False, pins)[0]
         sub[mode] = rec
         print(f"one interior + one edge launch of {mode} ({spec.name} "
               f"{local} k=8 tiles {plan.tiles}, pins {list(pins)}, "
@@ -4074,4 +4473,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cycles_main(sys.argv[2]) if sys.argv[1:2] == ["--cycles"]
+             and len(sys.argv) == 3 else main())

@@ -184,6 +184,23 @@ __device__ __forceinline__ float apply_grouped(const T* __restrict__ s,
   return acc;
 }
 
+// NT taps in one group with a uniform weight (taps.ngroups == 1,
+// taps.uniform == 1; the centre-less neighbour sum of the Chebyshev
+// modes): apply_fixed's sum in its order, without its per-tap test of the
+// group table, then the one multiply.
+template <int NT, typename T>
+__device__ __forceinline__ float apply_uniform(const T* __restrict__ s,
+                                               int p, const int (&off)[NT],
+                                               const Taps& taps) {
+  float v[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) v[t] = Num<T>::load(s[p + off[t]]);
+  float acc = v[0];
+#pragma unroll
+  for (int t = 1; t < NT; ++t) acc = add<T>(acc, v[t]);
+  return mul<T>(acc, taps.uniform_weight);
+}
+
 // NT > 0: a spec of exactly NT taps, offsets copied into registers;
 // NT == 0: any spec, through the table. T: the window's element type.
 template <int NT, typename T>

@@ -4,13 +4,16 @@
 //
 // Replaces stencil_tpu/ops/pallas_tiled.py:build_tiled_sweep (the Pallas
 // TPU kernel, :704, pallas_call at :1821) in its homogeneous, source
-// (has_source, :1326) and two-level (two_level, body compute2 :1374-1431)
-// modes, in fp32 and bf16, and in its coefficient mode (tap_mode='coeff',
-// taps_coeff :1195-1229; fp32 only, as the TPU kernel, :451-455), each
-// with its pins (:1270-1305) and, but the two-level mode (which the TPU
-// kernel refuses them, :752-755), its tile subsets (:746-758). The TPU
-// kernel's Chebyshev and dual modes run on the window schedule of
-// tiled_sweep.cu. Wrapper, plan and plain PyTorch version:
+// (has_source, :1326), two-level (two_level, body compute2 :1374-1431),
+// Chebyshev (cheby_coeffs, :207, body compute_cheby :1433-1495) and dual
+// (cheby_dual, :218, second output :1476-1483) modes, in fp32 and bf16,
+// and in its coefficient mode (tap_mode='coeff', taps_coeff :1195-1229;
+// fp32 only, as the TPU kernel, :451-455), each with its pins (:1270-1305;
+// the Chebyshev modes keep every face pinned, as the TPU kernel's callers
+// do) and, but the two-level mode (which the TPU kernel refuses them,
+// :752-755), its tile subsets (:746-758). The window schedule of
+// tiled_sweep.cu computes the same in every mode, bitwise, and stays the
+// comparison. Wrapper, plan and plain PyTorch version:
 // stencil_tpu_torch/ops/tiled_kernel.py, ops/tiled.py (schedule "march"),
 // ops/sweep_kernel.py:sweep_reference.
 //
@@ -20,7 +23,8 @@
 // applied to `in` on its interior points only, each update the taps in
 // StencilSpec.weight_groups order (stencil_taps.cuh, -fmad=false) and, in
 // the source mode, + the padded source at the point; in the two-level
-// mode, - the level before the last at the point (below). A point inside
+// mode, - the level before the last at the point (below); in the Chebyshev
+// modes, the recurrence (below). A point inside
 // the grid gets the full update; a pinned ghost copies its constant; a live
 // face (pins 0, d0 and d1 only) is updated like the interior; d2 is always
 // pinned; the ghosts of `out` are never written.
@@ -34,6 +38,20 @@
 // through the read-only cache; that of level s >= 2 is level s-2's plane,
 // at the point, in its ring; the store to `out2` is the centre tap that
 // level k has just read from level k-1's ring.
+//
+// The Chebyshev modes (the multigrid fine level's smoothers): sweep t
+// computes u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} + pv_t*u_{t-2} + s_t*f with
+// S the spec (nbsum3d, radius 1), each update formed as ((n*S + c*u) +
+// s*f) + pv*prev in tiled_sweep.cu's order, each op rounded to T, and no
+// prev term at t = 1; the coefficients come per level by value. u is the
+// centre tap level t has read from level t-1's ring, f the padded raw
+// source read at the point through the read-only cache (as the source
+// mode reads it), and prev level t-2's plane at the point, in its ring as
+// the two-level mode's subtrahend is (level 0, the input ring, serves
+// level 2). The dual mode also stores level k-1's centre to `out2`, tile
+// points only, as the two-level mode does: the fused smooth+residual,
+// whose sweep k is the residual tuple. nbsum3d's one group of uniform
+// weight is compiled in (apply_uniform), as the wave's groups are.
 //
 // The coefficient mode (radius 1): each update is
 //   W3(p)u(p) + W1(p)u(p-e1) + W1(p+e1)u(p+e1) + W2(p)u(p-e2)
@@ -63,7 +81,7 @@
 //     - k*r to chunk end + k*r.
 //   - Rings. Sweep level s (0 = the input, 1 .. k-1 the intermediate
 //     sweeps) keeps a ring of S = 2r+2 planes in shared memory (2r+3 in
-//     the two-level mode, below), each as
+//     the two-level and Chebyshev modes, below), each as
 //     wide as the level's region, (t1 + 2(k-s)r) x (t2 + 2(k-s)r). Level
 //     s computes a plane of its region once the 2r+1 planes of level s-1
 //     that it reads are complete; level k stores straight to `out`. The
@@ -89,7 +107,9 @@
 //     j+r+1, and one table of slots still serves every level; any depth
 //     above 2(r+1) would do, 2r+3 is the least. It costs (2r+3)/(2r+2)
 //     of the rings' bytes, so the chooser (ops/tiled.py) takes narrower
-//     tiles there: at 256^3 k=8 fp32 (32,32) no longer fits.
+//     tiles there: at 256^3 k=8 fp32 (32,32) no longer fits. The
+//     Chebyshev modes read level s-2's plane the same way (their pv*prev
+//     term) and keep the same 2r+3 slots.
 //   - Loads. The input planes come in one plane ahead of their use: in
 //     fp32 with cp.async (4-byte copies, any alignment), committed each
 //     step and waited for just before the step's barrier, so the copy of
@@ -111,10 +131,11 @@
 //     within k(r+1) steps of each other.
 //
 // Shared memory: S * sum_{s=0}^{k-1} (t1 + 2(k-s)r)(t2 + 2(k-s)r) * sizeof(T)
-// with S = 2r+2 (2r+3 in the two-level mode) <= 232,448 bytes (the plan
-// chooser, ops/tiled.py:march_smem_bytes, keeps within it; jacobi7 fp32
-// k=8 with 32x32 tiles: 217,856 bytes; the wave spec's two-level mode at
-// k=8 with 32x24 tiles: 219,840 bytes).
+// with S = 2r+2 (2r+3 in the two-level and Chebyshev modes) <= 232,448
+// bytes (the plan chooser, ops/tiled.py:march_smem_bytes, keeps within it;
+// jacobi7 fp32 k=8 with 32x32 tiles: 217,856 bytes; the wave spec's
+// two-level mode at k=8 with 32x24 tiles: 219,840 bytes; the dual mode at
+// k=3 and k=5 with 32x32 fp32 tiles: 77,920 and 145,200 bytes).
 //
 // Tile subsets: as in tiled_sweep.cu, a launch may sweep only a list of
 // (d0 chunk, d1 tile) columns, each with every d2 tile, id i0 * nt1 + i1,
@@ -133,6 +154,7 @@ namespace {
 using stencil::add;
 using stencil::apply_fixed;
 using stencil::apply_grouped;
+using stencil::apply_uniform;
 using stencil::close_group;
 using stencil::mul;
 using stencil::Num;
@@ -141,12 +163,16 @@ using stencil::Taps;
 
 constexpr int kThreads = 512;
 constexpr int kGeomLen = 19;
-constexpr int kMaxLevels = 16;  // sweeps per launch
+constexpr int kMaxLevels = 16;  // sweeps per launch (Chebyshev tuples)
 constexpr int kStage = 16;      // bf16: input plane <= kStage * kThreads
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on sm_90
 // the wave spec's groups (models/wave.py): the centre, then the six
 // neighbours
 constexpr uint32_t kWaveStarts = 0x3;
+// how a fixed tap count's groups are evaluated: the table's group test per
+// tap (apply_fixed), the wave's groups compiled in (apply_grouped), or one
+// group with a uniform weight (apply_uniform: the Chebyshev modes' nbsum3d)
+enum Groups { kTableGroups = 0, kWaveGroups = 1, kUniformGroups = 2 };
 constexpr int kErrArgument = -1;
 constexpr int kErrShared = -2;
 constexpr int kErrPlane = -3;
@@ -158,7 +184,8 @@ struct Geometry {
   int t0, t1, t2;  // d0 chunk, d1 and d2 tile
   int nt1, nt2;    // tiles along d1 and d2
   int k, r;        // sweeps per launch, stencil radius
-  int slots;       // ring depth S: 2r+2, the two-level mode 2r+3
+  int slots;       // ring depth S: 2r+2; 2r+3 in the modes that read
+                   // level s-2 (two-level, Chebyshev, dual)
   int planes;      // input planes a block walks, t0 + 2kr
   int q;           // elements of one slot index, every level's plane
   int pins[4];     // d0 lo, d0 hi, d1 lo, d1 hi: 1 pinned, 0 live
@@ -175,6 +202,12 @@ struct Geometry {
 // The d0 and d2 offsets of each tap (the d1 offset rides in Taps::off).
 struct TapPlanes {
   signed char d0[stencil::kMaxTaps], d2[stencil::kMaxTaps];
+};
+
+// The Chebyshev modes' (c, n, pv, s) per level, as the host rounded them
+// to T (held in fp32); level s (1-based) uses entry s-1. Zero elsewhere.
+struct Coeffs {
+  float c[kMaxLevels], n[kMaxLevels], pv[kMaxLevels], s[kMaxLevels];
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -221,16 +254,18 @@ __device__ __forceinline__ float taps_any(const T* __restrict__ s, int p,
 }
 
 // The taps at point p of level s-1's ring `src`: NT > 0 with this level's
-// and step's offsets `off` (WAVE: the wave spec's groups compiled in),
-// NT == 0 through the table.
-template <int NT, bool WAVE, typename T>
+// and step's offsets `off`, the groups as GROUPS says; NT == 0 through the
+// table.
+template <int NT, int GROUPS, typename T>
 __device__ __forceinline__ float tap_sum(const T* __restrict__ src, int p,
                                          const int (&off)[NT > 0 ? NT : 1],
                                          const Taps& taps,
                                          const TapPlanes& tp, int c, int S,
                                          int Q, int wp) {
-  if constexpr (WAVE) {
+  if constexpr (NT > 0 && GROUPS == kWaveGroups) {
     return apply_grouped<NT, kWaveStarts, T>(src, p, off, taps);
+  } else if constexpr (NT > 0 && GROUPS == kUniformGroups) {
+    return apply_uniform<NT, T>(src, p, off, taps);
   } else if constexpr (NT > 0) {
     return apply_fixed<NT, T>(src, p, off, taps);
   } else {
@@ -258,15 +293,28 @@ __device__ __forceinline__ float coeff_update(
   return __fadd_rn(acc, __fmul_rn(__ldg(w + q + pstride), u[p + dp]));
 }
 
+// The Chebyshev modes' update from the taps `sum`, level s-1's centre `u`
+// and f: tiled_sweep.cu's order, (n*S + c*u) + s*f, each op rounded to T
+// (the caller adds pv*prev from level 2 on).
+template <typename T>
+__device__ __forceinline__ float cheby_update(float sum, float u, float f,
+                                              float cn, float cc, float cs) {
+  return add<T>(add<T>(mul<T>(cn, sum), mul<T>(cc, u)), mul<T>(cs, f));
+}
+
 // What a launch computes (see the header).
-enum Mode { kPlain = 0, kSource = 1, kCoeff = 2, kTwoLevel = 3 };
+enum Mode {
+  kPlain = 0, kSource = 1, kCoeff = 2, kTwoLevel = 3, kCheby = 4, kDual = 5
+};
 
 // NT > 0: a spec of exactly NT taps, offsets in registers; NT == 0: any
 // spec (kCoeff: the taps unused). MODE: kPlain, kSource (add the padded
-// source after the taps), kCoeff (`source` holds the weight fields W) or
+// source after the taps), kCoeff (`source` holds the weight fields W),
 // kTwoLevel (`source` holds L_{n-1}; `out2` receives sweep k-1; its NT = 7
-// instance is the wave spec, whose groups it compiles in).
-// T: float or bf16 (kCoeff: float only).
+// instance is the wave spec, whose groups it compiles in), kCheby
+// (`source` holds the raw f; the recurrence of `co`; its NT = 6 instance
+// is nbsum3d, one group of uniform weight, compiled in) or kDual (kCheby,
+// and `out2` receives sweep k-1). T: float or bf16 (kCoeff: float only).
 template <int NT, int MODE, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
@@ -274,9 +322,15 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
                    const int32_t* __restrict__ cols,
                    const __grid_constant__ Geometry g,
                    const __grid_constant__ Taps taps,
-                   const __grid_constant__ TapPlanes tp) {
+                   const __grid_constant__ TapPlanes tp,
+                   const __grid_constant__ Coeffs co) {
   using N = Num<T>;
-  constexpr bool kWave = MODE == kTwoLevel && NT == 7;
+  constexpr bool kCheb = MODE == kCheby || MODE == kDual;
+  // the modes that read level s-2's plane (2r+3 slots)
+  constexpr bool kOlder = MODE == kTwoLevel || kCheb;
+  constexpr int kGroups = MODE == kTwoLevel && NT == 7 ? kWaveGroups
+                          : kCheb && NT == 6           ? kUniformGroups
+                                                       : kTableGroups;
   extern __shared__ __align__(16) unsigned char smem_bytes[];
   T* const ring = reinterpret_cast<T*>(smem_bytes);
   const int tid = threadIdx.x;
@@ -362,7 +416,8 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
     }
     // kCoeff: the slot offsets of the d0 neighbours (r = 1)
     const int dm = slot_delta(c, -1, S, Q), dp = slot_delta(c, 1, S, Q);
-    // kTwoLevel: the slot of the subtrahend planes, j-r-1 (S = 2r+3)
+    // kTwoLevel, kCheby, kDual: the slot of level s-2's planes, j-r-1
+    // (S = 2r+3)
     const int sb = slot_delta(c, -(r + 1), S, Q);
     for (int s = 1; s <= g.k; ++s) {
       const int m = j - (s * (r + 1) - 1);  // level s's plane this step
@@ -379,16 +434,34 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
       // padded origin of level s's plane; the global index of its (y, x)
       const int p0 = a0 + m, r1 = o1 + s * r, r2 = o2 + s * r;
       const int64_t gbase = (int64_t)p0 * pstride + (int64_t)r1 * g.p2 + r2;
-      // kTwoLevel, s >= 2: level s-2's plane m, shifted to level s's
-      // origin (row width wq); level 1 reads `prev` at gbase instead
+      // kOlder, s >= 2: level s-2's plane m, shifted to level s's origin
+      // (row width wq); the two-level mode's level 1 reads `prev` at gbase
+      // instead, the Chebyshev modes' level 1 has no such term
       const int wq = s >= 2 ? g.cols[s - 2] : 0;
       const T* const older =
-          s >= 2 ? ring + c * Q + sb + g.ring[s - 2] + 2 * r * wq + 2 * r
-                 : nullptr;
+          kOlder && s >= 2
+              ? ring + c * Q + sb + g.ring[s - 2] + 2 * r * wq + 2 * r
+              : nullptr;
       // the level before the last at (y, x): L_{t-2} of the leapfrog
       auto subtrahend = [&](int py, int px) {
         return s == 1 ? N::ldg(source + gbase + py * g.p2 + px)
                       : N::load(older[py * wq + px]);
+      };
+      // the Chebyshev modes: this level's coefficients, and its update at
+      // (y, x) from the taps (u the centre tap, f the source at the point)
+      float cc = 0.0f, cn = 0.0f, cpv = 0.0f, cs = 0.0f;
+      if constexpr (kCheb) {
+        cc = co.c[s - 1];
+        cn = co.n[s - 1];
+        cpv = co.pv[s - 1];
+        cs = co.s[s - 1];
+      }
+      auto recur = [&](float sum, int py, int px) {
+        float v = cheby_update<T>(sum, N::load(src[py * wp + px]),
+                                  N::ldg(source + gbase + py * g.p2 + px),
+                                  cn, cc, cs);
+        if (s >= 2) v = add<T>(v, mul<T>(cpv, N::load(older[py * wq + px])));
+        return v;
       };
       int y = __float2int_rz(__fmul_rn((float)tid + 0.5f, g.inv_cols[s]));
       int x = tid - y * ws;
@@ -407,12 +480,13 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
               v = coeff_update(src, p, wp, dm, dp, source,
                                gbase + y * g.p2 + x, field, pstride, g.p2);
             } else {
-              v = tap_sum<NT, kWave, T>(src, p, off, taps, tp, c, S, Q,
-                                        wp);
+              v = tap_sum<NT, kGroups, T>(src, p, off, taps, tp, c, S, Q,
+                                          wp);
               if constexpr (MODE == kSource)
                 v = add<T>(v, N::ldg(source + gbase + y * g.p2 + x));
               if constexpr (MODE == kTwoLevel)
                 v = sub<T>(v, subtrahend(y, x));
+              if constexpr (kCheb) v = recur(v, y, x);
             }
           } else {
             v = N::load(src[p]);
@@ -431,14 +505,14 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
             v = coeff_update(src, y * wp + x, wp, dm, dp, source, q, field,
                              pstride, g.p2);
           } else {
-            v = tap_sum<NT, kWave, T>(src, y * wp + x, off, taps, tp, c, S,
-                                      Q, wp);
+            v = tap_sum<NT, kGroups, T>(src, y * wp + x, off, taps, tp, c,
+                                        S, Q, wp);
           }
           if constexpr (MODE == kSource) v = add<T>(v, N::ldg(source + q));
-          if constexpr (MODE == kTwoLevel) {
-            v = sub<T>(v, subtrahend(y, x));
+          if constexpr (MODE == kTwoLevel) v = sub<T>(v, subtrahend(y, x));
+          if constexpr (kCheb) v = recur(v, y, x);
+          if constexpr (MODE == kTwoLevel || MODE == kDual)
             out2[q] = src[y * wp + x];  // level k-1, the centre tap
-          }
           out[q] = N::store(v);
           x += sx;
           y += sy;
@@ -459,10 +533,11 @@ template <typename T>
 struct Launch {
   const T* in;
   T* out;
-  T* out2;  // kTwoLevel: sweep k-1; else null
+  T* out2;  // kTwoLevel, kDual: sweep k-1; else null
   const T* source;
   const int32_t* cols;  // the subset's column ids (device), or null
   Geometry g;
+  Coeffs co;  // kCheby, kDual
   unsigned nblocks;
   size_t shared;
   cudaStream_t stream;
@@ -478,7 +553,7 @@ cudaError_t launch(const Launch<T>& l, const Taps& taps,
   tiled_march_kernel<NT, MODE, T><<<l.nblocks, kThreads, l.shared,
                                     l.stream>>>(l.in, l.out, l.out2,
                                                 l.source, l.cols, l.g, taps,
-                                                tp);
+                                                tp, l.co);
   return cudaGetLastError();
 }
 
@@ -488,6 +563,9 @@ cudaError_t dispatch(int ntaps, const Launch<T>& l, const Taps& taps,
   switch (ntaps) {
     case 6:   // jacobi7, star3d_r1 (Poisson)
       return launch<6, MODE>(l, taps, tp);
+    case 7:   // the multigrid fine level's weighted-Jacobi smoother and
+              // residual (wjacobi3d, neg_laplace3d: a centre and six)
+      return launch<7, MODE>(l, taps, tp);
     case 12:  // star3d_r2, laplace3d_ho
       return launch<12, MODE>(l, taps, tp);
     case 26:  // jacobi27
@@ -509,15 +587,25 @@ cudaError_t dispatch_two_level(int ntaps, const Launch<T>& l,
               : launch<0, kTwoLevel>(l, taps, tp);
 }
 
+// The Chebyshev modes: nbsum3d (6 taps, one group of uniform weight)
+// unrolled with its group compiled in, any other spec through the table.
+template <int MODE, typename T>
+cudaError_t dispatch_cheby(int ntaps, const Launch<T>& l, const Taps& taps,
+                           const TapPlanes& tp) {
+  const bool nbsum = ntaps == 6 && taps.uniform && taps.ngroups == 1;
+  return nbsum ? launch<6, MODE>(l, taps, tp) : launch<0, MODE>(l, taps, tp);
+}
+
 // Checks the geometry, the subset's length and the tap table and fills `l`
-// (but its tensor pointers and stream), `taps` and `tp`, the rings 2r+2
-// planes deep, 2r+3 for the two-level mode; 0 or a negative error code.
+// (but its tensor pointers, coefficients and stream), `taps` and `tp`, the
+// rings 2r+2 planes deep, 2r+3 (`deep`) for the modes that read level s-2;
+// 0 or a negative error code.
 template <typename T>
 int prepare(const int32_t* geom, int ngeom, const int32_t* cols, int ncols,
             const int32_t* tap_offsets, const int32_t* group_sizes,
             const float* group_weights, int ntaps, int ngroups, int uniform,
             float uniform_weight, Launch<T>& l, Taps& taps, TapPlanes& tp,
-            bool two_level = false) {
+            bool deep = false) {
   if (ngeom != kGeomLen) return kErrArgument;
   const int n0 = geom[0], n1 = geom[1], n2 = geom[2];
   const int p0 = geom[3], p1 = geom[4], p2 = geom[5], halo = geom[6];
@@ -551,7 +639,8 @@ int prepare(const int32_t* geom, int ngeom, const int32_t* cols, int ncols,
   g.t0 = t0; g.t1 = t1; g.t2 = t2;
   g.nt1 = nt1; g.nt2 = nt2;
   g.k = k; g.r = r;
-  g.slots = 2 * r + 2 + (two_level ? 1 : 0);
+  g.slots = 2 * r + 2 + (deep ? 1 : 0);
+  l.co = Coeffs{};
   g.planes = t0 + 2 * k * r;
   int64_t q = 0;
   for (int s = 0; s <= k; ++s) {
@@ -653,6 +742,42 @@ int two_level_entry(const T* in, const T* prev, T* out, T* out2,
   return (int)dispatch_two_level(ntaps, l, taps, tp);
 }
 
+template <typename T>
+int cheby_entry(const T* in, T* out, T* out2, const T* source,
+                const int32_t* geom, int ngeom, const float* coeffs,
+                int ncoeffs, const int32_t* cols, int ncols,
+                const int32_t* tap_offsets, const int32_t* group_sizes,
+                const float* group_weights, int ntaps, int ngroups,
+                int uniform, float uniform_weight, int device, void* stream) {
+  Launch<T> l;
+  Taps taps;
+  TapPlanes tp;
+  const int rc = prepare(geom, ngeom, cols, ncols, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps, tp, true);
+  if (rc != 0) return rc;
+  const int k = l.g.k;
+  // tiled_sweep.cu's checks (cheby_entry): raw f, one tuple per sweep,
+  // radius 1, the dual output from k = 2, every face pinned
+  if (source == nullptr || coeffs == nullptr || l.g.r != 1 ||
+      ncoeffs != 4 * k || (out2 != nullptr && k < 2))
+    return kErrArgument;
+  for (int i = 0; i < 4; ++i)
+    if (!l.g.pins[i]) return kErrArgument;
+  for (int t = 0; t < k; ++t) {
+    l.co.c[t] = coeffs[4 * t];
+    l.co.n[t] = coeffs[4 * t + 1];
+    l.co.pv[t] = coeffs[4 * t + 2];
+    l.co.s[t] = coeffs[4 * t + 3];
+  }
+  l.in = in; l.out = out; l.out2 = out2; l.source = source;
+  l.stream = (cudaStream_t)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return out2 ? (int)dispatch_cheby<kDual>(ntaps, l, taps, tp)
+              : (int)dispatch_cheby<kCheby>(ntaps, l, taps, tp);
+}
+
 }  // namespace
 
 extern "C" {
@@ -745,8 +870,43 @@ int stencil_tiled_march_two_level_bf16(
                          uniform_weight, device, stream);
 }
 
+// The Chebyshev modes: k sweeps of u_t = n_t*S(u_{t-1}) + c_t*u_{t-1} +
+// pv_t*u_{t-2} + s_t*f, S the spec (radius 1), `source` the padded raw f
+// (required), `coeffs` float[4*k] as (c, n, pv, s) per sweep (host), k <=
+// 16; with `out2` (the dual mode, k >= 2) sweep k-1 also goes to `out2`,
+// tile points only. Every face must be pinned. The rings 2r+3 planes deep
+// (see the header). The arguments and the return value are those of
+// stencil_tiled_sweep_cheby (tiled_sweep.cu).
+int stencil_tiled_march_cheby(const float* in, float* out, float* out2,
+                              const float* source, const int32_t* geom,
+                              int ngeom, const float* coeffs, int ncoeffs,
+                              const int32_t* cols, int ncols,
+                              const int32_t* tap_offsets,
+                              const int32_t* group_sizes,
+                              const float* group_weights, int ntaps,
+                              int ngroups, int uniform, float uniform_weight,
+                              int device, void* stream) {
+  return cheby_entry(in, out, out2, source, geom, ngeom, coeffs, ncoeffs,
+                     cols, ncols, tap_offsets, group_sizes, group_weights,
+                     ntaps, ngroups, uniform, uniform_weight, device, stream);
+}
+
+// The same in bf16 (the coefficients fp32, each a bf16 value).
+int stencil_tiled_march_cheby_bf16(
+    const __nv_bfloat16* in, __nv_bfloat16* out, __nv_bfloat16* out2,
+    const __nv_bfloat16* source, const int32_t* geom, int ngeom,
+    const float* coeffs, int ncoeffs, const int32_t* cols, int ncols,
+    const int32_t* tap_offsets, const int32_t* group_sizes,
+    const float* group_weights, int ntaps, int ngroups, int uniform,
+    float uniform_weight, int device, void* stream) {
+  return cheby_entry(in, out, out2, source, geom, ngeom, coeffs, ncoeffs,
+                     cols, ncols, tap_offsets, group_sizes, group_weights,
+                     ntaps, ngroups, uniform, uniform_weight, device, stream);
+}
+
 const char* stencil_tiled_march_error(int code) {
-  if (code == kErrArgument) return "rejected geometry or tap table";
+  if (code == kErrArgument)
+    return "rejected geometry, tap table or coefficients";
   if (code == kErrShared)
     return "rings exceed 232448 bytes of shared memory";
   if (code == kErrPlane)

@@ -17,7 +17,11 @@
 //     at t = 1 (the multigrid Chebyshev smoother);
 //   - dual (cheby_dual, :1476-1483): the Chebyshev recurrence whose sweep
 //     k-1 also goes to a second output `out2`, while sweep k (the
-//     residual tuple) goes to `out`: the multigrid fused smooth+residual;
+//     residual tuple) goes to `out`: the multigrid fused smooth+residual.
+//     The plan rule runs both Chebyshev modes on the d0 march
+//     (tiled_march.cu, rings of 2r+3 planes) from k = 2 on; this window
+//     mode is the march's comparison, bitwise equal on both outputs, and
+//     the schedule of a launch of one sweep or that asks for the window;
 //   - two-level (two_level, TPU body compute2 at :1374-1431): k leapfrog
 //     steps L_t = S(L_{t-1}) - L_{t-2} of the wave equation from the two
 //     levels `in` (L_n) and `prev` (L_{n-1}); sweep k goes to `out`, sweep
@@ -162,13 +166,15 @@
 // coefficient mode 7 global loads, 6 divides and 44 more operations per
 // update, which make it bound by operations even by the roofline rule.
 // Loads are plain, not TMA or cp.async, and do not overlap compute within
-// a block. The homogeneous and source modes (with pins, bf16 and tile
-// subsets), the two-level mode (with pins and bf16) and the coefficient
-// mode (with pins and subsets) run instead on the d0 march of
-// tiled_march.cu wherever its rings fit (ops/tiled.py, schedule "march"):
-// one ring of planes per sweep level, so d0 is not recomputed and the
-// input loads overlap the sweeps. The Chebyshev and dual modes stay on
-// this window schedule.
+// a block. Every mode runs instead on the d0 march of tiled_march.cu
+// wherever its rings fit (ops/tiled.py, schedule "march"): the
+// homogeneous and source modes (with pins, bf16 and tile subsets), the
+// two-level mode (with pins and bf16), the Chebyshev and dual modes (bf16
+// and subsets) and the coefficient mode (with pins and subsets); one ring
+// of planes per sweep level, so d0 is not recomputed and the input loads
+// overlap the sweeps. This window schedule stays their comparison, bitwise
+// equal, and runs a two-level or Chebyshev launch of one sweep, where its
+// one window was the faster on an H100.
 
 #include <cuda_runtime.h>
 

@@ -539,6 +539,10 @@ class Multigrid:
                 "fine_method": self.fine_method}
         if fine_ops is not None:
             info["fine_tiles"] = list(fine_ops[0].plan.tiles)
+            info["fine_schedules"] = {
+                name: op.plan.schedule for name, op in zip(
+                    ("pre", "res", "post", "fused"), fine_ops)
+                if op is not None}
         return Runner(
             name=f"multigrid({self.levels} levels, {self.fine_method})",
             iterate=iterate,

@@ -58,10 +58,12 @@ The 3D kernel has a second schedule, the d0 march (``csrc/tiled_march.cu``,
 types, through entries ``stencil_tiled_march`` and
 ``stencil_tiled_march_bf16`` of the arguments of ``stencil_tiled_sweep``,
 the two-level mode through ``stencil_tiled_march_two_level`` and its
-``_bf16`` twin (the arguments of ``stencil_tiled_sweep_two_level``), and
-the coefficient mode through ``stencil_tiled_march_coeff`` (the weights in
-place of a(x), no scales), each with pins and, but the two-level one,
-tile subsets. The
+``_bf16`` twin (the arguments of ``stencil_tiled_sweep_two_level``), the
+Chebyshev and dual modes through ``stencil_tiled_march_cheby`` and its
+``_bf16`` twin (the arguments of ``stencil_tiled_sweep_cheby``), and the
+coefficient mode through ``stencil_tiled_march_coeff`` (the weights in
+place of a(x), no scales), each with pins (every face pinned in the
+Chebyshev modes) and, but the two-level one, tile subsets. The
 2D kernel has one too (``csrc/slab_march.cu``): every mode of the window,
 through ``stencil_slab_march`` and ``stencil_slab_march_bf16`` of the
 arguments of ``stencil_slab_sweep``. Each wrapper launches the march for a
@@ -408,10 +410,12 @@ class SweepKernel:
     ``source_subset_launches``. The launches of a march plan count in all
     of those and again in ``march_launches`` and, by mode,
     ``march_source_launches``, ``march_two_level_launches``,
-    ``march_coeff_launches``, ``march_pins_launches`` (homogeneous, a live
+    ``march_coeff_launches``, ``march_cheby_launches``,
+    ``march_dual_launches``, ``march_pins_launches`` (homogeneous, a live
     face), ``march_source_pins_launches``,
     ``march_two_level_pins_launches``, ``march_coeff_pins_launches``,
-    ``march_bf16_launches``, ``march_subset_launches`` and
+    ``march_bf16_launches`` (of them ``march_cheby_bf16_launches`` and
+    ``march_dual_bf16_launches``), ``march_subset_launches`` and
     ``march_source_subset_launches``.
 
     ``name`` names the library and its C entry ``stencil_<name>``;
@@ -430,7 +434,9 @@ class SweepKernel:
                    "march_pins_launches", "march_source_pins_launches",
                    "march_two_level_pins_launches",
                    "march_coeff_pins_launches", "march_bf16_launches",
-                   "march_subset_launches", "march_source_subset_launches")
+                   "march_subset_launches", "march_source_subset_launches",
+                   "march_cheby_launches", "march_dual_launches",
+                   "march_cheby_bf16_launches", "march_dual_bf16_launches")
 
     def __init__(self, name: str, source: Path, replaces: str, ndim: int,
                  schedule: str = "window",
@@ -633,6 +639,12 @@ class SweepKernel:
             elif getattr(plan, "has_coeff", False):
                 self.march_coeff_launches += 1
                 self.march_coeff_pins_launches += live
+            elif out2 is not None:
+                self.march_dual_launches += 1
+                self.march_dual_bf16_launches += bf16
+            elif getattr(plan, "cheby_coeffs", ()):
+                self.march_cheby_launches += 1
+                self.march_cheby_bf16_launches += bf16
             elif src is not None:
                 self.march_source_launches += 1
                 self.march_source_pins_launches += live

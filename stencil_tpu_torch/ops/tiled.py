@@ -34,25 +34,28 @@ two schedules of the kernel (``TiledPlan.schedule``):
 
 - ``"march"`` (``csrc/tiled_march.cu``): a CUDA block owns a (t1, t2) tile
   of d1 and d2 and a chunk of t0 planes of d0, and marches d0 through one
-  ring of 2r+2 planes per sweep level (2r+3 in the two-level mode, whose
-  level s also reads level s-2's plane), each level's planes as wide as
-  the tile grown by (k-s)*r; the rings, :func:`march_smem_bytes`, must fit
-  227 KB (232,448 bytes) on sm_90. The homogeneous, source and two-level
-  modes (in float32 and bfloat16) and the coefficient mode (float32) take
-  it, with pins (and, but in the two-level mode, tile subsets), wherever
-  their rings fit (k <= 16; a bf16 input plane of at most 8192 points),
-  the tiles from :func:`choose_march_tiles`. That holds at k=1 too: the
-  two schedules' k=1 launches timed at 256^3 by ``chip_smoke.py`` put the
-  march ahead (PERF.md), and the Krylov matvec (a coefficient plan at
-  k=1) marches as well; ``chip_smoke.py`` times it on both schedules. A
-  two-level plan of one sweep takes the window: its launch, which reads
-  two levels and writes two, was the faster at cfg9's 256^3 (the
-  two-level tile sweep, ``data/march_two_level_tiles_h100.csv``).
+  ring of 2r+2 planes per sweep level (2r+3 in the two-level, Chebyshev
+  and dual modes, whose level s also reads level s-2's plane), each
+  level's planes as wide as the tile grown by (k-s)*r; the rings,
+  :func:`march_smem_bytes`, must fit 227 KB (232,448 bytes) on sm_90.
+  Every mode takes it, in float32 and bfloat16 (the coefficient mode in
+  float32), with pins (the Chebyshev modes keep every face pinned) and,
+  but in the two-level mode, tile subsets, wherever the rings fit (k <=
+  16; a bf16 input plane of at most 8192 points), the tiles from
+  :func:`choose_march_tiles`. That holds at k=1 too: the two schedules'
+  k=1 launches timed at 256^3 by ``chip_smoke.py`` put the march ahead
+  (PERF.md), and the Krylov matvec (a coefficient plan at k=1) marches as
+  well; ``chip_smoke.py`` times it on both schedules. A two-level or
+  Chebyshev plan of one sweep takes the window: its one window, with no
+  second buffer, was the faster launch on an H100, at cfg9's 256^3 for
+  the two-level mode (``data/march_two_level_tiles_h100.csv``) and at
+  255^3 for the Chebyshev mode (``data/march_cheby_tiles_h100_fit.csv``;
+  from k=2 on the march wins there, in both modes and both dtypes timed).
 - ``"window"`` (``csrc/tiled_sweep.cu``): a block holds one output tile of
   (t0, t1, t2) points plus its k*r-deep 3D window in shared memory, two
   window buffers when k > 1, the windows shrinking by r per sweep in
-  every dim. The Chebyshev and dual modes take it, a two-level plan at
-  k=1, and plans of the other modes whose rings do not fit.
+  every dim. A two-level or Chebyshev plan at k=1 takes it, and plans of
+  every mode whose rings do not fit.
   Among the tiles that fit, :func:`choose_tiles` takes the one of least
   estimated time per output point: the warp slots of the window load and
   of the k shrinking sweeps, discounted by the blocks that fit on one SM
@@ -134,14 +137,20 @@ class TiledPlan:
     # weights nb*harm(a(p), a(p+-e_d)) and center c0 + cs*sum(face means)
     # over a padded coefficient a(x); () = not that mode
     coeff_scales: Tuple = ()
-    # "window" (tiled_sweep.cu, every mode) or "march" (tiled_march.cu,
-    # the homogeneous, source, two-level and coefficient modes; tiles =
-    # (d0 chunk, t1, t2))
+    # "window" (tiled_sweep.cu) or "march" (tiled_march.cu; tiles = (d0
+    # chunk, t1, t2)), each running every mode
     schedule: str = "window"
 
     @property
     def has_coeff(self) -> bool:
         return bool(self.coeff_scales)
+
+    @property
+    def reads_older(self) -> bool:
+        """Whether sweep s also reads sweep s-2 at the point (the
+        two-level, Chebyshev and dual modes): the march keeps rings of
+        2r+3 planes for them (:func:`march_slots`)."""
+        return self.two_level or bool(self.cheby_coeffs)
 
     @property
     def itemsize(self) -> int:
@@ -171,7 +180,7 @@ class TiledPlan:
         if self.schedule == "march":
             return march_smem_bytes(self.tiles, self.sweeps_per_call,
                                     self.spec.radius, self.itemsize,
-                                    self.two_level)
+                                    self.reads_older)
         return _smem_bytes(self.tiles, self.sweeps_per_call,
                            self.spec.radius, self.itemsize)
 
@@ -231,35 +240,36 @@ def _cost(tiles, k: int, spec: StencilSpec, itemsize: int = 4) -> float:
     return slots / math.prod(tiles) / max(1, blocks) ** 0.25
 
 
-def march_slots(r: int, two_level: bool = False) -> int:
-    """Planes in each ring of a march block: 2r+2, one more in the
-    two-level mode. A step reads planes j-r .. j+r of every level's ring
-    and writes plane j+r+1; the two-level mode also reads level s-2's
-    plane j-r-1 (the subtrahend), which must not be the slot written in
-    the same step: 2r+3 is the least depth for which it is not."""
-    return 2 * r + 2 + bool(two_level)
+def march_slots(r: int, deep: bool = False) -> int:
+    """Planes in each ring of a march block: 2r+2, one more (``deep``) in
+    the modes that read level s-2 (two-level, Chebyshev, dual). A step
+    reads planes j-r .. j+r of every level's ring and writes plane j+r+1;
+    those modes also read level s-2's plane j-r-1 (the leapfrog's
+    subtrahend, the recurrence's u_{t-2}), which must not be the slot
+    written in the same step: 2r+3 is the least depth for which it is
+    not."""
+    return 2 * r + 2 + bool(deep)
 
 
 def march_smem_bytes(tiles, k: int, r: int, itemsize: int = 4,
-                     two_level: bool = False) -> int:
+                     deep: bool = False) -> int:
     """Shared memory of a march block: :func:`march_slots` planes per sweep
     level s = 0 .. k-1, each (t1 + 2(k-s)r) x (t2 + 2(k-s)r) points."""
     _, t1, t2 = tiles
-    return march_slots(r, two_level) * itemsize * sum(
+    return march_slots(r, deep) * itemsize * sum(
         (t1 + 2 * (k - s) * r) * (t2 + 2 * (k - s) * r) for s in range(k))
 
 
 def march_fits(tiles, k: int, r: int, itemsize: int = 4,
-               two_level: bool = False) -> bool:
-    """Whether the march kernel takes these tiles: k <= 16, the rings in
-    one block's shared memory, and in bfloat16 (2-byte points, which the
-    kernel stages through registers) an input plane of at most 8192
-    points."""
+               deep: bool = False) -> bool:
+    """Whether the march kernel takes these tiles: k <= 16, the rings
+    (``deep``: 2r+3 planes) in one block's shared memory, and in bfloat16
+    (2-byte points, which the kernel stages through registers) an input
+    plane of at most 8192 points."""
     _, t1, t2 = tiles
     plane = (t1 + 2 * k * r) * (t2 + 2 * k * r)
     return (k <= MARCH_MAX_SWEEPS
-            and march_smem_bytes(tiles, k, r, itemsize,
-                                 two_level) <= SMEM_LIMIT
+            and march_smem_bytes(tiles, k, r, itemsize, deep) <= SMEM_LIMIT
             and (itemsize == 4 or plane <= MARCH_STAGE * MARCH_THREADS))
 
 
@@ -310,29 +320,42 @@ _MARCH_T_CANDIDATES = (8, 16, 24, 32, 48, 64)
 # among the constants of the fit grid that pick the fastest tile of every
 # case, the nearest to MARCH_COST_CONSTANTS
 MARCH_TWO_LEVEL_COST_CONSTANTS = (8, 32, 8192)
+# The Chebyshev and dual modes (an update adds the source read, the level
+# s-2 read and five operations to nbsum3d's six taps; the rings are 2r+3
+# planes deep) keep MARCH_COST_CONSTANTS: fitted to their tiles timed at
+# 255^3 on an H100 (data/march_cheby_tiles_h100_fit.csv, tile_sweep.py
+# --march --cheby), those constants are the nearest to themselves among
+# the constants of the fit grid that pick the fastest tile of every case.
+
+
+def march_constants(two_level: bool) -> Tuple[int, int, int]:
+    """The cost model's constants of a mode: the two-level mode's own,
+    every other mode's (the Chebyshev and dual modes too) the homogeneous
+    ones."""
+    return MARCH_TWO_LEVEL_COST_CONSTANTS if two_level \
+        else MARCH_COST_CONSTANTS
 
 
 def choose_march_tiles(spec: StencilSpec, interior_shape,
                        sweeps_per_call: int,
                        t0_fixed: Optional[int] = None, dtype="float32",
-                       two_level: bool = False
+                       deep: bool = False,
+                       constants: Tuple[int, int, int] = MARCH_COST_CONSTANTS
                        ) -> Optional[Tuple[int, int, int]]:
     """The (d0 chunk, t1, t2) of least estimated cost
-    (:func:`_march_cost`) among those whose rings fit
-    (:func:`march_fits`); ties go to the wider d2 extent. None if nothing
-    fits. ``t0_fixed`` pins the chunk. ``two_level``: the two-level mode's
-    deeper rings and cost constants (``MARCH_TWO_LEVEL_COST_CONSTANTS``)."""
+    (:func:`_march_cost` with ``constants``, :func:`march_constants` of
+    the mode) among those whose rings fit (:func:`march_fits`; ``deep``:
+    rings of 2r+3 planes); ties go to the wider d2 extent. None if nothing
+    fits. ``t0_fixed`` pins the chunk."""
     k, r = sweeps_per_call, spec.radius
     itemsize = torch_dtype(dtype).itemsize
     n0, n1, n2 = interior_shape
     t0s = (t0_fixed,) if t0_fixed is not None else MARCH_T0_CANDIDATES
-    constants = (MARCH_TWO_LEVEL_COST_CONSTANTS if two_level
-                 else MARCH_COST_CONSTANTS)
     best, best_key = None, None
     for t0, t1, t2 in itertools.product(t0s, _MARCH_T_CANDIDATES,
                                         _MARCH_T_CANDIDATES):
         tiles = (min(t0, n0), min(t1, n1), min(t2, n2))
-        if not march_fits(tiles, k, r, itemsize, two_level):
+        if not march_fits(tiles, k, r, itemsize, deep):
             continue
         key = (_march_cost(tiles, interior_shape, k, spec, constants),
                -tiles[2],
@@ -458,11 +481,10 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     memory of a source plan (the kernel writes u_t over u_{t-2} in place;
     a(x) is read from global memory), so the chooser counts them the same.
 
-    ``schedule`` None takes the rule of the module docstring: a plain,
-    source, two-level (but at k=1) or coefficient plan marches where its
-    rings fit, a Chebyshev or dual plan takes the window; "march" or
-    "window" asks for one (``ValueError`` where it cannot run the
-    plan)."""
+    ``schedule`` None takes the rule of the module docstring: a plan
+    marches where its rings fit, but a two-level or Chebyshev plan at k=1,
+    which takes the window; "march" or "window" asks for one
+    (``ValueError`` where it cannot run the plan)."""
     if spec.ndim != 3 or len(interior_shape) != 3:
         raise ValueError("tiled kernel is 3D-only")
     dtype = dtype_name(torch_dtype(dtype))
@@ -480,17 +502,17 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     itemsize = torch_dtype(dtype).itemsize
     if schedule is not None and schedule not in SCHEDULES:
         raise ValueError(f"schedule {schedule!r}: one of {SCHEDULES}")
-    if schedule == "march" and coeffs:
-        raise ValueError("the march schedule runs the homogeneous, source, "
-                         "two-level and coefficient modes only")
-    # a two-level launch of one sweep: the window's (one window, no
-    # second buffer) beats the march's at cfg9's 256^3 on an H100, 0.1615
-    # against 0.2012 ms (data/march_two_level_tiles_h100.csv)
-    march = not coeffs and (schedule == "march" or (
-        schedule is None and not (two_level and k == 1)))
+    # a two-level or Chebyshev launch of one sweep: the window's (one
+    # window, no second buffer) beats the march's on an H100, 0.1615
+    # against 0.2012 ms at cfg9's 256^3 (data/march_two_level_tiles_h100
+    # .csv), 0.1249 against 0.1353 at 255^3
+    # (data/march_cheby_tiles_h100_fit.csv)
+    deep = two_level or bool(coeffs)
+    march = schedule == "march" or (
+        schedule is None and not (deep and k == 1))
     if tiles is None and march:
         tiles = choose_march_tiles(spec, interior_shape, k, t0_fixed, dtype,
-                                   two_level)
+                                   deep, march_constants(two_level))
         if tiles is None and schedule == "march":
             raise ValueError(f"no march tile of {interior_shape} at k={k} "
                              f"fits {SMEM_LIMIT} bytes of shared memory")
@@ -504,11 +526,11 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     tiles = tuple(int(t) for t in tiles)
     if any(t < 1 or t > n for t, n in zip(tiles, interior_shape)):
         raise ValueError(f"tiles {tiles} must lie in [1, {interior_shape}]")
-    march = march and march_fits(tiles, k, r, itemsize, two_level)
+    march = march and march_fits(tiles, k, r, itemsize, deep)
     if schedule == "march" and not march:
         raise ValueError(
             f"tiles {tiles} at k={k}, r={r} do not fit the march kernel "
-            f"({march_smem_bytes(tiles, k, r, itemsize, two_level)} bytes "
+            f"({march_smem_bytes(tiles, k, r, itemsize, deep)} bytes "
             f"of rings, at most {SMEM_LIMIT}; k <= {MARCH_MAX_SWEEPS})")
     if not march and _smem_bytes(tiles, k, r, itemsize) > SMEM_LIMIT:
         raise ValueError(

@@ -21,11 +21,11 @@ entries per type). See the source's header for its design and what bounds
 it.
 
 The march schedule (``plan.schedule == "march"``, ``ops/tiled.py``)
-replaces the window kernel in its homogeneous, source and two-level modes,
-in both types, and in its coefficient mode, each with pins and (but the
-two-level mode) tile subsets: ``csrc/tiled_march.cu`` walks each (d1, d2)
-tile's chunk of d0 planes through one shared-memory ring of planes per
-sweep level; the Chebyshev and dual modes stay on the window.
+replaces the window kernel in its homogeneous, source, two-level,
+Chebyshev and dual modes, in both types, and in its coefficient mode, each
+with pins and (but the two-level mode) tile subsets:
+``csrc/tiled_march.cu`` walks each (d1, d2) tile's chunk of d0 planes
+through one shared-memory ring of planes per sweep level.
 ``tiled_sweep`` launches it for a march plan (the library handle
 ``tiled_march``) and counts the launch also in ``march_launches`` and its
 mode's ``march_*`` count. A march coefficient launch reads the four
@@ -118,6 +118,12 @@ REPLACES_MODE.update({
         REPLACES_MODE["tiled_sweep+two_level+bf16"],
     "tiled_march+two_level+pins+bf16":
         REPLACES_MODE["tiled_sweep+two_level+pins+bf16"],
+    "tiled_march+cheby": REPLACES_MODE["tiled_sweep+cheby"],
+    "tiled_march+dual": REPLACES_MODE["tiled_sweep+dual"],
+    "tiled_march+cheby+bf16": REPLACES_MODE["tiled_sweep+cheby+bf16"],
+    "tiled_march+dual+bf16": REPLACES_MODE["tiled_sweep+dual+bf16"],
+    "tiled_march+cheby+subset": REPLACES_MODE["tiled_sweep+subset"],
+    "tiled_march+dual+subset": REPLACES_MODE["tiled_sweep+subset"],
 })
 
 WEIGHTS_SOURCE = _build.PACKAGE_DIR / "csrc" / "coeff_weights.cu"

@@ -56,9 +56,9 @@ equation's leapfrog, its rings 2r+3 planes deep) at ``TWO_LEVEL_CASES``
 periodic d0 and Neumann d1), every tile of the march chooser's candidates
 that fits, and the window at its own chooser's tile in the same run
 (``schedule`` column); ``--score`` then scores the chooser
-(``choose_march_tiles(two_level=True)``) and the schedule rule on such
-rows, and ``--fit`` ranks the constants of ``MARCH_FIT_GRID`` for it
-(``ops/tiled.py:MARCH_TWO_LEVEL_COST_CONSTANTS``).
+(``choose_march_tiles`` with ``deep`` and the two-level constants) and
+the schedule rule on such rows, and ``--fit`` ranks the constants of
+``MARCH_FIT_GRID`` for it (``ops/tiled.py:MARCH_TWO_LEVEL_COST_CONSTANTS``).
 ``data/march_two_level_tiles_h100.csv`` holds the rows they were fitted
 to; ``--held-out`` times ``TWO_LEVEL_HELD_OUT`` instead (the ragged 257^3
 at k=8, never fitted; ``data/march_two_level_tiles_h100_held_out.csv``):
@@ -66,6 +66,27 @@ at k=8, never fitted; ``data/march_two_level_tiles_h100_held_out.csv``):
     python -m stencil_tpu_torch.tile_sweep --march --two-level --out rows.csv
     python -m stencil_tpu_torch.tile_sweep --march --two-level --score \
         stencil_tpu_torch/data/march_two_level_tiles_h100.csv --fit
+
+``--march --cheby`` times the march's Chebyshev and dual modes (the
+multigrid fine level's smoother and fused smooth+residual, nbsum3d, rings
+2r+3 planes deep) at ``CHEBY_CASES`` (cfg13's two launches, Chebyshev k=2
+and dual k=3 at 255^3, the other depths of V(1,1) and V(3,3), and cfg13's
+Chebyshev launch in bf16), every tile of the march chooser's candidates
+that fits, and the window at its own chooser's tile in the same run
+(``schedule`` column); ``--score`` scores the chooser
+(``choose_march_tiles`` with ``deep``, as ``make_tiled_plan`` calls it)
+and the schedule rule of ``make_tiled_plan`` on such rows, and ``--fit``
+ranks the constants of ``MARCH_FIT_GRID`` for it (the modes keep
+``MARCH_COST_CONSTANTS``, which the fit reproduces).
+``data/march_cheby_tiles_h100_fit.csv`` holds the rows they were fitted to; ``--held-out`` times
+``CHEBY_HELD_OUT`` instead (cfg17's Chebyshev k=4 and dual k=5, cfg10's
+weighted-Jacobi dual k=5, the FMG path's dual k=3 at 63^3 and the bf16
+Chebyshev V(2,2)'s dual k=3, never fitted;
+``data/march_cheby_tiles_h100_held_out.csv``):
+
+    python -m stencil_tpu_torch.tile_sweep --march --cheby --out rows.csv
+    python -m stencil_tpu_torch.tile_sweep --march --cheby --score \
+        stencil_tpu_torch/data/march_cheby_tiles_h100_fit.csv --fit
 
 ``--dims 2 --march`` does it for the 2D kernel's march schedule
 (``csrc/slab_march.cu``): ``--out`` times every march tile of the chooser's
@@ -177,6 +198,27 @@ TWO_LEVEL_HELD_OUT = (("wave3d", (257, 257, 257), 8, "float32",
                        "dirichlet"),)
 FIELDS_TWO_LEVEL = ("spec", "n0", "n1", "n2", "k", "dtype", "walls",
                     "schedule", "t0", "t1", "t2", "ms")
+# the march's Chebyshev and dual modes (mode, shape, k, dtype, smoother):
+# cfg13's two launches (bench.py:247-258, Chebyshev V(2,2) in PCG: the
+# smoother k=2 and the fused smooth+residual k=3) at 255^3, the depths of
+# V(1,1) and V(3,3) beside them, and cfg13's Chebyshev launch in bf16; the
+# held-out cases, never fitted: cfg17's two launches (Chebyshev V(4,4),
+# :234-243), cfg10's fused launch (weighted Jacobi V(4,4)), the FMG path's
+# at 63^3 (weighted Jacobi V(2,2)) and the bf16 Chebyshev V(2,2)'s
+CHEBY_CASES = (("cheby", (255, 255, 255), 2, "float32", "chebyshev"),
+               ("dual", (255, 255, 255), 3, "float32", "chebyshev"),
+               ("cheby", (255, 255, 255), 1, "float32", "chebyshev"),
+               ("dual", (255, 255, 255), 2, "float32", "chebyshev"),
+               ("cheby", (255, 255, 255), 3, "float32", "chebyshev"),
+               ("dual", (255, 255, 255), 4, "float32", "chebyshev"),
+               ("cheby", (255, 255, 255), 2, "bfloat16", "chebyshev"))
+CHEBY_HELD_OUT = (("cheby", (255, 255, 255), 4, "float32", "chebyshev"),
+                  ("dual", (255, 255, 255), 5, "float32", "chebyshev"),
+                  ("dual", (255, 255, 255), 5, "float32", "wjacobi"),
+                  ("dual", (63, 63, 63), 3, "float32", "wjacobi"),
+                  ("dual", (255, 255, 255), 3, "bfloat16", "chebyshev"))
+FIELDS_CHEBY = ("mode", "n0", "n1", "n2", "k", "dtype", "smoother",
+                "schedule", "t0", "t1", "t2", "ms")
 # their scales (nb, c0, cs): FTCS at the stable step of max a = 1
 COEFF_SCALES = (1.0 / 6.0, 1.0, -1.0 / 6.0)
 MARCH_TILES = tuple((t0, t1, t2) for t0 in (16, 32, 64, 128, 256)
@@ -223,6 +265,7 @@ WINDOW_FIT_GRID = (tuple(x / 10 for x in range(5, 31)),
 Case = Tuple[str, Tuple[int, int], int, Optional[int]]
 MarchCase = Tuple[str, Tuple[int, int, int], int, str]
 TwoLevelCase = Tuple[str, Tuple[int, int, int], int, str, str]
+ChebyCase = Tuple[str, Tuple[int, int, int], int, str, str]
 SlabMarchCase = Tuple[str, Tuple[int, int], int, str, bool, Optional[int]]
 
 
@@ -446,20 +489,14 @@ def measure_two_level(out: Path,
                 rng.random(shape, dtype=np.float32)).to(torch_dtype(dtype)),
                 halo=spec.radius, bc=bc, device=device) for _ in range(2)]
             reps = max(10, min(50, int(4e8 / (math.prod(shape) * k))))
-            pick = tiled.choose_march_tiles(spec, shape, k, dtype=dtype,
-                                            two_level=True)
+            pick = tiled.choose_march_tiles(
+                spec, shape, k, dtype=dtype, deep=True,
+                constants=tiled.MARCH_TWO_LEVEL_COST_CONSTANTS)
             window = tiled.make_tiled_plan(spec, shape, dtype, k,
                                            two_level=True, schedule="window")
-            tiles = sorted({tuple(min(t, n) for t, n in zip(c, shape))
-                            for c in itertools.product(
-                                tiled.MARCH_T0_CANDIDATES,
-                                tiled._MARCH_T_CANDIDATES,
-                                tiled._MARCH_T_CANDIDATES)} | {pick})
-            tiles = [t for t in tiles if tiled.march_fits(
-                t, k, spec.radius, torch_dtype(dtype).itemsize, True)]
             times = {}
-            for sched, t in [("march", t) for t in tiles] \
-                    + [("window", window.tiles)]:
+            for sched, t in [("march", t) for t in march_candidates(
+                    shape, k, dtype, True)] + [("window", window.tiles)]:
                 plan = tiled.make_tiled_plan(spec, shape, dtype, k, tiles=t,
                                              two_level=True, schedule=sched)
                 cur, prev = (refresh_dynamic_layout(
@@ -490,15 +527,16 @@ def measure_two_level(out: Path,
             sys.stdout.flush()
 
 
-def read_two_level_rows(path: Path) -> Dict[TwoLevelCase, Dict]:
-    """Rows of a two-level sweep, grouped by case: {case: {"march":
-    {tiles: ms}, "window": (tiles, ms)}}."""
-    cases: Dict[TwoLevelCase, Dict] = {}
+def _read_schedule_rows(path: Path, first: str, last: str) -> Dict:
+    """Rows of a sweep with a ``schedule`` column, grouped by case
+    (row[first], shape, k, dtype, row[last]): {case: {"march": {tiles:
+    ms}, "window": (tiles, ms)}}."""
+    cases: Dict[tuple, Dict] = {}
     with open(path, newline="") as fh:
         lines = (line for line in fh if not line.startswith("#"))
         for row in csv.DictReader(lines):
-            case = (row["spec"], tuple(int(row[f"n{d}"]) for d in range(3)),
-                    int(row["k"]), row["dtype"], row["walls"])
+            case = (row[first], tuple(int(row[f"n{d}"]) for d in range(3)),
+                    int(row["k"]), row["dtype"], row[last])
             tiles = tuple(int(row[f"t{d}"]) for d in range(3))
             rec = cases.setdefault(case, {"march": {}})
             if row["schedule"] == "march":
@@ -508,17 +546,30 @@ def read_two_level_rows(path: Path) -> Dict[TwoLevelCase, Dict]:
     return cases
 
 
+def read_two_level_rows(path: Path) -> Dict[TwoLevelCase, Dict]:
+    """Rows of a two-level sweep, grouped by case: {case: {"march":
+    {tiles: ms}, "window": (tiles, ms)}}."""
+    return _read_schedule_rows(path, "spec", "walls")
+
+
+def read_cheby_rows(path: Path) -> Dict[ChebyCase, Dict]:
+    """Rows of a Chebyshev sweep, grouped by case, as
+    :func:`read_two_level_rows`."""
+    return _read_schedule_rows(path, "mode", "smoother")
+
+
 def score_two_level(cases) -> List[dict]:
     """Per two-level case: the chooser's pick
-    (``choose_march_tiles(two_level=True)``, among all its candidates), its
+    (``choose_march_tiles``, deep, the two-level constants), its
     measured ms, the fastest measured march tile, their ratio, the
     window's ms and the schedule ``make_tiled_plan`` gives the case."""
     out = []
     for (name, shape, k, dtype, walls), rec in cases.items():
         spec = spec_of(name)
         measured = rec["march"]
-        pick = tiled.choose_march_tiles(spec, shape, k, dtype=dtype,
-                                        two_level=True)
+        pick = tiled.choose_march_tiles(
+            spec, shape, k, dtype=dtype, deep=True,
+            constants=tiled.MARCH_TWO_LEVEL_COST_CONSTANTS)
         best = min(measured, key=measured.get)
         out.append({
             "case": (name, shape, k, dtype, walls), "pick": pick,
@@ -532,14 +583,22 @@ def score_two_level(cases) -> List[dict]:
 
 
 def fit_two_level(cases) -> List[Tuple[float, tuple]]:
-    """Constants of ``MARCH_FIT_GRID`` ranked for the two-level mode: by
-    the geometric mean of the pick's time over the fastest tile's (each
-    case picking among its measured tiles), then by the distance, in logs,
-    from the homogeneous mode's ``MARCH_COST_CONSTANTS``."""
+    """Constants of ``MARCH_FIT_GRID`` ranked for the two-level mode
+    (:func:`rank_march_constants`)."""
+    return rank_march_constants(cases, lambda case: spec_of(case[0]))
+
+
+def rank_march_constants(cases, spec_of_case) -> List[Tuple[float, tuple]]:
+    """Constants of ``MARCH_FIT_GRID`` ranked by the geometric mean of the
+    pick's time over the fastest tile's (each case picking among its
+    measured tiles, the spec ``spec_of_case(case)``), then by the
+    distance, in logs, from the homogeneous mode's
+    ``MARCH_COST_CONSTANTS``."""
     def geo(constants):
         ratios = []
-        for (name, shape, k, _, _), rec in cases.items():
-            spec, measured = spec_of(name), rec["march"]
+        for case, rec in cases.items():
+            _, shape, k, _, _ = case
+            spec, measured = spec_of_case(case), rec["march"]
             pick = min(measured, key=lambda t: (
                 tiled._march_cost(t, shape, k, spec, constants), -t[2],
                 -math.prod(t)))
@@ -552,6 +611,145 @@ def fit_two_level(cases) -> List[Tuple[float, tuple]]:
 
     return sorted(((geo(c), c) for c in itertools.product(*MARCH_FIT_GRID)),
                   key=lambda gc: (gc[0], distance(gc[1])))
+
+
+def cheby_plan(case: ChebyCase, tiles=None, schedule=None):
+    """The plan of a Chebyshev case: nbsum3d with the multigrid fine
+    level's tuples (``smoother`` sweeps at h = 1/(n0+1), then in the dual
+    mode the residual's), at ``tiles`` and ``schedule`` or the rule's."""
+    from stencil_tpu_torch.multigrid import _cheby_sweep_coeffs, nbsum_spec
+
+    mode, shape, k, dtype, smoother = case
+    dual = mode == "dual"
+    h = 1.0 / (shape[0] + 1)
+    nu = k - 1 if dual else k
+    if smoother == "chebyshev":
+        co = _cheby_sweep_coeffs(nu, 4.0, 3, h)
+    else:
+        w = 2.0 / 3.0
+        co = ((1.0 - w, w / 6, 0.0, -(w / 6) * h * h),) * nu
+    if dual:
+        co += ((6.0 / h ** 2, -1.0 / h ** 2, 0.0, 1.0),)
+    return tiled.make_tiled_plan(nbsum_spec(3), shape, dtype, k,
+                                 tiles=tiles, has_source=True,
+                                 cheby_coeffs=co, cheby_dual=dual,
+                                 schedule=schedule)
+
+
+def march_candidates(shape, k: int, dtype: str, deep: bool):
+    """Every tile of the march chooser's candidates, clamped to ``shape``,
+    whose rings (``deep``: 2r+3 planes) fit at radius 1 (the two-level
+    cases' wave3d and the Chebyshev cases' nbsum3d)."""
+    tiles = {tuple(min(t, n) for t, n in zip(c, shape))
+             for c in itertools.product(tiled.MARCH_T0_CANDIDATES,
+                                        tiled._MARCH_T_CANDIDATES,
+                                        tiled._MARCH_T_CANDIDATES)}
+    return sorted(t for t in tiles if tiled.march_fits(
+        t, k, 1, torch_dtype(dtype).itemsize, deep))
+
+
+def measure_cheby(out: Path, cases: Sequence[ChebyCase] = CHEBY_CASES,
+                  seed: int = 0) -> None:
+    """Time one Chebyshev or dual march launch at every tile of the march
+    chooser's candidates that fits the deep rings, and one window launch
+    at its chooser's tile, for every case on the current CUDA device (u and
+    f random, the reference walls); writes ``FIELDS_CHEBY`` rows to
+    ``out`` and prints per case the chooser's pick against the fastest
+    march tile, and the window's time."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
+    from stencil_tpu_torch.ops.layout import pad_source
+    from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
+    from stencil_tpu_torch.utils.timing import timed
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the tile sweep times the CUDA kernel: it needs "
+                           "a card (score and fit need none)")
+    device = torch.device("cuda")
+    label = gpu_label()
+    print(label)
+    rng = np.random.default_rng(seed)
+    bc = DirichletBC(values=((0.5, -1.0), (2.0, 0.25), (1.0, 1.5)))
+    with open(out, "w", newline="") as fh:
+        fh.write(f"# {label}, march cheby\n")
+        writer = csv.writer(fh)
+        writer.writerow(FIELDS_CHEBY)
+        for case in cases:
+            mode, shape, k, dtype, smoother = case
+            grid = HaloGrid.from_interior(torch.from_numpy(
+                rng.random(shape, dtype=np.float32)).to(torch_dtype(dtype)),
+                halo=1, bc=bc, device=device)
+            f = rng.normal(size=shape)
+            reps = max(10, min(50, int(4e8 / (math.prod(shape) * k))))
+            pick = cheby_plan(case, schedule="march").tiles
+            window = cheby_plan(case, schedule="window")
+            cur = window.layout.pad_grid(grid)  # one layout for every tile
+            src = pad_source(window, f, 1.0, bc).to(device)
+            nxt, out2 = cur.clone(), cur.clone() if mode == "dual" else None
+            times = {}
+            for sched, t in [("march", t) for t in march_candidates(
+                    shape, k, dtype, True)] + [("window", window.tiles)]:
+                plan = cheby_plan(case, t, sched)
+
+                def launch():
+                    tiled_sweep(cur, nxt, plan, src, out2=out2)
+
+                launch()
+                ms = timed(lambda: [launch() for _ in range(reps)],
+                           device) / reps * 1e3
+                times[(sched, t)] = ms
+                writer.writerow((mode, *shape, k, dtype, smoother, sched,
+                                 *t, repr(ms)))
+            fh.flush()
+            march = {t: ms for (sched, t), ms in times.items()
+                     if sched == "march"}
+            best = min(march, key=march.get)
+            wms = times[("window", window.tiles)]
+            print(f"march {mode} {smoother} {shape} k={k} {dtype}: "
+                  f"{len(march)} tiles; chooser {pick} {march[pick]:.4f} "
+                  f"ms, fastest {best} {march[best]:.4f} ms, "
+                  f"{march[pick] / march[best]:.3f}x; window "
+                  f"{window.tiles} {wms:.4f} ms [{label}]")
+            sys.stdout.flush()
+
+
+def score_cheby(cases) -> List[dict]:
+    """Per Chebyshev case: the chooser's pick
+    (``make_tiled_plan``'s march tiles), its measured ms, the fastest
+    measured march tile, their ratio, the window's ms and the schedule
+    ``make_tiled_plan`` gives the case."""
+    out = []
+    for case, rec in cases.items():
+        measured = rec["march"]
+        pick = cheby_plan(case, schedule="march").tiles
+        best = min(measured, key=measured.get)
+        out.append({
+            "case": case, "pick": pick, "pick_ms": measured[pick],
+            "best": best, "best_ms": measured[best],
+            "ratio": measured[pick] / measured[best],
+            "window": rec["window"], "schedule": cheby_plan(case).schedule})
+    return out
+
+
+def fit_cheby(cases) -> List[Tuple[float, tuple]]:
+    """Constants of ``MARCH_FIT_GRID`` ranked for the Chebyshev and dual
+    modes (:func:`rank_march_constants`, the spec nbsum3d)."""
+    from stencil_tpu_torch.multigrid import nbsum_spec
+
+    return rank_march_constants(cases, lambda case: nbsum_spec(3))
+
+
+def report_schedule_rows(kind: str, results) -> None:
+    """Print a scored sweep with a ``schedule`` column, case by case."""
+    for r in results:
+        wt, wms = r["window"]
+        print(f"march {kind} {r['case']}: pick {r['pick']} "
+              f"{r['pick_ms']:.4f} ms, best {r['best']} "
+              f"{r['best_ms']:.4f} ms, {r['ratio']:.3f}x; window "
+              f"{wt} {wms:.4f} ms; the plan takes the {r['schedule']}")
+    print(f"geometric mean {geomean(results):.4f}x the best tile, worst "
+          f"{max(r['ratio'] for r in results):.4f}x")
 
 
 def measure_slab_march(out: Path,
@@ -1032,6 +1230,9 @@ def main(argv=None) -> int:
     ap.add_argument("--two-level", action="store_true",
                     help="with --march: the two-level mode at "
                          "TWO_LEVEL_CASES")
+    ap.add_argument("--cheby", action="store_true",
+                    help="with --march: the Chebyshev and dual modes at "
+                         "CHEBY_CASES (with --held-out: CHEBY_HELD_OUT)")
     ap.add_argument("--coeff", action="store_true",
                     help="with --march --out: the coefficient mode at "
                          "MARCH_COEFF_CASES")
@@ -1068,21 +1269,20 @@ def main(argv=None) -> int:
                       f"{window}")
                 report_slab_march(cases, march, window)
         return 0
-    if args.march and args.two_level:
+    if args.march and (args.two_level or args.cheby):
+        measure_rows, read_rows_, score_rows, fit_rows, cases_, held = (
+            (measure_cheby, read_cheby_rows, score_cheby, fit_cheby,
+             CHEBY_CASES, CHEBY_HELD_OUT) if args.cheby else
+            (measure_two_level, read_two_level_rows, score_two_level,
+             fit_two_level, TWO_LEVEL_CASES, TWO_LEVEL_HELD_OUT))
         if args.out is not None:
-            measure_two_level(args.out, TWO_LEVEL_HELD_OUT if args.held_out
-                              else TWO_LEVEL_CASES)
+            measure_rows(args.out, held if args.held_out else cases_)
         if args.score is not None:
-            cases = read_two_level_rows(args.score)
-            for r in score_two_level(cases):
-                wt, wms = r["window"]
-                print(f"march two-level {r['case']}: pick {r['pick']} "
-                      f"{r['pick_ms']:.4f} ms, best {r['best']} "
-                      f"{r['best_ms']:.4f} ms, {r['ratio']:.3f}x; window "
-                      f"{wt} {wms:.4f} ms; the plan takes the "
-                      f"{r['schedule']}")
+            cases = read_rows_(args.score)
+            report_schedule_rows("cheby" if args.cheby else "two-level",
+                                 score_rows(cases))
             if args.fit:
-                for g, c in fit_two_level(cases)[:5]:
+                for g, c in fit_rows(cases)[:5]:
                     print(f"fit: constants {c}: geometric mean {g:.4f}x")
         return 0
     if args.march:

@@ -19,6 +19,8 @@ same order, built with -fmad=false); the multigrid cycle on the kernel
 against the eager cycle 5e-6 (the two reassociate the fine level's
 arithmetic)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1274,6 +1276,181 @@ def test_march_wave_iterate_with_remainder_matches_window(cuda_device, dtype,
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---- the Chebyshev and dual modes on the d0 march (B1b, B1c) ----------------
+
+
+@pytest.mark.parametrize("shape,k,dual,smoother,dtype", [
+    ((255, 255, 255), 2, False, "chebyshev", "float32"),
+    ((255, 255, 255), 3, True, "chebyshev", "float32"),
+    ((255, 255, 255), 5, True, "wjacobi", "float32"),
+    ((57, 50, 46), 2, True, "wjacobi", "float32"),
+    ((57, 50, 46), 3, False, "chebyshev", "float32"),
+    ((57, 50, 46), 4, False, "chebyshev", "float32"),
+    ((57, 50, 46), 5, True, "chebyshev", "float32"),
+    ((255, 255, 255), 3, True, "chebyshev", "bfloat16"),
+    ((57, 50, 46), 2, False, "chebyshev", "bfloat16"),
+    ((57, 50, 46), 4, True, "wjacobi", "bfloat16")])
+def test_march_cheby_matches_plain_and_window(cuda_device, shape, k, dual,
+                                              smoother, dtype):
+    """One Chebyshev or dual march launch bitwise its plain version and the
+    window schedule's launch, on both outputs in the dual mode, fp32 and
+    bf16; its counts bumped once."""
+    kw = dict(has_source=True, cheby_dual=dual,
+              cheby_coeffs=_cheby_coeffs(shape, k, dual, smoother))
+    plan = make_tiled_plan(nbsum_spec(3), shape, dtype, k, schedule="march",
+                           **kw)
+    window = make_tiled_plan(nbsum_spec(3), shape, dtype, k,
+                             schedule="window", **kw)
+    cur = _bf16_input(plan, shape, 1, cuda_device) if dtype == "bfloat16" \
+        else plan.layout.pad_grid(_grid(shape, 1, cuda_device))
+    src = pad_source(plan, _source(shape), 1.0, BC3).to(cuda_device)
+    bf16 = dtype == "bfloat16"
+    tiled_sweep.reset_counts()
+    got = tiled_sweep(cur, cur.clone(), plan, src,
+                      out2=cur.clone() if dual else None)
+    torch.cuda.synchronize()
+    assert (tiled_sweep.march_launches, tiled_sweep.march_cheby_launches,
+            tiled_sweep.march_dual_launches, tiled_sweep.dual_launches,
+            tiled_sweep.march_cheby_bf16_launches,
+            tiled_sweep.march_dual_bf16_launches,
+            tiled_sweep.march_bf16_launches) == (
+        1, not dual, dual, dual, bf16 and not dual, bf16 and dual, bf16)
+    via_window = tiled_sweep(cur, cur.clone(), window, src,
+                             out2=cur.clone() if dual else None)
+    want = sweep_reference(cur, plan, src)
+    torch.cuda.synchronize()
+    assert tiled_sweep.march_launches == 1 and tiled_sweep.launches == 2
+    for g, w, v in zip(*((t,) if not dual else t
+                         for t in (got, want, via_window))):
+        assert torch.equal(g, w)
+        assert torch.equal(g, v)
+
+
+@pytest.mark.parametrize("dual,dtype", [(False, "float32"), (True, "float32"),
+                                        (True, "bfloat16")])
+def test_march_cheby_subsets_pair_is_the_full_launch(cuda_device, dual,
+                                                     dtype):
+    """An interior then an edge subset launch of a Chebyshev or dual march
+    plan into the same outputs, each bitwise its plain version, the pair
+    the full launch."""
+    from stencil_tpu_torch.ops.sweep_kernel import subset_reference
+    from stencil_tpu_torch.ops.tiled import partition_tiles
+
+    shape, k = (96, 80, 72), 3
+    plan = make_tiled_plan(nbsum_spec(3), shape, dtype, k, tiles=(16, 16, 32),
+                           has_source=True, cheby_dual=dual,
+                           cheby_coeffs=_cheby_coeffs(shape, k, dual,
+                                                      "chebyshev"),
+                           schedule="march")
+    cur = _bf16_input(plan, shape, 1, cuda_device) if dtype == "bfloat16" \
+        else plan.layout.pad_grid(_grid(shape, 1, cuda_device))
+    src = pad_source(plan, _source(shape), 1.0, BC3).to(cuda_device)
+    base = [cur.clone() for _ in range(2 if dual else 1)]
+    for b in base:
+        b[plan.layout.interior_index] = -1.0
+    interior, edge = partition_tiles(plan)
+    assert interior and edge
+    tiled_sweep.reset_counts()
+
+    def launch(outs, subset):
+        outs = [o.clone() for o in outs]
+        got = tiled_sweep(cur, outs[0], plan, src,
+                          out2=outs[1] if dual else None, subset=subset)
+        return list(got) if dual else [got]
+
+    part = launch(base, interior)
+    got = launch(part, edge)
+    full = launch(base, None)
+    torch.cuda.synchronize()
+    assert tiled_sweep.march_subset_launches == 2
+    assert tiled_sweep.march_launches == 3
+    for outs, prior, subset in ((part, base, interior), (got, part, edge)):
+        want = subset_reference(cur, prior[0], plan, subset, src,
+                                out2=prior[1] if dual else None)
+        for g, w in zip(outs, want if dual else (want,)):
+            assert torch.equal(g, w)
+    for g, f in zip(got, full):
+        assert torch.equal(g, f)
+
+
+@pytest.mark.parametrize("name,k,dtype", [
+    ("wjacobi", 2, "float32"), ("wjacobi", 4, "float32"),
+    ("wjacobi", 2, "bfloat16"), ("residual", 1, "float32")])
+def test_march_seven_taps_match_plain_and_window(cuda_device, name, k,
+                                                 dtype):
+    """The multigrid fine level's 7-tap source plans (the weighted-Jacobi
+    smoother, two groups, and the residual), unrolled on the march,
+    bitwise their plain version and the window's launch."""
+    from stencil_tpu_torch.multigrid import residual_spec, wjacobi_spec
+
+    shape = (57, 50, 46)
+    spec = wjacobi_spec(3, 2.0 / 3.0) if name == "wjacobi" \
+        else residual_spec(3, 1.0 / 58)
+    assert spec.num_taps == 7
+    plan = make_tiled_plan(spec, shape, dtype, k, has_source=True)
+    window = make_tiled_plan(spec, shape, dtype, k, has_source=True,
+                             schedule="window")
+    assert plan.schedule == "march"
+    cur = _bf16_input(plan, shape, 1, cuda_device) if dtype == "bfloat16" \
+        else plan.layout.pad_grid(_grid(shape, 1, cuda_device))
+    src = pad_source(plan, _source(shape), -0.01, BC3).to(cuda_device)
+    got = tiled_sweep(cur, cur.clone(), plan, src)
+    via_window = tiled_sweep(cur, cur.clone(), window, src)
+    want = sweep_reference(cur, plan, src)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, via_window)
+
+
+def test_march_cheby_refuses_rather_than_falls_back(cuda_device):
+    """A CUDA tensor with a Chebyshev march plan launches the march kernel
+    or raises: rings the kernel refuses are an error, not a window or
+    plain launch."""
+    import dataclasses
+
+    shape = (64, 64, 64)
+    plan = make_tiled_plan(nbsum_spec(3), shape, "float32", 5,
+                           has_source=True, cheby_dual=True,
+                           cheby_coeffs=_cheby_coeffs(shape, 5, True,
+                                                      "chebyshev"),
+                           schedule="march")
+    big = dataclasses.replace(plan, tiles=(64, 64, 64))  # rings overflow
+    cur = plan.layout.pad_grid(_grid(shape, 1, cuda_device))
+    src = pad_source(plan, _source(shape), 1.0, BC3).to(cuda_device)
+    tiled_sweep.reset_counts()
+    with pytest.raises(RuntimeError, match="shared memory"):
+        tiled_sweep(cur, cur.clone(), big, src, out2=cur.clone())
+    assert tiled_sweep.launches == 0
+
+
+def test_march_cheby_multigrid_counts(cuda_device, monkeypatch):
+    """A Chebyshev V(2,2) at 63^3 on the tiled fine level marches both of
+    its fine-level plans: every fine launch a march Chebyshev or dual one,
+    and the cycles bitwise those on window plans (the plan maker asked for
+    the window)."""
+    prob = PoissonProblem(shape=(63, 63, 63), device=cuda_device)
+    f = _source(prob.shape).astype(np.float32)
+    mg = Multigrid(prob, smoother="chebyshev", fine_method="tiled")
+    run = mg.runner(f)
+    assert run.plan_info["fine_schedules"] == {
+        "pre": "march", "res": "march", "post": "march", "fused": "march"}
+    tiled_sweep.reset_counts()
+    got = run.iterate(prob.initial_grid(), 3)
+    torch.cuda.synchronize()
+    assert tiled_sweep.march_dual_launches == 3
+    assert tiled_sweep.march_cheby_launches == 3
+    assert tiled_sweep.launches == 6
+    from stencil_tpu_torch.ops import tiled
+
+    monkeypatch.setattr(tiled, "make_tiled_plan", functools.partial(
+        tiled.make_tiled_plan, schedule="window"))
+    window = Multigrid(prob, smoother="chebyshev",
+                       fine_method="tiled").runner(f)
+    assert set(window.plan_info["fine_schedules"].values()) == {"window"}
+    want = window.iterate(prob.initial_grid(), 3)
+    assert torch.equal(got.data, want.data)
 
 
 # ---- the 2D d0 march (csrc/slab_march.cu) ----------------------------------

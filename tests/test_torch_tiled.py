@@ -24,7 +24,7 @@ from stencil_tpu_torch.core import grid as tgrid
 from stencil_tpu_torch.core import spec as tspec
 from stencil_tpu_torch.ops import golden
 from stencil_tpu_torch.ops.tiled import (
-    SMEM_LIMIT, TiledStencil, make_tiled_plan,
+    SMEM_LIMIT, TiledStencil, make_tiled_plan, march_smem_bytes,
 )
 from stencil_tpu_torch.ops.tiled_kernel import (
     sweep_reference, tap_table, tiled_sweep,
@@ -360,10 +360,18 @@ def test_cheby_remainder_plan_slices_coefficients():
     assert rem.tiles == plan.tiles and rem.layout == plan.layout
     assert plan.with_sweeps(4) == plan
     # the smoother modes take the shared memory of a source plan on the
-    # window schedule (a source plan would march by default)
+    # window schedule (a source plan would march by default); on the march
+    # their rings are 2r+3 planes deep, as the two-level mode's
+    window = make_tiled_plan(nbsum_spec(3), (16, 16, 16), "float32", 4,
+                             has_source=True, cheby_coeffs=co,
+                             cheby_dual=True, schedule="window")
     src = make_tiled_plan(nbsum_spec(3), (16, 16, 16), "float32", 4,
-                          tiles=plan.tiles, schedule="window")
-    assert plan.smem_bytes == src.smem_bytes
+                          tiles=window.tiles, schedule="window")
+    assert window.smem_bytes == src.smem_bytes
+    march = make_tiled_plan(nbsum_spec(3), (16, 16, 16), "float32", 4,
+                            has_source=True, cheby_coeffs=co,
+                            cheby_dual=True, schedule="march")
+    assert march.smem_bytes == march_smem_bytes(march.tiles, 4, 1, 4, True)
 
 
 def test_cheby_wrapper_checks(rng):

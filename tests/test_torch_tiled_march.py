@@ -37,8 +37,9 @@ from stencil_tpu_torch.ops.sweep_kernel import (
     subset_reference, sweep_reference,
 )
 from stencil_tpu_torch.ops.tiled import (
-    MARCH_THREADS, SMEM_LIMIT, choose_march_tiles, make_tiled_plan,
-    march_fits, march_smem_bytes, partition_tiles,
+    MARCH_THREADS, SCHEDULES, SMEM_LIMIT,
+    choose_march_tiles, make_tiled_plan, march_fits, march_smem_bytes,
+    partition_tiles,
 )
 
 TOL = 5e-6
@@ -270,8 +271,8 @@ def test_thread_start_division_is_exact():
 def test_chooser_fits_and_schedule_rule(dtype):
     """Every chosen march plan fits 232,448 bytes (and, in bf16, the
     kernel's 8192-point staged plane); plain, source, two-level and (fp32)
-    coefficient plans march, the Chebyshev and dual modes take the
-    window."""
+    coefficient plans march, and so do the Chebyshev and dual modes (but
+    a Chebyshev plan of one sweep)."""
     for name, shape, k in [("jacobi7", (256, 256, 256), 8),
                            ("jacobi7", (256, 256, 256), 1),
                            ("jacobi7", (257, 257, 257), 8),
@@ -303,11 +304,15 @@ def test_chooser_fits_and_schedule_rule(dtype):
                                coeff_scales=(1, 1, -6)).schedule == "march"
     assert make_tiled_plan(get_spec("jacobi7"), (16, 16, 16), dtype, 2,
                            two_level=True).schedule == "march"
-    assert all(p.schedule == "window" for p in others)
-    with pytest.raises(ValueError, match="homogeneous, source, two-level "
-                                         "and coefficient"):
-        make_tiled_plan(nb, (16, 16, 16), dtype, 2, has_source=True,
-                        cheby_coeffs=co, schedule="march")
+    # the Chebyshev and dual plans march too (from k=2 on); either
+    # schedule on request
+    for p in others:
+        assert p.schedule == "march"
+        for schedule in SCHEDULES:
+            assert make_tiled_plan(
+                nb, (16, 16, 16), dtype, 2, has_source=True,
+                cheby_coeffs=co, cheby_dual=p.cheby_dual,
+                schedule=schedule).schedule == schedule
     # a plain plan takes the window when asked; beyond 16 sweeps neither
     # kernel takes a launch
     assert make_tiled_plan(get_spec("jacobi7"), (40, 40, 40), dtype, 8,

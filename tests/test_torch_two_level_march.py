@@ -243,8 +243,9 @@ def test_slots_race_free_at_2r_plus_3_and_not_at_2r_plus_2(r):
 def test_plan_rule_and_ring_bytes():
     """A two-level plan marches where its deeper rings fit (cfg9 at 256^3
     k=8, fp32 and bf16), ``schedule="window"`` still gives the window,
-    ``schedule="march"`` is accepted; the Chebyshev and dual plans keep the
-    window and refuse the march. The rings take 2r+3 planes per level."""
+    ``schedule="march"`` is accepted; the Chebyshev and dual plans march
+    on the same 2r+3-plane rings. The rings take 2r+3 planes per
+    level."""
     spec = twave.WaveEquation(shape=CFG9, device="cpu").spec
     assert march_smem_bytes((128, 32, 32), 8, 1, 4, True) == 272_320
     assert march_smem_bytes((128, 32, 24), 8, 1, 4, True) == 219_840
@@ -258,8 +259,9 @@ def test_plan_rule_and_ring_bytes():
         item = 2 if dtype == "bfloat16" else 4
         plan = make_tiled_plan(spec, CFG9, dtype, 8, two_level=True)
         assert plan.schedule == "march" and plan.two_level
-        assert plan.tiles == choose_march_tiles(spec, CFG9, 8, dtype=dtype,
-                                                two_level=True)
+        assert plan.tiles == choose_march_tiles(
+            spec, CFG9, 8, dtype=dtype, deep=True,
+            constants=MARCH_TWO_LEVEL_COST_CONSTANTS)
         assert plan.smem_bytes == march_smem_bytes(
             plan.tiles, 8, 1, item, True) <= SMEM_LIMIT
         assert make_tiled_plan(spec, CFG9, dtype, 8, two_level=True,
@@ -287,12 +289,13 @@ def test_plan_rule_and_ring_bytes():
         cheby = make_tiled_plan(nb, (16, 16, 16), "float32", 2,
                                 has_source=True, cheby_coeffs=co,
                                 cheby_dual=dual)
-        assert cheby.schedule == "window"
-        with pytest.raises(ValueError, match="homogeneous, source, "
-                                             "two-level and coefficient"):
-            make_tiled_plan(nb, (16, 16, 16), "float32", 2, has_source=True,
-                            cheby_coeffs=co, cheby_dual=dual,
-                            schedule="march")
+        assert cheby.schedule == "march"
+        march = make_tiled_plan(nb, (16, 16, 16), "float32", 2,
+                                has_source=True, cheby_coeffs=co,
+                                cheby_dual=dual, schedule="march")
+        assert march.schedule == "march" and march.reads_older
+        assert march.smem_bytes == march_smem_bytes(march.tiles, 2, 1, 4,
+                                                    True)
 
 
 def test_chooser_and_rule_on_the_committed_rows():
