@@ -56,7 +56,10 @@ Phases, each ending in a line of its own:
    (periodic and Neumann faces live) of every other
    mode on a dynamic-wall path, on refreshed random grids: the 3D kernel
    at 256³ k=8 with periodic 0 1, Neumann 0 1 and periodic 0 + Neumann 1,
-   ragged k=3, ``laplace3d_ho`` k=4, ``--periodic all`` at k=1; its source
+   ragged k=3, ``laplace3d_ho`` k=4, ``--periodic all`` at k=1, and at the
+   streamed paths' chunk plans and pins (1024³ in 8 chunks: the first, an
+   inner and the last chunk; 256³ in 4 with each wall mix), the live d0
+   ghost planes random data; its source
    mode at the periodic/Neumann Poisson path's plan; its two-level mode on
    the march at cfg9's plan and ragged with periodic 0 + Neumann 1 and
    ragged k=1 periodic (both outputs, also against the window); the 2D
@@ -177,7 +180,25 @@ Phases, each ending in a line of its own:
    ``--neumann 1 --mesh 2`` (every launch a pins one) and with ``--dtype
    bfloat16`` on (1,) and (2, 2) at 16 sweeps (every launch a bf16 one),
    and each runner's sweeps (one launch) bitwise ``tiled`` at k=2 on the
-   same walls and dtype;
+   same walls and dtype; then the out-of-core ``-m streamed`` (jacobi7
+   1024³ fp32 ``-k 8 -i 16 --chunks 8`` from a seeded random interior, a
+   4 GiB host iterate; at 256³ ``--periodic 0 1`` and ``--periodic 0
+   --neumann 1``, also against the float64 golden, and the chunk count
+   ``auto_chunks`` gives with ``STENCIL_TPU_HBM_MB`` set small), each
+   bitwise ``-m tiled`` at the same k, every launch a march launch with a
+   live face (counted in ``tiled_march+pins``); ``-m tiled -k 8`` at 256³
+   through ``CheckpointedRun`` (the CLI's ``--checkpoint-dir``),
+   interrupted after its first save and resumed, bitwise the
+   uninterrupted run, and ``--solve poisson`` 63³ with
+   ``--checkpoint-dir``; ``-m pallas_temporal -k 8`` at 256³ with
+   ``--dump-image`` and ``--profile`` (a BMP of the right header and size,
+   a non-empty trace); and cfg14 and cfg15 (``bench.py:397-432``: advdiff
+   255³, velocity (1, -0.5, 0.25), ν 0.05, f from ``default_rng(3)``,
+   BiCGStab and GMRES(8) right-preconditioned by OperatorMultigrid, tol
+   1e-4), each converged with a float64 certificate under 1e-4, their
+   iterations and time to solution (a host clock around the solve and its
+   fetch, the median of 3 after a warm-up). Phase 4's CLI runs time their
+   paths with a 0.3 s signal (``BENCH_SIGNAL_S``), as phase 5 does;
 5. times: GLUPS of the 3D tiled kernel on the march and on the window
    schedule at k = 1, 2, 4 and 8 and of ``eager`` at 256³ (the k=1 pair
    printed beside the schedule the plan rule gives k=1); cfg3–cfg6 and
@@ -252,7 +273,13 @@ Phases, each ending in a line of its own:
    launches alone of 32 and 64 steps at the bench cell, with each of
    those walls and dtypes, and at 8×8×16, whose step is mostly the
    kernel's fixed cost per step (the wait on the flags, the barriers
-   inside a block), each with its tile count and flag waits per step.
+   inside a block), each with its tile count and flag waits per step;
+   the streamed path at 1024³ (jacobi7 k=8, 8 chunks) through its
+   registry runner as ms per outer step (the runner's marginal, in whole
+   outer steps), beside its bound (the bytes up and down per step over
+   the pinned-copy rates measured in the run, one way at a time and both
+   at once) and the chunk launches' device time in a profiler trace of
+   two outer steps.
 
 The march replaces the window schedule in the homogeneous and source
 modes, with pins, bf16 and subsets, in the two-level mode with pins and
@@ -312,6 +339,7 @@ import contextlib
 import functools
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -382,6 +410,33 @@ HETERO_CERT_AGREE = 0.01      # auto vs pallas certificates, relative
 # (bench.py:275-287), its golden run's iterations at k=8, and the
 # integer-CFL translations at k=1 on a fully periodic box, each checked
 # against exact_translate
+# cfg14/cfg15 (bench.py:397-432): steady advection-diffusion at 255^3 by
+# BiCGStab and GMRES(8), each right-preconditioned by OperatorMultigrid
+ADVDIFF_SIZE = (255, 255, 255)
+ADVDIFF_VELOCITY = (1.0, -0.5, 0.25)
+ADVDIFF_NU = 0.05
+ADVDIFF_SEED = 3
+ADVDIFF_TOL = 1e-4
+ADVDIFF_MAX_ITERS = 3000
+ADVDIFF_RUNS = 3             # timed solves after one warm-up, median taken
+# the streamed (out-of-core) paths: 1024^3 (a 4 GiB host iterate) in 8
+# chunks, bitwise tiled; the walls and auto chunk count at 256^3
+STREAM_SIZE = (1024, 1024, 1024)
+STREAM_K = 8
+STREAM_ITERS = 16
+STREAM_CHUNKS = 8
+STREAM_SMALL = (256, 256, 256)
+STREAM_WALLS = (((0, 1), ()), ((0,), (1,)))
+STREAM_AUTO_HBM_MB = 512     # auto_chunks then gives more than 1 at 256^3
+STREAM_TRACE_STEPS = 2       # phase 5: outer steps in the profiler trace
+COPY_BYTES = 1 << 30         # phase 5: the pinned-copy rates' transfer
+# the marginal timings' signal, seconds: phase 5's GLUPS and the CLI's own
+# timing of phase 4's main paths, which phase 4 runs for their checks and
+# launch counts. The CLI's default is 0.75 s; the spread of a row's two
+# marginals was no wider at 0.3 s (phase 5 prints its median and largest)
+BENCH_SIGNAL_S = 0.3
+# (relative spread of its two marginals, row) of each phase-5 bench row
+MARGINAL_SPREADS = []
 ADVECT_VELOCITY = (0.5, -0.25, 0.125)
 ADVECT_ITERS = 32
 TRANSLATE_VELOCITIES = ((0.0, 0.0, 1.0), (-1.0, 0.0, 0.0))
@@ -615,14 +670,16 @@ def pins_input(plan, bc, rng, device):
 
 
 def compare_pins(kernel, plan, bc, cur, mode, src=None, coeff=None,
-                 prev=None):
-    """One launch of ``plan`` with ``bc``'s pins on the refreshed ``cur``
-    against the plain version (both outputs of a two-level launch, given
-    ``prev``); ``src``/``coeff`` carry the walls' images."""
+                 prev=None, pins=None):
+    """One launch of ``plan`` with ``bc``'s pins (or ``pins``) on the
+    refreshed ``cur`` against the plain version (both outputs of a
+    two-level launch, given ``prev``); ``src``/``coeff`` carry the walls'
+    images."""
     from stencil_tpu_torch.ops.sweep_kernel import sweep_reference
     from stencil_tpu_torch.ops.tiled import dynamic_pins
 
-    pins = dynamic_pins(bc, len(plan.interior_shape))
+    if pins is None:
+        pins = dynamic_pins(bc, len(plan.interior_shape))
     label = (f"{mode} {plan.spec.name} {plan.interior_shape} k="
              f"{plan.sweeps_per_call} tiles {plan.tiles}, {walls_name(bc)},"
              f" pins {list(pins)}")
@@ -636,6 +693,46 @@ def compare_pins(kernel, plan, bc, cur, mode, src=None, coeff=None,
                                      coeff=coeff),
                        sweep_reference(cur, plan, src, coeff=coeff,
                                        pins=pins))
+
+
+def compare_stream_chunks(kernel, rng, device):
+    """One launch of each streamed chunk plan at the shape and pins a
+    phase-4 streamed path gives it, against the plain version: the 1024^3
+    run's chunk (``STREAM_CHUNKS`` chunks, k = ``STREAM_K``) with the
+    first, an inner and the last chunk's pins, and the 256^3 wall runs'
+    first chunk (4 chunks). The input is random, its ghost planes on a
+    live d0 face too (the neighbour chunks' planes). Returns the largest
+    difference."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import DirichletBC
+    from stencil_tpu_torch.core.spec import get_spec
+    from stencil_tpu_torch.streaming import StreamedStencil
+
+    j7 = get_spec("jacobi7")
+    cases = [(StreamedStencil(j7, STREAM_SIZE, sweeps_per_call=STREAM_K,
+                              chunks=STREAM_CHUNKS, device=device),
+              DirichletBC.reference_default(3), ci)
+             for ci in (0, 1, STREAM_CHUNKS - 1)]
+    cases += [(StreamedStencil(j7, STREAM_SMALL, sweeps_per_call=STREAM_K,
+                               chunks=4, device=device),
+               walls(3, periodic, neumann), 0)
+              for periodic, neumann in STREAM_WALLS]
+    errs = []
+    for m, bc, ci in cases:
+        plan, pins = m.plans[ci], m.chunk_pins(ci, bc)
+        cur = pins_input(plan, bc, rng, device)
+        h = plan.halo
+        n1, n2 = plan.interior_shape[1:]
+        for rows, pin in zip((slice(0, h), slice(-h, None)), pins[:2]):
+            if not pin:
+                cur[rows, h:h + n1, h:h + n2] = torch.from_numpy(
+                    rng.random((h, n1, n2), dtype=np.float32)).to(device)
+        errs.append(compare_pins(kernel, plan, bc, cur,
+                                 f"streamed chunk {ci} of {m.num_chunks}",
+                                 pins=pins))
+        del cur
+    return max(errs)
 
 
 def bf16_input(plan, bc, rng, device, tiny=False):
@@ -1623,6 +1720,361 @@ def run_hetero_cli(cli, kernel, label):
     return counts["pallas"], weights["pallas"]
 
 
+def run_advdiff_cells(label):
+    """cfg14 and cfg15 as ``bench.py:397-432`` builds them: the 255^3
+    advection-diffusion problem, f from ``default_rng(3).normal``,
+    OperatorMultigrid right-preconditioning BiCGStab and GMRES(8), tol
+    1e-4, at most 3000 iterations. Each must converge with a float64
+    certificate (``residual_f64`` over max |f|) under the tolerance; its
+    time to solution is a host clock around the solve and its one fetch,
+    the median of ``ADVDIFF_RUNS`` after a warm-up. No hand-written kernel
+    runs: the operator and the cycle are eager, as JAX's are XLA. Returns
+    {cell: (iterations, median ms, all ms, certificate)}."""
+    import torch
+
+    from stencil_tpu_torch.krylov import GMRES, BiCGStab
+    from stencil_tpu_torch.models.advection_diffusion import (
+        AdvectionDiffusionProblem,
+    )
+    from stencil_tpu_torch.multigrid import OperatorMultigrid
+
+    prob = AdvectionDiffusionProblem(shape=ADVDIFF_SIZE,
+                                     velocity=ADVDIFF_VELOCITY,
+                                     nu=ADVDIFF_NU, device=DEVICE)
+    f_np = np.random.default_rng(ADVDIFF_SEED).normal(
+        size=ADVDIFF_SIZE).astype(np.float32)
+    f = torch.from_numpy(f_np).to(DEVICE)
+    opmg = OperatorMultigrid(prob)
+    out = {}
+    for cell, solver in (("cfg14", BiCGStab(prob, preconditioner=opmg)),
+                         ("cfg15", GMRES(prob, preconditioner=opmg,
+                                         restart=8))):
+        times = []
+        for run in range(ADVDIFF_RUNS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solver.solve(f, tolerance=ADVDIFF_TOL,
+                               max_iterations=ADVDIFF_MAX_ITERS)
+            torch.cuda.synchronize()
+            if run:
+                times.append((time.perf_counter() - t0) * 1e3)
+        cert = prob.residual_f64(res.grid, f_np) / float(np.max(np.abs(f_np)))
+        ms = statistics.median(times)
+        print(f"{cell} ({type(solver).__name__}"
+              f"{'(8)' if cell == 'cfg15' else ''} + OperatorMultigrid, "
+              f"advdiff {'x'.join(map(str, ADVDIFF_SIZE))} velocity "
+              f"{ADVDIFF_VELOCITY} nu {ADVDIFF_NU}, tol {ADVDIFF_TOL}): "
+              f"{res.summary()}; float64 certificate max |f - A u| / max|f|"
+              f" = {cert:.3e}; time to solution {ms:.3f} ms (median of "
+              f"{ADVDIFF_RUNS} after a warm-up: "
+              f"{', '.join(f'{t:.3f}' for t in times)}) [{label}]")
+        require(res.converged and cert < ADVDIFF_TOL
+                and np.isfinite(res.residual),
+                f"{cell}: {res.summary()}, certificate {cert:.3e}")
+        out[cell] = (res.iterations, ms, times, cert)
+    return out
+
+
+def seeded_grid(shape, bc, device, seed=SEED):
+    """A halo-1 grid on ``device`` with a seeded random interior, drawn on
+    the device (a 1024^3 interior in one call)."""
+    import torch
+
+    from stencil_tpu_torch.core.grid import HaloGrid
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand(shape, generator=gen, device=device)
+    return HaloGrid.from_interior(x, halo=1, bc=bc, device=device)
+
+
+def streamed_case(kernel, args, grid, label, hbm_mb=None, golden=False):
+    """``-m streamed`` through the registry (the CLI's runner) on ``grid``
+    against ``-m tiled`` at the same k, bitwise; the streamed run with the
+    kernel's counts set to 0 just before and read just after: every launch
+    a march launch with a live face (each chunk has one) or, in one chunk,
+    a plain march launch. ``hbm_mb`` sets ``STENCIL_TPU_HBM_MB`` while the
+    runner is made (auto chunks). Returns (launches, pins launches,
+    runner)."""
+    import os
+
+    import torch
+
+    from stencil_tpu_torch import registry
+    from stencil_tpu_torch.config import parse_args
+
+    cfg = parse_args([*args, "--device", DEVICE])
+    spec = cfg.resolved_spec()
+    if hbm_mb is not None:
+        os.environ["STENCIL_TPU_HBM_MB"] = str(hbm_mb)
+    try:
+        runner = registry.get_runner("streamed", cfg, spec, grid)
+    finally:
+        os.environ.pop("STENCIL_TPU_HBM_MB", None)
+    kernel.reset_counts()
+    t0 = time.perf_counter()
+    out = runner.iterate(grid, cfg.iterations)
+    seconds = time.perf_counter() - t0
+    n, pins = kernel.launches, kernel.march_pins_launches
+    chunks = runner.plan_info["chunks"]
+    k = runner.plan_info["k"]
+    require(n == chunks * -(-cfg.iterations // k),
+            f"streamed {args}: {n} launches, {chunks} chunks")
+    require(kernel.march_launches == n and (pins == n or chunks == 1),
+            f"streamed {args}: {n} launches, {kernel.march_launches} march, "
+            f"{pins} march pins")
+    require(out.device.type == "cpu", f"streamed {args}: a device result")
+    ref = registry.get_runner("tiled", cfg, spec, grid).iterate(
+        grid, cfg.iterations)
+    same = torch.equal(out.interior().to(grid.device), ref.interior())
+    msg = ""
+    if golden:
+        from stencil_tpu_torch import native
+        from stencil_tpu_torch.ops import golden as golden_mod
+
+        x0 = grid.interior().double().cpu().numpy()
+        want = native.golden_iterate_native(x0, spec, cfg.iterations,
+                                            bc=grid.bc)
+        chk = golden_mod.check_against_golden(
+            out.interior().double().numpy(), want, tolerance=GOLDEN_TOL)
+        require(chk.ok, f"streamed {args} vs the float64 golden: "
+                f"{chk.message()}")
+        msg = f", {chk.message()} vs the float64 golden"
+    print(f"streamed path {' '.join(args)}: {runner.name}, chunk planes "
+          f"{runner.plan_info['chunk_planes'][:2]}..., plan "
+          f"{ {k_: runner.plan_info[k_] for k_ in ('tiles', 'schedule')} }"
+          f", {n} launches ({pins} with live faces) in {seconds:.2f} s "
+          f"with its host copies; {'bitwise' if same else 'NOT bitwise'} "
+          f"-m tiled -k {k}{msg} [{label}]")
+    require(same, f"streamed {args} differs from tiled")
+    return n, pins, runner
+
+
+def run_streamed_paths(kernel, label):
+    """The out-of-core paths: jacobi7 1024^3 fp32 ``-k 8 -i 16 --chunks
+    8`` from a seeded random interior (the 4 GiB host iterate), the walls
+    ``--periodic 0 1`` and ``--periodic 0 --neumann 1`` at 256^3 (also
+    against the float64 golden), and at 256^3 the chunk count
+    ``auto_chunks`` gives with ``STENCIL_TPU_HBM_MB`` set small; each
+    bitwise ``-m tiled``. Returns (plain march launches, march pins
+    launches)."""
+    import gc
+
+    import torch
+
+    from stencil_tpu_torch.core.grid import DirichletBC
+
+    counts = [0, 0]
+
+    def add(n, pins):
+        counts[0] += n - pins
+        counts[1] += pins
+
+    big = ["-s", *map(str, STREAM_SIZE), "--spec", "jacobi7", "-m",
+           "streamed", "-k", str(STREAM_K), "-i", str(STREAM_ITERS),
+           "--chunks", str(STREAM_CHUNKS)]
+    grid = seeded_grid(STREAM_SIZE, DirichletBC.reference_default(3),
+                       DEVICE)
+    add(*streamed_case(kernel, big, grid, label)[:2])
+    del grid
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = ["-s", *map(str, STREAM_SMALL), "--spec", "jacobi7", "-m",
+             "streamed", "-k", str(STREAM_K), "-i", str(STREAM_ITERS)]
+    for periodic, neumann in STREAM_WALLS:
+        bc = walls(3, periodic, neumann)
+        args = [*small, "--chunks", "4"]
+        for flag, dims in (("--periodic", periodic), ("--neumann", neumann)):
+            if dims:
+                args += [flag, *map(str, dims)]
+        add(*streamed_case(kernel, args, seeded_grid(STREAM_SMALL, bc,
+                                                     DEVICE), label,
+                           golden=True)[:2])
+    n, pins, runner = streamed_case(
+        kernel, small, seeded_grid(STREAM_SMALL,
+                                   DirichletBC.reference_default(3),
+                                   DEVICE),
+        label, hbm_mb=STREAM_AUTO_HBM_MB)
+    require(runner.plan_info["chunks"] > 1,
+            f"auto chunks at {STREAM_AUTO_HBM_MB} MiB: "
+            f"{runner.plan_info['chunks']}")
+    add(n, pins)
+    return tuple(counts)
+
+
+def run_checkpoint_paths(cli, kernel, label):
+    """``CheckpointedRun`` on ``-m tiled -k 8`` at 256^3 (the CLI's
+    ``--checkpoint-dir``), interrupted after its first save and resumed,
+    bitwise the uninterrupted run; one checkpointed ``--solve poisson``
+    through the CLI (converged, its checkpoints on disk); and ``-m
+    pallas_temporal -k 8`` at 256^3 with ``--dump-image`` and
+    ``--profile`` (a BMP of the right header and size, a non-empty trace).
+    Returns the march launches of the tiled runs, counts set to 0 just
+    before each."""
+    import torch
+
+    from stencil_tpu_torch import registry
+    from stencil_tpu_torch.config import parse_args
+    from stencil_tpu_torch.core.grid import DirichletBC
+    from stencil_tpu_torch.utils import checkpoint
+
+    args = ["-s", *map(str, STREAM_SMALL), "--spec", "jacobi7", "-m",
+            "tiled", "-k", str(STREAM_K), "-i", str(STREAM_ITERS),
+            "--device", DEVICE]
+    cfg = parse_args(args)
+    spec = cfg.resolved_spec()
+    grid = seeded_grid(STREAM_SMALL, DirichletBC.reference_default(3),
+                       DEVICE)
+    runner = registry.get_runner("tiled", cfg, spec, grid)
+    kernel.reset_counts()
+    ref = runner.iterate(grid, STREAM_ITERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.CheckpointedRun(runner, tmp, every=STREAM_K,
+                                   spec_name=spec.name).run(grid, STREAM_K)
+        msgs = []
+        out, done = checkpoint.CheckpointedRun(
+            runner, tmp, every=STREAM_K, spec_name=spec.name).run(
+                grid, STREAM_ITERS, progress=msgs.append)
+        files = sorted(p.name for p in Path(tmp).iterdir())
+    n = kernel.march_launches
+    require(n == kernel.launches == 2 * STREAM_ITERS // STREAM_K,
+            f"checkpointed tiled: {kernel.launches} launches, {n} march")
+    same = torch.equal(out.data, ref.data)
+    print(f"checkpointed -m tiled -k {STREAM_K} at "
+          f"{'x'.join(map(str, STREAM_SMALL))}: {msgs}, files {files}; "
+          f"{'bitwise' if same else 'NOT bitwise'} the uninterrupted "
+          f"{STREAM_ITERS} sweeps [{label}]")
+    require(same and done == STREAM_ITERS
+            and f"iteration {STREAM_K}" in msgs[0],
+            f"checkpointed tiled: {msgs}, done {done}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_json = Path(tmp) / "solve.jsonl"
+        solve = ["--solve", "poisson", "-s", "63", "63", "63", "--tol",
+                 "1e-5", "-c", "--checkpoint-dir", str(Path(tmp) / "ck"),
+                 "--checkpoint-every", "2"]
+        rc = cli.main([*solve, "--device", DEVICE, "--json-out",
+                       str(out_json)])
+        rec = json.loads(out_json.read_text().splitlines()[0])
+        ckpts = sorted(p.name for p in (Path(tmp) / "ck").iterdir())
+    print(f"checkpointed solve {' '.join(solve[:-4])} --checkpoint-every "
+          f"2: converged {rec.get('converged')} in {rec.get('iterations')}"
+          f" iterations, residual_rel {rec.get('residual_rel'):.3e}, "
+          f"certificate {rec.get('check', {}).get('residual_f64_rel'):.3e},"
+          f" error vs exact {rec.get('check', {}).get('error_vs_exact'):.3e}"
+          f"; checkpoints {ckpts} [{label}]")
+    require(rc == 0 and rec.get("converged") and rec.get("checkpointed")
+            and ckpts, f"checkpointed solve: {rec}")
+    kernel.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        bmp, trace = Path(tmp) / "heat.bmp", Path(tmp) / "trace"
+        flags = ["-s", *map(str, STREAM_SMALL), "--spec", "jacobi7", "-m",
+                 "pallas_temporal", "-k", str(STREAM_K), "-i",
+                 str(STREAM_ITERS), "--dump-image", str(bmp), "--profile",
+                 str(trace)]
+        rc = cli.main([*flags, "--device", DEVICE])
+        data = bmp.read_bytes()
+        traces = [(p.name, p.stat().st_size) for p in trace.iterdir()]
+    width = STREAM_SMALL[2] * 3
+    size = 14 + 40 + (width + (-width) % 4) * STREAM_SMALL[1]
+    print(f"--dump-image and --profile on {' '.join(flags[:-4])}: BMP "
+          f"{data[:2]!r}, {len(data)} bytes (want {size}); traces "
+          f"{traces}; {kernel.launches} launches [{label}]")
+    require(rc == 0 and data[:2] == b"BM" and len(data) == size
+            and traces and all(b > 0 for _, b in traces),
+            f"--dump-image/--profile: rc {rc}, {len(data)} bytes, {traces}")
+    require(kernel.march_launches == kernel.launches > 0,
+            f"--dump-image run: {kernel.launches} launches")
+    return n + kernel.launches
+
+
+def time_streamed(label):
+    """Phase 5: the streamed path at 1024^3 (jacobi7 fp32 k=8, 8 chunks)
+    through the registry's runner (the CLI's): ms per outer step, k times
+    the marginal ms per sweep of its ``iterate`` (``measure_marginal`` in
+    whole outer steps: the copy of the grid in and out of each call
+    cancels); the pinned-copy rates each way (``COPY_BYTES``, CUDA events,
+    the least of 3); the bound (the bytes up and down per outer step over
+    those rates, summed: one copy at a time; their larger: both
+    directions at once); and the kernel's share, the chunks' launches per
+    step times their mean device time in a ``torch.profiler`` trace of one
+    iterate of ``STREAM_TRACE_STEPS`` outer steps, over the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stencil_tpu_torch import registry
+    from stencil_tpu_torch.config import parse_args
+    from stencil_tpu_torch.core.grid import DirichletBC
+    from stencil_tpu_torch.streaming import StreamedStencil
+    from stencil_tpu_torch.utils.timing import measure_marginal
+
+    device = torch.device(DEVICE)
+    rates = {}
+    host = torch.empty(COPY_BYTES // 4, dtype=torch.float32,
+                       pin_memory=True)
+    dev = torch.empty_like(host, device=device)
+    for name, dst, src in (("up", dev, host), ("down", host, dev)):
+        best = float("inf")
+        for _ in range(3):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b))
+        rates[name] = COPY_BYTES / (best * 1e-3)
+    del host, dev
+    cfg = parse_args(["-s", *map(str, STREAM_SIZE), "--spec", "jacobi7",
+                      "-m", "streamed", "-k", str(STREAM_K), "--chunks",
+                      str(STREAM_CHUNKS), "--device", DEVICE])
+    spec = cfg.resolved_spec()
+    grid = seeded_grid(STREAM_SIZE, DirichletBC.reference_default(3),
+                       DEVICE)
+    runner = registry.get_runner("streamed", cfg, spec, grid)
+    m = measure_marginal(lambda n: runner.iterate(grid, n).data, device,
+                         warmup_iters=STREAM_K, granularity=STREAM_K,
+                         repeats=2, min_signal_seconds=BENCH_SIGNAL_S)
+    step_ms = m.seconds_per_iteration * STREAM_K * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.iterate(grid, STREAM_TRACE_STEPS * STREAM_K)
+        torch.cuda.synchronize()
+    # the trace may miss a launch (one of 16 in a run): a step's share is
+    # the mean launch in the trace times the chunks a step launches
+    chunk_launches = [
+        e.time_range.end - e.time_range.start for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "tiled_" in e.name]
+    kernel_ms = (sum(chunk_launches) / len(chunk_launches) / 1e3
+                 * STREAM_CHUNKS if chunk_launches else None)
+    del grid
+    up, down = StreamedStencil(spec, STREAM_SIZE, sweeps_per_call=STREAM_K,
+                               chunks=STREAM_CHUNKS,
+                               device=device).transfer_bytes()
+    serial = (up / rates["up"] + down / rates["down"]) * 1e3
+    duplex = max(up / rates["up"], down / rates["down"]) * 1e3
+    share = ("not measured (no device event in the trace)"
+             if kernel_ms is None else
+             f"{kernel_ms:.3f} ms per step, {kernel_ms / step_ms:.1%} of "
+             f"it ({STREAM_CHUNKS} launches of the mean in the trace, "
+             f"which holds {len(chunk_launches)} of the "
+             f"{STREAM_TRACE_STEPS * STREAM_CHUNKS} launched)")
+    print(f"streamed 1024^3 jacobi7 k={STREAM_K}, {STREAM_CHUNKS} chunks, "
+          f"{runner.name}, plan {runner.plan_info['tiles']} "
+          f"{runner.plan_info['schedule']}: {step_ms:.3f} ms per outer "
+          f"step (marginals "
+          f"{[f'{x * STREAM_K * 1e3:.3f}' for x in m.marginals]} ms per "
+          f"step); pinned copies {rates['up'] / 1e9:.2f} GB/s up, "
+          f"{rates['down'] / 1e9:.2f} GB/s down; {up / 1e9:.3f} GB up and "
+          f"{down / 1e9:.3f} GB down per step: bound {serial:.3f} ms one "
+          f"way at a time, {duplex:.3f} ms both at once "
+          f"({step_ms / serial:.2f}x and {step_ms / duplex:.2f}x); the "
+          f"chunk launches in the profiler trace {share}; "
+          f"{STREAM_K * math.prod(STREAM_SIZE) / step_ms / 1e6:.2f} GLUPS "
+          f"[{label}]")
+    require(np.isfinite(step_ms) and step_ms > 0,
+            f"streamed step marginals {m.marginals}")
+    return step_ms, kernel_ms, rates, serial, duplex
+
+
 def on_window():
     """A context in which ``make_tiled_plan`` gives the window schedule
     wherever its caller asks for none: a multigrid's fine-level plans, made
@@ -2042,9 +2494,12 @@ def bench(runner, grid, points, device, hbm, label, name=None):
 
     g = max(1, runner.granularity)
     m = measure_marginal(lambda n: runner.iterate(grid, n).data, device,
-                         warmup_iters=g, granularity=g, repeats=2)
+                         warmup_iters=g, granularity=g, repeats=2,
+                         min_signal_seconds=BENCH_SIGNAL_S)
     rep = roofline.report(points, 1, m.seconds_per_iteration,
                           dtype_name(grid.dtype), hbm)
+    lo, hi = min(m.marginals), max(m.marginals)
+    MARGINAL_SPREADS.append(((hi - lo) / lo, name or runner.name))
     print(f"{name or runner.name}: {rep.glups:.2f} GLUPS, "
           f"{rep.roofline_fraction:.3f} x naive roofline "
           f"({rep.roofline_glups:.1f} GLUPS at {hbm:.1f} GB/s), marginals "
@@ -3057,7 +3512,8 @@ def main() -> int:
                                             BOX_SIZE, "float32", 4),
                      per01, mode),
            pins_case(tiled, make_tiled_plan(j7, MAIN_SIZE, "float32", 1),
-                     per_all, mode)])
+                     per_all, mode),
+           compare_stream_chunks(tiled, rng, device)])
     # the runner against the eager iterate with a Neumann face at k=3: a
     # live Neumann ghost sums its mirrored taps in another order, so the
     # two agree to fp32 rounding; filed apart from the kernel's row, whose
@@ -3350,6 +3806,8 @@ def main() -> int:
     # 4. main paths, launch counts set to 0 just before each
     from stencil_tpu_torch import cli
 
+    cli.MIN_SIGNAL_SECONDS["cuda"] = BENCH_SIGNAL_S
+
     launches = {}
     rec3d, launches["tiled_march"] = run_cli(
         cli, ["-s", *map(str, MAIN_SIZE), "--spec", "jacobi7", "-m",
@@ -3531,10 +3989,22 @@ def main() -> int:
     # walls and in bf16
     t_rma = time.perf_counter()
     launches.update(run_rma_paths(cli, rma_module.rma_iterate, label))
+    # the out-of-core paths (every chunk a march launch, with a live face
+    # where it has one), the checkpointed runs, --dump-image and
+    # --profile, and cfg14/cfg15 (eager, no hand-written kernel)
+    t_stream = time.perf_counter()
+    plain_n, pins_n = run_streamed_paths(tiled, label)
+    launches["tiled_march"] += plain_n
+    launches["tiled_march+pins"] += pins_n
+    launches["tiled_march"] += run_checkpoint_paths(cli, tiled, label)
+    t_advdiff = time.perf_counter()
+    advdiff = run_advdiff_cells(label)
     print(f"PHASE 4 main paths: ok at {time.perf_counter() - t_start:.1f} s "
           f"(the bf16 paths {t_sharded - t_bf16:.1f} s, the sharded paths "
           f"{t_rma - t_sharded:.1f} s, the rma paths "
-          f"{time.perf_counter() - t_rma:.1f} s; launches {launches})")
+          f"{t_stream - t_rma:.1f} s, the streamed and checkpointed paths "
+          f"{t_advdiff - t_stream:.1f} s, cfg14/cfg15 "
+          f"{time.perf_counter() - t_advdiff:.1f} s; launches {launches})")
 
     # 5. times
     from stencil_tpu_torch import registry
@@ -4443,6 +4913,18 @@ def main() -> int:
         plain_ms[mode] = rec["plain"]
         bound_ms[mode], bound_by[mode] = rec["bound"], rec["by"]
         library_ms[mode] = rec["library"]
+    stamp("the subset launches")
+    stream_times = time_streamed(label)
+    spreads = sorted(MARGINAL_SPREADS)
+    print(f"bench marginals at a {BENCH_SIGNAL_S} s signal, "
+          f"{len(spreads)} rows: the two marginals of a row apart by "
+          f"{spreads[len(spreads) // 2][0]:.4%} (median), at most "
+          f"{spreads[-1][0]:.4%} ({spreads[-1][1]}); rows past 1%: "
+          f"{[(n, f'{x:.2%}') for x, n in spreads if x > 0.01]} [{label}]")
+    print(f"cfg14/cfg15 time to solution (phase 4): "
+          f"{ {c: (v[0], round(v[1], 3)) for c, v in advdiff.items()} } "
+          f"(iterations, ms); the streamed step at 1024^3 "
+          f"{stream_times[0]:.3f} ms [{label}]")
     print(f"PHASE 5 times: ok ({time.perf_counter() - t_start:.1f} s in "
           "all)")
 

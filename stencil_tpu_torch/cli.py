@@ -4,10 +4,16 @@ Counterpart of ``stencil_tpu/cli.py`` (``make_grid``, ``check_method``,
 ``bench_method``, ``run_all``, ``main``): for each requested method,
 optionally check it against the float64 golden model, then time it
 (marginal, autoranged) and report GLUPS and the fraction of the
-measured-HBM roofline, plus ``-R`` wall-clock repeats. Grids live on
-``--device`` (default ``cuda``); there is no host-resident grid, because
-out-of-core streaming is not ported. ``--solve`` hands the run to
-``solve_cli.run_solve``, as the JAX CLI does.
+measured-HBM roofline, plus ``-R`` wall-clock repeats; ``--profile DIR``
+traces the timed runs with ``torch.profiler`` (CUDA and CPU activities)
+into DIR as Chrome traces, ``--checkpoint-dir`` then runs the iterations
+again with checkpoints (one subdirectory per method when there are
+several) and ``--dump-image`` writes the final iterate's heat map (a
+filename prefix per method when there are several). Grids live on
+``--device`` (default ``cuda``), but a grid of which two iterates do not
+fit the device's memory lives in host memory, where only ``-m streamed``
+runs it. ``--solve`` hands the run to ``solve_cli.run_solve``, as the JAX
+CLI does.
 
   python -m stencil_tpu_torch -s 256 256 256 --spec jacobi7 \\
       -m pallas_temporal -k 8 -c
@@ -19,12 +25,13 @@ from __future__ import annotations
 
 import json
 import sys
+from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from stencil_tpu_torch import native, registry
+from stencil_tpu_torch import device_model, native, registry
 from stencil_tpu_torch.config import RunConfig, parse_args
 from stencil_tpu_torch.core.grid import (
     DirichletBC, HaloGrid, check_device, torch_dtype,
@@ -49,7 +56,9 @@ def make_grid(config: RunConfig, spec) -> HaloGrid:
 
     When every dim is dynamic a zero interior is a fixed point, and ``-c``
     would compare zero with zero; that one case seeds a deterministic
-    nonzero interior (the same numbers as the JAX CLI)."""
+    nonzero interior (the same numbers as the JAX CLI). A grid of which two
+    iterates exceed the device's memory (``device_model.hbm_bytes``) is
+    built in host memory (``streaming.host_halo_grid``)."""
     bc = None
     interior_seed = None
     if config.periodic or config.neumann:
@@ -61,6 +70,13 @@ def make_grid(config: RunConfig, spec) -> HaloGrid:
         if all(bc.dynamic_mask(len(config.size))):
             interior_seed = np.random.default_rng(0).random(
                 config.size).astype(np.float32)
+    grid_bytes = int(np.prod(config.size)) * torch_dtype(
+        config.dtype).itemsize
+    if 2 * grid_bytes > device_model.hbm_bytes(config.device):
+        from stencil_tpu_torch.streaming import host_halo_grid
+
+        return host_halo_grid(config.size, halo=spec.radius, bc=bc,
+                              dtype=config.dtype, interior=interior_seed)
     if interior_seed is not None:
         return HaloGrid.from_interior(
             torch.from_numpy(interior_seed).to(torch_dtype(config.dtype)),
@@ -114,7 +130,6 @@ def bench_method(config: RunConfig, spec, runner):
 
 def run_all(config: RunConfig, out=None) -> List[dict]:
     out = out if out is not None else sys.stdout
-    config.check_ported()
     if config.solve:
         from stencil_tpu_torch import solve_cli
 
@@ -135,6 +150,11 @@ def run_all(config: RunConfig, out=None) -> List[dict]:
                      "dtype": config.dtype, "device": device_name}
         grid = make_grid(config, spec)
         try:
+            if grid.device != device and name != "streamed":
+                raise ValueError(
+                    f"two {config.dtype} iterates of {tuple(config.size)} "
+                    f"exceed {device}'s memory: the grid lies in host "
+                    "memory, which only -m streamed runs")
             runner = registry.get_runner(name, config, spec, grid)
         except (KeyError, ValueError, NotImplementedError) as e:
             print(f"[{name}] unavailable: {e}", file=out)
@@ -169,7 +189,21 @@ def run_all(config: RunConfig, out=None) -> List[dict]:
                 results.append(rec)
                 continue
 
-        m = bench_method(config, spec, runner)
+        if config.profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities) as prof:
+                m = bench_method(config, spec, runner)
+            trace_dir = Path(config.profile_dir)
+            trace_dir.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(trace_dir / f"{name}.trace.json"))
+            print(f"[{name}] profiler trace -> {config.profile_dir}",
+                  file=out)
+        else:
+            m = bench_method(config, spec, runner)
         rep = roofline.report(points, 1, m.seconds_per_iteration,
                               config.dtype, hbm)
         rec["seconds_per_sweep"] = rep.seconds_per_sweep
@@ -188,6 +222,34 @@ def run_all(config: RunConfig, out=None) -> List[dict]:
               f"({config.iterations} iterations)", file=out)
         results.append(rec)
 
+        if config.checkpoint_dir:
+            from stencil_tpu_torch.utils.checkpoint import CheckpointedRun
+
+            # a directory per method: a shared one would make every method
+            # after the first resume from the previous one's last
+            # checkpoint and do no work
+            ckpt_dir = (Path(config.checkpoint_dir) / name
+                        if len(config.methods) > 1
+                        else config.checkpoint_dir)
+            _, done = CheckpointedRun(
+                runner, ckpt_dir, every=config.checkpoint_every,
+                spec_name=spec.name,
+            ).run(make_grid(config, spec), config.iterations,
+                  progress=lambda msg: print(f"[{name}] {msg}", file=out))
+            rec["checkpointed_iterations"] = done
+
+        if config.dump_image:
+            from stencil_tpu_torch.utils.image import dump_heatmap
+
+            final = runner.iterate(grid, config.iterations)
+            # a filename prefix per method (not a path prefix, which would
+            # break absolute paths) when several methods share the flag
+            p = Path(config.dump_image)
+            path = (str(p) if len(config.methods) == 1
+                    else str(p.with_name(f"{name}_{p.name}")))
+            dump_heatmap(path, final.interior())
+            print(f"[{name}] heat map -> {path}", file=out)
+
     if config.json_out:
         with open(config.json_out, "w") as f:
             for rec in results:
@@ -198,7 +260,6 @@ def run_all(config: RunConfig, out=None) -> List[dict]:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     config = parse_args(argv)
     try:
-        config.check_ported()
         if not config.solve:  # solve mode has no iterate spec
             config.resolved_spec()
         overlap = set(config.periodic_dims()) & set(config.neumann_dims())
@@ -206,7 +267,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             raise ValueError(
                 f"dim(s) {sorted(overlap)} listed as both --periodic and "
                 "--neumann; a dim may be periodic or Neumann, not both")
-    except (ValueError, KeyError, NotImplementedError) as e:
+    except (ValueError, KeyError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     timer = TinyTimer().start()

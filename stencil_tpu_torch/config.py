@@ -5,22 +5,19 @@ Counterpart of ``stencil_tpu/config.py`` (``RunConfig``, ``build_parser``,
 parses unchanged, with ``--platform`` replaced by ``--device`` (default
 ``cuda``).
 
-Two groups of flags do nothing here, on purpose:
-
-- TPU tuning flags (``--slots``, ``--slide``, ``--cores``, ``--tap-mode``,
-  ``--embed``, ``--autotune``) are accepted and recorded in the runner's
-  ``plan_info`` under ``ignored``; the machinery they tune does not exist
-  on the GPU and is removed by design.
-- Flags of features outside the ported slice (``--chunks``,
-  ``--checkpoint-dir``, ``--dump-image``, ``--profile``) raise
-  ``NotImplementedError`` from :meth:`RunConfig.check_ported`. In solve
-  mode (``--solve``, ported for the ``poisson`` and ``hetero`` families)
-  ``solve_cli.run_solve`` reports ``--mesh`` (the distributed solvers),
-  ``--checkpoint-dir`` and ``--dump-image`` as an error record instead, as
-  the JAX ``run_solve`` reports its own refusals.
+TPU tuning flags (``--slots``, ``--slide``, ``--cores``, ``--tap-mode``,
+``--embed``, ``--autotune``) are accepted and recorded in the runner's
+``plan_info`` under ``ignored``; the machinery they tune does not exist on
+the GPU and is removed by design (plan tuning for the card is ROADMAP
+Queue A). In solve mode ``solve_cli.run_solve`` reports ``--mesh`` (the
+distributed solvers, not ported yet) as an error record, as the JAX
+``run_solve`` reports its own refusals.
 
 ``--mesh`` and ``--no-overlap`` drive the sharded methods in iterate mode
-(``registry.py``).
+(``registry.py``); ``--chunks`` the out-of-core ``streamed`` method (other
+methods ignore it, as in the JAX package); ``--checkpoint-dir``,
+``--dump-image`` and ``--profile`` work in both modes (``cli.py``,
+``solve_cli.py``).
 """
 
 from __future__ import annotations
@@ -64,8 +61,7 @@ class RunConfig:
     cores: int = 1
     embed: bool = False
 
-    # steady solver stack: the problem family (poisson and hetero are
-    # ported)
+    # steady solver stack: the problem family
     solve: Optional[str] = None
 
     # the sharded methods' mesh (in solve mode run_solve's error record)
@@ -73,8 +69,8 @@ class RunConfig:
     mesh: Tuple[int, ...] = ()
     no_overlap: bool = False
 
-    # not ported yet: set -> check_ported() raises (or, in solve mode,
-    # run_solve's error record)
+    # out-of-core streaming: d0 chunks of the streamed method (None: sized
+    # from the device's memory)
     chunks: Optional[int] = None
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 100
@@ -145,22 +141,6 @@ class RunConfig:
                 for name, default in TPU_TUNING_DEFAULTS.items()
                 if getattr(self, name) != default}
 
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a requested feature that the
-        port does not have yet (solve mode leaves ``--checkpoint-dir`` and
-        ``--dump-image`` to ``run_solve``)."""
-        iterate = self.solve is None
-        missing = [flag for flag, on in (
-            ("--chunks", self.chunks is not None),
-            ("--checkpoint-dir", self.checkpoint_dir is not None and iterate),
-            ("--dump-image", self.dump_image is not None and iterate),
-            ("--profile", self.profile_dir is not None),
-        ) if on]
-        if missing:
-            raise NotImplementedError(
-                f"{', '.join(missing)}: not ported yet to stencil_tpu_torch "
-                "(see ROADMAP.md Queue A)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -182,7 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=list(DEFAULT_METHODS),
                    help="methods to run: eager, tiled (3D), slab (2D), "
                         "varcoeff (heterogeneous diffusion), sharded, "
-                        "sharded_noverlap, sharded_pallas, or the JAX "
+                        "sharded_noverlap, sharded_pallas, rma, streamed "
+                        "(out-of-core, 3D), or the JAX "
                         "package's names xla, pallas, pallas_temporal, "
                         "pallas_tiled")
     p.add_argument("-b", "--block", type=int, default=None,
@@ -213,7 +194,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TPU ragged-grid embedding: accepted and ignored "
                         "(the CUDA kernel clamps ragged tiles)")
     p.add_argument("--chunks", type=int, default=None,
-                   help="out-of-core streaming (not ported yet)")
+                   help="streamed method: number of host-resident "
+                        "d0 chunks (default: sized from the device's "
+                        "memory)")
     p.add_argument("--periodic", type=str, nargs="*", default=[],
                    help="dims with periodic (wrap-around) boundaries, e.g. "
                         "--periodic 0 1 or --periodic all (every method; "
@@ -229,20 +212,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--solve", type=str, default=None,
                    choices=["poisson", "hetero", "advdiff"],
                    help="steady solver stack: the problem family (poisson, "
-                        "hetero; advdiff not ported yet)")
+                        "hetero, advdiff)")
     p.add_argument("--solver", type=str, default="auto",
                    choices=["auto", "relax", "mg", "fmg", "cg", "pcg",
                             "bicgstab", "gmres"],
                    help="solve mode: auto (pcg for poisson, bicgstab "
-                        "otherwise), relax, mg, fmg, cg, pcg, bicgstab "
-                        "(gmres not ported yet)")
+                        "otherwise), relax, mg, fmg, cg, pcg, bicgstab, "
+                        "gmres")
     p.add_argument("--tol", type=float, default=1e-5, dest="tolerance",
                    help="solve mode: tolerance (Krylov: relative 2-norm; "
                         "mg/relax: max update per iteration)")
     p.add_argument("--precond", type=str, default=None,
                    choices=["none", "mg", "opmg"],
                    help="preconditioner: mg (cg/pcg, the Poisson cycle), "
-                        "opmg (bicgstab, the rediscretized operator cycle) "
+                        "opmg (bicgstab/gmres, the rediscretized operator "
+                        "cycle) "
                         "or none")
     p.add_argument("--precond-dtype", type=str, default=None,
                    choices=["float32", "bfloat16"],
@@ -262,16 +246,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "(tiled on a card for chebyshev, or wjacobi at "
                         "nu >= 4)")
     p.add_argument("--restart", type=int, default=16,
-                   help="gmres restart (not ported yet)")
+                   help="gmres: Arnoldi steps per restart cycle")
     p.add_argument("--warm-start", type=str, default=None, choices=["fmg"],
                    help="Krylov initial iterate: one FMG pass")
     p.add_argument("--velocity", type=float, nargs="+", default=[],
-                   help="advdiff (not ported yet)")
+                   help="advdiff: velocity per dim (default 1.0 each)")
     p.add_argument("--nu", type=float, default=1.0,
-                   help="advdiff (not ported yet)")
+                   help="advdiff: diffusivity")
     p.add_argument("--scheme", type=str, default="upwind",
                    choices=["upwind", "central"],
-                   help="advdiff (not ported yet)")
+                   help="advdiff: advection scheme")
     p.add_argument("--contrast", type=float, default=100.0,
                    help="-m varcoeff and --solve hetero: the two-material "
                         "coefficient's ratio hi/lo")
@@ -295,14 +279,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="untimed warmup sweeps before timing (scaled by "
                         "the method's granularity)")
     p.add_argument("--checkpoint-dir", type=str, default=None,
-                   help="checkpoint/resume (not ported yet)")
+                   help="directory for periodic checkpoints; an existing "
+                        "checkpoint there is resumed")
     p.add_argument("--checkpoint-every", type=int, default=100)
     p.add_argument("--dump-image", type=str, default=None,
-                   help="heat-map BMP (not ported yet)")
+                   help="write the final iterate as a heat-map BMP (a "
+                        "volume's middle d0 plane)")
     p.add_argument("--json-out", type=str, default=None,
                    help="write results as JSON lines to this path")
     p.add_argument("--profile", type=str, default=None, dest="profile_dir",
-                   help="profiler trace (not ported yet)")
+                   help="write a torch.profiler trace (CUDA and CPU "
+                        "activities) of each method's timed runs to this "
+                        "directory")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 

@@ -14,6 +14,8 @@ and compares what they compute. Nothing here imports JAX.
                         device="cpu")
   hetero_from_arrays(prob.shape, prob.a, prob.h, prob.bc.values,
                      prob.dtype, prob.kernel, device="cpu")
+  advdiff_from_arrays(prob.shape, prob.velocity, prob.nu, prob.h,
+                      prob.bc.values, prob.dtype, prob.scheme, device="cpu")
   wave_from_arrays(w.shape, w.c, w.h, w.dt, w.bc.values, w.bc.periodic,
                    w.bc.neumann, w.dtype, device="cpu")
 
@@ -32,6 +34,9 @@ import torch
 
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid, check_device
 from stencil_tpu_torch.core.spec import StencilSpec
+from stencil_tpu_torch.models.advection_diffusion import (
+    AdvectionDiffusionProblem,
+)
 from stencil_tpu_torch.models.diffusion import (
     HeterogeneousDiffusion, HeterogeneousPoissonProblem,
 )
@@ -133,3 +138,15 @@ def wave_from_arrays(shape, c, h, dt, bc_values,
         dt=None if dt is None else float(dt),
         bc=bc_from_arrays(bc_values, periodic, neumann), dtype=str(dtype),
         device=str(device))
+
+
+def advdiff_from_arrays(shape, velocity, nu, h, bc_values, dtype="float32",
+                        scheme="upwind", device="cuda"
+                        ) -> AdvectionDiffusionProblem:
+    """The ``AdvectionDiffusionProblem`` of this velocity, diffusivity,
+    spacing, (Dirichlet) walls and scheme."""
+    return AdvectionDiffusionProblem(
+        shape=tuple(int(n) for n in shape),
+        velocity=tuple(float(v) for v in velocity), nu=float(nu),
+        h=float(h), bc=bc_from_arrays(bc_values), dtype=str(dtype),
+        scheme=str(scheme), device=str(device))

@@ -1,11 +1,11 @@
 """Matrix-free Krylov solvers: conjugate gradients for the SPD Poisson
-operator, optionally multigrid-preconditioned, and BiCGStab for any
-operator of the generic protocol, optionally preconditioned by
-``OperatorMultigrid``.
+operator, optionally multigrid-preconditioned, and BiCGStab and restarted
+GMRES for any operator of the generic protocol, optionally preconditioned
+by ``OperatorMultigrid``.
 
 Counterpart of ``stencil_tpu/krylov.py`` (``CGResult``, ``_initial_or``,
-``ConjugateGradient``, ``BiCGStab``) on one device. The discrete operator
-``A = -L`` (``L u ~ (nb_sum(u) - 2 ndim u)/h^2``) is SPD on the
+``ConjugateGradient``, ``BiCGStab``, ``GMRES``) on one device. The discrete
+operator ``A = -L`` (``L u ~ (nb_sum(u) - 2 ndim u)/h^2``) is SPD on the
 zero-Dirichlet interior. Nonzero walls go through the correction form:
 ``u = u0 + e`` with ``u0`` the wall-pinned starting grid, ``A e = -(f - L
 u0)`` solved with the zero-wall operator, ``e`` seated back into ``u0``.
@@ -23,20 +23,24 @@ frozen, through ``torch.where`` on the flag), so the returned grid,
 ``iterations`` and ``residual`` equal those of a check after every
 iteration. ``BiCGStab`` reads its convergence test on the host after
 every iteration instead (its cycles are host-bound, so the sync costs
-little), and returns the JAX solve's iteration count and certificate.
-``mesh=`` (the distributed solve) and ``GMRES`` are not ported yet.
+little), and returns the JAX solve's iteration count and certificate;
+``GMRES`` reads its residual estimate after every Arnoldi step (see its
+docstring). ``mesh=`` (the distributed solve) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid, torch_dtype
+from stencil_tpu_torch.core.grid import (
+    DirichletBC, HaloGrid, dtype_name, torch_dtype,
+)
 from stencil_tpu_torch.models.poisson import PoissonProblem
 from stencil_tpu_torch.multigrid import (
     Multigrid, _interior, _nb_sum, _residual,
@@ -384,10 +388,231 @@ class BiCGStab:
         )
 
 
+@dataclasses.dataclass(frozen=True)
 class GMRES:
-    """Restarted GMRES: not ported yet (a later slice)."""
+    """Restarted GMRES(m) for nonsymmetric stencil operators, with the
+    operator protocol and right preconditioning of ``BiCGStab``:
+    constant-tap operators (``AdvectionDiffusionProblem``,
+    ``PoissonProblem``) and field operators
+    (``HeterogeneousPoissonProblem``) alike, and ``OperatorMultigrid`` as
+    ``preconditioner`` (one cycle per Arnoldi step; right preconditioning
+    keeps the minimized residual the true one).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GMRES is not ported yet to stencil_tpu_torch (replaces "
-            "stencil_tpu/krylov.py:GMRES)")
+    Each restart cycle runs up to ``restart`` Arnoldi steps over a basis
+    held on the device as one ``(m+1,) + shape`` tensor. A step
+    orthogonalizes ``A K v_j`` by classical Gram-Schmidt run twice (CGS2:
+    each pass one product of the stacked basis ``V[:j+1]`` with the vector
+    and one back, torch matrix products, as JAX's ``tensordot``s are no
+    Pallas kernel), then updates the least-squares problem by Givens
+    rotations. The cycle ends with the back substitution and one
+    recombination of the basis, and certifies the true residual of the
+    solution, anchored to the original ``||b||``; a cycle that misses the
+    tolerance restarts from its solution, within one step budget, unless
+    it failed to contract the certificate below ``stall_ratio`` times the
+    previous one.
+
+    Where the JAX cycle is one ``while_loop`` with one fetch, this loop
+    stays on the host: after every Arnoldi step it fetches the step's
+    Hessenberg column (j + 2 scalars), applies the rotations and reads the
+    residual estimate ``|g[j]|`` against half the tolerance on the host,
+    in the problem's dtype (float32 for a bfloat16 problem), as BiCGStab
+    reads its test after every iteration. The step count and the
+    certificate are JAX's.
+
+    Counterpart of ``stencil_tpu/krylov.py:GMRES`` (:609-952); ``mesh=``
+    (the distributed solve) is not ported."""
+
+    problem: object
+    preconditioner: Optional[object] = None
+    restart: int = 16
+
+    def __post_init__(self):
+        if self.restart < 1:
+            raise ValueError(f"restart must be >= 1, got {self.restart}")
+        if self.problem.bc.any_dynamic:
+            raise ValueError(
+                "GMRES solves Dirichlet-wall problems (the "
+                "periodic/Neumann steady operator annihilates "
+                "constants and is singular)")
+        mg = self.preconditioner
+        if mg is not None:
+            if tuple(mg.problem.shape) != tuple(self.problem.shape) \
+                    or float(mg.problem.h) != float(self.problem.h):
+                raise ValueError(
+                    "preconditioner built on a different problem "
+                    f"({tuple(mg.problem.shape)}, h={mg.problem.h}) "
+                    f"than ({tuple(self.problem.shape)}, "
+                    f"h={self.problem.h})")
+
+    def _check_basis_budget(self, f: torch.Tensor) -> None:
+        """Refuse an ``(m+1) x grid`` basis above half of the device's
+        memory (``device_model.hbm_bytes``) before it is allocated, with
+        JAX's message."""
+        from stencil_tpu_torch import device_model
+
+        shape = tuple(f.shape)
+        dtype = dtype_name(f.dtype)
+        per_vec = math.prod(shape) * f.element_size()
+        basis = (self.restart + 1) * per_vec
+        hbm = device_model.hbm_bytes(self.problem.device)
+        budget = hbm // 2
+        if basis > budget:
+            fit = max(1, budget // per_vec - 1)
+            raise ValueError(
+                f"GMRES basis (restart+1) x grid = {self.restart + 1} "
+                f"x {shape} {dtype} = {basis / 2**30:.2f} "
+                f"GiB per device exceeds half of device memory "
+                f"({budget / 2**30:.2f} GiB of "
+                f"{hbm / 2**30:.0f} GiB). Reduce "
+                f"restart to <= {fit}, shard the solve over a mesh, or "
+                f"use BiCGStab (O(1) vectors)")
+
+    def _cycle(self, padded0: torch.Tensor, f: torch.Tensor, budget: int,
+               bb_ref: float, tol2: float, cycle, kdatas):
+        """One restart cycle: at most ``min(restart, budget)`` Arnoldi
+        steps from ``padded0``; returns (padded, steps, |r|, |r|/|b|,
+        |b|^2), the residual that of the solution."""
+        apply_op = self.problem.operator_apply
+        op_data = self.problem.operator_data()
+        ndim = f.ndim
+        m = int(self.restart)
+        # the host scalars' dtype: the problem's (numpy has no bfloat16)
+        hdt = np.float64 if f.dtype == torch.float64 else np.float32
+        tiny = np.finfo(hdt).tiny
+
+        def safe(d):
+            return d if d != 0 else hdt(tiny)
+
+        def A(e):
+            return apply_op(F.pad(e, (1, 1) * ndim), op_data)
+
+        if cycle is not None:
+            def K(r):  # linear in r: the cycle from a zero guess
+                return cycle(torch.zeros_like(r), r, 0, kdatas)
+        else:
+            def K(r):
+                return r
+
+        b = f - apply_op(padded0, op_data)
+        bb_dev = _dot(b, b)
+        n = b.numel()
+        V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+        head = torch.stack([bb_dev, torch.sqrt(bb_dev)]).cpu().numpy() \
+            .astype(hdt)
+        bb = hdt(bb_ref) if bb_ref > 0 else head[0]
+        beta = head[1]
+        V[0] = (b / safe(beta)).reshape(-1)
+        H = np.zeros((m + 1, m), hdt)
+        cs = np.ones(m, hdt)
+        sn = np.zeros(m, hdt)
+        g = np.zeros(m + 1, hdt)
+        g[0] = beta
+        j = 0
+        while g[j] * g[j] > tol2 * bb and j < m and j < budget:
+            w = A(K(V[j].reshape(b.shape))).reshape(-1)
+            Vp = V[:j + 1]
+            h1 = torch.mv(Vp, w)
+            w = w - torch.mv(Vp.t(), h1)
+            h2 = torch.mv(Vp, w)
+            w = w - torch.mv(Vp.t(), h2)
+            hnorm = torch.sqrt(_dot(w, w))
+            col = torch.cat([h1 + h2, hnorm.reshape(1)]).cpu().numpy() \
+                .astype(hdt)
+            V[j + 1] = w / safe(col[-1])
+            hcol = np.zeros(m + 1, hdt)
+            hcol[:j + 2] = col
+            # the earlier rotations, then a new one zeroing the
+            # subdiagonal; |g| tracks the least-squares residual
+            for i in range(j):
+                hi = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                hi1 = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+                hcol[i], hcol[i + 1] = hi, hi1
+            denom = np.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
+            c = hcol[j] / safe(denom)
+            s = hcol[j + 1] / safe(denom)
+            hcol[j] = denom
+            hcol[j + 1] = 0.0
+            gj = g[j]
+            g[j + 1] = -s * gj
+            g[j] = c * gj
+            H[:, j] = hcol
+            cs[j] = c
+            sn[j] = s
+            j += 1
+        # back substitution on the rotated H over the j live columns; a
+        # breakdown row has H[i, i] == 0 and g[i] == 0, so y_i = 0
+        y = np.zeros(m, hdt)
+        for i in range(m - 1, -1, -1):
+            if i < j:
+                y[i] = (g[i] - np.dot(H[i, :], y)) / safe(H[i, i])
+        padded = padded0.clone()
+        if j:
+            yt = torch.from_numpy(y[:j]).to(device=b.device, dtype=b.dtype)
+            update = torch.mv(V[:j].t(), yt).reshape(b.shape)
+            padded[_interior(padded.shape)].add_(K(update))
+        r_true = f - apply_op(padded, op_data)
+        rr = _dot(r_true, r_true)
+        bb_t = torch.tensor(float(bb), dtype=b.dtype, device=b.device)
+        stats = torch.stack([torch.sqrt(rr), torch.sqrt(rr / bb_t), bb_t]) \
+            .to(torch.float32).cpu().numpy().astype(np.float64)
+        return padded, j, float(stats[0]), float(stats[1]), float(stats[2])
+
+    def solve(self, f, tolerance: float = 1e-5,
+              max_iterations: int = 2000, mesh=None, dim: int = 0,
+              initial: Optional[HaloGrid] = None,
+              replicate_below: Optional[int] = None,
+              stall_ratio: Optional[float] = 0.9) -> CGResult:
+        """Solve ``A u = f`` to ``||f - A u||_2 <= tolerance * ||b||_2``
+        (the true residual's certificate). ``max_iterations`` is the
+        total Arnoldi-step budget across restart cycles; at ``<= 0`` one
+        cycle of no step still certifies the initial iterate (a warm start
+        already within tolerance is converged). ``initial`` warm-starts,
+        the tolerance then relative to its residual. ``stall_ratio`` stops
+        restarting when a cycle fails to contract the certificate below
+        that ratio of the previous one (the fp32 floor); None spends the
+        whole budget."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "the distributed GMRES solve (mesh=) is not ported yet "
+                "to stencil_tpu_torch (replaces stencil_tpu/krylov.py:"
+                "GMRES._solve_fn's mesh path)")
+        prob = self.problem
+        f_t = torch.as_tensor(f).to(device=prob.device,
+                                    dtype=torch_dtype(prob.dtype))
+        if tuple(f_t.shape) != tuple(prob.shape):
+            raise ValueError(
+                f"source shape {tuple(f_t.shape)} != interior "
+                f"{tuple(prob.shape)}")
+        self._check_basis_budget(f_t)
+        g0 = _initial_or(prob, initial)
+        # the loop watches the recurrence estimate, the certificate is the
+        # solution's: exit 2x tighter so the certificate lands under
+        tol2 = (0.5 * float(tolerance)) ** 2
+        mg = self.preconditioner
+        cycle = mg._make_cycle() if mg is not None else None
+        kdatas = mg._level_datas() if mg is not None else None
+        padded = g0.data
+        total = 0
+        remaining = int(max_iterations)
+        bb0 = 0.0
+        rnorm = rrel = prev_rrel = float("inf")
+        while True:
+            padded, k, rnorm, rrel, bb0 = self._cycle(
+                padded, f_t, max(0, remaining), bb0, tol2, cycle, kdatas)
+            total += k
+            remaining -= k
+            if rrel <= tolerance or k == 0 or remaining <= 0:
+                break
+            # the certificate floors at fp32 rounding whatever the
+            # recurrence reports: a cycle that does not contract it past
+            # stall_ratio would re-solve rounding noise
+            if stall_ratio is not None and rrel > stall_ratio * prev_rrel:
+                break
+            prev_rrel = rrel
+        return CGResult(
+            grid=HaloGrid(data=padded, halo=1, bc=g0.bc),
+            iterations=total,
+            residual=rnorm,
+            residual_rel=rrel,
+            converged=bool(rrel <= tolerance),
+        )

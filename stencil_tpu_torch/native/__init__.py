@@ -1,9 +1,10 @@
-"""Native (C++) float64 golden verifier, loaded with ctypes.
+"""Native (C++) float64 golden verifier and BMP writer, loaded with ctypes.
 
-Counterpart of ``stencil_tpu/native/__init__.py`` for the golden model only
-(the BMP writer is not ported yet). ``golden.cpp`` is a copy of the JAX
-package's source; it is compiled with ``g++`` on first use into
-``build/stencil_tpu_torch/`` (``_build.py``), not next to the source.
+Counterpart of ``stencil_tpu/native/__init__.py``. ``golden.cpp`` and
+``bmp.cpp`` are copies of the JAX package's sources; each is compiled with
+``g++`` on first use into ``build/stencil_tpu_torch/`` (``_build.py``), not
+next to the source. ``load_bmp`` serves ``utils/image.py``, whose Python
+writer is the fallback.
 ``golden_iterate_native`` mirrors ``ops.golden.golden_iterate`` exactly at
 multithreaded native speed. It returns None when no C++ compiler works;
 the CLI then falls back to the NumPy golden capped at 50 iterations and
@@ -22,7 +23,7 @@ import numpy as np
 
 from stencil_tpu_torch import _build
 
-_SOURCE = Path(__file__).resolve().parent / "golden.cpp"
+_DIR = Path(__file__).resolve().parent
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -45,23 +46,45 @@ def _configure(lib: ctypes.CDLL) -> None:
     ]
 
 
-@functools.cache
-def load() -> Optional[ctypes.CDLL]:
-    """The native golden library, built on first use; None when no C++
-    compiler can build it."""
+def _configure_bmp(lib: ctypes.CDLL) -> None:
+    w = lib.stencil_bmp_write
+    w.restype = ctypes.c_int
+    w.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64,
+                  ctypes.c_int64]
+    c = lib.stencil_colorize
+    c.restype = None
+    c.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_double,
+                  ctypes.c_double, ctypes.c_void_p]
+
+
+def _load(source: str, name: str, configure) -> Optional[ctypes.CDLL]:
     for cxx in ("g++", "c++", "clang++"):
         path = shutil.which(cxx)
         if path is None:
             continue
         try:
-            built = _build.build(path, [_SOURCE], _build.CXX_FLAGS,
-                                 "stencil_golden")
+            built = _build.build(path, [_DIR / source], _build.CXX_FLAGS,
+                                 name)
             lib = ctypes.CDLL(str(built.path))
-            _configure(lib)
+            configure(lib)
             return lib
         except (_build.BuildError, OSError, AttributeError):
             continue
     return None
+
+
+@functools.cache
+def load() -> Optional[ctypes.CDLL]:
+    """The native golden library, built on first use; None when no C++
+    compiler can build it."""
+    return _load("golden.cpp", "stencil_golden", _configure)
+
+
+@functools.cache
+def load_bmp() -> Optional[ctypes.CDLL]:
+    """The native BMP writer and colorizer, built on first use; None when
+    no C++ compiler can build it."""
+    return _load("bmp.cpp", "stencil_bmp", _configure_bmp)
 
 
 def available() -> bool:

@@ -3,7 +3,7 @@
 Counterpart of ``stencil_tpu/registry.py`` (``Runner``, ``make_xla``,
 ``_dynamic_kernel_constraints``, ``_make_pallas``, ``_make_pallas_tiled``,
 ``REGISTRY``, ``get_runner``, ``_make_sharded``, ``make_sharded_pallas``,
-``make_rma``). Eight methods are ported:
+``make_rma``, ``make_streamed``). Nine methods are ported:
 
   ``eager``     the eager torch shifted-slice sweep (``ops/eager.py``), the
                 counterpart of ``xla``
@@ -25,13 +25,15 @@ Counterpart of ``stencil_tpu/registry.py`` (``Runner``, ``make_xla``,
   ``rma``       every rank's blocks resident on one card for a whole
                 iterate, the strips pushed inside one cooperative launch
                 (``parallel/rma.py``, ``csrc/rma_iterate.cu``)
+  ``streamed``  a host-resident grid (larger than the card's memory)
+                through the tiled kernel one d0 chunk at a time, k sweeps
+                per chunk launch (``streaming.py``)
 
 The JAX package's names resolve too, so its command lines run unchanged:
 ``xla`` is ``eager``; ``pallas`` runs at k=1 and ``pallas_temporal`` at
 ``-k`` (default 8), on ``slab`` for 2D grids and ``tiled`` for 3D grids;
 ``pallas_tiled`` is ``tiled`` at ``-k`` (default 1) and, as in the JAX
-package, refuses 2D grids. A method not ported yet (``streamed``) raises
-``NotImplementedError`` naming the JAX code a later port replaces.
+package, refuses 2D grids.
 
 The sharded methods and ``rma`` run on a single-controller mesh
 (``parallel/mesh.py``): ``--mesh`` gives its shape, by default one rank per
@@ -424,12 +426,41 @@ def make_rma(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
     )
 
 
-def _not_ported(replaces: str) -> Callable:
-    def factory(config, spec, grid) -> Runner:
-        raise NotImplementedError(
-            f"not ported yet to stencil_tpu_torch (replaces {replaces})")
+def make_streamed(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
+    """Out-of-core iterate of a host-resident grid, one d0 chunk at a time
+    through the tiled kernel with k*r-deep ghosts from the previous outer
+    iterate (``streaming.py``, ``registry.py:464-500``): ``--chunks``
+    forces the chunk count, by default sized from the device's memory. It
+    runs on ``--device`` wherever the grid lies."""
+    from stencil_tpu_torch.streaming import StreamedStencil
 
-    return factory
+    k = _temporal(config, 1)
+    if grid.bc.any_dynamic:
+        _dynamic_kernel_constraints(grid, spec, k, "streamed (tiled 3D)")
+    method = StreamedStencil(
+        spec, grid.interior_shape, dtype=dtype_name(grid.dtype),
+        sweeps_per_call=k,
+        chunks=config.chunks if config is not None else None,
+        device=config.device if config is not None else grid.device)
+    plan = method.plan
+    plan_info = {"kernel": "streamed", "chunks": method.num_chunks,
+                 "chunk_planes": [b - a for a, b in method.bounds],
+                 "tiles": list(plan.tiles), **schedule_info(plan),
+                 "smem_bytes": plan.smem_bytes, "k": k}
+    ignored = config.ignored_tpu_flags() if config is not None else {}
+    if ignored:
+        plan_info["ignored"] = ignored
+    return Runner(
+        name=f"streamed(C={method.num_chunks},k={k})",
+        iterate=method.iterate,
+        description=(
+            "out-of-core host-resident grid streamed through the tiled "
+            "kernel one d0 chunk at a time (k*r-deep ghosts from the host, "
+            "pinned copies on their own streams); counterpart of "
+            "stencil_tpu/streaming.py:StreamedStencil"),
+        granularity=k,
+        plan_info=plan_info,
+    )
 
 
 REGISTRY: Dict[str, Callable] = {
@@ -444,7 +475,7 @@ REGISTRY: Dict[str, Callable] = {
     "sharded_noverlap": make_sharded_noverlap,
     "sharded_pallas": make_sharded_pallas,
     "rma": make_rma,
-    "streamed": _not_ported("stencil_tpu/streaming.py:StreamedStencil"),
+    "streamed": make_streamed,
     "varcoeff": make_varcoeff,
 }
 

@@ -2,16 +2,21 @@
 
 Counterpart of ``stencil_tpu/solve_cli.py`` (``build_problem``,
 ``build_rhs``, ``build_solver``, ``_warm_start``, ``_solve_once``,
-``run_solve``) for the ``poisson`` and ``hetero`` families. ``--solve``
-picks the family, ``--solver`` the method (``auto`` = ``pcg`` for poisson
-and ``bicgstab`` otherwise, ``relax``, ``mg``, ``fmg``, ``cg``, ``pcg``,
-``bicgstab`` with ``--precond opmg``, the rediscretized operator cycle);
-``hetero`` takes ``--contrast`` and ``--op-kernel`` (``pallas``: the tiled
-kernel's coefficient mode as the matvec at every level); the output is
-human lines plus one JSON record per solve
+``run_solve``, ``_solve_checkpointed``) for the ``poisson``, ``hetero`` and
+``advdiff`` families. ``--solve`` picks the family, ``--solver`` the
+method (``auto`` = ``pcg`` for poisson and ``bicgstab`` otherwise,
+``relax``, ``mg``, ``fmg``, ``cg``, ``pcg``, ``bicgstab`` and ``gmres``
+with ``--precond opmg``, the rediscretized operator cycle, and
+``--restart``); ``hetero`` takes ``--contrast`` and ``--op-kernel``
+(``pallas``: the tiled kernel's coefficient mode as the matvec at every
+level), ``advdiff`` ``--velocity`` (default 1 per dim), ``--nu`` and
+``--scheme``; the output is human lines plus one JSON record per solve
 with the JAX record's keys (iterations, the solver's certified residual,
 ``plan``, ``-c``'s float64 re-certification and error against the exact
-solution, ``-R``'s wall-clock repeats).
+solution, ``-R``'s wall-clock repeats). ``--checkpoint-dir`` chunks the
+solve at ``--checkpoint-every`` iterations and resumes from the newest
+checkpoint (FMG, one pass, skips it); ``--dump-image`` writes the
+solution's heat map (a volume's middle plane).
 
 The fine level of the multigrid cycles follows the JAX rule
 (``_resolve_fine_method``), with "on a TPU" read as "the problem lives on a
@@ -19,8 +24,7 @@ CUDA device": weighted Jacobi at nu < 4 keeps the eager fine level, the
 Chebyshev smoother or nu >= 4 take the tiled kernel.
 
 What is not ported yet gives an error record, as a contradictory
-configuration does: the ``advdiff`` family, the ``gmres`` solver,
-``--mesh``, ``--checkpoint-dir`` and ``--dump-image``.
+configuration does: ``--mesh`` (the distributed solvers).
 """
 
 from __future__ import annotations
@@ -79,9 +83,15 @@ def build_problem(config: RunConfig):
             shape=shape, a=a, bc=_solve_bc(config), dtype=config.dtype,
             kernel=config.op_kernel, device=config.device)
     if family == "advdiff":
-        raise NotImplementedError(
-            f"--solve advdiff: {_NOT_PORTED} (replaces stencil_tpu/models/"
-            "advection_diffusion.py:AdvectionDiffusionProblem)")
+        from stencil_tpu_torch.models.advection_diffusion import (
+            AdvectionDiffusionProblem,
+        )
+
+        vel = (tuple(config.velocity) if config.velocity
+               else (1.0,) * len(shape))
+        return AdvectionDiffusionProblem(
+            shape=shape, velocity=vel, nu=config.nu, bc=_solve_bc(config),
+            dtype=config.dtype, scheme=config.scheme, device=config.device)
     raise ValueError(
         f"unknown --solve family {family!r} (choose from {FAMILIES})")
 
@@ -210,11 +220,7 @@ def build_solver(config: RunConfig, problem):
             raise ValueError(
                 "--precond-dtype is a pcg option (the opmg cycle runs "
                 "in the problem dtype)")
-        if name == "gmres":
-            raise NotImplementedError(
-                f"--solver gmres: {_NOT_PORTED} (replaces stencil_tpu/"
-                "krylov.py:GMRES)")
-        from stencil_tpu_torch.krylov import BiCGStab
+        from stencil_tpu_torch.krylov import GMRES, BiCGStab
         from stencil_tpu_torch.multigrid import OperatorMultigrid
 
         pre = None
@@ -229,6 +235,10 @@ def build_solver(config: RunConfig, problem):
 
             # the schedule the coefficient-mode matvec runs on
             plan.update(schedule_info(problem._kernel_plan()))
+        if name == "gmres":
+            plan["restart"] = config.restart
+            return (GMRES(problem, preconditioner=pre,
+                          restart=config.restart), "krylov", plan)
         return BiCGStab(problem, preconditioner=pre), "krylov", plan
     raise ValueError(
         f"unknown --solver {name!r} (choose from {SOLVERS})")
@@ -256,12 +266,12 @@ def _fnorm(f) -> float:
 
 
 def _solve_once(config: RunConfig, solver, kind, problem, f,
-                initial=None, tolerance=None):
-    """One solve -> (grid, iterations, residual, residual_rel,
-    converged)."""
+                initial=None, budget=None, tolerance=None):
+    """One solve (or one checkpointed chunk of ``budget`` iterations) ->
+    (grid, iterations, residual, residual_rel, converged)."""
     from stencil_tpu_torch import solver as solver_mod
 
-    budget = int(config.iterations)
+    budget = int(budget if budget is not None else config.iterations)
     tol = float(tolerance if tolerance is not None else config.tolerance)
     if kind == "krylov":
         res = solver.solve(f, tolerance=tol, max_iterations=budget,
@@ -295,24 +305,12 @@ def _solve_once(config: RunConfig, solver, kind, problem, f,
     raise AssertionError(kind)
 
 
-def _check_solve_flags(config: RunConfig) -> None:
-    if config.checkpoint_dir:
-        raise NotImplementedError(
-            f"--checkpoint-dir in solve mode: {_NOT_PORTED} (replaces "
-            "stencil_tpu/solve_cli.py:_solve_checkpointed)")
-    if config.dump_image:
-        raise NotImplementedError(
-            f"--dump-image: {_NOT_PORTED} (replaces stencil_tpu/utils/"
-            "image.py:dump_heatmap)")
-
-
 def run_solve(config: RunConfig, out) -> List[dict]:
     """Solve mode: build, solve (with optional timed repeats),
     certify, report. Returns JSON-able records."""
     from stencil_tpu_torch.utils.timing import measure_wall
 
     try:
-        _check_solve_flags(config)
         problem = build_problem(config)
         f, u_exact = build_rhs(config, problem)
         solver, kind, plan = build_solver(config, problem)
@@ -348,12 +346,22 @@ def run_solve(config: RunConfig, out) -> List[dict]:
             if rw > 0.0:
                 tol_eff = config.tolerance * bnorm2 / rw
 
-    grid, iters, r, rrel, conv = _solve_once(
-        config, solver, kind, problem, f, initial=initial,
-        tolerance=tol_eff)
-    if bnorm2:
-        rrel = r / bnorm2  # report relative to ||b||, not r0
-        conv = bool(rrel <= config.tolerance * (1 + 1e-9))
+    ckpt_dir = config.checkpoint_dir
+    if ckpt_dir and kind == "fmg":
+        print(f"[{name}] checkpointing skipped: FMG is one pass", file=out)
+        ckpt_dir = None
+
+    if ckpt_dir:
+        grid, iters, r, rrel, conv = _solve_checkpointed(
+            config, solver, kind, problem, f, initial, ckpt_dir, name, out)
+        rec["checkpointed"] = True
+    else:
+        grid, iters, r, rrel, conv = _solve_once(
+            config, solver, kind, problem, f, initial=initial,
+            tolerance=tol_eff)
+        if bnorm2:
+            rrel = r / bnorm2  # report relative to ||b||, not r0
+            conv = bool(rrel <= config.tolerance * (1 + 1e-9))
     rec.update(iterations=iters, residual=r, residual_rel=rrel,
                converged=bool(conv))
     tag = "converged" if conv else "NOT converged"
@@ -377,8 +385,9 @@ def run_solve(config: RunConfig, out) -> List[dict]:
             print(f"[{name}] error vs exact solution: {err:.3e} "
                   f"(O(h^2) bar ~ {h2:.1e})", file=out)
 
-    # timed repeats (the reference's -R protocol): the full solve
-    if config.repeat > 1:
+    # timed repeats (the reference's -R protocol): the full solve; a
+    # checkpointed run would resume at once, so only fresh solves are timed
+    if config.repeat > 1 and not ckpt_dir:
         wall = measure_wall(
             lambda: _solve_once(config, solver, kind, problem, f,
                                 initial=initial)[0].data,
@@ -389,7 +398,76 @@ def run_solve(config: RunConfig, out) -> List[dict]:
         print(f"[{name}] average: "
               f"{sum(wall) / len(wall) * 1e3:.3f} ms", file=out)
 
+    if config.dump_image:
+        from stencil_tpu_torch.utils.image import dump_heatmap
+
+        # a volume's middle d0 plane
+        dump_heatmap(config.dump_image, grid.interior())
+        print(f"[{name}] heat map -> {config.dump_image}", file=out)
+
     if config.json_out:
         with open(config.json_out, "w") as fh:
             fh.write(json.dumps(rec) + "\n")
     return [rec]
+
+
+def _solve_checkpointed(config: RunConfig, solver, kind, problem, f,
+                        initial, ckpt_dir, name, out):
+    """The solve in chunks of ``--checkpoint-every`` iterations, each a
+    warm start from the last and each followed by a checkpoint; an
+    existing checkpoint resumes. A Krylov chunk's tolerance is relative to
+    its starting residual, so each is rescaled by that residual (measured
+    on the host in float64 on resume) to keep the criterion anchored to
+    the original ``||b||`` (= ``||f||_2``: solve-mode walls are zero)."""
+    from pathlib import Path
+
+    from stencil_tpu_torch.utils import checkpoint as ckpt
+
+    every = max(1, int(config.checkpoint_every))
+    budget = int(config.iterations)
+    done = 0
+    grid = initial
+    spec_tag = f"solve:{config.solve}:{name}"
+    resume = ckpt.latest(ckpt_dir)
+    if resume is not None:
+        state = ckpt.load(resume)
+        if state.spec_name != spec_tag:
+            raise ValueError(
+                f"checkpoint {resume} is from {state.spec_name!r}, "
+                f"not this solve ({spec_tag!r}); refusing to resume")
+        grid = state.to_grid(dtype=problem.dtype, device=problem.device)
+        done = state.iteration
+        print(f"[{name}] resumed at iteration {done} from {resume}",
+              file=out)
+    # mg and relax watch update norms, which chunking leaves alone
+    rescale = kind == "krylov"
+    f64 = np.asarray(f, np.float64)
+    bnorm = float(np.linalg.norm(f64.ravel()))
+    r = bnorm
+    if rescale and grid is not None:
+        r = float(np.linalg.norm((f64 - problem.apply_f64(
+            grid.interior().double().cpu().numpy())).ravel()))
+    rrel = r / bnorm if bnorm else r
+    conv = rescale and rrel <= config.tolerance * (1 + 1e-9)
+    while not conv and done < budget:
+        chunk = min(every, budget - done)
+        tol = config.tolerance
+        if rescale and r > 0.0:
+            # tol * r_chunk_start == config.tolerance * ||b||
+            tol = config.tolerance * bnorm / r
+        grid, k, r, rrel_chunk, conv = _solve_once(
+            config, solver, kind, problem, f, initial=grid, budget=chunk,
+            tolerance=tol)
+        done += max(1, k)
+        if rescale:
+            rrel = r / bnorm if bnorm else rrel_chunk
+            conv = conv and rrel <= config.tolerance * (1 + 1e-9)
+        else:
+            rrel = rrel_chunk
+        path = ckpt.save(Path(ckpt_dir) / f"step_{done:08d}.npz", grid,
+                         done, spec_name=spec_tag)
+        print(f"[{name}] checkpoint at {done} -> {path} "
+              f"(residual {r:.3e})", file=out)
+        if k == 0:
+            break
+    return grid, done, r, rrel, conv

@@ -130,23 +130,35 @@ def test_cuda_request_without_card_raises():
         cli.main(MAIN_ARGS)  # --device defaults to cuda
 
 
-# (--solve is ported; its own refusals are error records, tested in
-# tests/test_torch_solve_cli.py. --no-overlap and --mesh are ported: beside
-# an unported flag they are accepted and not named in the refusal)
+# The flags of this case list were refused as not ported before the
+# out-of-core and utility slice; each now runs as in the JAX package:
+# --chunks goes to -m streamed and is ignored by the other methods (JAX's
+# registry reads it only there), --checkpoint-dir checkpoints every method,
+# --dump-image writes the heat map, --profile a torch.profiler trace.
 @pytest.mark.parametrize("flag", [["--no-overlap", "--chunks", "2"],
                                   ["--mesh", "2", "--profile", "x"],
                                   ["--chunks", "2"],
                                   ["--checkpoint-dir", "x"],
                                   ["--dump-image", "x.bmp"],
                                   ["--profile", "x"]])
-def test_features_outside_slice_refuse(capsys, flag):
-    assert cli.main([*MAIN_ARGS, "--device", "cpu", *flag]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err
-    assert "--mesh" not in err and "--no-overlap" not in err
+def test_features_outside_slice_refuse(capsys, tmp_path, monkeypatch, flag):
+    """No longer refused: each runs to exit 0 and leaves its artifact."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main([*MAIN_ARGS, "--device", "cpu", *flag]) == 0
+    captured = capsys.readouterr()
+    assert "not ported yet" not in captured.out + captured.err
+    assert "correctness: OK" in captured.out
+    if "--profile" in flag:
+        assert "profiler trace -> x" in captured.out
+        assert any(p.stat().st_size > 0 for p in (tmp_path / "x").iterdir())
+    if "--checkpoint-dir" in flag:
+        assert [p.name for p in (tmp_path / "x").iterdir()] == [
+            "step_0000000008.npz"]
+    if "--dump-image" in flag:
+        assert (tmp_path / "x.bmp").read_bytes()[:2] == b"BM"
     cfg = parse_args([*MAIN_ARGS, "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.run_all(cfg, out=io.StringIO())
+    (rec,) = cli.run_all(cfg, out=io.StringIO())
+    assert "error" not in rec and rec["check"]["ok"]
 
 
 @pytest.mark.parametrize("method,k_expected", [
@@ -173,18 +185,16 @@ def test_2d_method_aliases(method, k_expected):
 @pytest.mark.parametrize("method", ["sharded", "sharded_noverlap",
                                     "sharded_pallas", "rma", "streamed"])
 def test_unported_methods_name_their_jax_code(method):
-    """``streamed`` refuses, naming the JAX code a later port replaces;
-    the sharded methods and ``rma`` (ported) name it in their runner's
-    description."""
+    """Every method once refused as not ported (the sharded ones, ``rma``,
+    ``streamed``) runs now, and its runner's description names the JAX
+    code it ports."""
     cfg = RunConfig(size=(12, 10, 14), spec="jacobi7", device="cpu")
     spec = cfg.resolved_spec()
-    if method.startswith("sharded") or method == "rma":
-        runner = registry.get_runner(method, cfg, spec,
-                                     cli.make_grid(cfg, spec))
-        assert "stencil_tpu/parallel/" in runner.description
-        return
-    with pytest.raises(NotImplementedError, match="stencil_tpu/"):
-        registry.get_runner(method, cfg, spec, cli.make_grid(cfg, spec))
+    runner = registry.get_runner(method, cfg, spec,
+                                 cli.make_grid(cfg, spec))
+    where = "stencil_tpu/streaming.py" if method == "streamed" \
+        else "stencil_tpu/parallel/"
+    assert where in runner.description
 
 
 def test_varcoeff_method_runs_the_coefficient_mode():

@@ -6,7 +6,9 @@ kernel's Chebyshev, dual, two-level and coefficient modes, its d0 march
 in-kernel exchange csrc/rma_iterate.cu (every rank's buffers after one
 cooperative launch, on Dirichlet, periodic and Neumann walls, in fp32 and
 bf16), against their plain PyTorch versions, on an NVIDIA
-GPU. Marked ``cuda``; without a card
+GPU; and the out-of-core streamed method (stencil_tpu_torch/streaming.py:
+pinned host buffers, one tiled launch per chunk, copies on their own
+streams ordered by events) bitwise against the in-core tiled method. Marked ``cuda``; without a card
 every test skips. This file imports no JAX, so it also runs where only the
 port is installed:
 
@@ -1565,3 +1567,57 @@ def test_slab_march_refuses_rather_than_falls_back(cuda_device):
     with pytest.raises(RuntimeError, match="shared memory"):
         slab_sweep(cur, cur.clone(), big)
     assert slab_sweep.launches == 0
+
+
+@pytest.mark.parametrize("periodic,neumann,k,iters,chunks", [
+    ((), (), 8, 19, 4), ((0, 1), (), 4, 8, 3), ((0,), (1,), 2, 5, 5),
+    ((), (), 1, 3, 7)])
+def test_streamed_bitwise_tiled(cuda_device, periodic, neumann, k, iters,
+                                chunks):
+    """The out-of-core method on the card (pinned host buffers, a copy
+    stream, the compute stream and a download stream) against the
+    in-core tiled method at the same k: bitwise, each chunk one launch
+    of the tiled kernel, a remainder included."""
+    from stencil_tpu_torch.streaming import StreamedStencil
+
+    spec = get_spec("jacobi7")
+    shape = (60, 50, 70)
+    bc = DirichletBC.reference_default(3)
+    if periodic:
+        bc = bc.with_periodic(periodic)
+    if neumann:
+        bc = bc.with_neumann(neumann)
+    x0 = torch.from_numpy(
+        np.random.default_rng(3).random(shape).astype(np.float32))
+    m = StreamedStencil(spec, shape, sweeps_per_call=k, chunks=chunks,
+                        device=cuda_device)
+    before = tiled_sweep.launches
+    got = m.iterate_host(x0, iters, bc=bc)
+    steps, rem = divmod(iters, k)
+    assert tiled_sweep.launches - before == chunks * (steps + bool(rem))
+    assert got.device.type == "cpu"
+    grid = HaloGrid.from_interior(x0, halo=1, bc=bc, device=cuda_device)
+    want = TiledStencil(spec, shape, sweeps_per_call=k,
+                        device=cuda_device).iterate(grid, iters)
+    assert torch.equal(got, want.interior().cpu())
+
+
+def test_streamed_stream_ordering_soak(cuda_device):
+    """Many thin chunks over many outer steps, the copies and the kernels
+    on three streams ordered only by events: 10 runs, each bitwise the
+    in-core result (a missing wait shows as a stale plane)."""
+    from stencil_tpu_torch.streaming import StreamedStencil
+
+    spec = get_spec("jacobi7")
+    shape = (96, 64, 128)
+    bc = DirichletBC.reference_default(3).with_periodic((0,))
+    x0 = torch.from_numpy(
+        np.random.default_rng(4).random(shape).astype(np.float32))
+    grid = HaloGrid.from_interior(x0, halo=1, bc=bc, device=cuda_device)
+    want = TiledStencil(spec, shape, sweeps_per_call=2,
+                        device=cuda_device).iterate(grid, 24).interior()
+    m = StreamedStencil(spec, shape, sweeps_per_call=2, chunks=24,
+                        device=cuda_device)
+    assert m._host_buffers()[0].is_pinned()
+    for _ in range(10):
+        assert torch.equal(m.iterate_host(x0, 24, bc=bc), want.cpu())

@@ -199,8 +199,9 @@ def test_gates_match_jax():
         TCG(tp).solve(np.zeros(p31), check_every=0)
     with pytest.raises(NotImplementedError, match="mesh"):
         TCG(tp).solve(np.zeros(p31), mesh=object())
+    # GMRES (ported) refuses only the distributed solve
     with pytest.raises(NotImplementedError, match="stencil_tpu/krylov"):
-        GMRES(tp)
+        GMRES(tp).solve(np.zeros(p31), mesh=object())
     # BiCGStab (ported) refuses only the distributed solve
     with pytest.raises(NotImplementedError, match="stencil_tpu/krylov"):
         BiCGStab(tp).solve(np.zeros(p31), mesh=object())
