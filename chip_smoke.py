@@ -197,8 +197,25 @@ Phases, each ending in a line of its own:
    BiCGStab and GMRES(8) right-preconditioned by OperatorMultigrid, tol
    1e-4), each converged with a float64 certificate under 1e-4, their
    iterations and time to solution (a host clock around the solve and its
-   fetch, the median of 3 after a warm-up). Phase 4's CLI runs time their
-   paths with a 0.3 s signal (``BENCH_SIGNAL_S``), as phase 5 does;
+   fetch, the median of 3 after a warm-up); then the plan search
+   (``--autotune``, ``autotune.py``): cfg4 (``laplace3d_ho`` 384³ k=4
+   fp32) ``--autotune force -c`` through the CLI against a temporary cache,
+   every candidate's GLUPS printed (the first is the pinned plan's) beside
+   the winner, its check within 5e-6 of the float64 golden; a second runner a
+   cache hit with no launch, bitwise the pinned run; the Poisson 256³ k=8
+   source key tuned afresh, its runner bitwise the pinned one; the
+   committed cache (``data/autotune_h100.json``) a hit for both keys, the
+   drift against the fresh winners printed, the file byte for byte
+   unchanged; then the harnesses through ``python -m`` in this process
+   (their launches counted): ``stencil_tpu_torch.sweep`` over 2D 512² and
+   1024², 100 iterations, ``eager``/``pallas``/``pallas_temporal`` with
+   ``--check``, every row correct, and the solver sweep (Poisson 63³,
+   pcg/bicgstab/gmres), each converged within 3 h² of the exact solution;
+   ``stencil_tpu_torch.scaling --local 64 128 128 -k 4 --mesh-sizes 1 2
+   4`` on the one card, its audit line and shared-card note, and the
+   4-rank point's result bitwise the 1-rank ``tiled`` run. Phase 4's CLI
+   runs time their
+   paths with a 0.2 s signal (``BENCH_SIGNAL_S``), as phase 5 does;
 5. times: GLUPS of the 3D tiled kernel on the march and on the window
    schedule at k = 1, 2, 4 and 8 and of ``eager`` at 256³ (the k=1 pair
    printed beside the schedule the plan rule gives k=1); cfg3–cfg6 and
@@ -433,8 +450,10 @@ COPY_BYTES = 1 << 30         # phase 5: the pinned-copy rates' transfer
 # the marginal timings' signal, seconds: phase 5's GLUPS and the CLI's own
 # timing of phase 4's main paths, which phase 4 runs for their checks and
 # launch counts. The CLI's default is 0.75 s; the spread of a row's two
-# marginals was no wider at 0.3 s (phase 5 prints its median and largest)
-BENCH_SIGNAL_S = 0.3
+# marginals was no wider at 0.3 s (PERF.md, PR 18), which paid for PR 18's
+# cases, and 0.2 s pays for the plan search and the harnesses (phase 5
+# prints the spread's median and largest)
+BENCH_SIGNAL_S = 0.2
 # (relative spread of its two marginals, row) of each phase-5 bench row
 MARGINAL_SPREADS = []
 ADVECT_VELOCITY = (0.5, -0.25, 0.125)
@@ -462,6 +481,19 @@ BF16_SOURCE_TOL = 0.15       # tests/test_tiled_source.py:85-87
 CFG3 = ("jacobi7", (256, 256, 256), 8, 16)          # spec, size, k, -i
 CFG4 = ("laplace3d_ho", (384, 384, 384), 4, 16)
 CFG1_BF16_ITERS = 32
+# phase 4's plan search (``--autotune``): cfg4 in fp32 (bench.py:84-86)
+# and the Poisson 256^3 k=8 source key (bench.py:161), each tuned afresh
+# into a temporary cache, then read from the committed one
+POISSON_TUNE = ((256, 256, 256), 8)
+TUNE_EXACT = 5e-6            # the autotuned cfg4 against the float64 golden
+# phase 4's harnesses, each through ``python -m`` in this process
+SWEEP_ARGS = ["--sizes", "512", "1024", "--iterations", "100", "--methods",
+              "eager", "pallas", "pallas_temporal", "--check"]
+SOLVER_SWEEP_ARGS = ["--solve", "poisson", "--sizes", "63", "--ndim", "3",
+                     "--solvers", "pcg", "bicgstab", "gmres", "--check"]
+STALL_FLOOR = 1e-4           # fp32 BiCGStab/GMRES on SPD Poisson stall below
+SCALING_ARGS = ["--local", "64", "128", "128", "-k", "4", "--mesh-sizes",
+                "1", "2", "4"]
 CFG5 = ("jacobi7", (256, 256, 1024), 8)              # bench.py:100-101
 CFG6 = ("jacobi7", (257, 257, 257), 8)               # bench.py:95-96
 TINY = 1e-37                 # inputs near 0: fp32 subnormals, signed zeros
@@ -1718,6 +1750,319 @@ def run_hetero_cli(cli, kernel, label):
             f"hetero coefficient launches {counts}, weights {weights}, plan "
             f"{recs['pallas']['plan']}")
     return counts["pallas"], weights["pallas"]
+
+
+def run_module(module, argv):
+    """``python -m module *argv`` in this process, so that the kernels'
+    counts see its launches; returns its exit code and standard output."""
+    import io
+    import runpy
+    import warnings
+
+    buf, argv0 = io.StringIO(), sys.argv
+    sys.argv = [module, *argv]
+    try:
+        with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+            # the module was imported before: run afresh as __main__
+            warnings.simplefilter("ignore", RuntimeWarning)
+            try:
+                runpy.run_module(module, run_name="__main__", alter_sys=True)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+    finally:
+        sys.argv = argv0
+    return code, buf.getvalue()
+
+
+def sha256(path):
+    import hashlib
+
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def tune_cli(cli, args, force):
+    """One cfg4 CLI run with ``--autotune`` (``force``: measure again),
+    ``-c``; returns its record, the search's stderr lines and its
+    seconds."""
+    import io
+
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "tune.jsonl"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([*args, "--autotune", *(["force"] if force else []),
+                           "-c", "--device", DEVICE, "--json-out", str(out)])
+        seconds = time.perf_counter() - t0
+        rec = json.loads(out.read_text().splitlines()[0])
+    require(rc == 0, f"{args} --autotune returned {rc}")
+    lines = [x for x in err.getvalue().splitlines() if x.startswith("#")]
+    return rec, lines, seconds
+
+
+def run_plan_search(cli, kernel, label):
+    """``--autotune`` on the card (``autotune.py``). cfg4 ``--autotune
+    force`` through the CLI against a temporary cache (every candidate's
+    GLUPS, the first the pinned plan's), its output within
+    ``TUNE_EXACT`` of the float64 golden; a second runner a cache hit with
+    no launch, bitwise the pinned run; the Poisson 256^3 k=8 source key
+    tuned afresh, its runner bitwise the pinned one; then the committed
+    cache (``data/autotune_h100.json``): both keys hits, the drift against
+    the fresh winners printed; the committed file byte for byte unchanged.
+    Returns the march launches of the homogeneous and the source runs."""
+    import torch
+
+    from stencil_tpu_torch import autotune, registry
+    from stencil_tpu_torch.config import parse_args
+    from stencil_tpu_torch.core.spec import get_spec
+    from stencil_tpu_torch.models.poisson import PoissonProblem
+    from stencil_tpu_torch.ops.tiled import make_tiled_plan
+
+    committed = autotune.DEFAULT_CACHE
+    digest = sha256(committed)
+    spec_name, size, k, iters = CFG4
+    args = ["-s", *map(str, size), "--spec", spec_name, "-m",
+            "pallas_temporal", "-k", str(k), "-i", str(iters)]
+    counts = {"tiled_march": 0, "tiled_march+source": 0}
+    fresh = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        autotune.DEFAULT_CACHE = str(Path(tmp) / "autotune.json")
+        try:
+            kernel.reset_counts()
+            tuned, lines, tune_s = tune_cli(cli, args, force=True)
+            require(kernel.source_launches == 0,
+                    "cfg4's search ran the source mode")
+            window_n = kernel.launches - kernel.march_launches
+            counts["tiled_march"] += kernel.march_launches
+            plan, chk = tuned["plan"], tuned["check"]
+            require(plan["source"] == "autotune"
+                    and plan["schedule"] == "march",
+                    f"cfg4 --autotune force plan {plan}")
+            require(chk["ok"] and chk["max_abs_err"] < TUNE_EXACT
+                    and chk["iterations_checked"] == iters,
+                    f"cfg4 --autotune force check {chk}")
+            # the search measures the pinned plan first (the chooser's
+            # tiles on the schedule its rule gives): the winner beside it
+            spec = get_spec(spec_name)
+            first = autotune.candidates(spec, size, "float32", k)[0]
+            pinned = make_tiled_plan(spec, size, "float32", k)
+            require(len(lines) == 4 and first == (pinned.tiles,
+                                                  pinned.schedule)
+                    and f"tiles={first[0]} schedule={first[1]}" in lines[0],
+                    f"cfg4's search: {lines}, pinned plan {pinned.tiles}")
+            for line in lines:
+                print(f"  {line}")
+            print(f"cfg4 --autotune force: {tune_s:.1f} s for the search "
+                  f"and the CLI run ({kernel.name} window launches of the "
+                  f"search {window_n}); winner {plan['tiles']} "
+                  f"{plan['schedule']} at {plan['autotune_glups']} GLUPS "
+                  f"beside the pinned {list(pinned.tiles)} "
+                  f"{pinned.schedule}, the search's first line; "
+                  f"{tuned['glups']:.2f} GLUPS in the CLI run; check "
+                  f"{chk['max_abs_err']:.3e} [{label}]")
+            fresh["cfg4"] = {key: plan[key] for key in ("tiles", "schedule")}
+            fresh["cfg4"]["glups"] = plan["autotune_glups"]
+            # a second run: a cache hit, no launch before the run, and the
+            # result bitwise the pinned plan's
+            cfg = parse_args([*args, "--autotune", "--device", DEVICE])
+            spec = cfg.resolved_spec()
+            rng = np.random.default_rng(SEED)
+            grid = random_grid(size, spec.radius, rng, DEVICE)
+            kernel.reset_counts()
+            runner = registry.get_runner("pallas_temporal", cfg, spec, grid)
+            require(kernel.launches == 0
+                    and runner.plan_info["source"] == "autotune",
+                    f"second cfg4 --autotune run measured: "
+                    f"{kernel.launches} launches, {runner.plan_info}")
+            cfg.autotune = False
+            base = registry.get_runner("pallas_temporal", cfg, spec, grid)
+            got = runner.iterate(grid, iters).data
+            require(torch.equal(got, base.iterate(grid, iters).data),
+                    "autotuned cfg4 is not bitwise the pinned run")
+            counts["tiled_march"] += kernel.march_launches
+            # the Poisson source key, tuned afresh
+            shape, pk = POISSON_TUNE
+            prob = PoissonProblem(shape=shape, device=DEVICE)
+            f = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(DEVICE)
+            kernel.reset_counts()
+            t0 = time.perf_counter()
+            won = prob.runner(f, method="pallas_tiled", sweeps_per_call=pk,
+                              autotune="force")
+            src_s = time.perf_counter() - t0
+            pin = prob.runner(f, method="pallas_tiled", sweeps_per_call=pk)
+            g = prob.initial_grid()
+            require(torch.equal(won.iterate(g, 2 * pk).data,
+                                pin.iterate(g, 2 * pk).data),
+                    "the autotuned Poisson runner is not bitwise the pinned")
+            require(kernel.launches == kernel.source_launches
+                    and kernel.source_pins_launches == 0,
+                    "the Poisson search ran another mode")
+            counts["tiled_march+source"] += kernel.march_source_launches
+            fresh["poisson"] = {key: won.plan_info[key]
+                                for key in ("tiles", "schedule")}
+            fresh["poisson"]["glups"] = won.plan_info["autotune_glups"]
+            print(f"Poisson {shape} k={pk} --autotune force: {src_s:.1f} s; "
+                  f"winner {fresh['poisson']} beside the pinned "
+                  f"{pin.plan_info['tiles']} {pin.plan_info['schedule']} "
+                  f"(search launches: {kernel.march_source_launches} march, "
+                  f"{kernel.source_launches - kernel.march_source_launches}"
+                  f" window) [{label}]")
+        finally:
+            autotune.DEFAULT_CACHE = committed
+    # the committed cache: both keys hits on this card
+    for name, (spec, shape, kk, src) in {
+            "cfg4": (parse_args([*args, "--device", DEVICE]).resolved_spec(),
+                     size, k, False),
+            "poisson": (PoissonProblem(shape=POISSON_TUNE[0],
+                                       device=DEVICE).spec,
+                        POISSON_TUNE[0], POISSON_TUNE[1], True)}.items():
+        hit = autotune.lookup(spec, shape, "float32", kk, has_source=src,
+                              device=DEVICE)
+        require(hit is not None, f"committed cache: no {name} entry for "
+                f"{autotune._device_kind(DEVICE)}")
+        new = fresh[name]
+        drift = (new["glups"] - hit["glups"]) / hit["glups"]
+        print(f"committed cache hit for {name}: {hit}; fresh winner {new}, "
+              f"GLUPS drift {drift:+.2%}, same plan "
+              f"{(hit['tiles'], hit['schedule']) == (new['tiles'], new['schedule'])}"
+              f" [{label}]")
+    kernel.reset_counts()
+    cfg = parse_args([*args, "--autotune", "--device", DEVICE])
+    spec = cfg.resolved_spec()
+    runner = registry.get_runner("pallas_temporal", cfg, spec, random_grid(
+        size, spec.radius, np.random.default_rng(SEED), DEVICE))
+    require(runner.plan_info["source"] == "autotune"
+            and kernel.launches == 0,
+            f"cfg4 on the committed cache: {runner.plan_info}")
+    require(sha256(committed) == digest,
+            "the committed autotune cache changed")
+    return counts
+
+
+def run_harnesses(tiled, slab, label):
+    """The sweep and scaling harnesses through ``python -m`` (in this
+    process): the 2D iterate sweep (every row correct, its slab launches by
+    schedule), the Poisson solver sweep (every row converged and within 3
+    h^2 of the exact solution), and the weak-scaling ladder on the one
+    card (its audit line and the shared-card note; the 4-rank result
+    bitwise the 1-rank one). Returns the launches by kernel row."""
+    import torch
+
+    from stencil_tpu_torch.core.spec import get_spec
+    from stencil_tpu_torch.ops.tiled import TiledStencil
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.parallel.sharded_kernel import (
+        ShardedKernelStencil,
+    )
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = {}
+        for name, args in (("sweep", SWEEP_ARGS),
+                           ("solver sweep", SOLVER_SWEEP_ARGS)):
+            tiled.reset_counts()
+            slab.reset_counts()
+            out = Path(tmp) / f"{name.replace(' ', '_')}.jsonl"
+            t0 = time.perf_counter()
+            code, _ = run_module("stencil_tpu_torch.sweep", [
+                "--device", DEVICE, *args, "--csv", str(out) + ".csv",
+                "--json", str(out)])
+            seconds = time.perf_counter() - t0
+            require(code == 0, f"{name} exited {code}")
+            rows[name] = [json.loads(x) for x in out.read_text().splitlines()]
+            for r in rows[name]:
+                require("error" not in r, f"{name} row {r}")
+            if name == "sweep":
+                require(len(rows[name]) == 6 and tiled.launches == 0,
+                        f"sweep: {len(rows[name])} rows, {tiled.launches} "
+                        "3D launches")
+                for r in rows[name]:
+                    require(r["check"]["ok"]
+                            and r["check"]["max_abs_err"] < GOLDEN_TOL
+                            and not r["check"]["capped"], f"sweep row {r}")
+                    print(f"  sweep row {r['method']} {r['size']}: "
+                          f"{r['glups']:.2f} GLUPS, check "
+                          f"{r['check']['max_abs_err']:.3e}, plan "
+                          f"{r.get('plan', {}).get('tiles')} "
+                          f"{r.get('plan', {}).get('schedule')}")
+                march = slab.march_launches
+                counts[slab_row("march", "")] = march
+                counts[slab_row("window", "")] = slab.launches - march
+            else:
+                require(len(rows[name]) == 3 and tiled.launches == 0
+                        and slab.launches == 0,
+                        f"solver sweep: {len(rows[name])} rows, "
+                        f"{tiled.launches} + {slab.launches} launches")
+                for r in rows[name]:
+                    # BiCGStab and GMRES stop at the fp32 stall floor on SPD
+                    # Poisson above a 1e-5 tolerance, as JAX's do (ROADMAP,
+                    # the reference's own caveats): such a row is correct
+                    # when it stalled there and its solution is
+                    h = 1.0 / (r["size"][0] + 1)
+                    stalled = r["solver"] in ("bicgstab", "gmres") \
+                        and r["residual_rel"] < STALL_FLOOR
+                    require((r["converged"] or stalled)
+                            and r["check"]["error_vs_exact"] < 3 * h * h,
+                            f"solver sweep row {r}")
+                    print(f"  solver sweep row {r['solver']} {r['size']}: "
+                          f"{r['iterations']} iterations, "
+                          f"{'converged' if r['converged'] else 'stalled'}"
+                          f" at {r['residual_rel']:.3e}, error "
+                          f"{r['check']['error_vs_exact']:.3e} (3 h^2 "
+                          f"{3 * h * h:.3e}), certificate "
+                          f"{r['check']['residual_f64_rel']:.3e}")
+            print(f"{name}: {len(rows[name])} rows correct in "
+                  f"{seconds:.1f} s; launches {slab.launches} slab "
+                  f"({slab.march_launches} march), {tiled.launches} tiled "
+                  f"[{label}]")
+        tiled.reset_counts()
+        out = Path(tmp) / "scaling.jsonl"
+        code, text = run_module("stencil_tpu_torch.scaling", [
+            "--device", DEVICE, *SCALING_ARGS, "--json-out", str(out)])
+        require(code == 0, f"scaling exited {code}")
+        lines = text.splitlines()
+        for line in lines:
+            print(f"  {line}")
+        require(sum(x.startswith("comm audit:") for x in lines) == 1
+                and any(x.startswith("note: at n = [2, 4]") for x in lines),
+                "scaling printed no audit line or no shared-card note")
+        pts = [json.loads(x) for x in out.read_text().splitlines()]
+        require([p["n_devices"] for p in pts] == [1, 2, 4]
+                and [p["ranks_per_device"] for p in pts] == [1, 2, 4]
+                and all(p["glups"] > 0 for p in pts), f"scaling {pts}")
+        require(tiled.launches == tiled.march_launches,
+                "scaling ran the window")
+        subsets = tiled.march_subset_launches
+        counts["tiled_march+subset"] = subsets
+        counts["tiled_march"] = tiled.march_launches - subsets
+    # the 4-rank ladder point against the 1-rank run, bitwise: the
+    # measured path (scatter, the steps, gather) and TiledStencil
+    spec = get_spec("jacobi7")
+    local = tuple(int(x) for x in SCALING_ARGS[1:4])
+    k = int(SCALING_ARGS[5])
+    gshape = (4 * local[0], *local[1:])
+    rng = np.random.default_rng(SEED)
+    grid = random_grid(gshape, spec.radius, rng, DEVICE)
+    mesh = make_mesh((4,), ("x",), DEVICE)
+    method = ShardedKernelStencil(spec, gshape, axis_names=("x",),
+                                  sweeps_per_call=k)
+    blocks = method.scatter(grid, mesh)
+    tiled.reset_counts()
+    out = method.run_steps(mesh, blocks, [b.clone() for b in blocks],
+                           grid.bc, 4 * k)
+    got = method.gather(out, mesh, grid)
+    counts["tiled_march+subset"] += tiled.march_subset_launches
+    counts["tiled_march"] += tiled.march_launches \
+        - tiled.march_subset_launches
+    one = TiledStencil(spec, gshape, sweeps_per_call=k, device=DEVICE)
+    want = one.iterate(grid, 4 * k)
+    require(torch.equal(got.interior(), want.interior()),
+            "the 4-rank scaling point is not bitwise the 1-rank run")
+    print(f"scaling: the 4-rank ladder point's result after {4 * k} sweeps "
+          f"bitwise the 1-rank tiled run [{label}]")
+    return counts
 
 
 def run_advdiff_cells(label):
@@ -3999,12 +4344,24 @@ def main() -> int:
     launches["tiled_march"] += run_checkpoint_paths(cli, tiled, label)
     t_advdiff = time.perf_counter()
     advdiff = run_advdiff_cells(label)
+    # the plan search (--autotune) and the sweep and scaling harnesses
+    t_search = time.perf_counter()
+    search = run_plan_search(cli, tiled, label)
+    t_harness = time.perf_counter()
+    harness = run_harnesses(tiled, slab, label)
+    for counts in (search, harness):
+        for mode, n in counts.items():
+            launches[mode] += n
+    print(f"launches of the plan search {search}, of the harnesses "
+          f"{harness} [{label}]")
     print(f"PHASE 4 main paths: ok at {time.perf_counter() - t_start:.1f} s "
           f"(the bf16 paths {t_sharded - t_bf16:.1f} s, the sharded paths "
           f"{t_rma - t_sharded:.1f} s, the rma paths "
           f"{t_stream - t_rma:.1f} s, the streamed and checkpointed paths "
           f"{t_advdiff - t_stream:.1f} s, cfg14/cfg15 "
-          f"{time.perf_counter() - t_advdiff:.1f} s; launches {launches})")
+          f"{t_search - t_advdiff:.1f} s, the plan search "
+          f"{t_harness - t_search:.1f} s, the harnesses "
+          f"{time.perf_counter() - t_harness:.1f} s; launches {launches})")
 
     # 5. times
     from stencil_tpu_torch import registry

@@ -6,10 +6,11 @@ parses unchanged, with ``--platform`` replaced by ``--device`` (default
 ``cuda``).
 
 TPU tuning flags (``--slots``, ``--slide``, ``--cores``, ``--tap-mode``,
-``--embed``, ``--autotune``) are accepted and recorded in the runner's
-``plan_info`` under ``ignored``; the machinery they tune does not exist on
-the GPU and is removed by design (plan tuning for the card is ROADMAP
-Queue A). In solve mode ``solve_cli.run_solve`` reports ``--mesh`` (the
+``--embed``) are accepted and recorded in the runner's ``plan_info`` under
+``ignored``; the machinery they tune does not exist on the GPU and is
+removed by design. ``--autotune`` (``on`` or ``force``) measures the 3D
+tiled kernel's plans on the card (``autotune.py``; ``registry.py``,
+``models/poisson.py``). In solve mode ``solve_cli.run_solve`` reports ``--mesh`` (the
 distributed solvers, not ported yet) as an error record, as the JAX
 ``run_solve`` reports its own refusals.
 
@@ -31,8 +32,7 @@ DEFAULT_METHODS = ("xla",)
 # TPU-only tuning flags: field -> default. A run records the ones that were
 # set to something else, and ignores them.
 TPU_TUNING_DEFAULTS = {
-    "tap_mode": None, "autotune": False, "slots": 2, "slide": False,
-    "cores": 1, "embed": False,
+    "tap_mode": None, "slots": 2, "slide": False, "cores": 1, "embed": False,
 }
 
 
@@ -53,9 +53,10 @@ class RunConfig:
     temporal: int = 1                    # sweeps per kernel launch (k)
     device: str = "cuda"                 # torch device; no CPU fallback
 
+    # the 3D tiled kernel's plan search on the card: False, "on", "force"
+    autotune: object = False
     # accepted for command-line compatibility; ignored (TPU tuning)
     tap_mode: Optional[str] = None
-    autotune: object = False
     slots: int = 2
     slide: bool = False
     cores: int = 1
@@ -183,7 +184,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "step around the halo exchange")
     p.add_argument("--autotune", nargs="?", const="on", default=False,
                    choices=("on", "force"),
-                   help="TPU plan tuning: accepted and ignored")
+                   help="measure the 3D tiled kernel's candidate plans "
+                        "(tiles, schedule) on the card and cache the "
+                        "winner (force: measure again and report drift); "
+                        "-b wins; 2D grids keep the chooser's plan")
     p.add_argument("--slots", type=int, default=2,
                    help="TPU DMA pipeline depth: accepted and ignored")
     p.add_argument("--slide", action="store_true",

@@ -154,8 +154,12 @@ class PoissonProblem:
         ``tiled`` (3D, the tiled kernel's source mode), ``pallas_slab``/
         ``slab`` (2D, the slab kernel's source mode), or ``auto`` (the
         kernel of the problem's rank). ``plan_kw`` goes to the kernel's
-        plan (``tiles``, ``t0_fixed``). ``autotune`` is accepted and
-        recorded as ignored: the TPU plan search is not ported."""
+        plan (``tiles``, ``t0_fixed``, ``schedule``). ``autotune`` (True,
+        "on" or "force") runs the tiled kernel on the cached or measured
+        winner of the source plan's search on the card (``autotune.py``,
+        its ``|src`` key; ``poisson.py:186-197``) unless ``plan_kw`` pins
+        the tile; on the CPU, and on the slab kernel, the chooser's plan
+        applies."""
         if method == "auto":
             method = "pallas_tiled" if self.ndim == 3 else "pallas_slab"
         if method in ("xla", "eager"):
@@ -170,7 +174,7 @@ class PoissonProblem:
                             "(eager torch sweep plus the source add)",
                 plan_info={"kernel": "eager", "has_source": True},
             )
-        ignored = {"autotune": autotune} if autotune else {}
+        won = None
         if method in ("pallas_tiled", "tiled"):
             if self.ndim != 3:
                 raise ValueError(
@@ -178,6 +182,18 @@ class PoissonProblem:
                     "method='xla' for 2D Poisson problems")
             from stencil_tpu_torch.ops.tiled import TiledStencil as Stencil
             kernel = "tiled"
+            from stencil_tpu_torch import autotune as at
+
+            if autotune and "tiles" not in plan_kw \
+                    and "t0_fixed" not in plan_kw \
+                    and at.tunes_on(self.device):
+                won = at.autotune(self.spec, self.shape, self.dtype,
+                                  sweeps_per_call,
+                                  force=(autotune == "force"),
+                                  has_source=True, device=self.device)
+                if won:
+                    plan_kw = {**plan_kw, "tiles": tuple(won["tiles"]),
+                               "schedule": won["schedule"]}
         elif method in ("pallas_slab", "slab"):
             if self.ndim != 2:
                 raise ValueError(
@@ -195,8 +211,8 @@ class PoissonProblem:
         info = {"kernel": kernel, "k": sweeps_per_call,
                 "tiles": list(m.plan.tiles), **schedule_info(m.plan),
                 "smem_bytes": m.plan.smem_bytes, "has_source": True}
-        if ignored:
-            info["ignored"] = ignored
+        if won:
+            info.update(source="autotune", autotune_glups=won.get("glups"))
         return Runner(
             name=f"poisson_{kernel}(k={sweeps_per_call})",
             iterate=m.iterate,

@@ -75,14 +75,14 @@ import itertools
 import math
 from typing import Optional, Tuple
 
+from stencil_tpu_torch import device_model
 from stencil_tpu_torch.core.grid import dtype_name, torch_dtype
 from stencil_tpu_torch.core.spec import StencilSpec
 from stencil_tpu_torch.ops.layout import PaddedLayout
 from stencil_tpu_torch.ops.slab_kernel import slab_sweep
 from stencil_tpu_torch.ops.sweep_kernel import KernelStencil
-from stencil_tpu_torch.ops.tiled import (
-    DTYPES, MAX_BLOCKS_PER_SM, SCHEDULES, SM_COUNT, SM_SHARED, SMEM_LIMIT,
-    TiledPlan, _smem_bytes,
+from stencil_tpu_torch.ops.tiled import (  # noqa: F401 (re-export)
+    DTYPES, SCHEDULES, SMEM_LIMIT, WINDOW_THREADS, TiledPlan, _smem_bytes,
 )
 
 _T0_CANDIDATES = (8, 16, 32, 64, 128, 256)
@@ -122,15 +122,18 @@ def _t1_candidates(kr: int) -> Tuple[int, ...]:
 
 
 def _cost(tiles, k: int, spec: StencilSpec, interior_shape,
-          constants=COST_CONSTANTS, itemsize: int = 4) -> float:
-    """Estimated time of one launch over the whole grid: each SM runs
-    ``ceil(blocks / SM_COUNT)`` blocks of the warp slots of one block (a
+          constants=COST_CONSTANTS, itemsize: int = 4,
+          budgets: Optional[device_model.Budgets] = None) -> float:
+    """Estimated time of one launch over the whole grid: each SM (of
+    ``budgets``, by default the card's) runs ``ceil(blocks / SMs)``
+    blocks of the warp slots of one block (a
     fixed cost, then a load cost per 32-point segment of a window row, then
     sweep by sweep a row of c points takes ceil(c / 32) slots of
     ``num_taps`` plus a row cost; ``constants`` are the three costs),
     divided by the latency hiding of the blocks resident together,
     ``resident ** 0.25``; the windows hold ``itemsize``-byte points."""
     block_cost, load_cost, row_cost = constants
+    b = budgets or device_model.budgets()
     r = spec.radius
     w0, w1 = (t + 2 * k * r for t in tiles)
     slots = block_cost + w0 * -(-w1 // 32) * load_cost
@@ -139,9 +142,10 @@ def _cost(tiles, k: int, spec: StencilSpec, interior_shape,
         slots += (w0 - 2 * e) * -(-(w1 - 2 * e) // 32) \
             * (spec.num_taps + row_cost)
     blocks = math.prod(-(-n // t) for n, t in zip(interior_shape, tiles))
-    per_sm = -(-blocks // SM_COUNT)
-    resident = min(per_sm, MAX_BLOCKS_PER_SM,
-                   SM_SHARED // (_smem_bytes(tiles, k, r, itemsize) + 1024))
+    per_sm = -(-blocks // b.sm_count)
+    resident = min(per_sm, b.threads_per_sm // WINDOW_THREADS,
+                   b.smem_per_sm // (_smem_bytes(tiles, k, r, itemsize)
+                                     + b.smem_reserved))
     return per_sm * slots / max(1, resident) ** 0.25
 
 
@@ -150,14 +154,15 @@ def candidate_tiles(spec: StencilSpec, interior_shape, sweeps_per_call: int,
                     itemsize: int = 4) -> list:
     """The tiles the chooser weighs, sorted: each t0 candidate (or
     ``t0_fixed``) with each t1 candidate, clamped to the grid, that fit one
-    block's shared memory at ``itemsize`` bytes per point."""
+    block's shared memory (the card's) at ``itemsize`` bytes per point."""
     k, r = sweeps_per_call, spec.radius
+    limit = device_model.budgets().smem_per_block
     n0, n1 = interior_shape
     t0s = (t0_fixed,) if t0_fixed is not None else _T0_CANDIDATES
     tiles = {(min(t0, n0), min(t1, n1))
              for t0, t1 in itertools.product(t0s, _t1_candidates(k * r))}
     return sorted(t for t in tiles
-                  if _smem_bytes(t, k, r, itemsize) <= SMEM_LIMIT)
+                  if _smem_bytes(t, k, r, itemsize) <= limit)
 
 
 def tile_key(tiles, k: int, spec: StencilSpec, interior_shape,
@@ -249,11 +254,12 @@ def slab_march_fits(tiles, k: int, r: int, itemsize: int = 4,
                     n1: Optional[int] = None) -> bool:
     """Whether the march kernel takes these tiles, with or without a
     source: k <= 32, radius <= 64, an input row of at most 1024 points (one
-    thread each), its rings within one block's shared memory."""
+    thread each), its rings within one block's shared memory (the
+    card's)."""
     return k <= SLAB_MARCH_MAX_SWEEPS and r <= 64 \
         and tiles[1] + 2 * k * r <= SLAB_MARCH_MAX_THREADS \
-        and slab_march_smem_bytes(tiles, k, r, itemsize, n1,
-                                  source=True) <= SMEM_LIMIT
+        and slab_march_smem_bytes(tiles, k, r, itemsize, n1, source=True) \
+        <= device_model.budgets().smem_per_block
 
 
 def _slab_march_cost(tiles, interior_shape, k: int, spec: StencilSpec,
@@ -268,6 +274,7 @@ def _slab_march_cost(tiles, interior_shape, k: int, spec: StencilSpec,
     warp); ``constants`` are the point cost, ns per step, ns per chain
     slot, ns per warp slot and the launch's ms."""
     point_cost, step_ns, chain_ns, slot_ns, launch = constants
+    b = device_model.budgets()
     r = spec.radius
     t0, _ = tiles
     cols = slab_march_columns(tiles, k, r)
@@ -275,9 +282,11 @@ def _slab_march_cost(tiles, interior_shape, k: int, spec: StencilSpec,
     chain = -(-k // (threads // cols))
     steps = t0 + k * (2 * r + 1)
     blocks = math.prod(-(-n // t) for n, t in zip(interior_shape, tiles))
-    per_sm = -(-blocks // SM_COUNT)
-    resident = min(per_sm, 32, 2048 // threads, SM_SHARED // (
-        slab_march_smem_bytes(tiles, k, r, itemsize) + 1024))
+    per_sm = -(-blocks // b.sm_count)
+    resident = min(per_sm, 32, b.threads_per_sm // threads,
+                   b.smem_per_sm // (slab_march_smem_bytes(tiles, k, r,
+                                                           itemsize)
+                                     + b.smem_reserved))
     waves = -(-per_sm // max(1, resident))
     cost = spec.num_taps + point_cost
     latency = waves * steps * (step_ns + chain * cost * chain_ns)
@@ -375,6 +384,7 @@ def make_slab_plan(spec: StencilSpec, interior_shape, dtype="float32",
     k, r = sweeps_per_call, spec.radius
     n1 = interior_shape[1]
     itemsize = torch_dtype(dtype).itemsize
+    limit = device_model.budgets().smem_per_block
     pinned = f" with t0={t0_fixed}" if t0_fixed is not None else ""
     if tiles is not None:
         tiles = tuple(int(t) for t in tiles)
@@ -391,13 +401,13 @@ def make_slab_plan(spec: StencilSpec, interior_shape, dtype="float32",
         if march is None and schedule == "march":
             raise ValueError(
                 f"no march tile of {interior_shape} at k={k}{pinned} "
-                f"fits {SMEM_LIMIT} bytes of shared memory")
+                f"fits {limit} bytes of shared memory")
     if schedule == "march":
         if not slab_march_fits(march, k, r, itemsize, n1):
             raise ValueError(
                 f"tiles {march} at k={k}, r={r} do not fit the march "
                 f"kernel ({slab_march_smem_bytes(march, k, r, itemsize, n1)}"
-                f" bytes of rings, at most {SMEM_LIMIT})")
+                f" bytes of rings, at most {limit})")
         chosen = "march"
     else:
         if tiles is None:
@@ -405,13 +415,13 @@ def make_slab_plan(spec: StencilSpec, interior_shape, dtype="float32",
         if window is None and march is None:
             raise ValueError(
                 f"no tile of {interior_shape} at k={k}{pinned} fits "
-                f"{SMEM_LIMIT} bytes of shared memory")
+                f"{limit} bytes of shared memory")
         if window is not None and \
-                _smem_bytes(window, k, r, itemsize) > SMEM_LIMIT:
+                _smem_bytes(window, k, r, itemsize) > limit:
             raise ValueError(
                 f"tiles {window} at k={k}, r={r} need "
                 f"{_smem_bytes(window, k, r, itemsize)} bytes of shared "
-                f"memory > {SMEM_LIMIT}")
+                f"memory > {limit}")
         chosen = "march" if schedule is None and march is not None and (
             window is None or march_wins(march, window, k, spec,
                                          interior_shape, itemsize)) \

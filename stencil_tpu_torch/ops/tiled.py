@@ -75,11 +75,12 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from stencil_tpu_torch import device_model
 from stencil_tpu_torch.core.grid import (
     DirichletBC, HaloGrid, dtype_name, torch_dtype,
 )
@@ -90,13 +91,13 @@ from stencil_tpu_torch.ops.sweep_kernel import (  # noqa: F401 (re-export)
 )
 from stencil_tpu_torch.ops.tiled_kernel import coeff_weights, tiled_sweep
 
-SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
-SM_SHARED = 233_472    # bytes of shared memory per SM; 1 KB more per block
-MAX_BLOCKS_PER_SM = 4  # 2048 threads per SM / 512 per block
+# an H100's shared memory per block; the plans read the card's budgets
+# from ``device_model.budgets()``, an H100's on an H100 and on the CPU
+SMEM_LIMIT = device_model.H100.smem_per_block
+WINDOW_THREADS = 512   # threads of a window block
 MAX_CHEBY_SWEEPS = 16  # coefficient tuples the kernel takes per launch
 DTYPES = ("float32", "bfloat16")  # the kernels' element types
 
-SM_COUNT = 132          # streaming multiprocessors of an H100 SXM
 SCHEDULES = ("march", "window")
 MARCH_MAX_SWEEPS = 16   # sweep levels the march kernel takes per launch
 MARCH_THREADS = 512     # threads of a march block
@@ -220,14 +221,17 @@ def _smem_bytes(tiles, k: int, r: int, itemsize: int = 4) -> int:
         * itemsize
 
 
-def _cost(tiles, k: int, spec: StencilSpec, itemsize: int = 4) -> float:
+def _cost(tiles, k: int, spec: StencilSpec, itemsize: int = 4,
+          budgets: Optional[device_model.Budgets] = None) -> float:
     """Estimated time per output point of a tile: the warp slots of the
     window load (32 points each) and of the k sweeps (a row of c points
     takes ceil(c / 32) slots of ``num_taps + _ROW_COST``), divided by the
-    latency hiding that resident blocks buy, ``min(blocks, 3) ** 0.25``.
+    latency hiding that resident blocks buy, ``min(blocks, 3) ** 0.25``
+    (the blocks an SM of ``budgets``, by default the card's, holds).
     On the sweep it was fitted to (float32), it picks within 20% of the
     fastest tile at every k, for jacobi7 and jacobi27; in bfloat16 the
     same model counts 2-byte windows."""
+    b = budgets or device_model.budgets()
     r = spec.radius
     w = [t + 2 * k * r for t in tiles]
     slots = math.prod(w) / 32
@@ -235,8 +239,9 @@ def _cost(tiles, k: int, spec: StencilSpec, itemsize: int = 4) -> float:
         e = s * r
         slots += (w[0] - 2 * e) * (w[1] - 2 * e) * -(-(w[2] - 2 * e) // 32) \
             * (spec.num_taps + _ROW_COST)
-    blocks = min(MAX_BLOCKS_PER_SM, _BLOCKS_SATURATE,
-                 SM_SHARED // (_smem_bytes(tiles, k, r, itemsize) + 1024))
+    blocks = min(b.threads_per_sm // WINDOW_THREADS, _BLOCKS_SATURATE,
+                 b.smem_per_sm // (_smem_bytes(tiles, k, r, itemsize)
+                                   + b.smem_reserved))
     return slots / math.prod(tiles) / max(1, blocks) ** 0.25
 
 
@@ -261,15 +266,18 @@ def march_smem_bytes(tiles, k: int, r: int, itemsize: int = 4,
 
 
 def march_fits(tiles, k: int, r: int, itemsize: int = 4,
-               deep: bool = False) -> bool:
+               deep: bool = False,
+               budgets: Optional[device_model.Budgets] = None) -> bool:
     """Whether the march kernel takes these tiles: k <= 16, the rings
-    (``deep``: 2r+3 planes) in one block's shared memory, and in bfloat16
-    (2-byte points, which the kernel stages through registers) an input
-    plane of at most 8192 points."""
+    (``deep``: 2r+3 planes) in one block's shared memory (of ``budgets``,
+    by default the card's), and in bfloat16 (2-byte points, which the
+    kernel stages through registers) an input plane of at most 8192
+    points."""
     _, t1, t2 = tiles
     plane = (t1 + 2 * k * r) * (t2 + 2 * k * r)
+    limit = (budgets or device_model.budgets()).smem_per_block
     return (k <= MARCH_MAX_SWEEPS
-            and march_smem_bytes(tiles, k, r, itemsize, deep) <= SMEM_LIMIT
+            and march_smem_bytes(tiles, k, r, itemsize, deep) <= limit
             and (itemsize == 4 or plane <= MARCH_STAGE * MARCH_THREADS))
 
 
@@ -282,13 +290,15 @@ MARCH_COST_CONSTANTS = (10, 32, 2048)
 
 
 def _march_cost(tiles, interior_shape, k: int, spec: StencilSpec,
-                constants=MARCH_COST_CONSTANTS) -> float:
+                constants=MARCH_COST_CONSTANTS,
+                budgets: Optional[device_model.Budgets] = None) -> float:
     """Estimated time per output point of a march plan: per block, each
     level's planes (t0 + 2(k-s)r of them) in passes of 512 threads of
     ``num_taps`` + the row cost slots per point, the input planes' loads
-    and one barrier per step; times the blocks each of the 132 SMs
-    runs (blocks resident together share the SM: on the sweep it was
-    fitted to, more of them per SM hid nothing). On that sweep it picks
+    and one barrier per step; times the blocks each SM runs (the SMs of
+    ``budgets``, by default the card's: 132 on an H100; blocks resident
+    together share the SM: on the sweep it was fitted to, more of them per
+    SM hid nothing). On that sweep it picks
     the fastest tile of each of the five cases; the fit needed no term
     for the item size."""
     row_cost, load_cost, step_cost = constants
@@ -305,7 +315,8 @@ def _march_cost(tiles, interior_shape, k: int, spec: StencilSpec,
     slots += (t0 + 2 * k * r) * passes(0) * warps * load_cost
     slots += (t0 + 2 * k * r + k) * step_cost
     blocks = math.prod(-(-n // t) for n, t in zip(interior_shape, tiles))
-    return -(-blocks // SM_COUNT) * slots / math.prod(interior_shape)
+    sms = (budgets or device_model.budgets()).sm_count
+    return -(-blocks // sms) * slots / math.prod(interior_shape)
 
 
 MARCH_T0_CANDIDATES = (8, 16, 32, 64, 128, 256)
@@ -336,33 +347,47 @@ def march_constants(two_level: bool) -> Tuple[int, int, int]:
         else MARCH_COST_CONSTANTS
 
 
+def rank_march_tiles(spec: StencilSpec, interior_shape,
+                     sweeps_per_call: int,
+                     t0_fixed: Optional[int] = None, dtype="float32",
+                     deep: bool = False,
+                     constants: Tuple[int, int, int] = MARCH_COST_CONSTANTS
+                     ) -> List[Tuple[int, int, int]]:
+    """Every (d0 chunk, t1, t2) whose rings fit (:func:`march_fits`;
+    ``deep``: rings of 2r+3 planes), each once, in order of estimated cost
+    (:func:`_march_cost` with ``constants``, :func:`march_constants` of the
+    mode), ties to the wider d2 extent, then the larger tile, then the
+    earlier candidate. ``t0_fixed`` pins the chunk. The first is
+    :func:`choose_march_tiles`' pick; the autotuner measures the head
+    (``autotune.py``)."""
+    k, r = sweeps_per_call, spec.radius
+    itemsize = torch_dtype(dtype).itemsize
+    b = device_model.budgets()
+    n0, n1, n2 = interior_shape
+    t0s = (t0_fixed,) if t0_fixed is not None else MARCH_T0_CANDIDATES
+    keys = {}
+    for t0, t1, t2 in itertools.product(t0s, _MARCH_T_CANDIDATES,
+                                        _MARCH_T_CANDIDATES):
+        tiles = (min(t0, n0), min(t1, n1), min(t2, n2))
+        if tiles in keys or not march_fits(tiles, k, r, itemsize, deep, b):
+            continue
+        keys[tiles] = (_march_cost(tiles, interior_shape, k, spec, constants,
+                                   b),
+                       -tiles[2], -math.prod(tiles))
+    return sorted(keys, key=keys.get)
+
+
 def choose_march_tiles(spec: StencilSpec, interior_shape,
                        sweeps_per_call: int,
                        t0_fixed: Optional[int] = None, dtype="float32",
                        deep: bool = False,
                        constants: Tuple[int, int, int] = MARCH_COST_CONSTANTS
                        ) -> Optional[Tuple[int, int, int]]:
-    """The (d0 chunk, t1, t2) of least estimated cost
-    (:func:`_march_cost` with ``constants``, :func:`march_constants` of
-    the mode) among those whose rings fit (:func:`march_fits`; ``deep``:
-    rings of 2r+3 planes); ties go to the wider d2 extent. None if nothing
-    fits. ``t0_fixed`` pins the chunk."""
-    k, r = sweeps_per_call, spec.radius
-    itemsize = torch_dtype(dtype).itemsize
-    n0, n1, n2 = interior_shape
-    t0s = (t0_fixed,) if t0_fixed is not None else MARCH_T0_CANDIDATES
-    best, best_key = None, None
-    for t0, t1, t2 in itertools.product(t0s, _MARCH_T_CANDIDATES,
-                                        _MARCH_T_CANDIDATES):
-        tiles = (min(t0, n0), min(t1, n1), min(t2, n2))
-        if not march_fits(tiles, k, r, itemsize, deep):
-            continue
-        key = (_march_cost(tiles, interior_shape, k, spec, constants),
-               -tiles[2],
-               -math.prod(tiles))
-        if best_key is None or key < best_key:
-            best, best_key = tiles, key
-    return best
+    """The (d0 chunk, t1, t2) of least estimated cost, the head of
+    :func:`rank_march_tiles`; None if nothing fits."""
+    ranked = rank_march_tiles(spec, interior_shape, sweeps_per_call,
+                              t0_fixed, dtype, deep, constants)
+    return ranked[0] if ranked else None
 
 
 def _t2_candidates(kr: int) -> Tuple[int, ...]:
@@ -372,27 +397,39 @@ def _t2_candidates(kr: int) -> Tuple[int, ...]:
                                              if 32 * m > 2 * kr}))
 
 
-def choose_tiles(spec: StencilSpec, interior_shape, sweeps_per_call: int,
-                 t0_fixed: Optional[int] = None, dtype="float32"
-                 ) -> Optional[Tuple[int, int, int]]:
-    """The feasible tile of least estimated cost (:func:`_cost`) for
-    windows of ``dtype``; ties go to the wider d2 extent. None if nothing
-    fits."""
+def rank_tiles(spec: StencilSpec, interior_shape, sweeps_per_call: int,
+               t0_fixed: Optional[int] = None, dtype="float32"
+               ) -> List[Tuple[int, int, int]]:
+    """Every window tile whose windows of ``dtype`` fit one block's shared
+    memory, each once, in order of estimated cost (:func:`_cost`), ties to
+    the wider d2 extent, then the larger tile, then the earlier candidate.
+    The first is :func:`choose_tiles`' pick; the autotuner measures the
+    head (``autotune.py``)."""
     k, r = sweeps_per_call, spec.radius
     itemsize = torch_dtype(dtype).itemsize
+    b = device_model.budgets()
     n0, n1, n2 = interior_shape
     t0s = (t0_fixed,) if t0_fixed is not None else _T0_CANDIDATES
-    best, best_key = None, None
+    keys = {}
     for t0, t1, t2 in itertools.product(t0s, _T1_CANDIDATES,
                                         _t2_candidates(k * r)):
         tiles = (min(t0, n0), min(t1, n1), min(t2, n2))
-        if _smem_bytes(tiles, k, r, itemsize) > SMEM_LIMIT:
+        if tiles in keys \
+                or _smem_bytes(tiles, k, r, itemsize) > b.smem_per_block:
             continue
-        key = (_cost(tiles, k, spec, itemsize), -tiles[2],
-               -math.prod(tiles))
-        if best_key is None or key < best_key:
-            best, best_key = tiles, key
-    return best
+        keys[tiles] = (_cost(tiles, k, spec, itemsize, b), -tiles[2],
+                       -math.prod(tiles))
+    return sorted(keys, key=keys.get)
+
+
+def choose_tiles(spec: StencilSpec, interior_shape, sweeps_per_call: int,
+                 t0_fixed: Optional[int] = None, dtype="float32"
+                 ) -> Optional[Tuple[int, int, int]]:
+    """The feasible tile of least estimated cost, the head of
+    :func:`rank_tiles`; None if nothing fits."""
+    ranked = rank_tiles(spec, interior_shape, sweeps_per_call, t0_fixed,
+                        dtype)
+    return ranked[0] if ranked else None
 
 
 def _check_cheby(spec: StencilSpec, k: int, has_source: bool,
@@ -500,6 +537,7 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     interior_shape = tuple(int(n) for n in interior_shape)
     k, r = sweeps_per_call, spec.radius
     itemsize = torch_dtype(dtype).itemsize
+    limit = device_model.budgets().smem_per_block
     if schedule is not None and schedule not in SCHEDULES:
         raise ValueError(f"schedule {schedule!r}: one of {SCHEDULES}")
     # a two-level or Chebyshev launch of one sweep: the window's (one
@@ -515,14 +553,14 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
                                    deep, march_constants(two_level))
         if tiles is None and schedule == "march":
             raise ValueError(f"no march tile of {interior_shape} at k={k} "
-                             f"fits {SMEM_LIMIT} bytes of shared memory")
+                             f"fits {limit} bytes of shared memory")
         march = tiles is not None
     if tiles is None:
         tiles = choose_tiles(spec, interior_shape, k, t0_fixed, dtype)
         if tiles is None:
             raise ValueError(
                 f"no tile of {interior_shape} at k={k} fits "
-                f"{SMEM_LIMIT} bytes of shared memory")
+                f"{limit} bytes of shared memory")
     tiles = tuple(int(t) for t in tiles)
     if any(t < 1 or t > n for t, n in zip(tiles, interior_shape)):
         raise ValueError(f"tiles {tiles} must lie in [1, {interior_shape}]")
@@ -531,12 +569,12 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
         raise ValueError(
             f"tiles {tiles} at k={k}, r={r} do not fit the march kernel "
             f"({march_smem_bytes(tiles, k, r, itemsize, deep)} bytes "
-            f"of rings, at most {SMEM_LIMIT}; k <= {MARCH_MAX_SWEEPS})")
-    if not march and _smem_bytes(tiles, k, r, itemsize) > SMEM_LIMIT:
+            f"of rings, at most {limit}; k <= {MARCH_MAX_SWEEPS})")
+    if not march and _smem_bytes(tiles, k, r, itemsize) > limit:
         raise ValueError(
             f"tiles {tiles} at k={k}, r={r} need "
             f"{_smem_bytes(tiles, k, r, itemsize)} bytes of shared memory "
-            f"> {SMEM_LIMIT}")
+            f"> {limit}")
     return TiledPlan(spec=spec, interior_shape=interior_shape, dtype=dtype,
                      sweeps_per_call=k, tiles=tiles,
                      layout=PaddedLayout.for_halo(interior_shape, k * r),

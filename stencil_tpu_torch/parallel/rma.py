@@ -107,7 +107,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from stencil_tpu_torch import _build
+from stencil_tpu_torch import _build, device_model
 from stencil_tpu_torch.core.grid import (
     DirichletBC, HaloGrid, dtype_name, fill_halo, torch_dtype,
 )
@@ -128,9 +128,9 @@ REPLACES_MODE = {
     # the same kernel at dtype=bfloat16 (its dtype taken from the plan)
     "rma_iterate+bf16": "stencil_tpu/parallel/rma.py:264",
 }
-# the L2 cache of an H100 (50 MiB): the residency budget where no card is
-# asked (a plan made on the CPU); on a card its own L2 size
-H100_L2_BYTES = 50 * 2 ** 20
+# the L2 cache of an H100 (50 MiB, ``device_model.H100``): the residency
+# budget where no card is asked (a plan made on the CPU); on a card its own
+H100_L2_BYTES = device_model.H100.l2_bytes
 # neighbour codes of a face with no neighbour (rma_tables): Dirichlet
 # ghosts stay as the scatter left them; Neumann ghosts are the rank's own
 # mirror, written in the dim's phase
@@ -140,10 +140,10 @@ NBR_MIRROR = -2
 
 def l2_budget(device) -> int:
     """The residency budget of one launch on ``device``: its L2 size on a
-    CUDA device, :data:`H100_L2_BYTES` elsewhere."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        return torch.cuda.get_device_properties(dev).L2_cache_size
+    CUDA device (``device_model.budgets``), :data:`H100_L2_BYTES`
+    elsewhere."""
+    if torch.device(device).type == "cuda":
+        return device_model.budgets(device).l2_bytes
     return H100_L2_BYTES
 
 
@@ -522,15 +522,12 @@ def rma_iterate_reference(buffers: torch.Tensor, plan: RmaPlan,
 
 # ---- the tiled schedule (csrc/rma_iterate.cu) ------------------------------
 
-# the card's limits the tile rule respects: shared memory per block (227
-# KB) and per SM (228 KB, 1 KB of it reserved per block), the SM count of
-# an H100 SXM, the kernel's threads per block and resident blocks per SM
-SHARED_PER_BLOCK = 232448
-SHARED_PER_SM = 233472
-SHARED_RESERVED = 1024
-H100_SMS = 132
+# the tile rule respects the card's limits (``device_model.budgets()``, an
+# H100's on the CPU): shared memory per block (227 KB on an H100, this
+# name's) and per SM (228 KB, 1 KB of it reserved per block), the SM count,
+# the threads per SM over the kernel's threads per block
+SHARED_PER_BLOCK = device_model.H100.smem_per_block
 THREADS = 1024
-MAX_BLOCKS_PER_SM = 2048 // THREADS
 # the tile rule's cost of one step, in ns (choose_rma_tile): per window
 # cell loaded, per cell updated over the k sweeps, per wave of resident
 # tiles (the wait on the flags, the barriers, the latency of a tile);
@@ -556,11 +553,13 @@ def shared_bytes(tile, ranks: int, k: int, kr: int, itemsize: int) -> int:
 
 
 def tile_features(local_shape, tile, ranks: int, k: int, r: int,
-                  itemsize: int, sms: int = H100_SMS
+                  itemsize: int,
+                  budgets: Optional[device_model.Budgets] = None
                   ) -> Optional[Tuple[int, int, int]]:
     """What one step costs with ``tile`` (one extent per grid dim), or
-    None where its window does not fit a block's shared memory: m =
-    ceil(tiles / sms) tiles per SM, resident ``bps`` at a time, each loading
+    None where its window does not fit a block's shared memory (of
+    ``budgets``, by default the card's): m = ceil(tiles / SMs) tiles per
+    SM, resident ``bps`` at a time, each loading
     its window (the tile grown by k*r: W cells) and updating the tile
     grown by (k-t)*r at sweep t (C cells over the k sweeps), a row of the
     last dim counted as whole warps of 32 cells. Returns (ceil(m / bps),
@@ -569,24 +568,28 @@ def tile_features(local_shape, tile, ranks: int, k: int, r: int,
         *rows, width = (t + 2 * grow for t in tile)
         return math.prod(rows) * -(-width // 32) * 32
 
+    b = budgets or device_model.budgets()
     kr = k * r
     shared = shared_bytes(tile, ranks, k, kr, itemsize)
-    if shared > SHARED_PER_BLOCK:
+    if shared > b.smem_per_block:
         return None
-    bps = min(MAX_BLOCKS_PER_SM,
-              SHARED_PER_SM // (shared + SHARED_RESERVED))
+    bps = min(b.threads_per_sm // THREADS,
+              b.smem_per_sm // (shared + b.smem_reserved))
     tiles = ranks * math.prod(-(-n // t) for n, t in zip(local_shape, tile))
-    m = -(-tiles // sms)
+    m = -(-tiles // b.sm_count)
     swept = sum(cells((k - s) * r) for s in range(1, k + 1))
     return -(-m // bps), m * cells(kr), m * swept
 
 
 def tile_cost(local_shape, tile, ranks: int, k: int, r: int, itemsize: int,
-              constants=RMA_TILE_CONSTANTS) -> Optional[float]:
+              constants=RMA_TILE_CONSTANTS,
+              budgets: Optional[device_model.Budgets] = None
+              ) -> Optional[float]:
     """The rule's estimate of one step's ns with ``tile``, or None where it
     does not fit: ``constants`` (a, b, c) weigh :func:`tile_features`,
     c * ceil(m / bps) + a * m * W + b * m * C."""
-    f = tile_features(local_shape, tile, ranks, k, r, itemsize)
+    f = tile_features(local_shape, tile, ranks, k, r, itemsize,
+                      budgets=budgets)
     if f is None:
         return None
     a, b, c = constants
@@ -597,17 +600,18 @@ def choose_rma_tile(local_shape, ranks: int, k: int, r: int, itemsize: int,
                     constants=RMA_TILE_CONSTANTS) -> Tuple[int, ...]:
     """The tile of least :func:`tile_cost` among every product of
     :func:`tile_candidates` whose window fits (ties: the larger tile)."""
+    b = device_model.budgets()
     best = None
     for tile in itertools.product(*map(tile_candidates, local_shape)):
         cost = tile_cost(local_shape, tile, ranks, k, r, itemsize,
-                         constants)
+                         constants, b)
         if cost is not None:
             key = (cost, -math.prod(tile))
             if best is None or key < best[0]:
                 best = (key, tile)
     if best is None:
         raise ValueError(f"no rma tile of {tuple(local_shape)} fits "
-                         f"{SHARED_PER_BLOCK} B of shared memory at k*r = "
+                         f"{b.smem_per_block} B of shared memory at k*r = "
                          f"{k * r}")
     return best[1]
 

@@ -387,14 +387,29 @@ class ShardedKernelStencil:
         ``axis_names``): ``iterations // k`` outer steps and one launch of
         the remainder, on blocks scattered and gathered once. ``grid`` is
         unchanged; the result lies on ``grid``'s device."""
+        plan = self.local_plan(self.mesh_shape(mesh))
+        self._check(grid, source, plan)
+        cur = self.scatter(grid, mesh)
+        src = (self._scatter_source(plan, mesh, source, source_scale,
+                                    grid.bc)
+               if source is not None else None)
+        cur = self.run_steps(mesh, cur, [block.clone() for block in cur],
+                             grid.bc, iterations, src)
+        return self.gather(cur, mesh, grid)
+
+    def run_steps(self, mesh: Mesh, cur: List[torch.Tensor],
+                  nxt: List[torch.Tensor], bc: DirichletBC,
+                  iterations: int, src=None) -> List[torch.Tensor]:
+        """``iterations`` sweeps of the scattered blocks ``cur`` (with
+        ``nxt``, blocks of the same shape, as the other buffer; both are
+        written): ``iterations // k`` outer steps and one launch of the
+        remainder. Returns the blocks that hold the result, ``cur`` or
+        ``nxt``. The weak-scaling harness times this, between one
+        :meth:`scatter` and one :meth:`gather` (``scaling.py``)."""
         mesh_shape = self.mesh_shape(mesh)
         plan = self.local_plan(mesh_shape)
-        self._check(grid, source, plan)
-        bc = grid.bc
-        cur = self.scatter(grid, mesh)
-        nxt = [block.clone() for block in cur]
-        src = (self._scatter_source(plan, mesh, source, source_scale, bc)
-               if source is not None else [None] * mesh.size)
+        if src is None:
+            src = [None] * mesh.size
         pins = [self.pins(mesh, rank, bc) for rank in range(mesh.size)]
         split = self.splits(mesh_shape)
         if split:
@@ -410,7 +425,7 @@ class ShardedKernelStencil:
                 parts[lp] = partition_tiles(lp)
             self.step(mesh, lp, cur, nxt, src, pins, bc, parts.get(lp))
             cur, nxt = nxt, cur
-        return self.gather(cur, mesh, grid)
+        return cur
 
     def step(self, mesh: Mesh, plan, cur, nxt, src, pins, bc: DirichletBC,
              parts=None) -> None:

@@ -40,6 +40,13 @@ The sharded methods and ``rma`` run on a single-controller mesh
 visible CUDA device (one on the CPU), and several ranks may share one card
 (``rma``'s must). ``--no-overlap`` turns the interior-first split off.
 
+``--autotune`` measures the 3D tiled kernel's candidate plans (tiles and
+schedule, ``autotune.py``) on the card and runs the cached winner
+(``plan_info["source"]`` "autotune", ``["autotune_glups"]``); ``-b`` wins
+over it, a dynamic last dim skips it with a line on stderr, and on the CPU
+the chooser's plan applies. On a card, a 2D grid says on stderr that it
+keeps the chooser's plan, as JAX's says of its pinned defaults.
+
 Periodic and Neumann walls (``--periodic``/``--neumann``) run on every
 ported method: on the kernels with JAX's gates, raised when the runner is
 made (a dynamic lane dim needs k=1, a Neumann leading dim at k>1 a
@@ -54,8 +61,10 @@ has ``iterate(grid, n) -> HaloGrid``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+import sys
+from typing import Callable, Dict, Optional
 
+from stencil_tpu_torch import autotune
 from stencil_tpu_torch.core.grid import HaloGrid, dtype_name
 from stencil_tpu_torch.core.spec import StencilSpec
 from stencil_tpu_torch.ops import eager
@@ -125,12 +134,30 @@ def schedule_info(plan) -> dict:
     return info
 
 
+def _autotuned(config, spec: StencilSpec, grid: HaloGrid,
+               k: int) -> Optional[dict]:
+    """The cached or measured winner for a 3D tiled runner under
+    ``--autotune`` (``registry.py:208-234``), or None where the chooser's
+    plan applies. A dynamic last dim skips the search, loudly: it holds
+    the launch at k=1, a plan the search does not cover."""
+    if grid.bc.dynamic_mask(spec.ndim)[-1]:
+        print("# --autotune skipped: the periodic/Neumann lane dim holds "
+              "the launch at k=1 (constraint-chosen plan)", file=sys.stderr)
+        return None
+    if not autotune.tunes_on(grid.device):
+        return None
+    return autotune.autotune(spec, grid.interior_shape,
+                             dtype_name(grid.dtype), k,
+                             force=config.autotune == "force",
+                             device=grid.device)
+
+
 def _make_kernel(kind: str, stencil_cls, config, spec: StencilSpec,
                  grid: HaloGrid, k: int) -> Runner:
     """A runner on a hand-written kernel (``kind`` "tiled" or "slab");
-    ``plan_info`` records the plan, whether its tile came from ``-b``
-    (``source``), the launches' pins, and the TPU tuning flags that were
-    set and ignored."""
+    ``plan_info`` records the plan, whether it came from ``-b``, the
+    chooser or ``--autotune`` (``source``), the launches' pins, and the TPU
+    tuning flags that were set and ignored."""
     if grid.bc.any_dynamic:
         _dynamic_kernel_constraints(
             grid, spec, k, "tiled 3D" if kind == "tiled" else "2D slab")
@@ -140,18 +167,26 @@ def _make_kernel(kind: str, stencil_cls, config, spec: StencilSpec,
                 "periodic/Neumann BCs: --embed pins Dirichlet thick "
                 "ghosts and --slide is unsupported; drop the flag"
             )
+    block = config.block if config is not None else None
+    source, won, plan_kw = ("flag" if block else "chooser"), None, {}
+    if kind == "tiled" and config is not None and config.autotune \
+            and not block:
+        won = _autotuned(config, spec, grid, k)
+        if won is not None:
+            source = "autotune"
+            plan_kw = {"tiles": tuple(won["tiles"]),
+                       "schedule": won["schedule"]}
     method = stencil_cls(
         spec, grid.interior_shape, dtype=dtype_name(grid.dtype),
-        sweeps_per_call=k,
-        t0_fixed=config.block if config is not None else None,
-        device=grid.device,
+        sweeps_per_call=k, t0_fixed=block, device=grid.device, **plan_kw,
     )
     plan = method.plan
     plan_info = {"kernel": kind, "k": k, "tiles": list(plan.tiles),
                  **schedule_info(plan), "smem_bytes": plan.smem_bytes,
-                 "source": "flag" if config is not None and config.block
-                 else "chooser",
+                 "source": source,
                  "pins": list(dynamic_pins(grid.bc, spec.ndim))}
+    if won is not None:
+        plan_info["autotune_glups"] = won.get("glups")
     ignored = config.ignored_tpu_flags() if config is not None else {}
     if ignored:
         plan_info["ignored"] = ignored
@@ -184,6 +219,13 @@ def make_slab(config, spec, grid) -> Runner:
 def _make_pallas(config, spec, grid, k: int) -> Runner:
     # as in the JAX registry: 2D grids run the slab kernel, 3D the tiled
     if spec.ndim == 2:
+        if config is not None and autotune.tunes_on(grid.device) and (
+                config.autotune or config.slide or config.slots != 2
+                or config.cores != 1 or config.embed
+                or config.chunks is not None):
+            print("# autotune/slide/slots/cores/embed/chunks apply to 3D "
+                  "methods; 2D slab path uses pinned defaults",
+                  file=sys.stderr)
         return _make_kernel("slab", SlabStencil, config, spec, grid, k)
     return _make_kernel("tiled", TiledStencil, config, spec, grid, k)
 

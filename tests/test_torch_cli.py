@@ -245,8 +245,11 @@ def test_tpu_tuning_flags_recorded_as_ignored():
     spec = cfg.resolved_spec()
     runner = registry.get_runner("pallas_temporal", cfg, spec,
                                  cli.make_grid(cfg, spec))
+    # --autotune is the card's plan search now; on the CPU the chooser's
+    # plan applies, and it is not a TPU flag recorded as ignored
     assert runner.plan_info["ignored"] == {
-        "slots": 3, "slide": True, "tap_mode": "synth", "autotune": "on"}
+        "slots": 3, "slide": True, "tap_mode": "synth"}
+    assert runner.plan_info["source"] == "chooser"
 
 
 def test_numpy_golden_fallback_is_capped_loudly(monkeypatch):
