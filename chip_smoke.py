@@ -197,7 +197,20 @@ Phases, each ending in a line of its own:
    BiCGStab and GMRES(8) right-preconditioned by OperatorMultigrid, tol
    1e-4), each converged with a float64 certificate under 1e-4, their
    iterations and time to solution (a host clock around the solve and its
-   fetch, the median of 3 after a warm-up); then the plan search
+   fetch, the median of 3 after a warm-up); then the distributed solvers
+   on meshes whose ranks share the card (no hand-written kernel: the
+   tiled kernel's count stays 0): ``Multigrid(fine_method='xla')`` at
+   255³ ``sharded_runner`` over (4,), two cycles bitwise the one-device
+   runner, its ms per V-cycle, a traced cycle's idle share and the
+   audit's counts per cycle beside one device's;
+   ``--solve poisson -s 255 255 255 --solver pcg --mesh 2 2 -c`` (error
+   under 3 h², iterations within 2 of the one-device PCG with
+   ``--fine-method xla``), cfg18's ``--solve hetero --contrast 100
+   --solver bicgstab --precond opmg --mesh 4 -c`` and cfg15's ``--solve
+   advdiff --solver gmres --restart 8 --mesh 2 2 -c`` (float64
+   certificates under 1e-2 and 1e-4), each with the audit's counts per
+   iteration and one timed warm solve beside the one-device solve's; then
+   the plan search
    (``--autotune``, ``autotune.py``): cfg4 (``laplace3d_ho`` 384³ k=4
    fp32) ``--autotune force -c`` through the CLI against a temporary cache,
    every candidate's GLUPS printed (the first is the pinned plan's) beside
@@ -436,6 +449,29 @@ ADVDIFF_SEED = 3
 ADVDIFF_TOL = 1e-4
 ADVDIFF_MAX_ITERS = 3000
 ADVDIFF_RUNS = 3             # timed solves after one warm-up, median taken
+# the distributed solvers on meshes whose ranks share the card (phase 4):
+# Multigrid.sharded_runner at 255^3 over (4,), two cycles bitwise the
+# one-device eager cycle; PCG (--mesh 2 2), cfg18's hetero BiCGStab
+# (--mesh 4, contrast 100) and cfg15's advdiff GMRES(8) (--mesh 2 2)
+# through the CLI with -c, each beside its one-device solve; the float64
+# certificates held to HETERO_CERT_BAR and ADVDIFF_TOL, as those cells
+DIST_MG_MESH = (4,)
+DIST_MG_CYCLES = 2
+DIST_TIME_CYCLES = 4         # V-cycles per timed run of the runners
+DIST_SOLVES = (
+    ("pcg", ["--solve", "poisson", "-s", "255", "255", "255", "--solver",
+             "pcg", "--tol", "1e-5", "-i", "50"], ("2", "2"),
+     ["--fine-method", "xla"]),
+    ("hetero-bicgstab", ["--solve", "hetero", "--contrast", "100", "-s",
+                         "255", "255", "255", "--solver", "bicgstab",
+                         "--precond", "opmg", "--tol", "1e-4", "-i",
+                         "1000"], ("4",), []),
+    ("advdiff-gmres", ["--solve", "advdiff", "--solver", "gmres",
+                       "--restart", "8", "-s", "255", "255", "255",
+                       "--velocity", "1", "-0.5", "0.25", "--nu", "0.05",
+                       "--tol", "1e-4", "-i", "3000"], ("2", "2"), []),
+)
+DIST_ITER_SLACK = 2          # mesh PCG iterations within 2 of one device's
 # the streamed (out-of-core) paths: 1024^3 (a 4 GiB host iterate) in 8
 # chunks, bitwise tiled; the walls and auto chunk count at 256^3
 STREAM_SIZE = (1024, 1024, 1024)
@@ -2117,6 +2153,152 @@ def run_advdiff_cells(label):
                 and np.isfinite(res.residual),
                 f"{cell}: {res.summary()}, certificate {cert:.3e}")
         out[cell] = (res.iterations, ms, times, cert)
+    return out
+
+
+def audit_counts(rec, per):
+    """The audit's ppermutes, all-gathers and all-reduces, each divided by
+    ``per`` (cycles or iterations)."""
+    per = max(1, per)
+    return {"ppermute": rec.ppermute_count / per,
+            "all-gather": rec.all_gather_count / per,
+            "all-reduce": rec.all_reduce_count / per}
+
+
+def timed_solve(args):
+    """Two solves of the CLI configuration ``args`` through the solve
+    mode's own functions, the second timed on the host clock around it
+    and its fetches (the first builds what the solver keeps: the levels'
+    operator data, on the host for a field operator): (iterations,
+    converged, ms)."""
+    import torch
+
+    from stencil_tpu_torch import solve_cli
+    from stencil_tpu_torch.config import parse_args
+
+    cfg = parse_args([*args, "--device", DEVICE])
+    prob = solve_cli.build_problem(cfg)
+    f, _ = solve_cli.build_rhs(cfg, prob)
+    solver, kind, _ = solve_cli.build_solver(cfg, prob)
+    mesh = solve_cli._make_mesh(cfg)
+    solve_cli._solve_once(cfg, solver, kind, prob, f, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, iters, _, _, conv = solve_cli._solve_once(cfg, solver, kind, prob, f,
+                                                 mesh=mesh)
+    torch.cuda.synchronize()
+    return iters, conv, (time.perf_counter() - t0) * 1e3
+
+
+def run_distributed_solves(cli, kernel, label):
+    """The distributed solvers on meshes of ranks that share the card (no
+    hand-written kernel runs: the mesh path is the eager cycle and
+    operator; the tiled kernel's launch count must stay 0). First
+    ``Multigrid.sharded_runner`` at 255^3 over ``DIST_MG_MESH``: two cycles
+    bitwise the one-device eager runner's, then ms per V-cycle of both and
+    the audit's counts per cycle. Then each of ``DIST_SOLVES`` through the
+    CLI with -c (converged; the Poisson error under 3 h^2, the others'
+    float64 certificates under their tolerance), the audit's counts per
+    iteration, and its time to solution beside the one-device solve's
+    (``timed_solve``; PCG's iterations within DIST_ITER_SLACK of the
+    one-device solve's with the eager fine level).
+    On one card the mesh measures the exchange and the extra launches, not
+    scaling. Returns {case: (mesh ms, one-device ms)}."""
+    import torch
+
+    from stencil_tpu_torch.models.poisson import (
+        PoissonProblem, manufactured_sine,
+    )
+    from stencil_tpu_torch.multigrid import Multigrid
+    from stencil_tpu_torch.parallel import comm_audit
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+    from stencil_tpu_torch.utils.timing import timed
+
+    kernel.reset_counts()
+    out = {}
+    prob = PoissonProblem(shape=MG_SIZE, device=DEVICE)
+    f = manufactured_sine(MG_SIZE)[0].astype(np.float32)
+    mg = Multigrid(prob, fine_method="xla")
+    mesh = make_mesh(DIST_MG_MESH, ("x",), device=DEVICE)
+    one, dist = mg.runner(f), mg.sharded_runner(f, mesh)
+    g0 = prob.initial_grid()
+    want = one.iterate(g0, DIST_MG_CYCLES)
+    got = dist.iterate(g0, DIST_MG_CYCLES)
+    same = torch.equal(want.data, got.data)
+    diff = float((want.data - got.data).abs().max())
+    with comm_audit.audit() as rec:
+        dist.iterate(g0, 1)
+    ms, trace = {}, {}
+    for name, r in (("mesh", dist), ("one", one)):
+        ms[name] = min(timed(lambda: r.iterate(g0, DIST_TIME_CYCLES).data,
+                             device=torch.device(DEVICE))
+                       for _ in range(2)) / DIST_TIME_CYCLES * 1e3
+        wall, busy, span = device_busy(lambda: r.iterate(g0, 1), DEVICE)
+        trace[name] = f"host wall {wall:.3f} ms, " + (
+            f"device busy {busy:.3f} ms of a {span:.3f} ms span, idle "
+            f"{1 - busy / span:.1%}" if busy else
+            "no device event traced: idle share not measured")
+    info = dist.plan_info
+    print(f"distributed multigrid {'x'.join(map(str, MG_SIZE))} over "
+          f"{DIST_MG_MESH} ({info['sharded_levels']} sharded levels, "
+          f"replicate_below {info['replicate_below']}): {DIST_MG_CYCLES} "
+          f"cycles {'bitwise' if same else 'NOT bitwise'} the one-device "
+          f"eager runner (max abs diff {diff:.3e}); {ms['mesh']:.3f} ms per "
+          f"V-cycle against {ms['one']:.3f} on one device (the ranks share "
+          f"the card: this measures the exchange and the extra launches, "
+          f"not scaling); one traced cycle: mesh {trace['mesh']}, one "
+          f"device {trace['one']}; per cycle {audit_counts(rec, 1)} "
+          f"[{label}]")
+    require(same, f"sharded runner not bitwise: {diff}")
+    out["mg-runner"] = (ms["mesh"], ms["one"])
+    for name, args, mesh_arg, one_extra in DIST_SOLVES:
+        mesh_args = [*args, "--mesh", *mesh_arg]
+        with tempfile.TemporaryDirectory() as tmp, \
+                comm_audit.audit() as rec:
+            path = Path(tmp) / "solve.jsonl"
+            t0 = time.perf_counter()
+            rc = cli.main([*mesh_args, "-c", "--device", DEVICE,
+                           "--json-out", str(path)])
+            seconds = time.perf_counter() - t0
+            res = json.loads(path.read_text().splitlines()[0])
+        iters = res.get("iterations", 0)
+        chk = res.get("check", {})
+        n = int(args[args.index("-s") + 1])
+        require(rc == 0 and res.get("converged")
+                and res.get("plan", {}).get("mesh") == list(
+                    map(int, mesh_arg)),
+                f"distributed {name} returned {rc}: {res}")
+        if "error_vs_exact" in chk:
+            bar = 3.0 / (n + 1) ** 2
+            require(chk["error_vs_exact"] < bar,
+                    f"distributed {name}: error {chk['error_vs_exact']} "
+                    f">= 3 h^2 = {bar}")
+        else:
+            cert_bar = (HETERO_CERT_BAR if name.startswith("hetero")
+                        else ADVDIFF_TOL)
+            require(chk.get("residual_f64_rel", np.inf) < cert_bar,
+                    f"distributed {name}: certificate {chk} >= {cert_bar}")
+        m_iters, m_conv, m_ms = timed_solve(mesh_args)
+        o_iters, o_conv, o_ms = timed_solve([*args, *one_extra])
+        print(f"distributed {name} ({' '.join(mesh_args)} -c): converged "
+              f"in {iters} iterations, residual_rel "
+              f"{res['residual_rel']:.3e}; check {chk}; plan "
+              f"{res['plan']}; {seconds:.2f} s with the f64 check; time to "
+              f"solution {m_ms:.1f} ms ({m_iters} iterations) against "
+              f"{o_ms:.1f} ms ({o_iters} iterations) on one device "
+              f"({' '.join(one_extra) or 'default fine level'}; the ranks "
+              f"share the card: the exchange and the extra launches, not "
+              f"scaling); per iteration {audit_counts(rec, iters)} [{label}]")
+        require(m_conv and o_conv and m_iters == iters,
+                f"distributed {name}: timed runs {m_iters} {m_conv}, "
+                f"{o_iters} {o_conv}")
+        if name == "pcg":
+            require(abs(iters - o_iters) <= DIST_ITER_SLACK,
+                    f"distributed pcg {iters} iterations against {o_iters}")
+        out[name] = (m_ms, o_ms)
+    require(kernel.launches == 0,
+            f"the distributed solves launched the tiled kernel "
+            f"{kernel.launches} times")
     return out
 
 
@@ -4344,6 +4526,9 @@ def main() -> int:
     launches["tiled_march"] += run_checkpoint_paths(cli, tiled, label)
     t_advdiff = time.perf_counter()
     advdiff = run_advdiff_cells(label)
+    # the distributed solvers on meshes whose ranks share the card
+    t_dist = time.perf_counter()
+    run_distributed_solves(cli, tiled, label)
     # the plan search (--autotune) and the sweep and scaling harnesses
     t_search = time.perf_counter()
     search = run_plan_search(cli, tiled, label)
@@ -4359,7 +4544,8 @@ def main() -> int:
           f"{t_rma - t_sharded:.1f} s, the rma paths "
           f"{t_stream - t_rma:.1f} s, the streamed and checkpointed paths "
           f"{t_advdiff - t_stream:.1f} s, cfg14/cfg15 "
-          f"{t_search - t_advdiff:.1f} s, the plan search "
+          f"{t_dist - t_advdiff:.1f} s, the distributed solvers "
+          f"{t_search - t_dist:.1f} s, the plan search "
           f"{t_harness - t_search:.1f} s, the harnesses "
           f"{time.perf_counter() - t_harness:.1f} s; launches {launches})")
 

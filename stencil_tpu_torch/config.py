@@ -10,12 +10,13 @@ TPU tuning flags (``--slots``, ``--slide``, ``--cores``, ``--tap-mode``,
 ``ignored``; the machinery they tune does not exist on the GPU and is
 removed by design. ``--autotune`` (``on`` or ``force``) measures the 3D
 tiled kernel's plans on the card (``autotune.py``; ``registry.py``,
-``models/poisson.py``). In solve mode ``solve_cli.run_solve`` reports ``--mesh`` (the
-distributed solvers, not ported yet) as an error record, as the JAX
-``run_solve`` reports its own refusals.
+``models/poisson.py``). In solve mode ``solve_cli.run_solve`` reports a
+contradictory configuration as an error record, as the JAX ``run_solve``
+does.
 
 ``--mesh`` and ``--no-overlap`` drive the sharded methods in iterate mode
-(``registry.py``); ``--chunks`` the out-of-core ``streamed`` method (other
+(``registry.py``), ``--mesh`` the distributed solvers in solve mode
+(``solve_cli.py``); ``--chunks`` the out-of-core ``streamed`` method (other
 methods ignore it, as in the JAX package); ``--checkpoint-dir``,
 ``--dump-image`` and ``--profile`` work in both modes (``cli.py``,
 ``solve_cli.py``).

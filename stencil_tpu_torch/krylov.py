@@ -25,7 +25,19 @@ iteration. ``BiCGStab`` reads its convergence test on the host after
 every iteration instead (its cycles are host-bound, so the sync costs
 little), and returns the JAX solve's iteration count and certificate;
 ``GMRES`` reads its residual estimate after every Arnoldi step (see its
-docstring). ``mesh=`` (the distributed solve) is not ported yet.
+docstring).
+
+``mesh=`` distributes a solve over the single-controller mesh
+(``parallel/mesh.py``), as JAX's GSPMD solve does: the Krylov vectors are
+fields of ``parallel/sharded_field.py`` cut like the fine level (mesh axis
+``a`` shards grid dim ``dim + a``), a preconditioning cycle runs on its
+per-level ladder (``Multigrid._level_shardings``, replicated coarse tail),
+the operator applies per block after a one-deep halo exchange, and each
+dot product sums the ranks' partial sums in rank order (the all-reduce).
+Each solver's loop is written once, over ``A``, ``dot``, the
+preconditioner and these vectors; the host syncs per iteration are the
+one-device solve's. The result is the one-device solve's to the rounding
+of the dot products.
 """
 
 from __future__ import annotations
@@ -36,15 +48,16 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from stencil_tpu_torch.core.grid import (
     DirichletBC, HaloGrid, dtype_name, torch_dtype,
 )
 from stencil_tpu_torch.models.poisson import PoissonProblem
 from stencil_tpu_torch.multigrid import (
-    Multigrid, _interior, _nb_sum, _residual,
+    Multigrid, _DenseLevels, _MeshLevels, _nb_sum, _residual,
 )
+from stencil_tpu_torch.parallel import sharded_field as sf
+from stencil_tpu_torch.parallel.sharded_field import dot as _dot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +93,79 @@ def _initial_or(problem, initial: Optional[HaloGrid]) -> HaloGrid:
     return initial
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a * b).sum()
+def _check_mesh_operator(problem, preconditioner) -> None:
+    """A distributed solve applies the operator per block; the tiled
+    kernel's coefficient matvec (``kernel='pallas'``) runs on the whole
+    grid: refused with JAX's message (``stencil_tpu/krylov.py:66-79``)."""
+    probs = [problem]
+    if preconditioner is not None:
+        probs += list(getattr(preconditioner, "_probs", ()))
+    for p in probs:
+        if getattr(p, "_use_kernel", False):
+            raise ValueError(
+                "distributed solves need the GSPMD XLA operator: "
+                "construct the problem with kernel='xla' (the pallas "
+                "coeff matvec is single-device)")
+
+
+def _fine_sharding(mesh, dim: int, ndim: int, shape):
+    """The unpreconditioned solvers' layout of the Krylov vectors: mesh
+    axis ``a`` shards grid dim ``dim + a`` in balanced blocks (1D or 2D
+    meshes; JAX's checks and messages, ``stencil_tpu/krylov.py:82-102``).
+    Preconditioned solves take the cycle's fine layout instead."""
+    naxes = len(mesh.axis_names)
+    if naxes not in (1, 2):
+        raise ValueError(
+            f"distributed Krylov wants a 1D or 2D mesh, got axes "
+            f"{mesh.axis_names}")
+    if not 0 <= dim <= ndim - naxes:
+        raise ValueError(
+            f"mesh axes {mesh.axis_names} shard grid dims "
+            f"{dim}..{dim + naxes - 1}, out of range for {ndim}D")
+    return sf.fine_layout(mesh, shape, dim)
+
+
+def _mesh_plan(problem, preconditioner, mesh, dim, replicate_below):
+    """``(layout, levels)`` of a solve: (None, None) on one device; on a
+    mesh the Krylov vectors' layout and, with a preconditioner, the level
+    hooks of its cycle's ladder."""
+    if mesh is None:
+        return None, None
+    if preconditioner is None:
+        shape = tuple(problem.shape)
+        return _fine_sharding(mesh, dim, len(shape), shape), None
+    layouts, _, _ = preconditioner._level_shardings(mesh, dim,
+                                                    replicate_below)
+    return layouts[0], _MeshLevels(layouts)
+
+
+def _operators(problem, preconditioner, mesh, dim, replicate_below):
+    """``(layout, A, A_padded, K)`` of a BiCGStab or GMRES solve, built
+    once per solve: the vectors' layout (None on one device); ``A(e)``
+    the zero-wall operator of an interior-shaped vector; ``A_padded(p)``
+    the operator of a global padded grid with its true walls (cut into
+    blocks on a mesh); ``K(r)`` one ``OperatorMultigrid`` cycle from a
+    zero guess (linear in ``r``) on the cycle's ladder, or the
+    identity."""
+    layout, levels = _mesh_plan(problem, preconditioner, mesh, dim,
+                                replicate_below)
+    apply_op = problem.operator_apply
+    op_data = sf.distribute(problem.operator_data(), layout, lead=1)
+
+    def A(e):
+        return sf.per_block(apply_op, sf.pad1(e), op_data)
+
+    def A_padded(padded):
+        return sf.per_block(apply_op, sf.distribute(padded, layout, halo=1),
+                            op_data)
+
+    if preconditioner is None:
+        return layout, A, A_padded, lambda r: r
+    kdatas = preconditioner._level_datas(
+        None if levels is None else levels.layouts)
+    cycle = preconditioner._make_cycle(levels)
+    return layout, A, A_padded, lambda r: cycle(sf.zeros_like(r), r, 0,
+                                                kdatas)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,10 +207,11 @@ class ConjugateGradient:
                     "PCG needs a symmetric preconditioner: build the "
                     f"Multigrid with nu1 == nu2 (got {mg.nu1}, {mg.nu2})")
 
-    def _precond(self):
+    def _precond(self, levels=None):
         """``precond(r) -> z ~ A^-1 r``: one MG cycle on the zero-walled
         correction problem ``L e ~ r`` (so ``z = -e``); ``r`` itself
-        without a preconditioner."""
+        without a preconditioner. ``levels`` (``_MeshLevels``) runs the
+        cycle on sharded fields."""
         mg = self.preconditioner
         h = float(self.problem.h)
         if mg is None:
@@ -142,19 +227,19 @@ class ConjugateGradient:
             def precond(r):
                 e_pad = vcycle(r.new_zeros(tuple(s + 2 for s in r.shape)),
                                r)
-                return -e_pad[_interior(e_pad.shape)]
+                return -sf.interior(e_pad)
         else:
-            cycle = mg._make_cycle()
+            lv = _DenseLevels if levels is None else levels
+            cycle = mg._make_cycle(levels)
             pdt = (torch_dtype(self.precond_dtype)
                    if self.precond_dtype is not None else None)
 
             def precond(r):
                 rc = r.to(pdt) if pdt is not None else r
-                e_pad = cycle(rc.new_zeros(tuple(s + 2 for s in r.shape)),
-                              (h * h) * rc, rc, 0)
+                e_pad = cycle(lv.zeros_padded(rc, 0), (h * h) * rc, rc, 0)
                 if pdt is not None:
                     e_pad = e_pad.to(r.dtype)
-                return -e_pad[_interior(e_pad.shape)]
+                return -sf.interior(e_pad)
         return precond
 
     def solve(self, f, tolerance: float = 1e-5,
@@ -167,12 +252,16 @@ class ConjugateGradient:
         iterate; ``b`` is then the residual of that iterate, so
         ``tolerance`` contracts the initial residual. The converged flag
         is read on the host every ``check_every`` iterations (see the
-        module docstring): the result does not depend on it."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the distributed CG/PCG solve (mesh=) is not ported yet to "
-                "stencil_tpu_torch (replaces stencil_tpu/krylov.py:"
-                "ConjugateGradient._solve_fn's mesh path)")
+        module docstring): the result does not depend on it. ``mesh`` (a
+        1D or 2D ``parallel/mesh.py`` mesh) distributes the solve (see the
+        module docstring): the vectors shard along grid dims ``dim..``, the
+        preconditioning cycle runs its ladder (``replicate_below``)."""
+        if mesh is not None and self.preconditioner is not None \
+                and self.preconditioner.tiled_fine:
+            raise ValueError(
+                "distributed PCG runs the all-XLA GSPMD cycle; "
+                "build the Multigrid with fine_method='xla' "
+                "(the tiled fine kernel is single-device)")
         if check_every < 1:
             raise ValueError("check_every must be >= 1")
         prob = self.problem
@@ -187,15 +276,21 @@ class ConjugateGradient:
         inv_h2 = 1.0 / (h * h)
         two_d = float(2 * ndim)
         tol2 = float(tolerance) ** 2
-        precond = self._precond()
+        layout, levels = _mesh_plan(prob, self.preconditioner, mesh, dim,
+                                    replicate_below)
+        precond = self._precond(levels)
+
+        def lap(e_pad, e):
+            return (two_d * e - _nb_sum(e_pad)) * inv_h2
 
         def A(e):  # zero-wall SPD operator on interior-shaped tensors
-            return (two_d * e - _nb_sum(F.pad(e, (1, 1) * ndim))) * inv_h2
+            return sf.per_block(lap, sf.pad1(e), e)
 
         # b = -(f - L u0): the zero-wall correction right-hand side
-        b = -_residual(g0.data, f_t, inv_h2, two_d)
+        b = -_residual(sf.distribute(g0.data, layout, halo=1),
+                       sf.distribute(f_t, layout), inv_h2, two_d)
         bb = _dot(b, b)
-        x = torch.zeros_like(b)
+        x = sf.zeros_like(b)
         r = b
         z = precond(r)
         p = z
@@ -222,8 +317,7 @@ class ConjugateGradient:
             rz = rz_new
             k = k + (~done).to(k.dtype)
             done = done | finished(r, k)
-        padded = g0.data.clone()
-        padded[_interior(padded.shape)].add_(x)
+        padded = sf.seat(g0.data, x)
         rr = _dot(r, r)
         # one stats vector, one device-to-host copy
         stats = torch.stack([k.to(torch.float32),
@@ -281,38 +375,24 @@ class BiCGStab:
                     f"than ({tuple(self.problem.shape)}, "
                     f"h={self.problem.h})")
 
-    def _attempt(self, padded0: torch.Tensor, f: torch.Tensor, budget: int,
-                 bb_ref: float, tol2: float, cycle):
-        """One (re)start: at most ``budget`` iterations from ``padded0``;
-        returns (padded, iterations, |r|, |r|/|b|, |b|^2), the residual
-        that of the solution. ``bb_ref > 0`` carries the original
-        ``|b|^2`` into a restart."""
-        apply_op = self.problem.operator_apply
-        op_data = self.problem.operator_data()
-        ndim = f.ndim
-
-        def A(e):  # zero-wall operator on interior-shaped tensors
-            return apply_op(F.pad(e, (1, 1) * ndim), op_data)
-
-        if cycle is not None:
-            kdatas = self.preconditioner._level_datas()
-
-            def K(r):  # right preconditioner: one cycle ~ A^-1 r
-                return cycle(torch.zeros_like(r), r, 0, kdatas)
-        else:
-            def K(r):
-                return r
+    def _attempt(self, padded0: torch.Tensor, f, budget: int,
+                 bb_ref: float, tol2: float, A, A_padded, K):
+        """One (re)start: at most ``budget`` iterations from the global
+        padded ``padded0`` (``f`` on the layout of ``_operators``' ``A``,
+        ``A_padded`` and ``K``); returns (padded, iterations, |r|,
+        |r|/|b|, |b|^2), the residual that of the solution. ``bb_ref > 0``
+        carries the original ``|b|^2`` into a restart."""
 
         def safe(d):
             return torch.where(d == 0, torch.finfo(d.dtype).tiny, d)
 
         # b = f - A u0 with the true walls (u0's ghost ring); a restart's
         # b is the current residual, its tolerance still |b_original|'s
-        b = f - apply_op(padded0, op_data)
+        b = f - A_padded(padded0)
         bb = _dot(b, b) if bb_ref <= 0 else torch.tensor(
             bb_ref, dtype=b.dtype, device=b.device)
-        x = torch.zeros_like(b)
-        r, p, v = b, torch.zeros_like(b), torch.zeros_like(b)
+        x = sf.zeros_like(b)
+        r, p, v = b, sf.zeros_like(b), sf.zeros_like(b)
         rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
         zero = torch.zeros_like(rho)
         k = 0
@@ -334,10 +414,9 @@ class BiCGStab:
             r = s - omega * t
             rho = rho_new
             k += 1
-        padded = padded0.clone()
-        padded[_interior(padded.shape)].add_(x)
+        padded = sf.seat(padded0, x)
         # the certificate from the solution, not the recurrence
-        r_true = f - apply_op(padded, op_data)
+        r_true = f - A_padded(padded)
         rr = _dot(r_true, r_true)
         stats = torch.stack([torch.sqrt(rr), torch.sqrt(rr / bb), bb]) \
             .to(torch.float32).cpu().numpy().astype(np.float64)
@@ -352,12 +431,11 @@ class BiCGStab:
         (the certificate is the true residual of the returned solution).
         ``restarts`` bounds the drift-recovery restarts; ``max_iterations``
         is the total budget across them. ``initial`` warm-starts; the
-        tolerance is then relative to its residual."""
+        tolerance is then relative to its residual. ``mesh`` distributes
+        the solve (the module docstring), the preconditioning cycle on its
+        ladder (``replicate_below``)."""
         if mesh is not None:
-            raise NotImplementedError(
-                "the distributed BiCGStab solve (mesh=) is not ported yet "
-                "to stencil_tpu_torch (replaces stencil_tpu/krylov.py:"
-                "BiCGStab._solve_fn's mesh path)")
+            _check_mesh_operator(self.problem, self.preconditioner)
         prob = self.problem
         f_t = torch.as_tensor(f).to(device=prob.device,
                                     dtype=torch_dtype(prob.dtype))
@@ -368,13 +446,14 @@ class BiCGStab:
         # the loop watches the recurrence residual, the certificate is the
         # solution's: exit 2x tighter so the certificate lands under
         tol2 = (0.5 * float(tolerance)) ** 2
-        cycle = (self.preconditioner._make_cycle()
-                 if self.preconditioner is not None else None)
+        layout, *ops = _operators(prob, self.preconditioner, mesh, dim,
+                                  replicate_below)
+        f_v = sf.distribute(f_t, layout)
         padded = g0.data
         total, remaining, bb0 = 0, int(max_iterations), 0.0
         for _ in range(max(0, int(restarts)) + 1):
             padded, k, rnorm, rrel, bb0 = self._attempt(
-                padded, f_t, remaining, bb0, tol2, cycle)
+                padded, f_v, remaining, bb0, tol2, *ops)
             total += k
             remaining -= k
             if rrel <= tolerance or remaining <= 0 or k == 0:
@@ -419,8 +498,9 @@ class GMRES:
     reads its test after every iteration. The step count and the
     certificate are JAX's.
 
-    Counterpart of ``stencil_tpu/krylov.py:GMRES`` (:609-952); ``mesh=``
-    (the distributed solve) is not ported."""
+    Counterpart of ``stencil_tpu/krylov.py:GMRES`` (:609-952). On a mesh
+    the basis is one ``(m+1, block points)`` tensor per block, its
+    products per block and their sums one all-reduce per pass."""
 
     problem: object
     preconditioner: Optional[object] = None
@@ -444,15 +524,17 @@ class GMRES:
                     f"than ({tuple(self.problem.shape)}, "
                     f"h={self.problem.h})")
 
-    def _check_basis_budget(self, f: torch.Tensor) -> None:
+    def _check_basis_budget(self, f: torch.Tensor, mesh=None) -> None:
         """Refuse an ``(m+1) x grid`` basis above half of the device's
         memory (``device_model.hbm_bytes``) before it is allocated, with
-        JAX's message."""
+        JAX's message. A mesh divides the basis over its distinct devices
+        (ranks that share a card share its memory)."""
         from stencil_tpu_torch import device_model
 
         shape = tuple(f.shape)
         dtype = dtype_name(f.dtype)
-        per_vec = math.prod(shape) * f.element_size()
+        n_dev = 1 if mesh is None else len(set(mesh.devices))
+        per_vec = math.prod(shape) * f.element_size() // n_dev
         basis = (self.restart + 1) * per_vec
         hbm = device_model.hbm_bytes(self.problem.device)
         budget = hbm // 2
@@ -467,14 +549,13 @@ class GMRES:
                 f"restart to <= {fit}, shard the solve over a mesh, or "
                 f"use BiCGStab (O(1) vectors)")
 
-    def _cycle(self, padded0: torch.Tensor, f: torch.Tensor, budget: int,
-               bb_ref: float, tol2: float, cycle, kdatas):
+    def _cycle(self, padded0: torch.Tensor, f, budget: int,
+               bb_ref: float, tol2: float, A, A_padded, K):
         """One restart cycle: at most ``min(restart, budget)`` Arnoldi
-        steps from ``padded0``; returns (padded, steps, |r|, |r|/|b|,
-        |b|^2), the residual that of the solution."""
-        apply_op = self.problem.operator_apply
-        op_data = self.problem.operator_data()
-        ndim = f.ndim
+        steps from the global padded ``padded0`` (``f``, ``A``,
+        ``A_padded`` and ``K`` as in ``BiCGStab._attempt``); returns
+        (padded, steps, |r|, |r|/|b|, |b|^2), the residual that of the
+        solution."""
         m = int(self.restart)
         # the host scalars' dtype: the problem's (numpy has no bfloat16)
         hdt = np.float64 if f.dtype == torch.float64 else np.float32
@@ -483,25 +564,14 @@ class GMRES:
         def safe(d):
             return d if d != 0 else hdt(tiny)
 
-        def A(e):
-            return apply_op(F.pad(e, (1, 1) * ndim), op_data)
-
-        if cycle is not None:
-            def K(r):  # linear in r: the cycle from a zero guess
-                return cycle(torch.zeros_like(r), r, 0, kdatas)
-        else:
-            def K(r):
-                return r
-
-        b = f - apply_op(padded0, op_data)
+        b = f - A_padded(padded0)
         bb_dev = _dot(b, b)
-        n = b.numel()
-        V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+        V = sf.basis(m + 1, b)
         head = torch.stack([bb_dev, torch.sqrt(bb_dev)]).cpu().numpy() \
             .astype(hdt)
         bb = hdt(bb_ref) if bb_ref > 0 else head[0]
         beta = head[1]
-        V[0] = (b / safe(beta)).reshape(-1)
+        sf.basis_put(V, 0, b / safe(beta))
         H = np.zeros((m + 1, m), hdt)
         cs = np.ones(m, hdt)
         sn = np.zeros(m, hdt)
@@ -509,16 +579,15 @@ class GMRES:
         g[0] = beta
         j = 0
         while g[j] * g[j] > tol2 * bb and j < m and j < budget:
-            w = A(K(V[j].reshape(b.shape))).reshape(-1)
-            Vp = V[:j + 1]
-            h1 = torch.mv(Vp, w)
-            w = w - torch.mv(Vp.t(), h1)
-            h2 = torch.mv(Vp, w)
-            w = w - torch.mv(Vp.t(), h2)
+            w = A(K(sf.basis_row(V, j, b)))
+            h1 = sf.basis_dots(V, j + 1, w)
+            w = w - sf.basis_combine(V, j + 1, h1, b)
+            h2 = sf.basis_dots(V, j + 1, w)
+            w = w - sf.basis_combine(V, j + 1, h2, b)
             hnorm = torch.sqrt(_dot(w, w))
             col = torch.cat([h1 + h2, hnorm.reshape(1)]).cpu().numpy() \
                 .astype(hdt)
-            V[j + 1] = w / safe(col[-1])
+            sf.basis_put(V, j + 1, w / safe(col[-1]))
             hcol = np.zeros(m + 1, hdt)
             hcol[:j + 2] = col
             # the earlier rotations, then a new one zeroing the
@@ -548,9 +617,8 @@ class GMRES:
         padded = padded0.clone()
         if j:
             yt = torch.from_numpy(y[:j]).to(device=b.device, dtype=b.dtype)
-            update = torch.mv(V[:j].t(), yt).reshape(b.shape)
-            padded[_interior(padded.shape)].add_(K(update))
-        r_true = f - apply_op(padded, op_data)
+            padded = sf.seat(padded0, K(sf.basis_combine(V, j, yt, b)))
+        r_true = f - A_padded(padded)
         rr = _dot(r_true, r_true)
         bb_t = torch.tensor(float(bb), dtype=b.dtype, device=b.device)
         stats = torch.stack([torch.sqrt(rr), torch.sqrt(rr / bb_t), bb_t]) \
@@ -570,12 +638,7 @@ class GMRES:
         the tolerance then relative to its residual. ``stall_ratio`` stops
         restarting when a cycle fails to contract the certificate below
         that ratio of the previous one (the fp32 floor); None spends the
-        whole budget."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the distributed GMRES solve (mesh=) is not ported yet "
-                "to stencil_tpu_torch (replaces stencil_tpu/krylov.py:"
-                "GMRES._solve_fn's mesh path)")
+        whole budget. ``mesh`` distributes the solve as for BiCGStab."""
         prob = self.problem
         f_t = torch.as_tensor(f).to(device=prob.device,
                                     dtype=torch_dtype(prob.dtype))
@@ -583,14 +646,16 @@ class GMRES:
             raise ValueError(
                 f"source shape {tuple(f_t.shape)} != interior "
                 f"{tuple(prob.shape)}")
-        self._check_basis_budget(f_t)
+        self._check_basis_budget(f_t, mesh)
+        if mesh is not None:
+            _check_mesh_operator(prob, self.preconditioner)
         g0 = _initial_or(prob, initial)
         # the loop watches the recurrence estimate, the certificate is the
         # solution's: exit 2x tighter so the certificate lands under
         tol2 = (0.5 * float(tolerance)) ** 2
-        mg = self.preconditioner
-        cycle = mg._make_cycle() if mg is not None else None
-        kdatas = mg._level_datas() if mg is not None else None
+        layout, *ops = _operators(prob, self.preconditioner, mesh, dim,
+                                  replicate_below)
+        f_v = sf.distribute(f_t, layout)
         padded = g0.data
         total = 0
         remaining = int(max_iterations)
@@ -598,7 +663,7 @@ class GMRES:
         rnorm = rrel = prev_rrel = float("inf")
         while True:
             padded, k, rnorm, rrel, bb0 = self._cycle(
-                padded, f_t, max(0, remaining), bb0, tol2, cycle, kdatas)
+                padded, f_v, max(0, remaining), bb0, tol2, *ops)
             total += k
             remaining -= k
             if rrel <= tolerance or k == 0 or remaining <= 0:

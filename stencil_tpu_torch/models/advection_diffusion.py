@@ -193,7 +193,7 @@ class AdvectionDiffusionProblem:
     def solve(self, f, tolerance: float = 1e-5,
               max_iterations: int = 2000, mesh=None, dim: int = 0):
         """Solve with ``krylov.BiCGStab``; returns its ``CGResult``.
-        ``mesh`` (the distributed solve) is not ported."""
+        ``mesh`` distributes the solve (``krylov.py``)."""
         from stencil_tpu_torch.krylov import BiCGStab
 
         return BiCGStab(self).solve(f, tolerance=tolerance,

@@ -435,12 +435,17 @@ class HeterogeneousPoissonProblem:
               max_iterations: int = 2000, preconditioned: bool = True,
               mesh=None, dim: int = 0):
         """Solve by (by default ``OperatorMultigrid``-preconditioned)
-        BiCGStab; returns its ``CGResult``. ``mesh`` (the distributed
-        solve) is not ported."""
+        BiCGStab; returns its ``CGResult``. ``mesh`` distributes the solve
+        (``krylov.py``); it applies the operator per block, so a
+        ``kernel='pallas'`` problem solves through its eager twin there,
+        as JAX's solves through its XLA twin."""
         from stencil_tpu_torch.krylov import BiCGStab
         from stencil_tpu_torch.multigrid import OperatorMultigrid
 
-        pre = OperatorMultigrid(self) if preconditioned else None
-        return BiCGStab(self, preconditioner=pre).solve(
+        prob = self
+        if mesh is not None and self._use_kernel:
+            prob = dataclasses.replace(self, kernel="xla")
+        pre = OperatorMultigrid(prob) if preconditioned else None
+        return BiCGStab(prob, preconditioner=pre).solve(
             f, tolerance=tolerance, max_iterations=max_iterations,
             mesh=mesh, dim=dim)

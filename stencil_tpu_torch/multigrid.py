@@ -26,8 +26,18 @@ Where the JAX level ops return new arrays, these update the padded tensor
 they are given in place and return it; the cycle owns its tensors (the
 runner clones the grid once). Nothing in a cycle syncs with the host: the
 V-cycle loop of ``runner`` queues its work and returns. The JAX
-``interpret`` flag is accepted and ignored. ``Multigrid.sharded_runner``
-is not ported yet.
+``interpret`` flag is accepted and ignored.
+
+``Multigrid.sharded_runner`` runs the same cycle on the single-controller
+mesh (``parallel/mesh.py``): each level's arrays are fields of
+``parallel/sharded_field.py`` on that level's layout (``_level_shardings``,
+JAX's ladder: a level stays sharded along a mesh axis while it is at least
+``replicate_below`` wide, narrower levels are replicated), the level ops
+exchange one-deep halos and apply the one-device op per block, and the
+transfers cross rank boundaries. The recursion is the one ``_make_cycle``
+writes; only its level hooks (``_DenseLevels``, ``_MeshLevels``) differ, and
+every operation is pointwise in a fixed order, so the sharded cycle is
+bitwise the one-device eager cycle.
 
 ``OperatorMultigrid`` is the rediscretized cycle for a general operator
 (the problem's ``with_discretization`` at every level, damped Jacobi on
@@ -42,11 +52,12 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from stencil_tpu_torch.core.grid import HaloGrid, torch_dtype
 from stencil_tpu_torch.core.spec import StencilSpec, weighted
 from stencil_tpu_torch.models.poisson import PoissonProblem
+from stencil_tpu_torch.parallel import sharded_field as sf
+from stencil_tpu_torch.parallel.sharded_field import ShardedField
 from stencil_tpu_torch.registry import Runner
 
 FINE_METHODS = ("xla", "eager", "pallas_tiled", "tiled")
@@ -135,11 +146,15 @@ def _nb_sum(padded: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _smooth(padded: torch.Tensor, f_scaled: torch.Tensor, omega: float,
-            inv2d: float, sweeps: int) -> torch.Tensor:
+def _smooth(padded, f_scaled, omega: float, inv2d: float, sweeps: int):
     """``sweeps`` weighted-Jacobi sweeps on a zero-wall level, in place:
     ``u' = u + omega * ((nb_sum(u) - h^2 f) / (2 ndim) - u)``.
-    ``f_scaled`` carries ``h^2 * f`` pre-multiplied."""
+    ``f_scaled`` carries ``h^2 * f`` pre-multiplied. A sharded field
+    exchanges its halos before each sweep of its blocks."""
+    if isinstance(padded, ShardedField):
+        for _ in range(sweeps):
+            padded.exchange().each(_smooth, f_scaled, omega, inv2d, 1)
+        return padded
     idx = _interior(padded.shape)
     for _ in range(sweeps):
         u = padded[idx]
@@ -148,15 +163,17 @@ def _smooth(padded: torch.Tensor, f_scaled: torch.Tensor, omega: float,
     return padded
 
 
-def _residual(padded: torch.Tensor, f: torch.Tensor, inv_h2: float,
-              two_d: float) -> torch.Tensor:
-    """``r = f - (nb_sum(u) - 2 ndim u) / h^2``, interior-shaped."""
+def _residual(padded, f, inv_h2: float, two_d: float):
+    """``r = f - (nb_sum(u) - 2 ndim u) / h^2``, interior-shaped (a sharded
+    field: per block, after its halo exchange)."""
+    if isinstance(padded, ShardedField):
+        return padded.exchange().map(_residual, f, inv_h2, two_d)
     lap = _nb_sum(padded).sub_(padded[_interior(padded.shape)] * two_d)
     return f - lap.mul_(inv_h2)
 
 
-def _smooth_cheby(padded: torch.Tensor, f: torch.Tensor, inv_h2: float,
-                  two_d: float, sweeps: int, ratio: float) -> torch.Tensor:
+def _smooth_cheby(padded, f, inv_h2: float, two_d: float, sweeps: int,
+                  ratio: float):
     """``sweeps`` steps of Chebyshev polynomial smoothing on the
     Jacobi-preconditioned operator, in place. The diagonal of ``A = -L``
     is the constant ``2 ndim / h^2``, so ``D^-1 A`` has its spectrum in
@@ -169,17 +186,16 @@ def _smooth_cheby(padded: torch.Tensor, f: torch.Tensor, inv_h2: float,
     delta = 0.5 * (lmax - lmin)
     sigma = theta / delta
     inv_d = 1.0 / (two_d * inv_h2)
-    idx = _interior(padded.shape)
     # residual of the SPD form: (-f) - A u = -(f - L u)
     r = -_residual(padded, f, inv_h2, two_d)
     d = (inv_d / theta) * r
-    padded[idx].add_(d)
+    sf.add_interior(padded, d)
     rho_prev = 1.0 / sigma
     for _ in range(1, sweeps):
         rho = 1.0 / (2.0 * sigma - rho_prev)
         r = -_residual(padded, f, inv_h2, two_d)
         d = (rho * rho_prev) * d + (2.0 * rho / delta) * inv_d * r
-        padded[idx].add_(d)
+        sf.add_interior(padded, d)
         rho_prev = rho
     return padded
 
@@ -251,6 +267,94 @@ def _level_shapes(shape: Tuple[int, ...],
             break
         shapes.append(nxt)
     return tuple(shapes)
+
+
+def _level_shardings_for(shapes, ndim: int, mesh, dim: int = 0,
+                         replicate_below: Optional[int] = None):
+    """Per-level layouts (``parallel/sharded_field.py:Layout``) of a
+    coarsening hierarchy over a 1D or 2D mesh: mesh axis ``a`` shards grid
+    dim ``dim + a`` on levels at least ``replicate_below`` interior points
+    wide along that dim; narrower levels drop that axis, decided per axis
+    (a level can stay sharded along d0 after its d1 width collapsed).
+    Shared by ``Multigrid`` and ``OperatorMultigrid``; returns ``(layouts,
+    sharded_flags, replicate_below_per_axis)``, JAX's rules and messages
+    (``stencil_tpu/multigrid.py:317-365``)."""
+    naxes = len(mesh.axis_names)
+    if naxes not in (1, 2):
+        raise ValueError(
+            f"distributed multigrid wants a 1D or 2D mesh, got axes "
+            f"{mesh.axis_names}")
+    if not 0 <= dim <= ndim - naxes:
+        raise ValueError(
+            f"mesh axes {mesh.axis_names} shard grid dims "
+            f"{dim}..{dim + naxes - 1}, out of range for {ndim}D")
+    if replicate_below is None:
+        # >= 2 interior planes per rank along each sharded dim, and never
+        # below the point where halo traffic rivals the level's volume
+        # (per axis: each axis sees only its own rank count)
+        rb = tuple(max(2 * int(s), 17) for s in mesh.shape)
+    else:
+        rb = (int(replicate_below),) * naxes
+    flags = [[shp[dim + a] >= rb[a] for a in range(naxes)]
+             for shp in shapes]
+    missing = [axis for a, axis in enumerate(mesh.axis_names)
+               if shapes[0][dim + a] < rb[a]]
+    if missing:
+        raise ValueError(
+            f"fine level {tuple(shapes[0])} is too narrow to use mesh "
+            f"axis(es) {missing} (needs >= {rb} interior points along "
+            f"dims {tuple(range(dim, dim + naxes))}); use a smaller/"
+            "1D mesh or a bigger grid")
+    layouts = sf.level_layouts(mesh, shapes, dim, flags)
+    return layouts, [any(f) for f in flags], rb
+
+
+class _DenseLevels:
+    """The cycle's level hooks on one device: plain tensors."""
+
+    @staticmethod
+    def restrict(r, level):
+        return _restrict_fw(r)
+
+    @staticmethod
+    def zeros_padded(like, level):
+        return torch.zeros(tuple(s + 2 for s in like.shape),
+                           dtype=like.dtype, device=like.device)
+
+    @staticmethod
+    def zeros(like, level):
+        return torch.zeros_like(like)
+
+    @staticmethod
+    def prolong_padded(ec_pad, level):
+        return _prolong_lin(ec_pad[_interior(ec_pad.shape)])
+
+    @staticmethod
+    def prolong(ec, level):
+        return _prolong_lin(ec)
+
+
+class _MeshLevels:
+    """The cycle's level hooks on a mesh: each level a field on its layout
+    (``layouts[level]``), the transfers across rank boundaries."""
+
+    def __init__(self, layouts):
+        self.layouts = tuple(layouts)
+
+    def restrict(self, r, level):
+        return sf.restrict(r, self.layouts[level], _restrict_fw)
+
+    def zeros_padded(self, like, level):
+        return sf.zeros(self.layouts[level], like.dtype, halo=1)
+
+    def zeros(self, like, level):
+        return sf.zeros(self.layouts[level], like.dtype)
+
+    def prolong_padded(self, ec_pad, level):
+        return sf.prolong(ec_pad, self.layouts[level], _prolong_lin)
+
+    def prolong(self, ec, level):
+        return self.prolong_padded(ec.padded(), level)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -334,10 +438,13 @@ class Multigrid:
                              f"{tuple(prob.shape)}")
         return t
 
-    def _make_cycle(self):
+    def _make_cycle(self, levels=None):
         """The level recursion ``cycle(padded, f_scaled, f, level) ->
         padded``, all eager torch ops, in place on ``padded`` (shared by
-        the runner's coarse levels and the FMG pass)."""
+        the runner's coarse levels, the FMG pass and the sharded runner).
+        ``levels`` (``_MeshLevels``) runs it on sharded fields, each level
+        on its layout; the default on plain tensors."""
+        lv = _DenseLevels if levels is None else levels
         omega = float(self.omega)
         nu1, nu2 = int(self.nu1), int(self.nu2)
         coarse = int(self.coarse_sweeps)
@@ -366,16 +473,14 @@ class Multigrid:
                                else max(coarse, nu1 + nu2))
             padded = smooth(padded, f_scaled, f, inv_h2, nu1)
             r = _residual(padded, f, inv_h2, two_d)
-            rc = _restrict_fw(r)
+            rc = lv.restrict(r, level + 1)
             rc_scaled = (4.0 * h * h) * rc  # (2h)^2 * r_c
             # gamma applications of the coarse method (2: W-cycle), each
             # continuing from the previous estimate
-            ec_pad = torch.zeros(tuple(s + 2 for s in rc.shape),
-                                 dtype=padded.dtype, device=padded.device)
+            ec_pad = lv.zeros_padded(rc, level + 1)
             for _ in range(gamma):
                 ec_pad = cycle(ec_pad, rc_scaled, rc, level + 1)
-            padded[_interior(padded.shape)].add_(_prolong_lin(
-                ec_pad[_interior(ec_pad.shape)]))
+            sf.add_interior(padded, lv.prolong_padded(ec_pad, level))
             return smooth(padded, f_scaled, f, inv_h2, nu2)
 
         return cycle
@@ -551,12 +656,67 @@ class Multigrid:
             plan_info=info,
         )
 
+    def _level_shardings(self, mesh, dim: int = 0,
+                         replicate_below: Optional[int] = None):
+        """Per-level layouts over a 1D or 2D mesh (``_level_shardings_for``):
+        ``(layouts, sharded_flags, replicate_below)``; shared by
+        ``sharded_runner`` and the distributed PCG."""
+        return _level_shardings_for(self._shapes, self.problem.ndim, mesh,
+                                    dim, replicate_below)
+
     def sharded_runner(self, f, mesh, dim: int = 0,
                        replicate_below: Optional[int] = None) -> Runner:
-        raise NotImplementedError(
-            "the distributed multigrid cycle is not ported yet to "
-            "stencil_tpu_torch (replaces stencil_tpu/multigrid.py:"
-            "Multigrid.sharded_runner)")
+        """The V/W-cycle over a 1D or 2D mesh (``parallel/mesh.py``): the
+        fine grid cut into one block per rank (its ghosts from the padded
+        grid, so the Dirichlet walls stay), each level a field on its
+        layout, the coarse tail below ``replicate_below`` replicated, one
+        copy per card. ``iterate`` scatters the grid and ``f`` once, runs
+        the cycles and gathers the result, bitwise ``runner``'s with
+        ``fine_method='xla'``. Counterpart of
+        ``stencil_tpu/multigrid.py:Multigrid.sharded_runner`` (:744-820)."""
+        if self.tiled_fine:
+            raise ValueError(
+                "sharded_runner runs the all-XLA cycle (GSPMD); "
+                "fine_method='pallas_tiled' is single-device — use "
+                "method 'sharded_pallas' for distributed plain sweeps")
+        layouts, sharded, rb = self._level_shardings(mesh, dim,
+                                                     replicate_below)
+        cycle = self._make_cycle(_MeshLevels(layouts))
+        f_dev = self._as_source(f)
+        h0 = float(self.problem.h)
+
+        def iterate(grid: HaloGrid, n: int) -> HaloGrid:
+            if grid.halo != 1:
+                raise ValueError("multigrid expects halo=1 grids")
+            f_l = sf.scatter(layouts[0], f_dev)
+            f_scaled = (h0 * h0) * f_l
+            u = sf.scatter(layouts[0], grid.data, halo=1)
+            for _ in range(n):
+                u = cycle(u, f_scaled, f_l, 0)
+            data = grid.data.clone()
+            data[_interior(data.shape)] = sf.gather(u, data.device)
+            return HaloGrid(data=data, halo=1, bc=grid.bc)
+
+        info = {"levels": self.levels,
+                "level_shapes": [list(s) for s in self._shapes],
+                "nu": (self.nu1, self.nu2),
+                "omega": self.omega,
+                "smoother": self.smoother,
+                "gamma": self.gamma,
+                "fine_method": "xla+mesh",
+                "mesh": list(mesh.shape),
+                "sharded_dim": dim,
+                "sharded_levels": sharded,
+                "replicate_below": list(rb)}
+        return Runner(
+            name=f"multigrid_sharded({self.levels} levels, "
+                 f"{mesh.size}-rank mesh)",
+            iterate=iterate,
+            description="distributed geometric V-cycle (sharded levels, "
+                        "replicated coarse tail, halo exchange on the "
+                        "mesh)",
+            plan_info=info,
+        )
 
     def fmg(self, f, n_vcycles: int = 2) -> HaloGrid:
         """Full multigrid: one coarse-to-fine pass that reaches
@@ -669,20 +829,34 @@ class OperatorMultigrid:
     def levels(self) -> int:
         return len(self._probs)
 
-    def _level_datas(self):
+    def _level_shardings(self, mesh, dim: int = 0,
+                         replicate_below: Optional[int] = None):
+        """Per-level layouts over a 1D or 2D mesh, the ladder of
+        ``Multigrid`` (``_level_shardings_for``); the distributed
+        preconditioned BiCGStab and GMRES run the cycle on them."""
+        return _level_shardings_for(self._shapes, len(self.problem.shape),
+                                    mesh, dim, replicate_below)
+
+    def _level_datas(self, layouts=None):
         """Each level's operator data (``operator_data()``: None for
         constant-tap operators, the weight fields of field operators),
-        built once."""
+        built once; with ``layouts``, each level's weight fields cut like
+        the level (no halo)."""
+        if layouts is not None:
+            return tuple(sf.distribute(d, lay, lead=1) for d, lay in
+                         zip(self._level_datas(), layouts))
         if self._datas_cache is None:
             object.__setattr__(
                 self, "_datas_cache",
                 tuple(p.operator_data() for p in self._probs))
         return self._datas_cache
 
-    def _make_cycle(self):
+    def _make_cycle(self, levels=None):
         """``cycle(x, f, level, datas) -> x`` over interior-shaped
         zero-wall tensors, ``datas`` the ``_level_datas()`` tuple; a new
-        tensor, ``x`` unchanged."""
+        tensor, ``x`` unchanged. ``levels`` (``_MeshLevels``) runs it on
+        sharded fields, ``datas`` then ``_level_datas(layouts)``."""
+        lv = _DenseLevels if levels is None else levels
         probs = self._probs
         nu1, nu2 = int(self.nu1), int(self.nu2)
         omega = float(self.omega)
@@ -691,11 +865,14 @@ class OperatorMultigrid:
         n_levels = self.levels
 
         def A(e, level, data):
-            return probs[level].operator_apply(F.pad(e, (1, 1) * e.ndim),
-                                               data)
+            return sf.per_block(probs[level].operator_apply, sf.pad1(e),
+                                data)
 
         def smooth(x, f, level, data, n):
-            w = omega * probs[level].operator_inv_diagonal(data)
+            inv = (probs[level].operator_inv_diagonal(data)
+                   if not isinstance(data, ShardedField)
+                   else data.map(probs[level].operator_inv_diagonal))
+            w = omega * inv
             for _ in range(n):
                 x = x + w * (f - A(x, level, data))
             return x
@@ -706,11 +883,11 @@ class OperatorMultigrid:
                               coarse if n_levels > 1
                               else max(coarse, nu1 + nu2))
             x = smooth(x, f, level, datas[level], nu1)
-            rc = _restrict_fw(f - A(x, level, datas[level]))
-            ec = torch.zeros_like(rc)
+            rc = lv.restrict(f - A(x, level, datas[level]), level + 1)
+            ec = lv.zeros(rc, level + 1)
             for _ in range(gamma):
                 ec = cycle(ec, rc, level + 1, datas)
-            x = x + _prolong_lin(ec)
+            x = x + lv.prolong(ec, level)
             return smooth(x, f, level, datas[level], nu2)
 
         return cycle

@@ -11,8 +11,13 @@ kernel path moves ``2 * k * r`` ghost planes per sharded dim, bytes of the
 local block's geometry only, whatever the mesh size
 (``tests/test_torch_comm_volume.py``).
 
-The exchange has no other collective, so the audit has no
-``other_collectives``.
+The distributed solvers (``parallel/sharded_field.py``) also gather a
+level into its replicated copies and sum dot products over the ranks: each
+such call records an all-gather or an all-reduce, the counterparts of the
+``all-gather`` and ``all-reduce`` counts of JAX's ``audit_gspmd``
+(``stencil_tpu/parallel/comm_audit.py:88``). JAX reads them from the
+compiled graph, once per program; here they are counted as the code runs,
+once per call.
 """
 
 from __future__ import annotations
@@ -38,11 +43,37 @@ class Transfer:
         return math.prod(self.shape) * self.dtype.itemsize
 
 
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One all-gather or all-reduce: its kind, the mesh axes it spans and
+    one rank's result."""
+
+    kind: str
+    axes: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
 @dataclasses.dataclass
 class CommAudit:
-    """The transfers recorded while the audit was active, in order."""
+    """The transfers (``ppermute`` strips) and the other collectives
+    recorded while the audit was active, in order."""
 
     transfers: List[Transfer] = dataclasses.field(default_factory=list)
+    collectives: List[Collective] = dataclasses.field(default_factory=list)
+
+    def count(self, kind: str) -> int:
+        """The recorded collectives of ``kind`` (``all-gather``,
+        ``all-reduce``)."""
+        return sum(c.kind == kind for c in self.collectives)
+
+    @property
+    def all_gather_count(self) -> int:
+        return self.count("all-gather")
+
+    @property
+    def all_reduce_count(self) -> int:
+        return self.count("all-reduce")
 
     @property
     def ppermute_count(self) -> int:
@@ -59,7 +90,8 @@ _ACTIVE: List[CommAudit] = []
 
 @contextlib.contextmanager
 def audit() -> Iterator[CommAudit]:
-    """Record every ``ppermute`` run inside the block (nesting allowed)."""
+    """Record every ``ppermute`` and collective run inside the block
+    (nesting allowed)."""
     rec = CommAudit()
     _ACTIVE.append(rec)
     try:
@@ -72,3 +104,11 @@ def record(axis: str, strip: torch.Tensor) -> None:
     """Called by ``Mesh.ppermute`` with one rank's strip."""
     for rec in _ACTIVE:
         rec.transfers.append(Transfer(axis, tuple(strip.shape), strip.dtype))
+
+
+def record_collective(kind: str, axes, result: torch.Tensor) -> None:
+    """Called by ``parallel/sharded_field.py`` with one rank's result of an
+    all-gather or all-reduce over the mesh ``axes``."""
+    for rec in _ACTIVE:
+        rec.collectives.append(Collective(kind, tuple(axes),
+                                          tuple(result.shape), result.dtype))

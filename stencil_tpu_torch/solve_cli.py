@@ -23,8 +23,14 @@ The fine level of the multigrid cycles follows the JAX rule
 CUDA device": weighted Jacobi at nu < 4 keeps the eager fine level, the
 Chebyshev smoother or nu >= 4 take the tiled kernel.
 
-What is not ported yet gives an error record, as a contradictory
-configuration does: ``--mesh`` (the distributed solvers).
+``--mesh`` (1D or 2D, over the leading grid dims) distributes the solve on
+the single-controller mesh (``parallel/mesh.py``), several ranks per card
+where there are fewer cards: ``relax`` on ``PoissonProblem.sharded_runner``,
+``mg`` on ``Multigrid.sharded_runner``, the Krylov solvers with ``mesh=``;
+the fine level is then the eager one, a hetero ``--op-kernel auto`` the
+eager matvec, and ``fmg`` is refused (JAX's message); ``--warm-start fmg``
+runs its FMG pass on one device. A contradictory configuration gives an
+error record.
 """
 
 from __future__ import annotations
@@ -40,7 +46,6 @@ from stencil_tpu_torch.config import RunConfig
 FAMILIES = ("poisson", "hetero", "advdiff")
 SOLVERS = ("auto", "relax", "mg", "fmg", "cg", "pcg", "bicgstab",
            "gmres")
-_NOT_PORTED = "not ported yet to stencil_tpu_torch"
 
 
 def _on_cuda(config: RunConfig) -> bool:
@@ -79,9 +84,15 @@ def build_problem(config: RunConfig):
             raise ValueError(
                 f"--contrast must be >= 1 (got {config.contrast})")
         a = two_material(shape, lo=1.0 / config.contrast, hi=1.0, seed=0)
+        kernel = config.op_kernel
+        if kernel == "auto" and config.mesh:
+            # a distributed solve applies the operator per block; the
+            # kernel's coefficient matvec runs on the whole grid
+            # (krylov._check_mesh_operator)
+            kernel = "xla"
         return HeterogeneousPoissonProblem(
             shape=shape, a=a, bc=_solve_bc(config), dtype=config.dtype,
-            kernel=config.op_kernel, device=config.device)
+            kernel=kernel, device=config.device)
     if family == "advdiff":
         from stencil_tpu_torch.models.advection_diffusion import (
             AdvectionDiffusionProblem,
@@ -143,11 +154,17 @@ def _resolve_fine_method(config: RunConfig, mesh) -> str:
 
 
 def _make_mesh(config: RunConfig):
+    """``--mesh``: a 1D or 2D mesh (axes ``x``, ``y``) over the leading
+    grid dims, on ``--device``."""
     if not config.mesh:
         return None
-    raise NotImplementedError(
-        f"--mesh in solve mode: {_NOT_PORTED} (replaces the distributed "
-        "multigrid and CG of stencil_tpu/multigrid.py and krylov.py)")
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+
+    if len(config.mesh) > 2:
+        raise ValueError(
+            "--mesh must be 1D or 2D over the leading grid dims")
+    axes = ("x", "y")[: len(config.mesh)]
+    return make_mesh(tuple(config.mesh), axes, device=config.device)
 
 
 def build_solver(config: RunConfig, problem):
@@ -160,6 +177,8 @@ def build_solver(config: RunConfig, problem):
     mesh = _make_mesh(config)
     plan: dict = {"solver": name, "family": family,
                   "tolerance": config.tolerance}
+    if mesh is not None:
+        plan["mesh"] = list(config.mesh)
 
     def poisson_only(what):
         if family != "poisson":
@@ -187,6 +206,11 @@ def build_solver(config: RunConfig, problem):
         poisson_only(name)
         if precond not in (None, "none"):
             raise ValueError(f"--solver {name} takes no --precond")
+        if name == "fmg" and mesh is not None:
+            raise ValueError(
+                "FMG is the single-device initializer; distributed "
+                "solves use --solver mg/pcg (per-level sharding "
+                "ladder) or a Krylov method")
         return make_mg(), name, plan
     if name in ("cg", "pcg"):
         poisson_only(name)
@@ -235,6 +259,11 @@ def build_solver(config: RunConfig, problem):
 
             # the schedule the coefficient-mode matvec runs on
             plan.update(schedule_info(problem._kernel_plan()))
+        if mesh is not None:
+            # refused here, so that it is an error record
+            from stencil_tpu_torch.krylov import _check_mesh_operator
+
+            _check_mesh_operator(problem, pre)
         if name == "gmres":
             plan["restart"] = config.restart
             return (GMRES(problem, preconditioner=pre,
@@ -266,16 +295,18 @@ def _fnorm(f) -> float:
 
 
 def _solve_once(config: RunConfig, solver, kind, problem, f,
-                initial=None, budget=None, tolerance=None):
+                initial=None, budget=None, tolerance=None, mesh=None):
     """One solve (or one checkpointed chunk of ``budget`` iterations) ->
-    (grid, iterations, residual, residual_rel, converged)."""
+    (grid, iterations, residual, residual_rel, converged); ``mesh`` (None:
+    one device) distributes it."""
     from stencil_tpu_torch import solver as solver_mod
 
     budget = int(budget if budget is not None else config.iterations)
     tol = float(tolerance if tolerance is not None else config.tolerance)
     if kind == "krylov":
+        kw = {} if mesh is None else {"mesh": mesh}
         res = solver.solve(f, tolerance=tol, max_iterations=budget,
-                           initial=initial)
+                           initial=initial, **kw)
         return (res.grid, res.iterations, res.residual,
                 res.residual_rel, res.converged)
     if kind == "fmg":
@@ -289,7 +320,9 @@ def _solve_once(config: RunConfig, solver, kind, problem, f,
     if kind == "mg":
         g0 = (initial if initial is not None
               else solver.problem.initial_grid())
-        res = solver_mod.solve(solver.runner(f), g0, tolerance=tol,
+        runner = (solver.runner(f) if mesh is None
+                  else solver.sharded_runner(f, mesh))
+        res = solver_mod.solve(runner, g0, tolerance=tol,
                                max_iterations=budget, check_every=1)
         r = solver.residual_norm(res.grid, f)
         fnorm = _fnorm(f)
@@ -297,7 +330,11 @@ def _solve_once(config: RunConfig, solver, kind, problem, f,
                 r / fnorm if fnorm else r, res.converged)
     if kind == "relax":
         g0 = initial if initial is not None else solver.initial_grid()
-        res = solver_mod.solve(solver.runner(f), g0, tolerance=tol,
+        # a 2D mesh shards d0 and d1, one mesh axis each
+        runner = (solver.runner(f) if mesh is None
+                  else solver.sharded_runner(f, mesh,
+                                             axis_names=mesh.axis_names))
+        res = solver_mod.solve(runner, g0, tolerance=tol,
                                max_iterations=budget,
                                check_every=max(1, min(200, budget)))
         return (res.grid, res.iterations, res.residual, res.residual,
@@ -314,9 +351,9 @@ def run_solve(config: RunConfig, out) -> List[dict]:
         problem = build_problem(config)
         f, u_exact = build_rhs(config, problem)
         solver, kind, plan = build_solver(config, problem)
-    except (ValueError, KeyError, NotImplementedError) as e:
-        # contradictions and what is not ported are records, not
-        # tracebacks
+        mesh = _make_mesh(config)
+    except (ValueError, KeyError) as e:
+        # contradictions are records, not tracebacks
         name = _resolve_solver(config)
         print(f"[{name}] unavailable: {e}", file=out)
         rec = {"solve": config.solve, "solver": name, "error": str(e)}
@@ -353,12 +390,13 @@ def run_solve(config: RunConfig, out) -> List[dict]:
 
     if ckpt_dir:
         grid, iters, r, rrel, conv = _solve_checkpointed(
-            config, solver, kind, problem, f, initial, ckpt_dir, name, out)
+            config, solver, kind, problem, f, mesh, initial, ckpt_dir, name,
+            out)
         rec["checkpointed"] = True
     else:
         grid, iters, r, rrel, conv = _solve_once(
             config, solver, kind, problem, f, initial=initial,
-            tolerance=tol_eff)
+            tolerance=tol_eff, mesh=mesh)
         if bnorm2:
             rrel = r / bnorm2  # report relative to ||b||, not r0
             conv = bool(rrel <= config.tolerance * (1 + 1e-9))
@@ -390,7 +428,7 @@ def run_solve(config: RunConfig, out) -> List[dict]:
     if config.repeat > 1 and not ckpt_dir:
         wall = measure_wall(
             lambda: _solve_once(config, solver, kind, problem, f,
-                                initial=initial)[0].data,
+                                initial=initial, mesh=mesh)[0].data,
             torch.device(config.device), repeats=config.repeat)
         rec["wall_seconds"] = [float(t) for t in wall]
         for j, t in enumerate(wall, 1):
@@ -411,7 +449,7 @@ def run_solve(config: RunConfig, out) -> List[dict]:
     return [rec]
 
 
-def _solve_checkpointed(config: RunConfig, solver, kind, problem, f,
+def _solve_checkpointed(config: RunConfig, solver, kind, problem, f, mesh,
                         initial, ckpt_dir, name, out):
     """The solve in chunks of ``--checkpoint-every`` iterations, each a
     warm start from the last and each followed by a checkpoint; an
@@ -456,8 +494,8 @@ def _solve_checkpointed(config: RunConfig, solver, kind, problem, f,
             # tol * r_chunk_start == config.tolerance * ||b||
             tol = config.tolerance * bnorm / r
         grid, k, r, rrel_chunk, conv = _solve_once(
-            config, solver, kind, problem, f, initial=grid, budget=chunk,
-            tolerance=tol)
+            config, solver, kind, problem, f, initial=grid,
+            budget=chunk, tolerance=tol, mesh=mesh)
         done += max(1, k)
         if rescale:
             rrel = r / bnorm if bnorm else rrel_chunk

@@ -221,7 +221,7 @@ def gate_cases(mod, bc_cls, device):
 
 def test_gates_match_jax():
     """Each refusal with JAX's message; BiCGStab refuses a singular
-    problem; the distributed solve is not ported."""
+    problem; the distributed solve refuses a dim out of range."""
     for jcall, tcall in zip(gate_cases(JAdvDiff, JBC, None),
                             gate_cases(AdvectionDiffusionProblem,
                                        DirichletBC, "cpu")):
@@ -234,9 +234,12 @@ def test_gates_match_jax():
         BiCGStab(PoissonProblem(
             shape=(8, 8), bc=DirichletBC.zero(2).with_neumann((1,)),
             device="cpu"))
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+
     _, tp = problems((8, 8, 8), (1.0, 0.0, 0.0))
-    with pytest.raises(NotImplementedError, match="stencil_tpu/krylov"):
-        BiCGStab(tp).solve(np.ones((8, 8, 8), np.float32), mesh=object())
+    with pytest.raises(ValueError, match="out of range"):
+        BiCGStab(tp).solve(np.ones((8, 8, 8), np.float32),
+                           mesh=make_mesh((2, 2), device="cpu"), dim=2)
 
 
 def test_central_falls_back_to_upwind_on_coarse_levels():

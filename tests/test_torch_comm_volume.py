@@ -6,7 +6,11 @@ One outer step of ``sharded_pallas`` moves exactly ``2 * k * r`` ghost
 planes per sharded dim, two ``ppermute`` calls per dim, bytes of the local
 block's geometry only: growing the mesh with the problem leaves them as
 they are. The strips are derived here from the geometry independently of
-the exchange's code. All counts are exact."""
+the exchange's code. The distributed solvers' profiles are the
+counterparts of JAX's ``test_sharded_mg_cycle_collective_profile`` and
+``test_distributed_pcg_reductions_are_exactly_the_krylov_dots``, counted
+as the code runs rather than read from a compiled graph. All counts are
+exact."""
 
 import numpy as np
 import pytest
@@ -125,3 +129,60 @@ def test_eager_sharded_moves_radius_deep_strips_per_sweep():
                                                     (12, 2), (12, 2)]
     assert rec.ppermute_bytes == 3 * 2 * (2 * 6 + 12 * 2) * 4
     assert all(t.dtype == torch.float32 for t in rec.transfers)
+
+
+def _mg_cycle_audit(shape, n):
+    from stencil_tpu_torch.models.poisson import PoissonProblem
+    from stencil_tpu_torch.multigrid import Multigrid
+
+    prob = PoissonProblem(shape=shape, device="cpu")
+    f = np.random.default_rng(0).normal(size=shape).astype(np.float32)
+    r = Multigrid(prob).sharded_runner(f, make_mesh((n,), ("x",),
+                                                    device="cpu"))
+    with comm_audit.audit() as rec:
+        r.iterate(prob.initial_grid(), 1)
+    return rec
+
+
+@pytest.mark.parametrize("shape", [(63, 63), (63, 15, 15)])
+def test_sharded_mg_cycle_collective_profile(shape):
+    """One V-cycle on 2 and on 4 ranks: halo ``ppermute``s (the same
+    number and bytes per rank on both: each strip a plane of the local
+    block), the same number of all-gathers (the switch to the replicated
+    coarse tail) and no all-reduce: a V-cycle has no global reduction."""
+    c2, c4 = (_mg_cycle_audit(shape, n) for n in (2, 4))
+    for c in (c2, c4):
+        assert c.ppermute_count > 0 and c.all_reduce_count == 0
+        assert c.all_gather_count > 0
+    assert c2.all_gather_count == c4.all_gather_count
+    assert c2.ppermute_count == c4.ppermute_count
+    assert c2.ppermute_bytes == c4.ppermute_bytes
+
+
+def test_distributed_pcg_reductions_are_exactly_the_krylov_dots():
+    """Each PCG iteration makes 3 all-reduces, the dots its loop computes
+    (p.q, r.z, and r.r of the convergence test), the same on 2 and 4
+    ranks; the preconditioning cycle adds all-gathers, not reductions."""
+    from stencil_tpu_torch.krylov import ConjugateGradient
+    from stencil_tpu_torch.models.poisson import PoissonProblem
+    from stencil_tpu_torch.multigrid import Multigrid
+
+    shape = (63, 15, 15)
+    prob = PoissonProblem(shape=shape, device="cpu")
+    f = np.random.default_rng(5).normal(size=shape).astype(np.float32)
+
+    def audit_of(n, iters):
+        cg = ConjugateGradient(prob, preconditioner=Multigrid(prob))
+        with comm_audit.audit() as rec:
+            cg.solve(f, tolerance=1e-12, max_iterations=iters,
+                     mesh=make_mesh((n,), ("x",), device="cpu"),
+                     replicate_below=16)
+        return rec
+
+    per_iter = {}
+    for n in (2, 4):
+        a2, a3 = audit_of(n, 2), audit_of(n, 3)
+        per_iter[n] = (a3.all_reduce_count - a2.all_reduce_count,
+                       a3.all_gather_count - a2.all_gather_count)
+    assert per_iter[2] == per_iter[4]
+    assert per_iter[2][0] == 3 and per_iter[2][1] > 0

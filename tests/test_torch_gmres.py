@@ -4,8 +4,9 @@ tests/test_gmres.py on the CPU: the dense float64 solve of both schemes,
 restart cycles, nonzero walls, the symmetric case against CG, the
 OperatorMultigrid right preconditioner (constant-tap and field operators),
 warm starts, the eigenvector right-hand side, the budget-0 certificate,
-the stall guard, the basis budget and the gates. The distributed case
-becomes the ``mesh=`` refusal (the multi-device solvers are not ported).
+the stall guard, the basis budget and the gates; and JAX's distributed
+case on the port's mesh (tests/test_torch_distributed_krylov.py holds the
+rest of the distributed solves).
 
 Tolerances: JAX's Arnoldi-step count exactly (the port runs the same
 steps; only the dot products and matrix products sum in another order,
@@ -293,8 +294,17 @@ def test_gates_match_jax():
 
 
 def test_distributed_solve_is_not_ported():
-    """JAX's distributed case (tests/test_gmres.py:213) becomes the
-    refusal naming the JAX code a later port replaces."""
+    """JAX's distributed case (tests/test_gmres.py:164), once refused, now
+    runs on the port's mesh of 4 ranks: converged, within JAX's bar (1e-4
+    of the solution's scale) of the one-device solve."""
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+
     _, tp = problems((17, 16), (1.0, -0.5))
-    with pytest.raises(NotImplementedError, match="stencil_tpu/krylov.py"):
-        GMRES(tp).solve(np.zeros((17, 16), np.float32), mesh=object())
+    f = np.random.default_rng(11).normal(size=(17, 16)).astype(np.float32)
+    one = GMRES(tp).solve(f, tolerance=1e-6, max_iterations=500)
+    dist = GMRES(tp).solve(f, tolerance=1e-6, max_iterations=500,
+                           mesh=make_mesh((4,), ("x",), device="cpu"))
+    assert one.converged and dist.converged
+    scale = float(np.max(np.abs(interior(one))))
+    assert float(np.max(np.abs(interior(one) - interior(dist)))) \
+        < 1e-4 * scale

@@ -193,10 +193,15 @@ def test_gates_match_jax():
     assert str(got.value) == str(want.value)
     with pytest.raises(TypeError, match="needs data"):
         tp.operator_inv_diagonal(None)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        BiCGStab(tp).solve(np.zeros(shape, np.float32), mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tp.solve(np.zeros(shape, np.float32), mesh=object())
+    # the distributed solve (ported): JAX's gate on a 3-axis mesh, from
+    # BiCGStab and from the problem's own solve
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+
+    mesh3 = make_mesh((2, 2, 2), ("x", "y", "z"), device="cpu")
+    with pytest.raises(ValueError, match="1D or 2D"):
+        BiCGStab(tp).solve(np.zeros(shape, np.float32), mesh=mesh3)
+    with pytest.raises(ValueError, match="1D or 2D"):
+        tp.solve(np.zeros(shape, np.float32), mesh=mesh3)
 
 
 def test_solve_hetero_record_matches_jax(monkeypatch):

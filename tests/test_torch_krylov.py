@@ -197,14 +197,13 @@ def test_gates_match_jax():
         assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="check_every"):
         TCG(tp).solve(np.zeros(p31), check_every=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TCG(tp).solve(np.zeros(p31), mesh=object())
-    # GMRES (ported) refuses only the distributed solve
-    with pytest.raises(NotImplementedError, match="stencil_tpu/krylov"):
-        GMRES(tp).solve(np.zeros(p31), mesh=object())
-    # BiCGStab (ported) refuses only the distributed solve
-    with pytest.raises(NotImplementedError, match="stencil_tpu/krylov"):
-        BiCGStab(tp).solve(np.zeros(p31), mesh=object())
+    # the distributed solves (ported) refuse a 3-axis mesh, JAX's gate
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+
+    mesh3 = make_mesh((2, 2, 2), ("x", "y", "z"), device="cpu")
+    for solver in (TCG(tp), GMRES(tp), BiCGStab(tp)):
+        with pytest.raises(ValueError, match="1D or 2D"):
+            solver.solve(np.zeros(p31), mesh=mesh3)
 
 
 def test_warm_start_gates_match_jax():

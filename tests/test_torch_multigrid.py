@@ -274,8 +274,12 @@ def test_gates_match_jax():
         tmg.Multigrid(p2).runner(np.zeros((31, 31))).iterate(
             p2.initial_grid().__class__.create((31, 31), halo=2,
                                                device="cpu"), 1)
-    with pytest.raises(NotImplementedError, match="Multigrid.sharded_runner"):
-        tmg.Multigrid(p2).sharded_runner(np.zeros((31, 31)), mesh=None)
+    # the distributed cycle (ported) refuses a 3-axis mesh, JAX's gate
+    from stencil_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="1D or 2D"):
+        tmg.Multigrid(p2).sharded_runner(np.zeros((31, 31)), mesh=make_mesh(
+            (2, 2, 2), ("x", "y", "z"), device="cpu"))
     # OperatorMultigrid (ported) rediscretizes the problem at each level
     assert tmg.OperatorMultigrid(p2).levels == tmg.Multigrid(p2).levels
     # the JAX package's interpret flag is accepted and changes nothing

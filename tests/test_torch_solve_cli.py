@@ -3,9 +3,11 @@ the CPU against the JAX package's (stencil_tpu/solve_cli.py): for each
 Poisson solver at 15^3 the record has the JAX record's keys and iteration
 count and converges to the manufactured solution; so does BiCGStab with
 the rediscretized cycle, on the hetero and Poisson families, and GMRES on
-the advdiff family; ``--mesh`` (not ported yet) gives an error record,
-``--checkpoint-dir`` and ``--dump-image`` run; the fine-level rule
-is the JAX one with "on a TPU" read as "on a CUDA device".
+the advdiff family; ``--mesh`` distributes each solver (held to the
+one-device records of both packages: iterations within 2, the same plan
+plus ``mesh``), and FMG or a 3-axis mesh under ``--mesh`` give JAX's error
+records; ``--checkpoint-dir`` and ``--dump-image`` run; the fine-level
+rule is the JAX one with "on a TPU" read as "on a CUDA device".
 
 Tolerances: the same iteration count; the reported relative residual
 within a factor 1.5 of JAX's (at convergence it sits on the fp32 rounding
@@ -164,16 +166,17 @@ def test_bicgstab_records_match_jax(cheap_opmg, kw):
     (dict(solve="advdiff", solver="gmres", restart=4), "--solve advdiff"),
     (dict(solve="poisson", solver="gmres", precond="opmg", restart=4),
      "--solver gmres"),
-    (dict(solve="poisson", mesh=(2,)), "--mesh"),
+    (dict(solve="poisson", mesh=(2,), size=(18, 15, 15), iterations=100,
+          tolerance=1e-5, check=True), "--mesh"),
     (dict(solve="poisson", checkpoint_dir="ck"), "--checkpoint-dir"),
     (dict(solve="poisson", dump_image="u.bmp"), "--dump-image")])
 def test_unported_are_error_records(tmp_path, monkeypatch, cheap_opmg, kw,
                                     what):
-    """Of the solve-mode features once refused, only ``--mesh`` (the
-    distributed solvers) still gives an error record; the others solve:
-    advdiff and GMRES with JAX's record (keys, iterations, plan with
-    ``restart``), ``--checkpoint-dir`` a checkpointed record and its
-    checkpoints, ``--dump-image`` the heat map."""
+    """The solve-mode features once refused all solve now: advdiff and
+    GMRES with JAX's record (keys, iterations, plan with ``restart``),
+    ``--mesh`` (the distributed solvers) a converged record with
+    ``plan.mesh`` under 3 h^2, ``--checkpoint-dir`` a checkpointed record
+    and its checkpoints, ``--dump-image`` the heat map."""
     monkeypatch.chdir(tmp_path)
     if "solver" in kw:  # 7^3 and GMRES(4): JAX's cycle compiles quickly
         got, want = _both(size=(7, 7, 7), iterations=10, **kw)
@@ -182,15 +185,15 @@ def test_unported_are_error_records(tmp_path, monkeypatch, cheap_opmg, kw,
         return
     path = tmp_path / "rec.jsonl"
     out = io.StringIO()
-    (rec,) = cli.run_all(RunConfig(size=(15, 15, 15), iterations=10,
-                                   device="cpu", json_out=str(path), **kw),
+    cfg = dict(size=(15, 15, 15), iterations=10)
+    cfg.update(kw)
+    (rec,) = cli.run_all(RunConfig(device="cpu", json_out=str(path), **cfg),
                          out=out)
     assert json.loads(path.read_text()) == rec
-    if what == "--mesh":
-        assert "not ported yet" in rec["error"] and what in rec["error"]
-        assert "unavailable" in out.getvalue()
-        return
     assert "error" not in rec and rec["converged"], rec
+    if what == "--mesh":
+        assert rec["plan"]["mesh"] == [2]
+        assert rec["check"]["error_vs_exact"] < 3 * (1.0 / 19) ** 2
     if "checkpoint_dir" in kw:
         assert rec["checkpointed"] is True
         assert list((tmp_path / "ck").glob("step_*.npz"))
@@ -245,3 +248,62 @@ def test_fine_method_rule(monkeypatch):
               smoother="chebyshev") == "xla"
     assert fm(size=(15, 15, 15), fine_method="pallas_tiled") == \
         "pallas_tiled"
+
+
+@pytest.mark.parametrize("solver,extra", [
+    ("pcg", {}), ("cg", {}), ("mg", {"tolerance": 1e-6, "iterations": 30}),
+    ("bicgstab", {})])
+def test_mesh_solves_match_jax_one_device(solver, extra):
+    """``--mesh 2`` on 19x15x15 (d0 cut 10 + 9, a three-level ladder):
+    each solver converges to the manufactured solution under 3 h^2, with
+    JAX's one-device record's plan plus ``mesh`` and its iteration count
+    within 2 (JAX's own distributed solve is its one-device solve up to
+    the dots' order)."""
+    kw = dict(solve="poisson", solver=solver, size=(19, 15, 15),
+              iterations=100, tolerance=1e-5, check=True)
+    kw.update(extra)
+    with open(os.devnull, "w") as out:
+        (want,) = jrun_all(JRunConfig(**kw), out=out)
+    (got,) = cli.run_all(RunConfig(device="cpu", mesh=(2,), **kw),
+                         out=io.StringIO())
+    assert got["converged"] and want["converged"]
+    assert got["plan"] == {**want["plan"], "mesh": [2]}
+    assert abs(got["iterations"] - want["iterations"]) <= 2
+    assert got["check"]["error_vs_exact"] < 3 * (1.0 / 20) ** 2
+
+
+def test_mesh_relax_runs_the_sharded_poisson_runner():
+    """``--solver relax --mesh 2 2``: PoissonProblem.sharded_runner over d0
+    and d1 reaches the one-device relaxation's update norm."""
+    kw = dict(solve="poisson", solver="relax", size=(18, 16, 15),
+              iterations=400, tolerance=1e-9)
+    (one,) = cli.run_all(RunConfig(device="cpu", **kw), out=io.StringIO())
+    (dist,) = cli.run_all(RunConfig(device="cpu", mesh=(2, 2), **kw),
+                          out=io.StringIO())
+    assert "error" not in dist and dist["plan"]["mesh"] == [2, 2]
+    assert dist["iterations"] == one["iterations"] == 400
+    np.testing.assert_allclose(dist["residual"], one["residual"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("kw", [dict(solver="fmg", mesh=(2,)),
+                                dict(mesh=(2, 2, 2))])
+def test_mesh_contradictions_are_error_records_like_jax(kw):
+    """FMG under a mesh and a mesh of three axes: JAX's error records."""
+    got, want = _both(solve="poisson", size=(18, 15, 15), iterations=10,
+                      **kw)
+    assert got == want and "error" in got
+
+
+def test_mesh_takes_the_eager_operator_and_fine_level():
+    """Under ``--mesh`` the hetero ``--op-kernel auto`` is the eager
+    matvec, the fine level the eager one (JAX's ``xla``), and an explicit
+    ``--op-kernel pallas`` an error record with JAX's message."""
+    cfg = parse_args(["--solve", "hetero", "-s", "32", "32", "32",
+                      "--mesh", "2", "--device", "cpu"])
+    assert solve_cli.build_problem(cfg).kernel == "xla"
+    assert solve_cli._resolve_fine_method(
+        cfg, solve_cli._make_mesh(cfg)) == "xla"
+    (rec,) = cli.run_all(RunConfig(solve="hetero", size=(31, 15, 15),
+                                   mesh=(2,), op_kernel="pallas",
+                                   device="cpu"), out=io.StringIO())
+    assert "pallas coeff matvec is single-device" in rec["error"]
