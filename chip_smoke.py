@@ -17,8 +17,9 @@ Phases, each ending in a line of its own:
    the coefficient mode's weights; ``csrc/slab_sweep.cu``, the 2D
    kernel's window schedule; ``csrc/slab_march.cu``, its d0 march, every
    mode of the window;
-   ``csrc/rma_iterate.cu``) and the native golden from the sources in
-   this checkout, all seven compilers started together
+   ``csrc/rma_iterate.cu``, and again with ``-DRMA_TRACE`` for phase 5's
+   trace) and the native golden from the sources in this checkout, all
+   eight compilers started together
    (into ``build/stencil_tpu_torch/``);
 3. kernel vs plain: the 2D march (``slab_march``) in every mode against
    its plain version and the window's launch, bitwise, at cfg1, cfg2 (-b
@@ -100,7 +101,11 @@ Phases, each ending in a line of its own:
    on dynamic walls (rings of 1, 2 and 4 in d0 and d1, Neumann mirrors,
    the local refresh of d1 on (2,), mixed walls, jacobi27, a box, radius
    2, 2D) and in bf16 (the bench cell on (1,), rings, the refresh, 2D, and
-   160³ on (1,), which fits the L2 only in bf16); and the march itself:
+   160³ on (1,), which fits the L2 only in bf16); across cards, on
+   virtual cards of the one card (``RMA_CARD_CASES``: (2,) on 2, (2, 2)
+   on 2, round robin, and on 4, (4,) ``--periodic 0`` on 4, (2,)
+   ``--neumann 1`` on 2, (2, 2) bf16 on 4), each also bitwise the
+   one-card launch of the same plan; and the march itself:
    ``jacobi7``, ``jacobi27`` and ``star3d_r2`` in fp32 and bf16 at k = 1,
    2, 3 and 8 on the ragged 57×50×46, then with ``--periodic 0 1``,
    ``--neumann 0 1`` and the source mode, each launch bitwise its plain
@@ -180,7 +185,12 @@ Phases, each ending in a line of its own:
    ``--neumann 1 --mesh 2`` (every launch a pins one) and with ``--dtype
    bfloat16`` on (1,) and (2, 2) at 16 sweeps (every launch a bf16 one),
    and each runner's sweeps (one launch) bitwise ``tiled`` at k=2 on the
-   same walls and dtype; then the out-of-core ``-m streamed`` (jacobi7
+   same walls and dtype; then the bench cell on (2, 2) through
+   ``RmaStencil.iterate`` on 2 and 4 virtual cards (every launch a cards
+   one) and, with two visible cards or more, ``-m rma --mesh 2`` and
+   ``--mesh 2 2 -c`` through the CLI across real cards, each bitwise
+   ``tiled`` (with one card, a line saying the real-card path was not
+   run); then the out-of-core ``-m streamed`` (jacobi7
    1024³ fp32 ``-k 8 -i 16 --chunks 8`` from a seeded random interior, a
    4 GiB host iterate; at 256³ ``--periodic 0 1`` and ``--periodic 0
    --neumann 1``, also against the float64 golden, and the chunk count
@@ -303,7 +313,11 @@ Phases, each ending in a line of its own:
    launches alone of 32 and 64 steps at the bench cell, with each of
    those walls and dtypes, and at 8×8×16, whose step is mostly the
    kernel's fixed cost per step (the wait on the flags, the barriers
-   inside a block), each with its tile count and flag waits per step;
+   inside a block), each with its tile count and flag waits per step,
+   and the bench cell's (2, 2) on 2 and 4 virtual cards beside its
+   one-card launch (what the system-scope fences and the mirrored flags
+   cost); the traced kernel's phases of a step (``rma_trace.py``) of the
+   bench cell's (2, 2) on one card and on 4 virtual cards;
    the streamed path at 1024³ (jacobi7 k=8, 8 chunks) through its
    registry runner as ms per outer step (the runner's marginal, in whole
    outer steps), beside its bound (the bytes up and down per step over
@@ -355,7 +369,9 @@ the grid; its ``launches`` the two phase-4 CLI runs'. The
 (the library after ``F.pad``), its ``launches`` the pins launches of the
 two phase-4 dynamic-wall runs; ``rma_iterate+bf16`` the bf16 launch on
 (1,) at 2 bytes per value and the bf16 rate, its ``launches`` the bf16
-launches of the two phase-4 bf16 runs. The runner-against-eager case on a
+launches of the two phase-4 bf16 runs; ``rma_iterate+cards`` the bench
+cell's (2, 2) on 4 virtual cards, every push crossing cards, its
+``launches`` the phase-4 runs across cards. The runner-against-eager case on a
 Neumann face is printed apart from the kernel rows (it agrees to fp32
 rounding, where every kernel-against-plain case is bitwise).
 
@@ -589,6 +605,26 @@ RMA_CASES = (  # spec, global shape, mesh, k, iterations, periodic, neumann,
     ("jacobi5", (32, 256), (2, 2), 2, 7, (), (0,), "bfloat16"),
     ("jacobi7", (160, 160, 160), (1,), 2, 4, (), (), "bfloat16"),
 )
+# the exchange across cards, on virtual cards of the one card (rank i on
+# card i % G, one launch, the protocol's every instruction): phase 3 holds
+# each case bitwise its plain version on the same cards and the one-card
+# launch of the same plan (spec, global shape, mesh, k, iterations,
+# periodic, neumann, dtype, virtual cards)
+RMA_CARD_CASES = (
+    ("jacobi7", (64, 64, 128), (2,), 2, 8, (), (), "float32", 2),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 7, (), (), "float32", 2),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 8, (), (), "float32", 4),
+    ("jacobi7", (64, 64, 128), (4,), 2, 7, (0,), (), "float32", 4),
+    ("jacobi7", (64, 64, 128), (2,), 2, 7, (), (1,), "float32", 2),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 7, (), (), "bfloat16", 4),
+)
+# phase 4: the bench cell through RmaStencil.iterate on these virtual cards
+# of (2, 2) (every launch a cards one), bitwise tiled; with two visible
+# cards or more, the CLI's -m rma over RMA_REAL_MESHES across real cards;
+# phase 5: the bench cell on (2, 2) over 1, 2 and 4 virtual cards, and the
+# traced kernel's phases on 4
+RMA_VIRTUAL = (2, 4)
+RMA_REAL_MESHES = ((2,), (2, 2))
 RMA_FACES = {2: ((0.5, -1.0), (2.0, 0.25)),
              3: ((0.5, -1.0), (2.0, 0.25), (1.0, 1.5))}
 RMA_SIZE = (64, 64, 128)
@@ -618,6 +654,9 @@ RMA_WALL_RUNS = (
 RMA_RECORD = {((), (1,), "float32"): "rma_iterate",
               (("--neumann", "1"), (2,), "float32"): "rma_iterate+pins",
               ((), (1,), "bfloat16"): "rma_iterate+bf16"}
+# and of the mode across cards: the bench cell's (2, 2) on 4 virtual cards,
+# every push crossing cards
+RMA_CARDS_RECORD = 4
 # the H100 SXM's published peaks (NVIDIA's data sheet): device memory, fp32
 # outside the tensor cores, and bf16 (the table's rate for bf16 operations)
 PEAK_BYTES_PER_S = 3.35e12
@@ -642,7 +681,8 @@ KERNEL_MODES = (
     "slab_march+pins+bf16",
     "tiled_march+subset", "tiled_march+source+subset",
     "tiled_march+subset+bf16", "tiled_march+source+subset+bf16",
-    "rma_iterate", "rma_iterate+pins", "rma_iterate+bf16")
+    "rma_iterate", "rma_iterate+pins", "rma_iterate+bf16",
+    "rma_iterate+cards")
 
 
 def require(cond, msg):
@@ -3426,6 +3466,18 @@ def rma_walls(ndim, periodic, neumann):
     return bc
 
 
+def one_card_mesh(sizes):
+    """A mesh of ``sizes`` whose ranks all lie on the first card
+    (``make_mesh`` spreads them over every visible card): the one-card and
+    virtual-card rma cases."""
+    import torch
+
+    from stencil_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(shape=tuple(sizes), axis_names=("x", "y")[:len(sizes)],
+                devices=(torch.device("cuda", 0),) * math.prod(sizes))
+
+
 def rma_mode(periodic, neumann, dtype):
     """The kernel record's mode of an rma case."""
     if dtype == "bfloat16":
@@ -3439,44 +3491,63 @@ def compare_rma(kernel, rng):
     RMA_FACES on the case's walls, in its dtype), both slots, cell for
     cell, against the plain version's from the same buffers, bitwise
     required. The compute buffers are left out: the kernel runs the sweeps
-    between in shared memory and never touches them. Returns the largest
-    difference per kernel record mode."""
+    between in shared memory and never touches them. Then each of
+    RMA_CARD_CASES on its virtual cards, the same launches on each card's
+    buffers, every rank's slots bitwise the plain version's on the same
+    cards and the one-card launch's of the same plan (filed under
+    ``rma_iterate+cards``). Returns the largest difference per kernel
+    record mode."""
     import torch
 
     from stencil_tpu_torch.core.grid import HaloGrid, torch_dtype
-    from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
         RmaStencil, rma_iterate_reference,
     )
 
+    def launches(bufs, plan, n_outer, rem, run):
+        run(bufs, plan, n_outer)
+        if rem:
+            run(bufs, plan.with_sweeps(rem), 1, n_outer % 2)
+
     worst = {}
-    for name, shape, sizes, k, iters, per, neu, dtype in RMA_CASES:
+    for case in RMA_CASES + RMA_CARD_CASES:
+        name, shape, sizes, k, iters, per, neu, dtype = case[:8]
+        cards = case[8] if len(case) > 8 else None
         sp = rma_spec(name)
         bc = rma_walls(len(shape), per, neu)
         x = rng.random(shape, dtype=np.float32)
         g = HaloGrid.from_interior(
             torch.from_numpy(x).to(torch_dtype(dtype)), halo=sp.radius,
             bc=bc, device=DEVICE)
-        mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], DEVICE)
+        mesh = one_card_mesh(sizes)
         method = RmaStencil(sp, shape, dtype, sweeps_per_call=k)
-        plan = method.plan_for(mesh, bc)
+        plan = method.plan_for(mesh, bc, virtual_cards=cards)
         n_outer, rem = divmod(iters, k)
         got = method.scatter(g, mesh, plan)
-        want = got.clone()
-        kernel(got, plan, n_outer)
-        rma_iterate_reference(want, plan, n_outer)
-        if rem:
-            kernel(got, plan.with_sweeps(rem), 1, n_outer % 2)
-            rma_iterate_reference(want, plan.with_sweeps(rem), 1,
-                                  n_outer % 2)
-        mode = rma_mode(per, neu, dtype)
-        worst[mode] = max(worst.get(mode, 0.0), check_equal(
-            f"rma_iterate {sp.name} {shape} mesh {sizes} k={k} {dtype}, "
-            f"{walls_name(bc)}, {n_outer} steps"
-            f"{f' + a remainder of {rem}' if rem else ''}, tile "
-            f"{plan.tile}, both slots of {tuple(plan.buffer_shape)}",
-            got[:, :2], want[:, :2], exact=True))
-        del got, want
+        parts = got if cards else [got]
+        want = [p.clone() for p in parts]
+        launches(got, plan, n_outer, rem, kernel)
+        launches(want, plan, n_outer, rem, rma_iterate_reference)
+        what = (f"rma_iterate {sp.name} {shape} mesh {sizes}"
+                f"{f' on {cards} virtual cards' if cards else ''} k={k} "
+                f"{dtype}, {walls_name(bc)}, {n_outer} steps"
+                f"{f' + a remainder of {rem}' if rem else ''}, tile "
+                f"{plan.tile}, both slots of every rank")
+        mode = "rma_iterate+cards" if cards else rma_mode(per, neu, dtype)
+        worst[mode] = max(worst.get(mode, 0.0), *(
+            check_equal(f"{what} (card {c} vs plain)", a[:, :2], b[:, :2],
+                        exact=True) for c, (a, b) in enumerate(
+                            zip(parts, want))))
+        if cards:
+            one = method.plan_for(mesh, bc)
+            single = method.scatter(g, mesh, one)
+            launches(single, one, n_outer, rem, kernel)
+            worst[mode] = max(worst[mode], check_equal(
+                f"{what} vs the one-card launch",
+                torch.stack([parts[c][i, :2] for c, i in plan.places]),
+                single[:, :2], exact=True))
+            del single
+        del got, parts, want
     return worst
 
 
@@ -3487,12 +3558,18 @@ def run_rma_paths(cli, kernel, label):
     ``--dtype bfloat16`` on (1,) and (2, 2) at RMA_BF16_ITERS sweeps, the
     golden's bf16 bar), each run's launches counted from 0 and every one
     of them of the run's kind; then each runner's result bitwise the
-    ``tiled`` runner's at the same k, walls and dtype. Returns the
-    launches per kernel record mode."""
+    ``tiled`` runner's at the same k, walls and dtype. Then across cards:
+    the bench cell on (2, 2) through ``RmaStencil.iterate`` on each of
+    RMA_VIRTUAL's virtual cards, one launch, a cards one; with two visible
+    cards or more the CLI over each of RMA_REAL_MESHES across the cards
+    ``make_mesh`` assigns (every launch a cards one), each bitwise
+    ``tiled``; with one card a line that says so. Returns the launches per
+    kernel record mode."""
     import torch
 
     from stencil_tpu_torch import registry
     from stencil_tpu_torch.config import parse_args
+    from stencil_tpu_torch.parallel.rma import RmaStencil
 
     runs = [((), mesh, "float32", "launches", "rma_iterate")
             for mesh in RMA_MESHES] + list(RMA_WALL_RUNS)
@@ -3526,6 +3603,62 @@ def run_rma_paths(cli, kernel, label):
         print(f"rma {' '.join(flags) or 'dirichlet'} mesh {mesh} k={RMA_K} "
               f"{dtype} {RMA_SIZE}, {iters} sweeps in one launch: bitwise "
               f"equal to tiled k={RMA_K} [{label}]")
+    # across cards: the bench cell's (2, 2) on virtual cards through
+    # RmaStencil.iterate; on real cards through the CLI where there are two
+    cfg = parse_args(["-s", *map(str, RMA_SIZE), "--spec", "jacobi7", "-m",
+                      "rma", "-k", str(RMA_K), "--mesh", "2", "2",
+                      "--device", DEVICE])
+    sp = cfg.resolved_spec()
+    grid = cli.make_grid(cfg, sp)
+    want = registry.get_runner("tiled", cfg, sp, grid).iterate(grid,
+                                                               RMA_ITERS)
+    method = RmaStencil(sp, RMA_SIZE, "float32", RMA_K)
+    mesh = one_card_mesh((2, 2))
+    total["rma_iterate+cards"] = 0
+    for cards in RMA_VIRTUAL:
+        kernel.reset_counts()
+        got = method.iterate(grid, RMA_ITERS, mesh, virtual_cards=cards)
+        torch.cuda.synchronize()
+        n = kernel.cards_launches
+        require(n == kernel.launches == 1
+                and torch.equal(got.data, want.data),
+                f"rma (2, 2) on {cards} virtual cards: {n} cards launches "
+                f"of {kernel.launches}, or not bitwise tiled")
+        total["rma_iterate+cards"] += n
+        print(f"rma mesh (2, 2) on {cards} virtual cards k={RMA_K} "
+              f"{RMA_SIZE}, {RMA_ITERS} sweeps in one launch "
+              f"(RmaStencil.iterate): bitwise equal to tiled k={RMA_K} "
+              f"[{label}]")
+    visible = torch.cuda.device_count()
+    if visible < 2:
+        meshes = " and --mesh ".join(" ".join(map(str, m))
+                                     for m in RMA_REAL_MESHES)
+        print(f"rma across real cards (-m rma --mesh {meshes} through the "
+              f"CLI): not run, {visible} visible card (the path needs two "
+              f"or more) [{label}]")
+        return total
+    for mesh_shape in RMA_REAL_MESHES:
+        args = ["-s", *map(str, RMA_SIZE), "--spec", "jacobi7", "-m", "rma",
+                "-k", str(RMA_K), "-i", str(RMA_ITERS), "--mesh",
+                *map(str, mesh_shape)]
+        rec, n = run_cli(cli, args, kernel, label, "cards_launches")
+        require(rec["plan"]["cards"] == [
+            len(range(c, math.prod(mesh_shape), visible))
+            for c in range(min(visible, math.prod(mesh_shape)))],
+            f"{args}: cards {rec['plan']['cards']}")
+        total["rma_iterate+cards"] += n
+        run = parse_args([*args, "--device", DEVICE])
+        got = registry.get_runner("rma", run, sp, grid).iterate(grid,
+                                                                RMA_ITERS)
+        for d in range(visible):
+            torch.cuda.synchronize(d)
+        require(torch.equal(got.data.to(want.device), want.data),
+                f"rma {args} across real cards: not bitwise tiled")
+        print(f"rma mesh {mesh_shape} across {len(rec['plan']['cards'])} "
+              f"real cards k={RMA_K} {RMA_SIZE}, {RMA_ITERS} sweeps, one "
+              f"launch per card, {rec['plan']['cross_card_bytes_per_step']}"
+              f" B across cards per step: bitwise equal to tiled "
+              f"k={RMA_K} [{label}]")
     return total
 
 
@@ -3557,10 +3690,11 @@ def time_rma(kernel, label):
     from stencil_tpu_torch.core.grid import HaloGrid, torch_dtype
     from stencil_tpu_torch.core.spec import get_spec
     from stencil_tpu_torch.ops.tiled import TiledStencil, make_tiled_plan
-    from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
-        RmaStencil, rma_iterate_reference, rma_tiles,
+        RmaStencil, cross_card_bytes_per_step, rma_iterate_reference,
+        rma_tiles,
     )
+    from stencil_tpu_torch.parallel.rma_trace import TracedRmaKernel, trace
 
     def wall(run, n):
         torch.cuda.synchronize()
@@ -3584,8 +3718,6 @@ def time_rma(kernel, label):
         return HaloGrid.from_interior(x.to(torch_dtype(dtype)), halo=1,
                                       bc=bc, device=DEVICE)
 
-    def mesh_of(sizes):
-        return make_mesh(sizes, ("x", "y")[:len(sizes)], DEVICE)
 
     # (label, shape, grid, dtype, rma meshes, tiled ks)
     cells = [("dirichlet", shape, grid_of(shape), "float32", RMA_MESHES,
@@ -3601,7 +3733,7 @@ def time_rma(kernel, label):
     for walls, shape, grid, dtype, meshes, ks in cells:
         runs = [(f"rma mesh {sizes} k={RMA_K}", RMA_K,
                  lambda n, st=RmaStencil(j7, shape, dtype, RMA_K),
-                 mesh=mesh_of(sizes): st.iterate(grid, n, mesh))
+                 mesh=one_card_mesh(sizes): st.iterate(grid, n, mesh))
                 for sizes in meshes]
         runs += [(f"tiled k={k}", k,
                   lambda n, st=TiledStencil(j7, shape, dtype,
@@ -3632,33 +3764,43 @@ def time_rma(kernel, label):
                           f"device busy {busy:.3f} ms of a {span:.3f} ms "
                           f"span, idle {100 * (1 - busy / span):.1f}%")
                       + f" [{label}]")
-    # launches alone: walls flags, shape, mesh, dtype
-    alone = [((), shape, sizes, "float32") for shape in (RMA_SIZE, RMA_TINY)
+    # launches alone: walls flags, shape, mesh, dtype, virtual cards (the
+    # bench cell's (2, 2) on 1, 2 and 4 cards: what the system-scope
+    # fences and the mirrored flags cost)
+    alone = [((), shape, sizes, "float32", None)
+             for shape in (RMA_SIZE, RMA_TINY)
              for sizes in RMA_MESHES + ((2,),)]
-    alone += [(flags, RMA_SIZE, sizes, dtype)
+    alone += [((), RMA_SIZE, (2, 2), "float32", cards)
+              for cards in RMA_VIRTUAL]
+    alone += [(flags, RMA_SIZE, sizes, dtype, None)
               for flags, sizes, dtype, _, _ in RMA_WALL_RUNS]
     rows = {}
-    for flags, shape, sizes, dtype in alone:
+    for flags, shape, sizes, dtype, cards in alone:
         walls = " ".join(flags) or "dirichlet"
         mode = RMA_RECORD.get((flags, sizes, dtype)) \
-            if shape == RMA_SIZE else None
+            if shape == RMA_SIZE and cards is None else None
+        if cards == RMA_CARDS_RECORD:
+            mode = "rma_iterate+cards"
         bc = walls_of(flags) if flags else None
         grid = grid_of(shape, bc, dtype)
-        mesh = mesh_of(sizes)
+        mesh = one_card_mesh(sizes)
         st = RmaStencil(j7, shape, dtype, RMA_K)
-        plan = st.plan_for(mesh, bc)
+        plan = st.plan_for(mesh, bc, virtual_cards=cards)
         bufs = st.scatter(grid, mesh, plan)
         t1 = time_call(lambda: kernel(bufs, plan, RMA_STEPS), DEVICE, 5)
         t2 = time_call(lambda: kernel(bufs, plan, 2 * RMA_STEPS), DEVICE, 5)
         step = (t2 - t1) / RMA_STEPS * 1e3
         tiles = rma_tiles(plan)
+        on = (f" on {cards} virtual cards ({cross_card_bytes_per_step(plan)}"
+              " B across cards per step)" if cards else "")
         line = (f"one rma_iterate launch of {RMA_STEPS} steps, jacobi7 "
-                f"{shape} k={RMA_K} mesh {sizes} {dtype} {walls}: "
+                f"{shape} k={RMA_K} mesh {sizes}{on} {dtype} {walls}: "
                 f"{t1:.4f} ms, {step:.2f} us per step (the marginal of "
                 f"{RMA_STEPS} and {2 * RMA_STEPS} steps); {tiles.ntiles} "
                 f"tiles of {plan.tile}, {tiles.waits_per_step} flag waits "
                 f"per step ({tiles.waits_per_step / tiles.ntiles:.1f} per "
-                "tile), one grid barrier per launch")
+                f"tile, {len(tiles.pub)} mirrored), one grid barrier per "
+                "launch")
         if shape == RMA_SIZE:
             plain = st.scatter(grid, mesh, plan)
             plain_ms = time_call(lambda: rma_iterate_reference(
@@ -3687,6 +3829,12 @@ def time_rma(kernel, label):
                   f"{library:.4f} ms per sweep (vs one plain sweep max abs "
                   f"diff {lib_check():.3e}) [{label}]")
         del bufs, grid
+    # the traced kernel's phases of a step, the bench cell's (2, 2) on one
+    # card and on 4 virtual cards
+    traced = TracedRmaKernel()
+    for cards in (None, RMA_CARDS_RECORD):
+        line = trace(traced, RMA_SIZE, (2, 2), "float32", (), cards, DEVICE)
+        print(f"rma_trace: {line} [{label}]")
     return rows
 
 
@@ -3861,10 +4009,12 @@ def main() -> int:
     from stencil_tpu_torch import native
     from stencil_tpu_torch.ops import slab_kernel, tiled_kernel
     from stencil_tpu_torch.parallel import rma as rma_module
+    from stencil_tpu_torch.parallel.rma_trace import TracedRmaKernel
 
     kernels = (tiled_kernel.tiled_sweep, tiled_kernel.tiled_march,
                tiled_kernel.coeff_weights, slab_kernel.slab_sweep,
-               slab_kernel.slab_march, rma_module.rma_iterate)
+               slab_kernel.slab_march, rma_module.rma_iterate,
+               TracedRmaKernel())
     with concurrent.futures.ThreadPoolExecutor(len(kernels) + 1) as pool:
         t0 = time.perf_counter()
         golden = pool.submit(native.available)
@@ -3874,8 +4024,9 @@ def main() -> int:
     print(f"parallel build: {time.perf_counter() - t0:.2f} s")
     for kernel, b in zip(kernels, builds):
         kernel.library()
-        print(f"nvcc build of {kernel.source.relative_to(ROOT)}: "
-              f"{b.seconds:.2f} s{' (cached)' if b.cached else ''}")
+        print(f"nvcc build of {kernel.source.relative_to(ROOT)} "
+              f"({kernel.name}): {b.seconds:.2f} s"
+              f"{' (cached)' if b.cached else ''}")
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")

@@ -13,10 +13,11 @@ the contract and changes the means:
 - **one launch for the whole run**: a cooperative launch whose blocks are
   all co-resident, each owning fixed tiles of the ranks' interiors
   (:func:`rma_tiles`, the tile chosen by :func:`choose_rma_tile`);
-- **the blocks never leave the device**: all ranks' buffers are one tensor
-  ``[R, nbuf, *B]`` in device memory, sized by :func:`make_rma_plan` to
-  stay inside the card's L2 (50 MiB on an H100), where the TPU kernel's
-  budget was VMEM; each step's k sweeps of a tile run in shared memory;
+- **the blocks never leave the device**: a card's ranks' buffers are one
+  tensor ``[R, nbuf, *B]`` in device memory, sized by
+  :func:`make_rma_plan` to stay inside the card's L2 (50 MiB on an H100),
+  where the TPU kernel's budget was VMEM; each step's k sweeps of a tile
+  run in shared memory;
 - **the exchange written by its producer**: the phased exchange below is
   a fixed map of ghost cells to the cells whose values they receive
   (:func:`ghost_map`), so the tile that computes a source cell writes its
@@ -90,9 +91,31 @@ plain version's.
 
 JAX's TPU-layout rules are dropped: the DMA granules (``_dma_quantum``),
 the 128/sublane divisibility refusal and the rounded pads of
-``_rma_layout``. Ghosts are exactly k*r deep on every dim. A mesh whose
-ranks sit on more than one card is refused: one launch spans the ranks of
-one card.
+``_rma_layout``. Ghosts are exactly k*r deep on every dim.
+
+**Across cards** (JAX's one rank per chip, its strips moved by
+``make_async_remote_copy``, :397-433, paced by send and recv semaphores,
+:435-463, after one neighbour barrier, :365-383). Each distinct device of
+the mesh is a card (:meth:`RmaStencil.plan_for`), rank i on the card of
+its device, so ``make_mesh``'s round robin may give a card ranks that are
+not neighbours. Each card holds its own ranks' buffers in an allocation
+of its own (``[ranks on the card, nbuf, *B]``, the card's ranks in rank
+order) within its own L2 budget. The tiles are numbered card by card
+(:attr:`RmaPlan.rank_order`); a ghost-map pair is produced on the card of
+its source and stored straight into the destination card's allocation; a
+dependency between tiles on two cards is a flag the producer publishes
+into the waiting card's flag array as well as its own, so that every wait
+polls its own card's memory; and one barrier across cards follows the
+opening exchange. The kernel runs one cooperative launch per card; every
+edge between two cards synchronises at system scope (a tile with waiters
+on other cards fences once, then stores its epoch into each array), every
+edge within a card at gpu scope. ``virtual_cards=G`` on a mesh of one device
+puts rank i on virtual card i % G instead: separate allocations and flag
+arrays on that device, every instruction of the real path, in one launch
+whose blocks are all co-resident (two launches on one card are not
+co-scheduled), the test device of the protocol on one card. A plan of one
+card runs what it ran before cards existed (its waits now acquire at
+system scope).
 """
 
 from __future__ import annotations
@@ -102,7 +125,7 @@ import dataclasses
 import functools
 import itertools
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -127,6 +150,8 @@ REPLACES_MODE = {
     "rma_iterate+pins": "stencil_tpu/parallel/rma.py:281",
     # the same kernel at dtype=bfloat16 (its dtype taken from the plan)
     "rma_iterate+bf16": "stencil_tpu/parallel/rma.py:264",
+    # across cards: the remote copies chip to chip (make_async_remote_copy)
+    "rma_iterate+cards": "stencil_tpu/parallel/rma.py:397",
 }
 # the L2 cache of an H100 (50 MiB, ``device_model.H100``): the residency
 # budget where no card is asked (a plan made on the CPU); on a card its own
@@ -136,6 +161,9 @@ H100_L2_BYTES = device_model.H100.l2_bytes
 # mirror, written in the dim's phase
 NBR_DIRICHLET = -1
 NBR_MIRROR = -2
+# the most cards one plan spans (rma_iterate.cu's kMaxCards: the launch
+# parameters hold one buffer and one flag pointer per card)
+MAX_CARDS = 16
 
 
 def l2_budget(device) -> int:
@@ -154,8 +182,11 @@ class RmaPlan:
     sweeps per outer step (``halo`` = sweeps*r, the strips' depth; below
     ``layout.halo`` only for a remainder plan, :meth:`with_sweeps`),
     ``num_buffers`` padded blocks per rank, the walls: ``periodic`` and
-    ``neumann`` per grid dim (Dirichlet where both are False), and the
-    kernel's ``tile`` of each rank's interior (:func:`choose_rma_tile`)."""
+    ``neumann`` per grid dim (Dirichlet where both are False), the
+    kernel's ``tile`` of each rank's interior (:func:`choose_rma_tile`),
+    the card of each rank (``cards``, numbered from 0, each holding one
+    rank or more) and whether the cards are ``virtual``: groups of one
+    launch on one device, sharing its L2 and SMs (False on one card)."""
 
     spec: StencilSpec
     local_shape: Tuple[int, ...]
@@ -167,6 +198,8 @@ class RmaPlan:
     periodic: Tuple[bool, ...]
     neumann: Tuple[bool, ...]
     tile: Tuple[int, ...]
+    cards: Tuple[int, ...]
+    virtual: bool
 
     @property
     def interior_shape(self) -> Tuple[int, ...]:
@@ -201,9 +234,51 @@ class RmaPlan:
 
     @property
     def buffer_shape(self) -> Tuple[int, ...]:
-        """The shape of the tensor one launch runs on: every rank's
-        buffers."""
+        """Every rank's buffers in one tensor: the tensor a plan of one
+        card runs on (:meth:`card_shape` of each card otherwise)."""
         return (self.ranks, self.num_buffers) + self.layout.padded_shape
+
+    @property
+    def ncards(self) -> int:
+        return max(self.cards) + 1
+
+    @functools.cached_property
+    def card_ranks(self) -> Tuple[Tuple[int, ...], ...]:
+        """The ranks each card holds, in rank order."""
+        return tuple(tuple(r for r, c in enumerate(self.cards) if c == card)
+                     for card in range(self.ncards))
+
+    @functools.cached_property
+    def places(self) -> Tuple[Tuple[int, int], ...]:
+        """(card, index among the card's ranks) of each rank: where its
+        buffers lie."""
+        return tuple((self.cards[r], self.card_ranks[self.cards[r]].index(r))
+                     for r in range(self.ranks))
+
+    @property
+    def rank_order(self) -> Tuple[int, ...]:
+        """Every rank, card by card: the order of the tiles and of the
+        kernel's per-rank tables."""
+        return sum(self.card_ranks, ())
+
+    @property
+    def device_ranks(self) -> Tuple[int, ...]:
+        """The ranks each device holds: all of them on one card or on
+        virtual cards, else each card's."""
+        if self.virtual or self.ncards == 1:
+            return (self.ranks,)
+        return tuple(map(len, self.card_ranks))
+
+    def card_shape(self, card: int) -> Tuple[int, ...]:
+        """The shape of ``card``'s buffer tensor: its ranks' buffers."""
+        return ((len(self.card_ranks[card]), self.num_buffers)
+                + self.layout.padded_shape)
+
+    @property
+    def on_one_card(self) -> "RmaPlan":
+        """The same geometry with every rank on one card."""
+        return dataclasses.replace(self, cards=(0,) * self.ranks,
+                                   virtual=False)
 
     @property
     def resident_bytes(self) -> int:
@@ -243,15 +318,21 @@ class RmaPlan:
 def make_rma_plan(spec: StencilSpec, local_shape, dtype="float32",
                   mesh_shape: Tuple[int, ...] = (1,),
                   sweeps_per_call: int = 1,
-                  budget: int = H100_L2_BYTES,
+                  budget=H100_L2_BYTES,
                   bc: Optional[DirichletBC] = None,
-                  tile: Optional[Tuple[int, ...]] = None) -> RmaPlan:
+                  tile: Optional[Tuple[int, ...]] = None,
+                  cards: Optional[Sequence[int]] = None,
+                  virtual: bool = False) -> RmaPlan:
     """The plan, with JAX's gates and messages (``make_rma_plan``,
     :175-221): a 2D or 3D grid, a 1D or 2D mesh over the leading dims,
-    k >= 1, a sharded local extent of at least 2*k*r; then the card's
-    budget: every rank's ``2 + num_compute_bufs`` padded blocks, all on one
-    card, within ``budget`` (its L2), at the dtype's size. ``bc`` gives the
-    walls (None: Dirichlet); a dynamic dim must be a leading one, and an
+    k >= 1, a sharded local extent of at least 2*k*r; then each device's
+    budget, as JAX checks each chip's VMEM (``_block_budget``, :96): the
+    ``2 + num_compute_bufs`` padded blocks of every rank the device holds
+    (:attr:`RmaPlan.device_ranks`), at the dtype's size, within
+    ``budget`` (its L2; one value for every device, or one per device).
+    ``cards`` gives the card of each rank (None: all on card 0) and
+    ``virtual`` whether the cards share one device. ``bc`` gives the walls
+    (None: Dirichlet); a dynamic dim must be a leading one, and an
     unsharded one at least k*r deep (the gates of
     :meth:`RmaStencil.iterate` say so in JAX's words first). ``tile``
     overrides :func:`choose_rma_tile`'s tile."""
@@ -283,8 +364,23 @@ def make_rma_plan(spec: StencilSpec, local_shape, dtype="float32",
                              f"is shallower than k*r = {kr}")
     k = sweeps_per_call
     itemsize = torch_dtype(dtype).itemsize
+    ranks = math.prod(mesh_shape)
+    cards = (0,) * ranks if cards is None else tuple(int(c) for c in cards)
+    ncards = max(cards, default=0) + 1
+    if len(cards) != ranks or set(cards) != set(range(ncards)):
+        raise ValueError(f"card map {cards} does not put {ranks} ranks on "
+                         "cards 0, 1, ... each holding one or more")
+    if ncards > MAX_CARDS:
+        raise ValueError(f"{ncards} cards: the rma kernel spans at most "
+                         f"{MAX_CARDS}")
+    plan = RmaPlan(spec=spec, local_shape=tuple(local_shape), dtype=dtype,
+                   mesh_shape=tuple(mesh_shape), sweeps_per_call=k,
+                   layout=PaddedLayout.for_halo(local_shape, kr),
+                   num_buffers=2 + (0 if k == 1 else (1 if k == 2 else 2)),
+                   periodic=tuple(per), neumann=tuple(neu), tile=(),
+                   cards=cards, virtual=bool(virtual) and ncards > 1)
     if tile is None:
-        tile = choose_rma_tile(local_shape, math.prod(mesh_shape), k,
+        tile = choose_rma_tile(local_shape, max(plan.device_ranks), k,
                                spec.radius, itemsize)
     elif (len(tile) != ndim
           or not all(1 <= t <= n for t, n in zip(tile, local_shape))
@@ -292,20 +388,21 @@ def make_rma_plan(spec: StencilSpec, local_shape, dtype="float32",
                        itemsize) is None):
         raise ValueError(f"tile {tuple(tile)} does not fit {local_shape} "
                          f"at k*r = {kr}")
-    plan = RmaPlan(spec=spec, local_shape=tuple(local_shape), dtype=dtype,
-                   mesh_shape=tuple(mesh_shape), sweeps_per_call=k,
-                   layout=PaddedLayout.for_halo(local_shape, kr),
-                   num_buffers=2 + (0 if k == 1 else (1 if k == 2 else 2)),
-                   periodic=tuple(per), neumann=tuple(neu),
-                   tile=tuple(tile))
-    if plan.resident_bytes > budget:
-        B = plan.block_shape
-        raise ValueError(
-            f"per-device block {B} x{plan.num_buffers} buffers x"
-            f"{plan.ranks} ranks on one card = {plan.resident_bytes} B "
-            f"exceeds the L2-resident budget {budget}; use the "
-            "sharded_pallas method for blocks this large"
-        )
+    plan = dataclasses.replace(plan, tile=tuple(tile))
+    budgets = ((budget,) * len(plan.device_ranks)
+               if isinstance(budget, int) else tuple(budget))
+    if len(budgets) != len(plan.device_ranks):
+        raise ValueError(f"{len(budgets)} budgets for "
+                         f"{len(plan.device_ranks)} devices")
+    per_rank = plan.resident_bytes // ranks
+    for n, limit in zip(plan.device_ranks, budgets):
+        if n * per_rank > limit:
+            raise ValueError(
+                f"per-device block {plan.block_shape} x{plan.num_buffers} "
+                f"buffers x{n} ranks on one card = {n * per_rank} B "
+                f"exceeds the L2-resident budget {limit}; use the "
+                "sharded_pallas method for blocks this large"
+            )
     return plan
 
 
@@ -480,43 +577,64 @@ def buffer_of(plan: RmaPlan, t: int, slot: int) -> int:
     return 2 + (t - 1) % plan.num_compute_bufs
 
 
-def exchange_reference(buffers: torch.Tensor, plan: RmaPlan,
+Buffers = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def card_parts(buffers: Buffers, plan: RmaPlan) -> List[torch.Tensor]:
+    """Each card's buffer tensor: ``buffers`` itself for a plan of one card
+    (a tensor of ``plan.buffer_shape``), else one tensor per card
+    (:meth:`RmaPlan.card_shape`)."""
+    parts = ([buffers] if isinstance(buffers, torch.Tensor)
+             else list(buffers))
+    if len(parts) != plan.ncards:
+        raise ValueError(f"{len(parts)} buffer tensors for {plan.ncards} "
+                         "cards")
+    return parts
+
+
+def exchange_reference(buffers: Buffers, plan: RmaPlan,
                        slot: int) -> List[int]:
     """The phases of one step in the plain version (:func:`phase_copies`),
-    into slot ``slot``: the local refresh, then each sharded dim's pushes
-    and mirrors. Returns the number of values each rank pushed."""
+    into slot ``slot`` of each card's buffers (:func:`card_parts`), each
+    rank's where :attr:`RmaPlan.places` puts it: the local refresh, then
+    each sharded dim's pushes and mirrors. Returns the number of values
+    each rank pushed."""
+    parts = card_parts(buffers, plan)
     pushed = [0] * plan.ranks
     for phase in phase_copies(plan):
         for cp in phase:
-            v = buffers[(cp.src_rank, slot) + cp.src]
+            card, i = plan.places[cp.src_rank]
+            v = parts[card][(i, slot) + cp.src]
             if cp.flip is not None:
                 v = torch.flip(v, (cp.flip,))
-            buffers[(cp.dst_rank, slot) + cp.dst].copy_(v)
+            card, i = plan.places[cp.dst_rank]
+            parts[card][(i, slot) + cp.dst].copy_(v)
             if cp.kind == "push":
                 pushed[cp.src_rank] += v.numel()
     return pushed
 
 
-def rma_iterate_reference(buffers: torch.Tensor, plan: RmaPlan,
-                          n_steps: int, slot: int = 0) -> torch.Tensor:
+def rma_iterate_reference(buffers: Buffers, plan: RmaPlan, n_steps: int,
+                          slot: int = 0) -> Buffers:
     """Plain version of one launch: ``n_steps`` outer steps of every rank on
-    ``buffers`` (``plan.buffer_shape``) in place, the first reading slot
+    ``buffers`` (:func:`card_parts`) in place, the first reading slot
     ``slot``: per step :func:`exchange_reference`, then k eager sweeps per
     rank over its update boxes (``eager.apply_spec``, the kernels' tap
     order, in the buffers' dtype). Returns ``buffers``; the result lies in
     slot ``(slot + n_steps) % 2``."""
+    parts = card_parts(buffers, plan)
     tables = rma_tables(plan)
     r = plan.spec.radius
     for step in range(n_steps):
         s = (slot + step) % 2
-        exchange_reference(buffers, plan, s)
+        exchange_reference(parts, plan, s)
         for t in range(1, plan.sweeps_per_call + 1):
             src, dst = buffer_of(plan, t - 1, s), buffer_of(plan, t, s)
-            for rank in range(plan.ranks):
+            for rank, (card, i) in enumerate(plan.places):
                 box = tables.boxes[rank][t - 1]
                 grown = tuple(slice(b.start - r, b.stop + r) for b in box)
-                eager.apply_spec(buffers[rank, src][grown], plan.spec,
-                                 halo=r, out=buffers[rank, dst][box])
+                eager.apply_spec(parts[card][i, src][grown], plan.spec,
+                                 halo=r, out=parts[card][i, dst][box])
     return buffers
 
 
@@ -623,8 +741,9 @@ def ghost_map(plan: RmaPlan) -> Tuple[np.ndarray, np.ndarray]:
     (the refresh, the pushes, the rings and the mirrors in order, corners
     riding through earlier phases): :func:`exchange_reference` run on the
     cells' own indices. Raises if a source is itself written (the pairs
-    could then not all be applied at once)."""
-    return _ghost_map(plan)
+    could then not all be applied at once). The map does not depend on
+    the cards."""
+    return _ghost_map(plan.on_one_card)
 
 
 @functools.lru_cache(maxsize=64)
@@ -644,23 +763,33 @@ def _ghost_map(plan: RmaPlan) -> Tuple[np.ndarray, np.ndarray]:
 @dataclasses.dataclass(frozen=True)
 class RmaTiles:
     """The tiled schedule of one launch plan, the same every step. Tile
-    ``i`` of ``ntiles`` (rank-major, then the tile grid ``grid`` in C
-    order) owns ``tile`` interior cells per dim (fewer in a ragged last
-    tile) from ``lo[i]`` to ``hi[i]`` (padded coordinates) and loads its
-    window, ``lo - plan.halo`` to ``hi + plan.halo``, into shared memory of
-    row pitch ``pitch`` (the tile grown by k*r). Per tile, in CSR form
-    (``*_ptr[i]:*_ptr[i+1]``):
+    ``i`` of ``ntiles`` (ranks in :attr:`RmaPlan.rank_order`, card by card,
+    then the tile grid ``grid`` in C order) belongs to rank ``rank[i]`` on
+    card ``card[i]`` and owns ``tile`` interior cells per dim (fewer in a
+    ragged last tile) from ``lo[i]`` to ``hi[i]`` (padded coordinates); it
+    loads its window, ``lo - plan.halo`` to ``hi + plan.halo``, into
+    shared memory of row pitch ``pitch`` (the tile grown by k*r). Per
+    tile, in CSR form (``*_ptr[i]:*_ptr[i+1]``):
 
     - ``pairs``: the ghost-map pairs it writes after its level k, (flat
-      destination, flat source, the source's index in its window or -1):
-      a source in its interior (the value in shared memory), or a source
-      no tile writes (a Dirichlet ghost a strip carries; index -1, read
-      from the output slot), given to the destination's rank's tile
-      nearest the destination;
+      destination, flat source, the source's index in its window or -1;
+      flat as ``rank * block + offset``): a source in its interior (the
+      value in shared memory), or a source no tile writes (a Dirichlet
+      ghost a strip carries; index -1, read from the output slot), given
+      to the destination's rank's tile nearest the destination where the
+      source's rank shares the destination's card, else to the source's
+      rank's tile nearest the source. So every source lies on its tile's
+      card, and a destination may lie on another card;
     - ``deps``: the tiles whose writes (interior or pairs) meet its window,
       and those whose window meets its writes, itself excluded: the read-
       after-write hazards between one step and the next, and the write-
-      after-read ones on the ping-pong slot. The relation is symmetric."""
+      after-read ones on the ping-pong slot. The relation is symmetric;
+    - ``pub``: the other cards whose tiles depend on it, into whose flag
+      arrays it publishes its epoch besides its own card's.
+
+    Per card, ``peers[peer_ptr[c]:peer_ptr[c+1]]``: the other cards it
+    shares a dependency with, the cards of its barrier after the opening
+    exchange."""
 
     grid: Tuple[int, ...]
     tile: Tuple[int, ...]
@@ -668,10 +797,15 @@ class RmaTiles:
     lo: np.ndarray          # [ntiles, ndim]
     hi: np.ndarray
     rank: np.ndarray        # [ntiles]
+    card: np.ndarray        # [ntiles]
     pair_ptr: np.ndarray    # [ntiles + 1]
     pairs: np.ndarray       # [npairs, 3]
     dep_ptr: np.ndarray     # [ntiles + 1]
     deps: np.ndarray        # [ndeps]
+    pub_ptr: np.ndarray     # [ntiles + 1]
+    pub: np.ndarray         # [npub]
+    peer_ptr: np.ndarray    # [ncards + 1]
+    peers: np.ndarray       # [npeers]
     shared_bytes: int       # one block's (:func:`shared_bytes`)
 
     @property
@@ -703,13 +837,18 @@ def rma_tiles(plan: RmaPlan) -> RmaTiles:
     idx = np.stack(np.unravel_index(np.arange(per_rank), grid), axis=1)
     lo = np.tile(h + idx * T, (plan.ranks, 1))
     hi = np.minimum(lo + T, h + n)
-    rank = np.repeat(np.arange(plan.ranks), per_rank)
+    order = np.asarray(plan.rank_order)
+    pos = np.empty(plan.ranks, np.int64)   # each rank's place in order
+    pos[order] = np.arange(plan.ranks)
+    cards = np.asarray(plan.cards)
+    rank = np.repeat(order, per_rank)
+    card = cards[rank]
     pitch = tuple(int(t) + 2 * kr for t in T)
 
     def tile_of(r, coords):
         """The tile of rank(s) ``r`` holding interior cell(s) ``coords``."""
         j = (coords - h) // T
-        return r * per_rank + np.ravel_multi_index(tuple(j.T), grid)
+        return pos[r] * per_rank + np.ravel_multi_index(tuple(j.T), grid)
 
     dst, src = ghost_map(plan)
     block = math.prod(plan.block_shape)
@@ -718,7 +857,8 @@ def rma_tiles(plan: RmaPlan) -> RmaTiles:
     s_c = np.stack(np.unravel_index(s_off, plan.block_shape), axis=1)
     d_c = np.stack(np.unravel_index(d_off, plan.block_shape), axis=1)
     inside = ((s_c >= h) & (s_c < h + n)).all(axis=1)
-    owner = np.where(inside, tile_of(s_rank, np.clip(s_c, h, h + n - 1)),
+    owner = np.where(inside | (cards[s_rank] != cards[d_rank]),
+                     tile_of(s_rank, np.clip(s_c, h, h + n - 1)),
                      tile_of(d_rank, np.clip(d_c, h, h + n - 1)))
     wlo = lo[owner] - kr
     local = np.where(inside, np.ravel_multi_index(
@@ -750,33 +890,58 @@ def rma_tiles(plan: RmaPlan) -> RmaTiles:
         j = jlo + np.asarray(off)
         ok = (j <= jhi).all(axis=1) & (u - kr < n).all(axis=1)
         if ok.any():
-            reader = d_rank[ok] * per_rank + np.ravel_multi_index(
+            reader = pos[d_rank[ok]] * per_rank + np.ravel_multi_index(
                 tuple(j[ok].T), grid)
             edges.append(np.stack([owner[ok], reader], axis=1))
     e = np.concatenate(edges + [np.zeros((0, 2), np.int64)])
     e = np.concatenate([e, e[:, ::-1]])
     e = np.unique(e[e[:, 0] != e[:, 1]], axis=0)
     dep_ptr, deps = _csr(e[:, 0], e[:, 1], ntiles)
+    # tile a waits on tile b: b publishes into a's card too where they
+    # differ, and the two cards meet at the barrier
+    cut = e[card[e[:, 0]] != card[e[:, 1]]]
+    pub_ptr, pub = _csr(*np.unique(np.stack(
+        [cut[:, 1], card[cut[:, 0]]], axis=1), axis=0).T, ntiles)
+    peer_ptr, peers = _csr(*np.unique(np.stack(
+        [card[cut[:, 0]], card[cut[:, 1]]], axis=1), axis=0).T,
+        plan.ncards)
     return RmaTiles(grid=grid, tile=tuple(int(t) for t in T), pitch=pitch,
-                    lo=lo, hi=hi, rank=rank, pair_ptr=pair_ptr, pairs=pairs,
-                    dep_ptr=dep_ptr, deps=deps,
+                    lo=lo, hi=hi, rank=rank, card=card, pair_ptr=pair_ptr,
+                    pairs=pairs, dep_ptr=dep_ptr, deps=deps,
+                    pub_ptr=pub_ptr, pub=pub, peer_ptr=peer_ptr,
+                    peers=peers,
                     shared_bytes=shared_bytes(
-                        plan.tile, plan.ranks, plan.sweeps_per_call, kr,
-                        plan.itemsize))
+                        plan.tile, max(plan.device_ranks),
+                        plan.sweeps_per_call, kr, plan.itemsize))
+
+
+def cross_card_bytes_per_step(plan: RmaPlan) -> int:
+    """The bytes of one step's ghost-map pairs whose destination lies on
+    another card than the tile that writes it: what crosses between cards
+    per outer step (0 on one card)."""
+    tiles = rma_tiles(plan)
+    owner_card = np.repeat(tiles.card, np.diff(tiles.pair_ptr))
+    dst_card = np.asarray(plan.cards)[
+        tiles.pairs[:, 0] // math.prod(plan.block_shape)]
+    return int((owner_card != dst_card).sum()) * plan.itemsize
 
 
 # the host geometry's layout (_geometry, rma_iterate.cu's kGeomLen)
-GEOM_LEN = 33
+GEOM_LEN = 38 + MAX_CARDS + 1
 
 
+@functools.lru_cache(maxsize=64)
 def _geometry(plan: RmaPlan, n_steps: int, slot: int) -> np.ndarray:
     """The host int32 geometry of a launch, in 3D (a 2D plan gains a
     leading dim of 1, with no tile, halo or radius): R, nbuf, P0 P1 P2, k,
     the steps, the first slot, the tile count; per dim the tile extent,
     the tile grid, the layout's halo, the launch's halo k*r, the interior
-    extent and the radius; the pair and dependency counts; then the
-    offsets in :func:`device_table` of the pair pointers, the pairs, the
-    dependency pointers and the dependencies (the boxes at 0)."""
+    extent and the radius; the pair and dependency counts; the offsets in
+    :func:`device_table` of the pair pointers, the pairs, the dependency
+    pointers and the dependencies (the boxes at 0); the card count; the
+    offsets of the publish pointers, the publish lists, the peer pointers
+    and the peers; then per card c the place in :attr:`RmaPlan.rank_order`
+    of its first rank, for c = 0..MAX_CARDS (R past the last card)."""
     tiles = rma_tiles(plan)
     lead = 3 - len(plan.local_shape)
 
@@ -785,18 +950,35 @@ def _geometry(plan: RmaPlan, n_steps: int, slot: int) -> np.ndarray:
 
     nd = len(plan.local_shape)
     k = plan.sweeps_per_call
-    boxes = plan.ranks * k * 6
+    sizes = [plan.ranks * k * 6, tiles.ntiles + 1, 4 * len(tiles.pairs),
+             tiles.ntiles + 1, len(tiles.deps), tiles.ntiles + 1,
+             len(tiles.pub), plan.ncards + 1]
+    offsets = np.cumsum(sizes).tolist()
+    first = np.cumsum([0] + [len(g) for g in plan.card_ranks]).tolist()
     geom = [plan.ranks, plan.num_buffers,
             *per_dim(plan.layout.padded_shape, 1), k, n_steps, slot,
             tiles.ntiles, *per_dim(tiles.tile, 1), *per_dim(tiles.grid, 1),
             *per_dim([plan.layout.halo] * nd, 0),
             *per_dim([plan.halo] * nd, 0), *per_dim(plan.local_shape, 1),
             *per_dim([plan.spec.radius] * nd, 0), len(tiles.pairs),
-            len(tiles.deps), boxes, boxes + tiles.ntiles + 1,
-            boxes + tiles.ntiles + 1 + 3 * len(tiles.pairs),
-            boxes + 2 * (tiles.ntiles + 1) + 3 * len(tiles.pairs)]
+            len(tiles.deps), *offsets[:4], plan.ncards, *offsets[4:],
+            *first, *[plan.ranks] * (MAX_CARDS + 1 - len(first))]
     assert len(geom) == GEOM_LEN
-    return np.asarray(geom, dtype=np.int32)
+    geom = np.asarray(geom, dtype=np.int32)
+    geom.flags.writeable = False   # cached: one array per launch shape
+    return geom
+
+
+@functools.lru_cache(maxsize=64)
+def _taps(plan: RmaPlan):
+    """The tap table of ``plan`` as the kernel takes it (``tap_table``,
+    the offsets widened to 3D), built once per plan."""
+    offsets, sizes, weights, uniform, uw = tap_table(plan.spec, plan.dtype)
+    lead = 3 - len(plan.local_shape)
+    offsets = np.ascontiguousarray(np.concatenate(
+        [np.zeros((len(offsets) // plan.spec.ndim, lead), np.int32),
+         offsets.reshape(-1, plan.spec.ndim)], axis=1).reshape(-1))
+    return offsets, sizes, weights, uniform, uw
 
 
 @functools.lru_cache(maxsize=64)
@@ -804,48 +986,75 @@ def device_table(plan: RmaPlan, device: torch.device) -> torch.Tensor:
     """The int32 table the kernel reads from device memory, built once per
     plan and device (a launch copies nothing from the host): each rank's
     update boxes [R][k][start0..2, size0..2] in 3D padded coordinates, the
-    pair pointers [ntiles+1], the pairs [npairs][3] (destination and
-    source as ``rank * nbuf * block + offset`` in buffer 0 of the rank,
-    the source's window index or -1), the dependency pointers [ntiles+1]
-    and the dependencies."""
+    ranks in :attr:`RmaPlan.rank_order`; the pair pointers [ntiles+1]; the
+    pairs [npairs][4]: the destination's card, the destination and the
+    source as offsets into their cards' buffers (``i * nbuf * block +
+    offset`` in buffer 0 of the card's i-th rank; the source on the
+    writing tile's card), the source's window index or -1; the dependency
+    pointers [ntiles+1] and the dependencies; the publish pointers
+    [ntiles+1] and lists; the peer pointers [ncards+1] and the peers."""
     tables, tiles = rma_tables(plan), rma_tiles(plan)
     lead = 3 - len(plan.local_shape)
     block = math.prod(plan.block_shape)
-    if plan.ranks * plan.num_buffers * block >= 2 ** 31:
-        raise ValueError("the buffers exceed an int32 index")
+    per_rank = plan.num_buffers * block
+    if max(map(len, plan.card_ranks)) * per_rank >= 2 ** 31:
+        raise ValueError("a card's buffers exceed an int32 index")
 
     def six(box):
         return ([0] * lead + [b.start for b in box]
                 + [1] * lead + [b.stop - b.start for b in box])
 
-    boxes = [v for rank in tables.boxes for box in rank for v in six(box)]
-    pairs = tiles.pairs.copy()
-    for c in (0, 1):
-        rank, off = np.divmod(pairs[:, c], block)
-        pairs[:, c] = rank * plan.num_buffers * block + off
-    table = np.concatenate([np.asarray(boxes, np.int64), tiles.pair_ptr,
-                            pairs.reshape(-1), tiles.dep_ptr, tiles.deps])
+    boxes = [v for rank in plan.rank_order for box in tables.boxes[rank]
+             for v in six(box)]
+    card, index = np.asarray(plan.places).T
+    d_rank, d_off = np.divmod(tiles.pairs[:, 0], block)
+    s_rank, s_off = np.divmod(tiles.pairs[:, 1], block)
+    writer = np.repeat(tiles.card, np.diff(tiles.pair_ptr))
+    if (card[s_rank] != writer).any():
+        raise AssertionError("a pair's source lies off its tile's card")
+    pairs = np.stack([card[d_rank], index[d_rank] * per_rank + d_off,
+                      index[s_rank] * per_rank + s_off, tiles.pairs[:, 2]],
+                     axis=1)
+    table = np.concatenate([
+        np.asarray(boxes, np.int64), tiles.pair_ptr, pairs.reshape(-1),
+        tiles.dep_ptr, tiles.deps, tiles.pub_ptr, tiles.pub,
+        tiles.peer_ptr, tiles.peers])
     return torch.from_numpy(table.astype(np.int32)).to(device)
+
+
+def _join(streams) -> None:
+    """Make each of ``streams`` wait for the work enqueued so far on every
+    other."""
+    events = [s.record_event() for s in streams]
+    for s in streams:
+        for e in events:
+            s.wait_event(e)
 
 
 class RmaKernel:
     """The hand-written kernel ``csrc/rma_iterate.cu``: its build, its
     wrapper (``kernel(buffers, plan, n_steps, slot=0)``) and its counts of
-    launches: ``launches``, and again ``pins_launches`` for a plan with a
-    periodic or Neumann wall and ``bf16_launches`` for a bfloat16 plan
+    calls that launch it: ``launches``, and again ``pins_launches`` for a
+    plan with a periodic or Neumann wall, ``bf16_launches`` for a bfloat16
+    plan and ``cards_launches`` for a plan over more than one card, whose
+    call on real cards issues one cooperative launch per card
     (plain-version calls do not count)."""
 
     name = "rma_iterate"
     ENTRIES = {"float32": "rma_iterate_f32", "bfloat16": "rma_iterate_bf16"}
+    # rma_iterate.cu's kErrNoPeer: cudaDeviceCanAccessPeer says no
+    ERR_NO_PEER = -3
 
     def __init__(self):
         self.source = SOURCE
+        self._peers = set()   # (device, peer) pairs whose access is on
         self.reset_counts()
 
     def reset_counts(self) -> None:
         self.launches = 0
         self.pins_launches = 0
         self.bf16_launches = 0
+        self.cards_launches = 0
 
     def build(self) -> _build.BuildResult:
         """Compile the source (cached by content). Raises
@@ -862,86 +1071,145 @@ class RmaKernel:
         for dtype, name in self.ENTRIES.items():
             fn = getattr(lib, name)
             fn.restype = I
-            # buffers, flags, device table (device); geometry int32 (host)
+            # each card's buffers and flags (host arrays of device
+            # pointers), the device table (device); geometry int32 (host)
             # and its length; the tap table (host): offsets [ntaps*3],
             # group sizes, group weights, ntaps, ngroups, uniform, uniform
-            # weight; device, stream
+            # weight; the launch's cards [card0, card_end), device, stream
             fn.argtypes = [P, P, P, P, I, P, P, P, I, I, I, ctypes.c_float,
-                           I, P]
+                           I, I, I, P]
             entries[dtype] = fn
         err = lib.rma_iterate_error
         err.restype = ctypes.c_char_p
         err.argtypes = [I]
-        return entries, err
+        peer = lib.rma_enable_peer
+        peer.restype = I
+        peer.argtypes = [I, I]
+        return entries, err, peer
 
     def library(self):
         """Build and load the library; returns its float32 C entry."""
         return self._entries[0]["float32"]
 
     @staticmethod
-    def check(buffers: torch.Tensor, plan: RmaPlan, n_steps: int,
-              slot: int) -> None:
-        if buffers.dtype != torch_dtype(plan.dtype):
-            raise ValueError(f"buffers dtype {dtype_name(buffers.dtype)} != "
-                             f"plan dtype {plan.dtype}")
-        if tuple(buffers.shape) != plan.buffer_shape:
-            raise ValueError(f"buffers shape {tuple(buffers.shape)} != "
-                             f"{plan.buffer_shape}")
-        if not buffers.is_contiguous():
-            raise ValueError("buffers must be contiguous")
+    def check(buffers: Buffers, plan: RmaPlan, n_steps: int,
+              slot: int) -> List[torch.Tensor]:
+        """Each card's buffer tensor (:func:`card_parts`), checked: dtype,
+        shape, contiguity, one device type; on CUDA, virtual cards (and one
+        card) on one device, real cards each on a device of its own."""
+        parts = card_parts(buffers, plan)
+        for card, part in enumerate(parts):
+            if part.dtype != torch_dtype(plan.dtype):
+                raise ValueError(f"buffers dtype {dtype_name(part.dtype)} "
+                                 f"!= plan dtype {plan.dtype}")
+            if tuple(part.shape) != plan.card_shape(card):
+                raise ValueError(f"buffers shape {tuple(part.shape)} != "
+                                 f"{plan.card_shape(card)}")
+            if not part.is_contiguous():
+                raise ValueError("buffers must be contiguous")
+        devices = [part.device for part in parts]
+        if len({d.type for d in devices}) > 1:
+            raise ValueError(f"the cards' buffers lie on {devices}")
+        if (devices[0].type == "cuda"
+                and len(set(devices)) != len(plan.device_ranks)):
+            raise ValueError(f"the plan's {plan.ncards} cards lie on "
+                             f"{len(plan.device_ranks)} devices, its "
+                             f"buffers on {devices}")
         if n_steps < 1 or slot not in (0, 1):
             raise ValueError(f"n_steps {n_steps} >= 1 and slot {slot} in "
                              "(0, 1)")
+        return parts
 
-    def __call__(self, buffers: torch.Tensor, plan: RmaPlan, n_steps: int,
-                 slot: int = 0) -> torch.Tensor:
-        """``n_steps`` outer steps of every rank in one launch, on
-        ``buffers`` in place, the first step reading slot ``slot``; the
-        result lies in slot ``(slot + n_steps) % 2``. Returns ``buffers``.
+    def _enable_peers(self, plan: RmaPlan, devices, peer, err) -> None:
+        """Peer access from each card's device to every card it exchanges
+        with (its tiles store into their memory and publish into their
+        flags), once per pair and process; raises naming both devices
+        where the hardware has none."""
+        tiles = rma_tiles(plan)
+        for card in range(plan.ncards):
+            for other in tiles.peers[tiles.peer_ptr[card]:
+                                     tiles.peer_ptr[card + 1]]:
+                a, b = devices[card].index, devices[other].index
+                if (a, b) in self._peers:
+                    continue
+                rc = peer(a, b)
+                if rc == self.ERR_NO_PEER:
+                    raise RuntimeError(
+                        f"cuda:{a} cannot access the memory of cuda:{b} "
+                        "(cudaDeviceCanAccessPeer): rma across these cards "
+                        "needs peer access")
+                if rc != 0:
+                    raise RuntimeError(f"enabling peer access from cuda:{a} "
+                                       f"to cuda:{b} failed ({rc}): "
+                                       f"{err(rc).decode()}")
+                self._peers.add((a, b))
 
-        A CUDA tensor launches the kernel's entry for ``plan.dtype``
-        (float32 or bfloat16) on the current stream (no synchronisation),
-        its tiles' flags in a new int32 tensor, and leaves the compute
-        buffers as they were; it raises ``ValueError`` for another dtype
-        and ``RuntimeError`` if the build or the cooperative launch fails.
-        A CPU tensor runs :func:`rma_iterate_reference`."""
-        self.check(buffers, plan, n_steps, slot)
-        if buffers.device.type == "cpu":
+    def __call__(self, buffers: Buffers, plan: RmaPlan, n_steps: int,
+                 slot: int = 0) -> Buffers:
+        """``n_steps`` outer steps of every rank, on ``buffers`` (each
+        card's, :func:`card_parts`) in place, the first step reading slot
+        ``slot``; the result lies in slot ``(slot + n_steps) % 2``. Returns
+        ``buffers``.
+
+        CUDA tensors launch the kernel's entry for ``plan.dtype`` (float32
+        or bfloat16) without synchronising: one cooperative launch over
+        every card's tiles where the cards share a device (one card, or
+        virtual cards), else, after enabling peer access between the cards
+        that exchange, one cooperative launch per card on that device's
+        current stream, all issued before any is waited on. Each card's
+        flags are a new int32 tensor zeroed on its device's stream, and
+        across devices every stream waits for every other's work before the
+        launches (the zeroing, the buffers' writes) and after them (the
+        remote stores into its buffers). The compute buffers are left as
+        they were. Raises ``ValueError`` for another dtype and
+        ``RuntimeError`` if the build, the peer access or a cooperative
+        launch fails. CPU tensors run :func:`rma_iterate_reference`."""
+        parts = self.check(buffers, plan, n_steps, slot)
+        if parts[0].device.type == "cpu":
             return rma_iterate_reference(buffers, plan, n_steps, slot)
-        if buffers.device.type != "cuda":
+        if parts[0].device.type != "cuda":
             raise ValueError(f"{self.name} runs on cuda (or cpu for the "
-                             f"plain version), not {buffers.device}")
+                             f"plain version), not {parts[0].device}")
         if plan.dtype not in self.ENTRIES:
             raise ValueError(f"{self.name} runs "
                              f"{' or '.join(self.ENTRIES)}, not "
                              f"{plan.dtype}")
-        entries, err = self._entries
-        offsets, sizes, weights, uniform, uw = tap_table(plan.spec,
-                                                         plan.dtype)
-        lead = 3 - len(plan.local_shape)
-        offsets = np.ascontiguousarray(np.concatenate(
-            [np.zeros((len(offsets) // plan.spec.ndim, lead), np.int32),
-             offsets.reshape(-1, plan.spec.ndim)], axis=1).reshape(-1))
+        entries, err, peer = self._entries
+        offsets, sizes, weights, uniform, uw = _taps(plan)
         geom = _geometry(plan, n_steps, slot)
-        table = device_table(plan, buffers.device)
-        # the tiles' epochs, zeroed by the launch on its stream
-        flags = torch.empty(rma_tiles(plan).ntiles, dtype=torch.int32,
-                            device=buffers.device)
-        device = buffers.device.index if buffers.device.index is not None \
-            else torch.cuda.current_device()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = entries[plan.dtype](
-            buffers.data_ptr(), flags.data_ptr(), table.data_ptr(),
-            geom.ctypes.data, len(geom), offsets.ctypes.data,
-            sizes.ctypes.data,
-            weights.ctypes.data, len(offsets) // 3, len(sizes), int(uniform),
-            uw, device, stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.name} launch failed ({rc}): "
-                               f"{err(rc).decode()}")
+        devices = [part.device for part in parts]
+        shared = len(set(devices)) == 1
+        if not shared:
+            self._enable_peers(plan, devices, peer, err)
+        streams = [torch.cuda.current_stream(d) for d in devices]
+        # each card's flags: every tile's epoch, then one arrival per card
+        flags = [torch.zeros(rma_tiles(plan).ntiles + plan.ncards,
+                             dtype=torch.int32, device=d) for d in devices]
+        if not shared:
+            _join(streams)
+        bufp = (ctypes.c_void_p * plan.ncards)(
+            *(part.data_ptr() for part in parts))
+        flagp = (ctypes.c_void_p * plan.ncards)(
+            *(f.data_ptr() for f in flags))
+        for card0, card_end in ([(0, plan.ncards)] if shared else
+                                [(c, c + 1) for c in range(plan.ncards)]):
+            device = devices[card0]
+            rc = entries[plan.dtype](
+                ctypes.addressof(bufp), ctypes.addressof(flagp),
+                device_table(plan, device).data_ptr(),
+                geom.ctypes.data, len(geom), offsets.ctypes.data,
+                sizes.ctypes.data, weights.ctypes.data, len(offsets) // 3,
+                len(sizes), int(uniform), uw, card0, card_end, device.index,
+                streams[card0].cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{self.name} launch on {device} failed "
+                                   f"({rc}): {err(rc).decode()}")
+        if not shared:
+            _join(streams)
         self.launches += 1
         self.pins_launches += plan.dynamic
         self.bf16_launches += plan.dtype == "bfloat16"
+        self.cards_launches += plan.ncards > 1
         return buffers
 
 
@@ -951,9 +1219,10 @@ rma_iterate = RmaKernel()
 @dataclasses.dataclass(frozen=True)
 class RmaStencil:
     """Distributed Jacobi iteration with every rank's blocks resident for a
-    whole iterate and the halos pushed inside one launch: leading-dim
+    whole iterate and the halos pushed inside the kernel: leading-dim
     sharding over a 1D or 2D mesh (its axes in order shard d0, d1) whose
-    ranks share one card, ``sweeps_per_call`` sweeps per exchange."""
+    ranks lie on one card or several, ``sweeps_per_call`` sweeps per
+    exchange."""
 
     spec: StencilSpec
     interior_shape: Tuple[int, ...]
@@ -961,10 +1230,13 @@ class RmaStencil:
     sweeps_per_call: int = 1
 
     def local_plan(self, mesh_shape, sweeps: Optional[int] = None,
-                   budget: int = H100_L2_BYTES,
-                   bc: Optional[DirichletBC] = None) -> RmaPlan:
+                   budget=H100_L2_BYTES,
+                   bc: Optional[DirichletBC] = None,
+                   cards: Optional[Sequence[int]] = None,
+                   virtual: bool = False) -> RmaPlan:
         """The per-rank plan (``local_plan``, :800-813): each sharded dim
-        must divide its mesh axis. ``bc`` gives the walls."""
+        must divide its mesh axis. ``bc`` gives the walls; ``budget``,
+        ``cards`` and ``virtual`` are :func:`make_rma_plan`'s."""
         local = list(self.interior_shape)
         for d, n_dev in enumerate(mesh_shape):
             if local[d] % n_dev:
@@ -975,20 +1247,37 @@ class RmaStencil:
             local[d] //= n_dev
         return make_rma_plan(
             self.spec, tuple(local), self.dtype, tuple(mesh_shape),
-            self.sweeps_per_call if sweeps is None else sweeps, budget, bc)
+            self.sweeps_per_call if sweeps is None else sweeps, budget, bc,
+            cards=cards, virtual=virtual)
 
-    def plan_for(self, mesh: Mesh,
-                 bc: Optional[DirichletBC] = None) -> RmaPlan:
-        """The plan on ``mesh``, whose ranks must share one device; the
-        budget is that device's L2."""
+    def plan_for(self, mesh: Mesh, bc: Optional[DirichletBC] = None,
+                 virtual_cards: Optional[int] = None,
+                 budget: Optional[int] = None) -> RmaPlan:
+        """The plan on ``mesh``: each distinct device of the mesh is a card
+        (numbered in the order the ranks first name them), rank i on the
+        card of its device, each device's ranks within its L2
+        (:func:`l2_budget`, or ``budget`` bytes for every device, where the
+        plan is made for cards this process need not see). With
+        ``virtual_cards=G``, on a mesh of one device only, rank i goes to
+        virtual card i % G (``make_mesh``'s rule), every card on that
+        device and within its one L2."""
         devices = tuple(dict.fromkeys(mesh.devices))
-        if len(devices) > 1:
-            raise ValueError(
-                f"the rma method runs one launch over the ranks of one "
-                f"card; this mesh spans {len(devices)} devices (rma across "
-                "cards is not ported yet, ROADMAP)")
-        return self.local_plan(mesh.shape, budget=l2_budget(devices[0]),
-                               bc=bc)
+        if virtual_cards is None:
+            cards = tuple(devices.index(d) for d in mesh.devices)
+        elif len(devices) > 1:
+            raise ValueError(f"virtual_cards splits a mesh of one device; "
+                             f"this mesh spans {len(devices)}")
+        elif not 1 <= virtual_cards <= mesh.size:
+            raise ValueError(f"virtual_cards {virtual_cards} outside [1, "
+                             f"{mesh.size}] for {mesh.size} ranks")
+        else:
+            cards = tuple(i % virtual_cards for i in range(mesh.size))
+        if budget is None:
+            budget = (l2_budget(devices[0]) if len(devices) == 1
+                      else tuple(map(l2_budget, devices)))
+        return self.local_plan(mesh.shape, budget=budget, bc=bc,
+                               cards=cards,
+                               virtual=virtual_cards is not None)
 
     def _block(self, mesh: Mesh, plan: RmaPlan, rank: int) -> tuple:
         """The slice of the global interior that ``rank`` holds."""
@@ -997,10 +1286,10 @@ class RmaStencil:
         return tuple(slice(i * n, (i + 1) * n)
                      for i, n in zip(coords, plan.local_shape))
 
-    def scatter(self, grid: HaloGrid, mesh: Mesh,
-                plan: RmaPlan) -> torch.Tensor:
-        """Every rank's blocks as one tensor on the mesh's device, every
-        buffer of a rank holding its window of the global grid padded by
+    def scatter(self, grid: HaloGrid, mesh: Mesh, plan: RmaPlan) -> Buffers:
+        """Every rank's blocks, one tensor per card on the device of its
+        ranks (a plan of one card: the tensor itself), every buffer of a
+        rank holding its window of the global grid padded by
         k*r in the golden's order (``core/grid.py:fill_halo``: Dirichlet
         faces first, later dims winning in their corners, then the dynamic
         dims wrapped or mirrored over the full extent): JAX's initial load
@@ -1018,33 +1307,39 @@ class RmaStencil:
         padded[tuple(slice(kr, kr + n) for n in self.interior_shape)] = \
             grid.interior().to(mesh.devices[0])
         fill_halo(padded, kr, grid.bc)
-        buffers = torch.empty(plan.buffer_shape, dtype=grid.dtype,
-                              device=mesh.devices[0])
-        for rank in range(mesh.size):
-            window = tuple(slice(s.start, s.stop + 2 * kr)
-                           for s in self._block(mesh, plan, rank))
-            buffers[rank].copy_(padded[window].expand(
-                plan.num_buffers, *plan.block_shape))
-        return buffers
+        parts = []
+        for card, ranks in enumerate(plan.card_ranks):
+            device = mesh.devices[ranks[0]]
+            buffers = torch.empty(plan.card_shape(card), dtype=grid.dtype,
+                                  device=device)
+            for i, rank in enumerate(ranks):
+                window = tuple(slice(s.start, s.stop + 2 * kr)
+                               for s in self._block(mesh, plan, rank))
+                buffers[i].copy_(padded[window].to(device).expand(
+                    plan.num_buffers, *plan.block_shape))
+            parts.append(buffers)
+        return parts[0] if plan.ncards == 1 else parts
 
-    def gather(self, buffers: torch.Tensor, slot: int, mesh: Mesh,
+    def gather(self, buffers: Buffers, slot: int, mesh: Mesh,
                plan: RmaPlan, grid: HaloGrid) -> HaloGrid:
         """Slot ``slot``'s interiors as a new grid like ``grid``."""
+        parts = card_parts(buffers, plan)
         out = torch.empty(tuple(self.interior_shape), dtype=grid.dtype,
                           device=grid.device)
-        for rank in range(mesh.size):
+        for rank, (card, i) in enumerate(plan.places):
             out[self._block(mesh, plan, rank)] = plan.layout.unpad(
-                buffers[rank, slot]).to(out.device)
+                parts[card][i, slot]).to(out.device)
         return HaloGrid.from_interior(out, halo=grid.halo, bc=grid.bc,
                                       device=grid.device)
 
-    def iterate(self, grid: HaloGrid, iterations: int, mesh: Mesh
-                ) -> HaloGrid:
+    def iterate(self, grid: HaloGrid, iterations: int, mesh: Mesh,
+                virtual_cards: Optional[int] = None) -> HaloGrid:
         """``iterations`` sweeps of ``grid`` over ``mesh``: one launch of
         ``iterations // k`` outer steps and one launch of the remainder,
-        on buffers scattered and gathered once. ``grid`` is unchanged; the
-        result lies on ``grid``'s device. Dynamic walls take JAX's gates
-        and messages (:830-871)."""
+        on buffers scattered and gathered once, across the mesh's cards
+        (or ``virtual_cards``, :meth:`plan_for`). ``grid`` is unchanged;
+        the result lies on ``grid``'s device. Dynamic walls take JAX's
+        gates and messages (:830-871)."""
         if grid.dtype != torch_dtype(self.dtype):
             raise ValueError(
                 f"grid dtype {dtype_name(grid.dtype)} != plan dtype "
@@ -1082,7 +1377,7 @@ class RmaStencil:
         if grid.interior_shape != tuple(self.interior_shape):
             raise ValueError(f"grid interior {grid.interior_shape} != "
                              f"{tuple(self.interior_shape)}")
-        plan = self.plan_for(mesh, grid.bc)
+        plan = self.plan_for(mesh, grid.bc, virtual_cards)
         buffers = self.scatter(grid, mesh, plan)
         n_outer, rem = divmod(iterations, plan.sweeps_per_call)
         slot = 0

@@ -2,10 +2,11 @@
 (``csrc/rma_iterate.cu``) built with ``-DRMA_TRACE``, whose first blocks
 stamp the global timer at each phase of their first tile's steps (the
 start, the wait on the flags done, the window loaded, each sweep done, the
-pairs written, the epoch published), run at the bench cell and the
-phase-5 sizes; prints per case the median step and the median of each
-phase over the traced blocks and steps 8..63, in ns, with the card's name
-and power limit. Needs a card:
+pairs written, the epoch published), run at the bench cell (also split
+over 4 virtual cards, every push crossing cards) and the phase-5 sizes;
+prints per case the median step and the median of each phase over the
+traced blocks and steps 8..63, in ns, with the card's name and power
+limit. Needs a card:
 
     python -m stencil_tpu_torch.parallel.rma_trace
 
@@ -15,6 +16,7 @@ stamp."""
 from __future__ import annotations
 
 import ctypes
+import math
 import subprocess
 import sys
 
@@ -25,19 +27,21 @@ from stencil_tpu_torch import _build
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid, torch_dtype
 from stencil_tpu_torch.core.spec import get_spec
 from stencil_tpu_torch.ops.sweep_kernel import TAPS_HEADER
-from stencil_tpu_torch.parallel.mesh import make_mesh
+from stencil_tpu_torch.parallel.mesh import Mesh
 from stencil_tpu_torch.parallel.rma import RmaKernel, RmaStencil, rma_tiles
 
 # rma_iterate.cu's kTraceBlocks, kTraceSteps, kTracePhases
 BLOCKS, STEPS, PHASES = 8, 64, 9
-# (global shape, mesh, dtype, neumann dims): the bench cell on (1,), (2, 2),
-# with the refresh of --neumann 1 on (2,), in bf16; 8x8x16; 128^3
-CASES = (((64, 64, 128), (1,), "float32", ()),
-         ((64, 64, 128), (2, 2), "float32", ()),
-         ((64, 64, 128), (2,), "float32", (1,)),
-         ((64, 64, 128), (1,), "bfloat16", ()),
-         ((8, 8, 16), (1,), "float32", ()),
-         ((128, 128, 128), (1,), "float32", ()))
+# (global shape, mesh, dtype, neumann dims, virtual cards): the bench cell
+# on (1,), (2, 2) on one card and on 4 virtual cards, with the refresh of
+# --neumann 1 on (2,), in bf16; 8x8x16; 128^3
+CASES = (((64, 64, 128), (1,), "float32", (), None),
+         ((64, 64, 128), (2, 2), "float32", (), None),
+         ((64, 64, 128), (2, 2), "float32", (), 4),
+         ((64, 64, 128), (2,), "float32", (1,), None),
+         ((64, 64, 128), (1,), "bfloat16", (), None),
+         ((8, 8, 16), (1,), "float32", (), None),
+         ((128, 128, 128), (1,), "float32", (), None))
 
 
 class TracedRmaKernel(RmaKernel):
@@ -74,6 +78,36 @@ def phases(stamps: np.ndarray, k: int) -> dict:
     return out
 
 
+def trace(kernel: TracedRmaKernel, shape, sizes, dtype, neumann=(),
+          cards=None, device="cuda") -> str:
+    """One case: three launches of STEPS steps of jacobi7 k=2 on a random
+    grid with distinct faces, then the last launch's phases; returns the
+    line to print (without the card's label)."""
+    spec = get_spec("jacobi7")
+    bc = DirichletBC(values=((0.5, -1.0), (2.0, 0.25), (1.0, 1.5)))
+    if neumann:
+        bc = bc.with_neumann(neumann)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(0))
+    grid = HaloGrid.from_interior(x.to(torch_dtype(dtype)), halo=1, bc=bc,
+                                  device=device)
+    # every rank on the grid's card (make_mesh would spread them over
+    # every visible card)
+    mesh = Mesh(shape=tuple(sizes), axis_names=("x", "y")[:len(sizes)],
+                devices=(grid.data.device,) * math.prod(sizes))
+    method = RmaStencil(spec, shape, dtype, 2)
+    plan = method.plan_for(mesh, bc, virtual_cards=cards)
+    bufs = method.scatter(grid, mesh, plan)
+    for _ in range(3):
+        kernel(bufs, plan, STEPS)
+    torch.cuda.synchronize()
+    ph = phases(kernel.stamps(), plan.sweeps_per_call)
+    walls = f"neumann {neumann}" if neumann else "dirichlet"
+    on = f" on {cards} virtual cards" if cards else ""
+    return (f"jacobi7 {shape} mesh {sizes}{on} k=2 {dtype} {walls}, tile "
+            f"{plan.tile} x{rma_tiles(plan).ntiles}: step {ph.pop('step')} "
+            "ns; " + ", ".join(f"{k} {v}" for k, v in ph.items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("the trace runs the CUDA kernel: it needs a card",
@@ -85,28 +119,9 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(label)
     kernel = TracedRmaKernel()
-    device = torch.device("cuda", 0)
-    spec = get_spec("jacobi7")
-    for shape, sizes, dtype, neumann in CASES:
-        bc = DirichletBC(values=((0.5, -1.0), (2.0, 0.25), (1.0, 1.5)))
-        if neumann:
-            bc = bc.with_neumann(neumann)
-        x = torch.rand(shape, generator=torch.Generator().manual_seed(0))
-        grid = HaloGrid.from_interior(x.to(torch_dtype(dtype)), halo=1,
-                                      bc=bc, device=device)
-        mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], device=device)
-        method = RmaStencil(spec, shape, dtype, 2)
-        plan = method.plan_for(mesh, bc)
-        bufs = method.scatter(grid, mesh, plan)
-        for _ in range(3):
-            kernel(bufs, plan, STEPS)
-        torch.cuda.synchronize()
-        ph = phases(kernel.stamps(), plan.sweeps_per_call)
-        walls = f"neumann {neumann}" if neumann else "dirichlet"
-        print(f"jacobi7 {shape} mesh {sizes} k=2 {dtype} {walls}, tile "
-              f"{plan.tile} x{rma_tiles(plan).ntiles}: step {ph.pop('step')}"
-              " ns; " + ", ".join(f"{k} {v}" for k, v in ph.items())
-              + f" [{label}]")
+    for shape, sizes, dtype, neumann, cards in CASES:
+        print(f"{trace(kernel, shape, sizes, dtype, neumann, cards)} "
+              f"[{label}]")
     return 0
 
 

@@ -22,8 +22,9 @@ Counterpart of ``stencil_tpu/registry.py`` (``Runner``, ``make_xla``,
                 the kernels per rank, a k*r-deep exchange per launch, the
                 tiled kernel's interior/edge split around it
                 (``parallel/sharded_kernel.py``)
-  ``rma``       every rank's blocks resident on one card for a whole
-                iterate, the strips pushed inside one cooperative launch
+  ``rma``       every rank's blocks resident on its card for a whole
+                iterate, the strips pushed inside the kernel: one
+                cooperative launch per card, peer stores between cards
                 (``parallel/rma.py``, ``csrc/rma_iterate.cu``)
   ``streamed``  a host-resident grid (larger than the card's memory)
                 through the tiled kernel one d0 chunk at a time, k sweeps
@@ -38,7 +39,8 @@ package, refuses 2D grids.
 The sharded methods and ``rma`` run on a single-controller mesh
 (``parallel/mesh.py``): ``--mesh`` gives its shape, by default one rank per
 visible CUDA device (one on the CPU), and several ranks may share one card
-(``rma``'s must). ``--no-overlap`` turns the interior-first split off.
+(rank i on visible card i modulo their count). ``--no-overlap`` turns the
+interior-first split off.
 
 ``--autotune`` measures the 3D tiled kernel's candidate plans (tiles and
 schedule, ``autotune.py``) on the card and runs the cached winner
@@ -391,20 +393,24 @@ def make_rma(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
     cooperative launch whose tiles run each step's k sweeps in shared
     memory and write the exchange themselves, pacing each other by flags
     (``csrc/rma_iterate.cu``): ``--mesh a`` shards d0, ``--mesh a b`` d0
-    and d1, every rank on one card; ``-k`` sweeps per exchange, in the
+    and d1, across the cards ``make_mesh`` assigns (one launch per card,
+    the strips stored into the peer card's memory); ``-k`` sweeps per
+    exchange, in the
     grid's dtype (float32 or bfloat16). Periodic and Neumann walls take
     JAX's gates and messages, raised when the runner is made
     (``registry.py:415-445``: a dynamic lane dim, a Neumann dim at k>1
     with a spec not mirror-symmetric in it, a dynamic unsharded dim
-    shallower than k*r), then the card's L2 budget. ``plan_info`` records
+    shallower than k*r), then each card's L2 budget. ``plan_info`` records
     the mesh, the local block, its buffers, the bytes the budget counts
     (``resident_bytes``) and those the kernel touches (``live_bytes``, the
     two slots), those a mesh-interior rank pushes per outer step, the
-    tile, the tile count, the flags all tiles wait on per step and one
-    block's shared memory."""
+    ranks on each card (``cards``) and the bytes that cross between cards
+    per outer step, the tile, the tile count, the flags all tiles wait on
+    per step and one block's shared memory."""
     from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
-        RmaStencil, push_bytes_per_step, rma_tiles,
+        RmaStencil, cross_card_bytes_per_step, push_bytes_per_step,
+        rma_tiles,
     )
 
     mesh_sizes = _mesh_sizes(config, grid)
@@ -447,7 +453,10 @@ def make_rma(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
                  "buffers": plan.num_buffers,
                  "resident_bytes": plan.resident_bytes,
                  "live_bytes": plan.live_bytes,
-                 "push_bytes_per_step": push_bytes_per_step(plan)}
+                 "push_bytes_per_step": push_bytes_per_step(plan),
+                 "cards": [len(ranks) for ranks in plan.card_ranks],
+                 "cross_card_bytes_per_step":
+                     cross_card_bytes_per_step(plan)}
     tiles = rma_tiles(plan)
     plan_info.update(tile=list(plan.tile), tiles=tiles.ntiles,
                      waits_per_step=tiles.waits_per_step,
@@ -459,9 +468,9 @@ def make_rma(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
         name=f"rma(mesh={'x'.join(map(str, mesh_sizes))},k={k})",
         iterate=lambda g, it: method.iterate(g, it, mesh),
         description=(
-            "every rank's blocks resident on one card, the halos written "
+            "every rank's blocks resident on its card, the halos written "
             "in-kernel by the tiles that compute them, one cooperative "
-            "launch per run; counterpart of "
+            "launch per card and run; counterpart of "
             "stencil_tpu/parallel/rma.py:RmaStencil"),
         granularity=k,
         plan_info=plan_info,

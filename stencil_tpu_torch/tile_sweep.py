@@ -1105,7 +1105,8 @@ def measure_rma(out: Path, cases: Sequence[RmaCase] = RMA_CASES,
             times = {}
             for tile in rma_tiles_to_time(case):
                 plan = make_rma_plan(spec, pick.local_shape, dtype,
-                                     mesh_shape, k, tile=tile)
+                                     mesh_shape, k, tile=tile,
+                                     cards=pick.cards, virtual=pick.virtual)
                 bufs = method.scatter(grid, mesh, plan)
                 one, two = (ms(lambda n=n: rma_iterate(bufs, plan, n))
                             for n in RMA_STEPS)

@@ -790,6 +790,15 @@ RMA_CASES = [  # spec, global shape, mesh, k, iterations
 ]
 
 
+def _card_mesh(sizes, device):
+    """A mesh of ``sizes`` with every rank on ``device`` (``make_mesh``
+    spreads the ranks over every visible card)."""
+    from stencil_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(shape=tuple(sizes), axis_names=("x", "y")[:len(sizes)],
+                devices=(device,) * int(np.prod(sizes)))
+
+
 def _rma_spec(name):
     from stencil_tpu_torch.core.spec import box, star
 
@@ -808,14 +817,13 @@ def test_rma_kernel_matches_plain(cuda_device, name, shape, sizes, k, iters):
     leaves the compute buffers alone); then ``RmaStencil.iterate`` makes
     one launch (plus one for a remainder) and is bitwise the
     single-device eager iterate."""
-    from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
         RmaStencil, rma_iterate, rma_iterate_reference,
     )
 
     sp = _rma_spec(name)
     g = _grid(shape, sp.radius, cuda_device)
-    mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], device=cuda_device)
+    mesh = _card_mesh(sizes, cuda_device)
     method = RmaStencil(sp, shape, sweeps_per_call=k)
     plan = method.plan_for(mesh)
     n_outer, rem = divmod(iters, k)
@@ -877,7 +885,6 @@ def test_rma_kernel_matches_plain_on_dynamic_walls_and_bf16(
     both slots bitwise the plain version's; the counts of
     pins and bf16 launches; ``RmaStencil.iterate`` bitwise the same
     launches' result."""
-    from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
         RmaStencil, rma_iterate, rma_iterate_reference,
     )
@@ -891,7 +898,7 @@ def test_rma_kernel_matches_plain_on_dynamic_walls_and_bf16(
     g = _grid(shape, sp.radius, "cpu", bc=bc)
     g = HaloGrid.from_interior(g.interior().to(getattr(torch, dtype)),
                                halo=sp.radius, bc=bc, device=cuda_device)
-    mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], device=cuda_device)
+    mesh = _card_mesh(sizes, cuda_device)
     method = RmaStencil(sp, shape, dtype, sweeps_per_call=k)
     plan = method.plan_for(mesh, bc)
     n_outer, rem = divmod(iters, k)
@@ -946,7 +953,6 @@ def test_rma_tiles_match_plain_on_both_slots(cuda_device, name, shape, sizes,
     included) and at the plan's own: 1, 2 and 3 steps from either slot and
     a remainder launch, both slots bitwise the plain version's on every
     wall kind, in fp32 and bf16."""
-    from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
         RmaStencil, make_rma_plan, rma_iterate, rma_iterate_reference,
     )
@@ -960,7 +966,7 @@ def test_rma_tiles_match_plain_on_both_slots(cuda_device, name, shape, sizes,
     g = _grid(shape, sp.radius, "cpu", bc=bc)
     g = HaloGrid.from_interior(g.interior().to(getattr(torch, dtype)),
                                halo=sp.radius, bc=bc, device=cuda_device)
-    mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], device=cuda_device)
+    mesh = _card_mesh(sizes, cuda_device)
     method = RmaStencil(sp, shape, dtype, sweeps_per_call=k)
     base = method.plan_for(mesh, bc)
     plan = base if tile is None else make_rma_plan(
@@ -984,14 +990,13 @@ def test_rma_race_soak(cuda_device, shape, sizes):
     """50 launches of 256 steps each from the same buffers, each bitwise
     the plain version's: a race between the tiles' flags and their loads
     would show in one of them."""
-    from stencil_tpu_torch.parallel.mesh import make_mesh
     from stencil_tpu_torch.parallel.rma import (
         RmaStencil, rma_iterate, rma_iterate_reference,
     )
 
     sp = get_spec("jacobi7")
     g = _grid(shape, 1, cuda_device)
-    mesh = make_mesh(sizes, ("x", "y")[:len(sizes)], device=cuda_device)
+    mesh = _card_mesh(sizes, cuda_device)
     method = RmaStencil(sp, shape, sweeps_per_call=2)
     plan = method.plan_for(mesh)
     start = method.scatter(g, mesh, plan)
@@ -1003,6 +1008,163 @@ def test_rma_race_soak(cuda_device, shape, sizes):
         bad += not torch.equal(bufs[:, :2], want)
     torch.cuda.synchronize()
     assert bad == 0
+
+
+RMA_CARDS_CASES = [  # spec, global shape, mesh, virtual cards, k,
+    # iterations, periodic, neumann, dtype, tile (None: the plan's rule)
+    ("jacobi7", (64, 64, 128), (2,), 2, 2, 7, (), (), "float32", None),
+    ("jacobi7", (64, 64, 128), (2, 2), 2, 2, 7, (), (), "float32", None),
+    ("jacobi7", (64, 64, 128), (2, 2), 4, 2, 7, (), (), "float32", None),
+    ("jacobi7", (64, 64, 128), (4,), 4, 2, 7, (0,), (), "float32", None),
+    ("jacobi7", (64, 64, 128), (2, 2), 4, 2, 7, (0, 1), (), "float32", None),
+    ("jacobi7", (64, 64, 128), (2,), 2, 2, 7, (), (1,), "float32", None),
+    ("jacobi7", (64, 64, 128), (2, 2), 4, 2, 7, (), (), "bfloat16", None),
+    ("box3", (32, 64, 40), (2, 4), 4, 2, 6, (1,), (0,), "float32", None),
+    ("jacobi5", (64, 40), (4,), 2, 4, 10, (), (0,), "float32", None),
+    ("jacobi7", (16, 12, 20), (2, 2), 4, 2, 5, (0,), (1,), "float32",
+     (3, 5, 8)),
+    ("jacobi7", (16, 12, 20), (2,), 2, 2, 5, (), (1,), "bfloat16",
+     (3, 5, 8)),
+]
+
+
+def _rma_walls(shape, periodic, neumann):
+    bc = BC3 if len(shape) == 3 else BC2
+    if periodic:
+        bc = bc.with_periodic(periodic)
+    if neumann:
+        bc = bc.with_neumann(neumann)
+    return bc
+
+
+@pytest.mark.parametrize(
+    "name,shape,sizes,cards,k,iters,periodic,neumann,dtype,tile",
+    RMA_CARDS_CASES)
+def test_rma_virtual_cards_match_plain_and_one_card(
+        cuda_device, name, shape, sizes, cards, k, iters, periodic, neumann,
+        dtype, tile):
+    """The kernel across virtual cards (rank i on card i % G of the one
+    device, one launch, the protocol's every instruction): from either
+    slot, ``iters // k`` steps and a remainder launch, every rank's two
+    slots bitwise the plain version's on the same cards and the one-card
+    launch's; the counts; ``RmaStencil.iterate`` on virtual cards bitwise
+    the one-card iterate; then 20 launches of 128 steps from the same
+    buffers, each bitwise (a race across cards would show)."""
+    from stencil_tpu_torch.parallel.rma import (
+        RmaStencil, make_rma_plan, rma_iterate, rma_iterate_reference,
+    )
+
+    sp = _rma_spec(name)
+    bc = _rma_walls(shape, periodic, neumann)
+    g = _grid(shape, sp.radius, "cpu", bc=bc)
+    g = HaloGrid.from_interior(g.interior().to(getattr(torch, dtype)),
+                               halo=sp.radius, bc=bc, device=cuda_device)
+    mesh = _card_mesh(sizes, cuda_device)
+    method = RmaStencil(sp, shape, dtype, sweeps_per_call=k)
+    one = method.plan_for(mesh, bc)
+    plan = method.plan_for(mesh, bc, virtual_cards=cards)
+    if tile is not None:
+        one, plan = (make_rma_plan(sp, p.local_shape, dtype, sizes, k,
+                                   bc=bc, tile=tile, cards=p.cards,
+                                   virtual=p.virtual) for p in (one, plan))
+    assert plan.ncards == cards and plan.virtual
+    n_outer, rem = divmod(iters, k)
+    for slot in (0, 1):
+        got = method.scatter(g, mesh, plan)
+        want = [p.clone() for p in got]
+        single = method.scatter(g, mesh, one)
+        rma_iterate.reset_counts()
+        for p, bufs in ((plan, got), (one, single)):
+            rma_iterate(bufs, p, n_outer, slot)
+            if rem:
+                rma_iterate(bufs, p.with_sweeps(rem), 1, (slot + n_outer) % 2)
+        rma_iterate_reference(want, plan, n_outer, slot)
+        if rem:
+            rma_iterate_reference(want, plan.with_sweeps(rem), 1,
+                                  (slot + n_outer) % 2)
+        torch.cuda.synchronize()
+        n = 1 + bool(rem)
+        assert (rma_iterate.launches, rma_iterate.cards_launches) == (
+            2 * n, n)
+        for rank, (card, i) in enumerate(plan.places):
+            assert torch.equal(got[card][i, :2], want[card][i, :2]), (slot,
+                                                                     rank)
+            assert torch.equal(got[card][i, :2], single[rank, :2]), (slot,
+                                                                    rank)
+    if tile is None:
+        assert torch.equal(
+            method.iterate(g, iters, mesh, virtual_cards=cards).interior(),
+            method.iterate(g, iters, mesh).interior())
+    start = method.scatter(g, mesh, plan)
+    ref = rma_iterate_reference([p.clone() for p in start], plan, 128)
+    bad = 0
+    for _ in range(20):
+        bufs = [p.clone() for p in start]
+        rma_iterate(bufs, plan, 128)
+        bad += not all(torch.equal(a[:, :2], b[:, :2])
+                       for a, b in zip(bufs, ref))
+    torch.cuda.synchronize()
+    assert bad == 0
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: rma across real cards")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("sizes,periodic,dtype", [
+    ((2,), (), "float32"), ((2, 2), (), "float32"),
+    ((2, 2), (0, 1), "float32"), ((2, 2), (), "bfloat16")])
+def test_rma_across_two_cards_matches_plain_and_one_card(
+        two_cards, sizes, periodic, dtype):
+    """A mesh over two real cards (``make_mesh``'s round robin: on (2, 2)
+    d1's pushes cross cards, d0's do not): one cooperative launch per card
+    with peer stores, every rank's slots bitwise the plain version's and
+    the one-card launch's; ``RmaStencil.iterate`` bitwise ``tiled`` at the
+    same k."""
+    from stencil_tpu_torch.parallel.mesh import Mesh
+    from stencil_tpu_torch.parallel.rma import (
+        RmaStencil, rma_iterate, rma_iterate_reference,
+    )
+
+    shape, k, iters = (64, 64, 128), 2, 7
+    sp = get_spec("jacobi7")
+    bc = _rma_walls(shape, periodic, ())
+    g = _grid(shape, 1, "cpu", bc=bc)
+    g = HaloGrid.from_interior(g.interior().to(getattr(torch, dtype)),
+                               halo=1, bc=bc, device=two_cards[0])
+    n = int(np.prod(sizes))
+    mesh = Mesh(shape=sizes, axis_names=("x", "y")[:len(sizes)],
+                devices=tuple(two_cards[i % 2] for i in range(n)))
+    one_mesh = Mesh(shape=sizes, axis_names=mesh.axis_names,
+                    devices=(two_cards[0],) * n)
+    method = RmaStencil(sp, shape, dtype, sweeps_per_call=k)
+    plan = method.plan_for(mesh, bc)
+    one = method.plan_for(one_mesh, bc)
+    assert plan.ncards == 2 and not plan.virtual
+    got = method.scatter(g, mesh, plan)
+    assert [p.device for p in got] == list(two_cards)
+    want = [p.clone() for p in got]
+    single = method.scatter(g, one_mesh, one)
+    rma_iterate.reset_counts()
+    rma_iterate(got, plan, iters // k)
+    rma_iterate(single, one, iters // k)
+    rma_iterate_reference(want, plan, iters // k)
+    for dev in two_cards:
+        torch.cuda.synchronize(dev)
+    assert rma_iterate.cards_launches == 1
+    for rank, (card, i) in enumerate(plan.places):
+        assert torch.equal(got[card][i, :2], want[card][i, :2]), rank
+        assert torch.equal(got[card][i, :2].to(two_cards[0]),
+                           single[rank, :2]), rank
+    out = method.iterate(g, iters, mesh)
+    ref = TiledStencil(sp, shape, dtype, sweeps_per_call=k,
+                       device=two_cards[0]).iterate(g, iters)
+    for dev in two_cards:
+        torch.cuda.synchronize(dev)
+    assert torch.equal(out.interior(), ref.interior())
 
 
 # ---- the d0 march (csrc/tiled_march.cu) -------------------------------------

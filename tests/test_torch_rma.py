@@ -37,8 +37,9 @@ from stencil_tpu_torch.ops.tiled import TiledStencil
 from stencil_tpu_torch.parallel import comm_audit
 from stencil_tpu_torch.parallel.mesh import Mesh, make_mesh
 from stencil_tpu_torch.parallel.rma import (
-    RmaStencil, buffer_of, exchange_reference, make_rma_plan,
-    push_bytes_per_step, rma_iterate, rma_iterate_reference, rma_tables,
+    H100_L2_BYTES, RmaStencil, _geometry, buffer_of, cross_card_bytes_per_step,
+    device_table, exchange_reference, make_rma_plan, push_bytes_per_step,
+    rma_iterate, rma_iterate_reference, rma_tables, rma_tiles,
 )
 from stencil_tpu_torch.parallel.sharded_kernel import ShardedKernelStencil
 
@@ -248,11 +249,46 @@ def test_dynamic_walls_and_bf16_run_through_the_registry(argv):
                                atol=tol, rtol=tol)
 
 
-def test_a_mesh_over_two_cards_is_refused():
-    mesh = Mesh(shape=(2,), axis_names=("x",),
-                devices=(torch.device("cuda", 0), torch.device("cuda", 1)))
-    with pytest.raises(ValueError, match="spans 2 devices"):
-        RmaStencil(tspec.get_spec("jacobi7"), (16, 12, 20)).plan_for(mesh)
+def test_a_mesh_over_two_cards_plans_on_the_cpu():
+    """A (2, 2) mesh over cuda:0 and cuda:1 by ``make_mesh``'s round robin
+    plans without a CUDA call (the budget passed in): card 0 holds ranks 0
+    and 2, card 1 ranks 1 and 3, each card's L2 two ranks' buffers (the
+    one-card plan of the same mesh needs four); every pair's source lies
+    on its tile's card, and the pairs that cross cards are d1's ghosts,
+    since d0's neighbours share a card."""
+    mesh = Mesh(shape=(2, 2), axis_names=("x", "y"),
+                devices=tuple(torch.device("cuda", i % 2) for i in range(4)))
+    method = RmaStencil(tspec.get_spec("jacobi7"), (16, 12, 20),
+                        sweeps_per_call=2)
+    plan = method.plan_for(mesh, budget=H100_L2_BYTES)
+    assert plan.cards == (0, 1, 0, 1) and not plan.virtual
+    assert plan.card_ranks == ((0, 2), (1, 3))
+    assert plan.device_ranks == (2, 2) and plan.rank_order == (0, 2, 1, 3)
+    two = plan.resident_bytes // 2
+    assert method.plan_for(mesh, budget=two).cards == plan.cards
+    with pytest.raises(ValueError, match="x2 ranks on one card"):
+        method.plan_for(mesh, budget=two - 1)
+    one = Mesh(shape=(2, 2), axis_names=("x", "y"),
+               devices=(torch.device("cuda", 0),) * 4)
+    with pytest.raises(ValueError, match="x4 ranks on one card"):
+        method.plan_for(one, budget=two)
+    tiles = rma_tiles(plan)
+    geom = _geometry(plan, 3, 0)
+    table = device_table(plan, torch.device("cpu")).numpy()
+    pairs = table[geom[30]:geom[30] + 4 * len(tiles.pairs)].reshape(-1, 4)
+    block = int(np.prod(plan.block_shape))
+    d_rank = tiles.pairs[:, 0] // block
+    assert (pairs[:, 0] == np.asarray(plan.cards)[d_rank]).all()
+    writer = np.repeat(tiles.card, np.diff(tiles.pair_ptr))
+    assert (np.asarray(plan.cards)[tiles.pairs[:, 1] // block]
+            == writer).all()
+    assert (pairs[:, 1:3] < 2 * plan.num_buffers * block).all()
+    cross = writer != pairs[:, 0]
+    d1 = np.unravel_index(tiles.pairs[cross, 0] % block,
+                          plan.block_shape)[1]
+    h, n1 = plan.layout.halo, plan.local_shape[1]
+    assert cross.any() and ((d1 < h) | (d1 >= h + n1)).all()
+    assert cross_card_bytes_per_step(plan) == cross.sum() * 4
 
 
 def test_registry_refusals_match_jax():
@@ -495,6 +531,7 @@ def test_registry_runner_and_plan_info():
     assert info["push_bytes_per_step"] == (2 * 3 * 10 * 34
                                            + 2 * 3 * 18 * 34) * 4
     assert info["live_bytes"] == 4 * 2 * 18 * 16 * 34 * 4
+    assert info["cards"] == [4] and info["cross_card_bytes_per_step"] == 0
     assert len(info["tile"]) == 3 and info["tiles"] >= 4
     assert 0 < info["shared_bytes"] <= 232448 and info["waits_per_step"] > 0
     assert "stencil_tpu/parallel/rma.py" in runner.description

@@ -517,15 +517,23 @@ def _kernel_pairs(plan, geom, table):
     """The exchange as the kernel applies it (rma_iterate.cu: the opening
     exchange, and each tile's pairs after its level k): the pairs of the
     device table at the geometry's offsets, each (destination rank,
-    offset, source rank, offset) in a padded block, the kernel's flat
-    ``rank * nbuf * block + offset`` indices decoded."""
+    offset, source rank, offset) in a padded block, the kernel's per-card
+    ``i * nbuf * block + offset`` indices (the card's i-th rank; the
+    destination's card in the pair, the source on the writing tile's
+    card, found from the geometry's first rank of each card) decoded."""
     per_rank = int(geom[1]) * int(np.prod(plan.block_shape))
-    npairs, start = int(geom[27]), int(geom[30])
-    pairs = table[start:start + 3 * npairs].reshape(-1, 3)
-    d_rank, d_off = np.divmod(pairs[:, 0], per_rank)
-    s_rank, s_off = np.divmod(pairs[:, 1], per_rank)
-    return sorted(zip(d_rank.tolist(), d_off.tolist(), s_rank.tolist(),
-                      s_off.tolist()))
+    npairs, start, ntiles = int(geom[27]), int(geom[30]), int(geom[8])
+    pairs = table[start:start + 4 * npairs].reshape(-1, 4)
+    pair_ptr = table[geom[29]:geom[29] + ntiles + 1]
+    place = np.repeat(np.arange(ntiles), np.diff(pair_ptr)) // (
+        ntiles // plan.ranks)
+    first = geom[38:38 + geom[33] + 1]
+    writer = np.searchsorted(first, place, side="right") - 1
+    d_i, d_off = np.divmod(pairs[:, 1], per_rank)
+    s_i, s_off = np.divmod(pairs[:, 2], per_rank)
+    d_rank = [plan.card_ranks[c][i] for c, i in zip(pairs[:, 0], d_i)]
+    s_rank = [plan.card_ranks[c][i] for c, i in zip(writer, s_i)]
+    return sorted(zip(d_rank, d_off.tolist(), s_rank, s_off.tolist()))
 
 
 @pytest.mark.parametrize("case", GEOMETRY, ids=_ids)

@@ -340,17 +340,21 @@ def test_kernel_tables_decode_to_the_schedule(case):
                     b.start for b in box]
         npairs, ndeps = geom[27], geom[28]
         pair_ptr = table[geom[29]:geom[29] + tiles.ntiles + 1]
-        pairs = table[geom[30]:geom[30] + 3 * npairs].reshape(-1, 3)
+        pairs = table[geom[30]:geom[30] + 4 * npairs].reshape(-1, 4)
         dep_ptr = table[geom[31]:geom[31] + tiles.ntiles + 1]
         deps = table[geom[32]:geom[32] + ndeps]
-        assert len(table) == geom[32] + ndeps
+        assert geom[33] == 1 and tuple(geom[38:]) == (0,) + (
+            plan.ranks,) * (len(geom) - 39)
+        assert len(table) == geom[37] and geom[34] == geom[32] + ndeps
+        assert (table[geom[34]:geom[35]] == 0).all() and geom[35] == geom[36]
         assert (pair_ptr == tiles.pair_ptr).all()
         assert (dep_ptr == tiles.dep_ptr).all() and (deps == tiles.deps).all()
         block = math.prod(plan.block_shape)
+        assert (pairs[:, 0] == 0).all()
         for c in (0, 1):
-            rank, off = np.divmod(pairs[:, c], plan.num_buffers * block)
+            rank, off = np.divmod(pairs[:, c + 1], plan.num_buffers * block)
             assert (rank * block + off == tiles.pairs[:, c]).all()
-        assert (pairs[:, 2] == tiles.pairs[:, 2]).all()
+        assert (pairs[:, 3] == tiles.pairs[:, 2]).all()
 
 
 def _chip_smoke():
@@ -362,12 +366,13 @@ def _chip_smoke():
 
 
 def test_every_phase3_plan_fits_shared_memory():
-    """Every rma plan ``chip_smoke.py`` launches (phase 3's cases and their
+    """Every rma plan ``chip_smoke.py`` launches (phase 3's cases, on one
+    card and on virtual cards, whose plans take the same tile, and their
     remainders, the bench cell's walls and meshes, 128^3, 160^3 bf16,
     8x8x16): its tile, grown by k*r, fits a block's 227 KB, and the rule's
     own estimate says so."""
     smoke = _chip_smoke()
-    cases = [c[:8] for c in smoke.RMA_CASES]
+    cases = [c[:8] for c in smoke.RMA_CASES + smoke.RMA_CARD_CASES]
     for shape in (smoke.RMA_SIZE, smoke.RMA_BIG, smoke.RMA_TINY):
         for sizes in smoke.RMA_MESHES + ((2,),):
             cases.append(("jacobi7", shape, sizes, smoke.RMA_K, 0, (), (),
