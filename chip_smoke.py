@@ -2273,11 +2273,11 @@ def run_distributed_solves(cli, kernel, label):
         ms[name] = min(timed(lambda: r.iterate(g0, DIST_TIME_CYCLES).data,
                              device=torch.device(DEVICE))
                        for _ in range(2)) / DIST_TIME_CYCLES * 1e3
-        wall, busy, span = device_busy(lambda: r.iterate(g0, 1), DEVICE)
+        wall, busy, span = traced_busy(lambda: r.iterate(g0, 1), DEVICE)
         trace[name] = f"host wall {wall:.3f} ms, " + (
             f"device busy {busy:.3f} ms of a {span:.3f} ms span, idle "
             f"{1 - busy / span:.1%}" if busy else
-            "no device event traced: idle share not measured")
+            "no trace spanned the run: idle share not measured")
     info = dist.plan_info
     print(f"distributed multigrid {'x'.join(map(str, MG_SIZE))} over "
           f"{DIST_MG_MESH} ({info['sharded_levels']} sharded levels, "
@@ -2674,7 +2674,7 @@ def time_cycles(mg, f, device):
     runs = sorted(timed(lambda: runner.iterate(g0, CYCLE_REPEATS), device)
                   for _ in range(3))
     ms = runs[1] / CYCLE_REPEATS * 1e3
-    _, busy, _ = device_busy(lambda: runner.iterate(g0, BUSY_CYCLES),
+    _, busy, _ = traced_busy(lambda: runner.iterate(g0, BUSY_CYCLES),
                              device)
     g, upd, res = g0, [], []
     for _ in range(CONTRACTION_CYCLES):
@@ -3402,9 +3402,9 @@ def time_sharded(kernel, label):
                      f"the {mesh.size} ranks); local plan "
                      f"{plan.interior_shape} tiles {plan.tiles}")
             if mesh_sizes == SHARDED_MESH and overlap:
-                wall, busy, span = device_busy(lambda: run(n1), DEVICE)
-                extra += ("; device busy share not measured (the trace "
-                          "holds no device events)" if busy is None else
+                wall, busy, span = traced_busy(lambda: run(n1), DEVICE)
+                extra += ("; device busy share not measured (no trace "
+                          "spanned the run)" if busy is None else
                           f"; {n1} sweeps: host wall {wall:.3f} ms "
                           f"unprofiled, device busy {busy:.3f} ms of a "
                           f"{span:.3f} ms span, idle "
@@ -3754,13 +3754,14 @@ def time_rma(kernel, label):
                   f"{t2 * 1e3:.3f} ms) [{label}]")
             if (shape == RMA_SIZE and walls == "dirichlet"
                     and dtype == "float32" and name.startswith("rma")):
-                host, busy, span = device_busy(lambda: run(RMA_ITERS),
+                host, busy, span = traced_busy(lambda: run(RMA_ITERS),
                                                DEVICE, "rma_iterate",
                                                tries=3)
                 print(f"  {name} {RMA_ITERS} sweeps: host wall {host:.3f} "
                       "ms unprofiled, " + (
                           "device busy share not measured (no trace of 3 "
-                          "held an rma_iterate launch)" if busy is None else
+                          "held an rma_iterate launch and spanned the "
+                          "run)" if busy is None else
                           f"device busy {busy:.3f} ms of a {span:.3f} ms "
                           f"span, idle {100 * (1 - busy / span):.1f}%")
                       + f" [{label}]")
@@ -3838,12 +3839,19 @@ def time_rma(kernel, label):
     return rows
 
 
-def device_busy(run, device, kernel_name="", tries=1):
-    """(host wall ms, device busy ms, device span ms) of ``run()`` from a
-    ``torch.profiler`` trace; busy is None when none of ``tries`` traces
-    holds a device event whose name holds ``kernel_name``."""
+def traced_busy(run, device, kernel_name="", tries=1):
+    """(host wall ms, device busy ms, device span ms) of ``run()``. Busy is
+    the union of the device's intervals in a profiler trace of device
+    activity alone, read by ``benchmark/trace.py`` (``Timeline.from_chrome``,
+    ``union``); the trace must hold an event whose name holds
+    ``kernel_name``, and its device span must lie within the CUDA events
+    around the run, short of them by at most the host's latency at its ends
+    (``trace.py``'s bounds). Busy and span are None where none of ``tries``
+    traces passes both."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import trace
 
     run()
     torch.cuda.synchronize()
@@ -3852,20 +3860,23 @@ def device_busy(run, device, kernel_name="", tries=1):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
             run()
+            stop.record()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any(kernel_name in e.name for e in events):
-            break
-    else:
-        return wall, None, None
-    ranges = [(e.time_range.start, e.time_range.end) for e in events]
-    busy = sum(end - start for start, end in ranges) / 1e3
-    span = (max(e for _, e in ranges) - min(s for s, _ in ranges)) / 1e3
-    return wall, busy, span
+        tl = trace.Timeline.from_chrome(trace._chrome(prof))
+        if not tl.kernels_named([kernel_name]):
+            continue
+        span = (max(iv.end for iv in tl.device) - tl.device[0].start) / 1e3
+        ms = start.elapsed_time(stop)
+        short = max(trace.SPAN_SHORT_SHARE * ms, trace.SPAN_SLACK_MS)
+        if ms - short <= span <= ms + trace.SPAN_OVER_MS:
+            busy = sum(b - a for a, b in trace.union(tl.device)) / 1e3
+            return wall, busy, span
+    return wall, None, None
 
 
 def cycles_main(checkout) -> int:
@@ -4898,10 +4909,10 @@ def main() -> int:
               f"{mgf.fine_method} fine level {MG_SIZE}: error vs exact after "
               f"cycles 1..{FLOOR_CYCLES} {[f'{e:.3e}' for e in errs]} (h^2 = "
               f"{fprob.h ** 2:.3e}) [{label}]")
-    wall, busy, span = device_busy(solve13, device)
+    wall, busy, span = traced_busy(solve13, device)
     print(f"cfg13 one solve (check_every=1): host wall {wall:.3f} ms "
-          "unprofiled; " + ("device busy share not measured (the trace "
-                            "holds no device events)" if busy is None else
+          "unprofiled; " + ("device busy share not measured (no trace "
+                            "spanned the run)" if busy is None else
                             f"device busy {busy:.3f} ms of a {span:.3f} ms "
                             f"span, idle {100 * (1 - busy / span):.1f}%")
           + f" [{label}]")
@@ -4986,10 +4997,10 @@ def main() -> int:
               f"solution {sorted(wall_ms)[1]:.3f} ms (median of {wall_ms}) "
               f"[{label}]")
         require(res18.converged, f"cfg18 --op-kernel {op} did not converge")
-        wall, busy, span = device_busy(solve18, device)
+        wall, busy, span = traced_busy(solve18, device)
         print(f"cfg18 --op-kernel {op} one solve: host wall {wall:.3f} ms "
-              "unprofiled; " + ("device busy share not measured (the trace "
-                                "holds no device events)" if busy is None
+              "unprofiled; " + ("device busy share not measured (no trace "
+                                "spanned the run)" if busy is None
                                 else f"device busy {busy:.3f} ms of a "
                                 f"{span:.3f} ms span, idle "
                                 f"{100 * (1 - busy / span):.1f}%")
@@ -5285,7 +5296,7 @@ def main() -> int:
                            runner.iterate),
                           (f"slab march {march1.plan.tiles}",
                            march1.iterate)):
-        wall, busy, span = device_busy(lambda: iterate(grid, CFG1[4]),
+        wall, busy, span = traced_busy(lambda: iterate(grid, CFG1[4]),
                                        device)
         n_launch = CFG1[4] // CFG1[2]
         # the host's own cost: the iterate's return, before a synchronize,
@@ -5303,8 +5314,8 @@ def main() -> int:
                 f"{wall / n_launch * 1e3:.1f} us per launch")
         if busy is None:
             print(f"cfg1 {CFG1[4]} iterations ({name}): {host}; device "
-                  f"busy share not measured (the trace holds no device "
-                  f"events) [{label}]")
+                  f"busy share not measured (no trace spanned the "
+                  f"run) [{label}]")
         else:
             print(f"cfg1 {CFG1[4]} iterations ({name}): {host} "
                   f"(unprofiled); device busy {busy:.3f} ms, "
@@ -5366,12 +5377,12 @@ def main() -> int:
              pins_runs[MAIN_SIZE],
              MAIN_ITERS),
             ("cfg1 --periodic 0", pins_runs[CFG1[1]], CFG1[4])):
-        wall, busy, span = device_busy(lambda: runner.iterate(grid, iters),
+        wall, busy, span = traced_busy(lambda: runner.iterate(grid, iters),
                                        device)
         print(f"{name}, {iters} iterations ({runner.name}): host wall "
               f"{wall:.3f} ms unprofiled; " + (
-                  "device busy share not measured (the trace holds no "
-                  "device events)" if busy is None else
+                  "device busy share not measured (no trace spanned "
+                  "the run)" if busy is None else
                   f"device busy {busy:.3f} ms of a {span:.3f} ms span, idle "
                   f"{100 * (1 - busy / span):.1f}%") + f" [{label}]")
     # one launch of each pins mode at the plan of a phase-4 dynamic-wall

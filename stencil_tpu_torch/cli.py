@@ -5,8 +5,9 @@ Counterpart of ``stencil_tpu/cli.py`` (``make_grid``, ``check_method``,
 optionally check it against the float64 golden model, then time it
 (marginal, autoranged) and report GLUPS and the fraction of the
 measured-HBM roofline, plus ``-R`` wall-clock repeats; ``--profile DIR``
-traces the timed runs with ``torch.profiler`` (CUDA and CPU activities)
-into DIR as Chrome traces, ``--checkpoint-dir`` then runs the iterations
+traces the timed runs with ``torch.profiler`` (CUDA and CPU activities,
+with the port's own spans, ``utils/tracing.py``) into DIR as Chrome
+traces, ``--checkpoint-dir`` then runs the iterations
 again with checkpoints (one subdirectory per method when there are
 several) and ``--dump-image`` writes the final iterate's heat map (a
 filename prefix per method when there are several). Grids live on
@@ -37,7 +38,7 @@ from stencil_tpu_torch.core.grid import (
     DirichletBC, HaloGrid, check_device, torch_dtype,
 )
 from stencil_tpu_torch.ops import golden
-from stencil_tpu_torch.utils import roofline
+from stencil_tpu_torch.utils import roofline, tracing
 from stencil_tpu_torch.utils.timing import (
     TinyTimer, measure_marginal, measure_wall,
 )
@@ -195,8 +196,13 @@ def run_all(config: RunConfig, out=None) -> List[dict]:
             activities = [ProfilerActivity.CPU]
             if device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
-            with profile(activities=activities) as prof:
-                m = bench_method(config, spec, runner)
+            tracing.enable()  # the port's spans join the profiler's trace
+            try:
+                with profile(activities=activities) as prof:
+                    m = bench_method(config, spec, runner)
+            finally:
+                tracing.disable()
+                tracing.drain()
             trace_dir = Path(config.profile_dir)
             trace_dir.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(trace_dir / f"{name}.trace.json"))

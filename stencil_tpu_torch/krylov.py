@@ -58,6 +58,7 @@ from stencil_tpu_torch.multigrid import (
 )
 from stencil_tpu_torch.parallel import sharded_field as sf
 from stencil_tpu_torch.parallel.sharded_field import dot as _dot
+from stencil_tpu_torch.utils.tracing import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,66 +265,85 @@ class ConjugateGradient:
                 "(the tiled fine kernel is single-device)")
         if check_every < 1:
             raise ValueError("check_every must be >= 1")
+        with span("cg.solve"):
+            return self._solve(f, tolerance, max_iterations, mesh, dim,
+                               replicate_below, initial, check_every)
+
+    def _solve(self, f, tolerance, max_iterations, mesh, dim,
+               replicate_below, initial, check_every) -> CGResult:
         prob = self.problem
-        f_t = torch.as_tensor(f).to(device=prob.device,
-                                    dtype=torch_dtype(prob.dtype))
-        if tuple(f_t.shape) != tuple(prob.shape):
-            raise ValueError(f"source shape {tuple(f_t.shape)} != interior "
-                             f"{tuple(prob.shape)}")
-        g0 = _initial_or(prob, initial)
-        ndim = prob.ndim
-        h = float(prob.h)
-        inv_h2 = 1.0 / (h * h)
-        two_d = float(2 * ndim)
-        tol2 = float(tolerance) ** 2
-        layout, levels = _mesh_plan(prob, self.preconditioner, mesh, dim,
-                                    replicate_below)
-        precond = self._precond(levels)
+        with span("cg.setup"):
+            f_t = torch.as_tensor(f).to(device=prob.device,
+                                        dtype=torch_dtype(prob.dtype))
+            if tuple(f_t.shape) != tuple(prob.shape):
+                raise ValueError(f"source shape {tuple(f_t.shape)} != "
+                                 f"interior {tuple(prob.shape)}")
+            g0 = _initial_or(prob, initial)
+            ndim = prob.ndim
+            h = float(prob.h)
+            inv_h2 = 1.0 / (h * h)
+            two_d = float(2 * ndim)
+            tol2 = float(tolerance) ** 2
+            layout, levels = _mesh_plan(prob, self.preconditioner, mesh, dim,
+                                        replicate_below)
+            precond = self._precond(levels)
 
-        def lap(e_pad, e):
-            return (two_d * e - _nb_sum(e_pad)) * inv_h2
+            def lap(e_pad, e):
+                return (two_d * e - _nb_sum(e_pad)) * inv_h2
 
-        def A(e):  # zero-wall SPD operator on interior-shaped tensors
-            return sf.per_block(lap, sf.pad1(e), e)
+            def A(e):  # zero-wall SPD operator on interior-shaped tensors
+                return sf.per_block(lap, sf.pad1(e), e)
 
-        # b = -(f - L u0): the zero-wall correction right-hand side
-        b = -_residual(sf.distribute(g0.data, layout, halo=1),
-                       sf.distribute(f_t, layout), inv_h2, two_d)
-        bb = _dot(b, b)
-        x = sf.zeros_like(b)
-        r = b
-        z = precond(r)
-        p = z
-        rz = _dot(r, z)
-        k = torch.zeros((), dtype=torch.int32, device=b.device)
-
-        def finished(r, k):
-            return ~(_dot(r, r) > tol2 * bb) | (k >= max_iterations)
-
-        done = finished(r, k)
-        for it in range(max_iterations):
-            if it % check_every == 0 and bool(done):
-                break
-            q = A(p)
-            # a finished solve keeps x and r exactly (alpha = 0) and its
-            # count, whatever the masked iteration computes
-            alpha = torch.where(done, torch.zeros_like(rz),
-                                rz / _dot(p, q))
-            x = x + alpha * p
-            r = r - alpha * q
+            # b = -(f - L u0): the zero-wall correction right-hand side
+            b = -_residual(sf.distribute(g0.data, layout, halo=1),
+                           sf.distribute(f_t, layout), inv_h2, two_d)
+            bb = _dot(b, b)
+            x = sf.zeros_like(b)
+            r = b
             z = precond(r)
-            rz_new = _dot(r, z)
-            p = z + (rz_new / rz) * p
-            rz = rz_new
-            k = k + (~done).to(k.dtype)
-            done = done | finished(r, k)
-        padded = sf.seat(g0.data, x)
-        rr = _dot(r, r)
-        # one stats vector, one device-to-host copy
-        stats = torch.stack([k.to(torch.float32),
-                             torch.sqrt(rr).to(torch.float32),
-                             torch.sqrt(rr / bb).to(torch.float32)]).cpu()
-        stats = stats.numpy().astype(np.float64)
+            p = z
+            rz = _dot(r, z)
+            k = torch.zeros((), dtype=torch.int32, device=b.device)
+
+            def finished(r, k):
+                return ~(_dot(r, r) > tol2 * bb) | (k >= max_iterations)
+
+            done = finished(r, k)
+        for it in range(max_iterations):
+            with span("cg.iteration"):
+                if it % check_every == 0:
+                    count("host_syncs")
+                    with span("cg.check"):
+                        stop = bool(done)
+                    if stop:
+                        break
+                with span("cg.matvec"):
+                    q = A(p)
+                with span("cg.update"):
+                    # a finished solve keeps x and r exactly (alpha = 0)
+                    # and its count, whatever the masked iteration
+                    # computes
+                    alpha = torch.where(done, torch.zeros_like(rz),
+                                        rz / _dot(p, q))
+                    x = x + alpha * p
+                    r = r - alpha * q
+                with span("cg.precond"):
+                    z = precond(r)
+                with span("cg.update"):
+                    rz_new = _dot(r, z)
+                    p = z + (rz_new / rz) * p
+                    rz = rz_new
+                    k = k + (~done).to(k.dtype)
+                    done = done | finished(r, k)
+        with span("cg.stats"):
+            padded = sf.seat(g0.data, x)
+            rr = _dot(r, r)
+            # one stats vector, one device-to-host copy
+            count("host_syncs")
+            stats = torch.stack([k.to(torch.float32),
+                                 torch.sqrt(rr).to(torch.float32),
+                                 torch.sqrt(rr / bb).to(torch.float32)]).cpu()
+            stats = stats.numpy().astype(np.float64)
         rrel = float(stats[2])
         return CGResult(
             grid=HaloGrid(data=padded, halo=1, bc=g0.bc),

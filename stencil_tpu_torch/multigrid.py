@@ -59,6 +59,7 @@ from stencil_tpu_torch.models.poisson import PoissonProblem
 from stencil_tpu_torch.parallel import sharded_field as sf
 from stencil_tpu_torch.parallel.sharded_field import ShardedField
 from stencil_tpu_torch.registry import Runner
+from stencil_tpu_torch.utils.tracing import span
 
 FINE_METHODS = ("xla", "eager", "pallas_tiled", "tiled")
 
@@ -461,27 +462,39 @@ class Multigrid:
                 return _smooth_cheby(padded, f, inv_h2, two_d, n, ratio)
             return _smooth(padded, f_scaled, omega, inv2d, n)
 
+        level_spans = [f"mg.level{n}" for n in range(n_levels)]
+
         def cycle(padded, f_scaled, f, level):
+            with span(level_spans[level]):
+                return level_cycle(padded, f_scaled, f, level)
+
+        def level_cycle(padded, f_scaled, f, level):
             # f_scaled = h^2 * f at this level's h
             h = h0 * (2.0 ** level)
             inv_h2 = 1.0 / (h * h)
             if level == n_levels - 1:
                 # the coarsest level is a solve over the whole spectrum:
                 # always damped Jacobi
-                return _smooth(padded, f_scaled, omega, inv2d,
-                               coarse if n_levels > 1
-                               else max(coarse, nu1 + nu2))
-            padded = smooth(padded, f_scaled, f, inv_h2, nu1)
-            r = _residual(padded, f, inv_h2, two_d)
-            rc = lv.restrict(r, level + 1)
-            rc_scaled = (4.0 * h * h) * rc  # (2h)^2 * r_c
+                with span("mg.coarsest"):
+                    return _smooth(padded, f_scaled, omega, inv2d,
+                                   coarse if n_levels > 1
+                                   else max(coarse, nu1 + nu2))
+            with span("mg.smooth"):
+                padded = smooth(padded, f_scaled, f, inv_h2, nu1)
+            with span("mg.residual"):
+                r = _residual(padded, f, inv_h2, two_d)
+            with span("mg.restrict"):
+                rc = lv.restrict(r, level + 1)
+                rc_scaled = (4.0 * h * h) * rc  # (2h)^2 * r_c
+                ec_pad = lv.zeros_padded(rc, level + 1)
             # gamma applications of the coarse method (2: W-cycle), each
             # continuing from the previous estimate
-            ec_pad = lv.zeros_padded(rc, level + 1)
             for _ in range(gamma):
                 ec_pad = cycle(ec_pad, rc_scaled, rc, level + 1)
-            sf.add_interior(padded, lv.prolong_padded(ec_pad, level))
-            return smooth(padded, f_scaled, f, inv_h2, nu2)
+            with span("mg.prolong"):
+                sf.add_interior(padded, lv.prolong_padded(ec_pad, level))
+            with span("mg.smooth"):
+                return smooth(padded, f_scaled, f, inv_h2, nu2)
 
         return cycle
 
@@ -590,29 +603,39 @@ class Multigrid:
                     for op in needed}
 
         def vcycle_tiled(padded_u, f):
-            src = f if isinstance(f, dict) else prep_tiled(f)
+            if isinstance(f, dict):
+                src = f
+            else:
+                with span("mg.prep"):
+                    src = prep_tiled(f)
             if n_levels == 1:
                 n = -(-max(coarse, nu1 + nu2) // max(1, nu1))
                 return source_iterate(pre.plan, padded_u, bc, src[pre],
                                       n_outer=n)
-            if fused is not None:
-                data, r = cheby_dual(fused.plan, padded_u, bc, src[fused])
-            else:
-                data = padded_u
-                if nu1:
-                    data = source_iterate(pre.plan, data, bc, src[pre])
-                r_pad = source_iterate(res.plan, data, bc, src[res])
-                r = r_pad[_interior(r_pad.shape)]
-            rc = _restrict_fw(r)
-            rc_scaled = (4.0 * h0 * h0) * rc
-            ec_pad = torch.zeros(tuple(s + 2 for s in rc.shape),
-                                 dtype=padded_u.dtype, device=padded_u.device)
+            with span("mg.fine.smooth_residual"):
+                if fused is not None:
+                    data, r = cheby_dual(fused.plan, padded_u, bc,
+                                         src[fused])
+                else:
+                    data = padded_u
+                    if nu1:
+                        data = source_iterate(pre.plan, data, bc, src[pre])
+                    r_pad = source_iterate(res.plan, data, bc, src[res])
+                    r = r_pad[_interior(r_pad.shape)]
+            with span("mg.fine.restrict"):
+                rc = _restrict_fw(r)
+                rc_scaled = (4.0 * h0 * h0) * rc
+                ec_pad = torch.zeros(tuple(s + 2 for s in rc.shape),
+                                     dtype=padded_u.dtype,
+                                     device=padded_u.device)
             for _ in range(gamma):
                 ec_pad = cycle(ec_pad, rc_scaled, rc, 1)
-            data[_interior(data.shape)].add_(_prolong_lin(
-                ec_pad[_interior(ec_pad.shape)]))
+            with span("mg.fine.prolong"):
+                data[_interior(data.shape)].add_(_prolong_lin(
+                    ec_pad[_interior(ec_pad.shape)]))
             if nu2:
-                data = source_iterate(post.plan, data, bc, src[post])
+                with span("mg.fine.post"):
+                    data = source_iterate(post.plan, data, bc, src[post])
             return data
 
         vcycle_tiled.prep = prep_tiled

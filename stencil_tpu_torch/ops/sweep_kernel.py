@@ -92,6 +92,7 @@ from stencil_tpu_torch.core.grid import (
 from stencil_tpu_torch.ops import eager
 from stencil_tpu_torch.ops.eager import round_to
 from stencil_tpu_torch.ops.layout import pad_source, refresh_dynamic_layout
+from stencil_tpu_torch.utils.tracing import span
 
 TAPS_HEADER = _build.PACKAGE_DIR / "csrc" / "stencil_taps.cuh"
 
@@ -861,16 +862,24 @@ class KernelStencil:
         if grid.interior_shape != plan.interior_shape:
             raise ValueError(f"grid interior {grid.interior_shape} != plan "
                              f"{plan.interior_shape}")
-        bc = grid.bc
-        pins = check_dynamic_walls(plan, bc) if bc.any_dynamic else None
-        src = None if self.source is None else self.padded_source(bc)
-        cur = plan.layout.pad_grid(grid)
-        nxt = cur.clone()
-        for launch_plan in launch_plans(plan, *divmod(iterations,
-                                                      plan.sweeps_per_call)):
-            refresh_dynamic_layout(cur, plan.layout, bc, launch_plan.halo)
-            self.kernel(cur, nxt, launch_plan, src, pins)
-            cur, nxt = nxt, cur
-        return HaloGrid.from_interior(plan.layout.unpad(cur),
-                                      halo=grid.halo, bc=bc,
-                                      device=grid.device)
+        with span("runner.iterate"):
+            bc = grid.bc
+            pins = check_dynamic_walls(plan, bc) if bc.any_dynamic else None
+            src = None if self.source is None else self.padded_source(bc)
+            with span("runner.pad"):
+                cur = plan.layout.pad_grid(grid)
+            with span("runner.clone"):
+                nxt = cur.clone()
+            for launch_plan in launch_plans(
+                    plan, *divmod(iterations, plan.sweeps_per_call)):
+                with span("runner.refresh"):
+                    refresh_dynamic_layout(cur, plan.layout, bc,
+                                           launch_plan.halo)
+                with span("runner.launch"):
+                    self.kernel(cur, nxt, launch_plan, src, pins)
+                cur, nxt = nxt, cur
+            with span("runner.unpad"):
+                interior = plan.layout.unpad(cur)
+            with span("runner.from_interior"):
+                return HaloGrid.from_interior(interior, halo=grid.halo,
+                                              bc=bc, device=grid.device)

@@ -90,6 +90,7 @@ from stencil_tpu_torch.ops.sweep_kernel import (  # noqa: F401 (re-export)
     KernelStencil, check_dynamic_walls, dynamic_pins, launch_plans,
 )
 from stencil_tpu_torch.ops.tiled_kernel import coeff_weights, tiled_sweep
+from stencil_tpu_torch.utils.tracing import count, span
 
 # an H100's shared memory per block; the plans read the card's budgets
 # from ``device_model.budgets()``, an H100's on an H100 and on the CPU
@@ -521,7 +522,20 @@ def make_tiled_plan(spec: StencilSpec, interior_shape, dtype="float32",
     ``schedule`` None takes the rule of the module docstring: a plan
     marches where its rings fit, but a two-level or Chebyshev plan at k=1,
     which takes the window; "march" or "window" asks for one
-    (``ValueError`` where it cannot run the plan)."""
+    (``ValueError`` where it cannot run the plan). Each plan made is the
+    span ``plan.make`` and counts in ``plans_made``."""
+    with span("plan.make"):
+        plan = _make_tiled_plan(spec, interior_shape, dtype,
+                                sweeps_per_call, tiles, t0_fixed, has_source,
+                                cheby_coeffs, cheby_dual, two_level,
+                                coeff_scales, schedule)
+    count("plans_made")
+    return plan
+
+
+def _make_tiled_plan(spec, interior_shape, dtype, sweeps_per_call, tiles,
+                     t0_fixed, has_source, cheby_coeffs, cheby_dual,
+                     two_level, coeff_scales, schedule) -> TiledPlan:
     if spec.ndim != 3 or len(interior_shape) != 3:
         raise ValueError("tiled kernel is 3D-only")
     dtype = dtype_name(torch_dtype(dtype))
