@@ -282,8 +282,16 @@ Phases, each ending in a line of its own:
    the two-level mode at cfg9's beside the window's launch, the
    coefficient mode at cfg16's beside
    the window's launch, the weights kernel at cfg16's padded grid, and the
-   k=1 matvec at cfg18's beside the window's and the eager matvec); the
-   device's busy
+   k=1 matvec at cfg18's beside the window's and the eager matvec; the
+   ``tiled_march`` row, jacobi7 256³ k=8, runs the march's point-table
+   kernel); then that kernel (:func:`run_point_tables`): the ptxas
+   registers and spills (none allowed) and SASS loops of it and of
+   ``tiled_march_kernel``, jacobi7 launches through ``tiled_sweep`` at
+   B1's and the two jacobi7 cells' plans (512³ k=8 and k=1) and on
+   periodic, Neumann and subset cases, each counted as one point-table
+   launch and bitwise its plain version and ``tiled_march_kernel``'s
+   launch, and one launch of each kernel at those plans and at 256³ k = 1,
+   2, 4, in turns, beside the window's; the device's busy
    share over cfg1's main-path run and over one cfg13 solve, from
    ``torch.profiler`` traces; then GLUPS of 3D k=8 ``--periodic 0 1`` and
    cfg1 ``--periodic 0`` beside the Dirichlet runs, of cfg12 (upwind
@@ -2663,7 +2671,7 @@ def time_cycles(mg, f, device):
     CONTRACTION_CYCLES from u = 0 (the asymptotic error contraction; the
     fp32 residual certificate floors too early at 255^3 to read it), and
     the device's busy ms per cycle in a profiler trace of BUSY_CYCLES
-    cycles."""
+    cycles (None where no trace spanned the run, ``traced_busy``)."""
     import torch
 
     from stencil_tpu_torch.utils.timing import timed
@@ -2686,7 +2694,8 @@ def time_cycles(mg, f, device):
     rho = float(np.prod(ratios)) ** (1.0 / len(ratios))
     decade = ms / -np.log10(rho) if 0 < rho < 1 else float("inf")
     torch.cuda.synchronize()
-    return ms, rho, decade, upd, res, busy / BUSY_CYCLES
+    return ms, rho, decade, upd, res, \
+        None if busy is None else busy / BUSY_CYCLES
 
 
 def needed_cells(plan, pins=None, pinned=None, live=None):
@@ -3989,6 +3998,214 @@ def cycles_main(checkout) -> int:
     return 0
 
 
+# the march's point-table kernel (phase 5): the B1 row's plan and the two
+# jacobi7 cells' plans (benchmark/cells), then jacobi7 256^3 at each depth
+TABLE_PLANS = (("B1 jacobi7 256^3 k=8", (256, 256, 256), 8),
+               ("jacobi7_512.long 512^3 k=8", (512, 512, 512), 8),
+               ("jacobi7_512.step 512^3 k=1", (512, 512, 512), 1),
+               ("jacobi7 256^3 k=1", (256, 256, 256), 1),
+               ("jacobi7 256^3 k=2", (256, 256, 256), 2),
+               ("jacobi7 256^3 k=4", (256, 256, 256), 4))
+# its further checks: shape, k, periodic, Neumann, with a subset pair
+TABLE_WALL_CASES = (((256, 256, 256), 8, (0, 1), (), False),
+                    ((57, 50, 46), 3, (0,), (1,), True),
+                    ((57, 50, 46), 8, (), (0, 1), False),
+                    ((64, 48, 40), 5, (), (), False))
+TABLE_REPS = 20    # launches per timed run
+TABLE_TURNS = 4    # timed runs of each kernel, in turns
+
+
+def march_kernel_launch(cur, nxt, plan, pins=None):
+    """One launch of ``plan`` through ``tiled_march_kernel`` (the march
+    library's ``plain`` entry, called directly: the wrapper sends a plan
+    the point-table kernel takes to that kernel), with the arguments
+    ``SweepKernel.__call__`` passes; no count. Raises on a refused
+    launch."""
+    import torch
+
+    from stencil_tpu_torch.ops.sweep_kernel import all_pinned, launch_tables
+    from stencil_tpu_torch.ops.tiled_kernel import tiled_march
+
+    pins = all_pinned(3) if pins is None else tuple(pins)
+    geom, offsets, sizes, weights, uniform, uw, _ = launch_tables(plan, pins)
+    device = cur.device.index or 0
+    entries = tiled_march._entry
+    rc = entries["plain"](cur.data_ptr(), nxt.data_ptr(), None,
+                          geom.ctypes.data, len(geom), None, 0,
+                          offsets.ctypes.data, sizes.ctypes.data,
+                          weights.ctypes.data, len(offsets) // 3, len(sizes),
+                          int(uniform), uw, device,
+                          torch.cuda.current_stream(device).cuda_stream)
+    require(rc == 0, f"tiled_march_kernel launch failed ({rc}): "
+            f"{entries['error'](rc).decode()}")
+    return nxt
+
+
+def sass_loops(lib, pattern):
+    """The loops of each kernel of ``lib`` whose mangled name holds
+    ``pattern``, from ``cuobjdump -sass``: {name: (instructions, [(loop
+    start, body length, shared loads, shared stores, float adds and
+    multiplies)...])}, a loop being a branch back to a lower address."""
+    import re
+
+    from stencil_tpu_torch import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if pattern not in name:
+            continue
+        code = [(int(a, 16), op.strip()) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        loops = []
+        for i, (addr, op) in enumerate(code):
+            m = re.search(r"\bBRA(?:\.\S+)?\s+(?:`\(\.L_x_\d+\)\s*)?"
+                          r"(0x[0-9a-f]+)", op)
+            if not m or int(m.group(1), 16) >= addr:
+                continue
+            body = [o for a, o in code if int(m.group(1), 16) <= a <= addr]
+
+            def n(ops):
+                return sum(bool(re.match(rf"(@!?U?P\w+\s+)?(?:{ops})\b", o))
+                           for o in body)
+
+            loops.append((int(m.group(1), 16), len(body), n("LDS"),
+                          n("STS"), n("FADD|FMUL")))
+        out[name] = (len(code), loops)
+    return out
+
+
+def run_point_tables(tiled, build, rng, device, label):
+    """The march's point-table kernel (``tiled_march_kernel_tables``) beside
+    ``tiled_march_kernel`` on the jacobi7 plans the library routes to it.
+    Prints the ptxas registers and spills of both kernels from the build's
+    log (none allowed in the point-table instances; a cached build kept no
+    log) and their SASS loops (the point-table kernel's step loop, unrolled
+    over levels and passes, and the present kernel's pass loops). Then,
+    with the counts set to 0 just before each, launches every plan of
+    ``TABLE_PLANS`` and ``TABLE_WALL_CASES`` through the wrapper
+    ``tiled_sweep``: each launch one ``march_table_launches``, one
+    ``march_launches`` and one ``launches``, its output bitwise the plain
+    version and ``tiled_march_kernel``'s launch (a subset pair too, each
+    launch bitwise ``subset_reference``). Last, one launch of each kernel
+    at each of ``TABLE_PLANS``, in ``TABLE_TURNS`` turns of ``TABLE_REPS``
+    launches (CUDA events), the window schedule's launch beside them."""
+    import torch
+
+    from stencil_tpu_torch.core.spec import get_spec
+    from stencil_tpu_torch.ops.sweep_kernel import (
+        subset_reference, sweep_reference,
+    )
+    from stencil_tpu_torch.ops.tiled import (
+        dynamic_pins, make_tiled_plan, partition_tiles,
+    )
+
+    lines = build.log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and (
+                "tables" in line or "tiled_march_kernelILi6ELi0EfE" in line):
+            print(f"  ptxas: {line.strip()}")
+            for nxt in lines[i + 1:i + 4]:
+                if "registers" in nxt or "spill" in nxt:
+                    print(f"    {nxt.strip()}")
+                if "tables" in line and "spill" in nxt:
+                    require("0 bytes spill stores, 0 bytes spill loads"
+                            in nxt, f"the point-table kernel spills: {nxt}")
+    for name, (count, found) in sass_loops(build.path,
+                                           "tiled_march_kernel").items():
+        if "tables" in name or "tiled_march_kernelILi6ELi0EfE" in name:
+            shown = [(hex(start), *rest) for start, *rest in found]
+            print(f"  sass {name[:90]}: {count} instructions; loops "
+                  f"(start, body, LDS, STS, FADD/FMUL): {shown}")
+
+    j7 = get_spec("jacobi7")
+
+    def counted(fn, want):
+        """``fn()`` with the counts set to 0 just before it, required to
+        make ``want`` launches, every one a point-table one."""
+        tiled.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = (tiled.march_table_launches, tiled.march_launches,
+               tiled.launches)
+        require(got == (want,) * 3, f"point-table counts {got}, want "
+                f"{want} each (march_table, march, launches)")
+        return out
+
+    cases = [(shape, k, (), (), False) for _, shape, k in TABLE_PLANS[:3]]
+    for shape, k, periodic, neumann, subset in cases + list(TABLE_WALL_CASES):
+        plan = make_tiled_plan(j7, shape, "float32", k)
+        bc = walls(3, periodic, neumann)
+        cur = pins_input(plan, bc, rng, device)
+        pins = dynamic_pins(bc, 3)
+        new = counted(lambda: tiled(cur, cur.clone(), plan, pins=pins), 1)
+        old = march_kernel_launch(cur, cur.clone(), plan, pins)
+        torch.cuda.synchronize()
+        want = sweep_reference(cur, plan, pins=pins)
+        ok = torch.equal(new, old) and torch.equal(new, want)
+        print(f"  tiled_sweep (the point-table kernel) vs tiled_march_kernel"
+              f" vs plain, {shape} k={k} tiles {plan.tiles} "
+              f"{walls_name(bc)}: {'bitwise equal' if ok else 'DIFFER'}; "
+              "1 launch, counted as a point-table one")
+        require(ok, f"{shape} k={k}: the point-table kernel differs")
+        del new, old, want
+        if subset:
+            interior, edge = partition_tiles(plan)
+            nxt = cur.clone()
+            nxt[plan.layout.interior_index] = -1.0
+            part = counted(lambda: tiled(cur, nxt.clone(), plan, pins=pins,
+                                         subset=interior), 1)
+            both = counted(lambda: tiled(cur, part.clone(), plan, pins=pins,
+                                         subset=edge), 1)
+            ok = torch.equal(part, subset_reference(
+                cur, nxt, plan, interior, pins=pins)) and torch.equal(
+                both, subset_reference(cur, part, plan, edge, pins=pins))
+            print(f"  tiled_sweep subsets of {len(interior)} + {len(edge)} "
+                  f"columns vs plain: {'bitwise equal' if ok else 'DIFFER'}")
+            require(ok, "the point-table kernel's subset differs")
+        del cur
+    # one launch of each kernel, in turns
+    for what, shape, k in TABLE_PLANS:
+        plan = make_tiled_plan(j7, shape, "float32", k)
+        window = make_tiled_plan(j7, shape, "float32", k, schedule="window")
+        cur = plan.layout.pad_grid(random_grid(shape, 1, rng, device))
+        nxt = cur.clone()
+        calls = {"tables": lambda: tiled(cur, nxt, plan),
+                 "plain": lambda: march_kernel_launch(cur, nxt, plan)}
+        times = {"tables": [], "plain": []}
+        tiled.reset_counts()
+        for turn in range(TABLE_TURNS):
+            for mode in (("tables", "plain") if turn % 2 == 0
+                         else ("plain", "tables")):
+                times[mode].append(time_call(calls[mode], device,
+                                             TABLE_REPS))
+        require(tiled.march_table_launches == tiled.launches
+                == TABLE_TURNS * (TABLE_REPS + 1),
+                f"{what}: a timed wrapper launch missed the point-table "
+                "kernel")
+        win = time_call(lambda: tiled(cur, nxt, window), device, TABLE_REPS)
+        bms, by = bound(plan, None, False)
+        t, o = statistics.median(times["tables"]), \
+            statistics.median(times["plain"])
+        passes = sum((plan.tiles[1] + 2 * (k - s)) * (plan.tiles[2]
+                                                     + 2 * (k - s))
+                     for s in range(1, k + 1)) / 512
+        print(f"{what}, tiles {plan.tiles}: tiled_sweep (the point-table "
+              f"kernel) {t:.4f} ms (tiled_march_kernel {o:.4f}; window "
+              f"{window.tiles} {win:.4f}), {o / t:.3f}x; bound {bms:.4f} "
+              f"({by}); runs tables {[round(x, 4) for x in times['tables']]}"
+              f", tiled_march_kernel "
+              f"{[round(x, 4) for x in times['plain']]}; computed points per"
+              f" thread per full step {passes:.2f} [{label}]")
+        sys.stdout.flush()
+        del cur, nxt
+    tiled.reset_counts()
+
+
 def main() -> int:
     import torch
 
@@ -4838,9 +5055,11 @@ def main() -> int:
                           if mg.tiled_fine else "eager")
             found[sched] = (rho, tuple(upd))
             where = "" if sched == "rule" else ", every plan on the window"
+            busy = ("not measured (no trace spanned the run)"
+                    if busy is None else f"{busy:.4f} ms per cycle")
             print(f"{name}{where} {MG_SIZE}: {ms_c:.4f} ms per V-cycle "
                   f"(median of 3 runs of {CYCLE_REPEATS}), the device busy "
-                  f"{busy:.4f} ms per cycle (profiler), contraction "
+                  f"{busy} (profiler), contraction "
                   f"{rho:.4f} per cycle (update norms "
                   f"{[f'{u:.3e}' for u in upd]}; residual "
                   f"{[f'{r:.3e}' for r in res]}), {decade:.4f} ms per "
@@ -5285,6 +5504,9 @@ def main() -> int:
     del kdata, edata, mv_a, x, y
 
     stamp("one launch per fp32 mode")
+    run_point_tables(tiled, builds[kernels.index(tiled_kernel.tiled_march)],
+                     rng, device, label)
+    stamp("the point-table kernel")
     # the device's busy share over cfg1's main-path run (1024 iterations)
     cfg = RunConfig(size=CFG1[1], spec="jacobi5", temporal=CFG1[2],
                     methods=("slab",), device=DEVICE)

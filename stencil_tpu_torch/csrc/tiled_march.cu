@@ -121,7 +121,10 @@
 //     (carried row/column, no division per point), so narrow planes keep
 //     every lane busy. Taps read shared memory at an offset that is the
 //     step's slot delta plus d1 times the level's row width, formed once
-//     per level and step.
+//     per level and step. The homogeneous fp32 launch of jacobi7's taps at
+//     k <= 8 runs a second kernel of this file instead,
+//     tiled_march_kernel_tables (below): the same schedule with each
+//     thread's points, addresses and interior bits formed once per launch.
 //   - Coefficients. The window schedule's coefficient mode formed six face
 //     means from a(x) at every update of every sweep (7 loads, 6 divides
 //     and ~44 more operations) on top of its 3D windows' recomputation.
@@ -529,6 +532,303 @@ tiled_march_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
 }
 
+// ---- The point-table march: the homogeneous fp32 mode of jacobi7 --------
+//
+// tiled_march_kernel's schedule, rings, slots, loads and barrier, in its
+// homogeneous fp32 mode, for jacobi7's tap table (kTableTap: six radius-1
+// taps in one group of uniform weight), k = 1 .. kTableMaxLevels, with
+// the same shared memory. What a thread does with a level's plane never
+// changes from step to step, so this kernel forms it once per launch, in
+// registers (the level and pass loops unrolled over the instance's bound
+// of passes per level, table_row):
+//
+//   - Points. Level s walks its plane in the row width of the plane it
+//     reads, level s-1's (cols[s-1] = cols[s] + 2): point i = tid +
+//     kThreads*u of pass u is (y, x) = (i / cols[s-1], i % cols[s-1]), and
+//     the two columns x >= cols[s] are computed and dropped. So a warp's
+//     32 lanes read 32 consecutive words of level s-1's plane at every
+//     tap, one shared-memory wavefront each (tiled_march_kernel walks the
+//     plane in its own width, and the two-word jump where a warp crosses a
+//     row costs a second wavefront in most warps), and a tap's address is
+//     the thread's slot address plus the step's and level's offset plus
+//     kThreads*4*u: no table and no arithmetic per point.
+//   - Passes. Each instance holds, per level, the passes of the largest
+//     plane the tile chooser gives at its k (table_row), and computes
+//     every one of them in every step, with no branch: its passes' loads
+//     then overlap one another, which measured faster on an H100 than
+//     skipping a pass that holds no point. A thread past a plane's end
+//     clamps its loads to the plane's last point and stores nothing.
+//   - Tables. Per level s < k and pass u, the shared address the point is
+//     stored at, (ring[s] + y*cols[s] + x) * 4 past the rings' start; per
+//     pass of level k, its byte offset y*p2 + x in a padded plane of
+//     `out`; per pass of the input plane, the byte offset its fetch reads;
+//     one bit per pass of levels 1 .. k (table_bases) in `keep`: the point
+//     lies in the plane (x < cols[s], i below the plane's end); in `inner`:
+//     level s < k updates it in d1 and d2 (the interior, or beyond a live
+//     d1 face). The d0 test (live0) stays one uniform test per level and
+//     step.
+//   - A step's pass: six shared loads in kTableTap's order, five adds and
+//     one multiply (apply_uniform: tiled_march_kernel's rounding, bitwise),
+//     the centre where the point is not updated, one store where it is
+//     kept.
+
+constexpr int kTableMaxLevels = 8;
+constexpr int kTableTaps = 6;
+constexpr int kTableMaxPasses = 10;
+
+// Passes of kThreads points that the instance of k sweeps holds at level s
+// = 0 (the input plane) .. k: at every level the most that a tile the
+// chooser gives at k (ops/tiled.py:choose_march_tiles, 64^3 to 1024^3)
+// needs, one hex digit per level, level 0 the lowest:
+//   k=1 9 9; k=2 10 9 9; k=3 10 10 9 9; k=4 7 6 6 6 5; k=5 7 6 6 5 5 5;
+//   k=6 6 6 5 5 4 4 4; k=7 5 5 4 4 4 3 3 3; k=8 5 5 4 4 4 3 3 3 3.
+// (Shifts of one constant fold once the kernel's loops are unrolled.)
+__host__ __device__ constexpr unsigned long long table_row(int k) {
+  return k == 1   ? 0x99ull
+         : k == 2 ? 0x99Aull
+         : k == 3 ? 0x99AAull
+         : k == 4 ? 0x56667ull
+         : k == 5 ? 0x555667ull
+         : k == 6 ? 0x4445566ull
+         : k == 7 ? 0x33344455ull
+                  : 0x333344455ull;
+}
+
+__host__ __device__ constexpr int table_passes(int k, int s) {
+  return (int)((table_row(k) >> (4 * s)) & 15u);
+}
+
+// The bit of each level s = 1 .. k's pass 0 in the instance's masks, one
+// byte per level (level 1 the lowest): levels 1 .. k one after the other;
+// and the bits they take in all.
+__host__ __device__ constexpr unsigned long long table_bases(int k) {
+  unsigned long long out = 0;
+  int b = 0;
+  for (int s = 1; s <= k; ++s) {
+    out |= (unsigned long long)b << (8 * (s - 1));
+    b += table_passes(k, s);
+  }
+  return out;
+}
+
+__host__ __device__ constexpr int table_bits(int k) {
+  int b = 0;
+  for (int s = 1; s <= k; ++s) b += table_passes(k, s);
+  return b;
+}
+
+constexpr int kErrTables = -4;
+// The taps compiled in: the six face neighbours (d0, d1, d2) in
+// StencilSpec.weight_groups order, jacobi7's and star3d_r1's table.
+constexpr int kTableTap[kTableTaps][3] = {
+    {-1, 0, 0}, {1, 0, 0}, {0, -1, 0}, {0, 1, 0}, {0, 0, -1}, {0, 0, 1}};
+
+// What the host forms once per launch for the point-table kernel: per
+// pass u of the input plane's fetch the bound n_0 - kThreads*u under which
+// a thread's tid lies for the pass to hold a point; per level s = 1 .. k
+// and tap t the byte offset, from a thread's address in slot 0, of the tap
+// of its pass-0 point in level s-1's plane, (ring[s-1] + cols[s-1] + 1 +
+// d1*cols[s-1] + d2) * 4, and of the centre; per level s = 1 .. k the
+// byte offset from the rings' start of its last point's slot-0 address,
+// to which a thread past the end clamps its own (its loads then stay in
+// the rings); a slot's bytes.
+struct TablePlan {
+  int lim[kTableMaxPasses];
+  int off[kTableMaxLevels + 1][kTableTaps];
+  int ctr[kTableMaxLevels + 1];
+  int end[kTableMaxLevels + 1];
+  int q4;
+};
+
+// Shared and global accesses at 32-bit shared and 64-bit global byte
+// addresses, so the step loop forms no generic addresses.
+__device__ __forceinline__ float lds(unsigned addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts(unsigned addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void stg(uint64_t addr, float v) {
+  asm volatile("st.global.f32 [%0], %1;" ::"l"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_at(unsigned dst, uint64_t src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 1)
+tiled_march_kernel_tables(const float* __restrict__ in,
+                          float* __restrict__ out,
+                          const int32_t* __restrict__ cols,
+                          const __grid_constant__ Geometry g,
+                          const __grid_constant__ TablePlan tb,
+                          float weight) {
+  constexpr int P = kTableMaxPasses;  // an array bound
+  constexpr unsigned long long kRow = table_row(K);
+  constexpr unsigned long long kBases = table_bases(K);
+  static_assert(K >= 1 && K <= kTableMaxLevels && table_bits(K) <= 64,
+                "one bit per point of levels 1 .. K in two words");
+  // level s's passes, the mask bit of its pass u, and a bit of a mask:
+  // constants once the loops are unrolled
+  auto passes = [](int s) { return (int)((kRow >> (4 * s)) & 15u); };
+  auto bit = [](int s, int u) {
+    return (int)((kBases >> (8 * (s - 1))) & 255u) + u;
+  };
+  auto has = [](const uint32_t (&mask)[2], int b) {
+    return ((mask[b >> 5] >> (b & 31)) & 1u) != 0;
+  };
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const unsigned ring = (unsigned)__cvta_generic_to_shared(smem_bytes);
+  const int tid = threadIdx.x;
+  constexpr int S = 4;  // 2r+2 slots, r = 1
+  constexpr int kPassBytes = kThreads * 4;
+
+  // this block's column (i0, i1) and d2 tile, as tiled_march_kernel
+  const int i2 = blockIdx.x % g.nt2;
+  int col = blockIdx.x / g.nt2;
+  if (cols != nullptr) col = cols[col];
+  const int i1 = col % g.nt1;
+  const int i0 = col / g.nt1;
+  const int a0 = min(i0 * g.t0, g.n0 - g.t0) + g.halo - K;
+  const int o1 = min(i1 * g.t1, g.n1 - g.t1) + g.halo - K;
+  const int o2 = min(i2 * g.t2, g.n2 - g.t2) + g.halo - K;
+  const int64_t pstride = (int64_t)g.p1 * g.p2;
+
+  // the tables (see above); an entry past its plane's end holds the
+  // plane's last point, which a dropped store leaves alone
+  int load[P], put[P];
+  unsigned home[K > 1 ? K - 1 : 1][P];
+  uint32_t keep[2] = {0u, 0u}, inner[2] = {0u, 0u};
+#pragma unroll
+  for (int u = 0; u < passes(0); ++u) {
+    const int i = min(tid + u * kThreads, g.rows[0] * g.cols[0] - 1);
+    const int y = i / g.cols[0], x = i - y * g.cols[0];
+    load[u] = (y * g.p2 + x) * 4;
+  }
+#pragma unroll
+  for (int s = 1; s <= K; ++s) {
+    const int ws = g.cols[s], wp = g.cols[s - 1];
+    const int n = g.rows[s] * wp - 2;
+    const int r1 = o1 + s, r2 = o2 + s;
+    const int ylo = g.pins[2] ? g.halo - r1 : INT_MIN;
+    const int yhi = g.pins[3] ? g.halo + g.n1 - r1 : INT_MAX;
+    const int xlo = g.halo - r2, xhi = xlo + g.n2;
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      if (u >= passes(s)) continue;
+      const int i = min(tid + u * kThreads, n - 1);
+      const int y = i / wp, x = i - y * wp;
+      const int b = bit(s, u);
+      if (tid + u * kThreads < n && x < ws) keep[b >> 5] |= 1u << (b & 31);
+      if (s < K) {
+        home[s - 1][u] = ring + (g.ring[s] + y * ws + x) * 4;
+        if (y >= ylo && y < yhi && x >= xlo && x < xhi)
+          inner[b >> 5] |= 1u << (b & 31);
+      } else {
+        put[u] = (y * g.p2 + x) * 4;
+      }
+    }
+  }
+
+  // byte addresses: the input region's origin, the tile's origin in
+  // `out`, a padded plane's stride; this thread's element of slot 0
+  const uint64_t gin = reinterpret_cast<uint64_t>(
+      in + (int64_t)a0 * pstride + (int64_t)o1 * g.p2 + o2);
+  const uint64_t gout = reinterpret_cast<uint64_t>(
+      out + (int64_t)a0 * pstride + (int64_t)(o1 + K) * g.p2 + o2 + K);
+  const uint64_t pbytes = (uint64_t)pstride * 4;
+  const unsigned mine = ring + tid * 4;
+
+  // fetch input plane m into slot w by cp.async
+  auto fetch = [&](int m, int w) {
+    const uint64_t src = gin + (uint64_t)m * pbytes;
+    const unsigned dst = mine + w * tb.q4;
+#pragma unroll
+    for (int u = 0; u < passes(0); ++u)
+      if (tid < tb.lim[u])
+        cp_async4_at(dst + u * kPassBytes, src + (uint64_t)load[u]);
+    cp_async_commit();
+  };
+
+  const int lo0 = g.pins[0] ? g.halo : INT_MIN;
+  const int hi0 = g.pins[1] ? g.halo + g.n0 : INT_MAX;
+
+  // prologue: input plane 0 into its slot, r = 1
+  fetch(0, 1);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int last = g.t0 + K - 1 + 2 * K - 1;  // level K's last step
+  int c = 0;  // j mod S: the slot of each level's centre plane
+  for (int j = 0; j <= last; ++j) {
+    const int w = (c + 2) & (S - 1);
+    if (j + 1 < g.planes) fetch(j + 1, w);
+    // this step's slots of the planes d0 - 1, d0 and d0 + 1, in bytes
+    const int below = ((c + S - 1) & (S - 1)) * tb.q4;
+    const int centre = c * tb.q4;
+    const int above = ((c + 1) & (S - 1)) * tb.q4;
+#pragma unroll
+    for (int s = 1; s <= K; ++s) {
+      const int m = j - (2 * s - 1);  // level s's plane this step
+      if (m < s || m >= g.planes - s) continue;
+      // each tap's offset from this thread's slot-0 address (kTableTap)
+      const int o[kTableTaps] = {
+          below + tb.off[s][0], above + tb.off[s][1], centre + tb.off[s][2],
+          centre + tb.off[s][3], centre + tb.off[s][4],
+          centre + tb.off[s][5]};
+      // the taps of every pass first (apply_uniform's order), then the
+      // stores: a level's loads never read the slot this step writes
+      const unsigned end = ring + tb.end[s];
+      float v[P];
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        if (u >= passes(s)) continue;
+        const unsigned p = min(mine + u * kPassBytes, end);
+        float acc = lds(p + o[0]);
+#pragma unroll
+        for (int t = 1; t < kTableTaps; ++t)
+          acc = __fadd_rn(acc, lds(p + o[t]));
+        v[u] = __fmul_rn(acc, weight);
+      }
+      if (s < K) {
+        // a plane outside a pinned d0 face copies every centre
+        const int p0 = a0 + m;
+        const bool live0 = p0 >= lo0 && p0 < hi0;
+        const uint32_t due[2] = {live0 ? inner[0] : 0u,
+                                 live0 ? inner[1] : 0u};
+        const int put_slot = w * tb.q4;
+        const int ctr = centre + tb.ctr[s];
+#pragma unroll
+        for (int u = 0; u < P; ++u) {
+          if (u >= passes(s)) continue;
+          const int b = bit(s, u);
+          if (!has(due, b))
+            v[u] = lds(min(mine + u * kPassBytes, end) + ctr);
+          if (has(keep, b)) sts(home[s - 1][u] + put_slot, v[u]);
+        }
+      } else {
+        // level K: the tile, every point interior, straight to `out`
+        const uint64_t dst = gout + (uint64_t)m * pbytes;
+#pragma unroll
+        for (int u = 0; u < P; ++u) {
+          if (u >= passes(K)) continue;
+          const int b = bit(K, u);
+          if (has(keep, b)) stg(dst + (uint64_t)put[u], v[u]);
+        }
+      }
+    }
+    if (j + 1 < g.planes) cp_async_wait_all();
+    __syncthreads();
+    c = (c + 1) & (S - 1);
+  }
+}
+
 template <typename T>
 struct Launch {
   const T* in;
@@ -778,6 +1078,90 @@ int cheby_entry(const T* in, T* out, T* out2, const T* source,
               : (int)dispatch_cheby<kCheby>(ntaps, l, taps, tp);
 }
 
+template <int K>
+cudaError_t launch_tables(const Launch<float>& l, const TablePlan& tb,
+                          float weight) {
+  cudaError_t err = cudaFuncSetAttribute(
+      tiled_march_kernel_tables<K>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.shared);
+  if (err != cudaSuccess) return err;
+  tiled_march_kernel_tables<K><<<l.nblocks, kThreads, l.shared,
+                                 l.stream>>>(l.in, l.out, l.cols, l.g, tb,
+                                             weight);
+  return cudaGetLastError();
+}
+
+// Whether an instance of the point-table kernel runs a homogeneous launch
+// of geometry `g` (prepare's) and this tap table: kTableTap's six taps in
+// one group of uniform weight, k <= kTableMaxLevels, every level's points
+// in the instance's passes, and every byte offset a table or a thread
+// forms in an int. The one place that decides it: tables_entry refuses
+// what it rejects, and stencil_tiled_march_tables_fit answers the wrapper.
+bool tables_fit(const Geometry& g, const int32_t* tap_offsets, int ntaps,
+                int ngroups, int uniform) {
+  const int k = g.k;
+  if (g.r != 1 || k > kTableMaxLevels || ntaps != kTableTaps ||
+      ngroups != 1 || !uniform)
+    return false;
+  for (int t = 0; t < kTableTaps; ++t)
+    for (int d = 0; d < 3; ++d)
+      if (tap_offsets[3 * t + d] != kTableTap[t][d]) return false;
+  if (g.rows[0] * g.cols[0] > table_passes(k, 0) * kThreads) return false;
+  if (((int64_t)g.rows[0] * g.p2 + g.cols[0]) * 4 > INT_MAX) return false;
+  for (int s = 1; s <= k; ++s) {
+    if (g.rows[s] * g.cols[s - 1] - 2 > table_passes(k, s) * kThreads)
+      return false;
+    if (((int64_t)g.rows[s] * g.p2 + g.cols[s]) * 4 > INT_MAX) return false;
+  }
+  return true;
+}
+
+int tables_entry(const float* in, float* out, const float* source,
+                 const int32_t* geom, int ngeom, const int32_t* cols,
+                 int ncols, const int32_t* tap_offsets,
+                 const int32_t* group_sizes, const float* group_weights,
+                 int ntaps, int ngroups, int uniform, float uniform_weight,
+                 int device, void* stream) {
+  Launch<float> l;
+  Taps taps;
+  TapPlanes tp;
+  const int rc = prepare(geom, ngeom, cols, ncols, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps, tp);
+  if (rc != 0) return rc;
+  if (source != nullptr || !tables_fit(l.g, tap_offsets, ntaps, ngroups,
+                                       uniform))
+    return kErrTables;
+  const Geometry& g = l.g;
+  const int k = g.k;
+  TablePlan tb{};
+  for (int u = 0; u < kTableMaxPasses; ++u)
+    tb.lim[u] = g.rows[0] * g.cols[0] - u * kThreads;
+  for (int s = 1; s <= k; ++s) {
+    const int wp = g.cols[s - 1];
+    tb.ctr[s] = (g.ring[s - 1] + wp + 1) * 4;
+    tb.end[s] = (g.rows[s] * wp - 3) * 4;
+    for (int t = 0; t < kTableTaps; ++t)
+      tb.off[s][t] = tb.ctr[s] + (kTableTap[t][1] * wp + kTableTap[t][2]) * 4;
+  }
+  tb.q4 = g.q * 4;
+  l.in = in; l.out = out; l.out2 = nullptr; l.source = nullptr;
+  l.stream = (cudaStream_t)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const float wt = taps.uniform_weight;
+  switch (k) {
+    case 1: return (int)launch_tables<1>(l, tb, wt);
+    case 2: return (int)launch_tables<2>(l, tb, wt);
+    case 3: return (int)launch_tables<3>(l, tb, wt);
+    case 4: return (int)launch_tables<4>(l, tb, wt);
+    case 5: return (int)launch_tables<5>(l, tb, wt);
+    case 6: return (int)launch_tables<6>(l, tb, wt);
+    case 7: return (int)launch_tables<7>(l, tb, wt);
+    default: return (int)launch_tables<8>(l, tb, wt);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -904,6 +1288,42 @@ int stencil_tiled_march_cheby_bf16(
                      ntaps, ngroups, uniform, uniform_weight, device, stream);
 }
 
+// The point-table kernel: the arguments and the return value of
+// stencil_tiled_march, for a homogeneous launch (`source` null) that
+// tables_fit admits; any other launch returns kErrTables.
+int stencil_tiled_march_tables(const float* in, float* out,
+                               const float* source, const int32_t* geom,
+                               int ngeom, const int32_t* cols, int ncols,
+                               const int32_t* tap_offsets,
+                               const int32_t* group_sizes,
+                               const float* group_weights, int ntaps,
+                               int ngroups, int uniform, float uniform_weight,
+                               int device, void* stream) {
+  return tables_entry(in, out, source, geom, ngeom, cols, ncols, tap_offsets,
+                      group_sizes, group_weights, ntaps, ngroups, uniform,
+                      uniform_weight, device, stream);
+}
+
+// Whether stencil_tiled_march_tables runs a homogeneous launch of this
+// geometry and tap table (the arguments of that entry): 1 if it does, 0 if
+// it refuses it, or the code of a rejected geometry or tap table. Makes no
+// CUDA call (ops/tiled_kernel.py:point_tables asks it once per plan).
+int stencil_tiled_march_tables_fit(const int32_t* geom, int ngeom,
+                                   const int32_t* tap_offsets,
+                                   const int32_t* group_sizes,
+                                   const float* group_weights, int ntaps,
+                                   int ngroups, int uniform,
+                                   float uniform_weight) {
+  Launch<float> l;
+  Taps taps;
+  TapPlanes tp;
+  const int rc = prepare(geom, ngeom, nullptr, 0, tap_offsets, group_sizes,
+                         group_weights, ntaps, ngroups, uniform,
+                         uniform_weight, l, taps, tp);
+  if (rc != 0) return rc;
+  return tables_fit(l.g, tap_offsets, ntaps, ngroups, uniform) ? 1 : 0;
+}
+
 const char* stencil_tiled_march_error(int code) {
   if (code == kErrArgument)
     return "rejected geometry, tap table or coefficients";
@@ -911,6 +1331,10 @@ const char* stencil_tiled_march_error(int code) {
     return "rings exceed 232448 bytes of shared memory";
   if (code == kErrPlane)
     return "a bf16 input plane exceeds 8192 points";
+  if (code == kErrTables)
+    return "not a plan of the point-table kernel (homogeneous fp32, six "
+           "radius-1 taps in one uniform group, k <= 8, each level's plane "
+           "in its passes)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -80,7 +80,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -417,13 +417,16 @@ class SweepKernel:
     ``march_two_level_pins_launches``, ``march_coeff_pins_launches``,
     ``march_bf16_launches`` (of them ``march_cheby_bf16_launches`` and
     ``march_dual_bf16_launches``), ``march_subset_launches`` and
-    ``march_source_subset_launches``.
+    ``march_source_subset_launches``; the march launches that ``tables``
+    sends to the march library's point-table kernel (entry
+    ``stencil_<march name>_tables``) again in ``march_table_launches``.
 
     ``name`` names the library and its C entry ``stencil_<name>``;
     ``source`` is the ``.cu`` file; ``replaces`` is where the TPU kernel
     it replaces is defined; ``schedule`` the plans' schedule its library
     runs; ``march``, the handle of the march library, which a plan of that
-    schedule launches."""
+    schedule launches; ``tables(plan, src)``, whether a homogeneous march
+    launch of ``plan`` (``src`` None) runs the point-table kernel."""
 
     MODE_COUNTS = ("source_launches", "cheby_launches", "dual_launches",
                    "two_level_launches", "coeff_launches", "pins_launches",
@@ -437,17 +440,20 @@ class SweepKernel:
                    "march_coeff_pins_launches", "march_bf16_launches",
                    "march_subset_launches", "march_source_subset_launches",
                    "march_cheby_launches", "march_dual_launches",
-                   "march_cheby_bf16_launches", "march_dual_bf16_launches")
+                   "march_cheby_bf16_launches", "march_dual_bf16_launches",
+                   "march_table_launches")
 
     def __init__(self, name: str, source: Path, replaces: str, ndim: int,
                  schedule: str = "window",
-                 march: Optional["SweepKernel"] = None):
+                 march: Optional["SweepKernel"] = None,
+                 tables: Optional[Callable] = None):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.ndim = ndim
         self.schedule = schedule
         self.march = march
+        self.tables = tables
         # kernel launches since the last reset (plain-version calls do not
         # count)
         self.reset_counts()
@@ -468,8 +474,10 @@ class SweepKernel:
     def _entry(self):
         """The library's C entries by mode: ``plain`` (also the source
         mode), ``error``, and where the source has them ``cheby``,
-        ``two_level`` and ``coeff``; each mode's bfloat16 twin, where the
-        source has it, under the mode's name + ``_bf16``."""
+        ``two_level``, ``coeff`` and ``tables`` (the march's point-table
+        kernel) with ``tables_fit`` (whether it takes a launch); each
+        mode's bfloat16 twin, where the source has it, under the mode's
+        name + ``_bf16``."""
         lib = ctypes.CDLL(str(self.build().path))
         P, I = ctypes.c_void_p, ctypes.c_int
         # the 3D kernel's tile subset: column ids (device) and their count
@@ -499,6 +507,8 @@ class SweepKernel:
             # in, the weight fields, out (device); geometry; the subset
             "_coeff": ([P, P, P, P, I] if self.schedule == "march"
                        else [P, P, P, P, I, P, I]) + cols,
+            # the plain mode's arguments, the source null
+            "_tables": [P, P, P, P, I] + cols,
         }
         entries = {}
         for suffix, args in argtypes.items():
@@ -508,6 +518,13 @@ class SweepKernel:
                     fn.restype = ctypes.c_int
                     fn.argtypes = args + taps
                 entries[(suffix.lstrip("_") or "plain") + twin] = fn
+        # whether the point-table kernel takes a launch: the geometry and
+        # the tap table, no device or stream
+        fit = getattr(lib, f"stencil_{self.name}_tables_fit", None)
+        if fit is not None:
+            fit.restype = ctypes.c_int
+            fit.argtypes = [P, I] + taps[:7]
+        entries["tables_fit"] = fit
         err = getattr(lib, f"stencil_{self.name}_error")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
@@ -606,10 +623,12 @@ class SweepKernel:
         return subset
 
     def count_launch(self, plan, src, pins: Tuple[int, ...], out2=None,
-                     subset=None) -> None:
+                     subset=None, tables: bool = False) -> None:
         """Add one launch of ``plan`` to the counts (the wrapper calls it
-        after each kernel launch, and only there)."""
+        after each kernel launch, and only there); ``tables``, whether the
+        launch ran the march's point-table kernel."""
         self.launches += 1
+        self.march_table_launches += tables
         bf16 = plan.dtype == "bfloat16"
         self.bf16_launches += bf16
         self.subset_launches += subset is not None
@@ -732,7 +751,8 @@ class SweepKernel:
                     out2.data_ptr() if out2 is not None else None,
                     src.data_ptr(), *geometry, *scalar_args, *cols)
         else:
-            mode = "plain"
+            mode = "tables" if self.tables is not None \
+                and self.tables(plan, src) else "plain"
             args = (cur.data_ptr(), nxt.data_ptr(),
                     src.data_ptr() if src is not None else None, *geometry,
                     *cols)
@@ -746,7 +766,7 @@ class SweepKernel:
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed ({rc}): "
                                f"{entries['error'](rc).decode()}")
-        self.count_launch(plan, src, pins, out2, subset)
+        self.count_launch(plan, src, pins, out2, subset, mode == "tables")
         return nxt if out2 is None else (nxt, out2)
 
 

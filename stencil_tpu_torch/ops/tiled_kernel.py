@@ -28,9 +28,17 @@ with pins and (but the two-level mode) tile subsets:
 through one shared-memory ring of planes per sweep level.
 ``tiled_sweep`` launches it for a march plan (the library handle
 ``tiled_march``) and counts the launch also in ``march_launches`` and its
-mode's ``march_*`` count. A march coefficient launch reads the four
-weight fields that ``coeff_weights(coeff, plan)`` forms from the padded
-a(x) once per run (``csrc/coeff_weights.cu``; plain version
+mode's ``march_*`` count. A homogeneous float32 march launch of
+jacobi7's tap table (six radius-1 taps in one group of uniform weight) at
+k <= 8 runs the march's point-table kernel (:func:`point_tables`, which
+asks the march library once per plan; entry
+``stencil_tiled_march_tables``), which forms each thread's points, their
+offsets and their interior bits once per launch; it counts again in
+``march_table_launches``. The split follows the plan and the launch, not
+a setting: every other launch runs ``tiled_march_kernel``. A march
+coefficient launch reads the four weight fields that
+``coeff_weights(coeff, plan)`` forms from the padded a(x) once per run
+(``csrc/coeff_weights.cu``; plain version
 ``sweep_kernel.coeff_weights_reference``; count ``launches``), in place
 of the a(x) the window reads.
 
@@ -51,8 +59,8 @@ import torch
 
 from stencil_tpu_torch import _build
 from stencil_tpu_torch.ops.sweep_kernel import (  # noqa: F401 (re-export)
-    SweepKernel, coeff_of, coeff_weights_reference, sweep_reference,
-    tap_table,
+    SweepKernel, all_pinned, coeff_of, coeff_weights_reference,
+    launch_tables, sweep_reference, tap_table,
 )
 
 SOURCE = _build.PACKAGE_DIR / "csrc" / "tiled_sweep.cu"
@@ -130,11 +138,37 @@ WEIGHTS_SOURCE = _build.PACKAGE_DIR / "csrc" / "coeff_weights.cu"
 # the TPU kernel's weight synthesis of the coefficient mode (prep_weights)
 REPLACES_MODE["coeff_weights"] = "stencil_tpu/ops/pallas_tiled.py:871"
 
+
+def point_tables(plan, src=None) -> bool:
+    """Whether a launch of ``plan`` with the padded source ``src`` runs the
+    march's point-table kernel: a march plan in the homogeneous mode (no
+    source, Chebyshev, dual, two-level or coefficient) in float32, which
+    the march library's point-table kernel takes
+    (``stencil_tiled_march_tables_fit``: jacobi7's tap table, six radius-1
+    taps in one group of uniform weight, k <= 8, every level's plane within
+    the passes of its instance), asked once per plan. Every other launch
+    runs ``tiled_march_kernel``."""
+    return src is None and getattr(plan, "schedule", "window") == "march" \
+        and plan.dtype == "float32" and not (
+            plan.cheby_coeffs or plan.two_level or plan.has_coeff) \
+        and _tables_fit(plan)
+
+
+@functools.lru_cache(maxsize=64)
+def _tables_fit(plan) -> bool:
+    geom, offsets, sizes, weights, uniform, uw, _ = launch_tables(
+        plan, all_pinned(3))
+    return tiled_march._entry["tables_fit"](
+        geom.ctypes.data, len(geom), offsets.ctypes.data, sizes.ctypes.data,
+        weights.ctypes.data, len(offsets) // 3, len(sizes), int(uniform),
+        uw) == 1
+
+
 # the march library (launched through tiled_sweep for a march plan)
 tiled_march = SweepKernel("tiled_march", MARCH_SOURCE, REPLACES, ndim=3,
                           schedule="march")
 tiled_sweep = SweepKernel("tiled_sweep", SOURCE, REPLACES, ndim=3,
-                          march=tiled_march)
+                          march=tiled_march, tables=point_tables)
 
 
 

@@ -1331,6 +1331,192 @@ def test_march_refuses_rather_than_falls_back(cuda_device):
     assert tiled_sweep.launches == 0
 
 
+# ---- the march's point-table kernel (tiled_march_kernel_tables) ------------
+
+
+def _march_kernel_launch(cur, nxt, plan, pins, subset=None):
+    """One launch of ``plan`` through tiled_march_kernel (the march
+    library's ``plain`` entry called directly, as the wrapper calls it
+    for every plan the point-table kernel does not take); no count."""
+    from stencil_tpu_torch.ops.sweep_kernel import column_ids, launch_tables
+    from stencil_tpu_torch.ops.tiled_kernel import tiled_march
+
+    geom, offsets, sizes, weights, uniform, uw, _ = launch_tables(plan, pins)
+    cols = (None, 0) if subset is None else (
+        column_ids(tuple(subset), cur.device).data_ptr(), len(subset))
+    rc = tiled_march._entry["plain"](
+        cur.data_ptr(), nxt.data_ptr(), None, geom.ctypes.data, len(geom),
+        *cols, offsets.ctypes.data, sizes.ctypes.data, weights.ctypes.data,
+        len(offsets) // 3, len(sizes), int(uniform), uw, cur.device.index,
+        torch.cuda.current_stream(cur.device).cuda_stream)
+    assert rc == 0, rc
+    return nxt
+
+
+@pytest.mark.parametrize("shape,k,periodic,neumann", [
+    ((256, 256, 256), 1, (), ()), ((256, 256, 256), 2, (), ()),
+    ((256, 256, 256), 4, (), ()), ((256, 256, 256), 8, (), ()),
+    ((256, 256, 256), 8, (0, 1), ()), ((57, 50, 46), 3, (0,), (1,)),
+    ((64, 48, 40), 5, (), (0, 1))])
+def test_march_tables_match_plain_and_window(cuda_device, shape, k, periodic,
+                                             neumann):
+    """A jacobi7 fp32 launch runs the point-table kernel, bitwise its plain
+    version, the window schedule's launch and tiled_march_kernel's launch
+    of the same plan; each launch raises ``march_table_launches``,
+    ``march_launches`` and ``launches`` by one."""
+    from stencil_tpu_torch.ops.tiled import dynamic_pins
+    from stencil_tpu_torch.ops.tiled_kernel import point_tables
+
+    sp = get_spec("jacobi7")
+    bc = _walls(3, periodic, neumann)
+    plan = make_tiled_plan(sp, shape, "float32", k)
+    window = make_tiled_plan(sp, shape, "float32", k, schedule="window")
+    assert plan.schedule == "march" and point_tables(plan)
+    cur = _refreshed(plan, bc, shape, 1, cuda_device)
+    pins = dynamic_pins(bc, 3)
+    tiled_sweep.reset_counts()
+    got = tiled_sweep(cur, cur.clone(), plan, pins=pins)
+    torch.cuda.synchronize()
+    assert (tiled_sweep.march_table_launches, tiled_sweep.march_launches,
+            tiled_sweep.launches) == (1, 1, 1)
+    assert tiled_sweep.march_pins_launches == (not all(pins))
+    old = _march_kernel_launch(cur, cur.clone(), plan, pins)
+    via_window = tiled_sweep(cur, cur.clone(), window, pins=pins)
+    torch.cuda.synchronize()
+    assert (tiled_sweep.march_table_launches, tiled_sweep.launches) == (1, 2)
+    assert torch.equal(got, sweep_reference(cur, plan, pins=pins))
+    assert torch.equal(got, old)
+    assert torch.equal(got, via_window)
+
+
+@pytest.mark.parametrize("shape,k,tiles,periodic", [
+    ((96, 80, 72), 4, (16, 16, 32), (0,)),
+    ((128, 128, 256), 8, (32, 32, 32), ())])
+def test_march_tables_subsets_pair_is_the_full_launch(cuda_device, shape, k,
+                                                      tiles, periodic):
+    """An interior then an edge subset launch through the point-table
+    kernel into one output, each bitwise its plain version and
+    tiled_march_kernel's subset launch, the pair the full launch; each
+    counted in ``march_table_launches`` and ``march_subset_launches``."""
+    from stencil_tpu_torch.ops.sweep_kernel import subset_reference
+    from stencil_tpu_torch.ops.tiled import dynamic_pins, partition_tiles
+    from stencil_tpu_torch.ops.tiled_kernel import point_tables
+
+    sp = get_spec("jacobi7")
+    bc = _walls(3, periodic)
+    plan = make_tiled_plan(sp, shape, "float32", k, tiles=tiles)
+    assert plan.schedule == "march" and point_tables(plan)
+    cur = _refreshed(plan, bc, shape, 1, cuda_device)
+    nxt = cur.clone()
+    nxt[plan.layout.interior_index] = -1.0
+    pins = dynamic_pins(bc, 3)
+    interior, edge = partition_tiles(plan)
+    assert interior and edge
+    tiled_sweep.reset_counts()
+    part = tiled_sweep(cur, nxt.clone(), plan, pins=pins, subset=interior)
+    got = tiled_sweep(cur, part.clone(), plan, pins=pins, subset=edge)
+    full = tiled_sweep(cur, nxt.clone(), plan, pins=pins)
+    old = _march_kernel_launch(cur, nxt.clone(), plan, pins, interior)
+    torch.cuda.synchronize()
+    assert (tiled_sweep.march_table_launches,
+            tiled_sweep.march_subset_launches, tiled_sweep.launches) \
+        == (3, 2, 3)
+    assert torch.equal(part, subset_reference(cur, nxt, plan, interior,
+                                              pins=pins))
+    assert torch.equal(part, old)
+    assert torch.equal(got, subset_reference(cur, part, plan, edge,
+                                             pins=pins))
+    assert torch.equal(got, full)
+
+
+def test_march_tables_refuse_other_plans(cuda_device):
+    """The point-table entry refuses a launch outside its instances (a
+    27-tap spec, k = 9) rather than computing it; the wrapper sends those
+    to tiled_march_kernel."""
+    from stencil_tpu_torch.ops.sweep_kernel import launch_tables
+    from stencil_tpu_torch.ops.tiled_kernel import point_tables, tiled_march
+
+    shape = (40, 40, 40)
+    for spec, k in ((get_spec("jacobi27"), 2), (get_spec("jacobi7"), 9)):
+        plan = make_tiled_plan(spec, shape, "float32", k)
+        assert plan.schedule == "march" and not point_tables(plan)
+        cur = plan.layout.pad_grid(_grid(shape, spec.radius, cuda_device))
+        geom, offsets, sizes, weights, uniform, uw, _ = launch_tables(
+            plan, (1, 1, 1, 1))
+        rc = tiled_march._entry["tables"](
+            cur.data_ptr(), cur.clone().data_ptr(), None, geom.ctypes.data,
+            len(geom), None, 0, offsets.ctypes.data, sizes.ctypes.data,
+            weights.ctypes.data, len(offsets) // 3, len(sizes), int(uniform),
+            uw, 0, torch.cuda.current_stream().cuda_stream)
+        assert rc == -4
+        tiled_sweep.reset_counts()
+        tiled_sweep(cur, cur.clone(), plan)
+        torch.cuda.synchronize()
+        assert (tiled_sweep.march_launches,
+                tiled_sweep.march_table_launches) == (1, 0)
+
+
+def _table_route_cases():
+    from stencil_tpu_torch.core.spec import StencilSpec
+
+    j7 = get_spec("jacobi7")
+    faces = ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1),
+             (0, 0, 1))
+    big = (512, 512, 512)
+    return [  # label, plan, the point-table kernel takes it
+        ("jacobi7 512^3 k=8 (.long)", make_tiled_plan(j7, big, "float32", 8),
+         True),
+        ("jacobi7 512^3 k=1 (.step)", make_tiled_plan(j7, big, "float32", 1),
+         True),
+        ("jacobi7 256^3 k=4", make_tiled_plan(j7, (256,) * 3, "float32", 4),
+         True),
+        ("jacobi7 ragged k=3", make_tiled_plan(j7, (57, 50, 46), "float32",
+                                               3), True),
+        ("7 taps (a centre and the faces)", make_tiled_plan(
+            StencilSpec(name="wj7", ndim=3, radius=1,
+                        offsets=((0, 0, 0), *faces),
+                        weights=(0.5,) + (1 / 12,) * 6),
+            (64,) * 3, "float32", 2), False),
+        ("the faces in another order", make_tiled_plan(
+            StencilSpec(name="j7r", ndim=3, radius=1, offsets=faces[::-1],
+                        weights=(1 / 6,) * 6), (64,) * 3, "float32", 2),
+         False),
+        ("k=9", make_tiled_plan(j7, (64,) * 3, "float32", 9), False),
+        ("k=1, a plane past the passes", make_tiled_plan(
+            j7, (16, 72, 72), "float32", 1, tiles=(8, 70, 70)), False),
+        ("k=4, a plane past the passes", make_tiled_plan(
+            j7, (64,) * 3, "float32", 4, tiles=(16, 52, 56)), False),
+        ("star3d_r2", make_tiled_plan(get_spec("star3d_r2"), (64,) * 3,
+                                      "float32", 2), False),
+        ("jacobi27", make_tiled_plan(get_spec("jacobi27"), (64,) * 3,
+                                     "float32", 2), False),
+    ]
+
+
+def test_march_tables_routing(cuda_device):
+    """The march library's answer to whether its point-table kernel takes
+    a homogeneous fp32 march plan, case by case: jacobi7 at the cells'
+    plans, 256^3 k=4 and ragged go; 7 taps, the six faces in another
+    order, k > 8, planes past the instance's passes, radius 2 and 27 taps
+    stay on tiled_march_kernel. Each plan of 64^3 or less launches through
+    the wrapper on the route the answer gives, counted there."""
+    from stencil_tpu_torch.ops.tiled_kernel import point_tables
+
+    for label, plan, want in _table_route_cases():
+        assert plan.schedule == "march", label
+        assert point_tables(plan) == want, label
+        if max(plan.interior_shape) > 64:
+            continue
+        cur = plan.layout.pad_grid(_grid(plan.interior_shape,
+                                         plan.spec.radius, cuda_device))
+        tiled_sweep.reset_counts()
+        got = tiled_sweep(cur, cur.clone(), plan)
+        torch.cuda.synchronize()
+        assert (tiled_sweep.march_launches,
+                tiled_sweep.march_table_launches) == (1, int(want)), label
+        assert torch.equal(got, sweep_reference(cur, plan)), label
+
+
 # ---- the two-level mode on the d0 march (B1d) ------------------------------
 
 

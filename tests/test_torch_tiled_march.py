@@ -30,12 +30,13 @@ from stencil_tpu import registry as jregistry
 from stencil_tpu.config import parse_args as jparse_args
 from stencil_tpu_torch import cli, registry, tile_sweep
 from stencil_tpu_torch.config import parse_args
-from stencil_tpu_torch.core.spec import get_spec
+from stencil_tpu_torch.core.spec import StencilSpec, get_spec
 from stencil_tpu_torch.multigrid import nbsum_spec
 from stencil_tpu_torch.ops import eager
 from stencil_tpu_torch.ops.sweep_kernel import (
-    subset_reference, sweep_reference,
+    subset_reference, sweep_reference, tap_table,
 )
+from stencil_tpu_torch.ops import tiled_kernel
 from stencil_tpu_torch.ops.tiled import (
     MARCH_THREADS, SCHEDULES, SMEM_LIMIT,
     choose_march_tiles, make_tiled_plan, march_fits, march_smem_bytes,
@@ -374,3 +375,403 @@ def test_tiled_cli_on_a_march_plan_matches_jax_pallas_temporal(tmp_path,
     got = trun.iterate(tgrid, 4).interior().float().numpy()
     want = np.asarray(jrun.iterate(jgrid, 4).interior()).astype(np.float32)
     np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+# ---- the point-table kernel (tiled_march_kernel_tables) ---------------------
+
+# jacobi7's taps in weight_groups order, the order the kernel compiles in
+J7_TAPS = tuple(map(tuple, tap_table(get_spec("jacobi7"))[0].reshape(
+    -1, 3).tolist()))
+
+def _levels(plan):
+    """(rows, cols) of each level s = 0 .. k's plane, and each level s < k's
+    ring offset in a slot, in elements."""
+    k = plan.sweeps_per_call
+    _, t1, t2 = plan.tiles
+    rows = [t1 + 2 * (k - s) for s in range(k + 1)]
+    cols = [t2 + 2 * (k - s) for s in range(k + 1)]
+    ring = np.cumsum([0] + [rows[s] * cols[s] for s in range(k)])
+    return rows, cols, [int(v) for v in ring]
+
+
+def _block_origin(plan, col, i2):
+    """The padded origin (a0, o1, o2) of a block's input region, clamped as
+    the kernels clamp it."""
+    k, H = plan.sweeps_per_call, plan.layout.halo
+    (n0, n1, n2), (t0, t1, t2) = plan.interior_shape, plan.tiles
+    i0, i1 = divmod(col, plan.num_tiles[1])
+    return (min(i0 * t0, n0 - t0) + H - k, min(i1 * t1, n1 - t1) + H - k,
+            min(i2 * t2, n2 - t2) + H - k)
+
+
+def table_passes(plan):
+    """Passes of 512 threads the emulated instance holds at each level s
+    = 0 .. k: one more than the level's plane needs, since an instance
+    sized for the chooser's largest tile computes passes that hold no
+    point of a smaller plane (which must then store nothing)."""
+    rows, cols, _ = _levels(plan)
+    n = [rows[0] * cols[0]] + [rows[s] * cols[s - 1] - 2
+                               for s in range(1, len(rows))]
+    return [-(-v // MARCH_THREADS) + 1 for v in n]
+
+
+def point_tables_of(plan, col, i2, pins):
+    """The point-table kernel's tables of one block, every thread at once
+    (index [u, tid]), in its byte arithmetic, the rings starting at 0:
+    ``load`` (the input plane's fetch offsets), ``home`` (per level s < k,
+    the slot-0 address a point is stored at), ``put`` (level k's offsets
+    in ``out``), ``keep`` and ``inner`` (per level s = 1 .. k, bool: the
+    point lies in the plane; level s updates it in d1 and d2), ``point``
+    (per level, the flattened point (y, x) = divmod(i, cols[s-1]) an entry
+    holds, the index clamped), ``raw`` (per level, the index tid + 512u of
+    each of its ``table_passes`` passes), ``lim`` (per pass of the input
+    plane's fetch, its points less 512u) and ``end`` (per level, the last
+    walked point's slot-0 address, where a thread past the end clamps its
+    loads)."""
+    k, H = plan.sweeps_per_call, plan.layout.halo
+    n1, n2 = plan.interior_shape[1:]
+    p2 = plan.layout.padded_shape[2]
+    rows, cols, ring = _levels(plan)
+    a0, o1, o2 = _block_origin(plan, col, i2)
+    passes = table_passes(plan)
+    raw = [np.arange(P)[:, None] * MARCH_THREADS + np.arange(MARCH_THREADS)
+           for P in passes]
+    n = [rows[0] * cols[0]] + [rows[s] * cols[s - 1] - 2
+                               for s in range(1, k + 1)]
+    lim = n[0] - MARCH_THREADS * np.arange(passes[0])
+    y0, x0 = np.divmod(np.minimum(raw[0], n[0] - 1), cols[0])
+    load = (y0 * p2 + x0) * 4
+    home, keep, inner, point, end = {}, {}, {}, {}, {}
+    for s in range(1, k + 1):
+        ws, wp = cols[s], cols[s - 1]
+        y, x = np.divmod(np.minimum(raw[s], n[s] - 1), wp)
+        point[s] = (y, x)
+        keep[s] = (raw[s] < n[s]) & (x < ws)
+        end[s] = (n[s] - 1) * 4
+        r1, r2 = o1 + s, o2 + s
+        ylo = H - r1 if pins[2] else -2**31
+        yhi = H + n1 - r1 if pins[3] else 2**31 - 1
+        inner[s] = (y >= ylo) & (y < yhi) & (x >= H - r2) \
+            & (x < H - r2 + n2)
+        if s < k:
+            home[s] = (ring[s] + y * ws + x) * 4
+        else:
+            put = (y * p2 + x) * 4
+    return dict(load=load, home=home, put=put, keep=keep, inner=inner,
+                point=point, raw=raw, lim=lim, end=end, origin=(a0, o1, o2))
+
+
+def present_kernel_points(plan, s, col, i2, pins):
+    """tiled_march_kernel's points of level s < k in one block, every
+    thread's passes in order, as it walks them: the start row by the fp32
+    reciprocal, then the carried (row, column); each with its update test
+    in d1 and d2. Returns {flattened point: updated}."""
+    k, H = plan.sweeps_per_call, plan.layout.halo
+    n1, n2 = plan.interior_shape[1:]
+    rows, cols, _ = _levels(plan)
+    _, o1, o2 = _block_origin(plan, col, i2)
+    ws, n = cols[s], rows[s] * cols[s]
+    inv = np.float32(1.0) / np.float32(ws)
+    r1, r2 = o1 + s, o2 + s
+    ylo = H - r1 if pins[2] else -2**31
+    yhi = H + n1 - r1 if pins[3] else 2**31 - 1
+    out = {}
+    for tid in range(MARCH_THREADS):
+        y = int(np.trunc((np.float32(tid) + np.float32(0.5)) * inv))
+        x = tid - y * ws
+        for i in range(tid, n, MARCH_THREADS):
+            assert i not in out
+            out[i] = ylo <= y < yhi and H - r2 <= x < H - r2 + n2
+            x += MARCH_THREADS % ws
+            y += MARCH_THREADS // ws
+            if x >= ws:
+                x -= ws
+                y += 1
+    return out
+
+
+def emulate_tables(plan, cur, pins=(1, 1, 1, 1), subset=None, out=None):
+    """One launch of the point-table kernel, block by block and step by
+    step: a flat float32 shared memory of 4 slots; each of level s's
+    ``table_passes`` passes u reads the six taps (``J7_TAPS`` order,
+    then the one multiply) at the thread's address min(4*(tid + 512u),
+    end) plus the step's slot and the level's tap offset, takes the centre
+    where a point is not updated and stores it where ``keep`` says.
+    Returns ``out`` (a clone of ``cur`` by default) with the swept columns
+    written and the count of writes of each point; asserts every shared access in the rings and every global
+    one in the padded array."""
+    k, S = plan.sweeps_per_call, 4
+    P = table_passes(plan)
+    H = plan.layout.halo
+    n0 = plan.interior_shape[0]
+    t0 = plan.tiles[0]
+    pad = plan.layout.padded_shape
+    pstride = pad[1] * pad[2]
+    rows, cols, ring = _levels(plan)
+    q = ring[-1]
+    q4, pass4 = q * 4, MARCH_THREADS * 4
+    weight = torch.tensor(tap_table(plan.spec)[4], dtype=torch.float32)
+    flat_in = cur.reshape(-1)
+    out = (cur if out is None else out).clone()
+    flat_out = out.reshape(-1)
+    writes = torch.zeros(out.numel(), dtype=torch.int32)
+    tid = torch.arange(MARCH_THREADS)
+    lo0 = H if pins[0] else -2**31
+    hi0 = H + n0 if pins[1] else 2**31 - 1
+    planes = t0 + 2 * k
+    last = t0 + k - 1 + 2 * k - 1
+    tcols = range(plan.num_tiles[0] * plan.num_tiles[1]) if subset is None \
+        else subset
+    for col in tcols:
+        for i2 in range(plan.num_tiles[2]):
+            tb = point_tables_of(plan, col, i2, pins)
+            a0, o1, o2 = tb["origin"]
+            gin = a0 * pstride + o1 * pad[2] + o2
+            gout = a0 * pstride + (o1 + k) * pad[2] + o2 + k
+            smem = torch.zeros(S * q, dtype=torch.float32)
+
+            def lds(addr):
+                addr = torch.as_tensor(addr)
+                assert bool((addr >= 0).all() and (addr < S * q4).all())
+                assert bool((addr % 4 == 0).all())
+                return smem[addr // 4]
+
+            def fetch(m, w):
+                for u in range(P[0]):
+                    ok = tid < int(tb["lim"][u])
+                    g = gin + m * pstride + torch.as_tensor(
+                        tb["load"][u]) // 4
+                    assert bool((g[ok] >= 0).all()
+                                and (g[ok] < flat_in.numel()).all())
+                    dst = (w * q4 + tid * 4 + u * pass4) // 4
+                    assert bool((dst[ok] < w * q + rows[0] * cols[0]).all())
+                    smem[dst[ok]] = flat_in[g[ok]]
+
+            fetch(0, 1)
+            c = 0
+            for j in range(last + 1):
+                w = (c + 2) % S
+                if j + 1 < planes:
+                    fetch(j + 1, w)
+                below, centre, above = ((c + 3) % S) * q4, c * q4, \
+                    ((c + 1) % S) * q4
+                for s in range(1, k + 1):
+                    m = j - (2 * s - 1)
+                    if m < s or m >= planes - s:
+                        continue
+                    wp = cols[s - 1]
+                    ctr = (ring[s - 1] + wp + 1) * 4
+                    slot = {-1: below, 0: centre, 1: above}
+                    offs = [slot[d0] + ctr + (d1 * wp + d2) * 4
+                            for d0, d1, d2 in J7_TAPS]
+                    v, at = {}, {}
+                    for u in range(P[s]):
+                        at[u] = torch.clamp(tid * 4 + u * pass4,
+                                            max=tb["end"][s])
+                        acc = lds(at[u] + offs[0])
+                        for o in offs[1:]:
+                            acc = acc + lds(at[u] + o)
+                        v[u] = acc * weight
+                    if s < k:
+                        live0 = lo0 <= a0 + m < hi0
+                        for u in v:
+                            due = torch.as_tensor(tb["inner"][s][u]) \
+                                & live0
+                            val = torch.where(due, v[u],
+                                              lds(at[u] + centre + ctr))
+                            ok = torch.as_tensor(tb["keep"][s][u])
+                            dst = (torch.as_tensor(tb["home"][s][u])
+                                   + w * q4) // 4
+                            assert bool((dst[ok] >= w * q + ring[s]).all()
+                                        and (dst[ok] < w * q + ring[s]
+                                             + rows[s] * cols[s]).all())
+                            smem[dst[ok]] = val[ok]
+                    else:
+                        for u in v:
+                            ok = torch.as_tensor(tb["keep"][k][u])
+                            g = gout + m * pstride + torch.as_tensor(
+                                tb["put"][u]) // 4
+                            flat_out[g[ok]] = v[u][ok]
+                            writes[g[ok]] += 1
+                c = (c + 1) % S
+    return out, writes.reshape(out.shape)
+
+
+TABLE_CASES = [  # shape, k, tiles, pins: the cells' depths and tile
+    # ratios cut small (.long: k=8, a d0 chunk of half the grid; .step:
+    # k=1, square d1/d2 tiles), ragged clamped tiles, live d0/d1 faces
+    ((12, 10, 11), 8, (6, 4, 4), (1, 1, 1, 1)),
+    ((10, 12, 12), 1, (5, 6, 6), (1, 1, 1, 1)),
+    ((9, 10, 11), 3, (4, 4, 8), (0, 0, 1, 1)),
+    ((12, 10, 9), 5, (8, 5, 4), (0, 1, 0, 1)),
+    ((9, 8, 10), 2, (4, 3, 7), (1, 0, 0, 0)),
+    ((40, 48, 50), 2, (8, 40, 48), (1, 1, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,k,tiles,pins", TABLE_CASES)
+def test_point_tables_cover_each_point_once(shape, k, tiles, pins):
+    """At every level of every block, the threads x passes that ``keep``
+    admits hold each point of the level's plane exactly once (the columns
+    walked past the plane's width, the entries past its end and a whole
+    pass past it never); ``home`` and ``put`` place each kept point where
+    tiled_march_kernel stores it; every tap a thread reads,
+    clamped or not, lies inside level s-1's plane. The input plane's
+    fetch covers its plane once."""
+    plan = make_tiled_plan(get_spec("jacobi7"), shape, "float32", k,
+                           tiles=tiles)
+    assert plan.schedule == "march"
+    rows, cols, ring = _levels(plan)
+    p2 = plan.layout.padded_shape[2]
+    tid = np.arange(MARCH_THREADS)
+    for col in range(plan.num_tiles[0] * plan.num_tiles[1]):
+        for i2 in range(plan.num_tiles[2]):
+            tb = point_tables_of(plan, col, i2, pins)
+            fetched = tb["raw"][0][tid[None, :] < tb["lim"][:, None]]
+            assert sorted(fetched.tolist()) == list(
+                range(rows[0] * cols[0]))
+            for s in range(1, k + 1):
+                y, x = tb["point"][s]
+                kept = tb["keep"][s]
+                flat = (y * cols[s] + x)[kept]
+                assert sorted(flat.tolist()) == list(range(rows[s]
+                                                           * cols[s]))
+                if s < k:
+                    assert np.array_equal(tb["home"][s][kept] // 4,
+                                          ring[s] + flat)
+                else:
+                    assert np.array_equal(tb["put"][kept],
+                                          ((y * p2 + x) * 4)[kept])
+                wp = cols[s - 1]
+                at = np.minimum(tb["raw"][s], tb["end"][s] // 4)
+                for _, d1, d2 in J7_TAPS:
+                    q = at + wp + 1 + d1 * wp + d2
+                    assert q.min() >= 0 and q.max() < rows[s - 1] * wp
+
+
+@pytest.mark.parametrize("shape,k,tiles,pins", TABLE_CASES[:5])
+def test_interior_bits_are_the_present_kernels_test(shape, k, tiles, pins):
+    """Each point's interior bit equals tiled_march_kernel's per-point
+    test of d1 and d2, carried row and column and all, on ragged clamped
+    tiles and with live d0/d1 faces."""
+    plan = make_tiled_plan(get_spec("jacobi7"), shape, "float32", k,
+                           tiles=tiles)
+    for col in range(plan.num_tiles[0] * plan.num_tiles[1]):
+        for i2 in range(plan.num_tiles[2]):
+            tb = point_tables_of(plan, col, i2, pins)
+            for s in range(1, k):
+                want = present_kernel_points(plan, s, col, i2, pins)
+                y, x = tb["point"][s]
+                kept = tb["keep"][s]
+                got = dict(zip((y * _levels(plan)[1][s] + x)[kept].tolist(),
+                               tb["inner"][s][kept].tolist()))
+                assert got == want
+
+
+@pytest.mark.parametrize("shape,k,tiles,pins", TABLE_CASES)
+def test_table_march_is_the_plain_version(shape, k, tiles, pins):
+    """The launch stepped through the point tables equals the plain
+    version bitwise at the cells' depths and tile ratios cut small, on
+    ragged clamped tiles and live faces; every interior point written,
+    the ghosts never; an interior then an edge subset launch each
+    ``subset_reference``, the pair the full launch."""
+    rng = np.random.default_rng(11)
+    plan = make_tiled_plan(get_spec("jacobi7"), shape, "float32", k,
+                           tiles=tiles)
+    assert plan.schedule == "march"
+    cur = _padded(plan, rng, pins)
+    got, writes = emulate_tables(plan, cur, pins)
+    assert torch.equal(got, sweep_reference(cur, plan, pins=pins))
+    idx = plan.layout.interior_index
+    assert bool((writes[idx] >= 1).all())
+    ghosts = torch.ones_like(writes, dtype=torch.bool)
+    ghosts[idx] = False
+    assert not bool(writes[ghosts].any())
+    interior, edge = partition_tiles(plan)
+    if interior and edge:
+        base = torch.full_like(cur, -1.0)
+        mid, _ = emulate_tables(plan, cur, pins, interior, base)
+        assert torch.equal(mid, subset_reference(cur, base, plan, interior,
+                                                 pins=pins))
+        both, _ = emulate_tables(plan, cur, pins, edge, mid)
+        assert torch.equal(both, subset_reference(cur, mid, plan, edge,
+                                                  pins=pins))
+        assert torch.equal(both[idx], got[idx])
+
+
+def _route_cases():
+    j7, nb = get_spec("jacobi7"), nbsum_spec(3)
+    co = ((1.0, 0.1, 0.0, -0.1), (0.9, 0.2, -0.1, -0.2))
+    big = (512, 512, 512)
+    src = object()
+    return [  # label, plan, src, asks the library
+        ("jacobi7 512^3 k=8 (.long)", make_tiled_plan(j7, big, "float32", 8),
+         None, True),
+        ("jacobi7 512^3 k=1 (.step)", make_tiled_plan(j7, big, "float32", 1),
+         None, True),
+        ("jacobi27 k=2", make_tiled_plan(get_spec("jacobi27"), (64,) * 3,
+                                         "float32", 2), None, True),
+        ("k=9", make_tiled_plan(j7, (64,) * 3, "float32", 9), None, True),
+        ("source (Poisson)", make_tiled_plan(j7, big, "float32", 8,
+                                             has_source=True), src, False),
+        ("Chebyshev", make_tiled_plan(nb, (64,) * 3, "float32", 2,
+                                      has_source=True, cheby_coeffs=co),
+         src, False),
+        ("dual", make_tiled_plan(nb, (64,) * 3, "float32", 2,
+                                 has_source=True, cheby_coeffs=co,
+                                 cheby_dual=True), src, False),
+        ("two-level", make_tiled_plan(j7, (64,) * 3, "float32", 2,
+                                      two_level=True), None, False),
+        ("coefficient", make_tiled_plan(j7, (64,) * 3, "float32", 2,
+                                        coeff_scales=(1, 1, -6)),
+         None, False),
+        ("bf16", make_tiled_plan(j7, big, "bfloat16", 8), None, False),
+        ("window schedule", make_tiled_plan(j7, big, "float32", 8,
+                                            schedule="window"), None, False),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_route_cases())))
+def test_point_table_routing(case, monkeypatch):
+    """The predicate that sends a march launch to the point-table kernel
+    decides the mode and leaves the plan to the march library: a
+    homogeneous float32 march launch asks the library (once per plan,
+    whatever its taps and depth), and runs the point-table kernel where
+    the library says it fits; the source, Chebyshev, dual, two-level and
+    coefficient modes, bf16 and the window schedule stay on their kernels
+    without asking. The library's own answers are held on the card
+    (``tests/test_torch_cuda.py::test_march_tables_routing``)."""
+    label, plan, src, asks = _route_cases()[case]
+    asked = []
+
+    def fit(p):
+        asked.append(p)
+        return True
+
+    monkeypatch.setattr(tiled_kernel, "_tables_fit", fit)
+    assert tiled_kernel.point_tables(plan, src) == asks, label
+    assert asked == ([plan] if asks else []), label
+    asked.clear()
+    monkeypatch.setattr(tiled_kernel, "_tables_fit", lambda p: False)
+    assert not tiled_kernel.point_tables(plan, src), label
+
+
+def test_point_table_launches_are_counted_apart():
+    """A launch the wrapper sends to the point-table kernel counts in
+    ``march_table_launches`` beside ``launches`` and the homogeneous
+    mode's counts, and in no other mode's count; any other launch leaves
+    it alone."""
+    from stencil_tpu_torch.ops.tiled_kernel import tiled_sweep
+
+    plan = make_tiled_plan(get_spec("jacobi7"), (64,) * 3, "float32", 4)
+    for tables in (True, False):
+        tiled_sweep.reset_counts()
+        tiled_sweep.count_launch(plan, None, (1, 0, 1, 1), tables=tables)
+        counts = {c: getattr(tiled_sweep, c)
+                  for c in tiled_sweep.MODE_COUNTS if getattr(tiled_sweep, c)}
+        want = {"march_launches": 1, "march_pins_launches": 1,
+                "pins_launches": 1}
+        if tables:
+            want["march_table_launches"] = 1
+        assert (tiled_sweep.launches, counts) == (1, want)
+    tiled_sweep.reset_counts()
