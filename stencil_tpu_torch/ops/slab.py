@@ -84,6 +84,7 @@ from stencil_tpu_torch.ops.sweep_kernel import KernelStencil
 from stencil_tpu_torch.ops.tiled import (  # noqa: F401 (re-export)
     DTYPES, SCHEDULES, SMEM_LIMIT, WINDOW_THREADS, TiledPlan, _smem_bytes,
 )
+from stencil_tpu_torch.utils.tracing import count, span
 
 _T0_CANDIDATES = (8, 16, 32, 64, 128, 256)
 # the chooser's cost model in warp slots: a block's fixed cost, a window
@@ -366,7 +367,18 @@ def make_slab_plan(spec: StencilSpec, interior_shape, dtype="float32",
     ``tiles`` pins (t0, t1), ``t0_fixed`` (the CLI's ``-b``) pins only
     t0, the window's rows per tile or the march's chunk. ``schedule``
     None takes the rule of the module docstring (``tiles`` given: the
-    window); "march" or "window" asks for one."""
+    window); "march" or "window" asks for one. Each plan made is the span
+    ``plan.make`` and counts in ``plans_made``, as a 3D plan does
+    (``ops/tiled.py:make_tiled_plan``)."""
+    with span("plan.make"):
+        plan = _make_slab_plan(spec, interior_shape, dtype, sweeps_per_call,
+                               tiles, t0_fixed, schedule)
+    count("plans_made")
+    return plan
+
+
+def _make_slab_plan(spec, interior_shape, dtype, sweeps_per_call, tiles,
+                    t0_fixed, schedule) -> SlabPlan:
     if spec.ndim != 2 or len(interior_shape) != 2:
         raise ValueError("slab kernel is 2D-only in the port (3D grids run "
                          "the tiled kernel)")

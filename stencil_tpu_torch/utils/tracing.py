@@ -5,9 +5,10 @@ A span names one piece of work at a layer's boundary, ``<layer>.<what>``:
 ``runner.*`` in ``ops/sweep_kernel.py:KernelStencil.iterate``, ``cg.*`` in
 ``krylov.py:ConjugateGradient.solve``, ``mg.*`` in the multigrid cycle
 (``mg.level<n>`` for each coarse level, holding every deeper one) and
-``plan.make`` in ``ops/tiled.py:make_tiled_plan``. A counter counts events
-at the same boundaries: ``host_syncs`` (every device-to-host read on those
-paths) and ``plans_made``.
+``plan.make`` in ``ops/tiled.py:make_tiled_plan`` and
+``ops/slab.py:make_slab_plan``. A counter counts events at the same
+boundaries: ``host_syncs`` (every device-to-host read on those paths) and
+``plans_made``.
 
 Tracing is off by default. Then :func:`span` returns one shared context
 that does nothing (it reads no clock and allocates nothing) and
