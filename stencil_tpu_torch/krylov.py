@@ -16,12 +16,12 @@ their ghosts.
 
 Where the JAX solve is one ``while_loop`` with one fetch, this loop stays on
 the host but keeps every scalar (alpha, beta, rho, the iteration count, a
-converged flag) as a 0-dim device tensor. It reads the flag on the host
-only every ``check_every`` iterations; the iterations run after
-convergence and before that check are masked (alpha = 0 and the count
-frozen, through ``torch.where`` on the flag), so the returned grid,
-``iterations`` and ``residual`` equal those of a check after every
-iteration. ``BiCGStab`` reads its convergence test on the host after
+converged flag) as a 0-dim device tensor. On a CUDA device it reads the
+flag on the host after every pass; on the CPU every ``check_every``
+passes. The passes run after convergence and before that read are masked
+(alpha = 0 and the count frozen, through ``torch.where`` on the flag), so
+the returned grid, ``iterations`` and ``residual`` equal those of a read
+after every pass. ``BiCGStab`` reads its convergence test on the host after
 every iteration instead (its cycles are host-bound, so the sync costs
 little), and returns the JAX solve's iteration count and certificate;
 ``GMRES`` reads its residual estimate after every Arnoldi step (see its
@@ -169,6 +169,15 @@ def _operators(problem, preconditioner, mesh, dim, replicate_below):
                                                 kdatas)
 
 
+def _read_every(device: torch.device, check_every: int) -> int:
+    """How many passes apart CG reads its converged flag on the host: after
+    every pass on a CUDA device, where the read costs the host's lead over
+    the device and a masked pass costs a whole V-cycle of device and host
+    time; every ``check_every`` passes on the CPU, where a pass runs as
+    the host issues it."""
+    return 1 if device.type == "cuda" else check_every
+
+
 @dataclasses.dataclass(frozen=True)
 class ConjugateGradient:
     """CG / MG-preconditioned CG for a ``PoissonProblem`` (Dirichlet walls
@@ -251,9 +260,10 @@ class ConjugateGradient:
         """Solve to ``||r||_2 <= tolerance * ||b||_2`` (relative 2-norm;
         fp32 floors near ~1e-6). ``initial`` warm-starts from an existing
         iterate; ``b`` is then the residual of that iterate, so
-        ``tolerance`` contracts the initial residual. The converged flag
-        is read on the host every ``check_every`` iterations (see the
-        module docstring): the result does not depend on it. ``mesh`` (a
+        ``tolerance`` contracts the initial residual. On the CPU the
+        converged flag is read on the host every ``check_every`` passes,
+        on a CUDA device after every pass (see the module docstring): the
+        result does not depend on it. ``mesh`` (a
         1D or 2D ``parallel/mesh.py`` mesh) distributes the solve (see the
         module docstring): the vectors shard along grid dims ``dim..``, the
         preconditioning cycle runs its ladder (``replicate_below``)."""
@@ -309,14 +319,16 @@ class ConjugateGradient:
                 return ~(_dot(r, r) > tol2 * bb) | (k >= max_iterations)
 
             done = finished(r, k)
+            every = _read_every(done.device, check_every)
         for it in range(max_iterations):
             with span("cg.iteration"):
-                if it % check_every == 0:
+                if it % every == 0:
                     count("host_syncs")
                     with span("cg.check"):
                         stop = bool(done)
                     if stop:
                         break
+                count("cg_passes")
                 with span("cg.matvec"):
                     q = A(p)
                 with span("cg.update"):

@@ -7,8 +7,9 @@ A span names one piece of work at a layer's boundary, ``<layer>.<what>``:
 (``mg.level<n>`` for each coarse level, holding every deeper one) and
 ``plan.make`` in ``ops/tiled.py:make_tiled_plan`` and
 ``ops/slab.py:make_slab_plan``. A counter counts events at the same
-boundaries: ``host_syncs`` (every device-to-host read on those paths) and
-``plans_made``.
+boundaries: ``host_syncs`` (every device-to-host read on those paths),
+``cg_passes`` (CG's loop passes that run a matvec and a preconditioning
+cycle; less the iterations, the masked ones) and ``plans_made``.
 
 Tracing is off by default. Then :func:`span` returns one shared context
 that does nothing (it reads no clock and allocates nothing) and

@@ -1969,3 +1969,48 @@ def test_streamed_stream_ordering_soak(cuda_device):
     assert m._host_buffers()[0].is_pinned()
     for _ in range(10):
         assert torch.equal(m.iterate_host(x0, 24, bc=bc), want.cpu())
+
+
+# ---- CG's converged flag, read after every pass (krylov.py:_read_every) ---
+
+
+def test_pcg_reads_its_flag_after_every_pass(cuda_device, monkeypatch):
+    """The ``poisson_511.pcg`` cell's solver at 63^3: on the card the loop
+    reads the converged flag after every pass, whatever ``check_every``,
+    runs no masked pass, and returns bitwise the grid, count and residual
+    of the CPU's cadence (a read every ``check_every`` passes) on the
+    card."""
+    from stencil_tpu_torch import krylov
+    from stencil_tpu_torch.utils import tracing
+
+    shape = (63, 63, 63)
+    prob = PoissonProblem(shape=shape, device=cuda_device)
+    mg = Multigrid(prob, nu1=2, nu2=2, smoother="chebyshev",
+                   cheby_ratio=4.0, coarse_sweeps=32,
+                   fine_method="pallas_tiled")
+    cg = krylov.ConjugateGradient(prob, preconditioner=mg)
+    f = torch.randn(shape, generator=torch.Generator().manual_seed(11)).to(
+        cuda_device)
+
+    def solve(**kw):
+        before = tracing.counters()
+        got = cg.solve(f, tolerance=1e-4, max_iterations=50, **kw)
+        after = tracing.counters()
+        return got, {k: after[k] - before.get(k, 0)
+                     for k in ("cg_passes", "host_syncs")}
+
+    card, n = solve()
+    card_1, n_1 = solve(check_every=1)
+    monkeypatch.setattr(krylov, "_read_every",
+                        lambda device, check_every: check_every)
+    cpu_1, _ = solve(check_every=1)
+    cpu_8, n_8 = solve(check_every=8)
+    its = card.iterations
+    assert card.converged and its > 1, card.summary()
+    assert n == n_1 == {"cg_passes": its, "host_syncs": its + 2}
+    assert n_8["cg_passes"] == 8 * -(-its // 8)
+    for other in (card_1, cpu_1, cpu_8):
+        assert other.iterations == its
+        assert other.residual == card.residual
+        assert other.residual_rel == card.residual_rel
+        assert torch.equal(other.grid.data, card.grid.data)

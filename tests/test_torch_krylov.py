@@ -3,7 +3,7 @@ JAX package's (stencil_tpu/krylov.py) on the CPU: plain CG and PCG with the
 eager and the tiled-fine multigrid cycle (the kernel's plain version on the
 CPU), nonzero walls, warm starts, the bf16 preconditioning cycle, the
 gates, and the host check every ``check_every`` iterations changing
-nothing.
+nothing, nor the card's read after every pass.
 
 Tolerances: the same iteration count as JAX (the port computes the same
 operations in the same order; only the dot products sum in another order);
@@ -22,12 +22,14 @@ from stencil_tpu.krylov import ConjugateGradient as JCG
 from stencil_tpu.models.poisson import PoissonProblem as JPoisson
 from stencil_tpu.models.poisson import manufactured_sine
 from stencil_tpu.multigrid import Multigrid as JMG
-from stencil_tpu_torch import convert
+from stencil_tpu_torch import convert, krylov
 from stencil_tpu_torch.core.grid import DirichletBC, HaloGrid
 from stencil_tpu_torch.krylov import (
     BiCGStab, CGResult, ConjugateGradient as TCG, GMRES, _initial_or,
+    _read_every,
 )
 from stencil_tpu_torch.multigrid import Multigrid as TMG
+from stencil_tpu_torch.utils import tracing
 
 TOL = 1e-6
 
@@ -131,6 +133,42 @@ def test_check_every_changes_nothing(rng, precond):
             assert got.residual == every.residual
             assert torch.equal(got.grid.data, every.grid.data)
     assert every.iterations == 5 and not every.converged
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("check_every", [1, 2, 8, 200])
+def test_the_card_reads_the_flag_after_every_pass(device, check_every):
+    got = _read_every(torch.device(device), check_every)
+    assert got == (1 if device == "cuda" else check_every)
+
+
+@pytest.mark.parametrize("precond", [None, "mg", "tiled"])
+@pytest.mark.parametrize("tol,maxit", [(1e-5, 200), (1e-12, 5)])
+def test_the_card_cadence_changes_nothing(rng, precond, tol, maxit,
+                                          monkeypatch):
+    """A solve at the card's cadence (a read after every pass, whatever
+    ``check_every``) runs no masked pass and returns the grid, count and
+    residual of the CPU's cadence; a budget cut still stops at the
+    budget."""
+    shape = (15, 15, 15)
+    _, tp = _problems(shape)
+    f = rng.normal(size=shape).astype(np.float32)
+    solver = _pair(JPoisson(shape=shape), tp, precond)[1]
+    cpu = solver.solve(f, tolerance=tol, max_iterations=maxit, check_every=8)
+    monkeypatch.setattr(krylov, "_read_every", lambda device, every: 1)
+    before = tracing.counters()
+    got = solver.solve(f, tolerance=tol, max_iterations=maxit, check_every=8)
+    after = tracing.counters()
+    passes = after["cg_passes"] - before.get("cg_passes", 0)
+    assert passes == got.iterations
+    # a read at the top of every pass and after the last, the stats copy
+    assert after["host_syncs"] - before.get("host_syncs", 0) \
+        == min(passes + 1, maxit) + 1
+    assert got.converged == (maxit == 200)
+    assert got.iterations == cpu.iterations
+    assert got.residual == cpu.residual
+    assert got.residual_rel == cpu.residual_rel
+    assert torch.equal(got.grid.data, cpu.grid.data)
 
 
 def test_bf16_preconditioning_cycle():

@@ -2,8 +2,9 @@
 CPU: off, a span is one shared context that records nothing and the
 results are bitwise those of a traced run; on, a PCG solve and a runner's
 iterate record the spans their layers name, each under the right parent
-and call, and the counters count the solve's host reads and the plans it
-makes; ``--profile`` puts the spans in the profiler's Chrome trace."""
+and call, and the counters count the solve's host reads, its loop passes
+and the plans it makes; ``--profile`` puts the spans in the profiler's
+Chrome trace."""
 
 import json
 import math
@@ -97,11 +98,13 @@ def test_results_are_bitwise_the_same_on_and_off(path):
 def test_a_pcg_solve_records_its_iterations_and_levels(traced, check_every):
     cg, f = _pcg()
     syncs = tracing.counters().get("host_syncs", 0)
+    runs = tracing.counters().get("cg_passes", 0)
     result = cg.solve(f, tolerance=1e-5, check_every=check_every)
     spans = tracing.drain()
     assert result.converged and result.iterations > 0
     n = _by_name(spans)
     passes = check_every * math.ceil(result.iterations / check_every)
+    assert tracing.counters()["cg_passes"] - runs == passes
     assert n["cg.solve"] == n["cg.setup"] == n["cg.stats"] == 1
     assert n["cg.matvec"] == n["cg.precond"] == passes
     assert n["cg.update"] == 2 * passes
@@ -146,6 +149,8 @@ def test_counters_count_with_tracing_off():
     assert tracing.drain() == []
     checks = math.ceil(result.iterations / 8) + 1
     assert after["host_syncs"] - before.get("host_syncs", 0) == checks + 1
+    assert after["cg_passes"] - before.get("cg_passes", 0) \
+        == 8 * (checks - 1)
     assert after["plans_made"] - before.get("plans_made", 0) \
         == PLANS_PER_SOLVE
 
